@@ -1,0 +1,103 @@
+"""Plain PyTorch versions of the port's kernels (the correctness oracles).
+
+Each kernel has a ``ref_<name>`` here with the signature of the reference
+oracle of the same name (``repro.kernels.ref``).  The CPU path of every
+wrapper in ``ops.py`` runs these, the tests hold them against the JAX
+package, and ``chip_smoke.py`` holds each CUDA kernel against its plain
+version on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def ref_hetero_fuse_coeffs(
+    preds: torch.Tensor,      # (K, B, T) native predictions of routed slots
+    x_t: torch.Tensor,        # (B, T)
+    weights: torch.Tensor,    # (B, K) fusion weights
+    coef: torch.Tensor,       # (5, K, B) unified coefficient stack
+    *,
+    clamp: float = 20.0,
+    alpha_min: float = 0.01,
+) -> torch.Tensor:
+    """Coefficient-folded convert-and-fuse: per slot
+    ``x̂0 = clip((x − σ·p)/max(α, α_min), ±clamp)``,
+    ``v = (α′·x̂0 + σ′·p)·vscale``, then ``Σ_k w_k v_k`` → ``(B, T)``.
+
+    FM slots carry the identity coefficients (1, 0, 0, 1, 1), under which
+    ``v = 0·x̂0 + 1·p`` — exact pass-through without a flag select.
+    """
+    coef = coef.to(torch.float32)
+    alpha, sigma, dalpha, dsigma, vscale = (coef[i] for i in range(5))
+    a = torch.clamp(alpha, min=alpha_min)[..., None]
+    x0h = (x_t[None] - sigma[..., None] * preds) / a
+    x0h = torch.clamp(x0h, -clamp, clamp)
+    v = (dalpha[..., None] * x0h + dsigma[..., None] * preds) \
+        * vscale[..., None]
+    w = weights.movedim(-1, 0)[..., None]                  # (K, B, 1)
+    return (w * v).sum(dim=0)
+
+
+def ref_hetero_fuse_step(
+    preds: torch.Tensor,      # (K, G, B, T) per-branch routed predictions
+    x_t: torch.Tensor,        # (B, T)
+    weights: torch.Tensor,    # (G, B, K) fusion weights per branch
+    coef: torch.Tensor,       # (5, K, G, B) unified coefficient stack
+    dt: torch.Tensor,         # (1,) shared or (B,) per-row Euler step
+    *,
+    cfg_scale: float = 1.0,
+    clamp: float = 20.0,
+    alpha_min: float = 0.01,
+) -> torch.Tensor:
+    """Step-fused convert + fuse + CFG + Euler.
+
+    Per-branch convert-and-fuse (``ref_hetero_fuse_coeffs`` over the
+    branch-major ``G·B`` batch), the CFG combine ``u_u + s·(u_c − u_u)``
+    (branch 0 = cond, branch 1 = uncond; ``G = 1`` skips it), then
+    ``x − u·dt``.
+    """
+    k, g, b, t = preds.shape
+    fused = ref_hetero_fuse_coeffs(
+        preds.reshape(k, g * b, t),
+        torch.cat([x_t] * g, dim=0),
+        weights.reshape(g * b, k),
+        coef.reshape(5, k, g * b),
+        clamp=clamp, alpha_min=alpha_min,
+    )                                                      # (G·B, T)
+    if g == 1:
+        u = fused
+    else:
+        u = fused[b:] + cfg_scale * (fused[:b] - fused[b:])
+    return x_t - u * dt.to(torch.float32).reshape(-1, 1)
+
+
+def ref_ragged_gemm(
+    x: torch.Tensor,              # (M, D) expert-sorted rows
+    w: torch.Tensor,              # (K, D, F) stacked expert weights
+    tile_experts: torch.Tensor,   # (M // block_m,) expert id per row tile
+    x_scale: torch.Tensor | None = None,   # (M,) per-row act scales
+    w_scale: torch.Tensor | None = None,   # (K,) per-expert weight scales
+) -> torch.Tensor:
+    """Ragged grouped GEMM ``y[r] = x[r] @ w[e(r)]`` in float32.
+
+    ``tile_experts`` carries one expert id per equal-height row tile (the
+    port passes one per row group).  Rows of each expert contract as one
+    float32 matmul against that expert's weight, so memory stays
+    ``O(M·F)``.  Quantized operands (``x_scale``/``w_scale``) are not
+    ported yet.
+    """
+    if x_scale is not None or w_scale is not None:
+        raise NotImplementedError(
+            "quantized ragged GEMM (int8/fp8 body) is not ported yet — "
+            "ROADMAP.md, kernel queue B")
+    m, d = x.shape
+    gm = tile_experts.shape[0]
+    row_e = torch.repeat_interleave(tile_experts.to(torch.int64), m // gm)
+    y = torch.empty((m, w.shape[2]), dtype=torch.float32, device=x.device)
+    x32 = x.to(torch.float32)
+    # the plain version syncs to list the routed experts
+    for e in torch.unique(row_e).tolist():  # lint: allow-host-sync
+        rows = row_e == e
+        y[rows] = x32[rows] @ w[e].to(torch.float32)
+    return y

@@ -1,0 +1,430 @@
+"""Diffusion Transformer expert with PixArt-α AdaLN-Single (paper §2.5).
+
+Port of ``repro.models.dit``: the parameter dict has the reference's keys
+and layout (per-layer leaves stacked ``(L, ...)`` under ``blocks`` and
+``cross_attn``, dense weights ``(in, out)``), so a reference checkpoint
+loads as is (``repro_torch.weights.params_from_numpy``).
+
+Per block (Eqs. 17–19):
+
+    h1 = h  + α_msa ⊙ MSA(LN(h) ⊙ (1+γ_msa) + β_msa)
+    h2 = h1 + CrossAttn(LN(h1), e_text)
+    h' = h2 + α_mlp ⊙ FFN(LN(h2) ⊙ (1+γ_mlp) + β_mlp)
+
+``apply`` is the dense forward (the router, and any single expert);
+``make_ragged_expert_apply`` is the serving forward of the routed
+experts, where every dense layer is one ragged grouped GEMM
+(``kernels.ops.ragged_expert_matmul``) over all routed (sample, slot)
+pairs.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.schedules import to_ddpm_timestep
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.config import DiTConfig
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
+
+
+def sinusoidal_table(num: int, dim: int, device=None) -> torch.Tensor:
+    """Frozen sinusoidal timestep features (the 'learned table' init)."""
+    half = dim // 2
+    ar = torch.arange(half, device=device, dtype=torch.float32)
+    freqs = torch.exp(-math.log(10000.0) * ar / max(half - 1, 1))
+    ang = torch.arange(num, device=device, dtype=torch.float32)[:, None] \
+        * freqs[None]
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/p * W/p, p*p*C)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // p) * (w // p), p * p * c)
+
+
+def unpatchify(x: torch.Tensor, p: int, hw: int, c: int) -> torch.Tensor:
+    b = x.shape[0]
+    g = hw // p
+    x = x.reshape(b, g, g, p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, hw, hw, c)
+
+
+def tree_map(fn: Callable, tree):
+    """Apply ``fn`` to every tensor leaf of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _require_adaln_single(cfg: DiTConfig) -> None:
+    if not cfg.adaln_single:
+        raise NotImplementedError(
+            "adaln_single=False (the per-block adaLN-Zero ablation) is not "
+            "ported yet — ROADMAP.md, module queue A"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init(cfg: DiTConfig, gen: torch.Generator) -> dict:
+    """Random parameters with the reference's structure and init scheme,
+    drawn from ``gen`` on ``gen.device``.
+
+    Zero-init layers (final projection, AdaLN-Single output, cross-attn
+    output) are zero as in the reference (§2.5).
+    """
+    _require_adaln_single(cfg)
+    dev, dt = gen.device, cfg.param_dtype
+    d = cfg.d_model
+    nl = cfg.num_layers
+    in_dim = cfg.patch_size ** 2 * cfg.latent_channels
+    t_feat = 256
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dt)
+
+    def dense_b(i, o):
+        return L.dense_init_b(gen, i, o, device=dev, dtype=dt)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev, dtype=dt)
+
+    def stacked(i, o, bias=False):
+        leaf = {"w": normal(nl, i, o) / math.sqrt(i)}
+        if bias:
+            leaf["b"] = zeros(nl, o)
+        return leaf
+
+    params: dict = {
+        "patch_embed": dense_b(in_dim, d),
+        "pos_embed": {"emb": 0.02 * normal(cfg.num_tokens, d)},
+        "t_embed": {
+            "table": sinusoidal_table(cfg.num_timesteps, t_feat,
+                                      device=dev).to(dt),
+            "mlp1": dense_b(t_feat, d),
+            "mlp2": dense_b(d, d),
+        },
+        "blocks": {
+            "attn": {name: stacked(d, d)
+                     for name in ("wq", "wk", "wv", "wo")},
+            "mlp": {"w1": stacked(d, cfg.d_ff, bias=True),
+                    "w2": stacked(cfg.d_ff, d, bias=True)},
+        },
+        "final_layer": {"mod": {"w": zeros(d, 2 * d)},
+                        "out": {"w": zeros(d, in_dim)}},
+        "adaln_single": {
+            "mlp1": dense_b(d, d),
+            "mlp2": {"w": zeros(d, 6 * d)},
+            "block_embed": normal(nl, 6, d) / math.sqrt(d),
+        },
+    }
+    if cfg.use_text:
+        params["text_proj"] = dense_b(cfg.text_dim, d)
+        params["cross_attn"] = {
+            "wq": stacked(d, d), "wk": stacked(d, d), "wv": stacked(d, d),
+            "wo": {"w": zeros(nl, d, d)},
+        }
+        params["null_text_embed"] = {
+            "emb": 0.02 * normal(cfg.text_len, cfg.text_dim)
+        }
+    if cfg.num_classes:
+        params["cls_head"] = dense_b(d, cfg.num_classes)
+    return params
+
+
+def param_count(params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# Dense apply
+# ---------------------------------------------------------------------------
+
+
+def timestep_embedding(cfg: DiTConfig, params, t: torch.Tensor):
+    """τ(t) via the discrete table + MLP (Eq. 21 runtime mapping)."""
+    idx = to_ddpm_timestep(t, cfg.num_timesteps)
+    feat = params["t_embed"]["table"][idx]
+    h = F.silu(L.dense(params["t_embed"]["mlp1"], feat))
+    return L.dense(params["t_embed"]["mlp2"], h)            # (B, d)
+
+
+def global_modulation(cfg: DiTConfig, params, tau: torch.Tensor):
+    """Eq. 14/15: the global (6, d) modulation broadcast over the L layers
+    as ``(B, L, 6, d)`` (per-layer variation comes from E_b, Eq. 16)."""
+    b = tau.shape[0]
+    h = F.silu(L.dense(params["adaln_single"]["mlp1"], tau))
+    c = L.dense(params["adaln_single"]["mlp2"], h).reshape(b, 1, 6,
+                                                            cfg.d_model)
+    return c.expand(b, cfg.num_layers, 6, cfg.d_model)
+
+
+def _modulate(x, gamma, beta):
+    return x * (1.0 + gamma[:, None]) + beta[:, None]
+
+
+def _layer(tree, layer: int):
+    return tree_map(lambda a: a[layer], tree)
+
+
+def _self_attn(cfg: DiTConfig, p, x):
+    d = cfg.d_model
+    hd = d // cfg.num_heads
+    b, s, _ = x.shape
+    q, k, v = L.gqa_project(p, x, cfg.num_heads, cfg.num_heads, hd)
+    return L.dense(p["wo"], L.attention(q, k, v).reshape(b, s, d))
+
+
+def _cross_attn(cfg: DiTConfig, p, x, text):
+    d = cfg.d_model
+    hd = d // cfg.num_heads
+    b, s, _ = x.shape
+    m = text.shape[1]
+    q = L.dense(p["wq"], x).reshape(b, s, cfg.num_heads, hd)
+    k = L.dense(p["wk"], text).reshape(b, m, cfg.num_heads, hd)
+    v = L.dense(p["wv"], text).reshape(b, m, cfg.num_heads, hd)
+    return L.dense(p["wo"], L.attention(q, k, v).reshape(b, s, d))
+
+
+def apply(cfg: DiTConfig, params, x_t: torch.Tensor, t: torch.Tensor, *,
+          text_emb: torch.Tensor | None = None,
+          drop_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense forward: ε/velocity ``(B, H, W, C)``, or router logits
+    ``(B, num_classes)`` when ``cfg.num_classes``.
+
+    ``text_emb`` ``(B, text_len, text_dim)``; None uses the learned null
+    embedding, and ``drop_mask`` ``(B,)`` rows substitute it.
+    """
+    _require_adaln_single(cfg)
+    b = x_t.shape[0]
+    h = L.dense(params["patch_embed"],
+                patchify(x_t.to(cfg.activation_dtype), cfg.patch_size))
+    h = h + params["pos_embed"]["emb"][None].to(h.dtype)
+    tau = timestep_embedding(cfg, params, t)                  # (B, d)
+
+    text = None
+    if cfg.use_text:
+        null = params["null_text_embed"]["emb"][None].expand(
+            b, cfg.text_len, cfg.text_dim)
+        if text_emb is None:
+            text_emb = null
+        elif drop_mask is not None:
+            text_emb = torch.where(drop_mask[:, None, None], null, text_emb)
+        text = L.dense(params["text_proj"],
+                       text_emb.to(cfg.activation_dtype))
+
+    mods = global_modulation(cfg, params, tau)                # (B, L, 6, d)
+    mods = mods + params["adaln_single"]["block_embed"][None].to(mods.dtype)
+
+    for layer in range(cfg.num_layers):
+        bp = _layer(params["blocks"], layer)
+        mod = mods[:, layer]
+        g_msa, b_msa, a_msa = mod[:, 0], mod[:, 1], mod[:, 2]
+        g_mlp, b_mlp, a_mlp = mod[:, 3], mod[:, 4], mod[:, 5]
+        hn = _modulate(L.layernorm({}, h), g_msa, b_msa)      # Eq. 17
+        h = h + a_msa[:, None] * _self_attn(cfg, bp["attn"], hn)
+        if text is not None:                                  # Eq. 18
+            cp = _layer(params["cross_attn"], layer)
+            h = h + _cross_attn(cfg, cp, L.layernorm({}, h), text)
+        hn = _modulate(L.layernorm({}, h), g_mlp, b_mlp)      # Eq. 19
+        h = h + a_mlp[:, None] * L.gelu_mlp(bp["mlp"], hn)
+
+    if cfg.num_classes:
+        return L.dense(params["cls_head"], h.mean(dim=1))     # router logits
+
+    mod = L.dense(params["final_layer"]["mod"], F.silu(tau))
+    shift, scale = torch.chunk(mod, 2, dim=-1)
+    h = L.layernorm({}, h) * (1.0 + scale[:, None]) + shift[:, None]
+    out = L.dense(params["final_layer"]["out"], h)
+    return unpatchify(out, cfg.patch_size, cfg.latent_size,
+                      cfg.latent_channels).to(torch.float32)
+
+
+def make_expert_apply(cfg: DiTConfig):
+    """Adapter matching the ``ExpertSpec.apply_fn`` signature."""
+
+    def apply_fn(params, x_t, t, **cond):
+        return apply(cfg, params, x_t, t, text_emb=cond.get("text_emb"),
+                     drop_mask=cond.get("drop_mask"))
+
+    return apply_fn
+
+
+def make_router_fn(cfg: DiTConfig, params):
+    """Router posterior p(k | x_t, t) (Eq. 2)."""
+
+    def router_fn(x_t, t):
+        return torch.softmax(apply(cfg, params, x_t, t), dim=-1)
+
+    return router_fn
+
+
+# ---------------------------------------------------------------------------
+# Ragged pair-major apply (the routed serving forward)
+# ---------------------------------------------------------------------------
+
+
+def stack_expert_params(params_list):
+    """Stack K same-architecture expert trees: every leaf gains a leading
+    expert axis ``(K, ...)``."""
+    def rec(nodes):
+        first = nodes[0]
+        if isinstance(first, dict):
+            return {k: rec([n[k] for n in nodes]) for k in first}
+        if isinstance(first, (list, tuple)):
+            return type(first)(rec([n[i] for n in nodes])
+                               for i in range(len(first)))
+        return torch.stack(nodes)
+
+    return rec(list(params_list))
+
+
+def _ragged_dense(leaf: dict, x: torch.Tensor, pe: torch.Tensor):
+    """Per-pair expert dense through the ragged grouped GEMM."""
+    return ops.ragged_expert_matmul(x, leaf["w"], pe, bias=leaf.get("b"))
+
+
+def _layer_view(tree, layer: int):
+    """Slice layer ``layer`` from stacked ``(K, L, ...)`` view leaves."""
+    return tree_map(lambda a: a[:, layer], tree)
+
+
+def make_ragged_expert_apply(cfg: DiTConfig):
+    """Pair-major ragged forward, matching ``ExpertSpec.ragged_apply_fn``.
+
+    Signature ``ragged_apply_fn(view, x_p, t_p, cond_pg, pe, g)``: ``view``
+    is ``DenseStore.ragged_view()`` (leaves ``(K, ...)``); ``x_p``
+    ``(P, H, W, C)`` one latent per routed (sample, slot) pair; ``t_p``
+    ``(P,)``; ``cond_pg`` leaves ``(P, g, ...)``; ``pe`` ``(P,)`` expert id
+    per pair.  Returns ``(P·g, H, W, C)`` float32, pair-major (the ``g``
+    replicas of a pair adjacent).
+
+    The ``g`` CFG replicas of a pair share latent, timestep and expert, so
+    the conditioning-independent prefix (embeddings, timestep path,
+    modulations and the layer-0 self-attention, which precedes the first
+    cross-attention) runs once per pair and broadcasts to the replicas.
+    """
+    if cfg.num_classes:
+        raise ValueError(
+            "ragged apply serves expert prediction only; the router head "
+            "(num_classes > 0) goes through the dense apply"
+        )
+    _require_adaln_single(cfg)
+
+    def ragged_apply(view, x_p, t_p, cond, pe, g):
+        p_pairs = x_p.shape[0]
+        d = cfg.d_model
+        hd = d // cfg.num_heads
+        ps = cfg.patch_size
+
+        def pd(leaf, x):
+            return _ragged_dense(leaf, x, pe)
+
+        xp = patchify(x_p.to(cfg.activation_dtype), ps)
+        h_r = pd(view["patch_embed"], xp)                  # (P, T, d)
+        h_r = h_r + view["pos_embed"]["emb"][pe].to(h_r.dtype)
+
+        # Timestep path — replicas share t, so one row per pair.
+        idx = to_ddpm_timestep(t_p, cfg.num_timesteps)
+        feat = view["t_embed"]["table"][pe, idx]
+        ht = F.silu(pd(view["t_embed"]["mlp1"], feat))
+        tau = pd(view["t_embed"]["mlp2"], ht)              # (P, d)
+
+        hm = F.silu(pd(view["adaln_single"]["mlp1"], tau))
+        c = pd(view["adaln_single"]["mlp2"], hm).reshape(p_pairs, 1, 6, d)
+        mods = c.expand(p_pairs, cfg.num_layers, 6, d)
+        mods = mods + view["adaln_single"]["block_embed"][pe].to(mods.dtype)
+        mods = mods.movedim(1, 0)                          # (L, P, 6, d)
+
+        def self_attn(bp, h, mod):
+            # h: (P, T, d) prefix or (P, g, T, d) expanded; mod (P, 6, d)
+            nb = h.dim() - 2
+            ex = (slice(None),) + (None,) * (nb - 1) + (None,)
+            g_msa, b_msa, a_msa = mod[:, 0], mod[:, 1], mod[:, 2]
+            hn = L.layernorm({}, h) * (1.0 + g_msa[ex]) + b_msa[ex]
+            t_tok = hn.shape[-2]
+            q = pd(bp["attn"]["wq"], hn).reshape(-1, t_tok, cfg.num_heads,
+                                                 hd)
+            k = pd(bp["attn"]["wk"], hn).reshape(-1, t_tok, cfg.num_heads,
+                                                 hd)
+            v = pd(bp["attn"]["wv"], hn).reshape(-1, t_tok, cfg.num_heads,
+                                                 hd)
+            att = pd(bp["attn"]["wo"], L.attention(q, k, v).reshape(h.shape))
+            return h + a_msa[ex] * att
+
+        # Prefix: layer-0 self-attention on the per-pair representative —
+        # exact because cross-attention (the first conditioning-dependent
+        # op) runs after self-attention within a block (Eqs. 17→18).
+        h_r = self_attn(_layer_view(view["blocks"], 0), h_r, mods[0])
+        # Expand to the replicas: a broadcast, no recompute.
+        h = h_r[:, None].expand((p_pairs, g) + tuple(h_r.shape[1:]))
+
+        text = None
+        if cfg.use_text:
+            nulle = view["null_text_embed"]["emb"][pe]     # (P, Lt, Dt)
+            text_emb = cond.get("text_emb")
+            if text_emb is None:
+                text_emb = nulle[:, None].expand(
+                    (p_pairs, g) + tuple(nulle.shape[1:]))
+            else:
+                drop = cond.get("drop_mask")
+                if drop is not None:
+                    text_emb = torch.where(drop[..., None, None],
+                                           nulle[:, None], text_emb)
+            text = pd(view["text_proj"], text_emb.to(cfg.activation_dtype))
+            t_txt = text.shape[-2]
+
+        for layer in range(cfg.num_layers):
+            bp = _layer_view(view["blocks"], layer)
+            mod = mods[layer]
+            g_mlp, b_mlp, a_mlp = mod[:, 3], mod[:, 4], mod[:, 5]
+            if layer > 0:
+                h = self_attn(bp, h, mod)                  # Eq. 17
+            if text is not None:                           # Eq. 18
+                cp = _layer_view(view["cross_attn"], layer)
+                t_tok = h.shape[-2]
+                hn = L.layernorm({}, h)
+                q = pd(cp["wq"], hn).reshape(-1, t_tok, cfg.num_heads, hd)
+                k = pd(cp["wk"], text).reshape(-1, t_txt, cfg.num_heads, hd)
+                v = pd(cp["wv"], text).reshape(-1, t_txt, cfg.num_heads, hd)
+                h = h + pd(cp["wo"], L.attention(q, k, v).reshape(h.shape))
+            hn = L.layernorm({}, h) * (1.0 + g_mlp[:, None, None]) \
+                + b_mlp[:, None, None]                     # Eq. 19
+            hmid = L.gelu(pd(bp["mlp"]["w1"], hn))
+            h = h + a_mlp[:, None, None] * pd(bp["mlp"]["w2"], hmid)
+
+        mod = pd(view["final_layer"]["mod"], F.silu(tau))
+        shift, scale = torch.chunk(mod, 2, dim=-1)
+        h = L.layernorm({}, h) * (1.0 + scale[:, None, None]) \
+            + shift[:, None, None]
+        out = pd(view["final_layer"]["out"], h)
+        out = out.reshape((p_pairs * g,) + tuple(out.shape[2:]))
+        return unpatchify(out, ps, cfg.latent_size,
+                          cfg.latent_channels).to(torch.float32)
+
+    return ragged_apply

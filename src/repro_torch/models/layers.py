@@ -1,0 +1,96 @@
+"""Neural-net primitives of the DiT, as plain functions on tensors.
+
+Parameters are dicts of tensors in the reference layout: a dense weight is
+``(in, out)`` (not ``nn.Linear``'s ``(out, in)``), so checkpoints of the
+JAX package load without transposes.  Attention is non-causal and
+unmasked, with the semantics of the reference's ``chunked_attention`` on
+the DiT path: a float32 ``QKᵀ`` scaled by ``1/sqrt(head_dim)``, softmax
+over keys, then ``PV``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis with population variance; affine only
+    when ``params`` carries ``scale``/``bias`` (the DiT passes ``{}``)."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    if "scale" in params:
+        y = y * params["scale"].to(torch.float32) + params["bias"].to(
+            torch.float32)
+    return y.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return dense(params["w2"], gelu(dense(params["w1"], x)))
+
+
+def gqa_project(params: dict, x: torch.Tensor, num_heads: int,
+                num_kv_heads: int, head_dim: int):
+    b, s, _ = x.shape
+    q = dense(params["wq"], x).reshape(b, s, num_heads, head_dim)
+    k = dense(params["wk"], x).reshape(b, s, num_kv_heads, head_dim)
+    v = dense(params["wv"], x).reshape(b, s, num_kv_heads, head_dim)
+    return q, k, v
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              softmax_scale: float | None = None) -> torch.Tensor:
+    """Non-causal, unmasked attention.
+
+    ``q``: ``(B, Sq, H, D)``; ``k``/``v``: ``(B, Skv, H, D)`` (equal head
+    counts — the DiT has no GQA).  Returns ``(B, Sq, H, D)`` in ``q``'s
+    dtype.
+    """
+    d = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    qh = q.to(torch.float32).transpose(1, 2)               # (B, H, Sq, D)
+    kh = k.to(torch.float32).transpose(1, 2)
+    vh = v.to(torch.float32).transpose(1, 2)
+    logits = (qh @ kh.transpose(-1, -2)) * scale           # (B, H, Sq, Skv)
+    p = torch.softmax(logits, dim=-1)
+    out = p @ vh                                           # (B, H, Sq, D)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Initializers (``torch.Generator``-seeded; the port's own random init)
+# ---------------------------------------------------------------------------
+
+
+def _normal(shape, gen: torch.Generator, device, dtype) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32).to(dtype)
+
+
+def dense_init(gen, in_dim: int, out_dim: int, *, device, dtype,
+               scale: float | None = None) -> dict:
+    scale = (1.0 / math.sqrt(in_dim)) if scale is None else scale
+    return {"w": _normal((in_dim, out_dim), gen, device, dtype) * scale}
+
+
+def dense_init_b(gen, in_dim: int, out_dim: int, *, device, dtype) -> dict:
+    p = dense_init(gen, in_dim, out_dim, device=device, dtype=dtype)
+    p["b"] = torch.zeros((out_dim,), device=device, dtype=dtype)
+    return p

@@ -1,0 +1,169 @@
+"""Parity of the port's kernel modules (plain versions, on the CPU) with
+the JAX package's kernels.
+
+The same numpy inputs, drawn from a seed, go through the JAX kernel (in
+Pallas interpret mode, or through its CPU wrapper) and through the port's
+plain PyTorch version.  The CUDA kernels themselves are held against
+these plain versions on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``).
+
+Tolerances:
+
+* ragged GEMM — float32 products whose summation order differs between
+  XLA and PyTorch: ``rtol = atol = 1e-5``;
+* step kernel — elementwise float32 with a K-term sum, where the CFG
+  combine ``u_u + 7.5·(u_c − u_u)`` amplifies rounding of the two
+  branches (XLA may contract ``a·b + c`` into one FMA, PyTorch on the CPU
+  does not): ``max |Δ| ≤ 1e-6 · max |out|``, relative to the output's
+  scale.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.hetero_fuse import hetero_fuse_step as j_hetero_fuse_step
+from repro.kernels.ragged_gemm import ragged_gemm as j_ragged_gemm
+from repro_torch.kernels import ops, ref
+
+GEMM_TOL = dict(rtol=1e-5, atol=1e-5)
+STEP_REL = 1e-6
+
+
+def assert_step_close(got, want):
+    err = np.abs(got - want).max()
+    assert err <= STEP_REL * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("m,d,f,experts", [
+    (16, 32, 128, [0, 0, 2, 2, 3]),       # expert 1 empty
+    (8, 48, 256, [1, 1, 1, 0]),
+    (32, 16, 128, [3, 0, 2, 1, 2, 0]),
+])
+def test_ref_ragged_gemm_matches_jax_kernel(m, d, f, experts):
+    rng = np.random.default_rng(m * 7 + d)
+    k = 4
+    pe = np.asarray(experts, np.int32)
+    x = rng.standard_normal((len(pe) * m, d)).astype(np.float32)
+    w = rng.standard_normal((k, d, f)).astype(np.float32)
+    want_kernel = np.asarray(j_ragged_gemm(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(pe),
+        block_m=m, block_f=128, interpret=True))
+    want_ref = np.asarray(jref.ref_ragged_gemm(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(pe)))
+    got = ref.ref_ragged_gemm(_t(x), _t(w), _t(pe)).numpy()
+    np.testing.assert_allclose(got, want_kernel, **GEMM_TOL)
+    np.testing.assert_allclose(got, want_ref, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("mids", [(), (2, 7), (16, 16)],
+                         ids=["m1", "m14_text_like", "m256"])
+def test_ragged_expert_matmul_matches_jax_ops(mids):
+    """Every group width goes through the same path: m = 1 (timestep and
+    modulation MLPs), a non-multiple of 8 (CFG-doubled text rows) and a
+    token-wide group."""
+    rng = np.random.default_rng(len(mids) + 3)
+    k, p, d, f = 5, 6, 24, 40
+    x = rng.standard_normal((p,) + mids + (d,)).astype(np.float32)
+    w = rng.standard_normal((k, d, f)).astype(np.float32)
+    b = rng.standard_normal((k, f)).astype(np.float32)
+    pe = np.asarray([4, 0, 0, 2, 4, 1], np.int32)
+    want = np.asarray(jops.ragged_expert_matmul(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(pe), bias=jnp.asarray(b)))
+    got = ops.ragged_expert_matmul(_t(x), _t(w), _t(pe), bias=_t(b))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **GEMM_TOL)
+
+
+def test_ragged_expert_matmul_takes_a_strided_expert_axis():
+    """One layer of a ``(K, L, D, F)`` stack is a strided ``(K, D, F)``
+    view — what the DiT's ragged forward hands the wrapper."""
+    rng = np.random.default_rng(5)
+    stack = _t(rng.standard_normal((3, 2, 8, 12)).astype(np.float32))
+    x = _t(rng.standard_normal((4, 5, 8)).astype(np.float32))
+    pe = torch.tensor([2, 0, 1, 2])
+    got = ops.ragged_expert_matmul(x, stack[:, 1], pe)
+    want = torch.stack([x[i] @ stack[pe[i], 1] for i in range(4)])
+    torch.testing.assert_close(got, want, **GEMM_TOL)
+
+
+def _step_inputs(g, per_row_dt, seed=0):
+    rng = np.random.default_rng(seed + 10 * g + per_row_dt)
+    k, b, t = 2, 3, 256
+    preds = (4.0 * rng.standard_normal((k, g, b, t))).astype(np.float32)
+    x = (3.0 * rng.standard_normal((b, t))).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, (g, b, k)).astype(np.float32)
+    w /= w.sum(-1, keepdims=True)
+    coef = rng.uniform(-1.5, 1.5, (5, k, g, b)).astype(np.float32)
+    coef[0, 0] = 0.001            # alpha below alpha_min: the safe floor
+    coef[1, 0] = 1.0              # with x/alpha large: the ±clamp bites
+    coef[:, 1] = np.array([1, 0, 0, 1, 1], np.float32)[:, None, None]  # FM
+    dt = (rng.uniform(0.01, 0.2, (b,)) if per_row_dt
+          else np.array([0.125])).astype(np.float32)
+    return preds, x, w, coef, dt
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("per_row_dt", [False, True], ids=["dt1", "dtB"])
+def test_ref_hetero_fuse_step_matches_jax_kernel(g, per_row_dt):
+    preds, x, w, coef, dt = _step_inputs(g, per_row_dt)
+    kw = dict(cfg_scale=7.5, clamp=20.0, alpha_min=0.01)
+    want = np.asarray(j_hetero_fuse_step(
+        *(jnp.asarray(a) for a in (preds, x, w, coef, dt)),
+        interpret=True, **kw))
+    got = ref.ref_hetero_fuse_step(
+        *(_t(a) for a in (preds, x, w, coef, dt)), **kw).numpy()
+    # the clamp is exercised, not vacuous
+    x0 = (x[None] - coef[1, 0, :, :, None] * preds[0]) / 0.01
+    assert (np.abs(x0) > 20.0).any()
+    assert_step_close(got, want)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_fused_step_matches_jax_ops(g):
+    """The wrapper's latent reshapes around the step kernel: ``(K, G·B,
+    H, W, C)`` predictions and a 0-d ``dt``."""
+    rng = np.random.default_rng(g)
+    k, b, lat = 2, 4, (4, 4, 4)
+    preds = rng.standard_normal((k, g * b) + lat).astype(np.float32)
+    x = rng.standard_normal((b,) + lat).astype(np.float32)
+    w = rng.uniform(0, 1, (g * b, k)).astype(np.float32)
+    coef = rng.uniform(0.05, 1.5, (5, k, g * b)).astype(np.float32)
+    kw = dict(g=g, cfg_scale=7.5 if g == 2 else 1.0, clamp=20.0,
+              alpha_min=0.01)
+    want = np.asarray(jops.fused_step(
+        jnp.asarray(preds), jnp.asarray(x), jnp.asarray(w),
+        jnp.asarray(coef), jnp.float32(0.25), **kw))
+    got = ops.fused_step(_t(preds), _t(x), _t(w), _t(coef),
+                         torch.tensor(0.25), **kw)
+    assert got.shape == x.shape
+    assert_step_close(got.numpy(), want)
+
+
+def test_cpu_wrappers_launch_no_kernel():
+    """On CPU tensors the wrappers run the plain versions: no launch."""
+    ops.reset_launches()
+    x = torch.randn(2, 3, 4)
+    ops.ragged_expert_matmul(x, torch.randn(2, 4, 5), torch.tensor([0, 1]))
+    ops.fused_step(torch.randn(1, 2, 3), torch.randn(2, 3),
+                   torch.ones(2, 1), torch.ones(5, 1, 2), torch.tensor(0.1),
+                   g=1)
+    assert ops.LAUNCHES == {"ragged_gemm": 0, "hetero_fuse_step": 0}
+
+
+def test_quantized_weights_raise_not_implemented():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ragged_expert_matmul(torch.randn(1, 2, 4),
+                                 torch.zeros(1, 4, 3, dtype=torch.int8),
+                                 torch.tensor([0]),
+                                 w_scale=torch.ones(1))

@@ -1,0 +1,205 @@
+"""The port's serving engine against the JAX package's, on the CPU.
+
+Both engines load the same directory — eight jittered reduced DiT experts
+(2 DDPM/cosine + 6 FM/linear, the paper's heterogeneous mix) and a router,
+written by the JAX package's ``save_checkpoint`` — and serve the same
+request: the same text embeddings and the exact noise the JAX engine draws
+(``jax.random.normal(key, shape)``, handed to the port with ``noise=``).
+Top-2 routing, CFG 7.5, batch 4, 4 Euler steps.
+
+Tolerance: ``max |Δ| ≤ 1e-4 · max |latent|``.  Every step sums float32
+GEMMs in another order than XLA, CFG 7.5 amplifies the difference of the
+two branches, and four steps compound it (observed ~1e-5).
+
+Also here: the engine's checkpoint-directory errors, its statistics and
+device rule, and the isolation of ``repro_torch`` from JAX.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.sampling import SamplerConfig as JSamplerConfig
+from repro.launch.serve import ServingEngine as JServingEngine
+from repro.models.config import dit_b2 as j_dit_b2
+from repro.models.config import router_b2 as j_router_b2
+from repro.training import checkpoint as jckpt
+from repro_torch.core.sampling import SamplerConfig
+from repro_torch.launch.serve import ServingEngine
+from repro_torch.models import dit as D
+from repro_torch.models.config import dit_b2, router_b2
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SLICE_REL = 1e-4
+BATCH, STEPS = 4, 4
+MIX = [("ddpm", "cosine")] * 2 + [("fm", "linear")] * 6
+
+
+def _numpy_params(cfg, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return D.tree_map(
+        lambda a: (a + 0.02 * torch.randn(a.shape, generator=gen)).numpy(),
+        D.init(cfg, gen))
+
+
+def _write_ensemble(path, cfg, rcfg, mix=MIX, cluster_ids=None):
+    cluster_ids = range(len(mix)) if cluster_ids is None else cluster_ids
+    for i, (cid, (obj, sched)) in enumerate(zip(cluster_ids, mix)):
+        jckpt.save_checkpoint(
+            os.path.join(path, f"expert{i}.npz"), _numpy_params(cfg, i),
+            metadata=jckpt.expert_metadata(
+                name=f"e{cid}", objective=obj, schedule=sched,
+                cluster_id=cid, arch=cfg.name))
+    jckpt.save_checkpoint(os.path.join(path, "router.npz"),
+                          _numpy_params(rcfg, 99), metadata={})
+
+
+@pytest.fixture(scope="module")
+def ensemble(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("ensemble"))
+    cfg = dit_b2().reduced(latent_size=8)
+    _write_ensemble(path, cfg, router_b2(num_clusters=8).reduced(
+        latent_size=8))
+    text = np.random.default_rng(0).standard_normal(
+        (BATCH, cfg.text_len, cfg.text_dim)).astype(np.float32)
+    jengs = {
+        scale: JServingEngine.from_checkpoint_dir(
+            path, dit_cfg=j_dit_b2().reduced(latent_size=8),
+            router_cfg=j_router_b2(num_clusters=8).reduced(latent_size=8),
+            sampler=JSamplerConfig(num_steps=STEPS, cfg_scale=scale,
+                                   top_k=2))
+        for scale in (7.5, 1.0)
+    }
+    return dict(path=path, cfg=cfg, text=text, jengs=jengs)
+
+
+def _port_engine(path, cfg_scale=7.5, **kw):
+    return ServingEngine.from_checkpoint_dir(
+        path, dit_cfg=dit_b2().reduced(latent_size=8),
+        router_cfg=router_b2(num_clusters=8).reduced(latent_size=8),
+        sampler=SamplerConfig(num_steps=STEPS, cfg_scale=cfg_scale,
+                              top_k=2),
+        device="cpu", **kw)
+
+
+def _jax_noise(key):
+    return np.asarray(jax.random.normal(key, (BATCH, 8, 8, 4),
+                                        dtype=jnp.float32))
+
+
+@pytest.mark.parametrize("with_text,cfg_scale", [
+    (True, 7.5), (True, 1.0), (False, 7.5)],
+    ids=["cfg7.5_g2", "cfg1_g1", "uncond_g1"])
+def test_generate_matches_jax_engine(ensemble, with_text, cfg_scale):
+    """Batched CFG (``g = 2``), and the single-branch path (``g = 1``)
+    both with text at ``cfg_scale = 1`` and without text."""
+    key = jax.random.PRNGKey(7)
+    text = ensemble["text"] if with_text else None
+    want = np.asarray(ensemble["jengs"][cfg_scale].generate(key, text,
+                                                            BATCH))
+    eng = _port_engine(ensemble["path"], cfg_scale=cfg_scale)
+    got = eng.generate(0, text, BATCH, noise=_jax_noise(key)).numpy()
+    assert got.shape == want.shape == (BATCH, 8, 8, 4)
+    assert np.isfinite(got).all()
+    err = np.abs(got - want).max()
+    assert err <= SLICE_REL * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def test_engine_orders_experts_and_counts(ensemble):
+    eng = _port_engine(ensemble["path"])
+    assert [e.cluster_id for e in eng.experts] == list(range(8))
+    assert [e.objective for e in eng.experts] == [o for o, _ in MIX]
+    text = ensemble["text"]
+    a = eng.generate(1, text, BATCH)
+    b = eng.generate(torch.Generator().manual_seed(1), text.copy(), BATCH)
+    c = eng.generate(2, text, BATCH)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert eng.stats == {"requests": 3, "cond_cache_hits": 2,
+                         "cond_cache_misses": 1,
+                         "plan_refreshes": 3 * STEPS}
+
+
+def test_default_device_is_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine.from_checkpoint_dir(REPO, dit_cfg=dit_b2())
+
+
+def test_checkpoint_dir_errors(tmp_path):
+    cfg = dit_b2().reduced(latent_size=8)
+    rcfg = router_b2(num_clusters=2).reduced(latent_size=8)
+    mix = [("fm", "linear")] * 2
+    with pytest.raises(FileNotFoundError, match="no expert"):
+        _port_engine(str(tmp_path))
+    dup = tmp_path / "dup"
+    _write_ensemble(str(dup), cfg, rcfg, mix, cluster_ids=[1, 1])
+    with pytest.raises(ValueError, match="duplicate cluster_id 1"):
+        _port_engine(str(dup))
+    hole = tmp_path / "hole"
+    _write_ensemble(str(hole), cfg, rcfg, mix, cluster_ids=[0, 2])
+    with pytest.raises(ValueError, match=r"missing \[1\]"):
+        _port_engine(str(hole))
+    nometa = tmp_path / "nometa"
+    nometa.mkdir()
+    jckpt.save_checkpoint(str(nometa / "expert0.npz"),
+                          _numpy_params(cfg, 0), metadata={"cluster_id": 0})
+    with pytest.raises(ValueError, match="missing 'objective'"):
+        _port_engine(str(nometa))
+    # numeric, not lexicographic, order: file expert10 holds cluster 0
+    order = tmp_path / "order"
+    order.mkdir()
+    for name, cid in (("expert10.npz", 0), ("expert2.npz", 1)):
+        jckpt.save_checkpoint(
+            str(order / name), _numpy_params(cfg, cid),
+            metadata=jckpt.expert_metadata(
+                name=name, objective="fm", schedule="linear", cluster_id=cid,
+                arch=cfg.name))
+    eng = _port_engine(str(order))
+    assert [e.name for e in eng.experts] == ["expert10.npz", "expert2.npz"]
+
+
+def test_import_pulls_in_neither_jax_nor_the_reference():
+    modules = ["repro_torch.launch.serve", "repro_torch.weights",
+               "repro_torch.kernels.ops", "repro_torch.kernels._build"]
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in modules)
+        + "bad = [m for m in sys.modules if m == 'jax' or "
+          "m.startswith('jax.') or m == 'repro' or "
+          "m.startswith('repro.')]\n"
+          "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_modules(path):
+    with open(path, encoding="utf-8") as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_sources_import_neither_jax_nor_the_reference():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "src", "repro_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 15
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
