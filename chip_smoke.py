@@ -10,21 +10,32 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (all
    ``nvcc`` processes at once) and prints the build seconds;
 3. holds each kernel against its plain PyTorch version on the card, at
-   the shapes of the serving main path, and times kernel, plain version
-   and one PyTorch library call doing the same function (device time of
-   calls replayed from a CUDA graph, except the ragged GEMM's plain
-   version, which syncs; ``wrapper_ms`` adds the host's cost per call);
-4. serves the full-width heterogeneous DiT-B/2 ensemble — 8 random,
+   the shapes of the serving main paths, and times kernel, plain version
+   and one PyTorch library call doing the same function where there is
+   one (device time of calls replayed from a CUDA graph, except the
+   ragged GEMM's plain version, which syncs; ``wrapper_ms`` adds the
+   host's cost per call): the ragged GEMM's float32, bf16-weight, int8
+   and fp8 bodies, the step kernel, the velocity kernel and the dequant
+   kernel;
+4. loads the full-width heterogeneous DiT-B/2 ensemble — 8 random,
    seeded experts (2 DDPM/cosine + 6 FM/linear) and a router, written to
-   checkpoints and loaded with ``ServingEngine.from_checkpoint_dir`` — for
-   two requests of batch 8 with CFG 7.5, top-2, 8 steps; the kernel launch
-   counters must show every dense layer and every step went through the
-   kernels;
-5. serves one more such request under ``torch.profiler`` and prints where
-   its device time goes (by kernel and by category) and the device's idle
-   share;
+   checkpoints and loaded once with ``ServingEngine.from_checkpoint_dir``
+   — and serves two batch-8, CFG-7.5, top-2, 8-step requests on each
+   path: the native store (the first slice's path), ``bf16``, ``int8``
+   and ``fp8`` stores, and the native store on the unfused step path
+   (``step_fused=False``), whose latents must equal the fused ones
+   bitwise.  Each path's kernel launch counts, computed from the config,
+   must match exactly.  Each path prints its store's bytes and its
+   engine's device memory once built, at its build peak and at its
+   serving peak, all net of the engines still resident from other paths;
+5. serves one more native and one more int8 request under
+   ``torch.profiler`` and prints where their device time goes (by kernel
+   and by category) and the device's idle share;
 6. runs the same engine code at a reduced width on the GPU and on the CPU
-   (plain versions) and compares the latents.
+   (plain versions): native, bf16, unfused and two-pass CFG compare their
+   latents; int8 and fp8 replay every GEMM and dequant call of the GPU
+   request on the CPU with the same inputs (their latents' spread is
+   printed beside the CPU run's own under a 2-ulp change of its noise).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It imports nothing of JAX or of the JAX package.
@@ -32,6 +43,8 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -47,22 +60,32 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and dense
-# float32 outside the tensor cores (TF32 is excluded by design).
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, dense
+# float32 outside the tensor cores (TF32 is excluded by design), and the
+# dense int8/fp8 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+INT8_OP_PER_S = 1979e12
+FP8_FLOP_PER_S = 1979e12
 
 GEMM_REL_TOL = 1e-5        # float32 sums in another order than ATen
 STEP_REL_TOL = 1e-6        # no FMA contraction: same op order as plain
 E2E_REL_TOL = 1e-4         # latents after 8 CFG-7.5 steps, GPU vs CPU
+#: GPU vs CPU latents of the bf16 store: the GPU sums float32 in another
+#: order, which can flip the rounding of one bf16 value (1/256) in the
+#: bf16 timestep path.
+E2E_BF16_REL_TOL = 5e-3
 
 STEPS, BATCH, REQUESTS = 8, 8, 2
 MIX = [("ddpm", "cosine")] * 2 + [("fm", "linear")] * 6
 
 #: device kernel-name fragments -> category of the profile, first match wins.
 CATEGORIES = (
+    ("ragged_gemm_int8", "ragged_gemm int8 body"),
     ("ragged_gemm", "ragged_gemm (experts' dense layers)"),
     ("hetero_fuse_step", "hetero_fuse_step"),
+    ("hetero_fuse_coeffs", "hetero_fuse_coeffs"),
+    ("hetero_fuse_dequant", "hetero_fuse_dequant"),
     ("gemm", "cuBLAS GEMM (router dense, attention QK/PV)"),
     ("softmax", "softmax"),
     ("reduce", "reductions (LayerNorm, sums)"),
@@ -115,10 +138,16 @@ def graph_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """``(max |got − want|, max |want|)`` as floats."""
+    return ((got - want).abs().max().item(), want.abs().max().item())
 
 
 # ---------------------------------------------------------------------------
@@ -126,35 +155,39 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
+#: 16 row groups (8 samples × top-2) over 8 experts, 4, 6 and 7 empty.
+GROUP_EXPERTS = [0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 5, 5, 5, 5]
+
+
 def check_ragged_gemm(ops, ref, dev) -> dict:
-    """The ragged GEMM at the main path's row-group widths; 16 groups
-    (8 samples × top-2) over 8 experts, experts 4, 6 and 7 empty.  The
-    last case passes its weight as the main path does: layer 5 of a
-    ``(K, L, D, F)`` stack, a strided view."""
-    pe = torch.tensor([0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 5, 5, 5, 5],
-                      dtype=torch.int32, device=dev)
-    cases = [(512, 768, 3072, 0), (512, 3072, 768, 0), (256, 768, 3072, 0),
-             (256, 3072, 768, 0), (154, 768, 768, 0), (1, 768, 4608, 0),
-             (512, 768, 3072, 12)]
+    """The dense body at the main path's row-group widths.  The last two
+    cases pass their weight as the main path does: layer 5 of a
+    ``(K, L, D, F)`` stack, a strided view — float32, then bf16 (a bf16
+    store)."""
+    pe = torch.tensor(GROUP_EXPERTS, dtype=torch.int32, device=dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(512, 768, 3072, 0, f32), (512, 3072, 768, 0, f32),
+             (256, 768, 3072, 0, f32), (256, 3072, 768, 0, f32),
+             (154, 768, 768, 0, f32), (1, 768, 4608, 0, f32),
+             (512, 768, 3072, 12, f32), (512, 768, 3072, 12, bf16)]
     gen = torch.Generator(device=dev).manual_seed(3)
     rows, worst = [], 0.0
-    for m, d, f, layers in cases:
+    for m, d, f, layers, wdtype in cases:
         p = pe.shape[0]
         x = torch.randn(p, m, d, generator=gen, device=dev)
         if layers:
             stack = torch.randn(8, layers, d, f, generator=gen,
                                 device=dev) / math.sqrt(d)
-            w = stack[:, 5]
+            w = stack.to(wdtype)[:, 5]
         else:
             w = torch.randn(8, d, f, generator=gen, device=dev) / math.sqrt(d)
         got = ops.ragged_expert_matmul(x, w, pe)
         plain = ref.ref_ragged_gemm(x.reshape(p * m, d), w, pe).reshape(
             p, m, f)
         torch.cuda.synchronize()
-        err = (got - plain).abs().max().item()
-        scale = plain.abs().max().item()
+        err, scale = rel_err(got, plain)
         ok = bool(torch.isfinite(got).all()) and err <= GEMM_REL_TOL * scale
-        wg = w[pe.long()]                  # gathered outside the timing
+        wg = w[pe.long()].float()          # gathered outside the timing
         xg = x.contiguous()
         t_k = graph_ms(lambda: ops.ragged_expert_matmul(x, w, pe))
         t_w = cuda_ms(lambda: ops.ragged_expert_matmul(x, w, pe))
@@ -164,9 +197,11 @@ def check_ragged_gemm(ops, ref, dev) -> dict:
         t_l = graph_ms(lambda: torch.bmm(xg, wg))
         n_exp = len(set(pe.tolist()))
         flops = 2.0 * p * m * d * f
-        nbytes = 4.0 * (p * m * d + n_exp * d * f + p * m * f + p)
+        nbytes = (4.0 * (p * m * d + p * m * f + p)
+                  + w.element_size() * n_exp * d * f)
         t_b, by = bound_ms(nbytes, flops)
         row = dict(m=m, D=d, F=f, layer_view=bool(layers),
+                   weights=str(wdtype).replace("torch.", ""),
                    max_abs_err=err, tol=GEMM_REL_TOL * scale,
                    ms=t_k, wrapper_ms=t_w, plain_ms=t_p, library_ms=t_l,
                    bound_ms=t_b, bound_by=by, tflops=flops / t_k / 1e9)
@@ -176,6 +211,89 @@ def check_ragged_gemm(ops, ref, dev) -> dict:
         worst = max(worst, err)
         rows.append(row)
     main = rows[0]                          # the MLP up-projection shape
+    return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"])
+
+
+def _library_quant_mm(xq, wq, pe, m, fp8: bool):
+    """One PyTorch call per row group computing the quantized product:
+    ``torch._int_mm`` (int8, int32 out) or ``torch._scaled_mm`` (e4m3,
+    unit tensor-wise scales, float32 out), weights pre-laid out
+    column-major outside the timing.  ``None`` (with the reason printed)
+    where this PyTorch refuses the call."""
+    cols = {e: wq[e].t().contiguous().t() for e in set(pe.tolist())}
+    one = torch.ones((), device=xq.device)
+    groups = [(xq[i * m:(i + 1) * m], cols[e])
+              for i, e in enumerate(pe.tolist())]
+
+    def run():
+        for a, b in groups:
+            if fp8:
+                torch._scaled_mm(a, b, one, one, out_dtype=torch.float32)
+            else:
+                torch._int_mm(a, b)
+
+    try:
+        run()
+        return graph_ms(run)
+    except RuntimeError as exc:                  # a yardstick only
+        print(f"library yardstick unavailable: {str(exc).splitlines()[0]}")
+        return None
+
+
+def check_ragged_gemm_quant(ops, ref, dev, qdtype) -> dict:
+    """The int8 or fp8 body at the main path's tiled widths, on
+    activations quantized as the wrapper does; the last case takes layer
+    5 of a ``(K, L, D, F)`` quantized stack.  int8 must be bitwise equal to
+    its plain version (exact integer sums, same epilogue), fp8 within
+    ``1e-5 · max|plain|``."""
+    from repro_torch.kernels.ragged_gemm import ragged_gemm
+
+    fp8 = qdtype == torch.float8_e4m3fn
+    name = "ragged_gemm_fp8" if fp8 else "ragged_gemm_int8"
+    pe = torch.tensor(GROUP_EXPERTS, dtype=torch.int32, device=dev)
+    p = pe.shape[0]
+    cases = [(512, 768, 3072, 0), (512, 3072, 768, 0), (256, 768, 3072, 0),
+             (512, 768, 3072, 12)]
+    gen = torch.Generator(device=dev).manual_seed(5 + fp8)
+    rows, worst = [], 0.0
+    for m, d, f, layers in cases:
+        x = torch.randn(p * m, d, generator=gen, device=dev)
+        w32 = torch.randn(8, max(layers, 1), d, f, generator=gen,
+                          device=dev) / math.sqrt(d)
+        wq, ws = ops.quantize_rows(w32.reshape(8, -1), qdtype)
+        wq = wq.reshape(w32.shape)[:, 5 if layers else 0]
+        xq, xs = ops.quantize_rows(x, qdtype)
+        got = ragged_gemm(xq, wq, pe, m, xs, ws)
+        plain = ref.ref_ragged_gemm(xq, wq, pe, xs, ws)
+        torch.cuda.synchronize()
+        err, scale = rel_err(got, plain)
+        tol = 0.0 if not fp8 else GEMM_REL_TOL * scale
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        t_k = graph_ms(lambda: ragged_gemm(xq, wq, pe, m, xs, ws))
+        xw = x.reshape(p, m, d)
+        t_w = cuda_ms(lambda: ops.ragged_expert_matmul(xw, wq, pe,
+                                                        w_scale=ws))
+        t_p = cuda_ms(lambda: ref.ref_ragged_gemm(xq, wq, pe, xs, ws),
+                      iters=5)
+        t_l = _library_quant_mm(xq, wq, pe, m, fp8)
+        n_exp = len(set(pe.tolist()))
+        ops_n = 2.0 * p * m * d * f
+        nbytes = (1.0 * (p * m * d + n_exp * d * f)
+                  + 4.0 * (p * m + 8 + p * m * f + p))
+        t_b, by = bound_ms(nbytes, ops_n,
+                           FP8_FLOP_PER_S if fp8 else INT8_OP_PER_S)
+        row = dict(m=m, D=d, F=f, layer_view=bool(layers),
+                   max_abs_err=err, tol=tol, ms=t_k, wrapper_ms=t_w,
+                   plain_ms=t_p, library_ms=t_l, bound_ms=t_b,
+                   bound_by=by, tops=ops_n / t_k / 1e9)
+        print(f"{name} case " + json.dumps(row))
+        if not ok:
+            fail(f"{name} disagrees with its plain version: {row}")
+        worst = max(worst, err)
+        rows.append(row)
+    main = rows[0]
     return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
                 library_ms=main["library_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"])
@@ -233,8 +351,80 @@ def check_fused_step(ops, ref, dev) -> dict:
                 bound_by=main["bound_by"])
 
 
+def check_fuse_coeffs(ops, ref, dev) -> dict:
+    """The velocity kernel at the unfused path's shape: K = 2 slots,
+    B = 16 (8 samples × 2 CFG branches), T = 32·32·4; alpha below
+    alpha_min and clamped x̂0 present.  Bitwise against its plain version
+    (built without FMA contraction, same op order)."""
+    k, b, t = 2, 16, 32 * 32 * 4
+    gen = torch.Generator(device=dev).manual_seed(8)
+    preds = 4 * torch.randn(k, b, t, generator=gen, device=dev)
+    x = 3 * torch.randn(b, t, generator=gen, device=dev)
+    w = torch.rand(b, k, generator=gen, device=dev)
+    coef = 1.5 * torch.rand(5, k, b, generator=gen, device=dev)
+    coef[0, 0] = 0.001
+    coef[1, 0] = 1.0
+    kw = dict(clamp=20.0, alpha_min=0.01)
+    got = ops.fused_velocity(preds, x, w, coef, **kw)
+    plain = ref.ref_hetero_fuse_coeffs(preds, x, w, coef, **kw)
+    torch.cuda.synchronize()
+    err, _ = rel_err(got, plain)
+    t_k = graph_ms(lambda: ops.fused_velocity(preds, x, w, coef, **kw), 100)
+    t_w = cuda_ms(lambda: ops.fused_velocity(preds, x, w, coef, **kw), 50)
+    t_p = graph_ms(lambda: ref.ref_hetero_fuse_coeffs(preds, x, w, coef,
+                                                      **kw), 100)
+    nbytes = 4.0 * (k * b * t + 2 * b * t + b * k + 5 * k * b)
+    t_b, by = bound_ms(nbytes, 12.0 * k * b * t)
+    row = dict(K=k, B=b, T=t, max_abs_err=err, tol=0.0, ms=t_k,
+               wrapper_ms=t_w, plain_ms=t_p, library_ms=None, bound_ms=t_b,
+               bound_by=by)
+    print("hetero_fuse_coeffs case " + json.dumps(row))
+    if not (bool(torch.isfinite(got).all()) and torch.equal(got, plain)):
+        fail(f"hetero_fuse_coeffs disagrees with its plain version: {row}")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None,
+                bound_ms=t_b, bound_by=by)
+
+
+def check_dequant(ops, ref, dev) -> dict:
+    """The dequant kernel on one full-width MLP leaf, ``(8, 768·3072)``
+    int8 and e4m3 to float32 (and int8 to bf16): bitwise against its
+    plain version.  Library yardstick: ``q * s[:, None]`` for int8 (one
+    promoting multiply; PyTorch does not promote float8)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    leaf = torch.randn(8, 768 * 3072, generator=gen, device=dev)
+    out = None
+    for qdtype, odtype in ((torch.int8, torch.float32),
+                           (torch.float8_e4m3fn, torch.float32),
+                           (torch.int8, torch.bfloat16)):
+        q, s = ops.quantize_rows(leaf, qdtype)
+        got = ops.dequant_params(q, s, out_dtype=odtype)
+        plain = ref.ref_hetero_fuse_dequant(q, s, out_dtype=odtype)
+        torch.cuda.synchronize()
+        err, _ = rel_err(got.float(), plain.float())
+        t_k = graph_ms(lambda: ops.dequant_params(q, s, out_dtype=odtype))
+        t_w = cuda_ms(lambda: ops.dequant_params(q, s, out_dtype=odtype))
+        t_p = graph_ms(lambda: ref.ref_hetero_fuse_dequant(
+            q, s, out_dtype=odtype))
+        t_l = (graph_ms(lambda: q * s[:, None])
+               if (qdtype, odtype) == (torch.int8, torch.float32) else None)
+        n = q.numel()
+        t_b, by = bound_ms(n * (1.0 + got.element_size()) + 4.0 * 8, n)
+        row = dict(q=str(qdtype).replace("torch.", ""),
+                   out=str(odtype).replace("torch.", ""), shape=list(q.shape),
+                   max_abs_err=err, tol=0.0, ms=t_k, wrapper_ms=t_w,
+                   plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by)
+        print("hetero_fuse_dequant case " + json.dumps(row))
+        if not torch.equal(got, plain):
+            fail(f"hetero_fuse_dequant disagrees with its plain version: "
+                 f"{row}")
+        out = out or row                    # int8 -> float32: the main row
+    return dict(max_abs_err=out["max_abs_err"], ms=out["ms"],
+                plain_ms=out["plain_ms"], library_ms=out["library_ms"],
+                bound_ms=out["bound_ms"], bound_by=out["bound_by"])
+
+
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: the serving main path
+# Phases 4 and 5: the serving main paths
 # ---------------------------------------------------------------------------
 
 
@@ -247,12 +437,13 @@ def write_ensemble(path, dit_cfg, router_cfg, dev, seed):
     from repro_torch.models import dit as D
     from repro_torch.training.checkpoint import (expert_metadata,
                                                  save_checkpoint)
+    from repro_torch.tree import tree_map
 
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def jittered(cfg):
         params = D.init(cfg, gen)
-        return D.tree_map(lambda a: a + 0.02 * torch.randn(
+        return tree_map(lambda a: a + 0.02 * torch.randn(
             a.shape, generator=gen, device=a.device), params)
 
     os.makedirs(path, exist_ok=True)
@@ -267,7 +458,89 @@ def write_ensemble(path, dit_cfg, router_cfg, dev, seed):
                     metadata={"num_clusters": len(MIX)})
 
 
-def serve_full_width(ops, dev) -> dict:
+def expected_launches(cfg, ops, param_dtype: str, step_fused: bool,
+                      requests: int) -> dict:
+    """Kernel launches of ``requests`` batched-CFG requests of ``STEPS``
+    steps, computed from the DiT config and the wrapper's row-tile rule.
+
+    One ragged forward per step (cond and uncond batched, ``g = 2``) runs
+    one ragged GEMM per dense layer, each over row groups of width ``m``.
+    A quantized store contracts the tiled widths in its int8/fp8 body and
+    the others in the float32 body after one dequant of the weights; it
+    also dequantizes every bias it adds and the four embedding leaves the
+    forward reads (position, timestep table, block embedding, null text).
+    """
+    g, layers = 2, cfg.num_layers
+    tokens = (cfg.latent_size // cfg.patch_size) ** 2
+    text = g * cfg.text_len
+    widths = ([tokens]                      # patch embedding
+              + [1] * 4                     # timestep and AdaLN MLPs
+              + [tokens] * 4                # layer-0 self-attention, per pair
+              + [g * tokens] * 4 * (layers - 1)   # later self-attention
+              + [g * tokens] * 2 * layers   # cross-attention q, out
+              + [text] * (2 * layers + 1)   # cross-attention k, v; text proj
+              + [g * tokens] * 2 * layers   # MLP
+              + [1, g * tokens])            # final modulation, output
+    # patch embed, timestep MLP x2, AdaLN mlp1, text proj, MLP w1/w2 each
+    # layer
+    biases = 5 + 2 * layers
+    embeddings = 4
+    n = STEPS * requests
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["hetero_fuse_step" if step_fused else "hetero_fuse_coeffs"] = n
+    if param_dtype in ("int8", "fp8"):
+        tiled = sum(ops.ragged_block_m(m) is not None for m in widths)
+        narrow = len(widths) - tiled
+        want[f"ragged_gemm_{param_dtype}"] = tiled * n
+        want["ragged_gemm"] = narrow * n
+        want["hetero_fuse_dequant"] = (narrow + biases + embeddings) * n
+    else:
+        want["ragged_gemm"] = len(widths) * n
+    return want
+
+
+def serve_path(ops, engine, name, texts, seeds, want, mem) -> tuple:
+    """Serve one request per (text, seed) with the launch counters set to
+    0 just before and read just after; check outputs and counts.
+
+    ``mem`` holds the device bytes allocated before the engine was built
+    (``base``: engines of other paths still resident) and what the build
+    added; every memory figure printed is net of ``base``, so it is this
+    path's engine alone."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    outs = []
+    for i, (text, seed) in enumerate(zip(texts, seeds)):
+        t0 = time.perf_counter()
+        out = engine.generate(seed, text, BATCH)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        finite = bool(torch.isfinite(out).all())
+        print("request " + json.dumps(dict(
+            path=name, request=i, seconds=sec, img_per_s=BATCH / sec,
+            finite=finite, shape=list(out.shape),
+            max_abs=out.abs().max().item())))
+        if not finite or tuple(out.shape) != (BATCH, 32, 32, 4):
+            fail(f"{name} request {i} output is not finite (B, 32, 32, 4)")
+        outs.append(out)
+    launches = dict(ops.LAUNCHES)
+    print(f"{name} launches " + json.dumps(launches))
+    if launches != want:
+        fail(f"{name} path launches {launches}, expected {want}")
+    print(f"{name} store " + json.dumps(dict(
+        param_dtype=engine.sampler.param_dtype,
+        store_bytes=engine.param_store.nbytes(),
+        other_engines_bytes=mem["base"],
+        resident_bytes=mem["resident"],
+        load_peak_bytes=mem["load_peak"],
+        serve_peak_bytes=torch.cuda.max_memory_allocated() - mem["base"])))
+    return outs, launches
+
+
+def serve_full_width(ops, dev) -> tuple[dict, dict]:
+    """Phase 4.  Returns the launches of each path and the native and
+    int8 engines (profiled in phase 5)."""
     from repro_torch.core.sampling import SamplerConfig
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.models.config import dit_b2, router_b2
@@ -278,45 +551,66 @@ def serve_full_width(ops, dev) -> dict:
     t0 = time.perf_counter()
     write_ensemble(path, dit_cfg, router_cfg, dev, seed=11)
     t_write = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    engine = ServingEngine.from_checkpoint_dir(
-        path, dit_cfg=dit_cfg, router_cfg=router_cfg,
-        sampler=SamplerConfig(num_steps=STEPS, cfg_scale=7.5, top_k=2))
-    torch.cuda.synchronize()
-    t_load = time.perf_counter() - t0
-    shutil.rmtree(path)
-    n_params = param_count(engine.expert_params[0])
+    sampler = SamplerConfig(num_steps=STEPS, cfg_scale=7.5, top_k=2)
+
+    def load(**kw):
+        """Build one engine; also return the device bytes allocated before
+        it (``base``), what it holds once built and its peak while built,
+        the last two net of ``base``."""
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServingEngine.from_checkpoint_dir(
+            path, dit_cfg=dit_cfg, router_cfg=router_cfg,
+            sampler=dataclasses.replace(sampler, **kw))
+        torch.cuda.synchronize()
+        print(f"engine {json.dumps(kw)} loaded in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return eng, dict(
+            base=base, resident=torch.cuda.memory_allocated() - base,
+            load_peak=torch.cuda.max_memory_allocated() - base)
+
+    engines, mems = {}, {}
+    engines["native"], mems["native"] = load()
+    n_params = param_count(engines["native"].expert_params[0])
     print(f"full width: DiT-B/2 experts of {n_params} parameters, "
           f"{len(MIX)} experts + router_b2; checkpoints written in "
-          f"{t_write:.1f} s, loaded in {t_load:.1f} s")
+          f"{t_write:.1f} s")
     rng = np.random.default_rng(5)
     texts = [rng.standard_normal((BATCH, dit_cfg.text_len,
                                   dit_cfg.text_dim)).astype(np.float32)
              for _ in range(REQUESTS)]
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    requests = []
-    for i, text in enumerate(texts):
-        t0 = time.perf_counter()
-        out = engine.generate(100 + i, text, BATCH)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        finite = bool(torch.isfinite(out).all())
-        requests.append(dict(request=i, seconds=sec, img_per_s=BATCH / sec,
-                             finite=finite, shape=list(out.shape),
-                             max_abs=out.abs().max().item(),
-                             launches_so_far=dict(ops.LAUNCHES)))
-        print("request " + json.dumps(requests[-1]))
-        if not finite or tuple(out.shape) != (BATCH, 32, 32, 4):
-            fail(f"request {i} output is not finite (B, 32, 32, 4)")
-    launches = dict(ops.LAUNCHES)
-    print("main-path launches " + json.dumps(launches))
-    want = {"ragged_gemm": 128 * STEPS * REQUESTS,
-            "hetero_fuse_step": STEPS * REQUESTS}
-    if launches != want:
-        fail(f"main path launches {launches}, expected {want}")
-    print(f"engine stats {json.dumps(engine.stats)}")
-    return launches, engine
+    seeds = [100 + i for i in range(REQUESTS)]
+    launches = {}
+    outs, launches["native"] = serve_path(
+        ops, engines["native"], "native", texts, seeds,
+        expected_launches(dit_cfg, ops, "native", True, REQUESTS),
+        mems["native"])
+    for name, kw in (("unfused", dict(step_fused=False)),
+                     ("bf16", dict(param_dtype="bf16")),
+                     ("int8", dict(param_dtype="int8")),
+                     ("fp8", dict(param_dtype="fp8"))):
+        engines[name], mems[name] = load(**kw)
+        path_outs, launches[name] = serve_path(
+            ops, engines[name], name, texts, seeds,
+            expected_launches(dit_cfg, ops, engines[name].sampler.param_dtype,
+                              engines[name].sampler.step_fused, REQUESTS),
+            mems[name])
+        for i, (out, ref_out) in enumerate(zip(path_outs, outs)):
+            diff = (out - ref_out).abs().max().item()
+            print(f"{name} vs native request {i} " + json.dumps(dict(
+                max_abs_diff=diff,
+                max_abs_native=ref_out.abs().max().item())))
+            if name == "unfused" and not torch.equal(out, ref_out):
+                fail(f"unfused request {i} differs from the fused one by "
+                     f"{diff}")
+        if name != "int8":
+            del engines[name]
+    shutil.rmtree(path)
+    print(f"engine stats {json.dumps(engines['native'].stats)}")
+    return launches, engines
 
 
 def _category(name: str) -> str:
@@ -326,7 +620,7 @@ def _category(name: str) -> str:
     return "other"
 
 
-def profile_request(engine) -> None:
+def profile_request(engine, label: str) -> None:
     """One more full-width request under ``torch.profiler``: device ms by
     kernel and by category, and the device's idle share ``1 − busy /
     profiled wall`` (the profiler's own host cost inflates the wall)."""
@@ -355,14 +649,64 @@ def profile_request(engine) -> None:
         by_cat[_category(name)] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print("profile " + json.dumps({
-        "batch": BATCH, "steps": STEPS,
+        "path": label, "batch": BATCH, "steps": STEPS,
         "profiled_request_s": wall, "device_busy_ms": busy,
         "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
         "ms_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
         "ms_by_kernel_top12": dict(top)}))
 
 
-def compare_gpu_cpu(dev) -> None:
+def replay_on_cpu(ops, engine, text, noise) -> dict:
+    """Serve one request on the GPU, recording the inputs and output of
+    every ragged GEMM wrapper call and every dequant call of the path
+    (each call as the model made it, strided weight views included), then
+    replay each call's exact inputs through the CPU plain versions.
+    Returns the worst ``max |Δ| / max |out|`` per wrapper."""
+    calls = []
+    real_mm, real_dq = ops.ragged_expert_matmul, ops.dequant_params
+
+    def record(name, real):
+        def call(*args, **kw):
+            out = real(*args, **kw)
+            calls.append((name, real, args, kw, out))
+            return out
+        return call
+
+    ops.ragged_expert_matmul = record("ragged_expert_matmul", real_mm)
+    ops.dequant_params = record("dequant_params", real_dq)
+    try:
+        latents = engine.generate(0, text, BATCH, noise=noise)
+    finally:
+        ops.ragged_expert_matmul, ops.dequant_params = real_mm, real_dq
+
+    def cpu(a):
+        return a.cpu() if isinstance(a, torch.Tensor) else a
+
+    worst = {}
+    for name, real, args, kw, out in calls:
+        want = real(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
+        err, scale = rel_err(out.cpu().float(), want.float())
+        worst[name] = max(worst.get(name, 0.0), err / max(scale, 1e-30))
+    worst["calls"] = len(calls)
+    return worst, latents.cpu()
+
+
+def compare_gpu_cpu(ops, dev) -> None:
+    """Phase 6: the same reduced ensemble and request on the GPU and on the
+    CPU, for every served path.
+
+    The float32 paths (native, unfused, two-pass CFG) and bf16 are held
+    on their latents after 8 steps.  The int8/fp8 latents are not: each
+    tiled GEMM quantizes its activations per row, so an ulp of difference
+    upstream (the GPU sums float32 in another order) can flip one
+    activation's rounding (1/127 of it for int8, 1/16 for fp8), and the
+    DDPM conversion near t = 1 divides by α_min = 0.01 — the GPU and CPU
+    latents drift apart as the CPU run drifts from itself under a 2-ulp
+    change of its starting noise (both printed).  Instead every GEMM and
+    dequant call of the GPU request is replayed on the CPU with its exact
+    inputs and must agree within ``1e-5 · max|out|`` (the dequant calls
+    bitwise): the card quantizes activations exactly as the CPU does.
+    """
     from repro_torch.core.sampling import SamplerConfig
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.models.config import dit_b2, router_b2
@@ -376,21 +720,50 @@ def compare_gpu_cpu(dev) -> None:
     text = rng.standard_normal((BATCH, dit_cfg.text_len,
                                 dit_cfg.text_dim)).astype(np.float32)
     noise = rng.standard_normal((BATCH, 16, 16, 4)).astype(np.float32)
-    outs = {}
-    for name in ("cuda", "cpu"):
-        engine = ServingEngine.from_checkpoint_dir(
-            path, dit_cfg=dit_cfg, router_cfg=router_cfg, sampler=sampler,
-            device=name)
-        outs[name] = engine.generate(0, text, BATCH, noise=noise).cpu()
+    paths = (("native", {}, E2E_REL_TOL),
+             ("bf16", dict(param_dtype="bf16"), E2E_BF16_REL_TOL),
+             ("int8", dict(param_dtype="int8"), None),
+             ("fp8", dict(param_dtype="fp8"), None),
+             ("unfused", dict(step_fused=False), E2E_REL_TOL),
+             ("two_pass_cfg", dict(batched_cfg=False), E2E_REL_TOL))
+
+    def engine(device, kw):
+        return ServingEngine.from_checkpoint_dir(
+            path, dit_cfg=dit_cfg, router_cfg=router_cfg,
+            sampler=dataclasses.replace(sampler, **kw), device=device)
+
+    failed = []
+    for name, kw, rel in paths:
+        cpu_engine = engine("cpu", kw)
+        cpu = cpu_engine.generate(0, text, BATCH, noise=noise)
+        if rel is not None:
+            gpu = engine("cuda", kw).generate(0, text, BATCH,
+                                              noise=noise).cpu()
+            err, scale = rel_err(gpu, cpu)
+            print("reduced gpu-vs-cpu " + json.dumps(dict(
+                path=name, max_abs_err=err, tol=rel * scale,
+                max_abs=scale)))
+            if not (bool(torch.isfinite(gpu).all()) and err <= rel * scale):
+                failed.append(f"{name}: {err} > {rel * scale}")
+            continue
+        worst, gpu = replay_on_cpu(ops, engine("cuda", kw), text, noise)
+        moved = cpu_engine.generate(
+            0, text, BATCH,
+            noise=(noise * np.float32(1 + 2 ** -22)).astype(np.float32))
+        print("reduced gpu-vs-cpu " + json.dumps(dict(
+            path=name, replayed_calls=worst["calls"],
+            ragged_expert_matmul_rel_err=worst["ragged_expert_matmul"],
+            dequant_params_rel_err=worst["dequant_params"],
+            tol=GEMM_REL_TOL, latents_gpu_vs_cpu=rel_err(gpu, cpu)[0],
+            latents_cpu_vs_cpu_noise_2ulp=rel_err(moved, cpu)[0],
+            max_abs=cpu.abs().max().item())))
+        if not (bool(torch.isfinite(gpu).all())
+                and worst["ragged_expert_matmul"] <= GEMM_REL_TOL
+                and worst["dequant_params"] == 0.0):
+            failed.append(f"{name}: replayed calls {worst}")
     shutil.rmtree(path)
-    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
-    scale = outs["cpu"].abs().max().item()
-    print("reduced gpu-vs-cpu " + json.dumps(dict(
-        max_abs_err=err, tol=E2E_REL_TOL * scale, max_abs=scale)))
-    if not (bool(torch.isfinite(outs["cuda"]).all())
-            and err <= E2E_REL_TOL * scale):
-        fail(f"GPU latents differ from the CPU run by {err} "
-             f"(tolerance {E2E_REL_TOL * scale})")
+    if failed:
+        fail(f"GPU run differs from the CPU run: {failed}")
 
 
 def main() -> None:
@@ -420,23 +793,43 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
 
-    gemm = check_ragged_gemm(ops, ref, dev)
-    step = check_fused_step(ops, ref, dev)
+    summary = {
+        "ragged_gemm": check_ragged_gemm(ops, ref, dev),
+        "ragged_gemm_int8": check_ragged_gemm_quant(ops, ref, dev,
+                                                    torch.int8),
+        "ragged_gemm_fp8": check_ragged_gemm_quant(ops, ref, dev,
+                                                   torch.float8_e4m3fn),
+        "hetero_fuse_step": check_fused_step(ops, ref, dev),
+        "hetero_fuse_coeffs": check_fuse_coeffs(ops, ref, dev),
+        "hetero_fuse_dequant": check_dequant(ops, ref, dev),
+    }
 
-    launches, engine = serve_full_width(ops, dev)
-    profile_request(engine)
-    compare_gpu_cpu(dev)
+    launches, engines = serve_full_width(ops, dev)
+    profile_request(engines["native"], "native")
+    profile_request(engines["int8"], "int8")
+    del engines
+    compare_gpu_cpu(ops, dev)
 
-    kernels = [
-        dict(name="ragged_gemm", route="cuda",
-             source="src/repro_torch/kernels/csrc/ragged_gemm.cu",
-             replaces="src/repro/kernels/ragged_gemm.py:73",
-             launches=launches["ragged_gemm"], **gemm),
-        dict(name="hetero_fuse_step", route="cuda",
-             source="src/repro_torch/kernels/csrc/hetero_fuse.cu",
-             replaces="src/repro/kernels/hetero_fuse.py:161",
-             launches=launches["hetero_fuse_step"], **step),
-    ]
+    # each kernel's launches on the served path that exercises it
+    where = {"ragged_gemm": "native", "ragged_gemm_int8": "int8",
+             "ragged_gemm_fp8": "fp8", "hetero_fuse_step": "native",
+             "hetero_fuse_coeffs": "unfused", "hetero_fuse_dequant": "int8"}
+    sources = {
+        "ragged_gemm": ("ragged_gemm.cu", "ragged_gemm.py:73"),
+        "ragged_gemm_int8": ("ragged_gemm.cu", "ragged_gemm.py:148"),
+        "ragged_gemm_fp8": ("ragged_gemm.cu", "ragged_gemm.py:148"),
+        "hetero_fuse_step": ("hetero_fuse.cu", "hetero_fuse.py:161"),
+        "hetero_fuse_coeffs": ("hetero_fuse.cu", "hetero_fuse.py:95"),
+        "hetero_fuse_dequant": ("hetero_fuse.cu", "hetero_fuse.py:231"),
+    }
+    kernels = []
+    for name, (src, tpu) in sources.items():
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=f"src/repro/kernels/{tpu}",
+            launches=launches[where[name]][name], path=where[name],
+            **summary[name]))
     for kern in kernels:
         if kern["launches"] <= 0:
             fail(f"{kern['name']} was not launched on the main path")

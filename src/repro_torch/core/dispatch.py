@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.core.conversion import ConversionConfig
 from repro_torch.core.fusion import stable_top_k
-from repro_torch.core.param_store import DenseStore
+from repro_torch.core.param_store import DenseStore, QuantizedStore
+from repro_torch.kernels import ops
 
 #: valid ``SamplerConfig.dispatch`` values of the reference.
 DISPATCH_BACKENDS = ("auto", "gathered", "grouped", "ragged", "dense")
@@ -138,7 +139,8 @@ def _flatten_groups(cond_g: dict, g: int) -> dict:
 
 def slot_coef(tab: torch.Tensor, idx_all: torch.Tensor) -> torch.Tensor:
     """Gather the ``(5, K)`` step table into per-slot form ``(5, k, Bx)``
-    — the coefficient operand of ``kernels.ops.fused_step``."""
+    — the coefficient operand of ``kernels.ops.fused_step`` and
+    ``kernels.ops.fused_velocity``."""
     return tab[:, idx_all].movedim(1, 2)
 
 
@@ -153,10 +155,12 @@ class RaggedExecutor:
     ``ragged_apply_fn`` one representative latent per pair plus the
     per-pair expert ids, in expert-sorted pair order, and scatters the
     ``(P·g)`` predictions back to ``(k, g·B, ...)`` slot-major order.
+    The store may be dense or quantized: its ``ragged_view`` goes to the
+    forward as it is.
     """
 
     ragged_apply_fn: Callable[..., torch.Tensor]
-    store: DenseStore
+    store: DenseStore | QuantizedStore
     conv: ConversionConfig
     name: str = "ragged"
 
@@ -200,6 +204,16 @@ class RaggedExecutor:
         preds_flat = preds_sorted[p.unsort_order]
         preds = preds_flat.reshape((g * b, k) + tuple(preds_flat.shape[1:]))
         return preds.movedim(1, 0), p.slot_w, p.slot_idx   # (k, g·B, ...)
+
+    def velocity(self, plan: DispatchPlan, x, tb, cond_g: dict, g: int,
+                 tab) -> torch.Tensor:
+        """Fused velocity ``(g·B, *latent)`` of the unfused step path:
+        ``predictions`` then one ``kernels.ops.fused_velocity``."""
+        preds, w_all, idx_all = self.predictions(plan, x, tb, cond_g, g, tab)
+        return ops.fused_velocity(preds, _tile(x, g), w_all,
+                                  slot_coef(tab, idx_all),
+                                  clamp=self.conv.clamp,
+                                  alpha_min=self.conv.alpha_min)
 
 
 def resolve_dispatch(dispatch: str, mode: str, stackable: bool,

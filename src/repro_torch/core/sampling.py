@@ -7,13 +7,19 @@ with Euler steps ``x ← x − u·dt``.  Each step of the serving hot path:
    weights and a ``DispatchPlan`` (``core.fusion``, ``core.dispatch``);
 2. the ``RaggedExecutor`` runs only the routed experts, with the cond and
    uncond CFG branches batched (``g = 2``) and every dense layer one
-   ragged grouped GEMM kernel;
+   ragged grouped GEMM kernel, from the store ``param_dtype`` selects
+   (native, fp32/bf16 cast, or int8/fp8 quantized — ``core.param_store``);
 3. one ``kernels.ops.fused_step`` kernel does the ε→v conversion, the
    router fusion, the CFG combine and the Euler update.
 
-The per-run ``(S, 5, K)`` conversion tables are built once per run key
-(``coeff_tables_cached``) and indexed per step.  Options of the reference
-sampler outside this path raise ``NotImplementedError``.
+``step_fused=False`` keeps the unfused chain instead: the executor's
+fused velocity (``kernels.ops.fused_velocity``), ``cfg_combine`` and
+``x − u·dt`` as separate ops — bit-identical to the fused kernel.
+``batched_cfg=False`` (or conditioning that cannot be batched) runs the
+cond and uncond branches as two forwards.  The per-run ``(S, 5, K)``
+conversion tables are built once per run key (``coeff_tables_cached``)
+and indexed per step.  Options of the reference sampler outside this
+path raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,10 +86,12 @@ def _check_ported(config: SamplerConfig, engine: str) -> None:
         raise NotImplementedError(
             f"plan_refresh_every={config.plan_refresh_every} (plan reuse) "
             f"is not ported yet — {_QUEUE}")
-    if not config.step_fused:
-        raise NotImplementedError(
-            f"step_fused=False (the unfused path with hetero_fuse_coeffs) "
-            f"is not ported yet — {_QUEUE}")
+
+
+def cfg_combine(cond_pred: torch.Tensor, uncond_pred: torch.Tensor,
+                scale: float) -> torch.Tensor:
+    """Classifier-free guidance: ``u + s·(c − u)``."""
+    return uncond_pred + scale * (cond_pred - uncond_pred)
 
 
 def _cfg_batchable(cond: dict, null_cond: dict) -> bool:
@@ -168,10 +176,6 @@ def _sample_fused(
     use_cfg = null_cond is not None and config.cfg_scale != 1.0
     batched = use_cfg and config.batched_cfg \
         and _cfg_batchable(cond, null_cond or {})
-    if use_cfg and not batched:
-        raise NotImplementedError(
-            f"two-pass CFG (batched_cfg=False or conditioning that cannot "
-            f"be batched) is not ported yet — {_QUEUE}")
     k_slots = 1 if config.strategy == "top1" else min(config.top_k, K)
 
     stacked = as_store(stacked_params, dtype=config.param_dtype)
@@ -196,12 +200,47 @@ def _sample_fused(
         config.num_steps, conv,
     ).to(device)                                          # (S, 5, K)
 
+    # The forwards of one step: one batched [cond; uncond] forward, the
+    # two branches of two-pass CFG (cond, then uncond), or one without CFG.
     if batched:
-        cond_g, g = _cfg_grouped_cond(cond, null_cond or {}, B), 2
+        forwards = [(_cfg_grouped_cond(cond, null_cond or {}, B), 2)]
+    elif use_cfg:
+        forwards = [(_cfg_grouped_cond(cond, None, B), 1),
+                    (_cfg_grouped_cond(dict(null_cond or {}), None, B), 1)]
     else:
-        cond_g, g = _cfg_grouped_cond(cond, None, B), 1
-    scale = config.cfg_scale if batched else 1.0
+        forwards = [(_cfg_grouped_cond(cond, None, B), 1)]
 
+    def velocity_update(plan, x, tb, dt, tab):
+        # Unfused chain: fused velocity, CFG combine, Euler.
+        us = [executor.velocity(plan, x, tb, cond_g, g, tab)
+              for cond_g, g in forwards]
+        if batched:
+            u = cfg_combine(us[0][:B], us[0][B:], config.cfg_scale)
+        elif use_cfg:
+            u = cfg_combine(us[0], us[1], config.cfg_scale)
+        else:
+            u = us[0]
+        return x - u * dt
+
+    def fused_step_update(plan, x, tb, dt, tab):
+        # One kernel for convert + fuse + CFG + Euler; two-pass CFG
+        # concatenates the branches into the batched layout [cond; uncond].
+        outs = [executor.predictions(plan, x, tb, cond_g, g, tab)
+                for cond_g, g in forwards]
+        if len(outs) == 1:
+            preds, w_all, idx_all = outs[0]
+        else:
+            preds = torch.cat([o[0] for o in outs], dim=1)
+            w_all = torch.cat([o[1] for o in outs], dim=0)
+            idx_all = torch.cat([o[2] for o in outs], dim=0)
+        g = 2 if use_cfg else 1
+        return ops.fused_step(
+            preds, x, w_all, slot_coef(tab, idx_all), dt,
+            g=g, cfg_scale=config.cfg_scale if use_cfg else 1.0,
+            clamp=conv.clamp, alpha_min=conv.alpha_min,
+        )
+
+    update = fused_step_update if config.step_fused else velocity_update
     x = init_noise
     for i in range(config.num_steps):
         t_hi, t_lo = ts[i], ts[i + 1]
@@ -213,13 +252,7 @@ def _sample_fused(
             ddpm_low_noise_only=config.ddpm_low_noise_only,
         )                                                 # (B, K)
         plan = make_dispatch_plan(w, k_slots)
-        preds, w_all, idx_all = executor.predictions(
-            plan, x, tb, cond_g, g, tables[i])
-        x = ops.fused_step(
-            preds, x, w_all, slot_coef(tables[i], idx_all), t_hi - t_lo,
-            g=g, cfg_scale=scale, clamp=conv.clamp,
-            alpha_min=conv.alpha_min,
-        )
+        x = update(plan, x, tb, t_hi - t_lo, tables[i])
     return x
 
 
@@ -242,8 +275,10 @@ def sample_ensemble(
 
     ``init_noise`` (``shape``) is the starting latent; without it the
     noise is drawn from ``generator`` on ``device`` (default: the
-    generator's device).  ``stacked_params`` (a ``DenseStore`` or a raw
-    stacked tree) lets a long-lived engine stack its experts once.
+    generator's device).  ``stacked_params`` (a store of
+    ``core.param_store`` or a raw stacked tree, stored as
+    ``config.param_dtype`` says) lets a long-lived engine stack its
+    experts once.
     Returns the samples at t = 0.
     """
     cond = cond or {}

@@ -1,11 +1,18 @@
-"""Launcher of the CUDA step-fused kernel (``csrc/hetero_fuse.cu``).
+"""Launchers of the CUDA fuse and dequant kernels (``csrc/hetero_fuse.cu``).
 
-Replaces the TPU kernel ``repro/kernels/hetero_fuse.py:161``
-(``hetero_fuse_step``): per latent element, ε→v conversion of every
-routed slot's prediction, router fusion, the CFG combine and the Euler
-update, in one launch.  Its plain version is
-``kernels.ref.ref_hetero_fuse_step``; the sampler reaches both through
-``kernels.ops.fused_step``.
+* ``hetero_fuse_step`` replaces the TPU kernel
+  ``repro/kernels/hetero_fuse.py:161``: per latent element, ε→v
+  conversion of every routed slot's prediction, router fusion, the CFG
+  combine and the Euler update, in one launch (``ops.fused_step``);
+* ``hetero_fuse_coeffs`` replaces ``repro/kernels/hetero_fuse.py:95``:
+  the conversion and fusion alone, writing the fused velocity — the
+  unfused step path (``ops.fused_velocity``);
+* ``hetero_fuse_dequant`` replaces ``repro/kernels/hetero_fuse.py:231``:
+  ``float(q)·scale[r]`` over int8/e4m3 rows, cast to float32 or bf16 —
+  every expansion of a quantized expert leaf (``ops.dequant_params``).
+
+Their plain versions are the ``ref_*`` functions of the same names in
+``kernels.ref``.
 """
 
 from __future__ import annotations
@@ -17,17 +24,39 @@ import torch
 
 from repro_torch.kernels import _build
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C entry point -> argtypes (set once, so a launch costs one ctypes call)
+_ARGTYPES = {
+    "hetero_fuse_step_f32": [_P] * 6 + [_I] * 5 + [_F] * 3 + [_P],
+    "hetero_fuse_coeffs_f32": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P],
+    "hetero_fuse_dequant": [_P, _I, _P, _P, _I, ctypes.c_longlong,
+                            ctypes.c_longlong, _I, _P],
+}
+
 
 @functools.cache
-def _fn():
-    """The C entry point, built and loaded on first use (argtypes set
-    once, so a launch costs one ctypes call)."""
-    lib = _build.load_library("hetero_fuse")
-    fn = lib.hetero_fuse_step_f32
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, f, p]
+def _fn(name: str):
+    """A C entry point, built and loaded on first use."""
+    fn = getattr(_build.load_library("hetero_fuse"), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_f32(name: str, ops_in) -> None:
+    if not all(a.is_cuda for a in ops_in):
+        raise ValueError(f"{name} launches on CUDA tensors only")
+    if any(a.device != ops_in[0].device for a in ops_in):
+        raise ValueError(f"{name} operands must share one device")
+    if any(a.dtype != torch.float32 for a in ops_in):
+        raise TypeError(f"{name} takes float32 operands")
+    if not all(a.is_contiguous() for a in ops_in):
+        raise ValueError(f"{name} operands must be contiguous")
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def hetero_fuse_step(
@@ -41,16 +70,8 @@ def hetero_fuse_step(
     clamp: float = 20.0,
     alpha_min: float = 0.01,
 ) -> torch.Tensor:
-    """Launch the kernel on CUDA float32 tensors; returns ``(B, T)``."""
-    ops_in = (preds, x_t, weights, coef, dt)
-    if not all(a.is_cuda for a in ops_in):
-        raise ValueError("hetero_fuse_step launches on CUDA tensors only")
-    if any(a.device != x_t.device for a in ops_in):
-        raise ValueError("hetero_fuse_step operands must share one device")
-    if any(a.dtype != torch.float32 for a in ops_in):
-        raise TypeError("hetero_fuse_step takes float32 operands")
-    if not all(a.is_contiguous() for a in ops_in):
-        raise ValueError("hetero_fuse_step operands must be contiguous")
+    """Launch the step kernel on CUDA float32 tensors; returns ``(B, T)``."""
+    _check_f32("hetero_fuse_step", (preds, x_t, weights, coef, dt))
     k, g, b, t = preds.shape
     if g not in (1, 2):
         raise ValueError(f"G must be 1 (no CFG) or 2 (cond, uncond); got {g}")
@@ -64,10 +85,72 @@ def hetero_fuse_step(
         raise ValueError(f"dt must be (1,) or ({b},), got {tuple(dt.shape)}")
     out = torch.empty_like(x_t)
     stream = torch.cuda.current_stream(x_t.device).cuda_stream
-    rc = _fn()(preds.data_ptr(), x_t.data_ptr(), weights.data_ptr(),
-               coef.data_ptr(), dt.data_ptr(), out.data_ptr(), k, g, b, t,
-               int(dt.shape[0] == b and b > 1), cfg_scale, clamp, alpha_min,
-               stream)
-    if rc != 0:
-        raise RuntimeError(f"hetero_fuse_step launch failed: CUDA error {rc}")
+    _launched("hetero_fuse_step", _fn("hetero_fuse_step_f32")(
+        preds.data_ptr(), x_t.data_ptr(), weights.data_ptr(),
+        coef.data_ptr(), dt.data_ptr(), out.data_ptr(), k, g, b, t,
+        int(dt.shape[0] == b and b > 1), cfg_scale, clamp, alpha_min,
+        stream))
+    return out
+
+
+def hetero_fuse_coeffs(
+    preds: torch.Tensor,      # (K, B, T) routed-slot predictions
+    x_t: torch.Tensor,        # (B, T)
+    weights: torch.Tensor,    # (B, K) fusion weights
+    coef: torch.Tensor,       # (5, K, B) unified coefficient stack
+    *,
+    clamp: float = 20.0,
+    alpha_min: float = 0.01,
+) -> torch.Tensor:
+    """Launch the velocity kernel on CUDA float32 tensors; returns the
+    fused velocity ``(B, T)``."""
+    _check_f32("hetero_fuse_coeffs", (preds, x_t, weights, coef))
+    k, b, t = preds.shape
+    if tuple(x_t.shape) != (b, t) or tuple(weights.shape) != (b, k) \
+            or tuple(coef.shape) != (5, k, b):
+        raise ValueError(
+            f"shape mismatch: preds {tuple(preds.shape)}, x_t "
+            f"{tuple(x_t.shape)}, weights {tuple(weights.shape)}, coef "
+            f"{tuple(coef.shape)}")
+    out = torch.empty_like(x_t)
+    stream = torch.cuda.current_stream(x_t.device).cuda_stream
+    _launched("hetero_fuse_coeffs", _fn("hetero_fuse_coeffs_f32")(
+        preds.data_ptr(), x_t.data_ptr(), weights.data_ptr(),
+        coef.data_ptr(), out.data_ptr(), k, b, t, clamp, alpha_min, stream))
+    return out
+
+
+_Q_KIND = {torch.int8: 0, torch.float8_e4m3fn: 1}
+_OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def hetero_fuse_dequant(q: torch.Tensor, scale: torch.Tensor, *,
+                        out_dtype=torch.float32) -> torch.Tensor:
+    """Launch the dequant kernel: ``q`` ``(R, T)`` contiguous int8/e4m3,
+    ``scale`` ``(R,)`` float32 → ``(R, T)`` in ``out_dtype`` (float32 or
+    bf16)."""
+    if q.dtype not in _Q_KIND:
+        raise TypeError(f"hetero_fuse_dequant takes int8 or float8_e4m3fn "
+                        f"values, got {q.dtype}")
+    if out_dtype not in _OUT_KIND:
+        raise TypeError(f"hetero_fuse_dequant writes float32 or bf16, "
+                        f"got {out_dtype}")
+    if not (q.is_cuda and scale.is_cuda) or q.device != scale.device:
+        raise ValueError("hetero_fuse_dequant launches on CUDA tensors of "
+                         "one device")
+    if scale.dtype != torch.float32:
+        raise TypeError("scale must be float32")
+    if q.dim() != 2 or tuple(scale.shape) != (q.shape[0],):
+        raise ValueError(f"q must be (R, T) and scale (R,), got "
+                         f"{tuple(q.shape)}, {tuple(scale.shape)}")
+    if not (q.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("q and scale must be contiguous")
+    r, t = q.shape
+    out = torch.empty((r, t), dtype=out_dtype, device=q.device)
+    align = 16 if out_dtype == torch.float32 else 8
+    vec4 = int(t % 4 == 0 and out.data_ptr() % align == 0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launched("hetero_fuse_dequant", _fn("hetero_fuse_dequant")(
+        q.data_ptr(), _Q_KIND[q.dtype], scale.data_ptr(), out.data_ptr(),
+        _OUT_KIND[out_dtype], r, t, vec4, stream))
     return out

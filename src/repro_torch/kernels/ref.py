@@ -72,6 +72,18 @@ def ref_hetero_fuse_step(
     return x_t - u * dt.to(torch.float32).reshape(-1, 1)
 
 
+def ref_hetero_fuse_dequant(
+    q: torch.Tensor,          # (R, T) quantized values (int8 / float8_e4m3fn)
+    scale: torch.Tensor,      # (R,) symmetric per-row scales
+    *,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """``float(q)·scale[r]`` in float32 per row, then the cast (round to
+    nearest even for bf16)."""
+    out = q.to(torch.float32) * scale.to(torch.float32)[:, None]
+    return out.to(out_dtype)
+
+
 def ref_ragged_gemm(
     x: torch.Tensor,              # (M, D) expert-sorted rows
     w: torch.Tensor,              # (K, D, F) stacked expert weights
@@ -83,21 +95,27 @@ def ref_ragged_gemm(
 
     ``tile_experts`` carries one expert id per equal-height row tile (the
     port passes one per row group).  Rows of each expert contract as one
-    float32 matmul against that expert's weight, so memory stays
-    ``O(M·F)``.  Quantized operands (``x_scale``/``w_scale``) are not
-    ported yet.
+    matmul against that expert's weight, so memory stays ``O(M·F)``.
+    Dense operands contract in float32.  Quantized operands contract as
+    the kernel does: int8×int8 exactly (int32 on the CPU; float64 on the
+    card, which has no int32 matmul — exact because |acc| ≤ 127²·D <
+    2⁵³), fp8×fp8 in float32; then the epilogue
+    ``(float(acc)·x_scale[row])·w_scale[e(r)]``.
     """
-    if x_scale is not None or w_scale is not None:
-        raise NotImplementedError(
-            "quantized ragged GEMM (int8/fp8 body) is not ported yet — "
-            "ROADMAP.md, kernel queue B")
     m, d = x.shape
     gm = tile_experts.shape[0]
     row_e = torch.repeat_interleave(tile_experts.to(torch.int64), m // gm)
     y = torch.empty((m, w.shape[2]), dtype=torch.float32, device=x.device)
-    x32 = x.to(torch.float32)
+    if w.dtype == torch.int8:
+        acc = torch.float64 if x.is_cuda else torch.int32
+    else:
+        acc = torch.float32
+    xa = x.to(acc)
     # the plain version syncs to list the routed experts
     for e in torch.unique(row_e).tolist():  # lint: allow-host-sync
         rows = row_e == e
-        y[rows] = x32[rows] @ w[e].to(torch.float32)
+        y[rows] = (xa[rows] @ w[e].to(acc)).to(torch.float32)
+    if x_scale is not None and w_scale is not None:
+        y = (y * x_scale.to(torch.float32)[:, None]) \
+            * w_scale.to(torch.float32)[row_e][:, None]
     return y

@@ -7,13 +7,19 @@ package's ``save_checkpoint``; ``generate`` draws the noise, resolves the
 conditioning through a content-hash LRU and runs the fused sampler
 (``core.sampling.sample_ensemble``): per step a router forward, the
 routed experts through the ragged grouped-GEMM kernel, and one step-fused
-kernel.
+kernel (``step_fused=False``: the velocity kernel, then the CFG combine
+and the Euler update as separate ops).
+
+``sampler.param_dtype`` (or ``from_checkpoint_dir(param_dtype=...)``)
+picks the stacked expert store: ``native``, ``fp32``/``bf16`` casts, or
+``int8``/``fp8`` quantized with per-expert scales, whose weights
+contract in the int8/fp8 GEMM kernels.  A quantized store replaces the
+float32 per-expert list (about 4x fewer resident expert bytes).
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when no GPU is present.  Only an explicit ``device="cpu"`` runs on the
 CPU (the kernels' plain versions), as the tests do.  Elastic membership,
-quantized stores, ``submit``/``flush``, sharding and the CLI are not
-ported yet.
+``submit``/``flush``, sharding and the CLI are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,12 +73,33 @@ class ServingEngine:
         self._cond_cache: OrderedDict[tuple, torch.Tensor] = OrderedDict()
         self.stats = {"requests": 0, "cond_cache_hits": 0,
                       "cond_cache_misses": 0, "plan_refreshes": 0}
+        pd = self.sampler.param_dtype
+        if pd != "native":
+            # The store serves routed execution only; reject at
+            # construction, where strategy and engine are known.
+            routed_capable = (
+                len(self.experts) > 1
+                and all(e.apply_fn is self.experts[0].apply_fn
+                        for e in self.experts)
+                and self.sampler.strategy in ("top1", "topk", "threshold")
+                and self.engine in ("auto", "routed")
+            )
+            if not routed_capable:
+                raise ValueError(
+                    f"param_dtype={pd!r} changes the stacked expert store's "
+                    f"storage, which only routed execution uses: it needs a "
+                    f"homogeneous ensemble of >= 2 experts, strategy in "
+                    f"top1/topk/threshold, and engine auto/routed — got "
+                    f"{len(self.experts)} expert(s), strategy="
+                    f"{self.sampler.strategy!r}, engine={self.engine!r}")
         # The routed engine's dispatch substrate: every expert's leaves
-        # stacked once, ``(K, ...)``, on the device.
+        # stacked once, ``(K, ...)``, on the device, in the storage dtype.
         self.param_store = make_store(
-            D.stack_expert_params(self.expert_params),
-            dtype=self.sampler.param_dtype,
-        )
+            D.stack_expert_params(self.expert_params), dtype=pd)
+        if pd in ("int8", "fp8"):
+            # The quantized store is the resident representation: drop the
+            # float32 per-expert list so the byte saving is real.
+            self.expert_params = None
 
     @classmethod
     def from_checkpoint_dir(
@@ -80,6 +107,7 @@ class ServingEngine:
         router_cfg: DiTConfig | None = None,
         sampler: SamplerConfig | None = None,
         engine: str = "auto",
+        param_dtype: str | None = None,
         cond_cache_size: int = 64,
         device=None,
     ) -> "ServingEngine":
@@ -90,7 +118,8 @@ class ServingEngine:
         filename index).  Duplicate cluster ids and holes in ``0..K-1``
         raise ``ValueError``; so does a checkpoint without
         ``objective``/``schedule`` metadata.  Parameters load onto
-        ``device`` (``None`` → ``"cuda"``).
+        ``device`` (``None`` → ``"cuda"``).  ``param_dtype``, when given,
+        overrides ``sampler.param_dtype``.
         """
         dev = resolve_device(device)
         apply_fn = D.make_expert_apply(dit_cfg)
@@ -149,11 +178,14 @@ class ServingEngine:
         if router_cfg is not None and os.path.exists(router_path):
             rp, _ = load_checkpoint(router_path, device=dev)
             router_fn = D.make_router_fn(router_cfg, rp)
+        sampler = sampler if sampler is not None else SamplerConfig()
+        if param_dtype is not None:
+            sampler = dataclasses.replace(sampler, param_dtype=param_dtype)
         return cls(
             experts=experts, expert_params=params, router_fn=router_fn,
             latent_shape=(dit_cfg.latent_size, dit_cfg.latent_size,
                           dit_cfg.latent_channels),
-            sampler=sampler if sampler is not None else SamplerConfig(),
+            sampler=sampler,
             engine=engine, cond_cache_size=cond_cache_size, device=dev,
         )
 

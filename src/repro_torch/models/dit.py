@@ -15,21 +15,22 @@ Per block (Eqs. 17–19):
 ``make_ragged_expert_apply`` is the serving forward of the routed
 experts, where every dense layer is one ragged grouped GEMM
 (``kernels.ops.ragged_expert_matmul``) over all routed (sample, slot)
-pairs.
+pairs, from any store's ``ragged_view()`` — dense leaves, or quantized
+``QuantLeaf``s whose weights reach the GEMM as int8/fp8 bytes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.core.param_store import QuantLeaf, dequant_leaf
 from repro_torch.core.schedules import to_ddpm_timestep
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import DiTConfig
+from repro_torch.tree import tree_leaves, tree_map
 
 # ---------------------------------------------------------------------------
 # Helpers
@@ -46,6 +47,13 @@ def sinusoidal_table(num: int, dim: int, device=None) -> torch.Tensor:
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it: ``x·(1/(1 + e^−x))``,
+    each op rounded in ``x``'s dtype (bf16 timestep paths of a bf16 store
+    round where the reference does)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H/p * W/p, p*p*C)."""
     b, h, w, c = x.shape
@@ -58,23 +66,6 @@ def unpatchify(x: torch.Tensor, p: int, hw: int, c: int) -> torch.Tensor:
     g = hw // p
     x = x.reshape(b, g, g, p, p, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, hw, hw, c)
-
-
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict/list tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def tree_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
 
 
 def _require_adaln_single(cfg: DiTConfig) -> None:
@@ -170,7 +161,7 @@ def timestep_embedding(cfg: DiTConfig, params, t: torch.Tensor):
     """τ(t) via the discrete table + MLP (Eq. 21 runtime mapping)."""
     idx = to_ddpm_timestep(t, cfg.num_timesteps)
     feat = params["t_embed"]["table"][idx]
-    h = F.silu(L.dense(params["t_embed"]["mlp1"], feat))
+    h = silu(L.dense(params["t_embed"]["mlp1"], feat))
     return L.dense(params["t_embed"]["mlp2"], h)            # (B, d)
 
 
@@ -178,7 +169,7 @@ def global_modulation(cfg: DiTConfig, params, tau: torch.Tensor):
     """Eq. 14/15: the global (6, d) modulation broadcast over the L layers
     as ``(B, L, 6, d)`` (per-layer variation comes from E_b, Eq. 16)."""
     b = tau.shape[0]
-    h = F.silu(L.dense(params["adaln_single"]["mlp1"], tau))
+    h = silu(L.dense(params["adaln_single"]["mlp1"], tau))
     c = L.dense(params["adaln_single"]["mlp2"], h).reshape(b, 1, 6,
                                                             cfg.d_model)
     return c.expand(b, cfg.num_layers, 6, cfg.d_model)
@@ -257,7 +248,7 @@ def apply(cfg: DiTConfig, params, x_t: torch.Tensor, t: torch.Tensor, *,
     if cfg.num_classes:
         return L.dense(params["cls_head"], h.mean(dim=1))     # router logits
 
-    mod = L.dense(params["final_layer"]["mod"], F.silu(tau))
+    mod = L.dense(params["final_layer"]["mod"], silu(tau))
     shift, scale = torch.chunk(mod, 2, dim=-1)
     h = L.layernorm({}, h) * (1.0 + scale[:, None]) + shift[:, None]
     out = L.dense(params["final_layer"]["out"], h)
@@ -305,13 +296,30 @@ def stack_expert_params(params_list):
 
 
 def _ragged_dense(leaf: dict, x: torch.Tensor, pe: torch.Tensor):
-    """Per-pair expert dense through the ragged grouped GEMM."""
-    return ops.ragged_expert_matmul(x, leaf["w"], pe, bias=leaf.get("b"))
+    """Per-pair expert dense through the ragged grouped GEMM.
+
+    A ``QuantLeaf`` weight stays int8/fp8 into the GEMM with its ``(K,)``
+    scales; the bias (tiny) expands through ``dequant_leaf``.
+    """
+    w = leaf["w"]
+    wq, ws = (w.q, w.scale) if isinstance(w, QuantLeaf) else (w, None)
+    b = leaf.get("b")
+    bias = None if b is None else dequant_leaf(b)
+    return ops.ragged_expert_matmul(x, wq, pe, bias=bias, w_scale=ws)
 
 
 def _layer_view(tree, layer: int):
-    """Slice layer ``layer`` from stacked ``(K, L, ...)`` view leaves."""
-    return tree_map(lambda a: a[:, layer], tree)
+    """Slice layer ``layer`` from stacked ``(K, L, ...)`` view leaves.
+
+    A ``QuantLeaf`` slices its bytes and keeps its ``(K,)`` scales: every
+    layer of a stacked leaf shares its expert's one scale.
+    """
+    def f(a):
+        if isinstance(a, QuantLeaf):
+            return QuantLeaf(a.q[:, layer], a.scale)
+        return a[:, layer]
+
+    return tree_map(f, tree)
 
 
 def make_ragged_expert_apply(cfg: DiTConfig):
@@ -347,18 +355,19 @@ def make_ragged_expert_apply(cfg: DiTConfig):
 
         xp = patchify(x_p.to(cfg.activation_dtype), ps)
         h_r = pd(view["patch_embed"], xp)                  # (P, T, d)
-        h_r = h_r + view["pos_embed"]["emb"][pe].to(h_r.dtype)
+        h_r = h_r + dequant_leaf(view["pos_embed"]["emb"])[pe].to(h_r.dtype)
 
         # Timestep path — replicas share t, so one row per pair.
         idx = to_ddpm_timestep(t_p, cfg.num_timesteps)
-        feat = view["t_embed"]["table"][pe, idx]
-        ht = F.silu(pd(view["t_embed"]["mlp1"], feat))
+        feat = dequant_leaf(view["t_embed"]["table"])[pe, idx]
+        ht = silu(pd(view["t_embed"]["mlp1"], feat))
         tau = pd(view["t_embed"]["mlp2"], ht)              # (P, d)
 
-        hm = F.silu(pd(view["adaln_single"]["mlp1"], tau))
+        hm = silu(pd(view["adaln_single"]["mlp1"], tau))
         c = pd(view["adaln_single"]["mlp2"], hm).reshape(p_pairs, 1, 6, d)
         mods = c.expand(p_pairs, cfg.num_layers, 6, d)
-        mods = mods + view["adaln_single"]["block_embed"][pe].to(mods.dtype)
+        mods = mods + dequant_leaf(
+            view["adaln_single"]["block_embed"])[pe].to(mods.dtype)
         mods = mods.movedim(1, 0)                          # (L, P, 6, d)
 
         def self_attn(bp, h, mod):
@@ -386,7 +395,7 @@ def make_ragged_expert_apply(cfg: DiTConfig):
 
         text = None
         if cfg.use_text:
-            nulle = view["null_text_embed"]["emb"][pe]     # (P, Lt, Dt)
+            nulle = dequant_leaf(view["null_text_embed"]["emb"])[pe]
             text_emb = cond.get("text_emb")
             if text_emb is None:
                 text_emb = nulle[:, None].expand(
@@ -418,7 +427,7 @@ def make_ragged_expert_apply(cfg: DiTConfig):
             hmid = L.gelu(pd(bp["mlp"]["w1"], hn))
             h = h + a_mlp[:, None, None] * pd(bp["mlp"]["w2"], hmid)
 
-        mod = pd(view["final_layer"]["mod"], F.silu(tau))
+        mod = pd(view["final_layer"]["mod"], silu(tau))
         shift, scale = torch.chunk(mod, 2, dim=-1)
         h = L.layernorm({}, h) * (1.0 + scale[:, None, None]) \
             + shift[:, None, None]

@@ -244,9 +244,9 @@ def test_resolve_dispatch_serves_ragged_only():
 
 
 @pytest.mark.parametrize("override", [
-    dict(plan_refresh_every=2), dict(step_fused=False),
-    dict(batched_cfg=False), dict(dispatch="grouped"),
+    dict(plan_refresh_every=2), dict(dispatch="grouped"),
     dict(strategy="threshold"), dict(time_map="snr_match"),
+    dict(strategy="full"), dict(ddpm_low_noise_only=0.5),
 ], ids=lambda d: next(iter(d)))
 def test_unported_sampler_options_raise(override):
     cfg = sampling.SamplerConfig(num_steps=2, **override)

@@ -30,6 +30,7 @@ from repro.training import checkpoint as jckpt
 from repro_torch.models import dit as D
 from repro_torch.models import layers as L
 from repro_torch.models.config import dit_b2, router_b2
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.weights import params_from_numpy
 
@@ -41,7 +42,7 @@ def jittered_numpy_params(cfg, seed):
     every leaf jittered (fresh init zeroes the output layers)."""
     gen = torch.Generator().manual_seed(seed)
     params = D.init(cfg, gen)
-    return D.tree_map(
+    return tree_map(
         lambda a: (a + 0.02 * torch.randn(a.shape, generator=gen)).numpy(),
         params)
 
@@ -77,7 +78,7 @@ def _inputs(cfg, b, seed=0):
 def test_port_init_has_the_reference_structure(models, router):
     cfg, jcfg = (models["rcfg"], models["jrcfg"]) if router else \
         (models["cfg"], models["jcfg"])
-    got = D.tree_map(lambda a: a.numpy(),
+    got = tree_map(lambda a: a.numpy(),
                      D.init(cfg, torch.Generator().manual_seed(0)))
     want = jax.eval_shape(lambda k: JD.init(jcfg, k), jax.random.PRNGKey(0))
     assert jax.tree.structure(got) == jax.tree.structure(want)
@@ -179,7 +180,7 @@ def test_checkpoints_cross_both_packages(models, tmp_path):
     jckpt.save_checkpoint(jpath, models["jexperts"][1], metadata=meta)
     params, got_meta = ckpt.load_checkpoint(jpath, device="cpu")
     assert got_meta == meta
-    for a, b in zip(D.tree_leaves(params), D.tree_leaves(
+    for a, b in zip(tree_leaves(params), tree_leaves(
             models["experts"][1])):
         assert torch.equal(a, b)
     ppath = os.path.join(tmp_path, "port.npz")

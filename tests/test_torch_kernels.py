@@ -155,15 +155,32 @@ def test_cpu_wrappers_launch_no_kernel():
     ops.reset_launches()
     x = torch.randn(2, 3, 4)
     ops.ragged_expert_matmul(x, torch.randn(2, 4, 5), torch.tensor([0, 1]))
+    xw = torch.randn(2, 8, 4)                      # a tileable width
+    for qdtype in (torch.int8, torch.float8_e4m3fn):
+        ops.ragged_expert_matmul(xw, torch.ones(2, 4, 5).to(qdtype),
+                                 torch.tensor([0, 1]), w_scale=torch.ones(2))
     ops.fused_step(torch.randn(1, 2, 3), torch.randn(2, 3),
                    torch.ones(2, 1), torch.ones(5, 1, 2), torch.tensor(0.1),
                    g=1)
-    assert ops.LAUNCHES == {"ragged_gemm": 0, "hetero_fuse_step": 0}
+    ops.fused_velocity(torch.randn(1, 2, 3), torch.randn(2, 3),
+                       torch.ones(2, 1), torch.ones(5, 1, 2))
+    ops.dequant_params(torch.ones(2, 3, dtype=torch.int8), torch.ones(2))
+    assert set(ops.LAUNCHES) == {
+        "ragged_gemm", "ragged_gemm_int8", "ragged_gemm_fp8",
+        "hetero_fuse_step", "hetero_fuse_coeffs", "hetero_fuse_dequant"}
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 def test_quantized_weights_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Only the stores' weight dtypes are served: float32, bf16, int8 and
+    e4m3 (with their scales).  Any other raises, and a quantized weight
+    without its scales is an error."""
+    for dtype in (torch.float64, torch.float8_e5m2):
+        with pytest.raises(NotImplementedError, match="not served"):
+            ops.ragged_expert_matmul(torch.randn(1, 2, 4),
+                                     torch.zeros(1, 4, 3, dtype=dtype),
+                                     torch.tensor([0]))
+    with pytest.raises(ValueError, match="w_scale"):
         ops.ragged_expert_matmul(torch.randn(1, 2, 4),
                                  torch.zeros(1, 4, 3, dtype=torch.int8),
-                                 torch.tensor([0]),
-                                 w_scale=torch.ones(1))
+                                 torch.tensor([0]))

@@ -37,6 +37,7 @@ from repro_torch.core.sampling import SamplerConfig
 from repro_torch.launch.serve import ServingEngine
 from repro_torch.models import dit as D
 from repro_torch.models.config import dit_b2, router_b2
+from repro_torch.tree import tree_map
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_REL = 1e-4
@@ -46,7 +47,7 @@ MIX = [("ddpm", "cosine")] * 2 + [("fm", "linear")] * 6
 
 def _numpy_params(cfg, seed):
     gen = torch.Generator().manual_seed(seed)
-    return D.tree_map(
+    return tree_map(
         lambda a: (a + 0.02 * torch.randn(a.shape, generator=gen)).numpy(),
         D.init(cfg, gen))
 
