@@ -15,8 +15,13 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    one (device time of calls replayed from a CUDA graph, except the
    ragged GEMM's plain version, which syncs; ``wrapper_ms`` adds the
    host's cost per call): the ragged GEMM's float32, bf16-weight, int8
-   and fp8 bodies, the step kernel, the velocity kernel and the dequant
-   kernel;
+   and fp8 bodies, the step kernel, the velocity kernel, the dequant
+   kernel, the AdaLN kernel (at the ragged MLP modulate site, float32,
+   with bf16 modulations and in bf16), the attention kernel (the DiT's
+   self-attention, and a causal sliding-window GQA case at Mixtral-8x7B's
+   head shape) and the flag-form fuse kernel, whose path
+   ``ops.fused_convert_and_fuse`` is then driven once with the launch
+   counts set to 0 and must equal ``fused_velocity`` bitwise;
 4. loads the full-width heterogeneous DiT-B/2 ensemble — 8 random,
    seeded experts (2 DDPM/cosine + 6 FM/linear) and a router, written to
    checkpoints and loaded once with ``ServingEngine.from_checkpoint_dir``
@@ -25,7 +30,9 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    and ``fp8`` stores, and the native store on the unfused step path
    (``step_fused=False``), whose latents must equal the fused ones
    bitwise.  Each path's kernel launch counts, computed from the config,
-   must match exactly.  Each path prints its store's bytes and its
+   must match exactly — every LayerNorm of the router and the experts
+   through the AdaLN kernel, every self-attention through the attention
+   kernel.  Each path prints its store's bytes and its
    engine's device memory once built, at its build peak and at its
    serving peak, all net of the engines still resident from other paths;
 5. serves one more native and one more int8 request under
@@ -33,9 +40,10 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    and by category) and the device's idle share;
 6. runs the same engine code at a reduced width on the GPU and on the CPU
    (plain versions): native, bf16, unfused and two-pass CFG compare their
-   latents; int8 and fp8 replay every GEMM and dequant call of the GPU
-   request on the CPU with the same inputs (their latents' spread is
-   printed beside the CPU run's own under a 2-ulp change of its noise).
+   latents; int8 and fp8 replay every GEMM, dequant, AdaLN and attention
+   call of the GPU request on the CPU with the same inputs (their
+   latents' spread is printed beside the CPU run's own under a 2-ulp
+   change of its noise).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It imports nothing of JAX or of the JAX package.
@@ -62,13 +70,19 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, dense
 # float32 outside the tensor cores (TF32 is excluded by design), and the
-# dense int8/fp8 tensor-core rates.
+# dense int8/fp8 and bf16 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
 FP8_FLOP_PER_S = 1979e12
+BF16_FLOP_PER_S = 989e12
 
 GEMM_REL_TOL = 1e-5        # float32 sums in another order than ATen
+#: AdaLN and attention kernels: float32 sums (and the online softmax's
+#: rescaling) in another order than ATen; bf16 outputs round once from
+#: float32 on both sides, so a flipped rounding is one bf16 ulp.
+NORM_ATTN_REL_TOL = 1e-5
+BF16_OUT_REL_TOL = 2.0 ** -7
 STEP_REL_TOL = 1e-6        # no FMA contraction: same op order as plain
 E2E_REL_TOL = 1e-4         # latents after 8 CFG-7.5 steps, GPU vs CPU
 #: GPU vs CPU latents of the bf16 store: the GPU sums float32 in another
@@ -86,9 +100,11 @@ CATEGORIES = (
     ("hetero_fuse_step", "hetero_fuse_step"),
     ("hetero_fuse_coeffs", "hetero_fuse_coeffs"),
     ("hetero_fuse_dequant", "hetero_fuse_dequant"),
-    ("gemm", "cuBLAS GEMM (router dense, attention QK/PV)"),
+    ("adaln_fuse", "adaln_fuse (every LayerNorm and modulation)"),
+    ("flash_attention", "flash_attention (self-attention)"),
+    ("gemm", "cuBLAS GEMM (router dense, cross-attention QK/PV)"),
     ("softmax", "softmax"),
-    ("reduce", "reductions (LayerNorm, sums)"),
+    ("reduce", "reductions (sums, row absmax)"),
     ("elementwise", "elementwise"),
     ("Memcpy", "copies"),
     ("Memset", "sets"),
@@ -423,6 +439,252 @@ def check_dequant(ops, ref, dev) -> dict:
                 bound_ms=out["bound_ms"], bound_by=out["bound_by"])
 
 
+def check_adaln(ops, ref, dev) -> dict:
+    """The AdaLN kernel at the ragged MLP modulate site: x ``(16, 2, 256,
+    768)`` (16 pairs × 2 CFG replicas = 32 sequences of 256 tokens),
+    γ/β one slice of the ``(P, L, 6, d)`` modulation stack; float32 (the
+    native store), float32 with bf16 modulations rounded as the DiT does
+    (a bf16 store), and x in bf16; then the layer-0 replica broadcast
+    (no copy) and the plain LayerNorm before cross-attention.  Library
+    yardstick: no single call computes it; ``F.layer_norm`` plus the two
+    elementwise ops."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    p, g, t, d = 16, 2, 256, 768
+    base = 3 * torch.randn(p, g, t, d, generator=gen, device=dev) + 1
+    mods = 0.3 * torch.randn(p, 12, 6, d, generator=gen, device=dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("f32", base, mods, False), ("bf16_mods", base, mods.to(bf16),
+                                          True),
+             ("bf16", base.to(bf16), mods.to(bf16), False),
+             ("broadcast", base[:, 0][:, None].expand(p, g, t, d), mods,
+              False),
+             ("layernorm", base, None, False)]
+    rows, main = [], None
+    for name, x, m, rs in cases:
+        gamma = None if m is None else m[:, 5, 3]
+        beta = None if m is None else m[:, 5, 4]
+        if m is None:
+            def kern():
+                return ops.layernorm(x)
+
+            def plain():
+                return ref.ref_adaln_fuse(x, None, None)
+        else:
+            def kern():
+                return ops.adaln_modulate(x, gamma, beta, round_scale=rs)
+
+            def plain():
+                return ref.ref_adaln_fuse(x, gamma, beta, round_scale=rs)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, scale = rel_err(got.float(), want.float())
+        tol = (NORM_ATTN_REL_TOL if x.dtype == f32 else BF16_OUT_REL_TOL) \
+            * scale
+        ok = (bool(torch.isfinite(got).all()) and got.dtype == x.dtype
+              and err <= tol)
+        t_k = graph_ms(kern, 50)
+        t_w = cuda_ms(kern, 50)
+        t_p = graph_ms(plain, 20)
+        if m is None:
+            t_l = graph_ms(lambda: F.layer_norm(x, (d,), eps=1e-6), 50)
+        else:
+            def lib():
+                return F.layer_norm(x, (d,), eps=1e-6) \
+                    * (1 + gamma[:, None, None]) + beta[:, None, None]
+            t_l = graph_ms(lib, 50)
+        n = x.numel()
+        read = n // g if name == "broadcast" else n    # one replica read
+        nbytes = (read + n) * x.element_size()
+        if m is not None:
+            nbytes += 2 * p * d * gamma.element_size()
+        t_b, by = bound_ms(nbytes, 8.0 * n)
+        row = dict(case=name, x=list(x.shape),
+                   x_dtype=str(x.dtype).replace("torch.", ""),
+                   max_abs_err=err, tol=tol, ms=t_k, wrapper_ms=t_w,
+                   plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by)
+        print("adaln_fuse case " + json.dumps(row))
+        if not ok:
+            fail(f"adaln_fuse disagrees with its plain version: {row}")
+        rows.append(row)
+        main = main or row                     # float32: the native path
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"])
+
+
+def _open_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a mask leaves open over one head."""
+    q = np.arange(s)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    hi = q + 1 if causal else np.full_like(q, s)
+    return int((hi - lo).sum())
+
+
+#: (case, B, Hq, Hkv, S, D, causal, window, dtype) of the attention check
+FLASH_CASES = (
+    ("dit_self_attention", 32, 12, 12, 256, 64, False, 0, torch.float32),
+    ("mixtral_gqa_swa", 1, 32, 8, 8192, 128, True, 4096, torch.bfloat16))
+
+
+def check_flash(ops, ref, dev) -> dict:
+    """The attention kernel at the DiT's self-attention shape — q, k, v
+    ``(B·g 32, S 256, H 12, D 64)`` projections read as ``(B, H, S, D)``
+    views, non-causal, float32 — and a causal sliding-window GQA case at
+    Mixtral-8x7B's head shape (``configs/mixtral_8x7b.py``: Hq 32, Hkv 8,
+    D 128, window 4096) over S 8192, batch 1, bf16.  Library yardstick:
+    ``scaled_dot_product_attention`` on the same inputs (float32 for the
+    DiT; the bf16 GQA case with its mask)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for name, b, hq, hkv, s, d, causal, window, dtype in FLASH_CASES:
+        q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(b, s, hkv, d, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+        kw = dict(causal=causal, window=window)
+
+        def kern():
+            return ops.flash_attention(q, k, v, **kw)
+
+        def plain():
+            rep = hq // hkv
+            return ref.ref_flash_attention(q, k.repeat_interleave(rep, 1),
+                                           v.repeat_interleave(rep, 1), **kw)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, scale = rel_err(got.float(), want.float())
+        tol = (NORM_ATTN_REL_TOL if dtype == torch.float32
+               else BF16_OUT_REL_TOL) * scale
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        del want
+        t_k = graph_ms(kern, 20 if s <= 256 else 3)
+        t_w = cuda_ms(kern, 20 if s <= 256 else 3)
+        t_p = cuda_ms(plain, 10 if s <= 256 else 2, warmup=1)
+        if causal or window:
+            pos = torch.arange(s, device=dev)
+            mask = (pos[None] <= pos[:, None]) if causal else None
+            if window:
+                wm = pos[:, None] - pos[None] < window
+                mask = wm if mask is None else mask & wm
+
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask,
+                                                      enable_gqa=hq != hkv)
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v)
+        try:
+            lib()
+            t_l = cuda_ms(lib, 20 if s <= 256 else 3)
+        except RuntimeError as exc:                  # a yardstick only
+            print(f"library yardstick unavailable: "
+                  f"{str(exc).splitlines()[0]}")
+            t_l = None
+        pairs = _open_pairs(s, causal, window) * b * hq
+        flops = 4.0 * d * pairs
+        nbytes = q.element_size() * d * s * b * (2 * hq + 2 * hkv)
+        t_b, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S
+                           if dtype == torch.float32 else BF16_FLOP_PER_S)
+        row = dict(case=name, B=b, Hq=hq, Hkv=hkv, S=s, D=d, causal=causal,
+                   window=window, dtype=str(dtype).replace("torch.", ""),
+                   max_abs_err=err, tol=tol, ms=t_k, wrapper_ms=t_w,
+                   plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
+                   tflops=flops / t_k / 1e9)
+        print("flash_attention case " + json.dumps(row))
+        if not ok:
+            fail(f"flash_attention disagrees with its plain version: {row}")
+        rows.append(row)
+        gc.collect()
+        torch.cuda.empty_cache()
+    main = rows[0]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"])
+
+
+def check_hetero_fuse(ops, ref, dev) -> dict:
+    """The flag-form fuse kernel at K 8, B 16, T 4096 with the 2 DDPM + 6
+    FM mix, bitwise against its plain version; then its path: the launch
+    counts set to 0, one ``ops.fused_convert_and_fuse`` call from
+    objectives, schedules and times as a caller makes it, the counts read
+    (exactly one launch, of this kernel), and its output bitwise equal to
+    ``fused_velocity`` given the matching ``(5, K, B)`` unified
+    coefficients (FM experts as the identity ``(1, 0, 0, 1, 1)``)."""
+    from repro_torch.core.conversion import velocity_scale
+    from repro_torch.core.schedules import get_schedule
+    from repro_torch.kernels.hetero_fuse import hetero_fuse
+
+    k, b, t = len(MIX), 16, 32 * 32 * 4
+    gen = torch.Generator(device=dev).manual_seed(15)
+    objectives = [o for o, _ in MIX]
+    schedules = [get_schedule(n) for _, n in MIX]
+    preds = 4 * torch.randn(k, b, t, generator=gen, device=dev)
+    x = 3 * torch.randn(b, t, generator=gen, device=dev)
+    w = torch.softmax(torch.randn(b, k, generator=gen, device=dev), -1)
+    tb = torch.rand(b, generator=gen, device=dev)
+    tb[0] = 0.999                                # alpha below alpha_min
+    ddpm = torch.tensor([o == "ddpm" for o in objectives], device=dev)
+    alpha = torch.stack([s.alpha(tb) for s in schedules])          # (K, B)
+    sigma = torch.stack([s.sigma(tb) for s in schedules])
+    dalpha = torch.stack([s.dalpha(tb) for s in schedules])
+    dsigma = torch.stack([s.dsigma(tb) for s in schedules])
+    vscale = torch.where(ddpm[:, None], velocity_scale(tb, "piecewise")[None],
+                         1.0)
+    coef = torch.stack([alpha, sigma, dalpha, dsigma, vscale])
+    kw = dict(clamp=20.0, alpha_min=0.01)
+    got = hetero_fuse(preds, x, w, ddpm, coef, **kw)
+    want = ref.ref_hetero_fuse(preds, x, w, ddpm, alpha, sigma, dalpha,
+                               dsigma, vscale, **kw)
+    torch.cuda.synchronize()
+    err, _ = rel_err(got, want)
+    t_k = graph_ms(lambda: hetero_fuse(preds, x, w, ddpm, coef, **kw), 100)
+    t_w = cuda_ms(lambda: ops.fused_convert_and_fuse(
+        preds, x, w, objectives, schedules, tb), 50)
+    t_p = graph_ms(lambda: ref.ref_hetero_fuse(
+        preds, x, w, ddpm, alpha, sigma, dalpha, dsigma, vscale, **kw), 50)
+    n_ddpm = int(ddpm.sum().item())
+    nbytes = 4.0 * (k * b * t + 2 * b * t + b * k + 5 * k * b) + k
+    flops = 12.0 * n_ddpm * b * t + 2.0 * k * b * t
+    t_b, by = bound_ms(nbytes, flops)
+    row = dict(K=k, B=b, T=t, ddpm=n_ddpm, max_abs_err=err, tol=0.0, ms=t_k,
+               wrapper_ms=t_w, plain_ms=t_p, library_ms=None, bound_ms=t_b,
+               bound_by=by)
+    print("hetero_fuse case " + json.dumps(row))
+    if not (bool(torch.isfinite(got).all()) and torch.equal(got, want)):
+        fail(f"hetero_fuse disagrees with its plain version: {row}")
+
+    # its path: the per-step fusion op of Fig. 2, as a caller runs it
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    fused = ops.fused_convert_and_fuse(preds, x, w, objectives, schedules,
+                                       tb)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    print("fused_convert_and_fuse launches " + json.dumps(launches))
+    if launches != dict(dict.fromkeys(ops.LAUNCHES, 0), hetero_fuse=1):
+        fail(f"fused_convert_and_fuse launched {launches}")
+    ident = torch.tensor([1.0, 0.0, 0.0, 1.0, 1.0], device=dev)
+    unified = torch.where(ddpm[None, :, None], coef, ident[:, None, None])
+    velocity = ops.fused_velocity(preds, x, w, unified)
+    torch.cuda.synchronize()
+    print("fused_convert_and_fuse vs fused_velocity " + json.dumps(dict(
+        max_abs_diff=rel_err(fused, velocity)[0],
+        max_abs=velocity.abs().max().item())))
+    if not torch.equal(fused, velocity):
+        fail("fused_convert_and_fuse differs from fused_velocity given the "
+             "matching unified coefficients")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None,
+                bound_ms=t_b, bound_by=by,
+                launches=launches["hetero_fuse"])
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the serving main paths
 # ---------------------------------------------------------------------------
@@ -458,13 +720,19 @@ def write_ensemble(path, dit_cfg, router_cfg, dev, seed):
                     metadata={"num_clusters": len(MIX)})
 
 
-def expected_launches(cfg, ops, param_dtype: str, step_fused: bool,
-                      requests: int) -> dict:
+def expected_launches(cfg, router_cfg, ops, param_dtype: str,
+                      step_fused: bool, requests: int) -> dict:
     """Kernel launches of ``requests`` batched-CFG requests of ``STEPS``
-    steps, computed from the DiT config and the wrapper's row-tile rule.
+    steps, computed from the DiT and router configs and the wrapper's
+    row-tile rule.
 
-    One ragged forward per step (cond and uncond batched, ``g = 2``) runs
-    one ragged GEMM per dense layer, each over row groups of width ``m``.
+    Per step, the router's dense forward runs two AdaLN launches (msa,
+    mlp) and one attention launch per layer.  One ragged forward (cond
+    and uncond batched, ``g = 2``) runs three AdaLN launches per layer
+    (msa, the LayerNorm before cross-attention, mlp) and one for the
+    final layer, one attention launch per layer (layer 0's on the
+    per-pair prefix), and one ragged GEMM per dense layer, each over row
+    groups of width ``m``.
     A quantized store contracts the tiled widths in its int8/fp8 body and
     the others in the float32 body after one dequant of the weights; it
     also dequantizes every bias it adds and the four embedding leaves the
@@ -488,6 +756,10 @@ def expected_launches(cfg, ops, param_dtype: str, step_fused: bool,
     n = STEPS * requests
     want = dict.fromkeys(ops.LAUNCHES, 0)
     want["hetero_fuse_step" if step_fused else "hetero_fuse_coeffs"] = n
+    lns = 3 if cfg.use_text else 2
+    want["adaln_fuse"] = (2 * router_cfg.num_layers
+                          + lns * layers + 1) * n
+    want["flash_attention"] = (router_cfg.num_layers + layers) * n
     if param_dtype in ("int8", "fp8"):
         tiled = sum(ops.ragged_block_m(m) is not None for m in widths)
         narrow = len(widths) - tiled
@@ -586,7 +858,8 @@ def serve_full_width(ops, dev) -> tuple[dict, dict]:
     launches = {}
     outs, launches["native"] = serve_path(
         ops, engines["native"], "native", texts, seeds,
-        expected_launches(dit_cfg, ops, "native", True, REQUESTS),
+        expected_launches(dit_cfg, router_cfg, ops, "native", True,
+                          REQUESTS),
         mems["native"])
     for name, kw in (("unfused", dict(step_fused=False)),
                      ("bf16", dict(param_dtype="bf16")),
@@ -595,7 +868,8 @@ def serve_full_width(ops, dev) -> tuple[dict, dict]:
         engines[name], mems[name] = load(**kw)
         path_outs, launches[name] = serve_path(
             ops, engines[name], name, texts, seeds,
-            expected_launches(dit_cfg, ops, engines[name].sampler.param_dtype,
+            expected_launches(dit_cfg, router_cfg, ops,
+                              engines[name].sampler.param_dtype,
                               engines[name].sampler.step_fused, REQUESTS),
             mems[name])
         for i, (out, ref_out) in enumerate(zip(path_outs, outs)):
@@ -656,35 +930,41 @@ def profile_request(engine, label: str) -> None:
         "ms_by_kernel_top12": dict(top)}))
 
 
+#: wrappers whose calls phase 6 records on the GPU and replays on the CPU
+REPLAYED = ("ragged_expert_matmul", "dequant_params", "adaln_modulate",
+            "layernorm", "flash_attention")
+
+
 def replay_on_cpu(ops, engine, text, noise) -> dict:
     """Serve one request on the GPU, recording the inputs and output of
-    every ragged GEMM wrapper call and every dequant call of the path
-    (each call as the model made it, strided weight views included), then
-    replay each call's exact inputs through the CPU plain versions.
-    Returns the worst ``max |Δ| / max |out|`` per wrapper."""
+    every call of the ``REPLAYED`` wrappers (each call as the model made
+    it, strided and broadcast views included), then replay each call's
+    exact inputs through the CPU plain versions.  Returns the worst
+    ``max |Δ| / max |out|`` per wrapper."""
     calls = []
-    real_mm, real_dq = ops.ragged_expert_matmul, ops.dequant_params
+    real = {name: getattr(ops, name) for name in REPLAYED}
 
-    def record(name, real):
+    def record(name, fn):
         def call(*args, **kw):
-            out = real(*args, **kw)
-            calls.append((name, real, args, kw, out))
+            out = fn(*args, **kw)
+            calls.append((name, fn, args, kw, out))
             return out
         return call
 
-    ops.ragged_expert_matmul = record("ragged_expert_matmul", real_mm)
-    ops.dequant_params = record("dequant_params", real_dq)
+    for name in REPLAYED:
+        setattr(ops, name, record(name, real[name]))
     try:
         latents = engine.generate(0, text, BATCH, noise=noise)
     finally:
-        ops.ragged_expert_matmul, ops.dequant_params = real_mm, real_dq
+        for name in REPLAYED:
+            setattr(ops, name, real[name])
 
     def cpu(a):
         return a.cpu() if isinstance(a, torch.Tensor) else a
 
     worst = {}
-    for name, real, args, kw, out in calls:
-        want = real(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
+    for name, fn, args, kw, out in calls:
+        want = fn(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
         err, scale = rel_err(out.cpu().float(), want.float())
         worst[name] = max(worst.get(name, 0.0), err / max(scale, 1e-30))
     worst["calls"] = len(calls)
@@ -702,10 +982,11 @@ def compare_gpu_cpu(ops, dev) -> None:
     activation's rounding (1/127 of it for int8, 1/16 for fp8), and the
     DDPM conversion near t = 1 divides by α_min = 0.01 — the GPU and CPU
     latents drift apart as the CPU run drifts from itself under a 2-ulp
-    change of its starting noise (both printed).  Instead every GEMM and
-    dequant call of the GPU request is replayed on the CPU with its exact
-    inputs and must agree within ``1e-5 · max|out|`` (the dequant calls
-    bitwise): the card quantizes activations exactly as the CPU does.
+    change of its starting noise (both printed).  Instead every GEMM,
+    dequant, AdaLN and attention call of the GPU request is replayed on
+    the CPU with its exact inputs and must agree within
+    ``1e-5 · max|out|`` (the dequant calls bitwise): the card quantizes
+    activations exactly as the CPU does.
     """
     from repro_torch.core.sampling import SamplerConfig
     from repro_torch.launch.serve import ServingEngine
@@ -751,15 +1032,18 @@ def compare_gpu_cpu(ops, dev) -> None:
             0, text, BATCH,
             noise=(noise * np.float32(1 + 2 ** -22)).astype(np.float32))
         print("reduced gpu-vs-cpu " + json.dumps(dict(
-            path=name, replayed_calls=worst["calls"],
-            ragged_expert_matmul_rel_err=worst["ragged_expert_matmul"],
-            dequant_params_rel_err=worst["dequant_params"],
-            tol=GEMM_REL_TOL, latents_gpu_vs_cpu=rel_err(gpu, cpu)[0],
+            path=name, replayed_calls=worst.pop("calls"),
+            rel_err_by_wrapper=worst, tol=GEMM_REL_TOL,
+            norm_attn_tol=NORM_ATTN_REL_TOL,
+            latents_gpu_vs_cpu=rel_err(gpu, cpu)[0],
             latents_cpu_vs_cpu_noise_2ulp=rel_err(moved, cpu)[0],
             max_abs=cpu.abs().max().item())))
         if not (bool(torch.isfinite(gpu).all())
+                and set(worst) == set(REPLAYED)
                 and worst["ragged_expert_matmul"] <= GEMM_REL_TOL
-                and worst["dequant_params"] == 0.0):
+                and worst["dequant_params"] == 0.0
+                and all(worst[n] <= NORM_ATTN_REL_TOL for n in (
+                    "adaln_modulate", "layernorm", "flash_attention"))):
             failed.append(f"{name}: replayed calls {worst}")
     shutil.rmtree(path)
     if failed:
@@ -802,7 +1086,12 @@ def main() -> None:
         "hetero_fuse_step": check_fused_step(ops, ref, dev),
         "hetero_fuse_coeffs": check_fuse_coeffs(ops, ref, dev),
         "hetero_fuse_dequant": check_dequant(ops, ref, dev),
+        "adaln_fuse": check_adaln(ops, ref, dev),
+        "flash_attention": check_flash(ops, ref, dev),
+        "hetero_fuse": check_hetero_fuse(ops, ref, dev),
     }
+    # the flag-form fuse kernel's path is its entry point, driven above
+    launches_fuse = summary["hetero_fuse"].pop("launches")
 
     launches, engines = serve_full_width(ops, dev)
     profile_request(engines["native"], "native")
@@ -813,7 +1102,10 @@ def main() -> None:
     # each kernel's launches on the served path that exercises it
     where = {"ragged_gemm": "native", "ragged_gemm_int8": "int8",
              "ragged_gemm_fp8": "fp8", "hetero_fuse_step": "native",
-             "hetero_fuse_coeffs": "unfused", "hetero_fuse_dequant": "int8"}
+             "hetero_fuse_coeffs": "unfused", "hetero_fuse_dequant": "int8",
+             "adaln_fuse": "native", "flash_attention": "native",
+             "hetero_fuse": "fused_convert_and_fuse"}
+    launches["fused_convert_and_fuse"] = {"hetero_fuse": launches_fuse}
     sources = {
         "ragged_gemm": ("ragged_gemm.cu", "ragged_gemm.py:73"),
         "ragged_gemm_int8": ("ragged_gemm.cu", "ragged_gemm.py:148"),
@@ -821,6 +1113,9 @@ def main() -> None:
         "hetero_fuse_step": ("hetero_fuse.cu", "hetero_fuse.py:161"),
         "hetero_fuse_coeffs": ("hetero_fuse.cu", "hetero_fuse.py:95"),
         "hetero_fuse_dequant": ("hetero_fuse.cu", "hetero_fuse.py:231"),
+        "adaln_fuse": ("adaln_fuse.cu", "adaln_fuse.py:34"),
+        "flash_attention": ("flash_attention.cu", "flash_attention.py:82"),
+        "hetero_fuse": ("hetero_fuse.cu", "hetero_fuse.py:266"),
     }
     kernels = []
     for name, (src, tpu) in sources.items():

@@ -1,6 +1,6 @@
 // Heterogeneous convert + fuse kernels for Hopper (sm_90a), float32:
-// the step-fused update, the velocity-only fuse, and the dequantization
-// of quantized expert leaves.
+// the step-fused update, the velocity-only fuse (coefficient and flag
+// forms), and the dequantization of quantized expert leaves.
 //
 // hetero_fuse_step replaces the TPU kernel repro/kernels/hetero_fuse.py:161
 // `hetero_fuse_step`.  Per latent element (b, t):
@@ -16,6 +16,13 @@
 // `hetero_fuse_coeffs` (the unfused step path): the same per-slot
 // conversion and Σ_k over one (K, B, T) batch, writing the fused velocity;
 // the CFG combine and the Euler update follow as separate ops.
+//
+// hetero_fuse_flags replaces repro/kernels/hetero_fuse.py:266 `hetero_fuse`
+// (body `_fuse_kernel`, :49), the flag form behind ops.fused_convert_and_fuse
+// (the per-step fusion op of Fig. 2): per expert an `is_ddpm` flag and raw
+// (K, B) coefficients; DDPM experts convert as above, FM experts pass their
+// prediction through (a select, exactly as the plain version's `where`),
+// and Σ_k w_k v_k is written.
 //
 // hetero_fuse_dequant replaces repro/kernels/hetero_fuse.py:231
 // `hetero_fuse_dequant`: out[r, t] = float(q[r, t]) · scale[r] for int8 or
@@ -123,6 +130,42 @@ hetero_fuse_coeffs_kernel(const float* __restrict__ preds,   // (K, B, T)
   out[i] = acc;
 }
 
+__global__ void __launch_bounds__(THREADS)
+hetero_fuse_flags_kernel(const float* __restrict__ preds,    // (K, B, T)
+                         const float* __restrict__ x,        // (B, T)
+                         const float* __restrict__ w,        // (B, K)
+                         const uint8_t* __restrict__ ddpm,   // (K,)
+                         const float* __restrict__ coef,     // (5, K, B)
+                         float* __restrict__ out,            // (B, T)
+                         int K, int B, int T, float clamp,
+                         float alpha_min) {
+  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= (int64_t)B * T) return;
+  const int b = static_cast<int>(i / T);
+  const int t = static_cast<int>(i % T);
+  const int64_t kb = (int64_t)K * B;
+  const float xt = x[i];
+  float acc = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const int64_t slot = (int64_t)k * B + b;                 // (k, b)
+    const float p = preds[slot * T + t];
+    float v = p;
+    if (ddpm[k]) {
+      const float alpha = coef[slot];
+      const float sigma = coef[slot + kb];
+      const float dalpha = coef[slot + 2 * kb];
+      const float dsigma = coef[slot + 3 * kb];
+      const float vscale = coef[slot + 4 * kb];
+      const float a = fmaxf(alpha, alpha_min);
+      float x0 = (xt - sigma * p) / a;
+      x0 = fminf(fmaxf(x0, -clamp), clamp);
+      v = (dalpha * x0 + dsigma * p) * vscale;
+    }
+    acc = acc + w[(int64_t)b * K + k] * v;
+  }
+  out[i] = acc;
+}
+
 __device__ __forceinline__ float q_to_f32(int8_t v) {
   return static_cast<float>(v);
 }
@@ -216,6 +259,24 @@ extern "C" int hetero_fuse_coeffs_f32(const float* preds, const float* x,
     hetero_fuse_coeffs_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
         preds, x, w, coef, out, K, B, T, clamp, alpha_min);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// All operands contiguous on the device: float32, except is_ddpm (K,)
+// bytes (0 = FM, else DDPM).  Launches on `stream`, allocates nothing,
+// returns cudaGetLastError().
+extern "C" int hetero_fuse_flags_f32(const float* preds, const float* x,
+                                     const float* w, const uint8_t* is_ddpm,
+                                     const float* coef, float* out, int K,
+                                     int B, int T, float clamp,
+                                     float alpha_min, void* stream) {
+  const int64_t n = (int64_t)B * T;
+  if (n > 0) {
+    const int64_t blocks = (n + THREADS - 1) / THREADS;
+    hetero_fuse_flags_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        preds, x, w, is_ddpm, coef, out, K, B, T, clamp, alpha_min);
   }
   return static_cast<int>(cudaGetLastError());
 }

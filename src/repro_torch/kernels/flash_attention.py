@@ -1,0 +1,93 @@
+"""Launcher of the CUDA flash attention kernel (``csrc/flash_attention.cu``).
+
+Replaces the TPU kernel ``repro/kernels/flash_attention.py:82``
+(``flash_attention``): online-softmax attention over equal q and kv
+lengths with float32 accumulation, optional causal and sliding-window
+masks and a softmax scale (default ``1/sqrt(D)``), in the reference's
+``(B, H, S, D)`` layout.  k and v may carry fewer heads than q (grouped
+query attention: query head ``h`` reads kv head ``h // (Hq / Hkv)``).
+Any ``S`` works (partial tiles are masked).  Its plain version is
+``kernels.ref.ref_flash_attention``; the model code reaches both through
+``kernels.ops.flash_attention`` and ``kernels.ops.flash_attention_gqa``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_D = 256
+_MAX_HEADS = 65535             # CUDA grid y limit on B·H
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _fn():
+    fn = _build.load_library("flash_attention").flash_attention
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i] + [ll] * 12 \
+        + [i, i, ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(
+    q: torch.Tensor,          # (B, H, S, D)
+    k: torch.Tensor,          # (B, Hkv, S, D)
+    v: torch.Tensor,          # (B, Hkv, S, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; returns ``(B, H, S, D)`` in
+    ``q``'s dtype, laid out in memory as ``q`` is (a transposed
+    ``(B, S, H, D)`` view of the DiT's projections gives a transposed
+    output, which reshapes back without a copy).
+
+    q, k and v may be any strided views whose last axis is contiguous.
+    Raises on anything the kernel does not take, and if the launch fails.
+    """
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bf16 q, k, v of "
+                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention launches on CUDA tensors only")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention operands must share one device")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be (B, H, S, D) and k, v (B, Hkv, S, D), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d):
+        raise ValueError(f"q and kv lengths must be equal: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
+    if d > MAX_D:
+        raise ValueError(f"head dim {d} exceeds the kernel's {MAX_D}")
+    if b * h > _MAX_HEADS:
+        raise ValueError(f"B·H = {b * h} exceeds the grid limit "
+                         f"{_MAX_HEADS}")
+    if d > 1 and any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v must have a contiguous last axis")
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    if out.stride(-1) != 1 and d > 1:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               _DTYPES[q.dtype], b, h, hkv, s, d, *strides, int(causal),
+               int(window), scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    return out

@@ -7,6 +7,9 @@
 * ``hetero_fuse_coeffs`` replaces ``repro/kernels/hetero_fuse.py:95``:
   the conversion and fusion alone, writing the fused velocity — the
   unfused step path (``ops.fused_velocity``);
+* ``hetero_fuse`` replaces ``repro/kernels/hetero_fuse.py:266``: the flag
+  form of the conversion and fusion, with per-expert ``is_ddpm`` flags
+  and raw ``(K, B)`` schedule coefficients (``ops.fused_convert_and_fuse``);
 * ``hetero_fuse_dequant`` replaces ``repro/kernels/hetero_fuse.py:231``:
   ``float(q)·scale[r]`` over int8/e4m3 rows, cast to float32 or bf16 —
   every expansion of a quantized expert leaf (``ops.dequant_params``).
@@ -29,6 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "hetero_fuse_step_f32": [_P] * 6 + [_I] * 5 + [_F] * 3 + [_P],
     "hetero_fuse_coeffs_f32": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P],
+    "hetero_fuse_flags_f32": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P],
     "hetero_fuse_dequant": [_P, _I, _P, _P, _I, ctypes.c_longlong,
                             ctypes.c_longlong, _I, _P],
 }
@@ -117,6 +121,40 @@ def hetero_fuse_coeffs(
     _launched("hetero_fuse_coeffs", _fn("hetero_fuse_coeffs_f32")(
         preds.data_ptr(), x_t.data_ptr(), weights.data_ptr(),
         coef.data_ptr(), out.data_ptr(), k, b, t, clamp, alpha_min, stream))
+    return out
+
+
+def hetero_fuse(
+    preds: torch.Tensor,      # (K, B, T) native expert predictions
+    x_t: torch.Tensor,        # (B, T)
+    weights: torch.Tensor,    # (B, K) router weights
+    is_ddpm: torch.Tensor,    # (K,) bool
+    coef: torch.Tensor,       # (5, K, B) raw α, σ, α′, σ′, vscale
+    *,
+    clamp: float = 20.0,
+    alpha_min: float = 0.01,
+) -> torch.Tensor:
+    """Launch the flag-form kernel on CUDA float32 tensors (``is_ddpm``
+    bool; the reference kernel's five ``(K, B)`` coefficient operands
+    stacked as it stacks them); returns the fused velocity ``(B, T)``."""
+    _check_f32("hetero_fuse", (preds, x_t, weights, coef))
+    if is_ddpm.dtype != torch.bool or not is_ddpm.is_cuda \
+            or is_ddpm.device != preds.device:
+        raise TypeError("is_ddpm must be a bool tensor on the operands' "
+                        "device")
+    k, b, t = preds.shape
+    if tuple(x_t.shape) != (b, t) or tuple(weights.shape) != (b, k) \
+            or tuple(coef.shape) != (5, k, b) or tuple(is_ddpm.shape) != (k,):
+        raise ValueError(
+            f"shape mismatch: preds {tuple(preds.shape)}, x_t "
+            f"{tuple(x_t.shape)}, weights {tuple(weights.shape)}, coef "
+            f"{tuple(coef.shape)}, is_ddpm {tuple(is_ddpm.shape)}")
+    out = torch.empty_like(x_t)
+    stream = torch.cuda.current_stream(x_t.device).cuda_stream
+    _launched("hetero_fuse", _fn("hetero_fuse_flags_f32")(
+        preds.data_ptr(), x_t.data_ptr(), weights.data_ptr(),
+        is_ddpm.contiguous().data_ptr(), coef.data_ptr(), out.data_ptr(),
+        k, b, t, clamp, alpha_min, stream))
     return out
 
 

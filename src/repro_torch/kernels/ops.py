@@ -14,15 +14,21 @@ import math
 
 import torch
 
+from repro_torch.core.conversion import ConversionConfig, velocity_scale
+from repro_torch.core.schedules import Schedule
 from repro_torch.kernels import hetero_fuse as _fuse
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.adaln_fuse import adaln_fuse as _adaln_fuse
+from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.ragged_gemm import ragged_gemm as _ragged_gemm
 
 #: CUDA launches per kernel since the last ``reset_launches()``.
-#: ``ragged_gemm`` counts the dense (float32/bf16 weight) body.
+#: ``ragged_gemm`` counts the dense (float32/bf16 weight) body;
+#: ``adaln_fuse`` counts ``adaln_modulate`` and ``layernorm``.
 LAUNCHES = {"ragged_gemm": 0, "ragged_gemm_int8": 0, "ragged_gemm_fp8": 0,
             "hetero_fuse_step": 0, "hetero_fuse_coeffs": 0,
-            "hetero_fuse_dequant": 0}
+            "hetero_fuse_dequant": 0, "hetero_fuse": 0, "adaln_fuse": 0,
+            "flash_attention": 0}
 
 _QUANT_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
@@ -113,6 +119,137 @@ def fused_velocity(
         out = _ref.ref_hetero_fuse_coeffs(pf, xf, weights, cf, clamp=clamp,
                                           alpha_min=alpha_min)
     return out.reshape((b,) + latent_shape)
+
+
+def fused_convert_and_fuse(
+    preds: torch.Tensor,          # (K, B, *latent) native predictions
+    x_t: torch.Tensor,            # (B, *latent)
+    weights: torch.Tensor,        # (B, K) router weights
+    objectives: list[str],        # per-expert 'ddpm' | 'fm'
+    schedules: list[Schedule],
+    t: torch.Tensor,              # (B,) native time
+    conv: ConversionConfig = ConversionConfig(),
+) -> torch.Tensor:
+    """The per-step fusion op of Fig. 2 from objectives and schedules:
+    per expert and sample the schedule's α, σ and their derivatives
+    (analytic or §8.3.3 finite differences) and the Eq. 31 dampening for
+    DDPM experts, then the flag-form convert-and-fuse kernel over the
+    flattened latents.  Returns the fused velocity ``(B, *latent)``."""
+    for obj in objectives:
+        if obj not in ("ddpm", "fm"):
+            raise ValueError(f"unknown objective {obj!r}")
+    k, b = preds.shape[0], preds.shape[1]
+    latent_shape = tuple(preds.shape[2:])
+    t = torch.as_tensor(t, device=preds.device)
+    alpha = torch.stack([s.alpha(t) for s in schedules])          # (K, B)
+    sigma = torch.stack([s.sigma(t) for s in schedules])
+    if conv.derivative_mode == "fd":
+        d = [s.fd_derivs(t) for s in schedules]
+    else:
+        d = [s.derivs(t) for s in schedules]
+    dalpha = torch.stack([x[0] for x in d])
+    dsigma = torch.stack([x[1] for x in d])
+    is_ddpm = torch.tensor([o == "ddpm" for o in objectives],
+                           device=preds.device)
+    vs = velocity_scale(t, conv.velocity_scaling)                 # (B,)
+    vscale = torch.where(is_ddpm[:, None], vs[None], 1.0)
+    pf = preds.reshape(k, b, -1)
+    xf = x_t.reshape(b, -1)
+    kw = dict(clamp=conv.clamp, alpha_min=conv.alpha_min)
+    if preds.is_cuda:
+        coef = torch.stack([alpha, sigma, dalpha, dsigma, vscale]).to(
+            torch.float32)                                        # (5, K, B)
+        out = _fuse.hetero_fuse(pf.contiguous(), xf.contiguous(),
+                                weights.contiguous(), is_ddpm, coef, **kw)
+        LAUNCHES["hetero_fuse"] += 1
+    else:
+        out = _ref.ref_hetero_fuse(pf, xf, weights, is_ddpm, alpha, sigma,
+                                   dalpha, dsigma, vscale, **kw)
+    return out.reshape((b,) + latent_shape)
+
+
+def adaln_modulate(
+    x: torch.Tensor,          # (B, ..., D)
+    gamma: torch.Tensor,      # (B, D)
+    beta: torch.Tensor,       # (B, D)
+    *,
+    eps: float = 1e-6,
+    round_scale: bool = False,
+) -> torch.Tensor:
+    """AdaLN modulation ``LN(x)·(1+γ)+β`` (paper Eqs. 17/19): LayerNorm
+    without affine in float32, ``γ``/``β`` per leading index, the output
+    in ``x``'s dtype.  ``round_scale`` computes ``1 + γ`` in ``γ``'s dtype,
+    as the DiT's ``1.0 + γ`` does for bf16 modulations (the reference's
+    ``ops.adaln_modulate`` computes it in float32).  ``x`` may be a
+    broadcast view; on the card it is read without a copy."""
+    if not x.is_cuda:
+        return _ref.ref_adaln_fuse(x, gamma, beta, eps,
+                                   round_scale=round_scale)
+    out = _adaln_fuse(_rows_view(x), gamma, beta, eps=eps,
+                      round_scale=round_scale)
+    LAUNCHES["adaln_fuse"] += 1
+    return out.reshape(x.shape)
+
+
+def layernorm(x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis without affine (γ = β = 0 of
+    ``adaln_modulate``; the DiT's LayerNorm before cross-attention), in
+    ``x``'s dtype."""
+    if not x.is_cuda:
+        return _ref.ref_adaln_fuse(x, None, None, eps)
+    out = _adaln_fuse(_rows_view(x), None, None, eps=eps)
+    LAUNCHES["adaln_fuse"] += 1
+    return out.reshape(x.shape)
+
+
+def _rows_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernel's ``(B, S, D)`` or ``(B, G, S, D)``: other ranks
+    merge their middle axes (a copy only where they cannot be merged)."""
+    if x.dim() in (3, 4):
+        return x
+    if x.dim() < 2:
+        raise ValueError(f"adaln needs (B, ..., D), got {tuple(x.shape)}")
+    return x.reshape(x.shape[0], -1, x.shape[-1])
+
+
+def flash_attention(
+    q: torch.Tensor,          # (B, H, S, D)
+    k: torch.Tensor,          # (B, Hkv, S, D)
+    v: torch.Tensor,          # (B, Hkv, S, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    """Attention over equal q/kv lengths in the reference's ``(B, H, S, D)``
+    layout: causal and sliding-window masks, softmax scale (default
+    ``1/sqrt(D)``), float32 accumulation, output in ``q``'s dtype.  k and v
+    may carry fewer heads (``Hq % Hkv == 0``; query head ``h`` reads kv head
+    ``h // (Hq/Hkv)``).  Strided views are read without a copy on the card,
+    and the output is laid out as ``q`` is."""
+    hq, hkv = q.shape[1], k.shape[1]
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv "
+                         f"heads")
+    if q.is_cuda:
+        out = _flash(q, k, v, causal=causal, window=window,
+                     softmax_scale=softmax_scale)
+        LAUNCHES["flash_attention"] += 1
+        return out
+    if hq != hkv:
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+    return _ref.ref_flash_attention(q, k, v, causal=causal, window=window,
+                                    softmax_scale=softmax_scale)
+
+
+def flash_attention_gqa(q, k, v, *, causal=True, window=0,
+                        softmax_scale=None) -> torch.Tensor:
+    """GQA front end: q ``(B, Hq, S, D)``, k/v ``(B, Hkv, S, D)``.  The
+    reference repeats kv heads before its MHA kernel; the port's kernel
+    indexes kv head ``h // (Hq/Hkv)`` in place (same result, no copy)."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softmax_scale=softmax_scale)
 
 
 def dequant_params(

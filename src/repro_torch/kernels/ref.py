@@ -9,6 +9,8 @@ version on the card.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -119,3 +121,94 @@ def ref_ragged_gemm(
         y = (y * x_scale.to(torch.float32)[:, None]) \
             * w_scale.to(torch.float32)[row_e][:, None]
     return y
+
+
+def ref_flash_attention(
+    q: torch.Tensor,          # (B, H, S, D)
+    k: torch.Tensor,          # (B, H, S, D)
+    v: torch.Tensor,          # (B, H, S, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    """Attention over equal q/kv lengths: float32 logits ``q·kᵀ·scale``,
+    causal (``kpos ≤ qpos``) and sliding-window (``qpos − kpos < window``)
+    masks at ``-1e30``, a float32 softmax over keys, then ``p·v``; the
+    output in ``q``'s dtype."""
+    s, d = q.shape[2], q.shape[3]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    logits = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) \
+        * scale
+    if causal or window:
+        pos = torch.arange(s, device=q.device)
+        qpos, kpos = pos[:, None], pos[None, :]
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window:
+            mask = mask & (qpos - kpos < window)
+        logits = torch.where(mask, logits, logits.new_tensor(-1e30))
+    p = torch.softmax(logits, dim=-1)
+    return (p @ v.to(torch.float32)).to(q.dtype)
+
+
+def ref_adaln_fuse(
+    x: torch.Tensor,                  # (B, ..., D)
+    gamma: torch.Tensor | None,       # (B, D)
+    beta: torch.Tensor | None,        # (B, D)
+    eps: float = 1e-6,
+    *,
+    round_scale: bool = False,
+) -> torch.Tensor:
+    """``LN(x)·(1+γ)+β``: LayerNorm over the last axis without affine
+    (population variance, float32 statistics), modulated per batch row,
+    in float32, then cast to ``x``'s dtype.
+
+    ``gamma = beta = None`` is the plain LayerNorm (γ = β = 0).
+    ``round_scale`` computes ``1 + γ`` in ``γ``'s dtype (rounded to bf16
+    for bf16 modulations), as the DiT's ``1.0 + γ`` does; the reference's
+    kernel computes it in float32.
+    """
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    if gamma is None:
+        return y.to(x.dtype)
+    ex = (gamma.shape[0],) + (1,) * (x.dim() - 2) + (gamma.shape[-1],)
+    scale = (1.0 + gamma) if round_scale else (1.0 + gamma.to(torch.float32))
+    out = y * scale.to(torch.float32).reshape(ex) \
+        + beta.to(torch.float32).reshape(ex)
+    return out.to(x.dtype)
+
+
+def ref_hetero_fuse(
+    preds: torch.Tensor,      # (K, B, T) native expert predictions
+    x_t: torch.Tensor,        # (B, T)
+    weights: torch.Tensor,    # (B, K) router weights
+    is_ddpm: torch.Tensor,    # (K,) bool: needs the ε→v conversion
+    alpha: torch.Tensor,      # (K, B) schedule coefficients per expert/sample
+    sigma: torch.Tensor,      # (K, B)
+    dalpha: torch.Tensor,     # (K, B)
+    dsigma: torch.Tensor,     # (K, B)
+    vscale: torch.Tensor,     # (K, B) Eq. 31 dampening (1 for FM experts)
+    *,
+    clamp: float = 20.0,
+    alpha_min: float = 0.01,
+) -> torch.Tensor:
+    """Flag-form convert-and-fuse (paper Fig. 2): DDPM experts
+    ``x̂0 = clip((x − σε)/max(α, α_min), ±clamp)``,
+    ``v = (α′x̂0 + σ′ε)·vscale``; FM experts pass through; then
+    ``Σ_k w_k v_k`` summed in expert order from 0, as the kernel does."""
+    a = torch.clamp(alpha, min=alpha_min)[..., None]
+    x0h = (x_t[None] - sigma[..., None] * preds) / a
+    x0h = torch.clamp(x0h, -clamp, clamp)
+    v_conv = (dalpha[..., None] * x0h + dsigma[..., None] * preds) \
+        * vscale[..., None]
+    v = torch.where(is_ddpm.to(torch.bool)[:, None, None], v_conv, preds)
+    w = weights.movedim(-1, 0)[..., None]                  # (K, B, 1)
+    out = torch.zeros_like(x_t, dtype=torch.float32)
+    for k in range(preds.shape[0]):
+        out = out + w[k] * v[k]
+    return out

@@ -17,6 +17,13 @@ experts, where every dense layer is one ragged grouped GEMM
 (``kernels.ops.ragged_expert_matmul``) over all routed (sample, slot)
 pairs, from any store's ``ragged_view()`` — dense leaves, or quantized
 ``QuantLeaf``s whose weights reach the GEMM as int8/fp8 bytes.
+
+In both, every LayerNorm — modulated (``kernels.ops.adaln_modulate``)
+or not (``kernels.ops.layernorm``, before cross-attention) — and every
+self-attention (``kernels.ops.flash_attention``, non-causal) goes
+through the port's kernels; cross-attention (256 queries over 77 text
+tokens, unequal lengths the attention kernel does not take) stays
+plain ops (``layers.attention``).
 """
 
 from __future__ import annotations
@@ -175,8 +182,21 @@ def global_modulation(cfg: DiTConfig, params, tau: torch.Tensor):
     return c.expand(b, cfg.num_layers, 6, cfg.d_model)
 
 
-def _modulate(x, gamma, beta):
-    return x * (1.0 + gamma[:, None]) + beta[:, None]
+def _modulate_ln(x, gamma, beta):
+    """``LN(x)·(1+γ)+β`` with ``1 + γ`` in γ's dtype, as the reference DiT's
+    ``layernorm({}, x) * (1.0 + γ) + β`` rounds it (bf16 modulations of a
+    bf16 store)."""
+    return ops.adaln_modulate(x, gamma, beta, round_scale=True)
+
+
+def _attend(q, k, v):
+    """Non-causal self-attention of ``(B, S, H, D)`` projections through
+    the attention kernel, read and written in that layout (a transposed
+    view of the kernel's ``(B, H, S, D)``); returns ``(B, S, H·D)``."""
+    b, s = q.shape[0], q.shape[1]
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=False)
+    return out.transpose(1, 2).reshape(b, s, -1)
 
 
 def _layer(tree, layer: int):
@@ -184,11 +204,9 @@ def _layer(tree, layer: int):
 
 
 def _self_attn(cfg: DiTConfig, p, x):
-    d = cfg.d_model
-    hd = d // cfg.num_heads
-    b, s, _ = x.shape
+    hd = cfg.d_model // cfg.num_heads
     q, k, v = L.gqa_project(p, x, cfg.num_heads, cfg.num_heads, hd)
-    return L.dense(p["wo"], L.attention(q, k, v).reshape(b, s, d))
+    return L.dense(p["wo"], _attend(q, k, v))
 
 
 def _cross_attn(cfg: DiTConfig, p, x, text):
@@ -237,12 +255,12 @@ def apply(cfg: DiTConfig, params, x_t: torch.Tensor, t: torch.Tensor, *,
         mod = mods[:, layer]
         g_msa, b_msa, a_msa = mod[:, 0], mod[:, 1], mod[:, 2]
         g_mlp, b_mlp, a_mlp = mod[:, 3], mod[:, 4], mod[:, 5]
-        hn = _modulate(L.layernorm({}, h), g_msa, b_msa)      # Eq. 17
+        hn = _modulate_ln(h, g_msa, b_msa)                    # Eq. 17
         h = h + a_msa[:, None] * _self_attn(cfg, bp["attn"], hn)
         if text is not None:                                  # Eq. 18
             cp = _layer(params["cross_attn"], layer)
-            h = h + _cross_attn(cfg, cp, L.layernorm({}, h), text)
-        hn = _modulate(L.layernorm({}, h), g_mlp, b_mlp)      # Eq. 19
+            h = h + _cross_attn(cfg, cp, ops.layernorm(h), text)
+        hn = _modulate_ln(h, g_mlp, b_mlp)                    # Eq. 19
         h = h + a_mlp[:, None] * L.gelu_mlp(bp["mlp"], hn)
 
     if cfg.num_classes:
@@ -250,7 +268,7 @@ def apply(cfg: DiTConfig, params, x_t: torch.Tensor, t: torch.Tensor, *,
 
     mod = L.dense(params["final_layer"]["mod"], silu(tau))
     shift, scale = torch.chunk(mod, 2, dim=-1)
-    h = L.layernorm({}, h) * (1.0 + scale[:, None]) + shift[:, None]
+    h = _modulate_ln(h, scale, shift)
     out = L.dense(params["final_layer"]["out"], h)
     return unpatchify(out, cfg.patch_size, cfg.latent_size,
                       cfg.latent_channels).to(torch.float32)
@@ -375,7 +393,7 @@ def make_ragged_expert_apply(cfg: DiTConfig):
             nb = h.dim() - 2
             ex = (slice(None),) + (None,) * (nb - 1) + (None,)
             g_msa, b_msa, a_msa = mod[:, 0], mod[:, 1], mod[:, 2]
-            hn = L.layernorm({}, h) * (1.0 + g_msa[ex]) + b_msa[ex]
+            hn = _modulate_ln(h, g_msa, b_msa)
             t_tok = hn.shape[-2]
             q = pd(bp["attn"]["wq"], hn).reshape(-1, t_tok, cfg.num_heads,
                                                  hd)
@@ -383,7 +401,7 @@ def make_ragged_expert_apply(cfg: DiTConfig):
                                                  hd)
             v = pd(bp["attn"]["wv"], hn).reshape(-1, t_tok, cfg.num_heads,
                                                  hd)
-            att = pd(bp["attn"]["wo"], L.attention(q, k, v).reshape(h.shape))
+            att = pd(bp["attn"]["wo"], _attend(q, k, v).reshape(h.shape))
             return h + a_msa[ex] * att
 
         # Prefix: layer-0 self-attention on the per-pair representative —
@@ -417,20 +435,18 @@ def make_ragged_expert_apply(cfg: DiTConfig):
             if text is not None:                           # Eq. 18
                 cp = _layer_view(view["cross_attn"], layer)
                 t_tok = h.shape[-2]
-                hn = L.layernorm({}, h)
+                hn = ops.layernorm(h)
                 q = pd(cp["wq"], hn).reshape(-1, t_tok, cfg.num_heads, hd)
                 k = pd(cp["wk"], text).reshape(-1, t_txt, cfg.num_heads, hd)
                 v = pd(cp["wv"], text).reshape(-1, t_txt, cfg.num_heads, hd)
                 h = h + pd(cp["wo"], L.attention(q, k, v).reshape(h.shape))
-            hn = L.layernorm({}, h) * (1.0 + g_mlp[:, None, None]) \
-                + b_mlp[:, None, None]                     # Eq. 19
+            hn = _modulate_ln(h, g_mlp, b_mlp)             # Eq. 19
             hmid = L.gelu(pd(bp["mlp"]["w1"], hn))
             h = h + a_mlp[:, None, None] * pd(bp["mlp"]["w2"], hmid)
 
         mod = pd(view["final_layer"]["mod"], silu(tau))
         shift, scale = torch.chunk(mod, 2, dim=-1)
-        h = L.layernorm({}, h) * (1.0 + scale[:, None, None]) \
-            + shift[:, None, None]
+        h = _modulate_ln(h, scale, shift)
         out = pd(view["final_layer"]["out"], h)
         out = out.reshape((p_pairs * g,) + tuple(out.shape[2:]))
         return unpatchify(out, ps, cfg.latent_size,

@@ -2,10 +2,13 @@
 
 Parameters are dicts of tensors in the reference layout: a dense weight is
 ``(in, out)`` (not ``nn.Linear``'s ``(out, in)``), so checkpoints of the
-JAX package load without transposes.  Attention is non-causal and
+JAX package load without transposes.  ``attention`` is non-causal and
 unmasked, with the semantics of the reference's ``chunked_attention`` on
 the DiT path: a float32 ``QKᵀ`` scaled by ``1/sqrt(head_dim)``, softmax
-over keys, then ``PV``.
+over keys, then ``PV``.  The DiT's LayerNorms and self-attention go
+through the kernel wrappers (``kernels.ops.layernorm``,
+``adaln_modulate``, ``flash_attention``); ``attention`` serves its
+cross-attention, whose query and text lengths differ.
 """
 
 from __future__ import annotations
@@ -21,20 +24,6 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y
-
-
-def layernorm(params: dict, x: torch.Tensor,
-              eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis with population variance; affine only
-    when ``params`` carries ``scale``/``bias`` (the DiT passes ``{}``)."""
-    x32 = x.to(torch.float32)
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, keepdim=True, unbiased=False)
-    y = (x32 - mu) * torch.rsqrt(var + eps)
-    if "scale" in params:
-        y = y * params["scale"].to(torch.float32) + params["bias"].to(
-            torch.float32)
-    return y.to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,12 @@ cuBLAS/ATen (``rtol = atol = 1e-5`` relative to O(1) operands scaled by
 accumulates exact integers and applies the plain version's two float32
 multiplies, so it is compared bitwise; the step kernel is built without
 FMA contraction and matches its plain version's operation order, so it
-is compared at ``max |Δ| ≤ 1e-6 · max |out|``; the velocity and dequant
-kernels bitwise.
+is compared at ``max |Δ| ≤ 1e-6 · max |out|``; the velocity, flag-form
+fuse and dequant kernels bitwise.  The AdaLN and attention kernels sum
+float32 in another order than ATen (and the attention kernel's online
+softmax rescales as it goes): float32 outputs at ``rtol = atol = 1e-5``;
+bf16 outputs, rounded once from float32 on both sides, within one bf16
+ulp (``rtol = 2⁻⁷``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import pytest
 import torch
 
 from repro_torch.core import param_store
+from repro_torch.core.conversion import velocity_scale
+from repro_torch.core.schedules import get_schedule
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ragged_gemm import ragged_gemm
 
@@ -236,3 +242,181 @@ def test_quantization_on_the_card_is_bitwise_the_cpus(cuda, dtype):
     assert torch.equal(xs_card.cpu(), xs_cpu)
     assert torch.equal(xq_card.cpu().view(torch.uint8),
                        xq_cpu.view(torch.uint8))
+
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+
+
+def _close(got, want):
+    tol = F32_TOL if want.dtype == torch.float32 else BF16_TOL
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16],
+                         ids=["x32", "x16"])
+@pytest.mark.parametrize("mdtype", [torch.float32, torch.bfloat16],
+                         ids=["mod32", "mod16"])
+@pytest.mark.parametrize("shape", [(4, 64, 768), (3, 5, 70)],
+                         ids=["vec", "scalar"])
+def test_adaln_fuse_strided_and_broadcast_x(cuda, xdtype, mdtype, shape):
+    """x as the ragged forward passes it — the ``(P, g, T, d)`` replica
+    broadcast of ``(P, T, d)`` (stride 0 on g) — and as a materialized
+    slice; γ/β as slices of the ``(P, L, 6, d)`` modulation stack.  D 70
+    takes the scalar (unaligned) path."""
+    p, t, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(d + t)
+    base = (3 * torch.randn(p, t, d, generator=gen, device=cuda)
+            + 1).to(xdtype)
+    mods = (0.3 * torch.randn(p, 12, 6, d, generator=gen, device=cuda)
+            ).to(mdtype)
+    gamma, beta = mods[:, 4, 0], mods[:, 4, 1]
+    assert gamma.stride(0) == 12 * 6 * d
+    bcast = base[:, None].expand(p, 2, t, d)
+    wide = torch.randn(p, t, 2 * d, generator=gen, device=cuda).to(xdtype)
+    for x in (base, bcast, wide[..., :d]):
+        for rs in (False, True):
+            ops.reset_launches()
+            got = ops.adaln_modulate(x, gamma, beta, round_scale=rs)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["adaln_fuse"] == 1
+            _close(got, ref.ref_adaln_fuse(x, gamma, beta, round_scale=rs))
+        got = ops.layernorm(x)
+        _close(got, ref.ref_adaln_fuse(x, None, None))
+
+
+def test_adaln_fuse_rounds_one_plus_gamma_to_bf16(cuda):
+    """bf16 modulations: the DiT's ``1.0 + γ`` rounds to bf16 before the
+    multiply; ``round_scale`` gives exactly that product, and without it
+    the kernel keeps ``1 + γ`` in float32 as the reference kernel does."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 32, 256, generator=gen, device=cuda)
+    gamma = (0.05 * torch.randn(2, 256, generator=gen, device=cuda)
+             ).to(torch.bfloat16)
+    beta = torch.zeros(2, 256, dtype=torch.bfloat16, device=cuda)
+    rounded = ops.adaln_modulate(x, gamma, beta, round_scale=True)
+    exact = ops.adaln_modulate(x, gamma, beta)
+    y = ref.ref_adaln_fuse(x, None, None)
+    torch.testing.assert_close(
+        rounded, y * (1.0 + gamma)[:, None].float(), **F32_TOL)
+    torch.testing.assert_close(
+        exact, y * (1.0 + gamma.float())[:, None], **F32_TOL)
+    assert (rounded - exact).abs().max().item() > 1e-3
+
+
+@pytest.mark.parametrize("s", [256, 64, 100], ids=["S256", "S64", "S100"])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0),
+                                           (True, 24), (False, 40)],
+                         ids=["full", "causal", "causal_w24", "w40"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_bshd_views(cuda, s, causal, window, dtype):
+    """q, k, v as the DiT hands them over: ``(B, S, H, D)`` projections
+    seen as ``(B, H, S, D)`` (no transposed copy); S 64 fills one tile,
+    S 100 leaves a partial tile.  The output comes back laid out as q."""
+    gen = torch.Generator(device=cuda).manual_seed(s + window)
+    b, h, d = 3, 4, 64
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=cuda)
+               .to(dtype).transpose(1, 2) for _ in range(3))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.transpose(1, 2).is_contiguous()
+    _close(got, ref.ref_flash_attention(q, k, v, causal=causal,
+                                        window=window))
+
+
+@pytest.mark.parametrize("d", [16, 72, 128])
+def test_flash_attention_head_dims_and_scale(cuda, d):
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(2, 3, 128, d, generator=gen, device=cuda)
+               for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=True, softmax_scale=0.3)
+    _close(got, ref.ref_flash_attention(q, k, v, causal=True,
+                                        softmax_scale=0.3))
+
+
+def test_flash_attention_gqa_indexes_kv_heads(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, 8, 192, 32, generator=gen, device=cuda)
+    k, v = (torch.randn(2, 2, 192, 32, generator=gen, device=cuda)
+            for _ in range(2))
+    ops.reset_launches()
+    got = ops.flash_attention_gqa(q, k, v, causal=True, window=50)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = ref.ref_flash_attention(q, k.repeat_interleave(4, dim=1),
+                                   v.repeat_interleave(4, dim=1),
+                                   causal=True, window=50)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("k,b,t", [(8, 16, 4096), (3, 5, 4099)])
+def test_hetero_fuse_kernel_matches_plain_bitwise(cuda, k, b, t):
+    """The flag form: bitwise against its plain version, and against the
+    velocity kernel given the matching unified coefficients (FM experts
+    as the identity ``(1, 0, 0, 1, 1)``)."""
+    gen = torch.Generator(device=cuda).manual_seed(k + t)
+    preds = 4 * torch.randn(k, b, t, generator=gen, device=cuda)
+    x = 3 * torch.randn(b, t, generator=gen, device=cuda)
+    w = torch.rand(b, k, generator=gen, device=cuda)
+    objectives = ["ddpm", "ddpm"] + ["fm"] * (k - 2)
+    schedules = [get_schedule("cosine" if o == "ddpm" else "linear")
+                 for o in objectives]
+    tb = torch.rand(b, generator=gen, device=cuda)
+    tb[0] = 0.999                           # alpha below alpha_min
+    ops.reset_launches()
+    got = ops.fused_convert_and_fuse(preds, x, w, objectives, schedules, tb)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["hetero_fuse"] == 1
+    ddpm = torch.tensor([o == "ddpm" for o in objectives], device=cuda)
+    alpha = torch.stack([s.alpha(tb) for s in schedules])
+    sigma = torch.stack([s.sigma(tb) for s in schedules])
+    dalpha = torch.stack([s.dalpha(tb) for s in schedules])
+    dsigma = torch.stack([s.dsigma(tb) for s in schedules])
+    vs = velocity_scale(tb, "piecewise")
+    vscale = torch.where(ddpm[:, None], vs[None], 1.0)
+    want = ref.ref_hetero_fuse(preds, x, w, ddpm, alpha, sigma, dalpha,
+                               dsigma, vscale)
+    assert torch.equal(got, want)
+    ident = torch.tensor([1.0, 0.0, 0.0, 1.0, 1.0], device=cuda)
+    coef = torch.stack([alpha, sigma, dalpha, dsigma, vscale])
+    coef = torch.where(ddpm[None, :, None], coef, ident[:, None, None])
+    assert torch.equal(got, ops.fused_velocity(preds, x, w, coef))
+
+
+@pytest.mark.parametrize("with_text", [True, False], ids=["text", "notext"])
+def test_ragged_dit_forward_runs_the_new_kernels(cuda, with_text):
+    """The reduced ragged DiT forward on the card: ``3L + 1`` AdaLN
+    launches with text (msa, cross-attention LayerNorm, mlp per layer,
+    final layer; ``2L + 1`` without), ``L`` attention launches, and the
+    latents of its CPU run within ``1e-4 · max|out|``."""
+    from repro_torch.core.param_store import make_store
+    from repro_torch.models import dit as D
+    from repro_torch.models.config import dit_b2
+    from repro_torch.tree import tree_map
+
+    cfg = dit_b2().reduced(latent_size=16, use_text=with_text)
+    gen = torch.Generator().manual_seed(3)
+    experts = [tree_map(lambda a: a + 0.02 * torch.randn(
+        a.shape, generator=gen), D.init(cfg, gen)) for _ in range(3)]
+    store = make_store(D.stack_expert_params(experts), dtype="native")
+    x = torch.randn(4, 16, 16, 4, generator=gen)
+    t = torch.rand(4, generator=gen)
+    cond = ({"text_emb": torch.randn(4, 2, cfg.text_len, cfg.text_dim,
+                                     generator=gen)} if with_text else {})
+    pe = torch.tensor([0, 2, 1, 2])
+    fwd = D.make_ragged_expert_apply(cfg)
+    want = fwd(store.ragged_view(), x, t, cond, pe, 2)
+    card = make_store(D.stack_expert_params(
+        [tree_map(lambda a: a.to(cuda), e) for e in experts]), dtype="native")
+    ops.reset_launches()
+    got = fwd(card.ragged_view(), x.to(cuda), t.to(cuda),
+              {n: a.to(cuda) for n, a in cond.items()}, pe.to(cuda), 2)
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    assert ops.LAUNCHES["adaln_fuse"] == (3 if with_text else 2) * layers + 1
+    assert ops.LAUNCHES["flash_attention"] == layers
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err

@@ -30,6 +30,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.hetero_fuse import hetero_fuse_step as j_hetero_fuse_step
 from repro.kernels.ragged_gemm import ragged_gemm as j_ragged_gemm
+from repro_torch.core.schedules import get_schedule
 from repro_torch.kernels import ops, ref
 
 GEMM_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -165,9 +166,20 @@ def test_cpu_wrappers_launch_no_kernel():
     ops.fused_velocity(torch.randn(1, 2, 3), torch.randn(2, 3),
                        torch.ones(2, 1), torch.ones(5, 1, 2))
     ops.dequant_params(torch.ones(2, 3, dtype=torch.int8), torch.ones(2))
+    h = torch.randn(2, 5, 8)
+    ops.adaln_modulate(h, torch.zeros(2, 8), torch.zeros(2, 8))
+    ops.layernorm(h)
+    ops.flash_attention(*(torch.randn(1, 2, 5, 4) for _ in range(3)))
+    ops.flash_attention_gqa(torch.randn(1, 2, 5, 4),
+                            *(torch.randn(1, 1, 5, 4) for _ in range(2)))
+    ops.fused_convert_and_fuse(torch.randn(2, 2, 3), torch.randn(2, 3),
+                               torch.ones(2, 2), ["ddpm", "fm"],
+                               [get_schedule("cosine"),
+                                get_schedule("linear")], torch.rand(2))
     assert set(ops.LAUNCHES) == {
         "ragged_gemm", "ragged_gemm_int8", "ragged_gemm_fp8",
-        "hetero_fuse_step", "hetero_fuse_coeffs", "hetero_fuse_dequant"}
+        "hetero_fuse_step", "hetero_fuse_coeffs", "hetero_fuse_dequant",
+        "hetero_fuse", "adaln_fuse", "flash_attention"}
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
