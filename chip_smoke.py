@@ -19,9 +19,12 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    kernel, the AdaLN kernel (at the ragged MLP modulate site, float32,
    with bf16 modulations and in bf16), the attention kernel (the DiT's
    self-attention, and a causal sliding-window GQA case at Mixtral-8x7B's
-   head shape) and the flag-form fuse kernel, whose path
+   head shape), the flag-form fuse kernel, whose path
    ``ops.fused_convert_and_fuse`` is then driven once with the launch
-   counts set to 0 and must equal ``fused_velocity`` bitwise;
+   counts set to 0 and must equal ``fused_velocity`` bitwise, and the SSD
+   scan kernel at mamba2-2.7b's mixer shape (bf16 and float32 strided
+   views of the projection, and ``S`` < chunk), timed beside its plain
+   (sequential) version and the plain chunked algorithm in PyTorch;
 4. loads the full-width heterogeneous DiT-B/2 ensemble — 8 random,
    seeded experts (2 DDPM/cosine + 6 FM/linear) and a router, written to
    checkpoints and loaded once with ``ServingEngine.from_checkpoint_dir``
@@ -43,9 +46,25 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    latents; int8 and fp8 replay every GEMM, dequant, AdaLN and attention
    call of the GPU request on the CPU with the same inputs (their
    latents' spread is printed beside the CPU run's own under a 2-ulp
-   change of its noise).
+   change of its noise);
+7. serves the decentralized LM-expert ensemble at the full width of
+   mamba2-2.7b (64 layers, d 2560, 80 SSD heads, vocab 50280, bf16): two
+   random, seeded experts built on the card with the port's ``init``, a
+   token-prototype router fitted on two seeded corpora, top-1 routing —
+   two ``perplexity`` requests of 4 × 1024 tokens (exactly 128
+   ``ssd_scan`` launches each: 2 experts × 64 layers), one
+   ``decode_greedy`` request (batch 2, prompt 16, 16 new tokens; 0
+   launches: the prompt replays token by token) and one ``zoo.prefill``
+   of 4 × 1024 tokens on one expert (64 launches), with request seconds,
+   tokens/s and device memory; then profiles one scoring request (device
+   ms by kernel and category, idle share);
+8. runs the reduced mamba2 ensemble (float32) on the GPU and on the CPU:
+   fused log-probabilities, prefill logits and state, and greedy tokens
+   must agree, and on the GPU prefill followed by a decode step must
+   reproduce ``forward_train``'s logits.
 
-It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, ...}``.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -90,6 +109,17 @@ E2E_REL_TOL = 1e-4         # latents after 8 CFG-7.5 steps, GPU vs CPU
 #: bf16 timestep path.
 E2E_BF16_REL_TOL = 5e-3
 
+#: SSD scan, chunked kernel against the sequential recurrence: the chunked
+#: algorithm forms every decay factor exp(cum_i − cum_j) from float32
+#: cumulative log-decays that reach |cum| ≈ 200 over a 128-position chunk
+#: (A = −16, dt 0.1), so each factor carries a relative error of an ulp of
+#: |cum| (1.5e-5); three of those.  bf16 y rounds once from float32 on
+#: both sides: one bf16 ulp (BF16_OUT_REL_TOL).
+SSD_REL_TOL = 5e-5
+#: reduced mamba2 ensemble, GPU (kernel, chunked) vs CPU (sequential):
+#: two layers of float32 GEMMs and RMSNorms on top of SSD_REL_TOL.
+LM_REL_TOL = 1e-4
+
 STEPS, BATCH, REQUESTS = 8, 8, 2
 MIX = [("ddpm", "cosine")] * 2 + [("fm", "linear")] * 6
 
@@ -107,6 +137,24 @@ CATEGORIES = (
     ("reduce", "reductions (sums, row absmax)"),
     ("elementwise", "elementwise"),
     ("Memcpy", "copies"),
+    ("Memset", "sets"),
+)
+
+
+#: the LM scoring request's kernel-name fragments -> category
+LM_CATEGORIES = (
+    ("ssd_scan", "ssd_scan (every mixer's chunked scan)"),
+    ("gemm", "cuBLAS bf16 GEMM (projections, unembedding)"),
+    ("nvjet", "cuBLAS bf16 GEMM (projections, unembedding)"),
+    ("xmma", "cuBLAS bf16 GEMM (projections, unembedding)"),
+    ("softmax", "log-softmax"),
+    ("reduce", "reductions (RMSNorm means, logsumexp, histograms)"),
+    ("elementwise", "elementwise (conv taps, silu, softplus, gating, "
+                    "residuals)"),
+    ("CatArrayBatchedCopy", "copies and concatenations"),
+    ("Memcpy", "copies and concatenations"),
+    ("index", "embedding gather, scatter"),
+    ("scatter", "embedding gather, scatter"),
     ("Memset", "sets"),
 )
 
@@ -685,6 +733,115 @@ def check_hetero_fuse(ops, ref, dev) -> dict:
                 launches=launches["hetero_fuse"])
 
 
+#: mamba2-2.7b's mixer in one scoring request (batch 4 × 1024 tokens):
+#: (b, h, s, p, n, chunk)
+SSD_SHAPE = (4, 80, 1024, 64, 128, 128)
+
+
+def _ssd_inputs(dev, b, h, s, p, n, dtype, seed):
+    """x, B, C as the mixer makes them: strided slices of one
+    ``(b, s, h·p + 2n)`` projection (x read as the kernel's ``(B, H, S, P)``
+    view); dt ``(b, s, h)`` float32 = softplus(N/2 + dt_bias) with the
+    init's dt range [0.001, 0.1], read as ``(B, H, S)``; A the init's
+    ``−linspace(1, 16, h)``."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xbc = torch.randn(b, s, h * p + 2 * n, generator=gen,
+                      device=dev).to(dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p).transpose(1, 2)
+    B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt0 = torch.exp(torch.rand(h, generator=gen, device=dev)
+                    * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    dt = F.softplus(0.5 * torch.randn(b, s, h, generator=gen, device=dev)
+                    + torch.log(torch.expm1(dt0)))
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    return x, dt.transpose(1, 2), A, B, C
+
+
+def ssd_work(b, h, s, p, n, q, elt) -> tuple[float, float]:
+    """(operations, bytes) of one scan: the chunked algorithm's products —
+    C·Bᵀ once per (batch, chunk), then per (batch, head, chunk) the
+    intra-chunk (q × q)·(q × P), inter-chunk (q × N)·(N × P) and state
+    (P × q)·(q × N) products — and each input read once, y and the state
+    written once."""
+    chunks = b * (s // q)
+    flops = 2.0 * chunks * q * q * n + 2.0 * chunks * h * (
+        q * q * p + 2 * q * p * n)
+    nbytes = (elt * (2.0 * b * s * h * p + 2.0 * b * s * n)
+              + 4.0 * (b * s * h + h + b * h * p * n))
+    return flops, nbytes
+
+
+def check_ssd_scan(ops, ref, dev) -> dict:
+    """The SSD scan kernel at mamba2-2.7b's mixer shape in one scoring
+    request — x ``(4, 80, 1024, 64)`` bf16 as a strided view of a
+    ``(4, 1024, 80·64 + 256)`` projection, B/C ``(4, 1024, 128)`` strided,
+    dt float32, chunk 128 — in bf16, in float32, and with ``S`` = 100 <
+    chunk.  y and the state against the plain (sequential) version.
+    Times: the kernel, the plain version and the plain chunked algorithm
+    in PyTorch (``mamba2.ssd_chunked``: torch einsums, i.e. cuBLAS); no
+    single PyTorch call computes the scan (library null).  Bound: the
+    convention of the other rows goes by input dtype (bf16 inputs: bf16
+    tensor-core peak and HBM bytes); the float32 CUDA-core figure, the
+    rate the kernel computes at, is printed beside it."""
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    b, h, s, p, n, chunk = SSD_SHAPE
+    cases = (("mixer_bf16", s, torch.bfloat16), ("mixer_f32", s, torch.float32),
+             ("short_bf16", 100, torch.bfloat16))
+    rows = []
+    for name, seq, dtype in cases:
+        x, dt, A, B, C = _ssd_inputs(dev, b, h, seq, p, n, dtype, seed=16)
+        q = min(chunk, seq)
+
+        def kern():
+            return ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+        def plain():
+            return ref.ref_ssd_scan(x.transpose(1, 2), dt.transpose(1, 2), A,
+                                    B, C)
+        (y, state), (wy, ws) = kern(), plain()
+        torch.cuda.synchronize()
+        err, scale = rel_err(y.transpose(1, 2).float(), wy.float())
+        serr, sscale = rel_err(state, ws)
+        tol = (SSD_REL_TOL if dtype == torch.float32 else BF16_OUT_REL_TOL) \
+            * scale
+        ok = (bool(torch.isfinite(y).all()) and y.dtype == dtype
+              and bool(torch.isfinite(state).all()) and err <= tol
+              and serr <= SSD_REL_TOL * sscale)
+        del wy, ws
+        t_k = graph_ms(kern, 10)
+        t_w = cuda_ms(kern, 10)
+        t_p = cuda_ms(plain, 2, warmup=1)
+        t_c = cuda_ms(lambda: ssd_chunked(x.transpose(1, 2),
+                                          dt.transpose(1, 2), A, B, C,
+                                          chunk=chunk), 3, warmup=1)
+        flops, nbytes = ssd_work(b, h, seq, p, n, q, x.element_size())
+        peak = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+        t_b, by = bound_ms(nbytes, flops, peak)
+        t_b32, by32 = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+        row = dict(case=name, x=[b, h, seq, p], N=n, chunk=q,
+                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                   tol=tol, state_err=serr, state_tol=SSD_REL_TOL * sscale,
+                   ms=t_k, wrapper_ms=t_w, plain_ms=t_p,
+                   chunked_torch_ms=t_c, library_ms=None, bound_ms=t_b,
+                   bound_by=by, bound_f32_ms=t_b32, bound_f32_by=by32,
+                   gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                   tflops=flops / t_k / 1e9)
+        print("ssd_scan case " + json.dumps(row))
+        if not ok:
+            fail(f"ssd_scan disagrees with its plain version: {row}")
+        rows.append(row)
+        del x, dt, A, B, C, y, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    main = rows[0]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"])
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the serving main paths
 # ---------------------------------------------------------------------------
@@ -887,28 +1044,23 @@ def serve_full_width(ops, dev) -> tuple[dict, dict]:
     return launches, engines
 
 
-def _category(name: str) -> str:
-    for frag, cat in CATEGORIES:
+def _category(name: str, table=CATEGORIES) -> str:
+    for frag, cat in table:
         if frag.lower() in name.lower():
             return cat
     return "other"
 
 
-def profile_request(engine, label: str) -> None:
-    """One more full-width request under ``torch.profiler``: device ms by
-    kernel and by category, and the device's idle share ``1 − busy /
+def profiled(run, table, **fields) -> None:
+    """``run()`` under ``torch.profiler``: prints device ms by kernel and by
+    category of ``table``, and the device's idle share ``1 − busy /
     profiled wall`` (the profiler's own host cost inflates the wall)."""
-    from repro_torch.models.config import dit_b2
-
-    cfg = dit_b2()
-    text = np.random.default_rng(7).standard_normal(
-        (BATCH, cfg.text_len, cfg.text_dim)).astype(np.float32)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.generate(200, text, BATCH)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict[str, float] = defaultdict(float)
@@ -920,14 +1072,24 @@ def profile_request(engine, label: str) -> None:
         fail("the profiler recorded no device time")
     by_cat: dict[str, float] = defaultdict(float)
     for name, ms in by_name.items():
-        by_cat[_category(name)] += ms
+        by_cat[_category(name, table)] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print("profile " + json.dumps({
-        "path": label, "batch": BATCH, "steps": STEPS,
-        "profiled_request_s": wall, "device_busy_ms": busy,
+        **fields, "profiled_request_s": wall, "device_busy_ms": busy,
         "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
         "ms_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
         "ms_by_kernel_top12": dict(top)}))
+
+
+def profile_request(engine, label: str) -> None:
+    """One more full-width DiT request under ``torch.profiler``."""
+    from repro_torch.models.config import dit_b2
+
+    cfg = dit_b2()
+    text = np.random.default_rng(7).standard_normal(
+        (BATCH, cfg.text_len, cfg.text_dim)).astype(np.float32)
+    profiled(lambda: engine.generate(200, text, BATCH), CATEGORIES,
+             path=label, batch=BATCH, steps=STEPS)
 
 
 #: wrappers whose calls phase 6 records on the GPU and replays on the CPU
@@ -1050,6 +1212,225 @@ def compare_gpu_cpu(ops, dev) -> None:
         fail(f"GPU run differs from the CPU run: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: the LM-expert ensemble (mamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+LM_EXPERTS, LM_BATCH, LM_SEQ, LM_REQUESTS = 2, 4, 1024, 2
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 2, 16, 16
+
+
+def lm_corpora(vocab: int, rng) -> list[np.ndarray]:
+    """Two seeded corpora of 8 × 1024 tokens, one per half of the
+    vocabulary (the two clusters the experts would be trained on)."""
+    half = vocab // 2
+    return [rng.integers(c * half, (c + 1) * half, (8, 1024))
+            for c in range(2)]
+
+
+def lm_request(vocab: int, rng, batch: int, seq: int):
+    """(tokens, labels) ``(batch, seq)``: rows alternate between the two
+    clusters' halves of the vocabulary; labels are the next tokens."""
+    half = vocab // 2
+    toks = np.stack([rng.integers((i % 2) * half, (i % 2 + 1) * half,
+                                  seq + 1) for i in range(batch)])
+    return toks[:, :-1], toks[:, 1:]
+
+
+def lm_ensemble(cfg, experts, seed: int):
+    from repro_torch.core.lm_ensemble import (LMExpertEnsemble,
+                                              TokenPrototypeRouter)
+
+    router = TokenPrototypeRouter.fit(
+        lm_corpora(cfg.vocab_size, np.random.default_rng(seed)),
+        vocab=cfg.vocab_size)
+    return LMExpertEnsemble(cfg=cfg, expert_params=experts, router=router,
+                            strategy="topk", top_k=1)
+
+
+def _check_launches(ops, label: str, ssd: int) -> dict:
+    """The counts since the last reset: exactly ``ssd`` scan launches and
+    no other kernel (the LM path runs no other kernel of the port)."""
+    launches = dict(ops.LAUNCHES)
+    print(f"{label} launches " + json.dumps(launches))
+    want = dict(dict.fromkeys(ops.LAUNCHES, 0), ssd_scan=ssd)
+    if launches != want:
+        fail(f"{label} launched {launches}, expected {want}")
+    return launches
+
+
+def serve_lm_full_width(ops, dev):
+    """Phase 7: the mamba2-2.7b two-expert ensemble at full width.  Returns
+    the scoring path's launches and the ensemble (profiled next)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("mamba2-2.7b")
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    experts = [zoo.init(cfg, torch.Generator(device=dev).manual_seed(21 + k),
+                        dev) for k in range(LM_EXPERTS)]
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() - base
+    build_peak = torch.cuda.max_memory_allocated() - base
+    leaves = tree_leaves(experts[0])
+    n_params = sum(a.numel() for a in leaves)
+    expert_bytes = sum(a.numel() * a.element_size() for a in leaves)
+    ens = lm_ensemble(cfg, experts, seed=8)
+    print(f"full width: mamba2-2.7b, {LM_EXPERTS} experts of {n_params} "
+          f"parameters ({expert_bytes} bytes each), built on the card in "
+          f"{t_init:.1f} s; top-1 token-prototype routing")
+    rng = np.random.default_rng(10)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for i in range(LM_REQUESTS):
+        toks, labels = lm_request(cfg.vocab_size, rng, LM_BATCH, LM_SEQ)
+        tt, tl = torch.from_numpy(toks).to(dev), torch.from_numpy(labels).to(dev)
+        t0 = time.perf_counter()
+        ppl = ens.perplexity(tt, tl)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print("lm request " + json.dumps(dict(
+            path="scoring", request=i, batch=LM_BATCH, tokens=LM_SEQ,
+            seconds=sec, tokens_per_s=LM_BATCH * LM_SEQ / sec,
+            perplexity=ppl, finite=math.isfinite(ppl))))
+        if not (math.isfinite(ppl) and ppl > 1.0):
+            fail(f"scoring request {i}: perplexity {ppl}")
+    launches = {"lm_scoring": _check_launches(
+        ops, "lm_scoring", LM_EXPERTS * cfg.num_layers * LM_REQUESTS)}
+    print("lm_scoring store " + json.dumps(dict(
+        param_dtype=str(cfg.param_dtype).replace("torch.", ""),
+        store_bytes=LM_EXPERTS * expert_bytes, other_bytes=base,
+        resident_bytes=resident, load_peak_bytes=build_peak,
+        serve_peak_bytes=torch.cuda.max_memory_allocated() - base)))
+
+    prompt = torch.from_numpy(lm_request(cfg.vocab_size, rng, DECODE_BATCH,
+                                         DECODE_PROMPT)[0]).to(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = ens.decode_greedy(prompt, DECODE_NEW)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    new = out[:, DECODE_PROMPT:]
+    print("lm request " + json.dumps(dict(
+        path="decode_greedy", batch=DECODE_BATCH, prompt=DECODE_PROMPT,
+        new_tokens=DECODE_NEW, seconds=sec,
+        new_tokens_per_s=DECODE_BATCH * DECODE_NEW / sec,
+        shape=list(out.shape), tokens=new.tolist())))
+    if (tuple(out.shape) != (DECODE_BATCH, DECODE_PROMPT + DECODE_NEW)
+            or not torch.equal(out[:, :DECODE_PROMPT], prompt)
+            or bool(((new < 0) | (new >= cfg.vocab_size)).any())):
+        fail("decode_greedy output is not the prompt and in-vocabulary "
+             "tokens")
+    launches["lm_decode"] = _check_launches(ops, "lm_decode", 0)
+
+    toks = torch.from_numpy(lm_request(cfg.vocab_size, rng, LM_BATCH,
+                                       LM_SEQ)[0]).to(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = zoo.prefill(cfg, experts[0], {"tokens": toks})
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(a).all()) for a in (
+        logits, cache["ssm"], cache["conv"]))
+    print("lm request " + json.dumps(dict(
+        path="prefill", batch=LM_BATCH, tokens=LM_SEQ, seconds=sec,
+        tokens_per_s=LM_BATCH * LM_SEQ / sec, finite=finite,
+        logits=list(logits.shape), ssm_cache=list(cache["ssm"].shape),
+        conv_cache=list(cache["conv"].shape))))
+    if not (finite and tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
+            and tuple(cache["ssm"].shape) == (
+                cfg.num_layers, LM_BATCH, cfg.ssm_nheads, cfg.ssm_headdim,
+                cfg.ssm_state)):
+        fail("prefill output is not finite logits (B, V) and a full cache")
+    launches["lm_prefill"] = _check_launches(ops, "lm_prefill",
+                                             cfg.num_layers)
+    return launches, ens
+
+
+def profile_lm_request(ens) -> None:
+    """One more scoring request (4 × 1024 tokens) under
+    ``torch.profiler``."""
+    toks, labels = lm_request(ens.cfg.vocab_size, np.random.default_rng(11),
+                              LM_BATCH, LM_SEQ)
+    tt, tl = torch.from_numpy(toks).cuda(), torch.from_numpy(labels).cuda()
+    profiled(lambda: ens.perplexity(tt, tl), LM_CATEGORIES,
+             path="lm_scoring", batch=LM_BATCH, tokens=LM_SEQ,
+             experts=LM_EXPERTS)
+
+
+def compare_lm_gpu_cpu(ops, dev) -> None:
+    """Phase 8: the reduced mamba2 ensemble (float32, 2 layers, chunk 16)
+    on the GPU (scan kernel) and on the CPU (plain sequential scan):
+    fused log-probabilities, prefill logits and state within
+    ``LM_REL_TOL · max|out|``, greedy tokens equal (the smallest top-1/top-2
+    gap printed).  On the GPU, prefill followed by a decode step must
+    reproduce ``forward_train``'s logits (the reference's invariant,
+    ``tests/test_arch_smoke.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    cpu_experts = [zoo.init(cfg, torch.Generator().manual_seed(31 + k), "cpu")
+                   for k in range(LM_EXPERTS)]
+    gpu_experts = [tree_map(lambda a: a.to(dev), e) for e in cpu_experts]
+    ens = {"cpu": lm_ensemble(cfg, cpu_experts, seed=9),
+           "gpu": lm_ensemble(cfg, gpu_experts, seed=9)}
+    rng = np.random.default_rng(12)
+    toks = torch.from_numpy(lm_request(cfg.vocab_size, rng, 4, 64)[0])
+    prompt = toks[:2, :8]
+    failed, rows = [], {}
+
+    def check(name, gpu, cpu, tol=LM_REL_TOL):
+        err, scale = rel_err(gpu.cpu().float(), cpu.float())
+        rows[name] = dict(max_abs_err=err, tol=tol * scale, max_abs=scale)
+        if not (bool(torch.isfinite(gpu).all()) and err <= tol * scale):
+            failed.append(f"{name}: {err} > {tol * scale}")
+
+    ops.reset_launches()
+    lp = {d: e.fused_logprobs(toks.to(dev if d == "gpu" else "cpu"))
+          for d, e in ens.items()}
+    check("fused_logprobs", lp["gpu"], lp["cpu"])
+    pre = {d: zoo.prefill(cfg, e.expert_params[0],
+                          {"tokens": toks.to(dev if d == "gpu" else "cpu")})
+           for d, e in ens.items()}
+    check("prefill_logits", pre["gpu"][0], pre["cpu"][0])
+    check("prefill_ssm_state", pre["gpu"][1]["ssm"], pre["cpu"][1]["ssm"])
+    check("prefill_conv_cache", pre["gpu"][1]["conv"], pre["cpu"][1]["conv"])
+    if ops.LAUNCHES["ssd_scan"] != (LM_EXPERTS + 1) * cfg.num_layers:
+        failed.append(f"reduced GPU run launched {ops.LAUNCHES}")
+    out = {d: e.decode_greedy(prompt.to(dev if d == "gpu" else "cpu"), 8)
+           for d, e in ens.items()}
+    gen_lp = ens["cpu"].fused_logprobs(out["cpu"][:, :-1])[:, 7:]
+    top2 = torch.topk(gen_lp, 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).min().item()
+    rows["decode_greedy"] = dict(equal=torch.equal(out["gpu"].cpu(),
+                                                   out["cpu"]),
+                                 min_top2_margin=margin)
+    if not rows["decode_greedy"]["equal"]:
+        failed.append(f"greedy tokens differ (smallest margin {margin})")
+
+    # prefill + one decode step == forward_train, on the GPU
+    experts = ens["gpu"].expert_params
+    full, _ = zoo.forward_train(cfg, experts[1], {"tokens": toks.to(dev)})
+    last, cache = zoo.prefill(cfg, experts[1], {"tokens": toks[:, :48].to(dev)})
+    step, _ = zoo.decode_step(cfg, experts[1], cache,
+                              toks[:, 48:49].to(dev), None)
+    check("gpu_prefill_vs_forward", last, full[:, 47].cpu())
+    check("gpu_decode_vs_forward", step, full[:, 48].cpu())
+    print("lm reduced gpu-vs-cpu " + json.dumps(rows))
+    if failed:
+        fail(f"reduced LM GPU run differs from the CPU run: {failed}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1068,14 +1449,22 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
+    t_phase = time.perf_counter()
+
+    def phase_done(label: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {label} seconds {now - t_phase:.1f}")
+        t_phase = now
+
     logs = _build.build_all()
-    print(f"kernel build {time.perf_counter() - t0:.1f} s "
+    print(f"kernel build {time.perf_counter() - t_phase:.1f} s "
           f"({', '.join(sorted(logs)) or 'cached'})")
     for stem, log in sorted(logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
+    phase_done("2 (build)")
 
     summary = {
         "ragged_gemm": check_ragged_gemm(ops, ref, dev),
@@ -1089,22 +1478,40 @@ def main() -> None:
         "adaln_fuse": check_adaln(ops, ref, dev),
         "flash_attention": check_flash(ops, ref, dev),
         "hetero_fuse": check_hetero_fuse(ops, ref, dev),
+        "ssd_scan": check_ssd_scan(ops, ref, dev),
     }
     # the flag-form fuse kernel's path is its entry point, driven above
     launches_fuse = summary["hetero_fuse"].pop("launches")
+    phase_done("3 (kernels against plain versions)")
 
     launches, engines = serve_full_width(ops, dev)
+    phase_done("4 (DiT serving)")
     profile_request(engines["native"], "native")
     profile_request(engines["int8"], "int8")
     del engines
+    phase_done("5 (DiT profiles)")
     compare_gpu_cpu(ops, dev)
+    phase_done("6 (DiT reduced GPU vs CPU)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lm_launches, ens = serve_lm_full_width(ops, dev)
+    launches.update(lm_launches)
+    profile_lm_request(ens)
+    del ens
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("7 (LM serving and profile)")
+    compare_lm_gpu_cpu(ops, dev)
+    phase_done("8 (LM reduced GPU vs CPU)")
 
     # each kernel's launches on the served path that exercises it
     where = {"ragged_gemm": "native", "ragged_gemm_int8": "int8",
              "ragged_gemm_fp8": "fp8", "hetero_fuse_step": "native",
              "hetero_fuse_coeffs": "unfused", "hetero_fuse_dequant": "int8",
              "adaln_fuse": "native", "flash_attention": "native",
-             "hetero_fuse": "fused_convert_and_fuse"}
+             "hetero_fuse": "fused_convert_and_fuse",
+             "ssd_scan": "lm_scoring"}
     launches["fused_convert_and_fuse"] = {"hetero_fuse": launches_fuse}
     sources = {
         "ragged_gemm": ("ragged_gemm.cu", "ragged_gemm.py:73"),
@@ -1116,6 +1523,7 @@ def main() -> None:
         "adaln_fuse": ("adaln_fuse.cu", "adaln_fuse.py:34"),
         "flash_attention": ("flash_attention.cu", "flash_attention.py:82"),
         "hetero_fuse": ("hetero_fuse.cu", "hetero_fuse.py:266"),
+        "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:86"),
     }
     kernels = []
     for name, (src, tpu) in sources.items():

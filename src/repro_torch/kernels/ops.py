@@ -21,6 +21,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.adaln_fuse import adaln_fuse as _adaln_fuse
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.ragged_gemm import ragged_gemm as _ragged_gemm
+from repro_torch.kernels.ssd_scan import MAX_TILE as _SSD_MAX_TILE
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 
 #: CUDA launches per kernel since the last ``reset_launches()``.
 #: ``ragged_gemm`` counts the dense (float32/bf16 weight) body;
@@ -28,7 +30,7 @@ from repro_torch.kernels.ragged_gemm import ragged_gemm as _ragged_gemm
 LAUNCHES = {"ragged_gemm": 0, "ragged_gemm_int8": 0, "ragged_gemm_fp8": 0,
             "hetero_fuse_step": 0, "hetero_fuse_coeffs": 0,
             "hetero_fuse_dequant": 0, "hetero_fuse": 0, "adaln_fuse": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "ssd_scan": 0}
 
 _QUANT_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
@@ -250,6 +252,50 @@ def flash_attention_gqa(q, k, v, *, causal=True, window=0,
     indexes kv head ``h // (Hq/Hkv)`` in place (same result, no copy)."""
     return flash_attention(q, k, v, causal=causal, window=window,
                            softmax_scale=softmax_scale)
+
+
+def ssd_chunk_len(s: int, chunk: int) -> int:
+    """The reference's chunk rule: ``min(chunk, S)``, which must divide
+    ``S`` (``repro/kernels/ssd_scan.py:100``, ``models/mamba2.py:97``)."""
+    if s < 1 or chunk < 1:
+        raise ValueError(f"SSD scan of {s} positions in chunks of {chunk}")
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"SSD chunk {q}")
+    return q
+
+
+def ssd_scan(
+    x: torch.Tensor,          # (B, H, S, P)
+    dt: torch.Tensor,         # (B, H, S)
+    A: torch.Tensor,          # (H,)
+    B: torch.Tensor,          # (B, S, N)
+    C: torch.Tensor,          # (B, S, N)
+    *,
+    chunk: int = 128,
+    head_block: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD chunked scan from the zero state, in the TPU kernel's
+    layout: returns y ``(B, H, S, P)`` in x's dtype and the final state
+    ``(B, H, P, N)`` in float32 — on every device (the reference's CPU path
+    drops the state).  ``S`` must be a multiple of ``min(chunk, S)``.
+    x, B and C may be strided views with a contiguous last axis; on the
+    card y is laid out ``(B, S, H, P)`` in memory, as on the CPU.
+    ``head_block`` is the TPU kernel's head tiling, accepted for its
+    signature: the CUDA kernel runs one block per (batch, head).  Chunks
+    longer than 128 positions scan in tiles of 128 on the card (the same
+    function)."""
+    del head_block
+    q = ssd_chunk_len(x.shape[2], chunk)
+    if x.is_cuda:
+        y, state = _ssd_scan(x, dt.to(torch.float32), A.to(torch.float32),
+                             B, C, chunk=min(q, _SSD_MAX_TILE))
+        LAUNCHES["ssd_scan"] += 1
+        return y, state
+    y, state = _ref.ref_ssd_scan(x.transpose(1, 2), dt.transpose(1, 2), A,
+                                 B, C)
+    return y.transpose(1, 2), state
 
 
 def dequant_params(

@@ -212,3 +212,15 @@ def ref_hetero_fuse(
     for k in range(preds.shape[0]):
         out = out + w[k] * v[k]
     return out
+
+
+def ref_ssd_scan(x, dt, A, B, C):
+    """Oracle SSD recurrence: ``models.mamba2.ssd_sequential`` from the
+    zero state (the kernel's contract, so no ``init_state``).
+
+    x: (b, s, h, p); dt: (b, s, h); A: (h,); B, C: (b, s, n).  Returns
+    (y (b, s, h, p) in x's dtype, final state (b, h, p, n) float32).
+    """
+    from repro_torch.models.mamba2 import ssd_sequential   # models import ops
+
+    return ssd_sequential(x, dt, A, B, C)

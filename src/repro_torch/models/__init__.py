@@ -1,1 +1,2 @@
-"""DiT expert/router models of the port (config, layers, DiT)."""
+"""Models of the port: configs, layers, the DiT experts and router, and
+the Mamba2 LM backbone with its zoo dispatch."""

@@ -1,9 +1,10 @@
-"""DiT expert and router configuration (copy of ``repro.models.config``'s
-DiT part, with ``torch.dtype`` fields).
+"""Architecture configuration dataclasses (copy of
+``repro.models.config``, with ``torch.dtype`` fields).
 
 The reference module imports ``jax.numpy`` for its dtype defaults, so the
-port keeps its own copy of the dataclass and the canonical paper
-architectures.
+port keeps its own copy of the dataclasses: ``LMConfig`` (the sequence
+backbones of the LM-expert ensemble; the port serves the ``ssm`` family)
+and ``DiTConfig`` with the canonical paper architectures.
 """
 
 from __future__ import annotations
@@ -12,6 +13,56 @@ import dataclasses
 from typing import Any
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """Sequence-model backbone config of the LM-expert ensemble.
+
+    The port serves ``arch_type="ssm"`` (Mamba2) and keeps only the
+    fields that backbone reads; a later backbone adds the fields it needs.
+    """
+
+    name: str
+    arch_type: str
+    num_layers: int
+    d_model: int
+    vocab_size: int
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128
+    # --- numerics ---
+    norm_eps: float = 1e-5
+    param_dtype: Any = torch.float32
+    activation_dtype: Any = torch.float32
+    source: str = ""                      # citation for the config
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.ssm_d_inner // self.ssm_headdim
+
+    def reduced(self, **overrides) -> "LMConfig":
+        """Smoke-test variant: 2 layers, d_model<=256, vocab<=512."""
+        upd: dict[str, Any] = dict(
+            num_layers=2,
+            d_model=min(self.d_model, 256),
+            vocab_size=min(self.vocab_size, 512),
+            param_dtype=torch.float32,
+            activation_dtype=torch.float32,
+        )
+        if self.ssm_state:
+            upd["ssm_state"] = min(self.ssm_state, 16)
+            upd["ssm_headdim"] = 32
+            upd["ssm_chunk"] = 16
+        upd.update(overrides)
+        return dataclasses.replace(self, **upd)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -54,13 +54,6 @@ def sinusoidal_table(num: int, dim: int, device=None) -> torch.Tensor:
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as the reference computes it: ``x·(1/(1 + e^−x))``,
-    each op rounded in ``x``'s dtype (bf16 timestep paths of a bf16 store
-    round where the reference does)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
-
-
 def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H/p * W/p, p*p*C)."""
     b, h, w, c = x.shape
@@ -168,7 +161,7 @@ def timestep_embedding(cfg: DiTConfig, params, t: torch.Tensor):
     """τ(t) via the discrete table + MLP (Eq. 21 runtime mapping)."""
     idx = to_ddpm_timestep(t, cfg.num_timesteps)
     feat = params["t_embed"]["table"][idx]
-    h = silu(L.dense(params["t_embed"]["mlp1"], feat))
+    h = L.silu(L.dense(params["t_embed"]["mlp1"], feat))
     return L.dense(params["t_embed"]["mlp2"], h)            # (B, d)
 
 
@@ -176,7 +169,7 @@ def global_modulation(cfg: DiTConfig, params, tau: torch.Tensor):
     """Eq. 14/15: the global (6, d) modulation broadcast over the L layers
     as ``(B, L, 6, d)`` (per-layer variation comes from E_b, Eq. 16)."""
     b = tau.shape[0]
-    h = silu(L.dense(params["adaln_single"]["mlp1"], tau))
+    h = L.silu(L.dense(params["adaln_single"]["mlp1"], tau))
     c = L.dense(params["adaln_single"]["mlp2"], h).reshape(b, 1, 6,
                                                             cfg.d_model)
     return c.expand(b, cfg.num_layers, 6, cfg.d_model)
@@ -266,7 +259,7 @@ def apply(cfg: DiTConfig, params, x_t: torch.Tensor, t: torch.Tensor, *,
     if cfg.num_classes:
         return L.dense(params["cls_head"], h.mean(dim=1))     # router logits
 
-    mod = L.dense(params["final_layer"]["mod"], silu(tau))
+    mod = L.dense(params["final_layer"]["mod"], L.silu(tau))
     shift, scale = torch.chunk(mod, 2, dim=-1)
     h = _modulate_ln(h, scale, shift)
     out = L.dense(params["final_layer"]["out"], h)
@@ -378,10 +371,10 @@ def make_ragged_expert_apply(cfg: DiTConfig):
         # Timestep path — replicas share t, so one row per pair.
         idx = to_ddpm_timestep(t_p, cfg.num_timesteps)
         feat = dequant_leaf(view["t_embed"]["table"])[pe, idx]
-        ht = silu(pd(view["t_embed"]["mlp1"], feat))
+        ht = L.silu(pd(view["t_embed"]["mlp1"], feat))
         tau = pd(view["t_embed"]["mlp2"], ht)              # (P, d)
 
-        hm = silu(pd(view["adaln_single"]["mlp1"], tau))
+        hm = L.silu(pd(view["adaln_single"]["mlp1"], tau))
         c = pd(view["adaln_single"]["mlp2"], hm).reshape(p_pairs, 1, 6, d)
         mods = c.expand(p_pairs, cfg.num_layers, 6, d)
         mods = mods + dequant_leaf(
@@ -444,7 +437,7 @@ def make_ragged_expert_apply(cfg: DiTConfig):
             hmid = L.gelu(pd(bp["mlp"]["w1"], hn))
             h = h + a_mlp[:, None, None] * pd(bp["mlp"]["w2"], hmid)
 
-        mod = pd(view["final_layer"]["mod"], silu(tau))
+        mod = pd(view["final_layer"]["mod"], L.silu(tau))
         shift, scale = torch.chunk(mod, 2, dim=-1)
         h = _modulate_ln(h, scale, shift)
         out = pd(view["final_layer"]["out"], h)

@@ -1,4 +1,5 @@
-"""Neural-net primitives of the DiT, as plain functions on tensors.
+"""Neural-net primitives of the DiT and the Mamba2 LM, as plain functions
+on tensors.
 
 Parameters are dicts of tensors in the reference layout: a dense weight is
 ``(in, out)`` (not ``nn.Linear``'s ``(out, in)``), so checkpoints of the
@@ -24,6 +25,37 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y
+
+
+def embed(params: dict, ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Rows ``ids`` of the table ``params["emb"]``, cast to ``dtype``
+    (the reference casts the table, then takes rows: the same values)."""
+    rows = params["emb"][ids]
+    return rows if dtype is None else rows.to(dtype)
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis in float32, scaled, cast back to ``x``'s
+    dtype (``repro.models.layers.rmsnorm``)."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it: ``x·(1/(1 + e^−x))``,
+    each op rounded in ``x``'s dtype (bf16 paths round where the reference
+    does)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` = ``logaddexp(x, 0)`` op by op:
+    ``max(x, 0) + log1p(exp(−|x|))``, NaN where ``x`` is NaN (not
+    ``F.softplus``'s thresholded form)."""
+    out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, out)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -83,3 +115,12 @@ def dense_init_b(gen, in_dim: int, out_dim: int, *, device, dtype) -> dict:
     p = dense_init(gen, in_dim, out_dim, device=device, dtype=dtype)
     p["b"] = torch.zeros((out_dim,), device=device, dtype=dtype)
     return p
+
+
+def embed_init(gen, vocab: int, dim: int, *, device, dtype) -> dict:
+    return {"emb": _normal((vocab, dim), gen, device, torch.float32)
+            .mul_(0.02).to(dtype)}
+
+
+def rmsnorm_init(dim: int, *, device, dtype) -> dict:
+    return {"scale": torch.ones((dim,), device=device, dtype=dtype)}

@@ -4,7 +4,8 @@ The JAX package's parameters are nested dicts (and lists) of arrays.  As
 numpy — what ``np.load`` of a ``save_checkpoint`` artifact or
 ``jax.tree.map(np.asarray, params)`` gives — they convert leaf by leaf to
 tensors with the same nested keys and list structure, no transposes (the
-port keeps the reference's ``(in, out)`` dense layout).
+port keeps the reference's ``(in, out)`` dense layout); JAX's bf16 leaves
+(``ml_dtypes.bfloat16`` arrays) become ``torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -40,4 +41,7 @@ def _to_tensors(tree, device: torch.device):
     arr = np.asarray(tree)
     if not (arr.flags.c_contiguous and arr.flags.writeable):
         arr = arr.copy()             # e.g. read-only views of JAX arrays
+    if arr.dtype.name == "bfloat16":     # ml_dtypes' numpy bf16 (JAX's)
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)

@@ -17,7 +17,12 @@ fuse and dequant kernels bitwise.  The AdaLN and attention kernels sum
 float32 in another order than ATen (and the attention kernel's online
 softmax rescales as it goes): float32 outputs at ``rtol = atol = 1e-5``;
 bf16 outputs, rounded once from float32 on both sides, within one bf16
-ulp (``rtol = 2⁻⁷``).
+ulp (``rtol = 2⁻⁷``).  The SSD scan kernel computes the chunked algorithm
+against its sequential plain version: ``max |Δ| ≤ 5e-5 · max |want|`` for
+float32 y and the state (every decay factor ``exp(cum_i − cum_j)`` comes
+from float32 cumulative log-decays reaching |cum| ≈ 200 over a chunk, an
+ulp of which, 1.5e-5, is the factor's relative error; three of those),
+one bf16 ulp (``2⁻⁷``) of max|y| for bf16 y.
 """
 
 from __future__ import annotations
@@ -420,3 +425,105 @@ def test_ragged_dit_forward_runs_the_new_kernels(cuda, with_text):
     assert ops.LAUNCHES["flash_attention"] == layers
     err = (got.cpu() - want).abs().max().item()
     assert err <= 1e-4 * want.abs().max().item(), err
+
+
+SSD_REL = 5e-5
+
+
+def _ssd_views(cuda, b, h, s, p, n, dtype, seed, dt_shift=-2.0):
+    """The mixer's layout: x, B, C strided slices of one ``(b, s, h·p + 2n)``
+    buffer, dt ``(b, s, h)`` float32 = softplus(N + shift), A from
+    ``−linspace(1, 16, h)`` (``A_log`` up to log 16); x and dt returned as
+    the kernel's ``(B, H, S, ·)`` views."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    xbc = torch.randn(b, s, h * p + 2 * n, generator=gen,
+                      device=cuda).to(dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p).transpose(1, 2)
+    B = xbc[..., h * p:h * p + n]
+    C = xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device=cuda) + dt_shift)
+    A = -torch.linspace(1.0, 16.0, h, device=cuda)
+    return x, dt.transpose(1, 2), A, B, C
+
+
+def _ssd_check(x, dt, A, B, C, chunk):
+    ops.reset_launches()
+    y, state = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    wy, ws = ref.ref_ssd_scan(x.transpose(1, 2), dt.transpose(1, 2), A, B,
+                              C)
+    assert y.dtype == x.dtype and state.dtype == torch.float32
+    assert y.transpose(1, 2).is_contiguous()       # laid out (B, S, H, P)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    rel = SSD_REL if x.dtype == torch.float32 else 2.0 ** -7
+    err = (y.transpose(1, 2).float() - wy.float()).abs().max().item()
+    assert err <= rel * wy.float().abs().max().item(), err
+    serr = (state - ws).abs().max().item()
+    assert serr <= SSD_REL * ws.abs().max().item(), serr
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,s,p,n,chunk", [
+    (2, 8, 512, 64, 128, 128),      # mamba2-2.7b head shape, 4 chunks
+    (1, 4, 100, 64, 128, 128),      # S < chunk: one partial tile
+    (2, 3, 64, 32, 16, 16),         # the reduced config's shape
+    (1, 2, 48, 8, 32, 8),           # small head and state, chunk 8
+])
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, h, s, p, n, chunk):
+    _ssd_check(*_ssd_views(cuda, b, h, s, p, n, dtype, seed=s + p),
+               chunk=chunk)
+
+
+def test_ssd_scan_kernel_masks_before_exp(cuda):
+    """dt near softplus(10) with A down to −16: above the diagonal
+    ``exp(cum_i − cum_j)`` overflows, and the kernel must select, not
+    multiply by a mask (``inf · 0 = NaN``)."""
+    _ssd_check(*_ssd_views(cuda, 1, 16, 256, 64, 128, torch.float32, seed=7,
+                           dt_shift=10.0), chunk=128)
+
+
+def test_ssd_scan_rejects_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C = _ssd_views(cuda, 1, 2, 48, 16, 8, torch.float32, 1)
+    with pytest.raises(ValueError, match="not a multiple"):
+        ops.ssd_scan(x, dt, A, B, C, chunk=32)
+    with pytest.raises(ValueError, match="at most"):
+        ops.ssd_scan(*_ssd_views(cuda, 1, 2, 16, 128, 8, torch.float32, 1),
+                     chunk=16)
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.ssd_scan(x, dt, A, B.to(torch.bfloat16), C, chunk=16)
+
+
+def test_mamba2_forward_runs_the_scan_kernel(cuda):
+    """The reduced Mamba2 backbone on the card: one ``ssd_scan`` launch per
+    layer of ``forward_train`` and ``prefill``, none in ``decode_step``;
+    logits within ``1e-4 · max|out|`` of the CPU run, and prefill followed
+    by a decode step reproduces ``forward_train``'s next logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    want, _ = zoo.forward_train(cfg, params, {"tokens": toks})
+    card = tree_map(lambda a: a.to(cuda), params)
+    ops.reset_launches()
+    got, _ = zoo.forward_train(cfg, card, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == cfg.num_layers
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    ops.reset_launches()
+    last, cache = zoo.prefill(cfg, card, {"tokens": toks[:, :48].to(cuda)})
+    assert ops.LAUNCHES["ssd_scan"] == cfg.num_layers
+    step, _ = zoo.decode_step(cfg, card, cache, toks[:, 48:49].to(cuda),
+                              None)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == cfg.num_layers
+    for lg, pos in ((last, 47), (step, 48)):
+        err = (lg.cpu() - want[:, pos]).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err

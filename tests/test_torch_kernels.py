@@ -176,10 +176,13 @@ def test_cpu_wrappers_launch_no_kernel():
                                torch.ones(2, 2), ["ddpm", "fm"],
                                [get_schedule("cosine"),
                                 get_schedule("linear")], torch.rand(2))
+    ops.ssd_scan(torch.randn(1, 2, 4, 3), torch.rand(1, 2, 4),
+                 -torch.ones(2), torch.randn(1, 4, 5), torch.randn(1, 4, 5),
+                 chunk=2)
     assert set(ops.LAUNCHES) == {
         "ragged_gemm", "ragged_gemm_int8", "ragged_gemm_fp8",
         "hetero_fuse_step", "hetero_fuse_coeffs", "hetero_fuse_dequant",
-        "hetero_fuse", "adaln_fuse", "flash_attention"}
+        "hetero_fuse", "adaln_fuse", "flash_attention", "ssd_scan"}
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
