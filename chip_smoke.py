@@ -15,7 +15,8 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    one (device time of calls replayed from a CUDA graph, except the
    ragged GEMM's plain version, which syncs; ``wrapper_ms`` adds the
    host's cost per call): the ragged GEMM's float32, bf16-weight, int8
-   and fp8 bodies, the step kernel, the velocity kernel, the dequant
+   and fp8 bodies (with the error and time of each e4m3 contraction the
+   fp8 body can use), the step kernel, the velocity kernel, the dequant
    kernel, the AdaLN kernel (at the ragged MLP modulate site, float32,
    with bf16 modulations and in bf16), the attention kernel (the DiT's
    self-attention, and a causal sliding-window GQA case at Mixtral-8x7B's
@@ -38,7 +39,7 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    kernel.  Each path prints its store's bytes and its
    engine's device memory once built, at its build peak and at its
    serving peak, all net of the engines still resident from other paths;
-5. serves one more native and one more int8 request under
+5. serves one more native, one more int8 and one more fp8 request under
    ``torch.profiler`` and prints where their device time goes (by kernel
    and by category) and the device's idle share;
 6. runs the same engine code at a reduced width on the GPU and on the CPU
@@ -126,6 +127,7 @@ MIX = [("ddpm", "cosine")] * 2 + [("fm", "linear")] * 6
 #: device kernel-name fragments -> category of the profile, first match wins.
 CATEGORIES = (
     ("ragged_gemm_int8", "ragged_gemm int8 body"),
+    ("ragged_gemm_fp8", "ragged_gemm fp8 body"),
     ("ragged_gemm", "ragged_gemm (experts' dense layers)"),
     ("hetero_fuse_step", "hetero_fuse_step"),
     ("hetero_fuse_coeffs", "hetero_fuse_coeffs"),
@@ -284,42 +286,49 @@ def _library_quant_mm(xq, wq, pe, m, fp8: bool):
     """One PyTorch call per row group computing the quantized product:
     ``torch._int_mm`` (int8, int32 out) or ``torch._scaled_mm`` (e4m3,
     unit tensor-wise scales, float32 out), weights pre-laid out
-    column-major outside the timing.  ``None`` (with the reason printed)
-    where this PyTorch refuses the call."""
+    column-major outside the timing.  Returns its milliseconds and its
+    unscaled product ``(P·m, F)`` in float32; ``(None, None)`` (with the
+    reason printed) where this PyTorch refuses the call."""
     cols = {e: wq[e].t().contiguous().t() for e in set(pe.tolist())}
     one = torch.ones((), device=xq.device)
     groups = [(xq[i * m:(i + 1) * m], cols[e])
               for i, e in enumerate(pe.tolist())]
 
     def run():
-        for a, b in groups:
-            if fp8:
-                torch._scaled_mm(a, b, one, one, out_dtype=torch.float32)
-            else:
-                torch._int_mm(a, b)
+        if fp8:
+            return [torch._scaled_mm(a, b, one, one, out_dtype=torch.float32)
+                    for a, b in groups]
+        return [torch._int_mm(a, b) for a, b in groups]
 
     try:
-        run()
-        return graph_ms(run)
+        product = torch.cat(run()).to(torch.float32)
+        return graph_ms(run), product
     except RuntimeError as exc:                  # a yardstick only
         print(f"library yardstick unavailable: {str(exc).splitlines()[0]}")
-        return None
+        return None, None
 
 
 def check_ragged_gemm_quant(ops, ref, dev, qdtype) -> dict:
     """The int8 or fp8 body at the main path's tiled widths, on
-    activations quantized as the wrapper does; the last case takes layer
-    5 of a ``(K, L, D, F)`` quantized stack.  int8 must be bitwise equal to
-    its plain version (exact integer sums, same epilogue), fp8 within
-    ``1e-5 · max|plain|``."""
-    from repro_torch.kernels.ragged_gemm import ragged_gemm
+    activations quantized as the wrapper does: the MLP's two GEMMs, the
+    first at m 256 too and on layer 5 of a ``(K, L, D, F)`` quantized
+    stack, the patch embedding (D 16), the attention projections (768 →
+    768 at m 512 and 256) and the final layer (F 16).  int8 must be
+    bitwise equal to its plain version (exact integer sums, same
+    epilogue), fp8 within ``1e-5 · max|plain|``.  For fp8 every e4m3
+    contraction of the kernel source is also run and its error and time
+    printed (``variant`` lines); the served body is the one that meets
+    the tolerance."""
+    from repro_torch.kernels.ragged_gemm import (
+        FP8_VARIANTS, ragged_gemm, ragged_gemm_fp8_variant)
 
     fp8 = qdtype == torch.float8_e4m3fn
     name = "ragged_gemm_fp8" if fp8 else "ragged_gemm_int8"
     pe = torch.tensor(GROUP_EXPERTS, dtype=torch.int32, device=dev)
     p = pe.shape[0]
     cases = [(512, 768, 3072, 0), (512, 3072, 768, 0), (256, 768, 3072, 0),
-             (512, 768, 3072, 12)]
+             (512, 768, 3072, 12), (256, 16, 768, 0), (512, 768, 768, 0),
+             (256, 768, 768, 0), (512, 768, 16, 0)]
     gen = torch.Generator(device=dev).manual_seed(5 + fp8)
     rows, worst = [], 0.0
     for m, d, f, layers in cases:
@@ -341,7 +350,11 @@ def check_ragged_gemm_quant(ops, ref, dev, qdtype) -> dict:
                                                         w_scale=ws))
         t_p = cuda_ms(lambda: ref.ref_ragged_gemm(xq, wq, pe, xs, ws),
                       iters=5)
-        t_l = _library_quant_mm(xq, wq, pe, m, fp8)
+        t_l, lib = _library_quant_mm(xq, wq, pe, m, fp8)
+        # the yardstick's own error, after the same epilogue
+        lib_err = None if lib is None else rel_err(
+            (lib * xs[:, None]) * ws[pe.long()].repeat_interleave(m)[:, None],
+            plain)[0]
         n_exp = len(set(pe.tolist()))
         ops_n = 2.0 * p * m * d * f
         nbytes = (1.0 * (p * m * d + n_exp * d * f)
@@ -350,13 +363,22 @@ def check_ragged_gemm_quant(ops, ref, dev, qdtype) -> dict:
                            FP8_FLOP_PER_S if fp8 else INT8_OP_PER_S)
         row = dict(m=m, D=d, F=f, layer_view=bool(layers),
                    max_abs_err=err, tol=tol, ms=t_k, wrapper_ms=t_w,
-                   plain_ms=t_p, library_ms=t_l, bound_ms=t_b,
-                   bound_by=by, tops=ops_n / t_k / 1e9)
+                   plain_ms=t_p, library_ms=t_l, library_max_abs_err=lib_err,
+                   bound_ms=t_b, bound_by=by, tops=ops_n / t_k / 1e9)
         print(f"{name} case " + json.dumps(row))
         if not ok:
             fail(f"{name} disagrees with its plain version: {row}")
         worst = max(worst, err)
         rows.append(row)
+        for v, label in enumerate(FP8_VARIANTS if fp8 else ()):
+            got = ragged_gemm_fp8_variant(xq, wq, pe, m, xs, ws, v)
+            err_v, _ = rel_err(got, plain)
+            print(f"{name} variant " + json.dumps(dict(
+                m=m, D=d, F=f, layer_view=bool(layers), variant=label,
+                max_abs_err=err_v, rel_err=err_v / scale,
+                within_tol=err_v <= tol,
+                ms=graph_ms(lambda: ragged_gemm_fp8_variant(
+                    xq, wq, pe, m, xs, ws, v)))))
     main = rows[0]
     return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
                 library_ms=main["library_ms"], bound_ms=main["bound_ms"],
@@ -968,8 +990,8 @@ def serve_path(ops, engine, name, texts, seeds, want, mem) -> tuple:
 
 
 def serve_full_width(ops, dev) -> tuple[dict, dict]:
-    """Phase 4.  Returns the launches of each path and the native and
-    int8 engines (profiled in phase 5)."""
+    """Phase 4.  Returns the launches of each path and the native, int8
+    and fp8 engines (profiled in phase 5)."""
     from repro_torch.core.sampling import SamplerConfig
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.models.config import dit_b2, router_b2
@@ -1037,7 +1059,7 @@ def serve_full_width(ops, dev) -> tuple[dict, dict]:
             if name == "unfused" and not torch.equal(out, ref_out):
                 fail(f"unfused request {i} differs from the fused one by "
                      f"{diff}")
-        if name != "int8":
+        if name not in ("int8", "fp8"):
             del engines[name]
     shutil.rmtree(path)
     print(f"engine stats {json.dumps(engines['native'].stats)}")
@@ -1488,6 +1510,7 @@ def main() -> None:
     phase_done("4 (DiT serving)")
     profile_request(engines["native"], "native")
     profile_request(engines["int8"], "int8")
+    profile_request(engines["fp8"], "fp8")
     del engines
     phase_done("5 (DiT profiles)")
     compare_gpu_cpu(ops, dev)

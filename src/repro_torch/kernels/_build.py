@@ -6,7 +6,8 @@ where a PyTorch extension that includes torch's headers takes minutes.
 All sources that lack a current library compile at once (one ``nvcc``
 process each, started together).  Libraries land in
 ``<repo>/build/repro_torch_kernels/`` under a name carrying a hash of
-the source and the flags, so an edited source never loads a stale build.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header never loads a stale build.
 
 Nothing is built at import time: the first CUDA launch (or an explicit
 ``build_all()``) does it.
@@ -55,6 +56,8 @@ def _flags(src: Path) -> tuple[str, ...]:
 
 def library_path(src: Path) -> Path:
     h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(_flags(src)).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 

@@ -4,8 +4,8 @@ Replaces the TPU kernel ``repro/kernels/ragged_gemm.py:73``
 (``ragged_gemm``): ``y[p·m + r] = x[p·m + r] @ w[pe[p]]`` for ``P`` row
 groups of ``m`` rows, every group contracting against its own expert's
 weight.  Bodies by weight dtype: float32 and bf16 (float32 activations
-and accumulation), and the quantized int8 (int32 accumulation) and fp8
-e4m3 (float32 accumulation) bodies with the dequant epilogue
+and accumulation), and the quantized int8 (exact int32 sums) and fp8
+e4m3 (float32 sums) bodies on the tensor cores, with the dequant epilogue
 ``(acc·x_scale[row])·w_scale[pe[p]]``.  Any ``m`` works (ragged edges are
 masked in the kernel).  Its plain version is ``kernels.ref.ref_ragged_gemm``;
 the model code reaches both through ``kernels.ops.ragged_expert_matmul``.
@@ -31,6 +31,11 @@ BODIES = {
 }
 
 
+#: the e4m3 body's contractions, by the index ``ragged_gemm_fp8_variant``
+#: takes; the last (bf16) is the one ``ragged_gemm`` serves
+FP8_VARIANTS = ("e4m3", "e4m3_promote128", "e4m3_promote32", "bf16")
+
+
 @functools.cache
 def _fn(name: str, quantized: bool):
     """A C entry point, built and loaded on first use (argtypes set once,
@@ -38,9 +43,27 @@ def _fn(name: str, quantized: bool):
     fn = getattr(_build.load_library("ragged_gemm"), name)
     p, i = ctypes.c_void_p, ctypes.c_int
     scales = [p, p] if quantized else []
-    fn.argtypes = [p, p, p, *scales, p, i, i, i, i, i, ctypes.c_longlong, p]
+    variant = [i] if name == "ragged_gemm_fp8_variant" else []
+    fn.argtypes = [p, p, p, *scales, p, i, i, i, i, i, ctypes.c_longlong, p,
+                   *variant]
     fn.restype = ctypes.c_int
     return fn
+
+
+def ragged_gemm_fp8_variant(x: torch.Tensor, w: torch.Tensor,
+                            group_experts: torch.Tensor, m: int,
+                            x_scale: torch.Tensor, w_scale: torch.Tensor,
+                            variant: int) -> torch.Tensor:
+    """The e4m3 body through contraction ``FP8_VARIANTS[variant]``, to
+    measure the variants side by side (the served path runs
+    ``ragged_gemm``).  Takes what ``ragged_gemm`` takes, with D a multiple
+    of 16, F of 4 and x 16-byte aligned."""
+    if w.dtype != torch.float8_e4m3fn:
+        raise TypeError("the variants are the e4m3 body's")
+    if not 0 <= variant < len(FP8_VARIANTS):
+        raise ValueError(f"variant {variant} not in "
+                         f"0..{len(FP8_VARIANTS) - 1}")
+    return _launch(x, w, group_experts, m, x_scale, w_scale, variant)
 
 
 def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_experts: torch.Tensor,
@@ -62,6 +85,11 @@ def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_experts: torch.Tensor,
     Returns ``(P·m, F)`` float32.  Raises on anything the kernel does not
     take, and if the launch fails.
     """
+    return _launch(x, w, group_experts, m, x_scale, w_scale, None)
+
+
+def _launch(x, w, group_experts, m, x_scale, w_scale,
+            variant: int | None) -> torch.Tensor:
     if w.dtype not in BODIES:
         raise TypeError(f"ragged_gemm has no body for {w.dtype} weights")
     name, x_dtype, quantized = BODIES[w.dtype]
@@ -110,10 +138,13 @@ def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_experts: torch.Tensor,
     y = torch.empty((rows, f), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     scales = (x_scale.data_ptr(), w_scale.data_ptr()) if quantized else ()
+    extra = ()
+    if variant is not None:
+        name, extra = "ragged_gemm_fp8_variant", (variant,)
     rc = _fn(name, quantized)(x.data_ptr(), w.data_ptr(),
                               group_experts.data_ptr(), *scales,
                               y.data_ptr(), p, m, d, f, k, w.stride(0),
-                              stream)
+                              stream, *extra)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return y

@@ -67,18 +67,35 @@ def test_ragged_gemm_kernel_matches_plain(cuda, p, m, d, f):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("p,m,d,f", [(5, 130, 16, 770), (3, 7, 3, 5),
-                                     (16, 512, 768, 3072)])
+@pytest.mark.parametrize("p,m,d,f,offset", [
+    (5, 130, 16, 770, 0),     # ragged edges on every axis
+    (3, 7, 3, 5, 0),          # smaller than one tile
+    (16, 512, 768, 3072, 0),  # MLP up-projection
+    (16, 256, 16, 768, 0),    # patch embedding: D shallower than k32
+    (16, 512, 768, 768, 0),   # attention projections, layers 1..
+    (16, 256, 768, 768, 0),   # attention projections, layer 0
+    (16, 512, 768, 16, 0),    # final layer: F narrower than a tile
+    (4, 64, 48, 96, 0),       # D = 48: a part of one slab
+    (4, 64, 64, 96, 1),       # x one byte off its allocation
+    (16, 1, 768, 3072, 0),    # one row per group
+])
 @pytest.mark.parametrize("qdtype", [torch.int8, torch.float8_e4m3fn],
                          ids=["int8", "fp8"])
-def test_quantized_ragged_gemm_kernel_matches_plain(cuda, qdtype, p, m, d, f):
+def test_quantized_ragged_gemm_kernel_matches_plain(cuda, qdtype, p, m, d, f,
+                                                    offset):
     """The int8/fp8 bodies called directly (any m, ragged edges on every
-    axis), with one group routed to a bad expert id: its rows are NaN."""
+    axis, the serving widths, an x at an odd address), with one group
+    routed to a bad expert id: its rows are NaN."""
     gen = torch.Generator(device=cuda).manual_seed(p + m + d)
     k = 6
     x = torch.randn(p * m, d, generator=gen, device=cuda)
     w = torch.randn(k, d, f, generator=gen, device=cuda)
     xq, xs = ops.quantize_rows(x, qdtype)
+    if offset:
+        buf = torch.empty(xq.numel() + offset, dtype=qdtype, device=cuda)
+        buf[offset:] = xq.reshape(-1)
+        xq = buf[offset:].view(xq.shape)
+        assert xq.is_contiguous() and xq.data_ptr() % 16 == offset
     wq, ws = ops.quantize_rows(w.reshape(k, -1), qdtype)
     wq = wq.reshape(k, d, f)
     pe = torch.randint(0, k, (p,), generator=gen, device=cuda,
@@ -98,6 +115,41 @@ def test_quantized_ragged_gemm_kernel_matches_plain(cuda, qdtype, p, m, d, f):
     else:
         err = (got[rows] - want[rows]).abs().max().item()
         assert err <= 1e-5 * want[rows].abs().max().item(), err
+
+
+@pytest.mark.parametrize("operand", ["x", "w"])
+def test_fp8_body_widens_every_e4m3_value_exactly(cuda, operand):
+    """The fp8 body widens e4m3 to bf16 as it stages a tile: every finite
+    e4m3 value (subnormals and -0 too), in the activations or in the
+    weights, contracted against an identity comes out exact; a NaN stays
+    NaN along its row (x) or column (w)."""
+    codes = torch.arange(256, dtype=torch.int32)
+    codes[(codes & 0x7F) == 0x7F] = 0                   # the NaN codes
+    vals = codes.to(torch.uint8).view(torch.float8_e4m3fn)
+    pats = torch.stack([vals.roll(r) for r in range(16)])
+    nan_code = torch.tensor([0x7F], dtype=torch.uint8).view(
+        torch.float8_e4m3fn)
+    eye = torch.eye(256).to(torch.float8_e4m3fn)
+    if operand == "x":
+        x, w = pats.clone(), eye[None]
+        x[3, 5] = nan_code
+    else:
+        x, w = eye, pats.t().contiguous()[None]
+        w[0, 5, 3] = nan_code
+    x, w = x.to(cuda), w.to(cuda)
+    m = x.shape[0]
+    one = torch.ones((), device=cuda)
+    got = ragged_gemm(x, w, torch.zeros(1, dtype=torch.int32, device=cuda), m,
+                      one.expand(m).contiguous(), one.expand(1).contiguous())
+    torch.cuda.synchronize()
+    want = x.float() @ w[0].float()
+    nan = torch.zeros_like(got, dtype=torch.bool)
+    if operand == "x":
+        nan[3] = True
+    else:
+        nan[:, 3] = True
+    assert torch.isnan(got[nan]).all() and torch.isnan(want[nan]).all()
+    assert torch.equal(got[~nan], want[~nan])
 
 
 @pytest.mark.parametrize("qdtype", [torch.int8, torch.float8_e4m3fn],

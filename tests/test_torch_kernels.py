@@ -31,7 +31,8 @@ from repro.kernels import ref as jref
 from repro.kernels.hetero_fuse import hetero_fuse_step as j_hetero_fuse_step
 from repro.kernels.ragged_gemm import ragged_gemm as j_ragged_gemm
 from repro_torch.core.schedules import get_schedule
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.ragged_gemm import ragged_gemm_fp8_variant
 
 GEMM_TOL = dict(rtol=1e-5, atol=1e-5)
 STEP_REL = 1e-6
@@ -199,3 +200,39 @@ def test_quantized_weights_raise_not_implemented():
         ops.ragged_expert_matmul(torch.randn(1, 2, 4),
                                  torch.zeros(1, 4, 3, dtype=torch.int8),
                                  torch.tensor([0]))
+
+
+def test_library_name_covers_source_headers_and_flags(tmp_path, monkeypatch):
+    """A kernel library's file name hashes its source, every shared header
+    of ``csrc/`` and the flags: an edited header never loads a stale
+    build."""
+    src, header = tmp_path / "k.cu", tmp_path / "hopper.cuh"
+    src.write_text('#include "hopper.cuh"\n')
+    header.write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path(src)
+    assert first == _build.library_path(src)
+    assert first.parent == _build.BUILD_DIR and first.name.startswith("libk-")
+    header.write_text("// v2\n")
+    second = _build.library_path(src)
+    assert second != first
+    src.write_text('#include "hopper.cuh"\n// edited\n')
+    assert _build.library_path(src) not in (first, second)
+    monkeypatch.setitem(_build.EXTRA_FLAGS, "k.cu", ("-fmad=false",))
+    assert _build.library_path(src) not in (first, second)
+
+
+def test_fp8_variant_launcher_checks_its_arguments():
+    """The e4m3 variants' launcher takes e4m3 weights and a listed variant,
+    and launches on CUDA tensors only."""
+    x = torch.zeros(16, 32, dtype=torch.float8_e4m3fn)
+    w = torch.zeros(2, 32, 8, dtype=torch.float8_e4m3fn)
+    pe = torch.zeros(1, dtype=torch.int32)
+    xs, ws = torch.ones(16), torch.ones(2)
+    with pytest.raises(TypeError, match="e4m3"):
+        ragged_gemm_fp8_variant(x, w.to(torch.int8), pe, 16, xs, ws, 0)
+    for bad in (-1, 4):
+        with pytest.raises(ValueError, match="variant"):
+            ragged_gemm_fp8_variant(x, w, pe, 16, xs, ws, bad)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ragged_gemm_fp8_variant(x, w, pe, 16, xs, ws, 3)
