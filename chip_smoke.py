@@ -14,9 +14,12 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    and one PyTorch library call doing the same function where there is
    one (device time of calls replayed from a CUDA graph, except the
    ragged GEMM's plain version, which syncs; ``wrapper_ms`` adds the
-   host's cost per call): the ragged GEMM's float32, bf16-weight, int8
-   and fp8 bodies (with the error and time of each e4m3 contraction the
-   fp8 body can use), the step kernel, the velocity kernel, the dequant
+   host's cost per call; the float32 GEMM and attention rows also print
+   their share of the bound, ``bound_ms / ms``, each GEMM width the tile,
+   wide or narrow, that served it, and the first row of each the SM clock
+   and board power under load): the ragged GEMM's float32, bf16-weight,
+   int8 and fp8 bodies (with the error and time of each e4m3 contraction
+   the fp8 body can use), the step kernel, the velocity kernel, the dequant
    kernel, the AdaLN kernel (at the ragged MLP modulate site, float32,
    with bf16 modulations and in bf16), the attention kernel (the DiT's
    self-attention, and a causal sliding-window GQA case at Mixtral-8x7B's
@@ -204,6 +207,42 @@ def graph_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def clocks_under(fn, seconds: float = 1.5) -> dict:
+    """The SM clock (MHz) and board power (W) that ``nvidia-smi`` reads
+    while ``fn`` runs back to back for ``seconds``: lowest and highest of
+    the samples taken after the first half second."""
+    import threading
+
+    samples, stop = [], threading.Event()
+
+    def poll():
+        time.sleep(0.5)
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=30).stdout
+            mhz, watts = out.strip().splitlines()[0].split(",")
+            samples.append((float(mhz), float(watts)))
+            time.sleep(0.2)
+
+    poller = threading.Thread(target=poll)
+    poller.start()
+    end = time.perf_counter() + seconds
+    try:
+        while time.perf_counter() < end:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        poller.join()
+    if not samples:
+        return dict(sm_mhz=None, power_w=None)
+    mhz, watts = zip(*samples)
+    return dict(sm_mhz=[min(mhz), max(mhz)], power_w=[min(watts), max(watts)])
+
+
 def bound_ms(nbytes: float, flops: float,
              peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -221,6 +260,19 @@ def rel_err(got, want) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 
+def _dense_tile_rows():
+    """The dense bodies' tile rule: ``rows(P, m, F)`` is the block tile's
+    row count (128 wide, 32 narrow) the kernel library picks for ``P``
+    groups of ``m`` rows into ``F`` columns on this card."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load_library("ragged_gemm").ragged_gemm_dense_tile_rows
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return fn
+
+
 #: 16 row groups (8 samples × top-2) over 8 experts, 4, 6 and 7 empty.
 GROUP_EXPERTS = [0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 5, 5, 5, 5]
 
@@ -236,6 +288,7 @@ def check_ragged_gemm(ops, ref, dev) -> dict:
              (256, 768, 3072, 0, f32), (256, 3072, 768, 0, f32),
              (154, 768, 768, 0, f32), (1, 768, 4608, 0, f32),
              (512, 768, 3072, 12, f32), (512, 768, 3072, 12, bf16)]
+    tile_rows = _dense_tile_rows()
     gen = torch.Generator(device=dev).manual_seed(3)
     rows, worst = [], 0.0
     for m, d, f, layers, wdtype in cases:
@@ -270,7 +323,12 @@ def check_ragged_gemm(ops, ref, dev) -> dict:
                    weights=str(wdtype).replace("torch.", ""),
                    max_abs_err=err, tol=GEMM_REL_TOL * scale,
                    ms=t_k, wrapper_ms=t_w, plain_ms=t_p, library_ms=t_l,
-                   bound_ms=t_b, bound_by=by, tflops=flops / t_k / 1e9)
+                   bound_ms=t_b, bound_by=by, share_of_bound=t_b / t_k,
+                   tile="narrow" if tile_rows(p, m, f) < 128 else "wide",
+                   tflops=flops / t_k / 1e9)
+        if not rows:                        # the main shape: clocks too
+            row.update(clocks_under(
+                lambda: ops.ragged_expert_matmul(x, w, pe)))
         print("ragged_gemm case " + json.dumps(row))
         if not ok:
             fail(f"ragged_gemm disagrees with its plain version: {row}")
@@ -665,7 +723,9 @@ def check_flash(ops, ref, dev) -> dict:
                    window=window, dtype=str(dtype).replace("torch.", ""),
                    max_abs_err=err, tol=tol, ms=t_k, wrapper_ms=t_w,
                    plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
-                   tflops=flops / t_k / 1e9)
+                   share_of_bound=t_b / t_k, tflops=flops / t_k / 1e9)
+        if not rows:                        # the DiT shape: clocks too
+            row.update(clocks_under(kern))
         print("flash_attention case " + json.dumps(row))
         if not ok:
             fail(f"flash_attention disagrees with its plain version: {row}")

@@ -15,15 +15,40 @@
 // out-of-range expert id writes NaN rows instead of reading outside the
 // weight stack.  Every m, D and F goes through the same kernels: ragged
 // row, column and depth edges are masked (zero-filled loads, guarded
-// stores).  Grid (F/128, m/128, P): each block owns one 128×128 output
-// tile of one group, so it has exactly one expert.
+// stores).  Grid (F/128, m/BM, P): each block owns one BM × 128 output
+// tile of one group, so it has exactly one expert (BM = 128; the dense
+// bodies also have a 32-row tile).
 //
 // Dense bodies.  At the serving shapes (m = 512 rows of D = 768 into
 // F = 3072, 16 groups) a launch does 2·M·D·F ≈ 39 G operations on
-// ≈ 0.2 GB of float32 operands: bound by float32 operations (TF32 tensor
-// cores are excluded on purpose: the reference contracts dense float32 in
-// full precision).  256 threads each accumulate an 8×8 register
-// micro-tile; operands are converted to float32 on load (bf16 exactly).
+// ≈ 0.2 GB of float32 operands: bound by float32 operations, 0.577 ms at
+// 67 TFLOP/s.  TF32 tensor cores are excluded on purpose: the reference
+// contracts dense float32 in full precision, so every product is an IEEE
+// float32 FFMA on the CUDA cores, summed in ascending k.  Between the FFMA
+// units and that bound stands shared memory: an SM moves 128 bytes a clock
+// from shared memory to registers, 32 floats against 128 FFMA.  The design:
+//   * register tiles: a thread accumulates 8 × 8 outputs as 2 × 2
+//     sub-tiles of 4 × 4, so each k costs 4 conflict-free 16-byte shared
+//     loads (x broadcast over 8 lanes, the weights over 4) for 64 FFMA;
+//     the fragments of k + 1 load while those of k are used;
+//   * staging: the weights (F contiguous) stream through a ring of 4 slabs
+//     of 16 k by 16-byte cp.async, 3 in flight while one is computed; x
+//     (k contiguous) is loaded a slab ahead as 16-byte vectors and stored
+//     k-major into one of two buffers; one barrier a slab;
+//   * bf16 weights stage as bf16, half the bytes, and widen exactly (a
+//     shift) as they are read;
+//   * a narrow tile, 32 rows × 128 (128 threads of 4 × 8), serves widths
+//     where 128-row tiles would idle (m = 1, the 154 text rows) or fill
+//     less than one wave of two blocks an SM; the host picks the tile from
+//     P, m and F.  Both tiles sum each output in the same order and give
+//     the same bits, run to run too (no split-K);
+//   * D or F off 16 bytes of alignment, or x or w off a 16-byte address,
+//     stage the same tiles element by element in the same kernel.
+// What holds it above the bound (PERF.md, chip_smoke on an NVIDIA H100
+// 80GB HBM3, 700 W) is the shared-memory path: the 8 × 8 tile loads one
+// float per 4 FFMA, as much as the path carries; an 8 × 16 tile halves
+// that but leaves 8 warps an SM, and measured slower in a throwaway
+// build, as did x staged row-major by cp.async and read 4 k at a time.
 //
 // Quantized bodies.  Against the int8 tensor-core peak (1979 TOP/s; the
 // fp8 body contracts in bf16, 989 TFLOP/s) the same launch needs 20 µs
@@ -76,126 +101,285 @@
 
 namespace {
 
-constexpr int BM = 128;   // rows per block tile
+constexpr int BM = 128;   // rows per block tile (quantized bodies, wide)
 constexpr int BN = 128;   // columns per block tile
-constexpr int TM = 8;     // dense body: rows per thread
-constexpr int TN = 8;     // dense body: columns per thread
 constexpr int THREADS = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(int v) { return __int2float_rn(v); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // Writes NaN over the block's tile; true when the group's expert is bad.
 __device__ __forceinline__ bool poison_bad_expert(int e, int K, float* yg,
                                                   int rows, int col0, int F) {
   if (e >= 0 && e < K) return false;
-  for (int i = threadIdx.x; i < rows * BN; i += THREADS) {
+  for (int i = threadIdx.x; i < rows * BN; i += blockDim.x) {
     const int r = i / BN, c = col0 + i % BN;
     if (c < F) yg[(int64_t)r * F + c] = nanf("");
   }
   return true;
 }
 
-// Dense bodies (XT = float, WT = float or bf16): operands become float32
-// on load, float32 FMA accumulation.
-template <typename XT, typename WT>
-__global__ void __launch_bounds__(THREADS)
-ragged_gemm_f32acc_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
-                          const int* __restrict__ pe, float* __restrict__ y,
-                          int m, int D, int F, int K,
-                          long long w_expert_stride) {
-  constexpr int BK = 8;                      // depth of one slab
+// ---------------------------------------------------------------------------
+// Dense bodies: float32 activations against float32 or bf16 weights, every
+// product an IEEE float32 FFMA on the CUDA cores.
+
+constexpr int DK = 16;           // depth of one slab
+constexpr int D_STAGES = 4;      // weight slabs in the cp.async ring
+constexpr int NARROW_BM = 32;    // rows of the narrow tile
+
+// A thread owns MI × NI sub-tiles of 4 rows × 4 columns; a warp is 4 × 8
+// threads.  Wide: 8 warps of 8 × 8 tiles cover 128 × 128; narrow: 4 warps
+// of 4 × 8 tiles cover 32 × 128.  Shared memory: two k-major x buffers,
+// then the ring of weight slabs.
+template <typename WT, int BM_>
+struct DenseTile {
+  static constexpr bool WIDE = BM_ == BM;
+  static constexpr int THREADS = WIDE ? 256 : 128;
+  static constexpr int MIN_BLOCKS = WIDE ? 2 : 4;   // per SM
+  static constexpr int MI = WIDE ? 2 : 1;
+  static constexpr int NI = 2;
+  static constexpr int WARPS_M = BM_ / (16 * MI);
+  static constexpr int WARPS_N = THREADS / 32 / WARPS_M;
+  static_assert(WARPS_N * 32 * NI == BN, "the warps cover the tile");
+  static constexpr int AS = BM_ + 4;          // floats of a k-major x row
+  static constexpr int A_FLOATS = DK * AS;
+  static constexpr int B_BYTES = DK * BN * sizeof(WT);
+  static constexpr int SMEM = 2 * A_FLOATS * 4 + D_STAGES * B_BYTES;
+};
+
+// Four bf16 (lowest first) widened exactly to float32.
+__device__ __forceinline__ float4 widen_bf16x4(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xFFFF0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xFFFF0000u));
+}
+
+// Fragments of one k: MI groups of 4 rows of a k-major x buffer, NI groups
+// of 4 columns of a weight slab; and their 16·MI·NI products.
+template <int MI, int AS>
+__device__ __forceinline__ void load_a_frag(const float* as, int k, int am,
+                                            float (&fa)[4 * MI]) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(as + k * AS + am + 16 * mi);
+    fa[4 * mi] = v.x;
+    fa[4 * mi + 1] = v.y;
+    fa[4 * mi + 2] = v.z;
+    fa[4 * mi + 3] = v.w;
+  }
+}
+
+template <typename WT, int NI>
+__device__ __forceinline__ void load_b_frag(const uint8_t* bs, int k, int bn,
+                                            float (&fb)[4 * NI]) {
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int at = k * BN + bn + 32 * ni;
+    float4 v;
+    if constexpr (sizeof(WT) == 4)
+      v = *reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(bs) + at);
+    else
+      v = widen_bf16x4(*reinterpret_cast<const uint2*>(
+          reinterpret_cast<const uint16_t*>(bs) + at));
+    fb[4 * ni] = v.x;
+    fb[4 * ni + 1] = v.y;
+    fb[4 * ni + 2] = v.z;
+    fb[4 * ni + 3] = v.w;
+  }
+}
+
+template <int MI, int NI>
+__device__ __forceinline__ void fma_tile(float (&acc)[4 * MI][4 * NI],
+                                         const float (&fa)[4 * MI],
+                                         const float (&fb)[4 * NI]) {
+#pragma unroll
+  for (int i = 0; i < 4 * MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NI; ++j) acc[i][j] = fmaf(fa[i], fb[j], acc[i][j]);
+}
+
+// y = x · w[e] for one BM × 128 tile of one group.
+//   WT: float or __nv_bfloat16 (staged as bf16, widened as it is read).
+//   BM: 128 (wide) or 32 (narrow, for widths where a 128-row tile idles).
+//   VEC: D % 4 == 0, F a multiple of 16 bytes of weights, x and w 16-byte
+//     aligned: x moves by 16-byte loads and w by 16-byte cp.async;
+//     otherwise the same tiles are staged element by element.
+// Each output element sums its D products in ascending k with fmaf, so
+// every tile shape gives the same bits.
+template <typename WT, int BM_, bool VEC>
+__global__ void __launch_bounds__(DenseTile<WT, BM_>::THREADS,
+                                  DenseTile<WT, BM_>::MIN_BLOCKS)
+ragged_gemm_dense_kernel(const float* __restrict__ x,
+                         const WT* __restrict__ w, const int* __restrict__ pe,
+                         float* __restrict__ y, int m, int D, int F, int K,
+                         long long w_expert_stride) {
+  using Tile = DenseTile<WT, BM_>;
+  constexpr int NT = Tile::THREADS, MI = Tile::MI, NI = Tile::NI;
+  constexpr int AS = Tile::AS, A_FLOATS = Tile::A_FLOATS;
+  constexpr int B_BYTES = Tile::B_BYTES;
+  using WR = typename std::conditional<sizeof(WT) == 4, uint32_t,
+                                       uint16_t>::type;  // raw weight bits
+  constexpr int WV = 16 / sizeof(WT);          // weights per 16 bytes
+  constexpr int B_CPR = BN / WV;               // 16-byte chunks per k row
+  constexpr int NB = DK * B_CPR / NT;          // weight chunks per thread
+  constexpr int NA = BM_ * DK / 4 / NT;        // x pieces per thread
+  static_assert(DK == 16 && DK * B_CPR % NT == 0 && BM_ * DK % (4 * NT) == 0,
+                "slabs split evenly over the threads");
+
   const int p = blockIdx.z;
-  const int row0 = blockIdx.y * BM;          // first row of the tile, in-group
+  const int row0 = blockIdx.y * BM_;
   const int col0 = blockIdx.x * BN;
-  const int rows = min(BM, m - row0);        // valid rows of this tile
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;                   // column group of the thread
-  const int ty = tid >> 4;                   // row group of the thread
+  const int rows = min(BM_, m - row0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   const int64_t grow0 = (int64_t)p * m + row0;
   float* yg = y + grow0 * F;
   const int e = pe[p];
   if (poison_bad_expert(e, K, yg, rows, col0, F)) return;
 
-  const XT* xg = x + grow0 * D;
+  const float* xg = x + grow0 * D;
   const WT* we = w + (int64_t)e * w_expert_stride;
 
-  __shared__ float As[BK][BM];               // A slab, k-major (transposed)
-  __shared__ float Bs[BK][BN];
+  extern __shared__ __align__(16) uint8_t dense_smem[];
+  float* As = reinterpret_cast<float*>(dense_smem);      // 2 x buffers
+  uint8_t* ring = dense_smem + 2 * A_FLOATS * 4;          // weight slabs
 
-  // Global-load mapping: A slab is 128 rows × 8 k, B slab 8 k × 128 cols;
-  // each thread moves 4 elements of each.
-  const int a_row = tid >> 1;
-  const int a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5;
-  const int b_col = (tid & 31) * 4;
-
-  float a_reg[4], b_reg[4];
-  auto load_slab = [&](int k0) {
+  // Weight slab t into ring stage t % D_STAGES; commits one cp.async group.
+  auto issue = [&](int t) {
+    const int k0 = t * DK;
+    uint8_t* bs = ring + (t % D_STAGES) * B_BYTES;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kk = k0 + a_k + i;
-      a_reg[i] = (a_row < rows && kk < D)
-                     ? to_f32(xg[(int64_t)a_row * D + kk]) : 0.f;
+    for (int i = 0; i < NB; ++i) {
+      const int idx = tid + NT * i;
+      const int kr = idx / B_CPR, ch = idx % B_CPR;
+      const int kk = k0 + kr, c = col0 + ch * WV;
+      WR* dst = reinterpret_cast<WR*>(bs) + kr * BN + ch * WV;
+      const WR* src = reinterpret_cast<const WR*>(we) + (int64_t)kk * F + c;
+      if constexpr (VEC) {
+        const bool ok = kk < D && c < F;
+        hopper::cp_async16(hopper::smem_u32(dst),
+                           ok ? src : reinterpret_cast<const WR*>(we),
+                           ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < WV; ++u)
+          dst[u] = kk < D && c + u < F ? src[u] : WR(0);
+      }
     }
-    const int kb = k0 + b_k;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = col0 + b_col + i;
-      b_reg[i] = (kb < D && c < F) ? to_f32(we[(int64_t)kb * F + c]) : 0.f;
-    }
-  };
-  auto store_slab = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) As[a_k + i][a_row] = a_reg[i];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Bs[b_k][b_col + i] = b_reg[i];
+    hopper::cp_async_commit();
   };
 
-  float acc[TM][TN];
+  // x slab t from global memory into registers (4 pieces of 4 floats a
+  // row), then into a shared buffer as [k][row].
+  float ra[NA][4];
+  auto load_a = [&](int t) {
+    const int k0 = t * DK;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < NA; ++i) {
+      const int idx = tid + NT * i;
+      const int r = idx >> 2, kk = k0 + (idx & 3) * 4;
+      const float* src = xg + (int64_t)r * D + kk;
+      if constexpr (VEC) {
+        const float4 v = r < rows && kk < D
+                             ? __ldg(reinterpret_cast<const float4*>(src))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        ra[i][0] = v.x;
+        ra[i][1] = v.y;
+        ra[i][2] = v.z;
+        ra[i][3] = v.w;
+      } else {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  load_slab(0);
-  store_slab();
-  __syncthreads();
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    const bool more = k0 + BK < D;
-    if (more) load_slab(k0 + BK);            // in flight during the math
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int u = 0; u < 4; ++u)
+          ra[i][u] = r < rows && kk + u < D ? src[u] : 0.f;
+      }
     }
+  };
+  auto store_a = [&](int buf) {
+    float* as = As + buf * A_FLOATS;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int idx = tid + NT * i;
+      const int r = idx >> 2, kc = (idx & 3) * 4;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) as[(kc + u) * AS + r] = ra[i][u];
+    }
+  };
+
+  // Thread tile: rows am + 16·mi + (0..3), columns bn + 32·ni + (0..3).
+  const int wm = warp / Tile::WARPS_N, wn = warp % Tile::WARPS_N;
+  const int am = wm * 16 * MI + 4 * (lane >> 3);
+  const int bn = wn * 32 * NI + 4 * (lane & 7);
+
+  float acc[4 * MI][4 * NI];
+#pragma unroll
+  for (int i = 0; i < 4 * MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NI; ++j) acc[i][j] = 0.f;
+
+  // One slab through the FFMA units, the fragments of k + 1 loaded while
+  // those of k are used.
+  auto compute = [&](const float* as, const uint8_t* bs) {
+    float fa[2][4 * MI], fb[2][4 * NI];
+    load_a_frag<MI, AS>(as, 0, am, fa[0]);
+    load_b_frag<WT, NI>(bs, 0, bn, fb[0]);
+#pragma unroll
+    for (int k = 0; k < DK; ++k) {
+      if (k + 1 < DK) {
+        load_a_frag<MI, AS>(as, k + 1, am, fa[(k + 1) & 1]);
+        load_b_frag<WT, NI>(bs, k + 1, bn, fb[(k + 1) & 1]);
+      }
+      fma_tile<MI, NI>(acc, fa[k & 1], fb[k & 1]);
+    }
+  };
+
+  // Slab t is computed while slabs t + 1 .. t + D_STAGES − 1 of the weights
+  // are in flight and x's slab t + 2 is loaded into registers (its slab
+  // t + 1 waits in the other buffer); one barrier a slab.
+  const int nk = max(1, (D + DK - 1) / DK);
+#pragma unroll
+  for (int s = 0; s < D_STAGES - 1; ++s) {
+    if (s < nk) issue(s);
+    else hopper::cp_async_commit();
+  }
+  load_a(0);
+  store_a(0);
+  if (nk > 1) load_a(1);
+  for (int t = 0; t < nk; ++t) {
+    hopper::cp_async_wait<D_STAGES - 2>();
     __syncthreads();
-    if (more) {
-      store_slab();
-      __syncthreads();
+    if (t + D_STAGES - 1 < nk) issue(t + D_STAGES - 1);
+    else hopper::cp_async_commit();
+    // (the slab's address is taken before x's registers are stored: the
+    // other order schedules measurably slower)
+    const uint8_t* bs = ring + (t % D_STAGES) * B_BYTES;
+    if (t + 1 < nk) {
+      store_a((t + 1) & 1);
+      if (t + 2 < nk) load_a(t + 2);
     }
+    compute(As + (t & 1) * A_FLOATS, bs);
   }
 
+  const bool vec_out = (F & 3) == 0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty * TM + i;
-    if (r >= rows) break;
+  for (int i = 0; i < 4 * MI; ++i) {
+    const int r = am + 16 * (i >> 2) + (i & 3);
+    if (r >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c >= F) continue;
-      yg[(int64_t)r * F + c] = acc[i][j];
+    for (int ni = 0; ni < NI; ++ni) {
+      const int c = col0 + bn + 32 * ni;
+      float* dst = yg + (int64_t)r * F + c;
+      if (vec_out && c + 3 < F) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][4 * ni], acc[i][4 * ni + 1],
+                        acc[i][4 * ni + 2], acc[i][4 * ni + 3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (c + u < F) dst[u] = acc[i][4 * ni + u];
+      }
     }
   }
 }
@@ -529,22 +713,97 @@ dim3 grid_of(int P, int m, int F) {
   return dim3((F + BN - 1) / BN, (m + BM - 1) / BM, P);
 }
 
-template <typename XT, typename WT>
-int launch_f32acc(const void* x, const void* w, const int* pe, float* y,
-                  int P, int m, int D, int F, int K,
-                  long long w_expert_stride, void* stream) {
-  if (P > 0 && m > 0 && F > 0) {
-    ragged_gemm_f32acc_kernel<XT, WT>
-        <<<grid_of(P, m, F), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const XT*>(x), static_cast<const WT*>(w), pe, y, m, D,
-            F, K, w_expert_stride);
+// The opt-in above 48 KB of shared memory holds per function and device,
+// so each kernel asks once per device (a repeat is harmless).
+constexpr int MAX_DEVICES = 64;
+
+// Opts `kern` in to `bytes` of dynamic shared memory on the current device,
+// once; `opted_in` is the kernel's own flag array.
+cudaError_t opt_in_smem(const void* kern, int bytes,
+                        std::atomic<bool> (&opted_in)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES || !opted_in[dev].load()) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) opted_in[dev].store(true);
   }
+  return cudaSuccess;
+}
+
+template <typename WT, int BM_, bool VEC>
+int launch_dense_tile(const float* x, const WT* w, const int* pe, float* y,
+                      int P, int m, int D, int F, int K,
+                      long long w_expert_stride, cudaStream_t stream) {
+  const auto kern = ragged_gemm_dense_kernel<WT, BM_, VEC>;
+  constexpr int smem = DenseTile<WT, BM_>::SMEM;
+  static std::atomic<bool> opted_in[MAX_DEVICES];
+  const cudaError_t err =
+      opt_in_smem(reinterpret_cast<const void*>(kern), smem, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((F + BN - 1) / BN, (m + BM_ - 1) / BM_, P);
+  kern<<<grid, DenseTile<WT, BM_>::THREADS, smem, stream>>>(
+      x, w, pe, y, m, D, F, K, w_expert_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The opt-in above 48 KB of shared memory holds per function and device,
-// so each template instance asks once per device (a repeat is harmless).
-constexpr int MAX_DEVICES = 64;
+// SMs of the current device (0 if it cannot be read), cached per device.
+int sm_count() {
+  static std::atomic<int> sms[MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < MAX_DEVICES && sms[dev].load() > 0) return sms[dev].load();
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < MAX_DEVICES) sms[dev].store(n);
+  return n;
+}
+
+// The narrow tile serves groups of m rows where the wide tiles would idle:
+// where a narrow row costs 1.2 wide rows and still wins on the rows left
+// empty (6 · roundup(m, 32) < 5 · roundup(m, 128)), or where the wide
+// tiles fill less than one wave of two blocks per SM.
+bool narrow_rows(int P, int m, int F) {
+  const int64_t wide_tiles = (m + BM - 1) / BM;
+  const int64_t narrow = (m + NARROW_BM - 1) / NARROW_BM * (int64_t)NARROW_BM;
+  const int64_t wide_blocks = P * wide_tiles * ((F + BN - 1) / BN);
+  return 6 * narrow < 5 * wide_tiles * BM || wide_blocks < 2 * sm_count();
+}
+
+template <typename WT, bool VEC>
+int launch_dense_vec(const float* x, const WT* w, const int* pe, float* y,
+                     int P, int m, int D, int F, int K,
+                     long long w_expert_stride, cudaStream_t stream) {
+  return narrow_rows(P, m, F)
+             ? launch_dense_tile<WT, NARROW_BM, VEC>(x, w, pe, y, P, m, D, F,
+                                                     K, w_expert_stride,
+                                                     stream)
+             : launch_dense_tile<WT, BM, VEC>(x, w, pe, y, P, m, D, F, K,
+                                              w_expert_stride, stream);
+}
+
+template <typename WT>
+int launch_dense(const void* x, const void* w, const int* pe, float* y,
+                 int P, int m, int D, int F, int K,
+                 long long w_expert_stride, void* stream) {
+  if (P <= 0 || m <= 0 || F <= 0) return static_cast<int>(cudaGetLastError());
+  constexpr int WV = 16 / sizeof(WT);
+  const bool vec = D % 4 == 0 && F % WV == 0 && w_expert_stride % WV == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wt = static_cast<const WT*>(w);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return vec ? launch_dense_vec<WT, true>(xf, wt, pe, y, P, m, D, F, K,
+                                          w_expert_stride, st)
+             : launch_dense_vec<WT, false>(xf, wt, pe, y, P, m, D, F, K,
+                                           w_expert_stride, st);
+}
 
 template <Mma MMA, int PROMOTE, bool VEC>
 int launch_tc(const void* x, const void* w, const int* pe, const float* xs,
@@ -557,15 +816,9 @@ int launch_tc(const void* x, const void* w, const int* pe, const float* xs,
   else
     kern = ragged_gemm_fp8_kernel<MMA, PROMOTE, VEC>;
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      opt_in_smem(reinterpret_cast<const void*>(kern), TC_SMEM, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= MAX_DEVICES || !opted_in[dev].load()) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < MAX_DEVICES) opted_in[dev].store(true);
-  }
   kern<<<grid_of(P, m, F), THREADS, TC_SMEM,
          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w), pe, xs,
@@ -603,16 +856,22 @@ int launch_quant(const void* x, const void* w, const int* pe,
 extern "C" int ragged_gemm_f32(const float* x, const float* w, const int* pe,
                                float* y, int P, int m, int D, int F, int K,
                                long long w_expert_stride, void* stream) {
-  return launch_f32acc<float, float>(x, w, pe, y, P, m, D, F, K,
-                                     w_expert_stride, stream);
+  return launch_dense<float>(x, w, pe, y, P, m, D, F, K, w_expert_stride,
+                             stream);
+}
+
+// Rows of the dense bodies' block tile for P groups of m rows into F
+// columns on the current device: 128 (wide) or 32 (narrow).
+extern "C" int ragged_gemm_dense_tile_rows(int P, int m, int F) {
+  return narrow_rows(P, m, F) ? NARROW_BM : BM;
 }
 
 // float32 activations, bf16 weights.
 extern "C" int ragged_gemm_bf16(const float* x, const void* w, const int* pe,
                                 float* y, int P, int m, int D, int F, int K,
                                 long long w_expert_stride, void* stream) {
-  return launch_f32acc<float, __nv_bfloat16>(x, w, pe, y, P, m, D, F, K,
-                                             w_expert_stride, stream);
+  return launch_dense<__nv_bfloat16>(x, w, pe, y, P, m, D, F, K,
+                                     w_expert_stride, stream);
 }
 
 // int8 activations and weights.

@@ -219,6 +219,128 @@ def test_ragged_gemm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                  torch.tensor([0, 1], device=cuda))
 
 
+# The float32 and bf16 bodies: a cp.async ring of 16-deep slabs, 8×8
+# register tiles (a narrow 32-row tile for small m), every product an IEEE
+# float32 FFMA summed in ascending k.
+
+def _dense_operands(cuda, p, m, d, f, wdtype, seed, k=6):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(p * m, d, generator=gen, device=cuda)
+    w = (torch.randn(k, d, f, generator=gen, device=cuda)
+         / d ** 0.5).to(wdtype)
+    pe = torch.randint(0, k, (p,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    return x, w, pe
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,f", [(768, 3072), (3072, 768), (768, 768),
+                                 (768, 4608)],
+                         ids=["mlp_up", "mlp_down", "attn", "modulation"])
+@pytest.mark.parametrize("m", [1, 7, 154, 256, 512, 513])
+def test_dense_body_serving_widths(cuda, m, d, f, wdtype):
+    """Every row width the two tiles split between (m 1, 7 and 154 on
+    the narrow tile, 256, 512 and 513 on the wide one) at the DiT's
+    depths and widths."""
+    x, w, pe = _dense_operands(cuda, 8, m, d, f, wdtype, m + d)
+    got = ragged_gemm(x, w, pe, m)
+    torch.testing.assert_close(got, ref.ref_ragged_gemm(x, w, pe),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,d,f,offset", [
+    (130, 201, 300, 0),       # D not a multiple of 4
+    (130, 64, 130, 0),        # F not a multiple of 4
+    (9, 3, 5, 0),             # smaller than a slab and a tile
+    (154, 768, 768, 1),       # x one float off 16-byte alignment
+    (513, 96, 264, 3),        # and a partial wide tile
+])
+def test_dense_body_unaligned_operands(cuda, m, d, f, offset, wdtype):
+    """Operands the 16-byte copies cannot take stage element by element
+    in the same kernel: the same tiles, the same sums."""
+    x, w, pe = _dense_operands(cuda, 5, m, d, f, wdtype, d + f)
+    if offset:
+        buf = torch.empty(x.numel() + offset, device=cuda)
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(x.shape)
+        assert x.data_ptr() % 16 == 4 * offset
+    got = ragged_gemm(x, w, pe, m)
+    torch.testing.assert_close(got, ref.ref_ragged_gemm(x, w, pe),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 154, 512])
+def test_dense_body_layer_view(cuda, m, wdtype):
+    """Layer 5 of a ``(K, L, D, F)`` stack: the expert axis strided."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    stack = (torch.randn(4, 12, 768, 768, generator=gen, device=cuda)
+             / 768 ** 0.5).to(wdtype)
+    w = stack[:, 5]
+    assert not w.is_contiguous()
+    x = torch.randn(6 * m, 768, generator=gen, device=cuda)
+    pe = torch.tensor([3, 3, 0, 1, 2, 0], dtype=torch.int32, device=cuda)
+    got = ragged_gemm(x, w, pe, m)
+    torch.testing.assert_close(got, ref.ref_ragged_gemm(x, w, pe),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("operand", ["x", "w"])
+@pytest.mark.parametrize("m", [1, 154, 512])
+def test_dense_body_keeps_inf_and_nan(cuda, m, operand):
+    """±Inf and NaN in x or w reach the same outputs, with the same
+    signs, as in the plain version; the finite outputs agree."""
+    x, w, pe = _dense_operands(cuda, 4, m, 768, 768, torch.float32, 7 * m)
+    pe[:] = torch.tensor([0, 1, 0, 2], dtype=torch.int32, device=cuda)
+    if operand == "x":
+        x[0, 5] = float("inf")
+        x[m, 9] = float("-inf")
+        x[2 * m - 1, 700] = float("nan")
+    else:
+        w[0, 5, 17] = float("inf")
+        w[1, 9, 300] = float("-inf")
+        w[0, 700, 640] = float("nan")
+    got = ragged_gemm(x, w, pe, m)
+    want = ref.ref_ragged_gemm(x, w, pe)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got).any()
+    assert torch.equal(got == float("inf"), want == float("inf"))
+    assert torch.equal(got == float("-inf"), want == float("-inf"))
+    assert torch.isinf(got).any()
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 154, 512])
+def test_dense_body_bad_expert_poisons_only_its_group(cuda, m, wdtype):
+    x, w, pe = _dense_operands(cuda, 5, m, 768, 768, wdtype, m)
+    pe[1], pe[3] = 6 + 3, -1                      # two bad expert ids
+    got = ragged_gemm(x, w, pe, m)
+    bad = torch.tensor([False, True, False, True, False],
+                       device=cuda).repeat_interleave(m)
+    assert torch.isnan(got[bad]).all() and torch.isfinite(got[~bad]).all()
+    good = pe.clone()
+    good[1] = good[3] = 0
+    torch.testing.assert_close(got[~bad], ref.ref_ragged_gemm(
+        x, w, good)[~bad], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 154, 512])
+def test_dense_body_is_bitwise_deterministic(cuda, m, wdtype):
+    """No split-K, no atomics: two launches give the same bits."""
+    x, w, pe = _dense_operands(cuda, 16, m, 768, 3072, wdtype, 11)
+    first = ragged_gemm(x, w, pe, m)
+    assert torch.equal(ragged_gemm(x, w, pe, m), first)
+
+
 @pytest.mark.parametrize("g", [1, 2])
 @pytest.mark.parametrize("per_row_dt", [False, True], ids=["dt1", "dtB"])
 def test_hetero_fuse_step_kernel_matches_plain(cuda, g, per_row_dt):
@@ -407,6 +529,31 @@ def test_flash_attention_gqa_indexes_kv_heads(cuda):
                                    v.repeat_interleave(4, dim=1),
                                    causal=True, window=50)
     _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [100, 200], ids=["S100", "S200"])
+@pytest.mark.parametrize("d", [32, 48, 64, 128, 256])
+@pytest.mark.parametrize("causal,window", [(True, 50), (False, 0)],
+                         ids=["causal_w50", "full"])
+def test_flash_attention_tiles_head_dims_and_gqa(cuda, d, s, causal, window,
+                                                 dtype):
+    """Sequence lengths that fill no query or kv tile (S 100 and 200 leave
+    partial tiles of 64 and 32 rows), every head-dim template (D 48 uses
+    D 64's with a partial row), with 4 query heads over 2 kv heads, and
+    causal and window masks together."""
+    gen = torch.Generator(device=cuda).manual_seed(d + s)
+    q = torch.randn(2, 4, s, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 2, s, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    ops.reset_launches()
+    got = ops.flash_attention_gqa(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    _close(got, ref.ref_flash_attention(
+        q, k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1),
+        causal=causal, window=window))
 
 
 @pytest.mark.parametrize("k,b,t", [(8, 16, 4096), (3, 5, 4099)])
