@@ -14,12 +14,13 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    and one PyTorch library call doing the same function where there is
    one (device time of calls replayed from a CUDA graph, except the
    ragged GEMM's plain version, which syncs; ``wrapper_ms`` adds the
-   host's cost per call; the float32 GEMM and attention rows also print
-   their share of the bound, ``bound_ms / ms``, each GEMM width the tile,
-   wide or narrow, that served it, and the first row of each the SM clock
-   and board power under load): the ragged GEMM's float32, bf16-weight,
-   int8 and fp8 bodies (with the error and time of each e4m3 contraction
-   the fp8 body can use), the step kernel, the velocity kernel, the dequant
+   host's cost per call; the float32 GEMM, attention and SSD scan rows
+   also print their share of the bound, ``bound_ms / ms``, each GEMM width
+   the tile, wide or narrow, that served it, and the first row of each the
+   SM clock and board power under load): the ragged GEMM's float32,
+   bf16-weight, int8 and fp8 bodies (with the error and time of each e4m3
+   contraction the fp8 body can use), the step kernel, the velocity
+   kernel, the dequant
    kernel, the AdaLN kernel (at the ragged MLP modulate site, float32,
    with bf16 modulations and in bf16), the attention kernel (the DiT's
    self-attention, and a causal sliding-window GQA case at Mixtral-8x7B's
@@ -27,8 +28,9 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    ``ops.fused_convert_and_fuse`` is then driven once with the launch
    counts set to 0 and must equal ``fused_velocity`` bitwise, and the SSD
    scan kernel at mamba2-2.7b's mixer shape (bf16 and float32 strided
-   views of the projection, and ``S`` < chunk), timed beside its plain
-   (sequential) version and the plain chunked algorithm in PyTorch;
+   views of the projection, and ``S`` < chunk; its C·Bᵀ prep first against
+   its own plain version), timed beside its plain (sequential) version and
+   the plain chunked algorithm in PyTorch;
 4. loads the full-width heterogeneous DiT-B/2 ensemble — 8 random,
    seeded experts (2 DDPM/cosine + 6 FM/linear) and a router, written to
    checkpoints and loaded once with ``ServingEngine.from_checkpoint_dir``
@@ -842,14 +844,17 @@ def _ssd_inputs(dev, b, h, s, p, n, dtype, seed):
 
 
 def ssd_work(b, h, s, p, n, q, elt) -> tuple[float, float]:
-    """(operations, bytes) of one scan: the chunked algorithm's products —
-    C·Bᵀ once per (batch, chunk), then per (batch, head, chunk) the
-    intra-chunk (q × q)·(q × P), inter-chunk (q × N)·(N × P) and state
+    """(operations, bytes) of one scan: the chunked algorithm's products
+    that these inputs need — C·Bᵀ once per (batch, chunk) and the
+    intra-chunk (q × q)·(q × P) product, both on the causal triangle
+    (q(q + 1)/2 of the q² pairs: the rest is masked to 0), then per
+    (batch, head, chunk) the inter-chunk (q × N)·(N × P) and state
     (P × q)·(q × N) products — and each input read once, y and the state
     written once."""
     chunks = b * (s // q)
-    flops = 2.0 * chunks * q * q * n + 2.0 * chunks * h * (
-        q * q * p + 2 * q * p * n)
+    tri = q * (q + 1) / 2
+    flops = 2.0 * chunks * tri * n + 2.0 * chunks * h * (
+        tri * p + 2 * q * p * n)
     nbytes = (elt * (2.0 * b * s * h * p + 2.0 * b * s * n)
               + 4.0 * (b * s * h + h + b * h * p * n))
     return flops, nbytes
@@ -861,12 +866,16 @@ def check_ssd_scan(ops, ref, dev) -> dict:
     ``(4, 1024, 80·64 + 256)`` projection, B/C ``(4, 1024, 128)`` strided,
     dt float32, chunk 128 — in bf16, in float32, and with ``S`` = 100 <
     chunk.  y and the state against the plain (sequential) version.
-    Times: the kernel, the plain version and the plain chunked algorithm
-    in PyTorch (``mamba2.ssd_chunked``: torch einsums, i.e. cuBLAS); no
-    single PyTorch call computes the scan (library null).  Bound: the
-    convention of the other rows goes by input dtype (bf16 inputs: bf16
-    tensor-core peak and HBM bytes); the float32 CUDA-core figure, the
-    rate the kernel computes at, is printed beside it."""
+    Times: the kernel (its prep, C·Bᵀ once per (batch, chunk), also
+    alone), the plain version and the plain chunked algorithm in PyTorch
+    (``mamba2.ssd_chunked``: torch einsums, i.e. cuBLAS); no single
+    PyTorch call computes the scan (library null).  Bound: the convention
+    of the other rows goes by input dtype (bf16 inputs: bf16 tensor-core
+    peak and HBM bytes); the float32 CUDA-core figure, the rate the kernel
+    computes at, is printed beside it, with the share of each.  The prep
+    is first held against its own plain version (``ssd_scan_prep case``:
+    C·Bᵀ within ``GEMM_REL``, C and B bitwise)."""
+    from repro_torch.kernels.ssd_scan import blocks_per_sm, ssd_scan_prep
     from repro_torch.models.mamba2 import ssd_chunked
 
     b, h, s, p, n, chunk = SSD_SHAPE
@@ -876,6 +885,20 @@ def check_ssd_scan(ops, ref, dev) -> dict:
     for name, seq, dtype in cases:
         x, dt, A, B, C = _ssd_inputs(dev, b, h, seq, p, n, dtype, seed=16)
         q = min(chunk, seq)
+        if not rows:                        # the prep at the mixer shape
+            got = ssd_scan_prep(B, C, tile=q)
+            want = ref.ref_ssd_scan_prep(B, C, q)
+            torch.cuda.synchronize()
+            perr, pscale = rel_err(got[:, :, 0], want[:, :, 0])
+            prow = dict(B=b, S=seq, N=n, tile=q, max_abs_err=perr,
+                        tol=GEMM_REL_TOL * pscale,
+                        c_b_equal=bool(torch.equal(got[:, :, 1:],
+                                                   want[:, :, 1:])))
+            print("ssd_scan_prep case " + json.dumps(prow))
+            if not (perr <= prow["tol"] and prow["c_b_equal"]):
+                fail(f"ssd_scan_prep disagrees with its plain version: "
+                     f"{prow}")
+            del got, want
 
         def kern():
             return ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
@@ -894,6 +917,7 @@ def check_ssd_scan(ops, ref, dev) -> dict:
               and serr <= SSD_REL_TOL * sscale)
         del wy, ws
         t_k = graph_ms(kern, 10)
+        t_prep = graph_ms(lambda: ssd_scan_prep(B, C, tile=q), 10)
         t_w = cuda_ms(kern, 10)
         t_p = cuda_ms(plain, 2, warmup=1)
         t_c = cuda_ms(lambda: ssd_chunked(x.transpose(1, 2),
@@ -906,11 +930,15 @@ def check_ssd_scan(ops, ref, dev) -> dict:
         row = dict(case=name, x=[b, h, seq, p], N=n, chunk=q,
                    dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                    tol=tol, state_err=serr, state_tol=SSD_REL_TOL * sscale,
-                   ms=t_k, wrapper_ms=t_w, plain_ms=t_p,
+                   ms=t_k, prep_ms=t_prep, wrapper_ms=t_w, plain_ms=t_p,
                    chunked_torch_ms=t_c, library_ms=None, bound_ms=t_b,
-                   bound_by=by, bound_f32_ms=t_b32, bound_f32_by=by32,
-                   gflop=flops / 1e9, mbytes=nbytes / 1e6,
-                   tflops=flops / t_k / 1e9)
+                   bound_by=by, share_of_bound=t_b / t_k,
+                   bound_f32_ms=t_b32, bound_f32_by=by32,
+                   share_of_bound_f32=t_b32 / t_k, gflop=flops / 1e9,
+                   mbytes=nbytes / 1e6, tflops=flops / t_k / 1e9,
+                   blocks_per_sm=blocks_per_sm(dtype))
+        if not rows:                        # the mixer shape: clocks too
+            row.update(clocks_under(kern))
         print("ssd_scan case " + json.dumps(row))
         if not ok:
             fail(f"ssd_scan disagrees with its plain version: {row}")

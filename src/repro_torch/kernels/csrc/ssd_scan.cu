@@ -12,36 +12,83 @@
 // y is written in x's dtype, the final (P, N) state in float32.
 //
 // What bounds it on this card: float32 operations.  At mamba2-2.7b's
-// mixer shape (4 sequences × 80 heads, S 1024, P 64, N 128, chunk 128) a
-// call does ≈ 16 GFLOP on ≈ 98 MB of operands, ~165 FLOP per byte, far
-// above the ~20 FLOP per byte where float32 CUDA-core math (67 TFLOP/s)
-// overtakes HBM (3.35 TB/s).  Tensor cores (TF32 or bf16) are excluded on
-// purpose: the reference computes every product in full float32.
+// mixer shape (4 sequences × 80 heads, S 1024, P 64, N 128, chunk 128) the
+// inputs need 13.5 GFLOP (C·Bᵀ once per (batch, chunk), the intra product
+// on the causal triangle only) on ≈ 98 MB of operands, far above the ~20
+// FLOP per byte where float32 CUDA-core math (67 TFLOP/s) overtakes HBM
+// (3.35 TB/s): 0.20 ms.  Tensor cores are excluded on purpose: the
+// reference computes every product in full float32, and three of the four
+// products have a float32 operand (the masked scores, the carried state,
+// x·w); C·Bᵀ, the one product of two inputs, is 0.5 % of the work once it
+// is computed per chunk.
 //
-// Design (a plain, correct body — no wgmma, no TMA): one block of 256
-// threads per (batch, head) walks the chunks in order.  The (P, N) state
-// lives in registers (4 × 8 values a thread) for the whole sequence.  Per
-// chunk, x, B and C are converted to float32 and staged in shared memory
-// (rows padded by 4 floats: conflict-free float4 reads down a column of
-// rows), with the state transposed beside them; rows that are 16-byte
-// aligned (the mixer's are) load as 16-byte words, several in flight per
-// thread — element by element the staging took half the kernel's time.
-// Warp 0 loads dt and computes the cumulative log-decay with shuffles.  The chunk's output
-// rows go in passes of 32: the masked scores
-// S_ij = (C_i·B_j)·exp(cum_i − cum_j)·dt_j of the pass (only the 32-column
-// blocks at or below the diagonal) land in shared memory, then each
-// thread adds S·x and exp(cum_i)·C·stateᵀ for 2 rows × 4 columns.  The
-// state update accumulates Σ_j (x_j·w_j) ⊗ B_j with w_j = dt_j ·
-// exp(cum_last − cum_j) in registers.  Above the diagonal cum_i − cum_j is
-// positive and exp can overflow: the score is selected to 0 there, never
-// computed as exp(·)·mask (inf·0 = NaN).  x, B, C and y are addressed by
-// (batch, head, position) element strides with a contiguous last axis,
-// so the mixer's slices of its projection are read without copies.
-// Positions past S (a last partial tile) and P < 64, N < 128 are zero
-// padded.  expf and IEEE arithmetic: no fast-math.
+// Two kernels, launched back to back on one stream:
 //
-// Shared memory: 223,232 bytes (one block per SM), above the 48 KB
-// default: the launcher opts in and returns the CUDA error if refused.
+// 1. ssd_scan_prep_kernel, once per (batch, tile), not per head: writes a
+//    float32 scratch of 3 × 128 × 128 floats a tile (192 KB; 6 MB at the
+//    mixer shape, so it stays in L2):
+//      CBt[j][i] = C_i·B_j   for j ≤ i < q, 0 elsewhere (C·Bᵀ, transposed)
+//      Ct[n][i]  = C_i[n]    (C transposed, widened, zero padded)
+//      Bf[j][n]  = B_j[n]    (B widened, zero padded)
+//    so the scan reads every operand shared by the heads as float32 rows
+//    laid out for its register tiles, whatever the inputs' dtype, strides
+//    or alignment.  Grid (4 row quarters, tiles, batch) of 256 threads: a
+//    block stages its 32 rows of C and the B rows up to its last row in
+//    one pass (16-byte loads where aligned; 84 KB of dynamic shared
+//    memory), then each thread sums 4 × 4 entries over n in order.
+//
+// 2. ssd_scan_kernel: one block of 128 threads per (batch, head).  The
+//    recurrence is independent for each state row p (state[p, :] needs
+//    only x[:, p]): the block's four warps are two column groups of 32
+//    rows p × two row halves of the tile, so both groups share every
+//    staged slab and the scores.  Each block walks its tiles in order;
+//    per tile it streams 8-deep slabs through a 3-slot ring of 16-byte
+//    cp.async, two slabs in flight while one is computed, one block
+//    barrier a slab:
+//      * inter slabs (8 rows n of Ct; none in the first tile, whose state
+//        is zero): acc[i][p] += C[i][n]·state[p][n] against the state, kept
+//        transposed in shared memory (St[n][p], 16-byte words swizzled so
+//        that the state update's quarter warps hit 8 bank groups);
+//      * then acc *= exp(cum_i), and score slabs (8 positions j: CBt rows
+//        from the diagonal on, x rows): each warp turns 32 rows of CBt into
+//        scores S_ij = CB_ij·exp(cum_i − cum_j)·dt_j in place, selected to
+//        0 above the diagonal before any exp (there it may be inf, and
+//        inf·0 is NaN); bf16 x is widened once into the slot; then
+//        acc += S·x (a warp whose rows all lie above the slab skips it);
+//      * y = acc in x's dtype; then update slabs (Bf rows, x rows): each
+//        warp turns its 16 columns of x into x·w (w_j = dt_j·exp(cum_last −
+//        cum_j)), upd[p][n] += (x·w)[j][p]·B[j][n];
+//      * state ← exp(cum_last)·state + upd.
+//    Every product is a register tile of 8 × 8 a thread: two 16-byte
+//    shared loads of each operand per 64 FFMA, 4 FFMA per float read,
+//    conflict-free (a quarter warp reads distinct 16-byte bank groups or
+//    one broadcast word); only one accumulator is live at a time.  Warp 0
+//    loads the next tile's dt a tile ahead and computes the cumulative
+//    log-decay with shuffles.
+//
+// Budget at the mixer shape (bf16; float32 in brackets):
+//   shared memory  3 slots × 7 KB [8 KB] + the state 32 KB + 2 KB of
+//                  per-position scalars = 55 KB [58 KB] a block, dynamic,
+//                  with the largest carveout;
+//   registers      at most 168 a thread (__launch_bounds__(128, 3));
+//   blocks per SM  3 (12 warps), by registers and shared memory;
+//   waves          4 × 80 = 320 blocks on 132 × 3 = 396 slots: one wave,
+//                  at most 3 blocks an SM against 2.42 on average;
+//   L2 re-reads    per block and tile Ct 64 KB (not in the first tile),
+//                  CBt from the diagonal on 34 KB, Bf 64 KB, x twice 32 KB
+//                  [64 KB]: 476 MB [558 MB] a call, against 98 MB of
+//                  operands.
+// The variants tried and not kept (one block a column group, bf16 C and
+// B widened as read, the scores and the update in one pass, 16-deep
+// slabs) are in PERF.md.
+//
+// Chunks of up to 128 positions are one tile each (tile = chunk); longer
+// chunks walk tiles of 128.  A last partial tile is masked, P < 64 and
+// N < 128 zero padded.  x, B, C and y are addressed by (batch, head,
+// position) element strides with a contiguous last axis, so the mixer's
+// slices of its projection are read without copies; x rows off 16-byte
+// alignment (or P not a multiple of a 16-byte word) are staged element by
+// element, as are y rows.  expf and IEEE arithmetic: no fast-math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,20 +98,45 @@
 #include <atomic>
 #include <initializer_list>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int QT = 128;            // positions per tile (the largest chunk)
 constexpr int PM = 64;             // head dim capacity
 constexpr int NM = 128;            // state dim capacity
-constexpr int RT = 32;             // output rows per pass (= column block)
-constexpr int BP = NM + 4;         // padded row of the B and C tiles
-constexpr int XP = PM + 4;         // padded row of x and of the state^T
-constexpr int SP = QT + 4;         // padded row of the score tile
+constexpr int PG = 32;             // state rows p of a column group
+constexpr int KS = 8;              // depth of a staged slab
+constexpr int THREADS = 128;       // two column groups × two row halves
+constexpr int MIN_BLOCKS = 3;
 constexpr unsigned FULL = 0xffffffffu;
 
-constexpr size_t SMEM_FLOATS =
-    2 * QT * BP + QT * XP + NM * XP + RT * SP + 3 * QT;
+constexpr int PREP_THREADS = 256;
+constexpr int PREP_ROWS = 32;      // rows i of C·Bᵀ per prep block
+constexpr int PREP_PITCH = NM + 4; // a staged row of the prep, in floats
+constexpr int PREP_SMEM = (PREP_ROWS + QT) * PREP_PITCH * 4;
+
+// Byte layouts for inputs of type T.  The scratch of one (batch, tile),
+// float32: CBt[j][i], Ct[n][i], Bf[j][n].  A ring slot: CBt rows (turned
+// into the scores in place) with x rows as staged (T) and, for bf16, x
+// widened once (XF); or Ct rows; or Bf rows with x rows and x·w (XF).
+// Then the state and the per-position scalars.
+template <typename T>
+struct Layout {
+  static constexpr int TILE_BYTES = 3 * QT * NM * 4;
+  static constexpr int OFF_CT = QT * QT * 4;
+  static constexpr int OFF_BF = OFF_CT + NM * QT * 4;
+  static constexpr int SLAB = KS * QT * 4;        // CBt, Ct or Bf rows
+  static constexpr int OFF_X = SLAB;              // x rows (T)
+  static constexpr int OFF_XF = OFF_X + KS * PM * sizeof(T);  // float32
+  static constexpr int SLOT = OFF_XF + KS * PM * 4;
+  // St[n][p] (float32), cum, dt, w, exp(cum) per position, exp(cum_last)
+  static constexpr int FIXED = NM * PM * 4 + 4 * QT * 4 + 16;
+  static constexpr int NSLOT = 3;
+  static constexpr int SMEM = NSLOT * SLOT + FIXED;
+  // MIN_BLOCKS blocks an SM: 228 KB less 1 KB reserved per block
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 228 * 1024, "shared memory");
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -75,11 +147,8 @@ __device__ __forceinline__ void from_f32(__nv_bfloat16* o, float v) {
   *o = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ void fma4(float4& acc, float s, const float4& v) {
-  acc.x = fmaf(s, v.x, acc.x);
-  acc.y = fmaf(s, v.y, acc.y);
-  acc.z = fmaf(s, v.z, acc.z);
-  acc.w = fmaf(s, v.w, acc.w);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b,
@@ -90,15 +159,21 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b,
   return fmaf(a.w, b.w, acc);
 }
 
-// The 16-byte word `raw` as float32 values: 4 floats or 8 bf16.
-__device__ __forceinline__ void unpack(const uint4& raw, float* v, float) {
-  v[0] = __uint_as_float(raw.x);
-  v[1] = __uint_as_float(raw.y);
-  v[2] = __uint_as_float(raw.z);
-  v[3] = __uint_as_float(raw.w);
+__device__ __forceinline__ void put4(float* v, const float4& q) {
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
 }
-__device__ __forceinline__ void unpack(const uint4& raw, float* v,
-                                       __nv_bfloat16) {
+
+// 8 consecutive staged values as float32 (bf16 widened exactly).
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  put4(v, ld4(p));
+  put4(v + 4, ld4(p + 4));
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
   const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -107,12 +182,45 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* v,
   }
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// The state columns n of update-tile lane nb, e = 0 .. 7: two runs of 4
+// columns half a row apart, so a quarter warp reads 8 distinct 16-byte
+// words of a Bf row.
+__device__ __forceinline__ int state_col(int nb, int e) {
+  return (e < 4 ? 0 : NM / 2) + 4 * nb + (e & 3);
 }
 
-__device__ __forceinline__ float comp(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+// Element (n, p) of the state St, kept transposed (row n of PM floats):
+// the 16-byte word p / 4 of row n is stored at word (p / 4) ^ key(n),
+// key(n) = (n / 4) % 8, the nb of the update-tile lanes that own row n,
+// so the 8 lanes of a quarter warp, which update 8 rows at one p, hit 8
+// bank groups; a row's words stay within their aligned 128 bytes, so
+// reads along a row stay conflict-free.
+__device__ __forceinline__ int st_idx(int n, int p) {
+  return n * PM + ((((p >> 2) ^ ((n >> 2) & 7))) << 2) + (p & 3);
+}
+
+// 8 values to 8 consecutive (16-byte aligned) outputs.
+__device__ __forceinline__ void store8(float* o, const float (&v)[8]) {
+  reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&t);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* o,
+                                       const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(o) =
+      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
+__device__ __forceinline__ void fma8x8(float (&c)[8][8], const float (&a)[8],
+                                       const float (&b)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
 }
 
 struct Args {
@@ -123,8 +231,9 @@ struct Args {
   const void* C;
   void* y;
   float* state;
-  int H, S, P, N, tile;
-  int vec_x, vec_bc;       // rows of x / of B and C load as 16-byte words
+  unsigned char* scratch;  // (batch, ntiles, 3, 128, 128) float32
+  int H, S, P, N, tile, ntiles;
+  int vec_x, vec_y, vec_bc;  // x / y / B and C rows move as 16-byte words
   int64_t sxb, sxh, sxs;   // x (batch, head, position) strides
   int64_t sdb, sdh, sds;   // dt
   int64_t sbb, sbs;        // B (batch, position)
@@ -132,312 +241,591 @@ struct Args {
   int64_t syb, syh, sys;   // y
 };
 
-// Stage positions [t0, t0 + qv) of a matrix whose rows (one a position,
-// `cols` ≤ CAP valid columns, contiguous) lie `rs` elements apart into
-// dst as float32 (row pitch `pitch`), zero padded to QT × CAP.  With
-// `vec` (cols == CAP, every row 16-byte aligned) each thread moves whole
-// 16-byte words, 16 / sizeof(T) elements at a time, several in flight.
-template <typename T, int CAP>
-__device__ __forceinline__ void stage(float* dst, int pitch,
-                                      const T* __restrict__ src, int64_t rs,
-                                      int t0, int qv, int cols, bool vec) {
+__device__ __forceinline__ int tile_rows(const Args& a, int k) {
+  return min(a.tile, a.S - k * a.tile);
+}
+
+// Rows of a (rows, N) matrix of T, `rs` elements apart, into shared rows
+// of PREP_PITCH floats, widened and zero padded to NM columns (rows past
+// `valid` are zero); rows from `g0` on also into the scratch rows `gdst`
+// (NM floats apart).  With `vec` (N a whole number of 16-byte words, every
+// row 16-byte aligned) each thread moves whole 16-byte words.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, float* gdst, int g0,
+                                           const T* src, int64_t rs,
+                                           int rows, int valid, int N,
+                                           bool vec, int tid) {
   if (vec) {
-    constexpr int V = 16 / sizeof(T);
-    constexpr int WORDS = CAP / V;               // per row
-#pragma unroll 4
-    for (int i = threadIdx.x; i < QT * WORDS; i += THREADS) {
-      const int j = i / WORDS, c = (i % WORDS) * V;
-      float v[V];
-      if (j < qv) {
-        unpack(*reinterpret_cast<const uint4*>(src + (int64_t)(t0 + j) * rs
-                                               + c),
-               v, T());
+    constexpr int V = 16 / sizeof(T), W = NM / V;
+    for (int e = tid; e < rows * W; e += PREP_THREADS) {
+      const int r = e / W, c = (e % W) * V;
+      float v[8];
+      if (r < valid && c < N) {
+        if (sizeof(T) == 2)
+          load8(reinterpret_cast<const __nv_bfloat16*>(src + r * rs + c), v);
+        else
+          put4(v, *reinterpret_cast<const float4*>(src + r * rs + c));
       } else {
 #pragma unroll
-        for (int e = 0; e < V; ++e) v[e] = 0.f;
+        for (int q = 0; q < V; ++q) v[q] = 0.f;
       }
 #pragma unroll
-      for (int e = 0; e < V; e += 4)
-        *reinterpret_cast<float4*>(&dst[j * pitch + c + e]) =
-            make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+      for (int q = 0; q < V; q += 4) {
+        const float4 w = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+        *reinterpret_cast<float4*>(&dst[r * PREP_PITCH + c + q]) = w;
+        if (gdst && r >= g0)
+          *reinterpret_cast<float4*>(&gdst[r * NM + c + q]) = w;
+      }
     }
   } else {
-    for (int i = threadIdx.x; i < QT * CAP; i += THREADS) {
-      const int j = i / CAP, c = i % CAP;
-      dst[j * pitch + c] = (j < qv && c < cols)
-                               ? to_f32(src[(int64_t)(t0 + j) * rs + c])
-                               : 0.f;
+    for (int e = tid; e < rows * NM; e += PREP_THREADS) {
+      const int r = e / NM, n = e % NM;
+      const float v = (r < valid && n < N) ? to_f32(src[r * rs + n]) : 0.f;
+      dst[r * PREP_PITCH + n] = v;
+      if (gdst && r >= g0) gdst[r * NM + n] = v;
     }
   }
 }
 
+// C·Bᵀ, C transposed and B of one (batch, tile) into the scratch: block
+// (quarter, tile, batch) computes rows i0 .. i0 + 31 of C·Bᵀ (columns j
+// up to i0 + 31, the rest is above the diagonal), the same columns of Ct
+// and rows of Bf, from C rows i0 .. and B rows 0 .. i0 + 31 staged whole.
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* Bs = reinterpret_cast<float*>(smem4);   // QT × BP
-  float* Cs = Bs + QT * BP;                      // QT × BP
-  float* Xs = Cs + QT * BP;                      // QT × XP
-  float* St = Xs + QT * XP;                      // NM × XP: state^T
-  float* Ps = St + NM * XP;                      // RT × SP: scores
-  float* cum = Ps + RT * SP;                     // QT
-  float* dts = cum + QT;                         // QT
-  float* wts = dts + QT;                         // QT
-
+__global__ void __launch_bounds__(PREP_THREADS)
+    ssd_scan_prep_kernel(Args a) {
+  using L = Layout<T>;
+  extern __shared__ __align__(16) float psm[];
+  float* Cs = psm;                                 // PREP_ROWS × PREP_PITCH
+  float* Bs = psm + PREP_ROWS * PREP_PITCH;        // QT × PREP_PITCH
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.x;
-  const int b = bh / a.H, h = bh % a.H;
+  const int quarter = blockIdx.x, i0 = quarter * PREP_ROWS;
+  const int k = blockIdx.y, b = blockIdx.z;
+  const int t0 = k * a.tile, qv = tile_rows(a, k);
+  unsigned char* out =
+      a.scratch + ((int64_t)b * a.ntiles + k) * L::TILE_BYTES;
+  float* CBt = reinterpret_cast<float*>(out);
+  float* Ct = reinterpret_cast<float*>(out + L::OFF_CT);
+  float* Bf = reinterpret_cast<float*>(out + L::OFF_BF);
+  const T* Bg = static_cast<const T*>(a.B) + b * a.sbb + (int64_t)t0 * a.sbs;
+  const T* Cg = static_cast<const T*>(a.C) + b * a.scb + (int64_t)t0 * a.scs;
+
+  stage_rows(Cs, static_cast<float*>(nullptr), 0, Cg + (int64_t)i0 * a.scs,
+             a.scs, PREP_ROWS, qv - i0, a.N, a.vec_bc, tid);
+  stage_rows(Bs, Bf, i0, Bg, a.sbs, i0 + PREP_ROWS, qv, a.N, a.vec_bc, tid);
+  __syncthreads();
+  for (int e = tid; e < NM * PREP_ROWS; e += PREP_THREADS) {
+    const int n = e / PREP_ROWS, r = e % PREP_ROWS;
+    Ct[n * QT + i0 + r] = Cs[r * PREP_PITCH + n];
+  }
+
+  // this thread's entries: rows i0 + 4·warp + r, columns lane + 32·c for
+  // c ≤ quarter (columns past the block's rows lie above the diagonal)
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  for (int n = 0; n < NM; n += 4) {
+    float4 cv[4], bv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      cv[r] = ld4(&Cs[(4 * warp + r) * PREP_PITCH + n]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c <= quarter) bv[c] = ld4(&Bs[(lane + 32 * c) * PREP_PITCH + n]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c <= quarter)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][c] = dot4(cv[r], bv[c], acc[r][c]);
+  }
+  const int i = i0 + 4 * warp;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int j = lane + 32 * c;
+    float v[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      v[r] = (j <= i + r && i + r < qv) ? acc[r][c] : 0.f;
+    *reinterpret_cast<float4*>(&CBt[j * QT + i]) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Warp 0: the tile's dt (4 positions a lane, 0 past the tile), the
+// cumulative log-decay and the weights of the tile's positions.
+__device__ __forceinline__ void scan_dt(const float (&d)[4], float A,
+                                        int lane, float* cum, float* dts,
+                                        float* wts, float* ecum,
+                                        float* decay) {
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    dts[4 * lane + e] = d[e];
+    v[e] = d[e] * A;
+  }
+  v[1] += v[0];
+  v[2] += v[1];
+  v[3] += v[2];
+  float tot = v[3];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float t = __shfl_up_sync(FULL, tot, off);
+    if (lane >= off) tot += t;
+  }
+  // the lanes before this one, as the scan summed them (no subtraction:
+  // cum_i − cum_j already cancels digits of |cum|)
+  const float before = __shfl_up_sync(FULL, tot, 1);
+  const float excl = lane == 0 ? 0.f : before;
+  const float last = __shfl_sync(FULL, v[3] + excl, 31);   // cum[QT-1]
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int j = 4 * lane + e;
+    const float c = v[e] + excl;
+    cum[j] = c;
+    wts[j] = d[e] * expf(last - c);
+    ecum[j] = expf(c);
+  }
+  if (lane == 0) *decay = expf(last);
+}
+
+// BYTES contiguous bytes (a multiple of 16·THREADS) global → shared,
+// asynchronously, 16 bytes a copy.
+template <int BYTES>
+__device__ __forceinline__ void copy_slab(uint32_t dst, const void* src,
+                                          int tid) {
+  static_assert(BYTES % (16 * THREADS) == 0, "whole 16-byte copies");
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+#pragma unroll
+  for (int m = 0; m < BYTES / (16 * THREADS); ++m) {
+    const int c = tid + m * THREADS;
+    hopper::cp_async16(dst + 16 * c, s + 16 * c, 16);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    ssd_scan_kernel(Args a) {
+  using L = Layout<T>;
+  constexpr int NSLOT = L::NSLOT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;                      // NSLOT × SLOT
+  float* St = reinterpret_cast<float*>(smem + NSLOT * L::SLOT);  // [n][p]
+  float* cum = St + NM * PM;
+  float* dts = cum + QT;
+  float* wts = dts + QT;
+  float* ecum = wts + QT;
+  float* decay = ecum + QT;
+
+  // warp w: column group gw (state rows p 32·gw ..), row half rw
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gw = warp >> 1, rw = warp & 1;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int pv = min(PG, a.P - PG * gw);          // valid columns of group
   const T* x = static_cast<const T*>(a.x) + b * a.sxb + h * a.sxh;
   const float* dt = a.dt + b * a.sdb + h * a.sdh;
-  const T* Bg = static_cast<const T*>(a.B) + b * a.sbb;
-  const T* Cg = static_cast<const T*>(a.C) + b * a.scb;
-  T* y = static_cast<T*>(a.y) + b * a.syb + h * a.syh;
+  T* y = static_cast<T*>(a.y) + b * a.syb + h * a.syh + PG * gw;
+  const unsigned char* scr =
+      a.scratch + (int64_t)b * a.ntiles * L::TILE_BYTES;
   const float A = a.A[h];
+  const int ni = (a.N + KS - 1) / KS;             // inter slabs of a tile
 
-  // This thread's slice of the state: rows sp0..sp0+3, columns
-  // sn0..sn0+3 and NM/2+sn0..NM/2+sn0+3.
-  const int sp0 = 4 * (tid >> 4), sn0 = 4 * (tid & 15);
-  float st[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) st[i][e] = 0.f;
+  // y tile: rows 64·rw + 8·rl .. + 7, columns 32·gw + 8·cb .. + 7.  State
+  // tile of the group's 64 threads: rows p 32·gw + 8·pb .. + 7 (warp:
+  // 16 of them), columns n state_col(nb, 0 .. 7).
+  const int rl = lane >> 2, cb = lane & 3;
+  const int pb = (tid & 63) >> 4, nb = tid & 15;
+  const int row0 = 64 * rw + 8 * rl, col0 = PG * gw + 8 * cb;
+  const int prow0 = PG * gw + 8 * pb;
 
-  for (int t0 = 0; t0 < a.S; t0 += a.tile) {
-    const int qv = min(a.tile, a.S - t0);
+  for (int e = tid; e < NM * PM; e += THREADS) St[e] = 0.f;
 
-    // dt, the cumulative log-decay and the state weights (warp 0)
-    if (warp == 0) {
-      float v[4];
+  const auto load_dt = [&](int k, float (&d)[4]) {
+    const int t0 = k * a.tile, qv = tile_rows(a, k);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 4 * lane + e;
-        const float d = j < qv ? dt[(int64_t)(t0 + j) * a.sds] : 0.f;
-        dts[j] = d;
-        v[e] = d * A;
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * lane + e;
+      d[e] = j < qv ? dt[(int64_t)(t0 + j) * a.sds] : 0.f;
+    }
+  };
+  const auto slabs = [&](int k) { return (tile_rows(a, k) + KS - 1) / KS; };
+  const auto steps = [&](int k) { return (k ? ni : 0) + 2 * slabs(k); };
+
+  // Stage step t of tile k into a slot: the inter slabs (Ct rows), then
+  // the score slabs (CBt rows from the diagonal on, x rows), then the
+  // update slabs (Bf rows, x rows).
+  const auto stage = [&](int k, int t, int slot) {
+    unsigned char* dsl = ring + slot * L::SLOT;
+    const uint32_t dst = hopper::smem_u32(dsl);
+    const unsigned char* src = scr + (int64_t)k * L::TILE_BYTES;
+    const int kni = k ? ni : 0;
+    if (t < kni) {
+      copy_slab<L::SLAB>(dst, src + L::OFF_CT + t * L::SLAB, tid);
+      return;
+    }
+    const int u = t - kni, nj = slabs(k), qv = tile_rows(a, k);
+    const int j0 = (u < nj ? u : u - nj) * KS;
+    if (u < nj) {
+      const unsigned char* cbt = src + j0 * QT * 4;
+#pragma unroll
+      for (int m = 0; m < L::SLAB / (16 * THREADS); ++m) {
+        const int c = tid + m * THREADS;
+        if ((c % (QT / 4)) >= j0 / 4)        // only columns i ≥ j0 are read
+          hopper::cp_async16(dst + 16 * c, cbt + 16 * c, 16);
       }
-      v[1] += v[0];
-      v[2] += v[1];
-      v[3] += v[2];
-      float tot = v[3];
+    } else {
+      copy_slab<L::SLAB>(dst, src + L::OFF_BF + j0 * NM * 4, tid);
+    }
+    const T* xs = x + (int64_t)(k * a.tile + j0) * a.sxs;
+    if (a.vec_x) {
+      constexpr int V = 16 / sizeof(T), W = PM / V;
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_up_sync(FULL, tot, off);
-        if (lane >= off) tot += t;
+      for (int c = tid; c < KS * W; c += THREADS) {
+        const int jj = c / W, w = c % W;
+        const bool ok = j0 + jj < qv && w * V < a.P;
+        hopper::cp_async16(dst + L::OFF_X + 16 * c,
+                           ok ? xs + (int64_t)jj * a.sxs + w * V : x,
+                           ok ? 16 : 0);
       }
-      // the lanes before this one, as the scan summed them (no
-      // subtraction: cum_i − cum_j already cancels digits of |cum|)
-      const float before = __shfl_up_sync(FULL, tot, 1);
-      const float excl = lane == 0 ? 0.f : before;
-      const float last = __shfl_sync(FULL, v[3] + excl, 31);   // cum[QT-1]
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 4 * lane + e;
-        const float c = v[e] + excl;
-        cum[j] = c;
-        wts[j] = dts[j] * expf(last - c);
+    } else {
+      T* xd = reinterpret_cast<T*>(dsl + L::OFF_X);
+      for (int e = tid; e < KS * PM; e += THREADS) {
+        const int jj = e / PM, p = e % PM;
+        if (j0 + jj < qv && p < a.P)
+          xd[e] = xs[(int64_t)jj * a.sxs + p];
+        else
+          from_f32(xd + e, 0.f);
       }
     }
-    // x, B, C as float32, zero padded; the state transposed
-    stage<T, PM>(Xs, XP, x, a.sxs, t0, qv, a.P, a.vec_x);
-    stage<T, NM>(Bs, BP, Bg, a.sbs, t0, qv, a.N, a.vec_bc);
-    stage<T, NM>(Cs, BP, Cg, a.scs, t0, qv, a.N, a.vec_bc);
+  };
+
+  // The ring: step g is computed in slot g % NSLOT while steps g + 1 ..
+  // g + NSLOT − 1 are in flight; one block barrier a step.
+  int slot = 0, ik = 0, it = 0;          // (ik, it): the next step to stage
+  const auto stage_next = [&](int into) {
+    if (ik < a.ntiles) {
+      stage(ik, it, into);
+      if (++it == steps(ik)) {
+        ++ik;
+        it = 0;
+      }
+    }
+    hopper::cp_async_commit();
+  };
+  const auto begin_step = [&]() {
+    hopper::cp_async_wait<NSLOT - 2>();
+    __syncthreads();           // this step landed; step g − 1 is consumed
+    stage_next((slot + NSLOT - 1) % NSLOT);
+    return ring + slot * L::SLOT;
+  };
+
+  float dnext[4];
+  if (warp == 0) {
+    float d[4];
+    load_dt(0, d);
+    scan_dt(d, A, lane, cum, dts, wts, ecum, decay);
+    if (a.ntiles > 1) load_dt(1, dnext);
+  }
+  for (int d = 0; d < NSLOT - 1; ++d) stage_next(d);
+
+  for (int k = 0; k < a.ntiles; ++k) {
+    const int qv = tile_rows(a, k), nj = slabs(k);
+    const bool rows = 64 * rw < qv;        // this warp has rows in the tile
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    // inter: acc[i][p] = Σ_n C[i][n]·state[p][n], then times exp(cum_i)
+    for (int t = 0; k && t < ni; ++t) {
+      const float* Ct = reinterpret_cast<const float*>(begin_step());
+      if (rows) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          float av[8], bv[8];
+          load8(Ct + kk * QT + row0, av);
+          const int n = t * KS + kk;
+          put4(bv, ld4(&St[st_idx(n, col0)]));
+          put4(bv + 4, ld4(&St[st_idx(n, col0 + 4)]));
+          fma8x8(acc, av, bv);
+        }
+      }
+      slot = (slot + 1) % NSLOT;
+    }
+    if (k) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float e = ecum[row0 + r];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] *= e;
+      }
+    }
+
+    // intra: the two warps of a row half turn its rows of CBt into the
+    // scores (32 rows each), then acc[i][p] += Σ_j S[j][i]·x[j][p]
+    for (int s = 0; s < nj; ++s) {
+      unsigned char* sl = begin_step();
+      float* S = reinterpret_cast<float*>(sl);
+      // x as float32: bf16 widened once here, one 16-byte word a thread
+      const float* xf = reinterpret_cast<const float*>(
+          sl + (sizeof(T) == 2 ? L::OFF_XF : L::OFF_X));
+      if (sizeof(T) == 2) {
+#pragma unroll
+        for (int c = tid; c < KS * PM / 8; c += THREADS) {
+          float v[8];
+          load8(reinterpret_cast<const T*>(sl + L::OFF_X) + 8 * c, v);
+          store8(reinterpret_cast<float*>(sl + L::OFF_XF) + 8 * c, v);
+        }
+      }
+      const int j0 = s * KS, i = 64 * rw + 32 * gw + lane;
+      if (64 * rw + 32 * gw + 31 >= j0) {                // warp-uniform
+        const float ci = cum[i];
+#pragma unroll
+        for (int jj = 0; jj < KS; ++jj) {
+          const int j = j0 + jj;
+          float& sc = S[jj * QT + i];
+          // select before exp: above the diagonal exp may be inf
+          sc = (j <= i && i < qv) ? sc * expf(ci - cum[j]) * dts[j] : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < KS; ++jj) S[jj * QT + i] = 0.f;
+      }
+      if (sizeof(T) == 2)
+        __syncthreads();       // every warp reads every row of x
+      else                     // the row half's two warps (rw and 2 + rw)
+        asm volatile("bar.sync %0, 64;\n" :: "r"(1 + rw) : "memory");
+      if (rows && 64 * rw + 63 >= j0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          float av[8], bv[8];
+          load8(&S[kk * QT + row0], av);
+          load8(xf + kk * PM + col0, bv);
+          fma8x8(acc, av, bv);
+        }
+      }
+      slot = (slot + 1) % NSLOT;
+    }
+
+    // y of the tile
+    if (rows) {
+      T* yt = y + (int64_t)k * a.tile * a.sys;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = row0 + r;
+        if (row >= qv) continue;
+        T* yr = yt + (int64_t)row * a.sys + 8 * cb;
+        if (a.vec_y && 8 * cb + 8 <= pv) {
+          store8(yr, acc[r]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            if (8 * cb + c < pv) from_f32(yr + c, acc[r][c]);
+        }
+      }
+    }
+
+    // update: each warp turns its own 16 columns of x into x·w, then
+    // upd[p][n] = Σ_j (x·w)[j][p]·B[j][n]
+    float upd[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) upd[i][j] = 0.f;
+    for (int s = 0; s < nj; ++s) {
+      unsigned char* sl = begin_step();
+      const float* Bf = reinterpret_cast<const float*>(sl);
+      const T* xr = reinterpret_cast<const T*>(sl + L::OFF_X);
+      float* xw = reinterpret_cast<float*>(sl + L::OFF_XF);
+#pragma unroll
+      for (int e = lane; e < KS * 16; e += 32) {
+        const int jj = e >> 4, p = PG * gw + 16 * rw + (e & 15);
+        xw[jj * PM + p] = to_f32(xr[jj * PM + p]) * wts[s * KS + jj];
+      }
+      __syncwarp();            // each warp reads only the columns it wrote
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        float av[8], bv[8];
+        load8(&xw[kk * PM + prow0], av);
+        put4(bv, ld4(Bf + kk * NM + 4 * nb));
+        put4(bv + 4, ld4(Bf + kk * NM + NM / 2 + 4 * nb));
+        fma8x8(upd, av, bv);
+      }
+      slot = (slot + 1) % NSLOT;
+    }
+
+    // state ← exp(cum_last)·state + upd (no thread reads St until the
+    // next tile's first barrier)
+    const float dec = *decay;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const int n = (e < 4 ? 0 : NM / 2) + sn0 + (e & 3);
-      *reinterpret_cast<float4*>(&St[n * XP + sp0]) =
-          make_float4(st[0][e], st[1][e], st[2][e], st[3][e]);
+      const int n = state_col(nb, e);
+      float4* p0 = reinterpret_cast<float4*>(&St[st_idx(n, prow0)]);
+      float4* p1 = reinterpret_cast<float4*>(&St[st_idx(n, prow0 + 4)]);
+      float4 s0 = *p0, s1 = *p1;
+      s0.x = dec * s0.x + upd[0][e];
+      s0.y = dec * s0.y + upd[1][e];
+      s0.z = dec * s0.z + upd[2][e];
+      s0.w = dec * s0.w + upd[3][e];
+      s1.x = dec * s1.x + upd[4][e];
+      s1.y = dec * s1.y + upd[5][e];
+      s1.z = dec * s1.z + upd[6][e];
+      s1.w = dec * s1.w + upd[7][e];
+      *p0 = s0;
+      *p1 = s1;
     }
-    __syncthreads();
-
-    const int passes = (qv + RT - 1) / RT;
-    for (int r = 0; r < passes; ++r) {
-      const int i0 = r * RT;
-      {
-        // scores of rows i0 + 4·ti + a, columns lane + 32·k (k ≤ r)
-        const int ti = tid >> 5;
-        float acc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
-        for (int n = 0; n < NM; n += 4) {
-          float4 cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            cv[i] = ld4(&Cs[(i0 + 4 * ti + i) * BP + n]);
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (k <= r) bv[k] = ld4(&Bs[(lane + 32 * k) * BP + n]);
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (k <= r)
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                acc[i][k] = dot4(cv[i], bv[k], acc[i][k]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = i0 + 4 * ti + i;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if (k > r) continue;
-            const int j = lane + 32 * k;
-            // select before exp: above the diagonal exp may be inf
-            Ps[(4 * ti + i) * SP + j] =
-                (j <= row && row < qv)
-                    ? acc[i][k] * expf(cum[row] - cum[j]) * dts[j]
-                    : 0.f;
-          }
-        }
-      }
-      __syncthreads();
-      {
-        // output rows i0 + 2·ti + a, columns 4·tp..4·tp+3
-        const int ti = tid >> 4, tp = tid & 15;
-        float4 intra[2], inter[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          intra[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-          inter[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-        const int jend = (r + 1) * RT;
-        for (int j = 0; j < jend; j += 4) {
-          float4 pv[2], xv[4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) pv[i] = ld4(&Ps[(2 * ti + i) * SP + j]);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) xv[c] = ld4(&Xs[(j + c) * XP + 4 * tp]);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) fma4(intra[i], comp(pv[i], c), xv[c]);
-        }
-        for (int n = 0; n < NM; n += 4) {
-          float4 cv[2], sv[4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            cv[i] = ld4(&Cs[(i0 + 2 * ti + i) * BP + n]);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) sv[c] = ld4(&St[(n + c) * XP + 4 * tp]);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) fma4(inter[i], comp(cv[i], c), sv[c]);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int row = i0 + 2 * ti + i;
-          if (row >= qv) continue;
-          const float e = expf(cum[row]);
-          T* yr = y + (int64_t)(t0 + row) * a.sys;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int p = 4 * tp + c;
-            if (p < a.P) from_f32(yr + p, comp(intra[i], c) + e * comp(inter[i], c));
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // state ← exp(cum_last)·state + Σ_j (x_j·w_j) ⊗ B_j
-    {
-      float upd[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) upd[i][e] = 0.f;
-      for (int j = 0; j < qv; ++j) {
-        const float w = wts[j];
-        const float4 xv = ld4(&Xs[j * XP + sp0]);
-        const float xw[4] = {xv.x * w, xv.y * w, xv.z * w, xv.w * w};
-        const float4 b0 = ld4(&Bs[j * BP + sn0]);
-        const float4 b1 = ld4(&Bs[j * BP + NM / 2 + sn0]);
-        const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) upd[i][e] = fmaf(xw[i], bb[e], upd[i][e]);
-      }
-      const float decay = expf(cum[QT - 1]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) st[i][e] = decay * st[i][e] + upd[i][e];
-    }
-    __syncthreads();
-  }
-
-  float* so = a.state + (int64_t)bh * a.P * a.N;    // (B, H, P, N)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = sp0 + i;
-    if (p >= a.P) continue;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int n = (e < 4 ? 0 : NM / 2) + sn0 + (e & 3);
-      if (n < a.N) so[(int64_t)p * a.N + n] = st[i][e];
+    __syncthreads();           // every warp is done with the tile's scalars
+    if (warp == 0 && k + 1 < a.ntiles) {
+      scan_dt(dnext, A, lane, cum, dts, wts, ecum, decay);
+      if (k + 2 < a.ntiles) load_dt(k + 2, dnext);
     }
   }
+
+  float* so = a.state + (int64_t)bh * a.P * a.N;   // (B, H, P, N)
+  for (int e = tid; e < PM * NM; e += THREADS) {
+    const int p = e / NM, n = e % NM;
+    if (p < a.P && n < a.N) so[(int64_t)p * a.N + n] = St[st_idx(n, p)];
+  }
+}
+
+bool aligned(const void* p, int elt, std::initializer_list<long long> strides) {
+  if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  for (const long long s : strides)
+    if ((s * elt) % 16) return false;
+  return true;
 }
 
 // The opt-in above 48 KB of shared memory holds per function and device,
 // so each template instance asks once per device (a repeat is harmless).
 constexpr int MAX_DEVICES = 64;
 
-template <typename T>
-int launch(const Args& a, int batch, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * SMEM_FLOATS;
-  auto kern = ssd_scan_kernel<T>;
+// A kernel's dynamic shared memory above the 48 KB default, and the
+// largest carveout (the scan's MIN_BLOCKS blocks an SM need all 228 KB):
+// asked once per kernel and device.
+template <typename T, bool PREP>
+cudaError_t opt_in() {
   static std::atomic<bool> opted_in[MAX_DEVICES];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < MAX_DEVICES && opted_in[dev].load()))
+    return e;
+  const void* kern =
+      PREP ? reinterpret_cast<const void*>(ssd_scan_prep_kernel<T>)
+           : reinterpret_cast<const void*>(ssd_scan_kernel<T>);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           PREP ? PREP_SMEM : Layout<T>::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < MAX_DEVICES) opted_in[dev].store(true);
+  return e;
+}
+
+template <typename T>
+int launch_scan(const Args& a, int batch, cudaStream_t stream) {
+  const cudaError_t e = opt_in<T, false>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= MAX_DEVICES || !opted_in[dev].load()) {
-    e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < MAX_DEVICES) opted_in[dev].store(true);
-  }
-  kern<<<batch * a.H, THREADS, smem, stream>>>(a);
+  ssd_scan_kernel<T><<<batch * a.H, THREADS, Layout<T>::SMEM, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int blocks_per_sm() {
+  int n = 0;
+  if (opt_in<T, false>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, ssd_scan_kernel<T>, THREADS, Layout<T>::SMEM) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <typename T>
+int launch_prep(const Args& a, int batch, cudaStream_t stream) {
+  const cudaError_t e = opt_in<T, true>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(QT / PREP_ROWS, a.ntiles, batch);
+  ssd_scan_prep_kernel<T><<<grid, PREP_THREADS, PREP_SMEM, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_prep(const Args& a, int batch, bool bf16, cudaStream_t stream) {
+  return bf16 ? launch_prep<__nv_bfloat16>(a, batch, stream)
+              : launch_prep<float>(a, batch, stream);
+}
+
 }  // namespace
+
+// Blocks of the scan kernel an SM holds at once on the current device
+// (float32 or bf16 inputs), or -1 if the query fails.
+extern "C" int ssd_scan_blocks_per_sm(int bf16) {
+  return bf16 ? blocks_per_sm<__nv_bfloat16>() : blocks_per_sm<float>();
+}
 
 // x, y: (B, H, S, P); dt: (B, H, S) float32; A: (H,) float32 contiguous;
 // B, C: (B, S, N); each by element strides with a contiguous last axis
 // (y by its own strides; dt's position stride may be anything).  x, B, C
 // and y all float32 (bf16 = 0) or all bf16 (bf16 = 1).  state: (B, H, P,
-// N) float32 contiguous.  P ≤ 64, N ≤ 128, 1 ≤ tile ≤ 128: the scan walks
-// S in tiles of `tile` positions (a last partial tile is masked).
-// Launches on `stream`, allocates nothing, returns the CUDA error code
-// (0 on success).
+// N) float32 contiguous.  scratch: (B, ceil(S / tile), 3, 128, 128)
+// float32 contiguous, overwritten.  P ≤ 64,
+// N ≤ 128, 1 ≤ tile ≤ 128: the scan walks S in tiles of `tile` positions
+// (a last partial tile is masked).  Launches the prep and the scan kernels
+// on `stream`, allocates nothing, returns the CUDA error code (0 on
+// success).
 extern "C" int ssd_scan(const void* x, const float* dt, const float* A,
                         const void* B, const void* C, void* y, float* state,
-                        int bf16, int batch, int H, int S, int P, int N,
-                        int tile, long long sxb, long long sxh, long long sxs,
-                        long long sdb, long long sdh, long long sds,
-                        long long sbb, long long sbs, long long scb,
-                        long long scs, long long syb, long long syh,
-                        long long sys, void* stream) {
+                        void* scratch, int bf16, int batch, int H, int S,
+                        int P, int N, int tile, long long sxb, long long sxh,
+                        long long sxs, long long sdb, long long sdh,
+                        long long sds, long long sbb, long long sbs,
+                        long long scb, long long scs, long long syb,
+                        long long syh, long long sys, void* stream) {
   if (batch == 0 || H == 0) return 0;
   if (P < 1 || P > PM || N < 1 || N > NM || tile < 1 || tile > QT || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int elt = bf16 ? 2 : 4;
-  const auto aligned = [elt](const void* p, std::initializer_list<long long>
-                                                strides) {
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-    for (const long long s : strides)
-      if ((s * elt) % 16) return false;
-    return true;
-  };
-  const int vec_x = P == PM && aligned(x, {sxb, sxh, sxs});
-  const int vec_bc = N == NM && aligned(B, {sbb, sbs}) && aligned(C, {scb, scs});
-  Args a{x,   dt,  A,   B,   C,      y,   state, H,   S,   P,   N,
-         tile, vec_x, vec_bc, sxb, sxh, sxs, sdb, sdh, sds, sbb, sbs,
-         scb, scs, syb, syh, sys};
+  const int ntiles = (S + tile - 1) / tile;
+  const int vec_x = P % (16 / elt) == 0 && aligned(x, elt, {sxb, sxh, sxs});
+  const int vec_y = aligned(y, elt, {syb, syh, sys});
+  const int vec_bc = N % (16 / elt) == 0 && aligned(B, elt, {sbb, sbs}) &&
+                     aligned(C, elt, {scb, scs});
+  const Args a{x,   dt,  A,   B,   C,   y,   state,
+               static_cast<unsigned char*>(scratch),
+               H,   S,   P,   N,   tile, ntiles, vec_x, vec_y, vec_bc,
+               sxb, sxh, sxs, sdb, sdh, sds, sbb, sbs, scb, scs, syb, syh,
+               sys};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(a, batch, st)
-              : launch<float>(a, batch, st);
+  const int rc = launch_prep(a, batch, bf16, st);
+  if (rc != 0) return rc;
+  return bf16 ? launch_scan<__nv_bfloat16>(a, batch, st)
+              : launch_scan<float>(a, batch, st);
+}
+
+// The prep kernel alone (for its check against its plain version): B, C
+// and scratch as above.
+extern "C" int ssd_scan_prep(const void* B, const void* C, void* scratch,
+                             int bf16, int batch, int S, int N, int tile,
+                             long long sbb, long long sbs, long long scb,
+                             long long scs, void* stream) {
+  if (batch == 0) return 0;
+  if (N < 1 || N > NM || tile < 1 || tile > QT || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.B = B;
+  a.C = C;
+  a.scratch = static_cast<unsigned char*>(scratch);
+  a.S = S;
+  a.N = N;
+  a.tile = tile;
+  a.ntiles = (S + tile - 1) / tile;
+  a.sbb = sbb;
+  a.sbs = sbs;
+  a.scb = scb;
+  a.scs = scs;
+  const int elt = bf16 ? 2 : 4;
+  a.vec_bc = N % (16 / elt) == 0 && aligned(B, elt, {sbb, sbs}) &&
+             aligned(C, elt, {scb, scs});
+  return launch_prep(a, batch, bf16, static_cast<cudaStream_t>(stream));
 }

@@ -283,9 +283,9 @@ def ssd_scan(
     x, B and C may be strided views with a contiguous last axis; on the
     card y is laid out ``(B, S, H, P)`` in memory, as on the CPU.
     ``head_block`` is the TPU kernel's head tiling, accepted for its
-    signature: the CUDA kernel runs one block per (batch, head).  Chunks
-    longer than 128 positions scan in tiles of 128 on the card (the same
-    function)."""
+    signature: the CUDA kernel computes C·Bᵀ once per (batch, chunk), then
+    runs one block per (batch, head).  Chunks longer than 128 positions
+    scan in tiles of 128 on the card (the same function)."""
     del head_block
     q = ssd_chunk_len(x.shape[2], chunk)
     if x.is_cuda:

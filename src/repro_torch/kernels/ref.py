@@ -224,3 +224,28 @@ def ref_ssd_scan(x, dt, A, B, C):
     from repro_torch.models.mamba2 import ssd_sequential   # models import ops
 
     return ssd_sequential(x, dt, A, B, C)
+
+
+def ref_ssd_scan_prep(B, C, tile: int, cap: int = 128):
+    """The SSD scan's prep, once per (batch, tile) of ``tile`` positions:
+    B, C ``(b, s, n)`` → ``(b, ceil(s / tile), 3, cap, cap)`` float32 of
+    ``[C·Bᵀ transposed (entry [j][i] = C_i·B_j for j ≤ i, else 0),
+    C transposed ([n][i]), B ([j][n])]``, zero padded to ``cap`` positions
+    and state columns (the CUDA kernel's scratch, ``cap`` = 128)."""
+    b, s, n = B.shape
+    nt = -(-s // tile)
+    f32 = torch.float32
+
+    def tiles(a):
+        a = torch.nn.functional.pad(a.to(f32), (0, 0, 0, nt * tile - s))
+        return a.reshape(b, nt, tile, n)
+
+    Bt, Ct = tiles(B), tiles(C)
+    cb = Ct @ Bt.transpose(-1, -2)                          # (b, nt, i, j)
+    lower = torch.tril(torch.ones(tile, tile, dtype=torch.bool,
+                                  device=B.device))
+    out = torch.zeros((b, nt, 3, cap, cap), dtype=f32, device=B.device)
+    out[:, :, 0, :tile, :tile] = torch.where(lower, cb, 0.0).transpose(-1, -2)
+    out[:, :, 1, :n, :tile] = Ct.transpose(-1, -2)
+    out[:, :, 2, :tile, :n] = Bt
+    return out

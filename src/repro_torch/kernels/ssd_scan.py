@@ -3,10 +3,12 @@
 Replaces the TPU kernel ``repro/kernels/ssd_scan.py:86`` (``ssd_scan``):
 the Mamba2 SSD chunked scan from a zero state, over x ``(B, H, S, P)``,
 dt ``(B, H, S)``, A ``(H,)`` and B, C ``(B, S, N)``, returning y in x's
-dtype and the final state ``(B, H, P, N)`` in float32.  One block per
-(batch, head) walks the chunks in order, the state in registers.  Its
-plain version is ``kernels.ref.ref_ssd_scan``; the model code reaches
-both through ``kernels.ops.ssd_scan``.
+dtype and the final state ``(B, H, P, N)`` in float32.  A prep kernel
+computes C·Bᵀ once per (batch, tile) into a float32 scratch that the
+wrapper allocates; then one block per (batch, head) walks the tiles in
+order, the state in shared memory.  The plain versions are
+``kernels.ref.ref_ssd_scan`` and ``ref_ssd_scan_prep``; the model code
+reaches the scan through ``kernels.ops.ssd_scan``.
 """
 
 from __future__ import annotations
@@ -29,9 +31,65 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _fn():
     fn = _build.load_library("ssd_scan").ssd_scan
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 7 + [i] * 7 + [ll] * 13 + [p]
+    fn.argtypes = [p] * 8 + [i] * 7 + [ll] * 13 + [p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _prep_fn():
+    fn = _build.load_library("ssd_scan").ssd_scan_prep
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p] * 3 + [i] * 5 + [ll] * 4 + [p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def blocks_per_sm(dtype) -> int:
+    """Blocks of the scan kernel an SM of the current device holds at once
+    for float32 or bf16 inputs (CUDA's occupancy query)."""
+    fn = _build.load_library("ssd_scan").ssd_scan_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(_DTYPES[dtype])
+
+
+def _scratch(b: int, s: int, tile: int, device) -> torch.Tensor:
+    """The kernel's scratch for ``b`` sequences of ``s`` positions in tiles
+    of ``tile``: per (batch, tile) C·Bᵀ transposed, C transposed and B,
+    float32, each MAX_TILE × MAX_N."""
+    return torch.empty((b, -(-s // tile), 3, MAX_TILE, MAX_N),
+                       dtype=torch.float32, device=device)
+
+
+def ssd_scan_prep(B: torch.Tensor, C: torch.Tensor, *,
+                  tile: int) -> torch.Tensor:
+    """The prep kernel alone, for its check against
+    ``ref.ref_ssd_scan_prep``: B, C ``(B, S, N)`` CUDA tensors (float32 or
+    bf16, contiguous last axis) → the scratch ``ssd_scan`` builds before
+    its scan, ``(B, ceil(S / tile), 3, 128, 128)`` float32: C·Bᵀ
+    transposed, C transposed, B."""
+    if B.dtype not in _DTYPES or C.dtype != B.dtype:
+        raise TypeError(f"ssd_scan_prep takes float32 or bf16 B, C of one "
+                        f"dtype, got {B.dtype}, {C.dtype}")
+    if not (B.is_cuda and C.device == B.device):
+        raise ValueError("ssd_scan_prep launches on CUDA tensors only")
+    b, s, n = B.shape
+    if C.shape != B.shape or not 1 <= n <= MAX_N or s == 0:
+        raise ValueError(f"B {tuple(B.shape)} and C {tuple(C.shape)} must "
+                         f"match, with 1 ≤ N ≤ {MAX_N} and S ≥ 1")
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile {tile} must be in [1, {MAX_TILE}]")
+    if n > 1 and (B.stride(-1) != 1 or C.stride(-1) != 1):
+        raise ValueError("B and C must have a contiguous last axis")
+    scratch = _scratch(b, s, tile, B.device)
+    stream = torch.cuda.current_stream(B.device).cuda_stream
+    with torch.cuda.device(B.device):
+        rc = _prep_fn()(B.data_ptr(), C.data_ptr(), scratch.data_ptr(),
+                        _DTYPES[B.dtype], b, s, n, tile, B.stride(0),
+                        B.stride(1), C.stride(0), C.stride(1), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_prep launch failed: CUDA error {rc}")
+    return scratch
 
 
 def ssd_scan(
@@ -87,6 +145,7 @@ def ssd_scan(
     y = torch.empty((b, s, h, p), dtype=x.dtype,
                     device=x.device).transpose(1, 2)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = _scratch(b, s, chunk, x.device)
     strides = ([x.stride(i) for i in range(3)]
                + [dt.stride(i) for i in range(3)]
                + [B.stride(0), B.stride(1), C.stride(0), C.stride(1)]
@@ -95,7 +154,8 @@ def ssd_scan(
     with torch.cuda.device(x.device):    # the launcher asks for the device
         rc = _fn()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                    C.data_ptr(), y.data_ptr(), state.data_ptr(),
-                   _DTYPES[x.dtype], b, h, s, p, n, chunk, *strides, stream)
+                   scratch.data_ptr(), _DTYPES[x.dtype], b, h, s, p, n,
+                   chunk, *strides, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
     return y, state

@@ -629,14 +629,15 @@ def test_ragged_dit_forward_runs_the_new_kernels(cuda, with_text):
 SSD_REL = 5e-5
 
 
-def _ssd_views(cuda, b, h, s, p, n, dtype, seed, dt_shift=-2.0):
+def _ssd_views(cuda, b, h, s, p, n, dtype, seed, dt_shift=-2.0, skew=0):
     """The mixer's layout: x, B, C strided slices of one ``(b, s, h·p + 2n)``
-    buffer, dt ``(b, s, h)`` float32 = softplus(N + shift), A from
-    ``−linspace(1, 16, h)`` (``A_log`` up to log 16); x and dt returned as
-    the kernel's ``(B, H, S, ·)`` views."""
+    buffer (``skew`` leading elements dropped from each row: with an odd
+    skew no row is 16-byte aligned), dt ``(b, s, h)`` float32 =
+    softplus(N + shift), A from ``−linspace(1, 16, h)`` (``A_log`` up to
+    log 16); x and dt returned as the kernel's ``(B, H, S, ·)`` views."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    xbc = torch.randn(b, s, h * p + 2 * n, generator=gen,
-                      device=cuda).to(dtype)
+    xbc = torch.randn(b, s, skew + h * p + 2 * n, generator=gen,
+                      device=cuda).to(dtype)[..., skew:]
     x = xbc[..., :h * p].reshape(b, s, h, p).transpose(1, 2)
     B = xbc[..., h * p:h * p + n]
     C = xbc[..., h * p + n:]
@@ -682,6 +683,79 @@ def test_ssd_scan_kernel_masks_before_exp(cuda):
     multiply by a mask (``inf · 0 = NaN``)."""
     _ssd_check(*_ssd_views(cuda, 1, 16, 256, 64, 128, torch.float32, seed=7,
                            dt_shift=10.0), chunk=128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("chunk", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("p,n", [(64, 128), (32, 16), (16, 128), (8, 16)])
+def test_ssd_scan_kernel_column_groups_and_tiles(cuda, dtype, p, n, chunk):
+    """Every column-group and tile edge of the kernel: P 64 fills both of a
+    block's column groups of 32 state rows, 32 one, 16 and 8 part of one
+    (the rest zero padded); N 128 and 16 (inter slabs of 8 state
+    columns); chunks of 8 to 128 positions, one tile each, and 256,
+    walked as two tiles of 128; three chunks a sequence (two of 256)."""
+    s = 3 * chunk if chunk <= 128 else 2 * chunk
+    _ssd_check(*_ssd_views(cuda, 2, 3, s, p, n, dtype, seed=chunk + p + n),
+               chunk=chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("p", [64, 36])
+def test_ssd_scan_kernel_unaligned_views(cuda, dtype, p):
+    """x, B and C rows off 16-byte alignment (an odd skew of the
+    projection buffer), and P 36, not a whole number of 16-byte words:
+    x, and for P 36 y, take the element-by-element paths, and so does the
+    prep for B and C."""
+    _ssd_check(*_ssd_views(cuda, 2, 3, 200, p, 128, dtype, seed=p, skew=1),
+               chunk=40)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_scan_kernel_one_sequence_few_heads(cuda, dtype):
+    """Batch 1 with 16 heads: 32 blocks, far fewer than the SMs."""
+    _ssd_check(*_ssd_views(cuda, 1, 16, 512, 64, 128, dtype, seed=5),
+               chunk=128)
+
+
+def test_ssd_scan_kernel_mixer_shape_and_repeatable(cuda):
+    """mamba2-2.7b's mixer in one scoring request — x ``(4, 80, 1024, 64)``
+    bf16 as a strided view of the projection, N 128, chunk 128 — against
+    the plain version, and the same bits on a second run (no atomics, a
+    fixed order of every sum)."""
+    views = _ssd_views(cuda, 4, 80, 1024, 64, 128, torch.bfloat16, seed=16)
+    _ssd_check(*views, chunk=128)
+    y0, s0 = ops.ssd_scan(*views, chunk=128)
+    y1, s1 = ops.ssd_scan(*views, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,n,tile,skew", [
+    (4, 1024, 128, 128, 0),          # the mixer's B and C views
+    (2, 100, 16, 32, 1),             # partial tile, unaligned, N 16
+    (1, 48, 128, 8, 0),              # small tiles
+])
+def test_ssd_scan_prep_kernel_matches_plain(cuda, dtype, b, s, n, tile, skew):
+    """The prep kernel against ``ref_ssd_scan_prep``: C·Bᵀ on the causal
+    triangle within ``1e-5 · max|want|`` (float32 sums over n in another
+    order than ATen), C transposed and B bitwise (widened exactly), zeros
+    everywhere else — B and C read as 16-byte words (the mixer's views)
+    and element by element (the skewed ones)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_prep
+
+    _, _, _, B, C = _ssd_views(cuda, b, 2, s, 8, n, dtype, seed=s, skew=skew)
+    got = ssd_scan_prep(B, C, tile=tile)
+    want = ref.ref_ssd_scan_prep(B, C, tile)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = (got[:, :, 0] - want[:, :, 0]).abs().max().item()
+    assert err <= 1e-5 * want[:, :, 0].abs().max().item(), err
+    assert torch.equal(got[:, :, 1:], want[:, :, 1:])
 
 
 def test_ssd_scan_rejects_what_the_kernel_does_not_take(cuda):

@@ -145,6 +145,103 @@ def test_reference_cpu_scan_drops_the_state():
     assert _rel(state, want) <= SEQ_REL
 
 
+def _scan_as_the_kernel_walks_it(x, dt, A, B, C, chunk, group=32):
+    """The CUDA kernel's decomposition (``csrc/ssd_scan.cu``) in plain
+    torch, kernel layout: C·Bᵀ once per (batch, chunk), never per head;
+    per chunk and head the scores ``CB_ij·exp(cum_i − cum_j)·dt_j`` of the
+    in-chunk cumulative log-decay, selected to 0 above the diagonal before
+    the exp; the state split into column groups of ``group`` rows p, each
+    carried through the chunks on its own: ``y = exp(cum)·(C·stateᵀ) +
+    S·x``, ``state ← exp(cum_last)·state + (x·w)ᵀ·B``."""
+    b, h, s, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    f32 = torch.float32
+    groups = [slice(g, min(g + group, p)) for g in range(0, p, group)]
+    states = [torch.zeros(b, h, g.stop - g.start, n, dtype=f32)
+              for g in groups]
+    lower = torch.tril(torch.ones(q, q, dtype=torch.bool))
+    ys = []
+    for t0 in range(0, s, q):
+        Bc, Cc = B[:, t0:t0 + q].to(f32), C[:, t0:t0 + q].to(f32)
+        cb = Cc @ Bc.transpose(-1, -2)                 # (b, q, q), per chunk
+        d = dt[:, :, t0:t0 + q].to(f32)                # (b, h, q)
+        cum = torch.cumsum(d * A[:, None], dim=-1)
+        seg = torch.where(lower, cum[..., :, None] - cum[..., None, :], 0.0)
+        scores = torch.where(lower, cb[:, None] * torch.exp(seg)
+                             * d[..., None, :], 0.0)   # (b, h, q, q)
+        w = d * torch.exp(cum[..., -1:] - cum)
+        decay = torch.exp(cum[..., -1])[..., None, None]
+        parts = []
+        for k, g in enumerate(groups):
+            xg = x[:, :, t0:t0 + q, g].to(f32)         # (b, h, q, group)
+            st = states[k]
+            inter = torch.exp(cum)[..., None] * (Cc[:, None]
+                                                 @ st.transpose(-1, -2))
+            parts.append(inter + scores @ xg)
+            states[k] = decay * st + (xg * w[..., None]).transpose(-1, -2) \
+                @ Bc[:, None]
+        ys.append(torch.cat(parts, dim=-1))
+    return torch.cat(ys, dim=2).to(x.dtype), torch.cat(states, dim=2)
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk,hb", SSD_CASES + [
+    (1, 2, 64, 64, 16, 16, 2),       # two column groups of 32
+    (2, 2, 48, 48, 8, 16, 2),        # a group of 32 and one of 16
+])
+def test_kernel_decomposition_matches_jax(b, h, s, p, n, chunk, hb):
+    """The algebra the CUDA kernel's split rests on: state column groups
+    scanned on their own, C·Bᵀ once per (batch, chunk), chunk by chunk —
+    against the JAX Pallas kernel (interpret mode), the JAX oracle and the
+    port's ``ref_ssd_scan``, at ``CHUNK_REL``."""
+    x, dt, A, B, C = _ssd_inputs(b, h, s, p, n)
+    xk, dtk = np.swapaxes(x, 1, 2), np.swapaxes(dt, 1, 2)
+    y, state = _scan_as_the_kernel_walks_it(_t(xk), _t(dtk), _t(A), _t(B),
+                                            _t(C), chunk)
+    assert y.shape == (b, h, s, p) and state.shape == (b, h, p, n)
+    jy, jstate = j_ssd_scan(xk, dtk, A, B, C, chunk=chunk, head_block=hb,
+                            interpret=True)
+    assert _rel(y, jy) <= CHUNK_REL
+    assert _rel(state, jstate) <= CHUNK_REL
+    oy, ostate = JR.ref_ssd_scan(x, dt, A, B, C)
+    assert _rel(y.transpose(1, 2), oy) <= CHUNK_REL
+    assert _rel(state, ostate) <= CHUNK_REL
+    ry, rstate = ref.ref_ssd_scan(_t(x), _t(dt), _t(A), _t(B), _t(C))
+    assert _rel(y.transpose(1, 2), ry.numpy()) <= CHUNK_REL
+    assert _rel(state, rstate.numpy()) <= CHUNK_REL
+
+
+@pytest.mark.parametrize("b,s,n,tile", [(2, 64, 16, 16), (1, 128, 32, 32),
+                                        (2, 100, 128, 32),   # partial tile
+                                        (1, 256, 128, 128)])
+def test_ssd_scan_prep_matches_jax(b, s, n, tile):
+    """The plain version of the scan's prep (``ref_ssd_scan_prep``): C·Bᵀ
+    of each tile as the JAX kernel forms it (``CB = C @ B.T``,
+    ``repro/kernels/ssd_scan.py:51``) on its causal triangle, transposed
+    and zero elsewhere, at ``GEMM_REL``; C transposed and B exactly, zero
+    padded to 128."""
+    B, C = _draw((b, s, n), 1), _draw((b, s, n), 2)
+    got = ref.ref_ssd_scan_prep(_t(B), _t(C), tile).numpy()
+    nt = -(-s // tile)
+    assert got.shape == (b, nt, 3, 128, 128)
+    lower = np.tril(np.ones((tile, tile), bool))
+    for k in range(nt):
+        t0, t1 = k * tile, min(s, (k + 1) * tile)
+        q = t1 - t0
+        for bi in range(b):
+            cb = np.asarray(jnp.asarray(C[bi, t0:t1])
+                            @ jnp.asarray(B[bi, t0:t1]).T)
+            want = np.zeros((128, 128), np.float32)
+            want[:q, :q] = np.where(lower[:q, :q], cb, 0.0).T
+            assert _rel(got[bi, k, 0], want) <= GEMM_REL
+            ct = np.zeros((128, 128), np.float32)
+            ct[:n, :q] = C[bi, t0:t1].T
+            bf = np.zeros((128, 128), np.float32)
+            bf[:q, :n] = B[bi, t0:t1]
+            np.testing.assert_array_equal(got[bi, k, 1], ct)
+            np.testing.assert_array_equal(got[bi, k, 2], bf)
+
+
 def test_ssd_scan_chunk_contract():
     """``S`` must be a multiple of ``min(chunk, S)``; ``S < chunk`` scans
     one chunk."""
