@@ -32,16 +32,18 @@
 // slots, G = 2 branches, B = 8, T = 4096) one step launch reads ≈ 0.66 MB
 // and writes 0.13 MB for ~20 FLOP per element — a few hundred nanoseconds
 // of HBM time, so in practice the fuse kernels are bound by the launch
-// itself.  The design does what the TPU kernel did for the same reason:
-// the latent is read once and the result written once, and no per-slot
-// velocity exists in device memory.  One thread per element loops over K
-// (and G) in registers; neighbouring threads touch neighbouring t, so
-// every load of preds/x and the store are coalesced; the per-(k, g, b)
-// coefficients and weights are broadcast reads served from L1.  Any T
-// works: there is no 128-lane padding.  The dequant kernel reads one byte
-// and writes 4 (f32) or 2 (bf16) per element; where rows are a multiple
-// of 4 wide and the output aligned, each thread converts 4 elements and
-// writes them with one 16-/8-byte store.
+// and by memory latency.  The design does what the TPU kernel did for the
+// same reason: the latent is read once and the result written once, and
+// no per-slot velocity exists in device memory.  The step and velocity
+// kernels share one body (below): a block per (256-element tile, latent
+// row), and the slot loops unrolled so that a thread's loads all issue
+// before its first divide.  The flag form keeps one thread per element
+// looping over K.  Neighbouring threads touch neighbouring t, so every
+// load and store is coalesced, and the coefficients are broadcast reads.
+// Any T works: there is no 128-lane padding.  The dequant kernel reads
+// one byte and writes 4 (f32) or 2 (bf16) per element; where rows are a
+// multiple of 4 wide and the output aligned, each thread converts 4
+// elements and writes them with one 16-/8-byte store.
 //
 // Numerics: built with -fmad=false, so every a·b + c rounds twice exactly
 // as the plain PyTorch versions (kernels/ref.py) do; division is IEEE
@@ -58,76 +60,169 @@ namespace {
 
 constexpr int THREADS = 256;
 
-__global__ void __launch_bounds__(THREADS)
-hetero_fuse_step_kernel(const float* __restrict__ preds,   // (K, G, B, T)
-                        const float* __restrict__ x,       // (B, T)
-                        const float* __restrict__ w,       // (G, B, K)
-                        const float* __restrict__ coef,    // (5, K, G, B)
-                        const float* __restrict__ dt,      // (1,) or (B,)
-                        float* __restrict__ out,           // (B, T)
-                        int K, int G, int B, int T, int dt_per_row,
-                        float cfg_scale, float clamp, float alpha_min) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (int64_t)B * T) return;
-  const int b = static_cast<int>(i / T);
-  const int t = static_cast<int>(i % T);
-  const int64_t kgb = (int64_t)K * G * B;
-  const float xt = x[i];
+// ---------------------------------------------------------------------------
+// hetero_fuse_step and hetero_fuse_coeffs: one body
+// ---------------------------------------------------------------------------
+//
+// The velocity form is the step body with G = 1 and no Euler update: its
+// (K, B, T) predictions, (B, K) weights and (5, K, B) coefficients are the
+// step's (K, 1, B, T), (1, B, K) and (5, K, 1, B).
+//
+// At the serving shape both kernels move a few hundred kilobytes that the
+// previous kernel has just left in L2, so what they wait on is latency: a
+// slot loop that issues a slot's loads only after the previous slot's
+// divide waits for one memory round trip per slot pass.  This body:
+// * gives each block row one latent row: the grid is (⌈T / THREADS⌉, B),
+//   b is the block's y index, and no element divides by T;
+// * unrolls the slot loops at compile time (K = 1..8, G = 1, 2): a thread
+//   issues every load it needs — x, all K·G predictions, then its row's
+//   5·K·G coefficients, G·K weights and dt (one address across the warp:
+//   a broadcast) — before its first divide, so it waits for one round
+//   trip.  max(α, α_min) is taken once per slot.  K above 8 runs the same
+//   kernel with a runtime slot loop (the K = 0 instantiation).
+// One element a thread: 2 or 4 (float2 / float4 accesses) were slower on
+// the H100 (PERF.md), since 8 warps an SM hide the IEEE divides' latency
+// better than 4 or 2.  Coefficients staged in shared memory by the first
+// K·G threads behind a barrier were slower than these broadcast loads.
+// Per element the arithmetic is the plain version's, in its order.
 
-  float fused[2] = {0.f, 0.f};
-  for (int g = 0; g < G; ++g) {
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const int64_t slot = ((int64_t)k * G + g) * B + b;   // (k, g, b)
-      const float alpha = coef[slot];
-      const float sigma = coef[slot + kgb];
-      const float dalpha = coef[slot + 2 * kgb];
-      const float dsigma = coef[slot + 3 * kgb];
-      const float vscale = coef[slot + 4 * kgb];
-      const float p = preds[slot * T + t];
-      const float a = fmaxf(alpha, alpha_min);
-      float x0 = (xt - sigma * p) / a;
-      x0 = fminf(fmaxf(x0, -clamp), clamp);
-      const float v = (dalpha * x0 + dsigma * p) * vscale;
-      acc = acc + w[((int64_t)g * B + b) * K + k] * v;
-    }
-    fused[g] = acc;
-  }
-  const float u = (G == 1) ? fused[0]
-                           : fused[1] + cfg_scale * (fused[0] - fused[1]);
-  out[i] = xt - u * dt[dt_per_row ? b : 0];
+struct FuseArgs {
+  const float* preds;   // (K, G, B, T)
+  const float* x;       // (B, T)
+  const float* w;       // (G, B, K)
+  const float* coef;    // (5, K, G, B): α, σ, α′, σ′, vscale
+  const float* dt;      // (1,) or (B,); the step form only
+  float* out;           // (B, T)
+  int K, B, T, dt_per_row;
+  float cfg_scale, clamp, alpha_min;
+};
+
+// One routed slot's coefficients and fusion weight for latent row b.
+// Operands are read-only for the kernel's life: loads take the read-only
+// (non-coherent) path.
+struct Slot {
+  float a, sigma, dalpha, dsigma, vscale, w;
+};
+
+template <int G>
+__device__ __forceinline__ Slot load_slot(const FuseArgs& p, int K, int k,
+                                          int g, int b) {
+  const int64_t plane = (int64_t)K * G * p.B;
+  const int64_t at = ((int64_t)k * G + g) * p.B + b;        // (k, g, b)
+  Slot s;
+  s.a = fmaxf(__ldg(p.coef + at), p.alpha_min);
+  s.sigma = __ldg(p.coef + at + plane);
+  s.dalpha = __ldg(p.coef + at + 2 * plane);
+  s.dsigma = __ldg(p.coef + at + 3 * plane);
+  s.vscale = __ldg(p.coef + at + 4 * plane);
+  s.w = __ldg(p.w + ((int64_t)g * p.B + b) * K + k);         // (g, b, k)
+  return s;
 }
 
-__global__ void __launch_bounds__(THREADS)
-hetero_fuse_coeffs_kernel(const float* __restrict__ preds,   // (K, B, T)
-                          const float* __restrict__ x,       // (B, T)
-                          const float* __restrict__ w,       // (B, K)
-                          const float* __restrict__ coef,    // (5, K, B)
-                          float* __restrict__ out,           // (B, T)
-                          int K, int B, int T, float clamp,
-                          float alpha_min) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (int64_t)B * T) return;
-  const int b = static_cast<int>(i / T);
-  const int t = static_cast<int>(i % T);
-  const int64_t kb = (int64_t)K * B;
-  const float xt = x[i];
-  float acc = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const int64_t slot = (int64_t)k * B + b;                 // (k, b)
-    const float alpha = coef[slot];
-    const float sigma = coef[slot + kb];
-    const float dalpha = coef[slot + 2 * kb];
-    const float dsigma = coef[slot + 3 * kb];
-    const float vscale = coef[slot + 4 * kb];
-    const float p = preds[slot * T + t];
-    const float a = fmaxf(alpha, alpha_min);
-    float x0 = (xt - sigma * p) / a;
-    x0 = fminf(fmaxf(x0, -clamp), clamp);
-    const float v = (dalpha * x0 + dsigma * p) * vscale;
-    acc = acc + w[(int64_t)b * K + k] * v;
+// acc += w · v for one slot and element: x̂0 = clip((x − σ·p) / a, ±clamp),
+// v = (α′·x̂0 + σ′·p)·vscale.  IEEE divide; no FMA (-fmad=false).
+__device__ __forceinline__ float add_slot(float acc, float xt, float pr,
+                                          const Slot& s, float clamp) {
+  float x0 = (xt - s.sigma * pr) / s.a;
+  x0 = fminf(fmaxf(x0, -clamp), clamp);
+  const float v = (s.dalpha * x0 + s.dsigma * pr) * s.vscale;
+  return acc + s.w * v;
+}
+
+// The shared body: K = 0 loops over p.K slots at run time.
+template <int K, int G, bool STEP>
+__device__ __forceinline__ void fuse_rows(const FuseArgs& p) {
+  const int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (t >= p.T) return;
+  const int64_t slab = (int64_t)p.B * p.T;                  // one (k, g)
+  for (int b = blockIdx.y; b < p.B; b += gridDim.y) {
+    const int64_t row = (int64_t)b * p.T + t;
+    const float xt = __ldg(p.x + row);
+    float acc[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = 0.f;
+    float dt = 0.f;
+    if constexpr (K > 0) {
+      // every load first: predictions, then the row's coefficients
+      float pv[K][G];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          pv[k][g] = __ldg(p.preds + (k * G + g) * slab + row);
+      Slot s[K][G];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[k][g] = load_slot<G>(p, K, k, g, b);
+      if constexpr (STEP) dt = __ldg(p.dt + (p.dt_per_row ? b : 0));
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          acc[g] = add_slot(acc[g], xt, pv[k][g], s[k][g], p.clamp);
+    } else {
+      if constexpr (STEP) dt = __ldg(p.dt + (p.dt_per_row ? b : 0));
+      for (int k = 0; k < p.K; ++k) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float pr = __ldg(p.preds + ((int64_t)k * G + g) * slab + row);
+          acc[g] = add_slot(acc[g], xt, pr, load_slot<G>(p, p.K, k, g, b),
+                            p.clamp);
+        }
+      }
+    }
+    float o;
+    if constexpr (!STEP) {
+      o = acc[0];
+    } else if constexpr (G == 1) {
+      o = xt - acc[0] * dt;
+    } else {              // branch 0 = cond, 1 = uncond: u_u + s·(u_c − u_u)
+      const float u = acc[1] + p.cfg_scale * (acc[0] - acc[1]);
+      o = xt - u * dt;
+    }
+    p.out[row] = o;
   }
-  out[i] = acc;
+}
+
+template <int K, int G>
+__global__ void __launch_bounds__(THREADS)
+hetero_fuse_step_kernel(const FuseArgs p) {
+  fuse_rows<K, G, true>(p);
+}
+
+template <int K>
+__global__ void __launch_bounds__(THREADS)
+hetero_fuse_coeffs_kernel(const FuseArgs p) {
+  fuse_rows<K, 1, false>(p);
+}
+
+template <int K, int G, bool STEP>
+void launch_one(const FuseArgs& p, cudaStream_t st) {
+  const dim3 grid((p.T + THREADS - 1) / THREADS, p.B < 65535 ? p.B : 65535);
+  if constexpr (STEP)
+    hetero_fuse_step_kernel<K, G><<<grid, THREADS, 0, st>>>(p);
+  else
+    hetero_fuse_coeffs_kernel<K><<<grid, THREADS, 0, st>>>(p);
+}
+
+// G 1 or 2, else cudaErrorInvalidValue.
+template <int G, bool STEP>
+int launch_rows(const FuseArgs& p, cudaStream_t st) {
+  if ((int64_t)p.B * p.T > 0) {
+    switch (p.K) {
+      case 1: launch_one<1, G, STEP>(p, st); break;
+      case 2: launch_one<2, G, STEP>(p, st); break;
+      case 3: launch_one<3, G, STEP>(p, st); break;
+      case 4: launch_one<4, G, STEP>(p, st); break;
+      case 5: launch_one<5, G, STEP>(p, st); break;
+      case 6: launch_one<6, G, STEP>(p, st); break;
+      case 7: launch_one<7, G, STEP>(p, st); break;
+      case 8: launch_one<8, G, STEP>(p, st); break;
+      default: launch_one<0, G, STEP>(p, st);   // K > 8: runtime loop
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -228,22 +323,20 @@ void launch_dequant(const void* q, const float* scale, void* out, int64_t n,
 }  // namespace
 
 // All operands contiguous float32 on the device; G must be 1 or 2.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// Launches on `stream`, allocates nothing, returns cudaGetLastError()
+// (cudaErrorInvalidValue for another G).
 extern "C" int hetero_fuse_step_f32(const float* preds, const float* x,
                                     const float* w, const float* coef,
                                     const float* dt, float* out, int K, int G,
                                     int B, int T, int dt_per_row,
                                     float cfg_scale, float clamp,
                                     float alpha_min, void* stream) {
-  const int64_t n = (int64_t)B * T;
-  if (n > 0) {
-    const int64_t blocks = (n + THREADS - 1) / THREADS;
-    hetero_fuse_step_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        preds, x, w, coef, dt, out, K, G, B, T, dt_per_row, cfg_scale, clamp,
-        alpha_min);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const FuseArgs p{preds, x, w, coef, dt, out, K, B, T, dt_per_row,
+                   cfg_scale, clamp, alpha_min};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G == 1) return launch_rows<1, true>(p, st);
+  if (G == 2) return launch_rows<2, true>(p, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // All operands contiguous float32 on the device.  Launches on `stream`,
@@ -253,14 +346,9 @@ extern "C" int hetero_fuse_coeffs_f32(const float* preds, const float* x,
                                       float* out, int K, int B, int T,
                                       float clamp, float alpha_min,
                                       void* stream) {
-  const int64_t n = (int64_t)B * T;
-  if (n > 0) {
-    const int64_t blocks = (n + THREADS - 1) / THREADS;
-    hetero_fuse_coeffs_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        preds, x, w, coef, out, K, B, T, clamp, alpha_min);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const FuseArgs p{preds, x, w, coef, nullptr, out, K, B, T, 0, 1.f, clamp,
+                   alpha_min};
+  return launch_rows<1, false>(p, static_cast<cudaStream_t>(stream));
 }
 
 // All operands contiguous on the device: float32, except is_ddpm (K,)

@@ -47,7 +47,19 @@ def _fn(name: str):
     return fn
 
 
-def _check_f32(name: str, ops_in) -> None:
+def _stream(device_index: int) -> int:
+    """The device's current CUDA stream as a raw handle (without building
+    the ``torch.cuda.Stream`` object that ``current_stream`` returns)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def _check_f32(name: str, ops_in) -> int:
+    """Raise unless every operand is a contiguous float32 tensor on one
+    CUDA device; returns the device's index.  One pass when they are."""
+    dev = ops_in[0].get_device()
+    if dev >= 0 and all(a.get_device() == dev and a.dtype == torch.float32
+                        and a.is_contiguous() for a in ops_in):
+        return dev
     if not all(a.is_cuda for a in ops_in):
         raise ValueError(f"{name} launches on CUDA tensors only")
     if any(a.device != ops_in[0].device for a in ops_in):
@@ -56,11 +68,17 @@ def _check_f32(name: str, ops_in) -> None:
         raise TypeError(f"{name} takes float32 operands")
     if not all(a.is_contiguous() for a in ops_in):
         raise ValueError(f"{name} operands must be contiguous")
+    return dev
 
 
 def _launched(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _shape_mismatch(**shapes) -> ValueError:
+    return ValueError("shape mismatch: " + ", ".join(
+        f"{n} {tuple(s.shape)}" for n, s in shapes.items()))
 
 
 def hetero_fuse_step(
@@ -75,25 +93,22 @@ def hetero_fuse_step(
     alpha_min: float = 0.01,
 ) -> torch.Tensor:
     """Launch the step kernel on CUDA float32 tensors; returns ``(B, T)``."""
-    _check_f32("hetero_fuse_step", (preds, x_t, weights, coef, dt))
+    dev = _check_f32("hetero_fuse_step", (preds, x_t, weights, coef, dt))
     k, g, b, t = preds.shape
     if g not in (1, 2):
         raise ValueError(f"G must be 1 (no CFG) or 2 (cond, uncond); got {g}")
-    if tuple(x_t.shape) != (b, t) or tuple(weights.shape) != (g, b, k) \
-            or tuple(coef.shape) != (5, k, g, b):
-        raise ValueError(
-            f"shape mismatch: preds {tuple(preds.shape)}, x_t "
-            f"{tuple(x_t.shape)}, weights {tuple(weights.shape)}, coef "
-            f"{tuple(coef.shape)}")
+    if x_t.shape != (b, t) or weights.shape != (g, b, k) \
+            or coef.shape != (5, k, g, b):
+        raise _shape_mismatch(preds=preds, x_t=x_t, weights=weights,
+                              coef=coef)
     if dt.dim() != 1 or dt.shape[0] not in (1, b):
         raise ValueError(f"dt must be (1,) or ({b},), got {tuple(dt.shape)}")
     out = torch.empty_like(x_t)
-    stream = torch.cuda.current_stream(x_t.device).cuda_stream
     _launched("hetero_fuse_step", _fn("hetero_fuse_step_f32")(
         preds.data_ptr(), x_t.data_ptr(), weights.data_ptr(),
         coef.data_ptr(), dt.data_ptr(), out.data_ptr(), k, g, b, t,
         int(dt.shape[0] == b and b > 1), cfg_scale, clamp, alpha_min,
-        stream))
+        _stream(dev)))
     return out
 
 
@@ -108,19 +123,17 @@ def hetero_fuse_coeffs(
 ) -> torch.Tensor:
     """Launch the velocity kernel on CUDA float32 tensors; returns the
     fused velocity ``(B, T)``."""
-    _check_f32("hetero_fuse_coeffs", (preds, x_t, weights, coef))
+    dev = _check_f32("hetero_fuse_coeffs", (preds, x_t, weights, coef))
     k, b, t = preds.shape
-    if tuple(x_t.shape) != (b, t) or tuple(weights.shape) != (b, k) \
-            or tuple(coef.shape) != (5, k, b):
-        raise ValueError(
-            f"shape mismatch: preds {tuple(preds.shape)}, x_t "
-            f"{tuple(x_t.shape)}, weights {tuple(weights.shape)}, coef "
-            f"{tuple(coef.shape)}")
+    if x_t.shape != (b, t) or weights.shape != (b, k) \
+            or coef.shape != (5, k, b):
+        raise _shape_mismatch(preds=preds, x_t=x_t, weights=weights,
+                              coef=coef)
     out = torch.empty_like(x_t)
-    stream = torch.cuda.current_stream(x_t.device).cuda_stream
     _launched("hetero_fuse_coeffs", _fn("hetero_fuse_coeffs_f32")(
         preds.data_ptr(), x_t.data_ptr(), weights.data_ptr(),
-        coef.data_ptr(), out.data_ptr(), k, b, t, clamp, alpha_min, stream))
+        coef.data_ptr(), out.data_ptr(), k, b, t, clamp, alpha_min,
+        _stream(dev)))
     return out
 
 
@@ -137,7 +150,7 @@ def hetero_fuse(
     """Launch the flag-form kernel on CUDA float32 tensors (``is_ddpm``
     bool; the reference kernel's five ``(K, B)`` coefficient operands
     stacked as it stacks them); returns the fused velocity ``(B, T)``."""
-    _check_f32("hetero_fuse", (preds, x_t, weights, coef))
+    dev = _check_f32("hetero_fuse", (preds, x_t, weights, coef))
     if is_ddpm.dtype != torch.bool or not is_ddpm.is_cuda \
             or is_ddpm.device != preds.device:
         raise TypeError("is_ddpm must be a bool tensor on the operands' "
@@ -145,16 +158,13 @@ def hetero_fuse(
     k, b, t = preds.shape
     if tuple(x_t.shape) != (b, t) or tuple(weights.shape) != (b, k) \
             or tuple(coef.shape) != (5, k, b) or tuple(is_ddpm.shape) != (k,):
-        raise ValueError(
-            f"shape mismatch: preds {tuple(preds.shape)}, x_t "
-            f"{tuple(x_t.shape)}, weights {tuple(weights.shape)}, coef "
-            f"{tuple(coef.shape)}, is_ddpm {tuple(is_ddpm.shape)}")
+        raise _shape_mismatch(preds=preds, x_t=x_t, weights=weights,
+                              coef=coef, is_ddpm=is_ddpm)
     out = torch.empty_like(x_t)
-    stream = torch.cuda.current_stream(x_t.device).cuda_stream
     _launched("hetero_fuse", _fn("hetero_fuse_flags_f32")(
         preds.data_ptr(), x_t.data_ptr(), weights.data_ptr(),
         is_ddpm.contiguous().data_ptr(), coef.data_ptr(), out.data_ptr(),
-        k, b, t, clamp, alpha_min, stream))
+        k, b, t, clamp, alpha_min, _stream(dev)))
     return out
 
 
@@ -187,8 +197,7 @@ def hetero_fuse_dequant(q: torch.Tensor, scale: torch.Tensor, *,
     out = torch.empty((r, t), dtype=out_dtype, device=q.device)
     align = 16 if out_dtype == torch.float32 else 8
     vec4 = int(t % 4 == 0 and out.data_ptr() % align == 0)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     _launched("hetero_fuse_dequant", _fn("hetero_fuse_dequant")(
         q.data_ptr(), _Q_KIND[q.dtype], scale.data_ptr(), out.data_ptr(),
-        _OUT_KIND[out_dtype], r, t, vec4, stream))
+        _OUT_KIND[out_dtype], r, t, vec4, _stream(q.get_device())))
     return out

@@ -43,6 +43,11 @@ def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
     return a / a.new_tensor(b)
 
 
+def _f32(a: torch.Tensor) -> torch.Tensor:
+    """``a`` as float32, without a call when it already is."""
+    return a if a.dtype == torch.float32 else a.to(torch.float32)
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -75,9 +80,12 @@ def fused_step(
     pf = preds.reshape(k, g, b, t)
     xf = x_t.reshape(b, t)
     wf = weights.reshape(g, b, k)
-    cf = coef.reshape(5, k, g, b).to(torch.float32)
-    dt = torch.as_tensor(dt, dtype=torch.float32,
-                         device=x_t.device).reshape(-1)
+    cf = _f32(coef).reshape(5, k, g, b)
+    if not (isinstance(dt, torch.Tensor) and dt.dtype == torch.float32
+            and dt.device == x_t.device):
+        dt = torch.as_tensor(dt, dtype=torch.float32, device=x_t.device)
+    if dt.dim() != 1:
+        dt = dt.reshape(-1)
     if dt.shape[0] not in (1, b):
         raise ValueError(f"dt must be a scalar or ({b},), got {dt.shape}")
     if x_t.is_cuda:
@@ -90,7 +98,7 @@ def fused_step(
         out = _ref.ref_hetero_fuse_step(pf, xf, wf, cf, dt,
                                         cfg_scale=cfg_scale, clamp=clamp,
                                         alpha_min=alpha_min)
-    return out.reshape((b,) + latent_shape)
+    return out.reshape(x_t.shape)
 
 
 def fused_velocity(
@@ -107,11 +115,10 @@ def fused_velocity(
     ``(B, *latent)`` (the CFG combine and the Euler update follow as
     separate ops)."""
     k, b = preds.shape[0], preds.shape[1]
-    latent_shape = tuple(preds.shape[2:])
-    t = math.prod(latent_shape)
+    t = math.prod(preds.shape[2:])
     pf = preds.reshape(k, b, t)
     xf = x_t.reshape(b, t)
-    cf = coef.to(torch.float32)
+    cf = _f32(coef)
     if x_t.is_cuda:
         out = _fuse.hetero_fuse_coeffs(pf.contiguous(), xf.contiguous(),
                                        weights.contiguous(), cf.contiguous(),
@@ -120,7 +127,7 @@ def fused_velocity(
     else:
         out = _ref.ref_hetero_fuse_coeffs(pf, xf, weights, cf, clamp=clamp,
                                           alpha_min=alpha_min)
-    return out.reshape((b,) + latent_shape)
+    return out.reshape(preds.shape[1:])
 
 
 def fused_convert_and_fuse(

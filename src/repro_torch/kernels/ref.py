@@ -25,7 +25,9 @@ def ref_hetero_fuse_coeffs(
 ) -> torch.Tensor:
     """Coefficient-folded convert-and-fuse: per slot
     ``x̂0 = clip((x − σ·p)/max(α, α_min), ±clamp)``,
-    ``v = (α′·x̂0 + σ′·p)·vscale``, then ``Σ_k w_k v_k`` → ``(B, T)``.
+    ``v = (α′·x̂0 + σ′·p)·vscale``, then ``Σ_k w_k v_k`` → ``(B, T)``,
+    summed in slot order from 0 as the kernel does (ATen's CUDA sum over a
+    leading axis of more than 4 slots keeps 4 partial sums).
 
     FM slots carry the identity coefficients (1, 0, 0, 1, 1), under which
     ``v = 0·x̂0 + 1·p`` — exact pass-through without a flag select.
@@ -38,7 +40,10 @@ def ref_hetero_fuse_coeffs(
     v = (dalpha[..., None] * x0h + dsigma[..., None] * preds) \
         * vscale[..., None]
     w = weights.movedim(-1, 0)[..., None]                  # (K, B, 1)
-    return (w * v).sum(dim=0)
+    out = torch.zeros_like(x_t, dtype=torch.float32)
+    for k in range(preds.shape[0]):
+        out = out + w[k] * v[k]
+    return out
 
 
 def ref_hetero_fuse_step(

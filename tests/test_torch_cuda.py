@@ -10,12 +10,13 @@ Tolerances: the float32/bf16/fp8 GEMM bodies sum in another order than
 cuBLAS/ATen (``rtol = atol = 1e-5`` relative to O(1) operands scaled by
 ``1/sqrt(D)``; fp8 ``max |Δ| ≤ 1e-5 · max |out|``); the int8 body
 accumulates exact integers and applies the plain version's two float32
-multiplies, so it is compared bitwise; the step kernel is built without
-FMA contraction and matches its plain version's operation order, so it
-is compared at ``max |Δ| ≤ 1e-6 · max |out|``; the velocity, flag-form
-fuse and dequant kernels bitwise.  The AdaLN and attention kernels sum
-float32 in another order than ATen (and the attention kernel's online
-softmax rescales as it goes): float32 outputs at ``rtol = atol = 1e-5``;
+multiplies, so it is compared bitwise; the step and velocity kernels are
+built without FMA contraction and keep their plain versions' operation
+order (the sum over slots from 0 in slot order), so they are compared
+bitwise, as are the flag-form fuse and dequant kernels.  The AdaLN and
+attention kernels sum float32 in another order than ATen (and the
+attention kernel's online softmax rescales as it goes): float32 outputs
+at ``rtol = atol = 1e-5``;
 bf16 outputs, rounded once from float32 on both sides, within one bf16
 ulp (``rtol = 2⁻⁷``).  The SSD scan kernel computes the chunked algorithm
 against its sequential plain version: ``max |Δ| ≤ 5e-5 · max |want|`` for
@@ -34,6 +35,8 @@ from repro_torch.core import param_store
 from repro_torch.core.conversion import velocity_scale
 from repro_torch.core.schedules import get_schedule
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.hetero_fuse import (hetero_fuse_coeffs,
+                                             hetero_fuse_step)
 from repro_torch.kernels.ragged_gemm import ragged_gemm
 
 
@@ -341,44 +344,79 @@ def test_dense_body_is_bitwise_deterministic(cuda, m, wdtype):
     assert torch.equal(ragged_gemm(x, w, pe, m), first)
 
 
-@pytest.mark.parametrize("g", [1, 2])
-@pytest.mark.parametrize("per_row_dt", [False, True], ids=["dt1", "dtB"])
-def test_hetero_fuse_step_kernel_matches_plain(cuda, g, per_row_dt):
-    gen = torch.Generator(device=cuda).manual_seed(g + 2 * per_row_dt)
-    k, b, t = 2, 8, 4096 + 3
-    preds = 4 * torch.randn(k, g, b, t, generator=gen, device=cuda)
-    x = 3 * torch.randn(b, t, generator=gen, device=cuda)
-    w = torch.rand(g, b, k, generator=gen, device=cuda)
-    coef = 1.5 * torch.rand(5, k, g, b, generator=gen, device=cuda)
+def _offset(a: torch.Tensor, off: int) -> torch.Tensor:
+    """``a`` copied into a contiguous view ``off`` floats into its buffer."""
+    buf = torch.empty(a.numel() + off, dtype=a.dtype, device=a.device)
+    return buf[off:].view(a.shape).copy_(a)
+
+
+def _step_operands(dev, k, g, b, t, per_row_dt, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    preds = 4 * torch.randn(k, g, b, t, generator=gen, device=dev)
+    x = 3 * torch.randn(b, t, generator=gen, device=dev)
+    w = torch.rand(g, b, k, generator=gen, device=dev)
+    coef = 1.5 * torch.rand(5, k, g, b, generator=gen, device=dev)
     coef[0, 0] = 0.001                      # alpha below alpha_min
     coef[1, 0] = 1.0                        # large x̂0: the clamp bites
-    dt = torch.rand(b if per_row_dt else 1, generator=gen, device=cuda)
-    kw = dict(cfg_scale=7.5, clamp=20.0, alpha_min=0.01)
+    dt = torch.rand(b if per_row_dt else 1, generator=gen, device=dev)
+    return preds, x, w, coef, dt
+
+
+STEP_KW = dict(cfg_scale=7.5, clamp=20.0, alpha_min=0.01)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off1"])
+@pytest.mark.parametrize("t", [4096, 4099, 1])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 9])       # 9: the runtime-K loop
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("per_row_dt", [False, True], ids=["dt1", "dtB"])
+def test_hetero_fuse_step_kernel_matches_plain(cuda, g, per_row_dt, k, t,
+                                               offset):
+    b = 8
+    preds, x, w, coef, dt = _step_operands(cuda, k, g, b, t, per_row_dt,
+                                           k * t + g + 2 * per_row_dt)
+    preds, x = _offset(preds, offset), _offset(x, offset)
     ops.reset_launches()
     got = ops.fused_step(preds.reshape(k, g * b, t), x, w.reshape(g * b, k),
-                         coef.reshape(5, k, g * b), dt, g=g, **kw)
+                         coef.reshape(5, k, g * b), dt, g=g, **STEP_KW)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["hetero_fuse_step"] == 1
-    want = ref.ref_hetero_fuse_step(preds, x, w, coef, dt, **kw)
-    err = (got - want).abs().max().item()
-    assert err <= 1e-6 * want.abs().max().item(), err
+    want = ref.ref_hetero_fuse_step(preds, x, w, coef, dt, **STEP_KW)
+    assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("k,b,t", [(2, 16, 4096), (3, 5, 4099)])
-def test_hetero_fuse_coeffs_kernel_matches_plain_bitwise(cuda, k, b, t):
-    gen = torch.Generator(device=cuda).manual_seed(k * b)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off1"])
+@pytest.mark.parametrize("t", [4096, 4099, 1])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 9])
+def test_hetero_fuse_coeffs_kernel_matches_plain_bitwise(cuda, k, t, offset):
+    b = 16 if t == 4096 else 5
+    gen = torch.Generator(device=cuda).manual_seed(k * b + t)
     preds = 4 * torch.randn(k, b, t, generator=gen, device=cuda)
     x = 3 * torch.randn(b, t, generator=gen, device=cuda)
     w = torch.rand(b, k, generator=gen, device=cuda)
     coef = 1.5 * torch.rand(5, k, b, generator=gen, device=cuda)
     coef[0, 0] = 0.001                      # alpha below alpha_min
     coef[1, 0] = 1.0                        # large x̂0: the clamp bites
+    preds, x = _offset(preds, offset), _offset(x, offset)
     ops.reset_launches()
     got = ops.fused_velocity(preds, x, w, coef)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["hetero_fuse_coeffs"] == 1
     want = ref.ref_hetero_fuse_coeffs(preds, x, w, coef)
     assert torch.equal(got, want)
+
+
+def test_hetero_fuse_step_and_coeffs_are_bitwise_deterministic(cuda):
+    """No atomics, no order that depends on scheduling: two launches at
+    the serving shape give the same bits."""
+    preds, x, w, coef, dt = _step_operands(cuda, 2, 2, 8, 4096, False, 3)
+    first = hetero_fuse_step(preds, x, w, coef, dt, **STEP_KW)
+    assert torch.equal(hetero_fuse_step(preds, x, w, coef, dt, **STEP_KW),
+                       first)
+    pv, xv = preds.reshape(2, 16, 4096), torch.cat([x, x])
+    wv, cv = w.reshape(16, 2), coef.reshape(5, 2, 16)
+    first = hetero_fuse_coeffs(pv, xv, wv, cv)
+    assert torch.equal(hetero_fuse_coeffs(pv, xv, wv, cv), first)
 
 
 @pytest.mark.parametrize("qdtype,out", [

@@ -32,6 +32,8 @@ from repro.kernels.hetero_fuse import hetero_fuse_step as j_hetero_fuse_step
 from repro.kernels.ragged_gemm import ragged_gemm as j_ragged_gemm
 from repro_torch.core.schedules import get_schedule
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.hetero_fuse import (hetero_fuse_coeffs,
+                                             hetero_fuse_step)
 from repro_torch.kernels.ragged_gemm import ragged_gemm_fp8_variant
 
 GEMM_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -99,9 +101,10 @@ def test_ragged_expert_matmul_takes_a_strided_expert_axis():
     torch.testing.assert_close(got, want, **GEMM_TOL)
 
 
-def _step_inputs(g, per_row_dt, seed=0):
-    rng = np.random.default_rng(seed + 10 * g + per_row_dt)
-    k, b, t = 2, 3, 256
+def _step_inputs(g, per_row_dt, seed=0, k=2):
+    rng = np.random.default_rng(seed + 10 * g + per_row_dt
+                                + (0 if k == 2 else 100 * k))
+    b, t = 3, 256
     preds = (4.0 * rng.standard_normal((k, g, b, t))).astype(np.float32)
     x = (3.0 * rng.standard_normal((b, t))).astype(np.float32)
     w = rng.uniform(0.1, 1.0, (g, b, k)).astype(np.float32)
@@ -109,16 +112,18 @@ def _step_inputs(g, per_row_dt, seed=0):
     coef = rng.uniform(-1.5, 1.5, (5, k, g, b)).astype(np.float32)
     coef[0, 0] = 0.001            # alpha below alpha_min: the safe floor
     coef[1, 0] = 1.0              # with x/alpha large: the ±clamp bites
-    coef[:, 1] = np.array([1, 0, 0, 1, 1], np.float32)[:, None, None]  # FM
+    if k > 1:                     # slot 1 an FM expert: the identity
+        coef[:, 1] = np.array([1, 0, 0, 1, 1], np.float32)[:, None, None]
     dt = (rng.uniform(0.01, 0.2, (b,)) if per_row_dt
           else np.array([0.125])).astype(np.float32)
     return preds, x, w, coef, dt
 
 
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
 @pytest.mark.parametrize("g", [1, 2])
 @pytest.mark.parametrize("per_row_dt", [False, True], ids=["dt1", "dtB"])
-def test_ref_hetero_fuse_step_matches_jax_kernel(g, per_row_dt):
-    preds, x, w, coef, dt = _step_inputs(g, per_row_dt)
+def test_ref_hetero_fuse_step_matches_jax_kernel(g, per_row_dt, k):
+    preds, x, w, coef, dt = _step_inputs(g, per_row_dt, k=k)
     kw = dict(cfg_scale=7.5, clamp=20.0, alpha_min=0.01)
     want = np.asarray(j_hetero_fuse_step(
         *(jnp.asarray(a) for a in (preds, x, w, coef, dt)),
@@ -236,3 +241,66 @@ def test_fp8_variant_launcher_checks_its_arguments():
             ragged_gemm_fp8_variant(x, w, pe, 16, xs, ws, bad)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         ragged_gemm_fp8_variant(x, w, pe, 16, xs, ws, 3)
+
+
+def test_step_launchers_check_their_operands():
+    """Off the card the launchers raise before any build, with the checks'
+    messages; ``fused_step`` still rejects a ``dt`` of the wrong length."""
+    p, x = torch.zeros(2, 2, 3, 8), torch.zeros(3, 8)
+    w, c, dt = torch.zeros(2, 3, 2), torch.zeros(5, 2, 2, 3), torch.zeros(1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        hetero_fuse_step(p, x, w, c, dt)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        hetero_fuse_coeffs(p[:, 0], x, w[0], c[:, :, 0])
+    with pytest.raises(ValueError, match="dt must be"):
+        ops.fused_step(p.reshape(2, 6, 8), x, w.reshape(6, 2),
+                       c.reshape(5, 2, 6), torch.zeros(2), g=2)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+@pytest.mark.parametrize("g", [1, 2])
+def test_ref_fuse_sums_slots_in_order(g, k):
+    """The plain step and velocity versions sum Σ_k w_k v_k from 0 in slot
+    order, as the kernel does, at any K (numpy float32, one op at a time,
+    bitwise)."""
+    preds, x, w, coef, dt = _step_inputs(g, True, k=k)
+    kw = dict(cfg_scale=7.5, clamp=20.0, alpha_min=0.01)
+    one = np.float32
+    fused = []
+    for gi in range(g):
+        acc = np.zeros_like(x)
+        for s in range(k):
+            al, sg, da, ds, vs = (coef[i, s, gi][:, None] for i in range(5))
+            p = preds[s, gi]
+            x0 = (x - sg * p) / np.maximum(al, one(0.01))
+            x0 = np.clip(x0, one(-20.0), one(20.0))
+            acc = acc + w[gi, :, s][:, None] * ((da * x0 + ds * p) * vs)
+        fused.append(acc)
+    u = fused[0] if g == 1 else fused[1] + one(7.5) * (fused[0] - fused[1])
+    want = x - u * dt[:, None]
+    got = ref.ref_hetero_fuse_step(*(_t(a) for a in (preds, x, w, coef, dt)),
+                                   **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    got = ref.ref_hetero_fuse_coeffs(_t(preds[:, 0]), _t(x), _t(w[0]),
+                                     _t(coef[:, :, 0]), clamp=20.0,
+                                     alpha_min=0.01).numpy()
+    np.testing.assert_array_equal(got, fused[0])
+
+
+@pytest.mark.parametrize("form", ["float", "0-d", "(1,)", "(B,) float64"])
+def test_fused_step_takes_dt_in_every_form(form):
+    """``ops.fused_step`` turns a Python float, a 0-d or ``(1,)`` tensor and
+    a per-row tensor of another dtype into the kernel's float32 ``(1,)`` or
+    ``(B,)`` operand, without changing the result."""
+    preds, x, w, coef, dt = _step_inputs(2, form.startswith("(B,)"), k=3)
+    k, g, b, t = preds.shape
+    arg = {"float": float(dt[0]), "0-d": torch.tensor(dt[0]),
+           "(1,)": _t(dt), "(B,) float64": torch.from_numpy(
+               dt.astype(np.float64))}[form]
+    kw = dict(cfg_scale=7.5, clamp=20.0, alpha_min=0.01)
+    got = ops.fused_step(_t(preds).reshape(k, g * b, t), _t(x),
+                         _t(w).reshape(g * b, k), _t(coef).reshape(5, k, g * b),
+                         arg, g=g, **kw)
+    want = ref.ref_hetero_fuse_step(*(_t(a) for a in (preds, x, w, coef, dt)),
+                                    **kw)
+    assert torch.equal(got, want)

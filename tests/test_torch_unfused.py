@@ -72,7 +72,8 @@ def _coeffs_inputs(k, b, t, seed):
     return preds, x, w, coef
 
 
-@pytest.mark.parametrize("k,b,t", [(2, 3, 256), (1, 4, 1024), (3, 2, 2048)])
+@pytest.mark.parametrize("k,b,t", [(2, 3, 256), (1, 4, 1024), (3, 2, 2048),
+                                   (8, 3, 512)])
 def test_ref_hetero_fuse_coeffs_matches_jax_kernel(k, b, t):
     preds, x, w, coef = _coeffs_inputs(k, b, t, seed=k + b)
     kw = dict(clamp=20.0, alpha_min=0.01)
