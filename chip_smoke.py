@@ -25,7 +25,9 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    kernel, the AdaLN kernel (at the ragged MLP modulate site, float32,
    with bf16 modulations and in bf16), the attention kernel (the DiT's
    self-attention, and a causal sliding-window GQA case at Mixtral-8x7B's
-   head shape), the flag-form fuse kernel, whose path
+   head shape), the flag-form fuse kernel (the K 8 serving mix, K 12 on
+   the runtime slot loop, K 2 all-DDPM and all-FM; bitwise, with
+   ``floor_ms``), whose path
    ``ops.fused_convert_and_fuse`` is then driven once with the launch
    counts set to 0 and must equal ``fused_velocity`` bitwise, and the SSD
    scan kernel at mamba2-2.7b's mixer shape (bf16 and float32 strided
@@ -44,13 +46,20 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    through the AdaLN kernel, every self-attention through the attention
    kernel.  Each path prints its store's bytes and its
    engine's device memory once built, at its build peak and at its
-   serving peak, all net of the engines still resident from other paths;
-5. serves one more native, one more int8 and one more fp8 request under
+   serving peak, all net of the engines still resident from other paths.
+   Then, on the native engine, one request each with plan reuse
+   (``plan_refresh_every`` 1, 2, 4: the router's launches fall to
+   ⌈8/R⌉ steps) and the §7.3 DDPM gate, a ``submit``/``flush`` of three
+   requests (batch 1, 3, 4) as one dispatch held against ``generate``,
+   and a request expired by its deadline before dispatch;
+5. serves one more native (with and without plan reuse every 2 steps),
+   one more int8 and one more fp8 request under
    ``torch.profiler`` and prints where their device time goes (by kernel
-   and by category), the device's idle share and the host's op count and
-   self time;
+   and by category), the device's idle share and the host's op count,
+   self time and copies;
 6. runs the same engine code at a reduced width on the GPU and on the CPU
-   (plain versions): native, bf16, unfused and two-pass CFG compare their
+   (plain versions): native, bf16, unfused, two-pass CFG, plan reuse
+   every 2 steps and the DDPM gate compare their
    latents; int8 and fp8 replay every GEMM, dequant, AdaLN and attention
    call of the GPU request on the CPU with the same inputs (their
    latents' spread is printed beside the CPU run's own under a 2-ulp
@@ -69,7 +78,10 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
 8. runs the reduced mamba2 ensemble (float32) on the GPU and on the CPU:
    fused log-probabilities, prefill logits and state, and greedy tokens
    must agree, and on the GPU prefill followed by a decode step must
-   reproduce ``forward_train``'s logits.
+   reproduce ``forward_train``'s logits;
+9. runs the serving CLI, ``python -m repro_torch.launch.serve
+   --coalesce --plan-refresh 2 --track-padding``, on the card over
+   reduced checkpoints (latent 8); it must exit 0 and print its lines.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -750,56 +762,79 @@ def check_flash(ops, ref, dev) -> dict:
                 bound_by=main["bound_by"])
 
 
+#: the flag-form fuse kernel's cases: (name, objectives); the first is
+#: the main shape (the serving mix), K 12 runs the runtime slot loop.
+FLAG_CASES = (("mix_k8", [o for o, _ in MIX]),
+              ("mixed_k12", ["ddpm" if i % 2 == 0 else "fm"
+                             for i in range(12)]),
+              ("all_ddpm_k2", ["ddpm"] * 2),
+              ("all_fm_k2", ["fm"] * 2))
+
+
 def check_hetero_fuse(ops, ref, dev) -> dict:
-    """The flag-form fuse kernel at K 8, B 16, T 4096 with the 2 DDPM + 6
-    FM mix, bitwise against its plain version; then its path: the launch
-    counts set to 0, one ``ops.fused_convert_and_fuse`` call from
-    objectives, schedules and times as a caller makes it, the counts read
-    (exactly one launch, of this kernel), and its output bitwise equal to
-    ``fused_velocity`` given the matching ``(5, K, B)`` unified
-    coefficients (FM experts as the identity ``(1, 0, 0, 1, 1)``)."""
+    """The flag-form fuse kernel at T 4096 on each of ``FLAG_CASES`` —
+    the K 8, B 16 serving mix (2 DDPM + 6 FM), K 12 alternating (the
+    runtime slot loop), and K 2 all-DDPM and all-FM — bitwise against its
+    plain version; ``wrapper_ms`` is ``ops.fused_convert_and_fuse`` from
+    objectives, schedules and times.  Then its path: the launch counts set
+    to 0, one ``ops.fused_convert_and_fuse`` call as a caller makes it,
+    the counts read (exactly one launch, of this kernel), and its output
+    bitwise equal to ``fused_velocity`` given the matching ``(5, K, B)``
+    unified coefficients (FM experts as the identity ``(1, 0, 0, 1,
+    1)``)."""
     from repro_torch.core.conversion import velocity_scale
     from repro_torch.core.schedules import get_schedule
     from repro_torch.kernels.hetero_fuse import hetero_fuse
 
-    k, b, t = len(MIX), 16, 32 * 32 * 4
+    b, t = 16, 32 * 32 * 4
     gen = torch.Generator(device=dev).manual_seed(15)
-    objectives = [o for o, _ in MIX]
-    schedules = [get_schedule(n) for _, n in MIX]
-    preds = 4 * torch.randn(k, b, t, generator=gen, device=dev)
-    x = 3 * torch.randn(b, t, generator=gen, device=dev)
-    w = torch.softmax(torch.randn(b, k, generator=gen, device=dev), -1)
-    tb = torch.rand(b, generator=gen, device=dev)
-    tb[0] = 0.999                                # alpha below alpha_min
-    ddpm = torch.tensor([o == "ddpm" for o in objectives], device=dev)
-    alpha = torch.stack([s.alpha(tb) for s in schedules])          # (K, B)
-    sigma = torch.stack([s.sigma(tb) for s in schedules])
-    dalpha = torch.stack([s.dalpha(tb) for s in schedules])
-    dsigma = torch.stack([s.dsigma(tb) for s in schedules])
-    vscale = torch.where(ddpm[:, None], velocity_scale(tb, "piecewise")[None],
-                         1.0)
-    coef = torch.stack([alpha, sigma, dalpha, dsigma, vscale])
     kw = dict(clamp=20.0, alpha_min=0.01)
-    got = hetero_fuse(preds, x, w, ddpm, coef, **kw)
-    want = ref.ref_hetero_fuse(preds, x, w, ddpm, alpha, sigma, dalpha,
-                               dsigma, vscale, **kw)
-    torch.cuda.synchronize()
-    err, _ = rel_err(got, want)
-    t_k = graph_ms(lambda: hetero_fuse(preds, x, w, ddpm, coef, **kw), 100)
-    t_w = cuda_ms(lambda: ops.fused_convert_and_fuse(
-        preds, x, w, objectives, schedules, tb), 50)
-    t_p = graph_ms(lambda: ref.ref_hetero_fuse(
-        preds, x, w, ddpm, alpha, sigma, dalpha, dsigma, vscale, **kw), 50)
-    n_ddpm = int(ddpm.sum().item())
-    nbytes = 4.0 * (k * b * t + 2 * b * t + b * k + 5 * k * b) + k
-    flops = 12.0 * n_ddpm * b * t + 2.0 * k * b * t
-    t_b, by = bound_ms(nbytes, flops)
-    row = dict(K=k, B=b, T=t, ddpm=n_ddpm, max_abs_err=err, tol=0.0, ms=t_k,
-               wrapper_ms=t_w, plain_ms=t_p, library_ms=None, bound_ms=t_b,
-               bound_by=by)
-    print("hetero_fuse case " + json.dumps(row))
-    if not (bool(torch.isfinite(got).all()) and torch.equal(got, want)):
-        fail(f"hetero_fuse disagrees with its plain version: {row}")
+    rows = []
+    for name, objectives in FLAG_CASES:
+        k = len(objectives)
+        schedules = [get_schedule("cosine" if o == "ddpm" else "linear")
+                     for o in objectives]
+        preds = 4 * torch.randn(k, b, t, generator=gen, device=dev)
+        x = 3 * torch.randn(b, t, generator=gen, device=dev)
+        w = torch.softmax(torch.randn(b, k, generator=gen, device=dev), -1)
+        tb = torch.rand(b, generator=gen, device=dev)
+        tb[0] = 0.999                            # alpha below alpha_min
+        ddpm = torch.tensor([o == "ddpm" for o in objectives], device=dev)
+        alpha = torch.stack([s.alpha(tb) for s in schedules])      # (K, B)
+        sigma = torch.stack([s.sigma(tb) for s in schedules])
+        dalpha = torch.stack([s.dalpha(tb) for s in schedules])
+        dsigma = torch.stack([s.dsigma(tb) for s in schedules])
+        vscale = torch.where(ddpm[:, None],
+                             velocity_scale(tb, "piecewise")[None], 1.0)
+        coef = torch.stack([alpha, sigma, dalpha, dsigma, vscale])
+        got = hetero_fuse(preds, x, w, ddpm, coef, **kw)
+        want = ref.ref_hetero_fuse(preds, x, w, ddpm, alpha, sigma, dalpha,
+                                   dsigma, vscale, **kw)
+        torch.cuda.synchronize()
+        err, _ = rel_err(got, want)
+        t_k = graph_ms(lambda: hetero_fuse(preds, x, w, ddpm, coef, **kw),
+                       100)
+        t_w = cuda_ms(lambda: ops.fused_convert_and_fuse(
+            preds, x, w, objectives, schedules, tb), 50)
+        t_p = graph_ms(lambda: ref.ref_hetero_fuse(
+            preds, x, w, ddpm, alpha, sigma, dalpha, dsigma, vscale, **kw),
+            50)
+        n_ddpm = objectives.count("ddpm")
+        nbytes = 4.0 * (k * b * t + 2 * b * t + b * k + 5 * k * b) + k
+        flops = 12.0 * n_ddpm * b * t + 2.0 * k * b * t
+        t_b, by = bound_ms(nbytes, flops)
+        row = dict(case=name, K=k, B=b, T=t, ddpm=n_ddpm, max_abs_err=err,
+                   tol=0.0, ms=t_k, wrapper_ms=t_w, plain_ms=t_p,
+                   floor_ms=floor_ms(x), library_ms=None, bound_ms=t_b,
+                   bound_by=by)
+        print("hetero_fuse case " + json.dumps(row))
+        if not (bool(torch.isfinite(got).all()) and torch.equal(got, want)):
+            fail(f"hetero_fuse disagrees with its plain version: {row}")
+        rows.append(row)
+        if len(rows) == 1:                      # the main shape's inputs
+            main_args = (preds, x, w, objectives, schedules, tb, ddpm, coef)
+    main = rows[0]
+    preds, x, w, objectives, schedules, tb, ddpm, coef = main_args
 
     # its path: the per-step fusion op of Fig. 2, as a caller runs it
     torch.cuda.synchronize()
@@ -821,8 +856,9 @@ def check_hetero_fuse(ops, ref, dev) -> dict:
     if not torch.equal(fused, velocity):
         fail("fused_convert_and_fuse differs from fused_velocity given the "
              "matching unified coefficients")
-    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None,
-                bound_ms=t_b, bound_by=by,
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 launches=launches["hetero_fuse"])
 
 
@@ -997,13 +1033,15 @@ def write_ensemble(path, dit_cfg, router_cfg, dev, seed):
 
 
 def expected_launches(cfg, router_cfg, ops, param_dtype: str,
-                      step_fused: bool, requests: int) -> dict:
+                      step_fused: bool, requests: int,
+                      refresh: int = 1) -> dict:
     """Kernel launches of ``requests`` batched-CFG requests of ``STEPS``
     steps, computed from the DiT and router configs and the wrapper's
     row-tile rule.
 
-    Per step, the router's dense forward runs two AdaLN launches (msa,
-    mlp) and one attention launch per layer.  One ragged forward (cond
+    The router's dense forward runs on ⌈STEPS / refresh⌉ steps of a
+    request (``plan_refresh_every``), two AdaLN launches (msa, mlp) and
+    one attention launch per layer.  One ragged forward (cond
     and uncond batched, ``g = 2``) runs three AdaLN launches per layer
     (msa, the LayerNorm before cross-attention, mlp) and one for the
     final layer, one attention launch per layer (layer 0's on the
@@ -1032,10 +1070,12 @@ def expected_launches(cfg, router_cfg, ops, param_dtype: str,
     n = STEPS * requests
     want = dict.fromkeys(ops.LAUNCHES, 0)
     want["hetero_fuse_step" if step_fused else "hetero_fuse_coeffs"] = n
+    n_router = -(-STEPS // refresh) * requests
     lns = 3 if cfg.use_text else 2
-    want["adaln_fuse"] = (2 * router_cfg.num_layers
-                          + lns * layers + 1) * n
-    want["flash_attention"] = (router_cfg.num_layers + layers) * n
+    want["adaln_fuse"] = (2 * router_cfg.num_layers * n_router
+                          + (lns * layers + 1) * n)
+    want["flash_attention"] = (router_cfg.num_layers * n_router
+                               + layers * n)
     if param_dtype in ("int8", "fp8"):
         tiled = sum(ops.ragged_block_m(m) is not None for m in widths)
         narrow = len(widths) - tiled
@@ -1054,7 +1094,8 @@ def serve_path(ops, engine, name, texts, seeds, want, mem) -> tuple:
     ``mem`` holds the device bytes allocated before the engine was built
     (``base``: engines of other paths still resident) and what the build
     added; every memory figure printed is net of ``base``, so it is this
-    path's engine alone."""
+    path's engine alone (``None``: an engine served before, no store
+    line)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -1076,6 +1117,8 @@ def serve_path(ops, engine, name, texts, seeds, want, mem) -> tuple:
     print(f"{name} launches " + json.dumps(launches))
     if launches != want:
         fail(f"{name} path launches {launches}, expected {want}")
+    if mem is None:
+        return outs, launches
     print(f"{name} store " + json.dumps(dict(
         param_dtype=engine.sampler.param_dtype,
         store_bytes=engine.param_store.nbytes(),
@@ -1163,6 +1206,105 @@ def serve_full_width(ops, dev) -> tuple[dict, dict]:
     return launches, engines
 
 
+def serve_options(ops, engine) -> dict:
+    """Phase 4, the request options on the native engine (its sampler
+    swapped per option, then restored), each with the launch counts set to
+    0 just before and read just after:
+
+    * one request at ``plan_refresh_every`` 1, 2 and 4: the router's
+      AdaLN and attention launches fall to ⌈8/R⌉ steps of 8, the experts'
+      are unchanged; the latents' drift from R = 1 is printed;
+    * one request with the §7.3 gate, ``ddpm_low_noise_only = 0.5``: the
+      launches of R = 1, latents finite and not R = 1's;
+    * ``submit``/``flush`` of three requests of batch 1, 3 and 4 with
+      text: one dispatch into bucket 8 with one request's launches, each
+      request's rows within ``E2E_REL_TOL · max|out|`` of ``generate``
+      from the same seed (the same noise and function; the router's and
+      cross-attention's cuBLAS GEMMs run at another batch and may take
+      another algorithm, so sums in another order, through 8 CFG steps);
+    * a request with ``deadline_s = 0``: DEADLINE_EXCEEDED at ``flush``,
+      no launch.
+    """
+    from repro_torch.models.config import dit_b2, router_b2
+    from repro_torch.serving.resilience import DeadlineExceeded
+
+    cfg, router_cfg = dit_b2(), router_b2(num_clusters=len(MIX))
+    rng = np.random.default_rng(8)
+    text = rng.standard_normal((BATCH, cfg.text_len, cfg.text_dim)).astype(
+        np.float32)
+    base = engine.sampler
+    launches, outs = {}, {}
+    try:
+        for name, kw, refresh in (
+                ("plan_refresh_1", {}, 1),
+                ("plan_refresh_2", dict(plan_refresh_every=2), 2),
+                ("plan_refresh_4", dict(plan_refresh_every=4), 4),
+                ("ddpm_gate", dict(ddpm_low_noise_only=0.5), 1)):
+            engine.sampler = dataclasses.replace(base, **kw)
+            (outs[name],), launches[name] = serve_path(
+                ops, engine, name, [text], [300],
+                expected_launches(cfg, router_cfg, ops, "native", True, 1,
+                                  refresh), None)
+    finally:
+        engine.sampler = base
+    ref = outs["plan_refresh_1"]
+    for name in ("plan_refresh_2", "plan_refresh_4", "ddpm_gate"):
+        print(f"{name} vs plan_refresh_1 " + json.dumps(dict(
+            max_abs_diff=rel_err(outs[name], ref)[0],
+            max_abs=ref.abs().max().item())))
+    if torch.equal(outs["ddpm_gate"], ref):
+        fail("the ddpm_low_noise_only gate left the latents unchanged")
+
+    batches, seeds = (1, 3, 4), (400, 401, 402)
+    texts = [rng.standard_normal((b, cfg.text_len, cfg.text_dim)).astype(
+        np.float32) for b in batches]
+    before = dict(engine.stats)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    handles = [engine.submit(s, t) for s, t in zip(seeds, texts)]
+    dispatched = engine.flush()
+    results = [h.result() for h in handles]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches["coalesced"] = dict(ops.LAUNCHES)
+    merged = engine.stats["merged_batches"] - before["merged_batches"]
+    print("coalesced " + json.dumps(dict(
+        batches=list(batches), bucket=8, seconds=sec,
+        img_per_s=sum(batches) / sec, dispatches=dispatched,
+        merged_batches=merged, launches=launches["coalesced"])))
+    if not (dispatched == merged == 1 and launches["coalesced"]
+            == expected_launches(cfg, router_cfg, ops, "native", True, 1)):
+        fail(f"submit/flush of {batches} did not run as one dispatch")
+    for i, (b, s, t, got) in enumerate(zip(batches, seeds, texts, results)):
+        want = engine.generate(s, t, b)
+        err, scale = rel_err(got, want)
+        print(f"coalesced vs generate request {i} " + json.dumps(dict(
+            batch=b, max_abs_err=err, tol=E2E_REL_TOL * scale,
+            max_abs=scale)))
+        if not (bool(torch.isfinite(got).all())
+                and tuple(got.shape) == (b, 32, 32, 4)
+                and err <= E2E_REL_TOL * scale):
+            fail(f"coalesced request {i} differs from generate by {err}")
+
+    ops.reset_launches()
+    late = engine.submit(500, texts[0], deadline_s=0)
+    dispatched = engine.flush()
+    torch.cuda.synchronize()
+    try:
+        late.result()
+        fail("a request past its deadline returned a result")
+    except DeadlineExceeded as e:
+        expired = str(e)
+    print("deadline " + json.dumps(dict(
+        state=late.state, dispatches=dispatched, error=expired,
+        launches=sum(ops.LAUNCHES.values()))))
+    if late.state != "DEADLINE_EXCEEDED" or dispatched or any(
+            ops.LAUNCHES.values()):
+        fail("the deadline request was dispatched")
+    return launches
+
+
 def _category(name: str, table=CATEGORIES) -> str:
     for frag, cat in table:
         if frag.lower() in name.lower():
@@ -1175,7 +1317,9 @@ def profiled(run, table, **fields) -> None:
     category of ``table``, the device's idle share ``1 − busy / profiled
     wall`` (the profiler's own host cost inflates the wall), and the host
     side: the count and self ms of the CPU events it recorded (ATen ops and
-    CUDA runtime calls), in all and for the six costliest."""
+    CUDA runtime calls), in all and for the six costliest, and the count
+    of ``cudaMemcpyAsync`` and ``cudaStreamSynchronize`` calls (PyTorch's
+    copies between host and device wait for the stream)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1203,20 +1347,29 @@ def profiled(run, table, **fields) -> None:
         "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
         "host_events": sum(c for c, _ in host.values()),
         "host_self_ms": sum(ms for _, ms in host.values()),
+        "cuda_memcpy_async": host.get("cudaMemcpyAsync", [0])[0],
+        "cuda_stream_synchronize": host.get("cudaStreamSynchronize",
+                                            [0])[0],
         "host_top6": dict(sorted(host.items(), key=lambda kv: -kv[1][1])[:6]),
         "ms_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
         "ms_by_kernel_top12": dict(top)}))
 
 
-def profile_request(engine, label: str) -> None:
-    """One more full-width DiT request under ``torch.profiler``."""
+def profile_request(engine, label: str, **sampler) -> None:
+    """One more full-width DiT request under ``torch.profiler``, with the
+    engine's sampler options replaced by ``sampler`` for it."""
     from repro_torch.models.config import dit_b2
 
     cfg = dit_b2()
     text = np.random.default_rng(7).standard_normal(
         (BATCH, cfg.text_len, cfg.text_dim)).astype(np.float32)
-    profiled(lambda: engine.generate(200, text, BATCH), CATEGORIES,
-             path=label, batch=BATCH, steps=STEPS)
+    base = engine.sampler
+    engine.sampler = dataclasses.replace(base, **sampler)
+    try:
+        profiled(lambda: engine.generate(200, text, BATCH), CATEGORIES,
+                 path=label, batch=BATCH, steps=STEPS, **sampler)
+    finally:
+        engine.sampler = base
 
 
 #: wrappers whose calls phase 6 records on the GPU and replays on the CPU
@@ -1295,7 +1448,9 @@ def compare_gpu_cpu(ops, dev) -> None:
              ("int8", dict(param_dtype="int8"), None),
              ("fp8", dict(param_dtype="fp8"), None),
              ("unfused", dict(step_fused=False), E2E_REL_TOL),
-             ("two_pass_cfg", dict(batched_cfg=False), E2E_REL_TOL))
+             ("two_pass_cfg", dict(batched_cfg=False), E2E_REL_TOL),
+             ("plan_refresh_2", dict(plan_refresh_every=2), E2E_REL_TOL),
+             ("ddpm_gate", dict(ddpm_low_noise_only=0.5), E2E_REL_TOL))
 
     def engine(device, kw):
         return ServingEngine.from_checkpoint_dir(
@@ -1337,6 +1492,33 @@ def compare_gpu_cpu(ops, dev) -> None:
     shutil.rmtree(path)
     if failed:
         fail(f"GPU run differs from the CPU run: {failed}")
+
+
+def run_cli(dev) -> None:
+    """Phase 9: ``python -m repro_torch.launch.serve`` as a user runs it, on
+    the card, over checkpoints at the reference CLI's reduced width
+    (latent 8): two batch-3 requests coalesced into one dispatch, plan
+    reuse every 2 steps, 4 steps.  It must exit 0 and print its lines."""
+    from repro_torch.models.config import dit_b2, router_b2
+
+    path = os.path.join(WORK, "cli")
+    write_ensemble(path, dit_b2().reduced(latent_size=8),
+                   router_b2(num_clusters=len(MIX)).reduced(latent_size=8),
+                   dev, seed=13)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--ckpt-dir",
+           path, "--batch", "3", "--requests", "2", "--steps", "4",
+           "--coalesce", "--plan-refresh", "2", "--track-padding"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    shutil.rmtree(path)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        print(f"cli | {line}")
+    if proc.returncode != 0 or len(lines) != 3 or not lines[1].startswith(
+            "coalesced 2 requests -> 1 dispatch(es): 6 imgs"):
+        fail(f"the serving CLI exited {proc.returncode}: "
+             f"{proc.stderr.strip()[-2000:]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1612,8 +1794,10 @@ def main() -> None:
     phase_done("3 (kernels against plain versions)")
 
     launches, engines = serve_full_width(ops, dev)
+    launches.update(serve_options(ops, engines["native"]))
     phase_done("4 (DiT serving)")
     profile_request(engines["native"], "native")
+    profile_request(engines["native"], "native", plan_refresh_every=2)
     profile_request(engines["int8"], "int8")
     profile_request(engines["fp8"], "fp8")
     del engines
@@ -1632,6 +1816,8 @@ def main() -> None:
     phase_done("7 (LM serving and profile)")
     compare_lm_gpu_cpu(ops, dev)
     phase_done("8 (LM reduced GPU vs CPU)")
+    run_cli(dev)
+    phase_done("9 (serving CLI)")
 
     # each kernel's launches on the served path that exercises it
     where = {"ragged_gemm": "native", "ragged_gemm_int8": "int8",

@@ -14,6 +14,7 @@ which computes for every routed slot
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Literal
 
 import torch
@@ -64,6 +65,18 @@ def velocity_scale(t: torch.Tensor, mode: str) -> torch.Tensor:
                         max=1.0)
         return torch.where(t > _f32(0.85), s, torch.ones_like(t))
     raise ValueError(f"unknown velocity_scaling mode {mode!r}")
+
+
+@functools.lru_cache(maxsize=64)
+def ddpm_flags(objectives: tuple[str, ...],
+               device: torch.device) -> torch.Tensor:
+    """The ``(K,)`` bool flags ``objective == 'ddpm'`` on ``device``, made
+    once per key and shared: a flag tensor built per call costs a blocking
+    host-to-device copy on the card, once a step in the sampler."""
+    for obj in objectives:
+        if obj not in ("ddpm", "fm"):
+            raise ValueError(f"unknown objective {obj!r}")
+    return torch.tensor([o == "ddpm" for o in objectives], device=device)
 
 
 def unified_coeff_tables(

@@ -3,7 +3,8 @@
 The router posterior ``p(k | x_t, t)`` becomes per-expert fusion weights:
 ``top1`` keeps the argmax expert, ``topk`` renormalizes over the K most
 probable, ``full`` uses all of them.  Ties break toward the lower expert
-index, as ``jax.lax.top_k`` does.
+index, as ``jax.lax.top_k`` does.  The §7.3 gate
+(``ddpm_low_noise_only``) then zeroes DDPM experts above a noise level.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.core.conversion import ddpm_flags
 from repro_torch.core.schedules import Schedule, get_schedule
 
 _NOT_PORTED = "not ported yet — ROADMAP.md, module queue A"
@@ -86,16 +88,18 @@ def fusion_weights(
 ) -> torch.Tensor:
     """Per-step fusion weights ``(B, K)`` from the router posterior.
 
-    Elastic membership (``valid``, ``cluster_map``), the threshold router
-    and the §7.3 low-noise DDPM gate are not ported yet and raise.
+    ``ddpm_low_noise_only > 0`` is the §7.3 gate: ε→v conversion is only
+    stable at low noise, so where ``t`` exceeds it the DDPM experts'
+    weights are zeroed and the rest renormalized (a sample whose experts
+    are all DDPM there keeps all-zero weights, as in the reference).
+    Elastic membership (``valid``, ``cluster_map``) and the threshold
+    router are not ported yet and raise.
     """
     if valid is not None or cluster_map is not None:
         raise NotImplementedError(
             f"valid=/cluster_map= (elastic membership) {_NOT_PORTED}")
     if strategy == "threshold":
         raise NotImplementedError(f"strategy='threshold' {_NOT_PORTED}")
-    if ddpm_low_noise_only > 0.0:
-        raise NotImplementedError(f"ddpm_low_noise_only {_NOT_PORTED}")
     kk = len(experts)
     if router_fn is None:
         if kk != 1:
@@ -110,4 +114,11 @@ def fusion_weights(
         cluster_ids = torch.tensor([max(e.cluster_id, 0) for e in experts],
                                    device=probs.device)
         probs = probs[:, cluster_ids]
-    return routing_weights(probs, strategy, top_k)
+    w = routing_weights(probs, strategy, top_k)
+    if ddpm_low_noise_only > 0.0:
+        is_ddpm = ddpm_flags(tuple(e.objective for e in experts), w.device)
+        high_noise = t > ddpm_low_noise_only                 # (B,)
+        gate = torch.where(high_noise[:, None] & is_ddpm[None, :], 0.0, 1.0)
+        w = w * gate
+        w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-12)
+    return w

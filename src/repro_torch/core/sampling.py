@@ -16,10 +16,12 @@ with Euler steps ``x ← x − u·dt``.  Each step of the serving hot path:
 fused velocity (``kernels.ops.fused_velocity``), ``cfg_combine`` and
 ``x − u·dt`` as separate ops — bit-identical to the fused kernel.
 ``batched_cfg=False`` (or conditioning that cannot be batched) runs the
-cond and uncond branches as two forwards.  The per-run ``(S, 5, K)``
-conversion tables are built once per run key (``coeff_tables_cached``)
-and indexed per step.  Options of the reference sampler outside this
-path raise ``NotImplementedError``.
+cond and uncond branches as two forwards.  ``plan_refresh_every = R``
+runs item 1 (the router forward, the top-``k`` and the plan) only on
+every R-th step and reuses the plan in between (R = 1: every step).
+The per-run ``(S, 5, K)`` conversion tables are built once per run key
+(``coeff_tables_cached``) and indexed per step.  Options of the
+reference sampler outside this path raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ class SamplerConfig:
         default_factory=ConversionConfig
     )
     time_map: str = "identity"
+    #: §7.3: above this t the DDPM experts' fusion weights are zeroed.
     ddpm_low_noise_only: float = 0.0
     #: stack cond/uncond along the batch so CFG costs one forward.
     batched_cfg: bool = True
@@ -66,11 +69,26 @@ class SamplerConfig:
     param_dtype: str = "native"
     #: one fused kernel per step for convert + fuse + CFG + Euler.
     step_fused: bool = True
+    #: rerun the router and the dispatch plan on every R-th step only.
     plan_refresh_every: int = 1
 
 
 def _check_ported(config: SamplerConfig, engine: str) -> None:
-    """Raise for every sampler option this slice has not ported."""
+    """Raise the reference's ``ValueError`` for plan reuse where it refuses
+    it (in its order), then ``NotImplementedError`` for every sampler
+    option the port has not ported."""
+    r = config.plan_refresh_every
+    if r != 1 and engine == "reference":
+        raise ValueError(
+            "plan_refresh_every > 1 requires the fused engines (the "
+            "reference path recomputes routing every step by design)")
+    if r != 1 and config.time_map != "identity":
+        raise ValueError(
+            "plan_refresh_every > 1 requires time_map='identity'; "
+            "snr_match resolves to the reference engine, which "
+            "recomputes routing every step by design")
+    if r < 1:
+        raise ValueError(f"plan_refresh_every must be >= 1, got {r}")
     if engine not in ("auto", "routed"):
         raise NotImplementedError(
             f"engine={engine!r} (the dense and reference engines) is not "
@@ -82,10 +100,6 @@ def _check_ported(config: SamplerConfig, engine: str) -> None:
     if config.time_map != "identity":
         raise NotImplementedError(
             f"time_map={config.time_map!r} is not ported yet — {_QUEUE}")
-    if config.plan_refresh_every != 1:
-        raise NotImplementedError(
-            f"plan_refresh_every={config.plan_refresh_every} (plan reuse) "
-            f"is not ported yet — {_QUEUE}")
 
 
 def cfg_combine(cond_pred: torch.Tensor, uncond_pred: torch.Tensor,
@@ -242,16 +256,18 @@ def _sample_fused(
 
     update = fused_step_update if config.step_fused else velocity_update
     x = init_noise
+    plan = None
     for i in range(config.num_steps):
         t_hi, t_lo = ts[i], ts[i + 1]
         tb = t_hi.expand(B)
-        w = fusion_weights(
-            experts, router_fn, x, tb,
-            strategy=config.strategy, top_k=config.top_k,
-            threshold=config.threshold,
-            ddpm_low_noise_only=config.ddpm_low_noise_only,
-        )                                                 # (B, K)
-        plan = make_dispatch_plan(w, k_slots)
+        if i % config.plan_refresh_every == 0:        # step 0 always
+            w = fusion_weights(
+                experts, router_fn, x, tb,
+                strategy=config.strategy, top_k=config.top_k,
+                threshold=config.threshold,
+                ddpm_low_noise_only=config.ddpm_low_noise_only,
+            )                                             # (B, K)
+            plan = make_dispatch_plan(w, k_slots)
         x = update(plan, x, tb, t_hi - t_lo, tables[i])
     return x
 

@@ -14,7 +14,8 @@ import math
 
 import torch
 
-from repro_torch.core.conversion import ConversionConfig, velocity_scale
+from repro_torch.core.conversion import (ConversionConfig, ddpm_flags,
+                                         velocity_scale)
 from repro_torch.core.schedules import Schedule
 from repro_torch.kernels import hetero_fuse as _fuse
 from repro_torch.kernels import ref as _ref
@@ -144,9 +145,7 @@ def fused_convert_and_fuse(
     (analytic or §8.3.3 finite differences) and the Eq. 31 dampening for
     DDPM experts, then the flag-form convert-and-fuse kernel over the
     flattened latents.  Returns the fused velocity ``(B, *latent)``."""
-    for obj in objectives:
-        if obj not in ("ddpm", "fm"):
-            raise ValueError(f"unknown objective {obj!r}")
+    is_ddpm = ddpm_flags(tuple(objectives), preds.device)
     k, b = preds.shape[0], preds.shape[1]
     latent_shape = tuple(preds.shape[2:])
     t = torch.as_tensor(t, device=preds.device)
@@ -158,8 +157,6 @@ def fused_convert_and_fuse(
         d = [s.derivs(t) for s in schedules]
     dalpha = torch.stack([x[0] for x in d])
     dsigma = torch.stack([x[1] for x in d])
-    is_ddpm = torch.tensor([o == "ddpm" for o in objectives],
-                           device=preds.device)
     vs = velocity_scale(t, conv.velocity_scaling)                 # (B,)
     vscale = torch.where(is_ddpm[:, None], vs[None], 1.0)
     pf = preds.reshape(k, b, -1)

@@ -16,19 +16,39 @@ picks the stacked expert store: ``native``, ``fp32``/``bf16`` casts, or
 contract in the int8/fp8 GEMM kernels.  A quantized store replaces the
 float32 per-expert list (about 4x fewer resident expert bytes).
 
+``sampler.plan_refresh_every = R`` reruns the router and the dispatch
+plan on every R-th Euler step only; ``stats["plan_refreshes"]`` counts
+⌈S/R⌉ a dispatch.  ``sampler.ddpm_low_noise_only`` gates the DDPM
+experts out above that noise level (§7.3).
+
+``submit`` enqueues a request and ``flush`` coalesces the queued ones by
+conditioning signature into one padded power-of-two batch each, expires
+requests past their ``deadline_s``, isolates failures per group
+(re-queued up to ``max_request_requeues`` times, then FAILED) and slices
+each request's latents back out.  ``track_padding`` counts the rows the
+ragged executor runs against the routed rows (``padding_stats``).
+
+Command line (the reference CLI's plain and ``--coalesce`` modes)::
+
+    python -m repro_torch.launch.serve --ckpt-dir CKPTS --coalesce \
+        --plan-refresh 2
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
-when no GPU is present.  Only an explicit ``device="cpu"`` runs on the
-CPU (the kernels' plain versions), as the tests do.  Elastic membership,
-``submit``/``flush``, sharding and the CLI are not ported yet.
+when no GPU is present.  Only an explicit ``device="cpu"`` (CLI:
+``--device cpu``) runs on the CPU (the kernels' plain versions), as the
+tests do.  Elastic membership, continuous batching and sharding are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import glob
 import hashlib
 import os
 import re
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -38,7 +58,9 @@ from repro_torch.core.fusion import ExpertSpec
 from repro_torch.core.param_store import make_store
 from repro_torch.core.sampling import SamplerConfig, sample_ensemble
 from repro_torch.models import dit as D
-from repro_torch.models.config import DiTConfig
+from repro_torch.models.config import DiTConfig, dit_b2, router_b2
+from repro_torch.serving.resilience import (DeadlineExceeded, RequestFailed,
+                                            RequestTimeout)
 from repro_torch.training.checkpoint import load_checkpoint
 from repro_torch.weights import resolve_device
 
@@ -56,6 +78,62 @@ def _as_device_tensor(a, device) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class PendingRequest:
+    """Handle returned by ``ServingEngine.submit``; resolved by ``flush``.
+
+    ``state`` walks QUEUED → DONE, or to FAILED (its group exhausted its
+    re-queues) or DEADLINE_EXCEEDED (it outlived ``deadline_s`` before
+    dispatch); ``result()`` then raises the named error.  The request's
+    noise comes from ``seed`` (an int or a ``torch.Generator``) at flush
+    time, as ``generate`` draws it, unless ``noise`` is the exact array.
+    """
+
+    seed: int | torch.Generator | None
+    text_emb: torch.Tensor | None
+    batch_size: int
+    noise: torch.Tensor | None = None
+    _result: torch.Tensor | None = None
+    done: bool = False
+    state: str = "QUEUED"
+    error: BaseException | None = None
+    requeues: int = 0
+    #: global submission order, the FIFO key of re-queues.
+    seq: int = -1
+    #: wall-clock seconds from submit after which ``flush`` expires it.
+    deadline_s: float | None = None
+    submit_t: float | None = None
+
+    def result(self, timeout: float | None = None) -> torch.Tensor:
+        """The resolved latents, or the request's named terminal error.
+
+        ``timeout`` bounds how long to wait for another thread to flush
+        the engine (``RequestTimeout`` on expiry); ``None`` raises at once
+        if the request is unresolved; 0 polls."""
+        if timeout is not None:
+            give_up = time.monotonic() + timeout
+            while not self.done and self.state not in (
+                    "FAILED", "DEADLINE_EXCEEDED"):
+                if time.monotonic() >= give_up:
+                    raise RequestTimeout(
+                        f"request seq={self.seq} still {self.state} after "
+                        f"{timeout}s ({self.requeues} requeue(s))",
+                        seq=self.seq, requeues=self.requeues)
+                time.sleep(min(0.005, max(timeout, 1e-4)))
+        if self.state == "DEADLINE_EXCEEDED":
+            raise self.error
+        if self.state == "FAILED":
+            raise RequestFailed(
+                f"request seq={self.seq} failed after {self.requeues} "
+                f"dispatch attempt(s): {self.error!r}",
+                seq=self.seq, requeues=self.requeues) from self.error
+        if not self.done:
+            raise RuntimeError(
+                "request not yet flushed — submit() only enqueues; call "
+                "ServingEngine.flush() before reading result()")
+        return self._result
+
+
+@dataclasses.dataclass
 class ServingEngine:
     experts: list[ExpertSpec]
     expert_params: list
@@ -67,12 +145,25 @@ class ServingEngine:
     #: resident, keyed by content hash and evicted LRU.  0 disables.
     cond_cache_size: int = 64
     device: torch.device = torch.device("cuda")
+    #: automatic re-queues per request before a failing dispatch group
+    #: marks its requests FAILED.
+    max_request_requeues: int = 1
+    #: count the rows the ragged executor runs (``padding_stats``).
+    track_padding: bool = False
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
         self._cond_cache: OrderedDict[tuple, torch.Tensor] = OrderedDict()
+        self._queue: list[PendingRequest] = []
+        self._seq = 0                              # global submission order
         self.stats = {"requests": 0, "cond_cache_hits": 0,
-                      "cond_cache_misses": 0, "plan_refreshes": 0}
+                      "cond_cache_misses": 0, "plan_refreshes": 0,
+                      "merged_batches": 0, "batched_requests": 0,
+                      "request_requeues": 0, "failed_requests": 0,
+                      "deadline_exceeded": 0, "padded_model_rows": 0,
+                      "routed_model_rows": 0, "model_steps": 0}
+        if self.track_padding:
+            self._count_executed_rows()
         pd = self.sampler.param_dtype
         if pd != "native":
             # The store serves routed execution only; reject at
@@ -109,6 +200,7 @@ class ServingEngine:
         engine: str = "auto",
         param_dtype: str | None = None,
         cond_cache_size: int = 64,
+        track_padding: bool = False,
         device=None,
     ) -> "ServingEngine":
         """Assemble an engine from a directory of expert checkpoints.
@@ -187,6 +279,7 @@ class ServingEngine:
                           dit_cfg.latent_channels),
             sampler=sampler,
             engine=engine, cond_cache_size=cond_cache_size, device=dev,
+            track_padding=track_padding,
         )
 
     # -- cross-request conditioning cache -----------------------------------
@@ -218,6 +311,92 @@ class ServingEngine:
             self._cond_cache.popitem(last=False)
         return val
 
+    # -- dispatch-padding observability -----------------------------------
+
+    def _count_executed_rows(self) -> None:
+        """Wrap the shared ragged forward with a host row counter: each
+        call runs ``P·g`` rows (pairs times guidance replicas).  One
+        wrapper for every expert, since ragged eligibility compares the
+        forwards by identity."""
+        base = self.experts[0].ragged_apply_fn if self.experts else None
+        if base is None or any(e.ragged_apply_fn is not base
+                               for e in self.experts):
+            raise ValueError(
+                "track_padding=True needs one ragged_apply_fn shared by "
+                "every expert (the ragged executor is the port's only "
+                "backend)")
+
+        def counted(view, x_p, t_p, cond, pe, g):
+            self.stats["padded_model_rows"] += x_p.shape[0] * g
+            return base(view, x_p, t_p, cond, pe, g)
+
+        self.experts = [dataclasses.replace(e, ragged_apply_fn=counted)
+                        for e in self.experts]
+
+    def _count_dispatch(self, batch_size: int, has_text: bool) -> None:
+        """Per-dispatch statistics: plan refreshes (⌈S/R⌉) and, with
+        ``track_padding``, the routed rows the plans ask for, ``B·k·g·S``."""
+        steps = self.sampler.num_steps
+        self.stats["plan_refreshes"] += -(-steps // max(
+            1, self.sampler.plan_refresh_every))
+        if not self.track_padding:
+            return
+        k_slots = 1 if self.sampler.strategy in ("top1", "threshold") \
+            else min(self.sampler.top_k, max(len(self.experts), 1))
+        g = 2 if (has_text and self.sampler.cfg_scale != 1.0) else 1
+        self.stats["routed_model_rows"] += batch_size * k_slots * g * steps
+        self.stats["model_steps"] += steps
+
+    def padding_stats(self) -> dict:
+        """Executed against routed rows per sampling step, into ``stats``
+        (needs ``track_padding=True``): ``padding_overhead`` is
+        executed/routed − 1, 0.0 under the ragged executor."""
+        if not self.track_padding:
+            raise ValueError(
+                "padding stats need ServingEngine(track_padding=True) — "
+                "row counting wraps the expert forward at construction")
+        steps = max(self.stats["model_steps"], 1)
+        routed = max(self.stats["routed_model_rows"], 1)
+        self.stats["padded_rows_per_step"] = \
+            self.stats["padded_model_rows"] / steps
+        self.stats["routed_rows_per_step"] = \
+            self.stats["routed_model_rows"] / steps
+        self.stats["padding_overhead"] = \
+            self.stats["padded_model_rows"] / routed - 1.0
+        return {k: self.stats[k] for k in (
+            "padded_rows_per_step", "routed_rows_per_step",
+            "padding_overhead")}
+
+    # -- sampling -----------------------------------------------------------
+
+    def _noise(self, seed_or_generator, batch_size: int,
+               noise=None) -> torch.Tensor:
+        """``noise`` on the device, or ``(B, H, W, C)`` drawn from an int
+        seed or a ``torch.Generator`` on the engine's device."""
+        if noise is not None:
+            return _as_device_tensor(noise, self.device)
+        gen = seed_or_generator
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(seed_or_generator))
+        return torch.randn((batch_size,) + tuple(self.latent_shape),
+                           generator=gen, dtype=torch.float32,
+                           device=self.device)
+
+    def _sample(self, noise: torch.Tensor, text) -> torch.Tensor:
+        """One sampler dispatch from ``noise``; with text, batched CFG
+        against the learned null embedding."""
+        has_text = text is not None
+        self._count_dispatch(noise.shape[0], has_text)
+        return sample_ensemble(
+            self.experts, self.expert_params, self.router_fn,
+            tuple(noise.shape),
+            cond={"text_emb": text} if has_text else None,
+            null_cond={"text_emb": None} if has_text else None,
+            config=self.sampler, engine=self.engine, init_noise=noise,
+            stacked_params=self.param_store,
+        )
+
     def generate(self, seed_or_generator, batch_text_emb, batch_size: int,
                  *, noise=None) -> torch.Tensor:
         """Sample ``batch_size`` latents ``(B, H, W, C)``.
@@ -229,24 +408,270 @@ class ServingEngine:
         null embedding.
         """
         self.stats["requests"] += 1
-        shape = (batch_size,) + tuple(self.latent_shape)
-        if noise is None:
-            gen = seed_or_generator
-            if not isinstance(gen, torch.Generator):
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(int(seed_or_generator))
-            noise = torch.randn(shape, generator=gen, dtype=torch.float32,
-                                device=self.device)
-        else:
-            noise = _as_device_tensor(noise, self.device)
-        has_text = batch_text_emb is not None
-        text = self._cached_cond(batch_text_emb)
-        r = max(1, self.sampler.plan_refresh_every)
-        self.stats["plan_refreshes"] += -(-self.sampler.num_steps // r)
-        return sample_ensemble(
-            self.experts, self.expert_params, self.router_fn, shape,
-            cond={"text_emb": text} if has_text else None,
-            null_cond={"text_emb": None} if has_text else None,
-            config=self.sampler, engine=self.engine, init_noise=noise,
-            stacked_params=self.param_store,
-        )
+        noise = self._noise(seed_or_generator, batch_size, noise)
+        return self._sample(noise, self._cached_cond(batch_text_emb))
+
+    # -- cross-request batching queue ---------------------------------------
+
+    def _next_seq(self) -> int:
+        """The next global submission-order stamp."""
+        seq = self._seq
+        self._seq += 1
+        return seq
+
+    def submit(self, seed_or_generator, text_emb=None,
+               batch_size: int | None = None, *, noise=None,
+               deadline_s: float | None = None) -> PendingRequest:
+        """Enqueue a request; returns a handle resolved by ``flush()``.
+
+        The noise comes from the request's own seed (or ``noise``) at
+        flush time, so a coalesced request samples what ``generate``
+        would from that seed.  A request still queued ``deadline_s``
+        seconds after submit is expired by the next ``flush()``.
+        """
+        if batch_size is None:
+            batch_size = text_emb.shape[0] if text_emb is not None else 1
+        if text_emb is not None and text_emb.shape[0] != batch_size:
+            raise ValueError(f"text_emb batch {text_emb.shape[0]} != "
+                             f"batch_size {batch_size}")
+        req = PendingRequest(
+            seed=seed_or_generator, text_emb=self._cached_cond(text_emb),
+            batch_size=batch_size, noise=noise, seq=self._next_seq(),
+            deadline_s=deadline_s, submit_t=time.monotonic())
+        self._queue.append(req)
+        self.stats["requests"] += 1
+        return req
+
+    def flush(self) -> int:
+        """Run all queued requests, coalescing compatible ones.
+
+        Latent shape and sampler config are the engine's, so requests are
+        compatible when their conditioning signature is (text present and
+        its trailing shape).  Each group is one sampler dispatch over the
+        merged batch padded to the next power of two (zero noise, zero
+        text), and each request's rows are sliced back out.  A failing
+        group re-queues only its own requests, each at most
+        ``max_request_requeues`` times before it is FAILED with the
+        exception; re-queued requests keep FIFO order.  Returns the number
+        of groups dispatched.
+        """
+        if not self._queue:
+            return 0
+        now = time.monotonic()
+        live = []
+        for req in self._queue:
+            if req.deadline_s is not None and \
+                    now - req.submit_t >= req.deadline_s:
+                req.state = "DEADLINE_EXCEEDED"
+                req.error = DeadlineExceeded(
+                    f"request seq={req.seq} exceeded deadline_s="
+                    f"{req.deadline_s} before dispatch ({req.requeues} "
+                    f"requeue(s))", seq=req.seq, requeues=req.requeues)
+                self.stats["deadline_exceeded"] += 1
+            else:
+                live.append(req)
+        groups: dict[tuple, list[PendingRequest]] = {}
+        for req in live:
+            sig = (req.text_emb is not None,
+                   tuple(req.text_emb.shape[1:])
+                   if req.text_emb is not None else ())
+            groups.setdefault(sig, []).append(req)
+        self._queue = []
+        ok = 0
+        for (has_text, text_tail), reqs in groups.items():
+            try:
+                self._dispatch_group(has_text, text_tail, reqs)
+                ok += 1
+            except Exception as e:
+                for r in reqs:
+                    r.requeues += 1
+                    if r.requeues > self.max_request_requeues:
+                        r.state = "FAILED"
+                        r.error = e
+                        self.stats["failed_requests"] += 1
+                    else:
+                        self.stats["request_requeues"] += 1
+                        self._queue.append(r)
+        self._queue.sort(key=lambda r: r.seq)
+        return ok
+
+    def _dispatch_group(self, has_text: bool, text_tail: tuple,
+                        reqs: list[PendingRequest]) -> None:
+        total = sum(r.batch_size for r in reqs)
+        pad = (1 << (total - 1).bit_length()) - total
+        noise = [self._noise(r.seed, r.batch_size, r.noise) for r in reqs]
+        if pad:
+            noise.append(torch.zeros((pad,) + tuple(self.latent_shape),
+                                     device=self.device))
+        text = None
+        if has_text:
+            text = [r.text_emb for r in reqs]
+            if pad:
+                text.append(torch.zeros((pad,) + text_tail,
+                                        dtype=text[0].dtype,
+                                        device=self.device))
+            text = torch.cat(text)
+        out = self._sample(torch.cat(noise), text)
+        self.stats["merged_batches"] += 1
+        self.stats["batched_requests"] += len(reqs)
+        off = 0
+        for r in reqs:
+            r._result = out[off:off + r.batch_size]
+            r.state = "DONE"
+            r.done = True
+            off += r.batch_size
+
+
+#: CLI flags of the reference whose modes the port has not ported yet:
+#: flag -> (default, ROADMAP.md module queue item)
+_UNPORTED_FLAGS = {
+    "expert_shards": (1, "A.8"), "data_shards": (None, "A.8"),
+    "continuous": (False, "A.6"), "max_resident": (8, "A.6"),
+    "max_queue": (256, "A.6"), "arrival_every": (2, "A.6"),
+    "tick_budget": (None, "A.6"), "journal_dir": (None, "A.6"),
+    "capacity": (None, "A.5"), "on_bad_checkpoint": ("raise", "A.5"),
+}
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description="Serve a directory of DiT expert checkpoints (and "
+                    "router.npz) on the port: the reference CLI's plain "
+                    "and --coalesce modes.")
+    ap.add_argument("--ckpt-dir", required=True)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--cfg-scale", type=float, default=7.5)
+    ap.add_argument("--strategy", default="topk",
+                    choices=("top1", "topk", "full", "threshold"))
+    ap.add_argument("--top-k", type=int, default=2)
+    ap.add_argument("--engine", default="auto",
+                    choices=("auto", "routed", "dense", "reference"))
+    ap.add_argument("--dispatch", default="auto",
+                    choices=("auto", "gathered", "grouped", "ragged",
+                             "dense"))
+    ap.add_argument("--param-dtype", default="native",
+                    choices=("native", "fp32", "bf16", "int8", "fp8"))
+    ap.add_argument("--plan-refresh", type=int, default=1,
+                    help="rerun the router and the dispatch plan only "
+                         "every R-th Euler step (R=1: every step)")
+    ap.add_argument("--no-step-fuse", action="store_true",
+                    help="the unfused step: velocity kernel, then CFG "
+                         "combine and Euler update as separate ops")
+    ap.add_argument("--cond-cache", type=int, default=64,
+                    help="cross-request conditioning LRU capacity "
+                         "(0 disables)")
+    # As in the reference CLI: store_true with default True, so the
+    # reduced config is always served.
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--latent-size", type=int, default=8)
+    ap.add_argument("--coalesce", action="store_true",
+                    help="drive requests through submit()/flush() instead "
+                         "of per-request generate()")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="--coalesce: each request's deadline in seconds "
+                         "(an expired request's result() raises "
+                         "DeadlineExceeded)")
+    ap.add_argument("--track-padding", action="store_true",
+                    help="count executed against routed expert rows and "
+                         "print them per step (plain mode)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' runs the "
+                         "kernels' plain versions)")
+    # parsed, not ported: a non-default value raises
+    ap.add_argument("--expert-shards", type=int, default=1)
+    ap.add_argument("--data-shards", type=int, default=None)
+    ap.add_argument("--continuous", action="store_true")
+    ap.add_argument("--max-resident", type=int, default=8)
+    ap.add_argument("--max-queue", type=int, default=256)
+    ap.add_argument("--arrival-every", type=int, default=2)
+    ap.add_argument("--tick-budget", type=float, default=None)
+    ap.add_argument("--journal-dir", default=None)
+    ap.add_argument("--capacity", type=int, default=None)
+    ap.add_argument("--on-bad-checkpoint", default="raise",
+                    choices=("raise", "skip"))
+    return ap
+
+
+def main(argv=None) -> None:
+    """The reference CLI's plain and ``--coalesce`` modes, printing its
+    lines less ``traces=`` (the port compiles no per-shape trace).  Text
+    embeddings come from ``torch.Generator`` seed r, so the latents differ
+    from the reference CLI's; the engine tests hold parity."""
+    args = _parser().parse_args(argv)
+    for name, (default, item) in _UNPORTED_FLAGS.items():
+        if getattr(args, name) != default:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} is not ported yet — "
+                f"ROADMAP.md, module queue {item}")
+    dit_cfg, rcfg = dit_b2(), router_b2()
+    if args.reduced:
+        dit_cfg = dit_cfg.reduced(latent_size=args.latent_size)
+        rcfg = rcfg.reduced(latent_size=args.latent_size)
+    engine = ServingEngine.from_checkpoint_dir(
+        args.ckpt_dir, dit_cfg=dit_cfg, router_cfg=rcfg,
+        sampler=SamplerConfig(
+            num_steps=args.steps, cfg_scale=args.cfg_scale,
+            strategy=args.strategy, top_k=args.top_k,
+            dispatch=args.dispatch, param_dtype=args.param_dtype,
+            step_fused=not args.no_step_fuse,
+            plan_refresh_every=args.plan_refresh),
+        engine=args.engine, cond_cache_size=args.cond_cache,
+        track_padding=args.track_padding, device=args.device)
+    homogeneous = all(e.apply_fn is engine.experts[0].apply_fn
+                      for e in engine.experts)
+    print(f"loaded {len(engine.experts)} experts "
+          f"({[e.objective for e in engine.experts]}) "
+          f"homogeneous={homogeneous} mesh=None")
+
+    def text(r):
+        # a host array, as a remote text encoder delivers it — the form
+        # the conditioning cache hashes
+        gen = torch.Generator().manual_seed(r)
+        return torch.randn((args.batch, dit_cfg.text_len, dit_cfg.text_dim),
+                           generator=gen).numpy()
+
+    def sync():
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+
+    if args.coalesce:
+        t0 = time.time()
+        handles = [engine.submit(r, text(r), deadline_s=args.deadline_s)
+                   for r in range(args.requests)]
+        engine.flush()
+        outs = [h.result() for h in handles]
+        sync()
+        dt = time.time() - t0
+        n = sum(o.shape[0] for o in outs)
+        print(f"coalesced {len(handles)} requests -> "
+              f"{engine.stats['merged_batches']} dispatch(es): "
+              f"{n} imgs in {dt:.2f}s ({n / dt:.1f} img/s)")
+        print(f"cache: cond_hits={engine.stats['cond_cache_hits']} "
+              f"cond_misses={engine.stats['cond_cache_misses']} "
+              f"plan_refreshes={engine.stats['plan_refreshes']} "
+              f"(R={args.plan_refresh}, {args.steps} steps/dispatch)")
+        return
+    for r in range(args.requests):
+        t0 = time.time()
+        out = engine.generate(r, text(r), args.batch)
+        sync()
+        dt = time.time() - t0
+        print(f"request {r}: {tuple(out.shape)} in {dt:.2f}s "
+              f"({args.batch / dt:.1f} img/s) "
+              f"finite={bool(torch.isfinite(out).all())}")
+    print(f"cache: cond_hits={engine.stats['cond_cache_hits']} "
+          f"cond_misses={engine.stats['cond_cache_misses']} "
+          f"plan_refreshes={engine.stats['plan_refreshes']} "
+          f"(R={args.plan_refresh}, {args.steps} steps/request)")
+    if args.track_padding:
+        ps = engine.padding_stats()
+        print(f"padding: padded_rows/step={ps['padded_rows_per_step']:.2f} "
+              f"routed_rows/step={ps['routed_rows_per_step']:.2f} "
+              f"overhead={ps['padding_overhead']:.3f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -172,8 +172,7 @@ def test_unported_routing_options_raise():
     args = ([_spec(0), _spec(1)], lambda x, t: torch.ones(2, 2) / 2,
             torch.zeros(2, 1), torch.zeros(2))
     for kw in (dict(strategy="threshold"), dict(strategy="topk",
-               valid=torch.ones(2, dtype=torch.bool)),
-               dict(strategy="topk", ddpm_low_noise_only=0.5)):
+               valid=torch.ones(2, dtype=torch.bool))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fusion.fusion_weights(*args, **kw)
 
@@ -244,9 +243,8 @@ def test_resolve_dispatch_serves_ragged_only():
 
 
 @pytest.mark.parametrize("override", [
-    dict(plan_refresh_every=2), dict(dispatch="grouped"),
-    dict(strategy="threshold"), dict(time_map="snr_match"),
-    dict(strategy="full"), dict(ddpm_low_noise_only=0.5),
+    dict(dispatch="grouped"), dict(strategy="threshold"),
+    dict(time_map="snr_match"), dict(strategy="full"),
 ], ids=lambda d: next(iter(d)))
 def test_unported_sampler_options_raise(override):
     cfg = sampling.SamplerConfig(num_steps=2, **override)

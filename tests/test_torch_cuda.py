@@ -594,16 +594,26 @@ def test_flash_attention_tiles_head_dims_and_gqa(cuda, d, s, causal, window,
         causal=causal, window=window))
 
 
-@pytest.mark.parametrize("k,b,t", [(8, 16, 4096), (3, 5, 4099)])
-def test_hetero_fuse_kernel_matches_plain_bitwise(cuda, k, b, t):
-    """The flag form: bitwise against its plain version, and against the
-    velocity kernel given the matching unified coefficients (FM experts
-    as the identity ``(1, 0, 0, 1, 1)``)."""
+_FLAG_MIXES = {
+    "all_ddpm": lambda k: ["ddpm"] * k,
+    "all_fm": lambda k: ["fm"] * k,
+    "mixed": lambda k: ["ddpm" if i % 2 == 0 else "fm" for i in range(k)],
+}
+
+
+@pytest.mark.parametrize("b,t", [(16, 4096), (5, 4099)])
+@pytest.mark.parametrize("mix", sorted(_FLAG_MIXES))
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 12])
+def test_hetero_fuse_kernel_matches_plain_bitwise(cuda, k, mix, b, t):
+    """The flag form at K 1–8 (slot loops unrolled) and 12 (the runtime
+    loop), every flag pattern: bitwise against its plain version, and
+    against the velocity kernel given the matching unified coefficients
+    (FM experts as the identity ``(1, 0, 0, 1, 1)``)."""
     gen = torch.Generator(device=cuda).manual_seed(k + t)
     preds = 4 * torch.randn(k, b, t, generator=gen, device=cuda)
     x = 3 * torch.randn(b, t, generator=gen, device=cuda)
     w = torch.rand(b, k, generator=gen, device=cuda)
-    objectives = ["ddpm", "ddpm"] + ["fm"] * (k - 2)
+    objectives = _FLAG_MIXES[mix](k)
     schedules = [get_schedule("cosine" if o == "ddpm" else "linear")
                  for o in objectives]
     tb = torch.rand(b, generator=gen, device=cuda)

@@ -126,7 +126,11 @@ def test_engine_orders_experts_and_counts(ensemble):
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert eng.stats == {"requests": 3, "cond_cache_hits": 2,
                          "cond_cache_misses": 1,
-                         "plan_refreshes": 3 * STEPS}
+                         "plan_refreshes": 3 * STEPS,
+                         "merged_batches": 0, "batched_requests": 0,
+                         "request_requeues": 0, "failed_requests": 0,
+                         "deadline_exceeded": 0, "padded_model_rows": 0,
+                         "routed_model_rows": 0, "model_steps": 0}
 
 
 def test_default_device_is_the_gpu():
