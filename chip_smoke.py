@@ -21,7 +21,8 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    bf16-weight, int8 and fp8 bodies (with the error and time of each e4m3
    contraction the fp8 body can use), the step kernel and the velocity
    kernel (bitwise; each case also times ``floor_ms``, one ATen pass over
-   the latent), the dequant
+   the latent; the step kernel also at K 8 slots, the full strategy's
+   shape), the dequant
    kernel, the AdaLN kernel (at the ragged MLP modulate site, float32,
    with bf16 modulations and in bf16), the attention kernel (the DiT's
    self-attention, and a causal sliding-window GQA case at Mixtral-8x7B's
@@ -51,15 +52,25 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    (``plan_refresh_every`` 1, 2, 4: the router's launches fall to
    ⌈8/R⌉ steps) and the §7.3 DDPM gate, a ``submit``/``flush`` of three
    requests (batch 1, 3, 4) as one dispatch held against ``generate``,
-   and a request expired by its deadline before dispatch;
+   and a request expired by its deadline before dispatch.  Then one
+   request on each of the other strategies, engines and executors
+   (``STRATEGY_PATHS``: ``full``, ``dense_topk``, ``threshold`` on the
+   native and int8 stores, ``reference``, ``snr_match``, ``grouped``,
+   ``gathered``) and on a full-width per-block adaLN-Zero ensemble, each
+   with its exact launch counts and its max |Δ| against the native top-2
+   request from the same noise (``dense_topk``, ``reference``,
+   ``grouped`` and ``gathered`` compute that request's function and must
+   match it);
 5. serves one more native (with and without plan reuse every 2 steps),
-   one more int8 and one more fp8 request under
+   one more int8, one more fp8, one ``full`` and one ``threshold``
+   request under
    ``torch.profiler`` and prints where their device time goes (by kernel
    and by category), the device's idle share and the host's op count,
    self time and copies;
 6. runs the same engine code at a reduced width on the GPU and on the CPU
    (plain versions): native, bf16, unfused, two-pass CFG, plan reuse
-   every 2 steps and the DDPM gate compare their
+   every 2 steps, the DDPM gate, every path of ``STRATEGY_PATHS`` and a
+   per-block adaLN-Zero ensemble compare their
    latents; int8 and fp8 replay every GEMM, dequant, AdaLN and attention
    call of the GPU request on the CPU with the same inputs (their
    latents' spread is printed beside the CPU run's own under a 2-ulp
@@ -79,9 +90,11 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    fused log-probabilities, prefill logits and state, and greedy tokens
    must agree, and on the GPU prefill followed by a decode step must
    reproduce ``forward_train``'s logits;
-9. runs the serving CLI, ``python -m repro_torch.launch.serve
-   --coalesce --plan-refresh 2 --track-padding``, on the card over
-   reduced checkpoints (latent 8); it must exit 0 and print its lines.
+9. runs the serving CLI, ``python -m repro_torch.launch.serve``, three
+   times at once on the card over reduced checkpoints (latent 8):
+   ``--coalesce --plan-refresh 2 --track-padding``, ``--strategy full``
+   and ``--coalesce --deadline-s 0``; each must exit 0, serve every
+   request and print its lines.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -152,7 +165,8 @@ CATEGORIES = (
     ("hetero_fuse_dequant", "hetero_fuse_dequant"),
     ("adaln_fuse", "adaln_fuse (every LayerNorm and modulation)"),
     ("flash_attention", "flash_attention (self-attention)"),
-    ("gemm", "cuBLAS GEMM (router dense, cross-attention QK/PV)"),
+    ("gemm", "cuBLAS GEMM (dense dit.apply layers: the router, the "
+             "dense-engine experts; cross-attention QK/PV)"),
     ("softmax", "softmax"),
     ("reduce", "reductions (sums, row absmax)"),
     ("elementwise", "elementwise"),
@@ -468,88 +482,101 @@ def floor_ms(x: torch.Tensor) -> float:
 
 def check_fused_step(ops, ref, dev) -> dict:
     """The step kernel at the main path's shape: K = 2 slots, B = 8,
-    T = 32·32·4, with and without CFG, shared and per-row dt; alpha below
-    alpha_min and clamped x̂0 present.  Bitwise against its plain version
-    (built without FMA contraction, same op order)."""
-    k, b, t = 2, 8, 32 * 32 * 4
+    T = 32·32·4, with and without CFG, shared and per-row dt, at the
+    full strategy's and dense engine's shape, K = 8 slots with CFG, and
+    at the threshold strategy's, K = 1 slot with CFG; alpha below
+    alpha_min and clamped x̂0 present.  Bitwise against its
+    plain version (built without FMA contraction, same op order)."""
+    b, t = 8, 32 * 32 * 4
     gen = torch.Generator(device=dev).manual_seed(4)
     kw = dict(cfg_scale=7.5, clamp=20.0, alpha_min=0.01)
     worst, main = 0.0, None
-    for g in (2, 1):
-        for per_row in (False, True):
-            preds = 4 * torch.randn(k, g, b, t, generator=gen, device=dev)
-            x = 3 * torch.randn(b, t, generator=gen, device=dev)
-            w = torch.rand(g, b, k, generator=gen, device=dev)
-            coef = 1.5 * torch.rand(5, k, g, b, generator=gen, device=dev)
-            coef[0, 0] = 0.001                  # alpha below alpha_min
-            coef[1, 0] = 1.0                    # x̂0 beyond ±clamp
-            dt = torch.rand(b if per_row else 1, generator=gen, device=dev)
-            args = (preds.reshape(k, g * b, t), x, w.reshape(g * b, k),
-                    coef.reshape(5, k, g * b), dt)
-            got = ops.fused_step(*args, g=g, **kw)
-            plain = ref.ref_hetero_fuse_step(preds, x, w, coef, dt, **kw)
-            torch.cuda.synchronize()
-            x0 = (x[None] - coef[1, 0, :, :, None] * preds[0]) / 0.01
-            if not bool((x0.abs() > 20).any()):
-                fail("fused_step check does not reach the clamp")
-            err = (got - plain).abs().max().item()
-            t_k = graph_ms(lambda: ops.fused_step(*args, g=g, **kw), 100)
-            t_w = cuda_ms(lambda: ops.fused_step(*args, g=g, **kw), 50)
-            t_p = graph_ms(lambda: ref.ref_hetero_fuse_step(
-                preds, x, w, coef, dt, **kw), 100)
-            nbytes = 4.0 * (k * g * b * t + 2 * b * t + g * b * k
-                            + 5 * k * g * b + dt.numel())
-            flops = 12.0 * k * g * b * t + 5.0 * b * t
-            t_b, by = bound_ms(nbytes, flops)
-            row = dict(G=g, dt_per_row=per_row, max_abs_err=err, tol=0.0,
-                       ms=t_k, wrapper_ms=t_w, plain_ms=t_p,
-                       floor_ms=floor_ms(x), library_ms=None, bound_ms=t_b,
-                       bound_by=by)
-            print("hetero_fuse_step case " + json.dumps(row))
-            if not (bool(torch.isfinite(got).all())
-                    and torch.equal(got, plain)):
-                fail(f"hetero_fuse_step disagrees with its plain version: "
-                     f"{row}")
-            worst = max(worst, err)
-            if main is None:                    # G = 2, shared dt: serving
-                main = row
+    for k, g, per_row in ((2, 2, False), (2, 2, True), (2, 1, False),
+                          (2, 1, True), (8, 2, False), (1, 2, False)):
+        preds = 4 * torch.randn(k, g, b, t, generator=gen, device=dev)
+        x = 3 * torch.randn(b, t, generator=gen, device=dev)
+        w = torch.rand(g, b, k, generator=gen, device=dev)
+        coef = 1.5 * torch.rand(5, k, g, b, generator=gen, device=dev)
+        coef[0, 0] = 0.001                  # alpha below alpha_min
+        coef[1, 0] = 1.0                    # x̂0 beyond ±clamp
+        dt = torch.rand(b if per_row else 1, generator=gen, device=dev)
+        args = (preds.reshape(k, g * b, t), x, w.reshape(g * b, k),
+                coef.reshape(5, k, g * b), dt)
+        got = ops.fused_step(*args, g=g, **kw)
+        plain = ref.ref_hetero_fuse_step(preds, x, w, coef, dt, **kw)
+        torch.cuda.synchronize()
+        x0 = (x[None] - coef[1, 0, :, :, None] * preds[0]) / 0.01
+        if not bool((x0.abs() > 20).any()):
+            fail("fused_step check does not reach the clamp")
+        err = (got - plain).abs().max().item()
+        t_k = graph_ms(lambda: ops.fused_step(*args, g=g, **kw), 100)
+        t_w = cuda_ms(lambda: ops.fused_step(*args, g=g, **kw), 50)
+        t_p = graph_ms(lambda: ref.ref_hetero_fuse_step(
+            preds, x, w, coef, dt, **kw), 100)
+        nbytes = 4.0 * (k * g * b * t + 2 * b * t + g * b * k
+                        + 5 * k * g * b + dt.numel())
+        flops = 12.0 * k * g * b * t + 5.0 * b * t
+        t_b, by = bound_ms(nbytes, flops)
+        row = dict(K=k, G=g, dt_per_row=per_row, max_abs_err=err, tol=0.0,
+                   ms=t_k, wrapper_ms=t_w, plain_ms=t_p,
+                   floor_ms=floor_ms(x), library_ms=None, bound_ms=t_b,
+                   bound_by=by)
+        print("hetero_fuse_step case " + json.dumps(row))
+        if not (bool(torch.isfinite(got).all())
+                and torch.equal(got, plain)):
+            fail(f"hetero_fuse_step disagrees with its plain version: "
+                 f"{row}")
+        worst = max(worst, err)
+        if main is None:                # K 2, G 2, shared dt: serving
+            main = row
     return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
                 library_ms=None, bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"])
 
 
 def check_fuse_coeffs(ops, ref, dev) -> dict:
-    """The velocity kernel at the unfused path's shape: K = 2 slots,
-    B = 16 (8 samples × 2 CFG branches), T = 32·32·4; alpha below
-    alpha_min and clamped x̂0 present.  Bitwise against its plain version
-    (built without FMA contraction, same op order)."""
-    k, b, t = 2, 16, 32 * 32 * 4
+    """The velocity kernel at the unfused paths' shapes: B = 16 (8
+    samples × 2 CFG branches), T = 32·32·4, K = 2 slots (the routed
+    top-2 path) and K = 8 (the full strategy's); alpha below alpha_min
+    and clamped x̂0 present.  Bitwise against its plain version (built
+    without FMA contraction, same op order)."""
+    b, t = 16, 32 * 32 * 4
     gen = torch.Generator(device=dev).manual_seed(8)
-    preds = 4 * torch.randn(k, b, t, generator=gen, device=dev)
-    x = 3 * torch.randn(b, t, generator=gen, device=dev)
-    w = torch.rand(b, k, generator=gen, device=dev)
-    coef = 1.5 * torch.rand(5, k, b, generator=gen, device=dev)
-    coef[0, 0] = 0.001
-    coef[1, 0] = 1.0
     kw = dict(clamp=20.0, alpha_min=0.01)
-    got = ops.fused_velocity(preds, x, w, coef, **kw)
-    plain = ref.ref_hetero_fuse_coeffs(preds, x, w, coef, **kw)
-    torch.cuda.synchronize()
-    err, _ = rel_err(got, plain)
-    t_k = graph_ms(lambda: ops.fused_velocity(preds, x, w, coef, **kw), 100)
-    t_w = cuda_ms(lambda: ops.fused_velocity(preds, x, w, coef, **kw), 50)
-    t_p = graph_ms(lambda: ref.ref_hetero_fuse_coeffs(preds, x, w, coef,
-                                                      **kw), 100)
-    nbytes = 4.0 * (k * b * t + 2 * b * t + b * k + 5 * k * b)
-    t_b, by = bound_ms(nbytes, 12.0 * k * b * t)
-    row = dict(K=k, B=b, T=t, max_abs_err=err, tol=0.0, ms=t_k,
-               wrapper_ms=t_w, plain_ms=t_p, floor_ms=floor_ms(x),
-               library_ms=None, bound_ms=t_b, bound_by=by)
-    print("hetero_fuse_coeffs case " + json.dumps(row))
-    if not (bool(torch.isfinite(got).all()) and torch.equal(got, plain)):
-        fail(f"hetero_fuse_coeffs disagrees with its plain version: {row}")
-    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None,
-                bound_ms=t_b, bound_by=by)
+    worst, main = 0.0, None
+    for k in (2, 8):
+        preds = 4 * torch.randn(k, b, t, generator=gen, device=dev)
+        x = 3 * torch.randn(b, t, generator=gen, device=dev)
+        w = torch.rand(b, k, generator=gen, device=dev)
+        coef = 1.5 * torch.rand(5, k, b, generator=gen, device=dev)
+        coef[0, 0] = 0.001
+        coef[1, 0] = 1.0
+        got = ops.fused_velocity(preds, x, w, coef, **kw)
+        plain = ref.ref_hetero_fuse_coeffs(preds, x, w, coef, **kw)
+        torch.cuda.synchronize()
+        err, _ = rel_err(got, plain)
+        t_k = graph_ms(lambda: ops.fused_velocity(preds, x, w, coef, **kw),
+                       100)
+        t_w = cuda_ms(lambda: ops.fused_velocity(preds, x, w, coef, **kw),
+                      50)
+        t_p = graph_ms(lambda: ref.ref_hetero_fuse_coeffs(
+            preds, x, w, coef, **kw), 100)
+        nbytes = 4.0 * (k * b * t + 2 * b * t + b * k + 5 * k * b)
+        t_b, by = bound_ms(nbytes, 12.0 * k * b * t)
+        row = dict(K=k, B=b, T=t, max_abs_err=err, tol=0.0, ms=t_k,
+                   wrapper_ms=t_w, plain_ms=t_p, floor_ms=floor_ms(x),
+                   library_ms=None, bound_ms=t_b, bound_by=by)
+        print("hetero_fuse_coeffs case " + json.dumps(row))
+        if not (bool(torch.isfinite(got).all())
+                and torch.equal(got, plain)):
+            fail(f"hetero_fuse_coeffs disagrees with its plain version: "
+                 f"{row}")
+        worst = max(worst, err)
+        if main is None:                # K 2: the routed unfused path
+            main = row
+    return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                library_ms=None, bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"])
 
 
 def check_dequant(ops, ref, dev) -> dict:
@@ -1002,33 +1029,34 @@ def check_ssd_scan(ops, ref, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def write_ensemble(path, dit_cfg, router_cfg, dev, seed):
-    """8 random experts (2 DDPM + 6 FM) and a router as checkpoints.
-
-    Every leaf is jittered with seeded noise: fresh init zeroes the output
-    layers, which would make every prediction exactly 0.
-    """
+def jittered(cfg, gen):
+    """Random DiT parameters drawn from ``gen``, every leaf jittered with
+    seeded noise: fresh init zeroes the output layers, which would make
+    every prediction exactly 0."""
     from repro_torch.models import dit as D
-    from repro_torch.training.checkpoint import (expert_metadata,
-                                                 save_checkpoint)
     from repro_torch.tree import tree_map
 
+    return tree_map(lambda a: a + 0.02 * torch.randn(
+        a.shape, generator=gen, device=a.device), D.init(cfg, gen))
+
+
+def write_ensemble(path, dit_cfg, router_cfg, dev, seed):
+    """8 random experts (2 DDPM + 6 FM) and a router as checkpoints, each
+    ``jittered``."""
+    from repro_torch.training.checkpoint import (expert_metadata,
+                                                 save_checkpoint)
+
     gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def jittered(cfg):
-        params = D.init(cfg, gen)
-        return tree_map(lambda a: a + 0.02 * torch.randn(
-            a.shape, generator=gen, device=a.device), params)
-
     os.makedirs(path, exist_ok=True)
     for cid, (obj, sched) in enumerate(MIX):
         save_checkpoint(os.path.join(path, f"expert{cid}.npz"),
-                        jittered(dit_cfg),
+                        jittered(dit_cfg, gen),
                         metadata=expert_metadata(
                             name=f"expert{cid}", objective=obj,
                             schedule=sched, cluster_id=cid,
                             arch=dit_cfg.name))
-    save_checkpoint(os.path.join(path, "router.npz"), jittered(router_cfg),
+    save_checkpoint(os.path.join(path, "router.npz"),
+                    jittered(router_cfg, gen),
                     metadata={"num_clusters": len(MIX)})
 
 
@@ -1047,6 +1075,8 @@ def expected_launches(cfg, router_cfg, ops, param_dtype: str,
     final layer, one attention launch per layer (layer 0's on the
     per-pair prefix), and one ragged GEMM per dense layer, each over row
     groups of width ``m``.
+    With ``adaln_single=False`` the AdaLN-Single MLP gives way to one
+    modulation GEMM per layer.
     A quantized store contracts the tiled widths in its int8/fp8 body and
     the others in the float32 body after one dequant of the weights; it
     also dequantizes every bias it adds and the four embedding leaves the
@@ -1055,8 +1085,9 @@ def expected_launches(cfg, router_cfg, ops, param_dtype: str,
     g, layers = 2, cfg.num_layers
     tokens = (cfg.latent_size // cfg.patch_size) ** 2
     text = g * cfg.text_len
+    modulation = 2 if cfg.adaln_single else layers
     widths = ([tokens]                      # patch embedding
-              + [1] * 4                     # timestep and AdaLN MLPs
+              + [1] * (2 + modulation)      # timestep MLP, modulations
               + [tokens] * 4                # layer-0 self-attention, per pair
               + [g * tokens] * 4 * (layers - 1)   # later self-attention
               + [g * tokens] * 2 * layers   # cross-attention q, out
@@ -1065,8 +1096,8 @@ def expected_launches(cfg, router_cfg, ops, param_dtype: str,
               + [1, g * tokens])            # final modulation, output
     # patch embed, timestep MLP x2, AdaLN mlp1, text proj, MLP w1/w2 each
     # layer
-    biases = 5 + 2 * layers
-    embeddings = 4
+    biases = 4 + cfg.adaln_single + 2 * layers
+    embeddings = 3 + cfg.adaln_single
     n = STEPS * requests
     want = dict.fromkeys(ops.LAUNCHES, 0)
     want["hetero_fuse_step" if step_fused else "hetero_fuse_coeffs"] = n
@@ -1089,7 +1120,8 @@ def expected_launches(cfg, router_cfg, ops, param_dtype: str,
 
 def serve_path(ops, engine, name, texts, seeds, want, mem) -> tuple:
     """Serve one request per (text, seed) with the launch counters set to
-    0 just before and read just after; check outputs and counts.
+    0 just before and read just after; check outputs and counts (``want``
+    None: the caller checks the counts it returns).
 
     ``mem`` holds the device bytes allocated before the engine was built
     (``base``: engines of other paths still resident) and what the build
@@ -1115,7 +1147,7 @@ def serve_path(ops, engine, name, texts, seeds, want, mem) -> tuple:
         outs.append(out)
     launches = dict(ops.LAUNCHES)
     print(f"{name} launches " + json.dumps(launches))
-    if launches != want:
+    if want is not None and launches != want:
         fail(f"{name} path launches {launches}, expected {want}")
     if mem is None:
         return outs, launches
@@ -1305,6 +1337,179 @@ def serve_options(ops, engine) -> dict:
     return launches
 
 
+def forward_launches(cfg, router_cfg, ops, expert_forwards: int,
+                     router_forwards: int, fuse_steps: int,
+                     dequant: int = 0, step_fused: bool = True) -> dict:
+    """Launches of a request whose experts run dense ``dit.apply``
+    forwards (the dense, gathered, grouped and reference executors and
+    engines): each expert forward three AdaLN launches a layer and one
+    for the final layer and one attention launch a layer, each router
+    forward two AdaLN and one attention launch a layer; the dense GEMMs
+    run in cuBLAS.  ``fuse_steps`` step-kernel launches (velocity-kernel
+    launches with ``step_fused=False``); ``dequant`` the quantized
+    store's expansions."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["adaln_fuse"] = (2 * router_cfg.num_layers * router_forwards
+                          + (3 * cfg.num_layers + 1) * expert_forwards)
+    want["flash_attention"] = (router_cfg.num_layers * router_forwards
+                               + cfg.num_layers * expert_forwards)
+    want["hetero_fuse_step" if step_fused else "hetero_fuse_coeffs"] = \
+        fuse_steps
+    want["hetero_fuse_dequant"] = dequant
+    return want
+
+
+#: phase 4's paths of the other strategies, engines and executors:
+#: name -> (engine, sampler overrides, the native top-2 request's
+#: function?)
+STRATEGY_PATHS = {
+    "full": ("native", "auto", dict(strategy="full"), False),
+    "full_unfused": ("native", "auto",
+                     dict(strategy="full", step_fused=False), False),
+    "dense_topk": ("native", "dense", {}, True),
+    "threshold": ("native", "auto", dict(strategy="threshold"), False),
+    "threshold_int8": ("int8", "auto", dict(strategy="threshold"), False),
+    "reference": ("native", "reference", {}, True),
+    "snr_match": ("native", "auto", dict(time_map="snr_match"), False),
+    "grouped": ("native", "auto", dict(dispatch="grouped"), True),
+    "gathered": ("native", "auto", dict(dispatch="gathered"), True),
+}
+
+
+def serve_strategies(ops, engines, dev) -> dict:
+    """Phase 4, the other strategies, engines and executors: one request
+    on each path of ``STRATEGY_PATHS`` (the native and int8 engines with
+    their sampler and engine mode swapped, then restored) and one on a
+    full-width ensemble with per-block adaLN-Zero (``adaln_single=False``,
+    top-2 ragged), each with the launch counts set to 0 just before and
+    read just after, computed from the configs and checked exactly:
+
+    * ``full`` and ``dense_topk`` (every expert, dense ``dit.apply``): a
+      step runs the router and the 8 experts over the CFG-doubled batch,
+      and one step kernel fuses 8 slots (``full_unfused``: one velocity
+      kernel, its latents bitwise ``full``'s);
+    * ``threshold`` (one gathered expert a step, no router); its int8
+      form expands every quantized leaf of that expert a step;
+    * ``reference`` and ``snr_match``: the router and 16 expert forwards
+      a step (8 experts × 2 CFG branches), fused in plain ops;
+    * ``grouped`` and ``gathered``: the router and one forward per
+      non-empty segment a step, counted from the step's plan (grouped
+      over power-of-two buckets, gathered over exactly the segment).
+
+    Each prints its max |Δ| against the native top-2 request from the same
+    text and noise; ``dense_topk``, ``reference``, ``grouped`` and
+    ``gathered`` compute that request's function and must agree within
+    ``E2E_REL_TOL · max|out|`` (the others compute other functions).
+    """
+    from repro_torch.core import sampling
+    from repro_torch.core.fusion import ExpertSpec
+    from repro_torch.core.sampling import SamplerConfig
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import dit as D
+    from repro_torch.models.config import dit_b2, router_b2
+    from repro_torch.tree import tree_leaves
+
+    cfg, router_cfg = dit_b2(), router_b2(num_clusters=len(MIX))
+    k = len(MIX)
+    text = np.random.default_rng(9).standard_normal(
+        (BATCH, cfg.text_len, cfg.text_dim)).astype(np.float32)
+    seed = 600
+    launches = {}
+    (ref,), launches["native_top2"] = serve_path(
+        ops, engines["native"], "native_top2", [text], [seed],
+        expected_launches(cfg, router_cfg, ops, "native", True, 1), None)
+    scale = ref.abs().max().item()
+    quant_leaves = len(tree_leaves(engines["int8"].param_store.qvals))
+    expert_forwards = {"full": k * STEPS, "full_unfused": k * STEPS,
+                       "dense_topk": k * STEPS,
+                       "threshold": STEPS, "threshold_int8": STEPS,
+                       "reference": 2 * k * STEPS,
+                       "snr_match": 2 * k * STEPS}
+
+    def compare(name, out, same_function):
+        err = rel_err(out, ref)[0]
+        line = dict(max_abs_diff=err, max_abs_native=scale)
+        if same_function:
+            line["tol"] = E2E_REL_TOL * scale
+        print(f"{name} vs native_top2 " + json.dumps(line))
+        if same_function and err > E2E_REL_TOL * scale:
+            fail(f"{name} differs from the native top-2 request by {err}")
+
+    plans, outs = [], {}
+    make_plan = sampling.make_dispatch_plan
+
+    def recording(w, k_slots, **kw):
+        plans.append(make_plan(w, k_slots, **kw))
+        return plans[-1]
+
+    for name, (store, mode, kw, same) in STRATEGY_PATHS.items():
+        eng = engines[store]
+        base, base_mode = eng.sampler, eng.engine
+        eng.sampler, eng.engine = dataclasses.replace(base, **kw), mode
+        plans.clear()
+        sampling.make_dispatch_plan = recording
+        try:
+            if name in ("grouped", "gathered"):
+                # segments are known once the request has run: serve it,
+                # then count
+                (out,), got = serve_path(ops, eng, name, [text], [seed],
+                                         None, None)
+                segments = sum(int(p.slot_idx.unique().numel())
+                               for p in plans)
+                want = forward_launches(cfg, router_cfg, ops, segments,
+                                        STEPS, STEPS)
+                print(f"{name} segments " + json.dumps(dict(
+                    forwards=segments, per_step=segments / STEPS)))
+                if got != want:
+                    fail(f"{name} path launches {got}, expected {want}")
+            else:
+                routed = kw.get("strategy") != "threshold"
+                want = forward_launches(
+                    cfg, router_cfg, ops, expert_forwards[name],
+                    STEPS if routed else 0,
+                    0 if mode == "reference" or name == "snr_match"
+                    else STEPS,
+                    quant_leaves * STEPS if store == "int8" else 0,
+                    kw.get("step_fused", True))
+                (out,), got = serve_path(ops, eng, name, [text], [seed],
+                                         want, None)
+        finally:
+            sampling.make_dispatch_plan = make_plan
+            eng.sampler, eng.engine = base, base_mode
+        launches[name] = got
+        outs[name] = out
+        compare(name, out, same)
+    if not torch.equal(outs["full_unfused"], outs["full"]):
+        fail("the unfused full request differs from the fused one")
+
+    # per-block adaLN-Zero: a full-width ensemble built on the card (the
+    # router is the native engine's), top-2 through the ragged executor
+    pb_cfg = dit_b2(adaln_single=False)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    apply_fn = D.make_expert_apply(pb_cfg)
+    ragged_fn = D.make_ragged_expert_apply(pb_cfg)
+    experts = [ExpertSpec(name=f"per_block{i}", objective=obj,
+                          schedule=sched, apply_fn=apply_fn, cluster_id=i,
+                          ragged_apply_fn=ragged_fn)
+               for i, (obj, sched) in enumerate(MIX)]
+    eng = ServingEngine(
+        experts=experts, expert_params=[jittered(pb_cfg, gen) for _ in MIX],
+        router_fn=engines["native"].router_fn, latent_shape=(32, 32, 4),
+        sampler=SamplerConfig(num_steps=STEPS, cfg_scale=7.5, top_k=2),
+        device=dev)
+    print("per_block ensemble " + json.dumps(dict(
+        parameters_per_expert=D.param_count(eng.expert_params[0]),
+        store_bytes=eng.param_store.nbytes())))
+    (out,), launches["per_block"] = serve_path(
+        ops, eng, "per_block", [text], [seed],
+        expected_launches(pb_cfg, router_cfg, ops, "native", True, 1),
+        None)
+    compare("per_block", out, False)
+    del eng, experts
+    gc.collect()
+    return launches
+
+
 def _category(name: str, table=CATEGORIES) -> str:
     for frag, cat in table:
         if frag.lower() in name.lower():
@@ -1443,6 +1648,9 @@ def compare_gpu_cpu(ops, dev) -> None:
     text = rng.standard_normal((BATCH, dit_cfg.text_len,
                                 dit_cfg.text_dim)).astype(np.float32)
     noise = rng.standard_normal((BATCH, 16, 16, 4)).astype(np.float32)
+    pb_cfg = dataclasses.replace(dit_cfg, adaln_single=False)
+    pb_path = os.path.join(WORK, "reduced_per_block")
+    write_ensemble(pb_path, pb_cfg, router_cfg, dev, seed=15)
     paths = (("native", {}, E2E_REL_TOL),
              ("bf16", dict(param_dtype="bf16"), E2E_BF16_REL_TOL),
              ("int8", dict(param_dtype="int8"), None),
@@ -1450,12 +1658,24 @@ def compare_gpu_cpu(ops, dev) -> None:
              ("unfused", dict(step_fused=False), E2E_REL_TOL),
              ("two_pass_cfg", dict(batched_cfg=False), E2E_REL_TOL),
              ("plan_refresh_2", dict(plan_refresh_every=2), E2E_REL_TOL),
-             ("ddpm_gate", dict(ddpm_low_noise_only=0.5), E2E_REL_TOL))
+             ("ddpm_gate", dict(ddpm_low_noise_only=0.5), E2E_REL_TOL),
+             # the int8 threshold path expands the store bitwise and runs
+             # float32 forwards: no activation is quantized, so its
+             # latents are held like the native ones
+             *((name, dict(kw, param_dtype="int8" if store == "int8"
+                           else "native", engine_mode=mode), E2E_REL_TOL)
+               for name, (store, mode, kw, _) in STRATEGY_PATHS.items()),
+             ("per_block", dict(ensemble="per_block"), E2E_REL_TOL))
 
     def engine(device, kw):
+        kw = dict(kw)
+        mode = kw.pop("engine_mode", "auto")
+        per_block = kw.pop("ensemble", None) == "per_block"
         return ServingEngine.from_checkpoint_dir(
-            path, dit_cfg=dit_cfg, router_cfg=router_cfg,
-            sampler=dataclasses.replace(sampler, **kw), device=device)
+            pb_path if per_block else path,
+            dit_cfg=pb_cfg if per_block else dit_cfg, router_cfg=router_cfg,
+            sampler=dataclasses.replace(sampler, **kw), engine=mode,
+            device=device)
 
     failed = []
     for name, kw, rel in paths:
@@ -1490,35 +1710,57 @@ def compare_gpu_cpu(ops, dev) -> None:
                     "adaln_modulate", "layernorm", "flash_attention"))):
             failed.append(f"{name}: replayed calls {worst}")
     shutil.rmtree(path)
+    shutil.rmtree(pb_path)
     if failed:
         fail(f"GPU run differs from the CPU run: {failed}")
+
+
+#: phase 9's CLI runs: extra flags -> (lines printed, the line that
+#: shows the run served every request)
+CLI_RUNS = (
+    (["--coalesce", "--plan-refresh", "2", "--track-padding"], 3,
+     "coalesced 2 requests -> 1 dispatch(es): 6 imgs"),
+    (["--strategy", "full"], 4, "request 1: (3, 8, 8, 4)"),
+    # --deadline-s acts under --continuous only, as in the reference CLI
+    (["--coalesce", "--deadline-s", "0"], 3,
+     "coalesced 2 requests -> 1 dispatch(es): 6 imgs"),
+)
 
 
 def run_cli(dev) -> None:
     """Phase 9: ``python -m repro_torch.launch.serve`` as a user runs it, on
     the card, over checkpoints at the reference CLI's reduced width
-    (latent 8): two batch-3 requests coalesced into one dispatch, plan
-    reuse every 2 steps, 4 steps.  It must exit 0 and print its lines."""
+    (latent 8), two batch-3 requests of 4 steps: coalesced into one
+    dispatch with plan reuse every 2 steps; the full strategy; and
+    coalesced with ``--deadline-s 0``, which must serve both.  The runs
+    start together; each must exit 0 and print its lines."""
     from repro_torch.models.config import dit_b2, router_b2
 
     path = os.path.join(WORK, "cli")
     write_ensemble(path, dit_b2().reduced(latent_size=8),
                    router_b2(num_clusters=len(MIX)).reduced(latent_size=8),
                    dev, seed=13)
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--ckpt-dir",
-           path, "--batch", "3", "--requests", "2", "--steps", "4",
-           "--coalesce", "--plan-refresh", "2", "--track-padding"]
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--ckpt-dir",
+            path, "--batch", "3", "--requests", "2", "--steps", "4"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          cwd=ROOT, timeout=300)
-    shutil.rmtree(path)
-    lines = proc.stdout.strip().splitlines()
-    for line in lines:
-        print(f"cli | {line}")
-    if proc.returncode != 0 or len(lines) != 3 or not lines[1].startswith(
-            "coalesced 2 requests -> 1 dispatch(es): 6 imgs"):
-        fail(f"the serving CLI exited {proc.returncode}: "
-             f"{proc.stderr.strip()[-2000:]}")
+    procs = [subprocess.Popen(base + flags, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=ROOT) for flags, _, _ in CLI_RUNS]
+    try:
+        results = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(path)
+    for (flags, n_lines, served), p, (out, err) in zip(CLI_RUNS, procs,
+                                                       results):
+        lines = out.strip().splitlines()
+        for line in lines:
+            print(f"cli {' '.join(flags)} | {line}")
+        if p.returncode != 0 or len(lines) != n_lines or not any(
+                line.startswith(served) for line in lines):
+            fail(f"the serving CLI {flags} exited {p.returncode}: "
+                 f"{err.strip()[-2000:]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1795,11 +2037,14 @@ def main() -> None:
 
     launches, engines = serve_full_width(ops, dev)
     launches.update(serve_options(ops, engines["native"]))
+    launches.update(serve_strategies(ops, engines, dev))
     phase_done("4 (DiT serving)")
     profile_request(engines["native"], "native")
     profile_request(engines["native"], "native", plan_refresh_every=2)
     profile_request(engines["int8"], "int8")
     profile_request(engines["fp8"], "fp8")
+    profile_request(engines["native"], "full", strategy="full")
+    profile_request(engines["native"], "threshold", strategy="threshold")
     del engines
     phase_done("5 (DiT profiles)")
     compare_gpu_cpu(ops, dev)
@@ -1846,6 +2091,8 @@ def main() -> None:
             source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/{tpu}",
             launches=launches[where[name]][name], path=where[name],
+            launches_by_path={p: n[name] for p, n in launches.items()
+                              if n.get(name)},
             **summary[name]))
     for kern in kernels:
         if kern["launches"] <= 0:

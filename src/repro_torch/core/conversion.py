@@ -1,14 +1,16 @@
-"""Schedule-aware ε→velocity conversion coefficients (paper §2.3, §8).
+"""Schedule-aware ε→velocity conversion (paper §2.3, §8).
 
-The sampler never converts predictions one expert at a time: it tabulates
-per-step, per-expert coefficients once per run (``unified_coeff_tables``)
-and hands them to the step-fused kernel (``kernels.ops.fused_step``),
-which computes for every routed slot
+The fused engines never convert predictions one expert at a time: they
+tabulate per-step, per-expert coefficients once per run
+(``unified_coeff_tables``) and hand them to the step-fused kernel
+(``kernels.ops.fused_step``), which computes for every routed slot
 
     x̂0 = clip((x_t - sigma·pred) / max(alpha, alpha_min), ±clamp)
     v  = (dalpha·x̂0 + dsigma·pred) · vscale
 
-(Eqs. 23–24 with the Eq. 28/29 safeguards and Eq. 31 dampening).
+(Eqs. 23–24 with the Eq. 28/29 safeguards and Eq. 31 dampening).  The
+reference engine converts per expert in plain ops (``unify_prediction``,
+and ``snr_rebased_velocity`` for ``time_map='snr_match'``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from typing import Literal
 
 import torch
 
-from repro_torch.core.schedules import Schedule, coeff_table
+from repro_torch.core.schedules import (Schedule, coeff_table,
+                                        snr_matched_time)
 
 #: Eq. 28 — adaptive clamping ranges per representation space.
 CLAMP_RANGE = {"latent": 20.0, "pixel": 5.0}
@@ -50,6 +53,22 @@ def _f32(v: float) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32)
 
 
+def _left_broadcast(c, ndim: int) -> torch.Tensor:
+    """Reshape a per-sample coefficient ``(B,)`` to ``(B, 1, ..., 1)``."""
+    c = torch.as_tensor(c)
+    return c.reshape(tuple(c.shape) + (1,) * (ndim - c.dim()))
+
+
+def predict_x0_from_eps(x_t, eps, schedule: Schedule, t,
+                        cfg: ConversionConfig = ConversionConfig()):
+    """Eq. 23 with the Eq. 28/29 safeguards."""
+    a, s = schedule.coeffs(t)
+    a_safe = _left_broadcast(torch.clamp(a, min=cfg.alpha_min), x_t.dim())
+    s = _left_broadcast(s, x_t.dim())
+    x0_hat = (x_t - s * eps) / a_safe
+    return torch.clamp(x0_hat, -cfg.clamp, cfg.clamp)
+
+
 def velocity_scale(t: torch.Tensor, mode: str) -> torch.Tensor:
     """Eq. 31 (piecewise) or the §6.2 sigmoid dampening ``s(t)``."""
     t = torch.as_tensor(t, dtype=torch.float32)
@@ -65,6 +84,82 @@ def velocity_scale(t: torch.Tensor, mode: str) -> torch.Tensor:
                         max=1.0)
         return torch.where(t > _f32(0.85), s, torch.ones_like(t))
     raise ValueError(f"unknown velocity_scaling mode {mode!r}")
+
+
+def eps_to_velocity(x_t, eps, schedule: Schedule, t,
+                    cfg: ConversionConfig = ConversionConfig()):
+    """Eqs. 22–25 with the §8.3 safeguards: the data-to-noise velocity
+    (sampling integrates ``x_{t-dt} = x_t - v·dt``)."""
+    x0_hat = predict_x0_from_eps(x_t, eps, schedule, t, cfg)
+    if cfg.derivative_mode == "fd":
+        da, ds = schedule.fd_derivs(t)
+    else:
+        da, ds = schedule.derivs(t)
+    da = _left_broadcast(da, x_t.dim())
+    ds = _left_broadcast(ds, x_t.dim())
+    v = da * x0_hat + ds * eps
+    scale = _left_broadcast(velocity_scale(t, cfg.velocity_scaling),
+                            x_t.dim())
+    return scale * v
+
+
+def velocity_to_x0(x_t, v, schedule: Schedule, t,
+                   cfg: ConversionConfig = ConversionConfig()):
+    """x0 from a velocity: ``x0 = (s'·x_t − s·v) / (s'·a − s·a')``, the
+    denominator kept at least 1e-6 away from 0, then clamped."""
+    a, s = schedule.coeffs(t)
+    da, ds = schedule.derivs(t)
+    denom = ds * a - s * da
+    denom = torch.where(torch.abs(denom) < _f32(1e-6),
+                        torch.sign(denom) * 1e-6 + (denom == 0) * 1e-6,
+                        denom)
+    a, s, da, ds, denom = (
+        _left_broadcast(c, x_t.dim()) for c in (a, s, da, ds, denom))
+    x0 = (ds * x_t - s * v) / denom
+    return torch.clamp(x0, -cfg.clamp, cfg.clamp)
+
+
+def unify_prediction(pred, x_t, t, *, objective: str, schedule: Schedule,
+                     cfg: ConversionConfig = ConversionConfig()):
+    """An expert's native prediction in the common velocity space: FM
+    passes through, DDPM goes through :func:`eps_to_velocity`."""
+    if objective == "fm":
+        return pred
+    if objective == "ddpm":
+        return eps_to_velocity(x_t, pred, schedule, t, cfg)
+    raise ValueError(f"unknown objective {objective!r}")
+
+
+def snr_rebased_velocity(apply_fn, params, x_t, t, *, objective: str,
+                         expert_schedule: Schedule, path_schedule: Schedule,
+                         cond: dict | None = None,
+                         cfg: ConversionConfig = ConversionConfig()):
+    """SNR-matched cross-schedule conversion (§5.ii): query the expert at
+    ``t_e`` with ``SNR_expert(t_e) = SNR_path(t)`` on the rescaled input
+    ``x_t·s_e(t_e)/s_p(t)``, recover ``(x̂0, ε̂)`` in the expert's frame
+    and rebuild the velocity along the sampling path."""
+    cond = cond or {}
+    nd = x_t.dim()
+    t_e = snr_matched_time(path_schedule, expert_schedule, t)
+    s_p = torch.clamp(path_schedule.sigma(t), min=1e-6)
+    s_e = expert_schedule.sigma(t_e)
+    x_in = x_t * _left_broadcast(s_e / s_p, nd)
+    pred = apply_fn(params, x_in, t_e, **cond)
+
+    a_e, s_e_b = (_left_broadcast(c, nd)
+                  for c in expert_schedule.coeffs(t_e))
+    if objective == "ddpm":
+        eps_hat = pred
+        x0_hat = torch.clamp(
+            (x_in - s_e_b * eps_hat) / torch.clamp(a_e, min=cfg.alpha_min),
+            -cfg.clamp, cfg.clamp)
+    else:       # a velocity in the expert's frame -> (x0, eps)
+        x0_hat = velocity_to_x0(x_in, pred, expert_schedule, t_e, cfg)
+        eps_hat = (x_in - a_e * x0_hat) / torch.clamp(s_e_b, min=1e-6)
+
+    da_p, ds_p = path_schedule.derivs(t)
+    return _left_broadcast(da_p, nd) * x0_hat \
+        + _left_broadcast(ds_p, nd) * eps_hat
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,10 +1,16 @@
-"""Heterogeneous expert fusion weights (paper Fig. 2, Eq. 1, §3.1).
+"""Heterogeneous expert fusion (paper Fig. 2, Eq. 1, §3.1).
 
 The router posterior ``p(k | x_t, t)`` becomes per-expert fusion weights:
 ``top1`` keeps the argmax expert, ``topk`` renormalizes over the K most
 probable, ``full`` uses all of them.  Ties break toward the lower expert
-index, as ``jax.lax.top_k`` does.  The §7.3 gate
-(``ddpm_low_noise_only``) then zeroes DDPM experts above a noise level.
+index, as ``jax.lax.top_k`` does.  The §3.3.1 ``threshold`` router
+switches between two experts at a native-time threshold, without the
+router.  The §7.3 gate (``ddpm_low_noise_only``) then zeroes DDPM experts
+above a noise level.
+
+``unified_expert_velocities`` and ``fuse_predictions`` are the dense
+reference arm (every expert, unified to velocity in plain ops, then
+Eq. 1), which the reference engine and ``time_map='snr_match'`` run.
 """
 
 from __future__ import annotations
@@ -14,10 +20,12 @@ from typing import Callable, Sequence
 
 import torch
 
-from repro_torch.core.conversion import ddpm_flags
+from repro_torch.core.conversion import (ConversionConfig, ddpm_flags,
+                                         snr_rebased_velocity,
+                                         unify_prediction)
 from repro_torch.core.schedules import Schedule, get_schedule
 
-_NOT_PORTED = "not ported yet — ROADMAP.md, module queue A"
+_NOT_PORTED = "not ported yet — ROADMAP.md, module queue A.5"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +81,48 @@ def routing_weights(probs: torch.Tensor, strategy: str,
     return w
 
 
+def fuse_predictions(preds: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """Eq. 1: ``sum_k w[:, k]·preds[k]`` of ``(K, B, ...)`` velocities and
+    ``(B, K)`` weights."""
+    k, b = preds.shape[0], preds.shape[1]
+    w = weights.movedim(-1, 0).reshape((k, b) + (1,) * (preds.dim() - 2))
+    return torch.sum(w * preds, dim=0)
+
+
+def unified_expert_velocities(
+    experts: Sequence[ExpertSpec],
+    params: Sequence,
+    x_t: torch.Tensor,
+    t: torch.Tensor,
+    cond: dict | None = None,
+    *,
+    conv_cfg: ConversionConfig = ConversionConfig(),
+    time_map: str = "identity",
+    path_schedule: Schedule | None = None,
+) -> torch.Tensor:
+    """Every expert at ``(x_t, t)``, unified into velocity space:
+    ``(K, B, ...)``.  ``time_map='snr_match'`` rebases the experts whose
+    schedule differs from the sampling path's (``snr_rebased_velocity``).
+    """
+    cond = cond or {}
+    path = path_schedule or get_schedule("linear")
+    outs = []
+    for spec, p in zip(experts, params):
+        sched = spec.get_schedule()
+        if time_map == "snr_match" and sched.name != path.name:
+            v = snr_rebased_velocity(
+                spec.apply_fn, p, x_t, t, objective=spec.objective,
+                expert_schedule=sched, path_schedule=path, cond=cond,
+                cfg=conv_cfg)
+        else:
+            pred = spec.apply_fn(p, x_t, t, **cond)
+            v = unify_prediction(pred, x_t, t, objective=spec.objective,
+                                 schedule=sched, cfg=conv_cfg)
+        outs.append(v)
+    return torch.stack(outs, dim=0)
+
+
 def fusion_weights(
     experts: Sequence[ExpertSpec],
     router_fn: Callable | None,
@@ -92,29 +142,31 @@ def fusion_weights(
     stable at low noise, so where ``t`` exceeds it the DDPM experts'
     weights are zeroed and the rest renormalized (a sample whose experts
     are all DDPM there keeps all-zero weights, as in the reference).
-    Elastic membership (``valid``, ``cluster_map``) and the threshold
-    router are not ported yet and raise.
+    ``strategy='threshold'`` never calls the router (``router_fn`` may be
+    None).  Elastic membership (``valid``, ``cluster_map``) is not ported
+    yet and raises.
     """
     if valid is not None or cluster_map is not None:
         raise NotImplementedError(
             f"valid=/cluster_map= (elastic membership) {_NOT_PORTED}")
-    if strategy == "threshold":
-        raise NotImplementedError(f"strategy='threshold' {_NOT_PORTED}")
     kk = len(experts)
-    if router_fn is None:
+    if strategy == "threshold":
+        w = threshold_router_weights(t, kk, threshold=threshold)
+    elif router_fn is None:
         if kk != 1:
             raise ValueError("router_fn required for multi-expert fusion")
-        return torch.ones((x_t.shape[0], 1), device=x_t.device)
-    probs = router_fn(x_t, t)                            # (B, num_clusters)
-    # Map cluster posterior -> per-expert probs via each expert's owned
-    # cluster (Eq. 1: p(k | x_t)).
-    if probs.shape[-1] != kk or any(
-        e.cluster_id not in (-1, i) for i, e in enumerate(experts)
-    ):
-        cluster_ids = torch.tensor([max(e.cluster_id, 0) for e in experts],
-                                   device=probs.device)
-        probs = probs[:, cluster_ids]
-    w = routing_weights(probs, strategy, top_k)
+        w = torch.ones((x_t.shape[0], 1), device=x_t.device)
+    else:
+        probs = router_fn(x_t, t)                        # (B, num_clusters)
+        # Map cluster posterior -> per-expert probs via each expert's
+        # owned cluster (Eq. 1: p(k | x_t)).
+        if probs.shape[-1] != kk or any(
+            e.cluster_id not in (-1, i) for i, e in enumerate(experts)
+        ):
+            cluster_ids = torch.tensor(
+                [max(e.cluster_id, 0) for e in experts], device=probs.device)
+            probs = probs[:, cluster_ids]
+        w = routing_weights(probs, strategy, top_k)
     if ddpm_low_noise_only > 0.0:
         is_ddpm = ddpm_flags(tuple(e.objective for e in experts), w.device)
         high_noise = t > ddpm_low_noise_only                 # (B,)
@@ -122,3 +174,32 @@ def fusion_weights(
         w = w * gate
         w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-12)
     return w
+
+
+def threshold_router_weights(
+    t: torch.Tensor, num_experts: int, *, threshold: float = 0.5,
+    low_noise_expert: int = 0, high_noise_expert: int = 1,
+) -> torch.Tensor:
+    """§3.3.1 deterministic two-expert threshold router: one-hot ``(B, K)``
+    weights on ``low_noise_expert`` where ``t <= threshold``, else on
+    ``high_noise_expert`` (an index outside ``0..K-1`` gives a zero row,
+    as ``jax.nn.one_hot`` does)."""
+    t = torch.as_tensor(t)
+    b = t.shape[0] if t.dim() else 1
+    thr = torch.tensor(threshold, dtype=torch.float32, device=t.device)
+    pick = torch.where(t <= thr, low_noise_expert, high_noise_expert)
+    pick = torch.broadcast_to(pick, (b,))
+    ids = torch.arange(num_experts, device=t.device)
+    return (pick[:, None] == ids[None]).to(torch.float32)
+
+
+def prediction_conflict(preds: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """§7.5 diagnostic: the weighted variance of the expert velocities
+    about their fusion, averaged per batch element ``(B,)``."""
+    mean = fuse_predictions(preds, weights)
+    diff = preds - mean[None]
+    w = weights.movedim(-1, 0).reshape(
+        (preds.shape[0], preds.shape[1]) + (1,) * (preds.dim() - 2))
+    var = torch.sum(w * diff * diff, dim=0)
+    return torch.mean(var.reshape(var.shape[0], -1), dim=-1)

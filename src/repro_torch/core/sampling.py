@@ -1,27 +1,36 @@
 """Compute-sparse fused ODE sampling with heterogeneous experts (Fig. 2).
 
 The sampler integrates the data-to-noise velocity backwards (t = 1 → 0)
-with Euler steps ``x ← x − u·dt``.  Each step of the serving hot path:
+with Euler steps ``x ← x − u·dt``.  ``sample_ensemble`` resolves one of
+three engines (``_resolve_engine``, the reference's rules):
 
-1. the router posterior (a dense DiT forward) becomes top-``k`` fusion
-   weights and a ``DispatchPlan`` (``core.fusion``, ``core.dispatch``);
-2. the ``RaggedExecutor`` runs only the routed experts, with the cond and
-   uncond CFG branches batched (``g = 2``) and every dense layer one
-   ragged grouped GEMM kernel, from the store ``param_dtype`` selects
-   (native, fp32/bf16 cast, or int8/fp8 quantized — ``core.param_store``);
-3. one ``kernels.ops.fused_step`` kernel does the ε→v conversion, the
-   router fusion, the CFG combine and the Euler update.
+* **routed** (strategies ``top1``/``topk``/``threshold``): each step the
+  router posterior (a dense DiT forward; the threshold router needs none)
+  becomes fusion weights and a ``DispatchPlan`` (``core.fusion``,
+  ``core.dispatch``), and an executor runs only the routed experts —
+  for DiT experts the ``RaggedExecutor``, every dense layer one ragged
+  grouped GEMM over a store ``param_dtype`` selects; the threshold
+  router's batch-uniform plan one gathered expert;
+* **dense** (``full``, or expert sets that do not stack): every expert
+  runs, through the ``DenseExecutor``, with the whole weight matrix as
+  its ``K`` slots;
+* **reference**: every expert per CFG branch, unified to velocity in
+  plain ops and fused by Eq. 1 (``fuse_predictions``) — the parity
+  oracle, and the only engine of ``time_map='snr_match'``.
 
-``step_fused=False`` keeps the unfused chain instead: the executor's
-fused velocity (``kernels.ops.fused_velocity``), ``cfg_combine`` and
-``x − u·dt`` as separate ops — bit-identical to the fused kernel.
-``batched_cfg=False`` (or conditioning that cannot be batched) runs the
-cond and uncond branches as two forwards.  ``plan_refresh_every = R``
-runs item 1 (the router forward, the top-``k`` and the plan) only on
-every R-th step and reuses the plan in between (R = 1: every step).
-The per-run ``(S, 5, K)`` conversion tables are built once per run key
-(``coeff_tables_cached``) and indexed per step.  Options of the
-reference sampler outside this path raise ``NotImplementedError``.
+In the routed and dense engines one ``kernels.ops.fused_step`` kernel
+does the ε→v conversion, the fusion, the CFG combine and the Euler
+update.  ``step_fused=False`` keeps the unfused chain instead: the
+executor's fused velocity (``kernels.ops.fused_velocity``),
+``cfg_combine`` and ``x − u·dt`` as separate ops — bit-identical to the
+fused kernel.  ``batched_cfg=False`` (or conditioning that cannot be
+batched) runs the cond and uncond branches as two forwards.
+``plan_refresh_every = R`` runs the routing only on every R-th step.  The
+per-run ``(S, 5, K)`` conversion tables are built once per run key
+(``coeff_tables_cached``) and indexed per step.
+
+Also here: ``sample_single_expert`` (Table 3's single-expert rows) and
+the native DDPM sampler ``sample_ddpm_ancestral``.
 """
 
 from __future__ import annotations
@@ -34,18 +43,23 @@ import torch
 
 from repro_torch.core.conversion import ConversionConfig, unified_coeff_tables
 from repro_torch.core.dispatch import (
-    RaggedExecutor,
+    full_dispatch_plan,
     make_dispatch_plan,
+    make_executor,
     resolve_dispatch,
     slot_coef,
 )
-from repro_torch.core.fusion import ExpertSpec, fusion_weights
+from repro_torch.core.fusion import (
+    ExpertSpec,
+    fuse_predictions,
+    fusion_weights,
+    unified_expert_velocities,
+)
 from repro_torch.core.param_store import as_store, make_store
 from repro_torch.core.schedules import get_schedule
 from repro_torch.kernels import ops
 from repro_torch.models.dit import stack_expert_params
-
-_QUEUE = "ROADMAP.md, module queue A"
+from repro_torch.tree import tree_leaves, tree_structure
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,33 +87,81 @@ class SamplerConfig:
     plan_refresh_every: int = 1
 
 
-def _check_ported(config: SamplerConfig, engine: str) -> None:
-    """Raise the reference's ``ValueError`` for plan reuse where it refuses
-    it (in its order), then ``NotImplementedError`` for every sampler
-    option the port has not ported."""
-    r = config.plan_refresh_every
-    if r != 1 and engine == "reference":
-        raise ValueError(
-            "plan_refresh_every > 1 requires the fused engines (the "
-            "reference path recomputes routing every step by design)")
-    if r != 1 and config.time_map != "identity":
-        raise ValueError(
-            "plan_refresh_every > 1 requires time_map='identity'; "
-            "snr_match resolves to the reference engine, which "
-            "recomputes routing every step by design")
-    if r < 1:
-        raise ValueError(f"plan_refresh_every must be >= 1, got {r}")
-    if engine not in ("auto", "routed"):
-        raise NotImplementedError(
-            f"engine={engine!r} (the dense and reference engines) is not "
-            f"ported yet — {_QUEUE}")
-    if config.strategy not in ("top1", "topk"):
-        raise NotImplementedError(
-            f"strategy={config.strategy!r} is not ported yet (routed top1/"
-            f"topk only) — {_QUEUE}")
+def params_are_stackable(params: Sequence) -> bool:
+    """True when every expert's parameter tree has the same structure and
+    leaf shapes and dtypes — the precondition for stacked dispatch."""
+    if len(params) <= 1:
+        return True
+    t0 = tree_structure(params[0])
+    l0 = tree_leaves(params[0])
+    for p in params[1:]:
+        if tree_structure(p) != t0:
+            return False
+        for a, b in zip(l0, tree_leaves(p)):
+            a, b = torch.as_tensor(a), torch.as_tensor(b)
+            if a.shape != b.shape or a.dtype != b.dtype:
+                return False
+    return True
+
+
+def _resolve_engine(engine: str, experts: Sequence[ExpertSpec],
+                    params: Sequence | None, config: SamplerConfig) -> str:
+    """The engine mode, ``'routed'``, ``'dense'`` or ``'reference'``, with
+    the reference's ``ValueError``s in its order."""
+    if engine not in ("auto", "routed", "dense", "reference"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "reference":
+        if config.dispatch != "auto":
+            raise ValueError(
+                "the reference engine predates the dispatch API; use "
+                "dispatch='auto' (executor backends apply to the fused "
+                "engines only)"
+            )
+        if config.plan_refresh_every != 1:
+            raise ValueError(
+                "plan_refresh_every > 1 requires the fused engines (the "
+                "reference path recomputes routing every step by design)"
+            )
+        return engine
     if config.time_map != "identity":
-        raise NotImplementedError(
-            f"time_map={config.time_map!r} is not ported yet — {_QUEUE}")
+        # snr_match queries experts at rebased times and inputs: only the
+        # per-expert reference engine implements it.
+        if engine != "auto":
+            raise ValueError(
+                f"engine={engine!r} requires time_map='identity'"
+            )
+        if config.dispatch != "auto":
+            raise ValueError(
+                f"dispatch={config.dispatch!r} requires time_map="
+                f"'identity'; snr_match resolves to the reference engine, "
+                f"which predates the dispatch API"
+            )
+        if config.plan_refresh_every != 1:
+            raise ValueError(
+                "plan_refresh_every > 1 requires time_map='identity'; "
+                "snr_match resolves to the reference engine, which "
+                "recomputes routing every step by design"
+            )
+        return "reference"
+    k = len(experts)
+    # params=None: the caller holds the experts only as a store (a
+    # quantized engine), which is stackable by construction.
+    homogeneous = k == 1 or (
+        all(e.apply_fn is experts[0].apply_fn for e in experts)
+        and (params is None or params_are_stackable(params))
+    )
+    routed_ok = k > 1 and (
+        (config.strategy in ("top1", "topk") and homogeneous)
+        or config.strategy == "threshold"
+    )
+    if engine == "auto":
+        return "routed" if routed_ok else "dense"
+    if engine == "routed" and not routed_ok:
+        raise ValueError(
+            "routed engine needs strategy in (top1, topk, threshold) and, "
+            "for per-sample routing, a shared apply_fn with stackable params"
+        )
+    return engine
 
 
 def cfg_combine(cond_pred: torch.Tensor, uncond_pred: torch.Tensor,
@@ -179,6 +241,7 @@ def _sample_fused(
     cond: dict,
     null_cond: dict | None,
     config: SamplerConfig,
+    mode: str,
     init_noise: torch.Tensor,
     stacked_params=None,
 ) -> torch.Tensor:
@@ -186,26 +249,47 @@ def _sample_fused(
     B = init_noise.shape[0]
     device = init_noise.device
     conv = config.conversion
+    homogeneous = all(e.apply_fn is experts[0].apply_fn for e in experts)
 
     use_cfg = null_cond is not None and config.cfg_scale != 1.0
     batched = use_cfg and config.batched_cfg \
         and _cfg_batchable(cond, null_cond or {})
-    k_slots = 1 if config.strategy == "top1" else min(config.top_k, K)
+    if mode == "routed":
+        k_slots = 1 if config.strategy in ("top1", "threshold") \
+            else min(config.top_k, K)
+        uniform = config.strategy == "threshold"
+    else:
+        k_slots, uniform = K, False
 
+    # The routed dispatch substrate: a store passed in, else the experts
+    # stacked once into the storage ``config.param_dtype`` selects (the
+    # threshold router also serves expert sets that do not stack, through
+    # the dense executor).
     stacked = as_store(stacked_params, dtype=config.param_dtype)
-    if stacked is None:
-        if params is None:
-            raise ValueError("params=None requires stacked_params")
+    if stacked is None and params is None:
+        raise ValueError(
+            "params=None requires stacked_params (an ExpertParamStore or "
+            "raw stacked pytree)"
+        )
+    if stacked is None and mode == "routed" and homogeneous and (
+            not uniform or params_are_stackable(params)):
         stacked = make_store(stack_expert_params(params),
                              dtype=config.param_dtype)
 
     ragged_fn = experts[0].ragged_apply_fn
-    ragged_ok = ragged_fn is not None and all(
-        e.ragged_apply_fn is ragged_fn for e in experts)
-    homogeneous = all(e.apply_fn is experts[0].apply_fn for e in experts)
-    resolve_dispatch(config.dispatch, "routed", homogeneous, False,
-                     ragged_ok)
-    executor = RaggedExecutor(ragged_fn, stacked, conv)
+    ragged_ok = (mode == "routed" and not uniform and ragged_fn is not None
+                 and all(e.ragged_apply_fn is ragged_fn for e in experts))
+    backend = resolve_dispatch(config.dispatch, mode, stacked is not None,
+                               uniform, ragged_ok)
+    executor = make_executor(
+        backend, apply_fns=[e.apply_fn for e in experts], params=params,
+        stacked_params=stacked, conv=conv,
+        ragged_apply_fn=ragged_fn if ragged_ok else None)
+
+    refresh_every = int(config.plan_refresh_every)
+    if refresh_every < 1:
+        raise ValueError(
+            f"plan_refresh_every must be >= 1, got {refresh_every}")
 
     ts = _time_grid(config.num_steps).to(device)
     tables = coeff_tables_cached(
@@ -254,22 +338,81 @@ def _sample_fused(
             clamp=conv.clamp, alpha_min=conv.alpha_min,
         )
 
+    def make_plan(w):
+        if backend == "dense" and not uniform:
+            return full_dispatch_plan(w)
+        return make_dispatch_plan(w, k_slots, uniform=uniform)
+
     update = fused_step_update if config.step_fused else velocity_update
     x = init_noise
     plan = None
     for i in range(config.num_steps):
         t_hi, t_lo = ts[i], ts[i + 1]
         tb = t_hi.expand(B)
-        if i % config.plan_refresh_every == 0:        # step 0 always
-            w = fusion_weights(
+        if i % refresh_every == 0:                     # step 0 always
+            plan = make_plan(fusion_weights(
                 experts, router_fn, x, tb,
                 strategy=config.strategy, top_k=config.top_k,
                 threshold=config.threshold,
                 ddpm_low_noise_only=config.ddpm_low_noise_only,
-            )                                             # (B, K)
-            plan = make_dispatch_plan(w, k_slots)
+            ))                                            # (B, K) weights
         x = update(plan, x, tb, t_hi - t_lo, tables[i])
     return x
+
+
+def _expert_velocities_with_cfg(experts, params, x_t, t, cond: dict,
+                                null_cond: dict | None,
+                                cfg: SamplerConfig) -> torch.Tensor:
+    """Every expert's unified velocity ``(K, B, ...)``, CFG-combined over
+    two passes (cond, then uncond)."""
+    v_c = unified_expert_velocities(experts, params, x_t, t, cond,
+                                    conv_cfg=cfg.conversion,
+                                    time_map=cfg.time_map)
+    if null_cond is None or cfg.cfg_scale == 1.0:
+        return v_c
+    v_u = unified_expert_velocities(experts, params, x_t, t, null_cond,
+                                    conv_cfg=cfg.conversion,
+                                    time_map=cfg.time_map)
+    return cfg_combine(v_c, v_u, cfg.cfg_scale)
+
+
+def _sample_reference(experts, params, router_fn, cond: dict,
+                      null_cond: dict | None, config: SamplerConfig,
+                      init_noise: torch.Tensor) -> torch.Tensor:
+    """The per-expert two-pass engine: every expert per branch, unified
+    in plain ops, fused by Eq. 1 with the step's fusion weights."""
+    B = init_noise.shape[0]
+    ts = _time_grid(config.num_steps).to(init_noise.device)
+    x = init_noise
+    for i in range(config.num_steps):
+        t_hi, t_lo = ts[i], ts[i + 1]
+        tb = t_hi.expand(B)
+        v = _expert_velocities_with_cfg(experts, params, x, tb, cond,
+                                        null_cond, config)
+        w = fusion_weights(
+            experts, router_fn, x, tb,
+            strategy=config.strategy, top_k=config.top_k,
+            threshold=config.threshold,
+            ddpm_low_noise_only=config.ddpm_low_noise_only,
+        )
+        x = x - fuse_predictions(v, w) * (t_hi - t_lo)
+    return x
+
+
+def _initial_noise(shape, generator, init_noise, device,
+                   caller: str) -> torch.Tensor:
+    """``init_noise`` checked against ``shape``, or ``N(0, 1)`` drawn from
+    ``generator`` on ``device`` (default: the generator's device)."""
+    if init_noise is None:
+        if generator is None:
+            raise ValueError(f"{caller} needs generator= or init_noise=")
+        return torch.randn(
+            shape, generator=generator, dtype=torch.float32,
+            device=device if device is not None else generator.device)
+    if tuple(init_noise.shape) != tuple(shape):
+        raise ValueError(f"init_noise shape {tuple(init_noise.shape)} != "
+                         f"{tuple(shape)}")
+    return init_noise
 
 
 def sample_ensemble(
@@ -289,30 +432,95 @@ def sample_ensemble(
 ) -> torch.Tensor:
     """Euler-ODE sampling with router-weighted heterogeneous fusion.
 
-    ``init_noise`` (``shape``) is the starting latent; without it the
-    noise is drawn from ``generator`` on ``device`` (default: the
-    generator's device).  ``stacked_params`` (a store of
-    ``core.param_store`` or a raw stacked tree, stored as
-    ``config.param_dtype`` says) lets a long-lived engine stack its
-    experts once.
-    Returns the samples at t = 0.
+    ``engine``: ``'auto'`` picks the routed engine where the strategy and
+    expert set allow it, else the dense one; ``'routed'``/``'dense'``
+    force one; ``'reference'`` is the per-expert two-pass engine (the
+    one ``time_map='snr_match'`` resolves to).  ``router_fn`` may be None
+    for one expert or the threshold strategy.  ``init_noise``
+    (``shape``) is the starting latent; without it the noise is drawn
+    from ``generator`` on ``device`` (default: the generator's device).
+    ``stacked_params`` (a store of ``core.param_store`` or a raw stacked
+    tree, stored as ``config.param_dtype`` says) lets a long-lived engine
+    stack its experts once; with it ``params`` may be None (the routed
+    engine only).  Returns the samples at t = 0.
     """
     cond = cond or {}
     config = config if config is not None else SamplerConfig()
-    _check_ported(config, engine)
-    if len(experts) < 2:
-        raise NotImplementedError(
-            f"single-expert sampling (the dense engine) is not ported yet "
-            f"— {_QUEUE}")
-    if init_noise is None:
-        if generator is None:
-            raise ValueError("sample_ensemble needs generator= or "
-                             "init_noise=")
-        init_noise = torch.randn(
-            shape, generator=generator, dtype=torch.float32,
-            device=device if device is not None else generator.device)
-    elif tuple(init_noise.shape) != tuple(shape):
-        raise ValueError(f"init_noise shape {tuple(init_noise.shape)} != "
-                         f"{tuple(shape)}")
+    mode = _resolve_engine(engine, experts, params, config)
+    if params is None and mode == "reference":
+        raise ValueError(
+            "the reference engine runs each expert from its own params "
+            "list; params=None (store-only serving) supports the fused "
+            "engines only"
+        )
+    init_noise = _initial_noise(shape, generator, init_noise, device,
+                                "sample_ensemble")
+    if mode == "reference":
+        return _sample_reference(experts, params, router_fn, cond,
+                                 null_cond, config, init_noise)
     return _sample_fused(experts, params, router_fn, cond, null_cond,
-                         config, init_noise, stacked_params)
+                         config, mode, init_noise, stacked_params)
+
+
+def sample_single_expert(
+    expert: ExpertSpec,
+    params,
+    shape: tuple[int, ...],
+    *,
+    generator: torch.Generator | None = None,
+    cond: dict | None = None,
+    null_cond: dict | None = None,
+    config: SamplerConfig | None = None,
+    init_noise: torch.Tensor | None = None,
+    device=None,
+) -> torch.Tensor:
+    """Single-expert ODE sampling (Table 3's 'FM' and 'DDPM→FM' rows):
+    the dense engine over one expert."""
+    config = config if config is not None else SamplerConfig()
+    return sample_ensemble(
+        [expert], [params], None, shape, generator=generator, cond=cond,
+        null_cond=null_cond,
+        config=dataclasses.replace(config, strategy="full"),
+        init_noise=init_noise, device=device)
+
+
+def sample_ddpm_ancestral(
+    apply_fn: Callable[..., torch.Tensor],
+    params,
+    shape: tuple[int, ...],
+    *,
+    generator: torch.Generator | None = None,
+    init_noise: torch.Tensor | None = None,
+    device=None,
+    cond: dict | None = None,
+    null_cond: dict | None = None,
+    num_steps: int = 75,
+    cfg_scale: float = 6.0,
+    schedule_name: str = "cosine",
+) -> torch.Tensor:
+    """Native DDPM sampler (Table 3's baseline row): the reference's
+    deterministic DDIM (eta = 0) update on the continuous grid, with the
+    ε prediction CFG-combined over two passes.  The starting noise is
+    ``init_noise`` or a draw from ``generator``."""
+    cond = cond or {}
+    sched = get_schedule(schedule_name)
+    x = _initial_noise(shape, generator, init_noise, device,
+                       "sample_ddpm_ancestral")
+    ts = _time_grid(num_steps).to(x.device)
+
+    def pred_eps(x, tb):
+        e_c = apply_fn(params, x, tb, **cond)
+        if null_cond is None or cfg_scale == 1.0:
+            return e_c
+        e_u = apply_fn(params, x, tb, **null_cond)
+        return cfg_combine(e_c, e_u, cfg_scale)
+
+    for i in range(num_steps):
+        t_hi, t_lo = ts[i], ts[i + 1]
+        eps = pred_eps(x, t_hi.expand(shape[0]))
+        a_hi, s_hi = sched.coeffs(t_hi)
+        a_lo, s_lo = sched.coeffs(t_lo)
+        x0 = (x - s_hi * eps) / torch.clamp(a_hi, min=0.01)
+        x0 = torch.clamp(x0, -20.0, 20.0)
+        x = a_lo * x0 + s_lo * eps
+    return x

@@ -47,6 +47,11 @@ class Schedule:
         ds = (self.sigma(t + h) - self.sigma(t - h)) / (2.0 * h)
         return da, ds
 
+    def snr(self, t: torch.Tensor) -> torch.Tensor:
+        """Signal-to-noise ratio ``alpha^2 / sigma^2``."""
+        a, s = self.coeffs(t)
+        return (a * a) / torch.clamp(s * s, min=1e-12)
+
 
 def coeff_table(
     schedule: Schedule, ts: torch.Tensor, *, derivative_mode: str = "analytic"
@@ -114,3 +119,33 @@ def to_ddpm_timestep(
         return torch.clamp(t, 0, num_timesteps - 1)
     idx = torch.round((num_timesteps - 1) * t.to(torch.float32))
     return torch.clamp(idx, 0, num_timesteps - 1).to(torch.int64)
+
+
+def from_ddpm_timestep(
+    idx, num_timesteps: int = NUM_DDPM_TIMESTEPS
+) -> torch.Tensor:
+    """Inverse of :func:`to_ddpm_timestep` (the continuous grid point)."""
+    return torch.as_tensor(idx).to(torch.float32) / float(num_timesteps - 1)
+
+
+def snr_matched_time(
+    source: Schedule, target: Schedule, t: torch.Tensor, *, iters: int = 40
+) -> torch.Tensor:
+    """``t'`` with ``target.snr(t') == source.snr(t)``, by bisection (both
+    families have an SNR that decreases in t).
+
+    The reference's ``iters``-step float32 loop in its operation order:
+    ``t'`` picks the expert's timestep row ``round(999·t')``, where one
+    ulp can flip the row.
+    """
+    want = torch.log(source.snr(t) + 1e-20)
+    lo = torch.zeros_like(torch.as_tensor(t, dtype=torch.float32))
+    hi = torch.ones_like(lo)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        got = torch.log(target.snr(mid) + 1e-20)
+        # SNR decreases with t: got > want -> need larger t.
+        go_right = got > want
+        lo, hi = torch.where(go_right, mid, lo), torch.where(go_right, hi,
+                                                             mid)
+    return 0.5 * (lo + hi)

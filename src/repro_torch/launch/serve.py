@@ -21,12 +21,19 @@ plan on every R-th Euler step only; ``stats["plan_refreshes"]`` counts
 ⌈S/R⌉ a dispatch.  ``sampler.ddpm_low_noise_only`` gates the DDPM
 experts out above that noise level (§7.3).
 
+``sampler.strategy`` ``full`` and ``engine`` ``dense`` run every expert
+(the dense executor over the per-expert parameters); ``threshold`` is
+the §3.3 two-expert router (one gathered expert a step, from the store);
+``engine='reference'`` and ``time_map='snr_match'`` run the per-expert
+reference engine.  ``sampler.dispatch`` picks the routed executor
+(``ragged``, ``grouped``, ``gathered``), as ``core.dispatch`` resolves it.
+
 ``submit`` enqueues a request and ``flush`` coalesces the queued ones by
 conditioning signature into one padded power-of-two batch each, expires
 requests past their ``deadline_s``, isolates failures per group
 (re-queued up to ``max_request_requeues`` times, then FAILED) and slices
 each request's latents back out.  ``track_padding`` counts the rows the
-ragged executor runs against the routed rows (``padding_stats``).
+expert forwards run against the routed rows (``padding_stats``).
 
 Command line (the reference CLI's plain and ``--coalesce`` modes)::
 
@@ -56,12 +63,14 @@ import torch
 
 from repro_torch.core.fusion import ExpertSpec
 from repro_torch.core.param_store import make_store
-from repro_torch.core.sampling import SamplerConfig, sample_ensemble
+from repro_torch.core.sampling import (SamplerConfig, params_are_stackable,
+                                       sample_ensemble)
 from repro_torch.models import dit as D
 from repro_torch.models.config import DiTConfig, dit_b2, router_b2
 from repro_torch.serving.resilience import (DeadlineExceeded, RequestFailed,
                                             RequestTimeout)
 from repro_torch.training.checkpoint import load_checkpoint
+from repro_torch.tree import tree_leaves, tree_structure
 from repro_torch.weights import resolve_device
 
 #: ``expert7.npz`` / ``expert_07.npz`` → checkpoint index 7 (ordering
@@ -75,6 +84,39 @@ def _as_device_tensor(a, device) -> torch.Tensor:
     if not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.array(a, dtype=np.float32))
     return a.to(device=device, dtype=torch.float32)
+
+
+def _validate_expert_params(params, template, path: str) -> None:
+    """Integrity gate of one loaded expert checkpoint: its tree structure
+    and leaf shapes against the ensemble's template (the first checkpoint
+    loaded), then every float leaf finite.  Raises the reference's
+    ``ValueError``, naming the file.
+
+    As in the reference, a bf16 leaf is not checked for finiteness (its
+    numpy dtype is not of kind ``'f'``).
+    """
+    leaves = tree_leaves(params)
+    if template is not None:
+        structure, shapes = template
+        if tree_structure(params) != structure:
+            raise ValueError(
+                f"{path}: param tree structure does not match the "
+                f"ensemble's expert template — wrong architecture or a "
+                f"partially-written checkpoint"
+            )
+        for leaf, shape in zip(leaves, shapes):
+            if tuple(leaf.shape) != tuple(shape):
+                raise ValueError(
+                    f"{path}: leaf shape mismatch {tuple(leaf.shape)} "
+                    f"!= template {tuple(shape)}"
+                )
+    for leaf in leaves:
+        if leaf.dtype in (torch.float16, torch.float32, torch.float64) \
+                and not bool(torch.isfinite(leaf).all()):
+            raise ValueError(
+                f"{path}: non-finite leaf values (NaN/Inf) — corrupt "
+                f"training artifact"
+            )
 
 
 @dataclasses.dataclass
@@ -148,7 +190,7 @@ class ServingEngine:
     #: automatic re-queues per request before a failing dispatch group
     #: marks its requests FAILED.
     max_request_requeues: int = 1
-    #: count the rows the ragged executor runs (``padding_stats``).
+    #: count the rows the expert forwards run (``padding_stats``).
     track_padding: bool = False
 
     def __post_init__(self) -> None:
@@ -164,32 +206,39 @@ class ServingEngine:
                       "routed_model_rows": 0, "model_steps": 0}
         if self.track_padding:
             self._count_executed_rows()
+        self.homogeneous = len(self.experts) <= 1 or (
+            all(e.apply_fn is self.experts[0].apply_fn for e in self.experts)
+            and params_are_stackable(self.expert_params))
         pd = self.sampler.param_dtype
         if pd != "native":
-            # The store serves routed execution only; reject at
+            # The store serves routed execution only; the dense and
+            # reference engines run from the per-expert list.  Reject at
             # construction, where strategy and engine are known.
             routed_capable = (
-                len(self.experts) > 1
-                and all(e.apply_fn is self.experts[0].apply_fn
-                        for e in self.experts)
+                self.homogeneous and len(self.experts) > 1
                 and self.sampler.strategy in ("top1", "topk", "threshold")
                 and self.engine in ("auto", "routed")
             )
             if not routed_capable:
                 raise ValueError(
-                    f"param_dtype={pd!r} changes the stacked expert store's "
-                    f"storage, which only routed execution uses: it needs a "
-                    f"homogeneous ensemble of >= 2 experts, strategy in "
+                    f"param_dtype={pd!r} changes the stacked expert "
+                    f"store's storage, which only routed execution uses: "
+                    f"it needs a homogeneous ensemble of ≥ 2 experts "
+                    f"(shared apply_fn + stackable params), strategy in "
                     f"top1/topk/threshold, and engine auto/routed — got "
-                    f"{len(self.experts)} expert(s), strategy="
-                    f"{self.sampler.strategy!r}, engine={self.engine!r}")
+                    f"{len(self.experts)} expert(s), homogeneous="
+                    f"{self.homogeneous}, strategy="
+                    f"{self.sampler.strategy!r}, engine={self.engine!r}"
+                )
         # The routed engine's dispatch substrate: every expert's leaves
         # stacked once, ``(K, ...)``, on the device, in the storage dtype.
-        self.param_store = make_store(
-            D.stack_expert_params(self.expert_params), dtype=pd)
+        self.param_store = (
+            make_store(D.stack_expert_params(self.expert_params), dtype=pd)
+            if self.homogeneous and self.expert_params else None)
         if pd in ("int8", "fp8"):
             # The quantized store is the resident representation: drop the
-            # float32 per-expert list so the byte saving is real.
+            # float32 per-expert list so the byte saving is real (the dense
+            # and reference engines need it, and raise without it).
             self.expert_params = None
 
     @classmethod
@@ -209,17 +258,24 @@ class ServingEngine:
         checkpoint's metadata, falling back to the ``expert<N>.npz``
         filename index).  Duplicate cluster ids and holes in ``0..K-1``
         raise ``ValueError``; so does a checkpoint without
-        ``objective``/``schedule`` metadata.  Parameters load onto
-        ``device`` (``None`` → ``"cuda"``).  ``param_dtype``, when given,
-        overrides ``sampler.param_dtype``.
+        ``objective``/``schedule`` metadata, and one (after the first in
+        path order, the template) whose tree structure or leaf shapes
+        differ from the first's or whose float leaves are not finite.
+        Parameters load onto ``device`` (``None`` → ``"cuda"``).
+        ``param_dtype``, when given, overrides ``sampler.param_dtype``.
+        Experts with a class head (``dit_cfg.num_classes``) publish no
+        ragged forward, so ``dispatch='auto'`` resolves to grouped.
         """
         dev = resolve_device(device)
         apply_fn = D.make_expert_apply(dit_cfg)
-        ragged_fn = D.make_ragged_expert_apply(dit_cfg)
+        ragged_fn = None
+        if not dit_cfg.num_classes:
+            ragged_fn = D.make_ragged_expert_apply(dit_cfg)
         paths = glob.glob(os.path.join(ckpt_dir, "expert*.npz"))
         if not paths:
             raise FileNotFoundError(f"no expert*.npz under {ckpt_dir}")
         loaded = []
+        template = None
         for path in sorted(paths):
             p, meta = load_checkpoint(path, device=dev)
             for field in ("objective", "schedule"):
@@ -237,6 +293,11 @@ class ServingEngine:
                         f"index in the filename — cannot place this expert"
                     )
                 cid = int(m.group(1))
+            if template is None:
+                template = (tree_structure(p),
+                            [tuple(x.shape) for x in tree_leaves(p)])
+            else:
+                _validate_expert_params(p, template, path)
             loaded.append((cid, path, p, meta))
         seen: dict[int, str] = {}
         for cid, path, _, _ in loaded:
@@ -314,23 +375,36 @@ class ServingEngine:
     # -- dispatch-padding observability -----------------------------------
 
     def _count_executed_rows(self) -> None:
-        """Wrap the shared ragged forward with a host row counter: each
-        call runs ``P·g`` rows (pairs times guidance replicas).  One
-        wrapper for every expert, since ragged eligibility compares the
+        """Wrap the shared expert forwards with host row counters: a dense
+        ``apply_fn`` call runs its batch's rows (the grouped executor's
+        bucket padding included), a ragged call ``P·g`` (pairs times
+        guidance replicas).  One wrapper per forward kind for every
+        expert, since the engine and ragged eligibility compare the
         forwards by identity."""
-        base = self.experts[0].ragged_apply_fn if self.experts else None
-        if base is None or any(e.ragged_apply_fn is not base
-                               for e in self.experts):
+        if not self.experts:
+            return
+        if any(e.apply_fn is not self.experts[0].apply_fn
+               for e in self.experts):
             raise ValueError(
-                "track_padding=True needs one ragged_apply_fn shared by "
-                "every expert (the ragged executor is the port's only "
-                "backend)")
+                "track_padding=True needs a homogeneous ensemble (one "
+                "shared apply_fn): heterogeneous sets run the dense "
+                "executor, which has no dispatch padding to observe"
+            )
+        base_apply = self.experts[0].apply_fn
 
-        def counted(view, x_p, t_p, cond, pe, g):
-            self.stats["padded_model_rows"] += x_p.shape[0] * g
-            return base(view, x_p, t_p, cond, pe, g)
+        def counted_apply(params, x, t, **cond):
+            self.stats["padded_model_rows"] += x.shape[0]
+            return base_apply(params, x, t, **cond)
 
-        self.experts = [dataclasses.replace(e, ragged_apply_fn=counted)
+        base_ragged = self.experts[0].ragged_apply_fn
+        counted_ragged = None
+        if base_ragged is not None:
+            def counted_ragged(view, x_p, t_p, cond, pe, g):
+                self.stats["padded_model_rows"] += x_p.shape[0] * g
+                return base_ragged(view, x_p, t_p, cond, pe, g)
+
+        self.experts = [dataclasses.replace(e, apply_fn=counted_apply,
+                                            ragged_apply_fn=counted_ragged)
                         for e in self.experts]
 
     def _count_dispatch(self, batch_size: int, has_text: bool) -> None:
@@ -350,7 +424,8 @@ class ServingEngine:
     def padding_stats(self) -> dict:
         """Executed against routed rows per sampling step, into ``stats``
         (needs ``track_padding=True``): ``padding_overhead`` is
-        executed/routed − 1, 0.0 under the ragged executor."""
+        executed/routed − 1 — 0.0 under the ragged executor, the bucket
+        overshoot under the grouped one."""
         if not self.track_padding:
             raise ValueError(
                 "padding stats need ServingEngine(track_padding=True) — "
@@ -571,9 +646,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="drive requests through submit()/flush() instead "
                          "of per-request generate()")
     ap.add_argument("--deadline-s", type=float, default=None,
-                    help="--coalesce: each request's deadline in seconds "
-                         "(an expired request's result() raises "
-                         "DeadlineExceeded)")
+                    help="--continuous: each request's deadline in "
+                         "seconds (ignored in the plain and --coalesce "
+                         "modes, as in the reference CLI)")
     ap.add_argument("--track-padding", action="store_true",
                     help="count executed against routed expert rows and "
                          "print them per step (plain mode)")
@@ -620,11 +695,9 @@ def main(argv=None) -> None:
             plan_refresh_every=args.plan_refresh),
         engine=args.engine, cond_cache_size=args.cond_cache,
         track_padding=args.track_padding, device=args.device)
-    homogeneous = all(e.apply_fn is engine.experts[0].apply_fn
-                      for e in engine.experts)
     print(f"loaded {len(engine.experts)} experts "
           f"({[e.objective for e in engine.experts]}) "
-          f"homogeneous={homogeneous} mesh=None")
+          f"homogeneous={engine.homogeneous} mesh=None")
 
     def text(r):
         # a host array, as a remote text encoder delivers it — the form
@@ -639,8 +712,8 @@ def main(argv=None) -> None:
 
     if args.coalesce:
         t0 = time.time()
-        handles = [engine.submit(r, text(r), deadline_s=args.deadline_s)
-                   for r in range(args.requests)]
+        # As the reference: --deadline-s acts under --continuous only.
+        handles = [engine.submit(r, text(r)) for r in range(args.requests)]
         engine.flush()
         outs = [h.result() for h in handles]
         sync()

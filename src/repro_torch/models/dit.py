@@ -5,6 +5,11 @@ and layout (per-layer leaves stacked ``(L, ...)`` under ``blocks`` and
 ``cross_attn``, dense weights ``(in, out)``), so a reference checkpoint
 loads as is (``repro_torch.weights.params_from_numpy``).
 
+The per-layer modulations come from AdaLN-Single (a global MLP of the
+timestep embedding τ plus per-block embeddings, Eqs. 14–16), or with
+``adaln_single=False`` from the classic per-block adaLN-Zero projection
+of ``silu(τ)`` (the ablation baseline, ``adaln_per_block`` leaves).
+
 Per block (Eqs. 17–19):
 
     h1 = h  + α_msa ⊙ MSA(LN(h) ⊙ (1+γ_msa) + β_msa)
@@ -68,14 +73,6 @@ def unpatchify(x: torch.Tensor, p: int, hw: int, c: int) -> torch.Tensor:
     return x.reshape(b, hw, hw, c)
 
 
-def _require_adaln_single(cfg: DiTConfig) -> None:
-    if not cfg.adaln_single:
-        raise NotImplementedError(
-            "adaln_single=False (the per-block adaLN-Zero ablation) is not "
-            "ported yet — ROADMAP.md, module queue A"
-        )
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -85,10 +82,10 @@ def init(cfg: DiTConfig, gen: torch.Generator) -> dict:
     """Random parameters with the reference's structure and init scheme,
     drawn from ``gen`` on ``gen.device``.
 
-    Zero-init layers (final projection, AdaLN-Single output, cross-attn
-    output) are zero as in the reference (§2.5).
+    Zero-init layers (final projection, AdaLN-Single output or the
+    per-block adaLN-Zero projections, cross-attn output) are zero as in
+    the reference (§2.5).
     """
-    _require_adaln_single(cfg)
     dev, dt = gen.device, cfg.param_dtype
     d = cfg.d_model
     nl = cfg.num_layers
@@ -128,12 +125,16 @@ def init(cfg: DiTConfig, gen: torch.Generator) -> dict:
         },
         "final_layer": {"mod": {"w": zeros(d, 2 * d)},
                         "out": {"w": zeros(d, in_dim)}},
-        "adaln_single": {
+    }
+    if cfg.adaln_single:
+        params["adaln_single"] = {
             "mlp1": dense_b(d, d),
             "mlp2": {"w": zeros(d, 6 * d)},
             "block_embed": normal(nl, 6, d) / math.sqrt(d),
-        },
-    }
+        }
+    else:
+        # classic per-block adaLN-Zero: one zero-init d -> 6d per layer
+        params["adaln_per_block"] = {"w": zeros(nl, d, 6 * d)}
     if cfg.use_text:
         params["text_proj"] = dense_b(cfg.text_dim, d)
         params["cross_attn"] = {
@@ -173,6 +174,22 @@ def global_modulation(cfg: DiTConfig, params, tau: torch.Tensor):
     c = L.dense(params["adaln_single"]["mlp2"], h).reshape(b, 1, 6,
                                                             cfg.d_model)
     return c.expand(b, cfg.num_layers, 6, cfg.d_model)
+
+
+def layer_modulations(cfg: DiTConfig, params, tau: torch.Tensor):
+    """Every layer's ``(6, d)`` modulations, ``(L, B, 6, d)``: AdaLN-Single's
+    global modulation plus the block embeddings, or one per-block
+    adaLN-Zero projection of ``silu(τ)`` per layer."""
+    b = tau.shape[0]
+    if cfg.adaln_single:
+        mods = global_modulation(cfg, params, tau)            # (B, L, 6, d)
+        mods = mods + params["adaln_single"]["block_embed"][None].to(
+            mods.dtype)
+        return mods.movedim(1, 0)
+    h = L.silu(tau)
+    return torch.stack([
+        L.dense({"w": w}, h).reshape(b, 6, cfg.d_model)
+        for w in params["adaln_per_block"]["w"]])
 
 
 def _modulate_ln(x, gamma, beta):
@@ -222,7 +239,6 @@ def apply(cfg: DiTConfig, params, x_t: torch.Tensor, t: torch.Tensor, *,
     ``text_emb`` ``(B, text_len, text_dim)``; None uses the learned null
     embedding, and ``drop_mask`` ``(B,)`` rows substitute it.
     """
-    _require_adaln_single(cfg)
     b = x_t.shape[0]
     h = L.dense(params["patch_embed"],
                 patchify(x_t.to(cfg.activation_dtype), cfg.patch_size))
@@ -240,12 +256,11 @@ def apply(cfg: DiTConfig, params, x_t: torch.Tensor, t: torch.Tensor, *,
         text = L.dense(params["text_proj"],
                        text_emb.to(cfg.activation_dtype))
 
-    mods = global_modulation(cfg, params, tau)                # (B, L, 6, d)
-    mods = mods + params["adaln_single"]["block_embed"][None].to(mods.dtype)
+    mods = layer_modulations(cfg, params, tau)                # (L, B, 6, d)
 
     for layer in range(cfg.num_layers):
         bp = _layer(params["blocks"], layer)
-        mod = mods[:, layer]
+        mod = mods[layer]
         g_msa, b_msa, a_msa = mod[:, 0], mod[:, 1], mod[:, 2]
         g_mlp, b_mlp, a_mlp = mod[:, 3], mod[:, 4], mod[:, 5]
         hn = _modulate_ln(h, g_msa, b_msa)                    # Eq. 17
@@ -353,7 +368,6 @@ def make_ragged_expert_apply(cfg: DiTConfig):
             "ragged apply serves expert prediction only; the router head "
             "(num_classes > 0) goes through the dense apply"
         )
-    _require_adaln_single(cfg)
 
     def ragged_apply(view, x_p, t_p, cond, pe, g):
         p_pairs = x_p.shape[0]
@@ -374,12 +388,21 @@ def make_ragged_expert_apply(cfg: DiTConfig):
         ht = L.silu(pd(view["t_embed"]["mlp1"], feat))
         tau = pd(view["t_embed"]["mlp2"], ht)              # (P, d)
 
-        hm = L.silu(pd(view["adaln_single"]["mlp1"], tau))
-        c = pd(view["adaln_single"]["mlp2"], hm).reshape(p_pairs, 1, 6, d)
-        mods = c.expand(p_pairs, cfg.num_layers, 6, d)
-        mods = mods + dequant_leaf(
-            view["adaln_single"]["block_embed"])[pe].to(mods.dtype)
-        mods = mods.movedim(1, 0)                          # (L, P, 6, d)
+        if cfg.adaln_single:
+            hm = L.silu(pd(view["adaln_single"]["mlp1"], tau))
+            c = pd(view["adaln_single"]["mlp2"], hm).reshape(p_pairs, 1, 6,
+                                                             d)
+            mods = c.expand(p_pairs, cfg.num_layers, 6, d)
+            mods = mods + dequant_leaf(
+                view["adaln_single"]["block_embed"])[pe].to(mods.dtype)
+            mods = mods.movedim(1, 0)                      # (L, P, 6, d)
+        else:
+            # one ragged modulation GEMM per layer
+            st = L.silu(tau)
+            mods = torch.stack([
+                pd(_layer_view(view["adaln_per_block"], layer),
+                   st).reshape(p_pairs, 6, d)
+                for layer in range(cfg.num_layers)])       # (L, P, 6, d)
 
         def self_attn(bp, h, mod):
             # h: (P, T, d) prefix or (P, g, T, d) expanded; mod (P, 6, d)

@@ -23,3 +23,16 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_structure(tree):
+    """A hashable signature of the nesting: dict keys, list and tuple
+    lengths, and ``'*'`` for a leaf (two trees of equal signature pair
+    their ``tree_leaves`` one for one)."""
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, tree_structure(tree[k]))
+                                 for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(tree_structure(v)
+                                              for v in tree)
+    return "*"

@@ -6,19 +6,27 @@ must be equal; float32 tables built from ``sin``/``cos`` (whose libm
 implementations differ by an ulp) are compared at ``rtol = 1e-6``,
 ``atol = 1e-7`` — except the §8.3.3 finite-difference derivatives, where
 one ulp of ``cos`` near 1 (6e-8) divided by ``2h = 2e-4`` is 3e-4, so
-they get ``atol = 6e-4`` (two ulps); fusion weights ``rtol = 1e-6``.
+they get ``atol = 6e-4`` (two ulps); fusion weights ``rtol = 1e-6``;
+the toy samplers of both packages (every engine, the grouped executor,
+the threshold and full strategies, ``snr_match``) ``max |Δ| ≤ 1e-5 ·
+max |latent|``; ``resolve_dispatch``'s table: the same backend or the
+same message.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import dispatch as jdisp
 from repro.core import fusion as jfus
+from repro.core import sampling as jsamp
 from repro.core.conversion import ConversionConfig as JConv
 from repro.core.conversion import unified_coeff_tables as j_tables
 from repro.core.conversion import velocity_scale as j_vscale
@@ -29,6 +37,7 @@ from repro_torch.core import dispatch, fusion, sampling
 from repro_torch.core.conversion import ConversionConfig
 from repro_torch.core.conversion import unified_coeff_tables, velocity_scale
 from repro_torch.core.schedules import get_schedule, to_ddpm_timestep
+from test_torch_serve import one_torch_thread  # noqa: F401  (a fixture)
 
 TABLE_TOL = dict(rtol=1e-6, atol=1e-7)
 FD_TOL = dict(rtol=1e-6, atol=6e-4)
@@ -169,12 +178,16 @@ def test_fusion_weights_match_jax(strategy, k, cids):
 
 
 def test_unported_routing_options_raise():
+    """Elastic membership (``valid=``, ``cluster_map=``) is ROADMAP A.5."""
     args = ([_spec(0), _spec(1)], lambda x, t: torch.ones(2, 2) / 2,
             torch.zeros(2, 1), torch.zeros(2))
-    for kw in (dict(strategy="threshold"), dict(strategy="topk",
-               valid=torch.ones(2, dtype=torch.bool))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fusion.fusion_weights(*args, **kw)
+    for kw in (dict(valid=torch.ones(2, dtype=torch.bool)),
+               dict(cluster_map=torch.arange(2))):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*A.5"):
+            fusion.fusion_weights(*args, strategy="topk", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A.5"):
+        dispatch.make_dispatch_plan(torch.ones(2, 2), 1,
+                                    valid=torch.ones(2, dtype=torch.bool))
 
 
 def _toy_ragged_np(view, x_p, t_p, cond, pe, g, xp):
@@ -229,17 +242,107 @@ def test_ragged_executor_regrouping_matches_jax(g):
 
 
 def test_resolve_dispatch_serves_ragged_only():
+    """The whole rule table of ``resolve_dispatch`` against the
+    reference's: every (dispatch, mode, stackable, uniform, ragged_ok)
+    gives the same backend or the same ``ValueError`` message."""
+    n = 0
+    for args in itertools.product(
+            dispatch.DISPATCH_BACKENDS + ("nope",), ("routed", "dense"),
+            (True, False), (True, False), (True, False)):
+        try:
+            want = jdisp.resolve_dispatch(*args)
+        except ValueError as e:
+            with pytest.raises(ValueError) as err:
+                dispatch.resolve_dispatch(*args)
+            assert str(err.value) == str(e), args
+        else:
+            assert dispatch.resolve_dispatch(*args) == want, args
+            n += 1
+    assert n == 42                          # of 96 cases; 54 raise
     assert dispatch.resolve_dispatch("auto", "routed", True, False,
                                      True) == "ragged"
-    assert dispatch.resolve_dispatch("ragged", "routed", True, False,
-                                     True) == "ragged"
-    for args in (("grouped", "routed", True, False, True),
-                 ("auto", "routed", True, False, False),
-                 ("auto", "dense", True, False, True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dispatch.resolve_dispatch(*args)
-    with pytest.raises(ValueError):
-        dispatch.resolve_dispatch("nope", "routed", True)
+
+
+# ---------------------------------------------------------------------------
+# Small samplers run by both packages: four toy experts (2 DDPM on the
+# cosine schedule, 2 FM on the linear one) and a toy router, each a few
+# elementwise ops written for either package.  Tolerance: float32 ops in
+# the same order but for XLA's fusions and the sum over experts,
+# ``max |Δ| ≤ 1e-5 · max |latent|``.
+# ---------------------------------------------------------------------------
+
+TOY_MIX = [("ddpm", "cosine")] * 2 + [("fm", "linear")] * 2
+TOY_REL = 1e-5
+
+
+def _toy_params(k):
+    rng = np.random.default_rng(30 + k)
+    return {"a": np.float32(rng.uniform(0.3, 1.2, (1,))),
+            "b": rng.standard_normal((2, 2, 1)).astype(np.float32),
+            "u": rng.standard_normal((3,)).astype(np.float32)}
+
+
+def _toy_apply(xp):
+    """``a·x + t·b + 0.1·text``, the null text where ``drop_mask``, for
+    the package ``xp`` (``jnp`` or ``torch``)."""
+    def apply_fn(p, x, t, text_emb=None, drop_mask=None):
+        b = x.shape[0]
+        out = p["a"] * x + t.reshape(b, 1, 1, 1) * p["b"]
+        if text_emb is not None:
+            c = (text_emb * p["u"]).reshape(b, -1).sum(-1)
+            if drop_mask is not None:
+                c = xp.where(drop_mask, 0.0, c)
+            out = out + 0.1 * c.reshape(b, 1, 1, 1)
+        return out
+    return apply_fn
+
+
+def _toy_router(xp, softmax):
+    w = np.random.default_rng(40).standard_normal((8, 4)).astype(np.float32)
+
+    def router_fn(x, t):
+        h = x.reshape(x.shape[0], -1) @ xp(w) + t.reshape(-1, 1)
+        return softmax(h)
+
+    return router_fn
+
+
+def _toy_run(override, engine="auto"):
+    """(JAX latents, port latents) of one toy sampling run."""
+    shape = (3, 2, 2, 2)
+    rng = np.random.default_rng(41)
+    noise = rng.standard_normal(shape).astype(np.float32)
+    text = rng.standard_normal((3, 2, 3)).astype(np.float32)
+    params = [_toy_params(k) for k in range(4)]
+    kw = dict(num_steps=3, cfg_scale=4.0, **override)
+    japply, apply = _toy_apply(jnp), _toy_apply(torch)
+    jspecs = [jfus.ExpertSpec(name=f"e{i}", objective=o, schedule=sc,
+                              apply_fn=japply, cluster_id=i)
+              for i, (o, sc) in enumerate(TOY_MIX)]
+    want = np.asarray(jsamp.sample_ensemble(
+        jax.random.PRNGKey(0), jspecs,
+        [{k: jnp.asarray(v) for k, v in p.items()} for p in params],
+        _toy_router(jnp.asarray, jax.nn.softmax), shape,
+        cond={"text_emb": jnp.asarray(text)}, null_cond={"text_emb": None},
+        config=jsamp.SamplerConfig(**kw), engine=engine,
+        init_noise=jnp.asarray(noise)))
+    specs = [fusion.ExpertSpec(name=f"e{i}", objective=o, schedule=sc,
+                               apply_fn=apply, cluster_id=i)
+             for i, (o, sc) in enumerate(TOY_MIX)]
+    got = sampling.sample_ensemble(
+        specs, [{k: torch.from_numpy(np.asarray(v)) for k, v in p.items()}
+                for p in params],
+        _toy_router(torch.from_numpy, lambda h: torch.softmax(h, -1)),
+        shape, cond={"text_emb": torch.from_numpy(text)},
+        null_cond={"text_emb": None}, config=sampling.SamplerConfig(**kw),
+        engine=engine, init_noise=torch.from_numpy(noise)).numpy()
+    return want, got
+
+
+def _assert_toy_close(want, got):
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err = np.abs(got - want).max()
+    assert err <= TOY_REL * np.abs(want).max(), (err, np.abs(want).max())
 
 
 @pytest.mark.parametrize("override", [
@@ -247,23 +350,21 @@ def test_resolve_dispatch_serves_ragged_only():
     dict(time_map="snr_match"), dict(strategy="full"),
 ], ids=lambda d: next(iter(d)))
 def test_unported_sampler_options_raise(override):
-    cfg = sampling.SamplerConfig(num_steps=2, **override)
-    spec = fusion.ExpertSpec(name="e", objective="fm", schedule="linear",
-                             apply_fn=None, ragged_apply_fn=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampling.sample_ensemble(
-            [spec, spec], None, lambda x, t: torch.ones(1, 2) / 2,
-            (1, 2, 2, 1), cond={"text_emb": torch.zeros(1, 2, 2)},
-            null_cond={"text_emb": None}, config=cfg,
-            init_noise=torch.zeros(1, 2, 2, 1),
-            stacked_params={"w": torch.zeros(2, 1)})
+    """Once unported, these options now run: each matches the JAX
+    sampler on the toy ensemble (grouped top-2, the threshold router, the
+    SNR time map, the full ensemble), with the step fused and not."""
+    for fused in (True, False):
+        want, got = _toy_run(dict(override, step_fused=fused))
+        _assert_toy_close(want, got)
+    # and each is another function than plain top-2 routing
+    _, plain = _toy_run({})
+    assert np.abs(got - plain).max() > 1e-3 or override == dict(
+        dispatch="grouped")
 
 
 def test_unported_engines_raise():
-    spec = fusion.ExpertSpec(name="e", objective="fm", schedule="linear",
-                             apply_fn=None)
+    """Once unported, the dense and reference engines now run: each
+    matches the JAX sampler's on the toy ensemble, top-2 and full."""
     for engine in ("dense", "reference"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sampling.sample_ensemble([spec, spec], None, None, (1, 1),
-                                     engine=engine,
-                                     init_noise=torch.zeros(1, 1))
+        for override in ({}, dict(strategy="full")):
+            _assert_toy_close(*_toy_run(override, engine))

@@ -674,6 +674,58 @@ def test_ragged_dit_forward_runs_the_new_kernels(cuda, with_text):
     assert err <= 1e-4 * want.abs().max().item(), err
 
 
+@pytest.mark.parametrize("backend", ["grouped", "gathered", "dense"])
+def test_executors_on_the_card_match_the_ragged_executor(cuda, backend):
+    """At reduced width on the card, the grouped, gathered and dense
+    executors give the ragged executor's top-2 predictions (the dense one
+    runs every expert; its unrouted slots weigh exactly 0, so the fused
+    velocities are compared): within ``1e-4 · max|out|`` (float32 GEMMs
+    in cuBLAS against the ragged kernel, in another order)."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.conversion import ConversionConfig
+    from repro_torch.core.param_store import make_store
+    from repro_torch.core.sampling import _cfg_grouped_cond
+    from repro_torch.models import dit as D
+    from repro_torch.models.config import dit_b2
+    from repro_torch.tree import tree_map
+
+    cfg = dit_b2().reduced(latent_size=16)
+    gen = torch.Generator().manual_seed(5)
+    experts = [tree_map(lambda a: (a + 0.02 * torch.randn(
+        a.shape, generator=gen)).to(cuda), D.init(cfg, gen))
+        for _ in range(4)]
+    store = make_store(D.stack_expert_params(experts), dtype="native")
+    b = 4
+    x = torch.randn(b, 16, 16, 4, generator=gen).to(cuda)
+    tb = torch.full((b,), 0.7).to(cuda)
+    text = torch.randn(b, cfg.text_len, cfg.text_dim, generator=gen)
+    cond_g = _cfg_grouped_cond({"text_emb": text.to(cuda)},
+                               {"text_emb": None}, b)
+    w = torch.rand(b, 4, generator=gen).to(cuda)
+    conv = ConversionConfig()
+    tab = torch.tensor([[1.0], [0.0], [0.0], [1.0], [1.0]]).expand(
+        5, 4).contiguous().to(cuda)
+    plan = dispatch.make_dispatch_plan(w, 2)
+    ragged = dispatch.RaggedExecutor(D.make_ragged_expert_apply(cfg), store,
+                                     conv)
+    apply_fn = D.make_expert_apply(cfg)
+    want = ragged.velocity(plan, x, tb, cond_g, 2, tab)
+    if backend == "dense":
+        topk, _ = torch.sort(w, dim=-1, descending=True)
+        w2 = torch.where(w >= topk[:, 1:2], w, torch.zeros_like(w))
+        plan = dispatch.full_dispatch_plan(w2)
+        ex = dispatch.DenseExecutor([apply_fn] * 4, experts, conv)
+    else:
+        ex = dispatch.make_executor(backend, apply_fns=[apply_fn] * 4,
+                                    params=experts, stacked_params=store,
+                                    conv=conv)
+    got = ex.velocity(plan, x, tb, cond_g, 2, tab)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert bool(torch.isfinite(got).all())
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
 SSD_REL = 5e-5
 
 

@@ -34,6 +34,7 @@ from repro_torch.models.config import dit_b2, router_b2
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.weights import params_from_numpy
+from test_torch_serve import one_torch_thread  # noqa: F401  (a fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -243,3 +244,70 @@ def test_weights_default_to_the_gpu(tmp_path):
         params_from_numpy({"w": np.ones(2, np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ckpt.load_checkpoint(path)
+
+
+@pytest.fixture(scope="module")
+def per_block():
+    """Jittered reduced experts with per-block adaLN-Zero
+    (``adaln_single=False``), carried across to both packages."""
+    cfg = dit_b2(adaln_single=False).reduced(latent_size=8)
+    experts = [jittered_numpy_params(cfg, 20 + i) for i in range(3)]
+    return dict(jcfg=j_dit_b2(adaln_single=False).reduced(latent_size=8),
+                cfg=cfg,
+                jexperts=[jax.tree.map(jnp.asarray, p) for p in experts],
+                experts=[params_from_numpy(p, "cpu") for p in experts])
+
+
+def test_per_block_adaln_init_has_the_reference_structure(per_block):
+    got = tree_map(lambda a: a.numpy(), D.init(
+        per_block["cfg"], torch.Generator().manual_seed(0)))
+    want = jax.eval_shape(lambda k: JD.init(per_block["jcfg"], k),
+                          jax.random.PRNGKey(0))
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+    assert "adaln_per_block" in got and "adaln_single" not in got
+    assert not got["adaln_per_block"]["w"].any()        # adaLN-Zero
+
+
+@pytest.mark.parametrize("text_mode", ["text", "drop_mask"])
+def test_per_block_adaln_dense_apply_matches_jax(per_block, text_mode):
+    cfg = per_block["cfg"]
+    x, t, text = _inputs(cfg, 3, seed=4)
+    kw = {"text_emb": text}
+    if text_mode == "drop_mask":
+        kw["drop_mask"] = np.array([True, False, True])
+    want = np.asarray(JD.apply(per_block["jcfg"], per_block["jexperts"][0],
+                               x, t, **kw))
+    got = D.apply(cfg, per_block["experts"][0], torch.from_numpy(x),
+                  torch.from_numpy(t),
+                  **{k: torch.from_numpy(v) for k, v in kw.items()})
+    assert np.abs(want).max() > 1e-2
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_per_block_adaln_ragged_apply_matches_jax(per_block, g):
+    """One ragged modulation GEMM per layer from ``silu(τ)``, over the
+    stacked experts' ``adaln_per_block`` leaves."""
+    cfg = per_block["cfg"]
+    pe = np.array([1, 2, 0, 1], np.int32)
+    x, t, _ = _inputs(cfg, len(pe), seed=5)
+    rng = np.random.default_rng(6)
+    cond_np = {"text_emb": rng.standard_normal(
+        (len(pe), g, cfg.text_len, cfg.text_dim)).astype(np.float32)}
+    if g == 2:
+        cond_np["drop_mask"] = np.broadcast_to([False, True], (len(pe), 2))
+    jview = JDense.from_stacked(
+        JD.stack_expert_params(per_block["jexperts"])).ragged_view()
+    want = np.asarray(jax.jit(JD.make_ragged_expert_apply(per_block["jcfg"]),
+                              static_argnums=5)(
+        jview, x, t, {k: jnp.asarray(v) for k, v in cond_np.items()},
+        jnp.asarray(pe), g))
+    view = D.stack_expert_params(per_block["experts"])
+    got = D.make_ragged_expert_apply(cfg)(
+        view, torch.from_numpy(x), torch.from_numpy(t),
+        {k: torch.from_numpy(np.array(v)) for k, v in cond_np.items()},
+        torch.from_numpy(pe), g)
+    assert got.shape == (len(pe) * g,) + x.shape[1:]
+    np.testing.assert_allclose(got.numpy(), want, **TOL)

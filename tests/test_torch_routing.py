@@ -33,7 +33,8 @@ from repro_torch.core.sampling import SamplerConfig
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import ServingEngine
 from repro_torch.models.config import dit_b2, router_b2
-from test_torch_serve import BATCH, MIX, SLICE_REL, STEPS, _write_ensemble
+from test_torch_serve import (  # noqa: F401  (one_torch_thread: a fixture)
+    BATCH, MIX, SLICE_REL, STEPS, _write_ensemble, one_torch_thread)
 
 HETERO = [o for o, _ in MIX]
 
@@ -150,9 +151,10 @@ def test_plan_refresh_one_is_the_per_step_loop(ensemble):
     (dict(plan_refresh_every=2), "reference"),
 ], ids=["R0", "R2_snr_match", "R2_reference_engine"])
 def test_plan_reuse_errors_match_the_reference(ensemble, override, engine):
-    """The reference's ``ValueError``, with its message, before any of the
-    port's ``NotImplementedError`` (``snr_match`` and the reference engine
-    are not ported)."""
+    """The reference's ``ValueError``, with its message, raised where the
+    reference raises it: plan reuse refused by the engine resolution
+    (``snr_match`` and the reference engine recompute routing every
+    step), and ``R = 0`` refused by the fused engine."""
     jeng, eng = _engines(ensemble["path"], engine=engine, **override)
     with pytest.raises(ValueError) as jerr:
         jeng.generate(jax.random.PRNGKey(0), ensemble["text"], BATCH)

@@ -40,6 +40,19 @@ from repro_torch.models.config import dit_b2, router_b2
 from repro_torch.tree import tree_map
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU runs use one intra-op thread in these modules: the
+    reduced models gain nothing from more, and in a parallel test run (a
+    process per core) more threads oversubscribe the cores and spin-wait
+    (measured: 129 s against 26 s for the same tests beside six busy
+    processes).  Restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 SLICE_REL = 1e-4
 BATCH, STEPS = 4, 4
 MIX = [("ddpm", "cosine")] * 2 + [("fm", "linear")] * 6
@@ -208,3 +221,91 @@ def test_port_sources_import_neither_jax_nor_the_reference():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def _write_fm_pair(path, cfg, mutate=None):
+    """Two reduced FM experts by the JAX ``save_checkpoint``; ``mutate``
+    edits the first leaf (in the reference's flattening order) of
+    ``expert1.npz``."""
+    for i in range(2):
+        params = _numpy_params(cfg, i)
+        if i == 1 and mutate is not None:
+            first = jax.tree_util.tree_flatten_with_path(params)[0][0][0]
+            node = params
+            for k in first[:-1]:
+                node = node[k.key]
+            node[first[-1].key] = mutate(node[first[-1].key])
+        jckpt.save_checkpoint(
+            os.path.join(path, f"expert{i}.npz"), params,
+            metadata=jckpt.expert_metadata(
+                name=f"e{i}", objective="fm", schedule="linear",
+                cluster_id=i, arch=cfg.name))
+
+
+def _with_nan(a):
+    a = a.copy()
+    a.reshape(-1)[0] = np.nan
+    return a
+
+
+def _one_larger(a):
+    return np.zeros(tuple(n + 1 for n in a.shape), a.dtype)
+
+
+@pytest.mark.parametrize("mutate", [_with_nan, _one_larger],
+                         ids=["nan", "shape"])
+def test_bad_checkpoint_raises_the_reference_error(tmp_path, mutate):
+    """Every checkpoint after the first (the template) is checked at load:
+    structure, leaf shapes, finite float leaves — with the reference's
+    ``ValueError``, letter for letter (the file named)."""
+    cfg = dit_b2().reduced(latent_size=8)
+    _write_fm_pair(str(tmp_path), cfg, mutate)
+    with pytest.raises(ValueError) as jerr:
+        JServingEngine.from_checkpoint_dir(
+            str(tmp_path), dit_cfg=j_dit_b2().reduced(latent_size=8))
+    with pytest.raises(ValueError) as err:
+        ServingEngine.from_checkpoint_dir(str(tmp_path), dit_cfg=cfg,
+                                          device="cpu")
+    assert str(err.value) == str(jerr.value)
+    assert os.path.join(str(tmp_path), "expert1.npz") in str(err.value)
+
+
+def test_mismatched_tree_raises_the_reference_error(tmp_path):
+    cfg = dit_b2().reduced(latent_size=8)
+    _write_fm_pair(str(tmp_path), cfg)
+    other = dit_b2(adaln_single=False).reduced(latent_size=8)
+    jckpt.save_checkpoint(
+        os.path.join(str(tmp_path), "expert1.npz"), _numpy_params(other, 1),
+        metadata=jckpt.expert_metadata(name="e1", objective="fm",
+                                       schedule="linear", cluster_id=1,
+                                       arch=cfg.name))
+    with pytest.raises(ValueError) as jerr:
+        JServingEngine.from_checkpoint_dir(
+            str(tmp_path), dit_cfg=j_dit_b2().reduced(latent_size=8))
+    with pytest.raises(ValueError) as err:
+        ServingEngine.from_checkpoint_dir(str(tmp_path), dit_cfg=cfg,
+                                          device="cpu")
+    assert str(err.value) == str(jerr.value)
+    assert "tree structure" in str(err.value)
+
+
+def test_class_head_experts_resolve_to_grouped(tmp_path):
+    """Experts with a class head publish no ragged forward (as in the
+    reference), so the engine constructs and ``dispatch='auto'`` resolves
+    to the grouped executor."""
+    from repro.core.dispatch import resolve_dispatch as j_resolve
+    from repro_torch.core.dispatch import resolve_dispatch
+
+    cfg = dit_b2(num_classes=3).reduced(latent_size=8)
+    _write_fm_pair(str(tmp_path), cfg)
+    jeng = JServingEngine.from_checkpoint_dir(
+        str(tmp_path), dit_cfg=j_dit_b2(num_classes=3).reduced(latent_size=8))
+    eng = ServingEngine.from_checkpoint_dir(str(tmp_path), dit_cfg=cfg,
+                                            device="cpu")
+    assert all(e.ragged_apply_fn is None for e in eng.experts)
+    assert all(e.ragged_apply_fn is None for e in jeng.experts)
+    assert eng.homogeneous and jeng.homogeneous
+    ragged_ok = eng.experts[0].ragged_apply_fn is not None
+    assert resolve_dispatch("auto", "routed", eng.param_store is not None,
+                            False, ragged_ok) == "grouped" == j_resolve(
+        "auto", "routed", jeng.param_store is not None, False, ragged_ok)

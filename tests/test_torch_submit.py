@@ -34,7 +34,8 @@ from repro_torch.launch import serve
 from repro_torch.models.config import dit_b2, router_b2
 from repro_torch.serving.resilience import (DeadlineExceeded, RequestError,
                                             RequestFailed, RequestTimeout)
-from test_torch_serve import SLICE_REL, STEPS, _write_ensemble
+from test_torch_serve import (  # noqa: F401  (one_torch_thread: a fixture)
+    SLICE_REL, STEPS, _write_ensemble, one_torch_thread)
 
 LATENT = (8, 8, 4)
 
@@ -241,25 +242,35 @@ def _lines(text: str) -> list[str]:
     return out
 
 
-@pytest.mark.parametrize("mode", [[], ["--coalesce"]],
-                         ids=["plain", "coalesce"])
+@pytest.mark.parametrize("mode", [
+    ["--track-padding"], ["--track-padding", "--coalesce"],
+    ["--coalesce", "--deadline-s", "0"], ["--strategy", "full"],
+    ["--strategy", "threshold"], ["--engine", "reference"],
+    ["--dispatch", "grouped"],
+], ids=["plain", "coalesce", "coalesce_deadline0", "full", "threshold",
+        "reference", "grouped"])
 def test_cli_prints_the_reference_lines(ensemble, capsys, monkeypatch,
                                         mode):
+    """The reference CLI's lines, less ``traces=``.  ``--deadline-s`` acts
+    under ``--continuous`` only, so ``--coalesce --deadline-s 0`` serves
+    every request, as the reference does."""
+    # the reference engine recomputes routing every step
+    refresh = [] if "--engine" in mode else ["--plan-refresh", "2"]
     argv = ["--ckpt-dir", ensemble["path"], "--batch", "2", "--requests",
-            "2", "--steps", "2", "--plan-refresh", "2",
-            "--track-padding"] + mode
+            "2", "--steps", "2"] + refresh + mode
     monkeypatch.setattr(sys, "argv", ["serve"] + argv)
     jserve.main()
     want = _lines(capsys.readouterr().out)
     serve.main(argv + ["--device", "cpu"])
     got = _lines(capsys.readouterr().out)
     assert got == want
-    if mode:
+    if "--coalesce" in mode:
         assert got[1] == ("coalesced 2 requests -> 1 dispatch(es): 4 imgs "
                           "in Ts (R img/s)")
     else:
         assert got[1] == "request 0: (2, 8, 8, 4) in Ts (R img/s) " \
                          "finite=True"
+    if mode == ["--track-padding"]:
         assert got[-1] == ("padding: padded_rows/step=8.00 "
                            "routed_rows/step=8.00 overhead=0.000")
 

@@ -42,6 +42,7 @@ from repro_torch.launch.serve import ServingEngine
 from repro_torch.models import dit as D
 from repro_torch.models.config import dit_b2, router_b2
 from repro_torch.tree import tree_map
+from test_torch_serve import one_torch_thread  # noqa: F401  (a fixture)
 
 COEFFS_REL = 1e-6
 SLICE_REL = 1e-4
