@@ -90,11 +90,30 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    fused log-probabilities, prefill logits and state, and greedy tokens
    must agree, and on the GPU prefill followed by a decode step must
    reproduce ``forward_train``'s logits;
-9. runs the serving CLI, ``python -m repro_torch.launch.serve``, three
+9. runs the serving CLI, ``python -m repro_torch.launch.serve``, five
    times at once on the card over reduced checkpoints (latent 8):
-   ``--coalesce --plan-refresh 2 --track-padding``, ``--strategy full``
-   and ``--coalesce --deadline-s 0``; each must exit 0, serve every
-   request and print its lines.
+   ``--coalesce --plan-refresh 2 --track-padding``, ``--strategy full``,
+   ``--coalesce --deadline-s 0``, ``--continuous --capacity 10
+   --journal-dir …`` and ``--on-bad-checkpoint skip`` over a copy with one
+   truncated checkpoint; each must exit 0, serve every request and print
+   its lines;
+10. (after phase 5, over phase 4's checkpoints) elastic membership at full
+   width: capacity-10 native and int8 engines, all-live against the
+   fixed engine, a request submitted before an eviction bitwise its
+   ``generate`` before it, ``add_expert`` of a ninth checkpoint (the int8
+   slot bitwise a store quantized from scratch), retire / quarantine /
+   trip / restore, a NaN-poisoned evicted slot, a profiled elastic
+   request, an eviction in mid-flight through a rolling batch, and one
+   live slot under top-2 (``degraded_steps``);
+11. continuous batching at full width: staggered requests (batch 1, 2, 1,
+   4, 2, 1, 3, 2, one every 2 ticks) through a rolling batch of 8 at
+   ``steps_per_tick`` 1 and 2 (one ``hetero_fuse_step`` per bucket step,
+   each request against ``generate``), img/s against one ``flush``, plan
+   reuse R 2 (the router only on refresh ticks) and a profiled tick;
+12. the resilience layer: a watchdog trip, a breaker trip from a poisoned
+   slot through heal, canary and restore, an expired deadline,
+   kill-and-restore from a journal (bitwise an uninterrupted twin) and a
+   60-tick chaos soak on the toy ensemble.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -119,6 +138,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
+#: the full-width checkpoints phases 4 and 10-12 load (deleted after 12)
+DIT_PATH = os.path.join(WORK, "dit_b2")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, dense
 # float32 outside the tensor cores (TF32 is excluded by design), and the
@@ -1170,7 +1191,7 @@ def serve_full_width(ops, dev) -> tuple[dict, dict]:
     from repro_torch.models.dit import param_count
 
     dit_cfg, router_cfg = dit_b2(), router_b2(num_clusters=len(MIX))
-    path = os.path.join(WORK, "dit_b2")
+    path = DIT_PATH
     t0 = time.perf_counter()
     write_ensemble(path, dit_cfg, router_cfg, dev, seed=11)
     t_write = time.perf_counter() - t0
@@ -1233,7 +1254,6 @@ def serve_full_width(ops, dev) -> tuple[dict, dict]:
                      f"{diff}")
         if name not in ("int8", "fp8"):
             del engines[name]
-    shutil.rmtree(path)
     print(f"engine stats {json.dumps(engines['native'].stats)}")
     return launches, engines
 
@@ -1517,6 +1537,13 @@ def _category(name: str, table=CATEGORIES) -> str:
     return "other"
 
 
+#: host ops whose counts each profile line prints: the ones that read a
+#: device value (``item``, ``tolist``, ``bincount`` sizing its output) or
+#: copy between host and device
+HOST_OPS = ("aten::_local_scalar_dense", "aten::bincount", "aten::_to_copy",
+            "aten::copy_", "aten::index_put_")
+
+
 def profiled(run, table, **fields) -> None:
     """``run()`` under ``torch.profiler``: prints device ms by kernel and by
     category of ``table``, the device's idle share ``1 − busy / profiled
@@ -1555,6 +1582,7 @@ def profiled(run, table, **fields) -> None:
         "cuda_memcpy_async": host.get("cudaMemcpyAsync", [0])[0],
         "cuda_stream_synchronize": host.get("cudaStreamSynchronize",
                                             [0])[0],
+        "host_op_counts": {k: host.get(k, [0])[0] for k in HOST_OPS},
         "host_top6": dict(sorted(host.items(), key=lambda kv: -kv[1][1])[:6]),
         "ms_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
         "ms_by_kernel_top12": dict(top)}))
@@ -1716,7 +1744,8 @@ def compare_gpu_cpu(ops, dev) -> None:
 
 
 #: phase 9's CLI runs: extra flags -> (lines printed, the line that
-#: shows the run served every request)
+#: shows the run served every request); ``CLI_BAD`` and ``CLI_JOURNAL``
+#: stand for directories under ``WORK``
 CLI_RUNS = (
     (["--coalesce", "--plan-refresh", "2", "--track-padding"], 3,
      "coalesced 2 requests -> 1 dispatch(es): 6 imgs"),
@@ -1724,6 +1753,11 @@ CLI_RUNS = (
     # --deadline-s acts under --continuous only, as in the reference CLI
     (["--coalesce", "--deadline-s", "0"], 3,
      "coalesced 2 requests -> 1 dispatch(es): 6 imgs"),
+    (["--continuous", "--capacity", "10", "--journal-dir", "CLI_JOURNAL"],
+     5, "continuous 2 requests in"),
+    # the directory whose expert3.npz is truncated
+    (["--ckpt-dir", "CLI_BAD", "--on-bad-checkpoint", "skip"], 6,
+     "request 1: (3, 8, 8, 4)"),
 )
 
 
@@ -1731,19 +1765,31 @@ def run_cli(dev) -> None:
     """Phase 9: ``python -m repro_torch.launch.serve`` as a user runs it, on
     the card, over checkpoints at the reference CLI's reduced width
     (latent 8), two batch-3 requests of 4 steps: coalesced into one
-    dispatch with plan reuse every 2 steps; the full strategy; and
-    coalesced with ``--deadline-s 0``, which must serve both.  The runs
+    dispatch with plan reuse every 2 steps; the full strategy; coalesced
+    with ``--deadline-s 0``, which must serve both; ``--continuous`` on a
+    capacity-10 elastic engine writing a journal; and
+    ``--on-bad-checkpoint skip`` over a copy of the checkpoints whose
+    ``expert3.npz`` is truncated (quarantined, its slot masked).  The runs
     start together; each must exit 0 and print its lines."""
+    from repro_torch.launch.faults import truncate_checkpoint
     from repro_torch.models.config import dit_b2, router_b2
 
     path = os.path.join(WORK, "cli")
+    bad = os.path.join(WORK, "cli_bad")
+    journal = os.path.join(WORK, "cli_journal")
     write_ensemble(path, dit_b2().reduced(latent_size=8),
                    router_b2(num_clusters=len(MIX)).reduced(latent_size=8),
                    dev, seed=13)
+    shutil.rmtree(bad, ignore_errors=True)
+    shutil.rmtree(journal, ignore_errors=True)
+    shutil.copytree(path, bad)
+    truncate_checkpoint(os.path.join(bad, "expert3.npz"))
+    where = {"CLI_BAD": bad, "CLI_JOURNAL": journal}
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--ckpt-dir",
             path, "--batch", "3", "--requests", "2", "--steps", "4"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    procs = [subprocess.Popen(base + flags, stdout=subprocess.PIPE,
+    procs = [subprocess.Popen(base + [where.get(f, f) for f in flags],
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, env=env,
                               cwd=ROOT) for flags, _, _ in CLI_RUNS]
     try:
@@ -1751,7 +1797,8 @@ def run_cli(dev) -> None:
     finally:
         for p in procs:
             p.kill()
-        shutil.rmtree(path)
+        for d in (path, bad, journal):
+            shutil.rmtree(d, ignore_errors=True)
     for (flags, n_lines, served), p, (out, err) in zip(CLI_RUNS, procs,
                                                        results):
         lines = out.strip().splitlines()
@@ -1761,6 +1808,532 @@ def run_cli(dev) -> None:
                 line.startswith(served) for line in lines):
             fail(f"the serving CLI {flags} exited {p.returncode}: "
                  f"{err.strip()[-2000:]}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-12: elastic membership, continuous batching, resilience
+# ---------------------------------------------------------------------------
+
+#: the continuous phase's traffic: batch sizes, one request every
+#: ARRIVAL_EVERY ticks, each with text
+ROLLING_BATCHES = (1, 2, 1, 4, 2, 1, 3, 2)
+ARRIVAL_EVERY = 2
+
+
+def _texts(cfg, batches, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, cfg.text_len, cfg.text_dim)).astype(
+        np.float32) for b in batches]
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_reset(dev):
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+    return 0
+
+
+def _peak(dev, base):
+    return (torch.cuda.max_memory_allocated() - base
+            if dev.type == "cuda" else 0)
+
+
+def _compare(label, got, want, tol_rel=E2E_REL_TOL, bitwise=False):
+    """Print ``label``'s max |Δ| against ``want`` (and whether it is
+    bitwise); fail past ``tol_rel · max|want|``, or on any difference
+    with ``bitwise``."""
+    err, scale = rel_err(got, want)
+    print(f"{label} " + json.dumps(dict(
+        max_abs_diff=err, bitwise=bool(torch.equal(got, want)),
+        tol=0.0 if bitwise else tol_rel * scale, max_abs=scale)))
+    finite = bool(torch.isfinite(got).all())
+    if not finite or (bitwise and not torch.equal(got, want)) or \
+            err > tol_rel * scale:
+        fail(f"{label}: max |Δ| {err} (finite={finite})")
+    return err
+
+
+def serve_elastic(ops, engines, dev, path, dit_cfg, router_cfg) -> dict:
+    """Phase 10: elastic membership at full width over the phase-4
+    checkpoints (``path``), each path with the launch counts set to 0
+    just before and read just after:
+
+    * native and int8 engines at capacity 10 with the 8 experts loaded
+      (``store`` lines: bytes, build and serving peaks);
+    * all 8 live against the fixed-membership engine on the same noise
+      (the reference claims bitwise; printed, held to ``E2E_REL_TOL``);
+    * a request submitted, a slot it routes to evicted, then ``flush``:
+      bitwise the ``generate`` run before the eviction;
+    * ``add_expert`` of a ninth jittered checkpoint into slot 8 on both
+      engines (the int8 slot's bytes and scales bitwise a store quantized
+      from scratch; the add's device peak printed), one request each;
+    * retire (DRAINING → EVICTED at ``flush``), quarantine, trip, restore;
+    * a NaN-poisoned evicted slot: latents finite;
+    * evicted down to 1 live slot under top-2: ``degraded_steps`` grows by
+      8 a request;
+    * a profiled elastic request (blocking copies against the fixed
+      engine's);
+    * one eviction mid-flight through a rolling batch: requests admitted
+      before it resolve under their epoch (against ``generate`` before
+      the eviction, within ``E2E_REL_TOL``), one admitted after under the
+      new one.
+    Returns the launches of each path."""
+    from repro_torch.core import param_store
+    from repro_torch.core.fusion import fusion_weights
+    from repro_torch.core.sampling import _time_grid
+    from repro_torch.launch import faults
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.training.checkpoint import (expert_metadata,
+                                                 save_checkpoint)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    joiner = os.path.join(path, "joiner", "expert8.npz")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    save_checkpoint(joiner, jittered(dit_cfg, gen), metadata=expert_metadata(
+        name="expert8", objective="fm", schedule="linear", cluster_id=3,
+        arch=dit_cfg.name))
+    fixed = engines["native"]
+    sampler = fixed.sampler
+    launches, el = {}, {}
+    for name, pd in (("elastic_native", "native"), ("elastic_int8", "int8")):
+        gc.collect()
+        base = _peak_reset(dev)
+        t0 = time.perf_counter()
+        el[pd] = ServingEngine.from_checkpoint_dir(
+            path, dit_cfg=dit_cfg, router_cfg=router_cfg, sampler=sampler,
+            param_dtype=pd, capacity=10, device=dev)
+        _sync(dev)
+        print(f"{name} engine loaded in {time.perf_counter() - t0:.1f} s: "
+              f"{el[pd].membership_line()}")
+        mem = dict(base=base, resident=(torch.cuda.memory_allocated() - base
+                                        if dev.type == "cuda" else 0),
+                   load_peak=_peak(dev, base))
+        text = _texts(dit_cfg, [BATCH], 31)[0]
+        (out,), launches[name] = serve_path(
+            ops, el[pd], name, [text], [700],
+            expected_launches(dit_cfg, router_cfg, ops, pd, True, 1), mem)
+        if pd == "native":
+            _compare("elastic all-live vs fixed membership", out,
+                     fixed.generate(700, text, BATCH))
+    eng, eng8 = el["native"], el["int8"]
+
+    # submit, evict a slot the request routes to, flush: its snapshot
+    text = _texts(dit_cfg, [BATCH], 32)[0]
+    before = eng.generate(701, text, BATCH)
+    t_text = eng._cached_cond(text)
+    noise = eng._noise(701, BATCH)
+    t0 = _time_grid(STEPS)[0].to(dev).expand(BATCH)
+    w = fusion_weights(eng.experts, eng.router_fn, noise, t0,
+                       strategy="topk", top_k=2,
+                       valid=eng.param_store.valid,
+                       cluster_map=eng._cluster_map)
+    routed = int(w.sum(dim=0).argmax())
+    h = eng.submit(701, text)
+    eng.evict_expert(routed)
+    eng.flush()
+    _compare(f"elastic submit, evict slot {routed}, flush vs generate "
+             f"before", h.result(), before, bitwise=True)
+    after = eng.generate(701, text, BATCH)
+    print("elastic after eviction " + json.dumps(dict(
+        max_abs_diff_vs_before=rel_err(after, before)[0])))
+    del t_text
+
+    # add a ninth expert into slot 8, both stores
+    for name, e in (("elastic_native_add", eng), ("elastic_int8_add", eng8)):
+        base = _peak_reset(dev)
+        slot = e.add_expert(joiner, slot=8)
+        add_peak = _peak(dev, base)
+        (out,), launches[name] = serve_path(
+            ops, e, name, [text], [702],
+            expected_launches(dit_cfg, router_cfg, ops,
+                              e.sampler.param_dtype, True, 1), None)
+        print(f"{name} " + json.dumps(dict(
+            slot=slot, add_peak_bytes=add_peak,
+            store_bytes=e.param_store.nbytes(),
+            membership=e.membership_line())))
+    from repro_torch.training.checkpoint import load_checkpoint
+
+    params, _ = load_checkpoint(joiner, device=dev)
+    scratch = param_store.make_store(tree_map(lambda a: a[None], params),
+                                     dtype="int8")
+    slot_leaves = [a[8] for a in tree_leaves((eng8.param_store.qvals,
+                                              eng8.param_store.scales))]
+    same = all(torch.equal(a, b[0]) for a, b in zip(
+        slot_leaves, tree_leaves((scratch.qvals, scratch.scales))))
+    print("elastic int8 slot 8 vs quantized from scratch " + json.dumps(
+        dict(leaves=len(slot_leaves), bitwise=same)))
+    if not same:
+        fail("the int8 slot written by add_expert differs from a store "
+             "quantized from scratch")
+    del eng8, el, scratch, params
+    gc.collect()
+
+    # retire, quarantine, trip, restore
+    h = eng.submit(703, text)
+    eng.retire_expert(5)
+    draining = eng.expert_health[5]
+    eng.flush()
+    if not (draining == "DRAINING" and eng.expert_health[5] == "EVICTED"
+            and bool(torch.isfinite(h.result()).all())):
+        fail(f"retire: {draining} -> {eng.expert_health[5]}")
+    eng.quarantine_expert(6, "chip smoke")
+    eng.restore_expert(6)
+    eng.trip_expert(7)
+    eng.restore_expert(7)
+    print(f"elastic lifecycle {eng.membership_line()} "
+          f"health={eng.expert_health}")
+
+    # a NaN-poisoned evicted slot never reaches the latents
+    faults.poison_expert_runtime(eng, routed)
+    out = eng.generate(704, text, BATCH)
+    print("elastic poisoned evicted slot " + json.dumps(dict(
+        slot=routed, finite=bool(torch.isfinite(out).all()),
+        max_abs=out.abs().max().item())))
+    if not bool(torch.isfinite(out).all()):
+        fail("a poisoned evicted slot reached the latents")
+
+    # a profiled elastic request
+    profiled(lambda: eng.generate(200, text, BATCH), CATEGORIES,
+             path="elastic_native", batch=BATCH, steps=STEPS,
+             membership=eng.membership_line())
+
+    # one eviction mid-flight through the rolling batch: requests
+    # admitted before it resolve under their epoch
+    from repro_torch.serving import ContinuousScheduler
+
+    sched = ContinuousScheduler(eng, max_resident=BATCH)
+    early = _texts(dit_cfg, (2, 2), 43)
+    want_early = [eng.generate(900 + i, t, 2) for i, t in enumerate(early)]
+    hs = [sched.submit(900 + i, t) for i, t in enumerate(early)]
+    sched.step()
+    sched.step()
+    victim = [i for i, hh in enumerate(eng.expert_health)
+              if hh == "ACTIVE"][-1]
+    eng.evict_expert(victim)
+    late = _texts(dit_cfg, (2,), 44)[0]
+    want_late = eng.generate(910, late, 2)
+    hl = sched.submit(910, late)
+    sched.run_until_idle()
+    for i, (h, want) in enumerate(zip(hs, want_early)):
+        _compare(f"rolling elastic admitted before evicting slot {victim} "
+                 f"request {i}", h.result(), want)
+    _compare("rolling elastic admitted after the eviction", hl.result(),
+             want_late)
+    print(f"rolling elastic {eng.membership_line()} "
+          f"buckets_left={len(sched._buckets)}")
+
+    # evict down to one live slot under top-2
+    for s in [i for i, hh in enumerate(eng.expert_health)
+              if hh == "ACTIVE"][1:]:
+        eng.evict_expert(s)
+    before = eng.stats["degraded_steps"]
+    out = eng.generate(705, text, BATCH)
+    grew = eng.stats["degraded_steps"] - before
+    print(f"elastic degraded {eng.membership_line()} " + json.dumps(dict(
+        degraded_steps_per_request=grew,
+        finite=bool(torch.isfinite(out).all()))))
+    if grew != STEPS or not bool(torch.isfinite(out).all()):
+        fail(f"one live slot under top-2: degraded_steps grew by {grew}")
+    return launches
+
+
+def _rolling_run(sched, engine, cfg, texts, seeds):
+    """Submit ``texts`` (one request every ``ARRIVAL_EVERY`` ticks) and
+    tick until idle.  Returns the handles, the wall seconds, the ticks and
+    the ``_advance`` calls (bucket ticks)."""
+    advances = [0]
+    real = sched._advance
+
+    def advance(bucket):
+        advances[0] += 1
+        return real(bucket)
+
+    sched._advance = advance
+    _sync(engine.device)
+    t0 = time.perf_counter()
+    handles = []
+    for seed, text in zip(seeds, texts):
+        handles.append(sched.submit(seed, text))
+        for _ in range(ARRIVAL_EVERY):
+            sched.step()
+    sched.run_until_idle()
+    results = [h.result() for h in handles]
+    _sync(engine.device)
+    return handles, results, time.perf_counter() - t0, advances[0]
+
+
+def serve_continuous(ops, engines, dev, dit_cfg) -> dict:
+    """Phase 11: continuous batching at full width on the native engine,
+    each run with the launch counts set to 0 just before and read just
+    after: requests of batch 1, 2, 1, 4, 2, 1, 3, 2 with text arriving
+    every 2 ticks into a rolling batch of 8 —
+
+    * ``steps_per_tick`` 1: each request against ``generate`` on the same
+      noise and text (bitwise or within ``E2E_REL_TOL``, printed), exactly
+      one ``hetero_fuse_step`` a bucket tick, img/s against one ``flush``
+      of the same requests;
+    * ``steps_per_tick`` 2: two step launches a bucket tick, the latents
+      against the run at 1 (other batch compositions; printed, held to
+      ``E2E_REL_TOL``, bitwise where the forwards are row-independent);
+    * plan reuse R 2: the router runs only on ticks where some row is at
+      its refresh phase (counted, against the host mirror's count);
+    * a profiled full tick (device busy, idle share, blocking copies;
+      host seconds beside device ms).
+    Returns the launches of each run."""
+    from repro_torch.serving import ContinuousScheduler
+    from repro_torch.serving.batch import advanced
+
+    eng = engines["native"]
+    texts = _texts(dit_cfg, ROLLING_BATCHES, 41)
+    seeds = [800 + i for i in range(len(texts))]
+    launches, runs = {}, {}
+    for spt in (1, 2):
+        sched = ContinuousScheduler(eng, max_resident=BATCH,
+                                    steps_per_tick=spt)
+        _sync(dev)
+        ops.reset_launches()
+        handles, outs, sec, adv = _rolling_run(sched, eng, dit_cfg, texts,
+                                               seeds)
+        name = f"rolling_spt{spt}"
+        launches[name] = dict(ops.LAUNCHES)
+        imgs = sum(ROLLING_BATCHES)
+        print(f"{name} " + json.dumps(dict(
+            requests=len(handles), images=imgs, ticks=sched.step_count,
+            bucket_ticks=adv, seconds=sec, img_per_s=imgs / sec,
+            launches=launches[name], line=sched.line())))
+        if launches[name]["hetero_fuse_step"] != adv * spt or \
+                any(h.state != "DONE" for h in handles):
+            fail(f"{name}: {launches[name]['hetero_fuse_step']} step "
+                 f"launches for {adv} bucket ticks of {spt} steps")
+        runs[spt] = outs
+    for i, (a, b) in enumerate(zip(runs[2], runs[1])):
+        _compare(f"rolling steps_per_tick 2 vs 1 request {i}", a, b)
+    bitwise = 0
+    for i, (seed, text, got) in enumerate(zip(seeds, texts, runs[1])):
+        want = eng.generate(seed, text, text.shape[0])
+        err = _compare(f"rolling vs generate request {i} batch "
+                       f"{text.shape[0]}", got, want)
+        bitwise += err == 0.0
+    print("rolling vs generate " + json.dumps(dict(
+        requests=len(texts), bitwise=bitwise)))
+    # which layer depends on the batch: the router posterior of one row
+    # alone against the same row in a batch of 8 (its GEMMs run M = 256
+    # and 2048 rows)
+    from repro_torch.core.sampling import _time_grid
+
+    x8 = eng._noise(850, BATCH)
+    t8 = _time_grid(STEPS)[0].to(dev).expand(BATCH)
+    p8 = eng.router_fn(x8, t8)
+    p1 = eng.router_fn(x8[:1], t8[:1])
+    print("router row 0 alone vs in a batch of 8 " + json.dumps(dict(
+        max_abs_diff=rel_err(p1, p8[:1])[0],
+        bitwise=bool(torch.equal(p1, p8[:1])))))
+
+    # the same requests through one lockstep flush
+    _sync(dev)
+    t0 = time.perf_counter()
+    handles = [eng.submit(s, t) for s, t in zip(seeds, texts)]
+    eng.flush()
+    [h.result() for h in handles]
+    _sync(dev)
+    sec = time.perf_counter() - t0
+    print("flush of the same requests " + json.dumps(dict(
+        images=sum(ROLLING_BATCHES), seconds=sec,
+        img_per_s=sum(ROLLING_BATCHES) / sec)))
+
+    # plan reuse R 2: the router only on ticks where some row refreshes
+    base = eng.sampler
+    real_router = eng.router_fn
+    calls = [0]
+
+    def router(x, t):
+        calls[0] += 1
+        return real_router(x, t)
+
+    eng.sampler = dataclasses.replace(base, plan_refresh_every=2)
+    eng.router_fn = router
+    try:
+        sched = ContinuousScheduler(eng, max_resident=BATCH)
+        want_calls = [0]
+        real_adv = sched._advance
+
+        def advance(bucket):
+            t = bucket.t_host
+            want_calls[0] += bool(((t < STEPS) & (t % 2 == 0)).any())
+            return real_adv(bucket)
+
+        sched._advance = advance
+        ops.reset_launches()
+        handles, _, sec, adv = _rolling_run(sched, eng, dit_cfg, texts,
+                                            seeds)
+        launches["rolling_R2"] = dict(ops.LAUNCHES)
+    finally:
+        eng.sampler, eng.router_fn = base, real_router
+    print("rolling_R2 " + json.dumps(dict(
+        bucket_ticks=adv, router_calls=calls[0],
+        router_calls_expected=want_calls[0], seconds=sec,
+        launches=launches["rolling_R2"])))
+    if calls[0] != want_calls[0] or calls[0] >= adv:
+        fail(f"rolling R 2: {calls[0]} router calls, expected "
+             f"{want_calls[0]} of {adv} ticks")
+
+    # a profiled full tick: 8 rows resident in flight
+    sched = ContinuousScheduler(eng, max_resident=BATCH)
+    for seed, text in zip(seeds[:4], _texts(dit_cfg, (2, 2, 2, 2), 42)):
+        sched.submit(seed, text)
+    sched.step()
+    sched.step()
+    _sync(dev)
+    t0 = time.perf_counter()
+    sched.step()
+    host_s = time.perf_counter() - t0
+    _sync(dev)
+    synced_s = time.perf_counter() - t0
+    profiled(sched.step, CATEGORIES, path="rolling_tick", rows=BATCH,
+             unprofiled_tick_host_s=host_s,
+             unprofiled_tick_synced_s=synced_s)
+    sched.run_until_idle()
+
+    return launches
+
+
+def serve_resilience(ops, engines, dev, path, dit_cfg, router_cfg) -> dict:
+    """Phase 12: the resilience layer at full width on the native engine,
+    and a short chaos soak on the closed-form toy ensemble:
+
+    * a watchdog trip, with the tick budget set to a quarter of a
+      measured tick: the request is re-queued, then FAILED;
+    * a breaker trip from a NaN-poisoned slot on a capacity-10 engine:
+      the request re-queues under a fresh snapshot and resolves finite;
+      the slot is healed, a canary probe passes and restores it;
+    * an expired deadline (``max_steps`` 2);
+    * kill-and-restore from a journal under ``build/chip_smoke/``: the
+      restored continuation bitwise an uninterrupted twin's;
+    * ``launch.chaos.run_soak`` for 60 ticks, its verdict printed.
+    Returns the launches of the kill-and-restore continuation."""
+    from repro_torch.core.fusion import fusion_weights
+    from repro_torch.core.sampling import _time_grid
+    from repro_torch.launch import chaos, faults
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.serving import (ContinuousScheduler, ResiliencePolicy,
+                                     ResilientScheduler)
+
+    eng = engines["native"]
+    text = _texts(dit_cfg, [1], 51)[0]
+
+    # the watchdog: a budget a quarter of a measured tick
+    probe = ContinuousScheduler(eng, max_resident=BATCH)
+    probe.submit(1000, text)
+    probe.step()
+    _sync(dev)
+    t0 = time.perf_counter()
+    probe.step()
+    tick_s = time.perf_counter() - t0
+    probe.run_until_idle()
+    sched = ResilientScheduler(
+        eng, max_resident=BATCH,
+        policy=ResiliencePolicy(tick_budget_s=tick_s / 4))
+    before = dict(eng.stats)
+    h = sched.submit(1001, text)
+    for _ in range(8):
+        sched.step()
+        if h.state == "FAILED":
+            break
+    trips = eng.stats["watchdog_trips"] - before["watchdog_trips"]
+    print("watchdog " + json.dumps(dict(
+        tick_s=tick_s, budget_s=tick_s / 4, trips=trips, state=h.state,
+        requeues=h.requeues)))
+    if trips < 1 or h.state != "FAILED":
+        fail(f"watchdog: {trips} trips, request {h.state}")
+
+    # an expired deadline
+    sched = ResilientScheduler(eng, max_resident=BATCH)
+    h = sched.submit(1002, text, max_steps=2)
+    sched.run_until_idle()
+    print("rolling deadline " + json.dumps(dict(
+        state=h.state, error=str(h.error))))
+    if h.state != "DEADLINE_EXCEEDED":
+        fail(f"max_steps 2 resolved {h.state}")
+
+    # the breaker: poison a slot the request routes to, trip, heal, probe
+    el = ServingEngine.from_checkpoint_dir(
+        path, dit_cfg=dit_cfg, router_cfg=router_cfg,
+        sampler=eng.sampler, capacity=10, device=dev)
+    noise = el._noise(1003, 2)
+    w = fusion_weights(el.experts, el.router_fn, noise,
+                       _time_grid(STEPS)[0].to(dev).expand(2),
+                       strategy="topk", top_k=2, valid=el.param_store.valid,
+                       cluster_map=el._cluster_map)
+    victim = int(w.sum(dim=0).argmax())
+    sched = ResilientScheduler(el, max_resident=BATCH,
+                               policy=ResiliencePolicy(probe_base_ticks=1))
+    clean = faults.poison_expert_runtime(el, victim)
+    h = sched.submit(1003, _texts(dit_cfg, [2], 52)[0])
+    for _ in range(STEPS + 1):
+        sched.step()
+    tripped = el.expert_health[victim]
+    sched.run_until_idle()
+    faults.heal_expert_runtime(el, victim, clean)
+    for _ in range(40):
+        sched.step()
+        if el.expert_health[victim] == "ACTIVE" and not sched.breaker.probation:
+            break
+    print("breaker " + json.dumps(dict(
+        slot=victim, tripped_to=tripped, request=h.state,
+        requeues=h.requeues, finite=bool(torch.isfinite(h.result()).all()),
+        restored_to=el.expert_health[victim])) + " " + el.membership_line())
+    if not (tripped == "PROBATION" and h.state == "DONE"
+            and el.expert_health[victim] == "ACTIVE"
+            and el.stats["breaker_restores"] >= 1):
+        fail("the breaker cycle trip -> probe -> restore did not complete")
+    del el, clean, sched
+    gc.collect()
+
+    # kill and restore from a journal
+    journal = os.path.join(WORK, "journal")
+    shutil.rmtree(journal, ignore_errors=True)
+    texts = _texts(dit_cfg, (1, 2, 1), 53)
+
+    def traffic(s):
+        return [s.submit(1100 + i, t) for i, t in enumerate(texts)]
+
+    dead = ResilientScheduler(eng, max_resident=BATCH, journal_dir=journal)
+    traffic(dead)
+    for _ in range(3):
+        dead.step()
+    dead.journal.close()
+    del dead                                   # the crash: no drain
+    twin = ResilientScheduler(eng, max_resident=BATCH)
+    want = traffic(twin)
+    twin.run_until_idle()
+    ops.reset_launches()
+    restored = eng.restore(journal)
+    got = {r.seq: r for b in restored._buckets.values()
+           for r in b.resident_requests()}
+    got.update({r.seq: r for r in restored._queue})
+    restored.run_until_idle()
+    launches = {"journal_restore": dict(ops.LAUNCHES)}
+    same = [torch.equal(got[s].result(), w.result())
+            for s, w in zip(sorted(got), want)]
+    print("kill and restore " + json.dumps(dict(
+        killed_at_tick=3, requests=len(got), bitwise=same,
+        launches=launches["journal_restore"])))
+    if len(same) != len(texts) or not all(same):
+        fail(f"journal restore differs from the uninterrupted twin: {same}")
+    shutil.rmtree(journal)
+
+    # a short chaos soak on the toy ensemble
+    soak_dir = os.path.join(WORK, "soak")
+    verdict = chaos.run_soak(60, 0, soak_dir, device=dev)
+    print("chaos soak " + json.dumps(verdict))
+    shutil.rmtree(soak_dir)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1987,6 +2560,7 @@ def main() -> None:
         fail("no CUDA device")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.models.config import dit_b2, router_b2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2045,8 +2619,21 @@ def main() -> None:
     profile_request(engines["fp8"], "fp8")
     profile_request(engines["native"], "full", strategy="full")
     profile_request(engines["native"], "threshold", strategy="threshold")
-    del engines
     phase_done("5 (DiT profiles)")
+    dit_cfg, router_cfg = dit_b2(), router_b2(num_clusters=len(MIX))
+    launches.update(serve_elastic(ops, engines, dev, DIT_PATH, dit_cfg,
+                                  router_cfg))
+    gc.collect()
+    phase_done("10 (elastic membership)")
+    launches.update(serve_continuous(ops, engines, dev, dit_cfg))
+    phase_done("11 (continuous batching)")
+    launches.update(serve_resilience(ops, engines, dev, DIT_PATH, dit_cfg,
+                                     router_cfg))
+    phase_done("12 (resilience)")
+    del engines
+    shutil.rmtree(DIT_PATH)
+    gc.collect()
+    torch.cuda.empty_cache()
     compare_gpu_cpu(ops, dev)
     phase_done("6 (DiT reduced GPU vs CPU)")
     gc.collect()

@@ -115,18 +115,29 @@ def plan_from_slots(slot_idx: torch.Tensor, slot_w: torch.Tensor,
 
 
 def routed_slots(weights: torch.Tensor, k: int, *, valid=None):
-    """Top-``k`` slot selection (the elastic ``valid`` guard is not ported
-    yet)."""
+    """Top-``k`` slot selection with the elastic-membership guard.
+
+    ``valid`` (``(K,)`` bool): a slot whose expert is dead — possible only
+    when ``k`` exceeds the live count, since masked fusion weights give
+    dead slots zero weight — is remapped to the first live expert at
+    weight exactly 0, so no plan names a slot whose bytes may be NaN.
+    The continuous scheduler carries these ``(slot_idx, slot_w)`` rows
+    across steps and rebuilds the plan with ``plan_from_slots``.
+    """
+    slot_idx, slot_w = topk_slots(weights, k)
     if valid is not None:
-        raise NotImplementedError(
-            "valid= (elastic membership) is not ported yet — ROADMAP.md, "
-            "module queue A.5")
-    return topk_slots(weights, k)
+        fallback = valid.to(torch.int8).argmax()          # first live slot
+        ok = valid[slot_idx]                              # (B, k)
+        slot_idx = torch.where(ok, slot_idx, fallback)
+        slot_w = torch.where(ok, slot_w, torch.zeros_like(slot_w))
+    return slot_idx, slot_w
 
 
 def make_dispatch_plan(weights: torch.Tensor, k: int, *,
                        uniform: bool = False, valid=None) -> DispatchPlan:
-    """Plan for routed execution: top-``k`` slots of the fusion weights."""
+    """Plan for routed execution: top-``k`` slots of the fusion weights,
+    dead slots remapped by ``routed_slots``: a dead expert is never
+    gathered, dequantized or run."""
     slot_idx, slot_w = routed_slots(weights, k, valid=valid)
     return plan_from_slots(slot_idx, slot_w, weights.shape[-1],
                            uniform=uniform)
@@ -172,6 +183,15 @@ def slot_coef(tab: torch.Tensor, idx_all: torch.Tensor) -> torch.Tensor:
     — the coefficient operand of ``kernels.ops.fused_step`` and
     ``kernels.ops.fused_velocity``."""
     return tab[:, idx_all].movedim(1, 2)
+
+
+def slot_coef_rows(tabs: torch.Tensor, idx_all: torch.Tensor) -> torch.Tensor:
+    """Per-row ``slot_coef`` of a mixed-timestep batch: row ``r`` carries
+    its own ``(5, K)`` table (``tabs`` ``(Bx, 5, K)``) and ``out[c, j, r] =
+    tabs[r, c, idx_all[r, j]]``, ``(5, k, Bx)``.  With every row's table
+    the same it equals ``slot_coef(tab, idx_all)`` bitwise."""
+    idx = idx_all[:, None, :].expand(-1, tabs.shape[1], -1)
+    return torch.gather(tabs, 2, idx).movedim(0, 2)
 
 
 def _next_pow2(n: int) -> int:

@@ -25,8 +25,6 @@ from repro_torch.core.conversion import (ConversionConfig, ddpm_flags,
                                          unify_prediction)
 from repro_torch.core.schedules import Schedule, get_schedule
 
-_NOT_PORTED = "not ported yet — ROADMAP.md, module queue A.5"
-
 
 @dataclasses.dataclass(frozen=True)
 class ExpertSpec:
@@ -143,15 +141,20 @@ def fusion_weights(
     weights are zeroed and the rest renormalized (a sample whose experts
     are all DDPM there keeps all-zero weights, as in the reference).
     ``strategy='threshold'`` never calls the router (``router_fn`` may be
-    None).  Elastic membership (``valid``, ``cluster_map``) is not ported
-    yet and raises.
+    None).
+
+    Elastic membership: ``valid`` (``(K,)`` bool) zeroes dead slots before
+    the strategy selects, so every strategy renormalizes over the live
+    experts once and a dead slot weighs exactly 0; ``cluster_map``
+    (``(K,)`` int, a tensor on the router's device) gathers the router
+    posterior's columns per slot in place of the specs' ``cluster_id``.
     """
-    if valid is not None or cluster_map is not None:
-        raise NotImplementedError(
-            f"valid=/cluster_map= (elastic membership) {_NOT_PORTED}")
     kk = len(experts)
     if strategy == "threshold":
         w = threshold_router_weights(t, kk, threshold=threshold)
+        if valid is not None:
+            w = w * valid[None, :]
+            w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-12)
     elif router_fn is None:
         if kk != 1:
             raise ValueError("router_fn required for multi-expert fusion")
@@ -160,12 +163,16 @@ def fusion_weights(
         probs = router_fn(x_t, t)                        # (B, num_clusters)
         # Map cluster posterior -> per-expert probs via each expert's
         # owned cluster (Eq. 1: p(k | x_t)).
-        if probs.shape[-1] != kk or any(
+        if cluster_map is not None:
+            probs = probs[:, cluster_map]
+        elif probs.shape[-1] != kk or any(
             e.cluster_id not in (-1, i) for i, e in enumerate(experts)
         ):
             cluster_ids = torch.tensor(
                 [max(e.cluster_id, 0) for e in experts], device=probs.device)
             probs = probs[:, cluster_ids]
+        if valid is not None:
+            probs = probs * valid[None, :]
         w = routing_weights(probs, strategy, top_k)
     if ddpm_low_noise_only > 0.0:
         is_ddpm = ddpm_flags(tuple(e.objective for e in experts), w.device)

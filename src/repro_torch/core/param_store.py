@@ -17,8 +17,18 @@ expand routed or sliced quantized bytes through
 ``kernels.ops.dequant_params`` (the ``hetero_fuse_dequant`` kernel on the
 card), and ``ragged_view`` hands the ragged executor the raw leaves —
 dense tensors, or ``QuantLeaf`` bundles of int8/fp8 bytes plus ``(K,)``
-scales that reach the ragged GEMM unexpanded.  Elastic membership
-(``set_expert``, ``with_valid``, ``pad_to_capacity``) is not ported yet.
+scales that reach the ragged GEMM unexpanded.
+
+Elastic membership: the leading expert axis is a *capacity*.
+``pad_to_capacity`` zero-pads every leaf to ``(K_cap, ...)`` (quantized
+scales pad with 1.0) and attaches a ``(K_cap,)`` bool ``valid`` mask on
+the store's device; ``None`` means every slot is live.  Routing zeroes
+dead slots (``core.fusion.fusion_weights``) and plans remap them to a
+live slot at weight 0 (``core.dispatch.routed_slots``), so no executor
+reads a dead slot's bytes.  Stores are functional: ``set_expert`` and
+``with_valid`` return new stores and never write the old one's leaves,
+so a request holding an older store as its admission-time snapshot is
+served unchanged.
 """
 
 from __future__ import annotations
@@ -42,6 +52,42 @@ def _tree_nbytes(tree: Any) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
+def _set_row(s: torch.Tensor, e: int, row) -> torch.Tensor:
+    """A copy of ``s`` with ``s[e]`` replaced by ``row`` (cast to ``s``'s
+    dtype); ``s`` itself is left as it is."""
+    out = s.clone()
+    out[e] = torch.as_tensor(row, device=s.device).to(s.dtype)
+    return out
+
+
+class _Membership:
+    """The elastic-membership methods both stores share."""
+
+    def _device(self) -> torch.device:
+        return tree_leaves(self._leaves())[0].device
+
+    def valid_mask(self) -> torch.Tensor:
+        """``(K,)`` bool: which capacity slots hold a live expert (all of
+        them for a store without a mask)."""
+        if self.valid is not None:
+            return self.valid
+        return torch.ones((self.num_experts,), dtype=torch.bool,
+                          device=self._device())
+
+    def with_valid(self, mask):
+        """A new store with ``valid`` replaced (same leaves)."""
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self._device()).to(
+                torch.bool)
+            if tuple(mask.shape) != (self.num_experts,):
+                raise ValueError(f"valid mask shape {tuple(mask.shape)} != "
+                                 f"({self.num_experts},)")
+        return dataclasses.replace(self, valid=mask)
+
+    def _nbytes_valid(self) -> int:
+        return 0 if self.valid is None else self.valid.numel()
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantLeaf:
     """One quantized stacked leaf and its per-expert scales, unexpanded:
@@ -61,13 +107,18 @@ def dequant_leaf(leaf):
 
 
 @dataclasses.dataclass(frozen=True)
-class DenseStore:
+class DenseStore(_Membership):
     """Dense stacked store: leaves at checkpoint precision (``native``) or
     cast to ``fp32``/``bf16`` (``storage``)."""
 
     stacked: Any
     num_experts: int
     storage: str = "native"
+    #: ``(K,)`` bool liveness mask, or None (every slot live).
+    valid: Any = None
+
+    def _leaves(self):
+        return self.stacked
 
     @classmethod
     def from_stacked(cls, stacked: Any,
@@ -88,7 +139,15 @@ class DenseStore:
 
     def static_slice(self, lo: int, hi: int) -> "DenseStore":
         return DenseStore(stacked=tree_map(lambda s: s[lo:hi], self.stacked),
-                          num_experts=hi - lo, storage=self.storage)
+                          num_experts=hi - lo, storage=self.storage,
+                          valid=None if self.valid is None
+                          else self.valid[lo:hi])
+
+    def set_expert(self, e: int, params: Any) -> "DenseStore":
+        """A new store with slot ``e`` holding ``params`` (cast to the
+        storage dtype); ``valid`` is left as it is."""
+        return dataclasses.replace(self, stacked=tree_map(
+            lambda s, p: _set_row(s, e, p), self.stacked, params))
 
     def materialize(self, dtype=None):
         if dtype is None:
@@ -100,7 +159,7 @@ class DenseStore:
         return self.stacked
 
     def nbytes(self) -> int:
-        return _tree_nbytes(self.stacked)
+        return _tree_nbytes(self.stacked) + self._nbytes_valid()
 
 
 def _quantize_leaf(x: torch.Tensor, storage: str):
@@ -118,7 +177,7 @@ def _quantize_leaf(x: torch.Tensor, storage: str):
 
 
 @dataclasses.dataclass(frozen=True)
-class QuantizedStore:
+class QuantizedStore(_Membership):
     """int8/fp8 stacked store with per-expert-per-leaf symmetric scales.
 
     ``qvals`` leaves are ``(K, ...)`` in the storage dtype, ``scales``
@@ -130,6 +189,11 @@ class QuantizedStore:
     scales: Any
     num_experts: int
     storage: str                           # 'int8' | 'fp8'
+    #: ``(K,)`` bool liveness mask, or None (every slot live).
+    valid: Any = None
+
+    def _leaves(self):
+        return self.qvals
 
     @classmethod
     def quantize(cls, stacked: Any, storage: str) -> "QuantizedStore":
@@ -166,7 +230,25 @@ class QuantizedStore:
         return QuantizedStore(
             qvals=tree_map(lambda q: q[lo:hi], self.qvals),
             scales=tree_map(lambda s: s[lo:hi], self.scales),
-            num_experts=hi - lo, storage=self.storage)
+            num_experts=hi - lo, storage=self.storage,
+            valid=None if self.valid is None else self.valid[lo:hi])
+
+    def set_expert(self, e: int, params: Any) -> "QuantizedStore":
+        """A new store with slot ``e`` holding ``params`` quantized as one
+        expert (``_quantize_leaf(p[None])``, so the slot's bytes and scale
+        are those of a store quantized with it from the start); ``valid``
+        is left as it is."""
+        def quantized(q, p):
+            p = torch.as_tensor(p, device=q.device)
+            return QuantLeaf(*_quantize_leaf(p[None], self.storage))
+
+        quant = tree_map(quantized, self.qvals, params)
+        return dataclasses.replace(
+            self,
+            qvals=tree_map(lambda q, a: _set_row(q, e, a.q[0]),
+                           self.qvals, quant),
+            scales=tree_map(lambda s, a: _set_row(s, e, a.scale[0]),
+                            self.scales, quant))
 
     def materialize(self, dtype=None):
         out = tree_map(self._dequant, self.qvals, self.scales)
@@ -180,7 +262,8 @@ class QuantizedStore:
                         self.qvals, self.scales)
 
     def nbytes(self) -> int:
-        return _tree_nbytes(self.qvals) + _tree_nbytes(self.scales)
+        return (_tree_nbytes(self.qvals) + _tree_nbytes(self.scales)
+                + self._nbytes_valid())
 
 
 def make_store(stacked: Any, *, dtype: str = "native"):
@@ -198,6 +281,34 @@ def make_store(stacked: Any, *, dtype: str = "native"):
         return DenseStore.from_stacked(
             tree_map(lambda x: x.to(target), stacked), storage=dtype)
     return QuantizedStore.quantize(stacked, dtype)
+
+
+def pad_to_capacity(store, capacity: int):
+    """Grow a store's expert axis to ``capacity`` slots: every leaf
+    zero-padded (quantized scales padded with 1.0, so a pad slot expands
+    to exact zeros), ``valid`` the old mask followed by dead slots.
+    ``num_experts`` is then the capacity."""
+    k = store.num_experts
+    if capacity < k:
+        raise ValueError(f"capacity {capacity} < current expert count {k}")
+    pad = capacity - k
+    valid = torch.cat([store.valid_mask(), torch.zeros(
+        (pad,), dtype=torch.bool, device=store._device())])
+
+    def pad_leaf(x, fill=0):
+        return torch.cat([x, torch.full((pad,) + tuple(x.shape[1:]), fill,
+                                        dtype=x.dtype, device=x.device)])
+
+    if isinstance(store, DenseStore):
+        return DenseStore(stacked=tree_map(pad_leaf, store.stacked),
+                          num_experts=capacity, storage=store.storage,
+                          valid=valid)
+    if isinstance(store, QuantizedStore):
+        return QuantizedStore(
+            qvals=tree_map(pad_leaf, store.qvals),
+            scales=tree_map(lambda s: pad_leaf(s, fill=1), store.scales),
+            num_experts=capacity, storage=store.storage, valid=valid)
+    raise TypeError(f"cannot pad {type(store).__name__}")
 
 
 def as_store(stacked_or_store: Any, *, dtype: str = "native"):

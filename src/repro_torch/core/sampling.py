@@ -29,6 +29,15 @@ batched) runs the cond and uncond branches as two forwards.
 per-run ``(S, 5, K)`` conversion tables are built once per run key
 (``coeff_tables_cached``) and indexed per step.
 
+Elastic engines pass a capacity store carrying a ``valid`` mask, and the
+per-slot ``(S, 5, K_cap)`` tables and ``(K_cap,)`` cluster map as tensors
+(``coeff_tables=``, ``cluster_map=``): routing renormalizes over the live
+slots and no executor touches a dead slot.
+
+``sample_ensemble_step`` is one Euler step of a mixed-timestep batch (the
+continuous scheduler's unit of work): each row at its own step index,
+one ``fused_step`` launch with a per-row ``dt``.
+
 Also here: ``sample_single_expert`` (Table 3's single-expert rows) and
 the native DDPM sampler ``sample_ddpm_ancestral``.
 """
@@ -46,8 +55,11 @@ from repro_torch.core.dispatch import (
     full_dispatch_plan,
     make_dispatch_plan,
     make_executor,
+    plan_from_slots,
     resolve_dispatch,
+    routed_slots,
     slot_coef,
+    slot_coef_rows,
 )
 from repro_torch.core.fusion import (
     ExpertSpec,
@@ -244,6 +256,8 @@ def _sample_fused(
     mode: str,
     init_noise: torch.Tensor,
     stacked_params=None,
+    coeff_tables=None,
+    cluster_map=None,
 ) -> torch.Tensor:
     K = len(experts)
     B = init_noise.shape[0]
@@ -266,6 +280,8 @@ def _sample_fused(
     # threshold router also serves expert sets that do not stack, through
     # the dense executor).
     stacked = as_store(stacked_params, dtype=config.param_dtype)
+    # a capacity store's liveness mask (None: every slot live)
+    valid = getattr(stacked, "valid", None)
     if stacked is None and params is None:
         raise ValueError(
             "params=None requires stacked_params (an ExpertParamStore or "
@@ -292,11 +308,14 @@ def _sample_fused(
             f"plan_refresh_every must be >= 1, got {refresh_every}")
 
     ts = _time_grid(config.num_steps).to(device)
-    tables = coeff_tables_cached(
-        tuple(e.objective for e in experts),
-        tuple(e.schedule for e in experts),
-        config.num_steps, conv,
-    ).to(device)                                          # (S, 5, K)
+    if coeff_tables is not None:
+        tables = coeff_tables.to(device)                  # (S, 5, K)
+    else:
+        tables = coeff_tables_cached(
+            tuple(e.objective for e in experts),
+            tuple(e.schedule for e in experts),
+            config.num_steps, conv,
+        ).to(device)                                      # (S, 5, K)
 
     # The forwards of one step: one batched [cond; uncond] forward, the
     # two branches of two-pass CFG (cond, then uncond), or one without CFG.
@@ -341,7 +360,7 @@ def _sample_fused(
     def make_plan(w):
         if backend == "dense" and not uniform:
             return full_dispatch_plan(w)
-        return make_dispatch_plan(w, k_slots, uniform=uniform)
+        return make_dispatch_plan(w, k_slots, uniform=uniform, valid=valid)
 
     update = fused_step_update if config.step_fused else velocity_update
     x = init_noise
@@ -355,6 +374,7 @@ def _sample_fused(
                 strategy=config.strategy, top_k=config.top_k,
                 threshold=config.threshold,
                 ddpm_low_noise_only=config.ddpm_low_noise_only,
+                valid=valid, cluster_map=cluster_map,
             ))                                            # (B, K) weights
         x = update(plan, x, tb, t_hi - t_lo, tables[i])
     return x
@@ -429,6 +449,8 @@ def sample_ensemble(
     init_noise: torch.Tensor | None = None,
     stacked_params=None,
     device=None,
+    coeff_tables=None,
+    cluster_map=None,
 ) -> torch.Tensor:
     """Euler-ODE sampling with router-weighted heterogeneous fusion.
 
@@ -442,7 +464,10 @@ def sample_ensemble(
     ``stacked_params`` (a store of ``core.param_store`` or a raw stacked
     tree, stored as ``config.param_dtype`` says) lets a long-lived engine
     stack its experts once; with it ``params`` may be None (the routed
-    engine only).  Returns the samples at t = 0.
+    engine only).  A store with a ``valid`` mask makes the fused engines
+    membership-aware; elastic engines also pass the ``(S, 5, K)``
+    ``coeff_tables`` and the ``(K,)`` ``cluster_map`` of their slots
+    (fused engines only).  Returns the samples at t = 0.
     """
     cond = cond or {}
     config = config if config is not None else SamplerConfig()
@@ -456,10 +481,196 @@ def sample_ensemble(
     init_noise = _initial_noise(shape, generator, init_noise, device,
                                 "sample_ensemble")
     if mode == "reference":
+        if coeff_tables is not None or cluster_map is not None:
+            raise ValueError(
+                "coeff_tables/cluster_map (elastic membership) require "
+                "the fused engines; the reference engine derives "
+                "coefficients from the static ExpertSpec list"
+            )
         return _sample_reference(experts, params, router_fn, cond,
                                  null_cond, config, init_noise)
     return _sample_fused(experts, params, router_fn, cond, null_cond,
-                         config, mode, init_noise, stacked_params)
+                         config, mode, init_noise, stacked_params,
+                         coeff_tables, cluster_map)
+
+
+def sample_ensemble_step(
+    experts: Sequence[ExpertSpec],
+    params: Sequence | None,
+    router_fn: Callable | None,
+    x: torch.Tensor,
+    t_idx: torch.Tensor,
+    slot_idx: torch.Tensor,
+    slot_w: torch.Tensor,
+    *,
+    t_host=None,
+    cond: dict | None = None,
+    null_cond: dict | None = None,
+    config: SamplerConfig | None = None,
+    engine: str = "auto",
+    stacked_params=None,
+    coeff_tables=None,
+    cluster_map=None,
+):
+    """One Euler step of a mixed-timestep batch (continuous batching).
+
+    Every row sits at its own index ``t_idx[r]`` on the shared
+    ``num_steps`` grid: ``0 <= t_idx < num_steps`` is active, any other
+    value (``num_steps`` for a free or finished row) is frozen — its
+    latent passes through unchanged and its index does not advance.  The
+    step gathers each row's ``(5, K)`` table, time and ``dt`` and makes
+    one ``kernels.ops.fused_step`` launch with a ``(B,)`` ``dt``.
+
+    ``slot_idx``/``slot_w`` (``(B, k)``, ``dispatch.routed_slots``) are
+    the carried routing, refreshed per row on the row's own phase
+    (``t_idx % plan_refresh_every == 0``).  The router runs only on a step
+    where some row refreshes; that is decided on the host from
+    ``t_host``, the caller's host mirror of ``t_idx`` (the rolling batch
+    keeps one), so the decision reads nothing from the device.  Without
+    ``t_host``, ``t_idx`` must be on the CPU.
+
+    Rolling equals lockstep row for row because every forward computes
+    row ``r`` from row ``r``'s inputs alone and the step kernel is
+    elementwise per row.  Needs the routed engine, ``strategy`` in
+    ``('top1', 'topk')`` and ``step_fused=True`` (the reference's
+    ``ValueError``s).  Returns the advanced ``(x, t_idx, slot_idx,
+    slot_w)`` as new tensors.
+    """
+    cond = cond or {}
+    config = config if config is not None else SamplerConfig()
+    if config.strategy not in ("top1", "topk"):
+        raise ValueError(
+            f"continuous batching requires per-sample routing (strategy "
+            f"in ('top1', 'topk')); strategy={config.strategy!r} plans "
+            f"are batch-uniform or dense and have no per-row meaning in "
+            f"a mixed-timestep batch"
+        )
+    if not config.step_fused:
+        raise ValueError(
+            "continuous batching runs on the step-fused hot path only "
+            "(step_fused=True): per-row dt is a fused-kernel operand"
+        )
+    mode = _resolve_engine(engine, experts, params, config)
+    if mode != "routed":
+        raise ValueError(
+            f"continuous batching requires the routed engine; this "
+            f"configuration resolved to {mode!r} (need a shared apply_fn "
+            f"with stackable params and >1 expert)"
+        )
+    K = len(experts)
+    B = x.shape[0]
+    device = x.device
+    conv = config.conversion
+    k_slots = 1 if config.strategy == "top1" else min(config.top_k, K)
+    if tuple(slot_idx.shape) != (B, k_slots) or \
+            tuple(slot_w.shape) != (B, k_slots):
+        raise ValueError(
+            f"slot state must be ({B}, {k_slots}); got "
+            f"slot_idx {tuple(slot_idx.shape)}, slot_w "
+            f"{tuple(slot_w.shape)}"
+        )
+    if t_host is None:
+        if t_idx.is_cuda:
+            raise ValueError(
+                "t_host (the host mirror of t_idx) is required for a "
+                "batch on the card: the router-skip decision reads no "
+                "device value")
+        t_host = t_idx.numpy()
+    slot_idx = slot_idx.to(torch.int64)
+    slot_w = slot_w.to(torch.float32)
+    t_idx = t_idx.to(torch.int64)
+
+    use_cfg = null_cond is not None and config.cfg_scale != 1.0
+    batched = use_cfg and config.batched_cfg \
+        and _cfg_batchable(cond, null_cond or {})
+
+    stacked = as_store(stacked_params, dtype=config.param_dtype)
+    if stacked is None and params is None:
+        raise ValueError(
+            "params=None requires stacked_params (an ExpertParamStore or "
+            "raw stacked pytree)"
+        )
+    if stacked is None:
+        stacked = make_store(stack_expert_params(params),
+                             dtype=config.param_dtype)
+    valid = getattr(stacked, "valid", None)
+    ragged_fn = experts[0].ragged_apply_fn
+    ragged_ok = ragged_fn is not None and all(
+        e.ragged_apply_fn is ragged_fn for e in experts)
+    backend = resolve_dispatch(config.dispatch, mode, True, False, ragged_ok)
+    executor = make_executor(
+        backend, apply_fns=[e.apply_fn for e in experts], params=params,
+        stacked_params=stacked, conv=conv,
+        ragged_apply_fn=ragged_fn if ragged_ok else None)
+
+    S = config.num_steps
+    refresh_every = int(config.plan_refresh_every)
+    if refresh_every < 1:
+        raise ValueError(
+            f"plan_refresh_every must be >= 1, got {refresh_every}")
+    ts = _time_grid(S).to(device)
+    if coeff_tables is not None:
+        tables = coeff_tables.to(device)                  # (S, 5, K)
+    else:
+        tables = coeff_tables_cached(
+            tuple(e.objective for e in experts),
+            tuple(e.schedule for e in experts), S, conv).to(device)
+    num_slots = tables.shape[-1]                          # capacity K
+
+    # Per-row grid state; frozen rows gather a clipped index whose values
+    # the ``active`` mask discards.
+    i = torch.clamp(t_idx, 0, S - 1)
+    active = (t_idx >= 0) & (t_idx < S)
+    tb = ts[i]
+    dt = ts[i] - ts[i + 1]
+    row_tab = tables[i]                                   # (B, 5, K)
+
+    # Each row refreshes its routing on its own phase; the router runs
+    # only when some row does (decided from the host mirror).
+    host_refresh = (t_host >= 0) & (t_host < S) \
+        & (t_host % refresh_every == 0)
+    if host_refresh.any():
+        refresh = active & (t_idx % refresh_every == 0)
+        w = fusion_weights(
+            experts, router_fn, x, tb,
+            strategy=config.strategy, top_k=config.top_k,
+            threshold=config.threshold,
+            ddpm_low_noise_only=config.ddpm_low_noise_only,
+            valid=valid, cluster_map=cluster_map)         # (B, K)
+        new_idx, new_w = routed_slots(w, k_slots, valid=valid)
+        slot_idx = torch.where(refresh[:, None], new_idx, slot_idx)
+        slot_w = torch.where(refresh[:, None], new_w, slot_w)
+    plan = plan_from_slots(slot_idx, slot_w, num_slots)
+
+    # CFG as in ``_sample_fused``; executors read the table only on the
+    # unfused path, so row 0's table fills the argument.
+    tab0 = tables[0]
+    if batched:
+        outs = [executor.predictions(
+            plan, x, tb, _cfg_grouped_cond(cond, null_cond or {}, B), 2,
+            tab0)]
+    elif use_cfg:
+        outs = [executor.predictions(
+            plan, x, tb, _cfg_grouped_cond(c, None, B), 1, tab0)
+            for c in (cond, dict(null_cond or {}))]
+    else:
+        outs = [executor.predictions(
+            plan, x, tb, _cfg_grouped_cond(cond, None, B), 1, tab0)]
+    if len(outs) == 1:
+        preds, w_all, idx_all = outs[0]
+    else:
+        preds = torch.cat([o[0] for o in outs], dim=1)
+        w_all = torch.cat([o[1] for o in outs], dim=0)
+        idx_all = torch.cat([o[2] for o in outs], dim=0)
+    g = 2 if use_cfg else 1
+    tab_all = row_tab if g == 1 else torch.cat([row_tab, row_tab])
+    x_step = ops.fused_step(
+        preds, x, w_all, slot_coef_rows(tab_all, idx_all), dt,
+        g=g, cfg_scale=config.cfg_scale if use_cfg else 1.0,
+        clamp=conv.clamp, alpha_min=conv.alpha_min)
+    mask = active.reshape((B,) + (1,) * (x.dim() - 1))
+    x = torch.where(mask, x_step, x)
+    return x, t_idx + active.to(torch.int64), slot_idx, slot_w
 
 
 def sample_single_expert(

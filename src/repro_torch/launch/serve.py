@@ -35,15 +35,30 @@ requests past their ``deadline_s``, isolates failures per group
 each request's latents back out.  ``track_padding`` counts the rows the
 expert forwards run against the routed rows (``padding_stats``).
 
-Command line (the reference CLI's plain and ``--coalesce`` modes)::
+Elastic membership (``capacity=``): the store pads to ``capacity`` slots
+with a liveness mask, and ``add_expert``, ``evict_expert``,
+``retire_expert``, ``quarantine_expert``, ``trip_expert`` and
+``restore_expert`` change membership by building new stores, never by
+writing the old one.  ``submit`` snapshots the membership, so a queued
+request is served as admitted whatever changes before its ``flush``.
+``from_checkpoint_dir(on_bad_checkpoint='skip')`` quarantines bad
+checkpoints and masks the slots they leave empty.  The continuous
+scheduler and the resilience layer (``repro_torch.serving``) drive the
+same engine one Euler step at a time; ``restore`` rebuilds a scheduler
+from its journal.
+
+Command line (the reference CLI's plain, ``--coalesce`` and
+``--continuous`` modes)::
 
     python -m repro_torch.launch.serve --ckpt-dir CKPTS --coalesce \
         --plan-refresh 2
+    python -m repro_torch.launch.serve --ckpt-dir CKPTS --continuous \
+        --capacity 10 --journal-dir JOURNAL
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when no GPU is present.  Only an explicit ``device="cpu"`` (CLI:
 ``--device cpu``) runs on the CPU (the kernels' plain versions), as the
-tests do.  Elastic membership, continuous batching and sharding are not
+tests do.  Sharding (``--expert-shards``, ``--data-shards``) is not
 ported yet.
 """
 
@@ -62,20 +77,32 @@ import numpy as np
 import torch
 
 from repro_torch.core.fusion import ExpertSpec
-from repro_torch.core.param_store import make_store
-from repro_torch.core.sampling import (SamplerConfig, params_are_stackable,
+from repro_torch.core.param_store import (DenseStore, make_store,
+                                          pad_to_capacity)
+from repro_torch.core.sampling import (SamplerConfig, coeff_tables_cached,
+                                       params_are_stackable,
                                        sample_ensemble)
 from repro_torch.models import dit as D
 from repro_torch.models.config import DiTConfig, dit_b2, router_b2
 from repro_torch.serving.resilience import (DeadlineExceeded, RequestFailed,
                                             RequestTimeout)
 from repro_torch.training.checkpoint import load_checkpoint
-from repro_torch.tree import tree_leaves, tree_structure
+from repro_torch.tree import tree_leaves, tree_map, tree_structure
 from repro_torch.weights import resolve_device
 
 #: ``expert7.npz`` / ``expert_07.npz`` → checkpoint index 7 (ordering
 #: fallback when the metadata carries no ``cluster_id``).
 _EXPERT_IDX_RE = re.compile(r"expert[_-]?(\d+)")
+
+#: Per-capacity-slot health states (elastic membership): ``EMPTY`` —
+#: capacity padding, never filled; ``ACTIVE`` — live and routable;
+#: ``DRAINING`` — ``retire_expert``: masked at once, ``EVICTED`` after the
+#: next ``flush`` serves the requests admitted under it; ``QUARANTINED``
+#: — masked for failed integrity checks; ``PROBATION`` — masked by the
+#: circuit breaker until a canary probe restores it; ``EVICTED`` —
+#: masked by ``evict_expert``, reusable by ``add_expert``.
+EXPERT_HEALTH_STATES = ("EMPTY", "ACTIVE", "DRAINING", "QUARANTINED",
+                        "PROBATION", "EVICTED")
 
 
 def _as_device_tensor(a, device) -> torch.Tensor:
@@ -128,6 +155,9 @@ class PendingRequest:
     dispatch); ``result()`` then raises the named error.  The request's
     noise comes from ``seed`` (an int or a ``torch.Generator``) at flush
     time, as ``generate`` draws it, unless ``noise`` is the exact array.
+    On an elastic engine it holds the membership it was admitted under
+    (``ServingEngine._membership``), so later membership changes cannot
+    change its output.
     """
 
     seed: int | torch.Generator | None
@@ -139,10 +169,14 @@ class PendingRequest:
     state: str = "QUEUED"
     error: BaseException | None = None
     requeues: int = 0
+    _membership: tuple | None = None
     #: global submission order, the FIFO key of re-queues.
     seq: int = -1
-    #: wall-clock seconds from submit after which ``flush`` expires it.
+    #: lifetime bounds: wall-clock seconds from submit, and scheduler
+    #: ticks from submit (None: unbounded).  ``flush`` enforces
+    #: ``deadline_s``; the resilient scheduler both, at tick boundaries.
     deadline_s: float | None = None
+    max_steps: int | None = None
     submit_t: float | None = None
 
     def result(self, timeout: float | None = None) -> torch.Tensor:
@@ -162,7 +196,12 @@ class PendingRequest:
                         seq=self.seq, requeues=self.requeues)
                 time.sleep(min(0.005, max(timeout, 1e-4)))
         if self.state == "DEADLINE_EXCEEDED":
-            raise self.error
+            if isinstance(self.error, DeadlineExceeded):
+                raise self.error
+            raise DeadlineExceeded(
+                f"request seq={self.seq} exceeded its deadline "
+                f"({self.requeues} requeue(s))",
+                seq=self.seq, requeues=self.requeues)
         if self.state == "FAILED":
             raise RequestFailed(
                 f"request seq={self.seq} failed after {self.requeues} "
@@ -192,6 +231,13 @@ class ServingEngine:
     max_request_requeues: int = 1
     #: count the rows the expert forwards run (``padding_stats``).
     track_padding: bool = False
+    #: elastic membership: the store pads to this many slots with a
+    #: liveness mask and the membership methods are enabled.  None keeps
+    #: the fixed-membership engine.
+    capacity: int | None = None
+    #: per-slot health at start (elastic; ``from_checkpoint_dir`` marks
+    #: the slots of quarantined checkpoints); default all ACTIVE.
+    initial_health: list | None = None
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -201,9 +247,16 @@ class ServingEngine:
         self.stats = {"requests": 0, "cond_cache_hits": 0,
                       "cond_cache_misses": 0, "plan_refreshes": 0,
                       "merged_batches": 0, "batched_requests": 0,
+                      "experts_added": 0, "experts_evicted": 0,
+                      "quarantined_checkpoints": 0, "degraded_steps": 0,
                       "request_requeues": 0, "failed_requests": 0,
                       "deadline_exceeded": 0, "padded_model_rows": 0,
-                      "routed_model_rows": 0, "model_steps": 0}
+                      "routed_model_rows": 0, "model_steps": 0,
+                      "watchdog_trips": 0, "breaker_trips": 0,
+                      "breaker_probes": 0, "breaker_restores": 0,
+                      "journal_snapshots": 0}
+        self.quarantine: list[dict] = []
+        self.elastic = self.capacity is not None
         if self.track_padding:
             self._count_executed_rows()
         self.homogeneous = len(self.experts) <= 1 or (
@@ -235,11 +288,296 @@ class ServingEngine:
         self.param_store = (
             make_store(D.stack_expert_params(self.expert_params), dtype=pd)
             if self.homogeneous and self.expert_params else None)
+        # the template ``add_expert`` checks a joining checkpoint against
+        self._slot_template = None
+        if self.expert_params:
+            self._slot_template = (
+                tree_structure(self.expert_params[0]),
+                [tuple(x.shape) for x in tree_leaves(self.expert_params[0])])
         if pd in ("int8", "fp8"):
             # The quantized store is the resident representation: drop the
             # float32 per-expert list so the byte saving is real (the dense
             # and reference engines need it, and raise without it).
             self.expert_params = None
+        self.expert_health = ["ACTIVE"] * len(self.experts)
+        self.membership_epoch = 0
+        if self.elastic:
+            self._init_elastic()
+
+    # -- elastic membership -------------------------------------------------
+
+    def _init_elastic(self) -> None:
+        k0 = len(self.experts)
+        if self.param_store is None:
+            raise ValueError(
+                "elastic serving (capacity=...) needs a homogeneous "
+                "ensemble with stackable params — the validity-masked "
+                "capacity layout lives in the stacked ExpertParamStore"
+            )
+        if self.capacity < k0:
+            raise ValueError(
+                f"capacity={self.capacity} < {k0} loaded experts")
+        if self.sampler.strategy not in ("top1", "topk"):
+            raise ValueError(
+                f"elastic serving requires per-sample routing (strategy "
+                f"'top1' or 'topk'); got {self.sampler.strategy!r}"
+            )
+        if self.engine not in ("auto", "routed"):
+            raise ValueError(
+                f"elastic serving requires the routed engine (engine "
+                f"'auto' or 'routed'); got {self.engine!r}"
+            )
+        if self.router_fn is None:
+            raise ValueError(
+                "elastic serving routes per sample; a router_fn is "
+                "required"
+            )
+        if self.sampler.ddpm_low_noise_only > 0.0:
+            raise ValueError(
+                "elastic serving is incompatible with ddpm_low_noise_only "
+                "> 0: the §7.3 gate bakes each slot's objective into the "
+                "trace, so a hot-added expert changing a slot's objective "
+                "would silently bypass it"
+            )
+        self.experts = list(self.experts)
+        health = (list(self.initial_health) if self.initial_health
+                  else ["ACTIVE"] * k0)
+        if len(health) != k0 or any(
+                h not in EXPERT_HEALTH_STATES for h in health):
+            raise ValueError(
+                f"initial_health must be {k0} states from "
+                f"{EXPERT_HEALTH_STATES}; got {health}"
+            )
+        # Capacity padding: EMPTY slots hold zero parameters, a placeholder
+        # spec (the slots' objectives reach the sampler through the
+        # coefficient tables) and a dead liveness bit.
+        for i in range(k0, self.capacity):
+            self.experts.append(dataclasses.replace(
+                self.experts[0], name=f"<empty:{i}>", objective="fm",
+                schedule="linear", cluster_id=0))
+        self.expert_health = health + ["EMPTY"] * (self.capacity - k0)
+        self.param_store = pad_to_capacity(self.param_store, self.capacity)
+        self.param_store = self.param_store.with_valid(
+            torch.tensor([h == "ACTIVE" for h in self.expert_health],
+                         device=self.device))
+        self._refresh_membership_arrays()
+
+    def _refresh_membership_arrays(self) -> None:
+        """Rebuild the slots' ``(S, 5, K_cap)`` coefficient tables and
+        ``(K_cap,)`` cluster map on the device from the slot specs (the
+        tables come from ``coeff_tables_cached``, a cache hit for a
+        membership seen before)."""
+        self._coeff_tables = coeff_tables_cached(
+            tuple(e.objective for e in self.experts),
+            tuple(e.schedule for e in self.experts),
+            self.sampler.num_steps, self.sampler.conversion,
+        ).to(self.device)
+        self._cluster_map = torch.tensor(
+            [max(e.cluster_id, 0) for e in self.experts],
+            dtype=torch.int64, device=self.device)
+
+    def _membership(self) -> tuple | None:
+        """The admission-time snapshot ``(epoch, store, tables, cluster
+        map, live slots)``: every part is immutable, so holding it pins a
+        request's routing whatever membership changes follow.  The live
+        count is read from the host-side health, never from the device."""
+        if not self.elastic:
+            return None
+        return (self.membership_epoch, self.param_store,
+                self._coeff_tables, self._cluster_map,
+                self.num_live_experts)
+
+    def _require_elastic(self, op: str) -> None:
+        if not self.elastic:
+            raise ValueError(
+                f"{op} requires an elastic engine — construct the "
+                f"ServingEngine with capacity=<K_cap> (or "
+                f"from_checkpoint_dir(capacity=...))"
+            )
+
+    @property
+    def num_live_experts(self) -> int:
+        return sum(h == "ACTIVE" for h in self.expert_health)
+
+    def _with_slot_valid(self, e: int, live: bool):
+        mask = self.param_store.valid_mask().clone()
+        mask[e] = live
+        return self.param_store.with_valid(mask)
+
+    def add_expert(self, ckpt_path: str, *, slot: int | None = None) -> int:
+        """Hot-add a contributor checkpoint into a free capacity slot.
+
+        The checkpoint is loaded and checked against the ensemble's
+        template (a failure is recorded in ``self.quarantine`` and
+        re-raised, the engine unchanged), written into the slot
+        (``store.set_expert``, quantized per ``sampler.param_dtype``),
+        the tables and cluster map rebuilt, and the slot's liveness bit
+        flipped last, in the same new store object.  Returns the slot.
+        """
+        self._require_elastic("add_expert")
+        if slot is None:
+            free = [i for i, h in enumerate(self.expert_health)
+                    if h in ("EMPTY", "EVICTED")]
+            if not free:
+                raise RuntimeError(
+                    f"no free capacity slot (capacity={self.capacity}, "
+                    f"health={self.expert_health}); evict or retire an "
+                    f"expert first"
+                )
+            slot = free[0]
+        elif self.expert_health[slot] in ("ACTIVE", "DRAINING"):
+            raise ValueError(
+                f"slot {slot} is {self.expert_health[slot]}; evict it "
+                f"before overwriting"
+            )
+        try:
+            params, meta = load_checkpoint(ckpt_path, device=self.device)
+            for field in ("objective", "schedule"):
+                if field not in meta:
+                    raise ValueError(
+                        f"{ckpt_path}: metadata missing {field!r} — not a "
+                        f"self-describing expert checkpoint"
+                    )
+            _validate_expert_params(params, self._slot_template, ckpt_path)
+        except (ValueError, FileNotFoundError) as e:
+            self.quarantine.append(
+                {"path": ckpt_path, "reason": str(e), "slot": None})
+            self.stats["quarantined_checkpoints"] += 1
+            raise
+        self.param_store = self.param_store.set_expert(slot, params)
+        self.param_store = self._with_slot_valid(slot, True)
+        cid = int(meta.get("cluster_id", slot))
+        self.experts[slot] = dataclasses.replace(
+            self.experts[0],
+            name=meta.get("name", os.path.basename(ckpt_path)),
+            objective=meta["objective"], schedule=meta["schedule"],
+            cluster_id=max(cid, 0))
+        self.expert_health[slot] = "ACTIVE"
+        self._refresh_membership_arrays()
+        self.membership_epoch += 1
+        self.stats["experts_added"] += 1
+        return slot
+
+    def _mask_slot(self, e: int, state: str) -> int:
+        if not (0 <= e < len(self.experts)):
+            raise IndexError(
+                f"expert slot {e} out of range [0, {len(self.experts)})")
+        if self.expert_health[e] not in ("ACTIVE", "DRAINING"):
+            raise ValueError(
+                f"slot {e} is {self.expert_health[e]}, not servable")
+        self.param_store = self._with_slot_valid(e, False)
+        self.expert_health[e] = state
+        self.membership_epoch += 1
+        return e
+
+    def evict_expert(self, e: int) -> int:
+        """Mask slot ``e`` at once (``EVICTED``).  New requests route over
+        the survivors; a request already submitted is served under its
+        admission-time snapshot, as a flush before the eviction would."""
+        self._require_elastic("evict_expert")
+        self._mask_slot(e, "EVICTED")
+        self.stats["experts_evicted"] += 1
+        return e
+
+    def retire_expert(self, e: int) -> int:
+        """Graceful eviction: masked at once, ``DRAINING`` until the next
+        ``flush`` serves the requests admitted under it, then ``EVICTED``
+        (and reusable by ``add_expert``)."""
+        self._require_elastic("retire_expert")
+        self._mask_slot(e, "DRAINING")
+        self.stats["experts_evicted"] += 1
+        return e
+
+    def quarantine_expert(self, e: int, reason: str = "") -> int:
+        """Mask slot ``e`` as ``QUARANTINED`` (suspect parameters at run
+        time) and record it."""
+        self._require_elastic("quarantine_expert")
+        self._mask_slot(e, "QUARANTINED")
+        self.quarantine.append({"path": self.experts[e].name,
+                                "reason": reason or "runtime", "slot": e})
+        self.stats["quarantined_checkpoints"] += 1
+        return e
+
+    def trip_expert(self, e: int, reason: str = "") -> int:
+        """Circuit-breaker trip: mask slot ``e`` as ``PROBATION`` (the
+        ``quarantine_expert`` masking path); canary probes
+        (``serving.resilience``) bring it back with ``restore_expert``."""
+        self._require_elastic("trip_expert")
+        self._mask_slot(e, "PROBATION")
+        self.quarantine.append({"path": self.experts[e].name,
+                                "reason": reason or "breaker trip",
+                                "slot": e})
+        self.stats["breaker_trips"] += 1
+        return e
+
+    def restore_expert(self, e: int) -> int:
+        """Unmask a ``PROBATION`` or ``QUARANTINED`` slot back to
+        ``ACTIVE`` (a new store with the bit set, epoch bumped)."""
+        self._require_elastic("restore_expert")
+        if not (0 <= e < len(self.experts)):
+            raise IndexError(
+                f"expert slot {e} out of range [0, {len(self.experts)})")
+        if self.expert_health[e] not in ("PROBATION", "QUARANTINED"):
+            raise ValueError(
+                f"slot {e} is {self.expert_health[e]}; only PROBATION/"
+                f"QUARANTINED slots can be restored"
+            )
+        self.param_store = self._with_slot_valid(e, True)
+        self.expert_health[e] = "ACTIVE"
+        self.membership_epoch += 1
+        return e
+
+    def _note_degraded(self, membership, steps: int | None = None) -> None:
+        """Count degraded-mode steps: serving with fewer live experts than
+        the routing width (the k slots renormalize over the survivors).
+        ``steps`` defaults to a dispatch's ``num_steps`` (a rolling tick
+        passes its own).  The live count is the snapshot's host-side one:
+        no device read."""
+        if membership is None:
+            return
+        n_live, store = membership[4], membership[1]
+        k_slots = 1 if self.sampler.strategy == "top1" \
+            else min(self.sampler.top_k, store.num_experts)
+        if n_live < k_slots:
+            self.stats["degraded_steps"] += (
+                self.sampler.num_steps if steps is None else steps)
+
+    def membership_line(self) -> str:
+        """One-line membership and fault summary (the CLI prints it)."""
+        s = self.stats
+        cap = self.capacity if self.elastic else len(self.experts)
+        probation = sum(h == "PROBATION" for h in self.expert_health)
+        return (f"membership: live={self.num_live_experts}/{cap} "
+                f"added={s['experts_added']} "
+                f"evicted={s['experts_evicted']} "
+                f"quarantined={s['quarantined_checkpoints']} "
+                f"degraded_steps={s['degraded_steps']} "
+                f"requeues={s['request_requeues']} "
+                f"failed={s['failed_requests']} "
+                f"probation={probation} "
+                f"trips={s['breaker_trips']} "
+                f"probes={s['breaker_probes']} "
+                f"restores={s['breaker_restores']} "
+                f"deadline_exceeded={s['deadline_exceeded']}")
+
+    def restore(self, journal_dir: str, **kwargs):
+        """Crash recovery: a resilient scheduler rebuilt from the journal
+        a previous process wrote, its in-flight requests re-admitted at
+        their last snapshot (``serving.resilience.ResilientScheduler.
+        restore``).  The engine must hold the checkpoints and membership
+        the journal was written under."""
+        from repro_torch.serving.resilience import ResilientScheduler
+
+        return ResilientScheduler.restore(self, journal_dir, **kwargs)
+
+    @property
+    def stacked_params(self):
+        """The dispatch substrate: a dense store's stacked tree; a
+        quantized store itself (its float32 leaves are never expanded
+        whole)."""
+        if isinstance(self.param_store, DenseStore):
+            return self.param_store.stacked
+        return self.param_store
 
     @classmethod
     def from_checkpoint_dir(
@@ -249,6 +587,8 @@ class ServingEngine:
         engine: str = "auto",
         param_dtype: str | None = None,
         cond_cache_size: int = 64,
+        capacity: int | None = None,
+        on_bad_checkpoint: str = "raise",
         track_padding: bool = False,
         device=None,
     ) -> "ServingEngine":
@@ -256,16 +596,27 @@ class ServingEngine:
 
         Experts are ordered numerically by cluster id (from each
         checkpoint's metadata, falling back to the ``expert<N>.npz``
-        filename index).  Duplicate cluster ids and holes in ``0..K-1``
-        raise ``ValueError``; so does a checkpoint without
-        ``objective``/``schedule`` metadata, and one (after the first in
-        path order, the template) whose tree structure or leaf shapes
-        differ from the first's or whose float leaves are not finite.
-        Parameters load onto ``device`` (``None`` → ``"cuda"``).
-        ``param_dtype``, when given, overrides ``sampler.param_dtype``.
-        Experts with a class head (``dit_cfg.num_classes``) publish no
-        ragged forward, so ``dispatch='auto'`` resolves to grouped.
+        filename index).  Duplicate cluster ids raise ``ValueError``; so
+        does a checkpoint without ``objective``/``schedule`` metadata, and
+        one (after the first in path order, the template) whose tree
+        structure or leaf shapes differ from the first's or whose float
+        leaves are not finite.  With ``on_bad_checkpoint='skip'`` such a
+        checkpoint is quarantined instead (``engine.quarantine``,
+        ``stats['quarantined_checkpoints']``) and the rest served; a
+        cluster id it leaves empty becomes a masked EMPTY slot, which
+        forces the elastic (capacity) path.  Otherwise holes in
+        ``0..K-1`` raise.  ``capacity`` reserves slots for
+        ``add_expert``.  Parameters load onto ``device`` (``None`` →
+        ``"cuda"``).  ``param_dtype``, when given, overrides
+        ``sampler.param_dtype``.  Experts with a class head
+        (``dit_cfg.num_classes``) publish no ragged forward, so
+        ``dispatch='auto'`` resolves to grouped.
         """
+        if on_bad_checkpoint not in ("raise", "skip"):
+            raise ValueError(
+                f"on_bad_checkpoint must be 'raise' or 'skip', "
+                f"got {on_bad_checkpoint!r}"
+            )
         dev = resolve_device(device)
         apply_fn = D.make_expert_apply(dit_cfg)
         ragged_fn = None
@@ -274,31 +625,43 @@ class ServingEngine:
         paths = glob.glob(os.path.join(ckpt_dir, "expert*.npz"))
         if not paths:
             raise FileNotFoundError(f"no expert*.npz under {ckpt_dir}")
-        loaded = []
+        loaded, quarantined = [], []
         template = None
         for path in sorted(paths):
-            p, meta = load_checkpoint(path, device=dev)
-            for field in ("objective", "schedule"):
-                if field not in meta:
-                    raise ValueError(
-                        f"{path}: missing '{field}' metadata — not a "
-                        f"self-describing expert checkpoint"
-                    )
-            cid = int(meta.get("cluster_id", -1))
-            if cid < 0:
-                m = _EXPERT_IDX_RE.search(os.path.basename(path))
-                if m is None:
-                    raise ValueError(
-                        f"{path}: no cluster_id metadata and no numeric "
-                        f"index in the filename — cannot place this expert"
-                    )
-                cid = int(m.group(1))
-            if template is None:
-                template = (tree_structure(p),
-                            [tuple(x.shape) for x in tree_leaves(p)])
-            else:
-                _validate_expert_params(p, template, path)
+            try:
+                p, meta = load_checkpoint(path, device=dev)
+                for field in ("objective", "schedule"):
+                    if field not in meta:
+                        raise ValueError(
+                            f"{path}: missing '{field}' metadata — not a "
+                            f"self-describing expert checkpoint"
+                        )
+                cid = int(meta.get("cluster_id", -1))
+                if cid < 0:
+                    m = _EXPERT_IDX_RE.search(os.path.basename(path))
+                    if m is None:
+                        raise ValueError(
+                            f"{path}: no cluster_id metadata and no "
+                            f"numeric index in the filename — cannot "
+                            f"place this expert"
+                        )
+                    cid = int(m.group(1))
+                if template is None:
+                    template = (tree_structure(p),
+                                [tuple(x.shape) for x in tree_leaves(p)])
+                else:
+                    _validate_expert_params(p, template, path)
+            except (ValueError, FileNotFoundError) as e:
+                if on_bad_checkpoint == "raise":
+                    raise
+                quarantined.append({"path": path, "reason": str(e)})
+                continue
             loaded.append((cid, path, p, meta))
+        if not loaded:
+            raise ValueError(
+                f"every expert checkpoint under {ckpt_dir} was "
+                f"quarantined: {[q['path'] for q in quarantined]}"
+            )
         seen: dict[int, str] = {}
         for cid, path, _, _ in loaded:
             if cid in seen:
@@ -308,24 +671,38 @@ class ServingEngine:
             seen[cid] = path
         n_slots = max(seen) + 1
         holes = sorted(set(range(n_slots)) - set(seen))
-        if holes:
+        if holes and on_bad_checkpoint == "raise":
             raise ValueError(
                 f"expert checkpoints must cover cluster ids 0..{n_slots - 1} "
                 f"exactly (the router posterior's columns are positional); "
                 f"got {sorted(seen)} — missing {holes}"
             )
-        loaded.sort(key=lambda item: item[0])
-        experts, params = [], []
-        for cid, path, p, meta in loaded:
-            experts.append(ExpertSpec(
-                name=meta.get("name", os.path.basename(path)),
-                objective=meta["objective"],
-                schedule=meta["schedule"],
-                apply_fn=apply_fn,
-                cluster_id=cid,
-                ragged_apply_fn=ragged_fn,
-            ))
-            params.append(p)
+        by_cid = {cid: (path, p, meta) for cid, path, p, meta in loaded}
+        experts, params, health = [], [], []
+        for cid in range(n_slots):
+            if cid in by_cid:
+                path, p, meta = by_cid[cid]
+                experts.append(ExpertSpec(
+                    name=meta.get("name", os.path.basename(path)),
+                    objective=meta["objective"],
+                    schedule=meta["schedule"],
+                    apply_fn=apply_fn,
+                    cluster_id=cid,
+                    ragged_apply_fn=ragged_fn,
+                ))
+                params.append(p)
+                health.append("ACTIVE")
+            else:
+                # a masked placeholder for a quarantined slot: zero
+                # parameters, never routed, never gathered
+                experts.append(ExpertSpec(
+                    name=f"<quarantined:{cid}>", objective="fm",
+                    schedule="linear", apply_fn=apply_fn, cluster_id=cid,
+                    ragged_apply_fn=ragged_fn))
+                params.append(tree_map(torch.zeros_like, loaded[0][2]))
+                health.append("EMPTY")
+        if holes and capacity is None:
+            capacity = n_slots                  # masking needs elastic mode
         router_fn = None
         router_path = os.path.join(ckpt_dir, "router.npz")
         if router_cfg is not None and os.path.exists(router_path):
@@ -334,14 +711,19 @@ class ServingEngine:
         sampler = sampler if sampler is not None else SamplerConfig()
         if param_dtype is not None:
             sampler = dataclasses.replace(sampler, param_dtype=param_dtype)
-        return cls(
+        eng = cls(
             experts=experts, expert_params=params, router_fn=router_fn,
             latent_shape=(dit_cfg.latent_size, dit_cfg.latent_size,
                           dit_cfg.latent_channels),
             sampler=sampler,
             engine=engine, cond_cache_size=cond_cache_size, device=dev,
-            track_padding=track_padding,
+            track_padding=track_padding, capacity=capacity,
+            initial_health=health if capacity is not None else None,
         )
+        if quarantined:
+            eng.quarantine.extend(quarantined)
+            eng.stats["quarantined_checkpoints"] += len(quarantined)
+        return eng
 
     # -- cross-request conditioning cache -----------------------------------
 
@@ -458,18 +840,26 @@ class ServingEngine:
                            generator=gen, dtype=torch.float32,
                            device=self.device)
 
-    def _sample(self, noise: torch.Tensor, text) -> torch.Tensor:
+    def _sample(self, noise: torch.Tensor, text,
+                membership=None) -> torch.Tensor:
         """One sampler dispatch from ``noise``; with text, batched CFG
-        against the learned null embedding."""
+        against the learned null embedding.  An elastic engine serves
+        under ``membership`` (a ``_membership`` snapshot; default the
+        current one)."""
         has_text = text is not None
         self._count_dispatch(noise.shape[0], has_text)
+        store, tables, cmap = self.param_store, None, None
+        if self.elastic:
+            membership = membership or self._membership()
+            _, store, tables, cmap, _ = membership
+            self._note_degraded(membership)
         return sample_ensemble(
             self.experts, self.expert_params, self.router_fn,
             tuple(noise.shape),
             cond={"text_emb": text} if has_text else None,
             null_cond={"text_emb": None} if has_text else None,
             config=self.sampler, engine=self.engine, init_noise=noise,
-            stacked_params=self.param_store,
+            stacked_params=store, coeff_tables=tables, cluster_map=cmap,
         )
 
     def generate(self, seed_or_generator, batch_text_emb, batch_size: int,
@@ -502,7 +892,8 @@ class ServingEngine:
         The noise comes from the request's own seed (or ``noise``) at
         flush time, so a coalesced request samples what ``generate``
         would from that seed.  A request still queued ``deadline_s``
-        seconds after submit is expired by the next ``flush()``.
+        seconds after submit is expired by the next ``flush()``.  On an
+        elastic engine the request snapshots the current membership.
         """
         if batch_size is None:
             batch_size = text_emb.shape[0] if text_emb is not None else 1
@@ -511,7 +902,8 @@ class ServingEngine:
                              f"batch_size {batch_size}")
         req = PendingRequest(
             seed=seed_or_generator, text_emb=self._cached_cond(text_emb),
-            batch_size=batch_size, noise=noise, seq=self._next_seq(),
+            batch_size=batch_size, noise=noise,
+            _membership=self._membership(), seq=self._next_seq(),
             deadline_s=deadline_s, submit_t=time.monotonic())
         self._queue.append(req)
         self.stats["requests"] += 1
@@ -522,7 +914,8 @@ class ServingEngine:
 
         Latent shape and sampler config are the engine's, so requests are
         compatible when their conditioning signature is (text present and
-        its trailing shape).  Each group is one sampler dispatch over the
+        its trailing shape) and, on an elastic engine, so is the
+        membership epoch they were admitted under.  Each group is one sampler dispatch over the
         merged batch padded to the next power of two (zero noise, zero
         text), and each request's rows are sliced back out.  A failing
         group re-queues only its own requests, each at most
@@ -549,11 +942,13 @@ class ServingEngine:
         for req in live:
             sig = (req.text_emb is not None,
                    tuple(req.text_emb.shape[1:])
-                   if req.text_emb is not None else ())
+                   if req.text_emb is not None else (),
+                   req._membership[0] if req._membership is not None
+                   else -1)
             groups.setdefault(sig, []).append(req)
         self._queue = []
         ok = 0
-        for (has_text, text_tail), reqs in groups.items():
+        for (has_text, text_tail, _epoch), reqs in groups.items():
             try:
                 self._dispatch_group(has_text, text_tail, reqs)
                 ok += 1
@@ -568,6 +963,11 @@ class ServingEngine:
                         self.stats["request_requeues"] += 1
                         self._queue.append(r)
         self._queue.sort(key=lambda r: r.seq)
+        if self.elastic:
+            # DRAINING slots held for their in-flight snapshots are done
+            for i, h in enumerate(self.expert_health):
+                if h == "DRAINING":
+                    self.expert_health[i] = "EVICTED"
         return ok
 
     def _dispatch_group(self, has_text: bool, text_tail: tuple,
@@ -586,7 +986,10 @@ class ServingEngine:
                                         dtype=text[0].dtype,
                                         device=self.device))
             text = torch.cat(text)
-        out = self._sample(torch.cat(noise), text)
+        noise = torch.cat(noise)
+        membership = reqs[0]._membership
+        out = (self._sample(noise, text) if membership is None
+               else self._sample(noise, text, membership))
         self.stats["merged_batches"] += 1
         self.stats["batched_requests"] += len(reqs)
         off = 0
@@ -601,10 +1004,6 @@ class ServingEngine:
 #: flag -> (default, ROADMAP.md module queue item)
 _UNPORTED_FLAGS = {
     "expert_shards": (1, "A.8"), "data_shards": (None, "A.8"),
-    "continuous": (False, "A.6"), "max_resident": (8, "A.6"),
-    "max_queue": (256, "A.6"), "arrival_every": (2, "A.6"),
-    "tick_budget": (None, "A.6"), "journal_dir": (None, "A.6"),
-    "capacity": (None, "A.5"), "on_bad_checkpoint": ("raise", "A.5"),
 }
 
 
@@ -612,8 +1011,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
         description="Serve a directory of DiT expert checkpoints (and "
-                    "router.npz) on the port: the reference CLI's plain "
-                    "and --coalesce modes.")
+                    "router.npz) on the port: the reference CLI's plain, "
+                    "--coalesce and --continuous modes.")
     ap.add_argument("--ckpt-dir", required=True)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--requests", type=int, default=2)
@@ -645,10 +1044,41 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--coalesce", action="store_true",
                     help="drive requests through submit()/flush() instead "
                          "of per-request generate()")
+    ap.add_argument("--continuous", action="store_true",
+                    help="drive requests through the rolling "
+                         "mixed-timestep scheduler (repro_torch.serving): "
+                         "requests join and leave the batch at step "
+                         "boundaries instead of lockstep flushing")
+    ap.add_argument("--max-resident", type=int, default=8,
+                    help="rolling-batch capacity per shape bucket "
+                         "(continuous mode)")
+    ap.add_argument("--max-queue", type=int, default=256,
+                    help="scheduler queue-depth bound before submit() "
+                         "raises QueueBackpressure (continuous mode)")
+    ap.add_argument("--arrival-every", type=int, default=2,
+                    help="continuous mode: submit one request every N "
+                         "scheduler ticks (staggered arrivals)")
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="--continuous: each request's deadline in "
                          "seconds (ignored in the plain and --coalesce "
                          "modes, as in the reference CLI)")
+    ap.add_argument("--tick-budget", type=float, default=None,
+                    help="continuous mode: wall-clock watchdog budget per "
+                         "bucket tick; a slower tick fails only that "
+                         "bucket, retried after a bounded backoff")
+    ap.add_argument("--journal-dir", default=None,
+                    help="continuous mode: write the crash-recovery "
+                         "request journal here; recover with "
+                         "ServingEngine.restore(journal_dir)")
+    ap.add_argument("--capacity", type=int, default=None,
+                    help="expert-slot capacity (>= checkpoint count): pads "
+                         "the store with masked EMPTY slots and enables "
+                         "elastic membership")
+    ap.add_argument("--on-bad-checkpoint", default="raise",
+                    choices=("raise", "skip"),
+                    help="'skip' quarantines corrupt, truncated or "
+                         "mismatched expert checkpoints and serves the "
+                         "rest instead of refusing to start")
     ap.add_argument("--track-padding", action="store_true",
                     help="count executed against routed expert rows and "
                          "print them per step (plain mode)")
@@ -658,23 +1088,15 @@ def _parser() -> argparse.ArgumentParser:
     # parsed, not ported: a non-default value raises
     ap.add_argument("--expert-shards", type=int, default=1)
     ap.add_argument("--data-shards", type=int, default=None)
-    ap.add_argument("--continuous", action="store_true")
-    ap.add_argument("--max-resident", type=int, default=8)
-    ap.add_argument("--max-queue", type=int, default=256)
-    ap.add_argument("--arrival-every", type=int, default=2)
-    ap.add_argument("--tick-budget", type=float, default=None)
-    ap.add_argument("--journal-dir", default=None)
-    ap.add_argument("--capacity", type=int, default=None)
-    ap.add_argument("--on-bad-checkpoint", default="raise",
-                    choices=("raise", "skip"))
     return ap
 
 
 def main(argv=None) -> None:
-    """The reference CLI's plain and ``--coalesce`` modes, printing its
-    lines less ``traces=`` (the port compiles no per-shape trace).  Text
-    embeddings come from ``torch.Generator`` seed r, so the latents differ
-    from the reference CLI's; the engine tests hold parity."""
+    """The reference CLI's plain, ``--coalesce`` and ``--continuous``
+    modes, printing its lines less ``traces=`` (the port compiles no
+    per-shape trace).  Text embeddings come from ``torch.Generator`` seed
+    r, so the latents differ from the reference CLI's; the engine tests
+    hold parity."""
     args = _parser().parse_args(argv)
     for name, (default, item) in _UNPORTED_FLAGS.items():
         if getattr(args, name) != default:
@@ -694,10 +1116,13 @@ def main(argv=None) -> None:
             step_fused=not args.no_step_fuse,
             plan_refresh_every=args.plan_refresh),
         engine=args.engine, cond_cache_size=args.cond_cache,
+        capacity=args.capacity, on_bad_checkpoint=args.on_bad_checkpoint,
         track_padding=args.track_padding, device=args.device)
     print(f"loaded {len(engine.experts)} experts "
           f"({[e.objective for e in engine.experts]}) "
           f"homogeneous={engine.homogeneous} mesh=None")
+    if engine.elastic:
+        print(engine.membership_line())
 
     def text(r):
         # a host array, as a remote text encoder delivers it — the form
@@ -710,6 +1135,43 @@ def main(argv=None) -> None:
         if engine.device.type == "cuda":
             torch.cuda.synchronize(engine.device)
 
+    if args.continuous:
+        from repro_torch.serving import (ContinuousScheduler,
+                                         ResiliencePolicy,
+                                         ResilientScheduler)
+
+        resilient = (args.deadline_s is not None
+                     or args.tick_budget is not None
+                     or args.journal_dir is not None)
+        if resilient:
+            sched = ResilientScheduler(
+                engine, max_resident=args.max_resident,
+                max_queue_depth=args.max_queue,
+                policy=ResiliencePolicy(tick_budget_s=args.tick_budget),
+                journal_dir=args.journal_dir)
+        else:
+            sched = ContinuousScheduler(
+                engine, max_resident=args.max_resident,
+                max_queue_depth=args.max_queue)
+        t0 = time.time()
+        handles = []
+        for r in range(args.requests):
+            kw = dict(deadline_s=args.deadline_s) if resilient else {}
+            handles.append(sched.submit(r, text(r), **kw))
+            for _ in range(max(args.arrival_every, 0)):
+                sched.step()
+        sched.run_until_idle()
+        outs = [h.result() for h in handles]
+        sync()
+        dt = time.time() - t0
+        n = sum(o.shape[0] for o in outs)
+        print(f"continuous {len(handles)} requests in "
+              f"{sched.step_count} ticks: {n} imgs in {dt:.2f}s "
+              f"({n / dt:.1f} img/s)")
+        print(sched.line())
+        if engine.elastic:
+            print(engine.membership_line())
+        return
     if args.coalesce:
         t0 = time.time()
         # As the reference: --deadline-s acts under --continuous only.
@@ -726,6 +1188,8 @@ def main(argv=None) -> None:
               f"cond_misses={engine.stats['cond_cache_misses']} "
               f"plan_refreshes={engine.stats['plan_refreshes']} "
               f"(R={args.plan_refresh}, {args.steps} steps/dispatch)")
+        if engine.elastic:
+            print(engine.membership_line())
         return
     for r in range(args.requests):
         t0 = time.time()
@@ -744,6 +1208,8 @@ def main(argv=None) -> None:
         print(f"padding: padded_rows/step={ps['padded_rows_per_step']:.2f} "
               f"routed_rows/step={ps['routed_rows_per_step']:.2f} "
               f"overhead={ps['padding_overhead']:.3f}")
+    if engine.elastic:
+        print(engine.membership_line())
 
 
 if __name__ == "__main__":

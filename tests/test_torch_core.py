@@ -177,19 +177,6 @@ def test_fusion_weights_match_jax(strategy, k, cids):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
 
 
-def test_unported_routing_options_raise():
-    """Elastic membership (``valid=``, ``cluster_map=``) is ROADMAP A.5."""
-    args = ([_spec(0), _spec(1)], lambda x, t: torch.ones(2, 2) / 2,
-            torch.zeros(2, 1), torch.zeros(2))
-    for kw in (dict(valid=torch.ones(2, dtype=torch.bool)),
-               dict(cluster_map=torch.arange(2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*A.5"):
-            fusion.fusion_weights(*args, strategy="topk", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A.5"):
-        dispatch.make_dispatch_plan(torch.ones(2, 2), 1,
-                                    valid=torch.ones(2, dtype=torch.bool))
-
-
 def _toy_ragged_np(view, x_p, t_p, cond, pe, g, xp):
     """A ragged forward whose output identifies (pair, replica, expert):
     ``x·(e+1) + t + 10·j + text-sum`` — any permutation slip shows."""

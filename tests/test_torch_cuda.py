@@ -900,3 +900,81 @@ def test_mamba2_forward_runs_the_scan_kernel(cuda):
     for lg, pos in ((last, 47), (step, 48)):
         err = (lg.cpu() - want[:, pos]).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("param_dtype", ["native", "int8", "fp8"])
+def test_capacity_padded_ragged_gemm_skips_dead_slots(cuda, param_dtype):
+    """A capacity-10 store of 8 experts with slot 3 evicted and NaN in
+    slots 3 and 9: the routed slots (``routed_slots`` with the mask)
+    never name them, so the ragged GEMM's rows are finite and equal the
+    plain version over the clean weights (float32 and fp8 within
+    ``1e-5``, int8 bitwise) at a tiled width (m 256) and a narrow one
+    (m 1)."""
+    from repro_torch.core.dispatch import routed_slots
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    k, d, f = 8, 768, 768
+    clean = param_store.make_store(
+        {"w": torch.randn(k, d, f, generator=gen, device=cuda) / d ** 0.5},
+        dtype=param_dtype)
+    store = param_store.pad_to_capacity(clean, 10)
+    mask = store.valid_mask().clone()
+    mask[3] = False
+    nan = {"w": torch.full((d, f), float("nan"), device=cuda)}
+    store = store.set_expert(3, nan).set_expert(9, nan).with_valid(mask)
+    weights = torch.softmax(torch.randn(16, 10, generator=gen, device=cuda),
+                            -1) * mask
+    slot_idx, _ = routed_slots(weights, 2, valid=store.valid)
+    pe = slot_idx.reshape(-1)
+    assert not bool(((pe == 3) | (pe == 9)).any())
+    leaf = store.ragged_view()["w"]
+    want_leaf = clean.ragged_view()["w"]
+    for m in (256, 1):
+        x = torch.randn(32, m, d, generator=gen, device=cuda)
+        if param_dtype == "native":
+            got = ops.ragged_expert_matmul(x, leaf, pe)
+            want = ops.ragged_expert_matmul(x.cpu(), want_leaf.cpu(),
+                                            pe.cpu())
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                       atol=1e-5)
+        else:
+            got = ops.ragged_expert_matmul(x, leaf.q, pe,
+                                           w_scale=leaf.scale)
+            want = ops.ragged_expert_matmul(
+                x.cpu(), want_leaf.q.cpu(), pe.cpu(),
+                w_scale=want_leaf.scale.cpu())
+            if m > 1 and param_dtype == "int8":
+                assert torch.equal(got.cpu(), want)
+            else:                 # float32 sums (m 1: dequantized weights)
+                err = (got.cpu() - want).abs().max().item()
+                assert err <= 1e-5 * want.abs().max().item(), err
+        assert bool(torch.isfinite(got).all())
+
+
+def test_per_row_dt_step_at_the_rolling_capacity(cuda):
+    """The rolling tick's step: a batch of 8 rows at 8 different steps
+    (a ``(8,)`` dt, per-row coefficient slices from ``slot_coef_rows``),
+    K 2, batched CFG, at the full-width latent: bitwise the plain version,
+    and each row bitwise a shared-dt launch at that row's dt."""
+    from repro_torch.core.dispatch import slot_coef_rows
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    b, k, t = 8, 2, 4096
+    preds = 4 * torch.randn(k, 2 * b, t, generator=gen, device=cuda)
+    x = 3 * torch.randn(b, t, generator=gen, device=cuda)
+    w = torch.rand(2 * b, k, generator=gen, device=cuda)
+    tabs = 1.5 * torch.rand(8, 5, 10, generator=gen, device=cuda)
+    idx = torch.randint(0, 10, (2 * b, k), generator=gen, device=cuda)
+    coef = slot_coef_rows(torch.cat([tabs, tabs]), idx)
+    dt = torch.rand(b, generator=gen, device=cuda)
+    ops.reset_launches()
+    got = ops.fused_step(preds, x, w, coef, dt, g=2, **STEP_KW)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["hetero_fuse_step"] == 1
+    want = ref.ref_hetero_fuse_step(preds.reshape(k, 2, b, t), x,
+                                    w.reshape(2, b, k),
+                                    coef.reshape(5, k, 2, b), dt, **STEP_KW)
+    assert torch.equal(got, want)
+    for r in range(b):
+        one = ops.fused_step(preds, x, w, coef, dt[r:r + 1], g=2, **STEP_KW)
+        assert torch.equal(got[r], one[r])

@@ -141,9 +141,14 @@ def test_engine_orders_experts_and_counts(ensemble):
                          "cond_cache_misses": 1,
                          "plan_refreshes": 3 * STEPS,
                          "merged_batches": 0, "batched_requests": 0,
+                         "experts_added": 0, "experts_evicted": 0,
+                         "quarantined_checkpoints": 0, "degraded_steps": 0,
                          "request_requeues": 0, "failed_requests": 0,
                          "deadline_exceeded": 0, "padded_model_rows": 0,
-                         "routed_model_rows": 0, "model_steps": 0}
+                         "routed_model_rows": 0, "model_steps": 0,
+                         "watchdog_trips": 0, "breaker_trips": 0,
+                         "breaker_probes": 0, "breaker_restores": 0,
+                         "journal_snapshots": 0}
 
 
 def test_default_device_is_the_gpu():

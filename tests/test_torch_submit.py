@@ -277,10 +277,6 @@ def test_cli_prints_the_reference_lines(ensemble, capsys, monkeypatch,
 
 @pytest.mark.parametrize("flag,item", [
     (["--expert-shards", "2"], "A.8"), (["--data-shards", "1"], "A.8"),
-    (["--continuous"], "A.6"), (["--max-resident", "4"], "A.6"),
-    (["--max-queue", "8"], "A.6"), (["--arrival-every", "1"], "A.6"),
-    (["--tick-budget", "1.0"], "A.6"), (["--journal-dir", "j"], "A.6"),
-    (["--capacity", "9"], "A.5"), (["--on-bad-checkpoint", "skip"], "A.5"),
 ], ids=lambda v: v[0] if isinstance(v, list) else v)
 def test_cli_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError,
