@@ -34,7 +34,13 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    scan kernel at mamba2-2.7b's mixer shape (bf16 and float32 strided
    views of the projection, and ``S`` < chunk; its C·Bᵀ prep first against
    its own plain version), timed beside its plain (sequential) version and
-   the plain chunked algorithm in PyTorch;
+   the plain chunked algorithm in PyTorch; then the two backward kernels
+   at the training shapes (batch 32 of DiT-B/2): the AdaLN backward at a
+   modulate site (and without γ) and the attention backward from the
+   forward's log-sum-exp, each against its plain version's gradients
+   (and bitwise repeatable), timed beside its plain version and the
+   library's backward (``F.layer_norm`` + the modulation's elementwise
+   ops; ``scaled_dot_product_attention``);
 4. loads the full-width heterogeneous DiT-B/2 ensemble — 8 random,
    seeded experts (2 DDPM/cosine + 6 FM/linear) and a router, written to
    checkpoints and loaded once with ``ServingEngine.from_checkpoint_dir``
@@ -74,7 +80,9 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    latents; int8 and fp8 replay every GEMM, dequant, AdaLN and attention
    call of the GPU request on the CPU with the same inputs (their
    latents' spread is printed beside the CPU run's own under a 2-ulp
-   change of its noise);
+   change of its noise); and one training step (loss, every gradient
+   leaf, the parameters after AdamW) of a reduced DDPM expert, FM expert
+   and router, from the same draws;
 7. serves the decentralized LM-expert ensemble at the full width of
    mamba2-2.7b (64 layers, d 2560, 80 SSD heads, vocab 50280, bf16): two
    random, seeded experts built on the card with the port's ``init``, a
@@ -96,7 +104,9 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    ``--coalesce --deadline-s 0``, ``--continuous --capacity 10
    --journal-dir …`` and ``--on-bad-checkpoint skip`` over a copy with one
    truncated checkpoint; each must exit 0, serve every request and print
-   its lines;
+   its lines; beside them the training CLI, ``python -m
+   repro_torch.launch.train --mode expert --steps 20 --out …``, must exit
+   0 and write a checkpoint that loads;
 10. (after phase 5, over phase 4's checkpoints) elastic membership at full
    width: capacity-10 native and int8 engines, all-live against the
    fixed engine, a request submitted before an eviction bitwise its
@@ -113,7 +123,17 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
 12. the resilience layer: a watchdog trip, a breaker trip from a poisoned
    slot through heal, canary and restore, an expired deadline,
    kill-and-restore from a journal (bitwise an uninterrupted twin) and a
-   60-tick chaos soak on the toy ensemble.
+   60-tick chaos soak on the toy ensemble;
+13. (after phase 6) training at full DiT-B/2 width: clusters fitted on a
+   seeded synthetic corpus (latent 32, 2 clusters), a random class-free
+   DiT-B/2 converted by ``convert_checkpoint`` (Eq. 20), a DDPM/cosine
+   expert from ``init`` and an FM/linear expert from the converted
+   parameters on their clusters' streams and ``router_b2(num_clusters=2)``,
+   each 20 steps at batch 32 — per-step seconds, images/s, peak memory,
+   exact forward and backward launches per step, the first step's
+   gradients against the plain path's on the card, finite losses and a
+   falling loss on one fixed batch — then the three EMA checkpoints serve
+   one batch-8, 8-step, CFG-7.5, top-2 request.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -808,6 +828,144 @@ def check_flash(ops, ref, dev) -> dict:
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 library_ms=main["library_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"])
+
+
+#: backward kernels against their plain versions (float32): row and
+#: cross-row sums (dγ/dβ over 256 rows, the attention's 256-term products)
+#: in another order than ATen, each gradient within this share of the
+#: largest |gradient| of its call.
+GRAD_REL_TOL = 1e-5
+#: the training batch of phases 3 and 13 (DiT-B/2, 256 tokens)
+TRAIN_BATCH = 32
+
+
+def _library_bwd_ms(fn, inputs, d_out) -> float:
+    """Device ms of one backward of ``fn`` through autograd: forward and
+    backward replayed from a CUDA graph, less the forward alone."""
+    leaves = [a.detach().requires_grad_(True) for a in inputs]
+
+    def both():
+        return torch.autograd.grad(fn(*leaves), leaves, d_out)
+
+    with torch.no_grad():
+        fwd = graph_ms(lambda: fn(*leaves), 20)
+    return graph_ms(both, 20) - fwd
+
+
+def check_adaln_bwd(ops, ref, dev) -> dict:
+    """The AdaLN backward kernel at the dense training forward's modulate
+    site: x ``(32, 256, 768)`` float32 (batch 32 of DiT-B/2), γ/β slices
+    of the ``(B, L, 6, d)`` modulation stack, against its plain version's
+    dx, dγ, dβ; and without γ (the LayerNorm before cross-attention).
+    Library yardstick: no single call computes it — the backward of
+    ``F.layer_norm`` followed by the modulation's elementwise ops."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.adaln_fuse import adaln_fuse_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    b, t, d = TRAIN_BATCH, 256, 768
+    x = 3 * torch.randn(b, t, d, generator=gen, device=dev) + 1
+    mods = 0.3 * torch.randn(b, 12, 6, d, generator=gen, device=dev)
+    dy = torch.randn(b, t, d, generator=gen, device=dev)
+    rows = []
+    for name, gamma, beta in (("modulate", mods[:, 5, 0], mods[:, 5, 1]),
+                              ("layernorm", None, None)):
+        def kern():
+            return adaln_fuse_bwd(x, gamma, dy)
+
+        def plain():
+            return ref.ref_adaln_fuse_bwd(x, gamma, dy)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        want = [w for w in want if w is not None]
+        got = [g for g in got if g is not None]
+        top = max(w.abs().max().item() for w in want)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        again = kern()
+        bitwise = all(torch.equal(a, g) for a, g in zip(
+            [a for a in again if a is not None], got))
+        t_k = graph_ms(kern, 50)
+        t_p = graph_ms(plain, 20)
+        if gamma is None:
+            t_l = _library_bwd_ms(
+                lambda xx: F.layer_norm(xx, (d,), eps=1e-6), [x], dy)
+        else:
+            t_l = _library_bwd_ms(
+                lambda xx, gg, bb: F.layer_norm(xx, (d,), eps=1e-6)
+                * (1 + gg[:, None]) + bb[:, None], [x, gamma, beta], dy)
+        n = x.numel()
+        nbytes = 3 * n * 4                  # x, dy read; dx written
+        if gamma is not None:
+            nbytes += 3 * b * d * 4         # γ read; dγ, dβ written
+        t_b, by = bound_ms(nbytes, 14.0 * n)
+        row = dict(case=name, x=[b, t, d], max_abs_err=err,
+                   tol=GRAD_REL_TOL * top, bitwise_repeatable=bitwise,
+                   ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b,
+                   bound_by=by, share_of_bound=t_b / t_k)
+        print("adaln_fuse_bwd case " + json.dumps(row))
+        if not (err <= GRAD_REL_TOL * top and bitwise and all(
+                bool(torch.isfinite(g).all()) for g in got)):
+            fail(f"adaln_fuse_bwd disagrees with its plain version: {row}")
+        rows.append(row)
+    main = rows[0]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"])
+
+
+def check_flash_bwd(ops, ref, dev) -> dict:
+    """The attention backward kernel at the training shape — q, k, v and
+    dO ``(32, 256, 12, 64)`` projections read as ``(B, H, S, D)`` views,
+    non-causal float32, from the forward's output and row log-sum-exp —
+    against its plain version's dq, dk, dv.  Library yardstick: the
+    float32 backward of ``scaled_dot_product_attention`` on the same
+    inputs.  Bound: five S×S×D products a head (recompute q·kᵀ, dO·vᵀ,
+    Pᵀ·dO, dS·k, dSᵀ·q) at the float32 rate."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    b, h, s, d = TRAIN_BATCH, 12, 256, 64
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                   .transpose(1, 2) for _ in range(4))
+    out, lse = flash_attention(q, k, v, causal=False, with_lse=True)
+
+    def kern():
+        return flash_attention_bwd(q, k, v, out, lse, do)
+
+    def plain():
+        return ref.ref_flash_attention_bwd(q, k, v, do)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    top = max(w.abs().max().item() for w in want)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    bitwise = all(torch.equal(a, g) for a, g in zip(kern(), got))
+    t_k = graph_ms(kern, 10)
+    t_p = cuda_ms(plain, 10, warmup=1)
+    try:
+        t_l = _library_bwd_ms(F.scaled_dot_product_attention, [q, k, v], do)
+    except RuntimeError as exc:                  # a yardstick only
+        print(f"library yardstick unavailable: {str(exc).splitlines()[0]}")
+        t_l = None
+    flops = 5 * 2.0 * s * s * d * b * h
+    nbytes = 4 * (8 * b * h * s * d + b * h * s)
+    t_b, by = bound_ms(nbytes, flops)
+    row = dict(case="dit_self_attention", B=b, H=h, S=s, D=d,
+               max_abs_err=err, tol=GRAD_REL_TOL * top,
+               bitwise_repeatable=bitwise, ms=t_k, plain_ms=t_p,
+               library_ms=t_l, bound_ms=t_b, bound_by=by,
+               share_of_bound=t_b / t_k, tflops=flops / t_k / 1e9)
+    row.update(clocks_under(kern))
+    print("flash_attention_bwd case " + json.dumps(row))
+    if not (err <= GRAD_REL_TOL * top and bitwise and all(
+            bool(torch.isfinite(g).all()) for g in got)):
+        fail(f"flash_attention_bwd disagrees with its plain version: {row}")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                bound_ms=t_b, bound_by=by)
 
 
 #: the flag-form fuse kernel's cases: (name, objectives); the first is
@@ -1761,6 +1919,24 @@ CLI_RUNS = (
 )
 
 
+def check_trained_checkpoint(path: str, dev) -> None:
+    """The training CLI's checkpoint loads onto the card, with its expert
+    metadata and finite float32 leaves."""
+    from repro_torch.training.checkpoint import load_checkpoint
+    from repro_torch.tree import tree_leaves
+
+    params, meta = load_checkpoint(path, device=dev)
+    leaves = tree_leaves(params)
+    ok = (meta.get("objective") == "fm" and meta.get("step") == 20
+          and all(bool(torch.isfinite(x).all()) for x in leaves))
+    print("cli train checkpoint " + json.dumps(dict(
+        leaves=len(leaves), parameters=sum(x.numel() for x in leaves),
+        metadata=meta, ok=ok)))
+    if not ok:
+        fail(f"the training CLI's checkpoint does not load as an expert: "
+             f"{meta}")
+
+
 def run_cli(dev) -> None:
     """Phase 9: ``python -m repro_torch.launch.serve`` as a user runs it, on
     the card, over checkpoints at the reference CLI's reduced width
@@ -1788,16 +1964,29 @@ def run_cli(dev) -> None:
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--ckpt-dir",
             path, "--batch", "3", "--requests", "2", "--steps", "4"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    procs = [subprocess.Popen(base + [where.get(f, f) for f in flags],
-                              stdout=subprocess.PIPE,
+    trained = os.path.join(WORK, "cli_train")
+    shutil.rmtree(trained, ignore_errors=True)
+    train_cmd = [sys.executable, "-m", "repro_torch.launch.train", "--mode",
+                 "expert", "--steps", "20", "--out",
+                 os.path.join(trained, "expert0.npz")]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, env=env,
-                              cwd=ROOT) for flags, _, _ in CLI_RUNS]
+                              cwd=ROOT)
+             for cmd in [base + [where.get(f, f) for f in flags]
+                         for flags, _, _ in CLI_RUNS] + [train_cmd]]
     try:
         results = [p.communicate(timeout=300) for p in procs]
+        train_proc, (train_out, train_err) = procs.pop(), results.pop()
+        for line in train_out.strip().splitlines():
+            print(f"cli train | {line}")
+        if train_proc.returncode != 0:
+            fail(f"the training CLI exited {train_proc.returncode}: "
+                 f"{train_err.strip()[-2000:]}")
+        check_trained_checkpoint(os.path.join(trained, "expert0.npz"), dev)
     finally:
         for p in procs:
             p.kill()
-        for d in (path, bad, journal):
+        for d in (path, bad, journal, trained):
             shutil.rmtree(d, ignore_errors=True)
     for (flags, n_lines, served), p, (out, err) in zip(CLI_RUNS, procs,
                                                        results):
@@ -2337,6 +2526,372 @@ def serve_resilience(ops, engines, dev, path, dit_cfg, router_cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13 (and phase 6's training rows): training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 20
+#: the first step's gradients on the kernel path against the same step
+#: through the plain versions on the card, per leaf as a share of the
+#: leaf's max |plain gradient|: float32 chains through 12 layers whose
+#: LayerNorm and attention kernels each differ from their plain versions
+#: by ≤ 1e-5 (phase 3); a missing or wrong gradient path errs by ~1.
+TRAIN_GRAD_REL_TOL = 1e-3
+#: phase 6's training rows, GPU vs CPU, two reduced layers: the loss,
+#: each gradient leaf (share of its max), and the parameters after one
+#: AdamW step: within ``param`` of the leaf's max plus a hundredth of the
+#: step where the gradient is clear of the gradient tolerance, and within
+#: two steps everywhere — Adam's first step is ``lr·g/(|g| + ε)``, so an
+#: entry whose gradient is zero to within rounding may step either way.
+TRAIN_E2E = dict(loss=1e-5, grad=1e-4, param=1e-5)
+TRAIN_LR = 1e-4
+_PLAIN_WRAPPERS = ("adaln_modulate", "layernorm", "flash_attention")
+
+
+#: a training step's kernel-name fragments -> category, first match wins
+TRAIN_CATEGORIES = (
+    ("adaln_fuse_bwd", "adaln_fuse_bwd (every LayerNorm's backward)"),
+    ("adaln_fuse", "adaln_fuse (forward)"),
+    ("dq_kernel", "flash_attention_bwd dQ"),
+    ("dkv_kernel", "flash_attention_bwd dK, dV"),
+    ("flash_attention", "flash_attention (forward, with log-sum-exp)"),
+    ("gemm", "cuBLAS float32 GEMM (dense layers forward and backward, "
+             "cross-attention)"),
+    ("nvjet", "cuBLAS float32 GEMM (dense layers forward and backward, "
+              "cross-attention)"),
+    ("softmax", "softmax (cross-attention, forward and backward)"),
+    ("reduce", "reductions (loss, global norm, bias and mean grads)"),
+    ("elementwise", "elementwise (AdamW, EMA, activations, residuals)"),
+    ("index", "gathers and scatters (timestep table, drop mask)"),
+    ("scatter", "gathers and scatters (timestep table, drop mask)"),
+    ("Memcpy", "copies"),
+    ("Memset", "sets"),
+)
+
+
+def _plain_ops(ops, ref):
+    """The three differentiable wrappers as their plain versions, on any
+    device (the reference path of phase 13's gradient check)."""
+    def adaln_modulate(x, gamma, beta, *, eps=1e-6, round_scale=False):
+        return ref.ref_adaln_fuse(x, gamma, beta, eps,
+                                  round_scale=round_scale)
+
+    def layernorm(x, *, eps=1e-6):
+        return ref.ref_adaln_fuse(x, None, None, eps)
+
+    def flash_attention(q, k, v, *, causal=True, window=0,
+                        softmax_scale=None):
+        return ref.ref_flash_attention(q, k, v, causal=causal, window=window,
+                                       softmax_scale=softmax_scale)
+    return dict(adaln_modulate=adaln_modulate, layernorm=layernorm,
+                flash_attention=flash_attention)
+
+
+def _train_launches(cfg) -> dict:
+    """The kernel launches of one dense training step, forward and
+    backward alike: (3L + 1) AdaLN launches with text (msa, the LayerNorm
+    before cross-attention, mlp, the final layer), 2L for the router; L
+    attention launches."""
+    layers = cfg.num_layers
+    ln = 2 * layers if cfg.num_classes else 3 * layers + 1
+    return dict(adaln_fuse=ln, adaln_fuse_bwd=ln, flash_attention=layers,
+                flash_attention_bwd=layers)
+
+
+def _fixed_loss(trainer, params, draws, batch, router: bool) -> float:
+    """The loss of ``params`` on one fixed batch with fixed draws (no
+    grad): what the 'losses fall' check compares before and after."""
+    with torch.no_grad():
+        if router:
+            return trainer.loss(params, draws, batch["latents"],
+                                batch["cluster"])[0].item()
+        return trainer.loss(params, draws, batch["latents"],
+                            batch["text_emb"]).item()
+
+
+def _grad_check(ops, ref, label, trainer, params, draws, batch, router):
+    """The first step's gradients through the kernels and through the
+    plain versions, both on the card: every leaf within
+    ``TRAIN_GRAD_REL_TOL`` of the plain one's max, and non-zero wherever
+    the plain path's is."""
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    if router:
+        def loss(p):
+            return trainer.loss(p, draws, batch["latents"], batch["cluster"])
+    else:
+        def loss(p):
+            return trainer.loss(p, draws, batch["latents"], batch["text_emb"])
+    got_loss, got = value_and_grad(loss, params, has_aux=router)
+    saved = {n: getattr(ops, n) for n in _PLAIN_WRAPPERS}
+    try:
+        for name, fn in _plain_ops(ops, ref).items():
+            setattr(ops, name, fn)
+        want_loss, want = value_and_grad(loss, params, has_aux=router)
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    if router:
+        got_loss, want_loss = got_loss[0], want_loss[0]
+    worst, dead = 0.0, []
+    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        top = w.abs().max().item()
+        if top > 0:
+            worst = max(worst, (g - w).abs().max().item() / top)
+            if g.abs().max().item() == 0.0:
+                dead.append(i)
+    row = dict(loss_kernels=got_loss.item(), loss_plain=want_loss.item(),
+               leaves=len(tree_leaves(got)), worst_leaf_rel_err=worst,
+               tol=TRAIN_GRAD_REL_TOL, leaves_without_gradient=dead)
+    print(f"train {label} first-step gradients kernels vs plain "
+          + json.dumps(row))
+    if dead or not worst <= TRAIN_GRAD_REL_TOL:
+        fail(f"{label}: kernel-path gradients differ from the plain "
+             f"path's: {row}")
+
+
+def train_full_width(ops, ref, dev) -> dict:
+    """Phase 13: the port's training path at full DiT-B/2 width.
+
+    Fits the two-stage clustering on a seeded synthetic corpus (latent 32,
+    2 clusters, DiT-B/2's 77 × 768 captions); converts a seeded, random,
+    class-free DiT-B/2 (``dit_b2(use_text=False)``, the 'ImageNet DiT')
+    into the text-conditioned template with ``convert_checkpoint``
+    (Eq. 20; the paper's pretrained weights are not in the repository);
+    trains a DDPM/cosine expert from ``init`` on cluster 0's stream and an
+    FM/linear expert from the converted parameters on cluster 1's, and
+    ``router_b2(num_clusters=2)`` on the router stream, each for
+    ``TRAIN_STEPS`` steps at batch 32; saves the three EMA checkpoints and
+    serves one batch-8, 8-step, CFG-7.5, top-2 request from them.
+
+    Each step's kernel launches must equal ``_train_launches``; the first
+    step's gradients are held against the plain path's on the card; every
+    loss must be finite and the loss on one fixed batch with fixed draws
+    must fall from the initial to the trained parameters."""
+    from repro_torch.core.conversion import convert_checkpoint
+    from repro_torch.core.sampling import SamplerConfig
+    from repro_torch.data import SyntheticSpec, fit_clusters
+    from repro_torch.data.pipeline import ExpertDataStream, RouterDataStream
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import dit as D
+    from repro_torch.models.config import dit_b2, router_b2
+    from repro_torch.training import (AdamWConfig, ExpertTrainer,
+                                      RouterTrainer, expert_metadata,
+                                      save_checkpoint)
+
+    cfg, rcfg = dit_b2(), router_b2(num_clusters=2)
+    spec = SyntheticSpec(num_categories=2, latent_size=cfg.latent_size,
+                         text_len=cfg.text_len, text_dim=cfg.text_dim)
+    t0 = time.perf_counter()
+    cm, assign = fit_clusters(spec, corpus_size=1024, num_clusters=2,
+                              num_fine=256, device=dev)
+    print("train clusters " + json.dumps(dict(
+        corpus=1024, latent=[spec.latent_size] * 2 + [4],
+        balance=np.bincount(assign, minlength=2).tolist(),
+        seconds=time.perf_counter() - t0)))
+    gen = torch.Generator(device=dev).manual_seed(31)
+    source = D.init(dit_b2(use_text=False), gen)
+    converted, report = convert_checkpoint(source, D.init(cfg, gen), gen=gen)
+    print("train convert_checkpoint " + json.dumps(report, sort_keys=True))
+    runs = (("ddpm", "cosine", 0, D.init(cfg, gen), "init"),
+            ("fm", "linear", 1, converted, "converted"))
+    path = os.path.join(WORK, "trained")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    want_expert, want_router = _train_launches(cfg), _train_launches(rcfg)
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def run(label, trainer, state, next_batch, router, want):
+        step_gen = torch.Generator(device=dev).manual_seed(41)
+        fixed = next_batch(10_000)
+        fixed_draws = trainer.draw(torch.Generator(device=dev).manual_seed(
+            43), fixed["latents"])
+        first_fixed = _fixed_loss(trainer, state.params, fixed_draws, fixed,
+                                  router)
+        losses, secs = [], []
+        base = _peak_reset(dev)
+        for i in range(TRAIN_STEPS):
+            batch = next_batch(i)
+            draws = trainer.draw(step_gen, batch["latents"])
+            if i == 0:
+                _grad_check(ops, ref, label, trainer, state.params, draws,
+                            batch, router)
+                base = _peak_reset(dev)
+            _sync(dev)
+            ops.reset_launches()
+            t = time.perf_counter()
+            state, m = trainer.train_step(state, None, batch, draws=draws)
+            _sync(dev)
+            secs.append(time.perf_counter() - t)
+            got = {n: c for n, c in ops.LAUNCHES.items() if c}
+            if got != want:
+                fail(f"train {label} step {i} launched {got}, want {want}")
+            for n, c in got.items():
+                total[n] += c
+            losses.append(m["loss"])
+        peak = _peak(dev, base)
+        if not router and label.startswith("expert0"):
+            # one more step of the same batch, thrown away, under the
+            # profiler: where a training step's device time goes
+            profiled(lambda: trainer.train_step(state, None, batch,
+                                                draws=draws),
+                     TRAIN_CATEGORIES, path=f"train_{label}",
+                     batch=TRAIN_BATCH)
+        last_fixed = _fixed_loss(trainer, state.params, fixed_draws, fixed,
+                                 router)
+        steady = secs[1:]
+        row = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                   first_step_s=secs[0],
+                   step_s_median=float(np.median(steady)),
+                   step_s_min=min(steady),
+                   images_per_s=TRAIN_BATCH / float(np.median(steady)),
+                   peak_bytes=peak, launches_per_step=want,
+                   losses=losses,
+                   last5_mean=float(np.mean(losses[-5:])),
+                   fixed_batch_loss=[first_fixed, last_fixed],
+                   final_metrics=m)
+        print(f"train {label} " + json.dumps(row))
+        if not (all(math.isfinite(x) for x in losses)
+                and last_fixed < first_fixed):
+            fail(f"train {label}: losses not finite or not falling: {row}")
+        return state
+
+    for obj, sched, cid, params, start in runs:
+        trainer = ExpertTrainer(
+            apply_fn=D.make_expert_apply(cfg), objective=obj,
+            schedule_name=sched,
+            opt=AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2),
+            device=dev)
+        stream = ExpertDataStream(spec, cm, cluster_id=cid,
+                                  batch_size=TRAIN_BATCH, seed=cid,
+                                  device=dev)
+        state = run(f"expert{cid}_{obj}_from_{start}", trainer,
+                    trainer.init_state(params), stream.next_batch, False,
+                    want_expert)
+        save_checkpoint(os.path.join(path, f"expert{cid}.npz"), state.ema,
+                        metadata=expert_metadata(
+                            name=f"expert{cid}", objective=obj,
+                            schedule=sched, cluster_id=cid, arch=cfg.name,
+                            step=state.step))
+        del state, trainer
+        gc.collect()
+    rtrainer = RouterTrainer(
+        apply_fn=lambda p, x, t: D.apply(rcfg, p, x, t), num_clusters=2,
+        device=dev)
+    rstream = RouterDataStream(spec, cm, batch_size=TRAIN_BATCH, device=dev)
+    rstate = run("router", rtrainer, rtrainer.init_state(D.init(rcfg, gen)),
+                 rstream.next_batch, True, want_router)
+    save_checkpoint(os.path.join(path, "router.npz"), rstate.ema,
+                    metadata={"num_clusters": 2})
+    del rstate, rtrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    engine = ServingEngine.from_checkpoint_dir(
+        path, dit_cfg=cfg, router_cfg=rcfg,
+        sampler=SamplerConfig(num_steps=STEPS, cfg_scale=7.5, top_k=2),
+        device=dev)
+    rng = np.random.default_rng(44)
+    text = rng.standard_normal((BATCH, cfg.text_len, cfg.text_dim)).astype(
+        np.float32)
+    _sync(dev)
+    t = time.perf_counter()
+    lat = engine.generate(0, text, BATCH)
+    _sync(dev)
+    row = dict(batch=BATCH, steps=STEPS, experts=len(engine.experts),
+               seconds=time.perf_counter() - t, shape=list(lat.shape),
+               finite=bool(torch.isfinite(lat).all()),
+               max_abs=lat.abs().max().item())
+    print("train served request " + json.dumps(row))
+    if not row["finite"]:
+        fail(f"the trained checkpoints served non-finite latents: {row}")
+    del engine
+    shutil.rmtree(path)
+    return {"train": total}
+
+
+def compare_train_gpu_cpu(dev) -> None:
+    """Phase 6's training rows: one training step of a reduced DDPM expert,
+    a reduced FM expert and a reduced router on the GPU (kernels and
+    backward kernels) and on the CPU (plain versions), from the same
+    parameters, batch and draws: the loss, every gradient leaf and the
+    parameters after the AdamW step (``TRAIN_E2E``)."""
+    from repro_torch.models import dit as D
+    from repro_torch.models.config import dit_b2, router_b2
+    from repro_torch.training import (AdamWConfig, ExpertTrainer,
+                                      RouterTrainer)
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    failed = []
+    for label in ("ddpm", "fm", "router"):
+        router = label == "router"
+        cfg = (router_b2(num_clusters=3) if router else dit_b2()).reduced(
+            latent_size=16)
+        gen = torch.Generator().manual_seed(51)
+        params = jittered(cfg, gen)
+        opt = AdamWConfig(learning_rate=1e-3, warmup_steps=2)
+        lat = torch.randn(4, 16, 16, 4, generator=gen)
+        batch = {"latents": lat,
+                 "text_emb": torch.randn(4, cfg.text_len, cfg.text_dim,
+                                         generator=gen),
+                 "cluster": torch.tensor([0, 2, 1, 2])}
+
+        def trainer(device):
+            if router:
+                return RouterTrainer(
+                    apply_fn=lambda p, x, t: D.apply(cfg, p, x, t),
+                    num_clusters=3, opt=opt, device=device)
+            return ExpertTrainer(
+                apply_fn=D.make_expert_apply(cfg), objective=label,
+                schedule_name="cosine" if label == "ddpm" else "linear",
+                opt=opt, device=device)
+        draws = trainer(cpu).draw(torch.Generator().manual_seed(52), lat)
+        out = {}
+        for device in (cpu, dev):
+            tr = trainer(device)
+            p = tree_map(lambda a: a.to(device), params)
+            d = {n: a.to(device) for n, a in draws.items()}
+            b = {n: a.to(device) for n, a in batch.items()}
+            if router:
+                loss, grads = value_and_grad(lambda q: tr.loss(
+                    q, d, b["latents"], b["cluster"]), p, has_aux=True)
+                loss = loss[0]
+            else:
+                loss, grads = value_and_grad(lambda q: tr.loss(
+                    q, d, b["latents"], b["text_emb"]), p)
+            state, _ = tr.train_step(tr.init_state(p), None, b, draws=d)
+            out[device.type] = (loss.item(), [g.cpu() for g in tree_leaves(
+                grads)], [q.cpu() for q in tree_leaves(state.params)])
+        (lc, gcpu, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+        lr = opt.learning_rate
+        loss_err = abs(lg - lc) / abs(lc)
+        grad_err = param_err = param_steps = 0.0
+        for g, w, p, q in zip(gg, gcpu, pg, pc):
+            top = max(w.abs().max().item(), 1e-30)
+            grad_err = max(grad_err, (g - w).abs().max().item() / top)
+            diff = (p - q).abs()
+            clear = w.abs() > TRAIN_E2E["grad"] * top
+            if bool(clear.any()):
+                param_err = max(param_err, (diff[clear].max().item()
+                                            - lr / 100)
+                                / max(q.abs().max().item(), 1e-30))
+            param_steps = max(param_steps, diff.max().item() / lr)
+        row = dict(path=f"train_{label}", loss_rel_err=loss_err,
+                   grad_worst_leaf_rel_err=grad_err,
+                   param_worst_leaf_rel_err_past_lr_over_100=param_err,
+                   param_max_diff_in_steps=param_steps, tol=TRAIN_E2E)
+        print("reduced gpu-vs-cpu " + json.dumps(row))
+        if not (loss_err <= TRAIN_E2E["loss"]
+                and grad_err <= TRAIN_E2E["grad"]
+                and param_err <= TRAIN_E2E["param"] and param_steps <= 2.0):
+            failed.append(row)
+    if failed:
+        fail(f"GPU training step differs from the CPU's: {failed}")
+
+
+# ---------------------------------------------------------------------------
 # Phases 7 and 8: the LM-expert ensemble (mamba2-2.7b)
 # ---------------------------------------------------------------------------
 
@@ -2604,6 +3159,8 @@ def main() -> None:
         "flash_attention": check_flash(ops, ref, dev),
         "hetero_fuse": check_hetero_fuse(ops, ref, dev),
         "ssd_scan": check_ssd_scan(ops, ref, dev),
+        "adaln_fuse_bwd": check_adaln_bwd(ops, ref, dev),
+        "flash_attention_bwd": check_flash_bwd(ops, ref, dev),
     }
     # the flag-form fuse kernel's path is its entry point, driven above
     launches_fuse = summary["hetero_fuse"].pop("launches")
@@ -2635,7 +3192,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     compare_gpu_cpu(ops, dev)
+    compare_train_gpu_cpu(dev)
     phase_done("6 (DiT reduced GPU vs CPU)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(train_full_width(ops, ref, dev))
+    phase_done("13 (training)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2657,7 +3219,8 @@ def main() -> None:
              "hetero_fuse_coeffs": "unfused", "hetero_fuse_dequant": "int8",
              "adaln_fuse": "native", "flash_attention": "native",
              "hetero_fuse": "fused_convert_and_fuse",
-             "ssd_scan": "lm_scoring"}
+             "ssd_scan": "lm_scoring", "adaln_fuse_bwd": "train",
+             "flash_attention_bwd": "train"}
     launches["fused_convert_and_fuse"] = {"hetero_fuse": launches_fuse}
     sources = {
         "ragged_gemm": ("ragged_gemm.cu", "ragged_gemm.py:73"),
@@ -2670,6 +3233,10 @@ def main() -> None:
         "flash_attention": ("flash_attention.cu", "flash_attention.py:82"),
         "hetero_fuse": ("hetero_fuse.cu", "hetero_fuse.py:266"),
         "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:86"),
+        # the backward kernels differentiate these TPU kernels' functions
+        "adaln_fuse_bwd": ("adaln_fuse.cu", "adaln_fuse.py:34"),
+        "flash_attention_bwd": ("flash_attention.cu",
+                                "flash_attention.py:82"),
     }
     kernels = []
     for name, (src, tpu) in sources.items():

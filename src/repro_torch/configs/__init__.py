@@ -2,13 +2,15 @@
 
 The port serves the ``ssm`` family: ``get_config("mamba2-2.7b")``.  The
 reference's other architecture ids raise ``NotImplementedError`` until
-their backbones are ported (ROADMAP.md, module queue A.10).
+their backbones are ported (ROADMAP.md, module queue A.10).  The paper's
+own DiT experts come from ``get_dit_config``.
 """
 
 from __future__ import annotations
 
 from repro_torch.configs import mamba2_2p7b
-from repro_torch.models.config import LMConfig
+from repro_torch.models.config import (DiTConfig, LMConfig, dit_b2,
+                                       dit_xl2, router_b2)
 
 #: the reference's architecture ids (``repro/configs/__init__.py``)
 ARCH_IDS: tuple[str, ...] = (
@@ -18,6 +20,9 @@ ARCH_IDS: tuple[str, ...] = (
 )
 
 _PORTED = {"mamba2-2.7b": mamba2_2p7b.CONFIG}
+
+#: the paper's own diffusion-expert architectures
+DIT_CONFIGS = {"dit-xl2": dit_xl2, "dit-b2": dit_b2, "router-b2": router_b2}
 
 
 def get_config(arch: str) -> LMConfig:
@@ -30,4 +35,8 @@ def get_config(arch: str) -> LMConfig:
     raise ValueError(f"unknown arch {arch!r}; available: {sorted(ARCH_IDS)}")
 
 
-__all__ = ["ARCH_IDS", "get_config"]
+def get_dit_config(name: str, **kw) -> DiTConfig:
+    return DIT_CONFIGS[name](**kw)
+
+
+__all__ = ["ARCH_IDS", "DIT_CONFIGS", "get_config", "get_dit_config"]

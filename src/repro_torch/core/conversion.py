@@ -11,6 +11,10 @@ tabulate per-step, per-expert coefficients once per run
 (Eqs. 23–24 with the Eq. 28/29 safeguards and Eq. 31 dampening).  The
 reference engine converts per expert in plain ops (``unify_prediction``,
 and ``snr_rebased_velocity`` for ``time_map='snr_match'``).
+
+The checkpoint side of §2.6, Eq. 20 (``convert_checkpoint``): a
+pretrained class-conditional DiT's groups transferred, re-initialized,
+dropped or newly initialized into a text-conditioned expert.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.core.schedules import (Schedule, coeff_table,
                                         snr_matched_time)
+from repro_torch.tree import tree_leaves
 
 #: Eq. 28 — adaptive clamping ranges per representation space.
 CLAMP_RANGE = {"latent": 20.0, "pixel": 5.0}
@@ -203,3 +208,114 @@ def unified_coeff_tables(
             raise ValueError(f"unknown objective {obj!r}")
         cols.append(col)
     return torch.stack(cols, dim=-1).permute(1, 0, 2).contiguous()  # (S,5,K)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint conversion (paper §2.6, Eq. 20) — pretrained ImageNet-DDPM DiT
+# checkpoints initialize heterogeneous text-conditioned experts.
+# ---------------------------------------------------------------------------
+
+#: Eq. 20 transfer policy by top-level parameter group.
+TRANSFER = "transfer"          # copy pretrained weights
+REINIT = "reinit"              # N(0, 0.02)
+DROP = "drop"                  # remove (class embeddings)
+NEW = "new"                    # not in source checkpoint (text stack)
+
+CHECKPOINT_POLICY: dict[str, str] = {
+    "patch_embed": TRANSFER,
+    "pos_embed": TRANSFER,
+    "blocks": TRANSFER,
+    "t_embed": TRANSFER,          # timestep MLP kept (Eq. 21 runtime mapping)
+    "adaln_single": TRANSFER,
+    "final_layer": REINIT,
+    "text_proj": NEW,
+    "cross_attn": NEW,            # zero-init output proj from the model init
+    "class_embed": DROP,
+    "null_text_embed": NEW,
+}
+
+REINIT_STD = 0.02
+
+
+def convert_checkpoint(
+    pretrained: dict,
+    target_template: dict,
+    *,
+    gen: torch.Generator | None = None,
+    policy: dict[str, str] | None = None,
+    draws: dict | None = None,
+) -> tuple[dict, dict[str, str]]:
+    """Apply the Eq. 20 conversion to a parameter tree.
+
+    ``pretrained`` / ``target_template`` are dicts keyed by top-level group
+    (``patch_embed``, ``blocks``, ...) of nested dicts of tensors.  Groups
+    present in the template but absent from the policy are transferred
+    when their shapes match, else keep the template's fresh init.  Groups
+    go in sorted order, as in the reference.  A REINIT group's leaves are
+    ``REINIT_STD`` times standard normals drawn from ``gen`` (on each
+    leaf's device), or taken from ``draws[group]``: a list of standard
+    normal arrays, one per leaf in ``tree_leaves`` order.
+
+    Returns ``(params, report)`` where ``report`` maps group -> action.
+    """
+    policy = dict(CHECKPOINT_POLICY if policy is None else policy)
+    draws = draws or {}
+    out: dict = {}
+    report: dict[str, str] = {}
+    for group, template in sorted(target_template.items()):
+        action = policy.get(group)
+        if action is None:
+            same = group in pretrained and _shapes_match(
+                pretrained[group], template)
+            action = TRANSFER if same else NEW
+        if action == TRANSFER and group in pretrained and _shapes_match(
+                pretrained[group], template):
+            src = iter(tree_leaves(pretrained[group]))
+            out[group] = _rebuild(template, lambda dst: next(src).to(
+                device=dst.device, dtype=dst.dtype))
+            report[group] = TRANSFER
+        elif action == REINIT:
+            given = iter(draws[group]) if group in draws else None
+
+            def fresh(dst):
+                if given is not None:
+                    z = torch.as_tensor(next(given), dtype=torch.float32,
+                                        device=dst.device)
+                else:
+                    z = torch.randn(tuple(dst.shape), generator=gen,
+                                    device=dst.device, dtype=torch.float32)
+                return (REINIT_STD * z).to(dst.dtype)
+
+            out[group] = _rebuild(template, fresh)
+            report[group] = REINIT
+        elif action == DROP:
+            report[group] = DROP
+            continue
+        else:
+            # NEW (or transfer-miss): keep the freshly initialized template.
+            out[group] = template
+            report[group] = NEW
+    # groups only in the source (e.g. class_embed) are dropped implicitly.
+    for group in pretrained:
+        if group not in target_template:
+            report.setdefault(group, DROP)
+    return out, report
+
+
+def _rebuild(template, leaf_fn):
+    """``template``'s structure with every leaf replaced by
+    ``leaf_fn(leaf)``, the leaves visited in ``tree_leaves`` (sorted-key)
+    order."""
+    if isinstance(template, dict):
+        built = {k: _rebuild(template[k], leaf_fn) for k in sorted(template)}
+        return {k: built[k] for k in template}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_rebuild(v, leaf_fn) for v in template)
+    return leaf_fn(template)
+
+
+def _shapes_match(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    return all(tuple(x.shape) == tuple(y.shape) for x, y in zip(la, lb))

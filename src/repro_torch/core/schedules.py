@@ -52,6 +52,14 @@ class Schedule:
         a, s = self.coeffs(t)
         return (a * a) / torch.clamp(s * s, min=1e-12)
 
+    def perturb(self, x0: torch.Tensor, eps: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+        """Forward process ``x_t = alpha_t x0 + sigma_t eps`` (Eq. 22);
+        ``t`` broadcasts against the leading axes of ``x0``."""
+        a, s = self.coeffs(t)
+        ex = tuple(a.shape) + (1,) * (x0.dim() - a.dim())
+        return a.reshape(ex) * x0 + s.reshape(ex) * eps
+
 
 def coeff_table(
     schedule: Schedule, ts: torch.Tensor, *, derivative_mode: str = "analytic"

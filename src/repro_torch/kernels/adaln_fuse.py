@@ -7,6 +7,12 @@ output in ``x``'s dtype.  Without ``γ``/``β`` it is the plain LayerNorm.
 Its plain version is ``kernels.ref.ref_adaln_fuse``; the model code
 reaches both through ``kernels.ops.adaln_modulate`` and
 ``kernels.ops.layernorm``.
+
+``adaln_fuse_bwd`` launches the backward (float32): ``dx`` and, with
+``γ``, the deterministic per-batch-row sums ``dγ`` and ``dβ``.  The TPU
+kernel has no backward; this one replaces XLA's autodiff of the
+reference's training forward (``repro/models/dit.py:295-314``).  Its
+plain version is ``kernels.ref.ref_adaln_fuse_bwd``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,10 @@ from repro_torch.kernels import _build
 
 #: rows of float32 that eight warps keep in 227 KB of shared memory.
 MAX_D = 7264
+#: rows (and column partials) of float32 that four warps keep in 227 KB
+BWD_MAX_D = 3584
+#: rows of one batch entry a backward block reduces (``BROWS`` in the source)
+BWD_ROWS = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -30,6 +40,15 @@ def _fn():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, i, p, p, i, p, i, i, i, i, ll, ll, ll, ll, ll,
                    ctypes.c_float, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_fn():
+    fn = _build.load_library("adaln_fuse").adaln_fuse_bwd
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p] * 7 + [i] * 4 + [ll] * 4 + [ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -108,3 +127,70 @@ def adaln_fuse(
     if rc != 0:
         raise RuntimeError(f"adaln_fuse launch failed: CUDA error {rc}")
     return out.reshape(x.shape)
+
+
+def adaln_fuse_bwd(
+    x: torch.Tensor,                  # (B, S, D) or (B, G, S, D)
+    gamma: torch.Tensor | None,       # (B, D)
+    d_out: torch.Tensor,              # x's shape
+    *,
+    eps: float = 1e-6,
+):
+    """Launch the backward on float32 CUDA tensors: ``(dx, dγ, dβ)`` of
+    ``LN(x)·(1+γ)+β``, ``dx`` contiguous in ``x``'s shape, ``dγ``/``dβ``
+    contiguous ``(B, D)`` summed over the ``G·S`` rows of each batch entry
+    (``None`` both, and skipped, when ``gamma`` is ``None``: the plain
+    LayerNorm).  ``x`` and ``gamma`` may be strided as the forward takes
+    them; ``d_out`` is made contiguous.  Raises on anything the kernel
+    does not take, and if the launch fails."""
+    operands = (x, d_out) if gamma is None else (x, gamma, d_out)
+    if any(a.dtype != torch.float32 for a in operands):
+        raise TypeError("adaln_fuse_bwd takes float32 operands, got "
+                        f"{[a.dtype for a in operands]}")
+    if not all(a.is_cuda and a.device == x.device for a in operands):
+        raise ValueError("adaln_fuse_bwd launches on CUDA tensors of one "
+                         "device only")
+    if d_out.shape != x.shape:
+        raise ValueError(f"d_out {tuple(d_out.shape)} must have x's shape "
+                         f"{tuple(x.shape)}")
+    if x.dim() == 3:
+        b, s, d = x.shape
+        g, sxb, sxg, sxs = 1, x.stride(0), 0, x.stride(1)
+    elif x.dim() == 4:
+        b, g, s, d = x.shape
+        sxb, sxg, sxs = x.stride(0), x.stride(1), x.stride(2)
+    else:
+        raise ValueError(f"adaln_fuse_bwd takes (B, S, D) or (B, G, S, D) "
+                         f"x, got {tuple(x.shape)}")
+    if d > BWD_MAX_D:
+        raise ValueError(f"adaln_fuse_bwd rows hold at most {BWD_MAX_D} "
+                         f"features, got {d}")
+    if x.stride(-1) != 1 and d > 1:
+        raise ValueError("x's last axis must be contiguous")
+    if gamma is not None:
+        if tuple(gamma.shape) != (b, d):
+            raise ValueError(f"gamma must be ({b}, {d}), got "
+                             f"{tuple(gamma.shape)}")
+        if gamma.stride(-1) != 1 and d > 1:
+            raise ValueError("gamma's last axis must be contiguous")
+    dy = d_out.contiguous()
+    dx = torch.empty((b, g, s, d), dtype=torch.float32, device=x.device)
+    dgamma = dbeta = part = None
+    if gamma is not None:
+        chunks = -(-(g * s) // BWD_ROWS)
+        part = torch.empty((b, chunks, 2, d), dtype=torch.float32,
+                           device=x.device)
+        dgamma = torch.empty((b, d), dtype=torch.float32, device=x.device)
+        dbeta = torch.empty((b, d), dtype=torch.float32, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _bwd_fn()(x.data_ptr(), ptr(gamma), dy.data_ptr(), dx.data_ptr(),
+                   ptr(part), ptr(dgamma), ptr(dbeta), b, g, s, d, sxb, sxg,
+                   sxs, 0 if gamma is None else gamma.stride(0), eps,
+                   stream)
+    if rc != 0:
+        raise RuntimeError(f"adaln_fuse_bwd launch failed: CUDA error {rc}")
+    return dx.reshape(x.shape), dgamma, dbeta

@@ -27,6 +27,23 @@
 //
 // round_scale = 1 rounds 1 + γ to bf16 before the multiply (bf16 γ only):
 // the DiT computes `1.0 + γ` in γ's dtype, the reference kernel in float32.
+//
+// The backward (adaln_fuse_bwd, float32 only) differentiates the same
+// function; the TPU kernel has none, so it replaces XLA's autodiff of the
+// reference's training forward (repro/models/dit.py:295-314,
+// `layers.layernorm` then `_modulate`).  Per row it recomputes μ and
+// rstd from x (as the forward does), then with x̂ = (x − μ)·rstd and
+// dŷ = dy·(1+γ):
+//
+//   dx = rstd·(dŷ − mean(dŷ) − x̂·mean(dŷ·x̂)),
+//   dγ = Σ_rows dy·x̂,   dβ = Σ_rows dy     (over the G·S rows of each b).
+//
+// The cross-row sums are deterministic, without atomics: a block owns
+// BROWS rows of one b; each warp keeps its column partials in its own
+// shared-memory slice (a lane owns its columns), the block adds its warps
+// in warp order into one (b, chunk) partial in device memory, and a second
+// kernel adds the chunks in chunk order.  Bound: bytes (x and dy read,
+// dx written; the partials are 2·D floats a chunk).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -209,4 +226,162 @@ extern "C" int adaln_fuse(const void* x, int x_bf16, const void* gamma,
   return dispatch_vec<__nv_bfloat16, __nv_bfloat16>(
       vec, x, gamma, beta, out, B, G, S, D, sxb, sxg, sxs, sgb, sbb, eps,
       round_scale, st);
+}
+
+namespace {
+
+// ---- backward ------------------------------------------------------------
+
+constexpr int BWARPS = 4;            // warps of a backward block
+constexpr int BTHREADS = BWARPS * 32;
+constexpr int BROWS = 32;            // rows of one b a block reduces
+
+// One block per (chunk of BROWS rows, b).  Shared memory: per warp the x̂
+// row and the dŷ row (2·D floats), then per warp its dγ and dβ column
+// partials (2·D floats, AFFINE only).
+template <bool AFFINE>
+__global__ void __launch_bounds__(BTHREADS)
+adaln_fuse_bwd_rows(const float* __restrict__ x,
+                    const float* __restrict__ gamma,
+                    const float* __restrict__ dy, float* __restrict__ dx,
+                    float* __restrict__ part, int G, int S, int D,
+                    int64_t sxb, int64_t sxg, int64_t sxs, int64_t sgb,
+                    float eps, int nchunk) {
+  extern __shared__ float bsm[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunk = blockIdx.x, b = blockIdx.y;
+  const int64_t rows = (int64_t)G * S;
+  float* xrow = bsm + warp * 2 * D;
+  float* grow = xrow + D;
+  float* acc = bsm + BWARPS * 2 * D + warp * 2 * D;   // [dγ | dβ]
+  if (AFFINE)
+    for (int c = lane; c < D; c += 32) acc[c] = acc[D + c] = 0.f;
+  const float* gr = AFFINE ? gamma + b * sgb : nullptr;
+  for (int i = warp; i < BROWS; i += BWARPS) {
+    const int64_t r = (int64_t)chunk * BROWS + i;
+    if (r >= rows) break;
+    const int gi = static_cast<int>(r / S), si = static_cast<int>(r % S);
+    const float* xr = x + b * sxb + gi * sxg + si * sxs;
+    const float* dyr = dy + ((int64_t)b * rows + r) * D;
+    float* dxr = dx + ((int64_t)b * rows + r) * D;
+    // the forward's statistics: mean, then mean((x − μ)²)
+    float sum = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float v = xr[c];
+      xrow[c] = v;
+      sum += v;
+    }
+    const float mu = warp_sum(sum) / static_cast<float>(D);
+    float sq = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float d = xrow[c] - mu;
+      sq += d * d;
+    }
+    const float var = warp_sum(sq) / static_cast<float>(D);
+    const float rstd = 1.f / sqrtf(var + eps);
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float xh = (xrow[c] - mu) * rstd;
+      const float g = dyr[c];
+      const float gh = AFFINE ? g * (1.f + gr[c]) : g;
+      if (AFFINE) {
+        acc[c] += g * xh;
+        acc[D + c] += g;
+      }
+      xrow[c] = xh;
+      grow[c] = gh;
+      s1 += gh;
+      s2 += gh * xh;
+    }
+    const float m1 = warp_sum(s1) / static_cast<float>(D);
+    const float m2 = warp_sum(s2) / static_cast<float>(D);
+    for (int c = lane; c < D; c += 32)
+      dxr[c] = rstd * (grow[c] - m1 - xrow[c] * m2);
+    __syncwarp();                  // a lane only rereads its own columns
+  }
+  if (AFFINE) {
+    __syncthreads();
+    float* out = part + ((int64_t)b * nchunk + chunk) * 2 * D;
+    const float* accs = bsm + BWARPS * 2 * D;
+    for (int c = threadIdx.x; c < 2 * D; c += BTHREADS) {
+      float s = 0.f;
+      for (int w = 0; w < BWARPS; ++w) s += accs[w * 2 * D + c];
+      out[c] = s;
+    }
+  }
+}
+
+// dγ[b, c] and dβ[b, c]: the chunk partials of b added in chunk order.
+__global__ void adaln_fuse_bwd_reduce(const float* __restrict__ part,
+                                      float* __restrict__ dgamma,
+                                      float* __restrict__ dbeta, int B,
+                                      int D, int nchunk) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)B * D) return;
+  const int64_t b = i / D;
+  const int c = static_cast<int>(i % D);
+  const float* p = part + b * nchunk * 2 * D;
+  float sg = 0.f, sb = 0.f;
+  for (int k = 0; k < nchunk; ++k) {
+    sg += p[(int64_t)k * 2 * D + c];
+    sb += p[(int64_t)k * 2 * D + D + c];
+  }
+  dgamma[i] = sg;
+  dbeta[i] = sb;
+}
+
+template <bool AFFINE>
+int launch_bwd(const float* x, const float* gamma, const float* dy,
+               float* dx, float* part, float* dgamma, float* dbeta, int B,
+               int G, int S, int D, int64_t sxb, int64_t sxg, int64_t sxs,
+               int64_t sgb, float eps, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * BWARPS * (AFFINE ? 4 : 2) * D;
+  auto kern = adaln_fuse_bwd_rows<AFFINE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int64_t rows = (int64_t)G * S;
+  const int nchunk = static_cast<int>((rows + BROWS - 1) / BROWS);
+  kern<<<dim3(nchunk, B), BTHREADS, smem, stream>>>(
+      x, gamma, dy, dx, part, G, S, D, sxb, sxg, sxs, sgb, eps, nchunk);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !AFFINE) return static_cast<int>(e);
+  const int64_t n = (int64_t)B * D;
+  adaln_fuse_bwd_reduce<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                          stream>>>(part, dgamma, dbeta, B, D, nchunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Backward of adaln_fuse for float32 x, γ, β.  x: (B, G, S, D) by element
+// strides (sxb, sxg, sxs), last axis contiguous; gamma: (B, D) rows at
+// element stride sgb, last axis contiguous, or null for the plain
+// LayerNorm (then dγ and dβ are skipped and part, dgamma, dbeta may be
+// null).  dy, dx: contiguous (B, G, S, D).  part: scratch of
+// B · ceil(G·S / 32) · 2 · D floats; dgamma, dbeta: contiguous (B, D).
+// D ≤ 3,584 (four warps' rows and partials in 227 KB).  Launches two
+// kernels on `stream` (one without γ), allocates nothing, returns the
+// CUDA error code (0 on success).
+extern "C" int adaln_fuse_bwd(const void* x, const void* gamma,
+                              const void* dy, void* dx, void* part,
+                              void* dgamma, void* dbeta, int B, int G, int S,
+                              int D, long long sxb, long long sxg,
+                              long long sxs, long long sgb, float eps,
+                              void* stream) {
+  if ((int64_t)B * G * S == 0 || D == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* dyf = static_cast<const float*>(dy);
+  float* dxf = static_cast<float*>(dx);
+  if (gamma == nullptr)
+    return launch_bwd<false>(xf, nullptr, dyf, dxf, nullptr, nullptr,
+                             nullptr, B, G, S, D, sxb, sxg, sxs, 0, eps, st);
+  return launch_bwd<true>(xf, static_cast<const float*>(gamma), dyf, dxf,
+                          static_cast<float*>(part),
+                          static_cast<float*>(dgamma),
+                          static_cast<float*>(dbeta), B, G, S, D, sxb, sxg,
+                          sxs, sgb, eps, st);
 }

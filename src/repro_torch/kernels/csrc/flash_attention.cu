@@ -179,10 +179,10 @@ __device__ __forceinline__ void stage(uint8_t* dst, int pitch,
 template <typename T, int DMAX, bool VEC>
 __global__ void __launch_bounds__(Config<DMAX>::THREADS, Config<DMAX>::MINB)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int group, int S, int D, Strides sq, Strides sk,
-                       Strides sv, Strides so, int causal, int window,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int H, int group, int S,
+                       int D, Strides sq, Strides sk, Strides sv, Strides so,
+                       int causal, int window, float scale) {
   constexpr int TR = Config<DMAX>::TR, BKV = Config<DMAX>::BKV;
   constexpr int RG = Config<DMAX>::THREADS / 8;  // row groups
   constexpr int BQ = RG * TR, TK = BKV / 8, NC = DMAX / 32;
@@ -335,6 +335,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + rg + RG * i;
     if (qpos >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // the row's log-sum-exp of the scaled logits, for the backward only
+    if (lse != nullptr && cg == 0)
+      lse[(int64_t)bh * S + qpos] = m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = 32 * c + 4 * cg;
@@ -355,9 +358,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int S, int D, Strides sq, Strides sk, Strides sv,
-           Strides so, int causal, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hkv, int S, int D, Strides sq, Strides sk,
+           Strides sv, Strides so, int causal, int window, float scale,
            cudaStream_t stream) {
   using C = Config<DMAX>;
   constexpr int BQ = C::THREADS / 8 * C::TR, BKV = C::BKV;
@@ -384,27 +387,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, Config<DMAX>::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / Hkv, S, D, sq, sk,
-      sv, so, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / Hkv, S, D,
+      sq, sk, sv, so, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int by_width(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hkv, int S, int D, Strides sq, Strides sk, Strides sv,
-             Strides so, int causal, int window, float scale,
+int by_width(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int H, int Hkv, int S, int D, Strides sq, Strides sk,
+             Strides sv, Strides so, int causal, int window, float scale,
              cudaStream_t st) {
   if (D <= 32)
-    return launch<T, 32>(q, k, v, o, B, H, Hkv, S, D, sq, sk, sv, so, causal,
-                         window, scale, st);
+    return launch<T, 32>(q, k, v, o, lse, B, H, Hkv, S, D, sq, sk, sv, so,
+                         causal, window, scale, st);
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, H, Hkv, S, D, sq, sk, sv, so, causal,
-                         window, scale, st);
+    return launch<T, 64>(q, k, v, o, lse, B, H, Hkv, S, D, sq, sk, sv, so,
+                         causal, window, scale, st);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, o, B, H, Hkv, S, D, sq, sk, sv, so,
+    return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, S, D, sq, sk, sv, so,
                           causal, window, scale, st);
-  return launch<T, 256>(q, k, v, o, B, H, Hkv, S, D, sq, sk, sv, so, causal,
-                        window, scale, st);
+  return launch<T, 256>(q, k, v, o, lse, B, H, Hkv, S, D, sq, sk, sv, so,
+                        causal, window, scale, st);
 }
 
 }  // namespace
@@ -412,23 +415,302 @@ int by_width(const void* q, const void* k, const void* v, void* o, int B,
 // q, o: (B, H, S, D); k, v: (B, Hkv, S, D) with H % Hkv == 0; each by
 // element strides (batch, head, position) with a contiguous last axis;
 // all float32 (bf16 = 0) or all bf16 (bf16 = 1).  D ≤ 256, B·H ≤ 65,535.
-// window ≤ 0 means no window.  Launches on `stream`, allocates nothing,
-// returns the CUDA error code (0 on success).
+// window ≤ 0 means no window.  lse: null, or a contiguous float32 (B·H, S)
+// that receives each query row's log-sum-exp of its scaled logits (what
+// the backward recomputes the probabilities from).  Launches on `stream`,
+// allocates nothing, returns the CUDA error code (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int bf16, int B, int H, int Hkv,
-                               int S, int D, long long sqb, long long sqh,
-                               long long sqs, long long skb, long long skh,
-                               long long sks, long long svb, long long svh,
-                               long long svs, long long sob, long long soh,
-                               long long sos, int causal, int window,
-                               float scale, void* stream) {
+                               void* o, void* lse, int bf16, int B, int H,
+                               int Hkv, int S, int D, long long sqb,
+                               long long sqh, long long sqs, long long skb,
+                               long long skh, long long sks, long long svb,
+                               long long svh, long long svs, long long sob,
+                               long long soh, long long sos, int causal,
+                               int window, float scale, void* stream) {
   if (B == 0 || H == 0 || S == 0 || D == 0) return 0;
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs},
       so{sob, soh, sos};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (bf16)
-    return by_width<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, D, sq, sk, sv,
-                                   so, causal, window, scale, st);
-  return by_width<float>(q, k, v, o, B, H, Hkv, S, D, sq, sk, sv, so, causal,
-                         window, scale, st);
+    return by_width<__nv_bfloat16>(q, k, v, o, l, B, H, Hkv, S, D, sq, sk,
+                                   sv, so, causal, window, scale, st);
+  return by_width<float>(q, k, v, o, l, B, H, Hkv, S, D, sq, sk, sv, so,
+                         causal, window, scale, st);
+}
+
+// ---- backward ------------------------------------------------------------
+//
+// The TPU kernel has no backward; this one replaces XLA's autodiff of the
+// reference's training attention (repro/models/layers.py:137
+// `chunked_attention`, non-causal).  Non-causal MHA in float32, D ≤ 128.
+// With P = exp(q·kᵀ·scale − lse) recomputed from the forward's row
+// log-sum-exp, and Δ_i = Σ_d dO_id·O_id:
+//
+//   dV = Pᵀ·dO,   dS = P ∘ (dO·Vᵀ − Δ),   dQ = scale·dS·K,
+//   dK = scale·dSᵀ·Q.
+//
+// Two kernels, each owning its outputs, so no sum crosses blocks and
+// nothing is atomic (the result is deterministic): the first, one block
+// per (b·h, 64 query rows), forms Δ for its rows (written for the second)
+// and dQ over every kv tile; the second, one block per (b·h, 64 keys),
+// forms dK and dV over every query tile.  Every product is an IEEE float32
+// FFMA on CUDA cores, as in the forward.  Simple and right first: a thread
+// owns one row of a 64 × 64 tile and a quarter of its columns, reading its
+// operands from shared memory (pitch D + 1, so the rows a warp reads fall
+// in different banks); what bounds it is shared-memory traffic, not the
+// card's float32 rate (PERF.md).
+
+namespace {
+
+namespace bwd {
+
+constexpr int THREADS = 256;
+constexpr int BQ = 64, BK = 64;     // query rows, keys of a tile
+constexpr int TP = 65;              // pitch of a 64 × 64 probability tile
+constexpr int NJ = BK / 4;          // keys (or query rows) a thread owns
+
+// rows [row0, row0 + 64) of one head, as float32 at `pitch`, rows past S
+// and columns past D zero.
+__device__ __forceinline__ void stage(float* dst, int pitch,
+                                      const float* __restrict__ src,
+                                      int64_t ss, int row0, int S, int D) {
+  for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
+    const int r = i / D, c = i % D;
+    const int pos = row0 + r;
+    dst[r * pitch + c] = pos < S ? src[(int64_t)pos * ss + c] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// Block (query tile, b·h).  Thread (r = tid / 4, cg = tid % 4) owns query
+// row r, keys cg + 4j of each kv tile and head-dim columns cg + 4m.
+template <int DMAX>
+__global__ void __launch_bounds__(THREADS)
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ o,
+          const float* __restrict__ dO, const float* __restrict__ lse,
+          float* __restrict__ delta, float* __restrict__ dq, int H, int S,
+          int D, Strides sq, Strides sk, Strides sv, Strides so,
+          Strides sdo, Strides sdq, float scale) {
+  constexpr int NM = DMAX / 4;
+  extern __shared__ float smem_b[];
+  const int pitch = D + 1;
+  float* Qs = smem_b;
+  float* dOs = Qs + BQ * pitch;
+  float* Ks = dOs + BQ * pitch;
+  float* Vs = Ks + BK * pitch;
+  float* dSs = Vs + BK * pitch;           // BQ × TP
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BQ;
+  const int r = threadIdx.x >> 2, cg = threadIdx.x & 3;
+  const int qpos = q0 + r;
+  const float* kh = k + b * sk.b + h * sk.h;
+  const float* vh = v + b * sv.b + h * sv.h;
+  stage(Qs, pitch, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
+  stage(dOs, pitch, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S, D);
+
+  // Δ of this row: its 4 threads' columns, then a sum over the quad
+  float dl = 0.f, L = 0.f;
+  if (qpos < S) {
+    const float* orow = o + b * so.b + h * so.h + (int64_t)qpos * so.s;
+    const float* drow = dO + b * sdo.b + h * sdo.h + (int64_t)qpos * sdo.s;
+    for (int c = cg; c < D; c += 4) dl += drow[c] * orow[c];
+    L = lse[(int64_t)bh * S + qpos];
+  }
+  dl = quad_sum(dl);
+  if (qpos < S && cg == 0) delta[(int64_t)bh * S + qpos] = dl;
+
+  float acc[NM];
+#pragma unroll
+  for (int m = 0; m < NM; ++m) acc[m] = 0.f;
+  for (int k0 = 0; k0 < S; k0 += BK) {
+    __syncthreads();              // the previous tile is consumed
+    stage(Ks, pitch, kh, sk.s, k0, S, D);
+    stage(Vs, pitch, vh, sv.s, k0, S, D);
+    __syncthreads();
+    float s[NJ], dp[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j] = dp[j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float qv = Qs[r * pitch + d], gv = dOs[r * pitch + d];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[j] = fmaf(qv, Ks[(cg + 4 * j) * pitch + d], s[j]);
+        dp[j] = fmaf(gv, Vs[(cg + 4 * j) * pitch + d], dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const bool open = qpos < S && k0 + cg + 4 * j < S;
+      const float p = open ? expf(s[j] * scale - L) : 0.f;
+      dSs[r * TP + cg + 4 * j] = p * (dp[j] - dl);
+    }
+    __syncwarp();                 // a row's dS is read by its own quad
+    for (int j = 0; j < BK; ++j) {
+      const float ds = dSs[r * TP + j];
+#pragma unroll
+      for (int m = 0; m < NM; ++m)
+        if (cg + 4 * m < D)
+          acc[m] = fmaf(ds, Ks[j * pitch + cg + 4 * m], acc[m]);
+    }
+  }
+  if (qpos < S) {
+    float* dst = dq + b * sdq.b + h * sdq.h + (int64_t)qpos * sdq.s;
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+      if (cg + 4 * m < D) dst[cg + 4 * m] = acc[m] * scale;
+  }
+}
+
+// Block (kv tile, b·h).  Thread (j = tid / 4, cg = tid % 4) owns key j,
+// query rows cg + 4i of each query tile and head-dim columns cg + 4m.
+template <int DMAX>
+__global__ void __launch_bounds__(THREADS)
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dO,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dk, float* __restrict__ dv, int H, int S,
+           int D, Strides sq, Strides sk, Strides sv, Strides sdo,
+           Strides sdk, Strides sdv, float scale) {
+  constexpr int NM = DMAX / 4;
+  extern __shared__ float smem_b[];
+  const int pitch = D + 1;
+  float* Ks = smem_b;
+  float* Vs = Ks + BK * pitch;
+  float* Qs = Vs + BK * pitch;
+  float* dOs = Qs + BQ * pitch;
+  float* Ps = dOs + BQ * pitch;           // BK × TP, Pᵀ
+  float* dSs = Ps + BK * TP;              // BK × TP, dSᵀ
+  float* Ls = dSs + BK * TP;              // BQ
+  float* Ds = Ls + BQ;                    // BQ
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * BK;
+  const int j = threadIdx.x >> 2, cg = threadIdx.x & 3;
+  const bool key_open = k0 + j < S;
+  const float* qh = q + b * sq.b + h * sq.h;
+  const float* gh = dO + b * sdo.b + h * sdo.h;
+  stage(Ks, pitch, k + b * sk.b + h * sk.h, sk.s, k0, S, D);
+  stage(Vs, pitch, v + b * sv.b + h * sv.h, sv.s, k0, S, D);
+
+  float adk[NM], adv[NM];
+#pragma unroll
+  for (int m = 0; m < NM; ++m) adk[m] = adv[m] = 0.f;
+  for (int q0 = 0; q0 < S; q0 += BQ) {
+    __syncthreads();              // the previous tile is consumed
+    stage(Qs, pitch, qh, sq.s, q0, S, D);
+    stage(dOs, pitch, gh, sdo.s, q0, S, D);
+    if (threadIdx.x < BQ) {
+      const int pos = q0 + threadIdx.x;
+      Ls[threadIdx.x] = pos < S ? lse[(int64_t)bh * S + pos] : 0.f;
+      Ds[threadIdx.x] = pos < S ? delta[(int64_t)bh * S + pos] : 0.f;
+    }
+    __syncthreads();
+    float s[NJ], dp[NJ];
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) s[i] = dp[i] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kv = Ks[j * pitch + d], vv = Vs[j * pitch + d];
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        s[i] = fmaf(Qs[(cg + 4 * i) * pitch + d], kv, s[i]);
+        dp[i] = fmaf(dOs[(cg + 4 * i) * pitch + d], vv, dp[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      const int qi = cg + 4 * i;
+      const bool open = key_open && q0 + qi < S;
+      const float p = open ? expf(s[i] * scale - Ls[qi]) : 0.f;
+      Ps[j * TP + qi] = p;
+      dSs[j * TP + qi] = p * (dp[i] - Ds[qi]);
+    }
+    __syncwarp();                 // a key's row is read by its own quad
+    for (int i = 0; i < BQ; ++i) {
+      const float p = Ps[j * TP + i], ds = dSs[j * TP + i];
+#pragma unroll
+      for (int m = 0; m < NM; ++m)
+        if (cg + 4 * m < D) {
+          adv[m] = fmaf(p, dOs[i * pitch + cg + 4 * m], adv[m]);
+          adk[m] = fmaf(ds, Qs[i * pitch + cg + 4 * m], adk[m]);
+        }
+    }
+  }
+  if (key_open) {
+    float* dkr = dk + b * sdk.b + h * sdk.h + (int64_t)(k0 + j) * sdk.s;
+    float* dvr = dv + b * sdv.b + h * sdv.h + (int64_t)(k0 + j) * sdv.s;
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+      if (cg + 4 * m < D) {
+        dkr[cg + 4 * m] = adk[m] * scale;
+        dvr[cg + 4 * m] = adv[m];
+      }
+  }
+}
+
+template <int DMAX>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* dO, const float* lse, float* delta, float* dq,
+           float* dk, float* dv, int B, int H, int S, int D, Strides sq,
+           Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq,
+           Strides sdk, Strides sdv, float scale, cudaStream_t stream) {
+  const int pitch = D + 1;
+  const int smem_q = 4 * (2 * BQ * pitch + 2 * BK * pitch + BQ * TP);
+  const int smem_kv = 4 * (2 * BK * pitch + 2 * BQ * pitch + 2 * BK * TP +
+                           2 * BQ);
+  auto kq = dq_kernel<DMAX>;
+  auto kkv = dkv_kernel<DMAX>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_kv);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kq<<<dim3((S + BQ - 1) / BQ, B * H), THREADS, smem_q, stream>>>(
+      q, k, v, o, dO, lse, delta, dq, H, S, D, sq, sk, sv, so, sdo, sdq,
+      scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kkv<<<dim3((S + BK - 1) / BK, B * H), THREADS, smem_kv, stream>>>(
+      q, k, v, dO, lse, delta, dk, dv, H, S, D, sq, sk, sv, sdo, sdk, sdv,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd
+
+}  // namespace
+
+// Backward of non-causal float32 MHA.  q, k, v, o, dO, dq, dk, dv:
+// (B, H, S, D) by element strides (batch, head, position) with a
+// contiguous last axis; lse: the forward's contiguous (B·H, S) row
+// log-sum-exp; delta: float32 scratch of B·H·S.  D ≤ 128, B·H ≤ 65,535.
+// Launches two kernels on `stream`, allocates nothing, returns the CUDA
+// error code (0 on success).
+extern "C" int flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int B, int H, int S, int D, const long long* strides,
+    float scale, void* stream) {
+  if (B == 0 || H == 0 || S == 0 || D == 0) return 0;
+  Strides st[8];
+  for (int i = 0; i < 8; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto w = [](void* p) { return static_cast<float*>(p); };
+  if (D <= 64)
+    return bwd::launch<64>(f(q), f(k), f(v), f(o), f(dO), f(lse), w(delta),
+                           w(dq), w(dk), w(dv), B, H, S, D, st[0], st[1],
+                           st[2], st[3], st[4], st[5], st[6], st[7], scale,
+                           cs);
+  return bwd::launch<128>(f(q), f(k), f(v), f(o), f(dO), f(lse), w(delta),
+                          w(dq), w(dk), w(dv), B, H, S, D, st[0], st[1],
+                          st[2], st[3], st[4], st[5], st[6], st[7], scale,
+                          cs);
 }

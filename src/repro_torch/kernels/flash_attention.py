@@ -9,6 +9,13 @@ query attention: query head ``h`` reads kv head ``h // (Hq / Hkv)``).
 Any ``S`` works (partial tiles are masked).  Its plain version is
 ``kernels.ref.ref_flash_attention``; the model code reaches both through
 ``kernels.ops.flash_attention`` and ``kernels.ops.flash_attention_gqa``.
+
+``flash_attention_bwd`` launches the backward (two kernels of the same
+source): non-causal float32 MHA with ``D ≤ 128``, from the forward's row
+log-sum-exp (``flash_attention(..., with_lse=True)``).  The TPU kernel has
+no backward; this one replaces XLA's autodiff of the reference's training
+attention (``repro/models/layers.py:137``).  Its plain version is
+``kernels.ref.ref_flash_attention_bwd``.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_D = 256
+#: largest head dim of the backward
+BWD_MAX_D = 128
 _MAX_HEADS = 65535             # CUDA grid y limit on B·H
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -31,8 +40,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _fn():
     fn = _build.load_library("flash_attention").flash_attention
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i] + [ll] * 12 \
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i] + [ll] * 12 \
         + [i, i, ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_fn():
+    fn = _build.load_library("flash_attention").flash_attention_bwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 10 + [i] * 4 + [ctypes.POINTER(ctypes.c_longlong),
+                                        ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -45,11 +64,14 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     softmax_scale: float | None = None,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """Launch the kernel on CUDA tensors; returns ``(B, H, S, D)`` in
     ``q``'s dtype, laid out in memory as ``q`` is (a transposed
     ``(B, S, H, D)`` view of the DiT's projections gives a transposed
-    output, which reshapes back without a copy).
+    output, which reshapes back without a copy).  ``with_lse`` also
+    returns each query row's log-sum-exp of its scaled logits, float32
+    ``(B, H, S)``, which the backward needs (``(out, lse)``).
 
     q, k and v may be any strided views whose last axis is contiguous.
     Raises on anything the kernel does not take, and if the launch fails.
@@ -83,11 +105,60 @@ def flash_attention(
     out = torch.empty_like(q)
     if out.stride(-1) != 1 and d > 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               None if lse is None else lse.data_ptr(),
                _DTYPES[q.dtype], b, h, hkv, s, d, *strides, int(causal),
                int(window), scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, lse, d_out, *,
+                        softmax_scale: float | None = None):
+    """Launch the backward on CUDA tensors: ``(dq, dk, dv)`` of non-causal
+    float32 attention with equal head counts, each laid out as its input.
+    ``out`` and ``lse`` are the forward's (``with_lse=True``); ``d_out``
+    the gradient of ``out``.  Every operand may be a strided view with a
+    contiguous last axis.  Raises on anything the kernel does not take,
+    and if the launch fails."""
+    ts = (q, k, v, out, d_out)
+    if any(t.dtype != torch.float32 for t in ts + (lse,)):
+        raise TypeError("flash_attention_bwd takes float32 operands")
+    if not all(t.is_cuda and t.device == q.device for t in ts + (lse,)):
+        raise ValueError("flash_attention_bwd launches on CUDA tensors of "
+                         "one device only")
+    if q.dim() != 4 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"flash_attention_bwd takes q, k, v, out, d_out of "
+                         f"one (B, H, S, D) shape, got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    b, h, s, d = q.shape
+    if tuple(lse.shape) != (b, h, s) or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous ({b}, {h}, {s})")
+    if d > BWD_MAX_D:
+        raise ValueError(f"head dim {d} exceeds the backward's {BWD_MAX_D}")
+    if b * h > _MAX_HEADS:
+        raise ValueError(f"B·H = {b * h} exceeds the grid limit "
+                         f"{_MAX_HEADS}")
+    if d > 1 and any(t.stride(-1) != 1 for t in ts):
+        raise ValueError("q, k, v, out and d_out must have a contiguous "
+                         "last axis")
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    grads = [torch.empty_like(t) for t in (q, k, v)]   # unit last stride
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    order = (q, k, v, out, d_out) + tuple(grads)
+    strides = (ctypes.c_longlong * 24)(*[t.stride(i) for t in order
+                                         for i in range(3)])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   *(g.data_ptr() for g in grads), b, h, s, d, strides,
+                   scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{rc}")
+    return tuple(grads)

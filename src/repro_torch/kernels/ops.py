@@ -6,6 +6,16 @@ switch to turn the kernel off); on the CPU it runs the kernel's plain
 PyTorch version from ``kernels.ref``.  Every CUDA launch adds one to the
 wrapper's count in ``LAUNCHES``, so a run can show that it went through
 the kernels.
+
+``adaln_modulate``, ``layernorm`` and ``flash_attention`` are
+differentiable on both devices: on the CPU through autograd of the plain
+versions; on the card, when an input requires grad, through a
+``torch.autograd.Function`` whose backward is a hand-written kernel
+(``adaln_fuse_bwd``, ``flash_attention_bwd``).  A call the backward does
+not take (attention that is causal, windowed or grouped; any operand not
+float32) raises ``NotImplementedError`` rather than return a tensor
+without a gradient.  Without grad the forward is the plain launch: nothing
+is saved, no log-sum-exp is written.
 """
 
 from __future__ import annotations
@@ -20,18 +30,24 @@ from repro_torch.core.schedules import Schedule
 from repro_torch.kernels import hetero_fuse as _fuse
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.adaln_fuse import adaln_fuse as _adaln_fuse
+from repro_torch.kernels.adaln_fuse import adaln_fuse_bwd as _adaln_fuse_bwd
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention import \
+    flash_attention_bwd as _flash_bwd
 from repro_torch.kernels.ragged_gemm import ragged_gemm as _ragged_gemm
 from repro_torch.kernels.ssd_scan import MAX_TILE as _SSD_MAX_TILE
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 
 #: CUDA launches per kernel since the last ``reset_launches()``.
 #: ``ragged_gemm`` counts the dense (float32/bf16 weight) body;
-#: ``adaln_fuse`` counts ``adaln_modulate`` and ``layernorm``.
+#: ``adaln_fuse`` counts ``adaln_modulate`` and ``layernorm``;
+#: ``adaln_fuse_bwd`` and ``flash_attention_bwd`` one backward call each
+#: (each launches two kernels of its source).
 LAUNCHES = {"ragged_gemm": 0, "ragged_gemm_int8": 0, "ragged_gemm_fp8": 0,
             "hetero_fuse_step": 0, "hetero_fuse_coeffs": 0,
             "hetero_fuse_dequant": 0, "hetero_fuse": 0, "adaln_fuse": 0,
-            "flash_attention": 0, "ssd_scan": 0}
+            "flash_attention": 0, "ssd_scan": 0, "adaln_fuse_bwd": 0,
+            "flash_attention_bwd": 0}
 
 _QUANT_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
@@ -191,6 +207,9 @@ def adaln_modulate(
     if not x.is_cuda:
         return _ref.ref_adaln_fuse(x, gamma, beta, eps,
                                    round_scale=round_scale)
+    if _wants_grad(x, gamma, beta):
+        _adaln_grad_supported(x, gamma, beta)
+        return _AdaLN.apply(_rows_view(x), gamma, beta, eps).reshape(x.shape)
     out = _adaln_fuse(_rows_view(x), gamma, beta, eps=eps,
                       round_scale=round_scale)
     LAUNCHES["adaln_fuse"] += 1
@@ -203,9 +222,46 @@ def layernorm(x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     ``x``'s dtype."""
     if not x.is_cuda:
         return _ref.ref_adaln_fuse(x, None, None, eps)
+    if _wants_grad(x):
+        _adaln_grad_supported(x, None, None)
+        return _AdaLN.apply(_rows_view(x), None, None, eps).reshape(x.shape)
     out = _adaln_fuse(_rows_view(x), None, None, eps=eps)
     LAUNCHES["adaln_fuse"] += 1
     return out.reshape(x.shape)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _adaln_grad_supported(x, gamma, beta) -> None:
+    dtypes = [t.dtype for t in (x, gamma, beta) if t is not None]
+    if any(dt != torch.float32 for dt in dtypes):
+        raise NotImplementedError(
+            f"the adaln_fuse backward takes float32 x, gamma and beta, got "
+            f"{dtypes} (bf16, and round_scale with bf16 gamma, are "
+            f"forward-only)")
+
+
+class _AdaLN(torch.autograd.Function):
+    """``adaln_fuse`` forward and its backward kernel (float32): saves
+    ``x`` and ``γ`` (the backward recomputes the statistics)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        out = _adaln_fuse(x, gamma, beta, eps=eps)
+        LAUNCHES["adaln_fuse"] += 1
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma, dbeta = _adaln_fuse_bwd(x, gamma, d_out, eps=ctx.eps)
+        LAUNCHES["adaln_fuse_bwd"] += 1
+        return dx, dgamma, dbeta, None
 
 
 def _rows_view(x: torch.Tensor) -> torch.Tensor:
@@ -238,6 +294,15 @@ def flash_attention(
         raise ValueError(f"{hq} query heads do not group over {hkv} kv "
                          f"heads")
     if q.is_cuda:
+        if _wants_grad(q, k, v):
+            if causal or window or hq != hkv or any(
+                    t.dtype != torch.float32 for t in (q, k, v)):
+                raise NotImplementedError(
+                    f"the flash_attention backward takes non-causal, "
+                    f"unwindowed float32 attention with equal head counts; "
+                    f"got causal={causal}, window={window}, heads {hq}/"
+                    f"{hkv}, {q.dtype}")
+            return _Flash.apply(q, k, v, softmax_scale)
         out = _flash(q, k, v, causal=causal, window=window,
                      softmax_scale=softmax_scale)
         LAUNCHES["flash_attention"] += 1
@@ -247,6 +312,31 @@ def flash_attention(
         v = v.repeat_interleave(hq // hkv, dim=1)
     return _ref.ref_flash_attention(q, k, v, causal=causal, window=window,
                                     softmax_scale=softmax_scale)
+
+
+class _Flash(torch.autograd.Function):
+    """Non-causal float32 attention kernel and its backward kernel: the
+    forward also writes each row's log-sum-exp, saved with q, k, v and the
+    output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, softmax_scale):
+        out, lse = _flash(q, k, v, causal=False, window=0,
+                          softmax_scale=softmax_scale, with_lse=True)
+        LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = softmax_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        if d_out.stride(-1) != 1:
+            d_out = d_out.contiguous()
+        grads = _flash_bwd(q, k, v, out, lse, d_out,
+                           softmax_scale=ctx.scale)
+        LAUNCHES["flash_attention_bwd"] += 1
+        return (*grads, None)
 
 
 def flash_attention_gqa(q, k, v, *, causal=True, window=0,

@@ -188,6 +188,64 @@ def ref_adaln_fuse(
     return out.to(x.dtype)
 
 
+def ref_adaln_fuse_bwd(
+    x: torch.Tensor,                  # (B, ..., D)
+    gamma: torch.Tensor | None,       # (B, D)
+    d_out: torch.Tensor,              # x's shape
+    eps: float = 1e-6,
+):
+    """Backward of ``ref_adaln_fuse`` (float32, written out):
+    ``x̂ = (x − μ)·rstd``, ``dŷ = dy·(1+γ)``,
+    ``dx = rstd·(dŷ − mean(dŷ) − x̂·mean(dŷ·x̂))`` per row, and per batch
+    row ``dγ = Σ dy·x̂``, ``dβ = Σ dy`` over its other axes (``None`` both
+    without ``γ``).  ``dx`` has ``x``'s shape (one gradient per row that
+    was read, broadcast views included)."""
+    x32 = x.to(torch.float32)
+    dy = d_out.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    rstd = torch.rsqrt(var + eps)
+    xh = (x32 - mu) * rstd
+    if gamma is None:
+        gh = dy
+    else:
+        ex = (gamma.shape[0],) + (1,) * (x.dim() - 2) + (gamma.shape[-1],)
+        gh = dy * (1.0 + gamma.to(torch.float32)).reshape(ex)
+    dx = rstd * (gh - gh.mean(dim=-1, keepdim=True)
+                 - xh * (gh * xh).mean(dim=-1, keepdim=True))
+    if gamma is None:
+        return dx, None, None
+    b, d = x.shape[0], x.shape[-1]
+    dgamma = (dy * xh).reshape(b, -1, d).sum(dim=1)
+    dbeta = dy.reshape(b, -1, d).sum(dim=1)
+    return dx, dgamma, dbeta
+
+
+def ref_flash_attention_bwd(
+    q: torch.Tensor,          # (B, H, S, D)
+    k: torch.Tensor,          # (B, H, S, D)
+    v: torch.Tensor,          # (B, H, S, D)
+    d_out: torch.Tensor,      # (B, H, S, D)
+    *,
+    softmax_scale: float | None = None,
+):
+    """Backward of non-causal ``ref_flash_attention`` in float32, written
+    out: ``P = softmax(q·kᵀ·scale)``, ``dV = Pᵀ·dO``,
+    ``dS = P ∘ (dO·Vᵀ − Δ)`` with ``Δ = rowsum(dO ∘ O)``,
+    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``.  Returns ``(dq, dk, dv)``
+    float32."""
+    d = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    q32, k32, v32 = (a.to(torch.float32) for a in (q, k, v))
+    do = d_out.to(torch.float32)
+    p = torch.softmax((q32 @ k32.transpose(-1, -2)) * scale, dim=-1)
+    o = p @ v32
+    dv = p.transpose(-1, -2) @ do
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = p * (do @ v32.transpose(-1, -2) - delta)
+    return (ds @ k32) * scale, (ds.transpose(-1, -2) @ q32) * scale, dv
+
+
 def ref_hetero_fuse(
     preds: torch.Tensor,      # (K, B, T) native expert predictions
     x_t: torch.Tensor,        # (B, T)

@@ -29,6 +29,12 @@ self-attention (``kernels.ops.flash_attention``, non-causal) goes
 through the port's kernels; cross-attention (256 queries over 77 text
 tokens, unequal lengths the attention kernel does not take) stays
 plain ops (``layers.attention``).
+
+``apply`` (hence ``make_expert_apply`` and ``make_router_fn``) is
+differentiable in its parameters on both devices: on the card the
+kernel wrappers run their backward kernels when an input requires grad
+(the training path, ``training.trainer``); without grad the forward is
+the serving forward, launch for launch.
 """
 
 from __future__ import annotations

@@ -1,1 +1,15 @@
-"""Checkpoint I/O of the port (the training side is still to port)."""
+"""Training side of the port: AdamW, EMA, the expert and router trainers
+and checkpoint I/O (``repro.training``'s exports).  LM training
+(``make_lm_train_step``) raises until the SSD scan has a backward
+(ROADMAP A.9b)."""
+
+from repro_torch.training.checkpoint import (expert_metadata,
+                                             load_checkpoint,
+                                             save_checkpoint)
+from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
+                                            adamw_init, adamw_update,
+                                            clip_by_global_norm, ema_init,
+                                            ema_update, global_norm,
+                                            lr_schedule)
+from repro_torch.training.trainer import (ExpertTrainer, RouterTrainer,
+                                          TrainState, make_lm_train_step)

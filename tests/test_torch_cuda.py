@@ -23,7 +23,12 @@ against its sequential plain version: ``max |Δ| ≤ 5e-5 · max |want|`` for
 float32 y and the state (every decay factor ``exp(cum_i − cum_j)`` comes
 from float32 cumulative log-decays reaching |cum| ≈ 200 over a chunk, an
 ulp of which, 1.5e-5, is the factor's relative error; three of those),
-one bf16 ulp (``2⁻⁷``) of max|y| for bf16 y.
+one bf16 ulp (``2⁻⁷``) of max|y| for bf16 y.  The AdaLN and attention
+backward kernels (float32) sum in another order than ATen (row sums of
+``D`` terms, the ``dγ``/``dβ`` sums over ``G·S`` rows, the attention's
+``S``-term products): AdaLN gradients within ``1e-5 · max |want|`` of
+their plain version, attention gradients within ``1e-5`` of the largest
+of the three; both are bitwise repeatable (no atomics).
 """
 
 from __future__ import annotations
@@ -978,3 +983,229 @@ def test_per_row_dt_step_at_the_rolling_capacity(cuda):
     for r in range(b):
         one = ops.fused_step(preds, x, w, coef, dt[r:r + 1], g=2, **STEP_KW)
         assert torch.equal(got[r], one[r])
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels (training path)
+# ---------------------------------------------------------------------------
+
+GRAD_REL = 1e-5
+
+
+def _close_rel(got, want, rel=GRAD_REL):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got - want).abs().max().item()
+    assert err <= rel * want.abs().max().item(), (err, want.abs().max())
+
+
+@pytest.mark.parametrize("shape,view", [
+    ((4, 256, 768), "plain"),           # the DiT's modulate site
+    ((3, 2, 33, 100), "plain"),         # G 2, D off the 32-lane stride
+    ((3, 40, 96), "broadcast"),         # (P, g, T, d) replica broadcast
+    ((2, 70, 64), "slice"),             # a strided slice of wider rows
+])
+@pytest.mark.parametrize("affine", [True, False], ids=["mod", "ln"])
+def test_adaln_fuse_bwd_kernel_matches_plain(cuda, shape, view, affine):
+    """dx, dγ and dβ of the backward kernel against the plain version's
+    formula, with γ/β slices of a modulation stack, and through
+    ``ops.adaln_modulate``/``ops.layernorm`` under autograd: one forward
+    and one backward launch, gradients equal to the direct call's."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    b, d = shape[0], shape[-1]
+    base = 3 * torch.randn(shape, generator=gen, device=cuda) + 1
+    if view == "broadcast":
+        x = base[:, None].expand(b, 2, *shape[1:])
+    elif view == "slice":
+        x = torch.randn(b, shape[1], 2 * d, generator=gen,
+                        device=cuda)[..., :d]
+    else:
+        x = base
+    mods = 0.3 * torch.randn(b, 6, 6, d, generator=gen, device=cuda)
+    gamma = mods[:, 2, 0] if affine else None
+    dy = torch.randn(x.shape, generator=gen, device=cuda)
+    from repro_torch.kernels.adaln_fuse import adaln_fuse_bwd
+
+    rows = x if x.dim() in (3, 4) else x.reshape(b, -1, d)
+    got = adaln_fuse_bwd(rows, gamma, dy)
+    want = ref.ref_adaln_fuse_bwd(x, gamma, dy)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            _close_rel(g, w)
+    again = adaln_fuse_bwd(rows, gamma, dy)
+    assert all(a is None or torch.equal(a, g) for a, g in zip(again, got))
+
+    xg = x.detach().requires_grad_(True)
+    mg = mods.detach().requires_grad_(True)
+    ops.reset_launches()
+    if affine:
+        out = ops.adaln_modulate(xg, mg[:, 2, 0], mg[:, 2, 1],
+                                 round_scale=True)
+    else:
+        out = ops.layernorm(xg)
+    assert out.grad_fn is not None
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["adaln_fuse"] == 1
+    assert ops.LAUNCHES["adaln_fuse_bwd"] == 1
+    _close_rel(xg.grad, want[0])
+    if affine:
+        _close_rel(mg.grad[:, 2, 0], want[1])
+        _close_rel(mg.grad[:, 2, 1], want[2])
+        assert mg.grad[:, 3:].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("b,h,s,d,scale", [
+    (2, 12, 256, 64, None),       # the DiT's self-attention, (B, S, H, D)
+    (2, 3, 100, 64, 0.3),         # partial tiles, a softmax scale
+    (1, 2, 70, 32, None),         # narrower head
+    (1, 2, 129, 128, 0.1),        # widest head the backward takes
+    (3, 1, 1, 16, None),          # one position
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, s, d, scale):
+    """dq, dk and dv of the backward kernel (from the forward's row
+    log-sum-exp) against the plain version's formula on ``(B, S, H, D)``
+    projections read as ``(B, H, S, D)`` views; through
+    ``ops.flash_attention`` under autograd the same gradients, one forward
+    and one backward launch, bitwise repeatable."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    gen = torch.Generator(device=cuda).manual_seed(b * h + s + d)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=cuda)
+                   .transpose(1, 2) for _ in range(4))
+    out, lse = flash_attention(q, k, v, causal=False, softmax_scale=scale,
+                               with_lse=True)
+    plain_out = flash_attention(q, k, v, causal=False, softmax_scale=scale)
+    assert torch.equal(out, plain_out)
+    got = flash_attention_bwd(q, k, v, out, lse, do, softmax_scale=scale)
+    want = ref.ref_flash_attention_bwd(q, k, v, do, softmax_scale=scale)
+    torch.cuda.synchronize()
+    # relative to the largest gradient of the three: at S 1 dq and dk are
+    # 0 exactly (P = 1), which the plain version rounds to ~1e-7
+    top = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= GRAD_REL * top
+    again = flash_attention_bwd(q, k, v, out, lse, do, softmax_scale=scale)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+    qg, kg, vg = (a.detach().requires_grad_(True) for a in (q, k, v))
+    ops.reset_launches()
+    o2 = ops.flash_attention(qg, kg, vg, causal=False, softmax_scale=scale)
+    assert o2.grad_fn is not None and torch.equal(o2.detach(), out)
+    o2.backward(do)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    for g, w in zip((qg.grad, kg.grad, vg.grad), got):
+        assert torch.equal(g, w)
+
+
+def test_unsupported_grad_calls_raise(cuda):
+    """On a CUDA tensor that requires grad, a call the backward does not
+    take raises; it never returns a tensor without a ``grad_fn``."""
+    q = torch.randn(1, 4, 16, 32, device=cuda, requires_grad=True)
+    kv = torch.randn(1, 2, 16, 32, device=cuda)
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        ops.flash_attention(q, q, q, causal=True)
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        ops.flash_attention(q, q, q, causal=False, window=4)
+    with pytest.raises(NotImplementedError, match="heads"):
+        ops.flash_attention(q, kv, kv, causal=False)
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        ops.flash_attention(q.to(torch.bfloat16), q.to(torch.bfloat16),
+                            q.to(torch.bfloat16), causal=False)
+    x = torch.randn(2, 8, 64, device=cuda, requires_grad=True)
+    g16 = torch.zeros(2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float32"):
+        ops.adaln_modulate(x, g16, g16, round_scale=True)
+    with pytest.raises(NotImplementedError, match="float32"):
+        ops.layernorm(x.to(torch.bfloat16))
+    ok = ops.flash_attention(q, q, q, causal=False)
+    assert ok.grad_fn is not None
+    assert ops.layernorm(x).grad_fn is not None
+
+
+def test_no_grad_forwards_are_the_serving_launch(cuda):
+    """Under ``torch.no_grad()`` (the serving paths) inputs that require
+    grad take the plain forward launch: bitwise the launch on inputs that
+    do not, no ``grad_fn``, no backward counted; the forward under
+    autograd gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4, 256, 768, generator=gen, device=cuda)
+    mods = 0.3 * torch.randn(4, 6, 768, generator=gen, device=cuda)
+    q = torch.randn(4, 256, 12, 64, generator=gen,
+                    device=cuda).transpose(1, 2)
+    want_a = ops.adaln_modulate(x, mods[:, 0], mods[:, 1], round_scale=True)
+    want_l = ops.layernorm(x)
+    want_f = ops.flash_attention(q, q, q, causal=False)
+    xg, mg, qg = (a.detach().requires_grad_(True) for a in (x, mods, q))
+    ops.reset_launches()
+    with torch.no_grad():
+        got = (ops.adaln_modulate(xg, mg[:, 0], mg[:, 1], round_scale=True),
+               ops.layernorm(xg), ops.flash_attention(qg, qg, qg,
+                                                      causal=False))
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "adaln_fuse": 2, "flash_attention": 1}
+    for g, w in zip(got, (want_a, want_l, want_f)):
+        assert g.grad_fn is None and torch.equal(g, w)
+    with_grad = (ops.adaln_modulate(xg, mg[:, 0], mg[:, 1], round_scale=True),
+                 ops.layernorm(xg),
+                 ops.flash_attention(qg, qg, qg, causal=False))
+    for g, w in zip(with_grad, (want_a, want_l, want_f)):
+        assert g.grad_fn is not None and torch.equal(g.detach(), w)
+
+
+@pytest.mark.parametrize("router", [False, True], ids=["expert", "router"])
+def test_dense_dit_gradients_on_the_card_match_the_cpu(cuda, router):
+    """One loss through the reduced dense DiT on the card (every LayerNorm
+    and self-attention through the kernels and their backward kernels)
+    against the same loss on the CPU (plain versions): every parameter
+    leaf's gradient within ``1e-4 · max |want|`` (float32 GEMM chains
+    through two layers in another order), and non-zero wherever the CPU's
+    is (the router's unused final layer gets zeros on both); launches
+    ``(3L + 1)`` AdaLN (``2L`` for the router) and ``L`` attention,
+    forward and backward alike."""
+    from repro_torch.models import dit as D
+    from repro_torch.models.config import dit_b2, router_b2
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = (router_b2(num_clusters=3) if router else dit_b2()).reduced(
+        latent_size=16)
+    gen = torch.Generator().manual_seed(11)
+    params = tree_map(lambda a: a + 0.02 * torch.randn(a.shape, generator=gen),
+                      D.init(cfg, gen))
+    x = torch.randn(3, 16, 16, 4, generator=gen)
+    t = torch.rand(3, generator=gen)
+    text = torch.randn(3, cfg.text_len, cfg.text_dim, generator=gen)
+    drop = torch.tensor([False, True, False])
+
+    def grads(dev):
+        cond = {} if router else dict(text_emb=text.to(dev),
+                                      drop_mask=drop.to(dev))
+        loss, g = value_and_grad(lambda p: (D.apply(
+            cfg, p, x.to(dev), t.to(dev), **cond) ** 2).mean(),
+            tree_map(lambda a: a.to(dev), params))
+        return loss, tree_leaves(g)
+
+    want_loss, want = grads("cpu")
+    ops.reset_launches()
+    got_loss, got = grads(cuda)
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    n_ln = 2 * layers if router else 3 * layers + 1
+    assert ops.LAUNCHES["adaln_fuse"] == ops.LAUNCHES["adaln_fuse_bwd"] \
+        == n_ln
+    assert ops.LAUNCHES["flash_attention"] == \
+        ops.LAUNCHES["flash_attention_bwd"] == layers
+    assert abs(got_loss.item() - want_loss.item()) <= \
+        1e-5 * abs(want_loss.item())
+    for g, w in zip(got, want):
+        g = g.cpu()
+        scale = w.abs().max().item()
+        assert (g - w).abs().max().item() <= 1e-4 * scale
+        assert scale == 0.0 or g.abs().max().item() > 0.0
