@@ -858,7 +858,10 @@ def check_adaln_bwd(ops, ref, dev) -> dict:
     of the ``(B, L, 6, d)`` modulation stack, against its plain version's
     dx, dγ, dβ; and without γ (the LayerNorm before cross-attention).
     Library yardstick: no single call computes it — the backward of
-    ``F.layer_norm`` followed by the modulation's elementwise ops."""
+    ``F.layer_norm`` followed by the modulation's elementwise ops; without
+    γ, ``F.layer_norm``'s alone.  The summary carries the γ case and the
+    γ-less case's ``ms``, ``library_ms`` and ``share_of_bound`` as
+    ``*_no_gamma``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.adaln_fuse import adaln_fuse_bwd
@@ -908,11 +911,15 @@ def check_adaln_bwd(ops, ref, dev) -> dict:
                 bool(torch.isfinite(g).all()) for g in got)):
             fail(f"adaln_fuse_bwd disagrees with its plain version: {row}")
         rows.append(row)
-    main = rows[0]
+    main, no_gamma = rows
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 library_ms=main["library_ms"], bound_ms=main["bound_ms"],
-                bound_by=main["bound_by"])
+                bound_by=main["bound_by"],
+                share_of_bound=main["share_of_bound"],
+                ms_no_gamma=no_gamma["ms"],
+                library_ms_no_gamma=no_gamma["library_ms"],
+                share_of_bound_no_gamma=no_gamma["share_of_bound"])
 
 
 def check_flash_bwd(ops, ref, dev) -> dict:
@@ -2551,8 +2558,9 @@ _PLAIN_WRAPPERS = ("adaln_modulate", "layernorm", "flash_attention")
 TRAIN_CATEGORIES = (
     ("adaln_fuse_bwd", "adaln_fuse_bwd (every LayerNorm's backward)"),
     ("adaln_fuse", "adaln_fuse (forward)"),
-    ("dq_kernel", "flash_attention_bwd dQ"),
-    ("dkv_kernel", "flash_attention_bwd dK, dV"),
+    ("flash_attention_bwd_delta", "flash_attention_bwd Δ"),
+    ("flash_attention_bwd_tile", "flash_attention_bwd dK, dV and dQ shares"),
+    ("flash_attention_bwd_dq_sum", "flash_attention_bwd dQ sum"),
     ("flash_attention", "flash_attention (forward, with log-sum-exp)"),
     ("gemm", "cuBLAS float32 GEMM (dense layers forward and backward, "
              "cross-attention)"),

@@ -9,7 +9,9 @@ reaches both through ``kernels.ops.adaln_modulate`` and
 ``kernels.ops.layernorm``.
 
 ``adaln_fuse_bwd`` launches the backward (float32): ``dx`` and, with
-``γ``, the deterministic per-batch-row sums ``dγ`` and ``dβ``.  The TPU
+``γ``, the deterministic per-batch-row sums ``dγ`` and ``dβ`` (rows held
+in registers where ``D % 4 == 0``, the rows are aligned and
+``D ≤ 1024``; else cached in shared memory).  The TPU
 kernel has no backward; this one replaces XLA's autodiff of the
 reference's training forward (``repro/models/dit.py:295-314``).  Its
 plain version is ``kernels.ref.ref_adaln_fuse_bwd``.
@@ -28,8 +30,6 @@ from repro_torch.kernels import _build
 MAX_D = 7264
 #: rows (and column partials) of float32 that four warps keep in 227 KB
 BWD_MAX_D = 3584
-#: rows of one batch entry a backward block reduces (``BROWS`` in the source)
-BWD_ROWS = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,7 +48,15 @@ def _fn():
 def _bwd_fn():
     fn = _build.load_library("adaln_fuse").adaln_fuse_bwd
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 7 + [i] * 4 + [ll] * 4 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 7 + [i] * 4 + [ll] * 4 + [ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_chunks_fn():
+    fn = _build.load_library("adaln_fuse").adaln_fuse_bwd_chunks
+    fn.argtypes = [ctypes.c_longlong]
     fn.restype = ctypes.c_int
     return fn
 
@@ -177,7 +185,8 @@ def adaln_fuse_bwd(
     dx = torch.empty((b, g, s, d), dtype=torch.float32, device=x.device)
     dgamma = dbeta = part = None
     if gamma is not None:
-        chunks = -(-(g * s) // BWD_ROWS)
+        # the kernel's own chunk count of the G·S rows of a batch entry
+        chunks = _bwd_chunks_fn()(g * s)
         part = torch.empty((b, chunks, 2, d), dtype=torch.float32,
                            device=x.device)
         dgamma = torch.empty((b, d), dtype=torch.float32, device=x.device)
@@ -186,11 +195,14 @@ def adaln_fuse_bwd(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    sgb = 0 if gamma is None else gamma.stride(0)
+    vec = (d % 4 == 0 and _aligned(x, (sxb, sxg, sxs))
+           and _aligned(dy, (d,))
+           and (gamma is None or _aligned(gamma, (sgb,))))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _bwd_fn()(x.data_ptr(), ptr(gamma), dy.data_ptr(), dx.data_ptr(),
                    ptr(part), ptr(dgamma), ptr(dbeta), b, g, s, d, sxb, sxg,
-                   sxs, 0 if gamma is None else gamma.stride(0), eps,
-                   stream)
+                   sxs, sgb, eps, int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"adaln_fuse_bwd launch failed: CUDA error {rc}")
     return dx.reshape(x.shape), dgamma, dbeta

@@ -10,8 +10,9 @@ Any ``S`` works (partial tiles are masked).  Its plain version is
 ``kernels.ref.ref_flash_attention``; the model code reaches both through
 ``kernels.ops.flash_attention`` and ``kernels.ops.flash_attention_gqa``.
 
-``flash_attention_bwd`` launches the backward (two kernels of the same
-source): non-causal float32 MHA with ``D ≤ 128``, from the forward's row
+``flash_attention_bwd`` launches the backward (three kernels of the same
+source: Δ, then dK, dV and each key tile's share of dQ, then dQ):
+non-causal float32 MHA with ``D ≤ 128``, from the forward's row
 log-sum-exp (``flash_attention(..., with_lse=True)``).  The TPU kernel has
 no backward; this one replaces XLA's autodiff of the reference's training
 attention (``repro/models/layers.py:137``).  Its plain version is
@@ -53,6 +54,14 @@ def _bwd_fn():
     fn.argtypes = [p] * 10 + [i] * 4 + [ctypes.POINTER(ctypes.c_longlong),
                                         ctypes.c_float, p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_scratch_fn():
+    fn = _build.load_library("flash_attention").flash_attention_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
     return fn
 
 
@@ -149,13 +158,15 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, *,
                          "last axis")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     grads = [torch.empty_like(t) for t in (q, k, v)]   # unit last stride
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # the key tiles' dQ shares and Δ, sized by the kernel's own tiles
+    scratch = torch.empty(_bwd_scratch_fn()(b, h, s, d), dtype=torch.float32,
+                          device=q.device)
     order = (q, k, v, out, d_out) + tuple(grads)
     strides = (ctypes.c_longlong * 24)(*[t.stride(i) for t in order
                                          for i in range(3)])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   d_out.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                    *(g.data_ptr() for g in grads), b, h, s, d, strides,
                    scale, stream)
     if rc != 0:

@@ -1003,6 +1003,14 @@ def _close_rel(got, want, rel=GRAD_REL):
     ((3, 2, 33, 100), "plain"),         # G 2, D off the 32-lane stride
     ((3, 40, 96), "broadcast"),         # (P, g, T, d) replica broadcast
     ((2, 70, 64), "slice"),             # a strided slice of wider rows
+    ((2, 64, 768), "offset"),           # base one float off: shared path
+    ((2, 50, 33), "plain"),             # D % 4 ≠ 0
+    ((2, 40, 70), "plain"),
+    ((2, 77, 768), "plain"),            # rows that fill no chunk
+    ((1, 300, 256), "plain"),
+    ((2, 40, 1024), "plain"),           # the register path's widest row
+    ((2, 9, 3072), "plain"),            # shared path, wide rows
+    ((2, 5, 3584), "plain"),            # BWD_MAX_D
 ])
 @pytest.mark.parametrize("affine", [True, False], ids=["mod", "ln"])
 def test_adaln_fuse_bwd_kernel_matches_plain(cuda, shape, view, affine):
@@ -1018,6 +1026,9 @@ def test_adaln_fuse_bwd_kernel_matches_plain(cuda, shape, view, affine):
     elif view == "slice":
         x = torch.randn(b, shape[1], 2 * d, generator=gen,
                         device=cuda)[..., :d]
+    elif view == "offset":
+        x = (3 * torch.randn(base.numel() + 1, generator=gen, device=cuda)
+             + 1)[1:].view(shape)
     else:
         x = base
     mods = 0.3 * torch.randn(b, 6, 6, d, generator=gen, device=cuda)
@@ -1063,6 +1074,10 @@ def test_adaln_fuse_bwd_kernel_matches_plain(cuda, shape, view, affine):
     (1, 2, 70, 32, None),         # narrower head
     (1, 2, 129, 128, 0.1),        # widest head the backward takes
     (3, 1, 1, 16, None),          # one position
+    (1, 3, 77, 33, None),         # D % 4 ≠ 0: staged element by element
+    (2, 2, 300, 70, 0.2),         # S that fills no tile, D 70
+    (1, 2, 300, 128, None),
+    (8, 130, 64, 64, None),       # B·H 1040
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, s, d, scale):
     """dq, dk and dv of the backward kernel (from the forward's row
@@ -1101,6 +1116,30 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, s, d, scale):
     assert ops.LAUNCHES["flash_attention_bwd"] == 1
     for g, w in zip((qg.grad, kg.grad, vg.grad), got):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("s,d", [(256, 64), (100, 128)])
+def test_flash_attention_bwd_kernel_unaligned_views(cuda, s, d):
+    """q, k, v and dO one float off 16-byte alignment (the element-by-
+    element staging path and scalar stores): the plain version's
+    gradients, bitwise repeatable."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    b, h = 2, 4
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    n = b * s * h * d
+    q, k, v, do = (torch.randn(n + 1, generator=gen, device=cuda)[1:]
+                   .view(b, s, h, d).transpose(1, 2) for _ in range(4))
+    out, lse = flash_attention(q, k, v, causal=False, with_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do)
+    want = ref.ref_flash_attention_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    top = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= GRAD_REL * top
+    again = flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 def test_unsupported_grad_calls_raise(cuda):
