@@ -40,7 +40,12 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    forward's log-sum-exp, each against its plain version's gradients
    (and bitwise repeatable), timed beside its plain version and the
    library's backward (``F.layer_norm`` + the modulation's elementwise
-   ops; ``scaled_dot_product_attention``);
+   ops; ``scaled_dot_product_attention``); and the SSD scan's backward
+   kernel at the mixer shape (bf16 with ``d_state`` zero and not, float32,
+   and ``S`` < chunk) from the forward's tile-start states, against its
+   plain version's five gradients (bitwise repeatable), timed beside its
+   plain version and the autograd backward of the plain chunked
+   algorithm;
 4. loads the full-width heterogeneous DiT-B/2 ensemble — 8 random,
    seeded experts (2 DDPM/cosine + 6 FM/linear) and a router, written to
    checkpoints and loaded once with ``ServingEngine.from_checkpoint_dir``
@@ -97,7 +102,9 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
 8. runs the reduced mamba2 ensemble (float32) on the GPU and on the CPU:
    fused log-probabilities, prefill logits and state, and greedy tokens
    must agree, and on the GPU prefill followed by a decode step must
-   reproduce ``forward_train``'s logits;
+   reproduce ``forward_train``'s logits; and one reduced float32
+   ``make_lm_train_step`` step on both (the loss, every gradient leaf, the
+   parameters after the step);
 9. runs the serving CLI, ``python -m repro_torch.launch.serve``, five
    times at once on the card over reduced checkpoints (latent 8):
    ``--coalesce --plan-refresh 2 --track-padding``, ``--strategy full``,
@@ -106,7 +113,10 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    truncated checkpoint; each must exit 0, serve every request and print
    its lines; beside them the training CLI, ``python -m
    repro_torch.launch.train --mode expert --steps 20 --out …``, must exit
-   0 and write a checkpoint that loads;
+   0 and write a checkpoint that loads, and ``--mode lm --arch
+   mamba2-2.7b --steps 3`` (reduced) and the LM example (``python -m
+   repro_torch.examples.decentralized_lm_experts --arch mamba2-2.7b``)
+   must exit 0 and print their lines;
 10. (after phase 5, over phase 4's checkpoints) elastic membership at full
    width: capacity-10 native and int8 engines, all-live against the
    fixed engine, a request submitted before an eviction bitwise its
@@ -133,7 +143,17 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    exact forward and backward launches per step, the first step's
    gradients against the plain path's on the card, finite losses and a
    falling loss on one fixed batch — then the three EMA checkpoints serve
-   one batch-8, 8-step, CFG-7.5, top-2 request.
+   one batch-8, 8-step, CFG-7.5, top-2 request;
+14. (after phase 8) LM training at the full width and depth of
+   mamba2-2.7b (bf16, remat, 512-token CE chunks): a 2-layer float32
+   model's first-step gradients on the kernel path against the plain
+   path on the card, then one expert from random seeded weights trained
+   10 steps of 4 × 1024 ``lm_batch`` tokens through
+   ``make_lm_train_step`` (cut from the reference's 256 × 4096) — per-step
+   seconds, tokens/s, peak device memory (under 80 GB), exact launches
+   per step (``ssd_scan`` 128, ``ssd_scan_bwd`` 64), finite losses and a
+   falling loss on one fixed batch — and one more step under the
+   profiler.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -1210,6 +1230,140 @@ def check_ssd_scan(ops, ref, dev) -> dict:
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"])
 
 
+#: the SSD scan's backward kernel against its plain version
+#: (``ref_ssd_scan_bwd``), each float32 gradient within
+#: ``SSD_BWD_REL_TOL · max |want|``: both run the chunked backward in
+#: float32 from the same inputs, the kernel's sums in another order (up to
+#: 128·64 products, a reverse cumulative sum of 128 terms of both signs
+#: for ddt, every position and batch for dA); bf16 gradients round once
+#: from float32 on both sides (BF16_OUT_REL_TOL).
+SSD_BWD_REL_TOL = 1e-4
+
+
+def ssd_bwd_work(b, h, s, p, n, q, elt, with_dstate) -> tuple:
+    """(operations, bytes, scratch bytes) of one backward of the scan: the
+    chunked backward's products that these inputs need — per (batch,
+    chunk) C·Bᵀ again and the head-summed (dP∘L)·B and (dP∘L)ᵀ·C, on the
+    causal triangle; per (batch, head, chunk) the triangle's M·dy and
+    dy·(dt x)ᵀ, and the four (q × P)·(P × N)-sized products (B·dSᵀ,
+    dy·S₀, x·dS, the carry dyᵀ·C) — with each input read once (x, dy, B,
+    C, dt, A, the tile-start states, d_state) and each gradient written
+    once; the scratch is the per-head partials written and read back."""
+    nc = -(-s // q)
+    chunks = b * nc
+    tri = q * (q + 1) / 2
+    flops = 3 * 2.0 * chunks * tri * n + chunks * h * (
+        2 * 2.0 * tri * p + 4 * 2.0 * q * p * n)
+    nbytes = (elt * (3.0 * b * s * h * p + 4.0 * b * s * n)
+              + 4.0 * (2 * b * s * h + 2 * h + b * h * nc * p * n
+                       + (b * h * p * n if with_dstate else 0)))
+    scratch = 2 * 4.0 * b * h * nc * (128 * 128 + 2 * 128 * 128)
+    return flops, nbytes, scratch
+
+
+def check_ssd_scan_bwd(ops, ref, dev) -> dict:
+    """The SSD scan's backward kernel at mamba2-2.7b's mixer shape in one
+    training step — x ``(4, 80, 1024, 64)`` and dy strided as in the
+    mixer, N 128, chunk 128 — in bf16 with ``d_state`` zero (what
+    ``forward_train`` gives) and non-zero, in float32, and with ``S`` =
+    100 < chunk, from the forward's tile-start states.  Every gradient
+    against the plain version's on the card (``SSD_BWD_REL_TOL``; one
+    bf16 ulp for bf16 gradients), bitwise repeatable.  Times: the kernel
+    (three launches), the plain version, and the yardstick, the autograd
+    backward of the plain chunked algorithm (``mamba2.ssd_chunked``,
+    einsums through cuBLAS; forward and backward less the forward); no
+    single PyTorch call computes it (library null).  Bound as the
+    forward's row: by the input dtype's rule, with the float32 CUDA-core
+    figure beside it."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    b, h, s, p, n, chunk = SSD_SHAPE
+    cases = (("mixer_bf16", s, torch.bfloat16, False),
+             ("mixer_bf16_dstate", s, torch.bfloat16, True),
+             ("mixer_f32", s, torch.float32, False),
+             ("short_bf16_dstate", 100, torch.bfloat16, True))
+    rows = []
+    for name, seq, dtype, with_ds in cases:
+        x, dt, A, B, C = _ssd_inputs(dev, b, h, seq, p, n, dtype, seed=17)
+        q = min(chunk, seq)
+        gen = torch.Generator(device=dev).manual_seed(18)
+        dy = torch.randn(b, seq, h, p, generator=gen, device=dev).to(
+            dtype).transpose(1, 2)
+        ds = (torch.randn(b, h, p, n, generator=gen, device=dev)
+              if with_ds else None)
+        _, _, starts = ssd_scan(x, dt, A, B, C, chunk=q, with_starts=True)
+
+        def kern():
+            return ssd_scan_bwd(x, dt, A, B, C, starts, dy, ds, chunk=q)
+
+        def plain():
+            return ref.ref_ssd_scan_bwd(x, dt, A, B, C, dy, ds, chunk=q)
+        got, want = kern(), plain()
+        again = kern()
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for g_name, g, w, g2 in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                                    want, again):
+            err, scale = rel_err(g.float(), w.float())
+            tol = (BF16_OUT_REL_TOL if g.dtype == torch.bfloat16
+                   else SSD_BWD_REL_TOL) * scale
+            errs[g_name] = dict(max_abs_err=err, tol=tol, max_abs=scale,
+                                bitwise_repeatable=bool(torch.equal(g, g2)))
+            ok = ok and bool(torch.isfinite(g).all()) and err <= tol \
+                and torch.equal(g, g2) and g.dtype == w.dtype
+        del got, want, again
+        t_k = graph_ms(kern, 10)
+        t_w = cuda_ms(kern, 10)
+        t_p = cuda_ms(plain, 2, warmup=1)
+        leaves = [a.detach().requires_grad_(True) for a in (x, dt, A, B, C)]
+
+        def fwd():
+            return ssd_chunked(leaves[0].transpose(1, 2),
+                               leaves[1].transpose(1, 2), *leaves[2:],
+                               chunk=q)[0]
+
+        def both():
+            return torch.autograd.grad(fwd(), leaves, dy.transpose(1, 2))
+        with torch.no_grad():
+            t_f = cuda_ms(fwd, 3, warmup=1)
+        t_c = cuda_ms(both, 3, warmup=1) - t_f
+        del leaves
+        flops, nbytes, scratch = ssd_bwd_work(b, h, seq, p, n, q,
+                                              x.element_size(), with_ds)
+        peak = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+        t_b, by = bound_ms(nbytes, flops, peak)
+        t_b32, by32 = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+        row = dict(case=name, x=[b, h, seq, p], N=n, chunk=q,
+                   dtype=str(dtype).replace("torch.", ""),
+                   d_state=with_ds, gradients=errs,
+                   max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                   ms=t_k, wrapper_ms=t_w, plain_ms=t_p,
+                   chunked_autograd_ms=t_c, library_ms=None, bound_ms=t_b,
+                   bound_by=by, share_of_bound=t_b / t_k,
+                   bound_f32_ms=t_b32, bound_f32_by=by32,
+                   share_of_bound_f32=t_b32 / t_k, gflop=flops / 1e9,
+                   mbytes=nbytes / 1e6, scratch_mbytes=scratch / 1e6,
+                   tflops=flops / t_k / 1e9)
+        if not rows:
+            row.update(clocks_under(kern))
+        print("ssd_scan_bwd case " + json.dumps(row))
+        if not ok:
+            fail(f"ssd_scan_bwd disagrees with its plain version: {row}")
+        rows.append(row)
+        del x, dt, A, B, C, dy, ds, starts
+        gc.collect()
+        torch.cuda.empty_cache()
+    main = rows[0]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+                chunked_autograd_ms=main["chunked_autograd_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                bound_f32_ms=main["bound_f32_ms"],
+                share_of_bound_f32=main["share_of_bound_f32"],
+                ms_f32=rows[2]["ms"])
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the serving main paths
 # ---------------------------------------------------------------------------
@@ -1926,6 +2080,17 @@ CLI_RUNS = (
 )
 
 
+#: the LM side's command lines, run beside the serving CLI: (module,
+#: arguments, lines printed) — the training CLI's reduced mamba2-2.7b and
+#: the LM example (two experts, 30 steps each, then three scores)
+LM_CLI = (
+    ("repro_torch.launch.train", ["--mode", "lm", "--arch", "mamba2-2.7b",
+                                  "--steps", "3"], 3),
+    ("repro_torch.examples.decentralized_lm_experts",
+     ["--arch", "mamba2-2.7b"], 5),
+)
+
+
 def check_trained_checkpoint(path: str, dev) -> None:
     """The training CLI's checkpoint loads onto the card, with its expert
     metadata and finite float32 leaves."""
@@ -1976,14 +2141,25 @@ def run_cli(dev) -> None:
     train_cmd = [sys.executable, "-m", "repro_torch.launch.train", "--mode",
                  "expert", "--steps", "20", "--out",
                  os.path.join(trained, "expert0.npz")]
+    lm_cmds = [[sys.executable, "-m", cmd, *args] for cmd, args, _ in LM_CLI]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, env=env,
                               cwd=ROOT)
              for cmd in [base + [where.get(f, f) for f in flags]
-                         for flags, _, _ in CLI_RUNS] + [train_cmd]]
+                         for flags, _, _ in CLI_RUNS] + lm_cmds
+             + [train_cmd]]
     try:
         results = [p.communicate(timeout=300) for p in procs]
         train_proc, (train_out, train_err) = procs.pop(), results.pop()
+        for (cmd, args, n_lines), p, (out, err) in zip(
+                reversed(LM_CLI), [procs.pop() for _ in LM_CLI],
+                [results.pop() for _ in LM_CLI]):
+            lines = out.strip().splitlines()
+            for line in lines:
+                print(f"cli {cmd} | {line}")
+            if p.returncode != 0 or len(lines) != n_lines:
+                fail(f"{cmd} {args} exited {p.returncode} with "
+                     f"{len(lines)} lines: {err.strip()[-2000:]}")
         for line in train_out.strip().splitlines():
             print(f"cli train | {line}")
         if train_proc.returncode != 0:
@@ -3118,6 +3294,254 @@ def compare_lm_gpu_cpu(ops, dev) -> None:
         fail(f"reduced LM GPU run differs from the CPU run: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14 (and phase 8's training row): LM training of mamba2-2.7b
+# ---------------------------------------------------------------------------
+
+#: phase 14's traffic: the reference's train_4k is 256 × 4096 tokens a
+#: step, cut here to 4 × 1024 (the scoring request's shape) and 10 steps;
+#: AdamW as the reference's ``train_lm`` (lr 1e-4, 5 warm-up steps)
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 10, 4, 1024
+LM_TRAIN_LR = 1e-4
+#: the first step's gradients of a 2-layer full-width float32 mamba2 on
+#: the kernel path against the plain path (the chunked algorithm in
+#: PyTorch) on the card, per leaf as a share of the leaf's max |plain
+#: gradient|: the scan kernels differ from the plain chunked algorithm by
+#: ~1e-5 of max (phase 3); a missing gradient path errs by ~1.
+LM_GRAD_REL_TOL = 1e-3
+
+#: a training step's kernel-name fragments -> category, first match wins
+LM_TRAIN_CATEGORIES = (
+    ("ssd_scan_bwd_reduce", "ssd_scan_bwd head and batch sums"),
+    ("ssd_scan_bwd", "ssd_scan_bwd scan (every mixer's backward)"),
+    ("ssd_scan_prep", "ssd_scan prep (C·Bᵀ; forward, recompute, backward)"),
+    ("ssd_scan", "ssd_scan (forward and recompute)"),
+    ("gemm", "cuBLAS bf16 GEMM (projections, unembedding; forward, "
+             "recompute, backward)"),
+    ("nvjet", "cuBLAS bf16 GEMM (projections, unembedding; forward, "
+              "recompute, backward)"),
+    ("xmma", "cuBLAS bf16 GEMM (projections, unembedding; forward, "
+             "recompute, backward)"),
+    ("softmax", "log-softmax and its backward"),
+    ("reduce", "reductions (RMSNorm, CE, global norm, bias-free sums)"),
+    ("elementwise", "elementwise (mixer chain and its backward, AdamW)"),
+    ("CatArrayBatchedCopy", "copies, stacks and concatenations"),
+    ("Memcpy", "copies, stacks and concatenations"),
+    ("index", "embedding gather and scatter-add"),
+    ("scatter", "embedding gather and scatter-add"),
+    ("Memset", "sets"),
+)
+
+
+def _plain_scan(x, dt, A, B, C, *, chunk=128, head_block=None):
+    """``ops.ssd_scan`` as the plain chunked algorithm (the gradient
+    check's reference path on the card)."""
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    y, state = ssd_chunked(x.transpose(1, 2), dt.transpose(1, 2), A, B, C,
+                           chunk=chunk)
+    return y.transpose(1, 2), state
+
+
+def _lm_grad_check(ops, dev, cfg) -> None:
+    """The first step's gradients of ``zoo.loss_fn`` through the scan
+    kernels and through the plain chunked algorithm, both on the card, for
+    2 layers of ``cfg`` at full width in float32 (remat and the 512-token
+    CE chunks as configured), batch 4 × 1024 from ``lm_batch``: every leaf
+    within ``LM_GRAD_REL_TOL`` of the plain one's max, and non-zero
+    wherever the plain path's is."""
+    from repro_torch.data import lm_batch
+    from repro_torch.models import zoo
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    c2 = dataclasses.replace(cfg, num_layers=2, param_dtype=torch.float32,
+                             activation_dtype=torch.float32)
+    params = zoo.init(c2, torch.Generator(device=dev).manual_seed(64), dev)
+    batch = lm_batch(torch.Generator(device=dev).manual_seed(65),
+                     LM_TRAIN_BATCH, LM_TRAIN_SEQ, c2.vocab_size)
+    ops.reset_launches()
+    (got_loss, _), got = value_and_grad(
+        lambda p: zoo.loss_fn(c2, p, batch), params, has_aux=True)
+    launches = {n: c for n, c in ops.LAUNCHES.items() if c}
+    saved = ops.ssd_scan
+    try:
+        ops.ssd_scan = _plain_scan
+        (want_loss, _), want = value_and_grad(
+            lambda p: zoo.loss_fn(c2, p, batch), params, has_aux=True)
+    finally:
+        ops.ssd_scan = saved
+    worst, dead = 0.0, []
+    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        top = w.abs().max().item()
+        if top > 0:
+            worst = max(worst, (g - w).abs().max().item() / top)
+            if g.abs().max().item() == 0.0:
+                dead.append(i)
+    row = dict(layers=2, d_model=c2.d_model, dtype="float32",
+               batch=LM_TRAIN_BATCH, tokens=LM_TRAIN_SEQ,
+               loss_kernels=got_loss.item(), loss_plain=want_loss.item(),
+               leaves=len(tree_leaves(got)), worst_leaf_rel_err=worst,
+               tol=LM_GRAD_REL_TOL, leaves_without_gradient=dead,
+               launches=launches)
+    print("lm_train first-step gradients kernels vs plain "
+          + json.dumps(row))
+    if dead or not worst <= LM_GRAD_REL_TOL or launches != {
+            "ssd_scan": 4, "ssd_scan_bwd": 2}:
+        fail(f"LM kernel-path gradients differ from the plain path's: "
+             f"{row}")
+
+
+def train_lm_full_width(ops, dev) -> dict:
+    """Phase 14: one mamba2-2.7b LM expert trained at full width and depth
+    (64 layers, d 2560, 80 SSD heads, N 128, vocab 50280, bf16, remat,
+    512-token CE chunks) through ``make_lm_train_step``: random seeded
+    weights built on the card, ``LM_TRAIN_STEPS`` steps of
+    ``LM_TRAIN_BATCH × LM_TRAIN_SEQ`` tokens from ``lm_batch``.  Cuts
+    (the reference trains at ``train_4k``): 256 × 4096 tokens a step cut
+    to 4 × 1024, 10 steps.  Each step's launches exact (``ssd_scan`` 128:
+    64 forward + 64 recomputed under remat; ``ssd_scan_bwd`` 64); losses
+    finite; the loss on one fixed batch falls; per-step seconds (synced),
+    tokens/s and the peak device memory (under 80 GB) printed; then one
+    more step under the profiler.  First, ``_lm_grad_check``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.models import zoo
+    from repro_torch.training import AdamWConfig, adamw_init
+    from repro_torch.training.trainer import make_lm_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("mamba2-2.7b")
+    _lm_grad_check(ops, dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = _peak_reset(dev)
+    t0 = time.perf_counter()
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(61), dev)
+    state = adamw_init(params)
+    _sync(dev)
+    t_init = time.perf_counter() - t0
+    step = make_lm_train_step(cfg, AdamWConfig(learning_rate=LM_TRAIN_LR,
+                                               warmup_steps=5))
+    gen = torch.Generator(device=dev).manual_seed(62)
+    fixed = lm_batch(torch.Generator(device=dev).manual_seed(63),
+                     LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab_size)
+
+    def fixed_loss():
+        with torch.no_grad():
+            return zoo.loss_fn(cfg, params, fixed)[0].item()
+
+    first_fixed = fixed_loss()
+    want = {"ssd_scan": 2 * cfg.num_layers, "ssd_scan_bwd": cfg.num_layers}
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    losses, secs, grad_norms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(LM_TRAIN_STEPS):
+        batch = lm_batch(gen, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab_size)
+        _sync(dev)
+        ops.reset_launches()
+        t = time.perf_counter()
+        params, state, loss, m = step(params, state, batch)
+        _sync(dev)
+        secs.append(time.perf_counter() - t)
+        got = {n: c for n, c in ops.LAUNCHES.items() if c}
+        if got != want:
+            fail(f"lm_train step {i} launched {got}, want {want}")
+        for n, c in got.items():
+            total[n] += c
+        losses.append(loss.item())
+        grad_norms.append(m["grad_norm"].item())
+    peak = torch.cuda.max_memory_allocated()
+    last_fixed = fixed_loss()
+    steady = secs[1:]
+    leaves = tree_leaves(params)
+    row = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               parameters=sum(a.numel() for a in leaves),
+               param_dtype=str(cfg.param_dtype).replace("torch.", ""),
+               remat=cfg.remat, logits_chunk=cfg.logits_chunk,
+               steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+               tokens=LM_TRAIN_SEQ, init_s=t_init, first_step_s=secs[0],
+               step_s=secs, step_s_median=float(np.median(steady)),
+               step_s_min=min(steady),
+               tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ
+               / float(np.median(steady)),
+               peak_bytes=peak, peak_bytes_net=peak - base,
+               launches_per_step=want, losses=losses,
+               grad_norms=grad_norms,
+               fixed_batch_loss=[first_fixed, last_fixed],
+               reduced=dict(batch="256 -> 4", seq_len="4096 -> 1024",
+                            steps=LM_TRAIN_STEPS))
+    print("lm_train " + json.dumps(row))
+    if not (all(math.isfinite(x) for x in losses)
+            and last_fixed < first_fixed and peak < 80e9):
+        fail(f"lm_train: losses not finite or not falling, or the peak "
+             f"is past 80 GB: {row}")
+    # one more step, on the last batch, under the profiler
+    profiled(lambda: step(params, state, batch), LM_TRAIN_CATEGORIES,
+             path="lm_train", batch=LM_TRAIN_BATCH, tokens=LM_TRAIN_SEQ)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"lm_train": total}
+
+
+def compare_lm_train_gpu_cpu(ops, dev) -> None:
+    """Phase 8's training row: one ``make_lm_train_step`` step of the
+    reduced float32 mamba2 on the GPU (scan kernels, backward kernel) and
+    on the CPU (plain versions), from the same parameters and batch: the
+    loss, every gradient leaf, and the parameters after the step
+    (``TRAIN_E2E``'s rule)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.models import zoo
+    from repro_torch.training import AdamWConfig, adamw_init
+    from repro_torch.training.trainer import (make_lm_train_step,
+                                              value_and_grad)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = zoo.init(cfg, torch.Generator().manual_seed(71), "cpu")
+    batch = lm_batch(torch.Generator().manual_seed(72), 4, 64,
+                     cfg.vocab_size)
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=2)
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        # copies: the step updates the parameters it is given in place
+        p = tree_map(lambda a: a.to(device, copy=True), params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        (loss, _), grads = value_and_grad(lambda q: zoo.loss_fn(cfg, q, b),
+                                          p, has_aux=True)
+        ops.reset_launches()
+        p, _, _, _ = make_lm_train_step(cfg, opt)(p, adamw_init(p), b)
+        launches = {n: c for n, c in ops.LAUNCHES.items() if c}
+        out[device.type] = (loss.item(), [g.cpu() for g in tree_leaves(
+            grads)], [q.cpu() for q in tree_leaves(p)], launches)
+    (lc, gcpu, pc, _), (lg, gg, pg, launches) = out["cpu"], out["cuda"]
+    lr = opt.learning_rate
+    loss_err = abs(lg - lc) / abs(lc)
+    grad_err = param_err = param_steps = 0.0
+    for g, w, p, q in zip(gg, gcpu, pg, pc):
+        top = max(w.abs().max().item(), 1e-30)
+        grad_err = max(grad_err, (g - w).abs().max().item() / top)
+        diff = (p - q).abs()
+        clear = w.abs() > TRAIN_E2E["grad"] * top
+        if bool(clear.any()):
+            param_err = max(param_err, (diff[clear].max().item() - lr / 100)
+                            / max(q.abs().max().item(), 1e-30))
+        param_steps = max(param_steps, diff.max().item() / lr)
+    row = dict(path="lm_train", loss_rel_err=loss_err,
+               grad_worst_leaf_rel_err=grad_err,
+               param_worst_leaf_rel_err_past_lr_over_100=param_err,
+               param_max_diff_in_steps=param_steps, tol=TRAIN_E2E,
+               gpu_launches=launches)
+    print("lm reduced gpu-vs-cpu " + json.dumps(row))
+    if not (loss_err <= TRAIN_E2E["loss"] and grad_err <= TRAIN_E2E["grad"]
+            and param_err <= TRAIN_E2E["param"] and param_steps <= 2.0
+            and launches == {"ssd_scan": cfg.num_layers,
+                             "ssd_scan_bwd": cfg.num_layers}):
+        fail(f"GPU LM training step differs from the CPU's: {row}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3167,6 +3591,7 @@ def main() -> None:
         "flash_attention": check_flash(ops, ref, dev),
         "hetero_fuse": check_hetero_fuse(ops, ref, dev),
         "ssd_scan": check_ssd_scan(ops, ref, dev),
+        "ssd_scan_bwd": check_ssd_scan_bwd(ops, ref, dev),
         "adaln_fuse_bwd": check_adaln_bwd(ops, ref, dev),
         "flash_attention_bwd": check_flash_bwd(ops, ref, dev),
     }
@@ -3217,7 +3642,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("7 (LM serving and profile)")
     compare_lm_gpu_cpu(ops, dev)
+    compare_lm_train_gpu_cpu(ops, dev)
     phase_done("8 (LM reduced GPU vs CPU)")
+    launches.update(train_lm_full_width(ops, dev))
+    phase_done("14 (LM training)")
     run_cli(dev)
     phase_done("9 (serving CLI)")
 
@@ -3228,7 +3656,7 @@ def main() -> None:
              "adaln_fuse": "native", "flash_attention": "native",
              "hetero_fuse": "fused_convert_and_fuse",
              "ssd_scan": "lm_scoring", "adaln_fuse_bwd": "train",
-             "flash_attention_bwd": "train"}
+             "flash_attention_bwd": "train", "ssd_scan_bwd": "lm_train"}
     launches["fused_convert_and_fuse"] = {"hetero_fuse": launches_fuse}
     sources = {
         "ragged_gemm": ("ragged_gemm.cu", "ragged_gemm.py:73"),
@@ -3245,6 +3673,7 @@ def main() -> None:
         "adaln_fuse_bwd": ("adaln_fuse.cu", "adaln_fuse.py:34"),
         "flash_attention_bwd": ("flash_attention.cu",
                                 "flash_attention.py:82"),
+        "ssd_scan_bwd": ("ssd_scan.cu", "ssd_scan.py:86"),
     }
     kernels = []
     for name, (src, tpu) in sources.items():

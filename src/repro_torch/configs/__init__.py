@@ -9,6 +9,7 @@ own DiT experts come from ``get_dit_config``.
 from __future__ import annotations
 
 from repro_torch.configs import mamba2_2p7b
+from repro_torch.configs.shapes import SHAPES, InputShape, get_shape
 from repro_torch.models.config import (DiTConfig, LMConfig, dit_b2,
                                        dit_xl2, router_b2)
 
@@ -39,4 +40,5 @@ def get_dit_config(name: str, **kw) -> DiTConfig:
     return DIT_CONFIGS[name](**kw)
 
 
-__all__ = ["ARCH_IDS", "DIT_CONFIGS", "get_config", "get_dit_config"]
+__all__ = ["ARCH_IDS", "DIT_CONFIGS", "SHAPES", "InputShape", "get_config",
+           "get_dit_config", "get_shape"]

@@ -18,5 +18,7 @@ CONFIG = LMConfig(
     ssm_chunk=128,
     param_dtype=torch.bfloat16,
     activation_dtype=torch.bfloat16,
+    remat=True,
+    logits_chunk=512,
     source="arXiv:2405.21060",
 )

@@ -12,13 +12,14 @@ partition.  The router iterator streams all clusters with their labels.
 Batches are drawn on ``device`` (``None`` → ``"cuda"``, raising without a
 GPU) from ``torch.Generator``s seeded per (seed, step, attempt) through
 numpy's ``SeedSequence`` — the role of the reference's ``fold_in`` keys,
-with other numbers.  LM token batches wait with LM training (ROADMAP
-A.9b).
+with other numbers.  ``lm_batch`` draws the token batches of LM
+training from an explicit generator.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Iterator
 
 import numpy as np
@@ -126,3 +127,29 @@ class RouterDataStream:
         labels = self.cluster_model.assign(
             extract_features(batch["latents"]))
         return {**batch, "cluster": labels}
+
+
+# ---------------------------------------------------------------------------
+# Token batches for the LM architectures
+# ---------------------------------------------------------------------------
+
+
+def lm_batch(gen: torch.Generator, batch: int, seq_len: int,
+             vocab: int) -> dict:
+    """Zipf-ish synthetic token batch with next-token labels, drawn from
+    ``gen`` on its device: ranks of a truncated Zipf(1.1) by inverse CDF,
+    ``floor(exp(u·log V)) − 1`` for ``u ~ U[1e-6, 1)``, clipped to
+    ``[0, V)``, then each token replaced by a uniform one with probability
+    0.1 (the reference's distribution, ``repro.data.pipeline.lm_batch``;
+    other numbers).  Returns int32 ``tokens`` and ``labels``
+    ``(batch, seq_len)``, the labels shifted one position."""
+    dev = gen.device
+    shape = (batch, seq_len + 1)
+    u = torch.rand(shape, generator=gen, device=dev) * (1.0 - 1e-6) + 1e-6
+    ranks = torch.floor(torch.exp(u * math.log(float(vocab)))) - 1.0
+    tokens = torch.clamp(ranks.to(torch.int32), 0, vocab - 1)
+    mix = torch.randint(0, vocab, shape, generator=gen, device=dev,
+                        dtype=torch.int32)
+    flip = torch.rand(shape, generator=gen, device=dev) < 0.1
+    tokens = torch.where(flip, mix, tokens)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}

@@ -1,4 +1,5 @@
-// Mamba2 SSD chunked scan for Hopper (sm_90a), from the zero state.
+// Mamba2 SSD chunked scan for Hopper (sm_90a), from the zero state, and
+// its backward (ssd_scan_bwd, after the forward below).
 //
 // Replaces the TPU kernel repro/kernels/ssd_scan.py:86 `ssd_scan` (body
 // `_ssd_kernel`, :25).  For each (batch, head) with rate A and each chunk
@@ -231,6 +232,7 @@ struct Args {
   const void* C;
   void* y;
   float* state;
+  float* starts;           // (B, H, ntiles, P, N) float32, or null
   unsigned char* scratch;  // (batch, ntiles, 3, 128, 128) float32
   int H, S, P, N, tile, ntiles;
   int vec_x, vec_y, vec_bc;  // x / y / B and C rows move as 16-byte words
@@ -532,6 +534,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   for (int k = 0; k < a.ntiles; ++k) {
     const int qv = tile_rows(a, k), nj = slabs(k);
     const bool rows = 64 * rw < qv;        // this warp has rows in the tile
+    if (a.starts) {          // the state at the tile's start, for the backward
+      // (St is complete: the last tile's update ended in a block barrier)
+      float* so = a.starts + ((int64_t)bh * a.ntiles + k) * a.P * a.N;
+      for (int e = tid; e < a.P * a.N; e += THREADS)
+        so[e] = k ? St[st_idx(e % a.N, e / a.N)] : 0.f;
+    }
     float acc[8][8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -756,6 +764,570 @@ int launch_prep(const Args& a, int batch, bool bf16, cudaStream_t stream) {
               : launch_prep<float>(a, batch, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward: ssd_scan_bwd.  It replaces no TPU kernel: the TPU kernel has no
+// VJP, and the reference trains through XLA's autodiff of the plain chunked
+// algorithm (repro/models/mamba2.py:90 ssd_chunked).  From dy, the
+// gradient of the final state dS (or zero) and the forward's tile-start
+// states S0, per chunk with L_ij = exp(cum_i − cum_j) (i ≥ j), M = C·Bᵀ∘L:
+//
+//   g_j   = Σ_{i≥j} M_ij dy_i + exp(cum_last − cum_j)·dS B_j
+//   dx_j  = dt_j g_j;  ddt_j = x_j·g_j + A·da_j,  da = reverse-cumsum(∂/∂cum)
+//   dC_i  = Σ_j (dP∘L)_ij B_j + exp(cum_i) S0ᵀ dy_i,  dP_ij = dt_j dy_i·x_j
+//   dB_j  = Σ_i (dP∘L)_ij C_i + dt_j exp(cum_last − cum_j) dSᵀ x_j
+//   dA    = Σ da·dt;  dS ← exp(cum_last)·dS + Σ_i exp(cum_i) dy_i ⊗ C_i
+//
+// What bounds it: float32 operations, 27.1 GFLOP at the mixer shape (2× the
+// forward: two triangle products and four (q × P)·(P × N) products a head
+// and chunk, and the head-summed (dP∘L)·B, ·C and C·Bᵀ a chunk): 0.40 ms.
+// Three launches: the forward's prep (C·Bᵀ, C and B widened, per (batch,
+// tile)); ssd_scan_bwd_kernel, one 256-thread block per (batch, head)
+// walking the tiles in reverse with dS in shared memory, so nothing is
+// scanned again; ssd_scan_bwd_reduce_kernel, which adds the heads' partials
+// (the head's dP∘L tile and its inter and state terms of dB and dC) and the
+// batches' dA in a fixed order: no atomics, two calls give the same bits.
+// This first design is simple: scalar shared loads from odd-pitch rows
+// (conflict-free whichever axis is a product's row), full squares where the
+// forward skips the masked triangle, one 211 KB block an SM, and 1 GB of
+// partials at the mixer shape.  Tensor cores are excluded, as above.
+// ---------------------------------------------------------------------------
+
+constexpr int BT = 256;            // threads of the backward kernels
+constexpr int XP = PM + 1;         // pitch of x, dy rows [position][p]
+constexpr int SP = NM + 1;         // pitch of state rows [p][n]
+constexpr int MP = QT + 1;         // pitch of M rows [j][i] (and C rows)
+constexpr int RROWS = 32;          // rows of a reduce block
+// bytes of the scan's shared memory: x, dy, M (later C), dS, S0, the
+// row partials, nine per-position arrays and ten block slots
+constexpr int BWD_SMEM =
+    (2 * QT * XP + QT * MP + 2 * PM * SP + 16 * QT + 9 * QT + 10) * 4;
+constexpr int RED_SMEM = (2 * RROWS * MP + QT * SP) * 4;
+static_assert(BWD_SMEM <= 227 * 1024, "backward shared memory");
+
+struct BwdArgs {
+  const void* x;
+  const float* dt;
+  const float* A;
+  const void* B;
+  const void* C;
+  const void* dy;
+  const float* dstate;     // (B, H, P, N) float32, or null (zero)
+  const float* starts;     // (B, H, ntiles, P, N) float32
+  const unsigned char* scratch;   // the prep's (B, ntiles, 3, QT, NM)
+  void* dx;
+  float* ddt;
+  float* dA;
+  void* dB;                // (B, S, N) contiguous, x's dtype
+  void* dC;
+  float* dcb;              // (B, H, ntiles, QT, QT): per head (dP∘L)[j][i]
+  float* dcp;              // (B, H, ntiles, QT, NM): per head dC inter part
+  float* dbp;              // (B, H, ntiles, QT, NM): per head dB state part
+  float* dap;              // (B, H): per (batch, head) Σ da·dt
+  int H, S, P, N, tile, ntiles;
+  int64_t sxb, sxh, sxs;   // x
+  int64_t sdb, sdh, sds;   // dt
+  int64_t scb, scs;        // C
+  int64_t syb, syh, sys;   // dy
+  int64_t sgb, sgh, sgs;   // dx
+  int64_t stb, sth, sts;   // ddt
+};
+
+// Sum of v over the 16 lanes of a half warp (the lanes of one mg); the
+// half's lane 0 holds the sum in a fixed order.
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// One block of 256 threads per (batch, head), the tiles in reverse, the
+// gradient of the state at the tile's end (dS) carried in shared memory.
+// Thread (mg, ng) = (tid / 16, tid % 16) owns rows mg + 16r and columns
+// ng + 16c of each product: odd pitches keep every shared read of a warp
+// on distinct banks (or one broadcast word) whichever axis is the row.
+template <typename T>
+__global__ void __launch_bounds__(BT, 1) ssd_scan_bwd_kernel(BwdArgs a) {
+  using L = Layout<T>;
+  extern __shared__ __align__(16) float bsm[];
+  float* xs = bsm;                          // x[j][p]
+  float* dys = xs + QT * XP;                // dy[i][p]
+  float* Mt = dys + QT * XP;                // M[i][j] at [j][i]; then C'[i][n]
+  float* dSs = Mt + QT * MP;                // dS[p][n]
+  float* S0s = dSs + PM * SP;               // S0[p][n]
+  float* rowpart = S0s + PM * SP;           // [mg][i]
+  float* cum = rowpart + 16 * QT;
+  float* dts = cum + QT;
+  float* wts = dts + QT;                    // dt_j·exp(cum_last − cum_j)
+  float* ecum = wts + QT;                   // exp(cum_i)
+  float* dte = ecum + QT;                   // exp(cum_last − cum_j)
+  float* dcum = dte + QT;                   // intra terms of ∂/∂cum
+  float* dci = dcum + QT;                   // inter term
+  float* sj = dci + QT;                     // state terms, per j
+  float* xg = sj + QT;                      // x_j·g_j
+  float* red = xg + QT;                     // [0, 8) warp sums, [8]
+                                            // exp(cum_last), [9] ⟨dS, S0⟩
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mg = tid >> 4, ng = tid & 15;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const T* x = static_cast<const T*>(a.x) + b * a.sxb + h * a.sxh;
+  const T* dy = static_cast<const T*>(a.dy) + b * a.syb + h * a.syh;
+  const float* dt = a.dt + b * a.sdb + h * a.sdh;
+  const T* Cg = static_cast<const T*>(a.C) + b * a.scb;
+  T* dx = static_cast<T*>(a.dx) + b * a.sgb + h * a.sgh;
+  float* ddt = a.ddt + b * a.stb + h * a.sth;
+  const float A = a.A[h];
+
+  for (int e = tid; e < PM * SP; e += BT) {
+    const int p = e / SP, n = e % SP;
+    dSs[e] = (a.dstate && p < a.P && n < a.N)
+                 ? a.dstate[((int64_t)bh * a.P + p) * a.N + n]
+                 : 0.f;
+  }
+  float dA_acc = 0.f;                       // warp 0: Σ da·dt, this lane's
+
+  for (int k = a.ntiles - 1; k >= 0; --k) {
+    const int t0 = k * a.tile, qv = min(a.tile, a.S - t0);
+    const float* tscr = reinterpret_cast<const float*>(
+        a.scratch + ((int64_t)b * a.ntiles + k) * L::TILE_BYTES);
+    const float* CBt = tscr;                             // [j][i]
+    const float* Bf = tscr + L::OFF_BF / 4;              // [j][n]
+    const int64_t tb = ((int64_t)bh * a.ntiles + k);
+
+    // stage x, dy (widened, zero past the tile and past P) and S0
+    for (int e = tid; e < QT * PM; e += BT) {
+      const int j = e / PM, p = e % PM;
+      const bool ok = j < qv && p < a.P;
+      xs[j * XP + p] = ok ? to_f32(x[(int64_t)(t0 + j) * a.sxs + p]) : 0.f;
+      dys[j * XP + p] = ok ? to_f32(dy[(int64_t)(t0 + j) * a.sys + p]) : 0.f;
+    }
+    const float* s0 = a.starts + tb * a.P * a.N;
+    for (int e = tid; e < PM * NM; e += BT) {
+      const int p = e / NM, n = e % NM;
+      S0s[p * SP + n] = (p < a.P && n < a.N) ? s0[p * a.N + n] : 0.f;
+    }
+    if (warp == 0) {                        // the forward's log-decays
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * lane + e;
+        d[e] = j < qv ? dt[(int64_t)(t0 + j) * a.sds] : 0.f;
+      }
+      scan_dt(d, A, lane, cum, dts, wts, ecum, red + 8);
+      __syncwarp();
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dte[4 * lane + e] = expf(cum[QT - 1] - cum[4 * lane + e]);
+    }
+    __syncthreads();
+
+    // dP[j][i] = dt_j·(x_j·dy_i); M = C·Bᵀ∘L; the per-head (dP∘L) out;
+    // t = dP∘M summed along both axes: ∂/∂cum_i += Σ_j t, ∂/∂cum_j −= Σ_i t
+    {
+      float acc[8][8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+      for (int p = 0; p < PM; ++p) {
+        float av[8], bv[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) av[r] = xs[(mg + 16 * r) * XP + p];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) bv[c] = dys[(ng + 16 * c) * XP + p];
+        fma8x8(acc, av, bv);
+      }
+      float* dcb = a.dcb + tb * QT * QT;
+      float rows[8], cols[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) rows[c] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int j = mg + 16 * r;
+        const float cj = cum[j], dj = dts[j];
+        cols[r] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int i = ng + 16 * c;
+          const bool ok = j <= i && i < qv;
+          // select before exp: above the diagonal exp may be inf
+          const float l = ok ? expf(cum[i] - cj) : 0.f;
+          const float m = CBt[j * QT + i] * l;
+          const float dp = acc[r][c] * dj;
+          Mt[j * MP + i] = m;
+          dcb[j * QT + i] = dp * l;
+          const float t = dp * m;
+          rows[c] += t;
+          cols[r] += t;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float v = half_warp_sum(cols[r]);
+        if (ng == 0) dcum[mg + 16 * r] = -v;
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) rowpart[mg * QT + ng + 16 * c] = rows[c];
+    }
+    __syncthreads();
+    if (tid < QT) {
+      float s = 0.f;
+      for (int m = 0; m < 16; ++m) s += rowpart[m * QT + tid];
+      dcum[tid] += s;
+    }
+
+    // g[j][p] = Σ_i M[i][j] dy[i][p] + exp(cum_last − cum_j) Σ_n B[j][n]
+    // dS[p][n];  dx = dt·g, x·g
+    {
+      float acc[8][4], st[8][4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = st[r][c] = 0.f;
+#pragma unroll 4
+      for (int i = 0; i < QT; ++i) {
+        float av[8], bv[4];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) av[r] = Mt[(mg + 16 * r) * MP + i];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bv[c] = dys[i * XP + ng + 16 * c];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+      }
+      for (int n = 0; n < NM; n += 4) {
+        float4 bv4[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          bv4[r] = ld4(Bf + (mg + 16 * r) * NM + n);
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) {
+          float dv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dv[c] = dSs[(ng + 16 * c) * SP + n + nn];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float bb = nn == 0 ? bv4[r].x : nn == 1 ? bv4[r].y
+                           : nn == 2 ? bv4[r].z : bv4[r].w;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) st[r][c] = fmaf(bb, dv[c], st[r][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int j = mg + 16 * r;
+        const float dj = dts[j], ej = dte[j];
+        float part = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int p = ng + 16 * c;
+          const float g = acc[r][c] + ej * st[r][c];
+          if (j < qv && p < a.P)
+            from_f32(dx + (int64_t)(t0 + j) * a.sgs + p, dj * g);
+          part = fmaf(xs[j * XP + p], g, part);
+        }
+        part = half_warp_sum(part);
+        if (ng == 0) xg[j] = part;
+      }
+    }
+
+    // dC inter part [i][n] = exp(cum_i) Σ_p dy[i][p] S0[p][n], and its
+    // ∂/∂cum_i = Σ_n (that)·C[i][n]
+    {
+      float acc[8][8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+      for (int p = 0; p < PM; ++p) {
+        float av[8], bv[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) av[r] = dys[(mg + 16 * r) * XP + p];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) bv[c] = S0s[p * SP + ng + 16 * c];
+        fma8x8(acc, av, bv);
+      }
+      float* dcp = a.dcp + tb * QT * NM;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = mg + 16 * r;
+        const float ei = ecum[i];
+        float part = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int n = ng + 16 * c;
+          const float v = ei * acc[r][c];
+          dcp[i * NM + n] = v;
+          if (i < qv && n < a.N)
+            part = fmaf(v, to_f32(Cg[(int64_t)(t0 + i) * a.scs + n]), part);
+        }
+        part = half_warp_sum(part);
+        if (ng == 0) dci[i] = part;
+      }
+    }
+
+    // dB state part [j][n] = dt_j exp(cum_last − cum_j) Σ_p x[j][p] dS[p][n],
+    // and its Σ_n (that)·B[j][n]
+    {
+      float acc[8][8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+      for (int p = 0; p < PM; ++p) {
+        float av[8], bv[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) av[r] = xs[(mg + 16 * r) * XP + p];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) bv[c] = dSs[p * SP + ng + 16 * c];
+        fma8x8(acc, av, bv);
+      }
+      float* dbp = a.dbp + tb * QT * NM;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int j = mg + 16 * r;
+        const float wj = wts[j];
+        float part = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int n = ng + 16 * c;
+          const float v = wj * acc[r][c];
+          dbp[j * NM + n] = v;
+          part = fmaf(v, Bf[j * NM + n], part);
+        }
+        part = half_warp_sum(part);
+        if (ng == 0) sj[j] = part;
+      }
+    }
+
+    // ⟨dS, S0⟩ (the state term's ∂/∂cum_last, times exp(cum_last))
+    {
+      float s = 0.f;
+      for (int e = tid; e < PM * NM; e += BT) {
+        const int p = e / NM, n = e % NM;
+        s = fmaf(dSs[p * SP + n], S0s[p * SP + n], s);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+      if (lane == 0) red[warp] = s;
+    }
+    __syncthreads();
+
+    // C'[i][n] = exp(cum_i)·C[i][n] over M (done with M)
+    float* Cp = Mt;
+    for (int e = tid; e < QT * NM; e += BT) {
+      const int i = e / NM, n = e % NM;
+      Cp[i * MP + n] = (i < qv && n < a.N)
+                           ? ecum[i] * to_f32(Cg[(int64_t)(t0 + i) * a.scs + n])
+                           : 0.f;
+    }
+    if (tid == 0) {
+      float s = 0.f;
+      for (int w = 0; w < BT / 32; ++w) s += red[w];
+      red[9] = s;
+    }
+    __syncthreads();
+
+    // the carry: dS ← exp(cum_last)·dS + Σ_i dy[i][p] C'[i][n]
+    {
+      float acc[4][8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+      for (int i = 0; i < QT; ++i) {
+        float av[4], bv[8];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) av[r] = dys[i * XP + mg + 16 * r];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) bv[c] = Cp[i * MP + ng + 16 * c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+      }
+      const float dec = red[8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float* s = &dSs[(mg + 16 * r) * SP + ng + 16 * c];
+          *s = fmaf(dec, *s, acc[r][c]);
+        }
+    }
+
+    // warp 0: ∂/∂cum → da (reverse cumulative sum) → ddt, dA
+    if (warp == 0) {
+      float ts = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ts += sj[4 * lane + e];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) ts += __shfl_xor_sync(FULL, ts, off);
+      ts = __shfl_sync(FULL, ts, 0);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * lane + e;
+        v[e] = dcum[j] + dci[j] - sj[j];
+        if (j == qv - 1) v[e] += ts + red[8] * red[9];
+      }
+      v[2] += v[3];
+      v[1] += v[2];
+      v[0] += v[1];
+      float tot = v[0];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_down_sync(FULL, tot, off);
+        if (lane + off < 32) tot += t;
+      }
+      const float after = __shfl_down_sync(FULL, tot, 1);
+      const float excl = lane == 31 ? 0.f : after;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * lane + e;
+        const float da = v[e] + excl;
+        if (j < qv) ddt[(int64_t)(t0 + j) * a.sts] = fmaf(da, A, xg[j]);
+        dA_acc = fmaf(da, dts[j], dA_acc);
+      }
+    }
+    __syncthreads();
+  }
+  if (warp == 0) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      dA_acc += __shfl_xor_sync(FULL, dA_acc, off);
+    if (lane == 0) a.dap[bh] = dA_acc;
+  }
+}
+
+// Block (quarter, tile, batch): rows i0 = 32·quarter .. + 31 of the tile.
+// Sums the heads' parts in head order, then
+//   dC[i][n] = Σ_h dcp + Σ_j (Σ_h dcb[j][i]) B[j][n]
+//   dB[j][n] = Σ_h dbp + Σ_i (Σ_h dcb[j][i]) C[i][n]
+// and block (0, 0, 0) adds dA[h] = Σ_b dap[b][h] in batch order.
+template <typename T>
+__global__ void __launch_bounds__(BT) ssd_scan_bwd_reduce_kernel(BwdArgs a) {
+  using L = Layout<T>;
+  extern __shared__ __align__(16) float rsm[];
+  float* R1 = rsm;                   // [ii][j] = Σ_h dcb[j][i0 + ii]
+  float* R2 = R1 + RROWS * MP;       // [jj][i] = Σ_h dcb[i0 + jj][i]
+  float* Cs = R2 + RROWS * MP;       // C[i][n], widened
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.x * RROWS, k = blockIdx.y, b = blockIdx.z;
+  const int t0 = k * a.tile, qv = min(a.tile, a.S - t0);
+  const int64_t tile_q = (int64_t)QT * QT, tile_n = (int64_t)QT * NM;
+  const int64_t hstep = (int64_t)a.ntiles;           // tiles between heads
+  const int64_t first = (int64_t)b * a.H * a.ntiles + k;   // (b, 0, k)
+  const T* Cg = static_cast<const T*>(a.C) + b * a.scb;
+  const float* Bf = reinterpret_cast<const float*>(
+                        a.scratch + ((int64_t)b * a.ntiles + k) *
+                                        L::TILE_BYTES) + L::OFF_BF / 4;
+
+  for (int e = tid; e < RROWS * QT; e += BT) {
+    const int ii = e % RROWS, j = e / RROWS;    // R1: 32 consecutive i
+    const int jj = e / QT, i = e % QT;          // R2: a row of 128 i
+    float s1 = 0.f, s2 = 0.f;
+    for (int hh = 0; hh < a.H; ++hh) {
+      const float* d = a.dcb + (first + hh * hstep) * tile_q;
+      s1 += d[j * QT + i0 + ii];
+      s2 += d[(i0 + jj) * QT + i];
+    }
+    R1[ii * MP + j] = s1;
+    R2[jj * MP + i] = s2;
+  }
+  for (int e = tid; e < QT * NM; e += BT) {
+    const int i = e / NM, n = e % NM;
+    Cs[i * SP + n] = (i < qv && n < a.N)
+                         ? to_f32(Cg[(int64_t)(t0 + i) * a.scs + n])
+                         : 0.f;
+  }
+  __syncthreads();
+
+  // thread: column n, rows rr = tid / NM + 2u
+  const int n = tid % NM, r0 = tid / NM;
+  constexpr int RU = RROWS / (BT / NM);
+  float dc[RU], db[RU];
+#pragma unroll
+  for (int u = 0; u < RU; ++u) {
+    const int row = i0 + r0 + 2 * u;
+    float s1 = 0.f, s2 = 0.f;
+    for (int hh = 0; hh < a.H; ++hh) {
+      const int64_t off = (first + hh * hstep) * tile_n + row * NM + n;
+      s1 += a.dcp[off];
+      s2 += a.dbp[off];
+    }
+    dc[u] = s1;
+    db[u] = s2;
+  }
+  for (int j = 0; j < QT; ++j) {
+    const float bj = Bf[j * NM + n], cj = Cs[j * SP + n];
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+      dc[u] = fmaf(R1[(r0 + 2 * u) * MP + j], bj, dc[u]);
+      db[u] = fmaf(R2[(r0 + 2 * u) * MP + j], cj, db[u]);
+    }
+  }
+  T* dC = static_cast<T*>(a.dC) + ((int64_t)b * a.S + t0) * a.N;
+  T* dB = static_cast<T*>(a.dB) + ((int64_t)b * a.S + t0) * a.N;
+#pragma unroll
+  for (int u = 0; u < RU; ++u) {
+    const int row = i0 + r0 + 2 * u;
+    if (row < qv && n < a.N) {
+      from_f32(dC + (int64_t)row * a.N + n, dc[u]);
+      from_f32(dB + (int64_t)row * a.N + n, db[u]);
+    }
+  }
+  if (blockIdx.x == 0 && k == 0 && b == 0) {
+    for (int hh = tid; hh < a.H; hh += BT) {
+      float s = 0.f;
+      for (int bb = 0; bb < (int)gridDim.z; ++bb) s += a.dap[bb * a.H + hh];
+      a.dA[hh] = s;
+    }
+  }
+}
+
+// Dynamic shared memory above 48 KB, asked once per kernel and device.
+template <int ID>
+cudaError_t opt_in_kernel(const void* kern, int bytes) {
+  static std::atomic<bool> opted_in[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < MAX_DEVICES && opted_in[dev].load()))
+    return e;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < MAX_DEVICES) opted_in[dev].store(true);
+  return e;
+}
+
+template <typename T, int ID>
+int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
+  cudaError_t e = opt_in_kernel<ID>(
+      reinterpret_cast<const void*>(ssd_scan_bwd_kernel<T>), BWD_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_scan_bwd_kernel<T><<<batch * a.H, BT, BWD_SMEM, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = opt_in_kernel<ID + 1>(
+      reinterpret_cast<const void*>(ssd_scan_bwd_reduce_kernel<T>),
+      RED_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(QT / RROWS, a.ntiles, batch);
+  ssd_scan_bwd_reduce_kernel<T><<<grid, BT, RED_SMEM, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Blocks of the scan kernel an SM holds at once on the current device
@@ -768,7 +1340,9 @@ extern "C" int ssd_scan_blocks_per_sm(int bf16) {
 // B, C: (B, S, N); each by element strides with a contiguous last axis
 // (y by its own strides; dt's position stride may be anything).  x, B, C
 // and y all float32 (bf16 = 0) or all bf16 (bf16 = 1).  state: (B, H, P,
-// N) float32 contiguous.  scratch: (B, ceil(S / tile), 3, 128, 128)
+// N) float32 contiguous.  starts: null, or (B, H, ceil(S / tile), P, N)
+// float32 contiguous, which receives the state at the start of each tile
+// (what the backward reads).  scratch: (B, ceil(S / tile), 3, 128, 128)
 // float32 contiguous, overwritten.  P ≤ 64,
 // N ≤ 128, 1 ≤ tile ≤ 128: the scan walks S in tiles of `tile` positions
 // (a last partial tile is masked).  Launches the prep and the scan kernels
@@ -776,7 +1350,8 @@ extern "C" int ssd_scan_blocks_per_sm(int bf16) {
 // success).
 extern "C" int ssd_scan(const void* x, const float* dt, const float* A,
                         const void* B, const void* C, void* y, float* state,
-                        void* scratch, int bf16, int batch, int H, int S,
+                        float* starts, void* scratch, int bf16, int batch,
+                        int H, int S,
                         int P, int N, int tile, long long sxb, long long sxh,
                         long long sxs, long long sdb, long long sdh,
                         long long sds, long long sbb, long long sbs,
@@ -791,7 +1366,7 @@ extern "C" int ssd_scan(const void* x, const float* dt, const float* A,
   const int vec_y = aligned(y, elt, {syb, syh, sys});
   const int vec_bc = N % (16 / elt) == 0 && aligned(B, elt, {sbb, sbs}) &&
                      aligned(C, elt, {scb, scs});
-  const Args a{x,   dt,  A,   B,   C,   y,   state,
+  const Args a{x,   dt,  A,   B,   C,   y,   state, starts,
                static_cast<unsigned char*>(scratch),
                H,   S,   P,   N,   tile, ntiles, vec_x, vec_y, vec_bc,
                sxb, sxh, sxs, sdb, sdh, sds, sbb, sbs, scb, scs, syb, syh,
@@ -828,4 +1403,56 @@ extern "C" int ssd_scan_prep(const void* B, const void* C, void* scratch,
   a.vec_bc = N % (16 / elt) == 0 && aligned(B, elt, {sbb, sbs}) &&
              aligned(C, elt, {scb, scs});
   return launch_prep(a, batch, bf16, static_cast<cudaStream_t>(stream));
+}
+
+// Backward of ssd_scan from dy (and d_state, or null for zero): x, dt, A,
+// B, C as the forward took them, dy and dx by (batch, head, position)
+// strides with a contiguous last axis, ddt by its three strides; starts
+// the forward's tile-start states (B, H, ceil(S / tile), P, N).  Writes
+// dx (x's dtype), ddt (float32), dA (H,) float32, dB and dC ((B, S, N)
+// contiguous, x's dtype).  scratch as the forward's; dcb (B, H, tiles,
+// 128, 128), dcp and dbp (B, H, tiles, 128, 128) and dap (B, H), all
+// float32, are overwritten.  Three launches on `stream` (the prep, the
+// scan in reverse, the head and batch sums); returns the CUDA error code.
+extern "C" int ssd_scan_bwd(
+    const void* x, const float* dt, const float* A, const void* B,
+    const void* C, const void* dy, const float* dstate, const float* starts,
+    void* dx, float* ddt, float* dA, void* dB, void* dC, void* scratch,
+    float* dcb, float* dcp, float* dbp, float* dap, int bf16, int batch,
+    int H, int S, int P, int N, int tile, long long sxb, long long sxh,
+    long long sxs, long long sdb, long long sdh, long long sds,
+    long long sbb, long long sbs, long long scb, long long scs,
+    long long syb, long long syh, long long sys, long long sgb,
+    long long sgh, long long sgs, long long stb, long long sth,
+    long long sts, void* stream) {
+  if (batch == 0 || H == 0) return 0;
+  if (P < 1 || P > PM || N < 1 || N > NM || tile < 1 || tile > QT || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int elt = bf16 ? 2 : 4;
+  const int ntiles = (S + tile - 1) / tile;
+  Args pa{};
+  pa.B = B;
+  pa.C = C;
+  pa.scratch = static_cast<unsigned char*>(scratch);
+  pa.S = S;
+  pa.N = N;
+  pa.tile = tile;
+  pa.ntiles = ntiles;
+  pa.sbb = sbb;
+  pa.sbs = sbs;
+  pa.scb = scb;
+  pa.scs = scs;
+  pa.vec_bc = N % (16 / elt) == 0 && aligned(B, elt, {sbb, sbs}) &&
+              aligned(C, elt, {scb, scs});
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = launch_prep(pa, batch, bf16, st);
+  if (rc != 0) return rc;
+  const BwdArgs a{x,   dt,  A,   B,   C,   dy,  dstate, starts,
+                  static_cast<const unsigned char*>(scratch),
+                  dx,  ddt, dA,  dB,  dC,  dcb, dcp, dbp, dap,
+                  H,   S,   P,   N,   tile, ntiles,
+                  sxb, sxh, sxs, sdb, sdh, sds, scb, scs, syb, syh, sys,
+                  sgb, sgh, sgs, stb, sth, sts};
+  return bf16 ? launch_bwd<__nv_bfloat16, 10>(a, batch, st)
+              : launch_bwd<float, 20>(a, batch, st);
 }

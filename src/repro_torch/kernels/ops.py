@@ -7,15 +7,17 @@ PyTorch version from ``kernels.ref``.  Every CUDA launch adds one to the
 wrapper's count in ``LAUNCHES``, so a run can show that it went through
 the kernels.
 
-``adaln_modulate``, ``layernorm`` and ``flash_attention`` are
-differentiable on both devices: on the CPU through autograd of the plain
-versions; on the card, when an input requires grad, through a
+``adaln_modulate``, ``layernorm``, ``flash_attention`` and ``ssd_scan``
+are differentiable on both devices: on the CPU through autograd of the
+plain versions; on the card, when an input requires grad, through a
 ``torch.autograd.Function`` whose backward is a hand-written kernel
-(``adaln_fuse_bwd``, ``flash_attention_bwd``).  A call the backward does
-not take (attention that is causal, windowed or grouped; any operand not
-float32) raises ``NotImplementedError`` rather than return a tensor
-without a gradient.  Without grad the forward is the plain launch: nothing
-is saved, no log-sum-exp is written.
+(``adaln_fuse_bwd``, ``flash_attention_bwd``, ``ssd_scan_bwd``).  A call
+the backward does not take (attention that is causal, windowed or
+grouped; AdaLN or attention operands not float32; a scan of another dtype
+than float32 or bf16, P > 64 or N > 128) raises ``NotImplementedError``
+rather than return a tensor without a gradient.  Without grad the forward
+is the plain launch: nothing is saved, no log-sum-exp and no tile-start
+state is written.
 """
 
 from __future__ import annotations
@@ -35,19 +37,22 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import \
     flash_attention_bwd as _flash_bwd
 from repro_torch.kernels.ragged_gemm import ragged_gemm as _ragged_gemm
+from repro_torch.kernels.ssd_scan import MAX_N as _SSD_MAX_N
+from repro_torch.kernels.ssd_scan import MAX_P as _SSD_MAX_P
 from repro_torch.kernels.ssd_scan import MAX_TILE as _SSD_MAX_TILE
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd as _ssd_scan_bwd
 
 #: CUDA launches per kernel since the last ``reset_launches()``.
 #: ``ragged_gemm`` counts the dense (float32/bf16 weight) body;
 #: ``adaln_fuse`` counts ``adaln_modulate`` and ``layernorm``;
-#: ``adaln_fuse_bwd`` and ``flash_attention_bwd`` one backward call each
-#: (each launches two kernels of its source).
+#: ``adaln_fuse_bwd``, ``flash_attention_bwd`` and ``ssd_scan_bwd`` one
+#: backward call each (each launches two or three kernels of its source).
 LAUNCHES = {"ragged_gemm": 0, "ragged_gemm_int8": 0, "ragged_gemm_fp8": 0,
             "hetero_fuse_step": 0, "hetero_fuse_coeffs": 0,
             "hetero_fuse_dequant": 0, "hetero_fuse": 0, "adaln_fuse": 0,
             "flash_attention": 0, "ssd_scan": 0, "adaln_fuse_bwd": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
 
 _QUANT_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
@@ -379,17 +384,61 @@ def ssd_scan(
     ``head_block`` is the TPU kernel's head tiling, accepted for its
     signature: the CUDA kernel computes C·Bᵀ once per (batch, chunk), then
     runs one block per (batch, head).  Chunks longer than 128 positions
-    scan in tiles of 128 on the card (the same function)."""
+    scan in tiles of 128 on the card (the same function).  Differentiable:
+    on the card through ``_SSD`` when an input requires grad."""
     del head_block
     q = ssd_chunk_len(x.shape[2], chunk)
     if x.is_cuda:
-        y, state = _ssd_scan(x, dt.to(torch.float32), A.to(torch.float32),
-                             B, C, chunk=min(q, _SSD_MAX_TILE))
+        tile = min(q, _SSD_MAX_TILE)
+        dtf, Af = dt.to(torch.float32), A.to(torch.float32)
+        if _wants_grad(x, dt, A, B, C):
+            _ssd_grad_supported(x, B, C)
+            return _SSD.apply(x, dtf, Af, B, C, tile)
+        y, state = _ssd_scan(x, dtf, Af, B, C, chunk=tile)
         LAUNCHES["ssd_scan"] += 1
         return y, state
     y, state = _ref.ref_ssd_scan(x.transpose(1, 2), dt.transpose(1, 2), A,
                                  B, C)
     return y.transpose(1, 2), state
+
+
+def _ssd_grad_supported(x, B, C) -> None:
+    dtypes = {x.dtype, B.dtype, C.dtype}
+    p, n = x.shape[-1], B.shape[-1]
+    if (len(dtypes) != 1 or x.dtype not in (torch.float32, torch.bfloat16)
+            or p > _SSD_MAX_P or n > _SSD_MAX_N):
+        raise NotImplementedError(
+            f"the ssd_scan backward takes float32 or bf16 x, B and C of one "
+            f"dtype with P ≤ {_SSD_MAX_P} and N ≤ {_SSD_MAX_N}; got "
+            f"{x.dtype}, {B.dtype}, {C.dtype}, P {p}, N {n}")
+
+
+class _SSD(torch.autograd.Function):
+    """The SSD scan kernel and its backward kernel: the forward also
+    writes the state at each tile's start, saved with its inputs (the
+    backward reads it instead of scanning again)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, tile):
+        y, state, starts = _ssd_scan(x, dt, A, B, C, chunk=tile,
+                                     with_starts=True)
+        LAUNCHES["ssd_scan"] += 1
+        ctx.save_for_backward(x, dt, A, B, C, starts)
+        ctx.tile = tile
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        x, dt, A, B, C, starts = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        elif dy.dtype != x.dtype or dy.stride(-1) != 1:
+            dy = dy.to(x.dtype).contiguous()
+        grads = _ssd_scan_bwd(x, dt, A, B, C, starts, dy, d_state,
+                              chunk=ctx.tile)
+        LAUNCHES["ssd_scan_bwd"] += 1
+        return (*grads, None)
 
 
 def dequant_params(

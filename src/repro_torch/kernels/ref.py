@@ -312,3 +312,101 @@ def ref_ssd_scan_prep(B, C, tile: int, cap: int = 128):
     out[:, :, 1, :n, :tile] = Ct.transpose(-1, -2)
     out[:, :, 2, :tile, :n] = Bt
     return out
+
+
+def ref_ssd_scan_bwd(x, dt, A, B, C, dy, d_state=None, *, chunk: int = 128):
+    """Backward of the SSD scan from the zero state, written out chunk by
+    chunk in float32 (the plain version of the ``ssd_scan_bwd`` kernel),
+    in the kernel's layout: x, dy ``(b, h, s, p)``, dt ``(b, h, s)``,
+    A ``(h,)``, B, C ``(b, s, n)``; ``d_state`` the gradient of the final
+    state ``(b, h, p, n)`` (``None``: zero).  Chunks of ``min(chunk, s)``
+    positions, a last partial one padded with ``dt = 0`` (no decay, no
+    input).  Per chunk, with ``cum`` the in-chunk cumulative ``dt·A``,
+    ``L_ij = exp(cum_i − cum_j)`` (i ≥ j), ``M = (C·Bᵀ)∘L``, ``S₀`` the
+    state at the chunk's start and ``dS`` the gradient of the state at
+    its end, walking the chunks in reverse:
+
+      g_j   = Σ_{i≥j} M_ij dy_i + exp(cum_last − cum_j)·dS B_j
+      dx_j  = dt_j g_j,   ddt_j = x_j·g_j + A·da_j
+      dP_ij = dy_i·dt_j x_j;  dC_i += Σ_j (dP∘L)_ij B_j + exp(cum_i) S₀ᵀ dy_i
+      dB_j += Σ_i (dP∘L)_ij C_i + exp(cum_last − cum_j) dSᵀ dt_j x_j
+      dcum  from every exponential, da = reverse-cumsum(dcum),
+      dA   += Σ da·dt
+      dS   ← exp(cum_last)·dS + Σ_i exp(cum_i) dy_i ⊗ C_i
+
+    Returns ``(dx, ddt, dA, dB, dC)``: dx, dB, dC in the inputs' dtypes,
+    ddt and dA float32."""
+    f32 = torch.float32
+    b, h, s, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    nt = -(-s // q)
+    pad = nt * q - s
+
+    def tiles(a, axis):                   # pad the position axis, split it
+        a = a.to(f32)
+        if pad:
+            widths = [0, 0] * (a.dim() - 1 - axis) + [0, pad]
+            a = torch.nn.functional.pad(a, widths)
+        return a.reshape(a.shape[:axis] + (nt, q) + a.shape[axis + 1:])
+
+    xf, dyf = tiles(x, 2), tiles(dy, 2)                 # (b, h, nt, q, p)
+    dtf = tiles(dt, 2)                                  # (b, h, nt, q)
+    Bf, Cf = tiles(B, 1), tiles(C, 1)                   # (b, nt, q, n)
+    Af = A.to(f32)
+    cum = torch.cumsum(dtf * Af[:, None, None], dim=-1)
+    last = cum[..., -1:]
+    lower = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    L = torch.exp(torch.where(lower, cum[..., :, None] - cum[..., None, :],
+                              -math.inf))               # (b, h, nt, i, j)
+    M = (Cf @ Bf.transpose(-1, -2))[:, None] * L
+    ecum, dte = torch.exp(cum), torch.exp(last - cum)
+    elast = torch.exp(last[..., 0])                     # (b, h, nt)
+    xdt = xf * dtf[..., None]
+
+    state = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+    starts = []
+    for c in range(nt):                                 # forward states
+        starts.append(state)
+        upd = torch.einsum("bhjp,bjn->bhpn", xdt[:, :, c] * dte[:, :, c,
+                                                                :, None],
+                           Bf[:, c])
+        state = elast[:, :, c, None, None] * state + upd
+
+    dS = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+          if d_state is None else d_state.to(f32))
+    dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros((h,), dtype=f32, device=x.device)
+    for c in reversed(range(nt)):
+        S0, dyc, Mc, Lc = starts[c], dyf[:, :, c], M[:, :, c], L[:, :, c]
+        Bc, Cc, xdc = Bf[:, c], Cf[:, c], xdt[:, :, c]
+        ec, dc = ecum[:, :, c], dte[:, :, c]
+        g = (torch.einsum("bhij,bhip->bhjp", Mc, dyc)
+             + dc[..., None] * torch.einsum("bjn,bhpn->bhjp", Bc, dS))
+        dx[:, :, c] = dtf[:, :, c, :, None] * g
+        dP = torch.einsum("bhip,bhjp->bhij", dyc, xdc)
+        dCB = (dP * Lc).sum(dim=1)                                # (b, i, j)
+        t = dP * Mc
+        dcum = t.sum(dim=-1) - t.sum(dim=-2)
+        dCp = ec[..., None] * torch.einsum("bhip,bhpn->bhin", dyc, S0)
+        dBp = dc[..., None] * torch.einsum("bhjp,bhpn->bhjn", xdc, dS)
+        dC[:, c] = dCB @ Bc + dCp.sum(dim=1)
+        dB[:, c] = dCB.transpose(-1, -2) @ Cc + dBp.sum(dim=1)
+        dcum = dcum + (dCp * Cc[:, None]).sum(dim=-1)
+        sj = (dBp * Bc[:, None]).sum(dim=-1)
+        dcum = dcum - sj
+        dcum[..., -1] += sj.sum(dim=-1) + elast[:, :, c] * (dS * S0).sum(
+            dim=(-1, -2))
+        da = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+        ddt[:, :, c] = (xf[:, :, c] * g).sum(dim=-1) + da * Af[:, None]
+        dA = dA + (da * dtf[:, :, c]).sum(dim=(0, 2))
+        dS = elast[:, :, c, None, None] * dS + torch.einsum(
+            "bhip,bin->bhpn", ec[..., None] * dyc, Cc)
+
+    def untile(a, axis):
+        a = a.reshape(a.shape[:axis] + (nt * q,) + a.shape[axis + 2:])
+        return a.narrow(axis, 0, s)
+
+    return (untile(dx, 2).to(x.dtype), untile(ddt, 2), dA,
+            untile(dB, 1).to(B.dtype), untile(dC, 1).to(C.dtype))

@@ -6,9 +6,12 @@ dt ``(B, H, S)``, A ``(H,)`` and B, C ``(B, S, N)``, returning y in x's
 dtype and the final state ``(B, H, P, N)`` in float32.  A prep kernel
 computes C·Bᵀ once per (batch, tile) into a float32 scratch that the
 wrapper allocates; then one block per (batch, head) walks the tiles in
-order, the state in shared memory.  The plain versions are
-``kernels.ref.ref_ssd_scan`` and ``ref_ssd_scan_prep``; the model code
-reaches the scan through ``kernels.ops.ssd_scan``.
+order, the state in shared memory.  On request the scan also writes the
+state at each tile's start, which ``ssd_scan_bwd`` — the backward of the
+same function, a kernel the TPU side does not have — reads instead of
+scanning again.  The plain versions are ``kernels.ref.ref_ssd_scan``,
+``ref_ssd_scan_prep`` and ``ref_ssd_scan_bwd``; the model code reaches
+the scan through ``kernels.ops.ssd_scan``.
 """
 
 from __future__ import annotations
@@ -31,7 +34,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _fn():
     fn = _build.load_library("ssd_scan").ssd_scan
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 8 + [i] * 7 + [ll] * 13 + [p]
+    fn.argtypes = [p] * 9 + [i] * 7 + [ll] * 13 + [p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_fn():
+    fn = _build.load_library("ssd_scan").ssd_scan_bwd
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p] * 18 + [i] * 7 + [ll] * 19 + [p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -92,25 +104,11 @@ def ssd_scan_prep(B: torch.Tensor, C: torch.Tensor, *,
     return scratch
 
 
-def ssd_scan(
-    x: torch.Tensor,          # (B, H, S, P)
-    dt: torch.Tensor,         # (B, H, S) float32
-    A: torch.Tensor,          # (H,) float32
-    B: torch.Tensor,          # (B, S, N)
-    C: torch.Tensor,          # (B, S, N)
-    *,
-    chunk: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on CUDA tensors with chunks of ``chunk``
-    positions (``1 ≤ chunk ≤ 128``; a last partial chunk is masked —
-    ``kernels.ops.ssd_scan`` enforces the reference's ``S % chunk == 0``).
-
-    x, B and C may be any strided views whose last axis is contiguous (the
-    mixer's slices of its projection), dt any view.  Returns y
-    ``(B, H, S, P)`` in x's dtype, allocated ``(B, S, H, P)`` in memory
-    (so the mixer's reshape back is free), and the final state.  Raises on
-    anything the kernel does not take, and if the launch fails.
-    """
+def _check(x, dt, A, B, C, chunk: int) -> tuple[int, int, int, int, int]:
+    """What the kernels take: float32 or bf16 x, B, C of one dtype,
+    float32 dt and A, all CUDA tensors on one device, shapes that match,
+    P ≤ 64, N ≤ 128, 1 ≤ chunk ≤ 128, a contiguous last axis on x, B, C.
+    Returns ``(b, h, s, p, n)``."""
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd_scan takes float32 or bf16 x, B, C of one "
                         f"dtype, got {x.dtype}, {B.dtype}, {C.dtype}")
@@ -141,10 +139,38 @@ def ssd_scan(
     if (p > 1 and x.stride(-1) != 1) or (n > 1 and (B.stride(-1) != 1
                                                     or C.stride(-1) != 1)):
         raise ValueError("x, B and C must have a contiguous last axis")
+    return b, h, s, p, n
+
+
+def ssd_scan(
+    x: torch.Tensor,          # (B, H, S, P)
+    dt: torch.Tensor,         # (B, H, S) float32
+    A: torch.Tensor,          # (H,) float32
+    B: torch.Tensor,          # (B, S, N)
+    C: torch.Tensor,          # (B, S, N)
+    *,
+    chunk: int,
+    with_starts: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """Launch the kernel on CUDA tensors with chunks of ``chunk``
+    positions (``1 ≤ chunk ≤ 128``; a last partial chunk is masked —
+    ``kernels.ops.ssd_scan`` enforces the reference's ``S % chunk == 0``).
+
+    x, B and C may be any strided views whose last axis is contiguous (the
+    mixer's slices of its projection), dt any view.  Returns y
+    ``(B, H, S, P)`` in x's dtype, allocated ``(B, S, H, P)`` in memory
+    (so the mixer's reshape back is free), and the final state; with
+    ``with_starts`` also the float32 state at the start of each chunk,
+    ``(B, H, ceil(S / chunk), P, N)``, which ``ssd_scan_bwd`` reads.
+    Raises on anything the kernel does not take, and if the launch fails.
+    """
+    b, h, s, p, n = _check(x, dt, A, B, C, chunk)
     A = A.contiguous()
     y = torch.empty((b, s, h, p), dtype=x.dtype,
                     device=x.device).transpose(1, 2)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    starts = (torch.empty((b, h, -(-s // chunk), p, n), dtype=torch.float32,
+                          device=x.device) if with_starts else None)
     scratch = _scratch(b, s, chunk, x.device)
     strides = ([x.stride(i) for i in range(3)]
                + [dt.stride(i) for i in range(3)]
@@ -154,8 +180,87 @@ def ssd_scan(
     with torch.cuda.device(x.device):    # the launcher asks for the device
         rc = _fn()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                    C.data_ptr(), y.data_ptr(), state.data_ptr(),
+                   None if starts is None else starts.data_ptr(),
                    scratch.data_ptr(), _DTYPES[x.dtype], b, h, s, p, n,
                    chunk, *strides, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
-    return y, state
+    return (y, state) if starts is None else (y, state, starts)
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor,          # (B, H, S, P), as the forward took it
+    dt: torch.Tensor,         # (B, H, S) float32
+    A: torch.Tensor,          # (H,) float32
+    B: torch.Tensor,          # (B, S, N)
+    C: torch.Tensor,          # (B, S, N)
+    starts: torch.Tensor,     # (B, H, ceil(S / chunk), P, N) float32
+    dy: torch.Tensor,         # (B, H, S, P) in x's dtype
+    d_state: torch.Tensor | None = None,   # (B, H, P, N) float32
+    *,
+    chunk: int,
+) -> tuple[torch.Tensor, ...]:
+    """The backward kernel: from ``dy`` (and ``d_state``, the gradient of
+    the final state; ``None`` for zero) and the forward's tile-start
+    states, the gradients ``(dx, ddt, dA, dB, dC)`` of ``ssd_scan`` at
+    the same inputs and ``chunk``.  dx ``(B, H, S, P)`` in x's dtype (laid
+    out ``(B, S, H, P)``, as y), ddt ``(B, H, S)`` float32 (laid out
+    ``(B, S, H)``), dA ``(H,)`` float32, dB and dC ``(B, S, N)`` in x's
+    dtype.  Three launches: the forward's prep (C·Bᵀ per tile), the
+    scan in reverse, one block per (batch, head), and the sums over heads
+    and batches, in a fixed order (no atomics: two calls give the same
+    bits).  Raises on anything the kernels do not take, and if a launch
+    fails."""
+    b, h, s, p, n = _check(x, dt, A, B, C, chunk)
+    nt = -(-s // chunk)
+    if dy.dtype != x.dtype or tuple(dy.shape) != (b, h, s, p) \
+            or not dy.is_cuda or dy.device != x.device:
+        raise ValueError(f"dy must be (B, H, S, P) {x.dtype} on x's device, "
+                         f"got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if p > 1 and dy.stride(-1) != 1:
+        raise ValueError("dy must have a contiguous last axis")
+    if (starts.dtype != torch.float32 or tuple(starts.shape) != (
+            b, h, nt, p, n) or not starts.is_contiguous()
+            or starts.device != x.device):
+        raise ValueError(f"starts must be the forward's contiguous float32 "
+                         f"{(b, h, nt, p, n)} tile states, got "
+                         f"{tuple(starts.shape)} {starts.dtype}")
+    if d_state is not None and (
+            d_state.dtype != torch.float32
+            or tuple(d_state.shape) != (b, h, p, n)
+            or d_state.device != x.device):
+        raise ValueError(f"d_state must be float32 {(b, h, p, n)}, got "
+                         f"{tuple(d_state.shape)} {d_state.dtype}")
+    if d_state is not None:
+        d_state = d_state.contiguous()
+    A = A.contiguous()
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev).transpose(1, 2)
+    ddt = torch.empty((b, s, h), dtype=f32, device=dev).transpose(1, 2)
+    dA = torch.empty((h,), dtype=f32, device=dev)
+    dB = torch.empty((b, s, n), dtype=x.dtype, device=dev)
+    dC = torch.empty((b, s, n), dtype=x.dtype, device=dev)
+    scratch = _scratch(b, s, chunk, dev)
+    dcb = torch.empty((b, h, nt, MAX_TILE, MAX_TILE), dtype=f32, device=dev)
+    dcp = torch.empty((b, h, nt, MAX_TILE, MAX_N), dtype=f32, device=dev)
+    dbp = torch.empty_like(dcp)
+    dap = torch.empty((b, h), dtype=f32, device=dev)
+    strides = ([x.stride(i) for i in range(3)]
+               + [dt.stride(i) for i in range(3)]
+               + [B.stride(0), B.stride(1), C.stride(0), C.stride(1)]
+               + [dy.stride(i) for i in range(3)]
+               + [dx.stride(i) for i in range(3)]
+               + [ddt.stride(i) for i in range(3)])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _bwd_fn()(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(),
+            None if d_state is None else d_state.data_ptr(),
+            starts.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), scratch.data_ptr(), dcb.data_ptr(),
+            dcp.data_ptr(), dbp.data_ptr(), dap.data_ptr(),
+            _DTYPES[x.dtype], b, h, s, p, n, chunk, *strides, stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {rc}")
+    return dx, ddt, dA, dB, dC

@@ -7,13 +7,19 @@ experts): ``--objective ddpm|fm`` selects the heterogeneous objective,
 reduced configs unless ``--full`` (the unreduced ``--dit`` config, whose
 latent is 32: pass ``--latent-size 32`` with it).  ``--out`` saves the EMA
 parameters with the expert's metadata, which ``ServingEngine.
-from_checkpoint_dir`` serves.  ``--mode lm`` raises: LM training waits for
-a backward of the SSD scan kernel (ROADMAP A.9b).
+from_checkpoint_dir`` serves.
+
+``--mode lm`` trains one LM expert of ``--arch`` (the port trains
+mamba2-2.7b; the other ids raise ``NotImplementedError``, ROADMAP A.10)
+on ``lm_batch`` token batches with ``make_lm_train_step``, printing each
+step's loss; reduced unless ``--full``.
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions.
 
   PYTHONPATH=src python -m repro_torch.launch.train --mode expert \\
       --objective ddpm --cluster 0 --steps 200 --out ckpts/expert0.npz
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
+      --arch mamba2-2.7b --steps 20 --batch 4 --seq-len 1024 --full
 """
 
 from __future__ import annotations
@@ -23,12 +29,14 @@ import time
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_dit_config
-from repro_torch.data import SyntheticSpec, fit_clusters
+from repro_torch.configs import ARCH_IDS, get_config, get_dit_config
+from repro_torch.data import SyntheticSpec, fit_clusters, lm_batch
 from repro_torch.data.pipeline import ExpertDataStream
 from repro_torch.models import dit as D
-from repro_torch.training import (AdamWConfig, ExpertTrainer,
-                                  expert_metadata, save_checkpoint)
+from repro_torch.models import zoo
+from repro_torch.training import (AdamWConfig, ExpertTrainer, adamw_init,
+                                  expert_metadata, make_lm_train_step,
+                                  save_checkpoint)
 from repro_torch.weights import resolve_device
 
 
@@ -76,9 +84,21 @@ def train_expert(args) -> None:
 
 
 def train_lm(args) -> None:
-    raise NotImplementedError(
-        "--mode lm is not ported yet: LM training waits for a backward of "
-        "the ssd_scan kernel (ROADMAP.md, item A.9b)")
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                      dev)
+    opt = AdamWConfig(learning_rate=args.lr, warmup_steps=5)
+    opt_state = adamw_init(params)
+    step_fn = make_lm_train_step(cfg, opt)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    for i in range(args.steps):
+        batch = lm_batch(gen, args.batch, args.seq_len, cfg.vocab_size)
+        params, opt_state, loss, metrics = step_fn(params, opt_state, batch)
+        value = loss.item()  # lint: allow-host-sync — printed
+        print(f"step {i:4d} loss {value:.4f}")
 
 
 def _parser() -> argparse.ArgumentParser:

@@ -19,8 +19,9 @@ import torch
 class LMConfig:
     """Sequence-model backbone config of the LM-expert ensemble.
 
-    The port serves ``arch_type="ssm"`` (Mamba2) and keeps only the
-    fields that backbone reads; a later backbone adds the fields it needs.
+    The port serves and trains ``arch_type="ssm"`` (Mamba2) and keeps the
+    fields that backbone and ``launch.steps`` read; a later backbone adds
+    the fields it needs.
     """
 
     name: str
@@ -28,6 +29,9 @@ class LMConfig:
     num_layers: int
     d_model: int
     vocab_size: int
+    # --- attention windows (read by launch.steps.cfg_for_shape) ---
+    sliding_window: int = 0               # native SWA width, 0 = full
+    decode_window: int = 0                # ring-buffer decode window
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_headdim: int = 64
@@ -36,8 +40,10 @@ class LMConfig:
     ssm_chunk: int = 128
     # --- numerics ---
     norm_eps: float = 1e-5
+    logits_chunk: int = 0                 # 0 = unchunked loss
     param_dtype: Any = torch.float32
     activation_dtype: Any = torch.float32
+    remat: bool = False                   # recompute each layer's forward
     source: str = ""                      # citation for the config
 
     @property
@@ -54,8 +60,13 @@ class LMConfig:
             num_layers=2,
             d_model=min(self.d_model, 256),
             vocab_size=min(self.vocab_size, 512),
+            sliding_window=min(self.sliding_window, 64)
+            if self.sliding_window else 0,
+            decode_window=min(self.decode_window, 64)
+            if self.decode_window else 0,
             param_dtype=torch.float32,
             activation_dtype=torch.float32,
+            remat=False,
         )
         if self.ssm_state:
             upd["ssm_state"] = min(self.ssm_state, 16)

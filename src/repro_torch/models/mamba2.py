@@ -11,7 +11,11 @@ leaves are stacked ``(num_layers, ...)`` under ``blocks`` (the
 reference's ``jax.vmap`` init), dense weights ``(in, out)``, so a
 reference tree carries over leaf by leaf
 (``repro_torch.weights.params_from_numpy``).  Layers run in a Python
-loop over views of the stack.
+loop over views of the stack, each leaf unbound once per call (so a
+backward stacks each leaf's gradient once).  With ``cfg.remat`` and
+gradients to take, ``forward_train`` recomputes each layer's forward in
+the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of its scan body).
 
 Every mixer of ``forward_train`` and ``prefill`` (``mode="train"`` from
 the zero state) runs its chunked scan through ``kernels.ops.ssd_scan``:
@@ -26,11 +30,13 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import LMConfig
-from repro_torch.tree import tree_map
+from repro_torch.models.transformer import cross_entropy
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -259,9 +265,29 @@ def init(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
     }
 
 
-def _block(params, i: int) -> dict:
-    """Layer ``i`` of the stacked ``blocks`` (views, no copies)."""
-    return tree_map(lambda a: a[i], params["blocks"])
+def _layer_params(params) -> list[dict]:
+    """Every layer's parameters as views of the stacked ``blocks``.  Each
+    leaf is unbound once: the backward of ``unbind`` stacks the layers'
+    gradients once, where a view ``a[i]`` per layer would allocate a zero
+    tensor the size of the whole stack for each layer's gradient (3.46 GB
+    of ``in_proj`` at mamba2-2.7b's width, 64 times a step)."""
+    blocks = params["blocks"]
+    unbound = tree_map(lambda a: a.unbind(0), blocks)
+    layers = len(tree_leaves(blocks)[0])
+    return [tree_map(lambda _, u: u[i], blocks, unbound)
+            for i in range(layers)]
+
+
+def _block_apply(cfg: LMConfig, bp: dict, h):
+    """One residual mixer block from the zero state: (h + y, the block's
+    (conv_tail, state))."""
+    y, cache = mixer_apply(cfg, bp["mixer"],
+                           L.rmsnorm(bp["ln"], h, cfg.norm_eps))
+    return h + y, cache
+
+
+def _residual(cfg: LMConfig, bp: dict, h):
+    return _block_apply(cfg, bp, h)[0]
 
 
 def _layers(cfg: LMConfig, params, tokens):
@@ -269,21 +295,35 @@ def _layers(cfg: LMConfig, params, tokens):
     state, yielding the hidden states and the layer's (conv_tail, state)
     after each layer (a caller that keeps no cache holds one layer's)."""
     h = L.embed(params["embed"], tokens, cfg.activation_dtype)
-    for i in range(cfg.num_layers):
-        bp = _block(params, i)
-        y, cache = mixer_apply(cfg, bp["mixer"],
-                               L.rmsnorm(bp["ln"], h, cfg.norm_eps))
-        h = h + y
+    for bp in _layer_params(params):
+        h, cache = _block_apply(cfg, bp, h)
         yield h, cache
 
 
 def forward_train(cfg: LMConfig, params, tokens):
-    """(B, S) tokens -> ((B, S, V) logits, zero aux loss)."""
-    for h, _ in _layers(cfg, params, tokens):
-        pass
+    """(B, S) tokens -> ((B, S, V) logits, zero aux loss).  With
+    ``cfg.remat``, when gradients are taken, each layer keeps only its
+    input and runs its forward again in the backward."""
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        a.requires_grad for a in tree_leaves(params))
+    h = L.embed(params["embed"], tokens, cfg.activation_dtype)
+    for bp in _layer_params(params):
+        if remat:
+            h = checkpoint(_residual, cfg, bp, h, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _residual(cfg, bp, h)
     h = L.rmsnorm(params["ln_final"], h, cfg.norm_eps)
     logits = L.dense(params["unembed"], h)
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(cfg: LMConfig, params, tokens, labels):
+    """Next-token cross-entropy of ``forward_train``'s logits (over chunks
+    of ``cfg.logits_chunk`` positions): ``(ce, {"ce": ce})``."""
+    logits, _ = forward_train(cfg, params, tokens)
+    ce = cross_entropy(logits, labels, chunk=cfg.logits_chunk)
+    return ce, {"ce": ce}
 
 
 def make_cache(cfg: LMConfig, batch: int, max_len: int = 0, device=None):
@@ -318,8 +358,7 @@ def decode_step(cfg: LMConfig, params, cache: dict, token, pos):
     del pos  # state carries all history
     h = L.embed(params["embed"], token, cfg.activation_dtype)
     convs, states = [], []
-    for i in range(cfg.num_layers):
-        bp = _block(params, i)
+    for i, bp in enumerate(_layer_params(params)):
         y, (conv_tail, state) = mixer_apply(
             cfg, bp["mixer"], L.rmsnorm(bp["ln"], h, cfg.norm_eps),
             conv_state=cache["conv"][i], ssm_state=cache["ssm"][i],

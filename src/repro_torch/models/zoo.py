@@ -3,12 +3,15 @@
 One interface over the backbone modules:
 
     init(cfg, gen, device) -> params
+    loss_fn(cfg, params, batch) -> (loss, metrics)
     forward_train(cfg, params, batch) -> (logits, aux)
     prefill(cfg, params, batch) -> (logits, cache)
     make_cache(cfg, batch_size, max_len, device) -> cache
     decode_step(cfg, params, cache, token, pos) -> (logits, cache)
 
-``batch`` is a dict holding ``tokens``.  The port serves the ``ssm``
+``batch`` is a dict holding ``tokens`` (and ``labels`` for the loss;
+``audio_embeds`` or ``vision_embeds`` for the stubbed-frontend families,
+as in the reference).  The port serves and trains the ``ssm``
 family (``models.mamba2``); the other families raise
 ``NotImplementedError`` (ROADMAP.md, module queue A.10).  ``init`` takes
 a ``torch.Generator`` where the reference takes a PRNG key.
@@ -32,6 +35,20 @@ def backbone(cfg: LMConfig):
 
 def init(cfg: LMConfig, gen, device=None):
     return backbone(cfg).init(cfg, gen, device)
+
+
+def _extra_kwargs(cfg: LMConfig, batch: dict) -> dict:
+    if cfg.arch_type == "audio":
+        return {"audio_embeds": batch["audio_embeds"]}
+    if cfg.arch_type == "vlm":
+        return {"vision_embeds": batch["vision_embeds"]}
+    return {}
+
+
+def loss_fn(cfg: LMConfig, params, batch: dict):
+    m = backbone(cfg)
+    return m.loss_fn(cfg, params, batch["tokens"], batch["labels"],
+                     **_extra_kwargs(cfg, batch))
 
 
 def forward_train(cfg: LMConfig, params, batch: dict):

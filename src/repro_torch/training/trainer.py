@@ -15,9 +15,10 @@ attention kernels and their backward kernels), then the functional AdamW
 and EMA updates of ``training.optimizer``.
 
 Each trainer runs on ``device`` (``"cuda"`` by default; raises without a
-GPU unless given ``device="cpu"``).  LM training
-(``make_lm_train_step``) waits for a backward of the SSD scan kernel
-(ROADMAP A.9b).
+GPU unless given ``device="cpu"``).  LM training (``make_lm_train_step``)
+runs where its parameters lie: on the card every mixer's scan goes
+through the SSD scan kernel and its backward kernel, and the AdamW update
+runs in place (``adamw_update_``).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from repro_torch.core.objectives import diffusion_loss, sample_timesteps
 from repro_torch.core.schedules import Schedule, get_schedule
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
                                             adamw_init, adamw_update,
-                                            ema_init, ema_update)
+                                            adamw_update_, ema_init,
+                                            ema_update)
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import resolve_device
 
@@ -57,8 +59,8 @@ def value_and_grad(loss_fn, params, has_aux: bool = False):
              for p, g in zip(leaves, grads)}
     grads = tree_map(lambda p: by_id[id(p)], live)
     if has_aux:
-        return (out[0].detach(),) + tuple(
-            a.detach() for a in out[1:]), grads
+        return (out[0].detach(),) + tree_map(lambda a: a.detach(),
+                                             tuple(out[1:])), grads
     return loss.detach(), grads
 
 
@@ -219,7 +221,22 @@ class RouterTrainer:
 
 
 def make_lm_train_step(cfg, opt: AdamWConfig):
-    """LM training of the zoo architectures: not ported yet."""
-    raise NotImplementedError(
-        "LM training waits for a backward of the ssd_scan kernel "
-        "(ROADMAP.md, item A.9b)")
+    """LM train step of the zoo architectures:
+    ``step(params, opt_state, batch) -> (params, opt_state, loss,
+    metrics)``, with ``batch`` holding ``tokens`` and ``labels`` and
+    metrics ``ce``, ``grad_norm`` and ``lr`` (0-d tensors, not read from
+    the device).  The gradient of ``zoo.loss_fn``, then AdamW.  The step
+    consumes ``params`` and ``opt_state``, as a jitted step with donated
+    buffers does: the parameters and moments are updated in place
+    (``adamw_update_``, bitwise ``adamw_update``'s numbers) and returned,
+    so at mamba2-2.7b's width the step holds one set of parameters,
+    gradients and moments."""
+    from repro_torch.models import zoo
+
+    def step(params, opt_state, batch):
+        (loss, metrics), grads = value_and_grad(
+            lambda p: zoo.loss_fn(cfg, p, batch), params, has_aux=True)
+        params, opt_state, om = adamw_update_(opt, grads, opt_state, params)
+        return params, opt_state, loss, {**metrics, **om}
+
+    return step

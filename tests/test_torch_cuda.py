@@ -1248,3 +1248,260 @@ def test_dense_dit_gradients_on_the_card_match_the_cpu(cuda, router):
         scale = w.abs().max().item()
         assert (g - w).abs().max().item() <= 1e-4 * scale
         assert scale == 0.0 or g.abs().max().item() > 0.0
+
+
+# ---------------------------------------------------------------------------
+# The SSD scan's backward kernel and LM training on the card
+# ---------------------------------------------------------------------------
+
+#: ssd_scan_bwd against ref_ssd_scan_bwd, each float32 gradient within
+#: ``SSD_BWD_REL · max |want|``: both compute the chunked backward in
+#: float32 from the same decay factors, summing in another order (sums
+#: of up to 128·64 products, a reverse cumulative sum of 128 terms of
+#: both signs for ddt, and Σ over every position and batch for dA); bf16
+#: gradients (dx, dB, dC of bf16 inputs) round once from float32 on both
+#: sides: one bf16 ulp (2⁻⁷ of max).
+SSD_BWD_REL = 1e-4
+
+
+def _ssd_bwd_check(cuda, b, h, s, p, n, dtype, chunk, seed, with_dstate,
+                   skew=0):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+
+    x, dt, A, B, C = _ssd_views(cuda, b, h, s, p, n, dtype, seed=seed,
+                                skew=skew)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dy = torch.randn(b, s, h, p, generator=gen, device=cuda).to(
+        dtype).transpose(1, 2)
+    ds = (torch.randn(b, h, p, n, generator=gen, device=cuda)
+          if with_dstate else None)
+    y, state, starts = ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                with_starts=True)
+    got = ssd_scan_bwd(x, dt, A, B, C, starts, dy, ds, chunk=chunk)
+    want = ref.ref_ssd_scan_bwd(x, dt, A, B, C, dy, ds, chunk=chunk)
+    again = ssd_scan_bwd(x, dt, A, B, C, starts, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, g, w, g2 in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                              again):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        rel = 2.0 ** -7 if g.dtype == torch.bfloat16 else SSD_BWD_REL
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= rel * w.float().abs().max().item(), (name, err)
+        assert torch.equal(g, g2), name               # no atomics
+    # the tile-start states are the final states of the prefixes
+    for k in range(1, starts.shape[2]):
+        _, sk = ops.ssd_scan(x[:, :, :k * chunk], dt[..., :k * chunk], A,
+                             B[:, :k * chunk], C[:, :k * chunk], chunk=chunk)
+        assert torch.equal(starts[:, :, k], sk)
+    assert not bool(starts[:, :, 0].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_dstate", [False, True], ids=["ds0", "ds"])
+@pytest.mark.parametrize("b,h,s,p,n,chunk", [
+    (2, 8, 512, 64, 128, 128),      # mamba2-2.7b head shape, 4 tiles
+    (1, 4, 100, 64, 128, 128),      # S < chunk: one partial tile
+    (2, 3, 64, 32, 16, 16),         # the reduced config's shape
+    (1, 2, 48, 8, 32, 8),           # small head and state, chunk 8
+    (1, 3, 300, 36, 24, 128),       # a partial last tile, P 36, N 24
+])
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, dtype, with_dstate, b, h, s,
+                                           p, n, chunk):
+    """The backward kernel against its plain version: every gradient
+    within its tolerance, bitwise repeatable, and the forward's tile-start
+    states equal to the prefixes' final states."""
+    _ssd_bwd_check(cuda, b, h, s, p, n, dtype, chunk, s + p + n,
+                   with_dstate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_scan_bwd_kernel_unaligned_views(cuda, dtype):
+    """x, B and C rows off 16-byte alignment (the prep's element path)."""
+    _ssd_bwd_check(cuda, 2, 3, 200, 64, 128, dtype, 40, 3, True, skew=1)
+
+
+def test_ssd_scan_bwd_kernel_mixer_shape(cuda):
+    """mamba2-2.7b's mixer in one training step, bf16."""
+    _ssd_bwd_check(cuda, 4, 80, 1024, 64, 128, torch.bfloat16, 128, 16,
+                   False)
+
+
+def test_ssd_scan_grad_calls_the_backward_kernel(cuda):
+    """``ops.ssd_scan`` on inputs that require grad: one forward and one
+    backward launch, the gradients those of the launcher; a call the
+    backward does not take raises ``NotImplementedError``."""
+    x, dt, A, B, C = _ssd_views(cuda, 2, 3, 64, 32, 16, torch.float32, 9)
+    leaves = [a.detach().requires_grad_(True) for a in (x, dt, A, B, C)]
+    ops.reset_launches()
+    y, state = ops.ssd_scan(*leaves, chunk=16)
+    assert y.grad_fn is not None
+    dy = torch.randn_like(y)
+    grads = torch.autograd.grad((y * dy).sum(), leaves)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "ssd_scan": 1, "ssd_scan_bwd": 1}
+    want = ref.ref_ssd_scan_bwd(x, dt, A, B, C, dy, chunk=16)
+    for g, w in zip(grads, want):
+        err = (g - w).abs().max().item()
+        assert err <= SSD_BWD_REL * w.abs().max().item(), err
+    xg = leaves[0]
+    with pytest.raises(NotImplementedError, match="ssd_scan backward"):
+        ops.ssd_scan(xg.to(torch.float16), dt, A, B.to(torch.float16),
+                     C.to(torch.float16), chunk=16)
+    with pytest.raises(NotImplementedError, match="ssd_scan backward"):
+        ops.ssd_scan(xg, dt, A, B.to(torch.bfloat16), C, chunk=16)
+    big = torch.randn(1, 2, 16, 128, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="P ≤ 64"):
+        ops.ssd_scan(big, dt[:1, :2, :16], A[:2], B[:1, :16], C[:1, :16],
+                     chunk=16)
+    with torch.no_grad():
+        y0, s0 = ops.ssd_scan(*leaves, chunk=16)
+    assert y0.grad_fn is None
+    assert torch.equal(y0, y.detach()) and torch.equal(s0, state.detach())
+
+
+def _old_forward(cfg, params, tokens):
+    """``forward_train`` as it ran before the layers' leaves were unbound:
+    each layer's parameters ``a[i]`` of the stacks."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.tree import tree_map
+
+    h = L.embed(params["embed"], tokens, cfg.activation_dtype)
+    for i in range(cfg.num_layers):
+        bp = tree_map(lambda a: a[i], params["blocks"])
+        y, _ = M.mixer_apply(cfg, bp["mixer"],
+                             L.rmsnorm(bp["ln"], h, cfg.norm_eps))
+        h = h + y
+    h = L.rmsnorm(params["ln_final"], h, cfg.norm_eps)
+    return L.dense(params["unembed"], h)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_mamba2_layers_unbound_are_bitwise_the_stack_views(cuda, bf16):
+    """Serving unchanged: ``forward_train``'s logits and ``prefill``'s
+    cache bitwise those of layers taken as ``a[i]`` views; under grad with
+    remat on and off, the logits are the same bits as well."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_map
+
+    over = dict(param_dtype=torch.bfloat16,
+                activation_dtype=torch.bfloat16) if bf16 else {}
+    cfg = get_config("mamba2-2.7b").reduced(**over)
+    params = zoo.init(cfg, torch.Generator(device=cuda).manual_seed(3), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(4))
+    with torch.no_grad():
+        want = _old_forward(cfg, params, toks)
+        got, _ = zoo.forward_train(cfg, params, {"tokens": toks})
+        last, cache = zoo.prefill(cfg, params, {"tokens": toks})
+        h = L.embed(params["embed"], toks, cfg.activation_dtype)
+        caches = []
+        for i in range(cfg.num_layers):
+            bp = tree_map(lambda a: a[i], params["blocks"])
+            y, c = M.mixer_apply(cfg, bp["mixer"],
+                                 L.rmsnorm(bp["ln"], h, cfg.norm_eps))
+            h = h + y
+            caches.append(c)
+        hl = L.rmsnorm(params["ln_final"], h[:, -1:], cfg.norm_eps)
+        want_last = L.dense(params["unembed"], hl)[:, 0]
+    assert torch.equal(got, want)
+    assert torch.equal(last, want_last)
+    assert torch.equal(cache["conv"], torch.stack([c for c, _ in caches]))
+    assert torch.equal(cache["ssm"], torch.stack([s for _, s in caches]))
+    live = tree_map(lambda a: a.detach().requires_grad_(True), params)
+    for remat in (False, True):
+        lg, _ = zoo.forward_train(dataclasses.replace(cfg, remat=remat),
+                                  live, {"tokens": toks})
+        assert lg.grad_fn is not None and torch.equal(lg.detach(), want)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_mamba2_gradients_on_the_card_match_the_cpu(cuda, remat):
+    """A loss through ``zoo.loss_fn`` of the reduced float32 mamba2 on the
+    card (every mixer's scan through the scan kernel and its backward
+    kernel) against the CPU (plain versions): every leaf's gradient within
+    ``1e-4 · max |want|`` and non-zero wherever the CPU's is — the scan's
+    output carries a gradient into x, B, C, dt, A_log, dt_bias, the conv
+    and ``in_proj``, not only through the D skip and the gate.  Launches:
+    one scan and one backward a layer (two scans under remat)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b").reduced(),
+                              remat=remat, logits_chunk=16)
+    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 65),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def grads(dev):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, g = value_and_grad(lambda p: zoo.loss_fn(cfg, p, b),
+                                 tree_map(lambda a: a.to(dev), params),
+                                 has_aux=True)
+        return loss[0], tree_leaves(g)
+
+    want_loss, want = grads("cpu")
+    ops.reset_launches()
+    got_loss, got = grads(cuda)
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "ssd_scan": layers * (2 if remat else 1), "ssd_scan_bwd": layers}
+    assert abs(got_loss.item() - want_loss.item()) <= \
+        1e-5 * abs(want_loss.item())
+    for g, w in zip(got, want):
+        g = g.cpu()
+        scale = w.abs().max().item()
+        assert (g - w).abs().max().item() <= 1e-4 * scale
+        assert scale == 0.0 or g.abs().max().item() > 0.0
+
+
+@pytest.mark.parametrize("clip", [1.0, 0.0], ids=["clip", "noclip"])
+def test_inplace_adamw_is_bitwise_the_functional_update_on_the_card(cuda,
+                                                                   clip):
+    """``adamw_update_`` (in place, a slice of each leaf at a time)
+    against ``adamw_update`` on the card, three steps: parameters,
+    moments, grad norm and lr bitwise equal (the same elementwise
+    operations, and the norm's sums over the same whole leaves)."""
+    from repro_torch.training import optimizer as Opt
+    from repro_torch.tree import tree_leaves, tree_map
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    params = {"stack": torch.randn(4, 300, 257, generator=g, device=cuda)
+              .to(torch.bfloat16),
+              "w": torch.randn(1000, 33, generator=g, device=cuda),
+              "s": torch.randn((), generator=g, device=cuda)}
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=g, device=cuda)
+                     .to(p.dtype), params)
+    cfg = Opt.AdamWConfig(learning_rate=1e-2, warmup_steps=2,
+                          clip_norm=clip, weight_decay=1e-2)
+    old = Opt.SLICE_ELEMS
+    Opt.SLICE_ELEMS = 4096
+    try:
+        p1, s1 = params, Opt.adamw_init(params)
+        p2 = tree_map(torch.clone, params)
+        s2 = Opt.adamw_init(p2)
+        for _ in range(3):
+            p1, s1, m1 = Opt.adamw_update(cfg, grads, s1, p1)
+            p2, s2, m2 = Opt.adamw_update_(cfg, grads, s2, p2)
+            assert torch.equal(m1["grad_norm"], m2["grad_norm"])
+            assert torch.equal(m1["lr"], m2["lr"])
+            for a, b in zip(tree_leaves((p1, s1.mu, s1.nu)),
+                            tree_leaves((p2, s2.mu, s2.nu))):
+                assert torch.equal(a, b)
+    finally:
+        Opt.SLICE_ELEMS = old

@@ -186,16 +186,20 @@ def test_cpu_wrappers_launch_no_kernel():
                  -torch.ones(2), torch.randn(1, 4, 5), torch.randn(1, 4, 5),
                  chunk=2)
     hg = h.clone().requires_grad_(True)           # the training path
+    xg = torch.randn(1, 2, 4, 3, requires_grad=True)
     (ops.adaln_modulate(hg, torch.zeros(2, 8), torch.zeros(2, 8)).sum()
      + ops.layernorm(hg).sum()
      + ops.flash_attention(hg[:, None], hg[:, None], hg[:, None],
-                           causal=False).sum()).backward()
-    assert hg.grad is not None
+                           causal=False).sum()
+     + ops.ssd_scan(xg, torch.rand(1, 2, 4), -torch.ones(2),
+                    torch.randn(1, 4, 5), torch.randn(1, 4, 5),
+                    chunk=2)[0].sum()).backward()
+    assert hg.grad is not None and xg.grad is not None
     assert set(ops.LAUNCHES) == {
         "ragged_gemm", "ragged_gemm_int8", "ragged_gemm_fp8",
         "hetero_fuse_step", "hetero_fuse_coeffs", "hetero_fuse_dequant",
         "hetero_fuse", "adaln_fuse", "flash_attention", "ssd_scan",
-        "adaln_fuse_bwd", "flash_attention_bwd"}
+        "adaln_fuse_bwd", "flash_attention_bwd", "ssd_scan_bwd"}
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 

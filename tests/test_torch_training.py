@@ -24,6 +24,8 @@ different fraction of one step (measured: up to 0.006·lr).
 
 from __future__ import annotations
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -382,8 +384,18 @@ def test_trainers_draw_from_a_generator_and_default_to_the_card(batch):
                             schedule_name="linear")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.RouterTrainer(apply_fn=None, num_clusters=2)
-    with pytest.raises(NotImplementedError, match="A.9b"):
-        T.make_lm_train_step(None, Opt.AdamWConfig())
+    # the LM step is ported: it returns a step that trains on the CPU
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+
+    lm = get_config("mamba2-2.7b").reduced(num_layers=1)
+    step = T.make_lm_train_step(lm, Opt.AdamWConfig())
+    lb = {"tokens": torch.zeros(1, 16, dtype=torch.int32),
+          "labels": torch.ones(1, 16, dtype=torch.int32)}
+    p = zoo.init(lm, torch.Generator().manual_seed(0), "cpu")
+    _, st, loss, m = step(p, Opt.adamw_init(p), lb)
+    assert int(st.step) == 1 and math.isfinite(loss.item())
+    assert set(m) == {"ce", "grad_norm", "lr"}
 
 
 # ---------------------------------------------------------------------------
@@ -395,7 +407,8 @@ def test_train_cli_writes_a_servable_checkpoint(one_torch_thread, tmp_path,
                                                 capsys):
     """``--mode expert`` at reduced size on the CPU: the EMA checkpoint
     loads with its metadata, and the serving engine serves a finite
-    request from it; ``--mode lm`` raises."""
+    request from it; ``--mode lm`` raises for the default arch (A.10) and
+    trains mamba2-2.7b, printing the reference's step lines."""
     from repro_torch.launch import train
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.training.checkpoint import load_checkpoint
@@ -418,5 +431,9 @@ def test_train_cli_writes_a_servable_checkpoint(one_torch_thread, tmp_path,
     text = torch.randn(2, 8, 32, generator=torch.Generator().manual_seed(0))
     lat = eng.generate(0, text, 2)
     assert lat.shape == (2, 8, 8, 4) and bool(torch.isfinite(lat).all())
-    with pytest.raises(NotImplementedError, match="A.9b"):
+    with pytest.raises(NotImplementedError, match="A.10"):
         train.main(["--mode", "lm", "--device", "cpu"])
+    train.main(["--mode", "lm", "--arch", "mamba2-2.7b", "--steps", "2",
+                "--seq-len", "32", "--batch", "2", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln[:15] for ln in lines] == ["step    0 loss ", "step    1 loss "]
