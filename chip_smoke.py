@@ -1241,14 +1241,19 @@ SSD_BWD_REL_TOL = 1e-4
 
 
 def ssd_bwd_work(b, h, s, p, n, q, elt, with_dstate) -> tuple:
-    """(operations, bytes, scratch bytes) of one backward of the scan: the
-    chunked backward's products that these inputs need — per (batch,
-    chunk) C·Bᵀ again and the head-summed (dP∘L)·B and (dP∘L)ᵀ·C, on the
-    causal triangle; per (batch, head, chunk) the triangle's M·dy and
-    dy·(dt x)ᵀ, and the four (q × P)·(P × N)-sized products (B·dSᵀ,
+    """(operations, bytes, scratch bytes by part) of one backward of the
+    scan: the chunked backward's products that these inputs need — per
+    (batch, chunk) C·Bᵀ again and the head-summed (dP∘L)·B and (dP∘L)ᵀ·C,
+    on the causal triangle; per (batch, head, chunk) the triangle's M·dy
+    and dy·(dt x)ᵀ, and the four (q × P)·(P × N)-sized products (B·dSᵀ,
     dy·S₀, x·dS, the carry dyᵀ·C) — with each input read once (x, dy, B,
     C, dt, A, the tile-start states, d_state) and each gradient written
-    once; the scratch is the per-head partials written and read back."""
+    once.  The scratch, written and read back once each: the head groups'
+    sums (``head_partials``: three 128 × 128 float32 tiles per (batch,
+    chunk, group of ``GROUP_HEADS`` heads)) and the state gradient at each
+    chunk's end (``d_state_end``)."""
+    from repro_torch.kernels.ssd_scan import GROUP_HEADS
+
     nc = -(-s // q)
     chunks = b * nc
     tri = q * (q + 1) / 2
@@ -1257,7 +1262,9 @@ def ssd_bwd_work(b, h, s, p, n, q, elt, with_dstate) -> tuple:
     nbytes = (elt * (3.0 * b * s * h * p + 4.0 * b * s * n)
               + 4.0 * (2 * b * s * h + 2 * h + b * h * nc * p * n
                        + (b * h * p * n if with_dstate else 0)))
-    scratch = 2 * 4.0 * b * h * nc * (128 * 128 + 2 * 128 * 128)
+    groups = -(-h // GROUP_HEADS)
+    scratch = dict(head_partials=2 * 4.0 * chunks * groups * 3 * 128 * 128,
+                   d_state_end=2 * 4.0 * chunks * h * p * n)
     return flops, nbytes, scratch
 
 
@@ -1268,14 +1275,20 @@ def check_ssd_scan_bwd(ops, ref, dev) -> dict:
     ``forward_train`` gives) and non-zero, in float32, and with ``S`` =
     100 < chunk, from the forward's tile-start states.  Every gradient
     against the plain version's on the card (``SSD_BWD_REL_TOL``; one
-    bf16 ulp for bf16 gradients), bitwise repeatable.  Times: the kernel
-    (three launches), the plain version, and the yardstick, the autograd
-    backward of the plain chunked algorithm (``mamba2.ssd_chunked``,
-    einsums through cuBLAS; forward and backward less the forward); no
-    single PyTorch call computes it (library null).  Bound as the
-    forward's row: by the input dtype's rule, with the float32 CUDA-core
-    figure beside it."""
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    bf16 ulp for bf16 gradients), bitwise repeatable.  Times: the kernels
+    (five launches; ``states_ms`` the first three alone, the gradient of
+    the state at each tile's end), the plain version, and the yardstick,
+    the autograd backward of the plain chunked algorithm
+    (``mamba2.ssd_chunked``, einsums through cuBLAS; forward and backward
+    less the forward); no single PyTorch call computes it (library null).
+    Bound as the forward's row: by the input dtype's rule, with the
+    float32 CUDA-core figure beside it.  ``scratch_mbytes`` is what the
+    kernels write and read back: the head groups' sums and the end-of-tile
+    state gradients, each also on its own; ``blocks_per_sm`` the main
+    kernel's."""
+    from repro_torch.kernels.ssd_scan import (bwd_blocks_per_sm, ssd_scan,
+                                              ssd_scan_bwd,
+                                              ssd_scan_bwd_states)
     from repro_torch.models.mamba2 import ssd_chunked
 
     b, h, s, p, n, chunk = SSD_SHAPE
@@ -1314,6 +1327,8 @@ def check_ssd_scan_bwd(ops, ref, dev) -> dict:
                 and torch.equal(g, g2) and g.dtype == w.dtype
         del got, want, again
         t_k = graph_ms(kern, 10)
+        t_s = graph_ms(lambda: ssd_scan_bwd_states(x, dt, A, B, C, dy, ds,
+                                                   chunk=q), 10)
         t_w = cuda_ms(kern, 10)
         t_p = cuda_ms(plain, 2, warmup=1)
         leaves = [a.detach().requires_grad_(True) for a in (x, dt, A, B, C)]
@@ -1343,8 +1358,12 @@ def check_ssd_scan_bwd(ops, ref, dev) -> dict:
                    bound_by=by, share_of_bound=t_b / t_k,
                    bound_f32_ms=t_b32, bound_f32_by=by32,
                    share_of_bound_f32=t_b32 / t_k, gflop=flops / 1e9,
-                   mbytes=nbytes / 1e6, scratch_mbytes=scratch / 1e6,
-                   tflops=flops / t_k / 1e9)
+                   mbytes=nbytes / 1e6,
+                   scratch_mbytes=sum(scratch.values()) / 1e6,
+                   head_partials_mbytes=scratch["head_partials"] / 1e6,
+                   d_state_end_mbytes=scratch["d_state_end"] / 1e6,
+                   states_ms=t_s, tflops=flops / t_k / 1e9,
+                   blocks_per_sm=bwd_blocks_per_sm(dtype))
         if not rows:
             row.update(clocks_under(kern))
         print("ssd_scan_bwd case " + json.dumps(row))
@@ -1358,6 +1377,9 @@ def check_ssd_scan_bwd(ops, ref, dev) -> dict:
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
                 chunked_autograd_ms=main["chunked_autograd_ms"],
+                states_ms=main["states_ms"],
+                head_partials_mbytes=main["head_partials_mbytes"],
+                d_state_end_mbytes=main["d_state_end_mbytes"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 bound_f32_ms=main["bound_f32_ms"],
                 share_of_bound_f32=main["share_of_bound_f32"],
@@ -3312,8 +3334,12 @@ LM_GRAD_REL_TOL = 1e-3
 
 #: a training step's kernel-name fragments -> category, first match wins
 LM_TRAIN_CATEGORIES = (
-    ("ssd_scan_bwd_reduce", "ssd_scan_bwd head and batch sums"),
-    ("ssd_scan_bwd", "ssd_scan_bwd scan (every mixer's backward)"),
+    ("ssd_scan_bwd_states", "ssd_scan_bwd first launch: the tiles' state "
+                            "sums"),
+    ("ssd_scan_bwd_carry", "ssd_scan_bwd first launch: the carry"),
+    ("ssd_scan_bwd_main", "ssd_scan_bwd main launch (g, the head groups' "
+                          "sums)"),
+    ("ssd_scan_bwd_sums", "ssd_scan_bwd sums (dB, dC, ddt, dA)"),
     ("ssd_scan_prep", "ssd_scan prep (C·Bᵀ; forward, recompute, backward)"),
     ("ssd_scan", "ssd_scan (forward and recompute)"),
     ("gemm", "cuBLAS bf16 GEMM (projections, unembedding; forward, "

@@ -769,48 +769,104 @@ int launch_prep(const Args& a, int batch, bool bf16, cudaStream_t stream) {
 // Backward: ssd_scan_bwd.  It replaces no TPU kernel: the TPU kernel has no
 // VJP, and the reference trains through XLA's autodiff of the plain chunked
 // algorithm (repro/models/mamba2.py:90 ssd_chunked).  From dy, the
-// gradient of the final state dS (or zero) and the forward's tile-start
-// states S0, per chunk with L_ij = exp(cum_i − cum_j) (i ≥ j), M = C·Bᵀ∘L:
+// gradient of the final state (or zero) and the forward's tile-start
+// states S0, per (batch, head, tile) with L_ij = exp(cum_i − cum_j) (i ≥ j),
+// M = C·Bᵀ∘L, G_ji = x_j·dy_i and dS the gradient of the tile's end state:
 //
-//   g_j   = Σ_{i≥j} M_ij dy_i + exp(cum_last − cum_j)·dS B_j
-//   dx_j  = dt_j g_j;  ddt_j = x_j·g_j + A·da_j,  da = reverse-cumsum(∂/∂cum)
-//   dC_i  = Σ_j (dP∘L)_ij B_j + exp(cum_i) S0ᵀ dy_i,  dP_ij = dt_j dy_i·x_j
-//   dB_j  = Σ_i (dP∘L)_ij C_i + dt_j exp(cum_last − cum_j) dSᵀ x_j
-//   dA    = Σ da·dt;  dS ← exp(cum_last)·dS + Σ_i exp(cum_i) dy_i ⊗ C_i
+//   g_j   = Σ_{i≥j} M_ij dy_i + exp(cum_last − cum_j)·dS B_j;  dx_j = dt_j g_j
+//   dC_i  = Σ_h Σ_j (dt_j G_ji L_ij) B_j + Σ_h exp(cum_i) S0ᵀ dy_i
+//   dB_j  = Σ_h Σ_i (dt_j G_ji L_ij) C_i + Σ_h dt_j exp(cum_last − cum_j) dSᵀ x_j
+//   ∂/∂cum_m = R_m − dt_m (Q'_m + s'_m) + dci_m  (+ the end terms at the last
+//   position), R_i = Σ_j dt_j G_ji M_ij, Q'_j = Σ_i G_ji M_ij, s'_j = x_j·(state
+//   term of g_j), dci_i = C_i·(dC inter part)_i;  da = reverse-cumsum;
+//   ddt_j = x_j·g_j + A·da_j with x_j·g_j = Q'_j + s'_j;  dA = Σ da·dt
+//   dS at the end of tile k−1 = exp(cum_last,k)·dS_k + Σ_i exp(cum_i) dy_i ⊗ C_i
 //
-// What bounds it: float32 operations, 27.1 GFLOP at the mixer shape (2× the
-// forward: two triangle products and four (q × P)·(P × N) products a head
-// and chunk, and the head-summed (dP∘L)·B, ·C and C·Bᵀ a chunk): 0.40 ms.
-// Three launches: the forward's prep (C·Bᵀ, C and B widened, per (batch,
-// tile)); ssd_scan_bwd_kernel, one 256-thread block per (batch, head)
-// walking the tiles in reverse with dS in shared memory, so nothing is
-// scanned again; ssd_scan_bwd_reduce_kernel, which adds the heads' partials
-// (the head's dP∘L tile and its inter and state terms of dB and dC) and the
-// batches' dA in a fixed order: no atomics, two calls give the same bits.
-// This first design is simple: scalar shared loads from odd-pitch rows
-// (conflict-free whichever axis is a product's row), full squares where the
-// forward skips the masked triangle, one 211 KB block an SM, and 1 GB of
-// partials at the mixer shape.  Tensor cores are excluded, as above.
+// What bounds it: float32 operations, 27.1 GFLOP at the mixer shape (4 × 80
+// heads, S 1024, P 64, N 128, chunk 128; per (batch, head, tile) the two
+// triangle products and four (q × P)·(P × N) products, per (batch, tile)
+// C·Bᵀ and the head-summed products): 0.40 ms.  Tensor cores are excluded,
+// as above: every product but x·dyᵀ has a float32 operand.
+//
+// The only sequential dependency is the carry of dS, so it is computed first,
+// and every (batch, tile, head) is then independent.  Five launches:
+//  1. the forward's prep (C·Bᵀ, C transposed and B, per (batch, tile));
+//  2. ssd_scan_bwd_states_kernel, one block per (head, tile ≥ 1, batch):
+//     U_k = Σ_i exp(cum_i) dy_i ⊗ C_i of its tile (4.7 GFLOP at the mixer
+//     shape; tile 0's is not needed) into the slot of tile k − 1, and
+//     exp(cum_last) of the tile;
+//  3. ssd_scan_bwd_carry_kernel: per (batch, head) and state element the
+//     reverse walk dS_end[k − 1] = exp(cum_last,k)·dS_end[k] + U_k over the
+//     8 tiles, in place: the end-of-tile state gradients (B, H, tiles, P, N);
+//  4. ssd_scan_bwd_main_kernel, blocks of four roles over one grid: per
+//     (batch, tile, group of HG heads) three blocks that loop over the
+//     group's heads and keep the group's sum of one head-summed term in
+//     shared memory — Σ_h dt_j G L [j][i] (and per head R, Q'), Σ_h dC inter
+//     [i][n] (and per head dci), Σ_h dB state [j][n] (and per head s') — and
+//     per (batch, tile, head) one block for g: the state term, then the
+//     triangle term, dx, and exp(cum_last)·⟨dS, S0⟩;
+//  5. ssd_scan_bwd_sums_kernel: per (batch, tile, 16 rows) the groups' sums
+//     in group order, then dC = Σ dC inter + (Σ dt G L)·B and dB = Σ dB state
+//     + (Σ dt G L)ᵀ·C; per head ∂/∂cum, its reverse cumulative sum, ddt, and
+//     dA over batches and tiles in a fixed order.
+// No atomics: every sum runs in a fixed order, so two calls give the same
+// bits.
+//
+// Every product is the forward's register tile: 8 × 8 a thread, a warp 32
+// rows × 64 columns, both operands staged k-major in shared memory (a copy
+// transposed where the product contracts along the other axis: x and dy per
+// head, B and C·Bᵀ∘L from the prep's scratch, dS), two 16-byte loads of each
+// operand per 64 FFMA, conflict-free (a quarter warp reads one broadcast
+// word of the row operand and 8 distinct words of the other).  The masked
+// triangle is skipped by warps: the G L blocks' warps whose columns lie wholly
+// above their rows do nothing, and the triangle term of g starts its sum over
+// i at the warp's first row.  The g and states blocks split the sum over k
+// between two halves of the block (even and odd slabs) and add the halves
+// once, in order.  C and B come widened from the scratch, never from the
+// inputs.  The head-summed terms leave the chip once per group of HG heads
+// (5 groups at the mixer shape), not once per head.
+//
+// Budget (bf16 and float32 alike): 98.6 KB of dynamic shared memory a block
+// in launches 2 and 4 (the group blocks: the sum 64 KB + half of P of each
+// operand 32 KB; the g and states blocks: two operands, 96 KB), 16.1 KB in
+// launch 5; at most 128 registers a thread (__launch_bounds__(256, 2); the
+// main kernel spills ~200 bytes): 2 blocks, 16 warps an SM.  At the mixer
+// shape the main launch has 3 × 4 × 8 × 5 = 480 group blocks (16 heads
+// each) before 2,560 g blocks, so the last blocks to run are the short
+// ones; the states launch has 2,240 blocks, the carry 10,240 short ones.
+// Head partials: 3 × 64 KB per (batch, tile, group), 31.5 MB written and
+// read once; the end-of-tile state gradients 83.9 MB.
+//
+// Against the first design of this backward (one block per (batch, head)
+// walking the tiles in reverse): the sequential walk is now only the
+// carry, an elementwise pass, so 2,560 + 480 blocks fill the card in
+// balanced waves instead of 320 blocks of one 211 KB block an SM; scalar
+// loads from odd pitches became the register tile's 16-byte loads; the
+// full squares became warp-level triangle skips; 1 GB of per-head
+// partials became 63 MB of group sums; C is read widened from the
+// scratch, never per head from the inputs, and the reverse cumulative sum
+// moved to the sums kernel, a warp per (batch, tile) of a head.  Times are
+// in PERF.md.
 // ---------------------------------------------------------------------------
 
 constexpr int BT = 256;            // threads of the backward kernels
-constexpr int XP = PM + 1;         // pitch of x, dy rows [position][p]
-constexpr int SP = NM + 1;         // pitch of state rows [p][n]
-constexpr int MP = QT + 1;         // pitch of M rows [j][i] (and C rows)
-constexpr int RROWS = 32;          // rows of a reduce block
-// bytes of the scan's shared memory: x, dy, M (later C), dS, S0, the
-// row partials, nine per-position arrays and ten block slots
-constexpr int BWD_SMEM =
-    (2 * QT * XP + QT * MP + 2 * PM * SP + 16 * QT + 9 * QT + 10) * 4;
-constexpr int RED_SMEM = (2 * RROWS * MP + QT * SP) * 4;
-static_assert(BWD_SMEM <= 227 * 1024, "backward shared memory");
+constexpr int HG = 16;             // heads of a group block
+constexpr int SL = 8;              // depth of a k slab
+constexpr int PH = PM / 2;         // state rows p a group block stages at once
+constexpr int SC = 5 * QT + 16;    // per-position scalars and block slots
+constexpr int RROWS = 16;          // rows of a sums block
+constexpr int MP = QT + 1;         // pitch of its (Σ dt G L) rows
+constexpr int BWD_SMEM = (QT * QT + QT * PM + SC) * 4;
+constexpr int RED_SMEM = 2 * RROWS * MP * 4;
+static_assert(QT * QT + 2 * PH * QT <= QT * QT + QT * PM &&
+                  QT * PM + QT * NM <= QT * QT + QT * PM,
+              "every role fits the main layout");
+static_assert(2 * (BWD_SMEM + 1024) <= 228 * 1024, "two blocks an SM");
 
 struct BwdArgs {
   const void* x;
   const float* dt;
   const float* A;
-  const void* B;
-  const void* C;
   const void* dy;
   const float* dstate;     // (B, H, P, N) float32, or null (zero)
   const float* starts;     // (B, H, ntiles, P, N) float32
@@ -820,437 +876,789 @@ struct BwdArgs {
   float* dA;
   void* dB;                // (B, S, N) contiguous, x's dtype
   void* dC;
-  float* dcb;              // (B, H, ntiles, QT, QT): per head (dP∘L)[j][i]
-  float* dcp;              // (B, H, ntiles, QT, NM): per head dC inter part
-  float* dbp;              // (B, H, ntiles, QT, NM): per head dB state part
-  float* dap;              // (B, H): per (batch, head) Σ da·dt
-  int H, S, P, N, tile, ntiles;
+  float* dsend;            // (B, H, ntiles, P, N): dS at each tile's end
+  float* decay;            // (B, H, ntiles): exp(cum_last) of each tile
+  float* part;             // (B, ntiles, groups, 3, QT, QT): the groups' sums
+  float* vec;              // (B, H, ntiles, 4, QT): R, Q', dci, s'
+  float* ex;               // (B, H, ntiles): exp(cum_last)·⟨dS, S0⟩
+  int H, S, P, N, tile, ntiles, groups;
+  int vec_x, vec_dy, vec_dx, vec_s;   // 16-byte rows of x, dy, dx; N % 4 == 0
   int64_t sxb, sxh, sxs;   // x
   int64_t sdb, sdh, sds;   // dt
-  int64_t scb, scs;        // C
   int64_t syb, syh, sys;   // dy
   int64_t sgb, sgh, sgs;   // dx
   int64_t stb, sth, sts;   // ddt
 };
 
-// Sum of v over the 16 lanes of a half warp (the lanes of one mg); the
-// half's lane 0 holds the sum in a fixed order.
-__device__ __forceinline__ float half_warp_sum(float v) {
+// Rows of this thread's 8 × 8 tile (m0 = row0 of the warp + 4·(lane / 8)):
+// m0 .. m0 + 3 and m0 + 16 .. m0 + 19; columns (n0 = col0 of the warp +
+// 4·(lane % 8)): n0 .. n0 + 3 and n0 + 32 .. n0 + 35.
+__device__ __forceinline__ int trow(int m0, int r) {
+  return m0 + (r & 3) + ((r >> 2) << 4);
+}
+__device__ __forceinline__ int tcol(int n0, int c) {
+  return n0 + (c & 3) + ((c >> 2) << 5);
+}
+
+__device__ __forceinline__ void zero8x8(float (&c)[8][8]) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
+}
+
+// acc[r][c] += Σ_k A[k][trow(m0, r)]·B[k][tcol(n0, c)] over the slabs s0,
+// s0 + ds, .. < s1 of SL rows k; A rows AP floats apart, B rows BP.
+template <int AP, int BP>
+__device__ __forceinline__ void outer(float (&acc)[8][8], const float* A,
+                                      const float* B, int m0, int n0, int s0,
+                                      int s1, int ds) {
+  for (int s = s0; s < s1; s += ds) {
+#pragma unroll
+    for (int kk = 0; kk < SL; ++kk) {
+      const float* ak = A + (s * SL + kk) * AP + m0;
+      const float* bk = B + (s * SL + kk) * BP + n0;
+      float av[8], bv[8];
+      put4(av, ld4(ak));
+      put4(av + 4, ld4(ak + 16));
+      put4(bv, ld4(bk));
+      put4(bv + 4, ld4(bk + 32));
+      fma8x8(acc, av, bv);
+    }
+  }
+}
+
+// The tile to / from rows of PITCH floats.
+template <int PITCH>
+__device__ __forceinline__ void tile_store(float* dst, const float (&v)[8][8],
+                                           int m0, int n0) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    float* row = dst + trow(m0, r) * PITCH + n0;
+    *reinterpret_cast<float4*>(row) =
+        make_float4(v[r][0], v[r][1], v[r][2], v[r][3]);
+    *reinterpret_cast<float4*>(row + 32) =
+        make_float4(v[r][4], v[r][5], v[r][6], v[r][7]);
+  }
+}
+template <int PITCH>
+__device__ __forceinline__ void tile_add(float (&v)[8][8], const float* src,
+                                         int m0, int n0) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float* row = src + trow(m0, r) * PITCH + n0;
+    const float4 a = ld4(row), b = ld4(row + 32);
+    v[r][0] += a.x;
+    v[r][1] += a.y;
+    v[r][2] += a.z;
+    v[r][3] += a.w;
+    v[r][4] += b.x;
+    v[r][5] += b.y;
+    v[r][6] += b.z;
+    v[r][7] += b.w;
+  }
+}
+
+// One 16-byte word of T as float32 (bf16 widened exactly).
+__device__ __forceinline__ void load_word(const float* p, float (&v)[4]) {
+  put4(v, *reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void load_word(const __nv_bfloat16* p,
+                                          float (&v)[8]) {
+  load8(p, v);
+}
+
+// Sum over the 8 lanes of a quarter warp (lane bits 0..2), in a fixed
+// order; every lane holds the sum.
+__device__ __forceinline__ float quarter_sum(float v) {
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) v += __shfl_xor_sync(FULL, v, off);
   return v;
 }
+// Sum over the 4 lanes of one lane % 8 (lane bits 3..4).
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 8);
+  return v + __shfl_xor_sync(FULL, v, 16);
+}
 
-// One block of 256 threads per (batch, head), the tiles in reverse, the
-// gradient of the state at the tile's end (dS) carried in shared memory.
-// Thread (mg, ng) = (tid / 16, tid % 16) owns rows mg + 16r and columns
-// ng + 16c of each product: odd pitches keep every shared read of a warp
-// on distinct banks (or one broadcast word) whichever axis is the row.
+// Warp 0: tile scalars at sc (cum, dt, dt·exp(cum_last − cum), exp(cum),
+// exp(cum_last − cum) per position, then exp(cum_last)), as the forward
+// computes them (dt 0 past the tile).
+__device__ __forceinline__ void tile_scalars(const float* dt, int64_t sds,
+                                             float A, int t0, int qv,
+                                             int lane, float* sc) {
+  float d[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int j = 4 * lane + e;
+    d[e] = j < qv ? dt[(int64_t)(t0 + j) * sds] : 0.f;
+  }
+  float* cum = sc;
+  scan_dt(d, A, lane, cum, sc + QT, sc + 2 * QT, sc + 3 * QT, sc + 5 * QT);
+  __syncwarp();
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    sc[4 * QT + 4 * lane + e] = expf(cum[QT - 1] - cum[4 * lane + e]);
+}
+
+// Rows [0, QT) of a (rows, P) matrix of T (rows rs elements apart,
+// contiguous) into dst[row][p] (rows of PM floats), widened, times
+// scale[row] if given, zero at rows ≥ valid and columns ≥ P.  With vec (P a
+// whole number of 16-byte words, rows 16-byte aligned) a thread moves 16
+// bytes a step, threads along the row.
 template <typename T>
-__global__ void __launch_bounds__(BT, 1) ssd_scan_bwd_kernel(BwdArgs a) {
-  using L = Layout<T>;
-  extern __shared__ __align__(16) float bsm[];
-  float* xs = bsm;                          // x[j][p]
-  float* dys = xs + QT * XP;                // dy[i][p]
-  float* Mt = dys + QT * XP;                // M[i][j] at [j][i]; then C'[i][n]
-  float* dSs = Mt + QT * MP;                // dS[p][n]
-  float* S0s = dSs + PM * SP;               // S0[p][n]
-  float* rowpart = S0s + PM * SP;           // [mg][i]
-  float* cum = rowpart + 16 * QT;
-  float* dts = cum + QT;
-  float* wts = dts + QT;                    // dt_j·exp(cum_last − cum_j)
-  float* ecum = wts + QT;                   // exp(cum_i)
-  float* dte = ecum + QT;                   // exp(cum_last − cum_j)
-  float* dcum = dte + QT;                   // intra terms of ∂/∂cum
-  float* dci = dcum + QT;                   // inter term
-  float* sj = dci + QT;                     // state terms, per j
-  float* xg = sj + QT;                      // x_j·g_j
-  float* red = xg + QT;                     // [0, 8) warp sums, [8]
-                                            // exp(cum_last), [9] ⟨dS, S0⟩
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int mg = tid >> 4, ng = tid & 15;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const T* x = static_cast<const T*>(a.x) + b * a.sxb + h * a.sxh;
-  const T* dy = static_cast<const T*>(a.dy) + b * a.syb + h * a.syh;
-  const float* dt = a.dt + b * a.sdb + h * a.sdh;
-  const T* Cg = static_cast<const T*>(a.C) + b * a.scb;
-  T* dx = static_cast<T*>(a.dx) + b * a.sgb + h * a.sgh;
-  float* ddt = a.ddt + b * a.stb + h * a.sth;
-  const float A = a.A[h];
-
-  for (int e = tid; e < PM * SP; e += BT) {
-    const int p = e / SP, n = e % SP;
-    dSs[e] = (a.dstate && p < a.P && n < a.N)
-                 ? a.dstate[((int64_t)bh * a.P + p) * a.N + n]
-                 : 0.f;
-  }
-  float dA_acc = 0.f;                       // warp 0: Σ da·dt, this lane's
-
-  for (int k = a.ntiles - 1; k >= 0; --k) {
-    const int t0 = k * a.tile, qv = min(a.tile, a.S - t0);
-    const float* tscr = reinterpret_cast<const float*>(
-        a.scratch + ((int64_t)b * a.ntiles + k) * L::TILE_BYTES);
-    const float* CBt = tscr;                             // [j][i]
-    const float* Bf = tscr + L::OFF_BF / 4;              // [j][n]
-    const int64_t tb = ((int64_t)bh * a.ntiles + k);
-
-    // stage x, dy (widened, zero past the tile and past P) and S0
+__device__ __forceinline__ void stage_nat(float* dst, const T* src, int64_t rs,
+                                          int valid, int P,
+                                          const float* scale, bool vec,
+                                          int tid) {
+  constexpr int V = 16 / sizeof(T), W = PM / V;
+  if (vec) {
+    for (int e = tid; e < QT * W; e += BT) {
+      const int r = e / W, p = (e % W) * V;
+      float v[V];
+      if (r < valid && p < P) {
+        load_word(src + r * rs + p, v);
+        const float s = scale ? scale[r] : 1.f;
+#pragma unroll
+        for (int q = 0; q < V; ++q) v[q] *= s;
+      } else {
+#pragma unroll
+        for (int q = 0; q < V; ++q) v[q] = 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < V; q += 4)
+        *reinterpret_cast<float4*>(dst + r * PM + p + q) =
+            make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+    }
+  } else {
     for (int e = tid; e < QT * PM; e += BT) {
-      const int j = e / PM, p = e % PM;
-      const bool ok = j < qv && p < a.P;
-      xs[j * XP + p] = ok ? to_f32(x[(int64_t)(t0 + j) * a.sxs + p]) : 0.f;
-      dys[j * XP + p] = ok ? to_f32(dy[(int64_t)(t0 + j) * a.sys + p]) : 0.f;
+      const int r = e / PM, p = e % PM;
+      float v = 0.f;
+      if (r < valid && p < P) {
+        v = to_f32(src[r * rs + p]);
+        if (scale) v *= scale[r];
+      }
+      dst[e] = v;
     }
-    const float* s0 = a.starts + tb * a.P * a.N;
-    for (int e = tid; e < PM * NM; e += BT) {
-      const int p = e / NM, n = e % NM;
-      S0s[p * SP + n] = (p < a.P && n < a.N) ? s0[p * a.N + n] : 0.f;
-    }
-    if (warp == 0) {                        // the forward's log-decays
-      float d[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 4 * lane + e;
-        d[e] = j < qv ? dt[(int64_t)(t0 + j) * a.sds] : 0.f;
-      }
-      scan_dt(d, A, lane, cum, dts, wts, ecum, red + 8);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dte[4 * lane + e] = expf(cum[QT - 1] - cum[4 * lane + e]);
-    }
-    __syncthreads();
-
-    // dP[j][i] = dt_j·(x_j·dy_i); M = C·Bᵀ∘L; the per-head (dP∘L) out;
-    // t = dP∘M summed along both axes: ∂/∂cum_i += Σ_j t, ∂/∂cum_j −= Σ_i t
-    {
-      float acc[8][8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-      for (int p = 0; p < PM; ++p) {
-        float av[8], bv[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) av[r] = xs[(mg + 16 * r) * XP + p];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) bv[c] = dys[(ng + 16 * c) * XP + p];
-        fma8x8(acc, av, bv);
-      }
-      float* dcb = a.dcb + tb * QT * QT;
-      float rows[8], cols[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) rows[c] = 0.f;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int j = mg + 16 * r;
-        const float cj = cum[j], dj = dts[j];
-        cols[r] = 0.f;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int i = ng + 16 * c;
-          const bool ok = j <= i && i < qv;
-          // select before exp: above the diagonal exp may be inf
-          const float l = ok ? expf(cum[i] - cj) : 0.f;
-          const float m = CBt[j * QT + i] * l;
-          const float dp = acc[r][c] * dj;
-          Mt[j * MP + i] = m;
-          dcb[j * QT + i] = dp * l;
-          const float t = dp * m;
-          rows[c] += t;
-          cols[r] += t;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float v = half_warp_sum(cols[r]);
-        if (ng == 0) dcum[mg + 16 * r] = -v;
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c) rowpart[mg * QT + ng + 16 * c] = rows[c];
-    }
-    __syncthreads();
-    if (tid < QT) {
-      float s = 0.f;
-      for (int m = 0; m < 16; ++m) s += rowpart[m * QT + tid];
-      dcum[tid] += s;
-    }
-
-    // g[j][p] = Σ_i M[i][j] dy[i][p] + exp(cum_last − cum_j) Σ_n B[j][n]
-    // dS[p][n];  dx = dt·g, x·g
-    {
-      float acc[8][4], st[8][4];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = st[r][c] = 0.f;
-#pragma unroll 4
-      for (int i = 0; i < QT; ++i) {
-        float av[8], bv[4];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) av[r] = Mt[(mg + 16 * r) * MP + i];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = dys[i * XP + ng + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-      }
-      for (int n = 0; n < NM; n += 4) {
-        float4 bv4[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-          bv4[r] = ld4(Bf + (mg + 16 * r) * NM + n);
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn) {
-          float dv[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) dv[c] = dSs[(ng + 16 * c) * SP + n + nn];
-#pragma unroll
-          for (int r = 0; r < 8; ++r) {
-            const float bb = nn == 0 ? bv4[r].x : nn == 1 ? bv4[r].y
-                           : nn == 2 ? bv4[r].z : bv4[r].w;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) st[r][c] = fmaf(bb, dv[c], st[r][c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int j = mg + 16 * r;
-        const float dj = dts[j], ej = dte[j];
-        float part = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int p = ng + 16 * c;
-          const float g = acc[r][c] + ej * st[r][c];
-          if (j < qv && p < a.P)
-            from_f32(dx + (int64_t)(t0 + j) * a.sgs + p, dj * g);
-          part = fmaf(xs[j * XP + p], g, part);
-        }
-        part = half_warp_sum(part);
-        if (ng == 0) xg[j] = part;
-      }
-    }
-
-    // dC inter part [i][n] = exp(cum_i) Σ_p dy[i][p] S0[p][n], and its
-    // ∂/∂cum_i = Σ_n (that)·C[i][n]
-    {
-      float acc[8][8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-      for (int p = 0; p < PM; ++p) {
-        float av[8], bv[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) av[r] = dys[(mg + 16 * r) * XP + p];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) bv[c] = S0s[p * SP + ng + 16 * c];
-        fma8x8(acc, av, bv);
-      }
-      float* dcp = a.dcp + tb * QT * NM;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int i = mg + 16 * r;
-        const float ei = ecum[i];
-        float part = 0.f;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int n = ng + 16 * c;
-          const float v = ei * acc[r][c];
-          dcp[i * NM + n] = v;
-          if (i < qv && n < a.N)
-            part = fmaf(v, to_f32(Cg[(int64_t)(t0 + i) * a.scs + n]), part);
-        }
-        part = half_warp_sum(part);
-        if (ng == 0) dci[i] = part;
-      }
-    }
-
-    // dB state part [j][n] = dt_j exp(cum_last − cum_j) Σ_p x[j][p] dS[p][n],
-    // and its Σ_n (that)·B[j][n]
-    {
-      float acc[8][8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-      for (int p = 0; p < PM; ++p) {
-        float av[8], bv[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) av[r] = xs[(mg + 16 * r) * XP + p];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) bv[c] = dSs[p * SP + ng + 16 * c];
-        fma8x8(acc, av, bv);
-      }
-      float* dbp = a.dbp + tb * QT * NM;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int j = mg + 16 * r;
-        const float wj = wts[j];
-        float part = 0.f;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int n = ng + 16 * c;
-          const float v = wj * acc[r][c];
-          dbp[j * NM + n] = v;
-          part = fmaf(v, Bf[j * NM + n], part);
-        }
-        part = half_warp_sum(part);
-        if (ng == 0) sj[j] = part;
-      }
-    }
-
-    // ⟨dS, S0⟩ (the state term's ∂/∂cum_last, times exp(cum_last))
-    {
-      float s = 0.f;
-      for (int e = tid; e < PM * NM; e += BT) {
-        const int p = e / NM, n = e % NM;
-        s = fmaf(dSs[p * SP + n], S0s[p * SP + n], s);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
-      if (lane == 0) red[warp] = s;
-    }
-    __syncthreads();
-
-    // C'[i][n] = exp(cum_i)·C[i][n] over M (done with M)
-    float* Cp = Mt;
-    for (int e = tid; e < QT * NM; e += BT) {
-      const int i = e / NM, n = e % NM;
-      Cp[i * MP + n] = (i < qv && n < a.N)
-                           ? ecum[i] * to_f32(Cg[(int64_t)(t0 + i) * a.scs + n])
-                           : 0.f;
-    }
-    if (tid == 0) {
-      float s = 0.f;
-      for (int w = 0; w < BT / 32; ++w) s += red[w];
-      red[9] = s;
-    }
-    __syncthreads();
-
-    // the carry: dS ← exp(cum_last)·dS + Σ_i dy[i][p] C'[i][n]
-    {
-      float acc[4][8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-      for (int i = 0; i < QT; ++i) {
-        float av[4], bv[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) av[r] = dys[i * XP + mg + 16 * r];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) bv[c] = Cp[i * MP + ng + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-      }
-      const float dec = red[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          float* s = &dSs[(mg + 16 * r) * SP + ng + 16 * c];
-          *s = fmaf(dec, *s, acc[r][c]);
-        }
-    }
-
-    // warp 0: ∂/∂cum → da (reverse cumulative sum) → ddt, dA
-    if (warp == 0) {
-      float ts = 0.f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ts += sj[4 * lane + e];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ts += __shfl_xor_sync(FULL, ts, off);
-      ts = __shfl_sync(FULL, ts, 0);
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 4 * lane + e;
-        v[e] = dcum[j] + dci[j] - sj[j];
-        if (j == qv - 1) v[e] += ts + red[8] * red[9];
-      }
-      v[2] += v[3];
-      v[1] += v[2];
-      v[0] += v[1];
-      float tot = v[0];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_down_sync(FULL, tot, off);
-        if (lane + off < 32) tot += t;
-      }
-      const float after = __shfl_down_sync(FULL, tot, 1);
-      const float excl = lane == 31 ? 0.f : after;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 4 * lane + e;
-        const float da = v[e] + excl;
-        if (j < qv) ddt[(int64_t)(t0 + j) * a.sts] = fmaf(da, A, xg[j]);
-        dA_acc = fmaf(da, dts[j], dA_acc);
-      }
-    }
-    __syncthreads();
-  }
-  if (warp == 0) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      dA_acc += __shfl_xor_sync(FULL, dA_acc, off);
-    if (lane == 0) a.dap[bh] = dA_acc;
   }
 }
 
-// Block (quarter, tile, batch): rows i0 = 32·quarter .. + 31 of the tile.
-// Sums the heads' parts in head order, then
-//   dC[i][n] = Σ_h dcp + Σ_j (Σ_h dcb[j][i]) B[j][n]
-//   dB[j][n] = Σ_h dbp + Σ_i (Σ_h dcb[j][i]) C[i][n]
-// and block (0, 0, 0) adds dA[h] = Σ_b dap[b][h] in batch order.
+// Columns [p0, p0 + PH) of the same matrix transposed: dst[pp][row] (rows of
+// QT floats) = src[row][p0 + pp]; threads along the rows, so the stores are
+// conflict-free.
 template <typename T>
-__global__ void __launch_bounds__(BT) ssd_scan_bwd_reduce_kernel(BwdArgs a) {
+__device__ __forceinline__ void stage_t(float* dst, const T* src, int64_t rs,
+                                        int valid, int P, int p0, bool vec,
+                                        int tid) {
+  constexpr int V = 16 / sizeof(T), W = PH / V;
+  if (vec) {
+    for (int e = tid; e < QT * W; e += BT) {
+      const int r = e % QT, pp = (e / QT) * V, p = p0 + pp;
+      float v[V];
+      if (r < valid && p < P) {
+        load_word(src + r * rs + p, v);
+      } else {
+#pragma unroll
+        for (int q = 0; q < V; ++q) v[q] = 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < V; ++q) dst[(pp + q) * QT + r] = v[q];
+    }
+  } else {
+    for (int e = tid; e < QT * PH; e += BT) {
+      const int r = e % QT, pp = e / QT, p = p0 + pp;
+      dst[pp * QT + r] = (r < valid && p < P) ? to_f32(src[r * rs + p]) : 0.f;
+    }
+  }
+}
+
+// Rows [p0, p0 + np) of a (P, N) float32 state into dst[pp][n] (rows of NM
+// floats), zero padded; vec: N % 4 == 0.
+__device__ __forceinline__ void stage_state(float* dst, const float* src,
+                                            int P, int N, int p0, int np,
+                                            bool vec, int tid) {
+  if (vec) {
+    for (int e = tid; e < np * (NM / 4); e += BT) {
+      const int pp = e / (NM / 4), n = (e % (NM / 4)) * 4, p = p0 + pp;
+      const float4 v = (p < P && n < N) ? ld4(src + (int64_t)p * N + n)
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dst + pp * NM + n) = v;
+    }
+  } else {
+    for (int e = tid; e < np * NM; e += BT) {
+      const int pp = e / NM, n = e % NM, p = p0 + pp;
+      dst[e] = (p < P && n < N) ? src[(int64_t)p * N + n] : 0.f;
+    }
+  }
+}
+
+// The whole state transposed: dst[n][p] (rows of PM floats).
+__device__ __forceinline__ void stage_state_t(float* dst, const float* src,
+                                              int P, int N, bool vec,
+                                              int tid) {
+  if (vec) {
+    for (int e = tid; e < PM * (NM / 4); e += BT) {
+      const int p = e % PM, n = (e / PM) * 4;
+      const float4 v = (p < P && n < N) ? ld4(src + (int64_t)p * N + n)
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      dst[(n + 0) * PM + p] = v.x;
+      dst[(n + 1) * PM + p] = v.y;
+      dst[(n + 2) * PM + p] = v.z;
+      dst[(n + 3) * PM + p] = v.w;
+    }
+  } else {
+    for (int e = tid; e < PM * NM; e += BT) {
+      const int p = e % PM, n = e / PM;
+      dst[n * PM + p] = (p < P && n < N) ? src[(int64_t)p * N + n] : 0.f;
+    }
+  }
+}
+
+// A 128 × 128 float32 tile of the scratch transposed: dst[c][r] = src[r][c].
+__device__ __forceinline__ void stage_scr_t(float* dst, const float* src,
+                                            int tid) {
+  for (int e = tid; e < QT * (QT / 4); e += BT) {
+    const int r = e % QT, c = (e / QT) * 4;
+    const float4 v = ld4(src + r * QT + c);
+    dst[(c + 0) * QT + r] = v.x;
+    dst[(c + 1) * QT + r] = v.y;
+    dst[(c + 2) * QT + r] = v.z;
+    dst[(c + 3) * QT + r] = v.w;
+  }
+}
+
+// M[i][j] = C_i·B_j·exp(cum_i − cum_j) for j ≤ i < qv, else 0, from the
+// scratch's C·Bᵀ transposed (CBt[j][i]); the select comes before the exp
+// (above the diagonal it may be inf).
+__device__ __forceinline__ void stage_m(float* M, const float* CBt,
+                                        const float* cum, int qv, int tid) {
+  for (int e = tid; e < QT * (QT / 4); e += BT) {
+    const int j = e % QT, i0 = (e / QT) * 4;
+    float v[4];
+    put4(v, ld4(CBt + j * QT + i0));
+    const float cj = cum[j];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + q;
+      const float l = (j <= i && i < qv) ? expf(cum[i] - cj) : 0.f;
+      M[i * QT + j] = v[q] * l;
+    }
+  }
+}
+
+// Launch 2: block (head, tile k ≥ 1, batch) writes U_k[p][n] = Σ_i
+// exp(cum_i) dy[i][p] C[i][n] into the state-gradient slot of tile k − 1
+// (the carry adds the rest there) and exp(cum_last) of tile k.  Warps 0–3
+// sum the even slabs of i, warps 4–7 the odd ones, each a 32 × 64 tile of
+// the (P, N) product; the halves are added once, in order.
+template <typename T>
+__global__ void __launch_bounds__(BT, 2)
+    ssd_scan_bwd_states_kernel(BwdArgs a) {
+  using L = Layout<T>;
+  extern __shared__ __align__(16) float bsm[];
+  float* At = bsm;                          // [i][p] exp(cum_i)·dy
+  float* Bt = At + QT * PM;                 // [i][n] C
+  float* sc = bsm + QT * QT + QT * PM;      // scalars
+  float* red = At;                          // [p][n] the odd slabs' sums
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = blockIdx.x, k = blockIdx.y + 1, b = blockIdx.z;
+  const int t0 = k * a.tile, qv = min(a.tile, a.S - t0);
+  const float* tscr = reinterpret_cast<const float*>(
+      a.scratch + ((int64_t)b * a.ntiles + k) * L::TILE_BYTES);
+  const int64_t tb = ((int64_t)b * a.H + h) * a.ntiles + k;
+
+  if (warp == 0)
+    tile_scalars(a.dt + b * a.sdb + h * a.sdh, a.sds, a.A[h], t0, qv, lane,
+                 sc);
+  stage_scr_t(Bt, tscr + L::OFF_CT / 4, tid);
+  __syncthreads();
+  stage_nat(At, static_cast<const T*>(a.dy) + b * a.syb + h * a.syh +
+                    (int64_t)t0 * a.sys,
+            a.sys, qv, a.P, sc + 3 * QT, a.vec_dy, tid);
+  __syncthreads();
+
+  const int hk = warp >> 2, wr = (warp >> 1) & 1, wc = warp & 1;
+  const int m0 = 32 * wr + 4 * (lane >> 3), n0 = 64 * wc + 4 * (lane & 7);
+  float acc[8][8];
+  zero8x8(acc);
+  if (32 * wr < a.P) outer<PM, NM>(acc, At, Bt, m0, n0, hk, (qv + SL - 1) / SL, 2);
+  __syncthreads();
+  if (hk) tile_store<NM>(red, acc, m0, n0);
+  __syncthreads();
+  if (!hk) {
+    tile_add<NM>(acc, red, m0, n0);
+    float* u = a.dsend + (tb - 1) * a.P * a.N;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int p = trow(m0, r);
+      if (p >= a.P) continue;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int n = tcol(n0, c);
+        if (n < a.N) u[(int64_t)p * a.N + n] = acc[r][c];
+      }
+    }
+  }
+  if (tid == 0) a.decay[tb] = sc[5 * QT];
+}
+
+// Launch 3: block (element chunk, batch·H + head) walks the tiles in
+// reverse for BT elements of the state: slot k receives dS at tile k's end
+// (d_state for the last), then r ← exp(cum_last,k)·r + U_k from slot k − 1.
+__global__ void __launch_bounds__(BT) ssd_scan_bwd_carry_kernel(BwdArgs a) {
+  const int64_t pn = (int64_t)a.P * a.N;
+  const int64_t e = (int64_t)blockIdx.x * BT + threadIdx.x;
+  if (e >= pn) return;
+  const int64_t bh = blockIdx.y;
+  float r = a.dstate ? a.dstate[bh * pn + e] : 0.f;
+  float* d = a.dsend + bh * a.ntiles * pn + e;
+  const float* dec = a.decay + bh * a.ntiles;
+  for (int k = a.ntiles - 1; k >= 0; --k) {
+    const float u = k ? d[(k - 1) * pn] : 0.f;
+    d[k * pn] = r;
+    if (k) r = fmaf(dec[k], r, u);
+  }
+}
+
+// A group block (role, batch, tile, group of HG heads): for each head, the
+// (q × q) or (q × N) product over p, in two halves of P staged transposed,
+// into a register tile; then the role's epilogue adds the head's term into
+// the group's sum, kept in shared memory (each thread its own tile), and
+// writes the head's per-position vector:
+//   role 0: G[j][i] = x_j·dy_i → Σ_h dt_j G L [j][i]; R_i, Q'_j;
+//   role 1: dy·S0 [i][n] → Σ_h exp(cum_i)·(dy·S0) (dC inter); dci_i;
+//   role 2: x·dS [j][n] → Σ_h dt_j exp(cum_last − cum_j)·(x·dS) (dB state);
+//           s'_j.
+// Warps: 4 row quarters × 2 column halves of the 128 × 128 tile; a warp
+// whose rows lie past the tile, or (role 0) whose columns lie wholly above
+// its rows, computes nothing.
+template <typename T>
+__device__ __forceinline__ void group_block(const BwdArgs& a, float* sm,
+                                            int role, int b, int k, int g) {
+  using L = Layout<T>;
+  float* gsum = sm;                         // [m][n] the group's sum
+  float* At = gsum + QT * QT;               // [pp][m]
+  float* Bt = At + PH * QT;                 // [pp][n]
+  float* sc = sm + QT * QT + QT * PM;
+  float* red = At;                          // per-head sums across warps
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp >> 1, wc = warp & 1;
+  const int m0 = 32 * wr + 4 * (lane >> 3), n0 = 64 * wc + 4 * (lane & 7);
+  const int t0 = k * a.tile, qv = min(a.tile, a.S - t0);
+  const bool active =
+      32 * wr < qv && (role != 0 || (64 * wc + 63 >= 32 * wr && 64 * wc < qv));
+  const float* tscr = reinterpret_cast<const float*>(
+      a.scratch + ((int64_t)b * a.ntiles + k) * L::TILE_BYTES);
+  const int64_t pn = (int64_t)a.P * a.N;
+  const int h0 = g * HG, h1 = min(a.H, h0 + HG);
+  const float* cum = sc;
+  const float* dts = sc + QT;
+  const float* wts = sc + 2 * QT;
+  const float* ecum = sc + 3 * QT;
+  const float* dte = sc + 4 * QT;
+
+  for (int h = h0; h < h1; ++h) {
+    const T* x = static_cast<const T*>(a.x) + b * a.sxb + h * a.sxh +
+                 (int64_t)t0 * a.sxs;
+    const T* dy = static_cast<const T*>(a.dy) + b * a.syb + h * a.syh +
+                  (int64_t)t0 * a.sys;
+    const int64_t tb = ((int64_t)b * a.H + h) * a.ntiles + k;
+    float tmp[8][8];
+    zero8x8(tmp);
+    for (int p0 = 0; p0 < a.P; p0 += PH) {
+      __syncthreads();         // the last readers of At, Bt (red) are done
+      if (p0 == 0 && warp == 0)
+        tile_scalars(a.dt + b * a.sdb + h * a.sdh, a.sds, a.A[h], t0, qv,
+                     lane, sc);
+      if (role == 0) {
+        stage_t(At, x, a.sxs, qv, a.P, p0, a.vec_x, tid);
+        stage_t(Bt, dy, a.sys, qv, a.P, p0, a.vec_dy, tid);
+      } else {
+        stage_t(At, role == 1 ? dy : x, role == 1 ? a.sys : a.sxs, qv, a.P,
+                p0, role == 1 ? a.vec_dy : a.vec_x, tid);
+        stage_state(Bt, (role == 1 ? a.starts : a.dsend) + tb * pn, a.P, a.N,
+                    p0, PH, a.vec_s, tid);
+      }
+      __syncthreads();
+      if (active)
+        outer<QT, NM>(tmp, At, Bt, m0, n0, 0,
+                      (min(PH, a.P - p0) + SL - 1) / SL, 1);
+    }
+    __syncthreads();           // the products are done with At (red)
+    const bool first = h == h0;
+    if (role == 0) {
+      float* red_r = red;                   // [wr][i]
+      float* red_q = red + 4 * QT;          // [wc][j]
+      float cs[8];             // R of this thread's columns
+#pragma unroll
+      for (int c = 0; c < 8; ++c) cs[c] = 0.f;
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int j = trow(m0, r);
+          const float cj = cum[j], dj = dts[j];
+          const float* cbt = tscr + j * QT + n0;
+          float4* s0 = reinterpret_cast<float4*>(gsum + j * QT + n0);
+          float rs = 0.f;      // Q'_j, this thread's columns
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float cb[4], dp[4];
+            put4(cb, ld4(cbt + 32 * hf));
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int c = 4 * hf + q, i = tcol(n0, c);
+              // select before exp: above the diagonal exp may be inf
+              const float l = (j <= i && i < qv) ? expf(cum[i] - cj) : 0.f;
+              const float gl = tmp[r][c] * l;
+              const float t = gl * cb[q];
+              dp[q] = gl * dj;
+              rs += t;
+              cs[c] = fmaf(dj, t, cs[c]);
+            }
+            float4* sp = s0 + 8 * hf;
+            float4 o = first ? make_float4(0.f, 0.f, 0.f, 0.f) : *sp;
+            o.x += dp[0];
+            o.y += dp[1];
+            o.z += dp[2];
+            o.w += dp[3];
+            *sp = o;
+          }
+          rs = quarter_sum(rs);
+          if ((lane & 7) == 0) red_q[wc * QT + j] = rs;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if ((lane & 7) == 0) red_q[wc * QT + trow(m0, r)] = 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float v = column_sum(cs[c]);
+        if (lane < 8) red_r[wr * QT + tcol(n0, c)] = v;
+      }
+      __syncthreads();
+      if (tid < QT) {
+        float* v = a.vec + tb * 4 * QT;
+        v[tid] = ((red_r[tid] + red_r[QT + tid]) + red_r[2 * QT + tid]) +
+                 red_r[3 * QT + tid];
+        v[QT + tid] = red_q[tid] + red_q[QT + tid];
+      }
+    } else {
+      // role 1: dci_i = exp(cum_i)·Σ_n (dy·S0)[i][n] C[i][n], and
+      //         exp(cum_i)·(dy·S0) into the sum;
+      // role 2: s'_j = exp(cum_last − cum_j)·Σ_n (x·dS)[j][n] B[j][n], and
+      //         dt_j exp(cum_last − cum_j)·(x·dS) into the sum
+      float rs[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) rs[r] = 0.f;
+      if (active) {
+        if (role == 1) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const float* ct = tscr + L::OFF_CT / 4 + tcol(n0, c) * QT + m0;
+            float cv[8];
+            put4(cv, ld4(ct));
+            put4(cv + 4, ld4(ct + 16));
+#pragma unroll
+            for (int r = 0; r < 8; ++r) rs[r] = fmaf(tmp[r][c], cv[r], rs[r]);
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float* bf = tscr + L::OFF_BF / 4 + trow(m0, r) * NM + n0;
+            float bv[8];
+            put4(bv, ld4(bf));
+            put4(bv + 4, ld4(bf + 32));
+#pragma unroll
+            for (int c = 0; c < 8; ++c) rs[r] = fmaf(tmp[r][c], bv[c], rs[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int m = trow(m0, r);
+          rs[r] *= role == 1 ? ecum[m] : dte[m];
+          const float w = role == 1 ? ecum[m] : wts[m];
+          float4* s0 = reinterpret_cast<float4*>(gsum + m * QT + n0);
+          float4* s1 = reinterpret_cast<float4*>(gsum + m * QT + n0 + 32);
+          float4 o0 = first ? make_float4(0.f, 0.f, 0.f, 0.f) : *s0;
+          float4 o1 = first ? make_float4(0.f, 0.f, 0.f, 0.f) : *s1;
+          o0.x = fmaf(w, tmp[r][0], o0.x);
+          o0.y = fmaf(w, tmp[r][1], o0.y);
+          o0.z = fmaf(w, tmp[r][2], o0.z);
+          o0.w = fmaf(w, tmp[r][3], o0.w);
+          o1.x = fmaf(w, tmp[r][4], o1.x);
+          o1.y = fmaf(w, tmp[r][5], o1.y);
+          o1.z = fmaf(w, tmp[r][6], o1.z);
+          o1.w = fmaf(w, tmp[r][7], o1.w);
+          *s0 = o0;
+          *s1 = o1;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float v = quarter_sum(rs[r]);
+        if ((lane & 7) == 0) red[wc * QT + trow(m0, r)] = v;
+      }
+      __syncthreads();
+      if (tid < QT)
+        a.vec[(tb * 4 + (role == 1 ? 2 : 3)) * QT + tid] =
+            red[tid] + red[QT + tid];
+    }
+  }
+  // the group's sum out once (zeros where no warp wrote)
+  float* out = a.part +
+               ((((int64_t)b * a.ntiles + k) * a.groups + g) * 3 + role) *
+                   QT * QT;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int m = trow(m0, r);
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 v0 = active ? ld4(gsum + m * QT + n0) : z;
+    const float4 v1 = active ? ld4(gsum + m * QT + n0 + 32) : z;
+    *reinterpret_cast<float4*>(out + m * QT + n0) = v0;
+    *reinterpret_cast<float4*>(out + m * QT + n0 + 32) = v1;
+  }
+}
+
+// 4 consecutive outputs of T (dx), 16-byte (float32) or 8-byte (bf16)
+// aligned.
+__device__ __forceinline__ void store4(float* o, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(o) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float a, float b,
+                                       float c, float d) {
+  *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16(a, b), pack_bf16(c, d));
+}
+
+// A g block (batch, tile, head): g = exp(cum_last − cum_j)·(B dSᵀ)_j (sum
+// over n) + Σ_{i≥j} M_ij dy_i (sum over i ≥ the warp's first row), each
+// split between the block's halves; dx = dt·g; and ex = exp(cum_last)·⟨dS,
+// S0⟩.  Warps 0–3 and 4–7: the row quarters of the (q × P) tile.
+template <typename T>
+__device__ __forceinline__ void g_block(const BwdArgs& a, float* sm, int b,
+                                        int k, int h) {
+  using L = Layout<T>;
+  float* R0 = sm;                           // [n][j] Bᵀ, then [i][j] M
+  float* R1 = sm + QT * QT;                 // [n][p] dSᵀ, then [i][p] dy
+  float* sc = sm + QT * QT + QT * PM;
+  float* red = R0;                          // [j][p] the odd slabs' sums
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hk = warp >> 2, wr = warp & 3;
+  const int m0 = 32 * wr + 4 * (lane >> 3), n0 = 4 * (lane & 7);
+  const int t0 = k * a.tile, qv = min(a.tile, a.S - t0);
+  const float* tscr = reinterpret_cast<const float*>(
+      a.scratch + ((int64_t)b * a.ntiles + k) * L::TILE_BYTES);
+  const int64_t tb = ((int64_t)b * a.H + h) * a.ntiles + k;
+  const int64_t pn = (int64_t)a.P * a.N;
+  const float* ds = a.dsend + tb * pn;
+  const float* s0 = a.starts + tb * pn;
+  const bool rows = 32 * wr < qv;
+
+  if (warp == 0)
+    tile_scalars(a.dt + b * a.sdb + h * a.sdh, a.sds, a.A[h], t0, qv, lane,
+                 sc);
+  stage_scr_t(R0, tscr + L::OFF_BF / 4, tid);
+  stage_state_t(R1, ds, a.P, a.N, a.vec_s, tid);
+  float dd = 0.f;                           // ⟨dS, S0⟩, this thread's part
+  if (a.vec_s) {
+    for (int64_t e = 4 * tid; e < pn; e += 4 * BT)
+      dd = dot4(ld4(ds + e), ld4(s0 + e), dd);
+  } else {
+    for (int64_t e = tid; e < pn; e += BT) dd = fmaf(ds[e], s0[e], dd);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) dd += __shfl_xor_sync(FULL, dd, off);
+  if (lane == 0) sc[5 * QT + 8 + warp] = dd;
+  __syncthreads();
+
+  float acc[8][8];
+  zero8x8(acc);
+  if (rows) outer<QT, PM>(acc, R0, R1, m0, n0, hk, (a.N + SL - 1) / SL, 2);
+  __syncthreads();
+  if (hk) tile_store<PM>(red, acc, m0, n0);
+  __syncthreads();
+  if (hk) {
+    zero8x8(acc);
+  } else {
+    tile_add<PM>(acc, red, m0, n0);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float e = sc[4 * QT + trow(m0, r)];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] *= e;
+    }
+  }
+  __syncthreads();             // done with R0 (red) and R1
+  stage_m(R0, tscr, sc, qv, tid);
+  stage_nat(R1, static_cast<const T*>(a.dy) + b * a.syb + h * a.syh +
+                    (int64_t)t0 * a.sys,
+            a.sys, qv, a.P, static_cast<const float*>(nullptr), a.vec_dy,
+            tid);
+  __syncthreads();
+  if (rows)
+    outer<QT, PM>(acc, R0, R1, m0, n0, 4 * wr + hk, (qv + SL - 1) / SL, 2);
+  __syncthreads();
+  if (hk) tile_store<PM>(red, acc, m0, n0);
+  __syncthreads();
+  if (!hk) {
+    tile_add<PM>(acc, red, m0, n0);
+    T* dx = static_cast<T*>(a.dx) + b * a.sgb + h * a.sgh +
+            (int64_t)t0 * a.sgs;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int j = trow(m0, r);
+      if (j >= qv) continue;
+      const float dj = sc[QT + j];
+      T* row = dx + (int64_t)j * a.sgs;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = n0 + 32 * half;
+        const float* g = acc[r] + 4 * half;
+        if (a.vec_dx) {
+          if (p < a.P)
+            store4(row + p, dj * g[0], dj * g[1], dj * g[2], dj * g[3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (p + q < a.P) from_f32(row + p + q, dj * g[q]);
+        }
+      }
+    }
+  }
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < BT / 32; ++w) s += sc[5 * QT + 8 + w];
+    a.ex[tb] = sc[5 * QT] * s;
+  }
+}
+
+// Launch 4: the group blocks first (role fastest, then group, tile,
+// batch), then the g blocks (head fastest).
+template <typename T>
+__global__ void __launch_bounds__(BT, 2)
+    ssd_scan_bwd_main_kernel(BwdArgs a, int batch) {
+  extern __shared__ __align__(16) float bsm[];
+  const int ngb = 3 * batch * a.ntiles * a.groups;
+  const int idx = blockIdx.x;
+  if (idx < ngb) {
+    const int role = idx % 3, rest = idx / 3;
+    const int g = rest % a.groups, bk = rest / a.groups;
+    group_block<T>(a, bsm, role, bk / a.ntiles, bk % a.ntiles, g);
+  } else {
+    const int i = idx - ngb, h = i % a.H, bk = i / a.H;
+    g_block<T>(a, bsm, bk / a.ntiles, bk % a.ntiles, h);
+  }
+}
+
+// Launch 5, one head's ddt and dA (block h < H): warp w
+// takes the (batch, tile) items w, w + 8, ..: ∂/∂cum_j = R_j + dci_j −
+// dt_j·(Q'_j + s'_j), plus Σ_j dt_j s'_j + exp(cum_last)·⟨dS, S0⟩ at the
+// last position; its reverse cumulative sum da; ddt = x·g + A·da; dA sums
+// da·dt over the warp's items in order, then over the warps in order.
+__device__ __forceinline__ void ddt_block(const BwdArgs& a, float* red,
+                                          int batch, int h) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float A = a.A[h];
+  float dA_acc = 0.f;
+  for (int it = warp; it < batch * a.ntiles; it += BT / 32) {
+    const int b = it / a.ntiles, k = it % a.ntiles;
+    const int t0 = k * a.tile, qv = min(a.tile, a.S - t0);
+    const int64_t tb = ((int64_t)b * a.H + h) * a.ntiles + k;
+    const float* v = a.vec + tb * 4 * QT;
+    const float* dt = a.dt + b * a.sdb + h * a.sdh;
+    float* ddt = a.ddt + b * a.stb + h * a.sth;
+    float d[4], xg[4], u[4], es = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * lane + e;
+      d[e] = j < qv ? dt[(int64_t)(t0 + j) * a.sds] : 0.f;
+      const float s = v[3 * QT + j];
+      xg[e] = v[QT + j] + s;
+      es = fmaf(d[e], s, es);
+      u[e] = (v[j] + v[2 * QT + j]) - d[e] * xg[e];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) es += __shfl_xor_sync(FULL, es, off);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * lane + e == qv - 1) u[e] += es + a.ex[tb];
+    u[2] += u[3];
+    u[1] += u[2];
+    u[0] += u[1];
+    float tot = u[0];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float t = __shfl_down_sync(FULL, tot, off);
+      if (lane + off < 32) tot += t;
+    }
+    const float after = __shfl_down_sync(FULL, tot, 1);
+    const float excl = lane == 31 ? 0.f : after;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * lane + e;
+      const float da = u[e] + excl;
+      if (j < qv) ddt[(int64_t)(t0 + j) * a.sts] = fmaf(da, A, xg[e]);
+      dA_acc = fmaf(da, d[e], dA_acc);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    dA_acc += __shfl_xor_sync(FULL, dA_acc, off);
+  if (lane == 0) red[warp] = dA_acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < BT / 32; ++w) s += red[w];
+    a.dA[h] = s;
+  }
+}
+
+// Launch 5: the first H blocks one head's ddt and dA each (they start
+// first; the rest is short).  Then block (eighth, tile, batch): rows i0 =
+// 16·eighth .. + 15 of the tile.  Sums the groups' parts in group order,
+// then
+//   dC[i][n] = Σ dC inter + Σ_j (Σ dt G L)[j][i] B[j][n]
+//   dB[j][n] = Σ dB state + Σ_i (Σ dt G L)[j][i] C[i][n]
+template <typename T>
+__global__ void __launch_bounds__(BT)
+    ssd_scan_bwd_sums_kernel(BwdArgs a, int batch) {
   using L = Layout<T>;
   extern __shared__ __align__(16) float rsm[];
-  float* R1 = rsm;                   // [ii][j] = Σ_h dcb[j][i0 + ii]
-  float* R2 = R1 + RROWS * MP;       // [jj][i] = Σ_h dcb[i0 + jj][i]
-  float* Cs = R2 + RROWS * MP;       // C[i][n], widened
+  if ((int)blockIdx.x < a.H) {
+    ddt_block(a, rsm, batch, blockIdx.x);
+    return;
+  }
+  const int blk = blockIdx.x - a.H;
+  float* R1 = rsm;                   // [ii][j] = Σ dtGL[j][i0 + ii]
+  float* R2 = R1 + RROWS * MP;       // [jj][i] = Σ dtGL[i0 + jj][i]
   const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * RROWS, k = blockIdx.y, b = blockIdx.z;
+  const int i0 = (blk % (QT / RROWS)) * RROWS;
+  const int k = (blk / (QT / RROWS)) % a.ntiles;
+  const int b = blk / ((QT / RROWS) * a.ntiles);
   const int t0 = k * a.tile, qv = min(a.tile, a.S - t0);
-  const int64_t tile_q = (int64_t)QT * QT, tile_n = (int64_t)QT * NM;
-  const int64_t hstep = (int64_t)a.ntiles;           // tiles between heads
-  const int64_t first = (int64_t)b * a.H * a.ntiles + k;   // (b, 0, k)
-  const T* Cg = static_cast<const T*>(a.C) + b * a.scb;
-  const float* Bf = reinterpret_cast<const float*>(
-                        a.scratch + ((int64_t)b * a.ntiles + k) *
-                                        L::TILE_BYTES) + L::OFF_BF / 4;
+  const int64_t tile_q = (int64_t)QT * QT;
+  const float* pk = a.part + ((int64_t)b * a.ntiles + k) * a.groups * 3 * tile_q;
+  const float* tscr = reinterpret_cast<const float*>(
+      a.scratch + ((int64_t)b * a.ntiles + k) * L::TILE_BYTES);
+  const float* Bf = tscr + L::OFF_BF / 4;
+  const float* Ct = tscr + L::OFF_CT / 4;
 
   for (int e = tid; e < RROWS * QT; e += BT) {
-    const int ii = e % RROWS, j = e / RROWS;    // R1: 32 consecutive i
+    const int ii = e % RROWS, j = e / RROWS;    // R1: RROWS consecutive i
     const int jj = e / QT, i = e % QT;          // R2: a row of 128 i
     float s1 = 0.f, s2 = 0.f;
-    for (int hh = 0; hh < a.H; ++hh) {
-      const float* d = a.dcb + (first + hh * hstep) * tile_q;
+    for (int g = 0; g < a.groups; ++g) {
+      const float* d = pk + g * 3 * tile_q;
       s1 += d[j * QT + i0 + ii];
       s2 += d[(i0 + jj) * QT + i];
     }
     R1[ii * MP + j] = s1;
     R2[jj * MP + i] = s2;
   }
-  for (int e = tid; e < QT * NM; e += BT) {
-    const int i = e / NM, n = e % NM;
-    Cs[i * SP + n] = (i < qv && n < a.N)
-                         ? to_f32(Cg[(int64_t)(t0 + i) * a.scs + n])
-                         : 0.f;
-  }
   __syncthreads();
 
-  // thread: column n, rows rr = tid / NM + 2u
+  // thread: column n, rows r0 + 2u
   const int n = tid % NM, r0 = tid / NM;
   constexpr int RU = RROWS / (BT / NM);
   float dc[RU], db[RU];
@@ -1258,20 +1666,29 @@ __global__ void __launch_bounds__(BT) ssd_scan_bwd_reduce_kernel(BwdArgs a) {
   for (int u = 0; u < RU; ++u) {
     const int row = i0 + r0 + 2 * u;
     float s1 = 0.f, s2 = 0.f;
-    for (int hh = 0; hh < a.H; ++hh) {
-      const int64_t off = (first + hh * hstep) * tile_n + row * NM + n;
-      s1 += a.dcp[off];
-      s2 += a.dbp[off];
+    for (int g = 0; g < a.groups; ++g) {
+      const float* d = pk + g * 3 * tile_q + row * NM + n;
+      s1 += d[tile_q];
+      s2 += d[2 * tile_q];
     }
     dc[u] = s1;
     db[u] = s2;
   }
-  for (int j = 0; j < QT; ++j) {
-    const float bj = Bf[j * NM + n], cj = Cs[j * SP + n];
+  // C[j][n] is Ct's row n: 16-byte loads along j
+  const float* ct = Ct + n * QT;
+#pragma unroll 4
+  for (int j0 = 0; j0 < QT; j0 += 4) {
+    float cv[4];
+    put4(cv, ld4(ct + j0));
 #pragma unroll
-    for (int u = 0; u < RU; ++u) {
-      dc[u] = fmaf(R1[(r0 + 2 * u) * MP + j], bj, dc[u]);
-      db[u] = fmaf(R2[(r0 + 2 * u) * MP + j], cj, db[u]);
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + q;
+      const float bj = Bf[j * NM + n];
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        dc[u] = fmaf(R1[(r0 + 2 * u) * MP + j], bj, dc[u]);
+        db[u] = fmaf(R2[(r0 + 2 * u) * MP + j], cv[q], db[u]);
+      }
     }
   }
   T* dC = static_cast<T*>(a.dC) + ((int64_t)b * a.S + t0) * a.N;
@@ -1284,16 +1701,10 @@ __global__ void __launch_bounds__(BT) ssd_scan_bwd_reduce_kernel(BwdArgs a) {
       from_f32(dB + (int64_t)row * a.N + n, db[u]);
     }
   }
-  if (blockIdx.x == 0 && k == 0 && b == 0) {
-    for (int hh = tid; hh < a.H; hh += BT) {
-      float s = 0.f;
-      for (int bb = 0; bb < (int)gridDim.z; ++bb) s += a.dap[bb * a.H + hh];
-      a.dA[hh] = s;
-    }
-  }
 }
 
-// Dynamic shared memory above 48 KB, asked once per kernel and device.
+// Dynamic shared memory above 48 KB, and the largest carveout, asked once
+// per kernel and device.
 template <int ID>
 cudaError_t opt_in_kernel(const void* kern, int bytes) {
   static std::atomic<bool> opted_in[MAX_DEVICES];
@@ -1311,21 +1722,79 @@ cudaError_t opt_in_kernel(const void* kern, int bytes) {
   return e;
 }
 
+// Launches 2 and 3: the end-of-tile state gradients into a.dsend.
+template <typename T, int ID>
+int launch_states(const BwdArgs& a, int batch, cudaStream_t stream) {
+  cudaError_t e;
+  if (a.ntiles > 1) {
+    e = opt_in_kernel<ID>(
+        reinterpret_cast<const void*>(ssd_scan_bwd_states_kernel<T>),
+        BWD_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ssd_scan_bwd_states_kernel<T>
+        <<<dim3(a.H, a.ntiles - 1, batch), BT, BWD_SMEM, stream>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int64_t pn = (int64_t)a.P * a.N;
+  ssd_scan_bwd_carry_kernel<<<dim3((unsigned)((pn + BT - 1) / BT),
+                                   batch * a.H),
+                              BT, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches 4 and 5.
 template <typename T, int ID>
 int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
-  cudaError_t e = opt_in_kernel<ID>(
-      reinterpret_cast<const void*>(ssd_scan_bwd_kernel<T>), BWD_SMEM);
+  cudaError_t e = opt_in_kernel<ID + 1>(
+      reinterpret_cast<const void*>(ssd_scan_bwd_main_kernel<T>), BWD_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_scan_bwd_kernel<T><<<batch * a.H, BT, BWD_SMEM, stream>>>(a);
+  const int blocks = 3 * batch * a.ntiles * a.groups + batch * a.ntiles * a.H;
+  ssd_scan_bwd_main_kernel<T><<<blocks, BT, BWD_SMEM, stream>>>(a, batch);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = opt_in_kernel<ID + 1>(
-      reinterpret_cast<const void*>(ssd_scan_bwd_reduce_kernel<T>),
-      RED_SMEM);
+  e = opt_in_kernel<ID + 2>(
+      reinterpret_cast<const void*>(ssd_scan_bwd_sums_kernel<T>), RED_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(QT / RROWS, a.ntiles, batch);
-  ssd_scan_bwd_reduce_kernel<T><<<grid, BT, RED_SMEM, stream>>>(a);
+  ssd_scan_bwd_sums_kernel<T>
+      <<<(QT / RROWS) * a.ntiles * batch + a.H, BT, RED_SMEM, stream>>>(
+          a, batch);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int ID>
+int bwd_blocks_per_sm() {
+  int n = 0;
+  if (opt_in_kernel<ID + 1>(
+          reinterpret_cast<const void*>(ssd_scan_bwd_main_kernel<T>),
+          BWD_SMEM) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, ssd_scan_bwd_main_kernel<T>, BT, BWD_SMEM) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+// The prep and the backward's arguments from the C entries' (every pointer
+// may be null where the entry does not need it).
+Args prep_args(const void* B, const void* C, void* scratch, int bf16, int S,
+               int N, int tile, long long sbb, long long sbs, long long scb,
+               long long scs) {
+  Args pa{};
+  pa.B = B;
+  pa.C = C;
+  pa.scratch = static_cast<unsigned char*>(scratch);
+  pa.S = S;
+  pa.N = N;
+  pa.tile = tile;
+  pa.ntiles = (S + tile - 1) / tile;
+  pa.sbb = sbb;
+  pa.sbs = sbs;
+  pa.scb = scb;
+  pa.scs = scs;
+  const int elt = bf16 ? 2 : 4;
+  pa.vec_bc = N % (16 / elt) == 0 && aligned(B, elt, {sbb, sbs}) &&
+              aligned(C, elt, {scb, scs});
+  return pa;
 }
 
 }  // namespace
@@ -1387,22 +1856,63 @@ extern "C" int ssd_scan_prep(const void* B, const void* C, void* scratch,
   if (batch == 0) return 0;
   if (N < 1 || N > NM || tile < 1 || tile > QT || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.B = B;
-  a.C = C;
-  a.scratch = static_cast<unsigned char*>(scratch);
+  const Args a = prep_args(B, C, scratch, bf16, S, N, tile, sbb, sbs, scb,
+                           scs);
+  return launch_prep(a, batch, bf16, static_cast<cudaStream_t>(stream));
+}
+
+// The end-of-tile gradients of the state alone (the backward's first three
+// launches, for their check against their plain version): dt, A, B, C, dy
+// and dstate (or null) as ssd_scan_bwd takes them; dsend (B, H, ceil(S /
+// tile), P, N) float32 contiguous receives the gradient of the state at the
+// end of each tile; decay (B, H, ceil(S / tile)) float32 and scratch (as the
+// forward's) are overwritten.  Returns the CUDA error code.
+extern "C" int ssd_scan_bwd_states(
+    const float* dt, const float* A, const void* B, const void* C,
+    const void* dy, const float* dstate, float* dsend, float* decay,
+    void* scratch, int bf16, int batch, int H, int S, int P, int N, int tile,
+    long long sdb, long long sdh, long long sds, long long sbb,
+    long long sbs, long long scb, long long scs, long long syb,
+    long long syh, long long sys, void* stream) {
+  if (batch == 0 || H == 0) return 0;
+  if (P < 1 || P > PM || N < 1 || N > NM || tile < 1 || tile > QT || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int elt = bf16 ? 2 : 4;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args pa = prep_args(B, C, scratch, bf16, S, N, tile, sbb, sbs, scb,
+                            scs);
+  int rc = launch_prep(pa, batch, bf16, st);
+  if (rc != 0) return rc;
+  BwdArgs a{};
+  a.dt = dt;
+  a.A = A;
+  a.dy = dy;
+  a.dstate = dstate;
+  a.scratch = static_cast<const unsigned char*>(scratch);
+  a.dsend = dsend;
+  a.decay = decay;
+  a.H = H;
   a.S = S;
+  a.P = P;
   a.N = N;
   a.tile = tile;
-  a.ntiles = (S + tile - 1) / tile;
-  a.sbb = sbb;
-  a.sbs = sbs;
-  a.scb = scb;
-  a.scs = scs;
-  const int elt = bf16 ? 2 : 4;
-  a.vec_bc = N % (16 / elt) == 0 && aligned(B, elt, {sbb, sbs}) &&
-             aligned(C, elt, {scb, scs});
-  return launch_prep(a, batch, bf16, static_cast<cudaStream_t>(stream));
+  a.ntiles = pa.ntiles;
+  a.vec_dy = P % (16 / elt) == 0 && aligned(dy, elt, {syb, syh, sys});
+  a.sdb = sdb;
+  a.sdh = sdh;
+  a.sds = sds;
+  a.syb = syb;
+  a.syh = syh;
+  a.sys = sys;
+  return bf16 ? launch_states<__nv_bfloat16, 10>(a, batch, st)
+              : launch_states<float, 20>(a, batch, st);
+}
+
+// Blocks of the backward's main kernel an SM holds at once on the current
+// device (float32 or bf16 inputs), or -1 if the query fails.
+extern "C" int ssd_scan_bwd_blocks_per_sm(int bf16) {
+  return bf16 ? bwd_blocks_per_sm<__nv_bfloat16, 10>()
+              : bwd_blocks_per_sm<float, 20>();
 }
 
 // Backward of ssd_scan from dy (and d_state, or null for zero): x, dt, A,
@@ -1410,49 +1920,45 @@ extern "C" int ssd_scan_prep(const void* B, const void* C, void* scratch,
 // strides with a contiguous last axis, ddt by its three strides; starts
 // the forward's tile-start states (B, H, ceil(S / tile), P, N).  Writes
 // dx (x's dtype), ddt (float32), dA (H,) float32, dB and dC ((B, S, N)
-// contiguous, x's dtype).  scratch as the forward's; dcb (B, H, tiles,
-// 128, 128), dcp and dbp (B, H, tiles, 128, 128) and dap (B, H), all
-// float32, are overwritten.  Three launches on `stream` (the prep, the
-// scan in reverse, the head and batch sums); returns the CUDA error code.
+// contiguous, x's dtype).  Scratch, all float32 contiguous and
+// overwritten: scratch as the forward's; dsend (B, H, tiles, P, N), decay
+// and ex (B, H, tiles); part (B, tiles, ceil(H / 16), 3, 128, 128); vec (B,
+// H, tiles, 4, 128).  Five launches on `stream` (the prep, the tiles' state
+// sums, their carry, the main kernel, the sums); returns the CUDA error
+// code.
 extern "C" int ssd_scan_bwd(
     const void* x, const float* dt, const float* A, const void* B,
     const void* C, const void* dy, const float* dstate, const float* starts,
     void* dx, float* ddt, float* dA, void* dB, void* dC, void* scratch,
-    float* dcb, float* dcp, float* dbp, float* dap, int bf16, int batch,
-    int H, int S, int P, int N, int tile, long long sxb, long long sxh,
-    long long sxs, long long sdb, long long sdh, long long sds,
-    long long sbb, long long sbs, long long scb, long long scs,
-    long long syb, long long syh, long long sys, long long sgb,
-    long long sgh, long long sgs, long long stb, long long sth,
-    long long sts, void* stream) {
+    float* dsend, float* decay, float* part, float* vec, float* ex, int bf16,
+    int batch, int H, int S, int P, int N, int tile, long long sxb,
+    long long sxh, long long sxs, long long sdb, long long sdh,
+    long long sds, long long sbb, long long sbs, long long scb,
+    long long scs, long long syb, long long syh, long long sys,
+    long long sgb, long long sgh, long long sgs, long long stb,
+    long long sth, long long sts, void* stream) {
   if (batch == 0 || H == 0) return 0;
   if (P < 1 || P > PM || N < 1 || N > NM || tile < 1 || tile > QT || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int elt = bf16 ? 2 : 4;
-  const int ntiles = (S + tile - 1) / tile;
-  Args pa{};
-  pa.B = B;
-  pa.C = C;
-  pa.scratch = static_cast<unsigned char*>(scratch);
-  pa.S = S;
-  pa.N = N;
-  pa.tile = tile;
-  pa.ntiles = ntiles;
-  pa.sbb = sbb;
-  pa.sbs = sbs;
-  pa.scb = scb;
-  pa.scs = scs;
-  pa.vec_bc = N % (16 / elt) == 0 && aligned(B, elt, {sbb, sbs}) &&
-              aligned(C, elt, {scb, scs});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args pa = prep_args(B, C, scratch, bf16, S, N, tile, sbb, sbs, scb,
+                            scs);
   int rc = launch_prep(pa, batch, bf16, st);
   if (rc != 0) return rc;
-  const BwdArgs a{x,   dt,  A,   B,   C,   dy,  dstate, starts,
+  const BwdArgs a{x,   dt,  A,   dy,  dstate, starts,
                   static_cast<const unsigned char*>(scratch),
-                  dx,  ddt, dA,  dB,  dC,  dcb, dcp, dbp, dap,
-                  H,   S,   P,   N,   tile, ntiles,
-                  sxb, sxh, sxs, sdb, sdh, sds, scb, scs, syb, syh, sys,
+                  dx,  ddt, dA,  dB,  dC,  dsend, decay, part, vec, ex,
+                  H,   S,   P,   N,   tile, pa.ntiles, (H + HG - 1) / HG,
+                  P % (16 / elt) == 0 && aligned(x, elt, {sxb, sxh, sxs}),
+                  P % (16 / elt) == 0 && aligned(dy, elt, {syb, syh, sys}),
+                  P % 4 == 0 && aligned(dx, elt, {sgb, sgh, sgs}),
+                  N % 4 == 0,
+                  sxb, sxh, sxs, sdb, sdh, sds, syb, syh, sys,
                   sgb, sgh, sgs, stb, sth, sts};
+  rc = bf16 ? launch_states<__nv_bfloat16, 10>(a, batch, st)
+            : launch_states<float, 20>(a, batch, st);
+  if (rc != 0) return rc;
   return bf16 ? launch_bwd<__nv_bfloat16, 10>(a, batch, st)
               : launch_bwd<float, 20>(a, batch, st);
 }

@@ -314,6 +314,42 @@ def ref_ssd_scan_prep(B, C, tile: int, cap: int = 128):
     return out
 
 
+def ref_ssd_scan_bwd_states(dt, A, C, dy, d_state=None, *, chunk: int = 128):
+    """The gradient of the state at the end of every chunk (the plain
+    version of the backward's first stage, ``ssd_scan_bwd_states``), in
+    the kernel's layout: dt ``(b, h, s)``, A ``(h,)``, C ``(b, s, n)``, dy
+    ``(b, h, s, p)``, ``d_state`` ``(b, h, p, n)`` or ``None`` (zero).
+    Chunks of ``chunk`` positions, a last partial one padded with ``dt =
+    0``.  With ``cum`` the in-chunk cumulative ``dt·A``, walking the chunks
+    in reverse from ``dS = d_state``:
+
+      dS_end[k] = dS;  dS ← exp(cum_last,k)·dS + Σ_i exp(cum_i) dy_i ⊗ C_i
+
+    Returns ``(b, h, ceil(s / chunk), p, n)`` float32."""
+    f32 = torch.float32
+    b, h, s, p = dy.shape
+    n = C.shape[-1]
+    nt = -(-s // chunk)
+    pad = nt * chunk - s
+    dtf = torch.nn.functional.pad(dt.to(f32), (0, pad))
+    dyf = torch.nn.functional.pad(dy.to(f32), (0, 0, 0, pad))
+    Cf = torch.nn.functional.pad(C.to(f32), (0, 0, 0, pad))
+    cum = torch.cumsum(dtf.reshape(b, h, nt, chunk) * A.to(f32)[:, None, None],
+                       dim=-1)
+    ecum = torch.exp(cum)
+    elast = torch.exp(cum[..., -1])                     # (b, h, nt)
+    dyt = dyf.reshape(b, h, nt, chunk, p)
+    Ct = Cf.reshape(b, nt, chunk, n)
+    dS = (torch.zeros((b, h, p, n), dtype=f32, device=dy.device)
+          if d_state is None else d_state.to(f32))
+    out = torch.empty((b, h, nt, p, n), dtype=f32, device=dy.device)
+    for k in reversed(range(nt)):
+        out[:, :, k] = dS
+        dS = elast[:, :, k, None, None] * dS + torch.einsum(
+            "bhip,bin->bhpn", ecum[:, :, k, :, None] * dyt[:, :, k], Ct[:, k])
+    return out
+
+
 def ref_ssd_scan_bwd(x, dt, A, B, C, dy, d_state=None, *, chunk: int = 128):
     """Backward of the SSD scan from the zero state, written out chunk by
     chunk in float32 (the plain version of the ``ssd_scan_bwd`` kernel),

@@ -9,9 +9,12 @@ wrapper allocates; then one block per (batch, head) walks the tiles in
 order, the state in shared memory.  On request the scan also writes the
 state at each tile's start, which ``ssd_scan_bwd`` — the backward of the
 same function, a kernel the TPU side does not have — reads instead of
-scanning again.  The plain versions are ``kernels.ref.ref_ssd_scan``,
-``ref_ssd_scan_prep`` and ``ref_ssd_scan_bwd``; the model code reaches
-the scan through ``kernels.ops.ssd_scan``.
+scanning again.  The backward first computes the gradient of the state at
+each tile's end (``ssd_scan_bwd_states``), after which every (batch, tile,
+head) is independent.  The plain versions are ``kernels.ref.ref_ssd_scan``,
+``ref_ssd_scan_prep``, ``ref_ssd_scan_bwd`` and
+``ref_ssd_scan_bwd_states``; the model code reaches the scan through
+``kernels.ops.ssd_scan``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from repro_torch.kernels import _build
 MAX_P = 64
 MAX_N = 128
 MAX_TILE = 128                 # positions per tile of the kernel
+GROUP_HEADS = 16               # heads whose sums one backward block adds
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,7 +47,16 @@ def _fn():
 def _bwd_fn():
     fn = _build.load_library("ssd_scan").ssd_scan_bwd
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 18 + [i] * 7 + [ll] * 19 + [p]
+    fn.argtypes = [p] * 19 + [i] * 7 + [ll] * 19 + [p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _states_fn():
+    fn = _build.load_library("ssd_scan").ssd_scan_bwd_states
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p] * 9 + [i] * 7 + [ll] * 10 + [p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -61,6 +74,14 @@ def blocks_per_sm(dtype) -> int:
     """Blocks of the scan kernel an SM of the current device holds at once
     for float32 or bf16 inputs (CUDA's occupancy query)."""
     fn = _build.load_library("ssd_scan").ssd_scan_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(_DTYPES[dtype])
+
+
+def bwd_blocks_per_sm(dtype) -> int:
+    """Blocks of the backward's main kernel an SM of the current device
+    holds at once for float32 or bf16 inputs."""
+    fn = _build.load_library("ssd_scan").ssd_scan_bwd_blocks_per_sm
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(_DTYPES[dtype])
 
@@ -188,6 +209,64 @@ def ssd_scan(
     return (y, state) if starts is None else (y, state, starts)
 
 
+def _check_bwd(x, dy, d_state, b, h, s, p, n) -> torch.Tensor | None:
+    """dy and d_state as the backward takes them; d_state contiguous."""
+    if dy.dtype != x.dtype or tuple(dy.shape) != (b, h, s, p) \
+            or not dy.is_cuda or dy.device != x.device:
+        raise ValueError(f"dy must be (B, H, S, P) {x.dtype} on x's device, "
+                         f"got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if p > 1 and dy.stride(-1) != 1:
+        raise ValueError("dy must have a contiguous last axis")
+    if d_state is not None and (
+            d_state.dtype != torch.float32
+            or tuple(d_state.shape) != (b, h, p, n)
+            or d_state.device != x.device):
+        raise ValueError(f"d_state must be float32 {(b, h, p, n)}, got "
+                         f"{tuple(d_state.shape)} {d_state.dtype}")
+    return None if d_state is None else d_state.contiguous()
+
+
+def ssd_scan_bwd_states(
+    x: torch.Tensor,          # (B, H, S, P): the dtype and shape only
+    dt: torch.Tensor,         # (B, H, S) float32
+    A: torch.Tensor,          # (H,) float32
+    B: torch.Tensor,          # (B, S, N)
+    C: torch.Tensor,          # (B, S, N)
+    dy: torch.Tensor,         # (B, H, S, P) in x's dtype
+    d_state: torch.Tensor | None = None,   # (B, H, P, N) float32
+    *,
+    chunk: int,
+) -> torch.Tensor:
+    """The backward's first stage alone, for its check against
+    ``ref.ref_ssd_scan_bwd_states``: the gradient of the state at the end
+    of each chunk, ``(B, H, ceil(S / chunk), P, N)`` float32 (the last
+    chunk's is ``d_state``, or zero).  Launches the prep, the chunks'
+    local sums and their carry."""
+    b, h, s, p, n = _check(x, dt, A, B, C, chunk)
+    d_state = _check_bwd(x, dy, d_state, b, h, s, p, n)
+    nt = -(-s // chunk)
+    A = A.contiguous()
+    dev, f32 = x.device, torch.float32
+    dsend = torch.empty((b, h, nt, p, n), dtype=f32, device=dev)
+    decay = torch.empty((b, h, nt), dtype=f32, device=dev)
+    scratch = _scratch(b, s, chunk, dev)
+    strides = ([dt.stride(i) for i in range(3)]
+               + [B.stride(0), B.stride(1), C.stride(0), C.stride(1)]
+               + [dy.stride(i) for i in range(3)])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _states_fn()(
+            dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(),
+            None if d_state is None else d_state.data_ptr(),
+            dsend.data_ptr(), decay.data_ptr(), scratch.data_ptr(),
+            _DTYPES[x.dtype], b, h, s, p, n, chunk, *strides, stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd_states launch failed: CUDA error "
+                           f"{rc}")
+    return dsend
+
+
 def ssd_scan_bwd(
     x: torch.Tensor,          # (B, H, S, P), as the forward took it
     dt: torch.Tensor,         # (B, H, S) float32
@@ -200,39 +279,27 @@ def ssd_scan_bwd(
     *,
     chunk: int,
 ) -> tuple[torch.Tensor, ...]:
-    """The backward kernel: from ``dy`` (and ``d_state``, the gradient of
+    """The backward kernels: from ``dy`` (and ``d_state``, the gradient of
     the final state; ``None`` for zero) and the forward's tile-start
     states, the gradients ``(dx, ddt, dA, dB, dC)`` of ``ssd_scan`` at
     the same inputs and ``chunk``.  dx ``(B, H, S, P)`` in x's dtype (laid
     out ``(B, S, H, P)``, as y), ddt ``(B, H, S)`` float32 (laid out
     ``(B, S, H)``), dA ``(H,)`` float32, dB and dC ``(B, S, N)`` in x's
-    dtype.  Three launches: the forward's prep (C·Bᵀ per tile), the
-    scan in reverse, one block per (batch, head), and the sums over heads
-    and batches, in a fixed order (no atomics: two calls give the same
-    bits).  Raises on anything the kernels do not take, and if a launch
-    fails."""
+    dtype.  Five launches: the forward's prep (C·Bᵀ per tile), the
+    gradient of the state at each tile's end (the tiles' local sums, then
+    their carry), one kernel over every (batch, tile, head) and (batch,
+    tile, group of 16 heads), and the sums over groups, tiles and batches,
+    in a fixed order (no atomics: two calls give the same bits).  Raises on
+    anything the kernels do not take, and if a launch fails."""
     b, h, s, p, n = _check(x, dt, A, B, C, chunk)
+    d_state = _check_bwd(x, dy, d_state, b, h, s, p, n)
     nt = -(-s // chunk)
-    if dy.dtype != x.dtype or tuple(dy.shape) != (b, h, s, p) \
-            or not dy.is_cuda or dy.device != x.device:
-        raise ValueError(f"dy must be (B, H, S, P) {x.dtype} on x's device, "
-                         f"got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
-    if p > 1 and dy.stride(-1) != 1:
-        raise ValueError("dy must have a contiguous last axis")
     if (starts.dtype != torch.float32 or tuple(starts.shape) != (
             b, h, nt, p, n) or not starts.is_contiguous()
             or starts.device != x.device):
         raise ValueError(f"starts must be the forward's contiguous float32 "
                          f"{(b, h, nt, p, n)} tile states, got "
                          f"{tuple(starts.shape)} {starts.dtype}")
-    if d_state is not None and (
-            d_state.dtype != torch.float32
-            or tuple(d_state.shape) != (b, h, p, n)
-            or d_state.device != x.device):
-        raise ValueError(f"d_state must be float32 {(b, h, p, n)}, got "
-                         f"{tuple(d_state.shape)} {d_state.dtype}")
-    if d_state is not None:
-        d_state = d_state.contiguous()
     A = A.contiguous()
     dev, f32 = x.device, torch.float32
     dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev).transpose(1, 2)
@@ -241,10 +308,12 @@ def ssd_scan_bwd(
     dB = torch.empty((b, s, n), dtype=x.dtype, device=dev)
     dC = torch.empty((b, s, n), dtype=x.dtype, device=dev)
     scratch = _scratch(b, s, chunk, dev)
-    dcb = torch.empty((b, h, nt, MAX_TILE, MAX_TILE), dtype=f32, device=dev)
-    dcp = torch.empty((b, h, nt, MAX_TILE, MAX_N), dtype=f32, device=dev)
-    dbp = torch.empty_like(dcp)
-    dap = torch.empty((b, h), dtype=f32, device=dev)
+    dsend = torch.empty((b, h, nt, p, n), dtype=f32, device=dev)
+    decay = torch.empty((b, h, nt), dtype=f32, device=dev)
+    part = torch.empty((b, nt, -(-h // GROUP_HEADS), 3, MAX_TILE, MAX_TILE),
+                       dtype=f32, device=dev)
+    vec = torch.empty((b, h, nt, 4, MAX_TILE), dtype=f32, device=dev)
+    ex = torch.empty((b, h, nt), dtype=f32, device=dev)
     strides = ([x.stride(i) for i in range(3)]
                + [dt.stride(i) for i in range(3)]
                + [B.stride(0), B.stride(1), C.stride(0), C.stride(1)]
@@ -258,9 +327,10 @@ def ssd_scan_bwd(
             C.data_ptr(), dy.data_ptr(),
             None if d_state is None else d_state.data_ptr(),
             starts.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
-            dB.data_ptr(), dC.data_ptr(), scratch.data_ptr(), dcb.data_ptr(),
-            dcp.data_ptr(), dbp.data_ptr(), dap.data_ptr(),
-            _DTYPES[x.dtype], b, h, s, p, n, chunk, *strides, stream)
+            dB.data_ptr(), dC.data_ptr(), scratch.data_ptr(),
+            dsend.data_ptr(), decay.data_ptr(), part.data_ptr(),
+            vec.data_ptr(), ex.data_ptr(), _DTYPES[x.dtype], b, h, s, p, n,
+            chunk, *strides, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {rc}")
     return dx, ddt, dA, dB, dC

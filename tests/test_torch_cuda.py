@@ -1329,6 +1329,62 @@ def test_ssd_scan_bwd_kernel_mixer_shape(cuda):
                    False)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,s,p,n,chunk,with_dstate", [
+    (2, 1, 256, 64, 128, 128, True),     # one head: one group of 16
+    (2, 7, 256, 64, 128, 128, False),    # 7 heads: a partial group
+    (1, 83, 256, 64, 128, 128, True),    # 83 heads: 5 groups and 3 heads
+    (2, 4, 129, 64, 128, 128, True),     # one position in the last tile
+    (1, 3, 40, 16, 16, 1, True),         # chunk 1: 40 tiles of 1 position
+    (1, 5, 128, 64, 128, 128, True),     # batch 1, one tile
+])
+def test_ssd_scan_bwd_kernel_grid_edges(cuda, dtype, b, h, s, p, n, chunk,
+                                        with_dstate):
+    """The backward's grid at its edges: head counts that do not fill the
+    16-head groups of the main kernel, a last tile of one position, tiles
+    of one position, and one tile (no carry)."""
+    _ssd_bwd_check(cuda, b, h, s, p, n, dtype, chunk, s + h + chunk,
+                   with_dstate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_dstate", [False, True], ids=["ds0", "ds"])
+@pytest.mark.parametrize("b,h,s,p,n,chunk", [
+    (2, 8, 512, 64, 128, 128),      # mamba2-2.7b head shape, 4 tiles
+    (2, 3, 64, 32, 16, 16),         # the reduced config's shape
+    (1, 3, 300, 36, 24, 128),       # a partial last tile, P 36, N 24
+    (1, 2, 40, 8, 8, 1),            # chunk 1
+])
+def test_ssd_scan_bwd_states_kernel_matches_plain(cuda, dtype, with_dstate,
+                                                  b, h, s, p, n, chunk):
+    """The backward's first stage (the tiles' local sums and their carry)
+    against ``ref_ssd_scan_bwd_states``: the gradient of the state at each
+    tile's end within ``SSD_BWD_REL`` of max (sums of 128 products in
+    another order, then up to 8 steps of the carry), bitwise repeatable;
+    the last tile's is ``d_state`` (or zero) itself."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_states
+
+    x, dt, A, B, C = _ssd_views(cuda, b, h, s, p, n, dtype, seed=s + n)
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    dy = torch.randn(b, s, h, p, generator=gen, device=cuda).to(
+        dtype).transpose(1, 2)
+    ds = (torch.randn(b, h, p, n, generator=gen, device=cuda)
+          if with_dstate else None)
+    got = ssd_scan_bwd_states(x, dt, A, B, C, dy, ds, chunk=chunk)
+    again = ssd_scan_bwd_states(x, dt, A, B, C, dy, ds, chunk=chunk)
+    want = ref.ref_ssd_scan_bwd_states(dt, A, C, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, h, -(-s // chunk), p, n)
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err <= SSD_BWD_REL * want.abs().max().item(), err
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, :, -1], ds if with_dstate
+                       else torch.zeros_like(got[:, :, -1]))
+
+
 def test_ssd_scan_grad_calls_the_backward_kernel(cuda):
     """``ops.ssd_scan`` on inputs that require grad: one forward and one
     backward launch, the gradients those of the launcher; a call the

@@ -1,5 +1,7 @@
 """LM training of the port (mamba2) against the JAX package, on the CPU:
-the SSD scan's plain backward, the token-mean cross-entropy, the zoo
+the SSD scan's plain backward (and its first stage, the state gradient at
+each chunk's end, and the split the kernels compute it by), the token-mean
+cross-entropy, the zoo
 loss and its gradients, the LM train step, the in-place AdamW update,
 ``launch.steps``, ``lm_batch``, the ``--mode lm`` CLI and the LM example.
 
@@ -164,6 +166,142 @@ def test_ref_ssd_scan_bwd_keeps_the_input_dtypes():
         _t(B).to(bf), _t(C).to(bf), _t(dy).transpose(1, 2).to(bf), chunk=16)
     assert [g.dtype for g in got] == [bf, torch.float32, torch.float32, bf,
                                       bf]
+
+
+#: the backward's first stage and its decomposition: the same shapes as the
+#: kernel's CPU-side checks — the reduced config's, chunk 8, a partial last
+#: tile, P 36 with N 24 and a partial last tile
+STATE_SHAPES = [
+    (2, 3, 64, 32, 16, 16),
+    (1, 2, 48, 8, 32, 8),
+    (2, 2, 40, 8, 8, 16),
+    (1, 3, 60, 36, 24, 16),
+]
+
+
+@pytest.mark.parametrize("with_dstate", [False, True], ids=["ds0", "ds"])
+@pytest.mark.parametrize("b,h,s,p,n,chunk", STATE_SHAPES)
+def test_ref_ssd_scan_bwd_states_matches_jax_vjp(b, h, s, p, n, chunk,
+                                                 with_dstate):
+    """``ref_ssd_scan_bwd_states`` (the plain version of the backward's
+    first stage) against the reference: for chunk k, the gradient of the
+    state at its end is ``jax.vjp`` of ``ssd_chunked`` over the positions
+    after chunk k with respect to ``init_state`` — the final state of
+    ``ssd_chunked`` over chunks 0..k — under the cotangents ``(dy,
+    d_state)`` (for the last chunk, ``d_state`` itself).  A partial last
+    chunk is padded with ``dt = 0`` and ``x = dy = 0``, as the kernel's
+    plain versions pad it (the reference asserts ``S % chunk == 0``).
+    Within ``BWD_REL``."""
+    x, dt, A, B, C, dy, ds = _scan_inputs(b, h, s, p, n, s + n)
+    nt = -(-s // chunk)
+
+    def padded(a):
+        return np.pad(a, [(0, 0), (0, nt * chunk - s)]
+                      + [(0, 0)] * (a.ndim - 2))
+
+    xp, dtp, Bp, Cp, dyp = map(padded, (x, dt, B, C, dy))
+    ct = ds if with_dstate else np.zeros_like(ds)
+    got = ref.ref_ssd_scan_bwd_states(
+        _t(dt).transpose(1, 2), _t(A), _t(C), _t(dy).transpose(1, 2),
+        _t(ds) if with_dstate else None, chunk=chunk)
+    assert got.shape == (b, h, nt, p, n) and got.dtype == torch.float32
+    for k in range(nt):
+        e = (k + 1) * chunk
+        if k == nt - 1:
+            want = ct
+        else:
+            init = JM.ssd_chunked(xp[:, :e], dtp[:, :e], A, Bp[:, :e],
+                                  Cp[:, :e], chunk=chunk)[1]
+            _, vjp = jax.vjp(lambda s0, e=e: JM.ssd_chunked(
+                xp[:, e:], dtp[:, e:], A, Bp[:, e:], Cp[:, e:], chunk=chunk,
+                init_state=s0), init)
+            (want,) = vjp((dyp[:, e:], ct))
+        assert _rel(got[:, :, k], want) <= BWD_REL, k
+
+
+def _kernel_decomposition(x, dt, A, B, C, dy, ds, chunk):
+    """The backward as the CUDA kernels split it, in plain torch (float32,
+    the kernels' layout): the end-of-tile state gradients first
+    (``ref_ssd_scan_bwd_states``), then per (batch, head, tile) only
+    independent terms — g's state and triangle parts, and the per-position
+    R, Q', dci, s' and exp(cum_last)·⟨dS, S0⟩ — and per (batch, tile) the
+    head sums; ∂/∂cum assembled from those as the sums kernel does."""
+    f32 = torch.float32
+    b, h, s, p = x.shape
+    n = B.shape[-1]
+    nt = -(-s // chunk)
+    pad = nt * chunk - s
+
+    def tiles(a, axis):
+        a = a.to(f32)
+        widths = [0, 0] * (a.dim() - 1 - axis) + [0, pad]
+        a = torch.nn.functional.pad(a, widths)
+        return a.reshape(a.shape[:axis] + (nt, chunk) + a.shape[axis + 1:])
+
+    xf, dyf, dtf = tiles(x, 2), tiles(dy, 2), tiles(dt, 2)
+    Bf, Cf = tiles(B, 1), tiles(C, 1)
+    cum = torch.cumsum(dtf * A[:, None, None], -1)          # (b, h, nt, q)
+    last = cum[..., -1:]
+    lower = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    L = torch.exp(torch.where(lower, cum[..., :, None] - cum[..., None, :],
+                              -math.inf))                   # [i][j]
+    M = (Cf @ Bf.transpose(-1, -2))[:, None] * L
+    ecum, dte = torch.exp(cum), torch.exp(last - cum)
+    elast = torch.exp(last[..., 0])
+    dS = ref.ref_ssd_scan_bwd_states(dt, A, C, dy, ds, chunk=chunk)
+    S0 = torch.zeros_like(dS)                               # tile starts
+    state = torch.zeros((b, h, p, n))
+    for k in range(nt):
+        S0[:, :, k] = state
+        state = elast[:, :, k, None, None] * state + torch.einsum(
+            "bhjp,bhj,bjn->bhpn", xf[:, :, k], dtf[:, :, k] * dte[:, :, k],
+            Bf[:, k])
+    G = torch.einsum("bhkjp,bhkip->bhkji", xf, dyf)         # x_j·dy_i
+    t = G * M.transpose(-1, -2)                             # [j][i]
+    R = (dtf[..., :, None] * t).sum(-2)                     # over j
+    Qp = t.sum(-1)                                          # over i
+    gs = dte[..., None] * torch.einsum("bkjn,bhkpn->bhkjp", Bf, dS)
+    g = torch.einsum("bhkij,bhkip->bhkjp", M, dyf) + gs
+    sp = (xf * gs).sum(-1)
+    dCp = ecum[..., None] * torch.einsum("bhkip,bhkpn->bhkin", dyf, S0)
+    dci = (dCp * Cf[:, None]).sum(-1)
+    ex = elast * (dS * S0).sum((-1, -2))
+    xg = Qp + sp
+    dcum = R + dci - dtf * xg
+    dcum[..., -1] += (dtf * sp).sum(-1) + ex
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = xg + A[:, None, None] * da
+    dA = (da * dtf).sum((0, 2, 3))
+    dtGL = (dtf[..., :, None] * G * L.transpose(-1, -2)).sum(1)   # [j][i]
+    dBp = (dtf * dte)[..., None] * torch.einsum("bhkjp,bhkpn->bhkjn", xf, dS)
+    dC = dCp.sum(1) + dtGL.transpose(-1, -2) @ Bf
+    dB = dBp.sum(1) + dtGL @ Cf
+
+    def untile(a, axis):
+        a = a.reshape(a.shape[:axis] + (nt * chunk,) + a.shape[axis + 2:])
+        return a.narrow(axis, 0, s)
+
+    return (untile(dtf[..., None] * g, 2), untile(ddt, 2), dA,
+            untile(dB, 1), untile(dC, 1))
+
+
+@pytest.mark.parametrize("with_dstate", [False, True], ids=["ds0", "ds"])
+@pytest.mark.parametrize("b,h,s,p,n,chunk", STATE_SHAPES)
+def test_kernel_decomposition_matches_ref_ssd_scan_bwd(b, h, s, p, n, chunk,
+                                                       with_dstate):
+    """The identities the backward kernels rest on — ∂/∂cum from the row
+    and column sums R, Q' of ``dt G M``, dci, s' and ⟨dS, S0⟩, ``x·g = Q' +
+    s'``, the head sums taken after the per-head terms, and the state
+    gradients computed before any tile — written out in plain torch and
+    held against ``ref_ssd_scan_bwd``: all five gradients within
+    ``BWD_REL``."""
+    x, dt, A, B, C, dy, ds = _scan_inputs(b, h, s, p, n, 2 * s + p)
+    args = (_t(x).transpose(1, 2), _t(dt).transpose(1, 2), _t(A), _t(B),
+            _t(C), _t(dy).transpose(1, 2), _t(ds) if with_dstate else None)
+    got = _kernel_decomposition(*args, chunk)
+    want = ref.ref_ssd_scan_bwd(*args, chunk=chunk)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert _rel(g, w.numpy()) <= BWD_REL, name
 
 
 # ---------------------------------------------------------------------------
