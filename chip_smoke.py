@@ -25,16 +25,20 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    shape), the dequant
    kernel, the AdaLN kernel (at the ragged MLP modulate site, float32,
    with bf16 modulations and in bf16), the attention kernel (the DiT's
-   self-attention, and a causal sliding-window GQA case at Mixtral-8x7B's
-   head shape), the flag-form fuse kernel (the K 8 serving mix, K 12 on
+   self-attention, a causal sliding-window GQA case at Mixtral-8x7B's
+   head shape, and the causal bf16 attention of phase 15's two LM paths:
+   zamba2-2.7b's 32 heads of D 80 and internlm2-1.8b's 16 query heads
+   over 8 kv heads of D 128, batch 4, S 1024, each with the staging its
+   operands take), the flag-form fuse kernel (the K 8 serving mix, K 12 on
    the runtime slot loop, K 2 all-DDPM and all-FM; bitwise, with
    ``floor_ms``), whose path
    ``ops.fused_convert_and_fuse`` is then driven once with the launch
    counts set to 0 and must equal ``fused_velocity`` bitwise, and the SSD
    scan kernel at mamba2-2.7b's mixer shape (bf16 and float32 strided
    views of the projection, and ``S`` < chunk; its C·Bᵀ prep first against
-   its own plain version), timed beside its plain (sequential) version and
-   the plain chunked algorithm in PyTorch; then the two backward kernels
+   its own plain version) and at zamba2-2.7b's (state N 64), timed
+   beside its plain (sequential) version and the plain chunked algorithm
+   in PyTorch; then the two backward kernels
    at the training shapes (batch 32 of DiT-B/2): the AdaLN backward at a
    modulate site (and without γ) and the attention backward from the
    forward's log-sum-exp, each against its plain version's gradients
@@ -153,7 +157,21 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    seconds, tokens/s, peak device memory (under 80 GB), exact launches
    per step (``ssd_scan`` 128, ``ssd_scan_bwd`` 64), finite losses and a
    falling loss on one fixed batch — and one more step under the
-   profiler.
+   profiler;
+15. (after phase 14) serves zamba2-2.7b (the hybrid: 54 mamba2 layers,
+   d 2560, state 64, the shared attention + SwiGLU block after every 6,
+   32 heads of D 80, vocab 32000) and internlm2-1.8b (dense: 24 layers,
+   d 2048, 16 query heads over 8 kv heads of D 128, d_ff 8192, vocab
+   92544) at full width and depth in bf16, as phase 7 serves mamba2:
+   two random seeded experts each, two scoring requests (exactly 108
+   ``ssd_scan`` + 18 ``flash_attention`` launches a zamba2 request, 48
+   ``flash_attention`` an internlm2 one), a greedy decode (no launch),
+   a prefill (54 + 9; 24) whose cache has ``make_cache``'s leaves, and
+   one profiled scoring request each;
+16. runs the reduced zamba2 and internlm2 (4 query heads over 2 kv
+   heads) ensembles (float32) on the GPU and on the CPU, as phase 8:
+   fused log-probabilities, prefill logits and every cache leaf, greedy
+   tokens, and on the GPU prefill + decode against ``forward_train``.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -239,12 +257,13 @@ CATEGORIES = (
 #: the LM scoring request's kernel-name fragments -> category
 LM_CATEGORIES = (
     ("ssd_scan", "ssd_scan (every mixer's chunked scan)"),
+    ("flash_attention", "flash_attention (causal attention)"),
     ("gemm", "cuBLAS bf16 GEMM (projections, unembedding)"),
     ("nvjet", "cuBLAS bf16 GEMM (projections, unembedding)"),
     ("xmma", "cuBLAS bf16 GEMM (projections, unembedding)"),
     ("softmax", "log-softmax"),
     ("reduce", "reductions (RMSNorm means, logsumexp, histograms)"),
-    ("elementwise", "elementwise (conv taps, silu, softplus, gating, "
+    ("elementwise", "elementwise (conv taps, silu, softplus, gating, RoPE, "
                     "residuals)"),
     ("CatArrayBatchedCopy", "copies and concatenations"),
     ("Memcpy", "copies and concatenations"),
@@ -762,20 +781,46 @@ def _open_pairs(s: int, causal: bool, window: int) -> int:
     return int((hi - lo).sum())
 
 
-#: (case, B, Hq, Hkv, S, D, causal, window, dtype) of the attention check
+#: (case, B, Hq, Hkv, S, D, causal, window, dtype) of the attention check;
+#: the last two are the LM serving shapes of phase 15 (a 4 × 1024-token
+#: scoring request): zamba2-2.7b's shared block (32 heads of D 80) and
+#: internlm2-1.8b's layers (16 query heads over 8 kv heads of D 128)
 FLASH_CASES = (
     ("dit_self_attention", 32, 12, 12, 256, 64, False, 0, torch.float32),
-    ("mixtral_gqa_swa", 1, 32, 8, 8192, 128, True, 4096, torch.bfloat16))
+    ("mixtral_gqa_swa", 1, 32, 8, 8192, 128, True, 4096, torch.bfloat16),
+    ("zamba2_causal", 4, 32, 32, 1024, 80, True, 0, torch.bfloat16),
+    ("internlm2_causal_gqa", 4, 16, 8, 1024, 128, True, 0, torch.bfloat16))
+#: the LM paths whose kernels line entries take a phase-3 case's numbers
+FLASH_PATH_CASES = {"lm_hybrid": "zamba2_causal",
+                    "lm_dense": "internlm2_causal_gqa"}
+
+
+def flash_staging(q, k, v) -> str:
+    """Which staging the attention launcher picks for these operands (its
+    rule, ``launch`` in ``csrc/flash_attention.cu``): 16-byte ``cp.async``
+    when D and every batch, head and row stride are whole 16-byte chunks
+    and every base is 16-byte aligned, else element by element."""
+    ev = 16 // q.element_size()
+    ok = q.shape[-1] % ev == 0 and all(
+        (t.shape[0] == 1 or t.stride(0) % ev == 0)
+        and (t.shape[1] == 1 or t.stride(1) % ev == 0)
+        and t.stride(2) % ev == 0 and t.data_ptr() % 16 == 0
+        for t in (q, k, v))
+    return "cp.async 16-byte" if ok else "element by element"
 
 
 def check_flash(ops, ref, dev) -> dict:
     """The attention kernel at the DiT's self-attention shape — q, k, v
     ``(B·g 32, S 256, H 12, D 64)`` projections read as ``(B, H, S, D)``
-    views, non-causal, float32 — and a causal sliding-window GQA case at
+    views, non-causal, float32 — a causal sliding-window GQA case at
     Mixtral-8x7B's head shape (``configs/mixtral_8x7b.py``: Hq 32, Hkv 8,
-    D 128, window 4096) over S 8192, batch 1, bf16.  Library yardstick:
+    D 128, window 4096) over S 8192, batch 1, bf16, and the causal bf16
+    attention of the two LM serving paths (zamba2-2.7b, internlm2-1.8b)
+    at a 4 × 1024-token request.  Library yardstick:
     ``scaled_dot_product_attention`` on the same inputs (float32 for the
-    DiT; the bf16 GQA case with its mask)."""
+    DiT; the windowed case with its mask; the causal ones
+    ``is_causal=True, enable_gqa=True``).  Returns the DiT case's numbers
+    and, under ``by_path``, each LM path's case's."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(14)
@@ -804,7 +849,11 @@ def check_flash(ops, ref, dev) -> dict:
         t_k = graph_ms(kern, 20 if s <= 256 else 3)
         t_w = cuda_ms(kern, 20 if s <= 256 else 3)
         t_p = cuda_ms(plain, 10 if s <= 256 else 2, warmup=1)
-        if causal or window:
+        if causal and not window:
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=hq != hkv)
+        elif causal or window:
             pos = torch.arange(s, device=dev)
             mask = (pos[None] <= pos[:, None]) if causal else None
             if window:
@@ -834,7 +883,8 @@ def check_flash(ops, ref, dev) -> dict:
                    window=window, dtype=str(dtype).replace("torch.", ""),
                    max_abs_err=err, tol=tol, ms=t_k, wrapper_ms=t_w,
                    plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
-                   share_of_bound=t_b / t_k, tflops=flops / t_k / 1e9)
+                   share_of_bound=t_b / t_k, tflops=flops / t_k / 1e9,
+                   staging=flash_staging(q, k, v))
         if not rows:                        # the DiT shape: clocks too
             row.update(clocks_under(kern))
         print("flash_attention case " + json.dumps(row))
@@ -843,11 +893,17 @@ def check_flash(ops, ref, dev) -> dict:
         rows.append(row)
         gc.collect()
         torch.cuda.empty_cache()
-    main = rows[0]
-    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=main["ms"], plain_ms=main["plain_ms"],
-                library_ms=main["library_ms"], bound_ms=main["bound_ms"],
-                bound_by=main["bound_by"])
+    case = {r["case"]: r for r in rows}
+    return dict(_summary(rows[0], max(r["max_abs_err"] for r in rows)),
+                by_path={path: _summary(case[name], case[name]["max_abs_err"])
+                         for path, name in FLASH_PATH_CASES.items()})
+
+
+def _summary(row: dict, max_abs_err: float) -> dict:
+    """A kernels line entry's numbers from a phase-3 case row."""
+    return dict(max_abs_err=max_abs_err, ms=row["ms"],
+                plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"])
 
 
 #: backward kernels against their plain versions (float32): row and
@@ -1098,6 +1154,14 @@ def check_hetero_fuse(ops, ref, dev) -> dict:
 #: mamba2-2.7b's mixer in one scoring request (batch 4 × 1024 tokens):
 #: (b, h, s, p, n, chunk)
 SSD_SHAPE = (4, 80, 1024, 64, 128, 128)
+#: (case, S, N, dtype) of the scan check at SSD_SHAPE's batch and heads:
+#: mamba2-2.7b's mixer (N 128) in bf16 and float32, S < chunk, and
+#: zamba2-2.7b's mixer (N 64; phase 15's ``lm_hybrid`` path)
+SSD_CASES = (("mixer_bf16", 1024, 128, torch.bfloat16),
+             ("mixer_f32", 1024, 128, torch.float32),
+             ("short_bf16", 100, 128, torch.bfloat16),
+             ("zamba2_bf16", 1024, 64, torch.bfloat16))
+SSD_PATH_CASES = {"lm_hybrid": "zamba2_bf16"}
 
 
 def _ssd_inputs(dev, b, h, s, p, n, dtype, seed):
@@ -1143,8 +1207,8 @@ def check_ssd_scan(ops, ref, dev) -> dict:
     request — x ``(4, 80, 1024, 64)`` bf16 as a strided view of a
     ``(4, 1024, 80·64 + 256)`` projection, B/C ``(4, 1024, 128)`` strided,
     dt float32, chunk 128 — in bf16, in float32, and with ``S`` = 100 <
-    chunk.  y and the state against the plain (sequential) version.
-    Times: the kernel (its prep, C·Bᵀ once per (batch, chunk), also
+    chunk; and at zamba2-2.7b's (the same x, state N 64).  y and the
+    state against the plain (sequential) version.  Times: the kernel (its prep, C·Bᵀ once per (batch, chunk), also
     alone), the plain version and the plain chunked algorithm in PyTorch
     (``mamba2.ssd_chunked``: torch einsums, i.e. cuBLAS); no single
     PyTorch call computes the scan (library null).  Bound: the convention
@@ -1156,11 +1220,9 @@ def check_ssd_scan(ops, ref, dev) -> dict:
     from repro_torch.kernels.ssd_scan import blocks_per_sm, ssd_scan_prep
     from repro_torch.models.mamba2 import ssd_chunked
 
-    b, h, s, p, n, chunk = SSD_SHAPE
-    cases = (("mixer_bf16", s, torch.bfloat16), ("mixer_f32", s, torch.float32),
-             ("short_bf16", 100, torch.bfloat16))
+    b, h, _, p, _, chunk = SSD_SHAPE
     rows = []
-    for name, seq, dtype in cases:
+    for name, seq, n, dtype in SSD_CASES:
         x, dt, A, B, C = _ssd_inputs(dev, b, h, seq, p, n, dtype, seed=16)
         q = min(chunk, seq)
         if not rows:                        # the prep at the mixer shape
@@ -1224,10 +1286,10 @@ def check_ssd_scan(ops, ref, dev) -> dict:
         del x, dt, A, B, C, y, state
         gc.collect()
         torch.cuda.empty_cache()
-    main = rows[0]
-    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"])
+    case = {r["case"]: r for r in rows}
+    return dict(_summary(rows[0], max(r["max_abs_err"] for r in rows)),
+                by_path={path: _summary(case[name], case[name]["max_abs_err"])
+                         for path, name in SSD_PATH_CASES.items()})
 
 
 #: the SSD scan's backward kernel against its plain version
@@ -3133,25 +3195,48 @@ def lm_ensemble(cfg, experts, seed: int):
                             strategy="topk", top_k=1)
 
 
-def _check_launches(ops, label: str, ssd: int) -> dict:
-    """The counts since the last reset: exactly ``ssd`` scan launches and
-    no other kernel (the LM path runs no other kernel of the port)."""
+#: the LM serving paths of phases 7 and 15: arch -> the labels of its
+#: scoring, greedy-decode and prefill launches
+LM_PATHS = {"mamba2-2.7b": ("lm_scoring", "lm_decode", "lm_prefill"),
+            "zamba2-2.7b": ("lm_hybrid", "lm_hybrid_decode",
+                            "lm_hybrid_prefill"),
+            "internlm2-1.8b": ("lm_dense", "lm_dense_decode",
+                               "lm_dense_prefill")}
+
+
+def lm_forward_launches(cfg) -> dict:
+    """One forward's (or prefill's) kernel launches: an ``ssd_scan`` per
+    mixer, a ``flash_attention`` per attention — each application of the
+    hybrid's shared block, each dense layer."""
+    ssd = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
+    attn = {"hybrid": cfg.num_layers // max(cfg.attn_every, 1),
+            "dense": cfg.num_layers}.get(cfg.arch_type, 0)
+    return {"ssd_scan": ssd, "flash_attention": attn}
+
+
+def _check_launches(ops, label: str, forwards: int, cfg) -> dict:
+    """The counts since the last reset: exactly ``forwards`` times a
+    forward's launches of ``cfg``'s backbone and no other kernel (the LM
+    paths run no other kernel of the port)."""
     launches = dict(ops.LAUNCHES)
     print(f"{label} launches " + json.dumps(launches))
-    want = dict(dict.fromkeys(ops.LAUNCHES, 0), ssd_scan=ssd)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update({k: forwards * n for k, n in lm_forward_launches(cfg).items()})
     if launches != want:
         fail(f"{label} launched {launches}, expected {want}")
     return launches
 
 
-def serve_lm_full_width(ops, dev):
-    """Phase 7: the mamba2-2.7b two-expert ensemble at full width.  Returns
-    the scoring path's launches and the ensemble (profiled next)."""
+def serve_lm_full_width(ops, dev, arch: str):
+    """Phases 7 and 15: ``arch``'s two-expert ensemble at full width and
+    depth.  Returns the launches of its paths and the ensemble (profiled
+    next)."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("mamba2-2.7b")
+    cfg = get_config(arch)
+    scoring, decoding, prefilling = LM_PATHS[arch]
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -3167,7 +3252,7 @@ def serve_lm_full_width(ops, dev):
     n_params = sum(a.numel() for a in leaves)
     expert_bytes = sum(a.numel() * a.element_size() for a in leaves)
     ens = lm_ensemble(cfg, experts, seed=8)
-    print(f"full width: mamba2-2.7b, {LM_EXPERTS} experts of {n_params} "
+    print(f"full width: {arch}, {LM_EXPERTS} experts of {n_params} "
           f"parameters ({expert_bytes} bytes each), built on the card in "
           f"{t_init:.1f} s; top-1 token-prototype routing")
     rng = np.random.default_rng(10)
@@ -3183,14 +3268,14 @@ def serve_lm_full_width(ops, dev):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         print("lm request " + json.dumps(dict(
-            path="scoring", request=i, batch=LM_BATCH, tokens=LM_SEQ,
-            seconds=sec, tokens_per_s=LM_BATCH * LM_SEQ / sec,
+            arch=arch, path="scoring", request=i, batch=LM_BATCH,
+            tokens=LM_SEQ, seconds=sec, tokens_per_s=LM_BATCH * LM_SEQ / sec,
             perplexity=ppl, finite=math.isfinite(ppl))))
         if not (math.isfinite(ppl) and ppl > 1.0):
-            fail(f"scoring request {i}: perplexity {ppl}")
-    launches = {"lm_scoring": _check_launches(
-        ops, "lm_scoring", LM_EXPERTS * cfg.num_layers * LM_REQUESTS)}
-    print("lm_scoring store " + json.dumps(dict(
+            fail(f"{arch} scoring request {i}: perplexity {ppl}")
+    launches = {scoring: _check_launches(
+        ops, scoring, LM_EXPERTS * LM_REQUESTS, cfg)}
+    print(f"{scoring} store " + json.dumps(dict(
         param_dtype=str(cfg.param_dtype).replace("torch.", ""),
         store_bytes=LM_EXPERTS * expert_bytes, other_bytes=base,
         resident_bytes=resident, load_peak_bytes=build_peak,
@@ -3205,16 +3290,16 @@ def serve_lm_full_width(ops, dev):
     sec = time.perf_counter() - t0
     new = out[:, DECODE_PROMPT:]
     print("lm request " + json.dumps(dict(
-        path="decode_greedy", batch=DECODE_BATCH, prompt=DECODE_PROMPT,
-        new_tokens=DECODE_NEW, seconds=sec,
+        arch=arch, path="decode_greedy", batch=DECODE_BATCH,
+        prompt=DECODE_PROMPT, new_tokens=DECODE_NEW, seconds=sec,
         new_tokens_per_s=DECODE_BATCH * DECODE_NEW / sec,
         shape=list(out.shape), tokens=new.tolist())))
     if (tuple(out.shape) != (DECODE_BATCH, DECODE_PROMPT + DECODE_NEW)
             or not torch.equal(out[:, :DECODE_PROMPT], prompt)
             or bool(((new < 0) | (new >= cfg.vocab_size)).any())):
-        fail("decode_greedy output is not the prompt and in-vocabulary "
-             "tokens")
-    launches["lm_decode"] = _check_launches(ops, "lm_decode", 0)
+        fail(f"{arch} decode_greedy output is not the prompt and "
+             f"in-vocabulary tokens")
+    launches[decoding] = _check_launches(ops, decoding, 0, cfg)
 
     toks = torch.from_numpy(lm_request(cfg.vocab_size, rng, LM_BATCH,
                                        LM_SEQ)[0]).to(dev)
@@ -3223,20 +3308,26 @@ def serve_lm_full_width(ops, dev):
     logits, cache = zoo.prefill(cfg, experts[0], {"tokens": toks})
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    finite = all(bool(torch.isfinite(a).all()) for a in (
-        logits, cache["ssm"], cache["conv"]))
+    finite = all(bool(torch.isfinite(a).all()) for a in (logits, *(
+        a for k, a in cache.items() if k != "pos")))
+    shapes = {k: list(a.shape) for k, a in cache.items()}
+    want = {k: list(a.shape) for k, a in zoo.make_cache(
+        cfg, LM_BATCH, LM_SEQ, torch.device("meta")).items()}
     print("lm request " + json.dumps(dict(
-        path="prefill", batch=LM_BATCH, tokens=LM_SEQ, seconds=sec,
-        tokens_per_s=LM_BATCH * LM_SEQ / sec, finite=finite,
-        logits=list(logits.shape), ssm_cache=list(cache["ssm"].shape),
-        conv_cache=list(cache["conv"].shape))))
+        arch=arch, path="prefill", batch=LM_BATCH, tokens=LM_SEQ,
+        seconds=sec, tokens_per_s=LM_BATCH * LM_SEQ / sec, finite=finite,
+        logits=list(logits.shape), cache=shapes)))
     if not (finite and tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
-            and tuple(cache["ssm"].shape) == (
-                cfg.num_layers, LM_BATCH, cfg.ssm_nheads, cfg.ssm_headdim,
-                cfg.ssm_state)):
-        fail("prefill output is not finite logits (B, V) and a full cache")
-    launches["lm_prefill"] = _check_launches(ops, "lm_prefill",
-                                             cfg.num_layers)
+            and shapes == want):
+        fail(f"{arch} prefill output is not finite logits (B, V) and a full "
+             f"cache {want}")
+    if "pos" in cache and not torch.equal(
+            cache["pos"], torch.arange(LM_SEQ, device=dev,
+                                       dtype=torch.int32).expand(LM_BATCH,
+                                                                 -1)):
+        fail(f"{arch} prefill cache positions are not 0 .. S-1")
+    launches[prefilling] = _check_launches(ops, prefilling, 1, cfg)
+    del logits, cache
     return launches, ens
 
 
@@ -3247,23 +3338,45 @@ def profile_lm_request(ens) -> None:
                               LM_BATCH, LM_SEQ)
     tt, tl = torch.from_numpy(toks).cuda(), torch.from_numpy(labels).cuda()
     profiled(lambda: ens.perplexity(tt, tl), LM_CATEGORIES,
-             path="lm_scoring", batch=LM_BATCH, tokens=LM_SEQ,
-             experts=LM_EXPERTS)
+             path=LM_PATHS[ens.cfg.name][0], arch=ens.cfg.name,
+             batch=LM_BATCH, tokens=LM_SEQ, experts=LM_EXPERTS)
 
 
-def compare_lm_gpu_cpu(ops, dev) -> None:
-    """Phase 8: the reduced mamba2 ensemble (float32, 2 layers, chunk 16)
-    on the GPU (scan kernel) and on the CPU (plain sequential scan):
-    fused log-probabilities, prefill logits and state within
-    ``LM_REL_TOL · max|out|``, greedy tokens equal (the smallest top-1/top-2
-    gap printed).  On the GPU, prefill followed by a decode step must
-    reproduce ``forward_train``'s logits (the reference's invariant,
-    ``tests/test_arch_smoke.py``)."""
+#: phases 8 and 16's reduced float32 models: arch -> reduced() overrides
+#: (internlm2 with 4 query heads over 2 kv heads: its own reduction is
+#: 4/4, and the GQA path is the one to hold)
+LM_REDUCED = {"mamba2-2.7b": {}, "zamba2-2.7b": {},
+              "internlm2-1.8b": dict(num_kv_heads=2)}
+
+
+def _with_room(zoo, cfg, cache: dict, batch: int, room: int, dev) -> dict:
+    """A prefill's cache copied into ``make_cache(room)`` (the KV caches'
+    first slots, the rest empty): a decode step after it then attends to
+    every prefilled position (the prefill's own ring would take slot 0)."""
+    out = zoo.make_cache(cfg, batch, room, dev)
+    for key, a in cache.items():
+        if key in ("k", "v"):
+            out[key][:, :, :a.shape[2]] = a
+        elif key == "pos":
+            out[key][:, :a.shape[1]] = a
+        else:
+            out[key] = a
+    return out
+
+
+def compare_lm_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b") -> None:
+    """Phases 8 and 16: the reduced ensemble of ``arch`` (float32, 2
+    layers) on the GPU (scan and attention kernels) and on the CPU (plain
+    versions): fused log-probabilities, prefill logits and every cache
+    leaf within ``LM_REL_TOL · max|out|`` (slot positions equal), greedy
+    tokens equal (the smallest top-1/top-2 gap printed).  On the GPU,
+    prefill followed by a decode step must reproduce ``forward_train``'s
+    logits (the reference's invariant, ``tests/test_arch_smoke.py``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.tree import tree_map
 
-    cfg = get_config("mamba2-2.7b").reduced()
+    cfg = get_config(arch).reduced(**LM_REDUCED[arch])
     cpu_experts = [zoo.init(cfg, torch.Generator().manual_seed(31 + k), "cpu")
                    for k in range(LM_EXPERTS)]
     gpu_experts = [tree_map(lambda a: a.to(dev), e) for e in cpu_experts]
@@ -3272,7 +3385,7 @@ def compare_lm_gpu_cpu(ops, dev) -> None:
     rng = np.random.default_rng(12)
     toks = torch.from_numpy(lm_request(cfg.vocab_size, rng, 4, 64)[0])
     prompt = toks[:2, :8]
-    failed, rows = [], {}
+    failed, rows = [], {"arch": arch}
 
     def check(name, gpu, cpu, tol=LM_REL_TOL):
         err, scale = rel_err(gpu.cpu().float(), cpu.float())
@@ -3288,9 +3401,15 @@ def compare_lm_gpu_cpu(ops, dev) -> None:
                           {"tokens": toks.to(dev if d == "gpu" else "cpu")})
            for d, e in ens.items()}
     check("prefill_logits", pre["gpu"][0], pre["cpu"][0])
-    check("prefill_ssm_state", pre["gpu"][1]["ssm"], pre["cpu"][1]["ssm"])
-    check("prefill_conv_cache", pre["gpu"][1]["conv"], pre["cpu"][1]["conv"])
-    if ops.LAUNCHES["ssd_scan"] != (LM_EXPERTS + 1) * cfg.num_layers:
+    for key, a in pre["gpu"][1].items():
+        if key == "pos":
+            if not torch.equal(a.cpu(), pre["cpu"][1][key]):
+                failed.append("prefill cache positions differ")
+        else:
+            check(f"prefill_{key}_cache", a, pre["cpu"][1][key])
+    want = {k: (LM_EXPERTS + 1) * n for k, n in
+            lm_forward_launches(cfg).items()}
+    if any(ops.LAUNCHES[k] != n for k, n in want.items()):
         failed.append(f"reduced GPU run launched {ops.LAUNCHES}")
     out = {d: e.decode_greedy(prompt.to(dev if d == "gpu" else "cpu"), 8)
            for d, e in ens.items()}
@@ -3307,13 +3426,15 @@ def compare_lm_gpu_cpu(ops, dev) -> None:
     experts = ens["gpu"].expert_params
     full, _ = zoo.forward_train(cfg, experts[1], {"tokens": toks.to(dev)})
     last, cache = zoo.prefill(cfg, experts[1], {"tokens": toks[:, :48].to(dev)})
-    step, _ = zoo.decode_step(cfg, experts[1], cache,
-                              toks[:, 48:49].to(dev), None)
+    step, _ = zoo.decode_step(
+        cfg, experts[1], _with_room(zoo, cfg, cache, 4, 64, dev),
+        toks[:, 48:49].to(dev),
+        torch.full((4,), 48, dtype=torch.int32, device=dev))
     check("gpu_prefill_vs_forward", last, full[:, 47].cpu())
     check("gpu_decode_vs_forward", step, full[:, 48].cpu())
     print("lm reduced gpu-vs-cpu " + json.dumps(rows))
     if failed:
-        fail(f"reduced LM GPU run differs from the CPU run: {failed}")
+        fail(f"reduced {arch} GPU run differs from the CPU run: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -3660,7 +3781,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    lm_launches, ens = serve_lm_full_width(ops, dev)
+    lm_launches, ens = serve_lm_full_width(ops, dev, "mamba2-2.7b")
     launches.update(lm_launches)
     profile_lm_request(ens)
     del ens
@@ -3672,6 +3793,19 @@ def main() -> None:
     phase_done("8 (LM reduced GPU vs CPU)")
     launches.update(train_lm_full_width(ops, dev))
     phase_done("14 (LM training)")
+    for arch in ("zamba2-2.7b", "internlm2-1.8b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm_launches, ens = serve_lm_full_width(ops, dev, arch)
+        launches.update(lm_launches)
+        profile_lm_request(ens)
+        del ens
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("15 (hybrid and dense LM serving and profiles)")
+    compare_lm_gpu_cpu(ops, dev, "zamba2-2.7b")
+    compare_lm_gpu_cpu(ops, dev, "internlm2-1.8b")
+    phase_done("16 (hybrid and dense LM reduced GPU vs CPU)")
     run_cli(dev)
     phase_done("9 (serving CLI)")
 
@@ -3701,16 +3835,22 @@ def main() -> None:
                                 "flash_attention.py:82"),
         "ssd_scan_bwd": ("ssd_scan.cu", "ssd_scan.py:86"),
     }
+    # the LM serving paths of phase 15, each with its own shape's numbers
+    entries = [(name, where[name], summary[name]) for name in sources]
+    for name in ("flash_attention", "ssd_scan"):
+        by_path = summary[name].pop("by_path")
+        entries += [(name, path, by_path[path]) for path in by_path]
     kernels = []
-    for name, (src, tpu) in sources.items():
+    for name, path, numbers in entries:
+        src, tpu = sources[name]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/{tpu}",
-            launches=launches[where[name]][name], path=where[name],
+            launches=launches[path][name], path=path,
             launches_by_path={p: n[name] for p, n in launches.items()
                               if n.get(name)},
-            **summary[name]))
+            **numbers))
     for kern in kernels:
         if kern["launches"] <= 0:
             fail(f"{kern['name']} was not launched on the main path")

@@ -1,14 +1,18 @@
 """Architecture config registry of the port (``repro.configs``' ids).
 
-The port serves the ``ssm`` family: ``get_config("mamba2-2.7b")``.  The
-reference's other architecture ids raise ``NotImplementedError`` until
-their backbones are ported (ROADMAP.md, module queue A.10).  The paper's
-own DiT experts come from ``get_dit_config``.
+The port serves the ``ssm``, ``hybrid`` and ``dense`` families:
+``get_config`` of ``"mamba2-2.7b"``, ``"zamba2-2.7b"``,
+``"internlm2-1.8b"`` and ``"stablelm-1.6b"``.  The reference's other
+architecture ids (the two deepseek configs, MoE, VLM and audio) raise
+``NotImplementedError`` until their backbones are ported (ROADMAP.md,
+module queue A.10).  The paper's own DiT experts come from
+``get_dit_config``.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_2p7b
+from repro_torch.configs import (internlm2_1p8b, mamba2_2p7b, stablelm_1p6b,
+                                 zamba2_2p7b)
 from repro_torch.configs.shapes import SHAPES, InputShape, get_shape
 from repro_torch.models.config import (DiTConfig, LMConfig, dit_b2,
                                        dit_xl2, router_b2)
@@ -20,7 +24,8 @@ ARCH_IDS: tuple[str, ...] = (
     "mixtral-8x7b", "internlm2-1.8b",
 )
 
-_PORTED = {"mamba2-2.7b": mamba2_2p7b.CONFIG}
+_PORTED = {c.name: c for c in (mamba2_2p7b.CONFIG, zamba2_2p7b.CONFIG,
+                                internlm2_1p8b.CONFIG, stablelm_1p6b.CONFIG)}
 
 #: the paper's own diffusion-expert architectures
 DIT_CONFIGS = {"dit-xl2": dit_xl2, "dit-b2": dit_b2, "router-b2": router_b2}
@@ -31,8 +36,8 @@ def get_config(arch: str) -> LMConfig:
         return _PORTED[arch]
     if arch in ARCH_IDS:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: the port serves mamba2-2.7b "
-            f"(ROADMAP.md, module queue A.10)")
+            f"arch {arch!r} is not ported yet: the port serves "
+            f"{', '.join(_PORTED)} (ROADMAP.md, module queue A.10)")
     raise ValueError(f"unknown arch {arch!r}; available: {sorted(ARCH_IDS)}")
 
 

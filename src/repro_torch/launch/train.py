@@ -10,9 +10,11 @@ parameters with the expert's metadata, which ``ServingEngine.
 from_checkpoint_dir`` serves.
 
 ``--mode lm`` trains one LM expert of ``--arch`` (the port trains
-mamba2-2.7b; the other ids raise ``NotImplementedError``, ROADMAP A.10)
-on ``lm_batch`` token batches with ``make_lm_train_step``, printing each
-step's loss; reduced unless ``--full``.
+mamba2-2.7b; the dense and hybrid ids, whose causal GQA attention
+backward the card cannot take yet, raise ``NotImplementedError`` naming
+ROADMAP A.10b, the ids not ported A.10) on ``lm_batch`` token batches
+with ``make_lm_train_step``, printing each step's loss; reduced unless
+``--full``.
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions.
 
@@ -84,8 +86,13 @@ def train_expert(args) -> None:
 
 
 def train_lm(args) -> None:
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.arch_type in ("dense", "hybrid"):
+        raise NotImplementedError(
+            f"--mode lm --arch {args.arch}: training the {cfg.arch_type} "
+            f"family needs a causal, GQA, bf16 flash_attention backward "
+            f"kernel, not ported yet (ROADMAP.md, module queue A.10b)")
+    dev = resolve_device(args.device)
     if not args.full:
         cfg = cfg.reduced()
     params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(args.seed),

@@ -3,8 +3,9 @@
 
 The reference module imports ``jax.numpy`` for its dtype defaults, so the
 port keeps its own copy of the dataclasses: ``LMConfig`` (the sequence
-backbones of the LM-expert ensemble; the port serves the ``ssm`` family)
-and ``DiTConfig`` with the canonical paper architectures.
+backbones of the LM-expert ensemble; the port serves the ``ssm``,
+``hybrid`` and ``dense`` families) and ``DiTConfig`` with the canonical
+paper architectures.
 """
 
 from __future__ import annotations
@@ -19,9 +20,15 @@ import torch
 class LMConfig:
     """Sequence-model backbone config of the LM-expert ensemble.
 
-    The port serves and trains ``arch_type="ssm"`` (Mamba2) and keeps the
-    fields that backbone and ``launch.steps`` read; a later backbone adds
-    the fields it needs.
+    The port serves ``arch_type`` ``"ssm"`` (Mamba2), ``"hybrid"``
+    (Zamba2) and ``"dense"`` (GQA transformers), trains ``"ssm"``, and
+    keeps the fields those backbones and ``launch.steps`` read; a later
+    backbone adds the fields it needs.  Attention of every backbone runs
+    through the flash attention kernel, which computes the reference's
+    float32-softmax attention whatever ``attn_chunk`` and
+    ``attn_kv_chunk`` (the reference's XLA blockings of the same
+    function) say; ``attn_f32_softmax=False`` (the reference's bf16
+    softmax chain, another function) is not ported.
     """
 
     name: str
@@ -29,22 +36,36 @@ class LMConfig:
     num_layers: int
     d_model: int
     vocab_size: int
-    # --- attention windows (read by launch.steps.cfg_for_shape) ---
-    sliding_window: int = 0               # native SWA width, 0 = full
-    decode_window: int = 0                # ring-buffer decode window
+    num_heads: int = 0                    # 0 = attention-free
+    num_kv_heads: int = 0
+    d_ff: int = 0                         # SwiGLU width
+    head_dim: int = 0                     # 0 -> d_model // num_heads
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_headdim: int = 64
     ssm_expand: int = 2
     ssm_conv_width: int = 4
     ssm_chunk: int = 128
+    # --- hybrid (zamba2-style shared attention) ---
+    attn_every: int = 0                   # shared attn block period; 0 = none
+    # --- attention variant ---
+    sliding_window: int = 0               # native SWA width, 0 = full
+    decode_window: int = 0                # ring-buffer decode window
+    rope_theta: float = 10000.0
     # --- numerics ---
     norm_eps: float = 1e-5
+    attn_chunk: int = 512
+    attn_kv_chunk: int = 0
+    attn_f32_softmax: bool = True
     logits_chunk: int = 0                 # 0 = unchunked loss
     param_dtype: Any = torch.float32
     activation_dtype: Any = torch.float32
     remat: bool = False                   # recompute each layer's forward
     source: str = ""                      # citation for the config
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
 
     @property
     def ssm_d_inner(self) -> int:
@@ -55,15 +76,25 @@ class LMConfig:
         return self.ssm_d_inner // self.ssm_headdim
 
     def reduced(self, **overrides) -> "LMConfig":
-        """Smoke-test variant: 2 layers, d_model<=256, vocab<=512."""
+        """Smoke-test variant, by the reference's rules: 2 layers,
+        d_model<=256, at most 4 heads (kv heads at most the heads,
+        ``head_dim = d_model // heads``), d_ff<=512, vocab<=512, attention
+        chunks of 64, a shared attention block after every layer."""
+        d = min(self.d_model, 256)
+        heads = min(self.num_heads, 4)
         upd: dict[str, Any] = dict(
             num_layers=2,
-            d_model=min(self.d_model, 256),
+            d_model=d,
+            num_heads=heads,
+            num_kv_heads=min(self.num_kv_heads, heads),
+            head_dim=(d // heads) if heads else 0,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else 0,
             decode_window=min(self.decode_window, 64)
             if self.decode_window else 0,
+            attn_chunk=64,
             param_dtype=torch.float32,
             activation_dtype=torch.float32,
             remat=False,
@@ -72,6 +103,8 @@ class LMConfig:
             upd["ssm_state"] = min(self.ssm_state, 16)
             upd["ssm_headdim"] = 32
             upd["ssm_chunk"] = 16
+        if self.attn_every:
+            upd["attn_every"] = 1
         upd.update(overrides)
         return dataclasses.replace(self, **upd)
 

@@ -1,5 +1,5 @@
-"""Neural-net primitives of the DiT and the Mamba2 LM, as plain functions
-on tensors.
+"""Neural-net primitives of the DiT and the LM backbones, as plain
+functions on tensors.
 
 Parameters are dicts of tensors in the reference layout: a dense weight is
 ``(in, out)`` (not ``nn.Linear``'s ``(out, in)``), so checkpoints of the
@@ -9,7 +9,10 @@ the DiT path: a float32 ``QKᵀ`` scaled by ``1/sqrt(head_dim)``, softmax
 over keys, then ``PV``.  The DiT's LayerNorms and self-attention go
 through the kernel wrappers (``kernels.ops.layernorm``,
 ``adaln_modulate``, ``flash_attention``); ``attention`` serves its
-cross-attention, whose query and text lengths differ.
+cross-attention, whose query and text lengths differ.  The LMs' causal
+attention over a sequence goes through ``flash_attention_gqa``
+(``models.transformer``); ``decode_attention``, one token against a KV
+cache, is plain torch, as the reference computes it in jnp.
 """
 
 from __future__ import annotations
@@ -65,6 +68,73 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(params["w2"], gelu(dense(params["w1"], x)))
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotate the interleaved pairs ``(x[..., 0::2], x[..., 1::2])`` by
+    float32 angles ``pos · θ^(−2i/D)`` (the reference's convention, not the
+    half-split one).  ``x``: (B, S, H, D); ``positions``: (B, S) or (S,).
+    The rotation runs in float32 (a bf16 ``x`` promotes) and the result is
+    cast to ``x``'s dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)     # (D/2,)
+    pos = positions.to(torch.float32)
+    if pos.dim() == 1:
+        pos = pos[None, :]
+    ang = pos[..., None] * freqs                               # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+#: the masked logit of ``decode_attention`` (the reference's ``NEG_INF``)
+NEG_INF = -1e30
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, q_position: torch.Tensor,
+                     kv_positions: torch.Tensor, window: int = 0,
+                     softmax_scale: float | None = None) -> torch.Tensor:
+    """One token against a (possibly ring-buffer) KV cache, in float32.
+
+    ``q``: (B, 1, Hq, D); ``k_cache``/``v_cache``: (B, Skv, Hkv, D) with
+    query head ``h`` reading kv head ``h // (Hq/Hkv)``; ``q_position``:
+    (B,) the token's absolute position; ``kv_positions``: (B, Skv) the
+    position each slot holds.  Slots with a position < 0, past
+    ``q_position`` or outside ``window`` are masked.  Returns (B, 1, Hq, D)
+    in ``q``'s dtype.
+    """
+    b, _, hkv, d = k_cache.shape
+    hq = q.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, hkv, hq // hkv, d).to(torch.float32)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg,
+                          k_cache.to(torch.float32)) * scale
+    qpos = q_position[:, None]
+    valid = (kv_positions >= 0) & (kv_positions <= qpos)
+    if window:
+        valid = valid & (qpos - kv_positions < window)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         logits.new_tensor(NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.to(torch.float32))
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """``w_down(silu(w_gate x) · w_up x)``, every op in ``x``'s dtype."""
+    return dense(params["w_down"],
+                 silu(dense(params["w_gate"], x)) * dense(params["w_up"], x))
 
 
 def gqa_project(params: dict, x: torch.Tensor, num_heads: int,
@@ -124,3 +194,19 @@ def embed_init(gen, vocab: int, dim: int, *, device, dtype) -> dict:
 
 def rmsnorm_init(dim: int, *, device, dtype) -> dict:
     return {"scale": torch.ones((dim,), device=device, dtype=dtype)}
+
+
+def gqa_init(gen, d_model: int, num_heads: int, num_kv_heads: int,
+             head_dim: int, *, device, dtype) -> dict:
+    kw = dict(device=device, dtype=dtype)
+    return {"wq": dense_init(gen, d_model, num_heads * head_dim, **kw),
+            "wk": dense_init(gen, d_model, num_kv_heads * head_dim, **kw),
+            "wv": dense_init(gen, d_model, num_kv_heads * head_dim, **kw),
+            "wo": dense_init(gen, num_heads * head_dim, d_model, **kw)}
+
+
+def swiglu_init(gen, d_model: int, d_ff: int, *, device, dtype) -> dict:
+    kw = dict(device=device, dtype=dtype)
+    return {"w_gate": dense_init(gen, d_model, d_ff, **kw),
+            "w_up": dense_init(gen, d_model, d_ff, **kw),
+            "w_down": dense_init(gen, d_ff, d_model, **kw)}

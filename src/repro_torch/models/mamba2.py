@@ -11,11 +11,11 @@ leaves are stacked ``(num_layers, ...)`` under ``blocks`` (the
 reference's ``jax.vmap`` init), dense weights ``(in, out)``, so a
 reference tree carries over leaf by leaf
 (``repro_torch.weights.params_from_numpy``).  Layers run in a Python
-loop over views of the stack, each leaf unbound once per call (so a
-backward stacks each leaf's gradient once).  With ``cfg.remat`` and
-gradients to take, ``forward_train`` recomputes each layer's forward in
-the backward (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` of its scan body).
+loop over views of the stack, each leaf unbound once per call
+(``tree.tree_unstack``: a backward stacks each leaf's gradient once).
+With ``cfg.remat`` and gradients to take, ``forward_train`` recomputes
+each layer's forward in the backward (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` of its scan body).
 
 Every mixer of ``forward_train`` and ``prefill`` (``mode="train"`` from
 the zero state) runs its chunked scan through ``kernels.ops.ssd_scan``:
@@ -36,7 +36,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import LMConfig
 from repro_torch.models.transformer import cross_entropy
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_stack_layers, tree_unstack
 from repro_torch.weights import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -247,14 +247,8 @@ def init(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
     leaves stacked ``(num_layers, ...)`` under ``blocks``."""
     dev = resolve_device(device)
     pd = cfg.param_dtype
-    blocks = None
-    for i in range(cfg.num_layers):          # filled layer by layer
-        layer = {"ln": L.rmsnorm_init(cfg.d_model, device=dev, dtype=pd),
-                 "mixer": mixer_init(cfg, gen, dev)}
-        if blocks is None:
-            blocks = tree_map(
-                lambda a: a.new_empty((cfg.num_layers,) + a.shape), layer)
-        tree_map(lambda dst, src: dst[i].copy_(src), blocks, layer)
+    blocks = tree_stack_layers(lambda: block_init(cfg, gen, dev),
+                               cfg.num_layers)
     return {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev,
                               dtype=pd),
@@ -265,20 +259,14 @@ def init(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
     }
 
 
-def _layer_params(params) -> list[dict]:
-    """Every layer's parameters as views of the stacked ``blocks``.  Each
-    leaf is unbound once: the backward of ``unbind`` stacks the layers'
-    gradients once, where a view ``a[i]`` per layer would allocate a zero
-    tensor the size of the whole stack for each layer's gradient (3.46 GB
-    of ``in_proj`` at mamba2-2.7b's width, 64 times a step)."""
-    blocks = params["blocks"]
-    unbound = tree_map(lambda a: a.unbind(0), blocks)
-    layers = len(tree_leaves(blocks)[0])
-    return [tree_map(lambda _, u: u[i], blocks, unbound)
-            for i in range(layers)]
+def block_init(cfg: LMConfig, gen: torch.Generator, device) -> dict:
+    """One residual mixer block's parameters (RMSNorm, mixer)."""
+    return {"ln": L.rmsnorm_init(cfg.d_model, device=device,
+                                 dtype=cfg.param_dtype),
+            "mixer": mixer_init(cfg, gen, device)}
 
 
-def _block_apply(cfg: LMConfig, bp: dict, h):
+def block_apply(cfg: LMConfig, bp: dict, h):
     """One residual mixer block from the zero state: (h + y, the block's
     (conv_tail, state))."""
     y, cache = mixer_apply(cfg, bp["mixer"],
@@ -286,8 +274,8 @@ def _block_apply(cfg: LMConfig, bp: dict, h):
     return h + y, cache
 
 
-def _residual(cfg: LMConfig, bp: dict, h):
-    return _block_apply(cfg, bp, h)[0]
+def residual(cfg: LMConfig, bp: dict, h):
+    return block_apply(cfg, bp, h)[0]
 
 
 def _layers(cfg: LMConfig, params, tokens):
@@ -295,8 +283,8 @@ def _layers(cfg: LMConfig, params, tokens):
     state, yielding the hidden states and the layer's (conv_tail, state)
     after each layer (a caller that keeps no cache holds one layer's)."""
     h = L.embed(params["embed"], tokens, cfg.activation_dtype)
-    for bp in _layer_params(params):
-        h, cache = _block_apply(cfg, bp, h)
+    for bp in tree_unstack(params["blocks"]):
+        h, cache = block_apply(cfg, bp, h)
         yield h, cache
 
 
@@ -307,12 +295,12 @@ def forward_train(cfg: LMConfig, params, tokens):
     remat = cfg.remat and torch.is_grad_enabled() and any(
         a.requires_grad for a in tree_leaves(params))
     h = L.embed(params["embed"], tokens, cfg.activation_dtype)
-    for bp in _layer_params(params):
+    for bp in tree_unstack(params["blocks"]):
         if remat:
-            h = checkpoint(_residual, cfg, bp, h, use_reentrant=False,
+            h = checkpoint(residual, cfg, bp, h, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            h = _residual(cfg, bp, h)
+            h = residual(cfg, bp, h)
     h = L.rmsnorm(params["ln_final"], h, cfg.norm_eps)
     logits = L.dense(params["unembed"], h)
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
@@ -358,7 +346,7 @@ def decode_step(cfg: LMConfig, params, cache: dict, token, pos):
     del pos  # state carries all history
     h = L.embed(params["embed"], token, cfg.activation_dtype)
     convs, states = [], []
-    for i, bp in enumerate(_layer_params(params)):
+    for i, bp in enumerate(tree_unstack(params["blocks"])):
         y, (conv_tail, state) = mixer_apply(
             cfg, bp["mixer"], L.rmsnorm(bp["ln"], h, cfg.norm_eps),
             conv_state=cache["conv"][i], ssm_state=cache["ssm"][i],

@@ -1,13 +1,37 @@
-"""The transformer family's module of the port (``repro.models.transformer``).
+"""Decoder-only transformer backbone, the dense GQA half (port of
+``repro.models.transformer``): stablelm-1.6b and internlm2-1.8b.
 
-Holds only the token-mean cross-entropy that every LM backbone's
-``loss_fn`` uses; the dense, MoE and VLM backbones themselves are not
-ported yet (ROADMAP.md, module queue A.10).
+Each block is RMSNorm, causal GQA attention with RoPE, RMSNorm, SwiGLU,
+both residual.  The parameter dict has the reference's keys and layout:
+per-layer leaves stacked ``(num_layers, ...)`` under ``blocks``, dense
+weights ``(in, out)``, so a reference tree carries over leaf by leaf
+(``repro_torch.weights.params_from_numpy``); layers run in a Python loop
+over the stack unbound once (``tree.tree_unstack``).
+
+Every attention over a sequence (``forward_train``, ``prefill``, and the
+hybrid backbone's shared block) goes through ``kernels.ops.
+flash_attention_gqa`` — the hand-written CUDA kernel on the card, its
+plain version on the CPU — on ``(B, H, S, D)`` views of the projections,
+causal over positions ``0 .. S−1`` (the kernel's index masks are the
+reference's position masks there).  ``decode_step`` attends one token to
+the KV cache with ``layers.decode_attention`` (plain torch, as the
+reference's jnp).  The MoE and VLM-prefix variants of the reference's
+module are not ported (ROADMAP.md, module queue A.10).
+
+Also the token-mean cross-entropy that every LM backbone's ``loss_fn``
+uses.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.config import LMConfig
+from repro_torch.tree import tree_leaves, tree_stack_layers, tree_unstack
+from repro_torch.weights import resolve_device
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -29,3 +53,203 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(lf, dim=-1)
     picked = torch.gather(lf, -1, labels[..., None].to(torch.int64))[..., 0]
     return torch.mean(lse - picked)
+
+
+# ---------------------------------------------------------------------------
+# Blocks: the dense layers, and the hybrid backbone's shared block
+# ---------------------------------------------------------------------------
+
+
+def _check_attention(cfg: LMConfig) -> None:
+    if not cfg.attn_f32_softmax:
+        raise NotImplementedError(
+            f"{cfg.name}: attn_f32_softmax=False (a bf16 softmax chain) is "
+            f"not ported; the attention kernel computes the float32 softmax")
+
+
+def _attn_full(cfg: LMConfig, p: dict, h: torch.Tensor,
+               positions: torch.Tensor):
+    """Causal self-attention of the normed hidden states ``h`` (B, S, d)
+    at positions ``0 .. S−1``: projections, RoPE, the attention kernel,
+    the output projection.  Returns ``(y (B, S, d), (k, v))`` with the
+    roped keys and the values ``(B, S, Hkv, D)`` a KV cache keeps."""
+    _check_attention(cfg)
+    hd = cfg.resolved_head_dim
+    q, k, v = L.gqa_project(p, h, cfg.num_heads, cfg.num_kv_heads, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention_gqa(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True,
+                                  window=cfg.sliding_window)
+    b, s = h.shape[:2]
+    y = L.dense(p["wo"], out.transpose(1, 2).reshape(b, s, -1))
+    return y, (k, v)
+
+
+def block_init(cfg: LMConfig, gen, device) -> dict:
+    """One block's parameters: RMSNorm, GQA projections, RMSNorm, SwiGLU
+    (also the hybrid's shared block)."""
+    pd = cfg.param_dtype
+    return {
+        "ln_attn": L.rmsnorm_init(cfg.d_model, device=device, dtype=pd),
+        "attn": L.gqa_init(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                           cfg.resolved_head_dim, device=device, dtype=pd),
+        "ln_ffn": L.rmsnorm_init(cfg.d_model, device=device, dtype=pd),
+        "ffn": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, device=device,
+                             dtype=pd),
+    }
+
+
+def block_apply(cfg: LMConfig, p: dict, h, positions):
+    """A block over a sequence: ``(h, (k, v))``."""
+    hn = L.rmsnorm(p["ln_attn"], h, cfg.norm_eps)
+    a, kv = _attn_full(cfg, p["attn"], hn, positions)
+    h = h + a
+    h = h + L.swiglu(p["ffn"], L.rmsnorm(p["ln_ffn"], h, cfg.norm_eps))
+    return h, kv
+
+
+def decode_slots(cache: dict, pos: torch.Tensor, ring: bool):
+    """The cache slot each row's new token takes — ``pos % w`` on a ring
+    buffer, else ``min(pos, w − 1)`` — and the cache's positions with it
+    written: ``(slot, new_pos)``."""
+    w = cache["pos"].shape[1]
+    slot = pos % w if ring else torch.clamp(pos, max=w - 1)
+    new_pos = cache["pos"].clone()
+    new_pos[torch.arange(pos.shape[0], device=pos.device), slot] = \
+        pos.to(new_pos.dtype)
+    return slot, new_pos
+
+
+def block_decode(cfg: LMConfig, p: dict, h: torch.Tensor, pos, k_c, v_c,
+                 slot, new_pos, window: int) -> torch.Tensor:
+    """One token (B, 1, d) through a block: its key and value, roped at
+    ``pos``, written into ``k_c``/``v_c`` (B, W, Hkv, D) at ``slot`` in
+    place, attention over the cache, then SwiGLU, both residual."""
+    hd = cfg.resolved_head_dim
+    b = h.shape[0]
+    hn = L.rmsnorm(p["ln_attn"], h, cfg.norm_eps)
+    q, k, v = L.gqa_project(p["attn"], hn, cfg.num_heads, cfg.num_kv_heads,
+                            hd)
+    q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
+    bidx = torch.arange(b, device=h.device)
+    k_c[bidx, slot] = k[:, 0].to(k_c.dtype)
+    v_c[bidx, slot] = v[:, 0].to(v_c.dtype)
+    out = L.decode_attention(q, k_c, v_c, q_position=pos,
+                             kv_positions=new_pos, window=window)
+    h = h + L.dense(p["attn"]["wo"], out.reshape(b, 1, cfg.num_heads * hd))
+    return h + L.swiglu(p["ffn"], L.rmsnorm(p["ln_ffn"], h, cfg.norm_eps))
+
+
+# ---------------------------------------------------------------------------
+# The dense backbone
+# ---------------------------------------------------------------------------
+
+
+def _check_dense(cfg: LMConfig) -> None:
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"arch_type {cfg.arch_type!r} ({cfg.name}): the port's "
+            f"transformer is the dense GQA backbone; its MoE and VLM-prefix "
+            f"variants are not ported yet (ROADMAP.md, module queue A.10)")
+
+
+def init(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
+    """Random parameters with the reference's structure and init scheme,
+    drawn from ``gen`` on ``device`` (``None`` → ``"cuda"``)."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    pd = cfg.param_dtype
+    blocks = tree_stack_layers(lambda: block_init(cfg, gen, dev),
+                               cfg.num_layers)
+    return {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev,
+                              dtype=pd),
+        "blocks": blocks,
+        "ln_final": L.rmsnorm_init(cfg.d_model, device=dev, dtype=pd),
+        "unembed": L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                device=dev, dtype=pd),
+    }
+
+
+def _residual(cfg: LMConfig, p: dict, h, positions):
+    return block_apply(cfg, p, h, positions)[0]
+
+
+def forward_train(cfg: LMConfig, params, tokens):
+    """(B, S) tokens -> ((B, S, V) logits, the zero MoE aux loss).  With
+    ``cfg.remat``, when gradients are taken, each layer keeps only its
+    input and runs its forward again in the backward."""
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        a.requires_grad for a in tree_leaves(params))
+    h = L.embed(params["embed"], tokens, cfg.activation_dtype)
+    positions = torch.arange(tokens.shape[1], device=h.device)
+    for bp in tree_unstack(params["blocks"]):
+        if remat:
+            h = checkpoint(_residual, cfg, bp, h, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _residual(cfg, bp, h, positions)
+    h = L.rmsnorm(params["ln_final"], h, cfg.norm_eps)
+    logits = L.dense(params["unembed"], h)
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(cfg: LMConfig, params, tokens, labels):
+    """``(ce, {"ce": ce, "moe_aux": 0})``: a dense model has no MoE
+    auxiliary loss, so the reference's ``ce + aux_loss_weight · aux`` is
+    ``ce``."""
+    logits, aux = forward_train(cfg, params, tokens)
+    ce = cross_entropy(logits, labels, chunk=cfg.logits_chunk)
+    return ce, {"ce": ce, "moe_aux": aux}
+
+
+def make_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
+    """KV cache: roped keys and values per layer ``(L, B, max_len, Hkv,
+    D)`` and each slot's position ``(B, max_len)`` (−1: empty).
+    ``max_len`` is the ring's size under a decode window."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                          device=dev),
+    }
+
+
+def prefill(cfg: LMConfig, params, tokens):
+    """(B, S) tokens -> ((B, V) last-position logits, a KV cache of the
+    prompt's length)."""
+    h = L.embed(params["embed"], tokens, cfg.activation_dtype)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=h.device)
+    ks, vs = [], []
+    for bp in tree_unstack(params["blocks"]):
+        h, (k, v) = block_apply(cfg, bp, h, positions)
+        ks.append(k)
+        vs.append(v)
+    hl = L.rmsnorm(params["ln_final"], h[:, -1:], cfg.norm_eps)
+    logits = L.dense(params["unembed"], hl)[:, 0]
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+                    "pos": positions.to(torch.int32)[None].repeat(b, 1)}
+
+
+def decode_step(cfg: LMConfig, params, cache: dict, token, pos):
+    """One token (B, 1) at positions ``pos`` (B,) through every layer,
+    its keys and values written at slot ``pos % W`` under a decode window
+    (a ring buffer), else ``min(pos, W − 1)``.  Returns ((B, V) logits,
+    the new cache; the given one is not modified)."""
+    h = L.embed(params["embed"], token, cfg.activation_dtype)
+    slot, new_pos = decode_slots(cache, pos, bool(cfg.decode_window))
+    window = cfg.decode_window or cfg.sliding_window
+    ks, vs = cache["k"].clone(), cache["v"].clone()
+    for i, bp in enumerate(tree_unstack(params["blocks"])):
+        h = block_decode(cfg, bp, h, pos, ks[i], vs[i], slot, new_pos,
+                         window)
+    h = L.rmsnorm(params["ln_final"], h, cfg.norm_eps)
+    logits = L.dense(params["unembed"], h)[:, 0]
+    return logits, {"k": ks, "v": vs, "pos": new_pos}

@@ -11,25 +11,27 @@ One interface over the backbone modules:
 
 ``batch`` is a dict holding ``tokens`` (and ``labels`` for the loss;
 ``audio_embeds`` or ``vision_embeds`` for the stubbed-frontend families,
-as in the reference).  The port serves and trains the ``ssm``
-family (``models.mamba2``); the other families raise
+as in the reference).  The port serves the ``ssm`` (``models.mamba2``),
+``hybrid`` (``models.hybrid``) and ``dense`` (``models.transformer``)
+families and trains ``ssm``; ``moe``, ``vlm`` and ``audio`` raise
 ``NotImplementedError`` (ROADMAP.md, module queue A.10).  ``init`` takes
 a ``torch.Generator`` where the reference takes a PRNG key.
 """
 
 from __future__ import annotations
 
-from repro_torch.models import mamba2
+from repro_torch.models import hybrid, mamba2, transformer
 from repro_torch.models.config import LMConfig
 
-_FAMILY = {"ssm": mamba2}
+_FAMILY = {"ssm": mamba2, "hybrid": hybrid, "dense": transformer}
 
 
 def backbone(cfg: LMConfig):
     if cfg.arch_type not in _FAMILY:
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} ({cfg.name}) is not ported yet: "
-            f"the port serves 'ssm' (ROADMAP.md, module queue A.10)")
+            f"the port serves {', '.join(map(repr, _FAMILY))} (ROADMAP.md, "
+            f"module queue A.10)")
     return _FAMILY[cfg.arch_type]
 
 

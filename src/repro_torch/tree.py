@@ -36,3 +36,27 @@ def tree_structure(tree):
         return (type(tree).__name__,) + tuple(tree_structure(v)
                                               for v in tree)
     return "*"
+
+
+def tree_stack_layers(make_layer: Callable, n: int):
+    """``n`` trees of ``make_layer()`` stacked ``(n, ...)`` leaf by leaf —
+    the reference's ``jax.vmap`` of a layer init — filled one layer at a
+    time, so only one layer's temporaries exist at once."""
+    stacked = None
+    for i in range(n):
+        layer = make_layer()
+        if stacked is None:
+            stacked = tree_map(lambda a: a.new_empty((n,) + a.shape), layer)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+    return stacked
+
+
+def tree_unstack(stacked) -> list:
+    """Every layer of a tree stacked ``(n, ...)`` as views, each leaf
+    unbound once: the backward of ``unbind`` stacks the layers' gradients
+    once, where a view ``a[i]`` per layer would allocate a zero tensor
+    the size of the whole stack for each layer's gradient (3.46 GB of
+    ``in_proj`` at mamba2-2.7b's width, 64 times a step)."""
+    unbound = tree_map(lambda a: a.unbind(0), stacked)
+    n = len(tree_leaves(stacked)[0])
+    return [tree_map(lambda _, u: u[i], stacked, unbound) for i in range(n)]

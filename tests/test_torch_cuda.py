@@ -599,6 +599,33 @@ def test_flash_attention_tiles_head_dims_and_gqa(cuda, d, s, causal, window,
         causal=causal, window=window))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [1, 63, 1024], ids=["S1", "S63", "S1024"])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 32, 80), (16, 8, 128)],
+                         ids=["zamba2_D80", "internlm2_gqa"])
+def test_flash_attention_lm_head_shapes(cuda, hq, hkv, d, s, dtype):
+    """The LM backbones' causal attention at their head shapes — zamba2's
+    32 heads of D 80 (the D 128 template with a partial row) and
+    internlm2's 16 query heads over 8 kv heads of D 128 — on ``(B, S, H,
+    D)`` projections seen as ``(B, H, S, D)``, as ``transformer.attn_full``
+    hands them over; S 1, 63 (one partial tile) and 1024."""
+    gen = torch.Generator(device=cuda).manual_seed(d + s)
+    q = torch.randn(2, s, hq, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, s, hkv, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+    ops.reset_launches()
+    got = ops.flash_attention_gqa(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.transpose(1, 2).is_contiguous()
+    rep = hq // hkv
+    _close(got, ref.ref_flash_attention(q, k.repeat_interleave(rep, dim=1),
+                                        v.repeat_interleave(rep, dim=1),
+                                        causal=True))
+
+
 _FLAG_MIXES = {
     "all_ddpm": lambda k: ["ddpm"] * k,
     "all_fm": lambda k: ["fm"] * k,
@@ -773,6 +800,7 @@ def _ssd_check(x, dt, A, B, C, chunk):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,s,p,n,chunk", [
     (2, 8, 512, 64, 128, 128),      # mamba2-2.7b head shape, 4 chunks
+    (2, 8, 512, 64, 64, 128),       # zamba2-2.7b head shape: N 64
     (1, 4, 100, 64, 128, 128),      # S < chunk: one partial tile
     (2, 3, 64, 32, 16, 16),         # the reduced config's shape
     (1, 2, 48, 8, 32, 8),           # small head and state, chunk 8
@@ -836,6 +864,15 @@ def test_ssd_scan_kernel_mixer_shape_and_repeatable(cuda):
     y1, s1 = ops.ssd_scan(*views, chunk=128)
     torch.cuda.synchronize()
     assert torch.equal(y0, y1) and torch.equal(s0, s1)
+
+
+def test_ssd_scan_kernel_zamba2_mixer_shape(cuda):
+    """zamba2-2.7b's mixer in one scoring request — x ``(4, 80, 1024, 64)``
+    bf16 as a strided view of the projection, state N 64 (the kernel's
+    scratch holds 128 columns: the rest must be read as zeros), chunk
+    128 — against the plain version."""
+    _ssd_check(*_ssd_views(cuda, 4, 80, 1024, 64, 64, torch.bfloat16,
+                           seed=17), chunk=128)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -905,6 +942,56 @@ def test_mamba2_forward_runs_the_scan_kernel(cuda):
     for lg, pos in ((last, 47), (step, 48)):
         err = (lg.cpu() - want[:, pos]).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("zamba2-2.7b", {}), ("zamba2-2.7b", dict(head_dim=80)),
+    ("internlm2-1.8b", dict(num_kv_heads=2))],
+    ids=["hybrid", "hybrid_D80", "dense_gqa"])
+def test_lm_backbones_run_the_kernels(cuda, arch, over):
+    """The reduced hybrid and dense backbones on the card (float32): one
+    ``flash_attention`` launch per attention (each application of the
+    shared block, each dense layer) and one ``ssd_scan`` per mixer in
+    ``forward_train`` and ``prefill``, none in ``decode_step``; logits
+    within ``1e-4 · max|out|`` of the plain path's (the CPU run); prefill
+    (48 tokens, its cache copied into one of room 64) followed by a decode
+    step reproduces ``forward_train``'s logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch).reduced(**over)
+    attn = cfg.num_layers // (cfg.attn_every or 1)
+    ssd = cfg.num_layers if cfg.arch_type == "hybrid" else 0
+    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    want, _ = zoo.forward_train(cfg, params, {"tokens": toks})
+    card = tree_map(lambda a: a.to(cuda), params)
+    ops.reset_launches()
+    got, _ = zoo.forward_train(cfg, card, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES["flash_attention"], ops.LAUNCHES["ssd_scan"]) == \
+        (attn, ssd)
+    tol = 1e-4 * want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= tol
+    ops.reset_launches()
+    last, cache = zoo.prefill(cfg, card, {"tokens": toks[:, :48].to(cuda)})
+    room = zoo.make_cache(cfg, 2, 64, cuda)
+    for key, a in cache.items():
+        if key in ("k", "v"):
+            room[key][:, :, :48] = a
+        elif key == "pos":
+            room[key][:, :48] = a
+        else:
+            room[key] = a
+    pos = torch.full((2,), 48, dtype=torch.int32, device=cuda)
+    step, _ = zoo.decode_step(cfg, card, room, toks[:, 48:49].to(cuda), pos)
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES["flash_attention"], ops.LAUNCHES["ssd_scan"]) == \
+        (attn, ssd)
+    for lg, p in ((last, 47), (step, 48)):
+        assert (lg.cpu() - want[:, p]).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("param_dtype", ["native", "int8", "fp8"])
