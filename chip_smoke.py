@@ -29,7 +29,9 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    head shape, and the causal bf16 attention of phase 15's two LM paths:
    zamba2-2.7b's 32 heads of D 80 and internlm2-1.8b's 16 query heads
    over 8 kv heads of D 128, batch 4, S 1024, each with the staging its
-   operands take), the flag-form fuse kernel (the K 8 serving mix, K 12 on
+   operands take and the design that ran: the three bf16 cases must run
+   the tensor-core kernel, ``"wgmma bf16"``, the float32 DiT case the
+   FFMA template), the flag-form fuse kernel (the K 8 serving mix, K 12 on
    the runtime slot loop, K 2 all-DDPM and all-FM; bitwise, with
    ``floor_ms``), whose path
    ``ops.fused_convert_and_fuse`` is then driven once with the launch
@@ -166,8 +168,11 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    two random seeded experts each, two scoring requests (exactly 108
    ``ssd_scan`` + 18 ``flash_attention`` launches a zamba2 request, 48
    ``flash_attention`` an internlm2 one), a greedy decode (no launch),
-   a prefill (54 + 9; 24) whose cache has ``make_cache``'s leaves, and
-   one profiled scoring request each;
+   a prefill (54 + 9; 24) whose cache has ``make_cache``'s leaves,
+   one profiled scoring request each, and each at full width and cut
+   depth (zamba2 6 layers, internlm2 2) in bf16: one request's fused
+   log-probabilities through the attention kernel against the same
+   request with the plain attention on the card;
 16. runs the reduced zamba2 and internlm2 (4 query heads over 2 kv
    heads) ensembles (float32) on the GPU and on the CPU, as phase 8:
    fused log-probabilities, prefill logits and every cache leaf, greedy
@@ -795,20 +800,6 @@ FLASH_PATH_CASES = {"lm_hybrid": "zamba2_causal",
                     "lm_dense": "internlm2_causal_gqa"}
 
 
-def flash_staging(q, k, v) -> str:
-    """Which staging the attention launcher picks for these operands (its
-    rule, ``launch`` in ``csrc/flash_attention.cu``): 16-byte ``cp.async``
-    when D and every batch, head and row stride are whole 16-byte chunks
-    and every base is 16-byte aligned, else element by element."""
-    ev = 16 // q.element_size()
-    ok = q.shape[-1] % ev == 0 and all(
-        (t.shape[0] == 1 or t.stride(0) % ev == 0)
-        and (t.shape[1] == 1 or t.stride(1) % ev == 0)
-        and t.stride(2) % ev == 0 and t.data_ptr() % 16 == 0
-        for t in (q, k, v))
-    return "cp.async 16-byte" if ok else "element by element"
-
-
 def check_flash(ops, ref, dev) -> dict:
     """The attention kernel at the DiT's self-attention shape — q, k, v
     ``(B·g 32, S 256, H 12, D 64)`` projections read as ``(B, H, S, D)``
@@ -819,9 +810,16 @@ def check_flash(ops, ref, dev) -> dict:
     at a 4 × 1024-token request.  Library yardstick:
     ``scaled_dot_product_attention`` on the same inputs (float32 for the
     DiT; the windowed case with its mask; the causal ones
-    ``is_causal=True, enable_gqa=True``).  Returns the DiT case's numbers
-    and, under ``by_path``, each LM path's case's."""
+    ``is_causal=True, enable_gqa=True``).  Each row names the kernel
+    design that ran (``kernels/flash_attention.py::design``, the
+    launcher's rule mirrored, as ``staging_is_vec`` mirrors its 16-byte
+    staging rule): the three bf16 cases must run the tensor-core kernel,
+    the float32 DiT case the FFMA template.  Returns
+    the DiT case's numbers and, under ``by_path``, each LM path's
+    case's."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import design as flash_design
+    from repro_torch.kernels.flash_attention import staging_is_vec
 
     gen = torch.Generator(device=dev).manual_seed(14)
     rows = []
@@ -831,6 +829,8 @@ def check_flash(ops, ref, dev) -> dict:
                 .to(dtype) for _ in range(2))
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
         kw = dict(causal=causal, window=window)
+        design = flash_design(q, k, v)
+        want_design = "FFMA" if dtype == torch.float32 else "wgmma bf16"
 
         def kern():
             return ops.flash_attention(q, k, v, **kw)
@@ -884,12 +884,16 @@ def check_flash(ops, ref, dev) -> dict:
                    max_abs_err=err, tol=tol, ms=t_k, wrapper_ms=t_w,
                    plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
                    share_of_bound=t_b / t_k, tflops=flops / t_k / 1e9,
-                   staging=flash_staging(q, k, v))
+                   staging="cp.async 16-byte" if staging_is_vec(q, k, v)
+                   else "element by element", design=design)
         if not rows:                        # the DiT shape: clocks too
             row.update(clocks_under(kern))
         print("flash_attention case " + json.dumps(row))
         if not ok:
             fail(f"flash_attention disagrees with its plain version: {row}")
+        if design != want_design:
+            fail(f"flash_attention ran the {design} design where "
+                 f"{want_design} was due: {row}")
         rows.append(row)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2848,8 +2852,10 @@ def _plain_ops(ops, ref):
 
     def flash_attention(q, k, v, *, causal=True, window=0,
                         softmax_scale=None):
-        return ref.ref_flash_attention(q, k, v, causal=causal, window=window,
-                                       softmax_scale=softmax_scale)
+        rep = q.shape[1] // k.shape[1]     # GQA: repeat the kv heads
+        return ref.ref_flash_attention(
+            q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
+            causal=causal, window=window, softmax_scale=softmax_scale)
     return dict(adaln_modulate=adaln_modulate, layernorm=layernorm,
                 flash_attention=flash_attention)
 
@@ -3342,6 +3348,68 @@ def profile_lm_request(ens) -> None:
              batch=LM_BATCH, tokens=LM_SEQ, experts=LM_EXPERTS)
 
 
+#: phase 15's bf16 check: fused log-probabilities of two experts at full
+#: width and cut depth, attention through the kernel against the same
+#: request with the plain attention (``_plain_ops``) on the card.  Both
+#: run one bf16 model; their attention outputs differ by at most a bf16
+#: ulp (phase 3), which the bf16 layers after it carry on to the bf16
+#: logits: the port's bf16 model bound, two bf16 ulps of the largest
+#: |logit| (``BF16_MODEL_REL`` in ``tests/test_torch_transformer.py``).
+#: A log-probability is its logit less the row's log-sum-exp, which moves
+#: by a softmax-weighted mean of the logits' changes.
+LM_BF16_REL_TOL = 2.0 ** -6
+#: the cut depths: zamba2's first 6 layers (its shared block once),
+#: internlm2's first 2 (few bf16 layers after the attention to carry a
+#: rounding flip further)
+LM_BF16_LAYERS = {"zamba2-2.7b": 6, "internlm2-1.8b": 2}
+
+
+def compare_lm_attention_bf16(ops, ref, dev, arch: str) -> None:
+    """Phase 15's kernel-vs-plain check of the bf16 attention in a served
+    model: ``arch`` at full width, ``LM_BF16_LAYERS`` deep, bf16, two
+    random seeded experts, one 4 × 1024-token request's fused
+    log-probabilities through the attention kernel (the tensor-core
+    design) and through ``_plain_ops``' attention, within
+    ``LM_BF16_REL_TOL`` of the experts' largest |logit| (their forward
+    with the plain attention); exactly one attention launch per attention
+    of each expert's forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=LM_BF16_LAYERS[arch])
+    experts = [zoo.init(cfg, torch.Generator(device=dev).manual_seed(41 + k),
+                        dev) for k in range(LM_EXPERTS)]
+    ens = lm_ensemble(cfg, experts, seed=13)
+    toks = torch.from_numpy(lm_request(cfg.vocab_size,
+                                       np.random.default_rng(14), LM_BATCH,
+                                       LM_SEQ)[0]).to(dev)
+    ops.reset_launches()
+    got = ens.fused_logprobs(toks)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["flash_attention"]
+    saved = ops.flash_attention
+    try:
+        ops.flash_attention = _plain_ops(ops, ref)["flash_attention"]
+        want = ens.fused_logprobs(toks)
+        scale = max(zoo.forward_train(cfg, p, {"tokens": toks})[0]
+                    .abs().max().item() for p in experts)
+    finally:
+        ops.flash_attention = saved
+    err = (got.float() - want.float()).abs().max().item()
+    n_attn = LM_EXPERTS * lm_forward_launches(cfg)["flash_attention"]
+    row = dict(arch=arch, layers=cfg.num_layers, dtype="bfloat16",
+               batch=LM_BATCH, tokens=LM_SEQ, max_abs_err=err,
+               rel_err=err / scale, max_abs_logit=scale,
+               tol=LM_BF16_REL_TOL * scale, flash_attention=launches,
+               flash_attention_want=n_attn)
+    print("lm bf16 attention kernel-vs-plain " + json.dumps(row))
+    if not (bool(torch.isfinite(got).all()) and err <= LM_BF16_REL_TOL * scale
+            and launches == n_attn):
+        fail(f"{arch}: bf16 log-probabilities through the attention kernel "
+             f"differ from the plain attention's: {row}")
+
+
 #: phases 8 and 16's reduced float32 models: arch -> reduced() overrides
 #: (internlm2 with 4 query heads over 2 kv heads: its own reduction is
 #: 4/4, and the GQA path is the one to hold)
@@ -3800,6 +3868,10 @@ def main() -> None:
         launches.update(lm_launches)
         profile_lm_request(ens)
         del ens
+    for arch in ("zamba2-2.7b", "internlm2-1.8b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        compare_lm_attention_bf16(ops, ref, dev, arch)
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("15 (hybrid and dense LM serving and profiles)")

@@ -10,6 +10,12 @@ Any ``S`` works (partial tiles are masked).  Its plain version is
 ``kernels.ref.ref_flash_attention``; the model code reaches both through
 ``kernels.ops.flash_attention`` and ``kernels.ops.flash_attention_gqa``.
 
+One launch runs one of two forward kernels of the source, by shape
+(``design`` mirrors the rule): bf16 with ``D`` a multiple of 16 up to 128
+and 16-byte staging goes to the tensor-core kernel (``wgmma`` for q·kᵀ,
+p split in two bf16 terms for p·v), everything else — float32, the DiT
+path — to the FFMA template.
+
 ``flash_attention_bwd`` launches the backward (three kernels of the same
 source: Δ, then dK, dV and each key tile's share of dQ, then dQ):
 non-causal float32 MHA with ``D ≤ 128``, from the forward's row
@@ -33,8 +39,40 @@ MAX_D = 256
 #: largest head dim of the backward
 BWD_MAX_D = 128
 _MAX_HEADS = 65535             # CUDA grid y limit on B·H
+#: the tensor-core kernel's widest head dim, its query tile and its grid
+#: y limit on query tiles
+TC_MAX_D = 128
+_TC_BQ, _TC_MAX_TILES = 128, 65535
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def staging_is_vec(q, k, v) -> bool:
+    """The launcher's 16-byte staging rule: D and every batch, head and
+    row stride of q, k, v and the output (``empty_like(q)``) whole 16-byte
+    chunks of elements, every base 16-byte aligned (the stride of an axis
+    of length 1 is never used)."""
+    ev = 16 // q.element_size()
+    out = torch.empty_like(q, device="meta")
+
+    def rows_ok(t):
+        return ((t.shape[0] == 1 or t.stride(0) % ev == 0)
+                and (t.shape[1] == 1 or t.stride(1) % ev == 0)
+                and t.stride(2) % ev == 0)
+    return (q.shape[-1] % ev == 0 and rows_ok(out)
+            and all(rows_ok(t) and t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def design(q, k, v) -> str:
+    """Which forward kernel one launch on these operands runs (the rule of
+    ``flash_attention`` in ``csrc/flash_attention.cu``): ``"wgmma bf16"``
+    for bf16 with ``D % 16 == 0``, ``D ≤ 128``, 16-byte staging and at most
+    65,535 query tiles of 128, else ``"FFMA"``."""
+    s, d = q.shape[2], q.shape[3]
+    if (q.dtype == torch.bfloat16 and d % 16 == 0 and d <= TC_MAX_D
+            and -(-s // _TC_BQ) <= _TC_MAX_TILES and staging_is_vec(q, k, v)):
+        return "wgmma bf16"
+    return "FFMA"
 
 
 @functools.cache

@@ -139,6 +139,99 @@ def test_flash_attention_gqa_matches_jax_ops(monkeypatch, pallas, hq, hkv,
     _assert_rel(got, want, F32_REL)
 
 
+# --- the tensor-core kernel's bf16 p·v ---------------------------------------
+
+
+def _split_pv(q, k, v, causal, window, terms):
+    """The bf16 tensor-core kernel's arithmetic written in torch: float32
+    logits of the bf16 values (each product exact), ``p = exp(s − m)`` in
+    float32 with masked logits at probability 0, then ``p·v`` with p as
+    ``terms`` bf16 terms — 2: ``p_hi = bf16(p)`` and
+    ``p_lo = bf16(p − p_hi)``, 1: ``p_hi`` alone — each product exact and
+    summed in float32, over ``l = Σ p``.  The float32 output before the
+    kernel's one rounding to bf16."""
+    s, d = q.shape[2], q.shape[3]
+    logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / d ** 0.5)
+    pos = torch.arange(s)
+    mask = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        mask &= pos[None] <= pos[:, None]
+    if window:
+        mask &= pos[:, None] - pos[None] < window
+    logits = logits.masked_fill(~mask, -torch.inf)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    hi = p.to(torch.bfloat16).float()
+    acc = hi @ v.float()
+    if terms == 2:
+        acc = acc + (p - hi).to(torch.bfloat16).float() @ v.float()
+    return acc / p.sum(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("d,causal,window", [
+    (80, True, 0),          # zamba2's head dim, causal
+    (128, False, 0),        # internlm2's head dim, unmasked
+    (64, True, 96),         # causal with a window
+], ids=["D80_causal", "D128_full", "D64_causal_w96"])
+def test_bf16_two_term_p_split_matches_the_reference_kernel(monkeypatch, d,
+                                                            causal, window):
+    """Why the bf16 tensor-core kernel splits p: q, k, v drawn from a seed
+    and rounded to bf16 go through the reference's Pallas kernel
+    (interpret mode) and through ``_split_pv``.  With p as two bf16 terms
+    the output is within one bf16 ulp of ``max|out|`` of the reference's
+    bf16 output, and within ``2⁻¹⁵`` of ``max|out|`` of its float32 output
+    (the same bf16 values in float32: the reference before its rounding):
+    16 bits of p, an error near 2⁻¹⁷.  One bf16 term keeps 8 bits; its
+    larger error is reported in the messages, not asserted."""
+    monkeypatch.setenv("REPRO_FORCE_PALLAS", "1")
+    pairs = [_pair(_draw((1, 2, 256, d), 60 + i), jnp.bfloat16)
+             for i in range(3)]
+    kw = dict(causal=causal, window=window, block_q=128, block_k=128)
+    want16 = np.asarray(jops.flash_attention(*(j for j, _ in pairs), **kw)
+                        .astype(jnp.float32))
+    want32 = np.asarray(jops.flash_attention(
+        *(j.astype(jnp.float32) for j, _ in pairs), **kw))
+    tq, tk, tv = (t for _, t in pairs)
+    two = _split_pv(tq, tk, tv, causal, window, terms=2)
+    one = _split_pv(tq, tk, tv, causal, window, terms=1)
+    top = np.abs(want32).max()
+    rel_two = np.abs(two.numpy() - want32).max() / top
+    rel_one = np.abs(one.numpy() - want32).max() / top
+    note = (f"two bf16 terms: {rel_two:.3g} of max|out|; one bf16 term: "
+            f"{rel_one:.3g}")
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want16).max())) - 7)
+    err16 = np.abs(two.to(torch.bfloat16).float().numpy() - want16).max()
+    assert err16 <= ulp, (err16, ulp, note)
+    assert rel_two <= 2.0 ** -15, note
+
+
+def test_flash_design_rule():
+    """``design`` mirrors the launcher's rule: bf16 with D a multiple of
+    16 up to 128 and 16-byte staging runs the tensor-core kernel — also on
+    the DiT's and the LM's ``(B, S, H, D)`` projections seen as ``(B, H,
+    S, D)`` — and float32, bf16 at D 72 or 144, and a view one element off
+    16-byte alignment run the FFMA template."""
+    from repro_torch.kernels.flash_attention import design
+
+    def bshd(b, s, h, d, dtype=torch.bfloat16):
+        return torch.zeros(b, s, h, d, dtype=dtype).transpose(1, 2)
+
+    q, kv = bshd(4, 1024, 16, 128), bshd(4, 1024, 8, 128)
+    assert design(q, kv, kv) == "wgmma bf16"
+    z = bshd(4, 1024, 32, 80)
+    assert design(z, z, z) == "wgmma bf16"
+    for d in (16, 48, 112):
+        x = torch.zeros(2, 3, 100, d, dtype=torch.bfloat16)
+        assert design(x, x, x) == "wgmma bf16"
+    f = bshd(32, 256, 12, 64, torch.float32)
+    assert design(f, f, f) == "FFMA"
+    for d in (72, 144):
+        x = torch.zeros(2, 3, 100, d, dtype=torch.bfloat16)
+        assert design(x, x, x) == "FFMA"
+    flat = torch.zeros(2 * 3 * 100 * 64 + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(2, 3, 100, 64)
+    assert design(off, off, off) == "FFMA"
+
+
 # --- AdaLN fuse --------------------------------------------------------------
 
 

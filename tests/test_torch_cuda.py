@@ -40,6 +40,7 @@ from repro_torch.core import param_store
 from repro_torch.core.conversion import velocity_scale
 from repro_torch.core.schedules import get_schedule
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import design as flash_design
 from repro_torch.kernels.hetero_fuse import (hetero_fuse_coeffs,
                                              hetero_fuse_step)
 from repro_torch.kernels.ragged_gemm import ragged_gemm
@@ -550,11 +551,18 @@ def test_flash_attention_bshd_views(cuda, s, causal, window, dtype):
                                         window=window))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [16, 72, 128])
-def test_flash_attention_head_dims_and_scale(cuda, d):
+def test_flash_attention_head_dims_and_scale(cuda, d, dtype):
+    """bf16 at D 16 and 128 runs the tensor-core kernel; bf16 at D 72 (not
+    a multiple of 16) and every float32 call run the FFMA template, and
+    both match the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(d)
     q, k, v = (torch.randn(2, 3, 128, d, generator=gen, device=cuda)
-               for _ in range(3))
+               .to(dtype) for _ in range(3))
+    tc = dtype == torch.bfloat16 and d % 16 == 0
+    assert flash_design(q, k, v) == ("wgmma bf16" if tc else "FFMA")
     got = ops.flash_attention(q, k, v, causal=True, softmax_scale=0.3)
     _close(got, ref.ref_flash_attention(q, k, v, causal=True,
                                         softmax_scale=0.3))
@@ -577,15 +585,17 @@ def test_flash_attention_gqa_indexes_kv_heads(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("s", [100, 200], ids=["S100", "S200"])
-@pytest.mark.parametrize("d", [32, 48, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128, 256])
 @pytest.mark.parametrize("causal,window", [(True, 50), (False, 0)],
                          ids=["causal_w50", "full"])
 def test_flash_attention_tiles_head_dims_and_gqa(cuda, d, s, causal, window,
                                                  dtype):
     """Sequence lengths that fill no query or kv tile (S 100 and 200 leave
-    partial tiles of 64 and 32 rows), every head-dim template (D 48 uses
-    D 64's with a partial row), with 4 query heads over 2 kv heads, and
-    causal and window masks together."""
+    partial tiles of 64 and 32 rows), every head-dim template of the FFMA
+    kernel (float32; D 48 uses D 64's with a partial row) and every width
+    of the tensor-core kernel (bf16, D 16–128 by 16: V's 32-, 64- and
+    128-byte swizzles; D 256 stays on the FFMA template), with 4 query
+    heads over 2 kv heads, and causal and window masks together."""
     gen = torch.Generator(device=cuda).manual_seed(d + s)
     q = torch.randn(2, 4, s, d, generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn(2, 2, s, d, generator=gen, device=cuda).to(dtype)
@@ -599,31 +609,74 @@ def test_flash_attention_tiles_head_dims_and_gqa(cuda, d, s, causal, window,
         causal=causal, window=window))
 
 
+def _plain_lse(q, k, causal, window, scale):
+    """Each query row's float32 log-sum-exp of its scaled, masked logits
+    (the plain version's logits), ``(B, H, S)``."""
+    s = q.shape[2]
+    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+    pos = torch.arange(s, device=q.device)
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None] <= pos[:, None]
+    if window:
+        mask &= pos[:, None] - pos[None] < window
+    return torch.logsumexp(logits.masked_fill(~mask, -torch.inf), dim=-1)
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 256)],
+                         ids=["causal", "full", "causal_w256"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("s", [1, 63, 1024], ids=["S1", "S63", "S1024"])
-@pytest.mark.parametrize("hq,hkv,d", [(32, 32, 80), (16, 8, 128)],
-                         ids=["zamba2_D80", "internlm2_gqa"])
-def test_flash_attention_lm_head_shapes(cuda, hq, hkv, d, s, dtype):
-    """The LM backbones' causal attention at their head shapes — zamba2's
-    32 heads of D 80 (the D 128 template with a partial row) and
-    internlm2's 16 query heads over 8 kv heads of D 128 — on ``(B, S, H,
-    D)`` projections seen as ``(B, H, S, D)``, as ``transformer.attn_full``
-    hands them over; S 1, 63 (one partial tile) and 1024."""
+@pytest.mark.parametrize("s", [1, 63, 1000, 1024],
+                         ids=["S1", "S63", "S1000", "S1024"])
+@pytest.mark.parametrize("hq,hkv,d", [
+    (32, 32, 80), (16, 8, 128), (32, 8, 64), (32, 32, 64), (32, 32, 128),
+    (16, 8, 64), (16, 8, 80), (32, 8, 80), (32, 8, 128)],
+    ids=["zamba2_D80", "internlm2_gqa", "32over8_D64", "32_D64", "32_D128",
+         "16over8_D64", "16over8_D80", "32over8_D80", "32over8_D128"])
+def test_flash_attention_lm_head_shapes(cuda, hq, hkv, d, s, dtype, causal,
+                                        window, layout):
+    """The LM backbones' attention at their head shapes — zamba2's 32 heads
+    of D 80 and internlm2's 16 query heads over 8 kv heads of D 128 — and
+    the rest of D 64, 80, 128 × (32, 32), (16, 8), (32, 8) heads; causal,
+    full and causal with a window; on ``(B, S, H, D)`` projections seen as
+    ``(B, H, S, D)``, as ``transformer.attn_full`` hands them over, and on
+    contiguous ``(B, H, S, D)``; S 1, 63 (one partial tile), 1000 (a
+    partial last tile) and 1024.  bf16 runs the tensor-core kernel, float32
+    the FFMA template; the row log-sum-exp the kernel also writes is held
+    against the plain one within ``1e-5`` of its largest magnitude."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
     gen = torch.Generator(device=cuda).manual_seed(d + s)
-    q = torch.randn(2, s, hq, d, generator=gen, device=cuda).to(dtype)
-    k, v = (torch.randn(2, s, hkv, d, generator=gen, device=cuda).to(dtype)
+    shape = (2, s, hq, d) if layout == "bshd" else (2, hq, s, d)
+    q = torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(*shape[:2], hkv, d, generator=gen, device=cuda)
+            .to(dtype) if layout == "bshd" else
+            torch.randn(2, hkv, s, d, generator=gen, device=cuda).to(dtype)
             for _ in range(2))
-    q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+    if layout == "bshd":
+        q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+    assert flash_design(q, k, v) == (
+        "wgmma bf16" if dtype == torch.bfloat16 else "FFMA")
     ops.reset_launches()
-    got = ops.flash_attention_gqa(q, k, v, causal=True)
+    got = ops.flash_attention_gqa(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == 1
-    assert got.transpose(1, 2).is_contiguous()
+    if layout == "bshd":
+        assert got.transpose(1, 2).is_contiguous()
     rep = hq // hkv
-    _close(got, ref.ref_flash_attention(q, k.repeat_interleave(rep, dim=1),
-                                        v.repeat_interleave(rep, dim=1),
-                                        causal=True))
+    kr, vr = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    _close(got, ref.ref_flash_attention(q, kr, vr, causal=causal,
+                                        window=window))
+    again, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 with_lse=True)
+    assert torch.equal(again, got)
+    want = _plain_lse(q, kr, causal, window, d ** -0.5)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    err = (lse - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
 
 
 _FLAG_MIXES = {

@@ -1,7 +1,8 @@
 """Time the SSD scan's backward kernels and the mamba2-2.7b training step
-of several trees of this repository, in turns, on one card.
+of several trees of this repository, in turns, on one card — or their
+attention kernel, or their zamba2-2.7b and internlm2-1.8b scoring.
 
-    python3 tools/compare_trees.py [--only kernel|step|breakdown] TREE [TREE ...]
+    python3 tools/compare_trees.py [--only kernel|step|breakdown|flash|lm] TREE [TREE ...]
 
 Each TREE is the root of a checkout (this one, or an older commit unpacked
 with ``git archive`` into a directory ``.gitignore`` lists).  For each, in
@@ -11,10 +12,15 @@ its ``repro_torch``, builds its kernels, and runs its
 ``train_lm_full_width`` (phase 14), as that tree's ``chip_smoke.py`` would;
 the lines each prints are prefixed with the tree's position and name.
 ``--only breakdown`` instead profiles 20 backward calls at the mixer
-shape in bf16 and reports each kernel's device milliseconds a call.  The
+shape in bf16 and reports each kernel's device milliseconds a call.
+``--only flash`` runs the tree's ``check_flash`` (phase 3's attention
+cases) and ``--only lm`` its phase-15 serving of zamba2-2.7b and
+internlm2-1.8b (``serve_lm_full_width`` and ``profile_lm_request``).  The
 last line is one JSON object: per run, the tree, its mixer-shape backward
-row (or breakdown) and its training step's seconds and tokens/s.  Give the trees in turns
-(parent, change, change, parent) to see the spread.  Needs a CUDA device.
+row (or breakdown) and its training step's seconds and tokens/s, or its
+attention cases, or its scoring requests and profiles.  Give the trees in
+turns (parent, change, change, parent) to see the spread.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -48,20 +54,50 @@ def one(tree: str, only: str | None) -> dict:
     if only in (None, "kernel"):
         out["ssd_scan_bwd"] = chip_smoke.check_ssd_scan_bwd(ops, ref, dev)
     if only in (None, "step"):
-        rows = []
-
-        def grab(*args, **kw):     # the step's row, as chip_smoke prints it
-            line = " ".join(str(a) for a in args)
-            if line.startswith("lm_train {"):
-                rows.append(json.loads(line[len("lm_train "):]))
-            builtins.print(*args, **kw)
-
-        chip_smoke.print = grab
+        rows = grab(chip_smoke, "lm_train ")
         chip_smoke.train_lm_full_width(ops, dev)
         row = rows[-1]
         out["lm_train"] = {k: row[k] for k in (
             "step_s_median", "step_s_min", "tokens_per_s", "peak_bytes")}
+    if only == "flash":
+        rows = grab(chip_smoke, "flash_attention case ")
+        chip_smoke.check_flash(ops, ref, dev)
+        out["flash_attention"] = [{k: r[k] for k in (
+            "case", "design", "ms", "library_ms", "bound_ms",
+            "share_of_bound", "max_abs_err", "tol") if k in r} for r in rows]
+    if only == "lm":
+        requests = grab(chip_smoke, "lm request ")
+        profiles = grab(chip_smoke, "profile ")
+        for arch in ("zamba2-2.7b", "internlm2-1.8b"):
+            _, ens = chip_smoke.serve_lm_full_width(ops, dev, arch)
+            chip_smoke.profile_lm_request(ens)
+            del ens
+            torch.cuda.empty_cache()
+        out["lm"] = {
+            "scoring_s": {r["arch"]: [q["seconds"] for q in requests
+                                      if q["arch"] == r["arch"]
+                                      and q["path"] == "scoring"]
+                          for r in requests},
+            "profiles": [{k: p[k] for k in (
+                "arch", "profiled_request_s", "device_busy_ms",
+                "device_idle_share", "ms_by_category")} for p in profiles]}
     return out
+
+
+def grab(chip_smoke, prefix: str) -> list:
+    """The rows ``chip_smoke`` prints after ``prefix`` from now on, as
+    parsed JSON (its lines still print)."""
+    rows = []
+    inner = getattr(chip_smoke, "print", builtins.print)
+
+    def catch(*args, **kw):
+        line = " ".join(str(a) for a in args)
+        if line.startswith(prefix + "{"):
+            rows.append(json.loads(line[len(prefix):]))
+        inner(*args, **kw)
+
+    chip_smoke.print = catch
+    return rows
 
 
 def breakdown(chip_smoke, dev, calls: int = 20) -> dict:
@@ -100,7 +136,8 @@ def breakdown(chip_smoke, dev, calls: int = 20) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernel", "step", "breakdown"))
+    ap.add_argument("--only", choices=("kernel", "step", "breakdown",
+                                       "flash", "lm"))
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args()
