@@ -46,7 +46,11 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    forward's log-sum-exp, each against its plain version's gradients
    (and bitwise repeatable), timed beside its plain version and the
    library's backward (``F.layer_norm`` + the modulation's elementwise
-   ops; ``scaled_dot_product_attention``); and the SSD scan's backward
+   ops; ``scaled_dot_product_attention``), the attention backward also
+   causal in bf16 at phase 14's two LM training shapes (internlm2-1.8b's
+   16 query heads over 8 kv heads of D 128, zamba2-2.7b's 32 heads of D
+   80, batch 4, S 1024; bound by the bf16 and by the float32 rule,
+   SDPA's bf16 causal GQA backward beside it); and the SSD scan's backward
    kernel at the mixer shape (bf16 with ``d_state`` zero and not, float32,
    and ``S`` < chunk) from the forward's tile-start states, against its
    plain version's five gradients (bitwise repeatable), timed beside its
@@ -120,9 +124,10 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    its lines; beside them the training CLI, ``python -m
    repro_torch.launch.train --mode expert --steps 20 --out …``, must exit
    0 and write a checkpoint that loads, and ``--mode lm --arch
-   mamba2-2.7b --steps 3`` (reduced) and the LM example (``python -m
-   repro_torch.examples.decentralized_lm_experts --arch mamba2-2.7b``)
-   must exit 0 and print their lines;
+   mamba2-2.7b --steps 3`` and ``--arch internlm2-1.8b`` (reduced) and
+   the LM example (``python -m
+   repro_torch.examples.decentralized_lm_experts``, ``--arch
+   mamba2-2.7b`` and ``zamba2-2.7b``) must exit 0 and print their lines;
 10. (after phase 5, over phase 4's checkpoints) elastic membership at full
    width: capacity-10 native and int8 engines, all-live against the
    fixed engine, a request submitted before an eviction bitwise its
@@ -151,14 +156,18 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    falling loss on one fixed batch — then the three EMA checkpoints serve
    one batch-8, 8-step, CFG-7.5, top-2 request;
 14. (after phase 8) LM training at the full width and depth of
-   mamba2-2.7b (bf16, remat, 512-token CE chunks): a 2-layer float32
-   model's first-step gradients on the kernel path against the plain
-   path on the card, then one expert from random seeded weights trained
-   10 steps of 4 × 1024 ``lm_batch`` tokens through
-   ``make_lm_train_step`` (cut from the reference's 256 × 4096) — per-step
-   seconds, tokens/s, peak device memory (under 80 GB), exact launches
-   per step (``ssd_scan`` 128, ``ssd_scan_bwd`` 64), finite losses and a
-   falling loss on one fixed batch — and one more step under the
+   mamba2-2.7b, internlm2-1.8b and zamba2-2.7b (bf16, remat, 512-token CE
+   chunks): for each, a float32 model of 2 layers (zamba2: one group, 6
+   mixers and the shared block) at full width, its first-step gradients
+   on the kernel path against the plain path on the card, then one
+   expert from random seeded weights trained 10 steps of 4 × 1024
+   ``lm_batch`` tokens through ``make_lm_train_step`` (cut from the
+   reference's 256 × 4096) — per-step seconds, tokens/s, peak device
+   memory (under 80 GB), exact launches per step (mamba2 ``ssd_scan``
+   128, ``ssd_scan_bwd`` 64; internlm2 ``flash_attention`` 48,
+   ``flash_attention_bwd`` 24; zamba2 ``ssd_scan`` 108, ``ssd_scan_bwd``
+   54, ``flash_attention`` 18, ``flash_attention_bwd`` 9), finite losses
+   and a falling loss on one fixed batch — and one more step under the
    profiler;
 15. (after phase 14) serves zamba2-2.7b (the hybrid: 54 mamba2 layers,
    d 2560, state 64, the shared attention + SwiGLU block after every 6,
@@ -176,7 +185,8 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
 16. runs the reduced zamba2 and internlm2 (4 query heads over 2 kv
    heads) ensembles (float32) on the GPU and on the CPU, as phase 8:
    fused log-probabilities, prefill logits and every cache leaf, greedy
-   tokens, and on the GPU prefill + decode against ``forward_train``.
+   tokens, and on the GPU prefill + decode against ``forward_train``;
+   and one reduced ``make_lm_train_step`` step of each on both.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -1002,57 +1012,140 @@ def check_adaln_bwd(ops, ref, dev) -> dict:
                 share_of_bound_no_gamma=no_gamma["share_of_bound"])
 
 
+#: bf16 attention gradients against the plain version's float32 ones: half
+#: a bf16 ulp of each element from the final rounding, and Δ formed from
+#: the forward's bf16-rounded output where the plain version forms it from
+#: its float32 one (up to 0.9 of a bf16 ulp of the gradient's max in a CPU
+#: emulation at S 1024, D 80 and 128): two bf16 ulps of each gradient's
+#: largest |value|, on top of GRAD_REL_TOL of the largest of the three
+BF16_GRAD_REL_TOL = 2.0 ** -7
+
+#: (case, B, Hq, Hkv, S, D, causal, dtype, launches a training step) of
+#: the attention backward check: the DiT's training shape, then the
+#: causal bf16 attention of phase 14's two LM training paths (a 4 × 1024-
+#: token step): internlm2-1.8b's 24 layers (16 query heads over 8 kv
+#: heads of D 128) and zamba2-2.7b's 9 shared-block applications (32
+#: heads of D 80)
+FLASH_BWD_CASES = (
+    ("dit_self_attention", TRAIN_BATCH, 12, 12, 256, 64, False,
+     torch.float32, 12),
+    ("internlm2_causal_gqa", 4, 16, 8, 1024, 128, True, torch.bfloat16, 24),
+    ("zamba2_causal", 4, 32, 32, 1024, 80, True, torch.bfloat16, 9))
+#: the LM training paths whose kernels line entries take a case's numbers
+FLASH_BWD_PATH_CASES = {"lm_train_dense": "internlm2_causal_gqa",
+                        "lm_train_hybrid": "zamba2_causal"}
+
+
+def _bwd_grid_tail(b, hq, hkv, s, d, causal) -> float:
+    """The attention backward's tile grid, list-scheduled in dispatch
+    order (key tiles the slow axis) on 132 SMs holding one block each at
+    D > 64 (its registers) and two at D ≤ 64, each block's time its tile
+    pairs: the makespan over the ideal (total / slots).  Arithmetic on the
+    grid, not a measurement."""
+    import heapq
+
+    nt = -(-s // 64)
+    slots = [0] * (132 * (2 if d <= 64 else 1))
+    end = 0
+    for kt in range(nt):
+        for _ in range(b * hkv):
+            t = heapq.heappop(slots) + hq // hkv * (nt - kt if causal else nt)
+            heapq.heappush(slots, t)
+            end = max(end, t)
+    return end * len(slots) / (b * hq * nt * ((nt + 1) / 2 if causal
+                                              else nt))
+
+
 def check_flash_bwd(ops, ref, dev) -> dict:
-    """The attention backward kernel at the training shape — q, k, v and
-    dO ``(32, 256, 12, 64)`` projections read as ``(B, H, S, D)`` views,
-    non-causal float32, from the forward's output and row log-sum-exp —
-    against its plain version's dq, dk, dv.  Library yardstick: the
-    float32 backward of ``scaled_dot_product_attention`` on the same
-    inputs.  Bound: five S×S×D products a head (recompute q·kᵀ, dO·vᵀ,
-    Pᵀ·dO, dS·k, dSᵀ·q) at the float32 rate."""
+    """The attention backward kernel from the forward's output and row
+    log-sum-exp against its plain version's dq, dk, dv, bitwise
+    repeatable: at the DiT's training shape — q, k, v and dO ``(32, 256,
+    12, 64)`` projections read as ``(B, H, S, D)`` views, non-causal
+    float32 (within ``GRAD_REL_TOL`` of the largest gradient) — and at the
+    LM training shapes, causal bf16 (within that plus
+    ``BF16_GRAD_REL_TOL`` of each gradient's largest).  Library
+    yardstick: the backward of ``scaled_dot_product_attention`` on the
+    same inputs (the LM shapes ``is_causal``, ``enable_gqa``, bf16).
+    Bound: five products a head over the pairs the mask leaves open
+    (recompute q·kᵀ, dO·vᵀ, Pᵀ·dO, dS·k, dSᵀ·q) at the input dtype's rate
+    (``bound_ms``) and at the float32 rate (``bound_ms_f32``: every
+    product is a float32 FFMA), or the bytes of q, k, v, o, dO, lse, dq,
+    dk, dv.  Returns the DiT case's numbers and, under ``by_path``, each
+    LM training path's case's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
 
     gen = torch.Generator(device=dev).manual_seed(24)
-    b, h, s, d = TRAIN_BATCH, 12, 256, 64
-    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev)
-                   .transpose(1, 2) for _ in range(4))
-    out, lse = flash_attention(q, k, v, causal=False, with_lse=True)
+    rows = []
+    for name, b, hq, hkv, s, d, causal, dtype, per_step in FLASH_BWD_CASES:
+        q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(b, s, hkv, d, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        do = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
+        q, k, v, do = (a.transpose(1, 2) for a in (q, k, v, do))
+        out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
 
-    def kern():
-        return flash_attention_bwd(q, k, v, out, lse, do)
+        def kern():
+            return flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
 
-    def plain():
-        return ref.ref_flash_attention_bwd(q, k, v, do)
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
-    top = max(w.abs().max().item() for w in want)
-    err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    bitwise = all(torch.equal(a, g) for a, g in zip(kern(), got))
-    t_k = graph_ms(kern, 10)
-    t_p = cuda_ms(plain, 10, warmup=1)
-    try:
-        t_l = _library_bwd_ms(F.scaled_dot_product_attention, [q, k, v], do)
-    except RuntimeError as exc:                  # a yardstick only
-        print(f"library yardstick unavailable: {str(exc).splitlines()[0]}")
-        t_l = None
-    flops = 5 * 2.0 * s * s * d * b * h
-    nbytes = 4 * (8 * b * h * s * d + b * h * s)
-    t_b, by = bound_ms(nbytes, flops)
-    row = dict(case="dit_self_attention", B=b, H=h, S=s, D=d,
-               max_abs_err=err, tol=GRAD_REL_TOL * top,
-               bitwise_repeatable=bitwise, ms=t_k, plain_ms=t_p,
-               library_ms=t_l, bound_ms=t_b, bound_by=by,
-               share_of_bound=t_b / t_k, tflops=flops / t_k / 1e9)
-    row.update(clocks_under(kern))
-    print("flash_attention_bwd case " + json.dumps(row))
-    if not (err <= GRAD_REL_TOL * top and bitwise and all(
-            bool(torch.isfinite(g).all()) for g in got)):
-        fail(f"flash_attention_bwd disagrees with its plain version: {row}")
-    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=t_l,
-                bound_ms=t_b, bound_by=by)
+        def plain():
+            return ref.ref_flash_attention_bwd(q, k, v, do, causal=causal)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        top = max(w.abs().max().item() for w in want)
+        errs = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
+        tols = [GRAD_REL_TOL * top + (BF16_GRAD_REL_TOL * w.abs().max().item()
+                                      if dtype == torch.bfloat16 else 0.0)
+                for w in want]
+        bitwise = all(torch.equal(a, g) for a, g in zip(kern(), got))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        del want
+        t_k = graph_ms(kern, 10)
+        t_p = cuda_ms(plain, 10 if s <= 256 else 3, warmup=1)
+        try:
+            t_l = _library_bwd_ms(
+                lambda qq, kk, vv: F.scaled_dot_product_attention(
+                    qq, kk, vv, is_causal=causal, enable_gqa=hq != hkv),
+                [q, k, v], do)
+        except RuntimeError as exc:                  # a yardstick only
+            print(f"library yardstick unavailable: "
+                  f"{str(exc).splitlines()[0]}")
+            t_l = None
+        pairs = _open_pairs(s, causal, 0) * b * hq
+        flops = 5 * 2.0 * d * pairs
+        elt = q.element_size()
+        nbytes = (elt * d * s * b * (4 * hq + 4 * hkv)    # q o dO dq; k v dk dv
+                  + 4 * b * hq * s)                         # lse
+        t_b, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S
+                           if dtype == torch.float32 else BF16_FLOP_PER_S)
+        t_b32, by32 = bound_ms(nbytes, flops)
+        row = dict(case=name, B=b, Hq=hq, Hkv=hkv, S=s, D=d, causal=causal,
+                   dtype=str(dtype).replace("torch.", ""),
+                   max_abs_err=max(errs), errs_dq_dk_dv=errs,
+                   tols_dq_dk_dv=tols, bitwise_repeatable=bitwise, ms=t_k,
+                   plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
+                   share_of_bound=t_b / t_k, bound_ms_f32=t_b32,
+                   bound_by_f32=by32, share_of_bound_f32=t_b32 / t_k,
+                   tflops=flops / t_k / 1e9,
+                   launches_per_training_step=per_step,
+                   tile_kernel_blocks=b * hkv * -(-s // 64),
+                   grid_tail_share=_bwd_grid_tail(b, hq, hkv, s, d, causal))
+        row.update(clocks_under(kern))
+        print("flash_attention_bwd case " + json.dumps(row))
+        if not (finite and bitwise and all(
+                e <= t for e, t in zip(errs, tols))):
+            fail(f"flash_attention_bwd disagrees with its plain version: "
+                 f"{row}")
+        rows.append(row)
+        del got, out, lse
+        gc.collect()
+        torch.cuda.empty_cache()
+    case = {r["case"]: r for r in rows}
+    return dict(_summary(rows[0], rows[0]["max_abs_err"]),
+                by_path={path: _summary(case[name], case[name]["max_abs_err"])
+                         for path, name in FLASH_BWD_PATH_CASES.items()})
 
 
 #: the flag-form fuse kernel's cases: (name, objectives); the first is
@@ -2176,6 +2269,10 @@ LM_CLI = (
                                   "--steps", "3"], 3),
     ("repro_torch.examples.decentralized_lm_experts",
      ["--arch", "mamba2-2.7b"], 5),
+    ("repro_torch.launch.train", ["--mode", "lm", "--arch",
+                                  "internlm2-1.8b", "--steps", "3"], 3),
+    ("repro_torch.examples.decentralized_lm_experts",
+     ["--arch", "zamba2-2.7b"], 5),
 )
 
 
@@ -2244,7 +2341,7 @@ def run_cli(dev) -> None:
                 [results.pop() for _ in LM_CLI]):
             lines = out.strip().splitlines()
             for line in lines:
-                print(f"cli {cmd} | {line}")
+                print(f"cli {cmd} {' '.join(args)} | {line}")
             if p.returncode != 0 or len(lines) != n_lines:
                 fail(f"{cmd} {args} exited {p.returncode} with "
                      f"{len(lines)} lines: {err.strip()[-2000:]}")
@@ -3523,6 +3620,10 @@ LM_GRAD_REL_TOL = 1e-3
 
 #: a training step's kernel-name fragments -> category, first match wins
 LM_TRAIN_CATEGORIES = (
+    ("flash_attention_bwd_tile", "flash_attention_bwd tile kernel (dK, dV, "
+                                 "the dQ shares)"),
+    ("flash_attention_bwd", "flash_attention_bwd Δ and dQ sums"),
+    ("flash_attention", "flash_attention (forward and recompute)"),
     ("ssd_scan_bwd_states", "ssd_scan_bwd first launch: the tiles' state "
                             "sums"),
     ("ssd_scan_bwd_carry", "ssd_scan_bwd first launch: the carry"),
@@ -3558,19 +3659,57 @@ def _plain_scan(x, dt, A, B, C, *, chunk=128, head_block=None):
     return y.transpose(1, 2), state
 
 
+def _plain_attention(q, k, v, *, causal=True, window=0, softmax_scale=None):
+    """``ops.flash_attention`` as the plain version, kv heads repeated (the
+    gradient check's reference path on the card, through autograd)."""
+    from repro_torch.kernels import ref
+
+    rep = q.shape[1] // k.shape[1]
+    return ref.ref_flash_attention(q, k.repeat_interleave(rep, 1),
+                                   v.repeat_interleave(rep, 1),
+                                   causal=causal, window=window,
+                                   softmax_scale=softmax_scale)
+
+
+#: phase 14's path name of each LM family's training step
+LM_TRAIN_PATHS = {"ssm": "lm_train", "dense": "lm_train_dense",
+                  "hybrid": "lm_train_hybrid"}
+
+
+def lm_train_launches(cfg) -> dict:
+    """One training step's launches: a forward of every mixer's scan and
+    every attention, again under remat, and one backward of each."""
+    from repro_torch.models import hybrid
+
+    fwd = 2 if cfg.remat else 1
+    out = {}
+    if cfg.arch_type in ("ssm", "hybrid"):
+        out.update(ssd_scan=fwd * cfg.num_layers,
+                   ssd_scan_bwd=cfg.num_layers)
+    if cfg.arch_type in ("dense", "hybrid"):
+        attn = (hybrid.num_groups(cfg) if cfg.arch_type == "hybrid"
+                else cfg.num_layers)
+        out.update(flash_attention=fwd * attn, flash_attention_bwd=attn)
+    return out
+
+
 def _lm_grad_check(ops, dev, cfg) -> None:
-    """The first step's gradients of ``zoo.loss_fn`` through the scan
-    kernels and through the plain chunked algorithm, both on the card, for
-    2 layers of ``cfg`` at full width in float32 (remat and the 512-token
-    CE chunks as configured), batch 4 × 1024 from ``lm_batch``: every leaf
+    """The first step's gradients of ``zoo.loss_fn`` through the kernels
+    (scans, attention and their backward kernels) and through the plain
+    versions (the chunked scan, the plain attention), both on the card,
+    for 2 layers of ``cfg`` (one group — 6 mixers and the shared block —
+    of the hybrid) at full width in float32 (remat and the 512-token CE
+    chunks as configured), batch 4 × 1024 from ``lm_batch``: every leaf
     within ``LM_GRAD_REL_TOL`` of the plain one's max, and non-zero
-    wherever the plain path's is."""
+    wherever the plain path's is; the kernel path's launches exact."""
     from repro_torch.data import lm_batch
     from repro_torch.models import zoo
     from repro_torch.training.trainer import value_and_grad
     from repro_torch.tree import tree_leaves
 
-    c2 = dataclasses.replace(cfg, num_layers=2, param_dtype=torch.float32,
+    layers = cfg.attn_every if cfg.arch_type == "hybrid" else 2
+    c2 = dataclasses.replace(cfg, num_layers=layers,
+                             param_dtype=torch.float32,
                              activation_dtype=torch.float32)
     params = zoo.init(c2, torch.Generator(device=dev).manual_seed(64), dev)
     batch = lm_batch(torch.Generator(device=dev).manual_seed(65),
@@ -3579,13 +3718,13 @@ def _lm_grad_check(ops, dev, cfg) -> None:
     (got_loss, _), got = value_and_grad(
         lambda p: zoo.loss_fn(c2, p, batch), params, has_aux=True)
     launches = {n: c for n, c in ops.LAUNCHES.items() if c}
-    saved = ops.ssd_scan
+    saved = ops.ssd_scan, ops.flash_attention
     try:
-        ops.ssd_scan = _plain_scan
+        ops.ssd_scan, ops.flash_attention = _plain_scan, _plain_attention
         (want_loss, _), want = value_and_grad(
             lambda p: zoo.loss_fn(c2, p, batch), params, has_aux=True)
     finally:
-        ops.ssd_scan = saved
+        ops.ssd_scan, ops.flash_attention = saved
     worst, dead = 0.0, []
     for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
         top = w.abs().max().item()
@@ -3593,32 +3732,36 @@ def _lm_grad_check(ops, dev, cfg) -> None:
             worst = max(worst, (g - w).abs().max().item() / top)
             if g.abs().max().item() == 0.0:
                 dead.append(i)
-    row = dict(layers=2, d_model=c2.d_model, dtype="float32",
-               batch=LM_TRAIN_BATCH, tokens=LM_TRAIN_SEQ,
+    row = dict(arch=cfg.name, layers=layers, d_model=c2.d_model,
+               dtype="float32", batch=LM_TRAIN_BATCH, tokens=LM_TRAIN_SEQ,
                loss_kernels=got_loss.item(), loss_plain=want_loss.item(),
                leaves=len(tree_leaves(got)), worst_leaf_rel_err=worst,
                tol=LM_GRAD_REL_TOL, leaves_without_gradient=dead,
                launches=launches)
     print("lm_train first-step gradients kernels vs plain "
           + json.dumps(row))
-    if dead or not worst <= LM_GRAD_REL_TOL or launches != {
-            "ssd_scan": 4, "ssd_scan_bwd": 2}:
+    if dead or not worst <= LM_GRAD_REL_TOL or launches != \
+            lm_train_launches(c2):
         fail(f"LM kernel-path gradients differ from the plain path's: "
              f"{row}")
 
 
-def train_lm_full_width(ops, dev) -> dict:
-    """Phase 14: one mamba2-2.7b LM expert trained at full width and depth
-    (64 layers, d 2560, 80 SSD heads, N 128, vocab 50280, bf16, remat,
-    512-token CE chunks) through ``make_lm_train_step``: random seeded
+def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b") -> dict:
+    """Phase 14: one LM expert of ``arch`` trained at full width and depth
+    through ``make_lm_train_step`` — mamba2-2.7b (64 layers, d 2560, 80 SSD
+    heads, N 128, vocab 50280), zamba2-2.7b (54 mixers at N 64, the shared
+    attention + SwiGLU block of 32 heads of D 80 after every 6) or
+    internlm2-1.8b (24 layers, d 2048, 16 query heads over 8 kv heads of
+    D 128, vocab 92544), bf16, remat, 512-token CE chunks: random seeded
     weights built on the card, ``LM_TRAIN_STEPS`` steps of
     ``LM_TRAIN_BATCH × LM_TRAIN_SEQ`` tokens from ``lm_batch``.  Cuts
     (the reference trains at ``train_4k``): 256 × 4096 tokens a step cut
-    to 4 × 1024, 10 steps.  Each step's launches exact (``ssd_scan`` 128:
-    64 forward + 64 recomputed under remat; ``ssd_scan_bwd`` 64); losses
-    finite; the loss on one fixed batch falls; per-step seconds (synced),
-    tokens/s and the peak device memory (under 80 GB) printed; then one
-    more step under the profiler.  First, ``_lm_grad_check``."""
+    to 4 × 1024, 10 steps; width and depth are not cut.  Each step's
+    launches exact (``lm_train_launches``: every scan and attention
+    forward twice under remat, each backward once); losses finite; the
+    loss on one fixed batch falls; per-step seconds (synced), tokens/s
+    and the peak device memory (under 80 GB) printed; then one more step
+    under the profiler.  First, ``_lm_grad_check``."""
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batch
     from repro_torch.models import zoo
@@ -3626,7 +3769,8 @@ def train_lm_full_width(ops, dev) -> dict:
     from repro_torch.training.trainer import make_lm_train_step
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("mamba2-2.7b")
+    cfg = get_config(arch)
+    path = LM_TRAIN_PATHS[cfg.arch_type]
     _lm_grad_check(ops, dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3647,7 +3791,7 @@ def train_lm_full_width(ops, dev) -> dict:
             return zoo.loss_fn(cfg, params, fixed)[0].item()
 
     first_fixed = fixed_loss()
-    want = {"ssd_scan": 2 * cfg.num_layers, "ssd_scan_bwd": cfg.num_layers}
+    want = lm_train_launches(cfg)
     total = dict.fromkeys(ops.LAUNCHES, 0)
     losses, secs, grad_norms = [], [], []
     torch.cuda.reset_peak_memory_stats()
@@ -3661,7 +3805,7 @@ def train_lm_full_width(ops, dev) -> dict:
         secs.append(time.perf_counter() - t)
         got = {n: c for n, c in ops.LAUNCHES.items() if c}
         if got != want:
-            fail(f"lm_train step {i} launched {got}, want {want}")
+            fail(f"{path} step {i} launched {got}, want {want}")
         for n, c in got.items():
             total[n] += c
         losses.append(loss.item())
@@ -3686,26 +3830,29 @@ def train_lm_full_width(ops, dev) -> dict:
                fixed_batch_loss=[first_fixed, last_fixed],
                reduced=dict(batch="256 -> 4", seq_len="4096 -> 1024",
                             steps=LM_TRAIN_STEPS))
-    print("lm_train " + json.dumps(row))
+    print(f"{path} " + json.dumps(row))
     if not (all(math.isfinite(x) for x in losses)
             and last_fixed < first_fixed and peak < 80e9):
-        fail(f"lm_train: losses not finite or not falling, or the peak "
+        fail(f"{path}: losses not finite or not falling, or the peak "
              f"is past 80 GB: {row}")
     # one more step, on the last batch, under the profiler
     profiled(lambda: step(params, state, batch), LM_TRAIN_CATEGORIES,
-             path="lm_train", batch=LM_TRAIN_BATCH, tokens=LM_TRAIN_SEQ)
+             path=path, arch=cfg.name, batch=LM_TRAIN_BATCH,
+             tokens=LM_TRAIN_SEQ)
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
-    return {"lm_train": total}
+    return {path: total}
 
 
-def compare_lm_train_gpu_cpu(ops, dev) -> None:
-    """Phase 8's training row: one ``make_lm_train_step`` step of the
-    reduced float32 mamba2 on the GPU (scan kernels, backward kernel) and
-    on the CPU (plain versions), from the same parameters and batch: the
-    loss, every gradient leaf, and the parameters after the step
-    (``TRAIN_E2E``'s rule)."""
+def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b") -> None:
+    """Phase 8's and 16's training rows: one ``make_lm_train_step`` step of
+    the reduced float32 ``arch`` (``LM_REDUCED``: internlm2 with 4 query
+    heads over 2 kv heads) on the GPU (scan and attention kernels, their
+    backward kernels) and on the CPU (plain versions), from the same
+    parameters and batch: the loss, every gradient leaf, and the
+    parameters after the step (``TRAIN_E2E``'s rule); the GPU step's
+    launches exact (``lm_train_launches``)."""
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batch
     from repro_torch.models import zoo
@@ -3714,7 +3861,7 @@ def compare_lm_train_gpu_cpu(ops, dev) -> None:
                                               value_and_grad)
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = get_config("mamba2-2.7b").reduced()
+    cfg = get_config(arch).reduced(**LM_REDUCED[arch])
     params = zoo.init(cfg, torch.Generator().manual_seed(71), "cpu")
     batch = lm_batch(torch.Generator().manual_seed(72), 4, 64,
                      cfg.vocab_size)
@@ -3744,7 +3891,8 @@ def compare_lm_train_gpu_cpu(ops, dev) -> None:
             param_err = max(param_err, (diff[clear].max().item() - lr / 100)
                             / max(q.abs().max().item(), 1e-30))
         param_steps = max(param_steps, diff.max().item() / lr)
-    row = dict(path="lm_train", loss_rel_err=loss_err,
+    row = dict(path=LM_TRAIN_PATHS[cfg.arch_type], arch=arch,
+               loss_rel_err=loss_err,
                grad_worst_leaf_rel_err=grad_err,
                param_worst_leaf_rel_err_past_lr_over_100=param_err,
                param_max_diff_in_steps=param_steps, tol=TRAIN_E2E,
@@ -3752,9 +3900,8 @@ def compare_lm_train_gpu_cpu(ops, dev) -> None:
     print("lm reduced gpu-vs-cpu " + json.dumps(row))
     if not (loss_err <= TRAIN_E2E["loss"] and grad_err <= TRAIN_E2E["grad"]
             and param_err <= TRAIN_E2E["param"] and param_steps <= 2.0
-            and launches == {"ssd_scan": cfg.num_layers,
-                             "ssd_scan_bwd": cfg.num_layers}):
-        fail(f"GPU LM training step differs from the CPU's: {row}")
+            and launches == lm_train_launches(cfg)):
+        fail(f"GPU {arch} training step differs from the CPU's: {row}")
 
 
 def main() -> None:
@@ -3859,7 +4006,10 @@ def main() -> None:
     compare_lm_gpu_cpu(ops, dev)
     compare_lm_train_gpu_cpu(ops, dev)
     phase_done("8 (LM reduced GPU vs CPU)")
-    launches.update(train_lm_full_width(ops, dev))
+    for arch in ("mamba2-2.7b", "internlm2-1.8b", "zamba2-2.7b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches.update(train_lm_full_width(ops, dev, arch))
     phase_done("14 (LM training)")
     for arch in ("zamba2-2.7b", "internlm2-1.8b"):
         gc.collect()
@@ -3875,8 +4025,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("15 (hybrid and dense LM serving and profiles)")
-    compare_lm_gpu_cpu(ops, dev, "zamba2-2.7b")
-    compare_lm_gpu_cpu(ops, dev, "internlm2-1.8b")
+    for arch in ("zamba2-2.7b", "internlm2-1.8b"):
+        compare_lm_gpu_cpu(ops, dev, arch)
+        compare_lm_train_gpu_cpu(ops, dev, arch)
     phase_done("16 (hybrid and dense LM reduced GPU vs CPU)")
     run_cli(dev)
     phase_done("9 (serving CLI)")
@@ -3903,13 +4054,13 @@ def main() -> None:
         "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:86"),
         # the backward kernels differentiate these TPU kernels' functions
         "adaln_fuse_bwd": ("adaln_fuse.cu", "adaln_fuse.py:34"),
-        "flash_attention_bwd": ("flash_attention.cu",
+        "flash_attention_bwd": ("flash_attention_bwd.cu",
                                 "flash_attention.py:82"),
         "ssd_scan_bwd": ("ssd_scan.cu", "ssd_scan.py:86"),
     }
     # the LM serving paths of phase 15, each with its own shape's numbers
     entries = [(name, where[name], summary[name]) for name in sources]
-    for name in ("flash_attention", "ssd_scan"):
+    for name in ("flash_attention", "ssd_scan", "flash_attention_bwd"):
         by_path = summary[name].pop("by_path")
         entries += [(name, path, by_path[path]) for path in by_path]
     kernels = []

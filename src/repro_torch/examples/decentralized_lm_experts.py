@@ -6,18 +6,16 @@ fusion, Eq. 1) applied to an ``--arch`` of the model zoo: two experts
 train in complete isolation on disjoint synthetic corpus clusters (the
 two halves of the vocabulary), a token-prototype router routes sequences,
 and next-token distributions are fused in probability space.  Reduced
-configs (vocabulary 64).  Runs on the card for the ``ssm`` family
-(mamba2-2.7b); the ``hybrid`` (zamba2-2.7b) and ``dense``
-(internlm2-1.8b, stablelm-1.6b) families train on the CPU only
-(``--device cpu``, the kernels' plain versions): on the card they raise
-``NotImplementedError``, since the attention kernel's backward takes no
-causal attention yet (ROADMAP.md, module queue A.10b).  The other ids
-raise ``NotImplementedError`` (A.10).
+configs (vocabulary 64).  Runs the ``ssm`` (mamba2-2.7b), ``hybrid``
+(zamba2-2.7b) and ``dense`` (internlm2-1.8b, stablelm-1.6b) families on
+the card, or with ``--device cpu`` on the kernels' plain versions.  The
+other ids raise ``NotImplementedError`` (ROADMAP.md, module queue
+A.10).
 
   PYTHONPATH=src python -m repro_torch.examples.decentralized_lm_experts \\
       --arch mamba2-2.7b
   PYTHONPATH=src python -m repro_torch.examples.decentralized_lm_experts \\
-      --arch zamba2-2.7b --device cpu
+      --arch zamba2-2.7b [--device cpu]
 """
 
 from __future__ import annotations
@@ -66,11 +64,6 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
 
     cfg = get_config(args.arch).reduced(vocab_size=VOCAB)
-    if dev.type == "cuda" and cfg.arch_type in ("dense", "hybrid"):
-        raise NotImplementedError(
-            f"training {args.arch} on the card needs a causal flash_attention "
-            f"backward kernel, not ported yet (ROADMAP.md, module queue "
-            f"A.10b); pass --device cpu")
     step = make_lm_train_step(cfg, AdamWConfig(learning_rate=3e-3,
                                                warmup_steps=2))
     experts = []

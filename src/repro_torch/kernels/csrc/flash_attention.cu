@@ -71,14 +71,9 @@
 // row with shuffles.  The output is acc / max(l, 1e-30), as the TPU kernel
 // finalises it.  expf and IEEE division: no fast-math.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <type_traits>
-
-#include "hopper.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
@@ -100,42 +95,12 @@ template <> struct Config<256> {
   static constexpr int THREADS = 128, TR = 4, BKV = 32, MINB = 1;
 };
 
-struct Strides {
-  int64_t b, h, s;
-};
-
-// A staged q, k or v row: D elements in an odd number of 16-byte chunks,
-// so that 8 neighbouring rows start in 8 different bank groups.
-__host__ __device__ inline int row_pitch(int D, int esize) {
-  return (((D * esize + 15) / 16) | 1) * 16;
-}
-
 // Shared bytes of a launch: the query tile, two k and two v tiles, and the
 // probability tile (BKV + 8 floats a row: conflict-free stores and
 // 16-byte reads).
 __host__ __device__ inline int smem_bytes(int D, int esize, int BQ,
                                           int BKV) {
   return (BQ + 4 * BKV) * row_pitch(D, esize) + BQ * (BKV + 8) * 4;
-}
-
-// Elements d .. d + 3 of a staged row of T, as float32 (bf16 widened
-// exactly).
-template <typename T>
-__device__ __forceinline__ float4 lds4(const uint8_t* row, int d) {
-  if constexpr (sizeof(T) == 4) {
-    return *reinterpret_cast<const float4*>(row + 4 * d);
-  } else {
-    const uint2 v = *reinterpret_cast<const uint2*>(row + 2 * d);
-    return make_float4(__uint_as_float(v.x << 16),
-                       __uint_as_float(v.x & 0xFFFF0000u),
-                       __uint_as_float(v.y << 16),
-                       __uint_as_float(v.y & 0xFFFF0000u));
-  }
-}
-
-__device__ __forceinline__ void from_f32(float* o, float v) { *o = v; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* o, float v) {
-  *o = __float2bfloat16_rn(v);
 }
 
 // Reductions over the 8 lanes that share a query row.
@@ -152,37 +117,6 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Rows [row0, row0 + n) of one head into shared memory as they lie, rows
-// past S zero-filled: 16-byte cp.async (VEC), else element by element with
-// the chunk past D zero-filled.  NT: the block's threads.
-template <typename T, int DMAX, bool VEC, int NT = Config<DMAX>::THREADS>
-__device__ __forceinline__ void stage(uint8_t* dst, int pitch,
-                                      const T* __restrict__ src, int64_t ss,
-                                      int row0, int n, int S, int D) {
-  using R = typename std::conditional<sizeof(T) == 4, uint32_t,
-                                      uint16_t>::type;  // raw bits
-  constexpr int EV = 16 / sizeof(T);      // elements per chunk
-  constexpr int CPR = DMAX / EV;          // chunks per row, at most
-  const int cpr = (D + EV - 1) / EV;
-  for (int i = threadIdx.x; i < n * CPR; i += NT) {
-    const int r = i / CPR, ch = i % CPR;
-    if (ch >= cpr) continue;
-    const int pos = row0 + r;
-    uint8_t* d = dst + r * pitch + ch * 16;
-    const T* g = src + (int64_t)pos * ss + ch * EV;
-    if constexpr (VEC) {
-      hopper::cp_async16(hopper::smem_u32(d), pos < S ? g : src,
-                         pos < S ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int u = 0; u < EV; ++u)
-        reinterpret_cast<R*>(d)[u] =
-            pos < S && ch * EV + u < D ? reinterpret_cast<const R*>(g)[u]
-                                       : R(0);
-    }
-  }
-}
-
 // One block per (batch·head, RG·TR query rows), RG = THREADS / 8; thread
 // (rg, cg) owns query rows rg + RG·i (i < TR), keys cg + 8j of each kv tile
 // (j < BKV / 8) and output columns 32c + 4cg + (0..3).  VEC: D and every
@@ -197,7 +131,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int TR = Config<DMAX>::TR, BKV = Config<DMAX>::BKV;
   constexpr int RG = Config<DMAX>::THREADS / 8;  // row groups
   constexpr int BQ = RG * TR, TK = BKV / 8, NC = DMAX / 32;
-  constexpr int PP = BKV + 8;
+  constexpr int PP = BKV + 8, NT = Config<DMAX>::THREADS;
 
   extern __shared__ __align__(16) uint8_t smem[];
   const int pitch = row_pitch(D, sizeof(T));
@@ -223,9 +157,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (window > 0) lo = max(0, q0 - (window - 1));
   lo = (lo / BKV) * BKV;
 
-  stage<T, DMAX, VEC>(Qs, pitch, qh, sq.s, q0, BQ, S, D);
-  stage<T, DMAX, VEC>(Ks, pitch, kh, sk.s, lo, BKV, S, D);
-  stage<T, DMAX, VEC>(Vs, pitch, vh, sv.s, lo, BKV, S, D);
+  stage<T, DMAX, VEC, NT>(Qs, pitch, qh, sq.s, q0, BQ, S, D);
+  stage<T, DMAX, VEC, NT>(Ks, pitch, kh, sk.s, lo, BKV, S, D);
+  stage<T, DMAX, VEC, NT>(Vs, pitch, vh, sv.s, lo, BKV, S, D);
   hopper::cp_async_commit();
 
   float m[TR], l[TR], acc[TR][4 * NC];
@@ -245,8 +179,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     if (k0 + BKV < hi) {
       const int nxt = ((t + 1) & 1) * BKV * pitch;
-      stage<T, DMAX, VEC>(Ks + nxt, pitch, kh, sk.s, k0 + BKV, BKV, S, D);
-      stage<T, DMAX, VEC>(Vs + nxt, pitch, vh, sv.s, k0 + BKV, BKV, S, D);
+      stage<T, DMAX, VEC, NT>(Ks + nxt, pitch, kh, sk.s, k0 + BKV, BKV, S, D);
+      stage<T, DMAX, VEC, NT>(Vs + nxt, pitch, vh, sv.s, k0 + BKV, BKV, S, D);
     }
     hopper::cp_async_commit();
     const uint8_t* ks = Ks + (t & 1) * BKV * pitch;
@@ -848,477 +782,4 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                    sv, so, causal, window, scale, vec, st);
   return by_width<float>(q, k, v, o, l, B, H, Hkv, S, D, sq, sk, sv, so,
                          causal, window, scale, vec, st);
-}
-
-// ---- backward ------------------------------------------------------------
-//
-// The TPU kernel has no backward; this one replaces XLA's autodiff of the
-// reference's training attention (repro/models/layers.py:137
-// `chunked_attention`, non-causal).  Non-causal MHA in float32, D ≤ 128.
-// With P = exp(q·kᵀ·scale − lse) recomputed from the forward's row
-// log-sum-exp, and Δ_i = Σ_d dO_id·O_id:
-//
-//   dV = Pᵀ·dO,   dS = P ∘ (dO·Vᵀ − Δ),   dQ = scale·dS·K,
-//   dK = scale·dSᵀ·Q.
-//
-// What bounds it on this card: float32 operations.  Five S×S×D products a
-// head (q·kᵀ and dO·vᵀ recomputed, Pᵀ·dO, dSᵀ·q, dS·k): at the DiT's
-// training shape (32 × 12 heads, S 256, D 64) 16.1 GFLOP on 100 MB,
-// 0.24 ms at 67 TFLOP/s.  Every product is an IEEE float32 FFMA on the
-// CUDA cores, as in the forward.
-//
-// Three kernels, no atomics, every sum in a fixed order (the result is
-// bitwise repeatable):
-//   1. `flash_attention_bwd_delta`: Δ, 16 lanes a query row;
-//   2. `flash_attention_bwd_tile`: one block per (key tile of 64, b·h)
-//      walks every query tile of 64 rows.  It keeps dK and dV for its keys
-//      in registers, forms S and dP once per tile pair, then P and dS, and
-//      writes this key tile's share of dQ, dS·K, to a float32 scratch
-//      (S/64 partials of B·H·S·D);
-//   3. `flash_attention_bwd_dq_sum`: dQ = scale · the partials added in
-//      key-tile order.
-// So every product is formed once (five, the bound's count): recomputing
-// S and dP for dQ in a kernel of its own would take seven, and the
-// partials cost 2 · S/64 · B·H·S·D floats of traffic (200 MB at the
-// training shape, ≈ 0.06 ms at 3.35 TB/s).
-//
-// Inside the tile kernel (256 threads, two groups of 128):
-//   * q, k, v, dO tiles are staged as they lie by 16-byte cp.async, each
-//     row an odd number of 16-byte chunks (the forward's `stage`); the
-//     next query tile is in flight while this one's dQ share is formed;
-//     unaligned views stage element by element in the same kernel;
-//   * S = Q·Kᵀ (group 0) and dP = dO·Vᵀ (group 1) are register-tiled:
-//     a thread owns 4 query rows × 8 keys, 12 16-byte shared loads per
-//     128 FFMA;
-//   * all 256 threads turn S and dP into P and dS (masked before expf:
-//     rows and keys past S give 0), in shared memory at BK + 8 floats a
-//     row (conflict-free stores, 16-byte reads);
-//   * dV += Pᵀ·dO (group 0) and dK += dSᵀ·Q (group 1): a thread owns 4
-//     keys × D/8 columns, 3 loads per 32 FFMA at D 64;
-//   * dS·K: a thread owns 4 query rows × D/16 columns.
-// At D 64 a block takes 105 KB of shared memory and 128 registers a
-// thread (no spills), two blocks an SM; four block barriers a query tile.
-// These register tiles give 2–2.7 FFMA per float a thread loads from
-// shared memory, where the SM's 32 floats a clock against 128 FFMA ask
-// for 4.  Two answers measured slower in throwaway builds (same call,
-// NVIDIA H100 80GB HBM3, 700 W): 8 × 8 tiles for every product in
-// 128-thread blocks (254 registers, 8 warps an SM), and dS·K split over
-// the two groups with 4 × 8 tiles and a fifth barrier (no faster).  So
-// the kernel stays above its bound on shared-memory traffic and latency
-// (PERF.md).
-
-namespace {
-
-namespace bwd {
-
-constexpr int THREADS = 256;        // two groups of 128 threads
-constexpr int BQ = 64, BK = 64;     // query rows, keys of a tile pair
-constexpr int PP = BK + 8;          // pitch (floats) of the P and dS tiles
-
-// Shared bytes of a tile kernel: the k, v, q and dO tiles, P and dS, and
-// the query tile's lse and Δ.
-__host__ __device__ inline int tile_bytes(int D) {
-  return (2 * BK + 2 * BQ) * row_pitch(D, 4) + 2 * BQ * PP * 4 + 2 * BQ * 4;
-}
-
-__device__ __forceinline__ float4 fma4(float a, float4 b, float4 c) {
-  return make_float4(fmaf(a, b.x, c.x), fmaf(a, b.y, c.y), fmaf(a, b.z, c.z),
-                     fmaf(a, b.w, c.w));
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
-
-// Δ[b·h, s] = Σ_d dO·O: 16 lanes a row (two rows a warp), each lane's
-// columns in order, then a butterfly over the 16.  VEC: 16-byte loads (D
-// and the strides of o and dO multiples of 4, both bases 16-byte aligned).
-template <bool VEC>
-__global__ void __launch_bounds__(256)
-flash_attention_bwd_delta(const float* __restrict__ o,
-                          const float* __restrict__ dO,
-                          float* __restrict__ delta, int H, int S, int D,
-                          Strides so, Strides sdo, int64_t rows) {
-  const int64_t r = (int64_t)blockIdx.x * 16 + threadIdx.x / 16;
-  const int lane = threadIdx.x & 15;
-  float acc = 0.f;
-  if (r < rows) {
-    const int bh = static_cast<int>(r / S), s = static_cast<int>(r % S);
-    const int b = bh / H, h = bh % H;
-    const float* orow = o + b * so.b + h * so.h + (int64_t)s * so.s;
-    const float* grow = dO + b * sdo.b + h * sdo.h + (int64_t)s * sdo.s;
-    if constexpr (VEC) {
-      for (int c = 4 * lane; c < D; c += 64) {
-        const float4 a = *reinterpret_cast<const float4*>(orow + c);
-        const float4 g = *reinterpret_cast<const float4*>(grow + c);
-        acc = fmaf(g.x, a.x, acc);
-        acc = fmaf(g.y, a.y, acc);
-        acc = fmaf(g.z, a.z, acc);
-        acc = fmaf(g.w, a.w, acc);
-      }
-    } else {
-      for (int c = lane; c < D; c += 16) acc = fmaf(grow[c], orow[c], acc);
-    }
-  }
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (r < rows && lane == 0) delta[r] = acc;
-}
-
-// Block (key tile kt, b·h).  part: this launch's dQ shares, (S/BK, B·H, S,
-// D4) float32 with D4 = D rounded up to 4.  VEC: D and every stride of q,
-// k, v, dO, dK, dV a multiple of 4, every base 16-byte aligned.
-template <int DMAX, bool VEC>
-__global__ void __launch_bounds__(THREADS, DMAX <= 64 ? 2 : 1)
-flash_attention_bwd_tile(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dO,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         float* __restrict__ part, int H, int S, int D,
-                         Strides sq, Strides sk, Strides sv, Strides sdo,
-                         Strides sdk, Strides sdv, float scale) {
-  constexpr int NC = DMAX / 32;    // 4-column chunks of a thread's dK/dV row
-  constexpr int NQ = DMAX / 64;    // 4-column chunks of a thread's dQ row
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int pitch = row_pitch(D, 4);
-  uint8_t* Ks = smem;
-  uint8_t* Vs = Ks + BK * pitch;
-  uint8_t* Qs = Vs + BK * pitch;
-  uint8_t* dOs = Qs + BQ * pitch;
-  float* Ps = reinterpret_cast<float*>(dOs + BQ * pitch);   // S, then P
-  float* dSs = Ps + BQ * PP;                                 // dP, then dS
-  float* Ls = dSs + BQ * PP;
-  float* Ds = Ls + BQ;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int kt = blockIdx.x, k0 = kt * BK;
-  const int tid = threadIdx.x, grp = tid >> 7, t = tid & 127;
-  // S, dP: rows rg + 16i, keys kg + 8j.  dK, dV: keys 4ka + u, columns
-  // 4ca + 32m.  P, dS and dS·K: rows rq + 16i, columns 4cq (+ 64m).
-  const int rg = t >> 3, kg = t & 7;
-  const int ka = t >> 3, ca = t & 7;
-  const int rq = tid >> 4, cq = tid & 15;
-  const int D4 = (D + 3) & ~3;
-  const float* qh = q + b * sq.b + h * sq.h;
-  const float* gh = dO + b * sdo.b + h * sdo.h;
-  const float* Lh = lse + (int64_t)bh * S;
-  const float* Dh = delta + (int64_t)bh * S;
-  float* ph = part + ((int64_t)kt * gridDim.y + bh) * S * D4;
-
-  stage<float, DMAX, VEC, THREADS>(Ks, pitch, k + b * sk.b + h * sk.h, sk.s,
-                                   k0, BK, S, D);
-  stage<float, DMAX, VEC, THREADS>(Vs, pitch, v + b * sv.b + h * sv.h, sv.s,
-                                   k0, BK, S, D);
-  stage<float, DMAX, VEC, THREADS>(Qs, pitch, qh, sq.s, 0, BQ, S, D);
-  stage<float, DMAX, VEC, THREADS>(dOs, pitch, gh, sdo.s, 0, BQ, S, D);
-  hopper::cp_async_commit();
-  if (tid < BQ) {
-    Ls[tid] = tid < S ? Lh[tid] : 0.f;
-    Ds[tid] = tid < S ? Dh[tid] : 0.f;
-  }
-
-  float4 acc[4][NC];               // dV (group 0) or dK (group 1)
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int m = 0; m < NC; ++m) acc[u][m] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int q0 = 0; q0 < S; q0 += BQ) {
-    // the next query tile's lse and Δ, in flight through this one
-    float l_next = 0.f, d_next = 0.f;
-    if (tid < BQ && q0 + BQ + tid < S) {
-      l_next = Lh[q0 + BQ + tid];
-      d_next = Dh[q0 + BQ + tid];
-    }
-    hopper::cp_async_wait<0>();
-    __syncthreads();                       // (1) this query tile is staged
-
-    // S = Q·Kᵀ (group 0) or dP = dO·Vᵀ (group 1), 4 head-dim values at a
-    // time: 4 + 8 16-byte loads per 128 FFMA.
-    {
-      const uint8_t* As = grp ? dOs : Qs;
-      const uint8_t* Bs = grp ? Vs : Ks;
-      float s[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-      for (int d0 = 0; d0 < D4; d0 += 4) {
-        float4 af[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          af[i] = lds4<float>(As + (rg + 16 * i) * pitch, d0);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float4 bf = lds4<float>(Bs + (kg + 8 * j) * pitch, d0);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            s[i][j] = fmaf(af[i].x, bf.x, s[i][j]);
-            s[i][j] = fmaf(af[i].y, bf.y, s[i][j]);
-            s[i][j] = fmaf(af[i].z, bf.z, s[i][j]);
-            s[i][j] = fmaf(af[i].w, bf.w, s[i][j]);
-          }
-        }
-      }
-      float* out = grp ? dSs : Ps;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          out[(rg + 16 * i) * PP + kg + 8 * j] = s[i][j];
-    }
-    __syncthreads();                       // (2) S and dP are in shared
-
-    // P = exp(S·scale − lse), dS = P ∘ (dP − Δ); masked entries are 0.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rq + 16 * i;
-      const bool row_open = q0 + r < S;
-      const float L = Ls[r], dl = Ds[r];
-      float* pr = Ps + r * PP + 4 * cq;
-      float* dr = dSs + r * PP + 4 * cq;
-      const float4 sv4 = *reinterpret_cast<const float4*>(pr);
-      const float4 dp4 = *reinterpret_cast<const float4*>(dr);
-      float p[4], ds[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const bool open = row_open && k0 + 4 * cq + u < S;
-        p[u] = open ? expf(lane4(sv4, u) * scale - L) : 0.f;
-        ds[u] = p[u] * (lane4(dp4, u) - dl);
-      }
-      *reinterpret_cast<float4*>(pr) = make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(dr) = make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();                       // (3) P and dS are in shared
-
-    // dV += Pᵀ·dO (group 0), dK += dSᵀ·Q (group 1), one query row at a
-    // time: 1 + NC loads per 16·NC FFMA.
-    {
-      const float* Ms = grp ? dSs : Ps;
-      const uint8_t* Os = grp ? Qs : dOs;
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        const float4 pf =
-            *reinterpret_cast<const float4*>(Ms + r * PP + 4 * ka);
-#pragma unroll
-        for (int m = 0; m < NC; ++m) {
-          const int col = 4 * ca + 32 * m;
-          if (col >= D) continue;
-          const float4 of = lds4<float>(Os + r * pitch, col);
-          acc[0][m] = fma4(pf.x, of, acc[0][m]);
-          acc[1][m] = fma4(pf.y, of, acc[1][m]);
-          acc[2][m] = fma4(pf.z, of, acc[2][m]);
-          acc[3][m] = fma4(pf.w, of, acc[3][m]);
-        }
-      }
-    }
-    __syncthreads();                       // (4) Q and dO are consumed
-    if (q0 + BQ < S) {
-      stage<float, DMAX, VEC, THREADS>(Qs, pitch, qh, sq.s, q0 + BQ, BQ, S, D);
-      stage<float, DMAX, VEC, THREADS>(dOs, pitch, gh, sdo.s, q0 + BQ, BQ, S,
-                                       D);
-      if (tid < BQ) {
-        Ls[tid] = l_next;
-        Ds[tid] = d_next;
-      }
-    }
-    hopper::cp_async_commit();
-
-    // This key tile's share of dQ: dS·K, 4 keys at a time: 4 + 4·NQ loads
-    // per 64·NQ FFMA.
-    float4 dq[4][NQ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int m = 0; m < NQ; ++m) dq[i][m] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int j0 = 0; j0 < BK; j0 += 4) {
-      float4 df[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        df[i] = *reinterpret_cast<const float4*>(dSs + (rq + 16 * i) * PP + j0);
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int m = 0; m < NQ; ++m) {
-          const int col = 4 * cq + 64 * m;
-          if (col >= D) continue;
-          const float4 kf = lds4<float>(Ks + (j0 + u) * pitch, col);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            dq[i][m] = fma4(lane4(df[i], u), kf, dq[i][m]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + rq + 16 * i;
-      if (qpos >= S) continue;
-#pragma unroll
-      for (int m = 0; m < NQ; ++m) {
-        const int col = 4 * cq + 64 * m;
-        if (col < D)
-          *reinterpret_cast<float4*>(ph + (int64_t)qpos * D4 + col) = dq[i][m];
-      }
-    }
-  }
-
-  // dV (group 0), dK = scale · dSᵀ·Q (group 1)
-  float* oh = grp ? dk + b * sdk.b + h * sdk.h : dv + b * sdv.b + h * sdv.h;
-  const int64_t ss = grp ? sdk.s : sdv.s;
-  const float sc = grp ? scale : 1.f;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int key = k0 + 4 * ka + u;
-    if (key >= S) continue;
-    float* row = oh + (int64_t)key * ss;
-#pragma unroll
-    for (int m = 0; m < NC; ++m) {
-      const int col = 4 * ca + 32 * m;
-      if (col >= D) continue;
-      const float r[4] = {acc[u][m].x * sc, acc[u][m].y * sc,
-                          acc[u][m].z * sc, acc[u][m].w * sc};
-      if constexpr (VEC) {
-        *reinterpret_cast<float4*>(row + col) =
-            make_float4(r[0], r[1], r[2], r[3]);
-      } else {
-#pragma unroll
-        for (int w = 0; w < 4; ++w)
-          if (col + w < D) row[col + w] = r[w];
-      }
-    }
-  }
-}
-
-// dQ = scale · Σ_kt part[kt], the key tiles added in order; one thread per
-// 4 columns of a row.  VEC: dq's strides a multiple of 4, base aligned,
-// D % 4 == 0.
-template <bool VEC>
-__global__ void __launch_bounds__(256)
-flash_attention_bwd_dq_sum(const float* __restrict__ part,
-                           float* __restrict__ dq, int H, int S, int D,
-                           int nkt, Strides sdq, float scale, int64_t n4) {
-  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
-  if (i >= n4) return;
-  const int D4 = (D + 3) & ~3, c4 = D4 / 4;
-  const int64_t row = i / c4;
-  const int col = static_cast<int>(i % c4) * 4;
-  const int64_t plane = 4 * n4;            // B·H·S·D4
-  const float* p = part + row * D4 + col;
-  float4 s = *reinterpret_cast<const float4*>(p);
-  for (int t = 1; t < nkt; ++t) {
-    const float4 x = *reinterpret_cast<const float4*>(p + t * plane);
-    s = make_float4(s.x + x.x, s.y + x.y, s.z + x.z, s.w + x.w);
-  }
-  const int bh = static_cast<int>(row / S), qpos = static_cast<int>(row % S);
-  float* dst = dq + (bh / H) * sdq.b + (bh % H) * sdq.h +
-               (int64_t)qpos * sdq.s + col;
-  const float r[4] = {s.x * scale, s.y * scale, s.z * scale, s.w * scale};
-  if constexpr (VEC) {
-    *reinterpret_cast<float4*>(dst) = make_float4(r[0], r[1], r[2], r[3]);
-  } else {
-#pragma unroll
-    for (int w = 0; w < 4; ++w)
-      if (col + w < D) dst[w] = r[w];
-  }
-}
-
-int64_t partial_floats(int B, int H, int S, int D) {
-  return (int64_t)((S + BK - 1) / BK) * B * H * S * ((D + 3) & ~3);
-}
-
-template <int DMAX>
-int launch(const float* q, const float* k, const float* v, const float* o,
-           const float* dO, const float* lse, float* scratch, float* dq,
-           float* dk, float* dv, int B, int H, int S, int D, Strides sq,
-           Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq,
-           Strides sdk, Strides sdv, float scale, cudaStream_t stream) {
-  const int nkt = (S + BK - 1) / BK;
-  const int64_t rows = (int64_t)B * H * S;
-  float* part = scratch;
-  float* delta = scratch + partial_floats(B, H, S, D);
-  // (a stride of an axis of length 1 is never used)
-  const auto rows_ok = [&](const Strides& st) {
-    return (B == 1 || st.b % 4 == 0) && (H == 1 || st.h % 4 == 0) &&
-           st.s % 4 == 0;
-  };
-  const auto aligned = [](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  };
-
-  const unsigned dblocks = static_cast<unsigned>((rows + 15) / 16);
-  if (D % 4 == 0 && rows_ok(so) && rows_ok(sdo) && aligned(o) && aligned(dO))
-    flash_attention_bwd_delta<true><<<dblocks, 256, 0, stream>>>(
-        o, dO, delta, H, S, D, so, sdo, rows);
-  else
-    flash_attention_bwd_delta<false><<<dblocks, 256, 0, stream>>>(
-        o, dO, delta, H, S, D, so, sdo, rows);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const bool vec = D % 4 == 0 && rows_ok(sq) && rows_ok(sk) && rows_ok(sv) &&
-                   rows_ok(sdo) && rows_ok(sdk) && rows_ok(sdv) &&
-                   aligned(q) && aligned(k) && aligned(v) && aligned(dO) &&
-                   aligned(dk) && aligned(dv);
-  auto kern = vec ? flash_attention_bwd_tile<DMAX, true>
-                  : flash_attention_bwd_tile<DMAX, false>;
-  const int smem = tile_bytes(D);
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<dim3(nkt, B * H), THREADS, smem, stream>>>(
-      q, k, v, dO, lse, delta, dk, dv, part, H, S, D, sq, sk, sv, sdo, sdk,
-      sdv, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-
-  const int64_t n4 = rows * (((D + 3) & ~3) / 4);
-  const unsigned blocks = static_cast<unsigned>((n4 + 255) / 256);
-  if (D % 4 == 0 && rows_ok(sdq) && aligned(dq))
-    flash_attention_bwd_dq_sum<true><<<blocks, 256, 0, stream>>>(
-        part, dq, H, S, D, nkt, sdq, scale, n4);
-  else
-    flash_attention_bwd_dq_sum<false><<<blocks, 256, 0, stream>>>(
-        part, dq, H, S, D, nkt, sdq, scale, n4);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace bwd
-
-}  // namespace
-
-// Float32 scratch the backward needs: the dQ shares of every key tile,
-// then Δ (B·H·S).
-extern "C" long long flash_attention_bwd_scratch(int B, int H, int S, int D) {
-  return bwd::partial_floats(B, H, S, D) + (long long)B * H * S;
-}
-
-// Backward of non-causal float32 MHA.  q, k, v, o, dO, dq, dk, dv:
-// (B, H, S, D) by element strides (batch, head, position) with a
-// contiguous last axis; lse: the forward's contiguous (B·H, S) row
-// log-sum-exp; scratch: flash_attention_bwd_scratch(B, H, S, D) floats,
-// 16-byte aligned.  D ≤ 128, B·H ≤ 65,535.  Launches three kernels on
-// `stream`, allocates nothing, returns the CUDA error code (0 on success).
-extern "C" int flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dO, const void* lse, void* scratch, void* dq, void* dk,
-    void* dv, int B, int H, int S, int D, const long long* strides,
-    float scale, void* stream) {
-  if (B == 0 || H == 0 || S == 0 || D == 0) return 0;
-  Strides st[8];
-  for (int i = 0; i < 8; ++i)
-    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const auto w = [](void* p) { return static_cast<float*>(p); };
-  if (D <= 64)
-    return bwd::launch<64>(f(q), f(k), f(v), f(o), f(dO), f(lse), w(scratch),
-                           w(dq), w(dk), w(dv), B, H, S, D, st[0], st[1],
-                           st[2], st[3], st[4], st[5], st[6], st[7], scale,
-                           cs);
-  return bwd::launch<128>(f(q), f(k), f(v), f(o), f(dO), f(lse), w(scratch),
-                          w(dq), w(dk), w(dv), B, H, S, D, st[0], st[1],
-                          st[2], st[3], st[4], st[5], st[6], st[7], scale,
-                          cs);
 }

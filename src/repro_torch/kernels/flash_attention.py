@@ -1,4 +1,5 @@
-"""Launcher of the CUDA flash attention kernel (``csrc/flash_attention.cu``).
+"""Launcher of the CUDA flash attention kernel (``csrc/flash_attention.cu``)
+and its backward (``csrc/flash_attention_bwd.cu``).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:82``
 (``flash_attention``): online-softmax attention over equal q and kv
@@ -16,13 +17,15 @@ and 16-byte staging goes to the tensor-core kernel (``wgmma`` for q·kᵀ,
 p split in two bf16 terms for p·v), everything else — float32, the DiT
 path — to the FFMA template.
 
-``flash_attention_bwd`` launches the backward (three kernels of the same
-source: Δ, then dK, dV and each key tile's share of dQ, then dQ):
-non-causal float32 MHA with ``D ≤ 128``, from the forward's row
-log-sum-exp (``flash_attention(..., with_lse=True)``).  The TPU kernel has
-no backward; this one replaces XLA's autodiff of the reference's training
-attention (``repro/models/layers.py:137``).  Its plain version is
-``kernels.ref.ref_flash_attention_bwd``.
+``flash_attention_bwd`` launches the backward (three kernels of
+``csrc/flash_attention_bwd.cu``: Δ, then dK, dV and each key tile's share
+of dQ, then dQ): causal, sliding-window and grouped-query attention in
+float32 or bf16 with ``D ≤ 128``, from the forward's row log-sum-exp
+(``flash_attention(..., with_lse=True)``); every product an IEEE float32
+FFMA, dq, dk and dv rounded once to their input's dtype.  The TPU kernel
+has no backward; this one replaces XLA's autodiff of the reference's
+training attention (``repro/models/layers.py:137``).  Its plain version
+is ``kernels.ref.ref_flash_attention_bwd``.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_D = 256
-#: largest head dim of the backward
+#: largest head dim of the backward, and its longest S (grid y: 65,535
+#: key tiles of 64)
 BWD_MAX_D = 128
+BWD_MAX_S = 65535 * 64
 _MAX_HEADS = 65535             # CUDA grid y limit on B·H
 #: the tensor-core kernel's widest head dim, its query tile and its grid
 #: y limit on query tiles
@@ -87,18 +92,19 @@ def _fn():
 
 @functools.cache
 def _bwd_fn():
-    fn = _build.load_library("flash_attention").flash_attention_bwd
+    fn = _build.load_library("flash_attention_bwd").flash_attention_bwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 10 + [i] * 4 + [ctypes.POINTER(ctypes.c_longlong),
-                                        ctypes.c_float, p]
+    fn.argtypes = [p] * 10 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                                        i, i, ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
 def _bwd_scratch_fn():
-    fn = _build.load_library("flash_attention").flash_attention_bwd_scratch
-    fn.argtypes = [ctypes.c_int] * 4
+    fn = _build.load_library(
+        "flash_attention_bwd").flash_attention_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_longlong
     return fn
 
@@ -165,48 +171,65 @@ def flash_attention(
     return (out, lse) if with_lse else out
 
 
-def flash_attention_bwd(q, k, v, out, lse, d_out, *,
+def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = False,
+                        window: int = 0,
                         softmax_scale: float | None = None):
-    """Launch the backward on CUDA tensors: ``(dq, dk, dv)`` of non-causal
-    float32 attention with equal head counts, each laid out as its input.
-    ``out`` and ``lse`` are the forward's (``with_lse=True``); ``d_out``
-    the gradient of ``out``.  Every operand may be a strided view with a
-    contiguous last axis.  Raises on anything the kernel does not take,
-    and if the launch fails."""
+    """Launch the backward on CUDA tensors: ``(dq, dk, dv)`` of attention
+    with the forward's mask (``causal``, ``window``; non-causal by
+    default), each in its input's dtype and laid out as it is.  q, out,
+    d_out ``(B, H, S, D)``; k, v ``(B, Hkv, S, D)`` with ``H % Hkv == 0``
+    (query head ``h`` reads kv head ``h // (H / Hkv)``; dk and dv sum over
+    the query heads of a group).  All float32 or all bf16.  ``out`` and
+    ``lse`` are the forward's (``with_lse=True``); ``d_out`` the gradient
+    of ``out``.  Every operand may be a strided view with a contiguous
+    last axis.  Raises on anything the kernel does not take, and if the
+    launch fails."""
     ts = (q, k, v, out, d_out)
-    if any(t.dtype != torch.float32 for t in ts + (lse,)):
-        raise TypeError("flash_attention_bwd takes float32 operands")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"flash_attention_bwd takes float32 or bf16 q, k, v, "
+                        f"out, d_out of one dtype, got "
+                        f"{[t.dtype for t in ts]}")
+    if lse.dtype != torch.float32:
+        raise TypeError(f"lse must be float32, got {lse.dtype}")
     if not all(t.is_cuda and t.device == q.device for t in ts + (lse,)):
         raise ValueError("flash_attention_bwd launches on CUDA tensors of "
                          "one device only")
-    if q.dim() != 4 or any(t.shape != q.shape for t in ts):
-        raise ValueError(f"flash_attention_bwd takes q, k, v, out, d_out of "
-                         f"one (B, H, S, D) shape, got "
+    if (q.dim() != 4 or k.dim() != 4 or v.shape != k.shape
+            or out.shape != q.shape or d_out.shape != q.shape):
+        raise ValueError(f"flash_attention_bwd takes q, out, d_out of one "
+                         f"(B, H, S, D) shape and k, v (B, Hkv, S, D), got "
                          f"{[tuple(t.shape) for t in ts]}")
     b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d):
+        raise ValueError(f"q and kv lengths must be equal: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
     if tuple(lse.shape) != (b, h, s) or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous ({b}, {h}, {s})")
     if d > BWD_MAX_D:
         raise ValueError(f"head dim {d} exceeds the backward's {BWD_MAX_D}")
-    if b * h > _MAX_HEADS:
-        raise ValueError(f"B·H = {b * h} exceeds the grid limit "
-                         f"{_MAX_HEADS}")
+    if s > BWD_MAX_S:
+        raise ValueError(f"S {s} exceeds the backward's {BWD_MAX_S}")
     if d > 1 and any(t.stride(-1) != 1 for t in ts):
         raise ValueError("q, k, v, out and d_out must have a contiguous "
                          "last axis")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     grads = [torch.empty_like(t) for t in (q, k, v)]   # unit last stride
-    # the key tiles' dQ shares and Δ, sized by the kernel's own tiles
-    scratch = torch.empty(_bwd_scratch_fn()(b, h, s, d), dtype=torch.float32,
-                          device=q.device)
+    # the open tile pairs' dQ shares and Δ, sized by the kernel's own tiles
+    scratch = torch.empty(
+        _bwd_scratch_fn()(b, h, s, d, int(causal), int(window)),
+        dtype=torch.float32, device=q.device)
     order = (q, k, v, out, d_out) + tuple(grads)
     strides = (ctypes.c_longlong * 24)(*[t.stride(i) for t in order
                                          for i in range(3)])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    d_out.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-                   *(g.data_ptr() for g in grads), b, h, s, d, strides,
-                   scale, stream)
+                   *(g.data_ptr() for g in grads), _DTYPES[q.dtype], b, h,
+                   hkv, s, d, strides, int(causal), int(window), scale,
+                   stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{rc}")

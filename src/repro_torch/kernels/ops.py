@@ -12,10 +12,12 @@ are differentiable on both devices: on the CPU through autograd of the
 plain versions; on the card, when an input requires grad, through a
 ``torch.autograd.Function`` whose backward is a hand-written kernel
 (``adaln_fuse_bwd``, ``flash_attention_bwd``, ``ssd_scan_bwd``).  A call
-the backward does not take (attention that is causal, windowed or
-grouped; AdaLN or attention operands not float32; a scan of another dtype
-than float32 or bf16, P > 64 or N > 128) raises ``NotImplementedError``
-rather than return a tensor without a gradient.  Without grad the forward
+the backward does not take (AdaLN operands not float32; attention with
+``D > 128``, past the backward's grid or of another dtype than float32 or
+bf16; a scan of another dtype than float32 or bf16, P > 64 or N > 128)
+raises ``NotImplementedError`` rather than return a tensor without a
+gradient.  The attention backward takes the forward's causal and window
+masks and grouped kv heads.  Without grad the forward
 is the plain launch: nothing is saved, no log-sum-exp and no tile-start
 state is written.
 """
@@ -33,6 +35,8 @@ from repro_torch.kernels import hetero_fuse as _fuse
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.adaln_fuse import adaln_fuse as _adaln_fuse
 from repro_torch.kernels.adaln_fuse import adaln_fuse_bwd as _adaln_fuse_bwd
+from repro_torch.kernels.flash_attention import BWD_MAX_D as _FLASH_BWD_MAX_D
+from repro_torch.kernels.flash_attention import BWD_MAX_S as _FLASH_BWD_MAX_S
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import \
     flash_attention_bwd as _flash_bwd
@@ -300,14 +304,8 @@ def flash_attention(
                          f"heads")
     if q.is_cuda:
         if _wants_grad(q, k, v):
-            if causal or window or hq != hkv or any(
-                    t.dtype != torch.float32 for t in (q, k, v)):
-                raise NotImplementedError(
-                    f"the flash_attention backward takes non-causal, "
-                    f"unwindowed float32 attention with equal head counts; "
-                    f"got causal={causal}, window={window}, heads {hq}/"
-                    f"{hkv}, {q.dtype}")
-            return _Flash.apply(q, k, v, softmax_scale)
+            _flash_grad_supported(q, k, v)
+            return _Flash.apply(q, k, v, causal, window, softmax_scale)
         out = _flash(q, k, v, causal=causal, window=window,
                      softmax_scale=softmax_scale)
         LAUNCHES["flash_attention"] += 1
@@ -319,17 +317,30 @@ def flash_attention(
                                     softmax_scale=softmax_scale)
 
 
+def _flash_grad_supported(q, k, v) -> None:
+    dtypes = {q.dtype, k.dtype, v.dtype}
+    s, d = q.shape[2], q.shape[3]
+    if (len(dtypes) != 1 or q.dtype not in (torch.float32, torch.bfloat16)
+            or d > _FLASH_BWD_MAX_D or s > _FLASH_BWD_MAX_S):
+        raise NotImplementedError(
+            f"the flash_attention backward takes float32 or bf16 q, k, v of "
+            f"one dtype with D ≤ {_FLASH_BWD_MAX_D} and S ≤ "
+            f"{_FLASH_BWD_MAX_S}; got {q.dtype}, {k.dtype}, {v.dtype}, "
+            f"D {d}, S {s}")
+
+
 class _Flash(torch.autograd.Function):
-    """Non-causal float32 attention kernel and its backward kernel: the
-    forward also writes each row's log-sum-exp, saved with q, k, v and the
-    output."""
+    """The attention kernel and its backward kernel, with the forward's
+    mask and grouped kv heads: the forward also writes each row's
+    log-sum-exp, saved with q, k, v and the output."""
 
     @staticmethod
-    def forward(ctx, q, k, v, softmax_scale):
-        out, lse = _flash(q, k, v, causal=False, window=0,
+    def forward(ctx, q, k, v, causal, window, softmax_scale):
+        out, lse = _flash(q, k, v, causal=causal, window=window,
                           softmax_scale=softmax_scale, with_lse=True)
         LAUNCHES["flash_attention"] += 1
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window)
         ctx.scale = softmax_scale
         return out
 
@@ -338,10 +349,11 @@ class _Flash(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if d_out.stride(-1) != 1:
             d_out = d_out.contiguous()
-        grads = _flash_bwd(q, k, v, out, lse, d_out,
-                           softmax_scale=ctx.scale)
+        causal, window = ctx.mask
+        grads = _flash_bwd(q, k, v, out, lse, d_out, causal=causal,
+                           window=window, softmax_scale=ctx.scale)
         LAUNCHES["flash_attention_bwd"] += 1
-        return (*grads, None)
+        return (*grads, None, None, None)
 
 
 def flash_attention_gqa(q, k, v, *, causal=True, window=0,

@@ -128,6 +128,22 @@ def ref_ragged_gemm(
     return y
 
 
+def _masked(logits: torch.Tensor, causal: bool, window: int):
+    """``(…, S, S)`` logits with the causal (``kpos ≤ qpos``) and
+    sliding-window (``qpos − kpos < window``) masks at ``-1e30``."""
+    if not (causal or window):
+        return logits
+    pos = torch.arange(logits.shape[-1], device=logits.device)
+    qpos, kpos = pos[:, None], pos[None, :]
+    mask = torch.ones(logits.shape[-2:], dtype=torch.bool,
+                      device=logits.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & (qpos - kpos < window)
+    return torch.where(mask, logits, logits.new_tensor(-1e30))
+
+
 def ref_flash_attention(
     q: torch.Tensor,          # (B, H, S, D)
     k: torch.Tensor,          # (B, H, S, D)
@@ -141,19 +157,11 @@ def ref_flash_attention(
     causal (``kpos ≤ qpos``) and sliding-window (``qpos − kpos < window``)
     masks at ``-1e30``, a float32 softmax over keys, then ``p·v``; the
     output in ``q``'s dtype."""
-    s, d = q.shape[2], q.shape[3]
+    d = q.shape[3]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     logits = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) \
         * scale
-    if causal or window:
-        pos = torch.arange(s, device=q.device)
-        qpos, kpos = pos[:, None], pos[None, :]
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-        if causal:
-            mask = mask & (kpos <= qpos)
-        if window:
-            mask = mask & (qpos - kpos < window)
-        logits = torch.where(mask, logits, logits.new_tensor(-1e30))
+    logits = _masked(logits, causal, window)
     p = torch.softmax(logits, dim=-1)
     return (p @ v.to(torch.float32)).to(q.dtype)
 
@@ -223,27 +231,42 @@ def ref_adaln_fuse_bwd(
 
 def ref_flash_attention_bwd(
     q: torch.Tensor,          # (B, H, S, D)
-    k: torch.Tensor,          # (B, H, S, D)
-    v: torch.Tensor,          # (B, H, S, D)
+    k: torch.Tensor,          # (B, Hkv, S, D)
+    v: torch.Tensor,          # (B, Hkv, S, D)
     d_out: torch.Tensor,      # (B, H, S, D)
     *,
+    causal: bool = False,
+    window: int = 0,
     softmax_scale: float | None = None,
 ):
-    """Backward of non-causal ``ref_flash_attention`` in float32, written
-    out: ``P = softmax(q·kᵀ·scale)``, ``dV = Pᵀ·dO``,
+    """Backward of ``ref_flash_attention`` in float32, written out, with
+    its causal and sliding-window masks (non-causal by default) and
+    grouped kv heads (query head ``h`` reads kv head ``h // (H/Hkv)``):
+    ``P = softmax(mask(q·kᵀ·scale))``, ``dV = Pᵀ·dO``,
     ``dS = P ∘ (dO·Vᵀ − Δ)`` with ``Δ = rowsum(dO ∘ O)``,
-    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``.  Returns ``(dq, dk, dv)``
-    float32."""
-    d = q.shape[-1]
+    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, dK and dV summed over the
+    query heads of each group.  Returns ``(dq, dk, dv)`` float32, dk and
+    dv of k's shape."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     q32, k32, v32 = (a.to(torch.float32) for a in (q, k, v))
+    if g > 1:
+        k32, v32 = (a.repeat_interleave(g, dim=1) for a in (k32, v32))
     do = d_out.to(torch.float32)
-    p = torch.softmax((q32 @ k32.transpose(-1, -2)) * scale, dim=-1)
+    logits = (q32 @ k32.transpose(-1, -2)) * scale
+    logits = _masked(logits, causal, window)
+    p = torch.softmax(logits, dim=-1)
     o = p @ v32
     dv = p.transpose(-1, -2) @ do
     delta = (do * o).sum(dim=-1, keepdim=True)
     ds = p * (do @ v32.transpose(-1, -2) - delta)
-    return (ds @ k32) * scale, (ds.transpose(-1, -2) @ q32) * scale, dv
+    dq = (ds @ k32) * scale
+    dk = (ds.transpose(-1, -2) @ q32) * scale
+    if g > 1:
+        dk, dv = (a.reshape(b, hkv, g, s, d).sum(dim=2) for a in (dk, dv))
+    return dq, dk, dv
 
 
 def ref_hetero_fuse(

@@ -9,12 +9,11 @@ latent is 32: pass ``--latent-size 32`` with it).  ``--out`` saves the EMA
 parameters with the expert's metadata, which ``ServingEngine.
 from_checkpoint_dir`` serves.
 
-``--mode lm`` trains one LM expert of ``--arch`` (the port trains
-mamba2-2.7b; the dense and hybrid ids, whose causal GQA attention
-backward the card cannot take yet, raise ``NotImplementedError`` naming
-ROADMAP A.10b, the ids not ported A.10) on ``lm_batch`` token batches
-with ``make_lm_train_step``, printing each step's loss; reduced unless
-``--full``.
+``--mode lm`` trains one LM expert of ``--arch`` (mamba2-2.7b, the
+hybrid zamba2-2.7b, the dense internlm2-1.8b — the default — and
+stablelm-1.6b; the ids not ported raise ``NotImplementedError`` naming
+ROADMAP A.10) on ``lm_batch`` token batches with ``make_lm_train_step``,
+printing each step's loss; reduced unless ``--full``.
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions.
 
@@ -22,6 +21,8 @@ Runs on the card; ``--device cpu`` runs the kernels' plain versions.
       --objective ddpm --cluster 0 --steps 200 --out ckpts/expert0.npz
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
       --arch mamba2-2.7b --steps 20 --batch 4 --seq-len 1024 --full
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
+      --arch internlm2-1.8b --steps 20 --batch 4 --seq-len 1024 --full
 """
 
 from __future__ import annotations
@@ -87,11 +88,6 @@ def train_expert(args) -> None:
 
 def train_lm(args) -> None:
     cfg = get_config(args.arch)
-    if cfg.arch_type in ("dense", "hybrid"):
-        raise NotImplementedError(
-            f"--mode lm --arch {args.arch}: training the {cfg.arch_type} "
-            f"family needs a causal, GQA, bf16 flash_attention backward "
-            f"kernel, not ported yet (ROADMAP.md, module queue A.10b)")
     dev = resolve_device(args.device)
     if not args.full:
         cfg = cfg.reduced()

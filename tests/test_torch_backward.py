@@ -10,10 +10,12 @@ On the card the backward kernels (``adaln_fuse_bwd``,
 the same seeded numpy inputs and output gradient go through ``jax.vjp`` of
 the reference's functions and through the port's written-out formulas.
 
-* attention: ``repro.kernels.ref.ref_flash_attention`` (non-causal, with
-  and without ``softmax_scale``) in the kernel's ``(B, H, S, D)`` layout,
-  and ``repro.models.layers.chunked_attention`` (``causal=False``) in the
-  model's ``(B, S, H, D)`` layout;
+* attention: ``repro.kernels.ref.ref_flash_attention`` (with and without
+  ``softmax_scale``, causal and sliding-window masks, grouped kv heads
+  repeated by the reference's front end) in the kernel's ``(B, H, S, D)``
+  layout, ``repro.models.layers.chunked_attention`` (the same masks,
+  grouped kv heads natively) in the model's ``(B, S, H, D)`` layout, and
+  autograd of the port's own CPU ``ops.flash_attention``;
 * AdaLN: ``repro.models.layers.layernorm({}, x)`` then
   ``repro.models.dit._modulate`` (the block's modulate sites), the final
   layer's ``layernorm·(1 + scale) + shift``, the plain LayerNorm (the one
@@ -66,52 +68,73 @@ def _assert_close(got, want, top):
 # Attention
 # ---------------------------------------------------------------------------
 
+#: (B, H, S, D, scale, Hkv, causal, window); the non-causal MHA cases keep
+#: their ids
 ATTN_CASES = [
-    (2, 3, 100, 64, 0.3),         # partial tiles, a softmax scale
-    (1, 2, 70, 32, None),         # narrower head
-    (1, 2, 40, 128, 0.1),         # widest head the backward takes
-    (3, 1, 1, 16, None),          # one position: dq = dk = 0
+    (2, 3, 100, 64, 0.3, 3, False, 0),    # partial tiles, a softmax scale
+    (1, 2, 70, 32, None, 2, False, 0),    # narrower head
+    (1, 2, 40, 128, 0.1, 2, False, 0),    # widest head the backward takes
+    (3, 1, 1, 16, None, 1, False, 0),     # one position: dq = dk = 0
+    (2, 4, 100, 64, None, 2, True, 0),    # causal, GQA 4/2, partial tile
+    (1, 2, 70, 32, 0.3, 1, True, 0),      # causal, GQA 2/1
+    (2, 4, 90, 16, None, 2, True, 20),    # causal sliding window, GQA 4/2
+    (1, 2, 50, 32, None, 2, False, 12),   # a window without the causal mask
 ]
+ATTN_IDS = ["-".join(map(str, c[:5])) for c in ATTN_CASES[:4]] + [
+    "causal-gqa4_2", "causal-gqa2_1", "causal-window-gqa4_2", "window"]
 
 
-def _attn_inputs(b, h, s, d):
+def _attn_inputs(b, h, s, d, hkv):
     seed = b * h + s + d
-    return [_draw((b, h, s, d), seed + i) for i in range(4)]   # q k v dO
+    return [_draw((b, n, s, d), seed + i)                 # q k v dO
+            for i, n in enumerate((h, hkv, hkv, h))]
 
 
-@pytest.mark.parametrize("b,h,s,d,scale", ATTN_CASES)
-def test_flash_attention_bwd_formula_matches_jax_vjp(b, h, s, d, scale):
-    """``ref_flash_attention_bwd`` against ``jax.vjp`` of the reference's
-    kernel oracle, non-causal, in the ``(B, H, S, D)`` layout."""
-    q, k, v, do = _attn_inputs(b, h, s, d)
-
-    def f(q, k, v):
-        return jref.ref_flash_attention(q, k, v, causal=False,
-                                        softmax_scale=scale)
-
-    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    want = vjp(jnp.asarray(do))
-    got = ref.ref_flash_attention_bwd(_t(q), _t(k), _t(v), _t(do),
-                                      softmax_scale=scale)
+def _check_grads(got, want):
     top = max(float(np.abs(np.asarray(w)).max()) for w in want)
     for g, w in zip(got, want):
         _assert_close(g, w, top)
 
 
-@pytest.mark.parametrize("b,h,s,d,scale", ATTN_CASES)
-def test_flash_attention_bwd_formula_matches_chunked_attention(b, h, s, d,
-                                                               scale):
+@pytest.mark.parametrize("b,h,s,d,scale,hkv,causal,window", ATTN_CASES,
+                         ids=ATTN_IDS)
+def test_flash_attention_bwd_formula_matches_jax_vjp(b, h, s, d, scale, hkv,
+                                                     causal, window):
+    """``ref_flash_attention_bwd`` against ``jax.vjp`` of the reference's
+    kernel oracle in the ``(B, H, S, D)`` layout, with its masks; grouped
+    kv heads through the reference's front end (kv heads repeated before
+    the MHA oracle, so the vjp sums each group)."""
+    q, k, v, do = _attn_inputs(b, h, s, d, hkv)
+
+    def f(q, k, v):
+        k, v = (jnp.repeat(a, h // hkv, axis=1) for a in (k, v))
+        return jref.ref_flash_attention(q, k, v, causal=causal,
+                                        window=window, softmax_scale=scale)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    got = ref.ref_flash_attention_bwd(_t(q), _t(k), _t(v), _t(do),
+                                      causal=causal, window=window,
+                                      softmax_scale=scale)
+    _check_grads(got, want)
+
+
+@pytest.mark.parametrize("b,h,s,d,scale,hkv,causal,window", ATTN_CASES,
+                         ids=ATTN_IDS)
+def test_flash_attention_bwd_formula_matches_chunked_attention(
+        b, h, s, d, scale, hkv, causal, window):
     """The same formula against ``jax.vjp`` of the model's training
-    attention, ``layers.chunked_attention(causal=False)``, which takes
-    ``(B, S, H, D)`` projections (chunked over queries: 2 chunks at S 100
-    and 70)."""
-    q, k, v, do = _attn_inputs(b, h, s, d)
+    attention, ``layers.chunked_attention`` (float32 softmax), which takes
+    ``(B, S, H, D)`` projections with ``Hkv`` kv heads and the causal and
+    window masks (chunked over queries: 2 chunks at S 100, 90 and 70)."""
+    q, k, v, do = _attn_inputs(b, h, s, d, hkv)
     pos = jnp.arange(s)
 
     def f(q, k, v):
         return JL.chunked_attention(q, k, v, q_positions=pos,
-                                    kv_positions=pos, causal=False,
-                                    chunk_size=64, softmax_scale=scale)
+                                    kv_positions=pos, causal=causal,
+                                    window=window, chunk_size=64,
+                                    softmax_scale=scale)
 
     def bshd(a):
         return jnp.asarray(a.transpose(0, 2, 1, 3))
@@ -119,10 +142,29 @@ def test_flash_attention_bwd_formula_matches_chunked_attention(b, h, s, d,
     _, vjp = jax.vjp(f, bshd(q), bshd(k), bshd(v))
     want = [np.asarray(w).transpose(0, 2, 1, 3) for w in vjp(bshd(do))]
     got = ref.ref_flash_attention_bwd(_t(q), _t(k), _t(v), _t(do),
+                                      causal=causal, window=window,
                                       softmax_scale=scale)
-    top = max(float(np.abs(w).max()) for w in want)
-    for g, w in zip(got, want):
-        _assert_close(g, w, top)
+    _check_grads(got, want)
+
+
+@pytest.mark.parametrize("b,h,s,d,scale,hkv,causal,window", ATTN_CASES,
+                         ids=ATTN_IDS)
+def test_flash_attention_bwd_formula_matches_cpu_autograd(
+        b, h, s, d, scale, hkv, causal, window):
+    """The same formula against autograd of the port's own
+    ``ops.flash_attention`` on the CPU (the plain forward, kv heads
+    repeated), which is what CPU training differentiates."""
+    from repro_torch.kernels import ops
+
+    q, k, v, do = _attn_inputs(b, h, s, d, hkv)
+    leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal, window=window,
+                              softmax_scale=scale)
+    want = torch.autograd.grad(out, leaves, _t(do))
+    got = ref.ref_flash_attention_bwd(_t(q), _t(k), _t(v), _t(do),
+                                      causal=causal, window=window,
+                                      softmax_scale=scale)
+    _check_grads(got, [w.numpy() for w in want])
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,11 @@ backward kernels (float32) sum in another order than ATen (row sums of
 ``D`` terms, the ``dγ``/``dβ`` sums over ``G·S`` rows, the attention's
 ``S``-term products): AdaLN gradients within ``1e-5 · max |want|`` of
 their plain version, attention gradients within ``1e-5`` of the largest
-of the three; both are bitwise repeatable (no atomics).
+of the three; both are bitwise repeatable (no atomics).  The attention
+backward in bf16 (causal, windowed, grouped) adds ``BF16_GRAD_REL = 2⁻⁷``
+of each gradient's largest: the gradients round once to bf16 and Δ comes
+from the forward's bf16-rounded output, against the plain version's
+float32 one.
 """
 
 from __future__ import annotations
@@ -1282,28 +1286,138 @@ def test_flash_attention_bwd_kernel_unaligned_views(cuda, s, d):
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
+#: bf16 attention gradients against the plain version's float32 ones:
+#: half a bf16 ulp of each element from the final rounding, and Δ formed
+#: from the forward's bf16-rounded output where the plain version forms it
+#: from its float32 one (up to 0.9 of a bf16 ulp of the gradient's max in
+#: a CPU emulation at S 1024, D 80 and 128): two bf16 ulps of each
+#: gradient's largest |value|, plus the float32 rule's ``GRAD_REL`` of the
+#: largest of the three for the sums' order (a gradient that is 0 exactly,
+#: dq and dk under a window of 1, is ~1e-8 in the plain version).
+BF16_GRAD_REL = 2.0 ** -7
+
+
+def _bwd_check(cuda, b, hq, hkv, s, d, causal, window, dtype, scale=None,
+               offset=False):
+    """The backward kernel against the plain version on (B, S, H, D)
+    projections read as (B, H, S, D) views (one element off 16-byte
+    alignment with ``offset``), bitwise repeatable; then the same call
+    under autograd through ``ops.flash_attention``: one forward and one
+    backward launch, the direct call's gradients bitwise."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    gen = torch.Generator(device=cuda).manual_seed(b * hq + s + d + hkv)
+
+    def draw(h, sd=1.0):
+        n, off = b * s * h * d, int(offset)
+        base = (sd * torch.randn(n + off, generator=gen, device=cuda)).to(
+            dtype)
+        return base[off:].view(b, s, h, d).transpose(1, 2)
+    q, k, v, do = draw(hq), draw(hkv), draw(hkv), draw(hq, 0.1)
+    kw = dict(causal=causal, window=window, softmax_scale=scale)
+    out, lse = flash_attention(q, k, v, with_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = ref.ref_flash_attention_bwd(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert bool(torch.isfinite(g).all())
+    top = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        err = (g.float() - w).abs().max().item()
+        tol = GRAD_REL * top
+        if dtype == torch.bfloat16:
+            tol += BF16_GRAD_REL * w.abs().max().item()
+        assert err <= tol, (err, tol)
+    again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+    qg, kg, vg = (a.detach().requires_grad_(True) for a in (q, k, v))
+    ops.reset_launches()
+    o2 = ops.flash_attention(qg, kg, vg, **kw)
+    assert o2.grad_fn is not None and torch.equal(o2.detach(), out)
+    o2.backward(do)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "flash_attention": 1, "flash_attention_bwd": 1}
+    for g, w in zip((qg.grad, kg.grad, vg.grad), got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (2, 4, 2, 256, 64, True, 0),      # causal GQA
+    (1, 4, 1, 200, 128, True, 0),     # one kv head, ragged S, widest head
+    (1, 4, 4, 300, 80, True, 0),      # zamba2's head: D 80 on the 128 tile
+    (2, 4, 2, 257, 64, True, 70),     # causal sliding window, ragged S
+    (1, 2, 2, 333, 80, False, 100),   # a window without the causal mask
+    (1, 8, 2, 130, 128, False, 0),    # non-causal GQA 4 a group
+    (2, 2, 1, 64, 16, True, 1),       # window 1: the diagonal alone
+    (1, 3, 3, 77, 40, True, 0),       # D 40: bf16 takes the FFMA forward
+])
+def test_flash_attention_bwd_kernel_masks_and_groups(cuda, b, hq, hkv, s, d,
+                                                     causal, window, dtype):
+    """The backward kernel with the forward's masks and grouped kv heads
+    (dk and dv summed over each group on chip), float32 and bf16, against
+    the plain version (float32 within ``GRAD_REL`` of the largest of the
+    three; bf16 within that plus ``BF16_GRAD_REL`` of each gradient's
+    largest), bitwise repeatable, one forward and one backward launch
+    under autograd."""
+    _bwd_check(cuda, b, hq, hkv, s, d, causal, window, dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (4, 16, 8, 1024, 128),            # internlm2-1.8b's training shape
+    (4, 32, 32, 1024, 80),            # zamba2-2.7b's shared block
+])
+def test_flash_attention_bwd_kernel_lm_training_shapes(cuda, b, hq, hkv, s,
+                                                       d):
+    """The two LM training shapes, causal bf16, as the model lays them out
+    (a 4 × 1024-token batch)."""
+    _bwd_check(cuda, b, hq, hkv, s, d, True, 0, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_bwd_kernel_unaligned_masked_views(cuda, dtype):
+    """Causal GQA and windowed operands one element off 16-byte alignment
+    (element-by-element staging, scalar stores): the plain version's
+    gradients, bitwise repeatable."""
+    _bwd_check(cuda, 2, 4, 2, 150, 64, True, 0, dtype, scale=0.2,
+               offset=True)
+    _bwd_check(cuda, 1, 2, 2, 100, 128, True, 33, dtype, offset=True)
+
+
 def test_unsupported_grad_calls_raise(cuda):
     """On a CUDA tensor that requires grad, a call the backward does not
-    take raises; it never returns a tensor without a ``grad_fn``."""
+    take (D > 128, float16, mixed dtypes) raises; it never returns a
+    tensor without a ``grad_fn``.  Causal, windowed, grouped and bf16
+    attention take the backward kernel."""
     q = torch.randn(1, 4, 16, 32, device=cuda, requires_grad=True)
     kv = torch.randn(1, 2, 16, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="non-causal"):
-        ops.flash_attention(q, q, q, causal=True)
-    with pytest.raises(NotImplementedError, match="non-causal"):
-        ops.flash_attention(q, q, q, causal=False, window=4)
-    with pytest.raises(NotImplementedError, match="heads"):
-        ops.flash_attention(q, kv, kv, causal=False)
-    with pytest.raises(NotImplementedError, match="non-causal"):
-        ops.flash_attention(q.to(torch.bfloat16), q.to(torch.bfloat16),
-                            q.to(torch.bfloat16), causal=False)
+    wide = torch.randn(1, 2, 16, 160, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="D ≤ 128"):
+        ops.flash_attention(wide, wide, wide, causal=True)
+    half = q.detach().to(torch.float16).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="float32 or bf16"):
+        ops.flash_attention(half, half, half, causal=True)
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        ops.flash_attention(q, kv.to(torch.bfloat16), kv, causal=True)
     x = torch.randn(2, 8, 64, device=cuda, requires_grad=True)
     g16 = torch.zeros(2, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="float32"):
         ops.adaln_modulate(x, g16, g16, round_scale=True)
     with pytest.raises(NotImplementedError, match="float32"):
         ops.layernorm(x.to(torch.bfloat16))
-    ok = ops.flash_attention(q, q, q, causal=False)
-    assert ok.grad_fn is not None
+    q16 = q.detach().to(torch.bfloat16).requires_grad_(True)
+    for out in (ops.flash_attention(q, q, q, causal=False),
+                ops.flash_attention(q, q, q, causal=True),
+                ops.flash_attention(q, q, q, causal=False, window=4),
+                ops.flash_attention(q, kv, kv, causal=True),
+                ops.flash_attention(q16, q16, q16, causal=True)):
+        assert out.grad_fn is not None
     assert ops.layernorm(x).grad_fn is not None
 
 
@@ -1657,6 +1771,65 @@ def test_mamba2_gradients_on_the_card_match_the_cpu(cuda, remat):
     layers = cfg.num_layers
     assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
         "ssd_scan": layers * (2 if remat else 1), "ssd_scan_bwd": layers}
+    assert abs(got_loss.item() - want_loss.item()) <= \
+        1e-5 * abs(want_loss.item())
+    for g, w in zip(got, want):
+        g = g.cpu()
+        scale = w.abs().max().item()
+        assert (g - w).abs().max().item() <= 1e-4 * scale
+        assert scale == 0.0 or g.abs().max().item() > 0.0
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("arch,over", [
+    ("internlm2-1.8b", dict(num_kv_heads=2)),   # GQA 4/2
+    ("zamba2-2.7b", {}),
+    ("zamba2-2.7b", dict(head_dim=80)),         # the full model's head
+], ids=["dense", "hybrid", "hybrid_D80"])
+def test_dense_and_hybrid_gradients_on_the_card_match_the_cpu(cuda, arch,
+                                                              over, remat):
+    """A loss through ``zoo.loss_fn`` of the reduced float32 dense and
+    hybrid models on the card (every causal attention through the
+    attention kernel and its backward kernel, every mixer's scan through
+    the scan kernels) against the CPU (plain versions): the loss within
+    ``1e-5``, every leaf's gradient within ``1e-4 · max |want|`` and
+    non-zero wherever the CPU's is.  Launches: one attention forward and
+    one backward a layer (a shared-block application for the hybrid), the
+    forward twice under remat; the hybrid's scans as the mamba2 test's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid, zoo
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch).reduced(**over), remat=remat,
+                              logits_chunk=16)
+    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 65),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def grads(dev):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, g = value_and_grad(lambda p: zoo.loss_fn(cfg, p, b),
+                                 tree_map(lambda a: a.to(dev), params),
+                                 has_aux=True)
+        return loss[0], tree_leaves(g)
+
+    want_loss, want = grads("cpu")
+    ops.reset_launches()
+    got_loss, got = grads(cuda)
+    torch.cuda.synchronize()
+    fwd = 2 if remat else 1
+    if cfg.arch_type == "dense":
+        attn, scans = cfg.num_layers, 0
+    else:
+        attn, scans = hybrid.num_groups(cfg), cfg.num_layers
+    expect = {"flash_attention": attn * fwd, "flash_attention_bwd": attn}
+    if scans:
+        expect.update(ssd_scan=scans * fwd, ssd_scan_bwd=scans)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == expect
     assert abs(got_loss.item() - want_loss.item()) <= \
         1e-5 * abs(want_loss.item())
     for g, w in zip(got, want):

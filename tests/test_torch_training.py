@@ -407,8 +407,8 @@ def test_train_cli_writes_a_servable_checkpoint(one_torch_thread, tmp_path,
                                                 capsys):
     """``--mode expert`` at reduced size on the CPU: the EMA checkpoint
     loads with its metadata, and the serving engine serves a finite
-    request from it; ``--mode lm`` raises for the default arch (A.10) and
-    trains mamba2-2.7b, printing the reference's step lines."""
+    request from it; ``--mode lm`` raises for an arch not ported (A.10)
+    and trains mamba2-2.7b, printing the reference's step lines."""
     from repro_torch.launch import train
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.training.checkpoint import load_checkpoint
@@ -432,7 +432,8 @@ def test_train_cli_writes_a_servable_checkpoint(one_torch_thread, tmp_path,
     lat = eng.generate(0, text, 2)
     assert lat.shape == (2, 8, 8, 4) and bool(torch.isfinite(lat).all())
     with pytest.raises(NotImplementedError, match="A.10"):
-        train.main(["--mode", "lm", "--device", "cpu"])
+        train.main(["--mode", "lm", "--arch", "mixtral-8x7b", "--device",
+                    "cpu"])
     train.main(["--mode", "lm", "--arch", "mamba2-2.7b", "--steps", "2",
                 "--seq-len", "32", "--batch", "2", "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()

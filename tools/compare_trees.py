@@ -2,7 +2,7 @@
 of several trees of this repository, in turns, on one card — or their
 attention kernel, or their zamba2-2.7b and internlm2-1.8b scoring.
 
-    python3 tools/compare_trees.py [--only kernel|step|breakdown|flash|lm] TREE [TREE ...]
+    python3 tools/compare_trees.py [--only kernel|step|breakdown|flash|flash_bwd|lm] TREE [TREE ...]
 
 Each TREE is the root of a checkout (this one, or an older commit unpacked
 with ``git archive`` into a directory ``.gitignore`` lists).  For each, in
@@ -14,11 +14,13 @@ the lines each prints are prefixed with the tree's position and name.
 ``--only breakdown`` instead profiles 20 backward calls at the mixer
 shape in bf16 and reports each kernel's device milliseconds a call.
 ``--only flash`` runs the tree's ``check_flash`` (phase 3's attention
-cases) and ``--only lm`` its phase-15 serving of zamba2-2.7b and
+cases), ``--only flash_bwd`` its ``check_flash_bwd`` (the attention
+backward cases), and ``--only lm`` its phase-15 serving of zamba2-2.7b and
 internlm2-1.8b (``serve_lm_full_width`` and ``profile_lm_request``).  The
 last line is one JSON object: per run, the tree, its mixer-shape backward
 row (or breakdown) and its training step's seconds and tokens/s, or its
-attention cases, or its scoring requests and profiles.  Give the trees in
+attention (or attention backward) cases, or its scoring requests and
+profiles.  Give the trees in
 turns (parent, change, change, parent) to see the spread.  Needs a CUDA
 device.
 """
@@ -65,6 +67,12 @@ def one(tree: str, only: str | None) -> dict:
         out["flash_attention"] = [{k: r[k] for k in (
             "case", "design", "ms", "library_ms", "bound_ms",
             "share_of_bound", "max_abs_err", "tol") if k in r} for r in rows]
+    if only == "flash_bwd":
+        rows = grab(chip_smoke, "flash_attention_bwd case ")
+        chip_smoke.check_flash_bwd(ops, ref, dev)
+        out["flash_attention_bwd"] = [{k: r[k] for k in (
+            "case", "ms", "library_ms", "bound_ms", "share_of_bound",
+            "max_abs_err") if k in r} for r in rows]
     if only == "lm":
         requests = grab(chip_smoke, "lm request ")
         profiles = grab(chip_smoke, "profile ")
@@ -137,7 +145,7 @@ def breakdown(chip_smoke, dev, calls: int = 20) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernel", "step", "breakdown",
-                                       "flash", "lm"))
+                                       "flash", "flash_bwd", "lm"))
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args()
