@@ -50,7 +50,10 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    causal in bf16 at phase 14's two LM training shapes (internlm2-1.8b's
    16 query heads over 8 kv heads of D 128, zamba2-2.7b's 32 heads of D
    80, batch 4, S 1024; bound by the bf16 and by the float32 rule,
-   SDPA's bf16 causal GQA backward beside it); and the SSD scan's backward
+   SDPA's bf16 causal GQA backward beside it), each case on its route
+   (the LM cases the tensor-core dK/dV and dQ kernels, the DiT case the
+   FFMA tile kernel) with each kernel's device ms, and the tensor-core
+   kernels' registers and spill bytes (none); and the SSD scan's backward
    kernel at the mixer shape (bf16 with ``d_state`` zero and not, float32,
    and ``S`` < chunk) from the forward's tile-start states, against its
    plain version's five gradients (bitwise repeatable), timed beside its
@@ -914,10 +917,12 @@ def check_flash(ops, ref, dev) -> dict:
 
 
 def _summary(row: dict, max_abs_err: float) -> dict:
-    """A kernels line entry's numbers from a phase-3 case row."""
+    """A kernels line entry's numbers from a phase-3 case row (and its
+    design, where the row names one)."""
     return dict(max_abs_err=max_abs_err, ms=row["ms"],
                 plain_ms=row["plain_ms"], library_ms=row["library_ms"],
-                bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                **{k: row[k] for k in ("design",) if k in row})
 
 
 #: backward kernels against their plain versions (float32): row and
@@ -1036,24 +1041,70 @@ FLASH_BWD_PATH_CASES = {"lm_train_dense": "internlm2_causal_gqa",
                         "lm_train_hybrid": "zamba2_causal"}
 
 
-def _bwd_grid_tail(b, hq, hkv, s, d, causal) -> float:
-    """The attention backward's tile grid, list-scheduled in dispatch
-    order (key tiles the slow axis) on 132 SMs holding one block each at
-    D > 64 (its registers) and two at D ≤ 64, each block's time its tile
-    pairs: the makespan over the ideal (total / slots).  Arithmetic on the
-    grid, not a measurement."""
+#: the attention backward's kernels on each route (``bwd_design``), in
+#: launch order
+FLASH_BWD_KERNELS = {
+    "FFMA": ("flash_attention_bwd_delta", "flash_attention_bwd_tile",
+             "flash_attention_bwd_dq_sum"),
+    "wgmma bf16": ("flash_attention_bwd_delta",
+                   "flash_attention_bwd_dkdv_wgmma",
+                   "flash_attention_bwd_dq_wgmma")}
+
+
+def _grid_tail(works, slots: int) -> float:
+    """Blocks of ``works`` (each block's time, in dispatch order)
+    list-scheduled on ``slots`` block slots: the makespan over the ideal
+    (total / slots).  Arithmetic on the grid, not a measurement."""
     import heapq
 
-    nt = -(-s // 64)
-    slots = [0] * (132 * (2 if d <= 64 else 1))
-    end = 0
-    for kt in range(nt):
-        for _ in range(b * hkv):
-            t = heapq.heappop(slots) + hq // hkv * (nt - kt if causal else nt)
-            heapq.heappush(slots, t)
-            end = max(end, t)
-    return end * len(slots) / (b * hq * nt * ((nt + 1) / 2 if causal
-                                              else nt))
+    heap, end = [0] * slots, 0
+    for w in works:
+        t = heapq.heappop(heap) + w
+        heapq.heappush(heap, t)
+        end = max(end, t)
+    return end * slots / sum(works)
+
+
+def _bwd_grid_tails(route, b, hq, hkv, s, d, causal) -> dict:
+    """Each tile kernel's grid tail (``_grid_tail``) on 132 SMs, a block's
+    time its tile pairs.  FFMA: the tile kernel's grid (b·kv head, key
+    tile of 64), key tiles the slow axis, two blocks an SM at D ≤ 64 and
+    one above, a block the group's query tiles its keys see.  wgmma: the
+    dK/dV kernel's grid of the same shape and work, two blocks an SM; the
+    dQ kernel's (b·h, query tile of 128), causal tiles last first, one
+    block an SM, a block the kv tiles of 64 its rows see."""
+    nt, nq = -(-s // 64), -(-s // 128)
+    keys = [hq // hkv * (nt - kt if causal else nt)
+            for kt in range(nt) for _ in range(b * hkv)]
+    if route == "FFMA":
+        return {"flash_attention_bwd_tile":
+                _grid_tail(keys, 132 * (2 if d <= 64 else 1))}
+    rows = [-(-min(s, 128 * (nq - y)) // 64) if causal else nt
+            for y in range(nq) for _ in range(b * hq)]
+    return {"flash_attention_bwd_dkdv_wgmma": _grid_tail(keys, 264),
+            "flash_attention_bwd_dq_wgmma": _grid_tail(rows, 132)}
+
+
+def _kernel_ms(fn, calls: int = 5) -> dict:
+    """Device ms a call of each kernel ``fn()`` launches, under
+    ``torch.profiler`` over ``calls`` calls, by the kernel's name without
+    its namespace and template arguments."""
+    import re
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms: dict[str, float] = defaultdict(float)
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.search(r"(\w+)(<[^>]*>)?\(", evt.key)
+            key = name.group(1) if name else evt.key
+            ms[key] += evt.self_device_time_total / 1e3 / calls
+    return dict(ms)
 
 
 def check_flash_bwd(ops, ref, dev) -> dict:
@@ -1068,13 +1119,21 @@ def check_flash_bwd(ops, ref, dev) -> dict:
     same inputs (the LM shapes ``is_causal``, ``enable_gqa``, bf16).
     Bound: five products a head over the pairs the mask leaves open
     (recompute q·kᵀ, dO·vᵀ, Pᵀ·dO, dS·k, dSᵀ·q) at the input dtype's rate
-    (``bound_ms``) and at the float32 rate (``bound_ms_f32``: every
-    product is a float32 FFMA), or the bytes of q, k, v, o, dO, lse, dq,
-    dk, dv.  Returns the DiT case's numbers and, under ``by_path``, each
-    LM training path's case's."""
+    (``bound_ms``) and at the float32 rate (``bound_ms_f32``), or the
+    bytes of q, k, v, o, dO, lse, dq, dk, dv.  Each row names its route
+    (``design``: the LM cases must take ``"wgmma bf16"``, the DiT case
+    ``"FFMA"``), the kernels one call launched with each one's device ms
+    (``kernel_ms``, from the profiler; they must be the route's own), the
+    float32 scratch, and on the tensor-core route each kernel's registers
+    a thread and spill bytes (there must be none).  Returns the DiT
+    case's numbers and, under ``by_path``, each LM training path's
+    case's."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (bwd_design,
+                                                     bwd_scratch_floats,
+                                                     bwd_tc_attrs,
+                                                     flash_attention,
                                                      flash_attention_bwd)
 
     gen = torch.Generator(device=dev).manual_seed(24)
@@ -1102,6 +1161,9 @@ def check_flash_bwd(ops, ref, dev) -> dict:
         bitwise = all(torch.equal(a, g) for a, g in zip(kern(), got))
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         del want
+        design = bwd_design(q, k, v, do)
+        kernel_ms = _kernel_ms(kern)
+        tc = bwd_tc_attrs(d) if design == "wgmma bf16" else {}
         t_k = graph_ms(kern, 10)
         t_p = cuda_ms(plain, 10 if s <= 256 else 3, warmup=1)
         try:
@@ -1122,7 +1184,10 @@ def check_flash_bwd(ops, ref, dev) -> dict:
                            if dtype == torch.float32 else BF16_FLOP_PER_S)
         t_b32, by32 = bound_ms(nbytes, flops)
         row = dict(case=name, B=b, Hq=hq, Hkv=hkv, S=s, D=d, causal=causal,
-                   dtype=str(dtype).replace("torch.", ""),
+                   dtype=str(dtype).replace("torch.", ""), design=design,
+                   kernel_ms=kernel_ms, tc_kernels=tc,
+                   scratch_mbytes=4 * bwd_scratch_floats(
+                       q, k, v, out, do, causal=causal) / 1e6,
                    max_abs_err=max(errs), errs_dq_dk_dv=errs,
                    tols_dq_dk_dv=tols, bitwise_repeatable=bitwise, ms=t_k,
                    plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
@@ -1130,14 +1195,20 @@ def check_flash_bwd(ops, ref, dev) -> dict:
                    bound_by_f32=by32, share_of_bound_f32=t_b32 / t_k,
                    tflops=flops / t_k / 1e9,
                    launches_per_training_step=per_step,
-                   tile_kernel_blocks=b * hkv * -(-s // 64),
-                   grid_tail_share=_bwd_grid_tail(b, hq, hkv, s, d, causal))
+                   grid_tail_share=_bwd_grid_tails(design, b, hq, hkv, s, d,
+                                                   causal))
         row.update(clocks_under(kern))
         print("flash_attention_bwd case " + json.dumps(row))
         if not (finite and bitwise and all(
                 e <= t for e, t in zip(errs, tols))):
             fail(f"flash_attention_bwd disagrees with its plain version: "
                  f"{row}")
+        want_design = "FFMA" if dtype == torch.float32 else "wgmma bf16"
+        if (design != want_design
+                or sorted(kernel_ms) != sorted(FLASH_BWD_KERNELS[design])
+                or any(a["spill_bytes"] for a in tc.values())):
+            fail(f"flash_attention_bwd case {name} took the wrong route, "
+                 f"launched other kernels or spills: {row}")
         rows.append(row)
         del got, out, lse
         gc.collect()
@@ -2920,6 +2991,10 @@ TRAIN_CATEGORIES = (
     ("adaln_fuse_bwd", "adaln_fuse_bwd (every LayerNorm's backward)"),
     ("adaln_fuse", "adaln_fuse (forward)"),
     ("flash_attention_bwd_delta", "flash_attention_bwd Δ"),
+    ("flash_attention_bwd_dkdv_wgmma", "flash_attention_bwd dK/dV kernel "
+                                       "(wgmma)"),
+    ("flash_attention_bwd_dq_wgmma", "flash_attention_bwd dQ kernel "
+                                     "(wgmma)"),
     ("flash_attention_bwd_tile", "flash_attention_bwd dK, dV and dQ shares"),
     ("flash_attention_bwd_dq_sum", "flash_attention_bwd dQ sum"),
     ("flash_attention", "flash_attention (forward, with log-sum-exp)"),
@@ -3620,9 +3695,14 @@ LM_GRAD_REL_TOL = 1e-3
 
 #: a training step's kernel-name fragments -> category, first match wins
 LM_TRAIN_CATEGORIES = (
+    ("flash_attention_bwd_delta", "flash_attention_bwd Δ"),
+    ("flash_attention_bwd_dkdv_wgmma", "flash_attention_bwd dK/dV kernel "
+                                       "(wgmma)"),
+    ("flash_attention_bwd_dq_wgmma", "flash_attention_bwd dQ kernel "
+                                     "(wgmma)"),
     ("flash_attention_bwd_tile", "flash_attention_bwd tile kernel (dK, dV, "
                                  "the dQ shares)"),
-    ("flash_attention_bwd", "flash_attention_bwd Δ and dQ sums"),
+    ("flash_attention_bwd_dq_sum", "flash_attention_bwd dQ sums"),
     ("flash_attention", "flash_attention (forward and recompute)"),
     ("ssd_scan_bwd_states", "ssd_scan_bwd first launch: the tiles' state "
                             "sums"),

@@ -479,17 +479,6 @@ __device__ __forceinline__ void stage_mn_major(uint32_t dst,
   }
 }
 
-// Two bf16 terms of (p0, p1), packed as an A-fragment register each:
-// hi = bf16(p), lo = bf16(p − hi); the low half holds p0.
-__device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // Block (b·h, query tile); see the design above.  All operands staged by
 // 16-byte cp.async (the launcher checks the rule).
 template <int D>

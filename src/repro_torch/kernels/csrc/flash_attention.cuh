@@ -1,7 +1,8 @@
 // What the flash attention kernels of flash_attention.cu (the forward)
 // and flash_attention_bwd.cu (the backward) share: element strides, the
-// staged row's pitch, staging q, k, v or dO rows into shared memory, and
-// reading them back as float32.
+// staged row's pitch, staging q, k, v or dO rows into shared memory,
+// reading them back as float32, and splitting a float32 pair in two bf16
+// terms for the tensor cores.
 
 #pragma once
 
@@ -74,6 +75,17 @@ __device__ __forceinline__ void stage(uint8_t* dst, int pitch,
                                        : R(0);
     }
   }
+}
+
+// Two bf16 terms of (p0, p1), packed as an A-fragment register each:
+// hi = bf16(p), lo = bf16(p − hi); the low half holds p0.
+__device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 }  // namespace

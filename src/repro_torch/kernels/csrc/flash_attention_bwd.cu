@@ -21,17 +21,25 @@
 //
 // dK and dV of a kv head summed over the query heads that read it.
 //
-// What bounds it on this card: float32 operations.  Five products over
-// the (query, key) pairs a mask leaves open, a head (q·kᵀ and dO·vᵀ
-// recomputed, Pᵀ·dO, dSᵀ·q, dS·k): at the DiT's training shape (32 × 12
-// heads, S 256, D 64, float32) 16.1 GFLOP on 100 MB, 0.24 ms at 67
-// TFLOP/s; at internlm2-1.8b's (B 4, 16 query heads over 8 kv heads of D
-// 128, S 1024, causal, bf16) 43.0 GFLOP, 0.64 ms.  Every product is an
-// IEEE float32 FFMA on the CUDA cores, as in the forward's template: bf16
-// operands stay bf16 in shared memory and are widened exactly as they are
-// read, so every product is the reference's float32 product.  dq, dk and
-// dv are rounded once to their input's dtype at the end.  Δ is formed
-// from the forward's output as stored (bf16-rounded for bf16).
+// Two routes, picked by shape (the rule is `flash_attention_bwd` at the
+// end of this file, as the forward's): bf16 with D a multiple of 16 up to
+// 128 and 16-byte staging of every operand and gradient goes to two
+// tensor-core kernels (`bwd::tc`, their design written above them);
+// everything else — float32 (the DiT's training backward), bf16 at another
+// D, unaligned views — goes to the FFMA tile kernel below.  A failed
+// launch of either route returns its error; neither falls back to the
+// other.
+//
+// The FFMA route.  What bounds it on this card: float32 operations.  Five
+// products over the (query, key) pairs a mask leaves open, a head (q·kᵀ
+// and dO·vᵀ recomputed, Pᵀ·dO, dSᵀ·q, dS·k): at the DiT's training shape
+// (32 × 12 heads, S 256, D 64, float32) 16.1 GFLOP on 100 MB, 0.24 ms at
+// 67 TFLOP/s.  Every product is an IEEE float32 FFMA on the CUDA cores, as
+// in the forward's template: bf16 operands (the shapes the tensor-core
+// route does not take) stay bf16 in shared memory and are widened exactly
+// as they are read, so every product is the reference's float32 product.
+// dq, dk and dv are rounded once to their input's dtype at the end.  Δ is
+// formed from the forward's output as stored (bf16-rounded for bf16).
 //
 // Three kernels, no atomics, every sum in a fixed order (the result is
 // bitwise repeatable):
@@ -45,13 +53,10 @@
 //      (key tile, query tile) pair and query head;
 //   3. `flash_attention_bwd_dq_sum`: dQ = scale · the shares written for
 //      the row, added in key-tile order.
-// So every product is formed once (five, the bound's count): recomputing
-// S and dP for dQ in a kernel of its own would take seven.  The shares
+// So every product is formed once (five, the bound's count).  The shares
 // are sized by the open pairs (`pair_count`): causal at S 1024, 136 of
-// the 256 tile pairs — 285 MB at internlm2's shape, 356 MB at zamba2's
-// (32 heads of D 80), where all pairs would take 537 and 671 MB.  The
-// scratch comes from torch.empty: a share is read only where a key tile
-// wrote it.
+// the 256 tile pairs.  The scratch comes from torch.empty: a share is read
+// only where a key tile wrote it.
 //
 // Masks: a key tile visits only the query tiles a mask leaves partly
 // open (`q_tiles`); inside them a masked logit gives probability 0
@@ -82,7 +87,8 @@
 // 128-thread blocks (254 registers, 8 warps an SM), and dS·K split over
 // the two groups with 4 × 8 tiles and a fifth barrier (no faster).  So
 // the kernel stays above its bound on shared-memory traffic and latency
-// (PERF.md).  D 80 runs on the D ≤ 128 template, its lanes past D idle.
+// (PERF.md).  A D from 65 to 128 runs on the D ≤ 128 template, its lanes
+// past D idle.
 
 namespace {
 
@@ -494,96 +500,722 @@ int64_t partial_floats(int B, int H, int S, int D, int causal, int window) {
   return pair_count(S, causal, window) * B * H * BQ * ((D + 3) & ~3);
 }
 
+// One call's operands and gradients (q, k, v, o, dO; dq, dk, dv), their
+// element strides and its shape.
+struct Call {
+  const void *q, *k, *v, *o, *dO;
+  void *dq, *dk, *dv;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  int B, H, Hkv, S, D, causal, window;
+};
+
+// Every row of a (B, heads, S, ·) view whole chunks of e elements (the
+// stride of an axis of length 1 is never used).
+inline bool rows_ok(const Call& c, const Strides& st, int heads, int e) {
+  return (c.B == 1 || st.b % e == 0) && (heads == 1 || st.h % e == 0) &&
+         st.s % e == 0;
+}
+inline bool aligned(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// 16-byte staging of q, k, v, dO and 16-byte rows of dk, dv: the tile
+// kernel's VEC.
+inline bool vec_tile(const Call& c, int esize) {
+  const int ev = 16 / esize;
+  return c.D % ev == 0 && rows_ok(c, c.sq, c.H, ev) &&
+         rows_ok(c, c.sk, c.Hkv, ev) && rows_ok(c, c.sv, c.Hkv, ev) &&
+         rows_ok(c, c.sdo, c.H, ev) && rows_ok(c, c.sdk, c.Hkv, ev) &&
+         rows_ok(c, c.sdv, c.Hkv, ev) && aligned(c.q) && aligned(c.k) &&
+         aligned(c.v) && aligned(c.dO) && aligned(c.dk) && aligned(c.dv);
+}
+
+// The tensor-core route's rule: bf16, D a multiple of 16 up to 128, and
+// 16-byte staging of q, k, v, dO and 16-byte rows of dq, dk, dv.
+inline bool tc_route(const Call& c, int bf16) {
+  return bf16 && c.D % 16 == 0 && c.D <= 128 && vec_tile(c, 2) &&
+         rows_ok(c, c.sdq, c.H, 8) && aligned(c.dq);
+}
+
+// Δ into `delta` (B·H·S floats).
+template <typename T>
+int launch_delta(const Call& c, float* delta, cudaStream_t stream) {
+  const int64_t rows = (int64_t)c.B * c.H * c.S;
+  const unsigned blocks = static_cast<unsigned>((rows + 15) / 16);
+  const T* o = static_cast<const T*>(c.o);
+  const T* dO = static_cast<const T*>(c.dO);
+  if (c.D % 4 == 0 && rows_ok(c, c.so, c.H, 4) && rows_ok(c, c.sdo, c.H, 4) &&
+      aligned(c.o) && aligned(c.dO))
+    flash_attention_bwd_delta<T, true><<<blocks, 256, 0, stream>>>(
+        o, dO, delta, c.H, c.S, c.D, c.so, c.sdo, rows);
+  else
+    flash_attention_bwd_delta<T, false><<<blocks, 256, 0, stream>>>(
+        o, dO, delta, c.H, c.S, c.D, c.so, c.sdo, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The FFMA route: Δ, the tile kernel, the dQ sums.
 template <typename T, int DMAX>
-int launch(const T* q, const T* k, const T* v, const T* o, const T* dO,
-           const float* lse, float* scratch, T* dq, T* dk, T* dv, int B,
-           int H, int Hkv, int S, int D, Strides sq, Strides sk, Strides sv,
-           Strides so, Strides sdo, Strides sdq, Strides sdk, Strides sdv,
-           int causal, int window, float scale, cudaStream_t stream) {
+int launch(const Call& c, const float* lse, float* scratch, float scale,
+           cudaStream_t stream) {
+  const int B = c.B, H = c.H, Hkv = c.Hkv, S = c.S, D = c.D;
   const int nkt = (S + BK - 1) / BK;
-  if (nkt > MAX_KEY_TILES) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t rows = (int64_t)B * H * S;
   float* part = scratch;
-  float* delta = scratch + partial_floats(B, H, S, D, causal, window);
-  const int ev = 16 / static_cast<int>(sizeof(T));
-  // (a stride of an axis of length 1 is never used)
-  const auto rows_ok = [&](const Strides& st, int heads, int e) {
-    return (B == 1 || st.b % e == 0) && (heads == 1 || st.h % e == 0) &&
-           st.s % e == 0;
-  };
-  const auto aligned = [](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  };
-
-  const unsigned dblocks = static_cast<unsigned>((rows + 15) / 16);
-  if (D % 4 == 0 && rows_ok(so, H, 4) && rows_ok(sdo, H, 4) && aligned(o) &&
-      aligned(dO))
-    flash_attention_bwd_delta<T, true><<<dblocks, 256, 0, stream>>>(
-        o, dO, delta, H, S, D, so, sdo, rows);
-  else
-    flash_attention_bwd_delta<T, false><<<dblocks, 256, 0, stream>>>(
-        o, dO, delta, H, S, D, so, sdo, rows);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const bool vec = D % ev == 0 && rows_ok(sq, H, ev) &&
-                   rows_ok(sk, Hkv, ev) && rows_ok(sv, Hkv, ev) &&
-                   rows_ok(sdo, H, ev) && rows_ok(sdk, Hkv, ev) &&
-                   rows_ok(sdv, Hkv, ev) && aligned(q) && aligned(k) &&
-                   aligned(v) && aligned(dO) && aligned(dk) && aligned(dv);
-  auto kern = vec ? flash_attention_bwd_tile<T, DMAX, true>
+  float* delta = scratch + partial_floats(B, H, S, D, c.causal, c.window);
+  int rc = launch_delta<T>(c, delta, stream);
+  if (rc != 0) return rc;
+  auto kern = vec_tile(c, sizeof(T))
+                  ? flash_attention_bwd_tile<T, DMAX, true>
                   : flash_attention_bwd_tile<T, DMAX, false>;
   const int smem = tile_bytes(D, sizeof(T));
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const auto in = [](const void* p) { return static_cast<const T*>(p); };
+  const auto out = [](void* p) { return static_cast<T*>(p); };
   kern<<<dim3(B * Hkv, nkt), THREADS, smem, stream>>>(
-      q, k, v, dO, lse, delta, dk, dv, part, H, Hkv, S, D, sq, sk, sv, sdo,
-      sdk, sdv, causal, window, scale);
+      in(c.q), in(c.k), in(c.v), in(c.dO), lse, delta, out(c.dk), out(c.dv),
+      part, H, Hkv, S, D, c.sq, c.sk, c.sv, c.sdo, c.sdk, c.sdv, c.causal,
+      c.window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
   const int64_t n4 = rows * (((D + 3) & ~3) / 4);
   const unsigned blocks = static_cast<unsigned>((n4 + 255) / 256);
-  if (D % 4 == 0 && rows_ok(sdq, H, 4) && aligned(dq))
+  if (D % 4 == 0 && rows_ok(c, c.sdq, H, 4) && aligned(c.dq))
     flash_attention_bwd_dq_sum<T, true><<<blocks, 256, 0, stream>>>(
-        part, dq, H, S, D, causal, window, sdq, scale, rows);
+        part, out(c.dq), H, S, D, c.causal, c.window, c.sdq, scale, rows);
   else
     flash_attention_bwd_dq_sum<T, false><<<blocks, 256, 0, stream>>>(
-        part, dq, H, S, D, causal, window, sdq, scale, rows);
+        part, out(c.dq), H, S, D, c.causal, c.window, c.sdq, scale, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int by_width(const void* q, const void* k, const void* v, const void* o,
-             const void* dO, const void* lse, void* scratch, void* dq,
-             void* dk, void* dv, int B, int H, int Hkv, int S, int D,
-             const Strides* st, int causal, int window, float scale,
+int by_width(const Call& c, const float* lse, float* scratch, float scale,
              cudaStream_t cs) {
-  const auto c = [](const void* p) { return static_cast<const T*>(p); };
-  const auto w = [](void* p) { return static_cast<T*>(p); };
-  const float* l = static_cast<const float*>(lse);
-  float* sc = static_cast<float*>(scratch);
-  if (D <= 64)
-    return launch<T, 64>(c(q), c(k), c(v), c(o), c(dO), l, sc, w(dq), w(dk),
-                         w(dv), B, H, Hkv, S, D, st[0], st[1], st[2], st[3],
-                         st[4], st[5], st[6], st[7], causal, window, scale,
-                         cs);
-  return launch<T, 128>(c(q), c(k), c(v), c(o), c(dO), l, sc, w(dq), w(dk),
-                        w(dv), B, H, Hkv, S, D, st[0], st[1], st[2], st[3],
-                        st[4], st[5], st[6], st[7], causal, window, scale,
-                        cs);
+  if (c.D <= 64) return launch<T, 64>(c, lse, scratch, scale, cs);
+  return launch<T, 128>(c, lse, scratch, scale, cs);
+}
+
+// ---- bf16 backward on the tensor cores -----------------------------------
+//
+// For bf16 operands the reference widens to float32 and contracts; a
+// bf16 × bf16 product is exact in float32, so q·kᵀ and dO·vᵀ on
+// `wgmma … .f32.bf16.bf16` are the reference's logits and dP but for the
+// order of the sums.  The other three products take P or dS, which the
+// reference keeps in float32: one bf16 term of them keeps 8 bits (most of
+// a bf16 ulp of the gradient), so each is split in two bf16 terms,
+// hi = bf16(x) and lo = bf16(x − hi), both through the tensor cores into
+// one float32 accumulator: 16 bits, an error near 2⁻¹⁷ of the accumulator
+// (the forward's p·v, flash_attention.cu).
+//
+// What bounds it on this card: bf16 tensor operations (989 TFLOP/s)
+// against the bytes of q, k, v, o, dO, lse and the gradients (3.35
+// TB/s).  Five products over the open pairs (the bound's count): at
+// internlm2's causal training shape (B 4, 16 query heads over 8 kv heads
+// of D 128, S 1024) 43.0 GFLOP, 0.0435 ms; at zamba2's (32 heads of D 80)
+// 53.7 GFLOP on 182 MB, 0.0543 ms.
+//
+// Three kernels, no atomics and no scratch but Δ, every sum in a fixed
+// order (bitwise repeatable):
+//   1. Δ, as the FFMA route's (`flash_attention_bwd_delta`);
+//   2. `flash_attention_bwd_dkdv_wgmma`: one block of one warpgroup per
+//      (b·kv head, key tile of 64) walks the query tiles of 64 that the
+//      mask leaves open (`q_tiles`), for each query head of its group in
+//      order, with the keys as wgmma's M: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+//      (`m64n64k16`, both operands from shared memory), Pᵀ = exp(Sᵀ·scale −
+//      lse) and dSᵀ = Pᵀ ∘ (dPᵀ − Δ) on the accumulator fragment (lse and Δ
+//      belong to its columns: staged with the query tile), then
+//      dV += Pᵀ·dO and dK += dSᵀ·Q (`m64nDk16`, Pᵀ and dSᵀ from registers
+//      in two terms, dO and Q read MN-major).  dK and dV stay in registers
+//      over the walk (summed over the group on chip) and are scaled and
+//      rounded once.  Causal key tiles run low first: they see the most
+//      query tiles;
+//   3. `flash_attention_bwd_dq_wgmma`: the forward's skeleton without the
+//      online softmax: one block of two warpgroups per (b·h, query tile of
+//      128) walks the kv tiles its rows can see, S = Q·Kᵀ and dP = dO·Vᵀ,
+//      P and dS from the rows' lse and Δ, then dQ += dS·K with dS from
+//      registers in two terms and K read MN-major; dS·K of tile t − 1 is on
+//      the tensor cores while tile t's dS is formed.  Causal query tiles
+//      run heaviest (last) first.
+// So seven products a head where the FFMA route forms five (q·kᵀ and
+// dO·vᵀ twice), ten bf16 products counting the split terms; in return no
+// dQ shares (the FFMA route writes and reads 285 MB of them at
+// internlm2's shape) and no atomics.
+//
+// Layout: each staged tile serves both as a K-major operand (D
+// contracted) and as an MN-major one (its rows contracted): `Lay` below.
+// Every copy is a 16-byte cp.async; rows past S are zero-filled, and only
+// tiles that the diagonal, the window's edge or S cuts run the mask test;
+// a masked pair gives P = 0 and dS = 0 exactly.  No wgmma sits under a
+// thread-dependent branch, and each issue is fenced for its registers
+// (the forward's rules: else ptxas serialises every wgmma, C7520).
+// Registers: the dK/dV kernel holds dK and dV (D/2 each) and Sᵀ and dPᵀ
+// (32 each), which become the two terms of Pᵀ and dSᵀ in place (255 a
+// thread at D 128, no spills: two 128-thread blocks an SM); the dQ kernel
+// dQ (D/2), S and dP, and dS's terms.  Shared memory: at D 128 (the
+// 128-byte swizzle) 98 KB and 193 KB; at D 80 (the 32-byte swizzle, 16
+// columns a block, one copy of each tile) 62 KB and 121 KB.
+//
+// Tried and not kept (same times, NVIDIA H100 80GB HBM3, 700 W): S and
+// dP in two commit groups with P formed while dP is on the tensor cores,
+// dV issued before dS is split, and exp2f with log2 e folded into the
+// scale.
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BKEY = 64;          // dK/dV kernel: keys a block
+constexpr int BQT = 64;           // dK/dV kernel: queries a walked tile
+constexpr int KV_THREADS = 128;   // one warpgroup
+constexpr int KV_NST = 2;         // query tiles in its ring
+constexpr int BQ = 128;           // dQ kernel: query rows a block
+constexpr int BKV = 64;           // dQ kernel: keys a kv tile
+constexpr int Q_THREADS = 256;    // two warpgroups, 64 rows each
+constexpr int Q_NST = 4;          // kv tiles in its ring
+
+// A staged tile of rows of D bf16: its columns in blocks of W bytes, each
+// block rows × W bytes under the W-byte swizzle, W the largest of 128, 64
+// and 32 that divides a row (128 at D 64 and 128, 32 at D 80).  That is at
+// once the canonical K-major layout of the W-byte swizzle (8-row atoms W
+// bytes wide; a k-step's 32 bytes lie in one block) and its canonical
+// MN-major one (W bytes of the rows' axis by 8 rows, blocks rows·W bytes
+// apart), so each tile is staged once and read through two descriptors.
+template <int D> struct Lay {
+  static_assert(D % 16 == 0 && D <= 128, "D a multiple of 16 up to 128");
+  static constexpr int W = (2 * D) % 128 == 0 ? 128
+                           : (2 * D) % 64 == 0 ? 64 : 32;
+  static constexpr int MODE = W == 128 ? 1 : W == 64 ? 2 : 3;
+  static constexpr int TILE = 64 * 2 * D;     // bytes of 64 rows
+  static_assert(TILE % 1024 == 0, "1024-byte aligned tiles");
+};
+
+// Rows [row0, row0 + n) of one head into a tile at `dst`; rows past S are
+// zero-filled.  NT: the block's threads.
+template <int D, int NT>
+__device__ __forceinline__ void stage_tile(uint32_t dst,
+                                           const bf16* __restrict__ src,
+                                           int64_t ss, int row0, int n,
+                                           int S) {
+  constexpr int CPR = D / 8, W = Lay<D>::W, WC = W / 16;
+  for (int i = threadIdx.x; i < n * CPR; i += NT) {
+    const int r = i / CPR, ch = i % CPR;
+    const int pos = row0 + r;
+    const bool in = pos < S;
+    hopper::cp_async16(
+        dst + (ch / WC) * (n * W) + hopper::swizzle(r * W + ch % WC * 16, W),
+        in ? src + (int64_t)pos * ss + ch * 8 : src, in ? 16 : 0);
+  }
+}
+
+// K-major descriptor: rows [row0, row0 + 64) of an n-row tile, k-step ks
+// (columns 16ks .. 16ks + 15).
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int n, int row0,
+                                           int ks) {
+  constexpr int W = Lay<D>::W;
+  return hopper::smem_desc(
+      tile + (32 * ks / W) * (n * W) + row0 * W + (32 * ks) % W, 16, 8 * W,
+      Lay<D>::MODE);
+}
+
+// MN-major descriptor: rows 16kk .. 16kk + 15 of an n-row tile as the
+// contracted axis, all D columns.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int n, int kk) {
+  constexpr int W = Lay<D>::W;
+  return hopper::smem_desc(tile + kk * 16 * W, n * W, 8 * W, Lay<D>::MODE);
+}
+
+__device__ __forceinline__ bool open_pair(int qpos, int kpos, int S,
+                                          int causal, int window) {
+  return qpos < S && kpos < S && (!causal || kpos <= qpos) &&
+         (window <= 0 || qpos - kpos < window);
+}
+
+// A 64 × 64 accumulator fragment in two bf16 terms, as the A fragments
+// of four k-steps: k-step kk, register r holds accumulator registers
+// 8kk + 2r and 8kk + 2r + 1.
+__device__ __forceinline__ void split_frag(const float (&x)[32],
+                                           uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    split_pair(x[2 * i], x[2 * i + 1], hi[i / 4][i % 4], lo[i / 4][i % 4]);
+}
+__device__ __forceinline__ void fence_frag(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hopper::reg_fence(f[kk]);
+}
+
+// Block (b·Hkv + kv head, key tile); see the design above.  Accumulator
+// register 4j + e of Sᵀ, dPᵀ: key kr + 8·(e / 2), query 8j + qc + e % 2;
+// of dK, dV: key kr + 8·(e / 2), column 8j + qc + e % 2.
+template <int D>
+__global__ void __launch_bounds__(KV_THREADS, 2)
+flash_attention_bwd_dkdv_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dO,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int S,
+    Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+    Strides sdv, int causal, int window, float scale) {
+  constexpr int TILE = Lay<D>::TILE, ND = D / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = hopper::smem_u32(smem_raw);
+  const uint32_t s0 = (base + 1023) & ~1023u;
+  // K, V, then KV_NST stages of (Q, dO), then each stage's lse and Δ
+  const uint32_t sK = s0, sV = s0 + TILE, sQ0 = s0 + 2 * TILE;
+  float* lds = reinterpret_cast<float*>(smem_raw + (s0 - base) +
+                                        (2 + 2 * KV_NST) * TILE);
+
+  const int group = H / Hkv;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int k0 = blockIdx.y * BKEY;
+  int first, last;
+  q_tiles(blockIdx.y, (S + BQT - 1) / BQT, causal, window, first, last);
+  const int per_head = last - first, n_it = group * per_head;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int kr = k0 + 16 * (tid >> 5) + (lane >> 2);
+  const int qc = 2 * (lane & 3);
+
+  // iteration it: query head hk·group + it / per_head, query tile
+  // first + it % per_head
+  const auto head_of = [&](int it) { return hk * group + it / per_head; };
+  const auto q0_of = [&](int it) { return (first + it % per_head) * BQT; };
+  const auto stage_q = [&](int it) {
+    const int h = head_of(it), q0 = q0_of(it);
+    const uint32_t st = sQ0 + (it % KV_NST) * 2 * TILE;
+    stage_tile<D, KV_THREADS>(st, q + b * sq.b + h * sq.h, sq.s, q0, BQT, S);
+    stage_tile<D, KV_THREADS>(st + TILE, dO + b * sdo.b + h * sdo.h, sdo.s,
+                              q0, BQT, S);
+  };
+  // the query tile's lse and Δ for thread tid < BQT (0 past S)
+  const auto load_ld = [&](int it, float& l, float& d) {
+    l = d = 0.f;
+    const int qpos = q0_of(it) + tid;
+    if (tid < BQT && qpos < S) {
+      const int64_t row = (int64_t)(b * H + head_of(it)) * S + qpos;
+      l = lse[row];
+      d = delta[row];
+    }
+  };
+  const auto store_ld = [&](int it, float l, float d) {
+    float* st = lds + 2 * BQT * (it % KV_NST);
+    if (tid < BQT) {
+      st[tid] = l;
+      st[BQT + tid] = d;
+    }
+  };
+
+  stage_tile<D, KV_THREADS>(sK, k + b * sk.b + hk * sk.h, sk.s, k0, BKEY, S);
+  stage_tile<D, KV_THREADS>(sV, v + b * sv.b + hk * sv.h, sv.s, k0, BKEY, S);
+  stage_q(0);
+  hopper::cp_async_commit();
+  {
+    float l, d;
+    load_ld(0, l, d);
+    store_ld(0, l, d);
+  }
+
+  float dva[ND], dka[ND], sacc[32], pacc[32];
+  uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) dva[i] = dka[i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = q0_of(it);
+    const uint32_t sQ = sQ0 + (it % KV_NST) * 2 * TILE, sdO = sQ + TILE;
+    const float* lq = lds + 2 * BQT * (it % KV_NST);
+    float l_next = 0.f, d_next = 0.f;
+    if (it + 1 < n_it) load_ld(it + 1, l_next, d_next);
+    hopper::cp_async_wait<0>();       // this query tile has landed
+    hopper::fence_proxy_async();
+    __syncthreads();                  // and the last one's stage is free
+    if (it + 1 < n_it) {
+      stage_q(it + 1);
+      store_ld(it + 1, l_next, d_next);
+    }
+    hopper::cp_async_commit();
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ.  The accumulators are zeroed first so
+    // that the last tile's values are dead once split.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+    hopper::reg_fence(sacc);
+    hopper::reg_fence(pacc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::wgmma_bf16_n64(sacc, desc_k<D>(sK, BKEY, 0, ks),
+                             desc_k<D>(sQ, BQT, 0, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::wgmma_bf16_n64(pacc, desc_k<D>(sV, BKEY, 0, ks),
+                             desc_k<D>(sdO, BQT, 0, ks), ks > 0);
+    hopper::wgmma_commit();
+    hopper::reg_fence(sacc);
+    hopper::reg_fence(pacc);
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(sacc);
+    hopper::reg_fence(pacc);
+
+    // Pᵀ and dSᵀ in place, each column's lse and Δ from shared memory
+    const bool edge = q0 + BQT > S || k0 + BKEY > S ||
+                      (causal && k0 + BKEY - 1 > q0) ||
+                      (window > 0 && q0 + BQT - 1 - k0 >= window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 L = *reinterpret_cast<const float2*>(lq + 8 * j + qc);
+      const float2 Dl =
+          *reinterpret_cast<const float2*>(lq + BQT + 8 * j + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        float p = expf(sacc[i] * scale - (e & 1 ? L.y : L.x));
+        if (edge && !open_pair(q0 + 8 * j + qc + (e & 1), kr + 8 * (e >> 1),
+                               S, causal, window))
+          p = 0.f;
+        sacc[i] = p;
+        pacc[i] = p * (pacc[i] - (e & 1 ? Dl.y : Dl.x));
+      }
+    }
+    split_frag(sacc, ph, pl);
+    split_frag(pacc, dh, dl);
+
+    // dV += Pᵀ·dO and dK += dSᵀ·Q: a k-step of 16 queries, hi then lo
+    hopper::reg_fence(dva);
+    hopper::reg_fence(dka);
+    fence_frag(ph);
+    fence_frag(pl);
+    fence_frag(dh);
+    fence_frag(dl);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_mn<D>(sdO, BQT, kk);
+      const uint64_t qb = desc_mn<D>(sQ, BQT, kk);
+      hopper::WgmmaRsBf16MnB<D>::run(dva, ph[kk], db);
+      hopper::WgmmaRsBf16MnB<D>::run(dva, pl[kk], db);
+      hopper::WgmmaRsBf16MnB<D>::run(dka, dh[kk], qb);
+      hopper::WgmmaRsBf16MnB<D>::run(dka, dl[kk], qb);
+    }
+    hopper::wgmma_commit();
+    hopper::reg_fence(dva);
+    hopper::reg_fence(dka);
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(dva);
+    hopper::reg_fence(dka);
+    fence_frag(ph);
+    fence_frag(pl);
+    fence_frag(dh);
+    fence_frag(dl);
+  }
+
+  // dK = scale · dSᵀ·Q and dV, rounded once
+  bf16* dkh = dk + b * sdk.b + hk * sdk.h;
+  bf16* dvh = dv + b * sdv.b + hk * sdv.h;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = kr + 8 * hf;
+    if (key >= S) continue;
+    bf16* rk = dkh + (int64_t)key * sdk.s + qc;
+    bf16* rv = dvh + (int64_t)key * sdv.s + qc;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * hf;
+      *reinterpret_cast<__nv_bfloat162*>(rk + 8 * j) =
+          __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(rv + 8 * j) =
+          __floats2bfloat162_rn(dva[i], dva[i + 1]);
+    }
+  }
+}
+
+// Block (b·h, query tile); see the design above.  Accumulator register
+// 4j + e of S, dP: row r0 + 8·(e / 2), key k0 + 8j + kc + e % 2; of dQ:
+// row r0 + 8·(e / 2), column 8j + kc + e % 2.
+template <int D>
+__global__ void __launch_bounds__(Q_THREADS, 1)
+flash_attention_bwd_dq_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dO,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int H, int group, int S, Strides sq, Strides sk,
+    Strides sv, Strides sdo, Strides sdq, int causal, int window,
+    float scale) {
+  constexpr int TILE = Lay<D>::TILE, NO = D / 2;
+  constexpr int STAGE = 2 * TILE;     // a kv tile's K and V
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s0 = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
+  // Q and dO (128 rows each), then Q_NST stages of (K, V)
+  const uint32_t sQ = s0, sdO = s0 + 2 * TILE, sKV = s0 + 4 * TILE;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / group;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int qw = q0 + 64 * wg;                      // the warpgroup's rows
+  const int r0 = qw + 16 * ((tid >> 5) & 3) + (lane >> 2);
+  const int kc = 2 * (lane & 3);
+
+  const bf16* kh = k + b * sk.b + hk * sk.h;
+  const bf16* vh = v + b * sv.b + hk * sv.h;
+
+  // kv positions [lo, hi) the block sees, lo on a tile; both warpgroups
+  // run every tile (a wgmma under a thread-dependent branch serialises
+  // them all), the first one's rows all masked in the last causal tile
+  const int lo = (window > 0 ? max(0, q0 - (window - 1)) : 0) / BKV * BKV;
+  const int hi = causal ? min(S, q0 + BQ) : S;
+  const int n = (hi - lo + BKV - 1) / BKV;
+
+  const auto stage_kv = [&](int t) {
+    const uint32_t st = sKV + (t % Q_NST) * STAGE;
+    stage_tile<D, Q_THREADS>(st, kh, sk.s, lo + t * BKV, BKV, S);
+    stage_tile<D, Q_THREADS>(st + TILE, vh, sv.s, lo + t * BKV, BKV, S);
+  };
+  stage_tile<D, Q_THREADS>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, BQ, S);
+  stage_tile<D, Q_THREADS>(sdO, dO + b * sdo.b + h * sdo.h, sdo.s, q0, BQ,
+                           S);
+  stage_kv(0);
+  hopper::cp_async_commit();
+  if (n > 1) stage_kv(1);
+  hopper::cp_async_commit();
+
+  // the thread's two rows' lse and Δ (0 past S)
+  float L[2], Dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + 8 * hf;
+    L[hf] = r < S ? lse[(int64_t)bh * S + r] : 0.f;
+    Dl[hf] = r < S ? delta[(int64_t)bh * S + r] : 0.f;
+  }
+
+  float sacc[32], pacc[32], dqa[NO];
+  uint32_t dh[4][4], dl[4][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dqa[i] = 0.f;
+
+  // Waits for tile t, then starts tile t + 2's copies into the stage of
+  // tile t − 2, which both warpgroups are done with.
+  const auto next_tile = [&](int t) {
+    hopper::cp_async_wait<1>();
+    hopper::fence_proxy_async();
+    __syncthreads();
+    if (t + 2 < n) stage_kv(t + 2);
+    hopper::cp_async_commit();
+  };
+  // S = Q·Kᵀ and dP = dO·Vᵀ of tile t
+  const auto issue_sdp = [&](int t) {
+    const uint32_t kb = sKV + (t % Q_NST) * STAGE, vb = kb + TILE;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+    hopper::reg_fence(sacc);
+    hopper::reg_fence(pacc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::wgmma_bf16_n64(sacc, desc_k<D>(sQ, BQ, 64 * wg, ks),
+                             desc_k<D>(kb, BKV, 0, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::wgmma_bf16_n64(pacc, desc_k<D>(sdO, BQ, 64 * wg, ks),
+                             desc_k<D>(vb, BKV, 0, ks), ks > 0);
+    hopper::wgmma_commit();
+    hopper::reg_fence(sacc);
+    hopper::reg_fence(pacc);
+  };
+  // dQ += dS·K of tile t: a k-step of 16 keys, hi then lo
+  const auto issue_dq = [&](int t) {
+    const uint32_t kb = sKV + (t % Q_NST) * STAGE;
+    hopper::reg_fence(dqa);
+    fence_frag(dh);
+    fence_frag(dl);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_mn<D>(kb, BKV, kk);
+      hopper::WgmmaRsBf16MnB<D>::run(dqa, dh[kk], db);
+      hopper::WgmmaRsBf16MnB<D>::run(dqa, dl[kk], db);
+    }
+    hopper::wgmma_commit();
+    hopper::reg_fence(dqa);
+    fence_frag(dh);
+    fence_frag(dl);
+  };
+  // dS = P ∘ (dP − Δ) of tile t into pacc, P = exp(S·scale − lse)
+  const auto form_ds = [&](int t) {
+    const int k0 = lo + t * BKV;
+    const bool edge = k0 + BKV > S || (causal && k0 + BKV - 1 > qw) ||
+                      (window > 0 && qw + 63 - k0 >= window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hf = (i >> 1) & 1;
+      float p = expf(sacc[i] * scale - L[hf]);
+      if (edge && !open_pair(r0 + 8 * hf, k0 + 8 * (i >> 2) + kc + (i & 1), S,
+                             causal, window))
+        p = 0.f;
+      pacc[i] = p * (pacc[i] - Dl[hf]);
+    }
+  };
+
+  // Tile 0 alone; then tile t's S and dP issued, tile t − 1's dS·K
+  // issued, and tile t's dS formed while dS·K(t − 1) is on the tensor
+  // cores; then the last dS·K.
+  next_tile(0);
+  issue_sdp(0);
+  hopper::wgmma_wait<0>();
+  hopper::reg_fence(sacc);
+  hopper::reg_fence(pacc);
+  form_ds(0);
+  split_frag(pacc, dh, dl);
+  for (int t = 1; t < n; ++t) {
+    next_tile(t);
+    issue_sdp(t);
+    issue_dq(t - 1);
+    hopper::wgmma_wait<1>();          // S(t) and dP(t) are done
+    hopper::reg_fence(sacc);
+    hopper::reg_fence(pacc);
+    form_ds(t);
+    hopper::wgmma_wait<0>();          // dS(t − 1)·K(t − 1) is done
+    hopper::reg_fence(dqa);
+    fence_frag(dh);
+    fence_frag(dl);
+    split_frag(pacc, dh, dl);
+  }
+  issue_dq(n - 1);
+  hopper::wgmma_wait<0>();
+  hopper::reg_fence(dqa);
+
+  bf16* dqh = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qpos = r0 + 8 * hf;
+    if (qpos >= S) continue;
+    bf16* row = dqh + (int64_t)qpos * sdq.s + kc;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * hf;
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(dqa[i] * scale, dqa[i + 1] * scale);
+    }
+  }
+}
+
+template <int D> constexpr int kv_smem() {
+  return (2 + 2 * KV_NST) * Lay<D>::TILE + KV_NST * 2 * BQT * 4 + 1024;
+}
+template <int D> constexpr int q_smem() {
+  return (4 + 2 * Q_NST) * Lay<D>::TILE + 1024;
+}
+
+template <int D>
+int launch(const Call& c, const float* lse, const float* delta, float scale,
+           cudaStream_t stream) {
+  auto kv = flash_attention_bwd_dkdv_wgmma<D>;
+  auto dq = flash_attention_bwd_dq_wgmma<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem<D>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             q_smem<D>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto in = [](const void* p) { return static_cast<const bf16*>(p); };
+  const auto out = [](void* p) { return static_cast<bf16*>(p); };
+  kv<<<dim3(c.B * c.Hkv, (c.S + BKEY - 1) / BKEY), KV_THREADS, kv_smem<D>(),
+       stream>>>(in(c.q), in(c.k), in(c.v), in(c.dO), lse, delta, out(c.dk),
+                 out(c.dv), c.H, c.Hkv, c.S, c.sq, c.sk, c.sv, c.sdo, c.sdk,
+                 c.sdv, c.causal, c.window, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dq<<<dim3(c.B * c.H, (c.S + BQ - 1) / BQ), Q_THREADS, q_smem<D>(),
+       stream>>>(in(c.q), in(c.k), in(c.v), in(c.dO), lse, delta, out(c.dq),
+                 c.H, c.H / c.Hkv, c.S, c.sq, c.sk, c.sv, c.sdo, c.sdq,
+                 c.causal, c.window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread, local (spill) bytes and the launch's dynamic shared
+// bytes of the dK/dV (which 0) or dQ (which 1) kernel at D.
+template <int D>
+int attrs(int which, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      which ? cudaFuncGetAttributes(&a, flash_attention_bwd_dq_wgmma<D>)
+            : cudaFuncGetAttributes(&a, flash_attention_bwd_dkdv_wgmma<D>);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = which ? q_smem<D>() : kv_smem<D>();
+  return static_cast<int>(e);
+}
+
+#define TC_WIDTHS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+
+int by_width(const Call& c, const float* lse, const float* delta,
+             float scale, cudaStream_t st) {
+  switch (c.D) {
+#define TC_CASE(W) \
+  case W:          \
+    return launch<W>(c, lse, delta, scale, st);
+    TC_WIDTHS(TC_CASE)
+#undef TC_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int attrs_by_width(int D, int which, int* out) {
+  switch (D) {
+#define TC_CASE(W) \
+  case W:          \
+    return attrs<W>(which, out);
+    TC_WIDTHS(TC_CASE)
+#undef TC_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace tc
+
+Call make_call(const void* q, const void* k, const void* v, const void* o,
+               const void* dO, void* dq, void* dk, void* dv, int B, int H,
+               int Hkv, int S, int D, const long long* strides, int causal,
+               int window) {
+  Strides st[8];
+  for (int i = 0; i < 8; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  return Call{q,     k,     v,     o,     dO,    dq, dk, dv, st[0],
+              st[1], st[2], st[3], st[4], st[5], st[6], st[7], B, H,
+              Hkv,   S,     D,     causal, window};
 }
 
 }  // namespace bwd
 
 }  // namespace
 
-// Float32 scratch the backward needs: the dQ shares of every open (key
-// tile, query tile) pair of every query head, then Δ (B·H·S).
-extern "C" long long flash_attention_bwd_scratch(int B, int H, int S, int D,
-                                                 int causal, int window) {
-  return bwd::partial_floats(B, H, S, D, causal, window) +
-         (long long)B * H * S;
+// Float32 scratch the backward of these operands needs (the arguments
+// of flash_attention_bwd less lse, scratch and stream): Δ (B·H·S) on the
+// tensor-core route; on the FFMA route the dQ shares of every open
+// (key tile, query tile) pair of every query head, then Δ.
+extern "C" long long flash_attention_bwd_scratch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, void* dq, void* dk, void* dv, int bf16, int B, int H,
+    int Hkv, int S, int D, const long long* strides, int causal,
+    int window) {
+  const bwd::Call c = bwd::make_call(q, k, v, o, dO, dq, dk, dv, B, H, Hkv,
+                                     S, D, strides, causal, window);
+  const long long delta = (long long)B * H * S;
+  if (bwd::tc_route(c, bf16)) return delta;
+  return bwd::partial_floats(B, H, S, D, causal, window) + delta;
+}
+
+// Registers a thread, local (spill) bytes and dynamic shared bytes of the
+// tensor-core route's dK/dV kernel (which 0) or dQ kernel (which 1) at
+// head dim D, into out[0..2].  Returns the CUDA error code.
+extern "C" int flash_attention_bwd_tc_attrs(int D, int which, int* out) {
+  return bwd::tc::attrs_by_width(D, which, out);
 }
 
 // Backward of attention.  q, o, dO, dq: (B, H, S, D); k, v, dk, dv:
@@ -591,10 +1223,11 @@ extern "C" long long flash_attention_bwd_scratch(int B, int H, int S, int D,
 // position) with a contiguous last axis, in the order q, k, v, o, dO, dq,
 // dk, dv; all float32 (bf16 = 0) or all bf16 (bf16 = 1).  lse: the
 // forward's contiguous float32 (B·H, S) row log-sum-exp; scratch:
-// flash_attention_bwd_scratch(B, H, S, D, causal, window) floats, 16-byte
-// aligned.  causal, window as the forward's (window ≤ 0: none).  D ≤ 128,
-// S ≤ 65,535 key tiles of 64.  Launches three kernels on `stream`,
-// allocates nothing, returns the CUDA error code (0 on success).
+// flash_attention_bwd_scratch(...) floats, 16-byte aligned.  causal,
+// window as the forward's (window ≤ 0: none).  D ≤ 128, S ≤ 65,535 key
+// tiles of 64.  Launches three kernels on `stream` (the route by shape:
+// see the top of this file), allocates nothing, returns the CUDA error
+// code (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* scratch, void* dq, void* dk,
@@ -602,16 +1235,19 @@ extern "C" int flash_attention_bwd(
     const long long* strides, int causal, int window, float scale,
     void* stream) {
   if (B == 0 || H == 0 || S == 0 || D == 0) return 0;
-  if (D > 128 || Hkv <= 0 || H % Hkv != 0)
+  if (D > 128 || Hkv <= 0 || H % Hkv != 0 ||
+      (S + bwd::BK - 1) / bwd::BK > bwd::MAX_KEY_TILES)
     return static_cast<int>(cudaErrorInvalidValue);
-  Strides st[8];
-  for (int i = 0; i < 8; ++i)
-    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const bwd::Call c = bwd::make_call(q, k, v, o, dO, dq, dk, dv, B, H, Hkv,
+                                     S, D, strides, causal, window);
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return bwd::by_width<__nv_bfloat16>(q, k, v, o, dO, lse, scratch, dq, dk,
-                                        dv, B, H, Hkv, S, D, st, causal,
-                                        window, scale, cs);
-  return bwd::by_width<float>(q, k, v, o, dO, lse, scratch, dq, dk, dv, B, H,
-                              Hkv, S, D, st, causal, window, scale, cs);
+  const float* l = static_cast<const float*>(lse);
+  float* sc = static_cast<float*>(scratch);
+  if (bwd::tc_route(c, bf16)) {
+    const int rc = bwd::launch_delta<__nv_bfloat16>(c, sc, cs);
+    if (rc != 0) return rc;
+    return bwd::tc::by_width(c, l, sc, scale, cs);
+  }
+  if (bf16) return bwd::by_width<__nv_bfloat16>(c, l, sc, scale, cs);
+  return bwd::by_width<float>(c, l, sc, scale, cs);
 }

@@ -18,11 +18,16 @@ p split in two bf16 terms for p·v), everything else — float32, the DiT
 path — to the FFMA template.
 
 ``flash_attention_bwd`` launches the backward (three kernels of
-``csrc/flash_attention_bwd.cu``: Δ, then dK, dV and each key tile's share
-of dQ, then dQ): causal, sliding-window and grouped-query attention in
-float32 or bf16 with ``D ≤ 128``, from the forward's row log-sum-exp
-(``flash_attention(..., with_lse=True)``); every product an IEEE float32
-FFMA, dq, dk and dv rounded once to their input's dtype.  The TPU kernel
+``csrc/flash_attention_bwd.cu``): causal, sliding-window and grouped-query
+attention in float32 or bf16 with ``D ≤ 128``, from the forward's row
+log-sum-exp (``flash_attention(..., with_lse=True)``); dq, dk and dv
+rounded once to their input's dtype.  Two routes by shape
+(``bwd_design`` mirrors the rule): bf16 with ``D`` a multiple of 16 up to
+128 and 16-byte staging goes to the tensor-core kernels (Δ, then a dK/dV
+kernel and a dQ kernel on ``wgmma``, P and dS split in two bf16 terms;
+the only scratch is Δ), everything else — float32, the DiT path — to the
+FFMA route (Δ, then dK, dV and each key tile's float32 share of dQ, then
+the shares added; every product an IEEE float32 FFMA).  The TPU kernel
 has no backward; this one replaces XLA's autodiff of the reference's
 training attention (``repro/models/layers.py:137``).  Its plain version
 is ``kernels.ref.ref_flash_attention_bwd``.
@@ -80,6 +85,20 @@ def design(q, k, v) -> str:
     return "FFMA"
 
 
+def bwd_design(q, k, v, d_out) -> str:
+    """Which route one backward launch on these operands runs (the rule of
+    ``flash_attention_bwd`` in ``csrc/flash_attention_bwd.cu``):
+    ``"wgmma bf16"`` for bf16 with ``D % 16 == 0``, ``D ≤ 128`` and
+    16-byte staging (``staging_is_vec``) of q, k, v, d_out and of the
+    gradients (``empty_like`` of q, k, v: their rows follow from the
+    operands'), else ``"FFMA"``."""
+    d = q.shape[-1]
+    if (q.dtype == torch.bfloat16 and d % 16 == 0 and d <= TC_MAX_D
+            and staging_is_vec(q, k, v) and staging_is_vec(d_out, k, v)):
+        return "wgmma bf16"
+    return "FFMA"
+
+
 @functools.cache
 def _fn():
     fn = _build.load_library("flash_attention").flash_attention
@@ -104,9 +123,64 @@ def _bwd_fn():
 def _bwd_scratch_fn():
     fn = _build.load_library(
         "flash_attention_bwd").flash_attention_bwd_scratch
-    fn.argtypes = [ctypes.c_int] * 6
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 8 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                                       i, i]
     fn.restype = ctypes.c_longlong
     return fn
+
+
+def _bwd_operands(q, k, v, out, d_out, grads):
+    """Pointers and the 24 (batch, head, position) strides of q, k, v,
+    out, d_out, dq, dk, dv: the launcher's order."""
+    order = (q, k, v, out, d_out) + tuple(grads)
+    return ([t.data_ptr() for t in order],
+            (ctypes.c_longlong * 24)(*[t.stride(i) for t in order
+                                       for i in range(3)]))
+
+
+def bwd_scratch_floats(q, k, v, out, d_out, *, causal: bool = False,
+                       window: int = 0) -> int:
+    """The float32 scratch ``flash_attention_bwd`` allocates for these
+    CUDA operands, as its route sizes it: ``B·H·S`` (Δ alone) on the
+    tensor-core route; the open tile pairs' dQ shares and Δ on the FFMA
+    route."""
+    grads = [torch.empty_like(t, device="meta") for t in (q, k, v)]
+    ptrs, strides = _bwd_operands(q, k, v, out, d_out, grads)
+    return _bwd_scratch_fn()(*ptrs, _DTYPES[q.dtype], *q.shape[:2],
+                             k.shape[1], *q.shape[2:], strides, int(causal),
+                             int(window))
+
+
+#: the tensor-core backward's two kernels, by ``which`` of
+#: ``flash_attention_bwd_tc_attrs``
+BWD_TC_KERNELS = ("flash_attention_bwd_dkdv_wgmma",
+                  "flash_attention_bwd_dq_wgmma")
+
+
+@functools.cache
+def _bwd_attrs_fn():
+    fn = _build.load_library(
+        "flash_attention_bwd").flash_attention_bwd_tc_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_tc_attrs(d: int) -> dict:
+    """The tensor-core backward's kernels at head dim ``d`` as built:
+    ``{name: {"registers": ..., "spill_bytes": ..., "smem_bytes": ...}}``
+    (``cudaFuncGetAttributes``' ``numRegs`` and ``localSizeBytes``, and the
+    launch's dynamic shared bytes)."""
+    attrs = {}
+    for which, name in enumerate(BWD_TC_KERNELS):
+        out = (ctypes.c_int * 3)()
+        rc = _bwd_attrs_fn()(d, which, out)
+        if rc != 0:
+            raise RuntimeError(f"{name} attributes at D {d}: CUDA error {rc}")
+        attrs[name] = dict(registers=out[0], spill_bytes=out[1],
+                           smem_bytes=out[2])
+    return attrs
 
 
 def flash_attention(
@@ -217,19 +291,16 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = False,
                          "last axis")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     grads = [torch.empty_like(t) for t in (q, k, v)]   # unit last stride
-    # the open tile pairs' dQ shares and Δ, sized by the kernel's own tiles
+    ptrs, strides = _bwd_operands(q, k, v, out, d_out, grads)
+    shape = (_DTYPES[q.dtype], b, h, hkv, s, d)
+    # the route's own float32 scratch: Δ on the tensor-core route, the open
+    # tile pairs' dQ shares and Δ on the FFMA route
     scratch = torch.empty(
-        _bwd_scratch_fn()(b, h, s, d, int(causal), int(window)),
+        _bwd_scratch_fn()(*ptrs, *shape, strides, int(causal), int(window)),
         dtype=torch.float32, device=q.device)
-    order = (q, k, v, out, d_out) + tuple(grads)
-    strides = (ctypes.c_longlong * 24)(*[t.stride(i) for t in order
-                                         for i in range(3)])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   d_out.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-                   *(g.data_ptr() for g in grads), _DTYPES[q.dtype], b, h,
-                   hkv, s, d, strides, int(causal), int(window), scale,
-                   stream)
+    rc = _bwd_fn()(*ptrs[:5], lse.data_ptr(), scratch.data_ptr(), *ptrs[5:],
+                   *shape, strides, int(causal), int(window), scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{rc}")

@@ -1301,10 +1301,13 @@ def _bwd_check(cuda, b, hq, hkv, s, d, causal, window, dtype, scale=None,
                offset=False):
     """The backward kernel against the plain version on (B, S, H, D)
     projections read as (B, H, S, D) views (one element off 16-byte
-    alignment with ``offset``), bitwise repeatable; then the same call
-    under autograd through ``ops.flash_attention``: one forward and one
+    alignment with ``offset``), bitwise repeatable, on the route its
+    shape picks (bf16 at D a multiple of 16 and aligned: the tensor-core
+    kernels; else the FFMA tile kernel); then the same call under
+    autograd through ``ops.flash_attention``: one forward and one
     backward launch, the direct call's gradients bitwise."""
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (bwd_design,
+                                                     flash_attention,
                                                      flash_attention_bwd)
 
     gen = torch.Generator(device=cuda).manual_seed(b * hq + s + d + hkv)
@@ -1315,6 +1318,8 @@ def _bwd_check(cuda, b, hq, hkv, s, d, causal, window, dtype, scale=None,
             dtype)
         return base[off:].view(b, s, h, d).transpose(1, 2)
     q, k, v, do = draw(hq), draw(hkv), draw(hkv), draw(hq, 0.1)
+    tc = dtype == torch.bfloat16 and d % 16 == 0 and not offset
+    assert bwd_design(q, k, v, do) == ("wgmma bf16" if tc else "FFMA")
     kw = dict(causal=causal, window=window, softmax_scale=scale)
     out, lse = flash_attention(q, k, v, with_lse=True, **kw)
     got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -1350,12 +1355,13 @@ def _bwd_check(cuda, b, hq, hkv, s, d, causal, window, dtype, scale=None,
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
     (2, 4, 2, 256, 64, True, 0),      # causal GQA
     (1, 4, 1, 200, 128, True, 0),     # one kv head, ragged S, widest head
-    (1, 4, 4, 300, 80, True, 0),      # zamba2's head: D 80 on the 128 tile
+    (1, 4, 4, 300, 80, True, 0),      # zamba2's head: D 80 (bf16: the
+                                      # 32-byte swizzle)
     (2, 4, 2, 257, 64, True, 70),     # causal sliding window, ragged S
     (1, 2, 2, 333, 80, False, 100),   # a window without the causal mask
     (1, 8, 2, 130, 128, False, 0),    # non-causal GQA 4 a group
     (2, 2, 1, 64, 16, True, 1),       # window 1: the diagonal alone
-    (1, 3, 3, 77, 40, True, 0),       # D 40: bf16 takes the FFMA forward
+    (1, 3, 3, 77, 40, True, 0),       # D 40: bf16 takes the FFMA route
 ])
 def test_flash_attention_bwd_kernel_masks_and_groups(cuda, b, hq, hkv, s, d,
                                                      causal, window, dtype):
@@ -1388,6 +1394,84 @@ def test_flash_attention_bwd_kernel_unaligned_masked_views(cuda, dtype):
     _bwd_check(cuda, 2, 4, 2, 150, 64, True, 0, dtype, scale=0.2,
                offset=True)
     _bwd_check(cuda, 1, 2, 2, 100, 128, True, 33, dtype, offset=True)
+
+
+def _kernels_launched(fn) -> dict:
+    """The kernels one ``fn()`` launches on the card (after a warm-up
+    call), under ``torch.profiler``: ``{name: launches}`` by the kernel's
+    name without its namespace and template arguments."""
+    import re
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"(\w+)(<[^>]*>)?\(", evt.key)
+            out[m.group(1) if m else evt.key] = evt.count
+    return out
+
+
+#: the backward's kernels on each route, one launch each a call
+BWD_ROUTES = {
+    "wgmma bf16": {"flash_attention_bwd_delta": 1,
+                   "flash_attention_bwd_dkdv_wgmma": 1,
+                   "flash_attention_bwd_dq_wgmma": 1},
+    "FFMA": {"flash_attention_bwd_delta": 1, "flash_attention_bwd_tile": 1,
+             "flash_attention_bwd_dq_sum": 1}}
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,dtype,route", [
+    (2, 16, 8, 512, 128, True, torch.bfloat16, "wgmma bf16"),  # GQA, D 128
+    (2, 8, 8, 300, 80, True, torch.bfloat16, "wgmma bf16"),    # D 80
+    (1, 3, 3, 77, 40, True, torch.bfloat16, "FFMA"),           # bf16 D 40
+    (32, 12, 12, 256, 64, False, torch.float32, "FFMA"),       # the DiT's
+], ids=["bf16_d128_causal_gqa", "bf16_d80_causal", "bf16_d40",
+        "f32_dit_training"])
+def test_flash_attention_bwd_route_by_shape(cuda, b, hq, hkv, s, d, causal,
+                                            dtype, route):
+    """Under ``torch.profiler`` one backward launches its route's three
+    kernels and no other: aligned bf16 at D 128 (causal GQA) and D 80 Δ,
+    the tensor-core dK/dV kernel and the dQ kernel — no FFMA tile kernel
+    and no dQ sums; bf16 at D 40 and the DiT's float32 training shape Δ,
+    the FFMA tile kernel and its dQ sums.  ``bwd_design`` names the route
+    that ran."""
+    from repro_torch.kernels.flash_attention import (bwd_design,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+
+    def draw(h):
+        return torch.randn(b, s, h, d, generator=gen, device=cuda).to(
+            dtype).transpose(1, 2)
+    q, k, v, do = draw(hq), draw(hkv), draw(hkv), draw(hq)
+    out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+    assert bwd_design(q, k, v, do) == route
+    assert _kernels_launched(lambda: flash_attention_bwd(
+        q, k, v, out, lse, do, causal=causal)) == BWD_ROUTES[route]
+
+
+def test_flash_attention_bwd_scratch_is_delta_on_the_tc_route(cuda):
+    """The tensor-core route's float32 scratch is Δ alone, ``B·H·S``
+    floats, at both LM training shapes (causal, as the models lay out
+    q, k, v and dO); the FFMA route's (the DiT's float32 shape) also holds
+    its dQ shares."""
+    from repro_torch.kernels.flash_attention import bwd_scratch_floats
+
+    def bshd(b, s, h, d, dtype=torch.bfloat16):
+        return torch.empty(b, s, h, d, dtype=dtype,
+                           device=cuda).transpose(1, 2)
+
+    for b, hq, hkv, s, d in ((4, 16, 8, 1024, 128), (4, 32, 32, 1024, 80)):
+        q, kv = bshd(b, s, hq, d), bshd(b, s, hkv, d)
+        assert bwd_scratch_floats(q, kv, kv, q, q, causal=True) == b * hq * s
+    f = bshd(32, 256, 12, 64, torch.float32)
+    assert bwd_scratch_floats(f, f, f, f, f) > 32 * 12 * 256
 
 
 def test_unsupported_grad_calls_raise(cuda):

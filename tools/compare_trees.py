@@ -1,8 +1,12 @@
 """Time the SSD scan's backward kernels and the mamba2-2.7b training step
 of several trees of this repository, in turns, on one card — or their
-attention kernel, or their zamba2-2.7b and internlm2-1.8b scoring.
+attention kernels, their zamba2-2.7b and internlm2-1.8b scoring, or
+those two models' training steps.
 
-    python3 tools/compare_trees.py [--only kernel|step|breakdown|flash|flash_bwd|lm] TREE [TREE ...]
+    python3 tools/compare_trees.py [--only MEASUREMENT] TREE [TREE ...]
+
+MEASUREMENT is one of kernel, step, breakdown, flash, flash_bwd, lm and
+lm_train; without it, kernel and step.
 
 Each TREE is the root of a checkout (this one, or an older commit unpacked
 with ``git archive`` into a directory ``.gitignore`` lists).  For each, in
@@ -15,12 +19,15 @@ the lines each prints are prefixed with the tree's position and name.
 shape in bf16 and reports each kernel's device milliseconds a call.
 ``--only flash`` runs the tree's ``check_flash`` (phase 3's attention
 cases), ``--only flash_bwd`` its ``check_flash_bwd`` (the attention
-backward cases), and ``--only lm`` its phase-15 serving of zamba2-2.7b and
-internlm2-1.8b (``serve_lm_full_width`` and ``profile_lm_request``).  The
+backward cases), ``--only lm`` its phase-15 serving of zamba2-2.7b and
+internlm2-1.8b (``serve_lm_full_width`` and ``profile_lm_request``), and
+``--only lm_train`` its phase-14 training of internlm2-1.8b and
+zamba2-2.7b (``train_lm_full_width``: steps and a profiled step).  The
 last line is one JSON object: per run, the tree, its mixer-shape backward
 row (or breakdown) and its training step's seconds and tokens/s, or its
 attention (or attention backward) cases, or its scoring requests and
-profiles.  Give the trees in
+profiles, or its dense and hybrid training steps and their profiles.
+Give the trees in
 turns (parent, change, change, parent) to see the spread.  Needs a CUDA
 device.
 """
@@ -71,8 +78,22 @@ def one(tree: str, only: str | None) -> dict:
         rows = grab(chip_smoke, "flash_attention_bwd case ")
         chip_smoke.check_flash_bwd(ops, ref, dev)
         out["flash_attention_bwd"] = [{k: r[k] for k in (
-            "case", "ms", "library_ms", "bound_ms", "share_of_bound",
-            "max_abs_err") if k in r} for r in rows]
+            "case", "design", "ms", "kernel_ms", "library_ms", "bound_ms",
+            "share_of_bound", "max_abs_err", "scratch_mbytes") if k in r}
+            for r in rows]
+    if only == "lm_train":
+        steps = {p: grab(chip_smoke, p + " ")
+                 for p in ("lm_train_dense", "lm_train_hybrid")}
+        profiles = grab(chip_smoke, "profile ")
+        for arch in ("internlm2-1.8b", "zamba2-2.7b"):
+            chip_smoke.train_lm_full_width(ops, dev, arch)
+            torch.cuda.empty_cache()
+        out["lm_train"] = {path: {k: rows[-1][k] for k in (
+            "arch", "step_s_median", "step_s_min", "tokens_per_s",
+            "peak_bytes")} for path, rows in steps.items()}
+        out["profiles"] = [{k: p[k] for k in (
+            "path", "device_busy_ms", "device_idle_share",
+            "ms_by_category")} for p in profiles]
     if only == "lm":
         requests = grab(chip_smoke, "lm request ")
         profiles = grab(chip_smoke, "profile ")
@@ -145,7 +166,8 @@ def breakdown(chip_smoke, dev, calls: int = 20) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernel", "step", "breakdown",
-                                       "flash", "flash_bwd", "lm"))
+                                       "flash", "flash_bwd", "lm",
+                                       "lm_train"))
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args()
