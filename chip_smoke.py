@@ -26,12 +26,13 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    kernel, the AdaLN kernel (at the ragged MLP modulate site, float32,
    with bf16 modulations and in bf16), the attention kernel (the DiT's
    self-attention, a causal sliding-window GQA case at Mixtral-8x7B's
-   head shape, and the causal bf16 attention of phase 15's two LM paths:
-   zamba2-2.7b's 32 heads of D 80 and internlm2-1.8b's 16 query heads
-   over 8 kv heads of D 128, batch 4, S 1024, each with the staging its
-   operands take and the design that ran: the three bf16 cases must run
-   the tensor-core kernel, ``"wgmma bf16"``, the float32 DiT case the
-   FFMA template), the flag-form fuse kernel (the K 8 serving mix, K 12 on
+   head shape — phase 17's 1 × 8192-token request — and the causal bf16
+   attention of phase 15's two LM paths: zamba2-2.7b's 32 heads of D 80
+   and internlm2-1.8b's 16 query heads over 8 kv heads of D 128, batch 4,
+   S 1024, and deepseek-coder-33b's 56 over 8 (a group of 7), each with
+   the staging its operands take and the design that ran: the bf16 cases
+   must run the tensor-core kernel, ``"wgmma bf16"``, the float32 DiT
+   case the FFMA template), the flag-form fuse kernel (the K 8 serving mix, K 12 on
    the runtime slot loop, K 2 all-DDPM and all-FM; bitwise, with
    ``floor_ms``), whose path
    ``ops.fused_convert_and_fuse`` is then driven once with the launch
@@ -49,8 +50,11 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    ops; ``scaled_dot_product_attention``), the attention backward also
    causal in bf16 at phase 14's two LM training shapes (internlm2-1.8b's
    16 query heads over 8 kv heads of D 128, zamba2-2.7b's 32 heads of D
-   80, batch 4, S 1024; bound by the bf16 and by the float32 rule,
-   SDPA's bf16 causal GQA backward beside it), each case on its route
+   80, batch 4, S 1024), at phase 17's mixtral-8x7b step (32 over 8, D
+   128, 1 × 8192 tokens, window 4096) and at deepseek-coder-33b's group
+   of 7 (bound by the bf16 and by the float32 rule, SDPA's bf16 causal
+   GQA backward beside it, masked where the window is), each case on its
+   route
    (the LM cases the tensor-core dK/dV and dQ kernels, the DiT case the
    FFMA tile kernel) with each kernel's device ms, and the tensor-core
    kernels' registers and spill bytes (none); and the SSD scan's backward
@@ -127,10 +131,11 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    its lines; beside them the training CLI, ``python -m
    repro_torch.launch.train --mode expert --steps 20 --out …``, must exit
    0 and write a checkpoint that loads, and ``--mode lm --arch
-   mamba2-2.7b --steps 3`` and ``--arch internlm2-1.8b`` (reduced) and
-   the LM example (``python -m
+   mamba2-2.7b --steps 3``, ``--arch internlm2-1.8b`` and ``--arch
+   mixtral-8x7b`` (reduced) and the LM example (``python -m
    repro_torch.examples.decentralized_lm_experts``, ``--arch
-   mamba2-2.7b`` and ``zamba2-2.7b``) must exit 0 and print their lines;
+   mamba2-2.7b``, ``zamba2-2.7b`` and ``mixtral-8x7b``) must exit 0 and
+   print their lines;
 10. (after phase 5, over phase 4's checkpoints) elastic membership at full
    width: capacity-10 native and int8 engines, all-live against the
    fixed engine, a request submitted before an eviction bitwise its
@@ -185,11 +190,31 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    depth (zamba2 6 layers, internlm2 2) in bf16: one request's fused
    log-probabilities through the attention kernel against the same
    request with the plain attention on the card;
-16. runs the reduced zamba2 and internlm2 (4 query heads over 2 kv
-   heads) ensembles (float32) on the GPU and on the CPU, as phase 8:
-   fused log-probabilities, prefill logits and every cache leaf, greedy
-   tokens, and on the GPU prefill + decode against ``forward_train``;
-   and one reduced ``make_lm_train_step`` step of each on both.
+16. runs the reduced zamba2, internlm2 and mixtral-8x7b (4 query heads
+   over 2 kv heads; 4 experts, window 64) ensembles (float32) on the GPU
+   and on the CPU, as phase 8: fused log-probabilities, prefill logits
+   and every cache leaf, greedy tokens, and on the GPU prefill + decode
+   against ``forward_train``; and one reduced ``make_lm_train_step`` step
+   of each on both; mixtral under its ``dense_scan`` and under the
+   capacity dispatch at a factor that drops, which must drop the same
+   assignments on both (the smallest router gap printed);
+17. (after phase 16) the MoE and deepseek LM experts on the card:
+   mixtral-8x7b (d 4096, 32 over 8 heads of D 128, window 4096, 8
+   experts of F 14336, top-2, ``dense_scan``, vocab 32000, bf16) at full
+   width and 8 of its 32 layers — its full depth does not fit one card —
+   served as phase 15 serves internlm2: two experts, two 4 × 1024 scoring
+   requests (exactly 16 ``flash_attention`` launches each), one 1 × 8192
+   request (``lm_moe``: the window masks; 16), a greedy decode (none), a
+   prefill (8), a profiled scoring request; mixtral-8x22b (d 6144, 48
+   over 8 heads, F 16384, vocab 32768) at 4 of its 56 layers, two scoring
+   requests; one mixtral-8x7b MoE layer's ``moe_apply`` under each
+   ``impl`` against ``dense_scan`` (the capacity dispatch at E/k, and at
+   1.25 with its drops counted), each timed; mixtral-8x7b trained at 2
+   layers, 10 steps of 1 × 8192 tokens (launches 4 and 2 a step, after a
+   1-layer float32 first-step gradient check against the plain path);
+   and deepseek-67b and deepseek-coder-33b at full width and 2 layers:
+   one scoring request each, its fused log-probabilities through the
+   attention kernel against the plain attention on the card.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -276,9 +301,9 @@ CATEGORIES = (
 LM_CATEGORIES = (
     ("ssd_scan", "ssd_scan (every mixer's chunked scan)"),
     ("flash_attention", "flash_attention (causal attention)"),
-    ("gemm", "cuBLAS bf16 GEMM (projections, unembedding)"),
-    ("nvjet", "cuBLAS bf16 GEMM (projections, unembedding)"),
-    ("xmma", "cuBLAS bf16 GEMM (projections, unembedding)"),
+    ("gemm", "cuBLAS bf16 GEMM (projections, MoE experts, unembedding)"),
+    ("nvjet", "cuBLAS bf16 GEMM (projections, MoE experts, unembedding)"),
+    ("xmma", "cuBLAS bf16 GEMM (projections, MoE experts, unembedding)"),
     ("softmax", "log-softmax"),
     ("reduce", "reductions (RMSNorm means, logsumexp, histograms)"),
     ("elementwise", "elementwise (conv taps, silu, softplus, gating, RoPE, "
@@ -800,17 +825,29 @@ def _open_pairs(s: int, causal: bool, window: int) -> int:
 
 
 #: (case, B, Hq, Hkv, S, D, causal, window, dtype) of the attention check;
-#: the last two are the LM serving shapes of phase 15 (a 4 × 1024-token
-#: scoring request): zamba2-2.7b's shared block (32 heads of D 80) and
-#: internlm2-1.8b's layers (16 query heads over 8 kv heads of D 128)
+#: then the LM serving shapes of phases 15 and 17 (a 4 × 1024-token
+#: scoring request): zamba2-2.7b's shared block (32 heads of D 80),
+#: internlm2-1.8b's layers (16 query heads over 8 kv heads of D 128),
+#: deepseek-coder-33b's (56 over 8: a group of 7), mixtral-8x7b's (32
+#: over 8, its window of 4096 past the request) and mixtral-8x22b's (48
+#: over 8: a group of 6); the first Mixtral case is phase 17's 1 × 8192-
+#: token request, where the window masks
 FLASH_CASES = (
     ("dit_self_attention", 32, 12, 12, 256, 64, False, 0, torch.float32),
     ("mixtral_gqa_swa", 1, 32, 8, 8192, 128, True, 4096, torch.bfloat16),
     ("zamba2_causal", 4, 32, 32, 1024, 80, True, 0, torch.bfloat16),
-    ("internlm2_causal_gqa", 4, 16, 8, 1024, 128, True, 0, torch.bfloat16))
+    ("internlm2_causal_gqa", 4, 16, 8, 1024, 128, True, 0, torch.bfloat16),
+    ("deepseek_coder_group7", 4, 56, 8, 1024, 128, True, 0, torch.bfloat16),
+    ("mixtral_8x7b_scoring", 4, 32, 8, 1024, 128, True, 4096,
+     torch.bfloat16),
+    ("mixtral_8x22b_group6", 4, 48, 8, 1024, 128, True, 4096,
+     torch.bfloat16))
 #: the LM paths whose kernels line entries take a phase-3 case's numbers
 FLASH_PATH_CASES = {"lm_hybrid": "zamba2_causal",
-                    "lm_dense": "internlm2_causal_gqa"}
+                    "lm_dense": "internlm2_causal_gqa",
+                    "lm_moe": "mixtral_gqa_swa",
+                    "lm_moe_scoring": "mixtral_8x7b_scoring",
+                    "lm_moe_8x22b": "mixtral_8x22b_group6"}
 
 
 def check_flash(ops, ref, dev) -> dict:
@@ -819,14 +856,15 @@ def check_flash(ops, ref, dev) -> dict:
     views, non-causal, float32 — a causal sliding-window GQA case at
     Mixtral-8x7B's head shape (``configs/mixtral_8x7b.py``: Hq 32, Hkv 8,
     D 128, window 4096) over S 8192, batch 1, bf16, and the causal bf16
-    attention of the two LM serving paths (zamba2-2.7b, internlm2-1.8b)
-    at a 4 × 1024-token request.  Library yardstick:
+    attention of the LM serving paths (zamba2-2.7b, internlm2-1.8b,
+    deepseek-coder-33b's group of 7, mixtral-8x7b, mixtral-8x22b's group
+    of 6) at a 4 × 1024-token request.  Library yardstick:
     ``scaled_dot_product_attention`` on the same inputs (float32 for the
-    DiT; the windowed case with its mask; the causal ones
+    DiT; the cases with a window with its mask; the causal ones
     ``is_causal=True, enable_gqa=True``).  Each row names the kernel
     design that ran (``kernels/flash_attention.py::design``, the
     launcher's rule mirrored, as ``staging_is_vec`` mirrors its 16-byte
-    staging rule): the three bf16 cases must run the tensor-core kernel,
+    staging rule): the bf16 cases must run the tensor-core kernel,
     the float32 DiT case the FFMA template.  Returns
     the DiT case's numbers and, under ``by_path``, each LM path's
     case's."""
@@ -1025,20 +1063,27 @@ def check_adaln_bwd(ops, ref, dev) -> dict:
 #: largest |value|, on top of GRAD_REL_TOL of the largest of the three
 BF16_GRAD_REL_TOL = 2.0 ** -7
 
-#: (case, B, Hq, Hkv, S, D, causal, dtype, launches a training step) of
-#: the attention backward check: the DiT's training shape, then the
-#: causal bf16 attention of phase 14's two LM training paths (a 4 × 1024-
-#: token step): internlm2-1.8b's 24 layers (16 query heads over 8 kv
+#: (case, B, Hq, Hkv, S, D, causal, window, dtype, launches a training
+#: step) of the attention backward check: the DiT's training shape, then
+#: the causal bf16 attention of phase 14's two LM training paths (a 4 ×
+#: 1024-token step): internlm2-1.8b's 24 layers (16 query heads over 8 kv
 #: heads of D 128) and zamba2-2.7b's 9 shared-block applications (32
-#: heads of D 80)
+#: heads of D 80); phase 17's mixtral-8x7b step of 1 × 8192 tokens (32
+#: over 8, window 4096, its 2 layers) and deepseek-coder-33b's group of 7
+#: at a 4 × 1024-token batch (no training path runs it)
 FLASH_BWD_CASES = (
-    ("dit_self_attention", TRAIN_BATCH, 12, 12, 256, 64, False,
+    ("dit_self_attention", TRAIN_BATCH, 12, 12, 256, 64, False, 0,
      torch.float32, 12),
-    ("internlm2_causal_gqa", 4, 16, 8, 1024, 128, True, torch.bfloat16, 24),
-    ("zamba2_causal", 4, 32, 32, 1024, 80, True, torch.bfloat16, 9))
+    ("internlm2_causal_gqa", 4, 16, 8, 1024, 128, True, 0, torch.bfloat16,
+     24),
+    ("zamba2_causal", 4, 32, 32, 1024, 80, True, 0, torch.bfloat16, 9),
+    ("mixtral_gqa_swa", 1, 32, 8, 8192, 128, True, 4096, torch.bfloat16, 2),
+    ("deepseek_coder_group7", 4, 56, 8, 1024, 128, True, 0, torch.bfloat16,
+     None))
 #: the LM training paths whose kernels line entries take a case's numbers
 FLASH_BWD_PATH_CASES = {"lm_train_dense": "internlm2_causal_gqa",
-                        "lm_train_hybrid": "zamba2_causal"}
+                        "lm_train_hybrid": "zamba2_causal",
+                        "lm_train_moe": "mixtral_gqa_swa"}
 
 
 #: the attention backward's kernels on each route (``bwd_design``), in
@@ -1065,21 +1110,24 @@ def _grid_tail(works, slots: int) -> float:
     return end * slots / sum(works)
 
 
-def _bwd_grid_tails(route, b, hq, hkv, s, d, causal) -> dict:
+def _bwd_grid_tails(route, b, hq, hkv, s, d, causal, window=0) -> dict:
     """Each tile kernel's grid tail (``_grid_tail``) on 132 SMs, a block's
     time its tile pairs.  FFMA: the tile kernel's grid (b·kv head, key
     tile of 64), key tiles the slow axis, two blocks an SM at D ≤ 64 and
     one above, a block the group's query tiles its keys see.  wgmma: the
     dK/dV kernel's grid of the same shape and work, two blocks an SM; the
     dQ kernel's (b·h, query tile of 128), causal tiles last first, one
-    block an SM, a block the kv tiles of 64 its rows see."""
+    block an SM, a block the kv tiles of 64 its rows see (under a window,
+    at most the tiles the window spans)."""
     nt, nq = -(-s // 64), -(-s // 128)
-    keys = [hq // hkv * (nt - kt if causal else nt)
+    wk = -(-window // 64) + 1 if window else nt
+    wq = -(-(128 + window) // 64) if window else nt
+    keys = [hq // hkv * min(nt - kt if causal else nt, wk)
             for kt in range(nt) for _ in range(b * hkv)]
     if route == "FFMA":
         return {"flash_attention_bwd_tile":
                 _grid_tail(keys, 132 * (2 if d <= 64 else 1))}
-    rows = [-(-min(s, 128 * (nq - y)) // 64) if causal else nt
+    rows = [min(-(-min(s, 128 * (nq - y)) // 64) if causal else nt, wq)
             for y in range(nq) for _ in range(b * hq)]
     return {"flash_attention_bwd_dkdv_wgmma": _grid_tail(keys, 264),
             "flash_attention_bwd_dq_wgmma": _grid_tail(rows, 132)}
@@ -1107,6 +1155,24 @@ def _kernel_ms(fn, calls: int = 5) -> dict:
     return dict(ms)
 
 
+def _plain_bwd(ref, q, k, v, do, *, causal, window):
+    """``ref.ref_flash_attention_bwd``; past 2³¹ scores (Mixtral's 32
+    heads over S 8192: 8.6 GB of float32 a score tensor, five of them)
+    one kv head's group of query heads at a time, its dk and dv that
+    kv head's."""
+    b, hq, s, _ = q.shape
+    hkv = k.shape[1]
+    if b * hq * s * s <= 2 ** 31:
+        return ref.ref_flash_attention_bwd(q, k, v, do, causal=causal,
+                                           window=window)
+    g = hq // hkv
+    parts = [ref.ref_flash_attention_bwd(
+        q[:, j * g:(j + 1) * g], k[:, j:j + 1], v[:, j:j + 1],
+        do[:, j * g:(j + 1) * g], causal=causal, window=window)
+        for j in range(hkv)]
+    return tuple(torch.cat(t, dim=1) for t in zip(*parts))
+
+
 def check_flash_bwd(ops, ref, dev) -> dict:
     """The attention backward kernel from the forward's output and row
     log-sum-exp against its plain version's dq, dk, dv, bitwise
@@ -1114,10 +1180,12 @@ def check_flash_bwd(ops, ref, dev) -> dict:
     12, 64)`` projections read as ``(B, H, S, D)`` views, non-causal
     float32 (within ``GRAD_REL_TOL`` of the largest gradient) — and at the
     LM training shapes, causal bf16 (within that plus
-    ``BF16_GRAD_REL_TOL`` of each gradient's largest).  Library
-    yardstick: the backward of ``scaled_dot_product_attention`` on the
-    same inputs (the LM shapes ``is_causal``, ``enable_gqa``, bf16).
-    Bound: five products a head over the pairs the mask leaves open
+    ``BF16_GRAD_REL_TOL`` of each gradient's largest), Mixtral's with its
+    window of 4096 over S 8192 (the plain version one kv head's group at
+    a time there: ``_plain_bwd``).  Library yardstick: the backward of
+    ``scaled_dot_product_attention`` on the same inputs (the LM shapes
+    ``is_causal``, ``enable_gqa``, bf16; the windowed one with its mask).
+    Bound: five products a head over the pairs the masks leave open
     (recompute q·kᵀ, dO·vᵀ, Pᵀ·dO, dS·k, dSᵀ·q) at the input dtype's rate
     (``bound_ms``) and at the float32 rate (``bound_ms_f32``), or the
     bytes of q, k, v, o, dO, lse, dq, dk, dv.  Each row names its route
@@ -1138,19 +1206,21 @@ def check_flash_bwd(ops, ref, dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(24)
     rows = []
-    for name, b, hq, hkv, s, d, causal, dtype, per_step in FLASH_BWD_CASES:
+    for (name, b, hq, hkv, s, d, causal, window, dtype,
+         per_step) in FLASH_BWD_CASES:
         q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(b, s, hkv, d, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         do = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
         q, k, v, do = (a.transpose(1, 2) for a in (q, k, v, do))
-        out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+        kw = dict(causal=causal, window=window)
+        out, lse = flash_attention(q, k, v, with_lse=True, **kw)
 
         def kern():
-            return flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+            return flash_attention_bwd(q, k, v, out, lse, do, **kw)
 
         def plain():
-            return ref.ref_flash_attention_bwd(q, k, v, do, causal=causal)
+            return _plain_bwd(ref, q, k, v, do, **kw)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         top = max(w.abs().max().item() for w in want)
@@ -1166,16 +1236,23 @@ def check_flash_bwd(ops, ref, dev) -> dict:
         tc = bwd_tc_attrs(d) if design == "wgmma bf16" else {}
         t_k = graph_ms(kern, 10)
         t_p = cuda_ms(plain, 10 if s <= 256 else 3, warmup=1)
+        mask = None
+        if window:
+            pos = torch.arange(s, device=dev)
+            mask = ((pos[None] <= pos[:, None])
+                    & (pos[:, None] - pos[None] < window))
         try:
             t_l = _library_bwd_ms(
                 lambda qq, kk, vv: F.scaled_dot_product_attention(
-                    qq, kk, vv, is_causal=causal, enable_gqa=hq != hkv),
+                    qq, kk, vv, attn_mask=mask,
+                    is_causal=causal and mask is None,
+                    enable_gqa=hq != hkv),
                 [q, k, v], do)
         except RuntimeError as exc:                  # a yardstick only
             print(f"library yardstick unavailable: "
                   f"{str(exc).splitlines()[0]}")
             t_l = None
-        pairs = _open_pairs(s, causal, 0) * b * hq
+        pairs = _open_pairs(s, causal, window) * b * hq
         flops = 5 * 2.0 * d * pairs
         elt = q.element_size()
         nbytes = (elt * d * s * b * (4 * hq + 4 * hkv)    # q o dO dq; k v dk dv
@@ -1184,10 +1261,10 @@ def check_flash_bwd(ops, ref, dev) -> dict:
                            if dtype == torch.float32 else BF16_FLOP_PER_S)
         t_b32, by32 = bound_ms(nbytes, flops)
         row = dict(case=name, B=b, Hq=hq, Hkv=hkv, S=s, D=d, causal=causal,
-                   dtype=str(dtype).replace("torch.", ""), design=design,
-                   kernel_ms=kernel_ms, tc_kernels=tc,
+                   window=window, dtype=str(dtype).replace("torch.", ""),
+                   design=design, kernel_ms=kernel_ms, tc_kernels=tc,
                    scratch_mbytes=4 * bwd_scratch_floats(
-                       q, k, v, out, do, causal=causal) / 1e6,
+                       q, k, v, out, do, **kw) / 1e6,
                    max_abs_err=max(errs), errs_dq_dk_dv=errs,
                    tols_dq_dk_dv=tols, bitwise_repeatable=bitwise, ms=t_k,
                    plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
@@ -1196,7 +1273,7 @@ def check_flash_bwd(ops, ref, dev) -> dict:
                    tflops=flops / t_k / 1e9,
                    launches_per_training_step=per_step,
                    grid_tail_share=_bwd_grid_tails(design, b, hq, hkv, s, d,
-                                                   causal))
+                                                   causal, window))
         row.update(clocks_under(kern))
         print("flash_attention_bwd case " + json.dumps(row))
         if not (finite and bitwise and all(
@@ -2344,6 +2421,10 @@ LM_CLI = (
                                   "internlm2-1.8b", "--steps", "3"], 3),
     ("repro_torch.examples.decentralized_lm_experts",
      ["--arch", "zamba2-2.7b"], 5),
+    ("repro_torch.launch.train", ["--mode", "lm", "--arch", "mixtral-8x7b",
+                                  "--steps", "3"], 3),
+    ("repro_torch.examples.decentralized_lm_experts",
+     ["--arch", "mixtral-8x7b"], 5),
 )
 
 
@@ -3373,22 +3454,31 @@ def lm_ensemble(cfg, experts, seed: int):
                             strategy="topk", top_k=1)
 
 
-#: the LM serving paths of phases 7 and 15: arch -> the labels of its
-#: scoring, greedy-decode and prefill launches
+#: the LM serving paths of phases 7, 15 and 17: arch -> the labels of its
+#: scoring, greedy-decode and prefill launches (mixtral-8x22b serves
+#: scoring requests only)
 LM_PATHS = {"mamba2-2.7b": ("lm_scoring", "lm_decode", "lm_prefill"),
             "zamba2-2.7b": ("lm_hybrid", "lm_hybrid_decode",
                             "lm_hybrid_prefill"),
             "internlm2-1.8b": ("lm_dense", "lm_dense_decode",
-                               "lm_dense_prefill")}
+                               "lm_dense_prefill"),
+            "mixtral-8x7b": ("lm_moe_scoring", "lm_moe_decode",
+                             "lm_moe_prefill"),
+            "mixtral-8x22b": ("lm_moe_8x22b", None, None)}
+#: phase 17's long request, 1 × 8192 tokens (the window of 4096 masks):
+#: arch -> its label
+LM_LONG_PATHS = {"mixtral-8x7b": "lm_moe"}
+LONG_SEQ = 8192
 
 
 def lm_forward_launches(cfg) -> dict:
     """One forward's (or prefill's) kernel launches: an ``ssd_scan`` per
     mixer, a ``flash_attention`` per attention — each application of the
-    hybrid's shared block, each dense layer."""
+    hybrid's shared block, each dense or MoE layer."""
     ssd = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
     attn = {"hybrid": cfg.num_layers // max(cfg.attn_every, 1),
-            "dense": cfg.num_layers}.get(cfg.arch_type, 0)
+            "dense": cfg.num_layers,
+            "moe": cfg.num_layers}.get(cfg.arch_type, 0)
     return {"ssd_scan": ssd, "flash_attention": attn}
 
 
@@ -3405,15 +3495,19 @@ def _check_launches(ops, label: str, forwards: int, cfg) -> dict:
     return launches
 
 
-def serve_lm_full_width(ops, dev, arch: str):
-    """Phases 7 and 15: ``arch``'s two-expert ensemble at full width and
-    depth.  Returns the launches of its paths and the ensemble (profiled
-    next)."""
+def serve_lm_full_width(ops, dev, arch: str, layers: int = 0):
+    """Phases 7, 15 and 17: ``arch``'s two-expert ensemble at full width
+    and depth (``layers`` deep when given): two scoring requests, then
+    (``LM_LONG_PATHS``) one 1 × 8192-token request, a greedy decode and
+    a prefill where ``LM_PATHS`` names them.  Returns the launches of its
+    paths and the ensemble (profiled next)."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     scoring, decoding, prefilling = LM_PATHS[arch]
     gc.collect()
     torch.cuda.synchronize()
@@ -3430,34 +3524,52 @@ def serve_lm_full_width(ops, dev, arch: str):
     n_params = sum(a.numel() for a in leaves)
     expert_bytes = sum(a.numel() * a.element_size() for a in leaves)
     ens = lm_ensemble(cfg, experts, seed=8)
+    cut = (f", depth cut {get_config(arch).num_layers} -> "
+           f"{cfg.num_layers}" if layers else "")
     print(f"full width: {arch}, {LM_EXPERTS} experts of {n_params} "
-          f"parameters ({expert_bytes} bytes each), built on the card in "
-          f"{t_init:.1f} s; top-1 token-prototype routing")
+          f"parameters ({expert_bytes} bytes each{cut}), built on the card "
+          f"in {t_init:.1f} s; top-1 token-prototype routing")
     rng = np.random.default_rng(10)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    for i in range(LM_REQUESTS):
-        toks, labels = lm_request(cfg.vocab_size, rng, LM_BATCH, LM_SEQ)
+    def score(path, i, batch, seq):
+        toks, labels = lm_request(cfg.vocab_size, rng, batch, seq)
         tt, tl = torch.from_numpy(toks).to(dev), torch.from_numpy(labels).to(dev)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         ppl = ens.perplexity(tt, tl)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         print("lm request " + json.dumps(dict(
-            arch=arch, path="scoring", request=i, batch=LM_BATCH,
-            tokens=LM_SEQ, seconds=sec, tokens_per_s=LM_BATCH * LM_SEQ / sec,
-            perplexity=ppl, finite=math.isfinite(ppl))))
+            arch=arch, path=path, layers=cfg.num_layers, request=i,
+            batch=batch, tokens=seq, seconds=sec,
+            tokens_per_s=batch * seq / sec, perplexity=ppl,
+            finite=math.isfinite(ppl),
+            peak_bytes=torch.cuda.max_memory_allocated())))
         if not (math.isfinite(ppl) and ppl > 1.0):
-            fail(f"{arch} scoring request {i}: perplexity {ppl}")
+            fail(f"{arch} {path} request {i}: perplexity {ppl}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    serve_peak = 0
+    ops.reset_launches()
+    for i in range(LM_REQUESTS):
+        score("scoring", i, LM_BATCH, LM_SEQ)
+        serve_peak = max(serve_peak, torch.cuda.max_memory_allocated())
     launches = {scoring: _check_launches(
         ops, scoring, LM_EXPERTS * LM_REQUESTS, cfg)}
     print(f"{scoring} store " + json.dumps(dict(
         param_dtype=str(cfg.param_dtype).replace("torch.", ""),
         store_bytes=LM_EXPERTS * expert_bytes, other_bytes=base,
         resident_bytes=resident, load_peak_bytes=build_peak,
-        serve_peak_bytes=torch.cuda.max_memory_allocated() - base)))
+        serve_peak_bytes=serve_peak - base)))
+    if arch in LM_LONG_PATHS:
+        long_path = LM_LONG_PATHS[arch]
+        ops.reset_launches()
+        score("scoring_long", 0, 1, LONG_SEQ)
+        launches[long_path] = _check_launches(ops, long_path, LM_EXPERTS,
+                                              cfg)
+    if decoding is None:
+        return launches, ens
 
     prompt = torch.from_numpy(lm_request(cfg.vocab_size, rng, DECODE_BATCH,
                                          DECODE_PROMPT)[0]).to(dev)
@@ -3531,20 +3643,29 @@ def profile_lm_request(ens) -> None:
 #: by a softmax-weighted mean of the logits' changes.
 LM_BF16_REL_TOL = 2.0 ** -6
 #: the cut depths: zamba2's first 6 layers (its shared block once),
-#: internlm2's first 2 (few bf16 layers after the attention to carry a
-#: rounding flip further)
-LM_BF16_LAYERS = {"zamba2-2.7b": 6, "internlm2-1.8b": 2}
+#: internlm2's and the deepseek models' first 2 (few bf16 layers after
+#: the attention to carry a rounding flip further; deepseek-67b's 2
+#: layers are 2.77 GB an expert, its embedding and unembedding 3.36)
+LM_BF16_LAYERS = {"zamba2-2.7b": 6, "internlm2-1.8b": 2, "deepseek-67b": 2,
+                  "deepseek-coder-33b": 2}
 
 
 def compare_lm_attention_bf16(ops, ref, dev, arch: str) -> None:
-    """Phase 15's kernel-vs-plain check of the bf16 attention in a served
-    model: ``arch`` at full width, ``LM_BF16_LAYERS`` deep, bf16, two
-    random seeded experts, one 4 × 1024-token request's fused
+    """Phases 15 and 17's kernel-vs-plain check of the bf16 attention in a
+    served model: ``arch`` at full width, ``LM_BF16_LAYERS`` deep, bf16,
+    two random seeded experts, one 4 × 1024-token request's fused
     log-probabilities through the attention kernel (the tensor-core
     design) and through ``_plain_ops``' attention, within
     ``LM_BF16_REL_TOL`` of the experts' largest |logit| (their forward
     with the plain attention); exactly one attention launch per attention
-    of each expert's forward."""
+    of each expert's forward; the request's seconds (after a 64-token
+    warm-up request).  The largest error is taken apart (``at_worst``):
+    the routed expert's bf16 logit there and its row's log-sum-exp on
+    each path (the log-probability is the one less the other), and the
+    row's logits that moved; ``top_errs`` are the five largest errors;
+    ``nudged_max_abs_err`` is the error of the kernel's attention output
+    raised by one bf16 ulp (``(1 + 2⁻⁷)·out``), which each model carries
+    to its own logits."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
 
@@ -3556,23 +3677,58 @@ def compare_lm_attention_bf16(ops, ref, dev, arch: str) -> None:
     toks = torch.from_numpy(lm_request(cfg.vocab_size,
                                        np.random.default_rng(14), LM_BATCH,
                                        LM_SEQ)[0]).to(dev)
+    ens.fused_logprobs(toks[:, :64])                 # warm-up
+    torch.cuda.synchronize()
     ops.reset_launches()
+    t0 = time.perf_counter()
     got = ens.fused_logprobs(toks)
     torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
     launches = ops.LAUNCHES["flash_attention"]
     saved = ops.flash_attention
+    plain = _plain_ops(ops, ref)["flash_attention"]
+
+    def nudged(*args, **kw):
+        out = saved(*args, **kw)
+        return (out.float() * (1 + 2.0 ** -7)).to(out.dtype)
+
     try:
-        ops.flash_attention = _plain_ops(ops, ref)["flash_attention"]
+        ops.flash_attention = plain
         want = ens.fused_logprobs(toks)
         scale = max(zoo.forward_train(cfg, p, {"tokens": toks})[0]
                     .abs().max().item() for p in experts)
+        ops.flash_attention = nudged
+        nudged_err = (ens.fused_logprobs(toks).float()
+                      - want.float()).abs().max().item()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        top_errs = torch.topk(diff.flatten(), 5).values.tolist()
+        err_at = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+        del diff
+        b, s, v = (int(i) for i in err_at)
+        routed = experts[int(ens._log_weights(toks)[:, b].argmax())]
+        worst = {}
+        for name, attn in (("kernel", saved), ("plain", plain)):
+            ops.flash_attention = attn
+            row = zoo.forward_train(cfg, routed, {"tokens": toks})[0][b, s]
+            worst[name] = row.float()
     finally:
         ops.flash_attention = saved
-    err = (got.float() - want.float()).abs().max().item()
+    moved = worst["kernel"] - worst["plain"]
+    at_worst = {f"{name}_{what}": val for name, row in worst.items()
+                for what, val in (("logit", row[v].item()),
+                                  ("lse", torch.logsumexp(row, 0).item()))}
+    at_worst.update(logit_moved=moved[v].item(),
+                    row_logits_moved=int((moved != 0).sum()),
+                    row_largest_move=moved.abs().max().item())
     n_attn = LM_EXPERTS * lm_forward_launches(cfg)["flash_attention"]
     row = dict(arch=arch, layers=cfg.num_layers, dtype="bfloat16",
-               batch=LM_BATCH, tokens=LM_SEQ, max_abs_err=err,
-               rel_err=err / scale, max_abs_logit=scale,
+               heads=[cfg.num_heads, cfg.num_kv_heads], d_model=cfg.d_model,
+               batch=LM_BATCH, tokens=LM_SEQ, seconds=sec,
+               tokens_per_s=LM_BATCH * LM_SEQ / sec, max_abs_err=err,
+               err_at=[int(i) for i in err_at], rel_err=err / scale,
+               max_abs_logit=scale, at_worst=at_worst, top_errs=top_errs,
+               nudged_max_abs_err=nudged_err,
                tol=LM_BF16_REL_TOL * scale, flash_attention=launches,
                flash_attention_want=n_attn)
     print("lm bf16 attention kernel-vs-plain " + json.dumps(row))
@@ -3583,10 +3739,15 @@ def compare_lm_attention_bf16(ops, ref, dev, arch: str) -> None:
 
 
 #: phases 8 and 16's reduced float32 models: arch -> reduced() overrides
-#: (internlm2 with 4 query heads over 2 kv heads: its own reduction is
-#: 4/4, and the GQA path is the one to hold)
+#: (internlm2 and mixtral with 4 query heads over 2 kv heads: their own
+#: reduction is 4/4, and the GQA path is the one to hold)
 LM_REDUCED = {"mamba2-2.7b": {}, "zamba2-2.7b": {},
-              "internlm2-1.8b": dict(num_kv_heads=2)}
+              "internlm2-1.8b": dict(num_kv_heads=2),
+              "mixtral-8x7b": dict(num_kv_heads=2)}
+#: phase 16's MoE runs: the config's ``dense_scan``, and the capacity
+#: dispatch at a factor at which experts overflow (4 × 64 tokens: 64
+#: slots an expert for 128 assignments each on average)
+MOE_RUNS = ({}, dict(moe_impl="dropping", moe_capacity_factor=0.5))
 
 
 def _with_room(zoo, cfg, cache: dict, batch: int, room: int, dev) -> dict:
@@ -3604,19 +3765,24 @@ def _with_room(zoo, cfg, cache: dict, batch: int, room: int, dev) -> dict:
     return out
 
 
-def compare_lm_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b") -> None:
+def compare_lm_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b",
+                       over: dict | None = None) -> None:
     """Phases 8 and 16: the reduced ensemble of ``arch`` (float32, 2
-    layers) on the GPU (scan and attention kernels) and on the CPU (plain
-    versions): fused log-probabilities, prefill logits and every cache
-    leaf within ``LM_REL_TOL · max|out|`` (slot positions equal), greedy
-    tokens equal (the smallest top-1/top-2 gap printed).  On the GPU,
-    prefill followed by a decode step must reproduce ``forward_train``'s
-    logits (the reference's invariant, ``tests/test_arch_smoke.py``)."""
+    layers; ``over`` more ``reduced()`` overrides) on the GPU (scan and
+    attention kernels) and on the CPU (plain versions): fused
+    log-probabilities, prefill logits and every cache leaf within
+    ``LM_REL_TOL · max|out|`` (slot positions equal), greedy tokens equal
+    (the smallest top-1/top-2 gap printed); an MoE model's fused
+    log-probabilities drop the same assignments on both (the smallest
+    router gap printed).  On the GPU, prefill followed by a decode step
+    must reproduce ``forward_train``'s logits (the reference's invariant,
+    ``tests/test_arch_smoke.py``), except under the capacity dispatch,
+    whose capacity differs between a sequence and a decode step."""
     from repro_torch.configs import get_config
-    from repro_torch.models import zoo
+    from repro_torch.models import layers, zoo
     from repro_torch.tree import tree_map
 
-    cfg = get_config(arch).reduced(**LM_REDUCED[arch])
+    cfg = get_config(arch).reduced(**LM_REDUCED[arch], **(over or {}))
     cpu_experts = [zoo.init(cfg, torch.Generator().manual_seed(31 + k), "cpu")
                    for k in range(LM_EXPERTS)]
     gpu_experts = [tree_map(lambda a: a.to(dev), e) for e in cpu_experts]
@@ -3625,7 +3791,7 @@ def compare_lm_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b") -> None:
     rng = np.random.default_rng(12)
     toks = torch.from_numpy(lm_request(cfg.vocab_size, rng, 4, 64)[0])
     prompt = toks[:2, :8]
-    failed, rows = [], {"arch": arch}
+    failed, rows = [], {"arch": arch, **(over or {})}
 
     def check(name, gpu, cpu, tol=LM_REL_TOL):
         err, scale = rel_err(gpu.cpu().float(), cpu.float())
@@ -3634,9 +3800,23 @@ def compare_lm_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b") -> None:
             failed.append(f"{name}: {err} > {tol * scale}")
 
     ops.reset_launches()
-    lp = {d: e.fused_logprobs(toks.to(dev if d == "gpu" else "cpu"))
-          for d, e in ens.items()}
+    lp, routed = {}, {}
+    for d, e in ens.items():
+        with layers.MoERecorder() as routed[d]:
+            lp[d] = e.fused_logprobs(toks.to(dev if d == "gpu" else "cpu"))
     check("fused_logprobs", lp["gpu"], lp["cpu"])
+    if cfg.num_experts:
+        same = (len(routed["gpu"].keeps) == len(routed["cpu"].keeps)
+                and all(torch.equal(a, b) for a, b in zip(
+                    routed["gpu"].keeps, routed["cpu"].keeps)))
+        rows["moe"] = dict(impl=cfg.moe_impl,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           min_router_gap=routed["cpu"].min_gap,
+                           drops_gpu=routed["gpu"].drops,
+                           drops_cpu=routed["cpu"].drops,
+                           same_drops=same)
+        if not same:
+            failed.append("the GPU run dropped other assignments")
     pre = {d: zoo.prefill(cfg, e.expert_params[0],
                           {"tokens": toks.to(dev if d == "gpu" else "cpu")})
            for d, e in ens.items()}
@@ -3663,18 +3843,101 @@ def compare_lm_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b") -> None:
         failed.append(f"greedy tokens differ (smallest margin {margin})")
 
     # prefill + one decode step == forward_train, on the GPU
-    experts = ens["gpu"].expert_params
-    full, _ = zoo.forward_train(cfg, experts[1], {"tokens": toks.to(dev)})
-    last, cache = zoo.prefill(cfg, experts[1], {"tokens": toks[:, :48].to(dev)})
-    step, _ = zoo.decode_step(
-        cfg, experts[1], _with_room(zoo, cfg, cache, 4, 64, dev),
-        toks[:, 48:49].to(dev),
-        torch.full((4,), 48, dtype=torch.int32, device=dev))
-    check("gpu_prefill_vs_forward", last, full[:, 47].cpu())
-    check("gpu_decode_vs_forward", step, full[:, 48].cpu())
+    if not (cfg.num_experts and cfg.moe_impl not in ("dense", "dense_scan",
+                                                     "dense_fused")):
+        experts = ens["gpu"].expert_params
+        full, _ = zoo.forward_train(cfg, experts[1], {"tokens": toks.to(dev)})
+        last, cache = zoo.prefill(cfg, experts[1],
+                                  {"tokens": toks[:, :48].to(dev)})
+        step, _ = zoo.decode_step(
+            cfg, experts[1], _with_room(zoo, cfg, cache, 4, 64, dev),
+            toks[:, 48:49].to(dev),
+            torch.full((4,), 48, dtype=torch.int32, device=dev))
+        check("gpu_prefill_vs_forward", last, full[:, 47].cpu())
+        check("gpu_decode_vs_forward", step, full[:, 48].cpu())
     print("lm reduced gpu-vs-cpu " + json.dumps(rows))
     if failed:
         fail(f"reduced {arch} GPU run differs from the CPU run: {failed}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the MoE LM experts' routed layer at full width
+# ---------------------------------------------------------------------------
+
+#: phase 17's serving depth cuts: two experts at full width and these
+#: depths hold 47.5 GB (mixtral-8x7b: 2.903 GB of bf16 weights a layer,
+#: 0.524 GB of embedding and unembedding) and 41.7 GB (mixtral-8x22b:
+#: 5.008 and 0.805 GB); their full depths (93.4 and 281.3 GB an expert)
+#: do not fit one card
+MOE_SERVE_LAYERS = {"mixtral-8x7b": 8, "mixtral-8x22b": 4}
+#: phase 17's ``moe_apply`` check: every ``impl`` against ``dense_scan``
+#: on one bf16 layer.  Each rounds its expert products and its weighted
+#: sum to bf16 at other points — ``dense`` sums a token's two weighted
+#: expert outputs in float32 and rounds once where ``dense_scan`` rounds
+#: each product and each partial sum; ``dense_fused`` rounds the weighted
+#: activations before one GEMM over experts and F; the capacity dispatch
+#: multiplies gathered rows in another GEMM shape — so an output element
+#: differs by a few half-ulps of its own magnitude: two bf16 ulps of the
+#: largest |output| bound it (the port's bf16 rule, ``LM_BF16_REL_TOL``).
+MOE_IMPL_REL_TOL = 2.0 ** -6
+
+
+def compare_moe_impls(dev) -> None:
+    """Phase 17: one mixtral-8x7b MoE layer at full width (d 4096, 8
+    experts of F 14336, top-2, bf16, a seeded router) on seeded bf16
+    hidden states of 4 × 1024 tokens: ``dense``, ``dense_fused`` and the
+    capacity dispatch at capacity factor E/k = 4 (no drops) within
+    ``MOE_IMPL_REL_TOL`` of ``dense_scan``; the capacity dispatch at the
+    config's 1.25 prints the (token, k) assignments it drops and its
+    difference; each run's device ms (CUDA events), TFLOP/s of the expert
+    products it computes (``dense*``: every expert on every token;
+    dispatch: E × capacity rows) and the smallest router gap."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config("mixtral-8x7b")
+    e, k, d, f = (cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model,
+                  cfg.d_ff)
+    t = LM_BATCH * LM_SEQ
+    gen = torch.Generator(device=dev).manual_seed(81)
+    params = layers.moe_init(gen, d, f, e, device=dev, dtype=cfg.param_dtype)
+    x = torch.randn(LM_BATCH, LM_SEQ, d, generator=gen, device=dev).to(
+        cfg.activation_dtype)
+    runs = (("dense_scan", cfg.moe_capacity_factor),
+            ("dense", cfg.moe_capacity_factor),
+            ("dense_fused", cfg.moe_capacity_factor),
+            ("dropping", e / k), ("dropping", cfg.moe_capacity_factor))
+    with torch.no_grad():
+        want = None
+        for impl, cf in runs:
+            def run():
+                return layers.moe_apply(params, x, num_experts_per_tok=k,
+                                        capacity_factor=cf, impl=impl)
+            with layers.MoERecorder() as rec:
+                y, aux = run()
+            torch.cuda.synchronize()
+            if want is None:
+                want, scale = y, y.abs().max().item()
+            err = (y.float() - want.float()).abs().max().item()
+            rows = (e * layers.moe_capacity(t, k, e, cf)
+                    if impl == "dropping" else e * t)
+            ms = cuda_ms(run, 5, warmup=1)
+            checked = not (impl == "dropping" and cf < e / k)
+            row = dict(impl=impl, capacity_factor=cf, tokens=t, ms=ms,
+                       tflops=3 * 2.0 * rows * d * f / ms / 1e9,
+                       expert_rows=rows, assignments=t * k,
+                       dropped=sum(rec.drops), max_abs_err=err,
+                       rel_err=err / scale,
+                       tol=MOE_IMPL_REL_TOL * scale if checked else None,
+                       aux=aux.item(), min_router_gap=rec.min_gap)
+            print("moe impl " + json.dumps(row))
+            if not (bool(torch.isfinite(y).all()) and (
+                    not checked or err <= MOE_IMPL_REL_TOL * scale)):
+                fail(f"moe_apply {impl} differs from dense_scan: {row}")
+            del y
+    del params, x, want
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3751,9 +4014,9 @@ def _plain_attention(q, k, v, *, causal=True, window=0, softmax_scale=None):
                                    softmax_scale=softmax_scale)
 
 
-#: phase 14's path name of each LM family's training step
+#: phases 14 and 17's path name of each LM family's training step
 LM_TRAIN_PATHS = {"ssm": "lm_train", "dense": "lm_train_dense",
-                  "hybrid": "lm_train_hybrid"}
+                  "hybrid": "lm_train_hybrid", "moe": "lm_train_moe"}
 
 
 def lm_train_launches(cfg) -> dict:
@@ -3766,7 +4029,7 @@ def lm_train_launches(cfg) -> dict:
     if cfg.arch_type in ("ssm", "hybrid"):
         out.update(ssd_scan=fwd * cfg.num_layers,
                    ssd_scan_bwd=cfg.num_layers)
-    if cfg.arch_type in ("dense", "hybrid"):
+    if cfg.arch_type in ("dense", "hybrid", "moe"):
         attn = (hybrid.num_groups(cfg) if cfg.arch_type == "hybrid"
                 else cfg.num_layers)
         out.update(flash_attention=fwd * attn, flash_attention_bwd=attn)
@@ -3778,16 +4041,20 @@ def _lm_grad_check(ops, dev, cfg) -> None:
     (scans, attention and their backward kernels) and through the plain
     versions (the chunked scan, the plain attention), both on the card,
     for 2 layers of ``cfg`` (one group — 6 mixers and the shared block —
-    of the hybrid) at full width in float32 (remat and the 512-token CE
-    chunks as configured), batch 4 × 1024 from ``lm_batch``: every leaf
-    within ``LM_GRAD_REL_TOL`` of the plain one's max, and non-zero
-    wherever the plain path's is; the kernel path's launches exact."""
+    of the hybrid; one layer of an MoE model: 5.6 GB of float32 experts)
+    at full width in float32 (remat and the 512-token CE chunks as
+    configured), batch 4 × 1024 from ``lm_batch``: every leaf within
+    ``LM_GRAD_REL_TOL`` of the plain one's max, and non-zero wherever the
+    plain path's is; the kernel path's launches exact; an MoE model's
+    smallest router gap printed (a near-tie there could route a token
+    elsewhere on the other path)."""
     from repro_torch.data import lm_batch
     from repro_torch.models import zoo
+    from repro_torch.models.layers import MoERecorder
     from repro_torch.training.trainer import value_and_grad
     from repro_torch.tree import tree_leaves
 
-    layers = cfg.attn_every if cfg.arch_type == "hybrid" else 2
+    layers = {"hybrid": cfg.attn_every, "moe": 1}.get(cfg.arch_type, 2)
     c2 = dataclasses.replace(cfg, num_layers=layers,
                              param_dtype=torch.float32,
                              activation_dtype=torch.float32)
@@ -3795,8 +4062,9 @@ def _lm_grad_check(ops, dev, cfg) -> None:
     batch = lm_batch(torch.Generator(device=dev).manual_seed(65),
                      LM_TRAIN_BATCH, LM_TRAIN_SEQ, c2.vocab_size)
     ops.reset_launches()
-    (got_loss, _), got = value_and_grad(
-        lambda p: zoo.loss_fn(c2, p, batch), params, has_aux=True)
+    with MoERecorder() as routed:
+        (got_loss, _), got = value_and_grad(
+            lambda p: zoo.loss_fn(c2, p, batch), params, has_aux=True)
     launches = {n: c for n, c in ops.LAUNCHES.items() if c}
     saved = ops.ssd_scan, ops.flash_attention
     try:
@@ -3817,7 +4085,7 @@ def _lm_grad_check(ops, dev, cfg) -> None:
                loss_kernels=got_loss.item(), loss_plain=want_loss.item(),
                leaves=len(tree_leaves(got)), worst_leaf_rel_err=worst,
                tol=LM_GRAD_REL_TOL, leaves_without_gradient=dead,
-               launches=launches)
+               launches=launches, min_router_gap=routed.min_gap)
     print("lm_train first-step gradients kernels vs plain "
           + json.dumps(row))
     if dead or not worst <= LM_GRAD_REL_TOL or launches != \
@@ -3826,22 +4094,27 @@ def _lm_grad_check(ops, dev, cfg) -> None:
              f"{row}")
 
 
-def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b") -> dict:
-    """Phase 14: one LM expert of ``arch`` trained at full width and depth
-    through ``make_lm_train_step`` — mamba2-2.7b (64 layers, d 2560, 80 SSD
-    heads, N 128, vocab 50280), zamba2-2.7b (54 mixers at N 64, the shared
-    attention + SwiGLU block of 32 heads of D 80 after every 6) or
+def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b", layers: int = 0,
+                        batch: int = LM_TRAIN_BATCH,
+                        seq: int = LM_TRAIN_SEQ) -> dict:
+    """Phases 14 and 17: one LM expert of ``arch`` trained at full width
+    and depth (``layers`` deep when given) through
+    ``make_lm_train_step`` — mamba2-2.7b (64 layers, d 2560, 80 SSD heads,
+    N 128, vocab 50280), zamba2-2.7b (54 mixers at N 64, the shared
+    attention + SwiGLU block of 32 heads of D 80 after every 6),
     internlm2-1.8b (24 layers, d 2048, 16 query heads over 8 kv heads of
-    D 128, vocab 92544), bf16, remat, 512-token CE chunks: random seeded
-    weights built on the card, ``LM_TRAIN_STEPS`` steps of
-    ``LM_TRAIN_BATCH × LM_TRAIN_SEQ`` tokens from ``lm_batch``.  Cuts
-    (the reference trains at ``train_4k``): 256 × 4096 tokens a step cut
-    to 4 × 1024, 10 steps; width and depth are not cut.  Each step's
+    D 128, vocab 92544) or mixtral-8x7b (32 over 8 heads, window 4096, 8
+    experts of F 14336 under ``dense_scan``, vocab 32000; 2 of its 32
+    layers: its full depth does not fit one card), bf16, remat, 512-token
+    CE chunks: random seeded weights built on the card, ``LM_TRAIN_STEPS``
+    steps of ``batch × seq`` tokens from ``lm_batch``.  Cuts (the
+    reference trains at ``train_4k``): 256 × 4096 tokens a step cut to 4 ×
+    1024 (mixtral 1 × 8192, past its window), 10 steps.  Each step's
     launches exact (``lm_train_launches``: every scan and attention
     forward twice under remat, each backward once); losses finite; the
-    loss on one fixed batch falls; per-step seconds (synced), tokens/s
-    and the peak device memory (under 80 GB) printed; then one more step
-    under the profiler.  First, ``_lm_grad_check``."""
+    loss on one fixed batch falls; per-step seconds (synced), tokens/s,
+    the peak device memory (under 80 GB) and the MoE aux loss printed;
+    then one more step under the profiler.  First, ``_lm_grad_check``."""
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batch
     from repro_torch.models import zoo
@@ -3849,7 +4122,8 @@ def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b") -> dict:
     from repro_torch.training.trainer import make_lm_train_step
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers) if layers else full
     path = LM_TRAIN_PATHS[cfg.arch_type]
     _lm_grad_check(ops, dev, cfg)
     gc.collect()
@@ -3863,8 +4137,8 @@ def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b") -> dict:
     step = make_lm_train_step(cfg, AdamWConfig(learning_rate=LM_TRAIN_LR,
                                                warmup_steps=5))
     gen = torch.Generator(device=dev).manual_seed(62)
-    fixed = lm_batch(torch.Generator(device=dev).manual_seed(63),
-                     LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab_size)
+    fixed = lm_batch(torch.Generator(device=dev).manual_seed(63), batch,
+                     seq, cfg.vocab_size)
 
     def fixed_loss():
         with torch.no_grad():
@@ -3873,14 +4147,14 @@ def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b") -> dict:
     first_fixed = fixed_loss()
     want = lm_train_launches(cfg)
     total = dict.fromkeys(ops.LAUNCHES, 0)
-    losses, secs, grad_norms = [], [], []
+    losses, secs, grad_norms, aux = [], [], [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(LM_TRAIN_STEPS):
-        batch = lm_batch(gen, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab_size)
+        tb = lm_batch(gen, batch, seq, cfg.vocab_size)
         _sync(dev)
         ops.reset_launches()
         t = time.perf_counter()
-        params, state, loss, m = step(params, state, batch)
+        params, state, loss, m = step(params, state, tb)
         _sync(dev)
         secs.append(time.perf_counter() - t)
         got = {n: c for n, c in ops.LAUNCHES.items() if c}
@@ -3890,6 +4164,8 @@ def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b") -> dict:
             total[n] += c
         losses.append(loss.item())
         grad_norms.append(m["grad_norm"].item())
+        if "moe_aux" in m:              # the transformer's loss_fn
+            aux.append(m["moe_aux"].item())
     peak = torch.cuda.max_memory_allocated()
     last_fixed = fixed_loss()
     steady = secs[1:]
@@ -3898,41 +4174,45 @@ def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b") -> dict:
                parameters=sum(a.numel() for a in leaves),
                param_dtype=str(cfg.param_dtype).replace("torch.", ""),
                remat=cfg.remat, logits_chunk=cfg.logits_chunk,
-               steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
-               tokens=LM_TRAIN_SEQ, init_s=t_init, first_step_s=secs[0],
-               step_s=secs, step_s_median=float(np.median(steady)),
+               steps=LM_TRAIN_STEPS, batch=batch, tokens=seq,
+               init_s=t_init, first_step_s=secs[0], step_s=secs,
+               step_s_median=float(np.median(steady)),
                step_s_min=min(steady),
-               tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ
-               / float(np.median(steady)),
+               tokens_per_s=batch * seq / float(np.median(steady)),
                peak_bytes=peak, peak_bytes_net=peak - base,
                launches_per_step=want, losses=losses,
-               grad_norms=grad_norms,
+               grad_norms=grad_norms, moe_aux=aux,
                fixed_batch_loss=[first_fixed, last_fixed],
-               reduced=dict(batch="256 -> 4", seq_len="4096 -> 1024",
-                            steps=LM_TRAIN_STEPS))
+               reduced=dict(batch=f"256 -> {batch}",
+                            seq_len=f"4096 -> {seq}", steps=LM_TRAIN_STEPS,
+                            **({"layers": f"{full.num_layers} -> "
+                                          f"{cfg.num_layers}"}
+                               if layers else {})))
     print(f"{path} " + json.dumps(row))
     if not (all(math.isfinite(x) for x in losses)
             and last_fixed < first_fixed and peak < 80e9):
         fail(f"{path}: losses not finite or not falling, or the peak "
              f"is past 80 GB: {row}")
     # one more step, on the last batch, under the profiler
-    profiled(lambda: step(params, state, batch), LM_TRAIN_CATEGORIES,
-             path=path, arch=cfg.name, batch=LM_TRAIN_BATCH,
-             tokens=LM_TRAIN_SEQ)
+    profiled(lambda: step(params, state, tb), LM_TRAIN_CATEGORIES,
+             path=path, arch=cfg.name, layers=cfg.num_layers, batch=batch,
+             tokens=seq)
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
     return {path: total}
 
 
-def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b") -> None:
+def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b",
+                             over: dict | None = None) -> None:
     """Phase 8's and 16's training rows: one ``make_lm_train_step`` step of
     the reduced float32 ``arch`` (``LM_REDUCED``: internlm2 with 4 query
     heads over 2 kv heads) on the GPU (scan and attention kernels, their
     backward kernels) and on the CPU (plain versions), from the same
     parameters and batch: the loss, every gradient leaf, and the
     parameters after the step (``TRAIN_E2E``'s rule); the GPU step's
-    launches exact (``lm_train_launches``)."""
+    launches exact (``lm_train_launches``).  ``over``: more ``reduced()``
+    overrides (phase 16's MoE runs)."""
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batch
     from repro_torch.models import zoo
@@ -3941,7 +4221,7 @@ def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b") -> None:
                                               value_and_grad)
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = get_config(arch).reduced(**LM_REDUCED[arch])
+    cfg = get_config(arch).reduced(**LM_REDUCED[arch], **(over or {}))
     params = zoo.init(cfg, torch.Generator().manual_seed(71), "cpu")
     batch = lm_batch(torch.Generator().manual_seed(72), 4, 64,
                      cfg.vocab_size)
@@ -3971,7 +4251,7 @@ def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b") -> None:
             param_err = max(param_err, (diff[clear].max().item() - lr / 100)
                             / max(q.abs().max().item(), 1e-30))
         param_steps = max(param_steps, diff.max().item() / lr)
-    row = dict(path=LM_TRAIN_PATHS[cfg.arch_type], arch=arch,
+    row = dict(path=LM_TRAIN_PATHS[cfg.arch_type], arch=arch, **(over or {}),
                loss_rel_err=loss_err,
                grad_worst_leaf_rel_err=grad_err,
                param_worst_leaf_rel_err_past_lr_over_100=param_err,
@@ -4108,7 +4388,30 @@ def main() -> None:
     for arch in ("zamba2-2.7b", "internlm2-1.8b"):
         compare_lm_gpu_cpu(ops, dev, arch)
         compare_lm_train_gpu_cpu(ops, dev, arch)
-    phase_done("16 (hybrid and dense LM reduced GPU vs CPU)")
+    for over in MOE_RUNS:
+        compare_lm_gpu_cpu(ops, dev, "mixtral-8x7b", over)
+        compare_lm_train_gpu_cpu(ops, dev, "mixtral-8x7b", over)
+    phase_done("16 (hybrid, dense and MoE LM reduced GPU vs CPU)")
+    for arch, layers in MOE_SERVE_LAYERS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm_launches, ens = serve_lm_full_width(ops, dev, arch, layers)
+        launches.update(lm_launches)
+        if arch == "mixtral-8x7b":
+            profile_lm_request(ens)
+        del ens
+    gc.collect()
+    torch.cuda.empty_cache()
+    compare_moe_impls(dev)
+    launches.update(train_lm_full_width(ops, dev, "mixtral-8x7b", layers=2,
+                                        batch=1, seq=LONG_SEQ))
+    for arch in ("deepseek-67b", "deepseek-coder-33b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        compare_lm_attention_bf16(ops, ref, dev, arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("17 (MoE and deepseek LM experts)")
     run_cli(dev)
     phase_done("9 (serving CLI)")
 

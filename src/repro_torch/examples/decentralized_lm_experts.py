@@ -7,7 +7,8 @@ train in complete isolation on disjoint synthetic corpus clusters (the
 two halves of the vocabulary), a token-prototype router routes sequences,
 and next-token distributions are fused in probability space.  Reduced
 configs (vocabulary 64).  Runs the ``ssm`` (mamba2-2.7b), ``hybrid``
-(zamba2-2.7b) and ``dense`` (internlm2-1.8b, stablelm-1.6b) families on
+(zamba2-2.7b), ``dense`` (internlm2-1.8b, stablelm-1.6b, deepseek-67b,
+deepseek-coder-33b) and ``moe`` (mixtral-8x7b, mixtral-8x22b) families on
 the card, or with ``--device cpu`` on the kernels' plain versions.  The
 other ids raise ``NotImplementedError`` (ROADMAP.md, module queue
 A.10).
@@ -16,6 +17,8 @@ A.10).
       --arch mamba2-2.7b
   PYTHONPATH=src python -m repro_torch.examples.decentralized_lm_experts \\
       --arch zamba2-2.7b [--device cpu]
+  PYTHONPATH=src python -m repro_torch.examples.decentralized_lm_experts \
+      --arch mixtral-8x7b [--device cpu]
 """
 
 from __future__ import annotations

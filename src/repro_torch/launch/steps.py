@@ -5,9 +5,9 @@
 tensors on the ``meta`` device, the port's stand-in for the reference's
 ``ShapeDtypeStruct``s: shapes and dtypes, no storage, so a 2.7B-parameter
 tree comes back without touching the card.  The step builders close over
-configs only.  The port runs the ``ssm``, ``hybrid`` and ``dense``
-families (a decode step's inputs hold their caches: SSM states, KV caches
-and slot positions); the audio and VLM families' frontend inputs wait
+configs only.  The port runs the ``ssm``, ``hybrid``, ``dense`` and
+``moe`` families (a decode step's inputs hold their caches: SSM states,
+KV caches and slot positions); the audio and VLM families' frontend inputs wait
 with their backbones (ROADMAP.md, module queue A.10).
 """
 

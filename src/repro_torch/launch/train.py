@@ -10,9 +10,10 @@ parameters with the expert's metadata, which ``ServingEngine.
 from_checkpoint_dir`` serves.
 
 ``--mode lm`` trains one LM expert of ``--arch`` (mamba2-2.7b, the
-hybrid zamba2-2.7b, the dense internlm2-1.8b — the default — and
-stablelm-1.6b; the ids not ported raise ``NotImplementedError`` naming
-ROADMAP A.10) on ``lm_batch`` token batches with ``make_lm_train_step``,
+hybrid zamba2-2.7b, the dense internlm2-1.8b — the default —,
+stablelm-1.6b, deepseek-67b and deepseek-coder-33b, the MoE mixtral-8x7b
+and mixtral-8x22b; the ids not ported raise ``NotImplementedError``
+naming ROADMAP A.10) on ``lm_batch`` token batches with ``make_lm_train_step``,
 printing each step's loss; reduced unless ``--full``.
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions.
@@ -23,6 +24,8 @@ Runs on the card; ``--device cpu`` runs the kernels' plain versions.
       --arch mamba2-2.7b --steps 20 --batch 4 --seq-len 1024 --full
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
       --arch internlm2-1.8b --steps 20 --batch 4 --seq-len 1024 --full
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+      --arch mixtral-8x7b --steps 3 [--device cpu]
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@
 The reference module imports ``jax.numpy`` for its dtype defaults, so the
 port keeps its own copy of the dataclasses: ``LMConfig`` (the sequence
 backbones of the LM-expert ensemble; the port serves the ``ssm``,
-``hybrid`` and ``dense`` families) and ``DiTConfig`` with the canonical
-paper architectures.
+``hybrid``, ``dense`` and ``moe`` families) and ``DiTConfig`` with the
+canonical paper architectures.
 """
 
 from __future__ import annotations
@@ -20,10 +20,11 @@ import torch
 class LMConfig:
     """Sequence-model backbone config of the LM-expert ensemble.
 
-    The port serves ``arch_type`` ``"ssm"`` (Mamba2), ``"hybrid"``
-    (Zamba2) and ``"dense"`` (GQA transformers), trains ``"ssm"``, and
-    keeps the fields those backbones and ``launch.steps`` read; a later
-    backbone adds the fields it needs.  Attention of every backbone runs
+    The port serves and trains ``arch_type`` ``"ssm"`` (Mamba2),
+    ``"hybrid"`` (Zamba2), ``"dense"`` (GQA transformers) and ``"moe"``
+    (the GQA transformer with a top-k routed SwiGLU expert layer in place
+    of its FFN: Mixtral), and keeps the fields those backbones and
+    ``launch.steps`` read; a later backbone adds the fields it needs.  Attention of every backbone runs
     through the flash attention kernel, which computes the reference's
     float32-softmax attention whatever ``attn_chunk`` and
     ``attn_kv_chunk`` (the reference's XLA blockings of the same
@@ -40,6 +41,11 @@ class LMConfig:
     num_kv_heads: int = 0
     d_ff: int = 0                         # SwiGLU width
     head_dim: int = 0                     # 0 -> d_model // num_heads
+    # --- MoE ---
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_impl: str = "dropping"            # see ``layers.moe_apply``
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_headdim: int = 64
@@ -61,6 +67,7 @@ class LMConfig:
     param_dtype: Any = torch.float32
     activation_dtype: Any = torch.float32
     remat: bool = False                   # recompute each layer's forward
+    aux_loss_weight: float = 0.01         # the MoE load-balance loss weight
     source: str = ""                      # citation for the config
 
     @property
@@ -78,8 +85,9 @@ class LMConfig:
     def reduced(self, **overrides) -> "LMConfig":
         """Smoke-test variant, by the reference's rules: 2 layers,
         d_model<=256, at most 4 heads (kv heads at most the heads,
-        ``head_dim = d_model // heads``), d_ff<=512, vocab<=512, attention
-        chunks of 64, a shared attention block after every layer."""
+        ``head_dim = d_model // heads``), d_ff<=512, vocab<=512, at most 4
+        experts, attention chunks of 64, a shared attention block after
+        every layer."""
         d = min(self.d_model, 256)
         heads = min(self.num_heads, 4)
         upd: dict[str, Any] = dict(
@@ -99,6 +107,8 @@ class LMConfig:
             activation_dtype=torch.float32,
             remat=False,
         )
+        if self.num_experts:
+            upd["num_experts"] = min(self.num_experts, 4)
         if self.ssm_state:
             upd["ssm_state"] = min(self.ssm_state, 16)
             upd["ssm_headdim"] = 32

@@ -127,8 +127,8 @@ def prefill(cfg: LMConfig, params, tokens):
             h, (conv, state) = M.block_apply(cfg, bp, h)
             convs.append(conv)
             states.append(state)
-        h, (k, v) = T.block_apply(cfg, params["shared_attn"], h,
-                                  positions)
+        h, (k, v), _ = T.block_apply(cfg, params["shared_attn"], h,
+                                     positions)
         ks.append(k)
         vs.append(v)
     hl = L.rmsnorm(params["ln_final"], h[:, -1:], cfg.norm_eps)

@@ -12,7 +12,10 @@ through the kernel wrappers (``kernels.ops.layernorm``,
 cross-attention, whose query and text lengths differ.  The LMs' causal
 attention over a sequence goes through ``flash_attention_gqa``
 (``models.transformer``); ``decode_attention``, one token against a KV
-cache, is plain torch, as the reference computes it in jnp.
+cache, is plain torch, as the reference computes it in jnp.  So is the
+routed expert layer ``moe_apply`` (the reference computes it in jnp:
+einsums and a scatter/gather dispatch, outside any Pallas kernel); its
+expert products are ATen GEMMs.
 """
 
 from __future__ import annotations
@@ -166,6 +169,176 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# MoE (Mixtral-style top-k routing, optionally with a capacity dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_route(params: dict, xf: torch.Tensor, k: int):
+    """Top-k routing of the tokens ``xf`` (T, d), in float32 whatever
+    ``xf``'s dtype: the router's softmax, its top ``k`` experts a token
+    ``tope`` (T, k) (best first) with weights ``topw`` renormalised to sum
+    to 1 (by ``max(sum, 1e-9)``), and the Switch load-balance loss
+    ``E · Σ_e f_e p_e`` (``f`` the share of tokens whose top-1 expert is
+    ``e``, ``p`` the mean router probability): ``(topw, tope, probs,
+    aux)``."""
+    probs = torch.softmax(dense(params["router"], xf.to(torch.float32)), -1)
+    topw, tope = torch.topk(probs, k, dim=-1)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    e = probs.shape[-1]
+    f = F.one_hot(tope[:, 0], e).to(torch.float32).mean(0)
+    aux = e * torch.sum(f * probs.mean(0))
+    return topw, tope, probs, aux
+
+
+class MoERecorder:
+    """While active (``with MoERecorder() as rec``), records what every
+    ``moe_apply`` routes: the smallest gap between a token's k-th and
+    (k+1)-th router probability (``gaps``, one a call; a near-tie there
+    can send a token to another expert after a one-ulp difference
+    upstream) and each capacity dispatch's kept assignments (``keeps``).
+    For checks of the routing; it reads the device, so it is off (no
+    recorder active) on the served and trained paths."""
+
+    active: list = []
+
+    def __init__(self):
+        self.gaps, self.keeps = [], []
+
+    def __enter__(self):
+        MoERecorder.active.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        MoERecorder.active.remove(self)
+
+    def route(self, probs: torch.Tensor, k: int) -> None:
+        top = torch.topk(probs, k + 1, dim=-1).values
+        gap = (top[:, k - 1] - top[:, k]).min()
+        self.gaps.append(gap.item())  # lint: allow-host-sync — a check
+
+    def dispatch(self, keep: torch.Tensor) -> None:
+        self.keeps.append(keep.cpu())
+
+    @property
+    def min_gap(self):
+        return min(self.gaps) if self.gaps else None
+
+    @property
+    def drops(self) -> list[int]:
+        """The (token, k) assignments each capacity dispatch dropped."""
+        return [int((~k).sum()) for k in self.keeps]
+
+
+def moe_capacity(t: int, k: int, e: int, capacity_factor: float) -> int:
+    """Slots an expert has under the capacity dispatch of ``t`` tokens."""
+    return int(max(1, math.ceil(t * k / e * capacity_factor)))
+
+
+def moe_dispatch(tope: torch.Tensor, e: int, cap: int):
+    """GShard slots of the (token, k) assignments ``tope`` (T, k) to ``e``
+    experts, flattened token-major then k: an assignment's position in its
+    expert is the count of the earlier assignments to that expert; it is
+    kept when that is below ``cap``.  Returns ``(slot, keep)`` (T·k,):
+    ``expert · cap + position``, and ``e · cap`` (the overflow row) for a
+    dropped assignment."""
+    flat_e = tope.reshape(-1)
+    onehot = F.one_hot(flat_e, e).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=0) - onehot                 # exclusive
+    flat_pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]
+    keep = flat_pos < cap
+    slot = torch.where(keep, flat_e * cap + flat_pos,
+                       torch.full_like(flat_e, e * cap))
+    return slot, keep
+
+
+def _ffn_experts(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU on its own rows: ``h`` (E, C, d) -> (E, C, d),
+    the products batched over E in ``h``'s dtype."""
+    dt = h.dtype
+    g = torch.bmm(h, params["w_gate"].to(dt))
+    u = torch.bmm(h, params["w_up"].to(dt))
+    return torch.bmm(silu(g) * u, params["w_down"].to(dt))
+
+
+def moe_apply(params: dict, x: torch.Tensor, *, num_experts_per_tok: int = 2,
+              capacity_factor: float = 1.25,
+              impl: str = "dropping") -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed SwiGLU experts (``repro.models.layers.moe_apply``):
+    ``x`` (B, S, d) -> ``(y (B, S, d), aux)``, ``aux`` the load-balance
+    loss of ``moe_route``.  Each token's output is the sum over its k
+    experts of the expert's SwiGLU output times its routing weight, cast
+    to the activation dtype, added in ascending k (or expert) order, so
+    a run repeats bitwise.  ``impl``:
+
+    * ``"dense"``: every expert on every token, ``(E, T, F)`` at once,
+      then the weighted sum over experts;
+    * ``"dense_scan"``: every expert on every token, one expert after the
+      other (``e = 0 … E−1``), each adding ``yo · w_e`` into a ``(T, d)``
+      accumulator in the activation dtype (the reference's ``lax.scan``
+      order: the bf16 result depends on it);
+    * ``"dense_fused"``: every expert on every token, the routing weights
+      folded into the activations, then one contraction over experts and
+      F together;
+    * ``"dropping"`` — and any other string, as the reference falls
+      through to it — GShard's capacity dispatch: ``moe_capacity`` slots
+      an expert (``moe_dispatch``), only the kept assignments' tokens go
+      through their experts, a dropped assignment contributes zero.
+
+    Under autograd the dense scan takes the experts of the stacked
+    weights with one ``unbind(0)``: a view ``w[e]`` per expert would give
+    each expert's gradient a zero tensor of the whole ``(E, d, F)`` leaf.
+    """
+    b, s, d = x.shape
+    e = params["w_gate"].shape[0]
+    k = num_experts_per_tok
+    xf = x.reshape(b * s, d)
+    t, dt = xf.shape[0], xf.dtype
+    topw, tope, probs, aux = moe_route(params, xf, k)
+    for rec in MoERecorder.active:
+        rec.route(probs, k)
+
+    if impl in ("dense", "dense_scan", "dense_fused"):
+        w_full = torch.zeros((t, e), dtype=dt, device=xf.device) \
+            .scatter(1, tope, topw.to(dt))                     # (T, E)
+        if impl == "dense":
+            y_all = _ffn_experts(params, xf.expand(e, t, d))
+            y = torch.einsum("etd,te->td", y_all, w_full)
+        elif impl == "dense_fused":
+            g = torch.einsum("td,edf->etf", xf, params["w_gate"].to(dt))
+            u = torch.einsum("td,edf->etf", xf, params["w_up"].to(dt))
+            z = silu(g) * u * w_full.T[:, :, None]
+            y = torch.einsum("etf,efd->td", z, params["w_down"].to(dt))
+        else:
+            y = torch.zeros_like(xf)
+            for wg, wu, wd, we in zip(params["w_gate"].unbind(0),
+                                      params["w_up"].unbind(0),
+                                      params["w_down"].unbind(0),
+                                      w_full.unbind(1)):
+                yo = (silu(xf @ wg.to(dt)) * (xf @ wu.to(dt))) @ wd.to(dt)
+                y = y + yo * we[:, None]
+        return y.reshape(b, s, d), aux
+
+    cap = moe_capacity(t, k, e, capacity_factor)
+    slot, keep = moe_dispatch(tope, e, cap)
+    for rec in MoERecorder.active:
+        rec.dispatch(keep)
+    flat_t = torch.arange(t, device=xf.device).repeat_interleave(k)
+    # each kept slot takes one token; the dropped ones all land on the
+    # overflow row, which is cut off
+    buf = xf.new_zeros((e * cap + 1, d)).index_copy(0, slot, xf[flat_t])
+    y_flat = _ffn_experts(params, buf[:e * cap].reshape(e, cap, d)) \
+        .reshape(e * cap, d)
+    y_tok = torch.where(keep[:, None],
+                        y_flat[torch.clamp(slot, max=e * cap - 1)],
+                        y_flat.new_zeros(()))
+    contrib = (y_tok * topw.reshape(-1, 1).to(dt)).reshape(t, k, d)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
 # Initializers (``torch.Generator``-seeded; the port's own random init)
 # ---------------------------------------------------------------------------
 
@@ -203,6 +376,24 @@ def gqa_init(gen, d_model: int, num_heads: int, num_kv_heads: int,
             "wk": dense_init(gen, d_model, num_kv_heads * head_dim, **kw),
             "wv": dense_init(gen, d_model, num_kv_heads * head_dim, **kw),
             "wo": dense_init(gen, num_heads * head_dim, d_model, **kw)}
+
+
+def moe_init(gen, d_model: int, d_ff: int, num_experts: int, *, device,
+             dtype) -> dict:
+    """The router (float32 whatever ``dtype``: routing runs in float32)
+    and the stacked experts' SwiGLU weights ``w_gate``, ``w_up`` (E, d, F)
+    and ``w_down`` (E, F, d), the reference's layout and scales."""
+    def stacked(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float32)
+                .mul_(1.0 / math.sqrt(fan_in)).to(dtype))
+
+    e = num_experts
+    return {"router": dense_init(gen, d_model, e, device=device,
+                                 dtype=torch.float32),
+            "w_gate": stacked((e, d_model, d_ff), d_model),
+            "w_up": stacked((e, d_model, d_ff), d_model),
+            "w_down": stacked((e, d_ff, d_model), d_ff)}
 
 
 def swiglu_init(gen, d_model: int, d_ff: int, *, device, dtype) -> dict:

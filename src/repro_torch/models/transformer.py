@@ -1,9 +1,13 @@
-"""Decoder-only transformer backbone, the dense GQA half (port of
-``repro.models.transformer``): stablelm-1.6b and internlm2-1.8b.
+"""Decoder-only transformer backbone, dense GQA and MoE (port of
+``repro.models.transformer``): stablelm-1.6b, internlm2-1.8b,
+deepseek-67b and deepseek-coder-33b (dense), mixtral-8x7b and
+mixtral-8x22b (MoE, sliding-window attention).
 
-Each block is RMSNorm, causal GQA attention with RoPE, RMSNorm, SwiGLU,
-both residual.  The parameter dict has the reference's keys and layout:
-per-layer leaves stacked ``(num_layers, ...)`` under ``blocks``, dense
+Each block is RMSNorm, causal GQA attention with RoPE, RMSNorm, then
+SwiGLU — or, when ``cfg.num_experts``, the top-k routed SwiGLU experts of
+``layers.moe_apply`` with the config's ``moe_impl`` — both residual.  The
+parameter dict has the reference's keys and layout: per-layer leaves
+stacked ``(num_layers, ...)`` under ``blocks``, dense
 weights ``(in, out)``, so a reference tree carries over leaf by leaf
 (``repro_torch.weights.params_from_numpy``); layers run in a Python loop
 over the stack unbound once (``tree.tree_unstack``).
@@ -15,8 +19,10 @@ plain version on the CPU — on ``(B, H, S, D)`` views of the projections,
 causal over positions ``0 .. S−1`` (the kernel's index masks are the
 reference's position masks there).  ``decode_step`` attends one token to
 the KV cache with ``layers.decode_attention`` (plain torch, as the
-reference's jnp).  The MoE and VLM-prefix variants of the reference's
-module are not ported (ROADMAP.md, module queue A.10).
+reference's jnp).  The MoE layers' load-balance losses, averaged over the
+layers, are ``forward_train``'s aux output and enter ``loss_fn`` with
+``aux_loss_weight``.  The VLM-prefix variant of the reference's module is
+not ported (ROADMAP.md, module queue A.10).
 
 Also the token-mean cross-entropy that every LM backbone's ``loss_fn``
 uses.
@@ -88,25 +94,44 @@ def _attn_full(cfg: LMConfig, p: dict, h: torch.Tensor,
 
 def block_init(cfg: LMConfig, gen, device) -> dict:
     """One block's parameters: RMSNorm, GQA projections, RMSNorm, SwiGLU
-    (also the hybrid's shared block)."""
+    — or the MoE's router and experts under ``moe`` when
+    ``cfg.num_experts`` (also the hybrid's shared block)."""
     pd = cfg.param_dtype
-    return {
+    p = {
         "ln_attn": L.rmsnorm_init(cfg.d_model, device=device, dtype=pd),
         "attn": L.gqa_init(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                            cfg.resolved_head_dim, device=device, dtype=pd),
         "ln_ffn": L.rmsnorm_init(cfg.d_model, device=device, dtype=pd),
-        "ffn": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, device=device,
-                             dtype=pd),
     }
+    if cfg.num_experts:
+        p["moe"] = L.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                              device=device, dtype=pd)
+    else:
+        p["ffn"] = L.swiglu_init(gen, cfg.d_model, cfg.d_ff, device=device,
+                                 dtype=pd)
+    return p
+
+
+def _ffn(cfg: LMConfig, p: dict, h):
+    """The block's feed-forward of the normed ``h``: ``(f, aux)``, the
+    MoE's load-balance loss (``None`` without experts)."""
+    hn = L.rmsnorm(p["ln_ffn"], h, cfg.norm_eps)
+    if cfg.num_experts:
+        return L.moe_apply(p["moe"], hn,
+                           num_experts_per_tok=cfg.num_experts_per_tok,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           impl=cfg.moe_impl)
+    return L.swiglu(p["ffn"], hn), None
 
 
 def block_apply(cfg: LMConfig, p: dict, h, positions):
-    """A block over a sequence: ``(h, (k, v))``."""
+    """A block over a sequence: ``(h, (k, v), aux)`` (``aux`` the MoE's
+    load-balance loss, ``None`` without experts)."""
     hn = L.rmsnorm(p["ln_attn"], h, cfg.norm_eps)
     a, kv = _attn_full(cfg, p["attn"], hn, positions)
     h = h + a
-    h = h + L.swiglu(p["ffn"], L.rmsnorm(p["ln_ffn"], h, cfg.norm_eps))
-    return h, kv
+    f, aux = _ffn(cfg, p, h)
+    return h + f, kv, aux
 
 
 def decode_slots(cache: dict, pos: torch.Tensor, ring: bool):
@@ -125,7 +150,9 @@ def block_decode(cfg: LMConfig, p: dict, h: torch.Tensor, pos, k_c, v_c,
                  slot, new_pos, window: int) -> torch.Tensor:
     """One token (B, 1, d) through a block: its key and value, roped at
     ``pos``, written into ``k_c``/``v_c`` (B, W, Hkv, D) at ``slot`` in
-    place, attention over the cache, then SwiGLU, both residual."""
+    place, attention over the cache, then SwiGLU or the MoE (over the B
+    tokens, with the config's ``moe_impl``: under ``"dropping"`` their
+    capacity is ``ceil(B·k/E·capacity_factor)``), both residual."""
     hd = cfg.resolved_head_dim
     b = h.shape[0]
     hn = L.rmsnorm(p["ln_attn"], h, cfg.norm_eps)
@@ -139,7 +166,7 @@ def block_decode(cfg: LMConfig, p: dict, h: torch.Tensor, pos, k_c, v_c,
     out = L.decode_attention(q, k_c, v_c, q_position=pos,
                              kv_positions=new_pos, window=window)
     h = h + L.dense(p["attn"]["wo"], out.reshape(b, 1, cfg.num_heads * hd))
-    return h + L.swiglu(p["ffn"], L.rmsnorm(p["ln_ffn"], h, cfg.norm_eps))
+    return h + _ffn(cfg, p, h)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -147,18 +174,18 @@ def block_decode(cfg: LMConfig, p: dict, h: torch.Tensor, pos, k_c, v_c,
 # ---------------------------------------------------------------------------
 
 
-def _check_dense(cfg: LMConfig) -> None:
-    if cfg.arch_type != "dense":
+def _check_family(cfg: LMConfig) -> None:
+    if cfg.arch_type not in ("dense", "moe"):
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} ({cfg.name}): the port's "
-            f"transformer is the dense GQA backbone; its MoE and VLM-prefix "
-            f"variants are not ported yet (ROADMAP.md, module queue A.10)")
+            f"transformer is the dense and MoE GQA backbone; its VLM-prefix "
+            f"variant is not ported yet (ROADMAP.md, module queue A.10)")
 
 
 def init(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
     """Random parameters with the reference's structure and init scheme,
     drawn from ``gen`` on ``device`` (``None`` → ``"cuda"``)."""
-    _check_dense(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     pd = cfg.param_dtype
     blocks = tree_stack_layers(lambda: block_init(cfg, gen, dev),
@@ -174,42 +201,47 @@ def init(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
 
 
 def _residual(cfg: LMConfig, p: dict, h, positions):
-    return block_apply(cfg, p, h, positions)[0]
+    h, _, aux = block_apply(cfg, p, h, positions)
+    return h, aux
 
 
 def forward_train(cfg: LMConfig, params, tokens):
-    """(B, S) tokens -> ((B, S, V) logits, the zero MoE aux loss).  With
-    ``cfg.remat``, when gradients are taken, each layer keeps only its
-    input and runs its forward again in the backward."""
+    """(B, S) tokens -> ((B, S, V) logits, the MoE aux loss summed over
+    the layers in order and divided by their number: float32, zero for a
+    dense model).  With ``cfg.remat``, when gradients are taken, each
+    layer keeps only its input and runs its forward again in the
+    backward (its aux comes out of the checkpoint with its output)."""
     remat = cfg.remat and torch.is_grad_enabled() and any(
         a.requires_grad for a in tree_leaves(params))
     h = L.embed(params["embed"], tokens, cfg.activation_dtype)
     positions = torch.arange(tokens.shape[1], device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for bp in tree_unstack(params["blocks"]):
         if remat:
-            h = checkpoint(_residual, cfg, bp, h, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+            h, a = checkpoint(_residual, cfg, bp, h, positions,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            h = _residual(cfg, bp, h, positions)
+            h, a = _residual(cfg, bp, h, positions)
+        if a is not None:
+            aux = aux + a
     h = L.rmsnorm(params["ln_final"], h, cfg.norm_eps)
     logits = L.dense(params["unembed"], h)
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+    return logits, aux / max(cfg.num_layers, 1)
 
 
 def loss_fn(cfg: LMConfig, params, tokens, labels):
-    """``(ce, {"ce": ce, "moe_aux": 0})``: a dense model has no MoE
-    auxiliary loss, so the reference's ``ce + aux_loss_weight · aux`` is
-    ``ce``."""
+    """``(ce + aux_loss_weight · aux, {"ce": ce, "moe_aux": aux})`` (a
+    dense model's aux is zero)."""
     logits, aux = forward_train(cfg, params, tokens)
     ce = cross_entropy(logits, labels, chunk=cfg.logits_chunk)
-    return ce, {"ce": ce, "moe_aux": aux}
+    return ce + cfg.aux_loss_weight * aux, {"ce": ce, "moe_aux": aux}
 
 
 def make_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
     """KV cache: roped keys and values per layer ``(L, B, max_len, Hkv,
     D)`` and each slot's position ``(B, max_len)`` (−1: empty).
     ``max_len`` is the ring's size under a decode window."""
-    _check_dense(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
@@ -229,7 +261,7 @@ def prefill(cfg: LMConfig, params, tokens):
     positions = torch.arange(s, device=h.device)
     ks, vs = [], []
     for bp in tree_unstack(params["blocks"]):
-        h, (k, v) = block_apply(cfg, bp, h, positions)
+        h, (k, v), _ = block_apply(cfg, bp, h, positions)
         ks.append(k)
         vs.append(v)
     hl = L.rmsnorm(params["ln_final"], h[:, -1:], cfg.norm_eps)

@@ -11,10 +11,10 @@ One interface over the backbone modules:
 
 ``batch`` is a dict holding ``tokens`` (and ``labels`` for the loss;
 ``audio_embeds`` or ``vision_embeds`` for the stubbed-frontend families,
-as in the reference).  The port serves the ``ssm`` (``models.mamba2``),
-``hybrid`` (``models.hybrid``) and ``dense`` (``models.transformer``)
-families and trains ``ssm``; ``moe``, ``vlm`` and ``audio`` raise
-``NotImplementedError`` (ROADMAP.md, module queue A.10).  ``init`` takes
+as in the reference).  The port serves and trains the ``ssm``
+(``models.mamba2``), ``hybrid`` (``models.hybrid``), ``dense`` and
+``moe`` (both ``models.transformer``) families; ``vlm`` and ``audio``
+raise ``NotImplementedError`` (ROADMAP.md, module queue A.10).  ``init`` takes
 a ``torch.Generator`` where the reference takes a PRNG key.
 """
 
@@ -23,7 +23,8 @@ from __future__ import annotations
 from repro_torch.models import hybrid, mamba2, transformer
 from repro_torch.models.config import LMConfig
 
-_FAMILY = {"ssm": mamba2, "hybrid": hybrid, "dense": transformer}
+_FAMILY = {"ssm": mamba2, "hybrid": hybrid, "dense": transformer,
+           "moe": transformer}
 
 
 def backbone(cfg: LMConfig):

@@ -1051,6 +1051,49 @@ def test_lm_backbones_run_the_kernels(cuda, arch, over):
         assert (lg.cpu() - want[:, p]).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("impl,cf", [("dense_scan", 1.25), ("dropping", 0.5)],
+                         ids=["dense_scan", "dropping"])
+def test_moe_logprobs_on_the_card_match_the_cpu(cuda, impl, cf):
+    """The reduced float32 mixtral (2 layers, 4 experts, window 64) as a
+    two-expert ensemble: fused log-probabilities of 4 × 96 tokens on the
+    card (one attention launch a layer and expert) within
+    ``1e-4 · max|out|`` of the CPU's — under ``dense_scan`` and under
+    ``dropping`` at a capacity that drops (a different drop set would
+    move a row by an expert's output)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.lm_ensemble import (LMExpertEnsemble,
+                                              TokenPrototypeRouter)
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
+                              moe_impl=impl, moe_capacity_factor=cf)
+    experts = [zoo.init(cfg, torch.Generator().manual_seed(k), "cpu")
+               for k in range(2)]
+    gen = torch.Generator().manual_seed(2)
+    corpora = [torch.randint(0, cfg.vocab_size, (4, 128), generator=gen)
+               for _ in range(2)]
+    router = TokenPrototypeRouter.fit(corpora, vocab=cfg.vocab_size)
+    toks = torch.randint(0, cfg.vocab_size, (4, 96), generator=gen)
+
+    def logprobs(dev, params):
+        ens = LMExpertEnsemble(cfg=cfg, expert_params=params, router=router,
+                               strategy="topk", top_k=1)
+        return ens.fused_logprobs(toks.to(dev))
+
+    want = logprobs("cpu", experts)
+    ops.reset_launches()
+    got = logprobs(cuda, [tree_map(lambda a: a.to(cuda), e)
+                          for e in experts])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+    assert bool(torch.isfinite(got).all())
+    assert (got.cpu() - want).abs().max().item() <= \
+        1e-4 * want.abs().max().item()
+
+
 @pytest.mark.parametrize("param_dtype", ["native", "int8", "fp8"])
 def test_capacity_padded_ragged_gemm_skips_dead_slots(cuda, param_dtype):
     """A capacity-10 store of 8 experts with slot 3 evicted and NaN in
@@ -1383,6 +1426,48 @@ def test_flash_attention_bwd_kernel_lm_training_shapes(cuda, b, hq, hkv, s,
     """The two LM training shapes, causal bf16, as the model lays them out
     (a 4 × 1024-token batch)."""
     _bwd_check(cuda, b, hq, hkv, s, d, True, 0, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,window", [
+    (1, 4, 1, 1024, 256),             # Mixtral's 4-head group, S 4 × window
+    (2, 8, 2, 600, 300),              # ragged S, two groups
+], ids=["group4_w256", "ragged_w300"])
+def test_flash_attention_bwd_kernel_windowed_bf16_on_wgmma(cuda, b, hq, hkv,
+                                                          s, window):
+    """The causal sliding-window backward in bf16 at D 128 (Mixtral's
+    attention, window shorter than S) on the tensor-core route
+    (``_bwd_check`` asserts ``"wgmma bf16"``), against the plain
+    version."""
+    _bwd_check(cuda, b, hq, hkv, s, 128, True, window, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,s,window",
+                         [(2, 7, 1, 300, 0), (1, 14, 2, 257, 0),
+                          (2, 6, 1, 300, 128)],
+                         ids=["7over1", "14over2", "6over1_window"])
+def test_flash_attention_group_of_seven(cuda, b, hq, hkv, s, window, dtype):
+    """deepseek-coder-33b's group of 7 query heads a kv head (not a power
+    of two), causal at D 128, and mixtral-8x22b's group of 6 under a
+    sliding window that masks: the forward within ``_close`` of the plain
+    version over repeated kv heads (one launch), then the backward
+    (``_bwd_check``)."""
+    gen = torch.Generator(device=cuda).manual_seed(hq + s)
+    q = torch.randn(b, s, hq, 128, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(b, s, hkv, 128, generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+    ops.reset_launches()
+    got = ops.flash_attention_gqa(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    if dtype == torch.bfloat16:
+        assert flash_design(q, k, v) == "wgmma bf16"
+    _close(got, ref.ref_flash_attention(
+        q, k.repeat_interleave(hq // hkv, dim=1),
+        v.repeat_interleave(hq // hkv, dim=1), causal=True, window=window))
+    _bwd_check(cuda, b, hq, hkv, s, 128, True, window, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -435,10 +435,11 @@ def test_mamba2_checkpoint_from_jax_loads(tmp_path):
 
 def test_only_the_ssm_family_is_served():
     """The ids and families not ported yet raise naming A.10 (the port now
-    also serves the hybrid and dense families: ``tests/test_torch_hybrid.py``,
-    ``tests/test_torch_transformer.py``)."""
+    also serves the hybrid, dense and MoE families:
+    ``tests/test_torch_hybrid.py``, ``tests/test_torch_transformer.py``,
+    ``tests/test_torch_moe.py``)."""
     with pytest.raises(NotImplementedError, match="A.10"):
-        get_config("mixtral-8x7b")
+        get_config("paligemma-3b")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-9")
     cfg = get_config("mamba2-2.7b")
@@ -456,5 +457,5 @@ def test_only_the_ssm_family_is_served():
         assert (c.ssm_d_inner, c.ssm_nheads) == (jc.ssm_d_inner,
                                                  jc.ssm_nheads)
     with pytest.raises(NotImplementedError, match="A.10"):
-        zoo.init(dataclasses.replace(cfg, arch_type="moe"),
+        zoo.init(dataclasses.replace(cfg, arch_type="audio"),
                  torch.Generator(), "cpu")

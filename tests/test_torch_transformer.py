@@ -2,8 +2,11 @@
 and its configs against the JAX package, on the CPU — reduced
 internlm2-1.8b with 4 query heads over 2 kv heads
 (``reduced(num_kv_heads=2)``: the reference's own reduction leaves it
-4/4) and reduced stablelm-1.6b (MHA) — and what the hybrid backbone's
-tests (``tests/test_torch_hybrid.py``) share with these.
+4/4), reduced stablelm-1.6b (MHA), reduced deepseek-67b (4 over 2) and
+deepseek-coder-33b with 7 query heads over 1 kv head (its full model's
+group of 7; rope θ 1e5) — and what the hybrid and MoE backbones' tests
+(``tests/test_torch_hybrid.py``, ``tests/test_torch_moe.py``) share with
+these.
 
 JAX parameters pass to the port through ``np.asarray`` and
 ``params_from_numpy``; token batches are seeded numpy.  The attention of
@@ -71,7 +74,9 @@ GRAD_REL = 1e-4
 LM_REL = 1e-5
 
 #: the reduced dense models of these tests: (arch, reduced() overrides)
-DENSE = [("internlm2-1.8b", dict(num_kv_heads=2)), ("stablelm-1.6b", {})]
+DENSE = [("internlm2-1.8b", dict(num_kv_heads=2)), ("stablelm-1.6b", {}),
+         ("deepseek-67b", dict(num_kv_heads=2)),
+         ("deepseek-coder-33b", dict(num_heads=7, num_kv_heads=1))]
 
 
 def _t(a):
@@ -297,6 +302,32 @@ def test_dense_ensemble_matches_jax():
     check_ensemble(*DENSE[0])
 
 
+@pytest.mark.parametrize("arch,over", DENSE[2:], ids=[a for a, _ in DENSE[2:]])
+def test_ring_buffer_decode_wraps_match_jax(arch, over):
+    """The deepseek configs decode under their ``decode_window`` (8192,
+    reduced to 64) through a ring of that size: 80 tokens fed one at a
+    time from an empty ``make_cache`` of 64 slots wrap it (slot
+    ``pos % 64``), each step's logits and the final cache within
+    ``MODEL_REL`` of the reference's ``decode_step`` (jitted) on carried
+    weights; the window masks the overwritten positions."""
+    jcfg, cfg = reduced_pair(arch, **over)
+    assert cfg.decode_window == 64 and not cfg.sliding_window
+    jp, tp = carried(jcfg, seed=9)
+    toks = tokens(cfg.vocab_size, (2, 80), 9)
+    jstep = jax.jit(lambda c, t, p: jzoo.decode_step(jcfg, jp, c, t, p))
+    jc, tc = jzoo.make_cache(jcfg, 2, 64), zoo.make_cache(cfg, 2, 64, "cpu")
+    jl, tl = [], []
+    for i in range(80):
+        pos = np.full((2,), i, np.int32)
+        lg, jc = jstep(jc, toks[:, i:i + 1], pos)
+        jl.append(np.asarray(lg))
+        lg, tc = zoo.decode_step(cfg, tp, tc, _t(toks[:, i:i + 1]), _t(pos))
+        tl.append(lg)
+    assert _rel(torch.stack(tl), np.stack(jl)) <= MODEL_REL
+    assert_cache_close(tc, jc, MODEL_REL)
+    assert tc["pos"][0].tolist() == list(range(64, 80)) + list(range(16, 64))
+
+
 def test_dense_params_and_cache_have_the_reference_layout():
     """``init`` draws the reference's tree (keys, shapes, dtypes) and
     ``make_cache`` its zeros and empty slots."""
@@ -313,7 +344,9 @@ def test_dense_params_and_cache_have_the_reference_layout():
 # Configs, the zoo's families, launch.steps, the train CLI
 # ---------------------------------------------------------------------------
 
-PORTED = ("mamba2-2.7b", "zamba2-2.7b", "internlm2-1.8b", "stablelm-1.6b")
+PORTED = ("mamba2-2.7b", "zamba2-2.7b", "internlm2-1.8b", "stablelm-1.6b",
+          "deepseek-67b", "deepseek-coder-33b", "mixtral-8x7b",
+          "mixtral-8x22b")
 
 
 def _same_fields(c, jc) -> None:
@@ -337,23 +370,25 @@ def test_get_config_matches_jax_field_for_field(arch):
 
 
 def test_unported_families_still_raise():
-    """MoE, VLM and audio ids raise naming A.10, at ``get_config`` and at
-    the zoo; the dense module refuses them too."""
+    """The VLM and audio ids (paligemma-3b, whisper-large-v3) raise
+    naming A.10, at ``get_config`` and at the zoo and ``launch.steps``;
+    the transformer module refuses the VLM prefix too."""
+    assert sorted(set(J_ARCH_IDS) - set(PORTED)) == ["paligemma-3b",
+                                                     "whisper-large-v3"]
     for arch in set(J_ARCH_IDS) - set(PORTED):
         with pytest.raises(NotImplementedError, match="A.10"):
             get_config(arch)
     cfg = get_config("internlm2-1.8b").reduced()
-    for family in ("moe", "vlm", "audio"):
+    for family in ("vlm", "audio"):
         other = dataclasses.replace(cfg, arch_type=family)
         with pytest.raises(NotImplementedError, match="A.10"):
             zoo.init(other, torch.Generator(), "cpu")
         with pytest.raises(NotImplementedError, match="A.10"):
             zoo.make_cache(other, 1, 8, "cpu")
-        if family != "moe":                # frontend inputs
-            with pytest.raises(NotImplementedError, match="A.10"):
-                steps.input_specs(other, get_shape("decode_32k"))
+        with pytest.raises(NotImplementedError, match="A.10"):
+            steps.input_specs(other, get_shape("decode_32k"))
     with pytest.raises(NotImplementedError, match="A.10"):
-        Tr.init(dataclasses.replace(cfg, arch_type="moe"),
+        Tr.init(dataclasses.replace(cfg, arch_type="vlm"),
                 torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="attn_f32_softmax"):
         zoo.forward_train(dataclasses.replace(cfg, attn_f32_softmax=False),
@@ -367,9 +402,11 @@ def _struct(t):
     return tuple(t.shape), jnp.dtype(t.dtype).name
 
 
-@pytest.mark.parametrize("arch,n_params", [("zamba2-2.7b", 2_422_670_240),
-                                           ("internlm2-1.8b", 1_889_110_016),
-                                           ("stablelm-1.6b", None)])
+@pytest.mark.parametrize("arch,n_params", [
+    ("zamba2-2.7b", 2_422_670_240), ("internlm2-1.8b", 1_889_110_016),
+    ("stablelm-1.6b", None), ("mixtral-8x7b", 46_702_792_704),
+    ("mixtral-8x22b", 140_630_071_296), ("deepseek-67b", 67_425_001_472),
+    ("deepseek-coder-33b", 33_342_991_360)])
 def test_specs_and_param_shapes_match_jax(arch, n_params):
     """``input_specs`` at every shape (the decode shapes' caches hold the
     KV leaves) and ``param_shapes`` of the full model: meta tensors with
@@ -410,12 +447,14 @@ def test_steps_prefill_and_serve_match_jax(one_torch_thread, arch, over):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "stablelm-1.6b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "deepseek-coder-33b",
+                                  "mixtral-8x7b"])
 def test_train_cli_refuses_dense_and_hybrid(one_torch_thread, capsys, arch):
     """``--mode lm`` no longer refuses the dense and hybrid families: each
     id trains 2 reduced steps on the CPU and prints the reference's
     ``step    i loss …`` lines, the default arch (internlm2-1.8b) without
-    ``--arch``; an id not ported still raises naming A.10."""
+    ``--arch``; an id not ported (paligemma-3b) still raises naming
+    A.10."""
     from repro_torch.launch import train
 
     pick = [] if arch == "internlm2-1.8b" else ["--arch", arch]
@@ -425,7 +464,7 @@ def test_train_cli_refuses_dense_and_hybrid(one_torch_thread, capsys, arch):
     assert [ln[:15] for ln in lines] == ["step    0 loss ", "step    1 loss "]
     assert all(math.isfinite(float(ln.split()[-1])) for ln in lines)
     with pytest.raises(NotImplementedError, match="A.10"):
-        train.main(["--mode", "lm", "--arch", "deepseek-67b", "--device",
+        train.main(["--mode", "lm", "--arch", "paligemma-3b", "--device",
                     "cpu"])
 
 
