@@ -197,7 +197,12 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    against ``forward_train``; and one reduced ``make_lm_train_step`` step
    of each on both; mixtral under its ``dense_scan`` and under the
    capacity dispatch at a factor that drops, which must drop the same
-   assignments on both (the smallest router gap printed);
+   assignments on both (the smallest router gap printed); and the reduced
+   whisper-large-v3 (2 encoder and 2 decoder layers, 16 frames) from the
+   same parameters, tokens and frames on both: ``forward_train`` and
+   ``prefill`` logits, every cache leaf, the greedy tokens of prefill and
+   then ``decode_step``, prefill + decode against ``forward_train`` on
+   the GPU, and one ``make_lm_train_step`` step;
 17. (after phase 16) the MoE and deepseek LM experts on the card:
    mixtral-8x7b (d 4096, 32 over 8 heads of D 128, window 4096, 8
    experts of F 14336, top-2, ``dense_scan``, vocab 32000, bf16) at full
@@ -214,7 +219,23 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    1-layer float32 first-step gradient check against the plain path);
    and deepseek-67b and deepseek-coder-33b at full width and 2 layers:
    one scoring request each, its fused log-probabilities through the
-   attention kernel against the plain attention on the card.
+   attention kernel against the plain attention on the card;
+18. (after phase 17) whisper-large-v3 at full width and depth (32
+   encoder and 32 decoder layers, d 1280, 20 heads of D 64, vocab 51866,
+   bf16; 1,614,382,080 parameters), one random seeded expert: two
+   scoring requests (``zoo.forward_train`` over 4 × 1024 tokens and the
+   stubbed frontend's 4 × 1500 frames; exactly 96 ``flash_attention``
+   launches each — 32 encoder, 32 causal self-, 32 cross-attentions over
+   the frames), a prefill of 4 × 1024 through ``make_prefill_step`` (96),
+   a greedy decode (batch 2, prompt 16, 16 new: the prefill, 96, then
+   ``make_serve_step``, none), a profiled scoring request; then, after a
+   2 + 2-layer float32 first-step gradient check against the plain path,
+   10 training steps of 4 × 1024 tokens over 4 × 1500 frames through
+   ``make_lm_train_step`` (192 attention launches a step under remat, 96
+   backward; step seconds, tokens/s, peak memory) and a profiled step.
+   Phase 3 holds the attention kernel and its backward at whisper's
+   encoder (S 1500) and cross (1024 over 1500) shapes, bf16 on the
+   tensor cores and the cross shape in float32 on the FFMA route.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -816,8 +837,13 @@ def check_adaln(ops, ref, dev) -> dict:
                 bound_by=main["bound_by"])
 
 
-def _open_pairs(s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs a mask leaves open over one head."""
+def _open_pairs(s: int, causal: bool, window: int,
+                skv: int | None = None) -> int:
+    """(query, key) pairs a mask leaves open over one head (``s`` query
+    rows over ``skv`` keys, ``s`` by default; a mask takes equal
+    lengths)."""
+    if skv is not None and skv != s:
+        return s * skv
     q = np.arange(s)
     lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
     hi = q + 1 if causal else np.full_like(q, s)
@@ -831,7 +857,12 @@ def _open_pairs(s: int, causal: bool, window: int) -> int:
 #: deepseek-coder-33b's (56 over 8: a group of 7), mixtral-8x7b's (32
 #: over 8, its window of 4096 past the request) and mixtral-8x22b's (48
 #: over 8: a group of 6); the first Mixtral case is phase 17's 1 × 8192-
-#: token request, where the window masks
+#: token request, where the window masks; then phase 18's whisper-large-v3
+#: (20 heads of D 64, non-causal): the encoder over 4 × 1500 frames, the
+#: decoder's cross-attention, 4 × 1024 rows over the 1500 frames
+#: (``FLASH_SKV``), the decoder's causal self-attention over its 4 × 1024
+#: tokens, and that cross shape in float32 (the FFMA template, phase 18's
+#: gradient check)
 FLASH_CASES = (
     ("dit_self_attention", 32, 12, 12, 256, 64, False, 0, torch.float32),
     ("mixtral_gqa_swa", 1, 32, 8, 8192, 128, True, 4096, torch.bfloat16),
@@ -841,13 +872,28 @@ FLASH_CASES = (
     ("mixtral_8x7b_scoring", 4, 32, 8, 1024, 128, True, 4096,
      torch.bfloat16),
     ("mixtral_8x22b_group6", 4, 48, 8, 1024, 128, True, 4096,
-     torch.bfloat16))
+     torch.bfloat16),
+    ("whisper_encoder", 4, 20, 20, 1500, 64, False, 0, torch.bfloat16),
+    ("whisper_cross", 4, 20, 20, 1024, 64, False, 0, torch.bfloat16),
+    ("whisper_decoder_causal", 4, 20, 20, 1024, 64, True, 0, torch.bfloat16),
+    ("whisper_cross_f32", 4, 20, 20, 1024, 64, False, 0, torch.float32))
+#: the kv length of a case whose keys are not its queries (the
+#: cross-attention's encoder frames)
+FLASH_SKV = {"whisper_cross": 1500, "whisper_cross_f32": 1500}
 #: the LM paths whose kernels line entries take a phase-3 case's numbers
+#: (whisper's also carry its cross and decoder cases' under ``cross`` and
+#: ``causal``)
 FLASH_PATH_CASES = {"lm_hybrid": "zamba2_causal",
                     "lm_dense": "internlm2_causal_gqa",
                     "lm_moe": "mixtral_gqa_swa",
                     "lm_moe_scoring": "mixtral_8x7b_scoring",
-                    "lm_moe_8x22b": "mixtral_8x22b_group6"}
+                    "lm_moe_8x22b": "mixtral_8x22b_group6",
+                    "lm_audio": "whisper_encoder"}
+#: the whisper paths' other attention cases, forward and backward: the
+#: cross-attention and the decoder's causal self-attention
+FLASH_MORE_CASES = {path: {"cross": "whisper_cross",
+                           "causal": "whisper_decoder_causal"}
+                    for path in ("lm_audio", "lm_train_audio")}
 
 
 def check_flash(ops, ref, dev) -> dict:
@@ -858,10 +904,14 @@ def check_flash(ops, ref, dev) -> dict:
     D 128, window 4096) over S 8192, batch 1, bf16, and the causal bf16
     attention of the LM serving paths (zamba2-2.7b, internlm2-1.8b,
     deepseek-coder-33b's group of 7, mixtral-8x7b, mixtral-8x22b's group
-    of 6) at a 4 × 1024-token request.  Library yardstick:
+    of 6) at a 4 × 1024-token request, and whisper-large-v3's non-causal
+    bf16 encoder (S 1500) and cross-attention (1024 rows over 1500 keys),
+    its causal bf16 decoder self-attention (S 1024) and that cross shape
+    in float32.  Library yardstick:
     ``scaled_dot_product_attention`` on the same inputs (float32 for the
     DiT; the cases with a window with its mask; the causal ones
-    ``is_causal=True, enable_gqa=True``).  Each row names the kernel
+    ``is_causal=True, enable_gqa=True``; the cross ones at their two
+    lengths).  Each row names the kernel
     design that ran (``kernels/flash_attention.py::design``, the
     launcher's rule mirrored, as ``staging_is_vec`` mirrors its 16-byte
     staging rule): the bf16 cases must run the tensor-core kernel,
@@ -875,8 +925,9 @@ def check_flash(ops, ref, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(14)
     rows = []
     for name, b, hq, hkv, s, d, causal, window, dtype in FLASH_CASES:
+        skv = FLASH_SKV.get(name, s)
         q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
-        k, v = (torch.randn(b, s, hkv, d, generator=gen, device=dev)
+        k, v = (torch.randn(b, skv, hkv, d, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
         kw = dict(causal=causal, window=window)
@@ -925,12 +976,13 @@ def check_flash(ops, ref, dev) -> dict:
             print(f"library yardstick unavailable: "
                   f"{str(exc).splitlines()[0]}")
             t_l = None
-        pairs = _open_pairs(s, causal, window) * b * hq
+        pairs = _open_pairs(s, causal, window, skv) * b * hq
         flops = 4.0 * d * pairs
-        nbytes = q.element_size() * d * s * b * (2 * hq + 2 * hkv)
+        nbytes = q.element_size() * d * b * (2 * hq * s + 2 * hkv * skv)
         t_b, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S
                            if dtype == torch.float32 else BF16_FLOP_PER_S)
-        row = dict(case=name, B=b, Hq=hq, Hkv=hkv, S=s, D=d, causal=causal,
+        row = dict(case=name, B=b, Hq=hq, Hkv=hkv, S=s,
+                   **({"Skv": skv} if skv != s else {}), D=d, causal=causal,
                    window=window, dtype=str(dtype).replace("torch.", ""),
                    max_abs_err=err, tol=tol, ms=t_k, wrapper_ms=t_w,
                    plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
@@ -950,8 +1002,22 @@ def check_flash(ops, ref, dev) -> dict:
         torch.cuda.empty_cache()
     case = {r["case"]: r for r in rows}
     return dict(_summary(rows[0], max(r["max_abs_err"] for r in rows)),
-                by_path={path: _summary(case[name], case[name]["max_abs_err"])
-                         for path, name in FLASH_PATH_CASES.items()})
+                by_path=_path_summaries(case, FLASH_PATH_CASES))
+
+
+def _path_summaries(case: dict, path_cases: dict) -> dict:
+    """Each path's kernels line numbers from its phase-3 case; a whisper
+    path's also carry its cross-attention and decoder self-attention
+    cases' under ``cross`` and ``causal``."""
+    out = {}
+    for path, name in path_cases.items():
+        out[path] = _summary(case[name], case[name]["max_abs_err"])
+        for key, more in FLASH_MORE_CASES.get(path, {}).items():
+            row = case[more]
+            out[path][key] = dict(_summary(row, row["max_abs_err"]),
+                                  case=more, S=row["S"],
+                                  Skv=row.get("Skv", row["S"]))
+    return out
 
 
 def _summary(row: dict, max_abs_err: float) -> dict:
@@ -1070,7 +1136,12 @@ BF16_GRAD_REL_TOL = 2.0 ** -7
 #: heads of D 128) and zamba2-2.7b's 9 shared-block applications (32
 #: heads of D 80); phase 17's mixtral-8x7b step of 1 × 8192 tokens (32
 #: over 8, window 4096, its 2 layers) and deepseek-coder-33b's group of 7
-#: at a 4 × 1024-token batch (no training path runs it)
+#: at a 4 × 1024-token batch (no training path runs it); phase 18's
+#: whisper-large-v3 step of 4 × 1024 tokens over 4 × 1500 frames, bf16,
+#: its 32 encoder layers and 32 cross-attentions (1024 rows over the 1500
+#: frames, ``FLASH_SKV``), non-causal, and its 32 causal decoder
+#: self-attentions, and the cross shape in float32 (the FFMA route, phase
+#: 18's gradient check)
 FLASH_BWD_CASES = (
     ("dit_self_attention", TRAIN_BATCH, 12, 12, 256, 64, False, 0,
      torch.float32, 12),
@@ -1079,11 +1150,18 @@ FLASH_BWD_CASES = (
     ("zamba2_causal", 4, 32, 32, 1024, 80, True, 0, torch.bfloat16, 9),
     ("mixtral_gqa_swa", 1, 32, 8, 8192, 128, True, 4096, torch.bfloat16, 2),
     ("deepseek_coder_group7", 4, 56, 8, 1024, 128, True, 0, torch.bfloat16,
+     None),
+    ("whisper_encoder", 4, 20, 20, 1500, 64, False, 0, torch.bfloat16, 32),
+    ("whisper_cross", 4, 20, 20, 1024, 64, False, 0, torch.bfloat16, 32),
+    ("whisper_decoder_causal", 4, 20, 20, 1024, 64, True, 0, torch.bfloat16,
+     32),
+    ("whisper_cross_f32", 4, 20, 20, 1024, 64, False, 0, torch.float32,
      None))
 #: the LM training paths whose kernels line entries take a case's numbers
 FLASH_BWD_PATH_CASES = {"lm_train_dense": "internlm2_causal_gqa",
                         "lm_train_hybrid": "zamba2_causal",
-                        "lm_train_moe": "mixtral_gqa_swa"}
+                        "lm_train_moe": "mixtral_gqa_swa",
+                        "lm_train_audio": "whisper_encoder"}
 
 
 #: the attention backward's kernels on each route (``bwd_design``), in
@@ -1110,7 +1188,8 @@ def _grid_tail(works, slots: int) -> float:
     return end * slots / sum(works)
 
 
-def _bwd_grid_tails(route, b, hq, hkv, s, d, causal, window=0) -> dict:
+def _bwd_grid_tails(route, b, hq, hkv, s, d, causal, window=0,
+                    skv=None) -> dict:
     """Each tile kernel's grid tail (``_grid_tail``) on 132 SMs, a block's
     time its tile pairs.  FFMA: the tile kernel's grid (b·kv head, key
     tile of 64), key tiles the slow axis, two blocks an SM at D ≤ 64 and
@@ -1118,11 +1197,13 @@ def _bwd_grid_tails(route, b, hq, hkv, s, d, causal, window=0) -> dict:
     dK/dV kernel's grid of the same shape and work, two blocks an SM; the
     dQ kernel's (b·h, query tile of 128), causal tiles last first, one
     block an SM, a block the kv tiles of 64 its rows see (under a window,
-    at most the tiles the window spans)."""
-    nt, nq = -(-s // 64), -(-s // 128)
-    wk = -(-window // 64) + 1 if window else nt
+    at most the tiles the window spans).  ``skv`` keys (``s`` by
+    default) under ``s`` query rows."""
+    skv = s if skv is None else skv
+    nt, nq, nq64 = -(-skv // 64), -(-s // 128), -(-s // 64)
+    wk = -(-window // 64) + 1 if window else nq64
     wq = -(-(128 + window) // 64) if window else nt
-    keys = [hq // hkv * min(nt - kt if causal else nt, wk)
+    keys = [hq // hkv * min(nq64 - kt if causal else nq64, wk)
             for kt in range(nt) for _ in range(b * hkv)]
     if route == "FFMA":
         return {"flash_attention_bwd_tile":
@@ -1162,7 +1243,7 @@ def _plain_bwd(ref, q, k, v, do, *, causal, window):
     kv head's."""
     b, hq, s, _ = q.shape
     hkv = k.shape[1]
-    if b * hq * s * s <= 2 ** 31:
+    if b * hq * s * k.shape[2] <= 2 ** 31:
         return ref.ref_flash_attention_bwd(q, k, v, do, causal=causal,
                                            window=window)
     g = hq // hkv
@@ -1182,15 +1263,19 @@ def check_flash_bwd(ops, ref, dev) -> dict:
     LM training shapes, causal bf16 (within that plus
     ``BF16_GRAD_REL_TOL`` of each gradient's largest), Mixtral's with its
     window of 4096 over S 8192 (the plain version one kv head's group at
-    a time there: ``_plain_bwd``).  Library yardstick: the backward of
-    ``scaled_dot_product_attention`` on the same inputs (the LM shapes
-    ``is_causal``, ``enable_gqa``, bf16; the windowed one with its mask).
+    a time there: ``_plain_bwd``), and whisper-large-v3's non-causal
+    encoder (S 1500) and cross-attention (1024 rows over 1500 keys) and
+    causal decoder self-attention (S 1024) in bf16 and that cross shape in
+    float32.  Library yardstick: the
+    backward of ``scaled_dot_product_attention`` on the same inputs (the
+    LM shapes ``is_causal``, ``enable_gqa``, bf16; the windowed one with
+    its mask; the cross ones at their two lengths).
     Bound: five products a head over the pairs the masks leave open
     (recompute q·kᵀ, dO·vᵀ, Pᵀ·dO, dS·k, dSᵀ·q) at the input dtype's rate
     (``bound_ms``) and at the float32 rate (``bound_ms_f32``), or the
     bytes of q, k, v, o, dO, lse, dq, dk, dv.  Each row names its route
-    (``design``: the LM cases must take ``"wgmma bf16"``, the DiT case
-    ``"FFMA"``), the kernels one call launched with each one's device ms
+    (``design``: the bf16 cases must take ``"wgmma bf16"``, the float32
+    ones ``"FFMA"``), the kernels one call launched with each one's device ms
     (``kernel_ms``, from the profiler; they must be the route's own), the
     float32 scratch, and on the tensor-core route each kernel's registers
     a thread and spill bytes (there must be none).  Returns the DiT
@@ -1208,8 +1293,9 @@ def check_flash_bwd(ops, ref, dev) -> dict:
     rows = []
     for (name, b, hq, hkv, s, d, causal, window, dtype,
          per_step) in FLASH_BWD_CASES:
+        skv = FLASH_SKV.get(name, s)
         q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
-        k, v = (torch.randn(b, s, hkv, d, generator=gen, device=dev)
+        k, v = (torch.randn(b, skv, hkv, d, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         do = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
         q, k, v, do = (a.transpose(1, 2) for a in (q, k, v, do))
@@ -1252,15 +1338,16 @@ def check_flash_bwd(ops, ref, dev) -> dict:
             print(f"library yardstick unavailable: "
                   f"{str(exc).splitlines()[0]}")
             t_l = None
-        pairs = _open_pairs(s, causal, window) * b * hq
+        pairs = _open_pairs(s, causal, window, skv) * b * hq
         flops = 5 * 2.0 * d * pairs
         elt = q.element_size()
-        nbytes = (elt * d * s * b * (4 * hq + 4 * hkv)    # q o dO dq; k v dk dv
-                  + 4 * b * hq * s)                         # lse
+        nbytes = (elt * d * b * (4 * hq * s + 4 * hkv * skv)  # q o dO dq;
+                  + 4 * b * hq * s)               # k v dk dv; lse
         t_b, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S
                            if dtype == torch.float32 else BF16_FLOP_PER_S)
         t_b32, by32 = bound_ms(nbytes, flops)
-        row = dict(case=name, B=b, Hq=hq, Hkv=hkv, S=s, D=d, causal=causal,
+        row = dict(case=name, B=b, Hq=hq, Hkv=hkv, S=s,
+                   **({"Skv": skv} if skv != s else {}), D=d, causal=causal,
                    window=window, dtype=str(dtype).replace("torch.", ""),
                    design=design, kernel_ms=kernel_ms, tc_kernels=tc,
                    scratch_mbytes=4 * bwd_scratch_floats(
@@ -1273,7 +1360,7 @@ def check_flash_bwd(ops, ref, dev) -> dict:
                    tflops=flops / t_k / 1e9,
                    launches_per_training_step=per_step,
                    grid_tail_share=_bwd_grid_tails(design, b, hq, hkv, s, d,
-                                                   causal, window))
+                                                   causal, window, skv))
         row.update(clocks_under(kern))
         print("flash_attention_bwd case " + json.dumps(row))
         if not (finite and bitwise and all(
@@ -1292,8 +1379,7 @@ def check_flash_bwd(ops, ref, dev) -> dict:
         torch.cuda.empty_cache()
     case = {r["case"]: r for r in rows}
     return dict(_summary(rows[0], rows[0]["max_abs_err"]),
-                by_path={path: _summary(case[name], case[name]["max_abs_err"])
-                         for path, name in FLASH_BWD_PATH_CASES.items()})
+                by_path=_path_summaries(case, FLASH_BWD_PATH_CASES))
 
 
 #: the flag-form fuse kernel's cases: (name, objectives); the first is
@@ -3474,11 +3560,14 @@ LONG_SEQ = 8192
 def lm_forward_launches(cfg) -> dict:
     """One forward's (or prefill's) kernel launches: an ``ssd_scan`` per
     mixer, a ``flash_attention`` per attention — each application of the
-    hybrid's shared block, each dense or MoE layer."""
+    hybrid's shared block, each dense or MoE layer, each encoder layer
+    and each decoder layer's self- and cross-attention of whisper."""
     ssd = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
     attn = {"hybrid": cfg.num_layers // max(cfg.attn_every, 1),
             "dense": cfg.num_layers,
-            "moe": cfg.num_layers}.get(cfg.arch_type, 0)
+            "moe": cfg.num_layers,
+            "audio": (cfg.num_encoder_layers or cfg.num_layers)
+            + 2 * cfg.num_layers}.get(cfg.arch_type, 0)
     return {"ssd_scan": ssd, "flash_attention": attn}
 
 
@@ -3743,7 +3832,7 @@ def compare_lm_attention_bf16(ops, ref, dev, arch: str) -> None:
 #: reduction is 4/4, and the GQA path is the one to hold)
 LM_REDUCED = {"mamba2-2.7b": {}, "zamba2-2.7b": {},
               "internlm2-1.8b": dict(num_kv_heads=2),
-              "mixtral-8x7b": dict(num_kv_heads=2)}
+              "mixtral-8x7b": dict(num_kv_heads=2), "whisper-large-v3": {}}
 #: phase 16's MoE runs: the config's ``dense_scan``, and the capacity
 #: dispatch at a factor at which experts overflow (4 × 64 tokens: 64
 #: slots an expert for 128 assignments each on average)
@@ -4016,7 +4105,8 @@ def _plain_attention(q, k, v, *, causal=True, window=0, softmax_scale=None):
 
 #: phases 14 and 17's path name of each LM family's training step
 LM_TRAIN_PATHS = {"ssm": "lm_train", "dense": "lm_train_dense",
-                  "hybrid": "lm_train_hybrid", "moe": "lm_train_moe"}
+                  "hybrid": "lm_train_hybrid", "moe": "lm_train_moe",
+                  "audio": "lm_train_audio"}
 
 
 def lm_train_launches(cfg) -> dict:
@@ -4029,10 +4119,44 @@ def lm_train_launches(cfg) -> dict:
     if cfg.arch_type in ("ssm", "hybrid"):
         out.update(ssd_scan=fwd * cfg.num_layers,
                    ssd_scan_bwd=cfg.num_layers)
-    if cfg.arch_type in ("dense", "hybrid", "moe"):
+    if cfg.arch_type in ("dense", "hybrid", "moe", "audio"):
         attn = (hybrid.num_groups(cfg) if cfg.arch_type == "hybrid"
-                else cfg.num_layers)
+                else lm_forward_launches(cfg)["flash_attention"])
         out.update(flash_attention=fwd * attn, flash_attention_bwd=attn)
+    return out
+
+
+#: a gradient leaf whose plain largest |gradient| is at most this share of
+#: the model's largest is rounding noise around an exact 0 (whisper's key
+#: biases: each adds ``q·b`` to a query row's logits, which the softmax
+#: cancels; 3e-9 of the model's largest at the reduced shapes on the CPU,
+#: against 7.6e-3 for the smallest other leaf of any reduced LM): the
+#: gradient checks hold such a leaf to the model's largest gradient, not
+#: its own
+ZERO_GRAD_SHARE = 2.0 ** -17
+
+
+def grad_scales(want: list) -> tuple[list, int]:
+    """The scale each plain gradient leaf of ``want`` is held to — its own
+    largest |gradient|, or the model's largest where its own is rounding
+    noise (``ZERO_GRAD_SHARE``) — and how many leaves are noise."""
+    own = [w.abs().max().item() for w in want]
+    top = max(own)
+    scales = [top if o <= ZERO_GRAD_SHARE * top else o for o in own]
+    return scales, sum(o <= ZERO_GRAD_SHARE * top for o in own)
+
+
+def lm_train_batch(cfg, gen, batch: int, seq: int, seed: int) -> dict:
+    """``lm_batch`` tokens from ``gen`` on its device; for the audio family
+    also the stubbed frames ``audio_frame_embeddings(seed=seed)``, as
+    ``launch/train.py --mode lm`` draws them."""
+    from repro_torch.data import lm_batch
+    from repro_torch.models.frontend_stubs import audio_frame_embeddings
+
+    out = lm_batch(gen, batch, seq, cfg.vocab_size)
+    if cfg.arch_type == "audio":
+        out["audio_embeds"] = audio_frame_embeddings(cfg, batch, seed=seed,
+                                                     device=gen.device)
     return out
 
 
@@ -4047,8 +4171,10 @@ def _lm_grad_check(ops, dev, cfg) -> None:
     ``LM_GRAD_REL_TOL`` of the plain one's max, and non-zero wherever the
     plain path's is; the kernel path's launches exact; an MoE model's
     smallest router gap printed (a near-tie there could route a token
-    elsewhere on the other path)."""
-    from repro_torch.data import lm_batch
+    elsewhere on the other path).  Whisper: 2 encoder and 2 decoder
+    layers over ``lm_train_batch``'s 1500 frames a row; its key biases,
+    whose exact gradient is 0, against the model's largest gradient
+    (``grad_scales``)."""
     from repro_torch.models import zoo
     from repro_torch.models.layers import MoERecorder
     from repro_torch.training.trainer import value_and_grad
@@ -4058,9 +4184,11 @@ def _lm_grad_check(ops, dev, cfg) -> None:
     c2 = dataclasses.replace(cfg, num_layers=layers,
                              param_dtype=torch.float32,
                              activation_dtype=torch.float32)
+    if cfg.num_encoder_layers:
+        c2 = dataclasses.replace(c2, num_encoder_layers=layers)
     params = zoo.init(c2, torch.Generator(device=dev).manual_seed(64), dev)
-    batch = lm_batch(torch.Generator(device=dev).manual_seed(65),
-                     LM_TRAIN_BATCH, LM_TRAIN_SEQ, c2.vocab_size)
+    batch = lm_train_batch(c2, torch.Generator(device=dev).manual_seed(65),
+                           LM_TRAIN_BATCH, LM_TRAIN_SEQ, 65)
     ops.reset_launches()
     with MoERecorder() as routed:
         (got_loss, _), got = value_and_grad(
@@ -4074,17 +4202,20 @@ def _lm_grad_check(ops, dev, cfg) -> None:
     finally:
         ops.ssd_scan, ops.flash_attention = saved
     worst, dead = 0.0, []
-    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
-        top = w.abs().max().item()
-        if top > 0:
-            worst = max(worst, (g - w).abs().max().item() / top)
-            if g.abs().max().item() == 0.0:
-                dead.append(i)
-    row = dict(arch=cfg.name, layers=layers, d_model=c2.d_model,
+    scales, noise = grad_scales(tree_leaves(want))
+    for i, (g, w, top) in enumerate(zip(tree_leaves(got), tree_leaves(want),
+                                        scales)):
+        worst = max(worst, (g - w).abs().max().item() / top)
+        if w.abs().max().item() > 0 and g.abs().max().item() == 0.0:
+            dead.append(i)
+    row = dict(arch=cfg.name, layers=layers,
+               **({"encoder_layers": c2.num_encoder_layers}
+                  if c2.num_encoder_layers else {}), d_model=c2.d_model,
                dtype="float32", batch=LM_TRAIN_BATCH, tokens=LM_TRAIN_SEQ,
                loss_kernels=got_loss.item(), loss_plain=want_loss.item(),
                leaves=len(tree_leaves(got)), worst_leaf_rel_err=worst,
                tol=LM_GRAD_REL_TOL, leaves_without_gradient=dead,
+               noise_leaves=noise,
                launches=launches, min_router_gap=routed.min_gap)
     print("lm_train first-step gradients kernels vs plain "
           + json.dumps(row))
@@ -4116,7 +4247,6 @@ def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b", layers: int = 0,
     the peak device memory (under 80 GB) and the MoE aux loss printed;
     then one more step under the profiler.  First, ``_lm_grad_check``."""
     from repro_torch.configs import get_config
-    from repro_torch.data import lm_batch
     from repro_torch.models import zoo
     from repro_torch.training import AdamWConfig, adamw_init
     from repro_torch.training.trainer import make_lm_train_step
@@ -4137,8 +4267,8 @@ def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b", layers: int = 0,
     step = make_lm_train_step(cfg, AdamWConfig(learning_rate=LM_TRAIN_LR,
                                                warmup_steps=5))
     gen = torch.Generator(device=dev).manual_seed(62)
-    fixed = lm_batch(torch.Generator(device=dev).manual_seed(63), batch,
-                     seq, cfg.vocab_size)
+    fixed = lm_train_batch(cfg, torch.Generator(device=dev).manual_seed(63),
+                           batch, seq, 63)
 
     def fixed_loss():
         with torch.no_grad():
@@ -4150,7 +4280,7 @@ def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b", layers: int = 0,
     losses, secs, grad_norms, aux = [], [], [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(LM_TRAIN_STEPS):
-        tb = lm_batch(gen, batch, seq, cfg.vocab_size)
+        tb = lm_train_batch(cfg, gen, batch, seq, 100 + i)
         _sync(dev)
         ops.reset_launches()
         t = time.perf_counter()
@@ -4210,11 +4340,10 @@ def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b",
     heads over 2 kv heads) on the GPU (scan and attention kernels, their
     backward kernels) and on the CPU (plain versions), from the same
     parameters and batch: the loss, every gradient leaf, and the
-    parameters after the step (``TRAIN_E2E``'s rule); the GPU step's
-    launches exact (``lm_train_launches``).  ``over``: more ``reduced()``
-    overrides (phase 16's MoE runs)."""
+    parameters after the step (``TRAIN_E2E``'s rule; a leaf whose exact
+    gradient is 0 against the model's largest gradient, ``grad_scales``); the GPU step's launches exact (``lm_train_launches``).
+    ``over``: more ``reduced()`` overrides (phase 16's MoE runs)."""
     from repro_torch.configs import get_config
-    from repro_torch.data import lm_batch
     from repro_torch.models import zoo
     from repro_torch.training import AdamWConfig, adamw_init
     from repro_torch.training.trainer import (make_lm_train_step,
@@ -4223,8 +4352,7 @@ def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b",
 
     cfg = get_config(arch).reduced(**LM_REDUCED[arch], **(over or {}))
     params = zoo.init(cfg, torch.Generator().manual_seed(71), "cpu")
-    batch = lm_batch(torch.Generator().manual_seed(72), 4, 64,
-                     cfg.vocab_size)
+    batch = lm_train_batch(cfg, torch.Generator().manual_seed(72), 4, 64, 72)
     opt = AdamWConfig(learning_rate=1e-3, warmup_steps=2)
     out = {}
     for device in (torch.device("cpu"), dev):
@@ -4242,8 +4370,8 @@ def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b",
     lr = opt.learning_rate
     loss_err = abs(lg - lc) / abs(lc)
     grad_err = param_err = param_steps = 0.0
-    for g, w, p, q in zip(gg, gcpu, pg, pc):
-        top = max(w.abs().max().item(), 1e-30)
+    scales, noise = grad_scales(gcpu)
+    for g, w, p, q, top in zip(gg, gcpu, pg, pc, scales):
         grad_err = max(grad_err, (g - w).abs().max().item() / top)
         diff = (p - q).abs()
         clear = w.abs() > TRAIN_E2E["grad"] * top
@@ -4253,7 +4381,7 @@ def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b",
         param_steps = max(param_steps, diff.max().item() / lr)
     row = dict(path=LM_TRAIN_PATHS[cfg.arch_type], arch=arch, **(over or {}),
                loss_rel_err=loss_err,
-               grad_worst_leaf_rel_err=grad_err,
+               grad_worst_leaf_rel_err=grad_err, noise_leaves=noise,
                param_worst_leaf_rel_err_past_lr_over_100=param_err,
                param_max_diff_in_steps=param_steps, tol=TRAIN_E2E,
                gpu_launches=launches)
@@ -4262,6 +4390,280 @@ def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b",
             and param_err <= TRAIN_E2E["param"] and param_steps <= 2.0
             and launches == lm_train_launches(cfg)):
         fail(f"GPU {arch} training step differs from the CPU's: {row}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 16 and 18: whisper-large-v3, the encoder-decoder
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-large-v3"
+#: whisper-large-v3's parameters (the reference's ``jax.eval_shape`` of
+#: ``zoo.init``: 32 encoder and 32 decoder layers, d 1280, vocab 51866)
+WHISPER_PARAMS = 1_614_382_080
+
+#: a whisper request's kernel-name fragments -> category, first match wins
+WHISPER_CATEGORIES = (
+    ("flash_attention", "flash_attention (encoder, causal self- and "
+                        "cross-attention)"),
+    ("gemm", "cuBLAS bf16 GEMM (projections, GELU MLPs, unembedding)"),
+    ("nvjet", "cuBLAS bf16 GEMM (projections, GELU MLPs, unembedding)"),
+    ("xmma", "cuBLAS bf16 GEMM (projections, GELU MLPs, unembedding)"),
+    ("softmax", "log-softmax"),
+    ("reduce", "reductions (LayerNorm statistics, logsumexp)"),
+    ("elementwise", "elementwise (GELU, LayerNorm scale and shift, biases, "
+                    "positions, residuals)"),
+    ("CatArrayBatchedCopy", "copies and concatenations"),
+    ("Memcpy", "copies and concatenations"),
+    ("index", "embedding and position gathers"),
+    ("Memset", "sets"),
+)
+
+
+def whisper_greedy(ops, cfg, params, prompt, frames, new: int):
+    """Greedy decoding as a user drives it: ``launch.steps``'
+    ``make_prefill_step`` over the prompt and frames, its cache copied
+    into room for ``new`` more positions (the prefill's own cache has the
+    prompt's length and a decode ring of it, as the reference's:
+    ROADMAP C), then ``make_serve_step`` (decode_32k: the full cache) one
+    token at a time.  Returns the tokens ``(B, S + new)``, each new
+    token's logits, the prefill's launches and the decode steps' own."""
+    from repro_torch.configs import get_shape
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import zoo
+
+    b, s = prompt.shape
+    ops.reset_launches()
+    logits, cache = make_prefill_step(cfg)(
+        params, {"tokens": prompt, "audio_embeds": frames})
+    prefill_launches = dict(ops.LAUNCHES)
+    cache = _with_room(zoo, cfg, cache, b, s + new, prompt.device)
+    serve = make_serve_step(cfg, get_shape("decode_32k"))
+    ops.reset_launches()
+    toks, seen = [prompt], [logits]
+    for i in range(new):
+        tok = torch.argmax(logits, dim=-1).to(prompt.dtype)[:, None]
+        toks.append(tok)
+        if i + 1 < new:
+            pos = torch.full((b,), s + i, dtype=torch.int32,
+                             device=prompt.device)
+            logits, cache = serve(params, cache, tok, pos)
+            seen.append(logits)
+    return torch.cat(toks, dim=1), seen, prefill_launches, dict(ops.LAUNCHES)
+
+
+def compare_whisper_gpu_cpu(ops, dev) -> None:
+    """Phase 16's whisper rows: the reduced float32 whisper-large-v3 (2
+    encoder and 2 decoder layers, d 256, 16 frames) from the same
+    parameters, tokens and frames on the GPU (attention kernel, the
+    cross-attention at its own kv length) and on the CPU (plain
+    versions): ``forward_train`` logits (4 × 64 tokens), ``prefill``
+    logits and every cache leaf (4 × 48), within ``LM_REL_TOL · max|out|``
+    (slot positions equal); the greedy tokens of prefill and then
+    ``decode_step`` (2 × 8 prompt, 8 new) equal (the smallest top-1/top-2
+    gap printed); exactly 6 attention launches a forward or prefill on the
+    GPU, none a decode step; and on the GPU prefill followed by a decode
+    step reproduces ``forward_train``'s logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.models.frontend_stubs import audio_frame_embeddings
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(WHISPER).reduced(**LM_REDUCED[WHISPER])
+    cpu = zoo.init(cfg, torch.Generator().manual_seed(33), "cpu")
+    card = tree_map(lambda a: a.to(dev), cpu)
+    rng = np.random.default_rng(13)
+    toks = torch.from_numpy(lm_request(cfg.vocab_size, rng, 4, 64)[0])
+    frames = audio_frame_embeddings(cfg, 4, seed=34, device="cpu")
+    failed, rows = [], {"arch": WHISPER}
+    per_forward = lm_forward_launches(cfg)["flash_attention"]
+
+    def check(name, gpu, cpu_out, tol=LM_REL_TOL):
+        err, scale = rel_err(gpu.cpu().float(), cpu_out.float())
+        rows[name] = dict(max_abs_err=err, tol=tol * scale, max_abs=scale)
+        if not (bool(torch.isfinite(gpu).all()) and err <= tol * scale):
+            failed.append(f"{name}: {err} > {tol * scale}")
+
+    def batch(d, n, b=4):
+        return {"tokens": toks[:b, :n].to(d), "audio_embeds": frames[:b].to(d)}
+
+    ops.reset_launches()
+    full = {d: zoo.forward_train(cfg, p, batch(d, 64))[0]
+            for d, p in (("cpu", cpu), (dev, card))}
+    check("forward_logits", full[dev], full["cpu"])
+    pre = {d: zoo.prefill(cfg, p, batch(d, 48))
+           for d, p in (("cpu", cpu), (dev, card))}
+    check("prefill_logits", pre[dev][0], pre["cpu"][0])
+    for key, a in pre[dev][1].items():
+        if key == "pos":
+            if not torch.equal(a.cpu(), pre["cpu"][1][key]):
+                failed.append("prefill cache positions differ")
+        else:
+            check(f"prefill_{key}_cache", a, pre["cpu"][1][key])
+    rows["launches_forward_and_prefill"] = dict(ops.LAUNCHES)
+    if ops.LAUNCHES["flash_attention"] != 2 * per_forward:
+        failed.append(f"reduced GPU run launched {ops.LAUNCHES}")
+    greedy = {d: whisper_greedy(ops, cfg, p, toks[:2, :8].to(d),
+                                frames[:2].to(d), 8)
+              for d, p in (("cpu", cpu), (dev, card))}
+    top2 = torch.topk(torch.stack(greedy["cpu"][1]), 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).min().item()
+    rows["decode_greedy"] = dict(
+        equal=torch.equal(greedy[dev][0].cpu(), greedy["cpu"][0]),
+        min_top2_margin=margin, prefill_launches=greedy[dev][2],
+        decode_launches=greedy[dev][3])
+    if not rows["decode_greedy"]["equal"]:
+        failed.append(f"greedy tokens differ (smallest margin {margin})")
+    if (greedy[dev][2]["flash_attention"] != per_forward
+            or any(greedy[dev][3].values())):
+        failed.append(f"greedy decode launched {greedy[dev][2:]}")
+    # prefill + one decode step == forward_train, on the GPU
+    last, cache = zoo.prefill(cfg, card, batch(dev, 48))
+    step, _ = zoo.decode_step(
+        cfg, card, _with_room(zoo, cfg, cache, 4, 64, dev),
+        toks[:, 48:49].to(dev),
+        torch.full((4,), 48, dtype=torch.int32, device=dev))
+    check("gpu_prefill_vs_forward", last, full[dev][:, 47].cpu())
+    check("gpu_decode_vs_forward", step, full[dev][:, 48].cpu())
+    print("lm reduced gpu-vs-cpu " + json.dumps(rows))
+    if failed:
+        fail(f"reduced {WHISPER} GPU run differs from the CPU run: {failed}")
+
+
+def serve_whisper_full_width(ops, dev) -> dict:
+    """Phase 18: whisper-large-v3 at full width and depth (32 encoder and
+    32 decoder layers, d 1280, 20 heads of D 64, vocab 51866, bf16), one
+    random seeded expert built on the card: two scoring requests
+    (``zoo.forward_train`` over 4 × 1024 decoder tokens and 4 × 1500
+    frames, the token-mean CE of the next tokens; exactly 96
+    ``flash_attention`` launches each: 32 encoder, 32 causal self-, 32
+    cross-attentions), a prefill of 4 × 1024 tokens through
+    ``make_prefill_step`` (96; a cache of ``make_cache``'s leaves at the
+    prompt's length), a greedy decode of batch 2 (prompt 16, 16 new
+    tokens: ``whisper_greedy``, 96 launches in the prefill and none a
+    decode step) and one profiled scoring request; request seconds,
+    tokens/s and device memory.  Returns the launches of its paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import zoo
+    from repro_torch.models.frontend_stubs import audio_frame_embeddings
+    from repro_torch.models.transformer import cross_entropy
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(WHISPER)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(81), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(a.numel() for a in leaves)
+    nbytes = sum(a.numel() * a.element_size() for a in leaves)
+    print(f"full width: {WHISPER}, one expert of {n_params} parameters "
+          f"({nbytes} bytes; {cfg.num_encoder_layers} encoder + "
+          f"{cfg.num_layers} decoder layers, the full depth), built on the "
+          f"card in {t_init:.1f} s; resident "
+          f"{torch.cuda.memory_allocated() - base} bytes")
+    if n_params != WHISPER_PARAMS:
+        fail(f"{WHISPER} has {n_params} parameters, not {WHISPER_PARAMS}")
+    rng = np.random.default_rng(82)
+    m = cfg.encoder_seq_len
+    launches = {}
+
+    def request(b, s, seed):
+        toks, labels = lm_request(cfg.vocab_size, rng, b, s)
+        return ({"tokens": torch.from_numpy(toks).to(dev),
+                 "audio_embeds": audio_frame_embeddings(cfg, b, seed=seed,
+                                                        device=dev)},
+                torch.from_numpy(labels).to(dev))
+
+    for i in range(LM_REQUESTS):
+        batch, labels = request(LM_BATCH, LM_SEQ, 90 + i)
+        _sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, _ = zoo.forward_train(cfg, params, batch)
+        ce = cross_entropy(logits, labels, chunk=cfg.logits_chunk).item()
+        sec = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all()) and math.isfinite(ce)
+        print("lm request " + json.dumps(dict(
+            arch=WHISPER, path="scoring", request=i, batch=LM_BATCH,
+            tokens=LM_SEQ, frames=m, seconds=sec,
+            tokens_per_s=LM_BATCH * LM_SEQ / sec,
+            frames_per_s=LM_BATCH * m / sec, perplexity=math.exp(ce),
+            logits=list(logits.shape), finite=finite,
+            peak_bytes=torch.cuda.max_memory_allocated())))
+        if not (finite and tuple(logits.shape) == (LM_BATCH, LM_SEQ,
+                                                   cfg.vocab_size)):
+            fail(f"{WHISPER} scoring request {i}: logits {logits.shape}, "
+                 f"finite {finite}")
+        launches["lm_audio"] = _check_launches(ops, "lm_audio", 1, cfg)
+        del logits
+
+    batch, _ = request(LM_BATCH, LM_SEQ, 95)
+    _sync(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = make_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(a).all()) for a in (logits, *(
+        a for k, a in cache.items() if k != "pos")))
+    shapes = {k: list(a.shape) for k, a in cache.items()}
+    want = {k: list(a.shape) for k, a in zoo.make_cache(
+        cfg, LM_BATCH, LM_SEQ, torch.device("meta")).items()}
+    print("lm request " + json.dumps(dict(
+        arch=WHISPER, path="prefill", batch=LM_BATCH, tokens=LM_SEQ,
+        frames=m, seconds=sec, tokens_per_s=LM_BATCH * LM_SEQ / sec,
+        finite=finite, logits=list(logits.shape), cache=shapes)))
+    if not (finite and tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
+            and shapes == want and torch.equal(
+                cache["pos"], torch.arange(LM_SEQ, device=dev,
+                                           dtype=torch.int32)
+                .expand(LM_BATCH, -1))):
+        fail(f"{WHISPER} prefill output is not finite logits (B, V) and a "
+             f"full cache {want}")
+    launches["lm_audio_prefill"] = _check_launches(ops, "lm_audio_prefill",
+                                                   1, cfg)
+    del logits, cache
+
+    batch, _ = request(DECODE_BATCH, DECODE_PROMPT, 96)
+    prompt = batch["tokens"]
+    _sync(dev)
+    t0 = time.perf_counter()
+    out, _, pre_launches, _ = whisper_greedy(
+        ops, cfg, params, prompt, batch["audio_embeds"], DECODE_NEW)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    new = out[:, DECODE_PROMPT:]
+    print("lm request " + json.dumps(dict(
+        arch=WHISPER, path="decode_greedy", batch=DECODE_BATCH,
+        prompt=DECODE_PROMPT, new_tokens=DECODE_NEW, seconds=sec,
+        new_tokens_per_s=DECODE_BATCH * DECODE_NEW / sec,
+        shape=list(out.shape), tokens=new.tolist(),
+        prefill_launches=pre_launches)))
+    if (tuple(out.shape) != (DECODE_BATCH, DECODE_PROMPT + DECODE_NEW)
+            or not torch.equal(out[:, :DECODE_PROMPT], prompt)
+            or bool(((new < 0) | (new >= cfg.vocab_size)).any())
+            or pre_launches["flash_attention"]
+            != lm_forward_launches(cfg)["flash_attention"]):
+        fail(f"{WHISPER} greedy decode output is not the prompt and "
+             f"in-vocabulary tokens, or its prefill launched "
+             f"{pre_launches}")
+    # the counts since the decode steps began (whisper_greedy's last reset)
+    launches["lm_audio_decode"] = _check_launches(ops, "lm_audio_decode", 0,
+                                                  cfg)
+
+    batch, _ = request(LM_BATCH, LM_SEQ, 97)
+    profiled(lambda: zoo.forward_train(cfg, params, batch),
+             WHISPER_CATEGORIES, path="lm_audio", arch=WHISPER,
+             batch=LM_BATCH, tokens=LM_SEQ, frames=m)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -4391,7 +4793,9 @@ def main() -> None:
     for over in MOE_RUNS:
         compare_lm_gpu_cpu(ops, dev, "mixtral-8x7b", over)
         compare_lm_train_gpu_cpu(ops, dev, "mixtral-8x7b", over)
-    phase_done("16 (hybrid, dense and MoE LM reduced GPU vs CPU)")
+    compare_whisper_gpu_cpu(ops, dev)
+    compare_lm_train_gpu_cpu(ops, dev, WHISPER)
+    phase_done("16 (hybrid, dense, MoE and whisper LM reduced GPU vs CPU)")
     for arch, layers in MOE_SERVE_LAYERS.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -4412,6 +4816,13 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("17 (MoE and deepseek LM experts)")
+    launches.update(serve_whisper_full_width(ops, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(train_lm_full_width(ops, dev, WHISPER))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("18 (whisper-large-v3 serving and training)")
     run_cli(dev)
     phase_done("9 (serving CLI)")
 

@@ -1,12 +1,13 @@
 """Architecture config registry of the port (``repro.configs``' ids).
 
-The port serves the ``ssm``, ``hybrid``, ``dense`` and ``moe``
-families: ``get_config`` of ``"mamba2-2.7b"``, ``"zamba2-2.7b"``,
-``"internlm2-1.8b"``, ``"stablelm-1.6b"``, ``"deepseek-67b"``,
-``"deepseek-coder-33b"``, ``"mixtral-8x7b"`` and ``"mixtral-8x22b"``.
-The reference's other architecture ids (the VLM and audio ones) raise
-``NotImplementedError`` until their backbones are ported (ROADMAP.md,
-module queue A.10).  The paper's own DiT experts come from
+The port serves the ``ssm``, ``hybrid``, ``dense``, ``moe`` and
+``audio`` families: ``get_config`` of ``"mamba2-2.7b"``,
+``"zamba2-2.7b"``, ``"internlm2-1.8b"``, ``"stablelm-1.6b"``,
+``"deepseek-67b"``, ``"deepseek-coder-33b"``, ``"mixtral-8x7b"``,
+``"mixtral-8x22b"`` and ``"whisper-large-v3"``.  The reference's one
+other architecture id (the VLM ``"paligemma-3b"``) raises
+``NotImplementedError`` until its backbone is ported (ROADMAP.md, module
+queue A.10).  The paper's own DiT experts come from
 ``get_dit_config``.
 """
 
@@ -14,7 +15,8 @@ from __future__ import annotations
 
 from repro_torch.configs import (deepseek_67b, deepseek_coder_33b,
                                  internlm2_1p8b, mamba2_2p7b, mixtral_8x7b,
-                                 mixtral_8x22b, stablelm_1p6b, zamba2_2p7b)
+                                 mixtral_8x22b, stablelm_1p6b,
+                                 whisper_large_v3, zamba2_2p7b)
 from repro_torch.configs.shapes import SHAPES, InputShape, get_shape
 from repro_torch.models.config import (DiTConfig, LMConfig, dit_b2,
                                        dit_xl2, router_b2)
@@ -29,7 +31,7 @@ ARCH_IDS: tuple[str, ...] = (
 _PORTED = {c.name: c for c in (
     mamba2_2p7b.CONFIG, zamba2_2p7b.CONFIG, internlm2_1p8b.CONFIG,
     stablelm_1p6b.CONFIG, deepseek_67b.CONFIG, deepseek_coder_33b.CONFIG,
-    mixtral_8x7b.CONFIG, mixtral_8x22b.CONFIG)}
+    mixtral_8x7b.CONFIG, mixtral_8x22b.CONFIG, whisper_large_v3.CONFIG)}
 
 #: the paper's own diffusion-expert architectures
 DIT_CONFIGS = {"dit-xl2": dit_xl2, "dit-b2": dit_b2, "router-b2": router_b2}

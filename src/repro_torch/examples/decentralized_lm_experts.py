@@ -9,9 +9,11 @@ and next-token distributions are fused in probability space.  Reduced
 configs (vocabulary 64).  Runs the ``ssm`` (mamba2-2.7b), ``hybrid``
 (zamba2-2.7b), ``dense`` (internlm2-1.8b, stablelm-1.6b, deepseek-67b,
 deepseek-coder-33b) and ``moe`` (mixtral-8x7b, mixtral-8x22b) families on
-the card, or with ``--device cpu`` on the kernels' plain versions.  The
-other ids raise ``NotImplementedError`` (ROADMAP.md, module queue
-A.10).
+the card, or with ``--device cpu`` on the kernels' plain versions.  For
+whisper-large-v3, whose experts need the frontend stubs' frames, it
+prints the reference's note and returns (the ensemble passes tokens
+only); paligemma-3b raises ``NotImplementedError`` (ROADMAP.md, module
+queue A.10).
 
   PYTHONPATH=src python -m repro_torch.examples.decentralized_lm_experts \\
       --arch mamba2-2.7b
@@ -67,6 +69,11 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
 
     cfg = get_config(args.arch).reduced(vocab_size=VOCAB)
+    if cfg.arch_type in ("audio", "vlm"):
+        print(f"note: {args.arch} needs frontend stubs; using tokens only "
+              "via the dense path is unsupported here — pick a decoder "
+              "arch for this demo.")
+        return
     step = make_lm_train_step(cfg, AdamWConfig(learning_rate=3e-3,
                                                warmup_steps=2))
     experts = []

@@ -1,10 +1,12 @@
-// Flash attention for Hopper (sm_90a): online-softmax attention over equal
-// q and kv lengths, float32 accumulation, optional causal and
-// sliding-window masks, grouped kv heads.
+// Flash attention for Hopper (sm_90a): online-softmax attention of Sq
+// query rows over Skv keys, float32 accumulation, optional causal and
+// sliding-window masks (equal lengths only), grouped kv heads.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:82
-// `flash_attention` (body `_flash_kernel`, :28).  For each (batch, head)
-// and query row:
+// `flash_attention` (body `_flash_kernel`, :28), which takes one length
+// for q and kv; this one also takes a kv length of its own (an encoder-
+// decoder's cross-attention: Sq decoder rows over Skv encoder frames).
+// For each (batch, head) and query row:
 //
 //   s_j = (q · k_j) · scale,  masked where kpos > qpos (causal) or
 //                              qpos − kpos ≥ window (window > 0)
@@ -66,8 +68,8 @@
 // Only the kv tiles a mask leaves partly open are visited (causal and
 // window bounds per query tile); inside them every masked logit is dropped
 // exactly (probability 0), and a tile no mask touches skips the mask
-// test.  Partial tiles (S not a multiple of the tile) are zero-filled and
-// masked.  The row maximum and sum reduce over the 8 lanes that share a
+// test.  Partial tiles (Sq or Skv not a multiple of the tile) are
+// zero-filled and masked.  The row maximum and sum reduce over the 8 lanes that share a
 // row with shuffles.  The output is acc / max(l, 1e-30), as the TPU kernel
 // finalises it.  expf and IEEE division: no fast-math.
 
@@ -125,9 +127,9 @@ template <typename T, int DMAX, bool VEC>
 __global__ void __launch_bounds__(Config<DMAX>::THREADS, Config<DMAX>::MINB)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       float* __restrict__ lse, int H, int group, int S,
-                       int D, Strides sq, Strides sk, Strides sv, Strides so,
-                       int causal, int window, float scale) {
+                       float* __restrict__ lse, int H, int group, int Sq,
+                       int Skv, int D, Strides sq, Strides sk, Strides sv,
+                       Strides so, int causal, int window, float scale) {
   constexpr int TR = Config<DMAX>::TR, BKV = Config<DMAX>::BKV;
   constexpr int RG = Config<DMAX>::THREADS / 8;  // row groups
   constexpr int BQ = RG * TR, TK = BKV / 8, NC = DMAX / 32;
@@ -151,15 +153,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vh = v + b * sv.b + hk * sv.h;
 
   // kv range this query tile can see: [lo, hi).
-  int hi = S;
-  if (causal) hi = min(S, q0 + BQ);
+  int hi = Skv;
+  if (causal) hi = min(Skv, q0 + BQ);
   int lo = 0;
   if (window > 0) lo = max(0, q0 - (window - 1));
   lo = (lo / BKV) * BKV;
 
-  stage<T, DMAX, VEC, NT>(Qs, pitch, qh, sq.s, q0, BQ, S, D);
-  stage<T, DMAX, VEC, NT>(Ks, pitch, kh, sk.s, lo, BKV, S, D);
-  stage<T, DMAX, VEC, NT>(Vs, pitch, vh, sv.s, lo, BKV, S, D);
+  stage<T, DMAX, VEC, NT>(Qs, pitch, qh, sq.s, q0, BQ, Sq, D);
+  stage<T, DMAX, VEC, NT>(Ks, pitch, kh, sk.s, lo, BKV, Skv, D);
+  stage<T, DMAX, VEC, NT>(Vs, pitch, vh, sv.s, lo, BKV, Skv, D);
   hopper::cp_async_commit();
 
   float m[TR], l[TR], acc[TR][4 * NC];
@@ -179,8 +181,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     if (k0 + BKV < hi) {
       const int nxt = ((t + 1) & 1) * BKV * pitch;
-      stage<T, DMAX, VEC, NT>(Ks + nxt, pitch, kh, sk.s, k0 + BKV, BKV, S, D);
-      stage<T, DMAX, VEC, NT>(Vs + nxt, pitch, vh, sv.s, k0 + BKV, BKV, S, D);
+      stage<T, DMAX, VEC, NT>(Ks + nxt, pitch, kh, sk.s, k0 + BKV, BKV, Skv,
+                              D);
+      stage<T, DMAX, VEC, NT>(Vs + nxt, pitch, vh, sv.s, k0 + BKV, BKV, Skv,
+                              D);
     }
     hopper::cp_async_commit();
     const uint8_t* ks = Ks + (t & 1) * BKV * pitch;
@@ -213,7 +217,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // Online softmax: masked logits are dropped exactly (probability 0).
-    const bool open_tile = !causal && window <= 0 && k0 + BKV <= S;
+    const bool open_tile = !causal && window <= 0 && k0 + BKV <= Skv;
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
       const int qpos = q0 + rg + RG * i;
@@ -222,7 +226,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < TK; ++j) {
         const int kpos = k0 + cg + 8 * j;
         const bool open = open_tile ||
-                          (kpos < S && (!causal || kpos <= qpos) &&
+                          (kpos < Skv && (!causal || kpos <= qpos) &&
                            (window <= 0 || qpos - kpos < window));
         s[i][j] = open ? s[i][j] * scale : -INFINITY;
         tmax = fmaxf(tmax, s[i][j]);
@@ -278,11 +282,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     const int qpos = q0 + rg + RG * i;
-    if (qpos >= S) continue;
+    if (qpos >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     // the row's log-sum-exp of the scaled logits, for the backward only
     if (lse != nullptr && cg == 0)
-      lse[(int64_t)bh * S + qpos] = m[i] + logf(l[i]);
+      lse[(int64_t)bh * Sq + qpos] = m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = 32 * c + 4 * cg;
@@ -324,9 +328,9 @@ bool vec_staging(int esize, const void* q, const void* k, const void* v,
 
 template <typename T, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int H, int Hkv, int S, int D, Strides sq, Strides sk,
-           Strides sv, Strides so, int causal, int window, float scale,
-           bool vec, cudaStream_t stream) {
+           int B, int H, int Hkv, int Sq, int Skv, int D, Strides sq,
+           Strides sk, Strides sv, Strides so, int causal, int window,
+           float scale, bool vec, cudaStream_t stream) {
   using C = Config<DMAX>;
   constexpr int BQ = C::THREADS / 8 * C::TR, BKV = C::BKV;
   const int smem = smem_bytes(D, sizeof(T), BQ, BKV);
@@ -337,30 +341,30 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kern<<<grid, Config<DMAX>::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / Hkv, S, D,
-      sq, sk, sv, so, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / Hkv, Sq, Skv,
+      D, sq, sk, sv, so, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int by_width(const void* q, const void* k, const void* v, void* o, float* lse,
-             int B, int H, int Hkv, int S, int D, Strides sq, Strides sk,
-             Strides sv, Strides so, int causal, int window, float scale,
-             bool vec, cudaStream_t st) {
+             int B, int H, int Hkv, int Sq, int Skv, int D, Strides sq,
+             Strides sk, Strides sv, Strides so, int causal, int window,
+             float scale, bool vec, cudaStream_t st) {
   if (D <= 32)
-    return launch<T, 32>(q, k, v, o, lse, B, H, Hkv, S, D, sq, sk, sv, so,
-                         causal, window, scale, vec, st);
+    return launch<T, 32>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, sq, sk, sv,
+                         so, causal, window, scale, vec, st);
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, lse, B, H, Hkv, S, D, sq, sk, sv, so,
-                         causal, window, scale, vec, st);
+    return launch<T, 64>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, sq, sk, sv,
+                         so, causal, window, scale, vec, st);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, S, D, sq, sk, sv, so,
-                          causal, window, scale, vec, st);
-  return launch<T, 256>(q, k, v, o, lse, B, H, Hkv, S, D, sq, sk, sv, so,
-                        causal, window, scale, vec, st);
+    return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, sq, sk, sv,
+                          so, causal, window, scale, vec, st);
+  return launch<T, 256>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, sq, sk, sv,
+                        so, causal, window, scale, vec, st);
 }
 
 // ---- bf16 forward on the tensor cores ------------------------------------
@@ -443,7 +447,7 @@ template <int D> struct Tile {
 
 // Rows [row0, row0 + n) of one head, K-major in the 128-byte swizzle:
 // 16-byte chunk ch of row r in block ch / 8 (n × 128 bytes each) at
-// sw128(r, ch % 8).  Rows past S are zero-filled.
+// sw128(r, ch % 8).  Rows past S (the head's length) are zero-filled.
 template <int D>
 __device__ __forceinline__ void stage_k_major(uint32_t dst,
                                               const bf16* __restrict__ src,
@@ -487,7 +491,7 @@ flash_attention_bf16_tc_kernel(const bf16* __restrict__ q,
                                const bf16* __restrict__ k,
                                const bf16* __restrict__ v,
                                bf16* __restrict__ o, float* __restrict__ lse,
-                               int H, int group, int S, Strides sq,
+                               int H, int group, int Sq, int Skv, Strides sq,
                                Strides sk, Strides sv, Strides so, int causal,
                                int window, float scale) {
   using T = Tile<D>;
@@ -514,15 +518,15 @@ flash_attention_bf16_tc_kernel(const bf16* __restrict__ q,
   // rows (skipping its softmax measured no faster: the block barrier holds
   // the warpgroup for the other one's diagonal tile anyway).
   const int lo = (window > 0 ? max(0, q0 - (window - 1)) : 0) / BKV * BKV;
-  const int hi = causal ? min(S, q0 + BQ) : S;
+  const int hi = causal ? min(Skv, q0 + BQ) : Skv;
   const int n = (hi - lo + BKV - 1) / BKV;
 
   const auto stage_kv = [&](int t) {
     const uint32_t st = sKV + (t % NST) * T::STAGE_BYTES;
-    stage_k_major<D>(st, kh, sk.s, lo + t * BKV, BKV, S);
-    stage_mn_major<D>(st + T::K_BYTES, vh, sv.s, lo + t * BKV, S);
+    stage_k_major<D>(st, kh, sk.s, lo + t * BKV, BKV, Skv);
+    stage_mn_major<D>(st + T::K_BYTES, vh, sv.s, lo + t * BKV, Skv);
   };
-  stage_k_major<D>(sQ, qh, sq.s, q0, BQ, S);
+  stage_k_major<D>(sQ, qh, sq.s, q0, BQ, Sq);
   stage_kv(0);
   hopper::cp_async_commit();
   if (n > 1) stage_kv(1);
@@ -588,20 +592,22 @@ flash_attention_bf16_tc_kernel(const bf16* __restrict__ q,
   // 4j + e: row r0 + 8·(e / 2), key k0 + 8j + 2·(lane % 4) + e % 2): S
   // becomes P in float32, alpha each row's rescale factor for O.  Only a
   // tile that the diagonal, the window's edge or S cuts runs the mask
-  // test; a masked logit is -inf and gets exp(-inf) = 0 exactly.
+  // test; a masked logit is -inf and gets exp(-inf) = 0 exactly (a key
+  // past Skv too: its zero-filled row gives logit 0, which the test
+  // masks).
   float alpha[2];
   const auto softmax = [&](int t) {
     const int k0 = lo + t * BKV;
 #pragma unroll
     for (int i = 0; i < 32; ++i) sacc[i] *= scale;
-    if (k0 + BKV > S || (causal && k0 + BKV - 1 > qw) ||
+    if (k0 + BKV > Skv || (causal && k0 + BKV - 1 > qw) ||
         (window > 0 && qw + 63 - k0 >= window)) {
       const int c0 = k0 + 2 * (lane & 3);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int qpos = r0 + 8 * ((i >> 1) & 1);
         const int kpos = c0 + 8 * (i >> 2) + (i & 1);
-        if (!(kpos < S && (!causal || kpos <= qpos) &&
+        if (!(kpos < Skv && (!causal || kpos <= qpos) &&
               (window <= 0 || qpos - kpos < window)))
           sacc[i] = -INFINITY;
       }
@@ -678,18 +684,18 @@ flash_attention_bf16_tc_kernel(const bf16* __restrict__ q,
   hopper::wgmma_wait<0>();
   hopper::reg_fence(oacc);
 
-  if (qw >= S) return;
+  if (qw >= Sq) return;
   bf16* oh = o + b * so.b + h * so.h;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float lt = l[hf] + __shfl_xor_sync(0xffffffffu, l[hf], 1);
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     const int qpos = r0 + 8 * hf;
-    if (qpos >= S) continue;
+    if (qpos >= Sq) continue;
     const float denom = fmaxf(lt, 1e-30f);
     // the row's log-sum-exp of the scaled logits, for the backward only
     if (lse != nullptr && (lane & 3) == 0)
-      lse[(int64_t)bh * S + qpos] = m[hf] + logf(lt);
+      lse[(int64_t)bh * Sq + qpos] = m[hf] + logf(lt);
     bf16* row = oh + (int64_t)qpos * so.s + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -702,31 +708,31 @@ flash_attention_bf16_tc_kernel(const bf16* __restrict__ q,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int H, int Hkv, int S, Strides sq, Strides sk, Strides sv,
-           Strides so, int causal, int window, float scale,
+           int B, int H, int Hkv, int Sq, int Skv, Strides sq, Strides sk,
+           Strides sv, Strides so, int causal, int window, float scale,
            cudaStream_t stream) {
   constexpr int smem = Tile<D>::SMEM;
   auto kern = flash_attention_bf16_tc_kernel<D>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, H / Hkv, S,
-      sq, sk, sv, so, causal, window, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, H / Hkv, Sq,
+      Skv, sq, sk, sv, so, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int by_width(const void* q, const void* k, const void* v, void* o, float* lse,
-             int B, int H, int Hkv, int S, int D, Strides sq, Strides sk,
-             Strides sv, Strides so, int causal, int window, float scale,
-             cudaStream_t st) {
+             int B, int H, int Hkv, int Sq, int Skv, int D, Strides sq,
+             Strides sk, Strides sv, Strides so, int causal, int window,
+             float scale, cudaStream_t st) {
   switch (D) {
-#define TC_CASE(W)                                                          \
-  case W:                                                                   \
-    return launch<W>(q, k, v, o, lse, B, H, Hkv, S, sq, sk, sv, so, causal, \
-                     window, scale, st);
+#define TC_CASE(W)                                                        \
+  case W:                                                                 \
+    return launch<W>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, sq, sk, sv, so, \
+                     causal, window, scale, st);
     TC_CASE(16) TC_CASE(32) TC_CASE(48) TC_CASE(64) TC_CASE(80) TC_CASE(96)
     TC_CASE(112) TC_CASE(128)
 #undef TC_CASE
@@ -738,22 +744,25 @@ int by_width(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// q, o: (B, H, S, D); k, v: (B, Hkv, S, D) with H % Hkv == 0; each by
+// q, o: (B, H, Sq, D); k, v: (B, Hkv, Skv, D) with H % Hkv == 0; each by
 // element strides (batch, head, position) with a contiguous last axis;
 // all float32 (bf16 = 0) or all bf16 (bf16 = 1).  D ≤ 256, B·H ≤ 65,535.
-// window ≤ 0 means no window.  lse: null, or a contiguous float32 (B·H, S)
-// that receives each query row's log-sum-exp of its scaled logits (what
-// the backward recomputes the probabilities from).  Launches on `stream`,
+// window ≤ 0 means no window; causal and window take Sq == Skv (the
+// launcher checks it).  lse: null, or a contiguous float32 (B·H, Sq) that
+// receives each query row's log-sum-exp of its scaled logits (what the
+// backward recomputes the probabilities from).  Launches on `stream`,
 // allocates nothing, returns the CUDA error code (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* lse, int bf16, int B, int H,
-                               int Hkv, int S, int D, long long sqb,
+                               int Hkv, int Sq, int Skv, int D, long long sqb,
                                long long sqh, long long sqs, long long skb,
                                long long skh, long long sks, long long svb,
                                long long svh, long long svs, long long sob,
                                long long soh, long long sos, int causal,
                                int window, float scale, void* stream) {
-  if (B == 0 || H == 0 || S == 0 || D == 0) return 0;
+  if (B == 0 || H == 0 || Sq == 0 || D == 0) return 0;
+  if (Skv <= 0 || ((causal || window > 0) && Sq != Skv))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs},
       so{sob, soh, sos};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -763,12 +772,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   // the design by shape: the tensor-core kernel for bf16 at D a multiple
   // of 16 up to 128 with 16-byte staging, else the FFMA template
   if (bf16 && D % 16 == 0 && D <= 128 && vec &&
-      (S + tc::BQ - 1) / tc::BQ <= tc::MAX_TILES)
-    return tc::by_width(q, k, v, o, l, B, H, Hkv, S, D, sq, sk, sv, so,
+      (Sq + tc::BQ - 1) / tc::BQ <= tc::MAX_TILES)
+    return tc::by_width(q, k, v, o, l, B, H, Hkv, Sq, Skv, D, sq, sk, sv, so,
                         causal, window, scale, st);
   if (bf16)
-    return by_width<__nv_bfloat16>(q, k, v, o, l, B, H, Hkv, S, D, sq, sk,
-                                   sv, so, causal, window, scale, vec, st);
-  return by_width<float>(q, k, v, o, l, B, H, Hkv, S, D, sq, sk, sv, so,
+    return by_width<__nv_bfloat16>(q, k, v, o, l, B, H, Hkv, Sq, Skv, D, sq,
+                                   sk, sv, so, causal, window, scale, vec,
+                                   st);
+  return by_width<float>(q, k, v, o, l, B, H, Hkv, Sq, Skv, D, sq, sk, sv, so,
                          causal, window, scale, vec, st);
 }

@@ -1,7 +1,8 @@
 // Flash attention backward for Hopper (sm_90a): the gradients of
 // flash_attention.cu's attention (causal and sliding-window masks,
 // grouped kv heads, float32 or bf16) from its output and row
-// log-sum-exp.  Its own source so that nvcc builds it beside the forward.
+// log-sum-exp, Sq query rows over Skv keys (equal lengths under a mask).
+// Its own source so that nvcc builds it beside the forward.
 
 #include <math.h>
 
@@ -73,7 +74,7 @@
 //   * S = Q·Kᵀ (group 0) and dP = dO·Vᵀ (group 1) are register-tiled:
 //     a thread owns 4 query rows × 8 keys, 12 shared loads per 128 FFMA;
 //   * all 256 threads turn S and dP into P and dS (masked before expf:
-//     rows and keys past S, and masked pairs, give 0), in shared memory
+//     rows past Sq, keys past Skv and masked pairs give 0), in shared memory
 //     at BK + 8 floats a row (conflict-free stores, 16-byte reads);
 //   * dV += Pᵀ·dO (group 0) and dK += dSᵀ·Q (group 1): a thread owns 4
 //     keys × D/8 columns, 3 loads per 32 FFMA at D 64;
@@ -121,13 +122,15 @@ __host__ __device__ inline void q_tiles(int kt, int nqt, int causal,
 }
 
 // Open (key tile, query tile) pairs of one head: the dQ shares per head.
-__host__ __device__ inline long long pair_count(int S, int causal,
+// A mask takes Sq == Skv; without one every key tile sees every query
+// tile.
+__host__ __device__ inline long long pair_count(int Sq, int Skv, int causal,
                                                 int window) {
-  const int nt = (S + BK - 1) / BK;
+  const int nkt = (Skv + BK - 1) / BK, nqt = (Sq + BQ - 1) / BQ;
   long long n = 0;
-  for (int kt = 0; kt < nt; ++kt) {
+  for (int kt = 0; kt < nkt; ++kt) {
     int first, last;
-    q_tiles(kt, nt, causal, window, first, last);
+    q_tiles(kt, nqt, causal, window, first, last);
     n += last - first;
   }
   return n;
@@ -173,13 +176,13 @@ __device__ __forceinline__ void store4(T* dst, const float (&r)[4], int n) {
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(256)
 flash_attention_bwd_delta(const T* __restrict__ o, const T* __restrict__ dO,
-                          float* __restrict__ delta, int H, int S, int D,
+                          float* __restrict__ delta, int H, int Sq, int D,
                           Strides so, Strides sdo, int64_t rows) {
   const int64_t r = (int64_t)blockIdx.x * 16 + threadIdx.x / 16;
   const int lane = threadIdx.x & 15;
   float acc = 0.f;
   if (r < rows) {
-    const int bh = static_cast<int>(r / S), s = static_cast<int>(r % S);
+    const int bh = static_cast<int>(r / Sq), s = static_cast<int>(r % Sq);
     const int b = bh / H, h = bh % H;
     const T* orow = o + b * so.b + h * so.h + (int64_t)s * so.s;
     const T* grow = dO + b * sdo.b + h * sdo.h + (int64_t)s * sdo.s;
@@ -216,8 +219,8 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv,
-                         float* __restrict__ part, int H, int Hkv, int S,
-                         int D, Strides sq, Strides sk, Strides sv,
+                         float* __restrict__ part, int H, int Hkv, int Sq,
+                         int Skv, int D, Strides sq, Strides sk, Strides sv,
                          Strides sdo, Strides sdk, Strides sdv, int causal,
                          int window, float scale) {
   constexpr int NC = DMAX / 32;    // 4-column chunks of a thread's dK/dV row
@@ -236,7 +239,7 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
   const int group = H / Hkv;
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
   const int kt = blockIdx.y, k0 = kt * BK;
-  const int nqt = (S + BQ - 1) / BQ;
+  const int nqt = (Sq + BQ - 1) / BQ;
   int first, last;
   q_tiles(kt, nqt, causal, window, first, last);
   const int per_head = last - first, n_it = group * per_head;
@@ -270,17 +273,17 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
   const auto gh_of = [&](int h) { return dO + b * sdo.b + h * sdo.h; };
 
   stage<T, DMAX, VEC, THREADS>(Ks, pitch, k + b * sk.b + hk * sk.h, sk.s,
-                               k0, BK, S, D);
+                               k0, BK, Skv, D);
   stage<T, DMAX, VEC, THREADS>(Vs, pitch, v + b * sv.b + hk * sv.h, sv.s,
-                               k0, BK, S, D);
+                               k0, BK, Skv, D);
   {
     const int h = head_of(0), q0 = q0_of(0);
-    stage<T, DMAX, VEC, THREADS>(Qs, pitch, qh_of(h), sq.s, q0, BQ, S, D);
-    stage<T, DMAX, VEC, THREADS>(dOs, pitch, gh_of(h), sdo.s, q0, BQ, S, D);
+    stage<T, DMAX, VEC, THREADS>(Qs, pitch, qh_of(h), sq.s, q0, BQ, Sq, D);
+    stage<T, DMAX, VEC, THREADS>(dOs, pitch, gh_of(h), sdo.s, q0, BQ, Sq, D);
     if (tid < BQ) {
-      const int64_t row = (int64_t)(b * H + h) * S + q0 + tid;
-      Ls[tid] = q0 + tid < S ? lse[row] : 0.f;
-      Ds[tid] = q0 + tid < S ? delta[row] : 0.f;
+      const int64_t row = (int64_t)(b * H + h) * Sq + q0 + tid;
+      Ls[tid] = q0 + tid < Sq ? lse[row] : 0.f;
+      Ds[tid] = q0 + tid < Sq ? delta[row] : 0.f;
     }
   }
   hopper::cp_async_commit();
@@ -296,9 +299,9 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
     // indices derived from `it` where they are used, not held: at D 64 a
     // thread has 128 registers)
     float l_next = 0.f, d_next = 0.f;
-    if (it + 1 < n_it && tid < BQ && q0_of(it + 1) + tid < S) {
+    if (it + 1 < n_it && tid < BQ && q0_of(it + 1) + tid < Sq) {
       const int64_t row =
-          (int64_t)(b * H + head_of(it + 1)) * S + q0_of(it + 1) + tid;
+          (int64_t)(b * H + head_of(it + 1)) * Sq + q0_of(it + 1) + tid;
       l_next = lse[row];
       d_next = delta[row];
     }
@@ -354,7 +357,7 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int kpos = k0 + 4 * cq + u;
-        const bool open = qpos < S && kpos < S &&
+        const bool open = qpos < Sq && kpos < Skv &&
                           (!causal || kpos <= qpos) &&
                           (window <= 0 || qpos - kpos < window);
         p[u] = open ? expf(lane4(sv4, u) * scale - L) : 0.f;
@@ -390,9 +393,9 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
     if (it + 1 < n_it) {
       const int h_next = head_of(it + 1), q0_next = q0_of(it + 1);
       stage<T, DMAX, VEC, THREADS>(Qs, pitch, qh_of(h_next), sq.s, q0_next,
-                                   BQ, S, D);
+                                   BQ, Sq, D);
       stage<T, DMAX, VEC, THREADS>(dOs, pitch, gh_of(h_next), sdo.s,
-                                   q0_next, BQ, S, D);
+                                   q0_next, BQ, Sq, D);
       if (tid < BQ) {
         Ls[tid] = l_next;
         Ds[tid] = d_next;
@@ -430,7 +433,7 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = rq + 16 * i;
-      if (q0 + r >= S) continue;
+      if (q0 + r >= Sq) continue;
 #pragma unroll
       for (int m = 0; m < NQ; ++m) {
         const int col = 4 * cq + 64 * m;
@@ -447,7 +450,7 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int key = k0 + 4 * ka + u;
-    if (key >= S) continue;
+    if (key >= Skv) continue;
     T* row = oh + (int64_t)key * ss;
 #pragma unroll
     for (int m = 0; m < NC; ++m) {
@@ -467,21 +470,24 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(256)
 flash_attention_bwd_dq_sum(const float* __restrict__ part, T* __restrict__ dq,
-                           int H, int S, int D, int causal, int window,
-                           Strides sdq, float scale, int64_t rows) {
+                           int H, int Sq, int Skv, int D, int causal,
+                           int window, Strides sdq, float scale,
+                           int64_t rows) {
   const int D4 = (D + 3) & ~3, c4 = D4 / 4;
   const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
   if (i >= rows * c4) return;
   const int64_t row = i / c4;
   const int col = static_cast<int>(i % c4) * 4;
-  const int bh = static_cast<int>(row / S), qpos = static_cast<int>(row % S);
-  const int qt = qpos / BQ, nt = (S + BK - 1) / BK;
-  const int64_t BH = rows / S;
+  const int bh = static_cast<int>(row / Sq);
+  const int qpos = static_cast<int>(row % Sq);
+  const int qt = qpos / BQ, nkt = (Skv + BK - 1) / BK;
+  const int nqt = (Sq + BQ - 1) / BQ;
+  const int64_t BH = rows / Sq;
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   int64_t pair0 = 0;
-  for (int kt = 0; kt < nt; ++kt) {
+  for (int kt = 0; kt < nkt; ++kt) {
     int first, last;
-    q_tiles(kt, nt, causal, window, first, last);
+    q_tiles(kt, nqt, causal, window, first, last);
     if (qt >= first && qt < last) {
       const float4 x = *reinterpret_cast<const float4*>(
           part + ((pair0 + qt - first) * BH + bh) * BQ * D4 +
@@ -496,8 +502,9 @@ flash_attention_bwd_dq_sum(const float* __restrict__ part, T* __restrict__ dq,
   store4<T, VEC>(dst, r, D - col);
 }
 
-int64_t partial_floats(int B, int H, int S, int D, int causal, int window) {
-  return pair_count(S, causal, window) * B * H * BQ * ((D + 3) & ~3);
+int64_t partial_floats(int B, int H, int Sq, int Skv, int D, int causal,
+                       int window) {
+  return pair_count(Sq, Skv, causal, window) * B * H * BQ * ((D + 3) & ~3);
 }
 
 // One call's operands and gradients (q, k, v, o, dO; dq, dk, dv), their
@@ -506,7 +513,7 @@ struct Call {
   const void *q, *k, *v, *o, *dO;
   void *dq, *dk, *dv;
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
-  int B, H, Hkv, S, D, causal, window;
+  int B, H, Hkv, Sq, Skv, D, causal, window;
 };
 
 // Every row of a (B, heads, S, ·) view whole chunks of e elements (the
@@ -537,20 +544,20 @@ inline bool tc_route(const Call& c, int bf16) {
          rows_ok(c, c.sdq, c.H, 8) && aligned(c.dq);
 }
 
-// Δ into `delta` (B·H·S floats).
+// Δ into `delta` (B·H·Sq floats).
 template <typename T>
 int launch_delta(const Call& c, float* delta, cudaStream_t stream) {
-  const int64_t rows = (int64_t)c.B * c.H * c.S;
+  const int64_t rows = (int64_t)c.B * c.H * c.Sq;
   const unsigned blocks = static_cast<unsigned>((rows + 15) / 16);
   const T* o = static_cast<const T*>(c.o);
   const T* dO = static_cast<const T*>(c.dO);
   if (c.D % 4 == 0 && rows_ok(c, c.so, c.H, 4) && rows_ok(c, c.sdo, c.H, 4) &&
       aligned(c.o) && aligned(c.dO))
     flash_attention_bwd_delta<T, true><<<blocks, 256, 0, stream>>>(
-        o, dO, delta, c.H, c.S, c.D, c.so, c.sdo, rows);
+        o, dO, delta, c.H, c.Sq, c.D, c.so, c.sdo, rows);
   else
     flash_attention_bwd_delta<T, false><<<blocks, 256, 0, stream>>>(
-        o, dO, delta, c.H, c.S, c.D, c.so, c.sdo, rows);
+        o, dO, delta, c.H, c.Sq, c.D, c.so, c.sdo, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -558,11 +565,12 @@ int launch_delta(const Call& c, float* delta, cudaStream_t stream) {
 template <typename T, int DMAX>
 int launch(const Call& c, const float* lse, float* scratch, float scale,
            cudaStream_t stream) {
-  const int B = c.B, H = c.H, Hkv = c.Hkv, S = c.S, D = c.D;
-  const int nkt = (S + BK - 1) / BK;
-  const int64_t rows = (int64_t)B * H * S;
+  const int B = c.B, H = c.H, Hkv = c.Hkv, Sq = c.Sq, Skv = c.Skv, D = c.D;
+  const int nkt = (Skv + BK - 1) / BK;
+  const int64_t rows = (int64_t)B * H * Sq;
   float* part = scratch;
-  float* delta = scratch + partial_floats(B, H, S, D, c.causal, c.window);
+  float* delta =
+      scratch + partial_floats(B, H, Sq, Skv, D, c.causal, c.window);
   int rc = launch_delta<T>(c, delta, stream);
   if (rc != 0) return rc;
   auto kern = vec_tile(c, sizeof(T))
@@ -576,8 +584,8 @@ int launch(const Call& c, const float* lse, float* scratch, float scale,
   const auto out = [](void* p) { return static_cast<T*>(p); };
   kern<<<dim3(B * Hkv, nkt), THREADS, smem, stream>>>(
       in(c.q), in(c.k), in(c.v), in(c.dO), lse, delta, out(c.dk), out(c.dv),
-      part, H, Hkv, S, D, c.sq, c.sk, c.sv, c.sdo, c.sdk, c.sdv, c.causal,
-      c.window, scale);
+      part, H, Hkv, Sq, Skv, D, c.sq, c.sk, c.sv, c.sdo, c.sdk, c.sdv,
+      c.causal, c.window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
@@ -585,10 +593,12 @@ int launch(const Call& c, const float* lse, float* scratch, float scale,
   const unsigned blocks = static_cast<unsigned>((n4 + 255) / 256);
   if (D % 4 == 0 && rows_ok(c, c.sdq, H, 4) && aligned(c.dq))
     flash_attention_bwd_dq_sum<T, true><<<blocks, 256, 0, stream>>>(
-        part, out(c.dq), H, S, D, c.causal, c.window, c.sdq, scale, rows);
+        part, out(c.dq), H, Sq, Skv, D, c.causal, c.window, c.sdq, scale,
+        rows);
   else
     flash_attention_bwd_dq_sum<T, false><<<blocks, 256, 0, stream>>>(
-        part, out(c.dq), H, S, D, c.causal, c.window, c.sdq, scale, rows);
+        part, out(c.dq), H, Sq, Skv, D, c.causal, c.window, c.sdq, scale,
+        rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -647,11 +657,12 @@ int by_width(const Call& c, const float* lse, float* scratch, float scale,
 //
 // Layout: each staged tile serves both as a K-major operand (D
 // contracted) and as an MN-major one (its rows contracted): `Lay` below.
-// Every copy is a 16-byte cp.async; rows past S are zero-filled, and only
-// tiles that the diagonal, the window's edge or S cuts run the mask test;
-// a masked pair gives P = 0 and dS = 0 exactly.  No wgmma sits under a
-// thread-dependent branch, and each issue is fenced for its registers
-// (the forward's rules: else ptxas serialises every wgmma, C7520).
+// Every copy is a 16-byte cp.async; rows past Sq or Skv are zero-filled,
+// and only tiles that the diagonal, the window's edge or a length cuts run
+// the mask test; a masked pair gives P = 0 and dS = 0 exactly.  No wgmma
+// sits under a thread-dependent branch, and each issue is fenced for its
+// registers (the forward's rules: else ptxas serialises every wgmma,
+// C7520).
 // Registers: the dK/dV kernel holds dK and dV (D/2 each) and Sᵀ and dPᵀ
 // (32 each), which become the two terms of Pᵀ and dSᵀ in place (255 a
 // thread at D 128, no spills: two 128-thread blocks an SM); the dQ kernel
@@ -693,8 +704,8 @@ template <int D> struct Lay {
   static_assert(TILE % 1024 == 0, "1024-byte aligned tiles");
 };
 
-// Rows [row0, row0 + n) of one head into a tile at `dst`; rows past S are
-// zero-filled.  NT: the block's threads.
+// Rows [row0, row0 + n) of one head into a tile at `dst`; rows past S
+// (the head's length) are zero-filled.  NT: the block's threads.
 template <int D, int NT>
 __device__ __forceinline__ void stage_tile(uint32_t dst,
                                            const bf16* __restrict__ src,
@@ -730,9 +741,9 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int n, int kk) {
   return hopper::smem_desc(tile + kk * 16 * W, n * W, 8 * W, Lay<D>::MODE);
 }
 
-__device__ __forceinline__ bool open_pair(int qpos, int kpos, int S,
-                                          int causal, int window) {
-  return qpos < S && kpos < S && (!causal || kpos <= qpos) &&
+__device__ __forceinline__ bool open_pair(int qpos, int kpos, int Sq,
+                                          int Skv, int causal, int window) {
+  return qpos < Sq && kpos < Skv && (!causal || kpos <= qpos) &&
          (window <= 0 || qpos - kpos < window);
 }
 
@@ -760,8 +771,8 @@ flash_attention_bwd_dkdv_wgmma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int S,
-    Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int Sq,
+    int Skv, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
     Strides sdv, int causal, int window, float scale) {
   constexpr int TILE = Lay<D>::TILE, ND = D / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -776,7 +787,7 @@ flash_attention_bwd_dkdv_wgmma(
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
   const int k0 = blockIdx.y * BKEY;
   int first, last;
-  q_tiles(blockIdx.y, (S + BQT - 1) / BQT, causal, window, first, last);
+  q_tiles(blockIdx.y, (Sq + BQT - 1) / BQT, causal, window, first, last);
   const int per_head = last - first, n_it = group * per_head;
   const int tid = threadIdx.x, lane = tid & 31;
   const int kr = k0 + 16 * (tid >> 5) + (lane >> 2);
@@ -789,16 +800,17 @@ flash_attention_bwd_dkdv_wgmma(
   const auto stage_q = [&](int it) {
     const int h = head_of(it), q0 = q0_of(it);
     const uint32_t st = sQ0 + (it % KV_NST) * 2 * TILE;
-    stage_tile<D, KV_THREADS>(st, q + b * sq.b + h * sq.h, sq.s, q0, BQT, S);
+    stage_tile<D, KV_THREADS>(st, q + b * sq.b + h * sq.h, sq.s, q0, BQT,
+                              Sq);
     stage_tile<D, KV_THREADS>(st + TILE, dO + b * sdo.b + h * sdo.h, sdo.s,
-                              q0, BQT, S);
+                              q0, BQT, Sq);
   };
-  // the query tile's lse and Δ for thread tid < BQT (0 past S)
+  // the query tile's lse and Δ for thread tid < BQT (0 past Sq)
   const auto load_ld = [&](int it, float& l, float& d) {
     l = d = 0.f;
     const int qpos = q0_of(it) + tid;
-    if (tid < BQT && qpos < S) {
-      const int64_t row = (int64_t)(b * H + head_of(it)) * S + qpos;
+    if (tid < BQT && qpos < Sq) {
+      const int64_t row = (int64_t)(b * H + head_of(it)) * Sq + qpos;
       l = lse[row];
       d = delta[row];
     }
@@ -811,8 +823,10 @@ flash_attention_bwd_dkdv_wgmma(
     }
   };
 
-  stage_tile<D, KV_THREADS>(sK, k + b * sk.b + hk * sk.h, sk.s, k0, BKEY, S);
-  stage_tile<D, KV_THREADS>(sV, v + b * sv.b + hk * sv.h, sv.s, k0, BKEY, S);
+  stage_tile<D, KV_THREADS>(sK, k + b * sk.b + hk * sk.h, sk.s, k0, BKEY,
+                            Skv);
+  stage_tile<D, KV_THREADS>(sV, v + b * sv.b + hk * sv.h, sv.s, k0, BKEY,
+                            Skv);
   stage_q(0);
   hopper::cp_async_commit();
   {
@@ -864,7 +878,7 @@ flash_attention_bwd_dkdv_wgmma(
     hopper::reg_fence(pacc);
 
     // Pᵀ and dSᵀ in place, each column's lse and Δ from shared memory
-    const bool edge = q0 + BQT > S || k0 + BKEY > S ||
+    const bool edge = q0 + BQT > Sq || k0 + BKEY > Skv ||
                       (causal && k0 + BKEY - 1 > q0) ||
                       (window > 0 && q0 + BQT - 1 - k0 >= window);
 #pragma unroll
@@ -877,7 +891,7 @@ flash_attention_bwd_dkdv_wgmma(
         const int i = 4 * j + e;
         float p = expf(sacc[i] * scale - (e & 1 ? L.y : L.x));
         if (edge && !open_pair(q0 + 8 * j + qc + (e & 1), kr + 8 * (e >> 1),
-                               S, causal, window))
+                               Sq, Skv, causal, window))
           p = 0.f;
         sacc[i] = p;
         pacc[i] = p * (pacc[i] - (e & 1 ? Dl.y : Dl.x));
@@ -921,7 +935,7 @@ flash_attention_bwd_dkdv_wgmma(
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int key = kr + 8 * hf;
-    if (key >= S) continue;
+    if (key >= Skv) continue;
     bf16* rk = dkh + (int64_t)key * sdk.s + qc;
     bf16* rv = dvh + (int64_t)key * sdv.s + qc;
 #pragma unroll
@@ -937,16 +951,21 @@ flash_attention_bwd_dkdv_wgmma(
 
 // Block (b·h, query tile); see the design above.  Accumulator register
 // 4j + e of S, dP: row r0 + 8·(e / 2), key k0 + 8j + kc + e % 2; of dQ:
-// row r0 + 8·(e / 2), column 8j + kc + e % 2.
-template <int D>
+// row r0 + 8·(e / 2), column 8j + kc + e % 2.  EQ: the launch has
+// Sq == Skv (every self-attention), and the kernel keeps one length, so
+// its code is that of a kernel of one length; a second length held over
+// the walk cost this kernel 6 registers and 2–3 % of its time at the LM
+// shapes (NVIDIA H100 80GB HBM3, 700 W).
+template <int D, bool EQ>
 __global__ void __launch_bounds__(Q_THREADS, 1)
 flash_attention_bwd_dq_wgmma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int H, int group, int S, Strides sq, Strides sk,
-    Strides sv, Strides sdo, Strides sdq, int causal, int window,
-    float scale) {
+    bf16* __restrict__ dq, int H, int group, int Sq, int Skv_arg,
+    Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq, int causal,
+    int window, float scale) {
+  const int Skv = EQ ? Sq : Skv_arg;
   constexpr int TILE = Lay<D>::TILE, NO = D / 2;
   constexpr int STAGE = 2 * TILE;     // a kv tile's K and V
   extern __shared__ uint8_t smem_raw[];
@@ -969,29 +988,29 @@ flash_attention_bwd_dq_wgmma(
   // run every tile (a wgmma under a thread-dependent branch serialises
   // them all), the first one's rows all masked in the last causal tile
   const int lo = (window > 0 ? max(0, q0 - (window - 1)) : 0) / BKV * BKV;
-  const int hi = causal ? min(S, q0 + BQ) : S;
+  const int hi = causal ? min(Skv, q0 + BQ) : Skv;
   const int n = (hi - lo + BKV - 1) / BKV;
 
   const auto stage_kv = [&](int t) {
     const uint32_t st = sKV + (t % Q_NST) * STAGE;
-    stage_tile<D, Q_THREADS>(st, kh, sk.s, lo + t * BKV, BKV, S);
-    stage_tile<D, Q_THREADS>(st + TILE, vh, sv.s, lo + t * BKV, BKV, S);
+    stage_tile<D, Q_THREADS>(st, kh, sk.s, lo + t * BKV, BKV, Skv);
+    stage_tile<D, Q_THREADS>(st + TILE, vh, sv.s, lo + t * BKV, BKV, Skv);
   };
-  stage_tile<D, Q_THREADS>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, BQ, S);
+  stage_tile<D, Q_THREADS>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, BQ, Sq);
   stage_tile<D, Q_THREADS>(sdO, dO + b * sdo.b + h * sdo.h, sdo.s, q0, BQ,
-                           S);
+                           Sq);
   stage_kv(0);
   hopper::cp_async_commit();
   if (n > 1) stage_kv(1);
   hopper::cp_async_commit();
 
-  // the thread's two rows' lse and Δ (0 past S)
+  // the thread's two rows' lse and Δ (0 past Sq)
   float L[2], Dl[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = r0 + 8 * hf;
-    L[hf] = r < S ? lse[(int64_t)bh * S + r] : 0.f;
-    Dl[hf] = r < S ? delta[(int64_t)bh * S + r] : 0.f;
+    L[hf] = r < Sq ? lse[(int64_t)bh * Sq + r] : 0.f;
+    Dl[hf] = r < Sq ? delta[(int64_t)bh * Sq + r] : 0.f;
   }
 
   float sacc[32], pacc[32], dqa[NO];
@@ -1049,14 +1068,14 @@ flash_attention_bwd_dq_wgmma(
   // dS = P ∘ (dP − Δ) of tile t into pacc, P = exp(S·scale − lse)
   const auto form_ds = [&](int t) {
     const int k0 = lo + t * BKV;
-    const bool edge = k0 + BKV > S || (causal && k0 + BKV - 1 > qw) ||
+    const bool edge = k0 + BKV > Skv || (causal && k0 + BKV - 1 > qw) ||
                       (window > 0 && qw + 63 - k0 >= window);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int hf = (i >> 1) & 1;
       float p = expf(sacc[i] * scale - L[hf]);
-      if (edge && !open_pair(r0 + 8 * hf, k0 + 8 * (i >> 2) + kc + (i & 1), S,
-                             causal, window))
+      if (edge && !open_pair(r0 + 8 * hf, k0 + 8 * (i >> 2) + kc + (i & 1),
+                             Sq, Skv, causal, window))
         p = 0.f;
       pacc[i] = p * (pacc[i] - Dl[hf]);
     }
@@ -1094,7 +1113,7 @@ flash_attention_bwd_dq_wgmma(
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int qpos = r0 + 8 * hf;
-    if (qpos >= S) continue;
+    if (qpos >= Sq) continue;
     bf16* row = dqh + (int64_t)qpos * sdq.s + kc;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -1116,7 +1135,8 @@ template <int D>
 int launch(const Call& c, const float* lse, const float* delta, float scale,
            cudaStream_t stream) {
   auto kv = flash_attention_bwd_dkdv_wgmma<D>;
-  auto dq = flash_attention_bwd_dq_wgmma<D>;
+  auto dq = c.Sq == c.Skv ? flash_attention_bwd_dq_wgmma<D, true>
+                          : flash_attention_bwd_dq_wgmma<D, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem<D>());
   if (e == cudaSuccess)
@@ -1125,27 +1145,32 @@ int launch(const Call& c, const float* lse, const float* delta, float scale,
   if (e != cudaSuccess) return static_cast<int>(e);
   const auto in = [](const void* p) { return static_cast<const bf16*>(p); };
   const auto out = [](void* p) { return static_cast<bf16*>(p); };
-  kv<<<dim3(c.B * c.Hkv, (c.S + BKEY - 1) / BKEY), KV_THREADS, kv_smem<D>(),
-       stream>>>(in(c.q), in(c.k), in(c.v), in(c.dO), lse, delta, out(c.dk),
-                 out(c.dv), c.H, c.Hkv, c.S, c.sq, c.sk, c.sv, c.sdo, c.sdk,
-                 c.sdv, c.causal, c.window, scale);
+  kv<<<dim3(c.B * c.Hkv, (c.Skv + BKEY - 1) / BKEY), KV_THREADS,
+       kv_smem<D>(), stream>>>(in(c.q), in(c.k), in(c.v), in(c.dO), lse,
+                               delta, out(c.dk), out(c.dv), c.H, c.Hkv, c.Sq,
+                               c.Skv, c.sq, c.sk, c.sv, c.sdo, c.sdk, c.sdv,
+                               c.causal, c.window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dq<<<dim3(c.B * c.H, (c.S + BQ - 1) / BQ), Q_THREADS, q_smem<D>(),
+  dq<<<dim3(c.B * c.H, (c.Sq + BQ - 1) / BQ), Q_THREADS, q_smem<D>(),
        stream>>>(in(c.q), in(c.k), in(c.v), in(c.dO), lse, delta, out(c.dq),
-                 c.H, c.H / c.Hkv, c.S, c.sq, c.sk, c.sv, c.sdo, c.sdq,
-                 c.causal, c.window, scale);
+                 c.H, c.H / c.Hkv, c.Sq, c.Skv, c.sq, c.sk, c.sv, c.sdo,
+                 c.sdq, c.causal, c.window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers a thread, local (spill) bytes and the launch's dynamic shared
-// bytes of the dK/dV (which 0) or dQ (which 1) kernel at D.
+// bytes of the dK/dV (which 0) or dQ kernel at D, the latter for equal
+// lengths (which 1) or Sq ≠ Skv (which 2).
 template <int D>
 int attrs(int which, int* out) {
   cudaFuncAttributes a;
   const cudaError_t e =
-      which ? cudaFuncGetAttributes(&a, flash_attention_bwd_dq_wgmma<D>)
-            : cudaFuncGetAttributes(&a, flash_attention_bwd_dkdv_wgmma<D>);
+      which == 2 ? cudaFuncGetAttributes(&a,
+                                         flash_attention_bwd_dq_wgmma<D, false>)
+      : which    ? cudaFuncGetAttributes(&a,
+                                         flash_attention_bwd_dq_wgmma<D, true>)
+                 : cudaFuncGetAttributes(&a, flash_attention_bwd_dkdv_wgmma<D>);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
   out[2] = which ? q_smem<D>() : kv_smem<D>();
@@ -1181,14 +1206,14 @@ int attrs_by_width(int D, int which, int* out) {
 
 Call make_call(const void* q, const void* k, const void* v, const void* o,
                const void* dO, void* dq, void* dk, void* dv, int B, int H,
-               int Hkv, int S, int D, const long long* strides, int causal,
-               int window) {
+               int Hkv, int Sq, int Skv, int D, const long long* strides,
+               int causal, int window) {
   Strides st[8];
   for (int i = 0; i < 8; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  return Call{q,     k,     v,     o,     dO,    dq, dk, dv, st[0],
-              st[1], st[2], st[3], st[4], st[5], st[6], st[7], B, H,
-              Hkv,   S,     D,     causal, window};
+  return Call{q,     k,     v,     o,     dO,    dq,  dk, dv,     st[0],
+              st[1], st[2], st[3], st[4], st[5], st[6], st[7], B,  H,
+              Hkv,   Sq,    Skv,   D,     causal, window};
 }
 
 }  // namespace bwd
@@ -1196,50 +1221,52 @@ Call make_call(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // Float32 scratch the backward of these operands needs (the arguments
-// of flash_attention_bwd less lse, scratch and stream): Δ (B·H·S) on the
+// of flash_attention_bwd less lse, scratch and stream): Δ (B·H·Sq) on the
 // tensor-core route; on the FFMA route the dQ shares of every open
 // (key tile, query tile) pair of every query head, then Δ.
 extern "C" long long flash_attention_bwd_scratch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, void* dq, void* dk, void* dv, int bf16, int B, int H,
-    int Hkv, int S, int D, const long long* strides, int causal,
+    int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
     int window) {
   const bwd::Call c = bwd::make_call(q, k, v, o, dO, dq, dk, dv, B, H, Hkv,
-                                     S, D, strides, causal, window);
-  const long long delta = (long long)B * H * S;
+                                     Sq, Skv, D, strides, causal, window);
+  const long long delta = (long long)B * H * Sq;
   if (bwd::tc_route(c, bf16)) return delta;
-  return bwd::partial_floats(B, H, S, D, causal, window) + delta;
+  return bwd::partial_floats(B, H, Sq, Skv, D, causal, window) + delta;
 }
 
 // Registers a thread, local (spill) bytes and dynamic shared bytes of the
-// tensor-core route's dK/dV kernel (which 0) or dQ kernel (which 1) at
-// head dim D, into out[0..2].  Returns the CUDA error code.
+// tensor-core route's dK/dV kernel (which 0) or dQ kernel at head dim D,
+// its equal-length instance (which 1) or its Sq ≠ Skv one (which 2), into
+// out[0..2].  Returns the CUDA error code.
 extern "C" int flash_attention_bwd_tc_attrs(int D, int which, int* out) {
   return bwd::tc::attrs_by_width(D, which, out);
 }
 
-// Backward of attention.  q, o, dO, dq: (B, H, S, D); k, v, dk, dv:
-// (B, Hkv, S, D) with H % Hkv == 0; each by element strides (batch, head,
-// position) with a contiguous last axis, in the order q, k, v, o, dO, dq,
-// dk, dv; all float32 (bf16 = 0) or all bf16 (bf16 = 1).  lse: the
-// forward's contiguous float32 (B·H, S) row log-sum-exp; scratch:
+// Backward of attention.  q, o, dO, dq: (B, H, Sq, D); k, v, dk, dv:
+// (B, Hkv, Skv, D) with H % Hkv == 0; each by element strides (batch,
+// head, position) with a contiguous last axis, in the order q, k, v, o,
+// dO, dq, dk, dv; all float32 (bf16 = 0) or all bf16 (bf16 = 1).  lse:
+// the forward's contiguous float32 (B·H, Sq) row log-sum-exp; scratch:
 // flash_attention_bwd_scratch(...) floats, 16-byte aligned.  causal,
-// window as the forward's (window ≤ 0: none).  D ≤ 128, S ≤ 65,535 key
-// tiles of 64.  Launches three kernels on `stream` (the route by shape:
-// see the top of this file), allocates nothing, returns the CUDA error
-// code (0 on success).
+// window as the forward's (window ≤ 0: none; either takes Sq == Skv).
+// D ≤ 128, Skv ≤ 65,535 key tiles of 64.  Launches three kernels on
+// `stream` (the route by shape: see the top of this file), allocates
+// nothing, returns the CUDA error code (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* scratch, void* dq, void* dk,
-    void* dv, int bf16, int B, int H, int Hkv, int S, int D,
+    void* dv, int bf16, int B, int H, int Hkv, int Sq, int Skv, int D,
     const long long* strides, int causal, int window, float scale,
     void* stream) {
-  if (B == 0 || H == 0 || S == 0 || D == 0) return 0;
-  if (D > 128 || Hkv <= 0 || H % Hkv != 0 ||
-      (S + bwd::BK - 1) / bwd::BK > bwd::MAX_KEY_TILES)
+  if (B == 0 || H == 0 || Sq == 0 || D == 0) return 0;
+  if (D > 128 || Hkv <= 0 || H % Hkv != 0 || Skv <= 0 ||
+      (Skv + bwd::BK - 1) / bwd::BK > bwd::MAX_KEY_TILES ||
+      ((causal || window > 0) && Sq != Skv))
     return static_cast<int>(cudaErrorInvalidValue);
   const bwd::Call c = bwd::make_call(q, k, v, o, dO, dq, dk, dv, B, H, Hkv,
-                                     S, D, strides, causal, window);
+                                     Sq, Skv, D, strides, causal, window);
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);

@@ -2,12 +2,15 @@
 and its backward (``csrc/flash_attention_bwd.cu``).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:82``
-(``flash_attention``): online-softmax attention over equal q and kv
-lengths with float32 accumulation, optional causal and sliding-window
-masks and a softmax scale (default ``1/sqrt(D)``), in the reference's
-``(B, H, S, D)`` layout.  k and v may carry fewer heads than q (grouped
-query attention: query head ``h`` reads kv head ``h // (Hq / Hkv)``).
-Any ``S`` works (partial tiles are masked).  Its plain version is
+(``flash_attention``): online-softmax attention with float32
+accumulation, optional causal and sliding-window masks and a softmax
+scale (default ``1/sqrt(D)``), in the reference's ``(B, H, S, D)``
+layout.  k and v may carry fewer heads than q (grouped query attention:
+query head ``h`` reads kv head ``h // (Hq / Hkv)``), and a length of
+their own: ``Sq`` query rows over ``Skv`` keys, the cross-attention of an
+encoder-decoder (the TPU kernel takes one ``S``); a causal or windowed
+call takes ``Sq == Skv`` (its masks compare positions of one sequence).
+Any lengths work (partial tiles are masked).  Its plain version is
 ``kernels.ref.ref_flash_attention``; the model code reaches both through
 ``kernels.ops.flash_attention`` and ``kernels.ops.flash_attention_gqa``.
 
@@ -44,8 +47,8 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_D = 256
-#: largest head dim of the backward, and its longest S (grid y: 65,535
-#: key tiles of 64)
+#: largest head dim of the backward, and its longest kv length (grid y:
+#: 65,535 key tiles of 64)
 BWD_MAX_D = 128
 BWD_MAX_S = 65535 * 64
 _MAX_HEADS = 65535             # CUDA grid y limit on B·H
@@ -103,7 +106,7 @@ def bwd_design(q, k, v, d_out) -> str:
 def _fn():
     fn = _build.load_library("flash_attention").flash_attention
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i] + [ll] * 12 \
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i] + [ll] * 12 \
         + [i, i, ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
@@ -113,7 +116,7 @@ def _fn():
 def _bwd_fn():
     fn = _build.load_library("flash_attention_bwd").flash_attention_bwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 10 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+    fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.POINTER(ctypes.c_longlong),
                                         i, i, ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
@@ -124,7 +127,7 @@ def _bwd_scratch_fn():
     fn = _build.load_library(
         "flash_attention_bwd").flash_attention_bwd_scratch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 8 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+    fn.argtypes = [p] * 8 + [i] * 7 + [ctypes.POINTER(ctypes.c_longlong),
                                        i, i]
     fn.restype = ctypes.c_longlong
     return fn
@@ -142,20 +145,23 @@ def _bwd_operands(q, k, v, out, d_out, grads):
 def bwd_scratch_floats(q, k, v, out, d_out, *, causal: bool = False,
                        window: int = 0) -> int:
     """The float32 scratch ``flash_attention_bwd`` allocates for these
-    CUDA operands, as its route sizes it: ``B·H·S`` (Δ alone) on the
+    CUDA operands, as its route sizes it: ``B·H·Sq`` (Δ alone) on the
     tensor-core route; the open tile pairs' dQ shares and Δ on the FFMA
     route."""
     grads = [torch.empty_like(t, device="meta") for t in (q, k, v)]
     ptrs, strides = _bwd_operands(q, k, v, out, d_out, grads)
-    return _bwd_scratch_fn()(*ptrs, _DTYPES[q.dtype], *q.shape[:2],
-                             k.shape[1], *q.shape[2:], strides, int(causal),
+    b, h, sq, d = q.shape
+    return _bwd_scratch_fn()(*ptrs, _DTYPES[q.dtype], b, h, k.shape[1], sq,
+                             k.shape[2], d, strides, int(causal),
                              int(window))
 
 
-#: the tensor-core backward's two kernels, by ``which`` of
-#: ``flash_attention_bwd_tc_attrs``
+#: the tensor-core backward's kernels, by ``which`` of
+#: ``flash_attention_bwd_tc_attrs``: the dK/dV kernel, and the dQ kernel's
+#: instance for equal q and kv lengths and its instance for ``Sq ≠ Skv``
 BWD_TC_KERNELS = ("flash_attention_bwd_dkdv_wgmma",
-                  "flash_attention_bwd_dq_wgmma")
+                  "flash_attention_bwd_dq_wgmma",
+                  "flash_attention_bwd_dq_wgmma (Sq ≠ Skv)")
 
 
 @functools.cache
@@ -183,22 +189,34 @@ def bwd_tc_attrs(d: int) -> dict:
     return attrs
 
 
+def check_lengths(q, k, *, causal: bool, window: int) -> None:
+    """Refuse what no kernel computes: a causal or windowed call over
+    ``Sq ≠ Skv`` (its masks compare positions of one sequence), and keys
+    of length 0 under queries."""
+    sq, skv = q.shape[2], k.shape[2]
+    if (causal or window) and sq != skv:
+        raise ValueError(f"causal or windowed attention takes equal q and "
+                         f"kv lengths, got Sq {sq} and Skv {skv}")
+    if skv == 0 and sq > 0:
+        raise ValueError(f"{sq} query rows over no keys")
+
+
 def flash_attention(
-    q: torch.Tensor,          # (B, H, S, D)
-    k: torch.Tensor,          # (B, Hkv, S, D)
-    v: torch.Tensor,          # (B, Hkv, S, D)
+    q: torch.Tensor,          # (B, H, Sq, D)
+    k: torch.Tensor,          # (B, Hkv, Skv, D)
+    v: torch.Tensor,          # (B, Hkv, Skv, D)
     *,
     causal: bool = True,
     window: int = 0,
     softmax_scale: float | None = None,
     with_lse: bool = False,
 ):
-    """Launch the kernel on CUDA tensors; returns ``(B, H, S, D)`` in
+    """Launch the kernel on CUDA tensors; returns ``(B, H, Sq, D)`` in
     ``q``'s dtype, laid out in memory as ``q`` is (a transposed
     ``(B, S, H, D)`` view of the DiT's projections gives a transposed
     output, which reshapes back without a copy).  ``with_lse`` also
     returns each query row's log-sum-exp of its scaled logits, float32
-    ``(B, H, S)``, which the backward needs (``(out, lse)``).
+    ``(B, H, Sq)``, which the backward needs (``(out, lse)``).
 
     q, k and v may be any strided views whose last axis is contiguous.
     Raises on anything the kernel does not take, and if the launch fails.
@@ -211,14 +229,15 @@ def flash_attention(
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention operands must share one device")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"q must be (B, H, S, D) and k, v (B, Hkv, S, D), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+        raise ValueError(f"q must be (B, H, Sq, D) and k, v (B, Hkv, Skv, "
+                         f"D), got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, h, s, d = q.shape
-    hkv = k.shape[1]
-    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d):
-        raise ValueError(f"q and kv lengths must be equal: q "
+    hkv, skv = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (b, d):
+        raise ValueError(f"q and kv batch and head dim must be equal: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    check_lengths(q, k, causal=causal, window=window)
     if hkv == 0 or h % hkv:
         raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
     if d > MAX_D:
@@ -238,7 +257,7 @@ def flash_attention(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                None if lse is None else lse.data_ptr(),
-               _DTYPES[q.dtype], b, h, hkv, s, d, *strides, int(causal),
+               _DTYPES[q.dtype], b, h, hkv, s, skv, d, *strides, int(causal),
                int(window), scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
@@ -251,7 +270,7 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = False,
     """Launch the backward on CUDA tensors: ``(dq, dk, dv)`` of attention
     with the forward's mask (``causal``, ``window``; non-causal by
     default), each in its input's dtype and laid out as it is.  q, out,
-    d_out ``(B, H, S, D)``; k, v ``(B, Hkv, S, D)`` with ``H % Hkv == 0``
+    d_out ``(B, H, Sq, D)``; k, v ``(B, Hkv, Skv, D)`` with ``H % Hkv == 0``
     (query head ``h`` reads kv head ``h // (H / Hkv)``; dk and dv sum over
     the query heads of a group).  All float32 or all bf16.  ``out`` and
     ``lse`` are the forward's (``with_lse=True``); ``d_out`` the gradient
@@ -271,28 +290,29 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = False,
     if (q.dim() != 4 or k.dim() != 4 or v.shape != k.shape
             or out.shape != q.shape or d_out.shape != q.shape):
         raise ValueError(f"flash_attention_bwd takes q, out, d_out of one "
-                         f"(B, H, S, D) shape and k, v (B, Hkv, S, D), got "
-                         f"{[tuple(t.shape) for t in ts]}")
+                         f"(B, H, Sq, D) shape and k, v (B, Hkv, Skv, D), "
+                         f"got {[tuple(t.shape) for t in ts]}")
     b, h, s, d = q.shape
-    hkv = k.shape[1]
-    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d):
-        raise ValueError(f"q and kv lengths must be equal: q "
+    hkv, skv = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (b, d):
+        raise ValueError(f"q and kv batch and head dim must be equal: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    check_lengths(q, k, causal=causal, window=window)
     if hkv == 0 or h % hkv:
         raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
     if tuple(lse.shape) != (b, h, s) or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous ({b}, {h}, {s})")
     if d > BWD_MAX_D:
         raise ValueError(f"head dim {d} exceeds the backward's {BWD_MAX_D}")
-    if s > BWD_MAX_S:
-        raise ValueError(f"S {s} exceeds the backward's {BWD_MAX_S}")
+    if skv > BWD_MAX_S:
+        raise ValueError(f"Skv {skv} exceeds the backward's {BWD_MAX_S}")
     if d > 1 and any(t.stride(-1) != 1 for t in ts):
         raise ValueError("q, k, v, out and d_out must have a contiguous "
                          "last axis")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     grads = [torch.empty_like(t) for t in (q, k, v)]   # unit last stride
     ptrs, strides = _bwd_operands(q, k, v, out, d_out, grads)
-    shape = (_DTYPES[q.dtype], b, h, hkv, s, d)
+    shape = (_DTYPES[q.dtype], b, h, hkv, s, skv, d)
     # the route's own float32 scratch: Δ on the tensor-core route, the open
     # tile pairs' dQ shares and Δ on the FFMA route
     scratch = torch.empty(

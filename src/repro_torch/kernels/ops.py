@@ -284,20 +284,22 @@ def _rows_view(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(
-    q: torch.Tensor,          # (B, H, S, D)
-    k: torch.Tensor,          # (B, Hkv, S, D)
-    v: torch.Tensor,          # (B, Hkv, S, D)
+    q: torch.Tensor,          # (B, H, Sq, D)
+    k: torch.Tensor,          # (B, Hkv, Skv, D)
+    v: torch.Tensor,          # (B, Hkv, Skv, D)
     *,
     causal: bool = True,
     window: int = 0,
     softmax_scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention over equal q/kv lengths in the reference's ``(B, H, S, D)``
-    layout: causal and sliding-window masks, softmax scale (default
-    ``1/sqrt(D)``), float32 accumulation, output in ``q``'s dtype.  k and v
-    may carry fewer heads (``Hq % Hkv == 0``; query head ``h`` reads kv head
-    ``h // (Hq/Hkv)``).  Strided views are read without a copy on the card,
-    and the output is laid out as ``q`` is."""
+    """Attention in the reference's ``(B, H, S, D)`` layout: causal and
+    sliding-window masks, softmax scale (default ``1/sqrt(D)``), float32
+    accumulation, output in ``q``'s dtype.  k and v may carry fewer heads
+    (``Hq % Hkv == 0``; query head ``h`` reads kv head ``h // (Hq/Hkv)``)
+    and a length of their own (``Sq`` query rows over ``Skv`` keys: a
+    cross-attention), which a causal or windowed call refuses (the kernel's
+    launcher and the plain version both raise).  Strided views are read without a copy on the card, and the
+    output is laid out as ``q`` is."""
     hq, hkv = q.shape[1], k.shape[1]
     if hkv == 0 or hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv "
@@ -319,14 +321,14 @@ def flash_attention(
 
 def _flash_grad_supported(q, k, v) -> None:
     dtypes = {q.dtype, k.dtype, v.dtype}
-    s, d = q.shape[2], q.shape[3]
+    s, d = k.shape[2], q.shape[3]
     if (len(dtypes) != 1 or q.dtype not in (torch.float32, torch.bfloat16)
             or d > _FLASH_BWD_MAX_D or s > _FLASH_BWD_MAX_S):
         raise NotImplementedError(
             f"the flash_attention backward takes float32 or bf16 q, k, v of "
-            f"one dtype with D ≤ {_FLASH_BWD_MAX_D} and S ≤ "
+            f"one dtype with D ≤ {_FLASH_BWD_MAX_D} and Skv ≤ "
             f"{_FLASH_BWD_MAX_S}; got {q.dtype}, {k.dtype}, {v.dtype}, "
-            f"D {d}, S {s}")
+            f"D {d}, Skv {s}")
 
 
 class _Flash(torch.autograd.Function):
@@ -358,7 +360,7 @@ class _Flash(torch.autograd.Function):
 
 def flash_attention_gqa(q, k, v, *, causal=True, window=0,
                         softmax_scale=None) -> torch.Tensor:
-    """GQA front end: q ``(B, Hq, S, D)``, k/v ``(B, Hkv, S, D)``.  The
+    """GQA front end: q ``(B, Hq, Sq, D)``, k/v ``(B, Hkv, Skv, D)``.  The
     reference repeats kv heads before its MHA kernel; the port's kernel
     indexes kv head ``h // (Hq/Hkv)`` in place (same result, no copy)."""
     return flash_attention(q, k, v, causal=causal, window=window,

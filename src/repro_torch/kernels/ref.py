@@ -129,10 +129,16 @@ def ref_ragged_gemm(
 
 
 def _masked(logits: torch.Tensor, causal: bool, window: int):
-    """``(…, S, S)`` logits with the causal (``kpos ≤ qpos``) and
-    sliding-window (``qpos − kpos < window``) masks at ``-1e30``."""
+    """``(…, Sq, Skv)`` logits with the causal (``kpos ≤ qpos``) and
+    sliding-window (``qpos − kpos < window``) masks at ``-1e30``.  The
+    masks compare positions of one sequence: with either, ``Sq ≠ Skv``
+    raises (an encoder-decoder's cross-attention is unmasked)."""
     if not (causal or window):
         return logits
+    if logits.shape[-2] != logits.shape[-1]:
+        raise ValueError(f"causal or windowed attention takes equal q and "
+                         f"kv lengths, got Sq {logits.shape[-2]} and Skv "
+                         f"{logits.shape[-1]}")
     pos = torch.arange(logits.shape[-1], device=logits.device)
     qpos, kpos = pos[:, None], pos[None, :]
     mask = torch.ones(logits.shape[-2:], dtype=torch.bool,
@@ -145,18 +151,19 @@ def _masked(logits: torch.Tensor, causal: bool, window: int):
 
 
 def ref_flash_attention(
-    q: torch.Tensor,          # (B, H, S, D)
-    k: torch.Tensor,          # (B, H, S, D)
-    v: torch.Tensor,          # (B, H, S, D)
+    q: torch.Tensor,          # (B, H, Sq, D)
+    k: torch.Tensor,          # (B, H, Skv, D)
+    v: torch.Tensor,          # (B, H, Skv, D)
     *,
     causal: bool = True,
     window: int = 0,
     softmax_scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention over equal q/kv lengths: float32 logits ``q·kᵀ·scale``,
-    causal (``kpos ≤ qpos``) and sliding-window (``qpos − kpos < window``)
-    masks at ``-1e30``, a float32 softmax over keys, then ``p·v``; the
-    output in ``q``'s dtype."""
+    """Attention of ``Sq`` query rows over ``Skv`` keys: float32 logits
+    ``q·kᵀ·scale``, causal (``kpos ≤ qpos``) and sliding-window
+    (``qpos − kpos < window``) masks at ``-1e30`` (either takes
+    ``Sq == Skv``), a float32 softmax over keys, then ``p·v``; the output
+    in ``q``'s dtype."""
     d = q.shape[3]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     logits = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) \
@@ -230,10 +237,10 @@ def ref_adaln_fuse_bwd(
 
 
 def ref_flash_attention_bwd(
-    q: torch.Tensor,          # (B, H, S, D)
-    k: torch.Tensor,          # (B, Hkv, S, D)
-    v: torch.Tensor,          # (B, Hkv, S, D)
-    d_out: torch.Tensor,      # (B, H, S, D)
+    q: torch.Tensor,          # (B, H, Sq, D)
+    k: torch.Tensor,          # (B, Hkv, Skv, D)
+    v: torch.Tensor,          # (B, Hkv, Skv, D)
+    d_out: torch.Tensor,      # (B, H, Sq, D)
     *,
     causal: bool = False,
     window: int = 0,
@@ -247,8 +254,8 @@ def ref_flash_attention_bwd(
     ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, dK and dV summed over the
     query heads of each group.  Returns ``(dq, dk, dv)`` float32, dk and
     dv of k's shape."""
-    b, h, s, d = q.shape
-    hkv = k.shape[1]
+    b, h, _, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     g = h // hkv
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     q32, k32, v32 = (a.to(torch.float32) for a in (q, k, v))
@@ -265,7 +272,7 @@ def ref_flash_attention_bwd(
     dq = (ds @ k32) * scale
     dk = (ds.transpose(-1, -2) @ q32) * scale
     if g > 1:
-        dk, dv = (a.reshape(b, hkv, g, s, d).sum(dim=2) for a in (dk, dv))
+        dk, dv = (a.reshape(b, hkv, g, skv, d).sum(dim=2) for a in (dk, dv))
     return dq, dk, dv
 
 

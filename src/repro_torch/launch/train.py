@@ -12,9 +12,12 @@ from_checkpoint_dir`` serves.
 ``--mode lm`` trains one LM expert of ``--arch`` (mamba2-2.7b, the
 hybrid zamba2-2.7b, the dense internlm2-1.8b — the default —,
 stablelm-1.6b, deepseek-67b and deepseek-coder-33b, the MoE mixtral-8x7b
-and mixtral-8x22b; the ids not ported raise ``NotImplementedError``
-naming ROADMAP A.10) on ``lm_batch`` token batches with ``make_lm_train_step``,
-printing each step's loss; reduced unless ``--full``.
+and mixtral-8x22b, the encoder-decoder whisper-large-v3, whose batches
+also take the stubbed frame embeddings ``audio_frame_embeddings(cfg,
+batch, seed=i)``; paligemma-3b, not ported, raises
+``NotImplementedError`` naming ROADMAP A.10) on ``lm_batch`` token
+batches with ``make_lm_train_step``, printing each step's loss; reduced
+unless ``--full``.
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions.
 
@@ -26,6 +29,8 @@ Runs on the card; ``--device cpu`` runs the kernels' plain versions.
       --arch internlm2-1.8b --steps 20 --batch 4 --seq-len 1024 --full
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
       --arch mixtral-8x7b --steps 3 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+      --arch whisper-large-v3 --steps 10 --batch 4 --seq-len 1024 --full
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from repro_torch.data import SyntheticSpec, fit_clusters, lm_batch
 from repro_torch.data.pipeline import ExpertDataStream
 from repro_torch.models import dit as D
 from repro_torch.models import zoo
+from repro_torch.models.frontend_stubs import audio_frame_embeddings
 from repro_torch.training import (AdamWConfig, ExpertTrainer, adamw_init,
                                   expert_metadata, make_lm_train_step,
                                   save_checkpoint)
@@ -102,6 +108,9 @@ def train_lm(args) -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     for i in range(args.steps):
         batch = lm_batch(gen, args.batch, args.seq_len, cfg.vocab_size)
+        if cfg.arch_type == "audio":
+            batch["audio_embeds"] = audio_frame_embeddings(
+                cfg, args.batch, seed=i, device=dev)
         params, opt_state, loss, metrics = step_fn(params, opt_state, batch)
         value = loss.item()  # lint: allow-host-sync — printed
         print(f"step {i:4d} loss {value:.4f}")

@@ -4,8 +4,8 @@
 The reference module imports ``jax.numpy`` for its dtype defaults, so the
 port keeps its own copy of the dataclasses: ``LMConfig`` (the sequence
 backbones of the LM-expert ensemble; the port serves the ``ssm``,
-``hybrid``, ``dense`` and ``moe`` families) and ``DiTConfig`` with the
-canonical paper architectures.
+``hybrid``, ``dense``, ``moe`` and ``audio`` families) and ``DiTConfig``
+with the canonical paper architectures.
 """
 
 from __future__ import annotations
@@ -21,10 +21,12 @@ class LMConfig:
     """Sequence-model backbone config of the LM-expert ensemble.
 
     The port serves and trains ``arch_type`` ``"ssm"`` (Mamba2),
-    ``"hybrid"`` (Zamba2), ``"dense"`` (GQA transformers) and ``"moe"``
+    ``"hybrid"`` (Zamba2), ``"dense"`` (GQA transformers), ``"moe"``
     (the GQA transformer with a top-k routed SwiGLU expert layer in place
-    of its FFN: Mixtral), and keeps the fields those backbones and
-    ``launch.steps`` read; a later backbone adds the fields it needs.  Attention of every backbone runs
+    of its FFN: Mixtral) and ``"audio"`` (Whisper's encoder-decoder over
+    stubbed frame embeddings), and keeps the fields those backbones, the
+    frontend stubs and ``launch.steps`` read; a later backbone adds the
+    fields it needs.  Attention of every backbone runs
     through the flash attention kernel, which computes the reference's
     float32-softmax attention whatever ``attn_chunk`` and
     ``attn_kv_chunk`` (the reference's XLA blockings of the same
@@ -58,6 +60,12 @@ class LMConfig:
     sliding_window: int = 0               # native SWA width, 0 = full
     decode_window: int = 0                # ring-buffer decode window
     rope_theta: float = 10000.0
+    # --- enc-dec (whisper backbone) ---
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0           # 0 -> num_layers
+    encoder_seq_len: int = 1500           # mel-frame embeddings (stub)
+    # --- VLM (paligemma backbone) ---
+    vision_prefix_len: int = 0            # SigLIP patch embeddings (stub)
     # --- numerics ---
     norm_eps: float = 1e-5
     attn_chunk: int = 512
@@ -87,7 +95,8 @@ class LMConfig:
         d_model<=256, at most 4 heads (kv heads at most the heads,
         ``head_dim = d_model // heads``), d_ff<=512, vocab<=512, at most 4
         experts, attention chunks of 64, a shared attention block after
-        every layer."""
+        every layer, 2 encoder layers over at most 16 frames, at most 8
+        vision patches."""
         d = min(self.d_model, 256)
         heads = min(self.num_heads, 4)
         upd: dict[str, Any] = dict(
@@ -102,6 +111,8 @@ class LMConfig:
             if self.sliding_window else 0,
             decode_window=min(self.decode_window, 64)
             if self.decode_window else 0,
+            encoder_seq_len=min(self.encoder_seq_len, 16),
+            vision_prefix_len=min(self.vision_prefix_len, 8),
             attn_chunk=64,
             param_dtype=torch.float32,
             activation_dtype=torch.float32,
@@ -109,6 +120,8 @@ class LMConfig:
         )
         if self.num_experts:
             upd["num_experts"] = min(self.num_experts, 4)
+        if self.num_encoder_layers:
+            upd["num_encoder_layers"] = 2
         if self.ssm_state:
             upd["ssm_state"] = min(self.ssm_state, 16)
             upd["ssm_headdim"] = 32

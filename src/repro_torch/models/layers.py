@@ -15,7 +15,10 @@ attention over a sequence goes through ``flash_attention_gqa``
 cache, is plain torch, as the reference computes it in jnp.  So is the
 routed expert layer ``moe_apply`` (the reference computes it in jnp:
 einsums and a scatter/gather dispatch, outside any Pallas kernel); its
-expert products are ATen GEMMs.
+expert products are ATen GEMMs.  So are Whisper's affine ``layernorm``
+and its GELU MLP (jnp in the reference, outside any Pallas kernel; the
+AdaLN kernel computes ``LN(x)·(1 + γ) + β``, and ``1 + (scale − 1)`` is
+not ``scale`` in float32, so the affine norm stays plain torch).
 """
 
 from __future__ import annotations
@@ -47,6 +50,20 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-6
+              ) -> torch.Tensor:
+    """LayerNorm over the last axis with float32 mean and population
+    variance, ``(x − μ)·rsqrt(var + eps)``, then ``·scale + bias``
+    (``layernorm_init``'s parameters) in float32, cast back to ``x``'s
+    dtype (``repro.models.layers.layernorm``)."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = ((x32 - mu) * torch.rsqrt(var + eps) * params["scale"].to(torch.float32)
+         + params["bias"].to(torch.float32))
+    return y.to(x.dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -369,12 +386,21 @@ def rmsnorm_init(dim: int, *, device, dtype) -> dict:
     return {"scale": torch.ones((dim,), device=device, dtype=dtype)}
 
 
+def layernorm_init(dim: int, *, device, dtype) -> dict:
+    """``layernorm``'s parameters: ``scale`` 1 and ``bias`` 0."""
+    return {"scale": torch.ones((dim,), device=device, dtype=dtype),
+            "bias": torch.zeros((dim,), device=device, dtype=dtype)}
+
+
 def gqa_init(gen, d_model: int, num_heads: int, num_kv_heads: int,
-             head_dim: int, *, device, dtype) -> dict:
+             head_dim: int, *, device, dtype, qkv_bias: bool = False) -> dict:
+    """The q, k, v and output projections; ``qkv_bias`` gives q, k and v a
+    zero bias each (Whisper's), the output projection none."""
     kw = dict(device=device, dtype=dtype)
-    return {"wq": dense_init(gen, d_model, num_heads * head_dim, **kw),
-            "wk": dense_init(gen, d_model, num_kv_heads * head_dim, **kw),
-            "wv": dense_init(gen, d_model, num_kv_heads * head_dim, **kw),
+    mk = dense_init_b if qkv_bias else dense_init
+    return {"wq": mk(gen, d_model, num_heads * head_dim, **kw),
+            "wk": mk(gen, d_model, num_kv_heads * head_dim, **kw),
+            "wv": mk(gen, d_model, num_kv_heads * head_dim, **kw),
             "wo": dense_init(gen, num_heads * head_dim, d_model, **kw)}
 
 
@@ -401,3 +427,10 @@ def swiglu_init(gen, d_model: int, d_ff: int, *, device, dtype) -> dict:
     return {"w_gate": dense_init(gen, d_model, d_ff, **kw),
             "w_up": dense_init(gen, d_model, d_ff, **kw),
             "w_down": dense_init(gen, d_ff, d_model, **kw)}
+
+
+def gelu_mlp_init(gen, d_model: int, d_ff: int, *, device, dtype) -> dict:
+    """``gelu_mlp``'s two dense layers, each with a zero bias."""
+    kw = dict(device=device, dtype=dtype)
+    return {"w1": dense_init_b(gen, d_model, d_ff, **kw),
+            "w2": dense_init_b(gen, d_ff, d_model, **kw)}

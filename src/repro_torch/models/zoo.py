@@ -13,18 +13,19 @@ One interface over the backbone modules:
 ``audio_embeds`` or ``vision_embeds`` for the stubbed-frontend families,
 as in the reference).  The port serves and trains the ``ssm``
 (``models.mamba2``), ``hybrid`` (``models.hybrid``), ``dense`` and
-``moe`` (both ``models.transformer``) families; ``vlm`` and ``audio``
-raise ``NotImplementedError`` (ROADMAP.md, module queue A.10).  ``init`` takes
+``moe`` (both ``models.transformer``) and ``audio`` (``models.encdec``,
+which takes the batch's ``audio_embeds``) families; ``vlm`` raises
+``NotImplementedError`` (ROADMAP.md, module queue A.10).  ``init`` takes
 a ``torch.Generator`` where the reference takes a PRNG key.
 """
 
 from __future__ import annotations
 
-from repro_torch.models import hybrid, mamba2, transformer
+from repro_torch.models import encdec, hybrid, mamba2, transformer
 from repro_torch.models.config import LMConfig
 
 _FAMILY = {"ssm": mamba2, "hybrid": hybrid, "dense": transformer,
-           "moe": transformer}
+           "moe": transformer, "audio": encdec}
 
 
 def backbone(cfg: LMConfig):
@@ -55,11 +56,13 @@ def loss_fn(cfg: LMConfig, params, batch: dict):
 
 
 def forward_train(cfg: LMConfig, params, batch: dict):
-    return backbone(cfg).forward_train(cfg, params, batch["tokens"])
+    return backbone(cfg).forward_train(cfg, params, batch["tokens"],
+                                       **_extra_kwargs(cfg, batch))
 
 
 def prefill(cfg: LMConfig, params, batch: dict):
-    return backbone(cfg).prefill(cfg, params, batch["tokens"])
+    return backbone(cfg).prefill(cfg, params, batch["tokens"],
+                                 **_extra_kwargs(cfg, batch))
 
 
 def make_cache(cfg: LMConfig, batch_size: int, max_len: int, device=None):

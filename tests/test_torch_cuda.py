@@ -615,11 +615,12 @@ def test_flash_attention_tiles_head_dims_and_gqa(cuda, d, s, causal, window,
 
 def _plain_lse(q, k, causal, window, scale):
     """Each query row's float32 log-sum-exp of its scaled, masked logits
-    (the plain version's logits), ``(B, H, S)``."""
+    (the plain version's logits), ``(B, H, Sq)``; ``k`` of ``Skv`` keys
+    (a mask takes ``Sq == Skv``)."""
     s = q.shape[2]
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
     pos = torch.arange(s, device=q.device)
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    mask = torch.ones(s, k.shape[2], dtype=torch.bool, device=q.device)
     if causal:
         mask &= pos[None] <= pos[:, None]
     if window:
@@ -1341,26 +1342,30 @@ BF16_GRAD_REL = 2.0 ** -7
 
 
 def _bwd_check(cuda, b, hq, hkv, s, d, causal, window, dtype, scale=None,
-               offset=False):
+               offset=False, skv=None):
     """The backward kernel against the plain version on (B, S, H, D)
     projections read as (B, H, S, D) views (one element off 16-byte
-    alignment with ``offset``), bitwise repeatable, on the route its
-    shape picks (bf16 at D a multiple of 16 and aligned: the tensor-core
-    kernels; else the FFMA tile kernel); then the same call under
-    autograd through ``ops.flash_attention``: one forward and one
-    backward launch, the direct call's gradients bitwise."""
+    alignment with ``offset``; k and v ``skv`` positions long, ``s`` by
+    default), bitwise repeatable, on the route its shape picks (bf16 at D
+    a multiple of 16 and aligned: the tensor-core kernels; else the FFMA
+    tile kernel); then the same call under autograd through
+    ``ops.flash_attention``: one forward and one backward launch, the
+    direct call's gradients bitwise."""
     from repro_torch.kernels.flash_attention import (bwd_design,
                                                      flash_attention,
                                                      flash_attention_bwd)
 
     gen = torch.Generator(device=cuda).manual_seed(b * hq + s + d + hkv)
 
-    def draw(h, sd=1.0):
-        n, off = b * s * h * d, int(offset)
+    skv = s if skv is None else skv
+
+    def draw(h, sd=1.0, n_pos=s):
+        n, off = b * n_pos * h * d, int(offset)
         base = (sd * torch.randn(n + off, generator=gen, device=cuda)).to(
             dtype)
-        return base[off:].view(b, s, h, d).transpose(1, 2)
-    q, k, v, do = draw(hq), draw(hkv), draw(hkv), draw(hq, 0.1)
+        return base[off:].view(b, n_pos, h, d).transpose(1, 2)
+    q, k, v, do = (draw(hq), draw(hkv, n_pos=skv), draw(hkv, n_pos=skv),
+                   draw(hq, 0.1))
     tc = dtype == torch.bfloat16 and d % 16 == 0 and not offset
     assert bwd_design(q, k, v, do) == ("wgmma bf16" if tc else "FFMA")
     kw = dict(causal=causal, window=window, softmax_scale=scale)
@@ -1557,6 +1562,192 @@ def test_flash_attention_bwd_scratch_is_delta_on_the_tc_route(cuda):
         assert bwd_scratch_floats(q, kv, kv, q, q, causal=True) == b * hq * s
     f = bshd(32, 256, 12, 64, torch.float32)
     assert bwd_scratch_floats(f, f, f, f, f) > 32 * 12 * 256
+
+
+#: (B, Hq, Hkv, Sq, Skv, D) of the cross-attention cases: whisper's
+#: decoder over its 1500 frames (reduced: 24 over 16), more queries than
+#: keys, partial tiles on both lengths, a GQA group, D 80 and D 40 (bf16
+#: on the FFMA template there)
+CROSS = [(2, 4, 4, 24, 16, 64), (1, 3, 3, 200, 70, 64),
+         (2, 4, 2, 129, 1000, 128), (1, 2, 2, 63, 300, 80),
+         (1, 2, 1, 90, 33, 40), (4, 20, 20, 1024, 1500, 64)]
+CROSS_IDS = ["whisper_reduced", "more_queries", "gqa_d128", "d80", "d40",
+             "whisper_cross"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", CROSS, ids=CROSS_IDS)
+def test_flash_attention_cross_lengths_match_plain(cuda, b, hq, hkv, sq, skv,
+                                                   d, dtype):
+    """``Sq`` query rows over ``Skv`` keys (the cross-attention's own kv
+    length), non-causal, on ``(B, S, H, D)`` projections seen as ``(B, H,
+    S, D)``: float32 on the FFMA template, bf16 at D a multiple of 16 on
+    the tensor-core kernel; the output against the plain version and the
+    row log-sum-exp within ``1e-5`` of its largest magnitude."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv + d)
+    q = torch.randn(b, sq, hq, d, generator=gen, device=cuda).to(
+        dtype).transpose(1, 2)
+    k, v = (torch.randn(b, skv, hkv, d, generator=gen, device=cuda)
+            .to(dtype).transpose(1, 2) for _ in range(2))
+    tc = dtype == torch.bfloat16 and d % 16 == 0
+    assert flash_design(q, k, v) == ("wgmma bf16" if tc else "FFMA")
+    ops.reset_launches()
+    got = ops.flash_attention_gqa(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1 and got.shape == q.shape
+    rep = hq // hkv
+    kr, vr = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    _close(got, ref.ref_flash_attention(q, kr, vr, causal=False))
+    again, lse = flash_attention(q, k, v, causal=False, with_lse=True)
+    assert torch.equal(again, got)
+    want = _plain_lse(q, kr, False, 0, d ** -0.5)
+    assert lse.shape == want.shape
+    err = (lse - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", CROSS[:5], ids=CROSS_IDS[:5])
+def test_flash_attention_bwd_kernel_cross_lengths(cuda, b, hq, hkv, sq, skv,
+                                                  d, dtype):
+    """The backward at ``Sq ≠ Skv`` on both routes (float32 and bf16 at D
+    40: the FFMA tile kernel, its dQ shares sized by the two lengths; bf16
+    at D a multiple of 16: the tensor-core dK/dV kernel over the key tiles
+    of ``Skv`` and the dQ kernel over the query tiles of ``Sq``), as
+    ``_bwd_check`` holds it."""
+    _bwd_check(cuda, b, hq, hkv, sq, d, False, 0, dtype, skv=skv)
+
+
+@pytest.mark.parametrize("sq,skv,causal", [(1500, 1500, False),
+                                           (1024, 1500, False),
+                                           (1024, 1024, True)],
+                         ids=["encoder", "cross", "decoder"])
+def test_flash_attention_whisper_bf16_on_wgmma(cuda, sq, skv, causal):
+    """Whisper-large-v3's encoder self-attention (B 4, 20 heads of D 64, S
+    1500: a partial query tile of 128 and a partial key tile of 64 that
+    no causal mask cuts off), its cross-attention (1024 decoder rows over
+    the 1500 frames), both non-causal, and its decoder's causal
+    self-attention (S 1024), bf16: forward and backward on the
+    tensor-core kernels, against the plain version as ``_bwd_check``
+    holds it; under the profiler the backward launches the tensor-core
+    route's three kernels."""
+    from repro_torch.kernels.flash_attention import (bwd_design,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+
+    _bwd_check(cuda, 4, 20, 20, sq, 64, causal, 0, torch.bfloat16, skv=skv)
+    gen = torch.Generator(device=cuda).manual_seed(sq)
+    q, do = (torch.randn(4, sq, 20, 64, generator=gen, device=cuda).to(
+        torch.bfloat16).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(4, skv, 20, 64, generator=gen, device=cuda).to(
+        torch.bfloat16).transpose(1, 2) for _ in range(2))
+    assert flash_design(q, k, v) == bwd_design(q, k, v, do) == "wgmma bf16"
+    out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+    assert _kernels_launched(lambda: flash_attention_bwd(
+        q, k, v, out, lse, do, causal=causal)) == BWD_ROUTES["wgmma bf16"]
+
+
+def test_flash_attention_bwd_scratch_at_cross_lengths(cuda):
+    """The scratch at ``Sq ≠ Skv``: Δ alone, ``B·H·Sq`` floats, on the
+    tensor-core route; on the FFMA route every (key tile of ``Skv``, query
+    tile of ``Sq``) pair's dQ share, ``B·H·64·D`` floats each, and Δ."""
+    from repro_torch.kernels.flash_attention import bwd_scratch_floats
+
+    b, h, sq, skv, d = 2, 4, 100, 300, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.empty(b, sq, h, d, dtype=dtype, device=cuda).transpose(1, 2)
+        kv = torch.empty(b, skv, h, d, dtype=dtype,
+                         device=cuda).transpose(1, 2)
+        pairs = -(-skv // 64) * -(-sq // 64)
+        want = b * h * sq + (0 if dtype == torch.bfloat16
+                             else pairs * b * h * 64 * d)
+        assert bwd_scratch_floats(q, kv, kv, q, q) == want
+
+
+def test_whisper_reduced_on_the_card_matches_the_cpu(cuda):
+    """The reduced float32 whisper-large-v3 (2 encoder and 2 decoder
+    layers, 16 frames) on the card against the CPU run (plain versions),
+    from the same parameters, tokens and frames: ``forward_train`` logits
+    (6 attention launches: 2 encoder, 2 self, 2 cross over the frames),
+    ``prefill`` logits and every cache leaf (6 launches), a ``decode_step``
+    (none), each within ``1e-4 · max|out|``; one ``make_lm_train_step``
+    step: 12 attention launches under remat's recompute, 6 backward
+    launches, the loss within ``1e-4`` and every gradient leaf within
+    ``1e-4`` of its largest — a leaf at rounding level (at most 2⁻¹⁷ of
+    the model's largest gradient: a key projection's bias, whose exact
+    gradient is 0, the softmax cancels ``q·b``) within ``1e-4`` of the
+    model's largest gradient."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("whisper-large-v3").reduced()
+    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=gen)
+    frames = torch.randn(2, cfg.encoder_seq_len, cfg.d_model, generator=gen)
+    card = tree_map(lambda a: a.to(cuda), params)
+
+    def on(dev, n=40, **more):
+        return {"tokens": toks[:, :n].to(dev), "audio_embeds": frames.to(dev),
+                **{k: v.to(dev) for k, v in more.items()}}
+
+    def close(got, want, rel=1e-4):
+        err = (got.detach().cpu() - want.detach()).abs().max().item()
+        assert err <= rel * want.abs().max().item(), err
+
+    want, _ = zoo.forward_train(cfg, params, on("cpu"))
+    ops.reset_launches()
+    got, _ = zoo.forward_train(cfg, card, on(cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 6
+    close(got, want)
+    wl, wc = zoo.prefill(cfg, params, on("cpu", 24))
+    ops.reset_launches()
+    gl, gcache = zoo.prefill(cfg, card, on(cuda, 24))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 6
+    close(gl, wl)
+    for key in wc:
+        if key == "pos":
+            assert torch.equal(gcache[key].cpu(), wc[key])
+        else:
+            close(gcache[key], wc[key])
+    pos = torch.full((2,), 24, dtype=torch.int32)
+    wd, _ = zoo.decode_step(cfg, params, wc, toks[:, 24:25], pos)
+    ops.reset_launches()
+    gd, _ = zoo.decode_step(cfg, card, gcache, toks[:, 24:25].to(cuda),
+                            pos.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 0
+    close(gd, wd)
+
+    rc = dataclasses.replace(cfg, remat=True)
+    labels = {"labels": toks[:, 1:]}
+    (wloss, _), wg = value_and_grad(
+        lambda p: zoo.loss_fn(rc, p, on("cpu", **labels)), params,
+        has_aux=True)
+    ops.reset_launches()
+    (gloss, _), gg = value_and_grad(
+        lambda p: zoo.loss_fn(rc, p, on(cuda, **labels)), card,
+        has_aux=True)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "flash_attention": 12, "flash_attention_bwd": 6}
+    close(gloss, wloss)
+    own = [w.abs().max().item() for w in tree_leaves(wg)]
+    top = max(own)
+    for i, (g, w) in enumerate(zip(tree_leaves(gg), tree_leaves(wg))):
+        err = (g.cpu() - w).abs().max().item()
+        scale = top if own[i] <= 2.0 ** -17 * top else own[i]
+        assert err <= 1e-4 * scale, (i, err)
 
 
 def test_unsupported_grad_calls_raise(cuda):

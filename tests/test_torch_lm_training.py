@@ -648,7 +648,7 @@ def test_train_cli_lm_mode_prints_the_reference_lines(one_torch_thread,
     assert [ln[:15] for ln in lines] == ["step    0 loss ", "step    1 loss "]
     assert all(math.isfinite(float(ln.split()[-1])) for ln in lines)
     with pytest.raises(NotImplementedError, match="A.10"):
-        train.main(["--mode", "lm", "--arch", "whisper-large-v3",
+        train.main(["--mode", "lm", "--arch", "paligemma-3b",
                     "--device", "cpu"])
 
 

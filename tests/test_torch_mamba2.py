@@ -457,5 +457,5 @@ def test_only_the_ssm_family_is_served():
         assert (c.ssm_d_inner, c.ssm_nheads) == (jc.ssm_d_inner,
                                                  jc.ssm_nheads)
     with pytest.raises(NotImplementedError, match="A.10"):
-        zoo.init(dataclasses.replace(cfg, arch_type="audio"),
+        zoo.init(dataclasses.replace(cfg, arch_type="vlm"),
                  torch.Generator(), "cpu")

@@ -432,7 +432,7 @@ def test_train_cli_writes_a_servable_checkpoint(one_torch_thread, tmp_path,
     lat = eng.generate(0, text, 2)
     assert lat.shape == (2, 8, 8, 4) and bool(torch.isfinite(lat).all())
     with pytest.raises(NotImplementedError, match="A.10"):
-        train.main(["--mode", "lm", "--arch", "whisper-large-v3",
+        train.main(["--mode", "lm", "--arch", "paligemma-3b",
                     "--device", "cpu"])
     train.main(["--mode", "lm", "--arch", "mamba2-2.7b", "--steps", "2",
                 "--seq-len", "32", "--batch", "2", "--device", "cpu"])
