@@ -202,7 +202,11 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    same parameters, tokens and frames on both: ``forward_train`` and
    ``prefill`` logits, every cache leaf, the greedy tokens of prefill and
    then ``decode_step``, prefill + decode against ``forward_train`` on
-   the GPU, and one ``make_lm_train_step`` step;
+   the GPU, and one ``make_lm_train_step`` step; and the reduced
+   paligemma-3b (2 layers, d 256, 4 query heads over 1 of D 64, 8
+   patches) the same way — its prefix-LM attention on the kernel — with
+   its ``forward_train`` logits also at ``reduced(head_dim=256)`` (the D
+   256 instances under float32), and one ``make_lm_train_step`` step;
 17. (after phase 16) the MoE and deepseek LM experts on the card:
    mixtral-8x7b (d 4096, 32 over 8 heads of D 128, window 4096, 8
    experts of F 14336, top-2, ``dense_scan``, vocab 32000, bf16) at full
@@ -235,7 +239,23 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    backward; step seconds, tokens/s, peak memory) and a profiled step.
    Phase 3 holds the attention kernel and its backward at whisper's
    encoder (S 1500) and cross (1024 over 1500) shapes, bf16 on the
-   tensor cores and the cross shape in float32 on the FFMA route.
+   tensor cores and the cross shape in float32 on the FFMA route;
+19. (after phase 18) paligemma-3b at full width and depth (18 layers, d
+   2048, 8 query heads over 1 of D 256, d_ff 16384, vocab 257216, bf16;
+   3,039,635,456 parameters), one random seeded expert, as phase 18
+   serves whisper: two scoring requests (``zoo.forward_train`` over 4 ×
+   1024 tokens after the stubbed frontend's 4 × 256 patches; exactly 18
+   ``flash_attention`` launches each, every one under the prefix-LM
+   mask), a prefill through ``make_prefill_step`` (18), a greedy decode
+   (batch 2, 16 + 16; none a decode step), a profiled request; then,
+   after a 2-layer float32 first-step gradient check against the plain
+   path, 10 training steps of 4 × 1024 tokens over 4 × 256 patches (36
+   attention launches a step under remat, 18 backward) and a profiled
+   step.  Phase 3 holds its attention (B 4, S 1280, P 256, bf16) and two
+   more prefix cases — bf16 at D 128 (16 over 8), which the tensor-core
+   kernels would take without the prefix, and float32 at D 64 — forward
+   and backward, every one on the FFMA route (the backward at D 256 on
+   key tiles of 32, its registers and spill bytes printed).
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -838,16 +858,32 @@ def check_adaln(ops, ref, dev) -> dict:
 
 
 def _open_pairs(s: int, causal: bool, window: int,
-                skv: int | None = None) -> int:
+                skv: int | None = None, prefix: int = 0) -> int:
     """(query, key) pairs a mask leaves open over one head (``s`` query
-    rows over ``skv`` keys, ``s`` by default; a mask takes equal
-    lengths)."""
+    rows over ``skv`` keys, ``s`` by default; a mask takes equal lengths;
+    under ``causal`` a ``prefix`` P opens every pair below P)."""
     if skv is not None and skv != s:
         return s * skv
     q = np.arange(s)
     lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
-    hi = q + 1 if causal else np.full_like(q, s)
+    hi = (np.minimum(s, np.maximum(q + 1, prefix)) if causal
+          else np.full_like(q, s))
     return int((hi - lo).sum())
+
+
+def _prefix_mask(s: int, causal: bool, window: int, prefix: int, dev):
+    """The boolean ``(S, S)`` mask of ``ref._masked`` (True: open), for
+    SDPA's ``attn_mask``; ``None`` where a call needs none."""
+    if not (causal or window):
+        return None
+    pos = torch.arange(s, device=dev)
+    mask = torch.ones(s, s, dtype=torch.bool, device=dev)
+    if causal:
+        mask &= (pos[None] <= pos[:, None]) | (
+            (pos[None] < prefix) & (pos[:, None] < prefix))
+    if window:
+        mask &= pos[:, None] - pos[None] < window
+    return mask
 
 
 #: (case, B, Hq, Hkv, S, D, causal, window, dtype) of the attention check;
@@ -862,7 +898,12 @@ def _open_pairs(s: int, causal: bool, window: int,
 #: decoder's cross-attention, 4 × 1024 rows over the 1500 frames
 #: (``FLASH_SKV``), the decoder's causal self-attention over its 4 × 1024
 #: tokens, and that cross shape in float32 (the FFMA template, phase 18's
-#: gradient check)
+#: gradient check); then phase 19's paligemma-3b (8 query heads over 1 of
+#: D 256, causal with the prefix-LM mask over its 256 patches,
+#: ``FLASH_PREFIX``: 4 × (256 + 1024) positions), and two prefix cases that
+#: hold the routing rule — bf16 at D 128 (16 over 8), which the
+#: tensor-core kernel would take without the prefix, and float32 at D 64
+#: — every prefix case on the FFMA template
 FLASH_CASES = (
     ("dit_self_attention", 32, 12, 12, 256, 64, False, 0, torch.float32),
     ("mixtral_gqa_swa", 1, 32, 8, 8192, 128, True, 4096, torch.bfloat16),
@@ -876,10 +917,16 @@ FLASH_CASES = (
     ("whisper_encoder", 4, 20, 20, 1500, 64, False, 0, torch.bfloat16),
     ("whisper_cross", 4, 20, 20, 1024, 64, False, 0, torch.bfloat16),
     ("whisper_decoder_causal", 4, 20, 20, 1024, 64, True, 0, torch.bfloat16),
-    ("whisper_cross_f32", 4, 20, 20, 1024, 64, False, 0, torch.float32))
+    ("whisper_cross_f32", 4, 20, 20, 1024, 64, False, 0, torch.float32),
+    ("paligemma_prefix", 4, 8, 1, 1280, 256, True, 0, torch.bfloat16),
+    ("prefix_gqa_bf16_d128", 4, 16, 8, 1280, 128, True, 0, torch.bfloat16),
+    ("prefix_f32_d64", 4, 8, 1, 1280, 64, True, 0, torch.float32))
 #: the kv length of a case whose keys are not its queries (the
 #: cross-attention's encoder frames)
 FLASH_SKV = {"whisper_cross": 1500, "whisper_cross_f32": 1500}
+#: the prefix-LM mask's P of a case (paligemma's 256 patches)
+FLASH_PREFIX = {"paligemma_prefix": 256, "prefix_gqa_bf16_d128": 256,
+                "prefix_f32_d64": 256}
 #: the LM paths whose kernels line entries take a phase-3 case's numbers
 #: (whisper's also carry its cross and decoder cases' under ``cross`` and
 #: ``causal``)
@@ -888,7 +935,8 @@ FLASH_PATH_CASES = {"lm_hybrid": "zamba2_causal",
                     "lm_moe": "mixtral_gqa_swa",
                     "lm_moe_scoring": "mixtral_8x7b_scoring",
                     "lm_moe_8x22b": "mixtral_8x22b_group6",
-                    "lm_audio": "whisper_encoder"}
+                    "lm_audio": "whisper_encoder",
+                    "lm_vlm": "paligemma_prefix"}
 #: the whisper paths' other attention cases, forward and backward: the
 #: cross-attention and the decoder's causal self-attention
 FLASH_MORE_CASES = {path: {"cross": "whisper_cross",
@@ -907,15 +955,18 @@ def check_flash(ops, ref, dev) -> dict:
     of 6) at a 4 × 1024-token request, and whisper-large-v3's non-causal
     bf16 encoder (S 1500) and cross-attention (1024 rows over 1500 keys),
     its causal bf16 decoder self-attention (S 1024) and that cross shape
-    in float32.  Library yardstick:
+    in float32, and paligemma-3b's causal prefix-LM attention (8 query
+    heads over 1 of D 256 over 4 × 1280 positions, P 256) with the bf16
+    D 128 and float32 D 64 prefix cases.  Library yardstick:
     ``scaled_dot_product_attention`` on the same inputs (float32 for the
-    DiT; the cases with a window with its mask; the causal ones
-    ``is_causal=True, enable_gqa=True``; the cross ones at their two
-    lengths).  Each row names the kernel
+    DiT; the cases with a window or a prefix with their boolean mask,
+    ``enable_gqa``; the causal ones ``is_causal=True, enable_gqa=True``;
+    the cross ones at their two lengths).  Each row names the kernel
     design that ran (``kernels/flash_attention.py::design``, the
     launcher's rule mirrored, as ``staging_is_vec`` mirrors its 16-byte
-    staging rule): the bf16 cases must run the tensor-core kernel,
-    the float32 DiT case the FFMA template.  Returns
+    staging rule): the bf16 cases without a prefix must run the
+    tensor-core kernel, the float32 and prefix cases the FFMA template.
+    Returns
     the DiT case's numbers and, under ``by_path``, each LM path's
     case's."""
     import torch.nn.functional as F
@@ -926,13 +977,15 @@ def check_flash(ops, ref, dev) -> dict:
     rows = []
     for name, b, hq, hkv, s, d, causal, window, dtype in FLASH_CASES:
         skv = FLASH_SKV.get(name, s)
+        prefix = FLASH_PREFIX.get(name, 0)
         q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(b, skv, hkv, d, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
-        kw = dict(causal=causal, window=window)
-        design = flash_design(q, k, v)
-        want_design = "FFMA" if dtype == torch.float32 else "wgmma bf16"
+        kw = dict(causal=causal, window=window, prefix_len=prefix)
+        design = flash_design(q, k, v, prefix_len=prefix)
+        want_design = ("FFMA" if dtype == torch.float32 or prefix
+                       else "wgmma bf16")
 
         def kern():
             return ops.flash_attention(q, k, v, **kw)
@@ -951,16 +1004,12 @@ def check_flash(ops, ref, dev) -> dict:
         t_k = graph_ms(kern, 20 if s <= 256 else 3)
         t_w = cuda_ms(kern, 20 if s <= 256 else 3)
         t_p = cuda_ms(plain, 10 if s <= 256 else 2, warmup=1)
-        if causal and not window:
+        if causal and not window and not prefix:
             def lib():
                 return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                       enable_gqa=hq != hkv)
         elif causal or window:
-            pos = torch.arange(s, device=dev)
-            mask = (pos[None] <= pos[:, None]) if causal else None
-            if window:
-                wm = pos[:, None] - pos[None] < window
-                mask = wm if mask is None else mask & wm
+            mask = _prefix_mask(s, causal, window, prefix, dev)
 
             def lib():
                 return F.scaled_dot_product_attention(q, k, v,
@@ -976,14 +1025,15 @@ def check_flash(ops, ref, dev) -> dict:
             print(f"library yardstick unavailable: "
                   f"{str(exc).splitlines()[0]}")
             t_l = None
-        pairs = _open_pairs(s, causal, window, skv) * b * hq
+        pairs = _open_pairs(s, causal, window, skv, prefix) * b * hq
         flops = 4.0 * d * pairs
         nbytes = q.element_size() * d * b * (2 * hq * s + 2 * hkv * skv)
         t_b, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S
                            if dtype == torch.float32 else BF16_FLOP_PER_S)
         row = dict(case=name, B=b, Hq=hq, Hkv=hkv, S=s,
                    **({"Skv": skv} if skv != s else {}), D=d, causal=causal,
-                   window=window, dtype=str(dtype).replace("torch.", ""),
+                   window=window, **({"prefix": prefix} if prefix else {}),
+                   dtype=str(dtype).replace("torch.", ""),
                    max_abs_err=err, tol=tol, ms=t_k, wrapper_ms=t_w,
                    plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
                    share_of_bound=t_b / t_k, tflops=flops / t_k / 1e9,
@@ -1156,12 +1206,17 @@ FLASH_BWD_CASES = (
     ("whisper_decoder_causal", 4, 20, 20, 1024, 64, True, 0, torch.bfloat16,
      32),
     ("whisper_cross_f32", 4, 20, 20, 1024, 64, False, 0, torch.float32,
-     None))
+     None),
+    ("paligemma_prefix", 4, 8, 1, 1280, 256, True, 0, torch.bfloat16, 18),
+    ("prefix_gqa_bf16_d128", 4, 16, 8, 1280, 128, True, 0, torch.bfloat16,
+     None),
+    ("prefix_f32_d64", 4, 8, 1, 1280, 64, True, 0, torch.float32, None))
 #: the LM training paths whose kernels line entries take a case's numbers
 FLASH_BWD_PATH_CASES = {"lm_train_dense": "internlm2_causal_gqa",
                         "lm_train_hybrid": "zamba2_causal",
                         "lm_train_moe": "mixtral_gqa_swa",
-                        "lm_train_audio": "whisper_encoder"}
+                        "lm_train_audio": "whisper_encoder",
+                        "lm_train_vlm": "paligemma_prefix"}
 
 
 #: the attention backward's kernels on each route (``bwd_design``), in
@@ -1189,22 +1244,27 @@ def _grid_tail(works, slots: int) -> float:
 
 
 def _bwd_grid_tails(route, b, hq, hkv, s, d, causal, window=0,
-                    skv=None) -> dict:
+                    skv=None, prefix=0) -> dict:
     """Each tile kernel's grid tail (``_grid_tail``) on 132 SMs, a block's
     time its tile pairs.  FFMA: the tile kernel's grid (b·kv head, key
-    tile of 64), key tiles the slow axis, two blocks an SM at D ≤ 64 and
-    one above, a block the group's query tiles its keys see.  wgmma: the
-    dK/dV kernel's grid of the same shape and work, two blocks an SM; the
-    dQ kernel's (b·h, query tile of 128), causal tiles last first, one
+    tile of 64, of 32 at D > 128), key tiles the slow axis, two blocks an
+    SM at D ≤ 64 and one above, a block the group's query tiles its keys
+    see (every one for a key tile that starts below the prefix).  wgmma:
+    the dK/dV kernel's grid of the same shape and work, two blocks an SM;
+    the dQ kernel's (b·h, query tile of 128), causal tiles last first, one
     block an SM, a block the kv tiles of 64 its rows see (under a window,
     at most the tiles the window spans).  ``skv`` keys (``s`` by
     default) under ``s`` query rows."""
     skv = s if skv is None else skv
-    nt, nq, nq64 = -(-skv // 64), -(-s // 128), -(-s // 64)
+    bk = 32 if route == "FFMA" and d > 128 else 64
+    nt, nq, nq64 = -(-skv // bk), -(-s // 128), -(-s // 64)
     wk = -(-window // 64) + 1 if window else nq64
     wq = -(-(128 + window) // 64) if window else nt
-    keys = [hq // hkv * min(nq64 - kt if causal else nq64, wk)
-            for kt in range(nt) for _ in range(b * hkv)]
+
+    def seen(kt):
+        first = kt * bk // 64 if causal and kt * bk >= prefix else 0
+        return min(nq64 - first, wk)
+    keys = [hq // hkv * seen(kt) for kt in range(nt) for _ in range(b * hkv)]
     if route == "FFMA":
         return {"flash_attention_bwd_tile":
                 _grid_tail(keys, 132 * (2 if d <= 64 else 1))}
@@ -1236,20 +1296,19 @@ def _kernel_ms(fn, calls: int = 5) -> dict:
     return dict(ms)
 
 
-def _plain_bwd(ref, q, k, v, do, *, causal, window):
-    """``ref.ref_flash_attention_bwd``; past 2³¹ scores (Mixtral's 32
-    heads over S 8192: 8.6 GB of float32 a score tensor, five of them)
-    one kv head's group of query heads at a time, its dk and dv that
-    kv head's."""
+def _plain_bwd(ref, q, k, v, do, **mask):
+    """``ref.ref_flash_attention_bwd`` under ``mask`` (``causal``,
+    ``window``, ``prefix_len``); past 2³¹ scores (Mixtral's 32 heads over
+    S 8192: 8.6 GB of float32 a score tensor, five of them) one kv head's
+    group of query heads at a time, its dk and dv that kv head's."""
     b, hq, s, _ = q.shape
     hkv = k.shape[1]
     if b * hq * s * k.shape[2] <= 2 ** 31:
-        return ref.ref_flash_attention_bwd(q, k, v, do, causal=causal,
-                                           window=window)
+        return ref.ref_flash_attention_bwd(q, k, v, do, **mask)
     g = hq // hkv
     parts = [ref.ref_flash_attention_bwd(
         q[:, j * g:(j + 1) * g], k[:, j:j + 1], v[:, j:j + 1],
-        do[:, j * g:(j + 1) * g], causal=causal, window=window)
+        do[:, j * g:(j + 1) * g], **mask)
         for j in range(hkv)]
     return tuple(torch.cat(t, dim=1) for t in zip(*parts))
 
@@ -1266,19 +1325,24 @@ def check_flash_bwd(ops, ref, dev) -> dict:
     a time there: ``_plain_bwd``), and whisper-large-v3's non-causal
     encoder (S 1500) and cross-attention (1024 rows over 1500 keys) and
     causal decoder self-attention (S 1024) in bf16 and that cross shape in
-    float32.  Library yardstick: the
+    float32, and paligemma-3b's prefix-LM training attention (8 query
+    heads over 1 of D 256, 4 × 1280 positions, P 256: the FFMA route on
+    key tiles of 32) with the bf16 D 128 and float32 D 64 prefix cases.
+    Library yardstick: the
     backward of ``scaled_dot_product_attention`` on the same inputs (the
-    LM shapes ``is_causal``, ``enable_gqa``, bf16; the windowed one with
-    its mask; the cross ones at their two lengths).
+    LM shapes ``is_causal``, ``enable_gqa``, bf16; the windowed and prefix
+    ones with their boolean mask; the cross ones at their two lengths).
     Bound: five products a head over the pairs the masks leave open
     (recompute q·kᵀ, dO·vᵀ, Pᵀ·dO, dS·k, dSᵀ·q) at the input dtype's rate
     (``bound_ms``) and at the float32 rate (``bound_ms_f32``), or the
     bytes of q, k, v, o, dO, lse, dq, dk, dv.  Each row names its route
-    (``design``: the bf16 cases must take ``"wgmma bf16"``, the float32
-    ones ``"FFMA"``), the kernels one call launched with each one's device ms
-    (``kernel_ms``, from the profiler; they must be the route's own), the
-    float32 scratch, and on the tensor-core route each kernel's registers
-    a thread and spill bytes (there must be none).  Returns the DiT
+    (``design``: the bf16 cases without a prefix must take ``"wgmma
+    bf16"``, the float32 and prefix ones ``"FFMA"``), the kernels one call
+    launched with each one's device ms (``kernel_ms``, from the profiler;
+    they must be the route's own), the float32 scratch, on the tensor-core
+    route each kernel's registers a thread and spill bytes (there must be
+    none), and on the FFMA route the tile kernel's (``tile_kernel``,
+    printed).  Returns the DiT
     case's numbers and, under ``by_path``, each LM training path's
     case's."""
     import torch.nn.functional as F
@@ -1286,6 +1350,7 @@ def check_flash_bwd(ops, ref, dev) -> dict:
     from repro_torch.kernels.flash_attention import (bwd_design,
                                                      bwd_scratch_floats,
                                                      bwd_tc_attrs,
+                                                     bwd_tile_attrs,
                                                      flash_attention,
                                                      flash_attention_bwd)
 
@@ -1294,12 +1359,13 @@ def check_flash_bwd(ops, ref, dev) -> dict:
     for (name, b, hq, hkv, s, d, causal, window, dtype,
          per_step) in FLASH_BWD_CASES:
         skv = FLASH_SKV.get(name, s)
+        prefix = FLASH_PREFIX.get(name, 0)
         q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(b, skv, hkv, d, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         do = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
         q, k, v, do = (a.transpose(1, 2) for a in (q, k, v, do))
-        kw = dict(causal=causal, window=window)
+        kw = dict(causal=causal, window=window, prefix_len=prefix)
         out, lse = flash_attention(q, k, v, with_lse=True, **kw)
 
         def kern():
@@ -1317,16 +1383,14 @@ def check_flash_bwd(ops, ref, dev) -> dict:
         bitwise = all(torch.equal(a, g) for a, g in zip(kern(), got))
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         del want
-        design = bwd_design(q, k, v, do)
+        design = bwd_design(q, k, v, do, prefix_len=prefix)
         kernel_ms = _kernel_ms(kern)
         tc = bwd_tc_attrs(d) if design == "wgmma bf16" else {}
+        tile = bwd_tile_attrs(d, dtype) if design == "FFMA" else {}
         t_k = graph_ms(kern, 10)
         t_p = cuda_ms(plain, 10 if s <= 256 else 3, warmup=1)
-        mask = None
-        if window:
-            pos = torch.arange(s, device=dev)
-            mask = ((pos[None] <= pos[:, None])
-                    & (pos[:, None] - pos[None] < window))
+        mask = (_prefix_mask(s, causal, window, prefix, dev)
+                if window or prefix else None)
         try:
             t_l = _library_bwd_ms(
                 lambda qq, kk, vv: F.scaled_dot_product_attention(
@@ -1338,7 +1402,7 @@ def check_flash_bwd(ops, ref, dev) -> dict:
             print(f"library yardstick unavailable: "
                   f"{str(exc).splitlines()[0]}")
             t_l = None
-        pairs = _open_pairs(s, causal, window, skv) * b * hq
+        pairs = _open_pairs(s, causal, window, skv, prefix) * b * hq
         flops = 5 * 2.0 * d * pairs
         elt = q.element_size()
         nbytes = (elt * d * b * (4 * hq * s + 4 * hkv * skv)  # q o dO dq;
@@ -1348,8 +1412,10 @@ def check_flash_bwd(ops, ref, dev) -> dict:
         t_b32, by32 = bound_ms(nbytes, flops)
         row = dict(case=name, B=b, Hq=hq, Hkv=hkv, S=s,
                    **({"Skv": skv} if skv != s else {}), D=d, causal=causal,
-                   window=window, dtype=str(dtype).replace("torch.", ""),
+                   window=window, **({"prefix": prefix} if prefix else {}),
+                   dtype=str(dtype).replace("torch.", ""),
                    design=design, kernel_ms=kernel_ms, tc_kernels=tc,
+                   tile_kernel=tile,
                    scratch_mbytes=4 * bwd_scratch_floats(
                        q, k, v, out, do, **kw) / 1e6,
                    max_abs_err=max(errs), errs_dq_dk_dv=errs,
@@ -1360,14 +1426,16 @@ def check_flash_bwd(ops, ref, dev) -> dict:
                    tflops=flops / t_k / 1e9,
                    launches_per_training_step=per_step,
                    grid_tail_share=_bwd_grid_tails(design, b, hq, hkv, s, d,
-                                                   causal, window, skv))
+                                                   causal, window, skv,
+                                                   prefix))
         row.update(clocks_under(kern))
         print("flash_attention_bwd case " + json.dumps(row))
         if not (finite and bitwise and all(
                 e <= t for e, t in zip(errs, tols))):
             fail(f"flash_attention_bwd disagrees with its plain version: "
                  f"{row}")
-        want_design = "FFMA" if dtype == torch.float32 else "wgmma bf16"
+        want_design = ("FFMA" if dtype == torch.float32 or prefix
+                       else "wgmma bf16")
         if (design != want_design
                 or sorted(kernel_ms) != sorted(FLASH_BWD_KERNELS[design])
                 or any(a["spill_bytes"] for a in tc.values())):
@@ -2511,6 +2579,8 @@ LM_CLI = (
                                   "--steps", "3"], 3),
     ("repro_torch.examples.decentralized_lm_experts",
      ["--arch", "mixtral-8x7b"], 5),
+    ("repro_torch.launch.train", ["--mode", "lm", "--arch", "paligemma-3b",
+                                  "--steps", "3"], 3),
 )
 
 
@@ -3190,11 +3260,12 @@ def _plain_ops(ops, ref):
         return ref.ref_adaln_fuse(x, None, None, eps)
 
     def flash_attention(q, k, v, *, causal=True, window=0,
-                        softmax_scale=None):
+                        softmax_scale=None, prefix_len=0):
         rep = q.shape[1] // k.shape[1]     # GQA: repeat the kv heads
         return ref.ref_flash_attention(
             q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
-            causal=causal, window=window, softmax_scale=softmax_scale)
+            causal=causal, window=window, softmax_scale=softmax_scale,
+            prefix_len=prefix_len)
     return dict(adaln_modulate=adaln_modulate, layernorm=layernorm,
                 flash_attention=flash_attention)
 
@@ -3560,12 +3631,14 @@ LONG_SEQ = 8192
 def lm_forward_launches(cfg) -> dict:
     """One forward's (or prefill's) kernel launches: an ``ssd_scan`` per
     mixer, a ``flash_attention`` per attention — each application of the
-    hybrid's shared block, each dense or MoE layer, each encoder layer
-    and each decoder layer's self- and cross-attention of whisper."""
+    hybrid's shared block, each dense, MoE or VLM layer, each encoder
+    layer and each decoder layer's self- and cross-attention of
+    whisper."""
     ssd = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
     attn = {"hybrid": cfg.num_layers // max(cfg.attn_every, 1),
             "dense": cfg.num_layers,
             "moe": cfg.num_layers,
+            "vlm": cfg.num_layers,
             "audio": (cfg.num_encoder_layers or cfg.num_layers)
             + 2 * cfg.num_layers}.get(cfg.arch_type, 0)
     return {"ssd_scan": ssd, "flash_attention": attn}
@@ -3832,7 +3905,8 @@ def compare_lm_attention_bf16(ops, ref, dev, arch: str) -> None:
 #: reduction is 4/4, and the GQA path is the one to hold)
 LM_REDUCED = {"mamba2-2.7b": {}, "zamba2-2.7b": {},
               "internlm2-1.8b": dict(num_kv_heads=2),
-              "mixtral-8x7b": dict(num_kv_heads=2), "whisper-large-v3": {}}
+              "mixtral-8x7b": dict(num_kv_heads=2), "whisper-large-v3": {},
+              "paligemma-3b": {}}
 #: phase 16's MoE runs: the config's ``dense_scan``, and the capacity
 #: dispatch at a factor at which experts overflow (4 × 64 tokens: 64
 #: slots an expert for 128 assignments each on average)
@@ -4091,7 +4165,8 @@ def _plain_scan(x, dt, A, B, C, *, chunk=128, head_block=None):
     return y.transpose(1, 2), state
 
 
-def _plain_attention(q, k, v, *, causal=True, window=0, softmax_scale=None):
+def _plain_attention(q, k, v, *, causal=True, window=0, softmax_scale=None,
+                     prefix_len=0):
     """``ops.flash_attention`` as the plain version, kv heads repeated (the
     gradient check's reference path on the card, through autograd)."""
     from repro_torch.kernels import ref
@@ -4100,13 +4175,14 @@ def _plain_attention(q, k, v, *, causal=True, window=0, softmax_scale=None):
     return ref.ref_flash_attention(q, k.repeat_interleave(rep, 1),
                                    v.repeat_interleave(rep, 1),
                                    causal=causal, window=window,
-                                   softmax_scale=softmax_scale)
+                                   softmax_scale=softmax_scale,
+                                   prefix_len=prefix_len)
 
 
 #: phases 14 and 17's path name of each LM family's training step
 LM_TRAIN_PATHS = {"ssm": "lm_train", "dense": "lm_train_dense",
                   "hybrid": "lm_train_hybrid", "moe": "lm_train_moe",
-                  "audio": "lm_train_audio"}
+                  "audio": "lm_train_audio", "vlm": "lm_train_vlm"}
 
 
 def lm_train_launches(cfg) -> dict:
@@ -4119,7 +4195,7 @@ def lm_train_launches(cfg) -> dict:
     if cfg.arch_type in ("ssm", "hybrid"):
         out.update(ssd_scan=fwd * cfg.num_layers,
                    ssd_scan_bwd=cfg.num_layers)
-    if cfg.arch_type in ("dense", "hybrid", "moe", "audio"):
+    if cfg.arch_type in ("dense", "hybrid", "moe", "audio", "vlm"):
         attn = (hybrid.num_groups(cfg) if cfg.arch_type == "hybrid"
                 else lm_forward_launches(cfg)["flash_attention"])
         out.update(flash_attention=fwd * attn, flash_attention_bwd=attn)
@@ -4148,16 +4224,29 @@ def grad_scales(want: list) -> tuple[list, int]:
 
 def lm_train_batch(cfg, gen, batch: int, seq: int, seed: int) -> dict:
     """``lm_batch`` tokens from ``gen`` on its device; for the audio family
-    also the stubbed frames ``audio_frame_embeddings(seed=seed)``, as
+    also the stubbed frames ``audio_frame_embeddings(seed=seed)``, for the
+    VLM the stubbed patches ``vision_patch_embeddings(seed=seed)``, as
     ``launch/train.py --mode lm`` draws them."""
     from repro_torch.data import lm_batch
-    from repro_torch.models.frontend_stubs import audio_frame_embeddings
 
     out = lm_batch(gen, batch, seq, cfg.vocab_size)
-    if cfg.arch_type == "audio":
-        out["audio_embeds"] = audio_frame_embeddings(cfg, batch, seed=seed,
-                                                     device=gen.device)
+    out.update(stub_inputs(cfg, batch, seed, gen.device))
     return out
+
+
+def stub_inputs(cfg, batch: int, seed: int, device) -> dict:
+    """The stubbed frontend's inputs a batch of ``cfg``'s family carries:
+    ``audio_embeds`` (whisper's frames) or ``vision_embeds`` (paligemma's
+    patches), drawn from ``seed`` on ``device``; none for the others."""
+    from repro_torch.models import frontend_stubs as stubs
+
+    if cfg.arch_type == "audio":
+        return {"audio_embeds": stubs.audio_frame_embeddings(
+            cfg, batch, seed=seed, device=device)}
+    if cfg.arch_type == "vlm":
+        return {"vision_embeds": stubs.vision_patch_embeddings(
+            cfg, batch, seed=seed, device=device)}
+    return {}
 
 
 def _lm_grad_check(ops, dev, cfg) -> None:
@@ -4174,7 +4263,9 @@ def _lm_grad_check(ops, dev, cfg) -> None:
     elsewhere on the other path).  Whisper: 2 encoder and 2 decoder
     layers over ``lm_train_batch``'s 1500 frames a row; its key biases,
     whose exact gradient is 0, against the model's largest gradient
-    (``grad_scales``)."""
+    (``grad_scales``).  Paligemma: 2 layers after ``lm_train_batch``'s 256
+    patches a row (the prefix-LM attention of D 256 and its backward on
+    the FFMA route)."""
     from repro_torch.models import zoo
     from repro_torch.models.layers import MoERecorder
     from repro_torch.training.trainer import value_and_grad
@@ -4228,17 +4319,20 @@ def _lm_grad_check(ops, dev, cfg) -> None:
 def train_lm_full_width(ops, dev, arch: str = "mamba2-2.7b", layers: int = 0,
                         batch: int = LM_TRAIN_BATCH,
                         seq: int = LM_TRAIN_SEQ) -> dict:
-    """Phases 14 and 17: one LM expert of ``arch`` trained at full width
-    and depth (``layers`` deep when given) through
+    """Phases 14, 17, 18 and 19: one LM expert of ``arch`` trained at full
+    width and depth (``layers`` deep when given) through
     ``make_lm_train_step`` — mamba2-2.7b (64 layers, d 2560, 80 SSD heads,
     N 128, vocab 50280), zamba2-2.7b (54 mixers at N 64, the shared
     attention + SwiGLU block of 32 heads of D 80 after every 6),
     internlm2-1.8b (24 layers, d 2048, 16 query heads over 8 kv heads of
-    D 128, vocab 92544) or mixtral-8x7b (32 over 8 heads, window 4096, 8
+    D 128, vocab 92544), mixtral-8x7b (32 over 8 heads, window 4096, 8
     experts of F 14336 under ``dense_scan``, vocab 32000; 2 of its 32
-    layers: its full depth does not fit one card), bf16, remat, 512-token
-    CE chunks: random seeded weights built on the card, ``LM_TRAIN_STEPS``
-    steps of ``batch × seq`` tokens from ``lm_batch``.  Cuts (the
+    layers: its full depth does not fit one card), whisper-large-v3 (over
+    1500 stubbed frames a row) or paligemma-3b (18 layers, d 2048, 8 over
+    1 heads of D 256, vocab 257216, after 256 stubbed patches a row, its
+    256-token CE chunks), bf16, remat, the config's CE chunks: random
+    seeded weights built on the card, ``LM_TRAIN_STEPS`` steps of ``batch
+    × seq`` tokens from ``lm_batch``.  Cuts (the
     reference trains at ``train_4k``): 256 × 4096 tokens a step cut to 4 ×
     1024 (mixtral 1 × 8192, past its window), 10 steps.  Each step's
     launches exact (``lm_train_launches``: every scan and attention
@@ -4393,13 +4487,18 @@ def compare_lm_train_gpu_cpu(ops, dev, arch: str = "mamba2-2.7b",
 
 
 # ---------------------------------------------------------------------------
-# Phases 16 and 18: whisper-large-v3, the encoder-decoder
+# Phases 16, 18 and 19: whisper-large-v3, the encoder-decoder, and
+# paligemma-3b, the VLM prefix: the families with a stubbed frontend
 # ---------------------------------------------------------------------------
 
 WHISPER = "whisper-large-v3"
+PALIGEMMA = "paligemma-3b"
 #: whisper-large-v3's parameters (the reference's ``jax.eval_shape`` of
 #: ``zoo.init``: 32 encoder and 32 decoder layers, d 1280, vocab 51866)
 WHISPER_PARAMS = 1_614_382_080
+#: paligemma-3b's (18 layers, d 2048, d_ff 16384, vocab 257216, the
+#: (d, d) ``vision_proj``)
+PALIGEMMA_PARAMS = 3_039_635_456
 
 #: a whisper request's kernel-name fragments -> category, first match wins
 WHISPER_CATEGORIES = (
@@ -4418,25 +4517,66 @@ WHISPER_CATEGORIES = (
     ("Memset", "sets"),
 )
 
+#: a paligemma request's kernel-name fragments -> category
+PALIGEMMA_CATEGORIES = (
+    ("flash_attention", "flash_attention (prefix-LM attention, FFMA)"),
+    ("gemm", "cuBLAS bf16 GEMM (projections, SwiGLU, vision_proj, "
+             "unembedding)"),
+    ("nvjet", "cuBLAS bf16 GEMM (projections, SwiGLU, vision_proj, "
+              "unembedding)"),
+    ("xmma", "cuBLAS bf16 GEMM (projections, SwiGLU, vision_proj, "
+             "unembedding)"),
+    ("softmax", "log-softmax"),
+    ("reduce", "reductions (RMSNorm means, logsumexp)"),
+    ("elementwise", "elementwise (RoPE, SiLU gating, RMSNorm scale, "
+                    "residuals)"),
+    ("CatArrayBatchedCopy", "copies and concatenations (the prefix)"),
+    ("Memcpy", "copies and concatenations (the prefix)"),
+    ("index", "embedding gather"),
+    ("Memset", "sets"),
+)
 
-def whisper_greedy(ops, cfg, params, prompt, frames, new: int):
+#: phases 18 and 19: arch -> its parameter count, its paths' labels
+#: (scoring, prefill, greedy decode), its profile's categories, its
+#: weights' seed and the name of its stubbed positions
+STUBBED = {
+    WHISPER: dict(params=WHISPER_PARAMS, seed=81, stub="frames",
+                  paths=("lm_audio", "lm_audio_prefill", "lm_audio_decode"),
+                  categories=WHISPER_CATEGORIES),
+    PALIGEMMA: dict(params=PALIGEMMA_PARAMS, seed=181, stub="patches",
+                    paths=("lm_vlm", "lm_vlm_prefill", "lm_vlm_decode"),
+                    categories=PALIGEMMA_CATEGORIES),
+}
+
+
+def _stub_len(cfg) -> int:
+    """The stubbed positions a request of ``cfg`` carries: whisper's
+    encoder frames, paligemma's patches."""
+    return (cfg.encoder_seq_len if cfg.arch_type == "audio"
+            else cfg.vision_prefix_len)
+
+
+def stub_greedy(ops, cfg, params, prompt, extra: dict, new: int):
     """Greedy decoding as a user drives it: ``launch.steps``'
-    ``make_prefill_step`` over the prompt and frames, its cache copied
-    into room for ``new`` more positions (the prefill's own cache has the
-    prompt's length and a decode ring of it, as the reference's:
-    ROADMAP C), then ``make_serve_step`` (decode_32k: the full cache) one
-    token at a time.  Returns the tokens ``(B, S + new)``, each new
-    token's logits, the prefill's launches and the decode steps' own."""
+    ``make_prefill_step`` over the prompt and the stubbed frontend's
+    inputs ``extra`` (whisper's frames; paligemma's patches, which take the
+    first P positions), its cache copied into room for ``new`` more
+    positions (the prefill's own cache has the prompt's length and a decode
+    ring of it, as the reference's: ROADMAP C), then ``make_serve_step``
+    (decode_32k: the full cache) one token at a time at positions P + S,
+    P + S + 1, ….  Returns the tokens ``(B, S + new)``, each new token's
+    logits, the prefill's launches and the decode steps' own."""
     from repro_torch.configs import get_shape
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import zoo
 
     b, s = prompt.shape
+    p = extra["vision_embeds"].shape[1] if "vision_embeds" in extra else 0
     ops.reset_launches()
-    logits, cache = make_prefill_step(cfg)(
-        params, {"tokens": prompt, "audio_embeds": frames})
+    logits, cache = make_prefill_step(cfg)(params,
+                                           {"tokens": prompt, **extra})
     prefill_launches = dict(ops.LAUNCHES)
-    cache = _with_room(zoo, cfg, cache, b, s + new, prompt.device)
+    cache = _with_room(zoo, cfg, cache, b, p + s + new, prompt.device)
     serve = make_serve_step(cfg, get_shape("decode_32k"))
     ops.reset_launches()
     toks, seen = [prompt], [logits]
@@ -4444,37 +4584,41 @@ def whisper_greedy(ops, cfg, params, prompt, frames, new: int):
         tok = torch.argmax(logits, dim=-1).to(prompt.dtype)[:, None]
         toks.append(tok)
         if i + 1 < new:
-            pos = torch.full((b,), s + i, dtype=torch.int32,
+            pos = torch.full((b,), p + s + i, dtype=torch.int32,
                              device=prompt.device)
             logits, cache = serve(params, cache, tok, pos)
             seen.append(logits)
     return torch.cat(toks, dim=1), seen, prefill_launches, dict(ops.LAUNCHES)
 
 
-def compare_whisper_gpu_cpu(ops, dev) -> None:
-    """Phase 16's whisper rows: the reduced float32 whisper-large-v3 (2
-    encoder and 2 decoder layers, d 256, 16 frames) from the same
-    parameters, tokens and frames on the GPU (attention kernel, the
-    cross-attention at its own kv length) and on the CPU (plain
-    versions): ``forward_train`` logits (4 × 64 tokens), ``prefill``
-    logits and every cache leaf (4 × 48), within ``LM_REL_TOL · max|out|``
-    (slot positions equal); the greedy tokens of prefill and then
-    ``decode_step`` (2 × 8 prompt, 8 new) equal (the smallest top-1/top-2
-    gap printed); exactly 6 attention launches a forward or prefill on the
-    GPU, none a decode step; and on the GPU prefill followed by a decode
-    step reproduces ``forward_train``'s logits."""
+def compare_stubbed_gpu_cpu(ops, dev, arch: str,
+                            also: tuple = ()) -> None:
+    """Phase 16's whisper and paligemma rows: the reduced float32 ``arch``
+    (whisper: 2 encoder and 2 decoder layers, d 256, 16 frames; paligemma:
+    2 layers, d 256, 4 query heads over 1 of D 64, 8 patches) from the
+    same parameters, tokens and stubbed inputs on the GPU (attention
+    kernel: the cross-attention at its own kv length, the prefix-LM mask)
+    and on the CPU (plain versions): ``forward_train`` logits (4 × 64
+    tokens), ``prefill`` logits and every cache leaf (4 × 48), within
+    ``LM_REL_TOL · max|out|`` (slot positions equal); the greedy tokens of
+    prefill and then ``decode_step`` (2 × 8 prompt, 8 new) equal (the
+    smallest top-1/top-2 gap printed); exactly one forward's attention
+    launches a forward or prefill on the GPU, none a decode step; on the
+    GPU prefill followed by a decode step reproduces ``forward_train``'s
+    logits.  ``also``: more ``reduced()`` overrides whose
+    ``forward_train`` logits are held the same way (paligemma's D 256)."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
-    from repro_torch.models.frontend_stubs import audio_frame_embeddings
     from repro_torch.tree import tree_map
 
-    cfg = get_config(WHISPER).reduced(**LM_REDUCED[WHISPER])
+    cfg = get_config(arch).reduced(**LM_REDUCED[arch])
     cpu = zoo.init(cfg, torch.Generator().manual_seed(33), "cpu")
     card = tree_map(lambda a: a.to(dev), cpu)
     rng = np.random.default_rng(13)
     toks = torch.from_numpy(lm_request(cfg.vocab_size, rng, 4, 64)[0])
-    frames = audio_frame_embeddings(cfg, 4, seed=34, device="cpu")
-    failed, rows = [], {"arch": WHISPER}
+    stub = stub_inputs(cfg, 4, 34, "cpu")
+    p = cfg.vision_prefix_len if cfg.arch_type == "vlm" else 0
+    failed, rows = [], {"arch": arch}
     per_forward = lm_forward_launches(cfg)["flash_attention"]
 
     def check(name, gpu, cpu_out, tol=LM_REL_TOL):
@@ -4484,14 +4628,15 @@ def compare_whisper_gpu_cpu(ops, dev) -> None:
             failed.append(f"{name}: {err} > {tol * scale}")
 
     def batch(d, n, b=4):
-        return {"tokens": toks[:b, :n].to(d), "audio_embeds": frames[:b].to(d)}
+        return {"tokens": toks[:b, :n].to(d),
+                **{k: v[:b].to(d) for k, v in stub.items()}}
 
     ops.reset_launches()
-    full = {d: zoo.forward_train(cfg, p, batch(d, 64))[0]
-            for d, p in (("cpu", cpu), (dev, card))}
+    full = {d: zoo.forward_train(cfg, q, batch(d, 64))[0]
+            for d, q in (("cpu", cpu), (dev, card))}
     check("forward_logits", full[dev], full["cpu"])
-    pre = {d: zoo.prefill(cfg, p, batch(d, 48))
-           for d, p in (("cpu", cpu), (dev, card))}
+    pre = {d: zoo.prefill(cfg, q, batch(d, 48))
+           for d, q in (("cpu", cpu), (dev, card))}
     check("prefill_logits", pre[dev][0], pre["cpu"][0])
     for key, a in pre[dev][1].items():
         if key == "pos":
@@ -4502,9 +4647,9 @@ def compare_whisper_gpu_cpu(ops, dev) -> None:
     rows["launches_forward_and_prefill"] = dict(ops.LAUNCHES)
     if ops.LAUNCHES["flash_attention"] != 2 * per_forward:
         failed.append(f"reduced GPU run launched {ops.LAUNCHES}")
-    greedy = {d: whisper_greedy(ops, cfg, p, toks[:2, :8].to(d),
-                                frames[:2].to(d), 8)
-              for d, p in (("cpu", cpu), (dev, card))}
+    greedy = {d: stub_greedy(ops, cfg, q, toks[:2, :8].to(d),
+                             {k: v[:2].to(d) for k, v in stub.items()}, 8)
+              for d, q in (("cpu", cpu), (dev, card))}
     top2 = torch.topk(torch.stack(greedy["cpu"][1]), 2, dim=-1).values
     margin = (top2[..., 0] - top2[..., 1]).min().item()
     rows["decode_greedy"] = dict(
@@ -4519,63 +4664,82 @@ def compare_whisper_gpu_cpu(ops, dev) -> None:
     # prefill + one decode step == forward_train, on the GPU
     last, cache = zoo.prefill(cfg, card, batch(dev, 48))
     step, _ = zoo.decode_step(
-        cfg, card, _with_room(zoo, cfg, cache, 4, 64, dev),
+        cfg, card, _with_room(zoo, cfg, cache, 4, p + 64, dev),
         toks[:, 48:49].to(dev),
-        torch.full((4,), 48, dtype=torch.int32, device=dev))
+        torch.full((4,), p + 48, dtype=torch.int32, device=dev))
     check("gpu_prefill_vs_forward", last, full[dev][:, 47].cpu())
     check("gpu_decode_vs_forward", step, full[dev][:, 48].cpu())
+    for over in also:
+        wide = get_config(arch).reduced(**LM_REDUCED[arch], **over)
+        wcpu = zoo.init(wide, torch.Generator().manual_seed(35), "cpu")
+        wcard = tree_map(lambda a: a.to(dev), wcpu)
+        ops.reset_launches()
+        got = zoo.forward_train(wide, wcard, batch(dev, 64))[0]
+        tag = "forward_logits_" + "_".join(f"{k}_{v}"
+                                           for k, v in over.items())
+        check(tag, got, zoo.forward_train(wide, wcpu, batch("cpu", 64))[0])
+        if ops.LAUNCHES["flash_attention"] != per_forward:
+            failed.append(f"{tag} launched {ops.LAUNCHES}")
     print("lm reduced gpu-vs-cpu " + json.dumps(rows))
     if failed:
-        fail(f"reduced {WHISPER} GPU run differs from the CPU run: {failed}")
+        fail(f"reduced {arch} GPU run differs from the CPU run: {failed}")
 
 
-def serve_whisper_full_width(ops, dev) -> dict:
-    """Phase 18: whisper-large-v3 at full width and depth (32 encoder and
-    32 decoder layers, d 1280, 20 heads of D 64, vocab 51866, bf16), one
-    random seeded expert built on the card: two scoring requests
-    (``zoo.forward_train`` over 4 × 1024 decoder tokens and 4 × 1500
-    frames, the token-mean CE of the next tokens; exactly 96
-    ``flash_attention`` launches each: 32 encoder, 32 causal self-, 32
-    cross-attentions), a prefill of 4 × 1024 tokens through
-    ``make_prefill_step`` (96; a cache of ``make_cache``'s leaves at the
-    prompt's length), a greedy decode of batch 2 (prompt 16, 16 new
-    tokens: ``whisper_greedy``, 96 launches in the prefill and none a
-    decode step) and one profiled scoring request; request seconds,
-    tokens/s and device memory.  Returns the launches of its paths."""
+def serve_stubbed_full_width(ops, dev, arch: str) -> dict:
+    """Phases 18 and 19: ``arch`` at full width and depth, one random
+    seeded expert built on the card, bf16 — whisper-large-v3 (32 encoder
+    and 32 decoder layers, d 1280, 20 heads of D 64, vocab 51866) or
+    paligemma-3b (18 layers, d 2048, 8 query heads over 1 of D 256, d_ff
+    16384, vocab 257216, a prefix of 256 patches): two scoring requests
+    (``zoo.forward_train`` over 4 × 1024 tokens and the stubbed frontend's
+    4 × 1500 frames or 4 × 256 patches, the token-mean CE of the next
+    tokens; exactly one forward's ``flash_attention`` launches each:
+    whisper 96 — 32 encoder, 32 causal self-, 32 cross-attentions —,
+    paligemma 18 prefix-LM attentions), a prefill of 4 × 1024 tokens
+    through ``make_prefill_step`` (the same launches; a cache of
+    ``make_cache``'s leaves at the prompt's length, the patches included),
+    a greedy decode of batch 2 (prompt 16, 16 new tokens:
+    ``stub_greedy``, the prefill's launches and none a decode step) and
+    one profiled scoring request; request seconds, tokens/s and device
+    memory.  Returns the launches of its paths."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import zoo
-    from repro_torch.models.frontend_stubs import audio_frame_embeddings
     from repro_torch.models.transformer import cross_entropy
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(WHISPER)
+    spec = STUBBED[arch]
+    scoring, prefilling, decoding = spec["paths"]
+    cfg = get_config(arch)
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(81), dev)
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(
+        spec["seed"]), dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     leaves = tree_leaves(params)
     n_params = sum(a.numel() for a in leaves)
     nbytes = sum(a.numel() * a.element_size() for a in leaves)
-    print(f"full width: {WHISPER}, one expert of {n_params} parameters "
-          f"({nbytes} bytes; {cfg.num_encoder_layers} encoder + "
-          f"{cfg.num_layers} decoder layers, the full depth), built on the "
-          f"card in {t_init:.1f} s; resident "
+    depth = (f"{cfg.num_encoder_layers} encoder + {cfg.num_layers} decoder "
+             f"layers" if cfg.num_encoder_layers
+             else f"{cfg.num_layers} layers")
+    print(f"full width: {arch}, one expert of {n_params} parameters "
+          f"({nbytes} bytes; {depth}, the full depth), built on the card in "
+          f"{t_init:.1f} s; resident "
           f"{torch.cuda.memory_allocated() - base} bytes")
-    if n_params != WHISPER_PARAMS:
-        fail(f"{WHISPER} has {n_params} parameters, not {WHISPER_PARAMS}")
+    if n_params != spec["params"]:
+        fail(f"{arch} has {n_params} parameters, not {spec['params']}")
     rng = np.random.default_rng(82)
-    m = cfg.encoder_seq_len
+    m = _stub_len(cfg)
+    p = m if cfg.arch_type == "vlm" else 0
     launches = {}
 
     def request(b, s, seed):
         toks, labels = lm_request(cfg.vocab_size, rng, b, s)
         return ({"tokens": torch.from_numpy(toks).to(dev),
-                 "audio_embeds": audio_frame_embeddings(cfg, b, seed=seed,
-                                                        device=dev)},
+                 **stub_inputs(cfg, b, seed, dev)},
                 torch.from_numpy(labels).to(dev))
 
     for i in range(LM_REQUESTS):
@@ -4589,17 +4753,17 @@ def serve_whisper_full_width(ops, dev) -> dict:
         sec = time.perf_counter() - t0
         finite = bool(torch.isfinite(logits).all()) and math.isfinite(ce)
         print("lm request " + json.dumps(dict(
-            arch=WHISPER, path="scoring", request=i, batch=LM_BATCH,
-            tokens=LM_SEQ, frames=m, seconds=sec,
+            arch=arch, path="scoring", request=i, batch=LM_BATCH,
+            tokens=LM_SEQ, **{spec["stub"]: m}, seconds=sec,
             tokens_per_s=LM_BATCH * LM_SEQ / sec,
-            frames_per_s=LM_BATCH * m / sec, perplexity=math.exp(ce),
-            logits=list(logits.shape), finite=finite,
-            peak_bytes=torch.cuda.max_memory_allocated())))
+            **{f"{spec['stub']}_per_s": LM_BATCH * m / sec},
+            perplexity=math.exp(ce), logits=list(logits.shape),
+            finite=finite, peak_bytes=torch.cuda.max_memory_allocated())))
         if not (finite and tuple(logits.shape) == (LM_BATCH, LM_SEQ,
                                                    cfg.vocab_size)):
-            fail(f"{WHISPER} scoring request {i}: logits {logits.shape}, "
+            fail(f"{arch} scoring request {i}: logits {logits.shape}, "
                  f"finite {finite}")
-        launches["lm_audio"] = _check_launches(ops, "lm_audio", 1, cfg)
+        launches[scoring] = _check_launches(ops, scoring, 1, cfg)
         del logits
 
     batch, _ = request(LM_BATCH, LM_SEQ, 95)
@@ -4613,33 +4777,33 @@ def serve_whisper_full_width(ops, dev) -> dict:
         a for k, a in cache.items() if k != "pos")))
     shapes = {k: list(a.shape) for k, a in cache.items()}
     want = {k: list(a.shape) for k, a in zoo.make_cache(
-        cfg, LM_BATCH, LM_SEQ, torch.device("meta")).items()}
+        cfg, LM_BATCH, p + LM_SEQ, torch.device("meta")).items()}
     print("lm request " + json.dumps(dict(
-        arch=WHISPER, path="prefill", batch=LM_BATCH, tokens=LM_SEQ,
-        frames=m, seconds=sec, tokens_per_s=LM_BATCH * LM_SEQ / sec,
-        finite=finite, logits=list(logits.shape), cache=shapes)))
+        arch=arch, path="prefill", batch=LM_BATCH, tokens=LM_SEQ,
+        **{spec["stub"]: m}, seconds=sec,
+        tokens_per_s=LM_BATCH * LM_SEQ / sec, finite=finite,
+        logits=list(logits.shape), cache=shapes)))
     if not (finite and tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
             and shapes == want and torch.equal(
-                cache["pos"], torch.arange(LM_SEQ, device=dev,
+                cache["pos"], torch.arange(p + LM_SEQ, device=dev,
                                            dtype=torch.int32)
                 .expand(LM_BATCH, -1))):
-        fail(f"{WHISPER} prefill output is not finite logits (B, V) and a "
+        fail(f"{arch} prefill output is not finite logits (B, V) and a "
              f"full cache {want}")
-    launches["lm_audio_prefill"] = _check_launches(ops, "lm_audio_prefill",
-                                                   1, cfg)
+    launches[prefilling] = _check_launches(ops, prefilling, 1, cfg)
     del logits, cache
 
     batch, _ = request(DECODE_BATCH, DECODE_PROMPT, 96)
-    prompt = batch["tokens"]
+    prompt = batch.pop("tokens")
     _sync(dev)
     t0 = time.perf_counter()
-    out, _, pre_launches, _ = whisper_greedy(
-        ops, cfg, params, prompt, batch["audio_embeds"], DECODE_NEW)
+    out, _, pre_launches, _ = stub_greedy(ops, cfg, params, prompt, batch,
+                                          DECODE_NEW)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     new = out[:, DECODE_PROMPT:]
     print("lm request " + json.dumps(dict(
-        arch=WHISPER, path="decode_greedy", batch=DECODE_BATCH,
+        arch=arch, path="decode_greedy", batch=DECODE_BATCH,
         prompt=DECODE_PROMPT, new_tokens=DECODE_NEW, seconds=sec,
         new_tokens_per_s=DECODE_BATCH * DECODE_NEW / sec,
         shape=list(out.shape), tokens=new.tolist(),
@@ -4649,17 +4813,16 @@ def serve_whisper_full_width(ops, dev) -> dict:
             or bool(((new < 0) | (new >= cfg.vocab_size)).any())
             or pre_launches["flash_attention"]
             != lm_forward_launches(cfg)["flash_attention"]):
-        fail(f"{WHISPER} greedy decode output is not the prompt and "
+        fail(f"{arch} greedy decode output is not the prompt and "
              f"in-vocabulary tokens, or its prefill launched "
              f"{pre_launches}")
-    # the counts since the decode steps began (whisper_greedy's last reset)
-    launches["lm_audio_decode"] = _check_launches(ops, "lm_audio_decode", 0,
-                                                  cfg)
+    # the counts since the decode steps began (stub_greedy's last reset)
+    launches[decoding] = _check_launches(ops, decoding, 0, cfg)
 
     batch, _ = request(LM_BATCH, LM_SEQ, 97)
     profiled(lambda: zoo.forward_train(cfg, params, batch),
-             WHISPER_CATEGORIES, path="lm_audio", arch=WHISPER,
-             batch=LM_BATCH, tokens=LM_SEQ, frames=m)
+             spec["categories"], path=scoring, arch=arch, batch=LM_BATCH,
+             tokens=LM_SEQ, **{spec["stub"]: m})
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4793,9 +4956,12 @@ def main() -> None:
     for over in MOE_RUNS:
         compare_lm_gpu_cpu(ops, dev, "mixtral-8x7b", over)
         compare_lm_train_gpu_cpu(ops, dev, "mixtral-8x7b", over)
-    compare_whisper_gpu_cpu(ops, dev)
+    compare_stubbed_gpu_cpu(ops, dev, WHISPER)
     compare_lm_train_gpu_cpu(ops, dev, WHISPER)
-    phase_done("16 (hybrid, dense, MoE and whisper LM reduced GPU vs CPU)")
+    compare_stubbed_gpu_cpu(ops, dev, PALIGEMMA, also=(dict(head_dim=256),))
+    compare_lm_train_gpu_cpu(ops, dev, PALIGEMMA)
+    phase_done("16 (hybrid, dense, MoE, whisper and paligemma LM reduced "
+               "GPU vs CPU)")
     for arch, layers in MOE_SERVE_LAYERS.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -4816,13 +4982,20 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("17 (MoE and deepseek LM experts)")
-    launches.update(serve_whisper_full_width(ops, dev))
+    launches.update(serve_stubbed_full_width(ops, dev, WHISPER))
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(train_lm_full_width(ops, dev, WHISPER))
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("18 (whisper-large-v3 serving and training)")
+    launches.update(serve_stubbed_full_width(ops, dev, PALIGEMMA))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(train_lm_full_width(ops, dev, PALIGEMMA))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("19 (paligemma-3b serving and training)")
     run_cli(dev)
     phase_done("9 (serving CLI)")
 

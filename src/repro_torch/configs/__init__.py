@@ -1,13 +1,12 @@
 """Architecture config registry of the port (``repro.configs``' ids).
 
-The port serves the ``ssm``, ``hybrid``, ``dense``, ``moe`` and
-``audio`` families: ``get_config`` of ``"mamba2-2.7b"``,
-``"zamba2-2.7b"``, ``"internlm2-1.8b"``, ``"stablelm-1.6b"``,
-``"deepseek-67b"``, ``"deepseek-coder-33b"``, ``"mixtral-8x7b"``,
-``"mixtral-8x22b"`` and ``"whisper-large-v3"``.  The reference's one
-other architecture id (the VLM ``"paligemma-3b"``) raises
-``NotImplementedError`` until its backbone is ported (ROADMAP.md, module
-queue A.10).  The paper's own DiT experts come from
+``get_config`` returns each of the reference's 10 architecture ids
+(``ARCH_IDS``): ``"mamba2-2.7b"`` (``ssm``), ``"zamba2-2.7b"``
+(``hybrid``), ``"internlm2-1.8b"``, ``"stablelm-1.6b"``,
+``"deepseek-67b"``, ``"deepseek-coder-33b"`` (``dense``),
+``"mixtral-8x7b"``, ``"mixtral-8x22b"`` (``moe``), ``"whisper-large-v3"``
+(``audio``) and ``"paligemma-3b"`` (``vlm``); an unknown id raises the
+reference's ``ValueError``.  The paper's own DiT experts come from
 ``get_dit_config``.
 """
 
@@ -15,7 +14,7 @@ from __future__ import annotations
 
 from repro_torch.configs import (deepseek_67b, deepseek_coder_33b,
                                  internlm2_1p8b, mamba2_2p7b, mixtral_8x7b,
-                                 mixtral_8x22b, stablelm_1p6b,
+                                 mixtral_8x22b, paligemma_3b, stablelm_1p6b,
                                  whisper_large_v3, zamba2_2p7b)
 from repro_torch.configs.shapes import SHAPES, InputShape, get_shape
 from repro_torch.models.config import (DiTConfig, LMConfig, dit_b2,
@@ -28,23 +27,21 @@ ARCH_IDS: tuple[str, ...] = (
     "mixtral-8x7b", "internlm2-1.8b",
 )
 
-_PORTED = {c.name: c for c in (
+_CONFIGS = {c.name: c for c in (
     mamba2_2p7b.CONFIG, zamba2_2p7b.CONFIG, internlm2_1p8b.CONFIG,
     stablelm_1p6b.CONFIG, deepseek_67b.CONFIG, deepseek_coder_33b.CONFIG,
-    mixtral_8x7b.CONFIG, mixtral_8x22b.CONFIG, whisper_large_v3.CONFIG)}
+    mixtral_8x7b.CONFIG, mixtral_8x22b.CONFIG, whisper_large_v3.CONFIG,
+    paligemma_3b.CONFIG)}
 
 #: the paper's own diffusion-expert architectures
 DIT_CONFIGS = {"dit-xl2": dit_xl2, "dit-b2": dit_b2, "router-b2": router_b2}
 
 
 def get_config(arch: str) -> LMConfig:
-    if arch in _PORTED:
-        return _PORTED[arch]
-    if arch in ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: the port serves "
-            f"{', '.join(_PORTED)} (ROADMAP.md, module queue A.10)")
-    raise ValueError(f"unknown arch {arch!r}; available: {sorted(ARCH_IDS)}")
+    if arch not in _CONFIGS:
+        raise ValueError(
+            f"unknown arch {arch!r}; available: {sorted(ARCH_IDS)}")
+    return _CONFIGS[arch]
 
 
 def get_dit_config(name: str, **kw) -> DiTConfig:

@@ -10,10 +10,9 @@ configs (vocabulary 64).  Runs the ``ssm`` (mamba2-2.7b), ``hybrid``
 (zamba2-2.7b), ``dense`` (internlm2-1.8b, stablelm-1.6b, deepseek-67b,
 deepseek-coder-33b) and ``moe`` (mixtral-8x7b, mixtral-8x22b) families on
 the card, or with ``--device cpu`` on the kernels' plain versions.  For
-whisper-large-v3, whose experts need the frontend stubs' frames, it
-prints the reference's note and returns (the ensemble passes tokens
-only); paligemma-3b raises ``NotImplementedError`` (ROADMAP.md, module
-queue A.10).
+whisper-large-v3 and paligemma-3b, whose experts need the frontend
+stubs' frames or patches, it prints the reference's note and returns
+(the ensemble passes tokens only).
 
   PYTHONPATH=src python -m repro_torch.examples.decentralized_lm_experts \\
       --arch mamba2-2.7b

@@ -1,6 +1,7 @@
 // Flash attention for Hopper (sm_90a): online-softmax attention of Sq
-// query rows over Skv keys, float32 accumulation, optional causal and
-// sliding-window masks (equal lengths only), grouped kv heads.
+// query rows over Skv keys, float32 accumulation, optional causal,
+// prefix-LM and sliding-window masks (equal lengths only), grouped kv
+// heads.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:82
 // `flash_attention` (body `_flash_kernel`, :28), which takes one length
@@ -8,9 +9,17 @@
 // decoder's cross-attention: Sq decoder rows over Skv encoder frames).
 // For each (batch, head) and query row:
 //
-//   s_j = (q · k_j) · scale,  masked where kpos > qpos (causal) or
+//   s_j = (q · k_j) · scale,  masked where kpos > max(qpos, P − 1)
+//                              (causal; P the prefix, 0 by default) or
 //                              qpos − kpos ≥ window (window > 0)
 //   out = Σ_j softmax(s)_j · v_j          in q's dtype
+//
+// The prefix-LM mask is the reference's (repro/models/layers.py:208–211,
+// PaliGemma's): positions below P see each other both ways, every later
+// position sees what the causal mask shows it — `kpos ≤ qpos or (qpos < P
+// and kpos < P)`, which is `kpos ≤ max(qpos, P − 1)`.  The TPU kernel has
+// no prefix (the reference computes that attention in jnp); only the FFMA
+// template takes one.
 //
 // q, k, v and out are addressed by (batch, head, position) element
 // strides with a contiguous last axis, so the DiT's (B, S, H, D)
@@ -20,10 +29,11 @@
 //
 // Two forward kernels, picked by shape (the rule is `flash_attention` at
 // the end of the forward): bf16 q, k, v with D a multiple of 16 up to 128,
-// 16-byte staging (below) and at most 65,535 query tiles of 128 go to the
-// tensor-core kernel `flash_attention_bf16_tc_kernel` (its design is
-// written above it); everything else — float32 (the DiT path), bf16 at
-// another D, unaligned views — goes to the FFMA template
+// 16-byte staging (below), at most 65,535 query tiles of 128 and no prefix
+// go to the tensor-core kernel `flash_attention_bf16_tc_kernel` (its
+// design is written above it); everything else — float32 (the DiT path),
+// bf16 at another D, unaligned views, any prefix — goes to the FFMA
+// template
 // `flash_attention_kernel`.  A failed launch of either returns its error.
 //
 // The FFMA template.  What bounds it on this card: float32 operations.  At
@@ -65,8 +75,8 @@
 // not on FFMA issue (PERF.md, chip_smoke on an NVIDIA H100 80GB HBM3,
 // 700 W).
 //
-// Only the kv tiles a mask leaves partly open are visited (causal and
-// window bounds per query tile); inside them every masked logit is dropped
+// Only the kv tiles a mask leaves partly open are visited (causal, prefix
+// and window bounds per query tile); inside them every masked logit is dropped
 // exactly (probability 0), and a tile no mask touches skips the mask
 // test.  Partial tiles (Sq or Skv not a multiple of the tile) are
 // zero-filled and masked.  The row maximum and sum reduce over the 8 lanes that share a
@@ -129,7 +139,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ lse, int H, int group, int Sq,
                        int Skv, int D, Strides sq, Strides sk, Strides sv,
-                       Strides so, int causal, int window, float scale) {
+                       Strides so, int causal, int window, int prefix,
+                       float scale) {
   constexpr int TR = Config<DMAX>::TR, BKV = Config<DMAX>::BKV;
   constexpr int RG = Config<DMAX>::THREADS / 8;  // row groups
   constexpr int BQ = RG * TR, TK = BKV / 8, NC = DMAX / 32;
@@ -152,9 +163,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kh = k + b * sk.b + hk * sk.h;
   const T* vh = v + b * sv.b + hk * sv.h;
 
-  // kv range this query tile can see: [lo, hi).
+  // kv range this query tile can see: [lo, hi) (a prefix opens keys
+  // below P to every query: prefix is 0 unless causal).
   int hi = Skv;
-  if (causal) hi = min(Skv, q0 + BQ);
+  if (causal) hi = min(Skv, max(q0 + BQ, prefix));
   int lo = 0;
   if (window > 0) lo = max(0, q0 - (window - 1));
   lo = (lo / BKV) * BKV;
@@ -221,12 +233,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
       const int qpos = q0 + rg + RG * i;
+      const int last = max(qpos, prefix - 1);  // the causal mask's last key
       float tmax = -INFINITY;
 #pragma unroll
       for (int j = 0; j < TK; ++j) {
         const int kpos = k0 + cg + 8 * j;
         const bool open = open_tile ||
-                          (kpos < Skv && (!causal || kpos <= qpos) &&
+                          (kpos < Skv && (!causal || kpos <= last) &&
                            (window <= 0 || qpos - kpos < window));
         s[i][j] = open ? s[i][j] * scale : -INFINITY;
         tmax = fmaxf(tmax, s[i][j]);
@@ -330,7 +343,7 @@ template <typename T, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hkv, int Sq, int Skv, int D, Strides sq,
            Strides sk, Strides sv, Strides so, int causal, int window,
-           float scale, bool vec, cudaStream_t stream) {
+           int prefix, float scale, bool vec, cudaStream_t stream) {
   using C = Config<DMAX>;
   constexpr int BQ = C::THREADS / 8 * C::TR, BKV = C::BKV;
   const int smem = smem_bytes(D, sizeof(T), BQ, BKV);
@@ -345,7 +358,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   kern<<<grid, Config<DMAX>::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / Hkv, Sq, Skv,
-      D, sq, sk, sv, so, causal, window, scale);
+      D, sq, sk, sv, so, causal, window, prefix, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -353,18 +366,18 @@ template <typename T>
 int by_width(const void* q, const void* k, const void* v, void* o, float* lse,
              int B, int H, int Hkv, int Sq, int Skv, int D, Strides sq,
              Strides sk, Strides sv, Strides so, int causal, int window,
-             float scale, bool vec, cudaStream_t st) {
+             int prefix, float scale, bool vec, cudaStream_t st) {
   if (D <= 32)
     return launch<T, 32>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, sq, sk, sv,
-                         so, causal, window, scale, vec, st);
+                         so, causal, window, prefix, scale, vec, st);
   if (D <= 64)
     return launch<T, 64>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, sq, sk, sv,
-                         so, causal, window, scale, vec, st);
+                         so, causal, window, prefix, scale, vec, st);
   if (D <= 128)
     return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, sq, sk, sv,
-                          so, causal, window, scale, vec, st);
+                          so, causal, window, prefix, scale, vec, st);
   return launch<T, 256>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, sq, sk, sv,
-                        so, causal, window, scale, vec, st);
+                        so, causal, window, prefix, scale, vec, st);
 }
 
 // ---- bf16 forward on the tensor cores ------------------------------------
@@ -747,8 +760,9 @@ int by_width(const void* q, const void* k, const void* v, void* o, float* lse,
 // q, o: (B, H, Sq, D); k, v: (B, Hkv, Skv, D) with H % Hkv == 0; each by
 // element strides (batch, head, position) with a contiguous last axis;
 // all float32 (bf16 = 0) or all bf16 (bf16 = 1).  D ≤ 256, B·H ≤ 65,535.
-// window ≤ 0 means no window; causal and window take Sq == Skv (the
-// launcher checks it).  lse: null, or a contiguous float32 (B·H, Sq) that
+// window ≤ 0 means no window; prefix > 0 (the prefix-LM mask's P) takes
+// causal; causal, window and prefix take Sq == Skv (the launcher checks
+// it).  lse: null, or a contiguous float32 (B·H, Sq) that
 // receives each query row's log-sum-exp of its scaled logits (what the
 // backward recomputes the probabilities from).  Launches on `stream`,
 // allocates nothing, returns the CUDA error code (0 on success).
@@ -759,9 +773,11 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                long long skh, long long sks, long long svb,
                                long long svh, long long svs, long long sob,
                                long long soh, long long sos, int causal,
-                               int window, float scale, void* stream) {
+                               int window, int prefix, float scale,
+                               void* stream) {
   if (B == 0 || H == 0 || Sq == 0 || D == 0) return 0;
-  if (Skv <= 0 || ((causal || window > 0) && Sq != Skv))
+  if (Skv <= 0 || ((causal || window > 0) && Sq != Skv) || prefix < 0 ||
+      (prefix > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs},
       so{sob, soh, sos};
@@ -770,15 +786,16 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   const bool vec = vec_staging(bf16 ? 2 : 4, q, k, v, o, B, H, Hkv, D, sq,
                                sk, sv, so);
   // the design by shape: the tensor-core kernel for bf16 at D a multiple
-  // of 16 up to 128 with 16-byte staging, else the FFMA template
-  if (bf16 && D % 16 == 0 && D <= 128 && vec &&
+  // of 16 up to 128 with 16-byte staging and no prefix, else the FFMA
+  // template
+  if (bf16 && D % 16 == 0 && D <= 128 && vec && prefix == 0 &&
       (Sq + tc::BQ - 1) / tc::BQ <= tc::MAX_TILES)
     return tc::by_width(q, k, v, o, l, B, H, Hkv, Sq, Skv, D, sq, sk, sv, so,
                         causal, window, scale, st);
   if (bf16)
     return by_width<__nv_bfloat16>(q, k, v, o, l, B, H, Hkv, Sq, Skv, D, sq,
-                                   sk, sv, so, causal, window, scale, vec,
-                                   st);
+                                   sk, sv, so, causal, window, prefix, scale,
+                                   vec, st);
   return by_width<float>(q, k, v, o, l, B, H, Hkv, Sq, Skv, D, sq, sk, sv, so,
-                         causal, window, scale, vec, st);
+                         causal, window, prefix, scale, vec, st);
 }

@@ -1,6 +1,6 @@
 // Flash attention backward for Hopper (sm_90a): the gradients of
-// flash_attention.cu's attention (causal and sliding-window masks,
-// grouped kv heads, float32 or bf16) from its output and row
+// flash_attention.cu's attention (causal, prefix-LM and sliding-window
+// masks, grouped kv heads, float32 or bf16) from its output and row
 // log-sum-exp, Sq query rows over Skv keys (equal lengths under a mask).
 // Its own source so that nvcc builds it beside the forward.
 
@@ -12,8 +12,9 @@
 // The TPU kernel has no backward; this one replaces XLA's autodiff of the
 // reference's training attention (repro/models/layers.py:137
 // `chunked_attention`, f32_softmax: q·kᵀ and p·v contracted in float32 on
-// float32 copies of the operands).  Causal and sliding-window masks,
-// grouped kv heads, float32 or bf16 operands, D ≤ 128.  With
+// float32 copies of the operands).  Causal, prefix-LM (`kpos ≤ max(qpos,
+// P − 1)`, the forward's) and sliding-window masks, grouped kv heads,
+// float32 or bf16 operands, D ≤ 256 (D ≤ 128 on the tensor cores).  With
 // P = exp(q·kᵀ·scale − lse) recomputed from the forward's row
 // log-sum-exp, and Δ_i = Σ_d dO_id·O_id:
 //
@@ -24,12 +25,12 @@
 //
 // Two routes, picked by shape (the rule is `flash_attention_bwd` at the
 // end of this file, as the forward's): bf16 with D a multiple of 16 up to
-// 128 and 16-byte staging of every operand and gradient goes to two
-// tensor-core kernels (`bwd::tc`, their design written above them);
+// 128, 16-byte staging of every operand and gradient and no prefix goes to
+// two tensor-core kernels (`bwd::tc`, their design written above them);
 // everything else — float32 (the DiT's training backward), bf16 at another
-// D, unaligned views — goes to the FFMA tile kernel below.  A failed
-// launch of either route returns its error; neither falls back to the
-// other.
+// D, unaligned views, any prefix — goes to the FFMA tile kernel below.  A
+// failed launch of either route returns its error; neither falls back to
+// the other.
 //
 // The FFMA route.  What bounds it on this card: float32 operations.  Five
 // products over the (query, key) pairs a mask leaves open, a head (q·kᵀ
@@ -46,7 +47,8 @@
 // bitwise repeatable):
 //   1. `flash_attention_bwd_delta`: Δ, 16 lanes a query row;
 //   2. `flash_attention_bwd_tile`: one block per (b·kv head, key tile of
-//      64) walks the query tiles of 64 rows that can see its keys, for each
+//      64; of 32 at D > 128) walks the query tiles of 64 rows that can see
+//      its keys, for each
 //      query head of its group in order.  It keeps dK and dV for its keys
 //      in registers (summed over the group on chip), forms S and dP once
 //      per tile pair, then P and dS, and writes this key tile's share of
@@ -60,7 +62,8 @@
 // only where a key tile wrote it.
 //
 // Masks: a key tile visits only the query tiles a mask leaves partly
-// open (`q_tiles`); inside them a masked logit gives probability 0
+// open (`q_tiles`: under a prefix, a key tile that starts below P sees
+// every query tile); inside them a masked logit gives probability 0
 // exactly, so dS is 0 there too.  Causal blocks run heaviest first: the
 // grid is (b·kv head, key tile), the key tile in the slow dimension, so
 // the low key tiles, which see the most query tiles, are dispatched
@@ -90,6 +93,17 @@
 // the kernel stays above its bound on shared-memory traffic and latency
 // (PERF.md).  A D from 65 to 128 runs on the D ≤ 128 template, its lanes
 // past D idle.
+//
+// D > 128 (PaliGemma's heads are 256 wide) takes key tiles of 32 (the
+// same template, BKT = 32): with 64 keys the four staged tiles alone are
+// 266 KB in float32, past the 227 KB a block can have, and a thread's
+// dK or dV tile would be 4 keys × 32 columns, 128 floats beside the dQ
+// share's 64.  With 32 keys the tiles take 216 KB in float32 (122 KB in
+// bf16), a thread holds 4 keys × 16 columns of dK or dV and 4 rows × 16
+// columns of the dQ share, and one block of 256 threads runs an SM.  The
+// dQ shares double with the key tiles: 906 MB of float32 at PaliGemma's
+// training shape (B 4, 8 query heads over 1, S 1280, prefix 256), written
+// and read once.
 
 namespace {
 
@@ -97,26 +111,34 @@ namespace bwd {
 
 constexpr int THREADS = 256;        // two groups of 128 threads
 constexpr int BQ = 64, BK = 64;     // query rows, keys of a tile pair
-constexpr int PP = BK + 8;          // pitch (floats) of the P and dS tiles
+constexpr int BK_WIDE = 32;         // keys of a tile pair at D > 128
 constexpr int MAX_KEY_TILES = 65535;  // grid y
 
-// Shared bytes of a tile kernel: the k, v, q and dO tiles, P and dS, and
-// the query tile's lse and Δ.
-__host__ __device__ inline int tile_bytes(int D, int esize) {
-  return (2 * BK + 2 * BQ) * row_pitch(D, esize) + 2 * BQ * PP * 4 +
+// The FFMA route's key tile at head dim D.
+__host__ __device__ constexpr int key_tile(int D) {
+  return D > 128 ? BK_WIDE : BK;
+}
+
+// Shared bytes of a tile kernel with key tiles of bkt: the k, v, q and dO
+// tiles, P and dS (bkt + 8 floats a row), and the query tile's lse and Δ.
+__host__ __device__ inline int tile_bytes(int D, int esize, int bkt) {
+  return (2 * bkt + 2 * BQ) * row_pitch(D, esize) + 2 * BQ * (bkt + 8) * 4 +
          2 * BQ * 4;
 }
 
-// The query tiles [first, last) that key tile kt's keys are open to: from
-// the key tile's own (causal; BQ == BK) or from 0, up to the tile of the
-// last query whose window still holds the tile's last key.  Never empty:
-// tile kt sees its own diagonal.
+// The query tiles [first, last) that key tile kt's keys (bk of them) are
+// open to: from the tile of the key tile's first key (causal), or from 0
+// (no mask, or a key tile that starts below the prefix P), up to the tile
+// of the last query whose window still holds the tile's last key.  Never
+// empty: tile kt sees its own diagonal.
 __host__ __device__ inline void q_tiles(int kt, int nqt, int causal,
-                                        int window, int& first, int& last) {
-  first = causal ? kt : 0;
+                                        int window, int& first, int& last,
+                                        int prefix = 0, int bk = BK) {
+  const int k0 = kt * bk;
+  first = causal && k0 >= prefix ? k0 / BQ : 0;
   last = nqt;
   if (window > 0) {
-    const long long qmax = (long long)kt * BK + BK - 1 + window - 1;
+    const long long qmax = (long long)k0 + bk - 1 + window - 1;
     if (qmax / BQ + 1 < nqt) last = static_cast<int>(qmax / BQ + 1);
   }
 }
@@ -125,12 +147,13 @@ __host__ __device__ inline void q_tiles(int kt, int nqt, int causal,
 // A mask takes Sq == Skv; without one every key tile sees every query
 // tile.
 __host__ __device__ inline long long pair_count(int Sq, int Skv, int causal,
-                                                int window) {
-  const int nkt = (Skv + BK - 1) / BK, nqt = (Sq + BQ - 1) / BQ;
+                                                int window, int prefix,
+                                                int bk) {
+  const int nkt = (Skv + bk - 1) / bk, nqt = (Sq + BQ - 1) / BQ;
   long long n = 0;
   for (int kt = 0; kt < nkt; ++kt) {
     int first, last;
-    q_tiles(kt, nqt, causal, window, first, last);
+    q_tiles(kt, nqt, causal, window, first, last, prefix, bk);
     n += last - first;
   }
   return n;
@@ -208,11 +231,12 @@ flash_attention_bwd_delta(const T* __restrict__ o, const T* __restrict__ dO,
   if (r < rows && lane == 0) delta[r] = acc;
 }
 
-// Block (b·Hkv + kv head, key tile kt).  part: the dQ shares, (pairs,
-// B·H, BQ, D4) float32 with D4 = D rounded up to 4, pairs ordered by key
-// tile, then query tile (`q_tiles`).  VEC: D and every stride of q, k, v,
-// dO, dK, dV whole 16-byte chunks of elements, every base 16-byte aligned.
-template <typename T, int DMAX, bool VEC>
+// Block (b·Hkv + kv head, key tile kt of BKT keys).  part: the dQ shares,
+// (pairs, B·H, BQ, D4) float32 with D4 = D rounded up to 4, pairs ordered
+// by key tile, then query tile (`q_tiles`).  VEC: D and every stride of q,
+// k, v, dO, dK, dV whole 16-byte chunks of elements, every base 16-byte
+// aligned.
+template <typename T, int DMAX, int BKT, bool VEC>
 __global__ void __launch_bounds__(THREADS, DMAX <= 64 ? 2 : 1)
 flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dO,
@@ -222,14 +246,20 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
                          float* __restrict__ part, int H, int Hkv, int Sq,
                          int Skv, int D, Strides sq, Strides sk, Strides sv,
                          Strides sdo, Strides sdk, Strides sdv, int causal,
-                         int window, float scale) {
-  constexpr int NC = DMAX / 32;    // 4-column chunks of a thread's dK/dV row
+                         int window, int prefix, float scale) {
+  constexpr int PP = BKT + 8;      // pitch (floats) of the P and dS tiles
+  constexpr int TK = BKT / 8;      // a thread's keys of S and dP
+  constexpr int PC = BKT / 4;      // P and dS: 4-key column groups,
+  constexpr int PR = THREADS / PC;  // row groups of a pass,
+  constexpr int NP = BQ / PR;      // passes
+  constexpr int CA = 4 * 128 / BKT;  // dK/dV: 4-column groups of a thread
+  constexpr int NC = DMAX / (4 * CA);  // 4-column chunks of its dK/dV row
   constexpr int NQ = DMAX / 64;    // 4-column chunks of a thread's dQ row
   extern __shared__ __align__(16) uint8_t smem[];
   const int pitch = row_pitch(D, sizeof(T));
   uint8_t* Ks = smem;
-  uint8_t* Vs = Ks + BK * pitch;
-  uint8_t* Qs = Vs + BK * pitch;
+  uint8_t* Vs = Ks + BKT * pitch;
+  uint8_t* Qs = Vs + BKT * pitch;
   uint8_t* dOs = Qs + BQ * pitch;
   float* Ps = reinterpret_cast<float*>(dOs + BQ * pitch);   // S, then P
   float* dSs = Ps + BQ * PP;                                 // dP, then dS
@@ -238,10 +268,10 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
 
   const int group = H / Hkv;
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int kt = blockIdx.y, k0 = kt * BK;
+  const int kt = blockIdx.y, k0 = kt * BKT;
   const int nqt = (Sq + BQ - 1) / BQ;
   int first, last;
-  q_tiles(kt, nqt, causal, window, first, last);
+  q_tiles(kt, nqt, causal, window, first, last, prefix, BKT);
   const int per_head = last - first, n_it = group * per_head;
   const int BH = gridDim.x * group;  // B·H
   const int D4 = (D + 3) & ~3;
@@ -253,16 +283,19 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
     int64_t pair0 = 0;
     for (int j = 0; j < kt; ++j) {
       int f, l;
-      q_tiles(j, nqt, causal, window, f, l);
+      q_tiles(j, nqt, causal, window, f, l, prefix, BKT);
       pair0 += l - f;
     }
     part_kt = part + (pair0 - first) * BH * BQ * D4;
   }
   const int tid = threadIdx.x, grp = tid >> 7, t = tid & 127;
   // S, dP: rows rg + 16i, keys kg + 8j.  dK, dV: keys 4ka + u, columns
-  // 4ca + 32m.  P, dS and dS·K: rows rq + 16i, columns 4cq (+ 64m).
+  // 4ca + 4·CA·m.  P and dS: rows pr + PR·i, keys 4pc + u.  dS·K: rows
+  // rq + 16i, columns 4cq + 64m.  (Key tiles of 64: ka = t >> 3,
+  // ca = t & 7, pr = rq, pc = cq.)
   const int rg = t >> 3, kg = t & 7;
-  const int ka = t >> 3, ca = t & 7;
+  const int ka = t / CA, ca = t % CA;
+  const int pr = tid / PC, pc = tid % PC;
   const int rq = tid >> 4, cq = tid & 15;
 
   // iteration it: query head hk·group + it / per_head, query tile
@@ -273,9 +306,9 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
   const auto gh_of = [&](int h) { return dO + b * sdo.b + h * sdo.h; };
 
   stage<T, DMAX, VEC, THREADS>(Ks, pitch, k + b * sk.b + hk * sk.h, sk.s,
-                               k0, BK, Skv, D);
+                               k0, BKT, Skv, D);
   stage<T, DMAX, VEC, THREADS>(Vs, pitch, v + b * sv.b + hk * sv.h, sv.s,
-                               k0, BK, Skv, D);
+                               k0, BKT, Skv, D);
   {
     const int h = head_of(0), q0 = q0_of(0);
     stage<T, DMAX, VEC, THREADS>(Qs, pitch, qh_of(h), sq.s, q0, BQ, Sq, D);
@@ -309,22 +342,22 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                       // (1) this query tile is staged
 
     // S = Q·Kᵀ (group 0) or dP = dO·Vᵀ (group 1), 4 head-dim values at a
-    // time: 4 + 8 shared loads per 128 FFMA.
+    // time: 4 + TK shared loads per 16·TK FFMA.
     {
       const uint8_t* As = grp ? dOs : Qs;
       const uint8_t* Bs = grp ? Vs : Ks;
-      float s[4][8];
+      float s[4][TK];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+        for (int j = 0; j < TK; ++j) s[i][j] = 0.f;
       for (int d0 = 0; d0 < D4; d0 += 4) {
         float4 af[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           af[i] = lds4<T>(As + (rg + 16 * i) * pitch, d0);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < TK; ++j) {
           const float4 bf = lds4<T>(Bs + (kg + 8 * j) * pitch, d0);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -339,32 +372,34 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < TK; ++j)
           out[(rg + 16 * i) * PP + kg + 8 * j] = s[i][j];
     }
     __syncthreads();                       // (2) S and dP are in shared
 
     // P = exp(S·scale − lse), dS = P ∘ (dP − Δ); masked entries are 0.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rq + 16 * i, qpos = q0_of(it) + r;
+    for (int i = 0; i < NP; ++i) {
+      const int r = pr + PR * i, qpos = q0_of(it) + r;
+      const int lastk = max(qpos, prefix - 1);  // the causal mask's last key
       const float L = Ls[r], dl = Ds[r];
-      float* pr = Ps + r * PP + 4 * cq;
-      float* dr = dSs + r * PP + 4 * cq;
-      const float4 sv4 = *reinterpret_cast<const float4*>(pr);
-      const float4 dp4 = *reinterpret_cast<const float4*>(dr);
+      float* prow = Ps + r * PP + 4 * pc;
+      float* drow = dSs + r * PP + 4 * pc;
+      const float4 sv4 = *reinterpret_cast<const float4*>(prow);
+      const float4 dp4 = *reinterpret_cast<const float4*>(drow);
       float p[4], ds[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int kpos = k0 + 4 * cq + u;
+        const int kpos = k0 + 4 * pc + u;
         const bool open = qpos < Sq && kpos < Skv &&
-                          (!causal || kpos <= qpos) &&
+                          (!causal || kpos <= lastk) &&
                           (window <= 0 || qpos - kpos < window);
         p[u] = open ? expf(lane4(sv4, u) * scale - L) : 0.f;
         ds[u] = p[u] * (lane4(dp4, u) - dl);
       }
-      *reinterpret_cast<float4*>(pr) = make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(dr) = make_float4(ds[0], ds[1], ds[2], ds[3]);
+      *reinterpret_cast<float4*>(prow) = make_float4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<float4*>(drow) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
     }
     __syncthreads();                       // (3) P and dS are in shared
 
@@ -379,7 +414,7 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
             *reinterpret_cast<const float4*>(Ms + r * PP + 4 * ka);
 #pragma unroll
         for (int m = 0; m < NC; ++m) {
-          const int col = 4 * ca + 32 * m;
+          const int col = 4 * ca + 4 * CA * m;
           if (col >= D) continue;
           const float4 of = lds4<T>(Os + r * pitch, col);
           acc[0][m] = fma4(pf.x, of, acc[0][m]);
@@ -410,7 +445,7 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int m = 0; m < NQ; ++m) dq[i][m] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int j0 = 0; j0 < BK; j0 += 4) {
+    for (int j0 = 0; j0 < BKT; j0 += 4) {
       float4 df[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -454,7 +489,7 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
     T* row = oh + (int64_t)key * ss;
 #pragma unroll
     for (int m = 0; m < NC; ++m) {
-      const int col = 4 * ca + 32 * m;
+      const int col = 4 * ca + 4 * CA * m;
       if (col >= D) continue;
       const float r[4] = {acc[u][m].x * sc, acc[u][m].y * sc,
                           acc[u][m].z * sc, acc[u][m].w * sc};
@@ -463,16 +498,16 @@ flash_attention_bwd_tile(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dQ = scale · Σ_kt part[kt], over the key tiles that wrote the row's
-// query tile, added in key-tile order; one thread per 4 columns of a row,
-// written in T.  VEC: dq's strides a multiple of 4, base 16-byte aligned,
-// D % 4 == 0.
+// dQ = scale · Σ_kt part[kt], over the key tiles (of bk keys) that wrote
+// the row's query tile, added in key-tile order; one thread per 4 columns
+// of a row, written in T.  VEC: dq's strides a multiple of 4, base 16-byte
+// aligned, D % 4 == 0.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(256)
 flash_attention_bwd_dq_sum(const float* __restrict__ part, T* __restrict__ dq,
                            int H, int Sq, int Skv, int D, int causal,
-                           int window, Strides sdq, float scale,
-                           int64_t rows) {
+                           int window, int prefix, int bk, Strides sdq,
+                           float scale, int64_t rows) {
   const int D4 = (D + 3) & ~3, c4 = D4 / 4;
   const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
   if (i >= rows * c4) return;
@@ -480,14 +515,14 @@ flash_attention_bwd_dq_sum(const float* __restrict__ part, T* __restrict__ dq,
   const int col = static_cast<int>(i % c4) * 4;
   const int bh = static_cast<int>(row / Sq);
   const int qpos = static_cast<int>(row % Sq);
-  const int qt = qpos / BQ, nkt = (Skv + BK - 1) / BK;
+  const int qt = qpos / BQ, nkt = (Skv + bk - 1) / bk;
   const int nqt = (Sq + BQ - 1) / BQ;
   const int64_t BH = rows / Sq;
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   int64_t pair0 = 0;
   for (int kt = 0; kt < nkt; ++kt) {
     int first, last;
-    q_tiles(kt, nqt, causal, window, first, last);
+    q_tiles(kt, nqt, causal, window, first, last, prefix, bk);
     if (qt >= first && qt < last) {
       const float4 x = *reinterpret_cast<const float4*>(
           part + ((pair0 + qt - first) * BH + bh) * BQ * D4 +
@@ -503,8 +538,9 @@ flash_attention_bwd_dq_sum(const float* __restrict__ part, T* __restrict__ dq,
 }
 
 int64_t partial_floats(int B, int H, int Sq, int Skv, int D, int causal,
-                       int window) {
-  return pair_count(Sq, Skv, causal, window) * B * H * BQ * ((D + 3) & ~3);
+                       int window, int prefix) {
+  return pair_count(Sq, Skv, causal, window, prefix, key_tile(D)) * B * H *
+         BQ * ((D + 3) & ~3);
 }
 
 // One call's operands and gradients (q, k, v, o, dO; dq, dk, dv), their
@@ -513,7 +549,7 @@ struct Call {
   const void *q, *k, *v, *o, *dO;
   void *dq, *dk, *dv;
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
-  int B, H, Hkv, Sq, Skv, D, causal, window;
+  int B, H, Hkv, Sq, Skv, D, causal, window, prefix;
 };
 
 // Every row of a (B, heads, S, ·) view whole chunks of e elements (the
@@ -537,11 +573,12 @@ inline bool vec_tile(const Call& c, int esize) {
          aligned(c.v) && aligned(c.dO) && aligned(c.dk) && aligned(c.dv);
 }
 
-// The tensor-core route's rule: bf16, D a multiple of 16 up to 128, and
-// 16-byte staging of q, k, v, dO and 16-byte rows of dq, dk, dv.
+// The tensor-core route's rule: bf16, D a multiple of 16 up to 128,
+// 16-byte staging of q, k, v, dO and 16-byte rows of dq, dk, dv, and no
+// prefix.
 inline bool tc_route(const Call& c, int bf16) {
-  return bf16 && c.D % 16 == 0 && c.D <= 128 && vec_tile(c, 2) &&
-         rows_ok(c, c.sdq, c.H, 8) && aligned(c.dq);
+  return bf16 && c.D % 16 == 0 && c.D <= 128 && c.prefix == 0 &&
+         vec_tile(c, 2) && rows_ok(c, c.sdq, c.H, 8) && aligned(c.dq);
 }
 
 // Δ into `delta` (B·H·Sq floats).
@@ -561,22 +598,28 @@ int launch_delta(const Call& c, float* delta, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tile kernel's instance at (T, DMAX): its key tile is key_tile(DMAX).
+template <typename T, int DMAX, bool VEC>
+inline auto tile_kernel() {
+  return &flash_attention_bwd_tile<T, DMAX, key_tile(DMAX), VEC>;
+}
+
 // The FFMA route: Δ, the tile kernel, the dQ sums.
 template <typename T, int DMAX>
 int launch(const Call& c, const float* lse, float* scratch, float scale,
            cudaStream_t stream) {
   const int B = c.B, H = c.H, Hkv = c.Hkv, Sq = c.Sq, Skv = c.Skv, D = c.D;
-  const int nkt = (Skv + BK - 1) / BK;
+  constexpr int BKT = key_tile(DMAX);
+  const int nkt = (Skv + BKT - 1) / BKT;
   const int64_t rows = (int64_t)B * H * Sq;
   float* part = scratch;
-  float* delta =
-      scratch + partial_floats(B, H, Sq, Skv, D, c.causal, c.window);
+  float* delta = scratch + partial_floats(B, H, Sq, Skv, D, c.causal,
+                                          c.window, c.prefix);
   int rc = launch_delta<T>(c, delta, stream);
   if (rc != 0) return rc;
-  auto kern = vec_tile(c, sizeof(T))
-                  ? flash_attention_bwd_tile<T, DMAX, true>
-                  : flash_attention_bwd_tile<T, DMAX, false>;
-  const int smem = tile_bytes(D, sizeof(T));
+  auto kern = vec_tile(c, sizeof(T)) ? tile_kernel<T, DMAX, true>()
+                                     : tile_kernel<T, DMAX, false>();
+  const int smem = tile_bytes(D, sizeof(T), BKT);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -585,7 +628,7 @@ int launch(const Call& c, const float* lse, float* scratch, float scale,
   kern<<<dim3(B * Hkv, nkt), THREADS, smem, stream>>>(
       in(c.q), in(c.k), in(c.v), in(c.dO), lse, delta, out(c.dk), out(c.dv),
       part, H, Hkv, Sq, Skv, D, c.sq, c.sk, c.sv, c.sdo, c.sdk, c.sdv,
-      c.causal, c.window, scale);
+      c.causal, c.window, c.prefix, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
@@ -593,12 +636,12 @@ int launch(const Call& c, const float* lse, float* scratch, float scale,
   const unsigned blocks = static_cast<unsigned>((n4 + 255) / 256);
   if (D % 4 == 0 && rows_ok(c, c.sdq, H, 4) && aligned(c.dq))
     flash_attention_bwd_dq_sum<T, true><<<blocks, 256, 0, stream>>>(
-        part, out(c.dq), H, Sq, Skv, D, c.causal, c.window, c.sdq, scale,
-        rows);
+        part, out(c.dq), H, Sq, Skv, D, c.causal, c.window, c.prefix, BKT,
+        c.sdq, scale, rows);
   else
     flash_attention_bwd_dq_sum<T, false><<<blocks, 256, 0, stream>>>(
-        part, out(c.dq), H, Sq, Skv, D, c.causal, c.window, c.sdq, scale,
-        rows);
+        part, out(c.dq), H, Sq, Skv, D, c.causal, c.window, c.prefix, BKT,
+        c.sdq, scale, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -606,7 +649,28 @@ template <typename T>
 int by_width(const Call& c, const float* lse, float* scratch, float scale,
              cudaStream_t cs) {
   if (c.D <= 64) return launch<T, 64>(c, lse, scratch, scale, cs);
-  return launch<T, 128>(c, lse, scratch, scale, cs);
+  if (c.D <= 128) return launch<T, 128>(c, lse, scratch, scale, cs);
+  return launch<T, 256>(c, lse, scratch, scale, cs);
+}
+
+// Registers a thread, local (spill) bytes and dynamic shared bytes of the
+// tile kernel at head dim D, its 16-byte-staging instance.
+template <typename T, int DMAX>
+int tile_attrs(int D, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, tile_kernel<T, DMAX, true>());
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = tile_bytes(D, sizeof(T), key_tile(DMAX));
+  return static_cast<int>(e);
+}
+
+template <typename T>
+int tile_attrs_by_width(int D, int* out) {
+  if (D <= 64) return tile_attrs<T, 64>(D, out);
+  if (D <= 128) return tile_attrs<T, 128>(D, out);
+  return tile_attrs<T, 256>(D, out);
 }
 
 // ---- bf16 backward on the tensor cores -----------------------------------
@@ -1207,13 +1271,14 @@ int attrs_by_width(int D, int which, int* out) {
 Call make_call(const void* q, const void* k, const void* v, const void* o,
                const void* dO, void* dq, void* dk, void* dv, int B, int H,
                int Hkv, int Sq, int Skv, int D, const long long* strides,
-               int causal, int window) {
+               int causal, int window, int prefix) {
   Strides st[8];
   for (int i = 0; i < 8; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  return Call{q,     k,     v,     o,     dO,    dq,  dk, dv,     st[0],
-              st[1], st[2], st[3], st[4], st[5], st[6], st[7], B,  H,
-              Hkv,   Sq,    Skv,   D,     causal, window};
+  return Call{q,     k,     v,     o,     dO,    dq,     dk,     dv,
+              st[0], st[1], st[2], st[3], st[4], st[5],  st[6],  st[7],
+              B,     H,     Hkv,   Sq,    Skv,   D,      causal, window,
+              prefix};
 }
 
 }  // namespace bwd
@@ -1221,19 +1286,31 @@ Call make_call(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // Float32 scratch the backward of these operands needs (the arguments
-// of flash_attention_bwd less lse, scratch and stream): Δ (B·H·Sq) on the
-// tensor-core route; on the FFMA route the dQ shares of every open
+// of flash_attention_bwd less lse, scratch, scale and stream): Δ (B·H·Sq)
+// on the tensor-core route; on the FFMA route the dQ shares of every open
 // (key tile, query tile) pair of every query head, then Δ.
 extern "C" long long flash_attention_bwd_scratch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, void* dq, void* dk, void* dv, int bf16, int B, int H,
     int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
-    int window) {
+    int window, int prefix) {
   const bwd::Call c = bwd::make_call(q, k, v, o, dO, dq, dk, dv, B, H, Hkv,
-                                     Sq, Skv, D, strides, causal, window);
+                                     Sq, Skv, D, strides, causal, window,
+                                     prefix);
   const long long delta = (long long)B * H * Sq;
   if (bwd::tc_route(c, bf16)) return delta;
-  return bwd::partial_floats(B, H, Sq, Skv, D, causal, window) + delta;
+  return bwd::partial_floats(B, H, Sq, Skv, D, causal, window, prefix) +
+         delta;
+}
+
+// Registers a thread, local (spill) bytes and dynamic shared bytes of the
+// FFMA route's tile kernel at head dim D (its 16-byte-staging instance),
+// float32 (bf16 = 0) or bf16 (bf16 = 1), into out[0..2].  Returns the CUDA
+// error code.
+extern "C" int flash_attention_bwd_tile_attrs(int D, int bf16, int* out) {
+  if (D <= 0 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? bwd::tile_attrs_by_width<__nv_bfloat16>(D, out)
+              : bwd::tile_attrs_by_width<float>(D, out);
 }
 
 // Registers a thread, local (spill) bytes and dynamic shared bytes of the
@@ -1250,23 +1327,27 @@ extern "C" int flash_attention_bwd_tc_attrs(int D, int which, int* out) {
 // dO, dq, dk, dv; all float32 (bf16 = 0) or all bf16 (bf16 = 1).  lse:
 // the forward's contiguous float32 (B·H, Sq) row log-sum-exp; scratch:
 // flash_attention_bwd_scratch(...) floats, 16-byte aligned.  causal,
-// window as the forward's (window ≤ 0: none; either takes Sq == Skv).
-// D ≤ 128, Skv ≤ 65,535 key tiles of 64.  Launches three kernels on
-// `stream` (the route by shape: see the top of this file), allocates
-// nothing, returns the CUDA error code (0 on success).
+// window, prefix as the forward's (window ≤ 0: none; prefix > 0 takes
+// causal; each takes Sq == Skv).  D ≤ 256, Skv ≤ 65,535 key tiles
+// (`key_tile(D)` keys each).  Launches three kernels on `stream` (the
+// route by shape: see the top of this file), allocates nothing, returns
+// the CUDA error code (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* scratch, void* dq, void* dk,
     void* dv, int bf16, int B, int H, int Hkv, int Sq, int Skv, int D,
-    const long long* strides, int causal, int window, float scale,
-    void* stream) {
+    const long long* strides, int causal, int window, int prefix,
+    float scale, void* stream) {
   if (B == 0 || H == 0 || Sq == 0 || D == 0) return 0;
-  if (D > 128 || Hkv <= 0 || H % Hkv != 0 || Skv <= 0 ||
-      (Skv + bwd::BK - 1) / bwd::BK > bwd::MAX_KEY_TILES ||
-      ((causal || window > 0) && Sq != Skv))
+  const int bk = bwd::key_tile(D);
+  if (D > 256 || Hkv <= 0 || H % Hkv != 0 || Skv <= 0 ||
+      (Skv + bk - 1) / bk > bwd::MAX_KEY_TILES ||
+      ((causal || window > 0) && Sq != Skv) || prefix < 0 ||
+      (prefix > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   const bwd::Call c = bwd::make_call(q, k, v, o, dO, dq, dk, dv, B, H, Hkv,
-                                     Sq, Skv, D, strides, causal, window);
+                                     Sq, Skv, D, strides, causal, window,
+                                     prefix);
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);

@@ -13,11 +13,11 @@ plain versions; on the card, when an input requires grad, through a
 ``torch.autograd.Function`` whose backward is a hand-written kernel
 (``adaln_fuse_bwd``, ``flash_attention_bwd``, ``ssd_scan_bwd``).  A call
 the backward does not take (AdaLN operands not float32; attention with
-``D > 128``, past the backward's grid or of another dtype than float32 or
+``D > 256``, past the backward's grid or of another dtype than float32 or
 bf16; a scan of another dtype than float32 or bf16, P > 64 or N > 128)
 raises ``NotImplementedError`` rather than return a tensor without a
-gradient.  The attention backward takes the forward's causal and window
-masks and grouped kv heads.  Without grad the forward
+gradient.  The attention backward takes the forward's causal, prefix-LM
+and window masks and grouped kv heads.  Without grad the forward
 is the plain launch: nothing is saved, no log-sum-exp and no tile-start
 state is written.
 """
@@ -36,7 +36,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.adaln_fuse import adaln_fuse as _adaln_fuse
 from repro_torch.kernels.adaln_fuse import adaln_fuse_bwd as _adaln_fuse_bwd
 from repro_torch.kernels.flash_attention import BWD_MAX_D as _FLASH_BWD_MAX_D
-from repro_torch.kernels.flash_attention import BWD_MAX_S as _FLASH_BWD_MAX_S
+from repro_torch.kernels.flash_attention import bwd_max_s as _flash_bwd_max_s
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import \
     flash_attention_bwd as _flash_bwd
@@ -291,10 +291,13 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     softmax_scale: float | None = None,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
-    """Attention in the reference's ``(B, H, S, D)`` layout: causal and
-    sliding-window masks, softmax scale (default ``1/sqrt(D)``), float32
-    accumulation, output in ``q``'s dtype.  k and v may carry fewer heads
+    """Attention in the reference's ``(B, H, S, D)`` layout: causal,
+    prefix-LM (``prefix_len`` P: positions below P see each other both
+    ways; causal calls only) and sliding-window masks, softmax scale
+    (default ``1/sqrt(D)``), float32 accumulation, output in ``q``'s
+    dtype.  k and v may carry fewer heads
     (``Hq % Hkv == 0``; query head ``h`` reads kv head ``h // (Hq/Hkv)``)
     and a length of their own (``Sq`` query rows over ``Skv`` keys: a
     cross-attention), which a causal or windowed call refuses (the kernel's
@@ -307,27 +310,29 @@ def flash_attention(
     if q.is_cuda:
         if _wants_grad(q, k, v):
             _flash_grad_supported(q, k, v)
-            return _Flash.apply(q, k, v, causal, window, softmax_scale)
+            return _Flash.apply(q, k, v, causal, window, softmax_scale,
+                                prefix_len)
         out = _flash(q, k, v, causal=causal, window=window,
-                     softmax_scale=softmax_scale)
+                     softmax_scale=softmax_scale, prefix_len=prefix_len)
         LAUNCHES["flash_attention"] += 1
         return out
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=1)
         v = v.repeat_interleave(hq // hkv, dim=1)
     return _ref.ref_flash_attention(q, k, v, causal=causal, window=window,
-                                    softmax_scale=softmax_scale)
+                                    softmax_scale=softmax_scale,
+                                    prefix_len=prefix_len)
 
 
 def _flash_grad_supported(q, k, v) -> None:
     dtypes = {q.dtype, k.dtype, v.dtype}
     s, d = k.shape[2], q.shape[3]
     if (len(dtypes) != 1 or q.dtype not in (torch.float32, torch.bfloat16)
-            or d > _FLASH_BWD_MAX_D or s > _FLASH_BWD_MAX_S):
+            or d > _FLASH_BWD_MAX_D or s > _flash_bwd_max_s(d)):
         raise NotImplementedError(
             f"the flash_attention backward takes float32 or bf16 q, k, v of "
             f"one dtype with D ≤ {_FLASH_BWD_MAX_D} and Skv ≤ "
-            f"{_FLASH_BWD_MAX_S}; got {q.dtype}, {k.dtype}, {v.dtype}, "
+            f"{_flash_bwd_max_s(d)}; got {q.dtype}, {k.dtype}, {v.dtype}, "
             f"D {d}, Skv {s}")
 
 
@@ -337,12 +342,13 @@ class _Flash(torch.autograd.Function):
     log-sum-exp, saved with q, k, v and the output."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softmax_scale):
+    def forward(ctx, q, k, v, causal, window, softmax_scale, prefix_len):
         out, lse = _flash(q, k, v, causal=causal, window=window,
-                          softmax_scale=softmax_scale, with_lse=True)
+                          softmax_scale=softmax_scale, with_lse=True,
+                          prefix_len=prefix_len)
         LAUNCHES["flash_attention"] += 1
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, window)
+        ctx.mask = (causal, window, prefix_len)
         ctx.scale = softmax_scale
         return out
 
@@ -351,20 +357,21 @@ class _Flash(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if d_out.stride(-1) != 1:
             d_out = d_out.contiguous()
-        causal, window = ctx.mask
+        causal, window, prefix_len = ctx.mask
         grads = _flash_bwd(q, k, v, out, lse, d_out, causal=causal,
-                           window=window, softmax_scale=ctx.scale)
+                           window=window, softmax_scale=ctx.scale,
+                           prefix_len=prefix_len)
         LAUNCHES["flash_attention_bwd"] += 1
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention_gqa(q, k, v, *, causal=True, window=0,
-                        softmax_scale=None) -> torch.Tensor:
+                        softmax_scale=None, prefix_len=0) -> torch.Tensor:
     """GQA front end: q ``(B, Hq, Sq, D)``, k/v ``(B, Hkv, Skv, D)``.  The
     reference repeats kv heads before its MHA kernel; the port's kernel
     indexes kv head ``h // (Hq/Hkv)`` in place (same result, no copy)."""
     return flash_attention(q, k, v, causal=causal, window=window,
-                           softmax_scale=softmax_scale)
+                           softmax_scale=softmax_scale, prefix_len=prefix_len)
 
 
 def ssd_chunk_len(s: int, chunk: int) -> int:

@@ -128,11 +128,18 @@ def ref_ragged_gemm(
     return y
 
 
-def _masked(logits: torch.Tensor, causal: bool, window: int):
-    """``(…, Sq, Skv)`` logits with the causal (``kpos ≤ qpos``) and
-    sliding-window (``qpos − kpos < window``) masks at ``-1e30``.  The
-    masks compare positions of one sequence: with either, ``Sq ≠ Skv``
-    raises (an encoder-decoder's cross-attention is unmasked)."""
+def _masked(logits: torch.Tensor, causal: bool, window: int,
+            prefix_len: int = 0):
+    """``(…, Sq, Skv)`` logits with the causal (``kpos ≤ qpos``; with a
+    prefix ``P``, ``kpos ≤ qpos or (qpos < P and kpos < P)``: the
+    reference's prefix-LM mask) and sliding-window (``qpos − kpos <
+    window``) masks at ``-1e30``.  The masks compare positions of one
+    sequence: with either, ``Sq ≠ Skv`` raises (an encoder-decoder's
+    cross-attention is unmasked); a prefix without ``causal`` raises."""
+    if prefix_len < 0 or (prefix_len and not causal):
+        raise ValueError(f"a prefix-LM mask takes causal attention and "
+                         f"prefix_len ≥ 0, got causal {causal}, prefix_len "
+                         f"{prefix_len}")
     if not (causal or window):
         return logits
     if logits.shape[-2] != logits.shape[-1]:
@@ -144,7 +151,8 @@ def _masked(logits: torch.Tensor, causal: bool, window: int):
     mask = torch.ones(logits.shape[-2:], dtype=torch.bool,
                       device=logits.device)
     if causal:
-        mask = mask & (kpos <= qpos)
+        mask = mask & ((kpos <= qpos)
+                       | ((qpos < prefix_len) & (kpos < prefix_len)))
     if window:
         mask = mask & (qpos - kpos < window)
     return torch.where(mask, logits, logits.new_tensor(-1e30))
@@ -158,17 +166,19 @@ def ref_flash_attention(
     causal: bool = True,
     window: int = 0,
     softmax_scale: float | None = None,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """Attention of ``Sq`` query rows over ``Skv`` keys: float32 logits
-    ``q·kᵀ·scale``, causal (``kpos ≤ qpos``) and sliding-window
-    (``qpos − kpos < window``) masks at ``-1e30`` (either takes
-    ``Sq == Skv``), a float32 softmax over keys, then ``p·v``; the output
-    in ``q``'s dtype."""
+    ``q·kᵀ·scale``, causal (``kpos ≤ qpos``; with ``prefix_len`` P also
+    every pair below P: the prefix-LM mask, causal calls only) and
+    sliding-window (``qpos − kpos < window``) masks at ``-1e30`` (each
+    takes ``Sq == Skv``), a float32 softmax over keys, then ``p·v``; the
+    output in ``q``'s dtype."""
     d = q.shape[3]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     logits = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) \
         * scale
-    logits = _masked(logits, causal, window)
+    logits = _masked(logits, causal, window, prefix_len)
     p = torch.softmax(logits, dim=-1)
     return (p @ v.to(torch.float32)).to(q.dtype)
 
@@ -245,10 +255,11 @@ def ref_flash_attention_bwd(
     causal: bool = False,
     window: int = 0,
     softmax_scale: float | None = None,
+    prefix_len: int = 0,
 ):
     """Backward of ``ref_flash_attention`` in float32, written out, with
-    its causal and sliding-window masks (non-causal by default) and
-    grouped kv heads (query head ``h`` reads kv head ``h // (H/Hkv)``):
+    its causal, prefix-LM and sliding-window masks (non-causal by default)
+    and grouped kv heads (query head ``h`` reads kv head ``h // (H/Hkv)``):
     ``P = softmax(mask(q·kᵀ·scale))``, ``dV = Pᵀ·dO``,
     ``dS = P ∘ (dO·Vᵀ − Δ)`` with ``Δ = rowsum(dO ∘ O)``,
     ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, dK and dV summed over the
@@ -263,7 +274,7 @@ def ref_flash_attention_bwd(
         k32, v32 = (a.repeat_interleave(g, dim=1) for a in (k32, v32))
     do = d_out.to(torch.float32)
     logits = (q32 @ k32.transpose(-1, -2)) * scale
-    logits = _masked(logits, causal, window)
+    logits = _masked(logits, causal, window, prefix_len)
     p = torch.softmax(logits, dim=-1)
     o = p @ v32
     dv = p.transpose(-1, -2) @ do

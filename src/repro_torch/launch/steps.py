@@ -5,12 +5,11 @@
 tensors on the ``meta`` device, the port's stand-in for the reference's
 ``ShapeDtypeStruct``s: shapes and dtypes, no storage, so a 2.7B-parameter
 tree comes back without touching the card.  The step builders close over
-configs only.  The port runs the ``ssm``, ``hybrid``, ``dense``,
-``moe`` and ``audio`` families (a decode step's inputs hold their
-caches: SSM states, KV caches, slot positions and the encoder-decoder's
-cross-attention keys and values; a training or prefill batch of the
-audio family its stubbed frame embeddings); the VLM family's frontend
-inputs wait with its backbone (ROADMAP.md, module queue A.10).
+configs only.  The port runs every family of the reference (a decode
+step's inputs hold their caches: SSM states, KV caches, slot positions
+and the encoder-decoder's cross-attention keys and values; a training or
+prefill batch of the audio family its stubbed frame embeddings, of the
+VLM family its stubbed patch embeddings).
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import torch
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import zoo
 from repro_torch.models.config import LMConfig
-from repro_torch.models.frontend_stubs import audio_spec
+from repro_torch.models.frontend_stubs import audio_spec, vision_spec
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update_)
 from repro_torch.training.trainer import value_and_grad
@@ -58,10 +57,6 @@ def cfg_for_shape(cfg: LMConfig, shape: InputShape) -> tuple[LMConfig, int]:
 
 def input_specs(cfg: LMConfig, shape: InputShape) -> dict:
     """Meta-device stand-ins for every model input of this shape."""
-    if cfg.arch_type == "vlm":
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} inputs are not ported yet "
-            f"(ROADMAP.md, module queue A.10)")
     b, s = shape.global_batch, shape.seq_len
     tok = torch.empty((b, s), dtype=torch.int32, device=META)
     if shape.kind in ("train", "prefill"):
@@ -69,6 +64,8 @@ def input_specs(cfg: LMConfig, shape: InputShape) -> dict:
                  else {"tokens": tok})
         if cfg.arch_type == "audio":
             batch["audio_embeds"] = audio_spec(cfg, b)
+        if cfg.arch_type == "vlm":
+            batch["vision_embeds"] = vision_spec(cfg, b)
         return {"batch": batch}
     # decode: ONE new token against a seq_len cache.
     rcfg, cache_len = cfg_for_shape(cfg, shape)

@@ -14,10 +14,10 @@ hybrid zamba2-2.7b, the dense internlm2-1.8b — the default —,
 stablelm-1.6b, deepseek-67b and deepseek-coder-33b, the MoE mixtral-8x7b
 and mixtral-8x22b, the encoder-decoder whisper-large-v3, whose batches
 also take the stubbed frame embeddings ``audio_frame_embeddings(cfg,
-batch, seed=i)``; paligemma-3b, not ported, raises
-``NotImplementedError`` naming ROADMAP A.10) on ``lm_batch`` token
-batches with ``make_lm_train_step``, printing each step's loss; reduced
-unless ``--full``.
+batch, seed=i)``, and the VLM paligemma-3b, whose batches take the
+stubbed patch embeddings ``vision_patch_embeddings(cfg, batch, seed=i)``)
+on ``lm_batch`` token batches with ``make_lm_train_step``, printing each
+step's loss; reduced unless ``--full``.
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions.
 
@@ -31,6 +31,8 @@ Runs on the card; ``--device cpu`` runs the kernels' plain versions.
       --arch mixtral-8x7b --steps 3 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
       --arch whisper-large-v3 --steps 10 --batch 4 --seq-len 1024 --full
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
+      --arch paligemma-3b --steps 10 --batch 4 --seq-len 1024 --full
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ from repro_torch.data import SyntheticSpec, fit_clusters, lm_batch
 from repro_torch.data.pipeline import ExpertDataStream
 from repro_torch.models import dit as D
 from repro_torch.models import zoo
-from repro_torch.models.frontend_stubs import audio_frame_embeddings
+from repro_torch.models.frontend_stubs import (audio_frame_embeddings,
+                                               vision_patch_embeddings)
 from repro_torch.training import (AdamWConfig, ExpertTrainer, adamw_init,
                                   expert_metadata, make_lm_train_step,
                                   save_checkpoint)
@@ -110,6 +113,9 @@ def train_lm(args) -> None:
         batch = lm_batch(gen, args.batch, args.seq_len, cfg.vocab_size)
         if cfg.arch_type == "audio":
             batch["audio_embeds"] = audio_frame_embeddings(
+                cfg, args.batch, seed=i, device=dev)
+        if cfg.arch_type == "vlm":
+            batch["vision_embeds"] = vision_patch_embeddings(
                 cfg, args.batch, seed=i, device=dev)
         params, opt_state, loss, metrics = step_fn(params, opt_state, batch)
         value = loss.item()  # lint: allow-host-sync — printed

@@ -3,8 +3,8 @@
 
 The reference module imports ``jax.numpy`` for its dtype defaults, so the
 port keeps its own copy of the dataclasses: ``LMConfig`` (the sequence
-backbones of the LM-expert ensemble; the port serves the ``ssm``,
-``hybrid``, ``dense``, ``moe`` and ``audio`` families) and ``DiTConfig``
+backbones of the LM-expert ensemble; the port serves all of the
+reference's families) and ``DiTConfig``
 with the canonical paper architectures.
 """
 
@@ -23,8 +23,10 @@ class LMConfig:
     The port serves and trains ``arch_type`` ``"ssm"`` (Mamba2),
     ``"hybrid"`` (Zamba2), ``"dense"`` (GQA transformers), ``"moe"``
     (the GQA transformer with a top-k routed SwiGLU expert layer in place
-    of its FFN: Mixtral) and ``"audio"`` (Whisper's encoder-decoder over
-    stubbed frame embeddings), and keeps the fields those backbones, the
+    of its FFN: Mixtral), ``"audio"`` (Whisper's encoder-decoder over
+    stubbed frame embeddings) and ``"vlm"`` (PaliGemma: the GQA
+    transformer after a bidirectional prefix of stubbed patch
+    embeddings), and keeps the fields those backbones, the
     frontend stubs and ``launch.steps`` read; a later backbone adds the
     fields it needs.  Attention of every backbone runs
     through the flash attention kernel, which computes the reference's

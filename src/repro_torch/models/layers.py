@@ -12,7 +12,10 @@ through the kernel wrappers (``kernels.ops.layernorm``,
 cross-attention, whose query and text lengths differ.  The LMs' causal
 attention over a sequence goes through ``flash_attention_gqa``
 (``models.transformer``); ``decode_attention``, one token against a KV
-cache, is plain torch, as the reference computes it in jnp.  So is the
+cache, is plain torch, as the reference computes it in jnp, and so is
+``chunked_attention``, the reference's attention function with all its
+masks (positions, window, prefix-LM, valid slots), which no model path of
+the port calls.  So is the
 routed expert layer ``moe_apply`` (the reference computes it in jnp:
 einsums and a scatter/gather dispatch, outside any Pallas kernel); its
 expert products are ATen GEMMs.  So are Whisper's affine ``layernorm``
@@ -117,7 +120,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-#: the masked logit of ``decode_attention`` (the reference's ``NEG_INF``)
+#: the masked logit of ``decode_attention`` and ``chunked_attention`` (the
+#: reference's ``NEG_INF``)
 NEG_INF = -1e30
 
 
@@ -149,6 +153,118 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.to(torch.float32))
     return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                      causal: bool = True, window: int = 0,
+                      prefix_len: int = 0,
+                      kv_valid: torch.Tensor | None = None,
+                      chunk_size: int = 512, kv_chunk: int = 0,
+                      f32_softmax: bool = True,
+                      softmax_scale: float | None = None) -> torch.Tensor:
+    """The reference's ``chunked_attention`` in plain torch, every argument
+    with its meaning there: GQA, causality, sliding window, prefix-LM and
+    a valid-slot mask over absolute positions.
+
+    ``q``: (B, Sq, Hq, D); ``k``/``v``: (B, Skv, Hkv, D), ``Hq % Hkv ==
+    0``.  ``q_positions``/``kv_positions``: (Sq,)/(Skv,) or (B, ·).
+    ``causal``: ``kv_pos ≤ q_pos``; ``window`` > 0 also ``q_pos − kv_pos <
+    window``; ``prefix_len``: positions below it also see each other both
+    ways — under ``causal`` only, as in the reference; ``kv_valid``: an
+    optional (B, Skv) bool mask of valid slots.  Queries run in chunks of
+    ``chunk_size`` (the last one padded with position 0); ``kv_chunk`` >
+    0 that divides ``Skv`` and is shorter than it blocks the keys too,
+    with an online-softmax accumulator.  A masked logit is ``-1e30``: a row
+    with every key masked averages the values uniformly, as the
+    reference's does.  ``f32_softmax=False`` (the reference's bf16 chain,
+    another function) raises.  Returns (B, Sq, Hq, D) in ``q``'s dtype.
+    The model code attends through ``kernels.ops.flash_attention_gqa``;
+    this is the reference's function for whatever calls it directly.
+    """
+    if not f32_softmax:
+        raise NotImplementedError(
+            "chunked_attention: f32_softmax=False (a bf16 softmax chain) is "
+            "not ported; the port's attention computes the float32 softmax")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv "
+                         f"heads")
+    g = hq // hkv
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    if q_positions.dim() == 1:
+        q_positions = q_positions[None].expand(b, sq)
+    if kv_positions.dim() == 1:
+        kv_positions = kv_positions[None].expand(b, skv)
+    n_chunks = max(1, -(-sq // chunk_size))
+    pad = n_chunks * chunk_size - sq
+    qf = q.to(torch.float32)
+    if pad:
+        qf = F.pad(qf, (0, 0, 0, 0, 0, pad))
+        q_positions = F.pad(q_positions, (0, pad))
+    qg = qf.reshape(b, -1, hkv, g, d).permute(0, 2, 3, 1, 4)  # B,Hkv,G,S,D
+    kT = k.to(torch.float32).permute(0, 2, 3, 1)            # (B, Hkv, D, Skv)
+    vv = v.to(torch.float32).permute(0, 2, 1, 3)            # (B, Hkv, Skv, D)
+    unmasked = not causal and not window and kv_valid is None
+
+    def block_mask(qp, kp):
+        """(B, C) q-positions × (B, K) kv-positions -> (B, C, K) bool."""
+        mask = torch.ones((qp.shape[0], qp.shape[1], kp.shape[1]),
+                          dtype=torch.bool, device=qp.device)
+        if causal:
+            cmask = kp[:, None, :] <= qp[:, :, None]
+            if prefix_len:
+                cmask = cmask | ((kp[:, None, :] < prefix_len)
+                                 & (qp[:, :, None] < prefix_len))
+            mask = mask & cmask
+        if window:
+            mask = mask & (qp[:, :, None] - kp[:, None, :] < window)
+        return mask
+
+    def one_chunk(qc, qp):
+        logits = torch.einsum("bhgcd,bhds->bhgcs", qc, kT) * scale
+        if not unmasked:
+            mask = block_mask(qp, kv_positions)
+            if kv_valid is not None:
+                mask = mask & kv_valid[:, None, :]
+            logits = torch.where(mask[:, None, None], logits,
+                                 logits.new_tensor(NEG_INF))
+        m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=NEG_INF)
+        p = torch.exp(logits - m)
+        denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        return torch.einsum("bhgcs,bhsd->bhgcd", p, vv) / denom
+
+    def one_chunk_online(qc, qp):
+        nk = skv // kv_chunk
+        m = qc.new_full(qc.shape[:-1] + (1,), NEG_INF)
+        l_sum = qc.new_zeros(qc.shape[:-1] + (1,))
+        acc = torch.zeros_like(qc)
+        for j in range(nk):
+            blk = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            logits = torch.einsum("bhgcd,bhdk->bhgck", qc,
+                                  kT[..., blk]) * scale
+            mask = block_mask(qp, kv_positions[:, blk])
+            if kv_valid is not None:
+                mask = mask & kv_valid[:, None, blk]
+            logits = torch.where(mask[:, None, None], logits,
+                                 logits.new_tensor(NEG_INF))
+            m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+            p = torch.exp(logits - m_new)
+            alpha = torch.exp(m - m_new)
+            l_sum = alpha * l_sum + p.sum(dim=-1, keepdim=True)
+            acc = alpha * acc + torch.einsum("bhgck,bhkd->bhgcd", p,
+                                             vv[:, :, blk])
+            m = m_new
+        return acc / torch.clamp(l_sum, min=1e-30)
+
+    run = (one_chunk_online if kv_chunk and skv % kv_chunk == 0
+           and skv > kv_chunk else one_chunk)
+    outs = [run(qg[:, :, :, c * chunk_size:(c + 1) * chunk_size],
+                q_positions[:, c * chunk_size:(c + 1) * chunk_size])
+            for c in range(n_chunks)]
+    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4)    # (B, S, Hkv, G, D)
+    return out.reshape(b, -1, hq, d)[:, :sq].to(q.dtype)
 
 
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:

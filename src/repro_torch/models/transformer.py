@@ -1,7 +1,9 @@
-"""Decoder-only transformer backbone, dense GQA and MoE (port of
-``repro.models.transformer``): stablelm-1.6b, internlm2-1.8b,
+"""Decoder-only transformer backbone, dense GQA, MoE and VLM prefix (port
+of ``repro.models.transformer``): stablelm-1.6b, internlm2-1.8b,
 deepseek-67b and deepseek-coder-33b (dense), mixtral-8x7b and
-mixtral-8x22b (MoE, sliding-window attention).
+mixtral-8x22b (MoE, sliding-window attention), paligemma-3b (``vlm``:
+the stubbed SigLIP patches, projected by ``vision_proj``, form a prefix
+that attends bidirectionally).
 
 Each block is RMSNorm, causal GQA attention with RoPE, RMSNorm, then
 SwiGLU — or, when ``cfg.num_experts``, the top-k routed SwiGLU experts of
@@ -17,12 +19,13 @@ hybrid backbone's shared block) goes through ``kernels.ops.
 flash_attention_gqa`` — the hand-written CUDA kernel on the card, its
 plain version on the CPU — on ``(B, H, S, D)`` views of the projections,
 causal over positions ``0 .. S−1`` (the kernel's index masks are the
-reference's position masks there).  ``decode_step`` attends one token to
-the KV cache with ``layers.decode_attention`` (plain torch, as the
-reference's jnp).  The MoE layers' load-balance losses, averaged over the
-layers, are ``forward_train``'s aux output and enter ``loss_fn`` with
-``aux_loss_weight``.  The VLM-prefix variant of the reference's module is
-not ported (ROADMAP.md, module queue A.10).
+reference's position masks there), with the VLM's prefix-LM mask
+(``prefix_len`` P: the ``P = vision_embeds.shape[1]`` patch positions
+see each other both ways).  ``decode_step`` attends one token to the KV
+cache with ``layers.decode_attention`` (plain torch, as the reference's
+jnp); its positions count the prefix.  The MoE layers' load-balance
+losses, averaged over the layers, are ``forward_train``'s aux output and
+enter ``loss_fn`` with ``aux_loss_weight``.
 
 Also the token-mean cross-entropy that every LM backbone's ``loss_fn``
 uses.
@@ -74,11 +77,12 @@ def _check_attention(cfg: LMConfig) -> None:
 
 
 def _attn_full(cfg: LMConfig, p: dict, h: torch.Tensor,
-               positions: torch.Tensor):
+               positions: torch.Tensor, prefix_len: int = 0):
     """Causal self-attention of the normed hidden states ``h`` (B, S, d)
-    at positions ``0 .. S−1``: projections, RoPE, the attention kernel,
-    the output projection.  Returns ``(y (B, S, d), (k, v))`` with the
-    roped keys and the values ``(B, S, Hkv, D)`` a KV cache keeps."""
+    at positions ``0 .. S−1`` (the first ``prefix_len`` of them
+    bidirectional among themselves): projections, RoPE, the attention
+    kernel, the output projection.  Returns ``(y (B, S, d), (k, v))`` with
+    the roped keys and the values ``(B, S, Hkv, D)`` a KV cache keeps."""
     _check_attention(cfg)
     hd = cfg.resolved_head_dim
     q, k, v = L.gqa_project(p, h, cfg.num_heads, cfg.num_kv_heads, hd)
@@ -86,7 +90,8 @@ def _attn_full(cfg: LMConfig, p: dict, h: torch.Tensor,
     k = L.apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention_gqa(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=True,
-                                  window=cfg.sliding_window)
+                                  window=cfg.sliding_window,
+                                  prefix_len=prefix_len)
     b, s = h.shape[:2]
     y = L.dense(p["wo"], out.transpose(1, 2).reshape(b, s, -1))
     return y, (k, v)
@@ -124,11 +129,11 @@ def _ffn(cfg: LMConfig, p: dict, h):
     return L.swiglu(p["ffn"], hn), None
 
 
-def block_apply(cfg: LMConfig, p: dict, h, positions):
+def block_apply(cfg: LMConfig, p: dict, h, positions, prefix_len: int = 0):
     """A block over a sequence: ``(h, (k, v), aux)`` (``aux`` the MoE's
     load-balance loss, ``None`` without experts)."""
     hn = L.rmsnorm(p["ln_attn"], h, cfg.norm_eps)
-    a, kv = _attn_full(cfg, p["attn"], hn, positions)
+    a, kv = _attn_full(cfg, p["attn"], hn, positions, prefix_len)
     h = h + a
     f, aux = _ffn(cfg, p, h)
     return h + f, kv, aux
@@ -170,27 +175,28 @@ def block_decode(cfg: LMConfig, p: dict, h: torch.Tensor, pos, k_c, v_c,
 
 
 # ---------------------------------------------------------------------------
-# The dense backbone
+# The dense, MoE and VLM backbone
 # ---------------------------------------------------------------------------
 
 
 def _check_family(cfg: LMConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} ({cfg.name}): the port's "
-            f"transformer is the dense and MoE GQA backbone; its VLM-prefix "
-            f"variant is not ported yet (ROADMAP.md, module queue A.10)")
+    if cfg.arch_type not in ("dense", "moe", "vlm"):
+        raise ValueError(
+            f"arch_type {cfg.arch_type!r} ({cfg.name}): the transformer is "
+            f"the dense, MoE and VLM-prefix backbone")
 
 
 def init(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
     """Random parameters with the reference's structure and init scheme,
-    drawn from ``gen`` on ``device`` (``None`` → ``"cuda"``)."""
+    drawn from ``gen`` on ``device`` (``None`` → ``"cuda"``); with
+    ``cfg.vision_prefix_len`` also ``vision_proj``, the (d, d) projector
+    of the stubbed patch embeddings."""
     _check_family(cfg)
     dev = resolve_device(device)
     pd = cfg.param_dtype
     blocks = tree_stack_layers(lambda: block_init(cfg, gen, dev),
                                cfg.num_layers)
-    return {
+    params = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev,
                               dtype=pd),
         "blocks": blocks,
@@ -198,41 +204,61 @@ def init(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
         "unembed": L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                 device=dev, dtype=pd),
     }
+    if cfg.vision_prefix_len:
+        params["vision_proj"] = L.dense_init(gen, cfg.d_model, cfg.d_model,
+                                             device=dev, dtype=pd)
+    return params
 
 
-def _residual(cfg: LMConfig, p: dict, h, positions):
-    h, _, aux = block_apply(cfg, p, h, positions)
+def _embed_inputs(cfg: LMConfig, params, tokens, vision_embeds):
+    """The token embeddings, after the projected patch embeddings when the
+    config has a vision prefix and ``vision_embeds`` (B, P, d) are given:
+    ``(h (B, P + S, d), P)`` (``P`` 0 without them)."""
+    h = L.embed(params["embed"], tokens, cfg.activation_dtype)
+    if not (cfg.vision_prefix_len and vision_embeds is not None):
+        return h, 0
+    vis = L.dense(params["vision_proj"],
+                  vision_embeds.to(cfg.activation_dtype))
+    return torch.cat([vis, h], dim=1), vision_embeds.shape[1]
+
+
+def _residual(cfg: LMConfig, p: dict, h, positions, prefix_len: int):
+    h, _, aux = block_apply(cfg, p, h, positions, prefix_len)
     return h, aux
 
 
-def forward_train(cfg: LMConfig, params, tokens):
-    """(B, S) tokens -> ((B, S, V) logits, the MoE aux loss summed over
-    the layers in order and divided by their number: float32, zero for a
-    dense model).  With ``cfg.remat``, when gradients are taken, each
-    layer keeps only its input and runs its forward again in the
+def forward_train(cfg: LMConfig, params, tokens, *, vision_embeds=None):
+    """(B, S) tokens (after the VLM's ``vision_embeds`` prefix, when given)
+    -> ((B, S, V) logits of the token positions, the MoE aux loss summed
+    over the layers in order and divided by their number: float32, zero
+    for a dense model).  With ``cfg.remat``, when gradients are taken,
+    each layer keeps only its input and runs its forward again in the
     backward (its aux comes out of the checkpoint with its output)."""
     remat = cfg.remat and torch.is_grad_enabled() and any(
         a.requires_grad for a in tree_leaves(params))
-    h = L.embed(params["embed"], tokens, cfg.activation_dtype)
-    positions = torch.arange(tokens.shape[1], device=h.device)
+    h, prefix = _embed_inputs(cfg, params, tokens, vision_embeds)
+    positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for bp in tree_unstack(params["blocks"]):
         if remat:
-            h, a = checkpoint(_residual, cfg, bp, h, positions,
+            h, a = checkpoint(_residual, cfg, bp, h, positions, prefix,
                               use_reentrant=False, preserve_rng_state=False)
         else:
-            h, a = _residual(cfg, bp, h, positions)
+            h, a = _residual(cfg, bp, h, positions, prefix)
         if a is not None:
             aux = aux + a
     h = L.rmsnorm(params["ln_final"], h, cfg.norm_eps)
+    if prefix:
+        h = h[:, prefix:]
     logits = L.dense(params["unembed"], h)
     return logits, aux / max(cfg.num_layers, 1)
 
 
-def loss_fn(cfg: LMConfig, params, tokens, labels):
+def loss_fn(cfg: LMConfig, params, tokens, labels, *, vision_embeds=None):
     """``(ce + aux_loss_weight · aux, {"ce": ce, "moe_aux": aux})`` (a
-    dense model's aux is zero)."""
-    logits, aux = forward_train(cfg, params, tokens)
+    dense model's aux is zero; the CE over the token positions)."""
+    logits, aux = forward_train(cfg, params, tokens,
+                                vision_embeds=vision_embeds)
     ce = cross_entropy(logits, labels, chunk=cfg.logits_chunk)
     return ce + cfg.aux_loss_weight * aux, {"ce": ce, "moe_aux": aux}
 
@@ -253,15 +279,16 @@ def make_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
     }
 
 
-def prefill(cfg: LMConfig, params, tokens):
-    """(B, S) tokens -> ((B, V) last-position logits, a KV cache of the
-    prompt's length)."""
-    h = L.embed(params["embed"], tokens, cfg.activation_dtype)
-    b, s = tokens.shape
+def prefill(cfg: LMConfig, params, tokens, *, vision_embeds=None):
+    """(B, S) tokens (after the VLM's ``vision_embeds`` prefix of P
+    positions, when given) -> ((B, V) last-position logits, a KV cache of
+    the prompt's length, P + S)."""
+    h, prefix = _embed_inputs(cfg, params, tokens, vision_embeds)
+    b, s = h.shape[:2]
     positions = torch.arange(s, device=h.device)
     ks, vs = [], []
     for bp in tree_unstack(params["blocks"]):
-        h, (k, v), _ = block_apply(cfg, bp, h, positions)
+        h, (k, v), _ = block_apply(cfg, bp, h, positions, prefix)
         ks.append(k)
         vs.append(v)
     hl = L.rmsnorm(params["ln_final"], h[:, -1:], cfg.norm_eps)

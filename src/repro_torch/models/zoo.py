@@ -11,12 +11,12 @@ One interface over the backbone modules:
 
 ``batch`` is a dict holding ``tokens`` (and ``labels`` for the loss;
 ``audio_embeds`` or ``vision_embeds`` for the stubbed-frontend families,
-as in the reference).  The port serves and trains the ``ssm``
-(``models.mamba2``), ``hybrid`` (``models.hybrid``), ``dense`` and
-``moe`` (both ``models.transformer``) and ``audio`` (``models.encdec``,
-which takes the batch's ``audio_embeds``) families; ``vlm`` raises
-``NotImplementedError`` (ROADMAP.md, module queue A.10).  ``init`` takes
-a ``torch.Generator`` where the reference takes a PRNG key.
+as in the reference).  The port serves and trains all of the reference's
+families: ``ssm`` (``models.mamba2``), ``hybrid`` (``models.hybrid``),
+``dense``, ``moe`` and ``vlm`` (``models.transformer``; the VLM takes the
+batch's ``vision_embeds`` as its bidirectional prefix) and ``audio``
+(``models.encdec``, which takes the batch's ``audio_embeds``).  ``init``
+takes a ``torch.Generator`` where the reference takes a PRNG key.
 """
 
 from __future__ import annotations
@@ -25,15 +25,14 @@ from repro_torch.models import encdec, hybrid, mamba2, transformer
 from repro_torch.models.config import LMConfig
 
 _FAMILY = {"ssm": mamba2, "hybrid": hybrid, "dense": transformer,
-           "moe": transformer, "audio": encdec}
+           "moe": transformer, "vlm": transformer, "audio": encdec}
 
 
 def backbone(cfg: LMConfig):
     if cfg.arch_type not in _FAMILY:
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} ({cfg.name}) is not ported yet: "
-            f"the port serves {', '.join(map(repr, _FAMILY))} (ROADMAP.md, "
-            f"module queue A.10)")
+        raise ValueError(
+            f"unknown arch_type {cfg.arch_type!r} ({cfg.name}); the zoo's "
+            f"families: {', '.join(map(repr, _FAMILY))}")
     return _FAMILY[cfg.arch_type]
 
 
@@ -71,3 +70,12 @@ def make_cache(cfg: LMConfig, batch_size: int, max_len: int, device=None):
 
 def decode_step(cfg: LMConfig, params, cache, token, pos):
     return backbone(cfg).decode_step(cfg, params, cache, token, pos)
+
+
+def supports_long_context(cfg: LMConfig) -> bool:
+    """True when 500k-token decode is sub-quadratic or O(1)-state: the SSM
+    natively, every other family only under a sliding or decode window (a
+    ring-buffer cache), as the reference decides."""
+    if cfg.arch_type == "ssm":
+        return True
+    return bool(cfg.decode_window or cfg.sliding_window)

@@ -613,16 +613,17 @@ def test_flash_attention_tiles_head_dims_and_gqa(cuda, d, s, causal, window,
         causal=causal, window=window))
 
 
-def _plain_lse(q, k, causal, window, scale):
+def _plain_lse(q, k, causal, window, scale, prefix=0):
     """Each query row's float32 log-sum-exp of its scaled, masked logits
     (the plain version's logits), ``(B, H, Sq)``; ``k`` of ``Skv`` keys
-    (a mask takes ``Sq == Skv``)."""
+    (a mask takes ``Sq == Skv``; ``prefix`` opens the pairs below it)."""
     s = q.shape[2]
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
     pos = torch.arange(s, device=q.device)
     mask = torch.ones(s, k.shape[2], dtype=torch.bool, device=q.device)
     if causal:
-        mask &= pos[None] <= pos[:, None]
+        mask &= (pos[None] <= pos[:, None]) | (
+            (pos[None] < prefix) & (pos[:, None] < prefix))
     if window:
         mask &= pos[:, None] - pos[None] < window
     return torch.logsumexp(logits.masked_fill(~mask, -torch.inf), dim=-1)
@@ -1342,13 +1343,14 @@ BF16_GRAD_REL = 2.0 ** -7
 
 
 def _bwd_check(cuda, b, hq, hkv, s, d, causal, window, dtype, scale=None,
-               offset=False, skv=None):
+               offset=False, skv=None, prefix=0):
     """The backward kernel against the plain version on (B, S, H, D)
     projections read as (B, H, S, D) views (one element off 16-byte
     alignment with ``offset``; k and v ``skv`` positions long, ``s`` by
-    default), bitwise repeatable, on the route its shape picks (bf16 at D
-    a multiple of 16 and aligned: the tensor-core kernels; else the FFMA
-    tile kernel); then the same call under autograd through
+    default; the prefix-LM mask's ``prefix``), bitwise repeatable, on the
+    route its shape picks (bf16 at D a multiple of 16 up to 128, aligned
+    and without a prefix: the tensor-core kernels; else the FFMA tile
+    kernel); then the same call under autograd through
     ``ops.flash_attention``: one forward and one backward launch, the
     direct call's gradients bitwise."""
     from repro_torch.kernels.flash_attention import (bwd_design,
@@ -1366,9 +1368,12 @@ def _bwd_check(cuda, b, hq, hkv, s, d, causal, window, dtype, scale=None,
         return base[off:].view(b, n_pos, h, d).transpose(1, 2)
     q, k, v, do = (draw(hq), draw(hkv, n_pos=skv), draw(hkv, n_pos=skv),
                    draw(hq, 0.1))
-    tc = dtype == torch.bfloat16 and d % 16 == 0 and not offset
-    assert bwd_design(q, k, v, do) == ("wgmma bf16" if tc else "FFMA")
-    kw = dict(causal=causal, window=window, softmax_scale=scale)
+    tc = (dtype == torch.bfloat16 and d % 16 == 0 and d <= 128
+          and not offset and not prefix)
+    assert bwd_design(q, k, v, do, prefix_len=prefix) == (
+        "wgmma bf16" if tc else "FFMA")
+    kw = dict(causal=causal, window=window, softmax_scale=scale,
+              prefix_len=prefix)
     out, lse = flash_attention(q, k, v, with_lse=True, **kw)
     got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
     want = ref.ref_flash_attention_bwd(q, k, v, do, **kw)
@@ -1752,13 +1757,13 @@ def test_whisper_reduced_on_the_card_matches_the_cpu(cuda):
 
 def test_unsupported_grad_calls_raise(cuda):
     """On a CUDA tensor that requires grad, a call the backward does not
-    take (D > 128, float16, mixed dtypes) raises; it never returns a
-    tensor without a ``grad_fn``.  Causal, windowed, grouped and bf16
-    attention take the backward kernel."""
+    take (D > 256, float16, mixed dtypes) raises; it never returns a
+    tensor without a ``grad_fn``.  Causal, windowed, prefix, grouped and
+    bf16 attention, D up to 256, take the backward kernel."""
     q = torch.randn(1, 4, 16, 32, device=cuda, requires_grad=True)
     kv = torch.randn(1, 2, 16, 32, device=cuda)
-    wide = torch.randn(1, 2, 16, 160, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="D ≤ 128"):
+    wide = torch.randn(1, 2, 16, 264, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="D ≤ 256"):
         ops.flash_attention(wide, wide, wide, causal=True)
     half = q.detach().to(torch.float16).requires_grad_(True)
     with pytest.raises(NotImplementedError, match="float32 or bf16"):
@@ -1772,10 +1777,13 @@ def test_unsupported_grad_calls_raise(cuda):
     with pytest.raises(NotImplementedError, match="float32"):
         ops.layernorm(x.to(torch.bfloat16))
     q16 = q.detach().to(torch.bfloat16).requires_grad_(True)
+    w256 = torch.randn(1, 2, 16, 256, device=cuda, requires_grad=True)
     for out in (ops.flash_attention(q, q, q, causal=False),
                 ops.flash_attention(q, q, q, causal=True),
                 ops.flash_attention(q, q, q, causal=False, window=4),
                 ops.flash_attention(q, kv, kv, causal=True),
+                ops.flash_attention(q, kv, kv, causal=True, prefix_len=5),
+                ops.flash_attention(w256, w256, w256, causal=True),
                 ops.flash_attention(q16, q16, q16, causal=True)):
         assert out.grad_fn is not None
     assert ops.layernorm(x).grad_fn is not None
@@ -2234,3 +2242,202 @@ def test_inplace_adamw_is_bitwise_the_functional_update_on_the_card(cuda,
                 assert torch.equal(a, b)
     finally:
         Opt.SLICE_ELEMS = old
+
+
+# ---------------------------------------------------------------------------
+# The prefix-LM mask (paligemma-3b) and the D 256 backward
+# ---------------------------------------------------------------------------
+
+#: (B, Hq, Hkv, S, D, P) of the prefix-LM cases: paligemma's MQA (8 query
+#: heads over 1) at D 64, 128 and its own 256, a prefix past a query
+#: tile, a prefix of 1, a prefix past S (no mask at all), ragged S, a GQA
+#: group
+PREFIX = [(2, 8, 1, 200, 64, 40), (1, 4, 2, 130, 128, 64),
+          (2, 8, 1, 150, 256, 70), (1, 2, 1, 100, 256, 1),
+          (1, 2, 2, 77, 128, 90), (2, 8, 1, 320, 256, 256)]
+PREFIX_IDS = ["mqa_d64", "gqa_d128_tile", "mqa_d256", "d256_p1",
+              "d128_past_s", "paligemma_d256"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d,prefix", PREFIX, ids=PREFIX_IDS)
+def test_flash_attention_prefix_matches_plain(cuda, b, hq, hkv, s, d, prefix,
+                                              dtype):
+    """The forward kernel under the prefix-LM mask, causal, on ``(B, S, H,
+    D)`` projections seen as ``(B, H, S, D)`` (as ``transformer._attn_full``
+    hands them over): one launch on the FFMA template (bf16 at D 64 and
+    128 too: a prefix never takes the tensor-core kernel), the output
+    against the plain version and the row log-sum-exp against the plain
+    one within ``1e-5`` of its largest magnitude."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(s + d + prefix)
+    q = torch.randn(b, s, hq, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+    assert flash_design(q, k, v, prefix_len=prefix) == "FFMA"
+    ops.reset_launches()
+    got = ops.flash_attention_gqa(q, k, v, causal=True, prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    rep = hq // hkv
+    kr, vr = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    _close(got, ref.ref_flash_attention(q, kr, vr, causal=True,
+                                        prefix_len=prefix))
+    again, lse = flash_attention(q, k, v, causal=True, prefix_len=prefix,
+                                 with_lse=True)
+    assert torch.equal(again, got)
+    want = _plain_lse(q, kr, True, 0, d ** -0.5, prefix)
+    err = (lse - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d,prefix", PREFIX, ids=PREFIX_IDS)
+def test_flash_attention_bwd_kernel_prefix(cuda, b, hq, hkv, s, d, prefix,
+                                           dtype):
+    """The backward kernel under the prefix-LM mask (the FFMA route: key
+    tiles below P see every query tile; D 256 on key tiles of 32) against
+    the plain version, bitwise repeatable, one forward and one backward
+    launch under autograd (``_bwd_check``)."""
+    _bwd_check(cuda, b, hq, hkv, s, d, True, 0, dtype, prefix=prefix)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (2, 4, 2, 257, 64, 70),           # a window with a prefix of 100
+    (1, 8, 1, 200, 256, 0),           # D 256 causal, no prefix
+    (1, 4, 4, 130, 192, 0),           # D 192 on the D 256 template
+])
+def test_flash_attention_bwd_kernel_wide_and_windowed_prefix(
+        cuda, b, hq, hkv, s, d, window, dtype):
+    """The FFMA backward with a window and a prefix together (a prefix
+    query sees every prefix key, a later one the window's), and at D 256
+    and 192 (the D 256 instance, its lanes past D idle) without a prefix,
+    against the plain version."""
+    prefix = 100 if window else 0
+    _bwd_check(cuda, b, hq, hkv, s, d, True, window, dtype, prefix=prefix)
+
+
+def test_flash_attention_prefix_route_by_profiler(cuda):
+    """Under ``torch.profiler``: a bf16 prefix call at D 128 with 16-byte
+    staging — which the tensor-core rule takes without a prefix — launches
+    the FFMA forward template alone, and its backward Δ, the FFMA tile
+    kernel and the dQ sums; paligemma's D 256 the same.  Without the
+    prefix the D 128 call runs the tensor-core kernels."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    for d, p in ((128, 64), (256, 64), (128, 0)):
+        q, k, v, do = (torch.randn(2, 256, h, d, generator=gen, device=cuda)
+                       .to(torch.bfloat16).transpose(1, 2)
+                       for h in (8, 1, 1, 8))
+        kw = dict(causal=True, prefix_len=p)
+        fwd = _kernels_launched(lambda: flash_attention(q, k, v, **kw))
+        out, lse = flash_attention(q, k, v, with_lse=True, **kw)
+        bwd = _kernels_launched(lambda: flash_attention_bwd(
+            q, k, v, out, lse, do, **kw))
+        route = "wgmma bf16" if p == 0 else "FFMA"
+        assert fwd == ({"flash_attention_bf16_tc_kernel": 1} if p == 0
+                       else {"flash_attention_kernel": 1}), (d, p, fwd)
+        assert bwd == BWD_ROUTES[route], (d, p, bwd)
+
+
+def test_bwd_tile_attrs_at_every_width(cuda):
+    """The FFMA tile kernel's registers, spill bytes and shared bytes as
+    built, at each width's instance: at most 255 registers, shared memory
+    within a block's 227 KB (D 256 float32: key tiles of 32, 220,672
+    bytes)."""
+    from repro_torch.kernels.flash_attention import bwd_tile_attrs
+
+    for d in (64, 128, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            a = bwd_tile_attrs(d, dtype)
+            print(f"flash_attention_bwd_tile D {d} {dtype}: {a}")
+            assert 0 < a["registers"] <= 255
+            assert a["smem_bytes"] <= 232448
+    assert bwd_tile_attrs(256, torch.float32)["smem_bytes"] == 220672
+
+
+@pytest.mark.parametrize("over", [{}, dict(head_dim=256)],
+                         ids=["d64", "d256"])
+def test_paligemma_reduced_on_the_card_matches_the_cpu(cuda, over):
+    """The reduced float32 paligemma-3b (2 layers, d 256, 4 query heads
+    over 1 of D 64, and of D 256; 8 patches) on the card against the CPU
+    run (plain versions), from the same parameters, tokens and patches:
+    ``forward_train`` logits and ``prefill`` logits and every cache leaf
+    (2 prefix attention launches each), a ``decode_step`` (none), each
+    within ``1e-4 · max|out|``; one gradient step of ``loss_fn`` under
+    remat: 4 attention launches (the recompute's too) and 2 backward
+    launches, the loss within ``1e-4`` and every gradient leaf within
+    ``1e-4`` of its largest."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.models.frontend_stubs import vision_patch_embeddings
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("paligemma-3b").reduced(**over)
+    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=gen)
+    patches = vision_patch_embeddings(cfg, 2, seed=2, device="cpu")
+    card = tree_map(lambda a: a.to(cuda), params)
+
+    def on(dev, n=40, **more):
+        return {"tokens": toks[:, :n].to(dev),
+                "vision_embeds": patches.to(dev),
+                **{k: v.to(dev) for k, v in more.items()}}
+
+    def close(got, want, rel=1e-4):
+        err = (got.detach().cpu() - want.detach()).abs().max().item()
+        assert err <= rel * want.abs().max().item(), err
+
+    want, _ = zoo.forward_train(cfg, params, on("cpu"))
+    ops.reset_launches()
+    got, _ = zoo.forward_train(cfg, card, on(cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 2
+    close(got, want)
+    wl, wc = zoo.prefill(cfg, params, on("cpu", 24))
+    ops.reset_launches()
+    gl, gcache = zoo.prefill(cfg, card, on(cuda, 24))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 2
+    close(gl, wl)
+    for key in wc:
+        if key == "pos":
+            assert torch.equal(gcache[key].cpu(), wc[key])
+        else:
+            close(gcache[key], wc[key])
+    pos = torch.full((2,), cfg.vision_prefix_len + 24, dtype=torch.int32)
+    wd, _ = zoo.decode_step(cfg, params, wc, toks[:, 24:25], pos)
+    ops.reset_launches()
+    gd, _ = zoo.decode_step(cfg, card, gcache, toks[:, 24:25].to(cuda),
+                            pos.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 0
+    close(gd, wd)
+    rc = dataclasses.replace(cfg, remat=True)
+    labels = {"labels": toks[:, 1:]}
+    (wloss, _), wg = value_and_grad(
+        lambda p: zoo.loss_fn(rc, p, on("cpu", **labels)), params,
+        has_aux=True)
+    ops.reset_launches()
+    (gloss, _), gg = value_and_grad(
+        lambda p: zoo.loss_fn(rc, p, on(cuda, **labels)), card,
+        has_aux=True)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "flash_attention": 4, "flash_attention_bwd": 2}
+    close(gloss, wloss)
+    for i, (g, w) in enumerate(zip(tree_leaves(gg), tree_leaves(wg))):
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (i, err)

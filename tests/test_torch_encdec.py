@@ -329,26 +329,35 @@ def test_train_cli_trains_whisper(one_torch_thread, capsys):
 
 def test_lm_example_prints_the_reference_note(capsys):
     """The LM example passes tokens only (as the reference's ensemble
-    does): for whisper-large-v3 it prints the reference's note and
-    returns; paligemma-3b still raises naming A.10."""
+    does): for whisper-large-v3 and paligemma-3b, whose experts need the
+    frontend stubs, it prints the reference's note and returns; an
+    unknown id raises (argparse's choices)."""
     from repro_torch.examples import decentralized_lm_experts as ex
 
-    ex.main(["--arch", ARCH, "--device", "cpu"])
-    out = capsys.readouterr().out.splitlines()
-    assert out == [f"note: {ARCH} needs frontend stubs; using tokens only "
-                   "via the dense path is unsupported here — pick a decoder "
-                   "arch for this demo."]
-    with pytest.raises(NotImplementedError, match="A.10"):
-        ex.main(["--arch", "paligemma-3b", "--device", "cpu"])
+    for arch in (ARCH, "paligemma-3b"):
+        ex.main(["--arch", arch, "--device", "cpu"])
+        out = capsys.readouterr().out.splitlines()
+        assert out == [f"note: {arch} needs frontend stubs; using tokens "
+                       "only via the dense path is unsupported here — pick "
+                       "a decoder arch for this demo."]
+    with pytest.raises(SystemExit):
+        ex.main(["--arch", "gpt-9", "--device", "cpu"])
 
 
 def test_zoo_refuses_the_vlm_and_checks_the_family():
-    """``zoo`` maps ``audio`` to ``models.encdec``; ``vlm`` raises naming
-    A.10; ``encdec`` refuses another family."""
+    """``zoo`` maps ``audio`` to ``models.encdec`` and ``vlm`` to
+    ``models.transformer`` (paligemma-3b's reduced tree has its
+    ``vision_proj``); an unknown family raises; ``encdec`` refuses
+    another family."""
+    from repro_torch.models import transformer
+
     cfg = get_config(ARCH).reduced()
     assert zoo.backbone(cfg) is encdec
-    with pytest.raises(NotImplementedError, match="A.10"):
-        zoo.init(dataclasses.replace(cfg, arch_type="vlm"),
+    vlm = get_config("paligemma-3b").reduced()
+    assert zoo.backbone(vlm) is transformer
+    assert "vision_proj" in zoo.init(vlm, torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        zoo.init(dataclasses.replace(cfg, arch_type="vision"),
                  torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="audio"):
         encdec.make_cache(get_config("internlm2-1.8b").reduced(), 1, 4,

@@ -47,16 +47,10 @@ def test_audio_specs_and_frames_match_jax(reduced):
 
 
 def test_vision_specs_and_patches_match_jax():
-    """The vision half at paligemma-3b's prefix (256 patches of d 2048 in
-    the reference's config; the port's ``LMConfig`` keeps the field, its
-    backbone waits, ROADMAP A.10): ``vision_spec`` and
-    ``vision_patch_embeddings`` against the reference's shape and dtype,
-    full and reduced (8 patches)."""
-    jcfg = j_get_config("paligemma-3b")
-    cfg = dataclasses.replace(
-        get_config("internlm2-1.8b"), d_model=jcfg.d_model,
-        vision_prefix_len=jcfg.vision_prefix_len,
-        param_dtype=torch.bfloat16, activation_dtype=torch.bfloat16)
+    """The vision half at paligemma-3b's prefix (256 patches of d 2048):
+    ``vision_spec`` and ``vision_patch_embeddings`` against the
+    reference's shape and dtype, full and reduced (8 patches)."""
+    jcfg, cfg = j_get_config("paligemma-3b"), get_config("paligemma-3b")
     for c, jc in ((cfg, jcfg), (cfg.reduced(), jcfg.reduced())):
         assert c.vision_prefix_len == jc.vision_prefix_len
         spec = stubs.vision_spec(c, 2)

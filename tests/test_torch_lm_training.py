@@ -638,18 +638,20 @@ def test_lm_batch_shapes_range_shift_and_frequencies():
 def test_train_cli_lm_mode_prints_the_reference_lines(one_torch_thread,
                                                       capsys):
     """``--mode lm --arch mamba2-2.7b`` trains the reduced model on the
-    CPU and prints the reference's ``step    i loss …`` lines; an id not
-    ported raises naming A.10."""
+    CPU and prints the reference's ``step    i loss …`` lines, and so does
+    ``--arch paligemma-3b`` (its batches with the stubbed patches); an
+    unknown id raises (argparse's choices)."""
     from repro_torch.launch import train
 
-    train.main(["--mode", "lm", "--arch", "mamba2-2.7b", "--steps", "2",
-                "--seq-len", "32", "--batch", "2", "--device", "cpu"])
-    lines = capsys.readouterr().out.splitlines()
-    assert [ln[:15] for ln in lines] == ["step    0 loss ", "step    1 loss "]
-    assert all(math.isfinite(float(ln.split()[-1])) for ln in lines)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        train.main(["--mode", "lm", "--arch", "paligemma-3b",
-                    "--device", "cpu"])
+    for arch in ("mamba2-2.7b", "paligemma-3b"):
+        train.main(["--mode", "lm", "--arch", arch, "--steps", "2",
+                    "--seq-len", "32", "--batch", "2", "--device", "cpu"])
+        lines = capsys.readouterr().out.splitlines()
+        assert [ln[:15] for ln in lines] == ["step    0 loss ",
+                                             "step    1 loss "], arch
+        assert all(math.isfinite(float(ln.split()[-1])) for ln in lines)
+    with pytest.raises(SystemExit):
+        train.main(["--mode", "lm", "--arch", "gpt-9", "--device", "cpu"])
 
 
 def test_lm_example_trains_two_experts(one_torch_thread, capsys):

@@ -434,12 +434,14 @@ def test_mamba2_checkpoint_from_jax_loads(tmp_path):
 
 
 def test_only_the_ssm_family_is_served():
-    """The ids and families not ported yet raise naming A.10 (the port now
-    also serves the hybrid, dense and MoE families:
-    ``tests/test_torch_hybrid.py``, ``tests/test_torch_transformer.py``,
-    ``tests/test_torch_moe.py``)."""
-    with pytest.raises(NotImplementedError, match="A.10"):
-        get_config("paligemma-3b")
+    """Every id of the reference is served now, the VLM paligemma-3b the
+    last (``tests/test_torch_vlm.py``; the hybrid, dense, MoE and audio
+    families in their own files): ``zoo.init`` of its reduced config
+    draws the ``vlm`` family's tree; an unknown id or family raises.
+    The mamba2 config, full and reduced, field for field."""
+    vlm = get_config("paligemma-3b")
+    assert (vlm.arch_type, vlm.num_layers, vlm.head_dim,
+            vlm.vision_prefix_len) == ("vlm", 18, 256, 256)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-9")
     cfg = get_config("mamba2-2.7b")
@@ -456,6 +458,10 @@ def test_only_the_ssm_family_is_served():
             assert got == want, f.name
         assert (c.ssm_d_inner, c.ssm_nheads) == (jc.ssm_d_inner,
                                                  jc.ssm_nheads)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        zoo.init(dataclasses.replace(cfg, arch_type="vlm"),
+    params = zoo.init(vlm.reduced(), torch.Generator().manual_seed(0), "cpu")
+    assert sorted(params) == ["blocks", "embed", "ln_final", "unembed",
+                              "vision_proj"]
+    assert tuple(params["vision_proj"]["w"].shape) == (256, 256)
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        zoo.init(dataclasses.replace(cfg, arch_type="vision"),
                  torch.Generator(), "cpu")

@@ -407,8 +407,9 @@ def test_train_cli_writes_a_servable_checkpoint(one_torch_thread, tmp_path,
                                                 capsys):
     """``--mode expert`` at reduced size on the CPU: the EMA checkpoint
     loads with its metadata, and the serving engine serves a finite
-    request from it; ``--mode lm`` raises for an arch not ported (A.10)
-    and trains mamba2-2.7b, printing the reference's step lines."""
+    request from it; ``--mode lm`` trains paligemma-3b (its batches with
+    the stubbed patches) and mamba2-2.7b, printing the reference's step
+    lines, and raises for an unknown arch (argparse's choices)."""
     from repro_torch.launch import train
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.training.checkpoint import load_checkpoint
@@ -431,9 +432,14 @@ def test_train_cli_writes_a_servable_checkpoint(one_torch_thread, tmp_path,
     text = torch.randn(2, 8, 32, generator=torch.Generator().manual_seed(0))
     lat = eng.generate(0, text, 2)
     assert lat.shape == (2, 8, 8, 4) and bool(torch.isfinite(lat).all())
-    with pytest.raises(NotImplementedError, match="A.10"):
-        train.main(["--mode", "lm", "--arch", "paligemma-3b",
-                    "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        train.main(["--mode", "lm", "--arch", "gpt-9", "--device", "cpu"])
+    capsys.readouterr()
+    train.main(["--mode", "lm", "--arch", "paligemma-3b", "--steps", "2",
+                "--seq-len", "16", "--batch", "2", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln[:15] for ln in lines] == ["step    0 loss ", "step    1 loss "]
+    assert all(math.isfinite(float(ln.split()[-1])) for ln in lines)
     train.main(["--mode", "lm", "--arch", "mamba2-2.7b", "--steps", "2",
                 "--seq-len", "32", "--batch", "2", "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()

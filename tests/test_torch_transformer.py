@@ -346,7 +346,7 @@ def test_dense_params_and_cache_have_the_reference_layout():
 
 PORTED = ("mamba2-2.7b", "zamba2-2.7b", "internlm2-1.8b", "stablelm-1.6b",
           "deepseek-67b", "deepseek-coder-33b", "mixtral-8x7b",
-          "mixtral-8x22b", "whisper-large-v3")
+          "mixtral-8x22b", "whisper-large-v3", "paligemma-3b")
 
 
 def _same_fields(c, jc) -> None:
@@ -370,25 +370,32 @@ def test_get_config_matches_jax_field_for_field(arch):
 
 
 def test_unported_families_still_raise():
-    """The VLM id (paligemma-3b; whisper-large-v3's audio family is ported,
-    ``tests/test_torch_encdec.py``) raises naming A.10, at ``get_config``
-    and at the zoo and ``launch.steps``; the transformer module refuses
-    the VLM prefix too."""
-    assert sorted(set(J_ARCH_IDS) - set(PORTED)) == ["paligemma-3b"]
-    for arch in set(J_ARCH_IDS) - set(PORTED):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            get_config(arch)
+    """Every id of the reference is ported, the VLM paligemma-3b the last
+    (``tests/test_torch_vlm.py``): ``get_config`` returns each, and the
+    ``vlm`` family runs through the zoo, ``make_cache`` and
+    ``launch.steps``.  An unknown id or family raises, at ``get_config``,
+    the zoo, ``launch.steps`` and the transformer module."""
+    assert sorted(set(J_ARCH_IDS) - set(PORTED)) == []
+    for arch in J_ARCH_IDS:
+        assert get_config(arch).name == arch
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("gpt-9")
     cfg = get_config("internlm2-1.8b").reduced()
-    for family in ("vlm",):
-        other = dataclasses.replace(cfg, arch_type=family)
-        with pytest.raises(NotImplementedError, match="A.10"):
-            zoo.init(other, torch.Generator(), "cpu")
-        with pytest.raises(NotImplementedError, match="A.10"):
-            zoo.make_cache(other, 1, 8, "cpu")
-        with pytest.raises(NotImplementedError, match="A.10"):
-            steps.input_specs(other, get_shape("decode_32k"))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        Tr.init(dataclasses.replace(cfg, arch_type="vlm"),
+    vlm = dataclasses.replace(cfg, arch_type="vlm")
+    assert zoo.backbone(vlm) is Tr
+    assert sorted(zoo.make_cache(vlm, 1, 8, "cpu")) == ["k", "pos", "v"]
+    spec = steps.input_specs(get_config("paligemma-3b"), get_shape(
+        "prefill_32k"))["batch"]
+    assert sorted(spec) == ["tokens", "vision_embeds"]
+    other = dataclasses.replace(cfg, arch_type="vision")
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        zoo.init(other, torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        zoo.make_cache(other, 1, 8, "cpu")
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        steps.input_specs(other, get_shape("decode_32k"))
+    with pytest.raises(ValueError, match="VLM-prefix backbone"):
+        Tr.init(dataclasses.replace(cfg, arch_type="ssm"),
                 torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="attn_f32_softmax"):
         zoo.forward_train(dataclasses.replace(cfg, attn_f32_softmax=False),
@@ -453,8 +460,7 @@ def test_train_cli_refuses_dense_and_hybrid(one_torch_thread, capsys, arch):
     """``--mode lm`` no longer refuses the dense and hybrid families: each
     id trains 2 reduced steps on the CPU and prints the reference's
     ``step    i loss …`` lines, the default arch (internlm2-1.8b) without
-    ``--arch``; an id not ported (paligemma-3b) still raises naming
-    A.10."""
+    ``--arch``; an unknown id raises (argparse's choices)."""
     from repro_torch.launch import train
 
     pick = [] if arch == "internlm2-1.8b" else ["--arch", arch]
@@ -463,9 +469,8 @@ def test_train_cli_refuses_dense_and_hybrid(one_torch_thread, capsys, arch):
     lines = capsys.readouterr().out.splitlines()
     assert [ln[:15] for ln in lines] == ["step    0 loss ", "step    1 loss "]
     assert all(math.isfinite(float(ln.split()[-1])) for ln in lines)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        train.main(["--mode", "lm", "--arch", "paligemma-3b", "--device",
-                    "cpu"])
+    with pytest.raises(SystemExit):
+        train.main(["--mode", "lm", "--arch", "gpt-9", "--device", "cpu"])
 
 
 def test_lm_example_trains_dense_experts_on_the_cpu(one_torch_thread,
