@@ -25,16 +25,18 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    shape), the dequant
    kernel, the AdaLN kernel (at the ragged MLP modulate site, float32,
    with bf16 modulations and in bf16), the attention kernel (the DiT's
-   self-attention, a causal sliding-window GQA case at Mixtral-8x7B's
+   self-attention and its cross-attention — a top-2 request's 32 rows of
+   256 latent tokens over the 77 text tokens, 12 heads of D 64, float32 —,
+   a causal sliding-window GQA case at Mixtral-8x7B's
    head shape — phase 17's 1 × 8192-token request — and the causal bf16
    attention of phase 15's two LM paths: zamba2-2.7b's 32 heads of D 80
    and internlm2-1.8b's 16 query heads over 8 kv heads of D 128, batch 4,
    S 1024, and deepseek-coder-33b's 56 over 8 (a group of 7), each with
    the staging its operands take and the design that ran: the bf16 cases
    must run the tensor-core kernel, ``"wgmma bf16"``, the float32 DiT
-   case the FFMA template), the flag-form fuse kernel (the K 8 serving mix, K 12 on
-   the runtime slot loop, K 2 all-DDPM and all-FM; bitwise, with
-   ``floor_ms``), whose path
+   cases the FFMA template), the flag-form fuse kernel (the K 8 serving
+   mix, K 12 on the runtime slot loop, K 2 all-DDPM and all-FM; bitwise,
+   with ``floor_ms``), whose path
    ``ops.fused_convert_and_fuse`` is then driven once with the launch
    counts set to 0 and must equal ``fused_velocity`` bitwise, and the SSD
    scan kernel at mamba2-2.7b's mixer shape (bf16 and float32 strided
@@ -44,7 +46,8 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    in PyTorch; then the two backward kernels
    at the training shapes (batch 32 of DiT-B/2): the AdaLN backward at a
    modulate site (and without γ) and the attention backward from the
-   forward's log-sum-exp, each against its plain version's gradients
+   forward's log-sum-exp (the self-attention and the cross-attention over
+   the 77 text tokens), each against its plain version's gradients
    (and bitwise repeatable), timed beside its plain version and the
    library's backward (``F.layer_norm`` + the modulation's elementwise
    ops; ``scaled_dot_product_attention``), the attention backward also
@@ -55,7 +58,7 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    of 7 (bound by the bf16 and by the float32 rule, SDPA's bf16 causal
    GQA backward beside it, masked where the window is), each case on its
    route
-   (the LM cases the tensor-core dK/dV and dQ kernels, the DiT case the
+   (the LM cases the tensor-core dK/dV and dQ kernels, the DiT cases the
    FFMA tile kernel) with each kernel's device ms, and the tensor-core
    kernels' registers and spill bytes (none); and the SSD scan's backward
    kernel at the mixer shape (bf16 with ``d_state`` zero and not, float32,
@@ -72,8 +75,9 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    (``step_fused=False``), whose latents must equal the fused ones
    bitwise.  Each path's kernel launch counts, computed from the config,
    must match exactly — every LayerNorm of the router and the experts
-   through the AdaLN kernel, every self-attention through the attention
-   kernel.  Each path prints its store's bytes and its
+   through the AdaLN kernel, every attention (self-attention, and the
+   experts' cross-attention over the 77 text tokens) through the
+   attention kernel.  Each path prints its store's bytes and its
    engine's device memory once built, at its build peak and at its
    serving peak, all net of the engines still resident from other paths.
    Then, on the native engine, one request each with plan reuse
@@ -255,7 +259,20 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    more prefix cases — bf16 at D 128 (16 over 8), which the tensor-core
    kernels would take without the prefix, and float32 at D 64 — forward
    and backward, every one on the FFMA route (the backward at D 256 on
-   key tiles of 32, its registers and spill bytes printed).
+   key tiles of 32, its registers and spill bytes printed);
+20. (after phase 9) the paper's four DiT examples as a user runs them,
+   each ``python -m repro_torch.examples.<name>`` in a subprocess that
+   must exit 0 and print the reference example's lines: ``train_
+   decentralized --full --experts 8 --ddpm-experts 2 --steps 20 --batch
+   32`` (the paper's 2 DDPM : 6 FM recipe at full DiT-B/2 width, 8 ×
+   120.6 M parameters, each expert trained alone, then the router, then
+   the sampling report; its seconds a step and device peak), its 8
+   checkpoints then served at full width in this process (one batch-8,
+   8-step, CFG-7.5, top-2 request, finite, exact launches),
+   ``serve_heterogeneous`` over an empty directory (it trains its tiny
+   ensemble through the port's trainer first) and again with
+   ``--param-dtype int8 --dispatch grouped``, ``convert_checkpoint`` and
+   ``quickstart``.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -269,6 +286,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -327,9 +345,9 @@ CATEGORIES = (
     ("hetero_fuse_coeffs", "hetero_fuse_coeffs"),
     ("hetero_fuse_dequant", "hetero_fuse_dequant"),
     ("adaln_fuse", "adaln_fuse (every LayerNorm and modulation)"),
-    ("flash_attention", "flash_attention (self-attention)"),
+    ("flash_attention", "flash_attention (self- and cross-attention)"),
     ("gemm", "cuBLAS GEMM (dense dit.apply layers: the router, the "
-             "dense-engine experts; cross-attention QK/PV)"),
+             "dense-engine experts)"),
     ("softmax", "softmax"),
     ("reduce", "reductions (sums, row absmax)"),
     ("elementwise", "elementwise"),
@@ -886,26 +904,28 @@ def _prefix_mask(s: int, causal: bool, window: int, prefix: int, dev):
     return mask
 
 
-#: (case, B, Hq, Hkv, S, D, causal, window, dtype) of the attention check;
-#: then the LM serving shapes of phases 15 and 17 (a 4 × 1024-token
-#: scoring request): zamba2-2.7b's shared block (32 heads of D 80),
-#: internlm2-1.8b's layers (16 query heads over 8 kv heads of D 128),
-#: deepseek-coder-33b's (56 over 8: a group of 7), mixtral-8x7b's (32
-#: over 8, its window of 4096 past the request) and mixtral-8x22b's (48
-#: over 8: a group of 6); the first Mixtral case is phase 17's 1 × 8192-
-#: token request, where the window masks; then phase 18's whisper-large-v3
-#: (20 heads of D 64, non-causal): the encoder over 4 × 1500 frames, the
-#: decoder's cross-attention, 4 × 1024 rows over the 1500 frames
-#: (``FLASH_SKV``), the decoder's causal self-attention over its 4 × 1024
-#: tokens, and that cross shape in float32 (the FFMA template, phase 18's
-#: gradient check); then phase 19's paligemma-3b (8 query heads over 1 of
-#: D 256, causal with the prefix-LM mask over its 256 patches,
-#: ``FLASH_PREFIX``: 4 × (256 + 1024) positions), and two prefix cases that
-#: hold the routing rule — bf16 at D 128 (16 over 8), which the
-#: tensor-core kernel would take without the prefix, and float32 at D 64
-#: — every prefix case on the FFMA template
+#: (case, B, Hq, Hkv, S, D, causal, window, dtype) of the attention check: the
+#: DiT's self-attention and its cross-attention (the 256 latent tokens over the
+#: 77 text tokens, ``FLASH_SKV``) at a top-2 request's 32 (pair, replica) rows,
+#: float32 on the FFMA template; then the LM serving shapes of phases 15 and 17
+#: (a 4 × 1024-token scoring request): zamba2-2.7b's shared block (32 heads of
+#: D 80), internlm2-1.8b's layers (16 query heads over 8 kv heads of D 128),
+#: deepseek-coder-33b's (56 over 8: a group of 7), mixtral-8x7b's (32 over 8,
+#: its window of 4096 past the request) and mixtral-8x22b's (48 over 8: a group
+#: of 6); the first Mixtral case is phase 17's 1 × 8192-token request, where
+#: the window masks; then phase 18's whisper-large-v3 (20 heads of D 64,
+#: non-causal): the encoder over 4 × 1500 frames, the decoder's
+#: cross-attention, 4 × 1024 rows over the 1500 frames (``FLASH_SKV``), the
+#: decoder's causal self-attention over its 4 × 1024 tokens, and that cross
+#: shape in float32 (the FFMA template, phase 18's gradient check); then phase
+#: 19's paligemma-3b (8 query heads over 1 of D 256, causal with the prefix-LM
+#: mask over its 256 patches, ``FLASH_PREFIX``: 4 × (256 + 1024) positions),
+#: and two prefix cases that hold the routing rule — bf16 at D 128 (16 over
+#: 8), which the tensor-core kernel would take without the prefix, and
+#: float32 at D 64 — every prefix case on the FFMA template
 FLASH_CASES = (
     ("dit_self_attention", 32, 12, 12, 256, 64, False, 0, torch.float32),
+    ("dit_cross_attention", 32, 12, 12, 256, 64, False, 0, torch.float32),
     ("mixtral_gqa_swa", 1, 32, 8, 8192, 128, True, 4096, torch.bfloat16),
     ("zamba2_causal", 4, 32, 32, 1024, 80, True, 0, torch.bfloat16),
     ("internlm2_causal_gqa", 4, 16, 8, 1024, 128, True, 0, torch.bfloat16),
@@ -923,7 +943,8 @@ FLASH_CASES = (
     ("prefix_f32_d64", 4, 8, 1, 1280, 64, True, 0, torch.float32))
 #: the kv length of a case whose keys are not its queries (the
 #: cross-attention's encoder frames)
-FLASH_SKV = {"whisper_cross": 1500, "whisper_cross_f32": 1500}
+FLASH_SKV = {"dit_cross_attention": 77, "whisper_cross": 1500,
+             "whisper_cross_f32": 1500}
 #: the prefix-LM mask's P of a case (paligemma's 256 patches)
 FLASH_PREFIX = {"paligemma_prefix": 256, "prefix_gqa_bf16_d128": 256,
                 "prefix_f32_d64": 256}
@@ -1052,7 +1073,16 @@ def check_flash(ops, ref, dev) -> dict:
         torch.cuda.empty_cache()
     case = {r["case"]: r for r in rows}
     return dict(_summary(rows[0], max(r["max_abs_err"] for r in rows)),
+                cross=_cross_summary(case["dit_cross_attention"]),
                 by_path=_path_summaries(case, FLASH_PATH_CASES))
+
+
+def _cross_summary(row: dict) -> dict:
+    """A kernels line entry's numbers of a second case on its path (a
+    cross-attention, a decoder's causal self-attention), with the case's
+    name and lengths."""
+    return dict(_summary(row, row["max_abs_err"]), case=row["case"],
+                S=row["S"], Skv=row.get("Skv", row["S"]))
 
 
 def _path_summaries(case: dict, path_cases: dict) -> dict:
@@ -1063,10 +1093,7 @@ def _path_summaries(case: dict, path_cases: dict) -> dict:
     for path, name in path_cases.items():
         out[path] = _summary(case[name], case[name]["max_abs_err"])
         for key, more in FLASH_MORE_CASES.get(path, {}).items():
-            row = case[more]
-            out[path][key] = dict(_summary(row, row["max_abs_err"]),
-                                  case=more, S=row["S"],
-                                  Skv=row.get("Skv", row["S"]))
+            out[path][key] = _cross_summary(case[more])
     return out
 
 
@@ -1180,7 +1207,8 @@ def check_adaln_bwd(ops, ref, dev) -> dict:
 BF16_GRAD_REL_TOL = 2.0 ** -7
 
 #: (case, B, Hq, Hkv, S, D, causal, window, dtype, launches a training
-#: step) of the attention backward check: the DiT's training shape, then
+#: step) of the attention backward check: the DiT's training shapes (its
+#: self-attention, and its cross-attention over the 77 text tokens), then
 #: the causal bf16 attention of phase 14's two LM training paths (a 4 ×
 #: 1024-token step): internlm2-1.8b's 24 layers (16 query heads over 8 kv
 #: heads of D 128) and zamba2-2.7b's 9 shared-block applications (32
@@ -1194,6 +1222,8 @@ BF16_GRAD_REL_TOL = 2.0 ** -7
 #: 18's gradient check)
 FLASH_BWD_CASES = (
     ("dit_self_attention", TRAIN_BATCH, 12, 12, 256, 64, False, 0,
+     torch.float32, 12),
+    ("dit_cross_attention", TRAIN_BATCH, 12, 12, 256, 64, False, 0,
      torch.float32, 12),
     ("internlm2_causal_gqa", 4, 16, 8, 1024, 128, True, 0, torch.bfloat16,
      24),
@@ -1447,6 +1477,7 @@ def check_flash_bwd(ops, ref, dev) -> dict:
         torch.cuda.empty_cache()
     case = {r["case"]: r for r in rows}
     return dict(_summary(rows[0], rows[0]["max_abs_err"]),
+                cross=_cross_summary(case["dit_cross_attention"]),
                 by_path=_path_summaries(case, FLASH_BWD_PATH_CASES))
 
 
@@ -1895,8 +1926,9 @@ def expected_launches(cfg, router_cfg, ops, param_dtype: str,
     one attention launch per layer.  One ragged forward (cond
     and uncond batched, ``g = 2``) runs three AdaLN launches per layer
     (msa, the LayerNorm before cross-attention, mlp) and one for the
-    final layer, one attention launch per layer (layer 0's on the
-    per-pair prefix), and one ragged GEMM per dense layer, each over row
+    final layer, two attention launches per layer (the self-attention,
+    layer 0's on the per-pair prefix, and the cross-attention over the
+    text tokens), and one ragged GEMM per dense layer, each over row
     groups of width ``m``.
     With ``adaln_single=False`` the AdaLN-Single MLP gives way to one
     modulation GEMM per layer.
@@ -1926,10 +1958,11 @@ def expected_launches(cfg, router_cfg, ops, param_dtype: str,
     want["hetero_fuse_step" if step_fused else "hetero_fuse_coeffs"] = n
     n_router = -(-STEPS // refresh) * requests
     lns = 3 if cfg.use_text else 2
+    attn = 2 if cfg.use_text else 1
     want["adaln_fuse"] = (2 * router_cfg.num_layers * n_router
                           + (lns * layers + 1) * n)
     want["flash_attention"] = (router_cfg.num_layers * n_router
-                               + layers * n)
+                               + attn * layers * n)
     if param_dtype in ("int8", "fp8"):
         tiled = sum(ops.ragged_block_m(m) is not None for m in widths)
         narrow = len(widths) - tiled
@@ -2073,9 +2106,9 @@ def serve_options(ops, engine) -> dict:
     * ``submit``/``flush`` of three requests of batch 1, 3 and 4 with
       text: one dispatch into bucket 8 with one request's launches, each
       request's rows within ``E2E_REL_TOL · max|out|`` of ``generate``
-      from the same seed (the same noise and function; the router's and
-      cross-attention's cuBLAS GEMMs run at another batch and may take
-      another algorithm, so sums in another order, through 8 CFG steps);
+      from the same seed (the same noise and function; the router's
+      cuBLAS GEMMs run at another batch and may take another algorithm,
+      so sums in another order, through 8 CFG steps);
     * a request with ``deadline_s = 0``: DEADLINE_EXCEEDED at ``flush``,
       no launch.
     """
@@ -2165,16 +2198,17 @@ def forward_launches(cfg, router_cfg, ops, expert_forwards: int,
     """Launches of a request whose experts run dense ``dit.apply``
     forwards (the dense, gathered, grouped and reference executors and
     engines): each expert forward three AdaLN launches a layer and one
-    for the final layer and one attention launch a layer, each router
-    forward two AdaLN and one attention launch a layer; the dense GEMMs
-    run in cuBLAS.  ``fuse_steps`` step-kernel launches (velocity-kernel
-    launches with ``step_fused=False``); ``dequant`` the quantized
-    store's expansions."""
+    for the final layer and two attention launches a layer (self- and
+    cross-attention), each router forward two AdaLN and one attention
+    launch a layer; the dense GEMMs run in cuBLAS.  ``fuse_steps``
+    step-kernel launches (velocity-kernel launches with
+    ``step_fused=False``); ``dequant`` the quantized store's
+    expansions."""
     want = dict.fromkeys(ops.LAUNCHES, 0)
     want["adaln_fuse"] = (2 * router_cfg.num_layers * router_forwards
                           + (3 * cfg.num_layers + 1) * expert_forwards)
     want["flash_attention"] = (router_cfg.num_layers * router_forwards
-                               + cfg.num_layers * expert_forwards)
+                               + 2 * cfg.num_layers * expert_forwards)
     want["hetero_fuse_step" if step_fused else "hetero_fuse_coeffs"] = \
         fuse_steps
     want["hetero_fuse_dequant"] = dequant
@@ -2673,6 +2707,248 @@ def run_cli(dev) -> None:
                 line.startswith(served) for line in lines):
             fail(f"the serving CLI {flags} exited {p.returncode}: "
                  f"{err.strip()[-2000:]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the paper's four DiT examples
+# ---------------------------------------------------------------------------
+
+#: phase 20's ``train_decentralized`` run: the paper's 2 DDPM : 6 FM
+#: recipe at full DiT-B/2 width, 20 steps of batch 32 an expert
+EXAMPLE_EXPERTS, EXAMPLE_DDPM, EXAMPLE_STEPS = 8, 2, 20
+EXAMPLE_TRAIN = ["--full", "--experts", str(EXAMPLE_EXPERTS),
+                 "--ddpm-experts", str(EXAMPLE_DDPM), "--steps",
+                 str(EXAMPLE_STEPS), "--batch", "32"]
+#: ``python -m <module> <args>`` as ``runpy`` runs it, then the process's
+#: peak of allocated device bytes on a line of its own
+PEAK_MAIN = ("import runpy, sys, torch; mod = sys.argv[1]; "
+             "sys.argv = sys.argv[1:]; "
+             "runpy.run_module(mod, run_name='__main__', alter_sys=True); "
+             "print('peak_bytes', torch.cuda.max_memory_allocated())")
+_NUM = r"(-?[0-9.]+(?:e[-+][0-9]+)?|nan|inf)"
+
+
+def _train_lines(k: int, ddpm: int, latent: int, size: str,
+                 out: str) -> list[str]:
+    """``train_decentralized``'s lines (the reference example's), as
+    patterns."""
+    return ([rf"\[1/4\] clustering corpus into {k} partitions \.\.\.",
+             r"      cluster sizes: \[[0-9 ]+\]",
+             rf"\[2/4\] training {k} isolated experts \({ddpm} DDPM : "
+             rf"{k - ddpm} FM\) \.\.\.",
+             rf"      expert size: {size}M params"]
+            + [rf"      expert {c} \[{'ddpm' if c < ddpm else 'fm'}\] "
+               rf"loss {_NUM} \({_NUM}s\)" for c in range(k)]
+            + [r"\[3/4\] training router \(independent, all clusters\) "
+               r"\.\.\.", rf"      router acc {_NUM}",
+               r"\[4/4\] sampling with heterogeneous fusion \.\.\.",
+               rf"done: \(64, {latent}, {latent}, 4\) samples, FID-proxy "
+               rf"{_NUM}, checkpoints in {re.escape(out)}"])
+
+
+def _serve_lines(dispatch: str, params: str) -> list[str]:
+    """``serve_heterogeneous``'s lines after any training: a line per
+    strategy, then the elastic walkthrough's three (less ``traces=``)."""
+    lines = []
+    for strategy in ("top1", "topk", "full"):
+        routed = strategy != "full"
+        lines.append(
+            rf"strategy={strategy:5s} "
+            rf"dispatch={dispatch if routed else 'auto':8s} "
+            rf"params={params if routed else 'native':6s} "
+            rf"experts=\['ddpm', 'ddpm', 'fm', 'fm'\] first={_NUM}s "
+            rf"steady={_NUM}s \({_NUM} img/s\) cond_cache=0h/3m "
+            rf"plan_refreshes=24")
+    return lines + [r"elastic: membership: live=6/8 added=0 evicted=0 .*",
+                    r"elastic: hot-added slot 6, evicted slot 2 between "
+                    r"submit\(\) and flush\(\) — 2 dispatches",
+                    r"elastic: membership: live=6/8 added=1 evicted=1 .*"]
+
+
+#: the other examples' lines: convert_checkpoint (the Eq. 20 report's
+#: nine groups, Eq. 21's table) and quickstart
+CONVERT_LINES = (
+    [r"=== Eq\. 20: ImageNet-DDPM checkpoint -> text-conditioned FM expert"]
+    + [rf"  {g:18s} -> {a}" for g, a in (
+        ("adaln_single", "transfer"), ("blocks", "transfer"),
+        ("cross_attn", "new"), ("final_layer", "reinit"),
+        ("null_text_embed", "new"), ("patch_embed", "transfer"),
+        ("pos_embed", "transfer"), ("t_embed", "transfer"),
+        ("text_proj", "new"))]
+    + [r"  converted expert forward OK: \(2, 8, 8, 4\), finite=True", "",
+       r"=== Eq\. 21: continuous FM time -> discrete DiT table index",
+       r"  t=0\.000 -> t_DiT=0", r"  t=0\.123 -> t_DiT=123",
+       r"  t=0\.500 -> t_DiT=500", r"  t=1\.000 -> t_DiT=999", "",
+       r"=== Eqs\. 22–25: schedule-aware ε→velocity conversion",
+       rf"  linear: \|v - \(eps - x0\)\| = {_NUM}  \(Eq\. 25 identity\)",
+       rf"  cosine: velocity norms per t: \[{_NUM}, {_NUM}, {_NUM}, "
+       rf"{_NUM}\]", r"  safeguards: .*"])
+QUICKSTART_LINES = [rf"expert 0 \(ddpm/cosine\) final loss {_NUM}",
+                    rf"expert 1 \(fm/linear\) final loss {_NUM}",
+                    rf"router acc {_NUM}",
+                    rf"samples \(64, 8, 8, 4\), FID-proxy {_NUM}, "
+                    r"finite=True"]
+
+
+def _check_lines(label: str, lines: list[str], patterns: list[str]) -> list:
+    """Every line against its pattern, in order, every number finite;
+    returns the matches."""
+    matches = [re.fullmatch(p, ln) for p, ln in zip(patterns, lines)]
+    if len(lines) != len(patterns) or not all(matches):
+        bad = [(p, ln) for p, ln, m in zip(patterns, lines, matches)
+               if not m]
+        fail(f"{label} printed {len(lines)} lines for {len(patterns)} "
+             f"expected; first mismatch {bad[:1]}")
+    for m in matches:
+        for g in m.groups():
+            if g is not None and not math.isfinite(float(g)):
+                fail(f"{label}: a number is not finite: {m.string!r}")
+    return matches
+
+
+def _run_example(label: str, cmd: list[str], env: dict,
+                 timeout: float = 600) -> tuple[list[str], float]:
+    """One example as a subprocess: exits 0, its lines printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=timeout)
+    sec = time.perf_counter() - t0
+    lines = proc.stdout.rstrip("\n").splitlines()
+    for line in lines:
+        print(f"example {label} | {line}")
+    print(f"example {label} " + json.dumps(dict(exit=proc.returncode,
+                                                seconds=sec)))
+    if proc.returncode != 0:
+        fail(f"example {label} exited {proc.returncode}: "
+             f"{proc.stderr.strip()[-2000:]}")
+    return lines, sec
+
+
+def run_examples(ops, dev) -> dict:
+    """Phase 20: the four DiT examples (``python -m
+    repro_torch.examples.<name>``) as a user runs them, on the card, each
+    a subprocess that must exit 0 and print the reference example's lines
+    with finite numbers:
+
+    * ``train_decentralized --full --experts 8 --ddpm-experts 2 --steps
+      20 --batch 32``: the paper's 2 DDPM : 6 FM recipe at full DiT-B/2
+      width (120.6 M parameters an expert), each expert trained alone on
+      its cluster's stream, then the router, then the top-2 sampling
+      report; run through ``runpy.run_module`` as ``-m`` runs it, which
+      then prints the process's device peak (``PEAK_MAIN``);
+    * its 8 checkpoints served at full width in this process through
+      ``ServingEngine.from_checkpoint_dir`` (``router_b2(num_clusters=
+      8)``): one batch-8, 8-step, CFG-7.5, top-2 request, finite, with
+      exact launches (``expected_launches``);
+    * ``serve_heterogeneous --ckpt <empty> --batch 8 --requests 3 --steps
+      8``, which first trains its tiny ensemble through the port's
+      ``train_decentralized`` as a subprocess, then once more over those
+      checkpoints with ``--param-dtype int8 --dispatch grouped``;
+      ``convert_checkpoint`` (its linear identity within 1e-5) and
+      ``quickstart``, those three at once.
+    Prints each run's seconds, the trainer's seconds a step per expert
+    and the training run's peak.  Returns the served request's launches.
+    """
+    from repro_torch.core.sampling import SamplerConfig
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models.config import dit_b2, router_b2
+
+    root = os.path.join(WORK, "examples")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    full = os.path.join(root, "full")
+    lines, train_s = _run_example(
+        "train_decentralized",
+        [sys.executable, "-c", PEAK_MAIN,
+         "repro_torch.examples.train_decentralized", *EXAMPLE_TRAIN,
+         "--out", full], env)
+    peak = int(lines.pop().split()[1])
+    found = _check_lines("train_decentralized", lines, _train_lines(
+        EXAMPLE_EXPERTS, EXAMPLE_DDPM, 32, "120.6", full))
+    per_step = [float(m.group(2)) / EXAMPLE_STEPS
+                for m in found[4:4 + EXAMPLE_EXPERTS]]
+    print("example train_decentralized " + json.dumps(dict(
+        experts=EXAMPLE_EXPERTS, ddpm=EXAMPLE_DDPM, steps=EXAMPLE_STEPS,
+        batch=32, seconds=train_s, expert_step_s=per_step,
+        images_per_s=32 / float(np.median(per_step)), peak_bytes=peak)))
+
+    dit_cfg = dit_b2()
+    router_cfg = router_b2(num_clusters=EXAMPLE_EXPERTS)
+    gc.collect()
+    base = _peak_reset(dev)
+    t0 = time.perf_counter()
+    engine = ServingEngine.from_checkpoint_dir(
+        full, dit_cfg=dit_cfg, router_cfg=router_cfg,
+        sampler=SamplerConfig(num_steps=STEPS, cfg_scale=7.5, top_k=2),
+        device=dev)
+    _sync(dev)
+    print("example checkpoints loaded " + json.dumps(dict(
+        seconds=time.perf_counter() - t0,
+        objectives=[e.objective for e in engine.experts])))
+    mem = dict(base=base, resident=torch.cuda.memory_allocated() - base,
+               load_peak=_peak(dev, base))
+    text = _texts(dit_cfg, [BATCH], 61)[0]
+    _, launches = serve_path(
+        ops, engine, "examples_full_width", [text], [900],
+        expected_launches(dit_cfg, router_cfg, ops, "native", True, 1), mem)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(root, "served")
+    serve = [sys.executable, "-m", "repro_torch.examples.serve_heterogeneous",
+             "--ckpt", ckpt, "--batch", "8", "--requests", "3", "--steps",
+             "8"]
+    runs = {"serve_heterogeneous": serve,
+            "convert_checkpoint": [sys.executable, "-m",
+                                   "repro_torch.examples.convert_checkpoint"],
+            "quickstart": [sys.executable, "-m",
+                           "repro_torch.examples.quickstart"]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True,
+                                    env=env, cwd=ROOT)
+             for name, cmd in runs.items()}
+    try:
+        outs = {name: p.communicate(timeout=600) for name, p in
+                procs.items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+    for name, p in procs.items():
+        out, err = outs[name]
+        for line in out.rstrip("\n").splitlines():
+            print(f"example {name} | {line}")
+        if p.returncode != 0:
+            fail(f"example {name} exited {p.returncode}: "
+                 f"{err.strip()[-2000:]}")
+    print("example three at once " + json.dumps(dict(
+        seconds=time.perf_counter() - t0)))
+    lines = outs["serve_heterogeneous"][0].rstrip("\n").splitlines()
+    _check_lines("serve_heterogeneous", lines, [
+        rf"no checkpoints under {re.escape(ckpt)} — training a tiny "
+        r"ensemble first \.\.\."]
+        + _train_lines(4, 2, 8, "1.0", ckpt)
+        + _serve_lines("gathered", "native"))
+    found = _check_lines(
+        "convert_checkpoint",
+        outs["convert_checkpoint"][0].rstrip("\n").splitlines(),
+        CONVERT_LINES)
+    identity = float(next(m for m in found if m.string.startswith(
+        "  linear")).group(1))
+    if identity > 1e-5:
+        fail(f"convert_checkpoint: the linear identity errs by {identity}")
+    _check_lines("quickstart",
+                 outs["quickstart"][0].rstrip("\n").splitlines(),
+                 QUICKSTART_LINES)
+    lines, _ = _run_example("serve_heterogeneous int8 grouped",
+                            serve + ["--param-dtype", "int8", "--dispatch",
+                                     "grouped"], env)
+    _check_lines("serve_heterogeneous int8 grouped", lines,
+                 _serve_lines("grouped", "int8"))
+    shutil.rmtree(root)
+    return {"examples_full_width": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3235,11 +3511,9 @@ TRAIN_CATEGORIES = (
     ("flash_attention_bwd_tile", "flash_attention_bwd dK, dV and dQ shares"),
     ("flash_attention_bwd_dq_sum", "flash_attention_bwd dQ sum"),
     ("flash_attention", "flash_attention (forward, with log-sum-exp)"),
-    ("gemm", "cuBLAS float32 GEMM (dense layers forward and backward, "
-             "cross-attention)"),
-    ("nvjet", "cuBLAS float32 GEMM (dense layers forward and backward, "
-              "cross-attention)"),
-    ("softmax", "softmax (cross-attention, forward and backward)"),
+    ("gemm", "cuBLAS float32 GEMM (dense layers forward and backward)"),
+    ("nvjet", "cuBLAS float32 GEMM (dense layers forward and backward)"),
+    ("softmax", "softmax"),
     ("reduce", "reductions (loss, global norm, bias and mean grads)"),
     ("elementwise", "elementwise (AdamW, EMA, activations, residuals)"),
     ("index", "gathers and scatters (timestep table, drop mask)"),
@@ -3273,12 +3547,14 @@ def _plain_ops(ops, ref):
 def _train_launches(cfg) -> dict:
     """The kernel launches of one dense training step, forward and
     backward alike: (3L + 1) AdaLN launches with text (msa, the LayerNorm
-    before cross-attention, mlp, the final layer), 2L for the router; L
-    attention launches."""
+    before cross-attention, mlp, the final layer), 2L for the router; 2L
+    attention launches with text (self- and cross-attention), L for the
+    router."""
     layers = cfg.num_layers
     ln = 2 * layers if cfg.num_classes else 3 * layers + 1
-    return dict(adaln_fuse=ln, adaln_fuse_bwd=ln, flash_attention=layers,
-                flash_attention_bwd=layers)
+    attn = layers if cfg.num_classes else 2 * layers
+    return dict(adaln_fuse=ln, adaln_fuse_bwd=ln, flash_attention=attn,
+                flash_attention_bwd=attn)
 
 
 def _fixed_loss(trainer, params, draws, batch, router: bool) -> float:
@@ -4998,6 +5274,10 @@ def main() -> None:
     phase_done("19 (paligemma-3b serving and training)")
     run_cli(dev)
     phase_done("9 (serving CLI)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(run_examples(ops, dev))
+    phase_done("20 (the four DiT examples)")
 
     # each kernel's launches on the served path that exercises it
     where = {"ragged_gemm": "native", "ragged_gemm_int8": "int8",

@@ -25,10 +25,11 @@ pairs, from any store's ``ragged_view()`` — dense leaves, or quantized
 
 In both, every LayerNorm — modulated (``kernels.ops.adaln_modulate``)
 or not (``kernels.ops.layernorm``, before cross-attention) — and every
-self-attention (``kernels.ops.flash_attention``, non-causal) goes
-through the port's kernels; cross-attention (256 queries over 77 text
-tokens, unequal lengths the attention kernel does not take) stays
-plain ops (``layers.attention``).
+attention goes through the port's kernels: the self-attention (256
+tokens over themselves) and the cross-attention (256 queries over the 77
+text tokens, a kv length of their own) both through
+``kernels.ops.flash_attention``, non-causal and unmasked, as the
+reference's ``chunked_attention(..., causal=False)`` computes them.
 
 ``apply`` (hence ``make_expert_apply`` and ``make_router_fn``) is
 differentiable in its parameters on both devices: on the card the
@@ -206,9 +207,11 @@ def _modulate_ln(x, gamma, beta):
 
 
 def _attend(q, k, v):
-    """Non-causal self-attention of ``(B, S, H, D)`` projections through
-    the attention kernel, read and written in that layout (a transposed
-    view of the kernel's ``(B, H, S, D)``); returns ``(B, S, H·D)``."""
+    """Non-causal attention of ``(B, Sq, H, D)`` queries over ``(B, Skv,
+    H, D)`` keys and values (self-attention, or cross-attention over the
+    text tokens) through the attention kernel, read and written in that
+    layout (a transposed view of the kernel's ``(B, H, S, D)``); returns
+    ``(B, Sq, H·D)``."""
     b, s = q.shape[0], q.shape[1]
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=False)
@@ -233,7 +236,7 @@ def _cross_attn(cfg: DiTConfig, p, x, text):
     q = L.dense(p["wq"], x).reshape(b, s, cfg.num_heads, hd)
     k = L.dense(p["wk"], text).reshape(b, m, cfg.num_heads, hd)
     v = L.dense(p["wv"], text).reshape(b, m, cfg.num_heads, hd)
-    return L.dense(p["wo"], L.attention(q, k, v).reshape(b, s, d))
+    return L.dense(p["wo"], _attend(q, k, v))
 
 
 def apply(cfg: DiTConfig, params, x_t: torch.Tensor, t: torch.Tensor, *,
@@ -461,7 +464,7 @@ def make_ragged_expert_apply(cfg: DiTConfig):
                 q = pd(cp["wq"], hn).reshape(-1, t_tok, cfg.num_heads, hd)
                 k = pd(cp["wk"], text).reshape(-1, t_txt, cfg.num_heads, hd)
                 v = pd(cp["wv"], text).reshape(-1, t_txt, cfg.num_heads, hd)
-                h = h + pd(cp["wo"], L.attention(q, k, v).reshape(h.shape))
+                h = h + pd(cp["wo"], _attend(q, k, v).reshape(h.shape))
             hn = _modulate_ln(h, g_mlp, b_mlp)             # Eq. 19
             hmid = L.gelu(pd(bp["mlp"]["w1"], hn))
             h = h + a_mlp[:, None, None] * pd(bp["mlp"]["w2"], hmid)

@@ -3,15 +3,12 @@ functions on tensors.
 
 Parameters are dicts of tensors in the reference layout: a dense weight is
 ``(in, out)`` (not ``nn.Linear``'s ``(out, in)``), so checkpoints of the
-JAX package load without transposes.  ``attention`` is non-causal and
-unmasked, with the semantics of the reference's ``chunked_attention`` on
-the DiT path: a float32 ``QKᵀ`` scaled by ``1/sqrt(head_dim)``, softmax
-over keys, then ``PV``.  The DiT's LayerNorms and self-attention go
-through the kernel wrappers (``kernels.ops.layernorm``,
-``adaln_modulate``, ``flash_attention``); ``attention`` serves its
-cross-attention, whose query and text lengths differ.  The LMs' causal
-attention over a sequence goes through ``flash_attention_gqa``
-(``models.transformer``); ``decode_attention``, one token against a KV
+JAX package load without transposes.  The DiT's LayerNorms and its
+self- and cross-attention go through the kernel wrappers
+(``kernels.ops.layernorm``, ``adaln_modulate``, ``flash_attention``).
+The LMs' causal attention over a sequence goes through
+``flash_attention_gqa`` (``models.transformer``); ``decode_attention``,
+one token against a KV
 cache, is plain torch, as the reference computes it in jnp, and so is
 ``chunked_attention``, the reference's attention function with all its
 masks (positions, window, prefix-LM, valid slots), which no model path of
@@ -280,25 +277,6 @@ def gqa_project(params: dict, x: torch.Tensor, num_heads: int,
     k = dense(params["wk"], x).reshape(b, s, num_kv_heads, head_dim)
     v = dense(params["wv"], x).reshape(b, s, num_kv_heads, head_dim)
     return q, k, v
-
-
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              softmax_scale: float | None = None) -> torch.Tensor:
-    """Non-causal, unmasked attention.
-
-    ``q``: ``(B, Sq, H, D)``; ``k``/``v``: ``(B, Skv, H, D)`` (equal head
-    counts — the DiT has no GQA).  Returns ``(B, Sq, H, D)`` in ``q``'s
-    dtype.
-    """
-    d = q.shape[-1]
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    qh = q.to(torch.float32).transpose(1, 2)               # (B, H, Sq, D)
-    kh = k.to(torch.float32).transpose(1, 2)
-    vh = v.to(torch.float32).transpose(1, 2)
-    logits = (qh @ kh.transpose(-1, -2)) * scale           # (B, H, Sq, Skv)
-    p = torch.softmax(logits, dim=-1)
-    out = p @ vh                                           # (B, H, Sq, D)
-    return out.transpose(1, 2).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -370,7 +370,9 @@ def test_served_request_goes_through_the_new_wrappers(
         monkeypatch, ensemble, param_dtype, rel):
     """``ServingEngine.generate`` at the reduced width: every LayerNorm of
     the router and the experts goes through ``adaln_modulate``/
-    ``layernorm`` and every self-attention through ``flash_attention``,
+    ``layernorm`` and every attention (the self-attention, and the
+    experts' cross-attention over the text tokens) through
+    ``flash_attention``,
     as many times as the config says, and the latents match the JAX
     engine — native within ``1e-4 · max|latent|``, bf16 within
     ``1e-2 · max|latent|`` (the jitted JAX engine keeps bf16
@@ -401,7 +403,9 @@ def test_served_request_goes_through_the_new_wrappers(
     # per step: the router (msa + mlp per layer) and one batched-CFG
     # expert forward (msa, cross-attention LayerNorm, mlp, final layer)
     assert calls["adaln"] == STEPS * (2 * layers + 3 * layers + 1)
-    assert calls["flash"] == STEPS * 2 * layers
+    # per step: the router's self-attention a layer, and the experts'
+    # self- and cross-attention a layer
+    assert calls["flash"] == STEPS * (layers + 2 * layers)
     jeng = JServingEngine.from_checkpoint_dir(
         ensemble["path"], dit_cfg=j_dit_b2().reduced(latent_size=8),
         router_cfg=j_router_b2(num_clusters=8).reduced(latent_size=8),

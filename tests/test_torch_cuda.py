@@ -733,8 +733,9 @@ def test_hetero_fuse_kernel_matches_plain_bitwise(cuda, k, mix, b, t):
 def test_ragged_dit_forward_runs_the_new_kernels(cuda, with_text):
     """The reduced ragged DiT forward on the card: ``3L + 1`` AdaLN
     launches with text (msa, cross-attention LayerNorm, mlp per layer,
-    final layer; ``2L + 1`` without), ``L`` attention launches, and the
-    latents of its CPU run within ``1e-4 · max|out|``."""
+    final layer; ``2L + 1`` without), ``2L`` attention launches with text
+    (self- and cross-attention per layer; ``L`` without), and the latents
+    of its CPU run within ``1e-4 · max|out|``."""
     from repro_torch.core.param_store import make_store
     from repro_torch.models import dit as D
     from repro_torch.models.config import dit_b2
@@ -760,7 +761,7 @@ def test_ragged_dit_forward_runs_the_new_kernels(cuda, with_text):
     torch.cuda.synchronize()
     layers = cfg.num_layers
     assert ops.LAUNCHES["adaln_fuse"] == (3 if with_text else 2) * layers + 1
-    assert ops.LAUNCHES["flash_attention"] == layers
+    assert ops.LAUNCHES["flash_attention"] == (2 if with_text else 1) * layers
     err = (got.cpu() - want).abs().max().item()
     assert err <= 1e-4 * want.abs().max().item(), err
 
@@ -1572,12 +1573,15 @@ def test_flash_attention_bwd_scratch_is_delta_on_the_tc_route(cuda):
 #: (B, Hq, Hkv, Sq, Skv, D) of the cross-attention cases: whisper's
 #: decoder over its 1500 frames (reduced: 24 over 16), more queries than
 #: keys, partial tiles on both lengths, a GQA group, D 80 and D 40 (bf16
-#: on the FFMA template there)
+#: on the FFMA template there), whisper's cross shape, and the DiT-B/2
+#: cross-attention of a top-2 request (32 rows of 256 latent tokens over
+#: the 77 text tokens: a partial key tile)
 CROSS = [(2, 4, 4, 24, 16, 64), (1, 3, 3, 200, 70, 64),
          (2, 4, 2, 129, 1000, 128), (1, 2, 2, 63, 300, 80),
-         (1, 2, 1, 90, 33, 40), (4, 20, 20, 1024, 1500, 64)]
+         (1, 2, 1, 90, 33, 40), (4, 20, 20, 1024, 1500, 64),
+         (32, 12, 12, 256, 77, 64)]
 CROSS_IDS = ["whisper_reduced", "more_queries", "gqa_d128", "d80", "d40",
-             "whisper_cross"]
+             "whisper_cross", "dit_cross"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1654,6 +1658,61 @@ def test_flash_attention_whisper_bf16_on_wgmma(cuda, sq, skv, causal):
     out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
     assert _kernels_launched(lambda: flash_attention_bwd(
         q, k, v, out, lse, do, causal=causal)) == BWD_ROUTES["wgmma bf16"]
+
+
+def test_flash_attention_bwd_kernel_dit_cross_shape(cuda):
+    """The DiT-B/2 training step's cross-attention (batch 32, 12 heads of
+    D 64, 256 latent tokens over the 77 text tokens), float32: the FFMA
+    tile kernel's backward as ``_bwd_check`` holds it, the FFMA route's
+    kernels launched."""
+    from repro_torch.kernels.flash_attention import (bwd_design,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+
+    _bwd_check(cuda, 32, 12, 12, 256, 64, False, 0, torch.float32, skv=77)
+    gen = torch.Generator(device=cuda).manual_seed(77)
+    q, do = (torch.randn(32, 256, 12, 64, generator=gen,
+                         device=cuda).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(32, 77, 12, 64, generator=gen,
+                        device=cuda).transpose(1, 2) for _ in range(2))
+    assert flash_design(q, k, v) == bwd_design(q, k, v, do) == "FFMA"
+    out, lse = flash_attention(q, k, v, causal=False, with_lse=True)
+    assert _kernels_launched(lambda: flash_attention_bwd(
+        q, k, v, out, lse, do, causal=False)) == BWD_ROUTES["FFMA"]
+
+
+def test_dit_b2_expert_forward_on_the_card_matches_plain_attention(cuda,
+                                                                   monkeypatch):
+    """One full-width DiT-B/2 expert forward (jittered random weights,
+    batch 2, 77 × 768 text) with every attention on the kernel — 24
+    launches, 12 self- and 12 cross-attentions — against the same forward
+    on the card with the attention's plain version (the kernel differs by
+    ≤ 1e-5 of max a call; twelve layers): within ``1e-4 · max|out|``."""
+    from repro_torch.models import dit as D
+    from repro_torch.models.config import dit_b2
+    from repro_torch.tree import tree_map
+
+    cfg = dit_b2()
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    params = tree_map(lambda a: a + 0.02 * torch.randn(
+        a.shape, generator=gen, device=cuda), D.init(cfg, gen))
+    x = torch.randn(2, 32, 32, 4, generator=gen, device=cuda)
+    t = torch.tensor([0.3, 0.8], device=cuda)
+    text = torch.randn(2, cfg.text_len, cfg.text_dim, generator=gen,
+                       device=cuda)
+    ops.reset_launches()
+    got = D.apply(cfg, params, x, t, text_emb=text)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+
+    def plain(q, k, v, **kw):
+        return ref.ref_flash_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", plain)
+    want = D.apply(cfg, params, x, t, text_emb=text)
+    assert bool(torch.isfinite(got).all()) and got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
 
 
 def test_flash_attention_bwd_scratch_at_cross_lengths(cuda):
@@ -1823,13 +1882,14 @@ def test_no_grad_forwards_are_the_serving_launch(cuda):
 @pytest.mark.parametrize("router", [False, True], ids=["expert", "router"])
 def test_dense_dit_gradients_on_the_card_match_the_cpu(cuda, router):
     """One loss through the reduced dense DiT on the card (every LayerNorm
-    and self-attention through the kernels and their backward kernels)
-    against the same loss on the CPU (plain versions): every parameter
-    leaf's gradient within ``1e-4 · max |want|`` (float32 GEMM chains
-    through two layers in another order), and non-zero wherever the CPU's
-    is (the router's unused final layer gets zeros on both); launches
-    ``(3L + 1)`` AdaLN (``2L`` for the router) and ``L`` attention,
-    forward and backward alike."""
+    and attention through the kernels and their backward kernels) against
+    the same loss on the CPU (plain versions): every parameter leaf's
+    gradient within ``1e-4 · max |want|`` (float32 GEMM chains through
+    two layers in another order), and non-zero wherever the CPU's is (the
+    router's unused final layer gets zeros on both); launches ``(3L + 1)``
+    AdaLN (``2L`` for the router) and ``2L`` attention (self- and
+    cross-attention; ``L`` for the router), forward and backward
+    alike."""
     from repro_torch.models import dit as D
     from repro_torch.models.config import dit_b2, router_b2
     from repro_torch.training.trainer import value_and_grad
@@ -1862,7 +1922,7 @@ def test_dense_dit_gradients_on_the_card_match_the_cpu(cuda, router):
     assert ops.LAUNCHES["adaln_fuse"] == ops.LAUNCHES["adaln_fuse_bwd"] \
         == n_ln
     assert ops.LAUNCHES["flash_attention"] == \
-        ops.LAUNCHES["flash_attention_bwd"] == layers
+        ops.LAUNCHES["flash_attention_bwd"] == (1 if router else 2) * layers
     assert abs(got_loss.item() - want_loss.item()) <= \
         1e-5 * abs(want_loss.item())
     for g, w in zip(got, want):

@@ -29,7 +29,6 @@ from repro.models.config import router_b2 as j_router_b2
 from repro.training import checkpoint as jckpt
 from repro_torch.kernels import ops
 from repro_torch.models import dit as D
-from repro_torch.models import layers as L
 from repro_torch.models.config import dit_b2, router_b2
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.training import checkpoint as ckpt
@@ -112,8 +111,12 @@ def test_layernorm_and_attention_match_jax():
     want = JL.chunked_attention(
         q, k, v, q_positions=jnp.arange(6), kv_positions=jnp.arange(4),
         causal=False, chunk_size=4)
-    got = L.attention(*(torch.from_numpy(a) for a in (q, k, v)))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the DiT's attention call: (B, S, H, D) projections as (B, H, S, D)
+    # views, 6 queries over 4 keys (a cross-attention's unequal lengths)
+    got = ops.flash_attention(*(torch.from_numpy(a).transpose(1, 2)
+                                for a in (q, k, v)), causal=False)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(),
+                               np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("text_mode", ["text", "null", "drop_mask"])

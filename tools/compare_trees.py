@@ -1,12 +1,13 @@
 """Time the SSD scan's backward kernels and the mamba2-2.7b training step
 of several trees of this repository, in turns, on one card — or their
-attention kernels, their zamba2-2.7b and internlm2-1.8b scoring, or
-those two models' training steps.
+attention kernels, their zamba2-2.7b and internlm2-1.8b scoring, those
+two models' training steps, or a profiled DiT-B/2 request and training
+step.
 
     python3 tools/compare_trees.py [--only MEASUREMENT] TREE [TREE ...]
 
-MEASUREMENT is one of kernel, step, breakdown, flash, flash_bwd, lm and
-lm_train; without it, kernel and step.
+MEASUREMENT is one of kernel, step, breakdown, flash, flash_bwd, lm,
+lm_train and dit; without it, kernel and step.
 
 Each TREE is the root of a checkout (this one, or an older commit unpacked
 with ``git archive`` into a directory ``.gitignore`` lists).  For each, in
@@ -22,7 +23,11 @@ cases), ``--only flash_bwd`` its ``check_flash_bwd`` (the attention
 backward cases), ``--only lm`` its phase-15 serving of zamba2-2.7b and
 internlm2-1.8b (``serve_lm_full_width`` and ``profile_lm_request``), and
 ``--only lm_train`` its phase-14 training of internlm2-1.8b and
-zamba2-2.7b (``train_lm_full_width``: steps and a profiled step).  The
+zamba2-2.7b (``train_lm_full_width``: steps and a profiled step), and
+``--only dit`` serves phase 4's full-width native DiT-B/2 ensemble
+(``write_ensemble``, one warm-up request, two requests under
+``profile_request``) and runs phase 13 (``train_full_width``: the
+experts' and router's steps and a profiled expert step).  The
 last line is one JSON object: per run, the tree, its mixer-shape backward
 row (or breakdown) and its training step's seconds and tokens/s, or its
 attention (or attention backward) cases, or its scoring requests and
@@ -94,6 +99,8 @@ def one(tree: str, only: str | None) -> dict:
         out["profiles"] = [{k: p[k] for k in (
             "path", "device_busy_ms", "device_idle_share",
             "ms_by_category")} for p in profiles]
+    if only == "dit":
+        out["dit"] = dit(chip_smoke, ops, ref, dev)
     if only == "lm":
         requests = grab(chip_smoke, "lm request ")
         profiles = grab(chip_smoke, "profile ")
@@ -111,6 +118,44 @@ def one(tree: str, only: str | None) -> dict:
                 "arch", "profiled_request_s", "device_busy_ms",
                 "device_idle_share", "ms_by_category")} for p in profiles]}
     return out
+
+
+def dit(chip_smoke, ops, ref, dev) -> dict:
+    """Two profiled native DiT-B/2 requests (batch 8, 8 steps, CFG 7.5,
+    top-2, full width, after a warm-up request) and phase 13's training
+    runs of the tree: each profile's busy ms and categories, each run's
+    step seconds."""
+    import shutil
+
+    import torch
+    from repro_torch.core.sampling import SamplerConfig
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models.config import dit_b2, router_b2
+
+    profiles = grab(chip_smoke, "profile ")
+    runs = ("expert0_ddpm_from_init", "expert1_fm_from_converted", "router")
+    steps = {r: grab(chip_smoke, f"train {r} ") for r in runs}
+    cfg = dit_b2()
+    rcfg = router_b2(num_clusters=len(chip_smoke.MIX))
+    path = chip_smoke.DIT_PATH
+    chip_smoke.write_ensemble(path, cfg, rcfg, dev, seed=11)
+    engine = ServingEngine.from_checkpoint_dir(
+        path, dit_cfg=cfg, router_cfg=rcfg, sampler=SamplerConfig(
+            num_steps=chip_smoke.STEPS, cfg_scale=7.5, top_k=2))
+    text = chip_smoke._texts(cfg, [chip_smoke.BATCH], 5)[0]
+    engine.generate(100, text, chip_smoke.BATCH)
+    for _ in range(2):
+        chip_smoke.profile_request(engine, "native")
+    del engine
+    shutil.rmtree(path)
+    torch.cuda.empty_cache()
+    chip_smoke.train_full_width(ops, ref, dev)
+    return {"profiles": [{k: p[k] for k in (
+                "path", "profiled_request_s", "device_busy_ms",
+                "device_idle_share", "ms_by_category")} for p in profiles],
+            "train": {r: {k: rows[-1][k] for k in (
+                "step_s_median", "step_s_min", "images_per_s", "peak_bytes",
+                "launches_per_step")} for r, rows in steps.items()}}
 
 
 def grab(chip_smoke, prefix: str) -> list:
@@ -167,7 +212,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernel", "step", "breakdown",
                                        "flash", "flash_bwd", "lm",
-                                       "lm_train"))
+                                       "lm_train", "dit"))
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args()
