@@ -272,7 +272,19 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    ``serve_heterogeneous`` over an empty directory (it trains its tiny
    ensemble through the port's trainer first) and again with
    ``--param-dtype int8 --dispatch grouped``, ``convert_checkpoint`` and
-   ``quickstart``.
+   ``quickstart``;
+21. (after phase 12, over phase 4's checkpoints) the ensemble on
+   ``("expert", "data")`` meshes of ``torch.distributed`` ranks (ROADMAP
+   A.8), one batch-8, 8-step, CFG-7.5, top-2 request twice a case: a
+   one-rank NCCL ``(1, 1)`` mesh in this process (latents and launches
+   bitwise the unsharded engine's); two gloo ranks sharing ``cuda:0``
+   (NCCL refuses two ranks on one card) on ``(2, 1)`` native and int8 and
+   ``(1, 2)`` native, each rank's whole batch within 1e-5 of max of the
+   unsharded engine's, its store half of the whole on ``(2, 1)``, the
+   ranks' ``ragged_gemm`` pairs summing to the unsharded request's; and
+   the serving CLI under ``torchrun --nproc-per-node 2`` (``--backend
+   gloo --expert-shards 2 --coalesce``, latent 8), which must print
+   ``mesh={'expert': 2, 'data': 1}``.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -3478,6 +3490,236 @@ def serve_resilience(ops, engines, dev, path, dit_cfg, router_cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 21: the expert/data mesh (ROADMAP A.8)
+# ---------------------------------------------------------------------------
+
+#: phase 21's two-rank cases: (label, (expert shards, data shards),
+#: param_dtype) — the ranks share cuda:0 over gloo
+MESH_CASES = (("mesh_2x1", (2, 1), "native"),
+              ("mesh_2x1_int8", (2, 1), "int8"),
+              ("mesh_1x2", (1, 2), "native"))
+#: phase 21's request: one batch-8, 8-step, CFG-7.5, top-2 request
+MESH_SEED, MESH_TEXT_SEED = 800, 41
+#: the CLI under torchrun (two ranks on the card over gloo, at the
+#: reference CLI's reduced width over phase 9's checkpoints)
+MESH_CLI = ["--backend", "gloo", "--expert-shards", "2", "--coalesce",
+            "--batch", "3", "--requests", "2", "--steps", "4"]
+
+
+def _mesh_requests(ops, eng, text) -> tuple:
+    """Phase 21's request, served twice (the first pays the process's
+    first collectives): the first latents, each request's seconds, and
+    the second's launches and pairs (counts set to 0 just before it)."""
+    outs, seconds = [], []
+    for _ in range(2):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs.append(eng.generate(MESH_SEED, text, BATCH))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return outs[0], seconds, dict(ops.LAUNCHES), dict(ops.RAGGED_PAIRS)
+
+
+def _mesh_rank(rank: int, world: int, job: dict) -> None:
+    """One rank of phase 21's case (b).  The phase-4 checkpoints load once
+    onto the host (``from_checkpoint_dir(device="cpu")``: the checks, the
+    specs, the experts' parameters) and the router onto the card; each
+    case's engine is built from them on its mesh (only the resident
+    slice reaches the card), then serves one request with the launch and
+    pair counts set to 0 just before and read just after, written to
+    ``job["out"]`` for the parent to check."""
+    from repro_torch.core.sampling import SamplerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import dit as D
+    from repro_torch.models.config import dit_b2, router_b2
+    from repro_torch.training.checkpoint import load_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dit_b2()
+    text = _texts(cfg, [BATCH], MESH_TEXT_SEED)[0]
+    t0 = time.perf_counter()
+    host = ServingEngine.from_checkpoint_dir(job["path"], dit_cfg=cfg,
+                                             device="cpu")
+    experts, params = host.experts, host.expert_params
+    del host
+    router_fn = D.make_router_fn(
+        router_b2(num_clusters=len(MIX)),
+        load_checkpoint(os.path.join(job["path"], "router.npz"),
+                        device=dev)[0])
+    host_load_s = time.perf_counter() - t0
+    for label, (e, d), pd in MESH_CASES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = ServingEngine(
+            experts=experts, expert_params=params, router_fn=router_fn,
+            latent_shape=(cfg.latent_size, cfg.latent_size,
+                          cfg.latent_channels),
+            sampler=SamplerConfig(num_steps=STEPS, cfg_scale=7.5, top_k=2,
+                                  param_dtype=pd),
+            device=dev, n_expert_shards=e, n_data_shards=d,
+            dist_backend="gloo")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        out, seconds, launches, pairs = _mesh_requests(ops, eng, text)
+        np.save(os.path.join(job["out"], f"{label}_rank{rank}.npy"),
+                out.cpu().numpy())
+        with open(os.path.join(job["out"], f"{label}_rank{rank}.json"),
+                  "w") as f:
+            json.dump(dict(
+                case=label, rank=rank, mesh={"expert": e, "data": d},
+                param_dtype=pd, backend=eng.mesh.backend,
+                expert_range=list(eng.mesh.expert_range(len(eng.experts))),
+                host_load_seconds=host_load_s, build_seconds=load_s,
+                request_seconds=seconds,
+                store_bytes=eng.param_store.nbytes(),
+                resident_bytes=torch.cuda.memory_allocated(),
+                serve_peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches, pairs=pairs), f)
+        del eng, out
+
+
+def serve_mesh(ops, engines, dev, path, dit_cfg) -> dict:
+    """Phase 21: the ensemble served on ``("expert", "data")`` meshes of
+    ``torch.distributed`` ranks, over the phase-4 checkpoints (``path``),
+    one batch-8, 8-step, CFG-7.5, top-2 request a case:
+
+    (a) one rank, NCCL, mesh ``(1, 1)`` in this process, built from the
+        native engine's experts: latents and launches bitwise the
+        unsharded native engine's on the same request;
+    (b) two ranks sharing ``cuda:0`` over gloo (NCCL refuses two ranks on
+        one card): ``(2, 1)`` native and int8, ``(1, 2)`` native, each
+        rank's whole batch within ``1e-5 · max |latent|`` of the unsharded
+        engine on the card, each ``(2, 1)`` rank's store half of the
+        whole (the int8 scales with their leaves), the ranks'
+        ``ragged_gemm`` pairs summing to the unsharded request's;
+    (c) the serving CLI under ``torchrun --standalone --nproc-per-node 2``
+        with ``--backend gloo --expert-shards 2 --coalesce`` at latent 8
+        over phase 9's checkpoints: exit 0 and the reference's
+        ``mesh={'expert': 2, 'data': 1}``.
+
+    Each case serves the request twice and prints both seconds (the first
+    pays the first collectives and, in (b), the process's start); the
+    second request's launches and pairs are counted.  The seconds are a
+    record, not a measure of sharding: the two ranks share one card, and
+    gloo moves the collectives through the host.  Returns the launches
+    of (a)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models.config import dit_b2 as _dit_b2
+    from repro_torch.models.config import router_b2 as _router_b2
+
+    out_dir = os.path.join(WORK, "mesh")
+    cli_dir = os.path.join(WORK, "mesh_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    write_ensemble(cli_dir, _dit_b2().reduced(latent_size=8),
+                   _router_b2(num_clusters=len(MIX)).reduced(latent_size=8),
+                   dev, seed=13)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
+         "--ckpt-dir", cli_dir, *MESH_CLI],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    try:
+        text = _texts(dit_cfg, [BATCH], MESH_TEXT_SEED)[0]
+        want, want_launches, want_pairs = {}, {}, {}
+        for pd in ("native", "int8"):
+            ops.reset_launches()
+            want[pd] = engines[pd].generate(MESH_SEED, text, BATCH)
+            torch.cuda.synchronize()
+            want_launches[pd] = dict(ops.LAUNCHES)
+            want_pairs[pd] = dict(ops.RAGGED_PAIRS)
+
+        # (a) one rank, NCCL, built from the native engine's experts
+        native = engines["native"]
+        started = not dist.is_initialized()
+        try:
+            base = _peak_reset(dev)
+            t0 = time.perf_counter()
+            eng = ServingEngine(
+                experts=native.experts, expert_params=native.expert_params,
+                router_fn=native.router_fn, latent_shape=native.latent_shape,
+                sampler=native.sampler, device=dev, n_expert_shards=1,
+                n_data_shards=1, dist_backend="nccl")
+            _sync(dev)
+            load_s = time.perf_counter() - t0
+            resident = torch.cuda.memory_allocated() - base
+            got, seconds, launches, pairs = _mesh_requests(ops, eng, text)
+            print("mesh case " + json.dumps(dict(
+                case="mesh_1x1_nccl", rank=0, mesh=eng.mesh.shape,
+                backend=eng.mesh.backend, build_seconds=load_s,
+                request_seconds=seconds,
+                store_bytes=eng.param_store.nbytes(),
+                resident_bytes=resident, serve_peak_bytes=_peak(dev, base),
+                launches=launches, pairs=pairs)))
+            _compare("mesh_1x1_nccl vs unsharded", got, want["native"],
+                     bitwise=True)
+            if launches != want_launches["native"]:
+                fail(f"the (1, 1) mesh launched {launches}, the unsharded "
+                     f"engine {want_launches['native']}")
+            del eng, got
+        finally:
+            if started and dist.is_initialized():
+                dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) two ranks sharing the card over gloo
+        t0 = time.perf_counter()
+        spawn(_mesh_rank, 2, dict(path=path, out=out_dir), backend="gloo",
+              device="cuda")
+        print(f"mesh two-rank spawn {time.perf_counter() - t0:.1f} s")
+        for label, (e, d), pd in MESH_CASES:
+            rows = []
+            for rank in range(2):
+                with open(os.path.join(out_dir,
+                                       f"{label}_rank{rank}.json")) as f:
+                    row = json.load(f)
+                got = torch.from_numpy(np.load(os.path.join(
+                    out_dir, f"{label}_rank{rank}.npy"))).to(dev)
+                whole = engines[pd].param_store.nbytes()
+                row["whole_store_bytes"] = whole
+                print("mesh case " + json.dumps(row))
+                _compare(f"{label} rank {rank} vs unsharded", got, want[pd],
+                         tol_rel=GEMM_REL_TOL)
+                if row["store_bytes"] * e != whole:
+                    fail(f"{label} rank {rank} holds {row['store_bytes']} "
+                         f"store bytes of {whole} on {e} expert shards")
+                rows.append(row)
+            for name in want_pairs[pd]:
+                total = sum(r["pairs"][name] for r in rows)
+                if total != want_pairs[pd][name]:
+                    fail(f"{label}: the ranks' {name} pairs sum to {total}, "
+                         f"the unsharded request's {want_pairs[pd][name]}")
+            print(f"{label} pairs " + json.dumps(dict(
+                ranks=[r["pairs"] for r in rows],
+                unsharded=want_pairs[pd])))
+
+        # (c) the CLI under torchrun
+        cli_out, cli_err = cli.communicate(timeout=300)
+        for line in cli_out.strip().splitlines():
+            print(f"cli torchrun {' '.join(MESH_CLI)} | {line}")
+        if cli.returncode != 0 or "mesh={'expert': 2, 'data': 1}" not in \
+                cli_out or "coalesced 2 requests -> 1 dispatch(es)" not in \
+                cli_out:
+            fail(f"the serving CLI under torchrun exited {cli.returncode}: "
+                 f"{cli_err.strip()[-3000:]}")
+    finally:
+        cli.kill()
+        shutil.rmtree(cli_dir, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"mesh_1x1_nccl": launches}
+
+
+# ---------------------------------------------------------------------------
 # Phase 13 (and phase 6's training rows): training on the card
 # ---------------------------------------------------------------------------
 
@@ -5183,6 +5425,8 @@ def main() -> None:
     launches.update(serve_resilience(ops, engines, dev, DIT_PATH, dit_cfg,
                                      router_cfg))
     phase_done("12 (resilience)")
+    launches.update(serve_mesh(ops, engines, dev, DIT_PATH, dit_cfg))
+    phase_done("21 (the expert/data mesh)")
     del engines
     shutil.rmtree(DIT_PATH)
     gc.collect()

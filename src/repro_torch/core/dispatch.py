@@ -22,6 +22,18 @@ Where the reference picks a bucket or a branch with ``lax.switch``, the
 port reads the plan's segment bounds or slot ids to the host once per
 step and branches in Python.
 
+Expert parallelism (``mesh``, a ``launch.mesh.ExpertMesh``): the plan
+stays whole on every rank, and each rank runs only what routes to its
+resident experts ``mesh.expert_range(K)`` — the ragged executor the pairs
+whose expert is resident (handing the forward local ids ``pe − lo`` and
+the resident ``ragged_view()``; a rank with no such pair runs nothing),
+the gathered and grouped executors the resident segments, the dense
+executor the resident experts.  A routed executor leaves the other slots
+zero; ``complete`` then sums the predictions over the "expert" group
+(one ``all_reduce``, exact: every slot is non-zero on one rank only),
+and the dense executor's ``complete`` gathers the ranks' experts in
+expert order.  Without a mesh ``complete`` returns its input.
+
 Plan invariants (``tests/test_torch_core.py``):
 
 * ``segment_offsets`` is monotone, starts at 0 and ends at ``B·k``;
@@ -208,8 +220,9 @@ class ExpertExecutor(Protocol):
     coefficient table, and returns the per-slot native predictions
     ``(k, g·B, *latent)`` in ``[cond; uncond]`` branch-major order with the
     tiled fusion weights and slot ids (both ``(g·B, k)``): the operands of
-    the fused kernels.  ``velocity`` is the unfused form: ``predictions``
-    then ``kernels.ops.fused_velocity``, the fused velocity
+    the fused kernels — on a mesh once ``complete`` has joined the ranks'
+    parts.  ``velocity`` is the unfused form: ``predictions``,
+    ``complete``, then ``kernels.ops.fused_velocity``, the fused velocity
     ``(g·B, *latent)``.
     """
 
@@ -219,18 +232,45 @@ class ExpertExecutor(Protocol):
                     tab):
         ...
 
+    def complete(self, preds: torch.Tensor, plan: DispatchPlan):
+        ...
+
     def velocity(self, plan: DispatchPlan, x, tb, cond_g: dict, g: int,
                  tab) -> torch.Tensor:
         ...
 
 
 class _FusedVelocity:
-    """The shared unfused ``velocity``: ``predictions``, then one
-    ``kernels.ops.fused_velocity``."""
+    """What the executors share: ``complete`` (the "expert" all-reduce of
+    the per-slot predictions on a mesh) and the unfused ``velocity``:
+    ``predictions``, ``complete``, then one ``kernels.ops.
+    fused_velocity``."""
+
+    def resident(self, num_experts: int) -> tuple[int, int]:
+        """The global ids ``[lo, hi)`` of the experts this rank runs."""
+        if self.mesh is None:
+            return 0, num_experts
+        return self.mesh.expert_range(num_experts)
+
+    def _replicated(self, num_experts: int) -> bool:
+        """No mesh, or an "expert" axis that does not divide ``K``: every
+        rank ran every expert, and there is nothing to join."""
+        return self.mesh is None or (
+            self.mesh.shape["expert"] > 1
+            and self.resident(num_experts) == (0, num_experts))
+
+    def complete(self, preds: torch.Tensor, plan: DispatchPlan):
+        """Per-slot predictions of every rank's experts: the routed
+        executors' partial slots summed over the "expert" group (a group
+        of one included)."""
+        if self._replicated(plan.num_experts):
+            return preds
+        return self.mesh.expert_sum(preds)
 
     def velocity(self, plan: DispatchPlan, x, tb, cond_g: dict, g: int,
                  tab) -> torch.Tensor:
         preds, w_all, idx_all = self.predictions(plan, x, tb, cond_g, g, tab)
+        preds = self.complete(preds, plan)
         return ops.fused_velocity(preds, _tile(x, g), w_all,
                                   slot_coef(tab, idx_all),
                                   clamp=self.conv.clamp,
@@ -238,7 +278,8 @@ class _FusedVelocity:
 
 
 def _segment_predictions(apply_fn, store, plan: DispatchPlan, x, tb,
-                         cond_g: dict, g: int, *, pow2: bool):
+                         cond_g: dict, g: int, *, pow2: bool,
+                         resident: tuple[int, int]):
     """Per-slot predictions from one forward per expert with a non-empty
     segment (``GroupedExecutor`` and ``GatheredExecutor``).
 
@@ -251,7 +292,9 @@ def _segment_predictions(apply_fn, store, plan: DispatchPlan, x, tb,
     rows are zero-padded to the next power of two and each forward runs
     over the power-of-two bucket covering its segment, the rows outside
     the segment dropped; without it each forward runs over exactly its
-    segment.  The predictions unsort to slot order ``(k, g·B, ...)``.
+    segment.  Only the experts ``resident`` (``[lo, hi)``) run; the other
+    segments' rows stay zero.  The predictions unsort to slot order
+    ``(k, g·B, ...)``.
     """
     b = x.shape[0]
     k = plan.slots_per_sample
@@ -271,7 +314,7 @@ def _segment_predictions(apply_fn, store, plan: DispatchPlan, x, tb,
     # the segment bounds, read to the host once a step
     off = p.segment_offsets.tolist()  # lint: allow-host-sync
     buf = None
-    for e in range(p.num_experts):
+    for e in range(*resident):
         lo, hi = off[e], off[e + 1]
         if hi == lo:
             continue                                       # no forward
@@ -283,6 +326,8 @@ def _segment_predictions(apply_fn, store, plan: DispatchPlan, x, tb,
         if buf is None:
             buf = pred.new_zeros((n,) + tuple(pred.shape[1:]))
         buf[lo:hi] = pred[lo - start:hi - start]
+    if buf is None:                        # no resident expert is routed
+        buf = x.new_zeros((n,) + tuple(x.shape[1:]))
     preds_flat = buf[p.unsort_order]                       # (N, *latent)
     preds = preds_flat.reshape((g * b, k) + tuple(preds_flat.shape[1:]))
     return preds.movedim(1, 0), p.slot_w, p.slot_idx       # (k, g·B, ...)
@@ -306,16 +351,24 @@ class GatheredExecutor(_FusedVelocity):
     store: DenseStore | QuantizedStore
     conv: ConversionConfig
     name: str = "gathered"
+    mesh: object = None
 
     def predictions(self, plan, x, tb, cond_g, g, tab):
         if plan.uniform:
-            # The whole batch routes to one expert: one gather, one forward.
-            p = self.store.expert(int(plan.slot_idx[0, 0]))
-            preds = self.apply_fn(p, _tile(x, g), _tile(tb, g),
-                                  **_flatten_groups(cond_g, g))[None]
+            # The whole batch routes to one expert: one gather, one forward
+            # (on the rank that holds it).
+            e = int(plan.slot_idx[0, 0])
+            lo, hi = self.resident(plan.num_experts)
+            if lo <= e < hi:
+                preds = self.apply_fn(self.store.expert(e), _tile(x, g),
+                                      _tile(tb, g),
+                                      **_flatten_groups(cond_g, g))[None]
+            else:
+                preds = x.new_zeros((1, g * x.shape[0]) + tuple(x.shape[1:]))
             return preds, _tile(plan.slot_w, g), _tile(plan.slot_idx, g)
-        return _segment_predictions(self.apply_fn, self.store, plan, x, tb,
-                                    cond_g, g, pow2=False)
+        return _segment_predictions(
+            self.apply_fn, self.store, plan, x, tb, cond_g, g, pow2=False,
+            resident=self.resident(plan.num_experts))
 
 
 @dataclasses.dataclass
@@ -329,10 +382,12 @@ class GroupedExecutor(_FusedVelocity):
     store: DenseStore | QuantizedStore
     conv: ConversionConfig
     name: str = "grouped"
+    mesh: object = None
 
     def predictions(self, plan, x, tb, cond_g, g, tab):
-        return _segment_predictions(self.apply_fn, self.store, plan, x, tb,
-                                    cond_g, g, pow2=True)
+        return _segment_predictions(
+            self.apply_fn, self.store, plan, x, tb, cond_g, g, pow2=True,
+            resident=self.resident(plan.num_experts))
 
 
 def _pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
@@ -360,6 +415,7 @@ class RaggedExecutor(_FusedVelocity):
     store: DenseStore | QuantizedStore
     conv: ConversionConfig
     name: str = "ragged"
+    mesh: object = None
 
     def predictions(self, plan: DispatchPlan, x, tb, cond_g: dict, g: int,
                     tab):
@@ -394,13 +450,35 @@ class RaggedExecutor(_FusedVelocity):
         ts = t_all[sample_ids][rep]                        # (P,)
         cs = {key: v[sample_ids][pg_pos] for key, v in cond_all.items()}
 
-        view = self.store.ragged_view()
-        out = self.ragged_apply_fn(view, xs, ts, cs, pe, g)  # (P·g, ...)
+        out = self._resident_apply(plan, xs, ts, cs, pe, g)  # (P·g, ...)
         out = out.reshape((npair, g) + tuple(out.shape[1:]))
         preds_sorted = out[pair, gidx]                     # (N, *latent)
         preds_flat = preds_sorted[p.unsort_order]
         preds = preds_flat.reshape((g * b, k) + tuple(preds_flat.shape[1:]))
         return preds.movedim(1, 0), p.slot_w, p.slot_idx   # (k, g·B, ...)
+
+    def _resident_apply(self, plan: DispatchPlan, xs, ts, cs: dict, pe, g):
+        """The ragged forward of the pairs whose expert this rank holds,
+        ``(P·g, *latent)`` with the other pairs' rows zero.  The resident
+        pairs are counted from the plan's segment bounds (read to the host
+        on an expert-sharded rank only), picked in pair order and given
+        local expert ids; with none, nothing runs."""
+        view = self.store.ragged_view()
+        lo, hi = self.resident(plan.num_experts)
+        if (lo, hi) == (0, plan.num_experts):
+            return self.ragged_apply_fn(view, xs, ts, cs, pe, g)
+        off = plan.segment_offsets[[lo, hi]].tolist()  # lint: allow-host-sync
+        n_res = off[1] - off[0]
+        npair = pe.shape[0]
+        out = xs.new_zeros((npair, g) + tuple(xs.shape[1:]))
+        if n_res:
+            held = (pe >= lo) & (pe < hi)
+            pick = torch.argsort((~held).to(torch.int32), stable=True)[:n_res]
+            got = self.ragged_apply_fn(
+                view, xs[pick], ts[pick], {k: v[pick] for k, v in cs.items()},
+                pe[pick] - lo, g)
+            out[pick] = got.reshape((n_res, g) + tuple(got.shape[1:]))
+        return out.reshape((npair * g,) + tuple(xs.shape[1:]))
 
 
 @dataclasses.dataclass
@@ -408,12 +486,15 @@ class DenseExecutor(_FusedVelocity):
     """Every expert through its own ``apply_fn`` and parameters (no
     stacking), stacked in expert order — the slots of
     ``full_dispatch_plan``.  A batch-uniform plan runs only the routed
-    expert (its id read to the host once per step)."""
+    expert (its id read to the host once per step).  On a mesh a rank
+    runs its resident experts (``params`` holds ``None`` for the others)
+    and ``complete`` gathers the ranks' stacks in expert order."""
 
     apply_fns: Sequence[Callable[..., torch.Tensor]]
     params: Sequence
     conv: ConversionConfig
     name: str = "dense"
+    mesh: object = None
 
     def predictions(self, plan, x, tb, cond_g, g, tab):
         x_all = _tile(x, g)
@@ -421,15 +502,26 @@ class DenseExecutor(_FusedVelocity):
         cond_all = _flatten_groups(cond_g, g)
         w_all = _tile(plan.slot_w, g)
         idx_all = _tile(plan.slot_idx, g)
+        lo, hi = self.resident(len(self.apply_fns))
         if plan.uniform:
             e = int(plan.slot_idx[0, 0])
-            preds = self.apply_fns[e](self.params[e], x_all, t_all,
-                                      **cond_all)[None]
+            if lo <= e < hi:
+                preds = self.apply_fns[e](self.params[e], x_all, t_all,
+                                          **cond_all)[None]
+            else:
+                preds = x_all.new_zeros((1,) + tuple(x_all.shape))
         else:
             preds = torch.stack([
-                fn(p, x_all, t_all, **cond_all)
-                for fn, p in zip(self.apply_fns, self.params)])
+                self.apply_fns[e](self.params[e], x_all, t_all, **cond_all)
+                for e in range(lo, hi)])
         return preds, w_all, idx_all
+
+    def complete(self, preds: torch.Tensor, plan: DispatchPlan):
+        if plan.uniform:
+            return super().complete(preds, plan)
+        if self._replicated(len(self.apply_fns)):
+            return preds
+        return self.mesh.expert_gather(preds)
 
 
 def resolve_dispatch(dispatch: str, mode: str, stackable: bool,
@@ -488,9 +580,11 @@ def make_executor(
     stacked_params,
     conv: ConversionConfig,
     ragged_apply_fn: Callable[..., torch.Tensor] | None = None,
+    mesh=None,
 ) -> ExpertExecutor:
     """The executor of a resolved backend.  ``stacked_params`` is a store
-    or a raw stacked tree (wrapped in a ``DenseStore``)."""
+    or a raw stacked tree (wrapped in a ``DenseStore``); on an expert
+    ``mesh`` it is the rank's resident slice."""
     if backend in ("gathered", "grouped", "ragged"):
         store = as_store(stacked_params)
         if store is None:
@@ -499,15 +593,15 @@ def make_executor(
                 f"ExpertParamStore; got None"
             )
         if backend == "gathered":
-            return GatheredExecutor(apply_fns[0], store, conv)
+            return GatheredExecutor(apply_fns[0], store, conv, mesh=mesh)
         if backend == "ragged":
             if ragged_apply_fn is None:
                 raise ValueError(
                     "dispatch='ragged' needs a shared ragged_apply_fn "
                     "(see models.dit.make_ragged_expert_apply)"
                 )
-            return RaggedExecutor(ragged_apply_fn, store, conv)
-        return GroupedExecutor(apply_fns[0], store, conv)
+            return RaggedExecutor(ragged_apply_fn, store, conv, mesh=mesh)
+        return GroupedExecutor(apply_fns[0], store, conv, mesh=mesh)
     if backend == "dense":
         if params is None:
             raise ValueError(
@@ -516,5 +610,6 @@ def make_executor(
                 "ExpertParamStore replaced the full-precision per-expert "
                 "params); use a routed strategy or param_dtype='native'"
             )
-        return DenseExecutor(tuple(apply_fns), tuple(params), conv)
+        return DenseExecutor(tuple(apply_fns), tuple(params), conv,
+                             mesh=mesh)
     raise ValueError(f"unknown executor backend {backend!r}")

@@ -19,6 +19,17 @@ card), and ``ragged_view`` hands the ragged executor the raw leaves —
 dense tensors, or ``QuantLeaf`` bundles of int8/fp8 bytes plus ``(K,)``
 scales that reach the ragged GEMM unexpanded.
 
+Expert sharding: ``launch.sharding.shard_store`` cuts a rank's resident
+slice, the experts ``[first_expert, first_expert + K_local)`` of every
+leaf, scale and ``valid`` entry.  The slice keeps ``num_experts`` the
+global ``K``; ``gather``, ``expert`` and ``set_expert`` take global ids,
+``ragged_view`` and ``valid_mask`` are the resident rows, and ``nbytes``
+counts the resident bytes.  An elastic slice also carries the whole
+``(K,)`` mask, replicated (``routing_valid``): routing reads it through
+``routing_mask()``.  ``logical_axes`` annotates every leaf with
+its leading ``"expert"`` axis (``("expert", None, ...)``; scales and
+``valid`` ``("expert",)``), as the reference's stores do.
+
 Elastic membership: the leading expert axis is a *capacity*.
 ``pad_to_capacity`` zero-pads every leaf to ``(K_cap, ...)`` (quantized
 scales pad with 1.0) and attaches a ``(K_cap,)`` bool ``valid`` mask on
@@ -41,6 +52,9 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_leaves, tree_map
 
+#: the logical name of the stacked leaves' leading axis
+EXPERT_AXIS = "expert"
+
 #: valid ``SamplerConfig.param_dtype`` values.
 PARAM_DTYPES = ("native", "fp32", "bf16", "int8", "fp8")
 
@@ -52,6 +66,10 @@ def _tree_nbytes(tree: Any) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
+def _leaf_axes(x: torch.Tensor) -> tuple:
+    return (EXPERT_AXIS,) + (None,) * (x.dim() - 1)
+
+
 def _set_row(s: torch.Tensor, e: int, row) -> torch.Tensor:
     """A copy of ``s`` with ``s[e]`` replaced by ``row`` (cast to ``s``'s
     dtype); ``s`` itself is left as it is."""
@@ -61,17 +79,29 @@ def _set_row(s: torch.Tensor, e: int, row) -> torch.Tensor:
 
 
 class _Membership:
-    """The elastic-membership methods both stores share."""
+    """The elastic-membership and resident-slice methods both stores
+    share."""
 
     def _device(self) -> torch.device:
         return tree_leaves(self._leaves())[0].device
 
+    @property
+    def num_resident(self) -> int:
+        """The experts this store holds: ``num_experts``, or a resident
+        slice's share of them."""
+        return int(tree_leaves(self._leaves())[0].shape[0])
+
+    def _local(self, e):
+        """A global expert id (an int or a tensor of them) as a row of the
+        resident leaves."""
+        return e - self.first_expert if self.first_expert else e
+
     def valid_mask(self) -> torch.Tensor:
-        """``(K,)`` bool: which capacity slots hold a live expert (all of
-        them for a store without a mask)."""
+        """``(K_resident,)`` bool: which resident slots hold a live expert
+        (all of them for a store without a mask)."""
         if self.valid is not None:
             return self.valid
-        return torch.ones((self.num_experts,), dtype=torch.bool,
+        return torch.ones((self.num_resident,), dtype=torch.bool,
                           device=self._device())
 
     def with_valid(self, mask):
@@ -79,10 +109,20 @@ class _Membership:
         if mask is not None:
             mask = torch.as_tensor(mask, device=self._device()).to(
                 torch.bool)
-            if tuple(mask.shape) != (self.num_experts,):
+            if tuple(mask.shape) != (self.num_resident,):
                 raise ValueError(f"valid mask shape {tuple(mask.shape)} != "
-                                 f"({self.num_experts},)")
+                                 f"({self.num_resident},)")
         return dataclasses.replace(self, valid=mask)
+
+    def routing_mask(self):
+        """The ``(K,)`` liveness mask routing reads: a resident slice's
+        replicated whole mask, else ``valid`` (None: every slot live)."""
+        if self.routing_valid is not None:
+            return self.routing_valid
+        return self.valid
+
+    def _valid_axes(self):
+        return None if self.valid is None else (EXPERT_AXIS,)
 
     def _nbytes_valid(self) -> int:
         return 0 if self.valid is None else self.valid.numel()
@@ -116,6 +156,11 @@ class DenseStore(_Membership):
     storage: str = "native"
     #: ``(K,)`` bool liveness mask, or None (every slot live).
     valid: Any = None
+    #: a resident slice's first global expert id (0: the whole store).
+    first_expert: int = 0
+    #: a resident slice's whole ``(K,)`` mask, replicated (None: ``valid``
+    #: is whole); routing metadata, not counted by ``nbytes``.
+    routing_valid: Any = None
 
     def _leaves(self):
         return self.stacked
@@ -132,9 +177,11 @@ class DenseStore(_Membership):
     def gather(self, idx: torch.Tensor):
         """Leaves of the routed experts: ``(B, ...)`` for ``(B,)`` ids, one
         expert's leaves for a 0-d id."""
+        idx = self._local(idx)
         return tree_map(lambda s: s[idx], self.stacked)
 
     def expert(self, e: int):
+        e = self._local(e)
         return tree_map(lambda s: s[e], self.stacked)
 
     def static_slice(self, lo: int, hi: int) -> "DenseStore":
@@ -146,6 +193,7 @@ class DenseStore(_Membership):
     def set_expert(self, e: int, params: Any) -> "DenseStore":
         """A new store with slot ``e`` holding ``params`` (cast to the
         storage dtype); ``valid`` is left as it is."""
+        e = self._local(e)
         return dataclasses.replace(self, stacked=tree_map(
             lambda s, p: _set_row(s, e, p), self.stacked, params))
 
@@ -157,6 +205,12 @@ class DenseStore(_Membership):
     def ragged_view(self):
         """Raw stacked leaves for the ragged grouped-GEMM backend."""
         return self.stacked
+
+    def logical_axes(self) -> "DenseStore":
+        """The store with every leaf replaced by its axis names."""
+        return dataclasses.replace(
+            self, stacked=tree_map(_leaf_axes, self.stacked),
+            valid=self._valid_axes())
 
     def nbytes(self) -> int:
         return _tree_nbytes(self.stacked) + self._nbytes_valid()
@@ -191,6 +245,11 @@ class QuantizedStore(_Membership):
     storage: str                           # 'int8' | 'fp8'
     #: ``(K,)`` bool liveness mask, or None (every slot live).
     valid: Any = None
+    #: a resident slice's first global expert id (0: the whole store).
+    first_expert: int = 0
+    #: a resident slice's whole ``(K,)`` mask, replicated (None: ``valid``
+    #: is whole); routing metadata, not counted by ``nbytes``.
+    routing_valid: Any = None
 
     def _leaves(self):
         return self.qvals
@@ -214,7 +273,7 @@ class QuantizedStore(_Membership):
         return ops.dequant_params(q, scale)
 
     def gather(self, idx: torch.Tensor):
-        idx = torch.as_tensor(idx)
+        idx = self._local(torch.as_tensor(idx))
         if idx.dim() == 0:
             one = idx.reshape(1)
             return tree_map(lambda q, s: self._dequant(q[one], s[one])[0],
@@ -223,6 +282,7 @@ class QuantizedStore(_Membership):
                         self.qvals, self.scales)
 
     def expert(self, e: int):
+        e = self._local(e)
         return tree_map(lambda q, s: self._dequant(q[e:e + 1], s[e:e + 1])[0],
                         self.qvals, self.scales)
 
@@ -238,6 +298,8 @@ class QuantizedStore(_Membership):
         expert (``_quantize_leaf(p[None])``, so the slot's bytes and scale
         are those of a store quantized with it from the start); ``valid``
         is left as it is."""
+        e = self._local(e)
+
         def quantized(q, p):
             p = torch.as_tensor(p, device=q.device)
             return QuantLeaf(*_quantize_leaf(p[None], self.storage))
@@ -261,6 +323,14 @@ class QuantizedStore(_Membership):
         return tree_map(lambda q, s: QuantLeaf(q, s),
                         self.qvals, self.scales)
 
+    def logical_axes(self) -> "QuantizedStore":
+        """The store with every leaf and scale replaced by its axis names:
+        a scale rides the leading expert axis of the leaf it rescales."""
+        return dataclasses.replace(
+            self, qvals=tree_map(_leaf_axes, self.qvals),
+            scales=tree_map(_leaf_axes, self.scales),
+            valid=self._valid_axes())
+
     def nbytes(self) -> int:
         return (_tree_nbytes(self.qvals) + _tree_nbytes(self.scales)
                 + self._nbytes_valid())
@@ -283,12 +353,29 @@ def make_store(stacked: Any, *, dtype: str = "native"):
     return QuantizedStore.quantize(stacked, dtype)
 
 
+def retype_store(store, dtype: str):
+    """A ``native`` store (whole, or a resident slice) in the storage
+    ``dtype`` selects (``make_store``'s rules, expert row by expert row, so
+    a slice converts to the rows of the converted whole), its global
+    ``num_experts``, masks and ``first_expert`` kept."""
+    if dtype == "native":
+        return store
+    out = make_store(store.stacked, dtype=dtype)
+    return dataclasses.replace(
+        out, num_experts=store.num_experts, valid=store.valid,
+        first_expert=store.first_expert, routing_valid=store.routing_valid)
+
+
 def pad_to_capacity(store, capacity: int):
     """Grow a store's expert axis to ``capacity`` slots: every leaf
     zero-padded (quantized scales padded with 1.0, so a pad slot expands
     to exact zeros), ``valid`` the old mask followed by dead slots.
-    ``num_experts`` is then the capacity."""
+    ``num_experts`` is then the capacity.  A whole store only: a resident
+    slice is cut after padding."""
     k = store.num_experts
+    if store.num_resident != k:
+        raise ValueError("pad_to_capacity pads a whole store, not a "
+                         "resident slice")
     if capacity < k:
         raise ValueError(f"capacity {capacity} < current expert count {k}")
     pad = capacity - k

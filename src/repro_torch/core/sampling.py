@@ -34,6 +34,15 @@ per-slot ``(S, 5, K_cap)`` tables and ``(K_cap,)`` cluster map as tensors
 (``coeff_tables=``, ``cluster_map=``): routing renormalizes over the live
 slots and no executor touches a dead slot.
 
+On an ``("expert", "data")`` mesh (``mesh=``, ``launch.mesh``) every rank
+draws or takes the whole batch's noise and runs its "data" slice of the
+rows, the router and the plans replicated over "expert"; the executor
+runs the rank's resident experts and one "expert" all-reduce a step
+completes the per-slot predictions before the step kernel
+(``core.dispatch``).  The slices' latents are all-gathered over "data",
+so every rank returns the whole batch, and the latents do not depend on
+the mesh.
+
 ``sample_ensemble_step`` is one Euler step of a mixed-timestep batch (the
 continuous scheduler's unit of work): each row at its own step index,
 one ``fused_step`` launch with a per-row ``dt``.
@@ -101,7 +110,10 @@ class SamplerConfig:
 
 def params_are_stackable(params: Sequence) -> bool:
     """True when every expert's parameter tree has the same structure and
-    leaf shapes and dtypes — the precondition for stacked dispatch."""
+    leaf shapes and dtypes — the precondition for stacked dispatch.
+    ``None`` entries (experts another rank of an expert mesh holds) are
+    skipped."""
+    params = [p for p in params if p is not None]
     if len(params) <= 1:
         return True
     t0 = tree_structure(params[0])
@@ -258,6 +270,7 @@ def _sample_fused(
     stacked_params=None,
     coeff_tables=None,
     cluster_map=None,
+    mesh=None,
 ) -> torch.Tensor:
     K = len(experts)
     B = init_noise.shape[0]
@@ -280,15 +293,16 @@ def _sample_fused(
     # threshold router also serves expert sets that do not stack, through
     # the dense executor).
     stacked = as_store(stacked_params, dtype=config.param_dtype)
-    # a capacity store's liveness mask (None: every slot live)
-    valid = getattr(stacked, "valid", None)
+    # a capacity store's liveness mask (None: every slot live); a resident
+    # slice routes by the whole mask it carries
+    valid = stacked.routing_mask() if stacked is not None else None
     if stacked is None and params is None:
         raise ValueError(
             "params=None requires stacked_params (an ExpertParamStore or "
             "raw stacked pytree)"
         )
-    if stacked is None and mode == "routed" and homogeneous and (
-            not uniform or params_are_stackable(params)):
+    if stacked is None and mesh is None and mode == "routed" \
+            and homogeneous and (not uniform or params_are_stackable(params)):
         stacked = make_store(stack_expert_params(params),
                              dtype=config.param_dtype)
 
@@ -300,7 +314,7 @@ def _sample_fused(
     executor = make_executor(
         backend, apply_fns=[e.apply_fn for e in experts], params=params,
         stacked_params=stacked, conv=conv,
-        ragged_apply_fn=ragged_fn if ragged_ok else None)
+        ragged_apply_fn=ragged_fn if ragged_ok else None, mesh=mesh)
 
     refresh_every = int(config.plan_refresh_every)
     if refresh_every < 1:
@@ -350,6 +364,7 @@ def _sample_fused(
             preds = torch.cat([o[0] for o in outs], dim=1)
             w_all = torch.cat([o[1] for o in outs], dim=0)
             idx_all = torch.cat([o[2] for o in outs], dim=0)
+        preds = executor.complete(preds, plan)        # the mesh's one join
         g = 2 if use_cfg else 1
         return ops.fused_step(
             preds, x, w_all, slot_coef(tab, idx_all), dt,
@@ -451,6 +466,7 @@ def sample_ensemble(
     device=None,
     coeff_tables=None,
     cluster_map=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Euler-ODE sampling with router-weighted heterogeneous fusion.
 
@@ -467,11 +483,25 @@ def sample_ensemble(
     engine only).  A store with a ``valid`` mask makes the fused engines
     membership-aware; elastic engines also pass the ``(S, 5, K)``
     ``coeff_tables`` and the ``(K,)`` ``cluster_map`` of their slots
-    (fused engines only).  Returns the samples at t = 0.
+    (fused engines only).
+
+    ``mesh`` (a ``launch.mesh.ExpertMesh``) runs this rank's "data" slice
+    of the batch (every row where "data" does not divide it) on its
+    resident experts: ``stacked_params`` is then the rank's resident slice
+    (``launch.sharding.shard_store``) and ``params`` holds ``None`` for
+    the experts of other ranks.  The reference engine runs on a "data"
+    split only.  Returns the samples at t = 0, the whole batch on every
+    rank.
     """
     cond = cond or {}
     config = config if config is not None else SamplerConfig()
     mode = _resolve_engine(engine, experts, params, config)
+    if mesh is not None and mode == "reference" \
+            and mesh.shape["expert"] > 1:
+        raise NotImplementedError(
+            "the reference engine runs every expert per step; on an "
+            "expert-sharded mesh it is not ported yet — ROADMAP.md, module "
+            "queue A.8b")
     if params is None and mode == "reference":
         raise ValueError(
             "the reference engine runs each expert from its own params "
@@ -480,18 +510,38 @@ def sample_ensemble(
         )
     init_noise = _initial_noise(shape, generator, init_noise, device,
                                 "sample_ensemble")
+    if mode == "reference" and (coeff_tables is not None
+                                or cluster_map is not None):
+        raise ValueError(
+            "coeff_tables/cluster_map (elastic membership) require "
+            "the fused engines; the reference engine derives "
+            "coefficients from the static ExpertSpec list"
+        )
+    batch = init_noise.shape[0]
+    lo, hi = (0, batch) if mesh is None else mesh.data_range(batch)
+    if (lo, hi) != (0, batch):
+        init_noise = init_noise[lo:hi]
+        cond, null_cond = _rows(cond, batch, lo, hi), \
+            _rows(null_cond, batch, lo, hi)
     if mode == "reference":
-        if coeff_tables is not None or cluster_map is not None:
-            raise ValueError(
-                "coeff_tables/cluster_map (elastic membership) require "
-                "the fused engines; the reference engine derives "
-                "coefficients from the static ExpertSpec list"
-            )
-        return _sample_reference(experts, params, router_fn, cond,
-                                 null_cond, config, init_noise)
-    return _sample_fused(experts, params, router_fn, cond, null_cond,
-                         config, mode, init_noise, stacked_params,
-                         coeff_tables, cluster_map)
+        x = _sample_reference(experts, params, router_fn, cond, null_cond,
+                              config, init_noise)
+    else:
+        x = _sample_fused(experts, params, router_fn, cond, null_cond,
+                          config, mode, init_noise, stacked_params,
+                          coeff_tables, cluster_map, mesh)
+    if mesh is None or ((lo, hi) == (0, batch) and mesh.shape["data"] > 1):
+        return x                       # no mesh, or the batch replicated
+    return mesh.data_gather(x)
+
+
+def _rows(cond: dict | None, batch: int, lo: int, hi: int):
+    """The rows ``[lo, hi)`` of every per-sample tensor of a conditioning
+    dict (its leading dim ``batch``); other values pass through."""
+    if cond is None:
+        return None
+    return {k: v[lo:hi] if isinstance(v, torch.Tensor) and v.dim()
+            and v.shape[0] == batch else v for k, v in cond.items()}
 
 
 def sample_ensemble_step(

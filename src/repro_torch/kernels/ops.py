@@ -58,6 +58,12 @@ LAUNCHES = {"ragged_gemm": 0, "ragged_gemm_int8": 0, "ragged_gemm_fp8": 0,
             "flash_attention": 0, "ssd_scan": 0, "adaln_fuse_bwd": 0,
             "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
 
+#: routed (sample, slot) pairs the ragged GEMM launches have run since the
+#: last ``reset_launches()``, per body: the rows of each launch over
+#: ``m`` (an expert-sharded rank counts only its resident experts' pairs).
+RAGGED_PAIRS = {"ragged_gemm": 0, "ragged_gemm_int8": 0,
+                "ragged_gemm_fp8": 0}
+
 _QUANT_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
 
@@ -77,6 +83,8 @@ def _f32(a: torch.Tensor) -> torch.Tensor:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in RAGGED_PAIRS:
+        RAGGED_PAIRS[name] = 0
 
 
 def fused_step(
@@ -530,7 +538,9 @@ def _gemm(xf, w, ids, m, x_scale=None, w_scale=None) -> torch.Tensor:
         return _ref.ref_ragged_gemm(xf, w, ids, x_scale, w_scale)
     y = _ragged_gemm(xf.contiguous(), w, ids.to(torch.int32).contiguous(), m,
                      x_scale, w_scale)
-    LAUNCHES[_GEMM_COUNTER.get(w.dtype, "ragged_gemm")] += 1
+    name = _GEMM_COUNTER.get(w.dtype, "ragged_gemm")
+    LAUNCHES[name] += 1
+    RAGGED_PAIRS[name] += ids.shape[0]
     return y
 
 

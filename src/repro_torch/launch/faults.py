@@ -19,9 +19,14 @@ catch from non-finite outputs.  ``toy_ensemble`` is a closed-form
 stackable ensemble for these scenarios.
 
 Run the liveness-under-faults scenario on one device (the GPU; ``--device
-cpu`` for the CPU); it prints a one-line JSON verdict::
+cpu`` for the CPU); it prints a one-line JSON verdict.  With
+``--expert-shards N``, launched as N ranks, every engine of the scenario
+serves on an ``(N, 1)`` expert mesh (``launch.mesh``) and rank 0
+prints::
 
     PYTHONPATH=src python -m repro_torch.launch.faults [--device cpu]
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.faults --device cpu --expert-shards 2
 """
 
 from __future__ import annotations
@@ -239,21 +244,51 @@ def _save_toy(path, params, i, cid, objective="fm", schedule="linear"):
                         schedule=schedule, cluster_id=cid, arch="toy"))
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.weights import resolve_device
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.faults")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU)")
+    ap.add_argument("--expert-shards", type=int, default=None,
+                    help="serve every engine on an (N, 1) expert mesh of "
+                         "the N launched ranks")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the mesh's torch.distributed backend (default: "
+                         "nccl on the GPU, gloo on the CPU)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    mesh = {}
+    if args.expert_shards is not None:
+        mesh = dict(n_expert_shards=args.expert_shards, n_data_shards=1,
+                    dist_backend=args.backend)
+    started = not dist.is_initialized()
+    try:
+        verdict = _scenario(dev, mesh)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(verdict))
+    return verdict
+
+
+def _scenario(dev, mesh: dict) -> dict:
+    """The four fault classes on engines built with ``mesh`` (the
+    expert-mesh keywords, or none); returns the verdict."""
+    import torch.distributed as dist
+
     from repro_torch.core.sampling import SamplerConfig
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.models import dit as D
     from repro_torch.models.config import dit_b2, router_b2
     from repro_torch.training.checkpoint import (expert_metadata,
                                                  save_checkpoint)
-    from repro_torch.weights import resolve_device
 
-    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.faults")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: the GPU)")
-    args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
-    verdict = {"device": str(dev)}
+    verdict = {"devices": 1}                   # the ranks, once known
 
     # --- A. quarantine at assembly: a directory with corrupt artifacts
     # still serves, its hole masked.
@@ -277,7 +312,9 @@ def main(argv=None) -> None:
             d, dit_cfg=cfg, router_cfg=rcfg,
             sampler=SamplerConfig(num_steps=2, cfg_scale=3.0,
                                   strategy="topk", top_k=2),
-            on_bad_checkpoint="skip", device=dev)
+            on_bad_checkpoint="skip", device=dev, **mesh)
+        if eng.mesh is not None:
+            verdict["devices"] = dist.get_world_size()
         assert eng.elastic and eng.num_live_experts == 3
         assert len(eng.quarantine) == 2, eng.quarantine
         assert eng.expert_health[2] == "EMPTY"
@@ -295,7 +332,8 @@ def main(argv=None) -> None:
                             top_k=2)
     eng = ServingEngine(
         experts=experts[:6], expert_params=params[:6], router_fn=router_fn,
-        latent_shape=latent, sampler=sampler, capacity=8, device=dev)
+        latent_shape=latent, sampler=sampler, capacity=8, device=dev,
+        **mesh)
     text = np.random.default_rng(3).standard_normal((2, 5, 6)).astype(
         np.float32)
     admitted = eng.generate(0, text, 2)
@@ -378,7 +416,7 @@ def main(argv=None) -> None:
     verdict["flush_isolation"] = "ok"
 
     verdict["membership"] = eng.membership_line()
-    print(json.dumps(verdict))
+    return verdict
 
 
 if __name__ == "__main__":

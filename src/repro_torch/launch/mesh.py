@@ -1,0 +1,262 @@
+"""The serving mesh of the port: ``torch.distributed`` ranks laid out on
+the axes ``("expert", "data")``, one process per rank.
+
+``make_expert_mesh(n_expert_shards, n_data_shards)`` arranges the world's
+ranks as an ``(E, D)`` grid (``torch.distributed.device_mesh.
+init_device_mesh``): the stacked expert store's leading ``K`` axis splits
+over "expert" (each rank holds ``K / E`` resident experts) and a request
+batch over "data".  A ``(1, 1)`` mesh is the degenerate single-process
+case, which serves bitwise as the unsharded engine does.
+
+Every rank is a process, so the mesh covers the whole world: a mesh
+smaller than the world raises (the reference takes a prefix of the
+visible devices instead; an idle process would serve nothing).
+
+``init_distributed`` starts the process group: from the environment under
+``torchrun`` (``RANK``/``WORLD_SIZE`` set), else a world of one on an
+in-memory ``HashStore``.  The backend is named by the caller: ``nccl``
+for CUDA tensors, ``gloo`` for the CPU — and for several ranks that share
+one card, which NCCL refuses.  Gloo moves CUDA tensors through the host
+for its CUDA all-reduce and broadcast; ``ExpertMesh`` stages its
+all-gather of CUDA tensors through the host itself (a copy to the CPU,
+the CPU all-gather, a copy back), which is the transport of a collective
+and no kernel.
+
+``spawn(fn, world, ...)`` runs ``fn(rank, world, *args)`` in
+``world`` processes joined by a ``FileStore`` in a temporary directory:
+the launcher of the tests and of ``launch/sharded_parity.py`` (no port,
+no network).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+
+import torch
+import torch.distributed as dist
+
+#: the serving mesh's axes, in order
+EXPERT_AXES = ("expert", "data")
+
+#: the backend a device's tensors take when the caller names none
+_DEFAULT_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def rank_device(device=None) -> torch.device:
+    """This process's device: ``device`` (``None`` → ``"cuda"``), a CUDA
+    one without an index made concrete — under ``torchrun`` as
+    ``cuda:<LOCAL_RANK mod the card count>`` (several ranks may share one
+    card), else the current card — and made current."""
+    from repro_torch.weights import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            local = (int(os.environ["LOCAL_RANK"])
+                     if "LOCAL_RANK" in os.environ
+                     else torch.cuda.current_device())
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def init_distributed(backend: str | None = None, device=None) -> str:
+    """Start the default process group unless one is running; returns its
+    backend.
+
+    Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` in the environment)
+    the group comes from the environment; otherwise it is a world of one
+    on a ``HashStore``.  ``backend`` defaults to the device's own:
+    ``nccl`` for ``cuda``, ``gloo`` for ``cpu``.  The device is made
+    current first (``rank_device``), as NCCL needs."""
+    dev = rank_device(device)
+    if dist.is_initialized():
+        return dist.get_backend()
+    backend = backend or _DEFAULT_BACKEND[dev.type]
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return backend
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertMesh:
+    """This rank's view of an ``("expert", "data")`` mesh.
+
+    ``shape`` (``{"expert": E, "data": D}``) and ``axis_names`` are what
+    ``launch.sharding``'s spec functions read, so a stand-in with those
+    two attributes serves them as well.  ``expert_index`` and
+    ``data_index`` are this rank's coordinates; ``expert_group`` joins the
+    ranks that hold the same batch slice (one per expert shard, in expert
+    order), ``data_group`` the ranks that hold the same experts.
+    """
+
+    shape: dict  # lint: allow-mutable-config (a Mesh's shape is a dict)
+    expert_index: int
+    data_index: int
+    expert_group: object
+    data_group: object
+    backend: str
+    device_mesh: object = None
+    axis_names: tuple = EXPERT_AXES
+
+    def expert_range(self, num_experts: int) -> tuple[int, int]:
+        """The global ids ``[lo, hi)`` of this rank's resident experts: the
+        ``expert_index``-th of ``E`` equal blocks of ``num_experts``.  A
+        ``num_experts`` that ``E`` does not divide is replicated (every
+        rank holds every expert), as ``sharding.sanitize_spec`` does."""
+        e = self.shape["expert"]
+        if num_experts % e:
+            return 0, num_experts
+        n = num_experts // e
+        return self.expert_index * n, (self.expert_index + 1) * n
+
+    def data_range(self, batch: int) -> tuple[int, int]:
+        """The rows ``[lo, hi)`` of a ``batch`` this rank runs: its block
+        of the "data" split, or every row when ``D`` does not divide the
+        batch (the batch then replicates, as ``serve_batch_spec`` says)."""
+        d = self.shape["data"]
+        if batch % d:
+            return 0, batch
+        n = batch // d
+        return self.data_index * n, (self.data_index + 1) * n
+
+    def _host_staged(self, t: torch.Tensor) -> bool:
+        return self.backend == "gloo" and t.is_cuda
+
+    def expert_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the "expert" group: one ``all_reduce`` on a
+        contiguous copy (or on ``t`` itself when contiguous), returned.
+        Where each element is non-zero on at most one rank the sum is that
+        rank's value exactly."""
+        t = t.contiguous()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.expert_group)
+        return t
+
+    def _gather(self, t: torch.Tensor, group, size: int) -> torch.Tensor:
+        """Every rank's ``t`` of ``group``, concatenated along dim 0 in
+        group-rank order (host-staged for CUDA tensors on gloo)."""
+        src = t.contiguous()
+        if self._host_staged(src):
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(size)]
+        dist.all_gather(parts, src, group=group)
+        return torch.cat(parts).to(t.device)
+
+    def expert_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The "expert" group's ``t`` blocks, stacked in expert order."""
+        return self._gather(t, self.expert_group, self.shape["expert"])
+
+    def data_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The "data" group's batch slices, concatenated in row order."""
+        return self._gather(t, self.data_group, self.shape["data"])
+
+
+def make_expert_mesh(n_expert_shards: int = 1,
+                     n_data_shards: int | None = None, *,
+                     device=None, backend: str | None = None) -> ExpertMesh:
+    """The ``("expert", "data")`` serving mesh over the process group's
+    world (started by ``init_distributed`` when none runs).
+
+    ``n_data_shards=None`` folds the ranks left over into "data".  Raises
+    the reference's ``ValueError``s: a shard count below 1, and a mesh
+    that needs more ranks than the world holds ("visible devices" are the
+    world's ranks here).  A mesh that needs fewer ranks than the world
+    holds raises too (each rank is a process that would serve nothing).
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if n_expert_shards < 1:
+        raise ValueError(
+            f"n_expert_shards must be >= 1, got {n_expert_shards}")
+    dev = rank_device(device)
+    # the world the process group has, or will have: checked before one
+    # is started
+    ndev = (dist.get_world_size() if dist.is_initialized()
+            else int(os.environ.get("WORLD_SIZE", "1")))
+    if n_data_shards is None:
+        n_data_shards = max(1, ndev // n_expert_shards)
+    if n_data_shards < 1:
+        raise ValueError(f"n_data_shards must be >= 1, got {n_data_shards}")
+    need = n_expert_shards * n_data_shards
+    if need > ndev:
+        raise ValueError(
+            f"mesh ({n_expert_shards}, {n_data_shards}) needs {need} "
+            f"devices but only {ndev} are visible"
+        )
+    if need < ndev:
+        raise ValueError(
+            f"mesh ({n_expert_shards}, {n_data_shards}) covers {need} of "
+            f"the {ndev} ranks; every rank must serve a shard"
+        )
+    backend = init_distributed(backend, dev)
+    dm = init_device_mesh(dev.type, (n_expert_shards, n_data_shards),
+                          mesh_dim_names=EXPERT_AXES)
+    e_idx, d_idx = dm.get_coordinate()
+    return ExpertMesh(
+        shape={"expert": n_expert_shards, "data": n_data_shards},
+        expert_index=int(e_idx), data_index=int(d_idx),
+        expert_group=dm.get_group("expert"), data_group=dm.get_group("data"),
+        backend=backend, device_mesh=dm)
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """The one-process ``(1, 1)`` mesh under the production axis names."""
+
+    shape: dict = dataclasses.field(  # lint: allow-mutable-config
+        default_factory=lambda: {"data": 1, "model": 1})
+    axis_names: tuple = ("data", "model")
+
+
+def make_host_mesh() -> HostMesh:
+    """1-process mesh for CPU tests (same axis names as the production
+    mesh, ``("data", "model")``)."""
+    return HostMesh()
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The batch-sharding axes of a mesh ("pod" folds into data)."""
+    names = mesh.axis_names
+    return ("pod", "data") if "pod" in names else ("data",)
+
+
+def mesh_devices(mesh) -> int:
+    """The ranks a mesh spans."""
+    n = 1
+    for size in mesh.shape.values():
+        n *= size
+    return n
+
+
+def _spawned(rank, fn, world, store_path, backend, device, args):
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, store=dist.FileStore(store_path, world), rank=rank,
+        world_size=world)
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world: int, *args, backend: str = "gloo",
+          device: str = "cpu") -> None:
+    """Run ``fn(rank, world, *args)`` in ``world`` fresh processes (the
+    ``spawn`` start method) whose default process group is ``backend``
+    over a ``FileStore`` in a temporary directory; CUDA ranks take
+    ``cuda:<rank mod the card count>``.  Returns when every rank has;
+    raises if one failed.  ``fn`` must be importable by name."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as d:
+        mp.spawn(_spawned, args=(fn, world, os.path.join(d, "store"),
+                                 backend, device, args),
+                 nprocs=world, join=True)

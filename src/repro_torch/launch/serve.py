@@ -47,6 +47,21 @@ scheduler and the resilience layer (``repro_torch.serving``) drive the
 same engine one Euler step at a time; ``restore`` rebuilds a scheduler
 from its journal.
 
+Expert parallelism (``n_expert_shards=E``, ``n_data_shards=D``): the
+engine serves on an ``("expert", "data")`` mesh of ``torch.distributed``
+ranks (``launch.mesh``), one process per rank.  Each rank holds the
+resident slice ``K / E`` of the store (``launch.sharding.shard_store``:
+the quantized scales and the elastic mask with their leaves); the other
+experts' parameters are loaded and checked on the host and never reach
+its device.  Each rank runs its "data" slice of a batch on its resident
+experts, one "expert" all-reduce a step joins the per-slot predictions,
+and ``generate`` returns the whole batch on every rank.  The defaults (1,
+None) serve without a mesh; a ``(1, 1)`` mesh serves bitwise as they
+do.  Membership changes update the replicated ``(K,)`` routing mask on
+every rank and the slot only on the rank that holds it.  Continuous
+batching and the reference engine on an expert-sharded mesh raise
+``NotImplementedError`` (ROADMAP.md, A.8b).
+
 Command line (the reference CLI's plain, ``--coalesce`` and
 ``--continuous`` modes)::
 
@@ -54,12 +69,13 @@ Command line (the reference CLI's plain, ``--coalesce`` and
         --plan-refresh 2
     python -m repro_torch.launch.serve --ckpt-dir CKPTS --continuous \
         --capacity 10 --journal-dir JOURNAL
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --ckpt-dir CKPTS --expert-shards 2 --coalesce [--backend gloo]
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when no GPU is present.  Only an explicit ``device="cpu"`` (CLI:
 ``--device cpu``) runs on the CPU (the kernels' plain versions), as the
-tests do.  Sharding (``--expert-shards``, ``--data-shards``) is not
-ported yet.
+tests do.
 """
 
 from __future__ import annotations
@@ -75,13 +91,16 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.fusion import ExpertSpec
 from repro_torch.core.param_store import (DenseStore, make_store,
-                                          pad_to_capacity)
+                                          pad_to_capacity, retype_store)
 from repro_torch.core.sampling import (SamplerConfig, coeff_tables_cached,
                                        params_are_stackable,
                                        sample_ensemble)
+from repro_torch.launch.mesh import make_expert_mesh, rank_device
+from repro_torch.launch.sharding import shard_store
 from repro_torch.models import dit as D
 from repro_torch.models.config import DiTConfig, dit_b2, router_b2
 from repro_torch.serving.resilience import (DeadlineExceeded, RequestFailed,
@@ -238,9 +257,21 @@ class ServingEngine:
     #: per-slot health at start (elastic; ``from_checkpoint_dir`` marks
     #: the slots of quarantined checkpoints); default all ACTIVE.
     initial_health: list | None = None
+    #: expert-parallel placement on an ("expert", "data") mesh of
+    #: torch.distributed ranks.  The defaults (1, None) serve without a
+    #: mesh; any other value stands one up (``n_data_shards=None``: the
+    #: ranks left over) — a (1, 1) mesh serves bitwise as no mesh does.
+    n_expert_shards: int = 1
+    n_data_shards: int | None = None
+    #: the process group's backend when the engine starts one (None: the
+    #: device's own, nccl for cuda and gloo for cpu); ranks that share a
+    #: card need gloo.
+    dist_backend: str | None = None
 
     def __post_init__(self) -> None:
-        self.device = resolve_device(self.device)
+        sharded = self.n_expert_shards != 1 or self.n_data_shards is not None
+        self.device = (rank_device(self.device) if sharded
+                       else resolve_device(self.device))
         self._cond_cache: OrderedDict[tuple, torch.Tensor] = OrderedDict()
         self._queue: list[PendingRequest] = []
         self._seq = 0                              # global submission order
@@ -284,9 +315,13 @@ class ServingEngine:
                     f"{self.sampler.strategy!r}, engine={self.engine!r}"
                 )
         # The routed engine's dispatch substrate: every expert's leaves
-        # stacked once, ``(K, ...)``, on the device, in the storage dtype.
+        # stacked once, ``(K, ...)``, in the storage dtype, on the device.
+        # For a mesh they stack where the parameters lie (the host, from a
+        # checkpoint directory) at checkpoint precision; ``_init_mesh``
+        # moves the resident slice and converts it there.
         self.param_store = (
-            make_store(D.stack_expert_params(self.expert_params), dtype=pd)
+            make_store(D.stack_expert_params(self.expert_params),
+                       dtype="native" if sharded else pd)
             if self.homogeneous and self.expert_params else None)
         # the template ``add_expert`` checks a joining checkpoint against
         self._slot_template = None
@@ -303,6 +338,47 @@ class ServingEngine:
         self.membership_epoch = 0
         if self.elastic:
             self._init_elastic()
+        self.mesh = None
+        if sharded:
+            self._init_mesh()
+
+    # -- expert-parallel placement --------------------------------------------
+
+    def _init_mesh(self) -> None:
+        """Stand up the mesh, then keep only the resident experts: the
+        store's slice on the device, the per-expert list's resident
+        entries (``None`` for the others)."""
+        k = len(self.experts)
+        if self.n_expert_shards > 1 and k % self.n_expert_shards != 0:
+            # a replicated expert axis would report a sharded mesh while
+            # saving nothing; make the misconfiguration loud instead.
+            raise ValueError(
+                f"n_expert_shards={self.n_expert_shards} does not divide "
+                f"the {k}-expert ensemble; expert placement would silently "
+                f"replicate"
+            )
+        if self.engine == "reference" and self.n_expert_shards > 1:
+            raise NotImplementedError(
+                "the reference engine on an expert-sharded mesh is not "
+                "ported yet — ROADMAP.md, module queue A.8b")
+        self.mesh = make_expert_mesh(self.n_expert_shards,
+                                     self.n_data_shards, device=self.device,
+                                     backend=self.dist_backend)
+        if self.param_store is not None:
+            # the resident slice, on the device, in the storage dtype
+            self.param_store = retype_store(
+                shard_store(self.param_store, self.mesh, device=self.device),
+                self.sampler.param_dtype)
+        if self.expert_params is not None:
+            lo, hi = self.mesh.expert_range(k)
+            self.expert_params = [
+                tree_map(lambda a: a.to(self.device), p) if lo <= i < hi
+                else None for i, p in enumerate(self.expert_params)]
+
+    def _holds(self, e: int) -> bool:
+        """Whether this rank holds slot ``e``'s parameters."""
+        lo = self.param_store.first_expert
+        return lo <= e < lo + self.param_store.num_resident
 
     # -- elastic membership -------------------------------------------------
 
@@ -399,10 +475,20 @@ class ServingEngine:
     def num_live_experts(self) -> int:
         return sum(h == "ACTIVE" for h in self.expert_health)
 
-    def _with_slot_valid(self, e: int, live: bool):
-        mask = self.param_store.valid_mask().clone()
-        mask[e] = live
-        return self.param_store.with_valid(mask)
+    def _set_slot_valid(self, e: int, live: bool) -> None:
+        """Slot ``e``'s liveness bit in a new store: in a resident slice's
+        replicated routing mask on every rank, in ``valid`` where the slot
+        is held (on a mesh, on one rank)."""
+        store = self.param_store
+        if store.routing_valid is not None:
+            routing = store.routing_valid.clone()
+            routing[e] = live
+            store = dataclasses.replace(store, routing_valid=routing)
+        if self.mesh is None or self._holds(e):
+            mask = store.valid_mask().clone()
+            mask[store._local(e)] = live
+            store = store.with_valid(mask)
+        self.param_store = store
 
     def add_expert(self, ckpt_path: str, *, slot: int | None = None) -> int:
         """Hot-add a contributor checkpoint into a free capacity slot.
@@ -431,7 +517,11 @@ class ServingEngine:
                 f"before overwriting"
             )
         try:
-            params, meta = load_checkpoint(ckpt_path, device=self.device)
+            # on a mesh it loads on the host: only the rank that holds the
+            # slot moves it to its device
+            params, meta = load_checkpoint(
+                ckpt_path, device=torch.device("cpu") if self.mesh is not None
+                else self.device)
             for field in ("objective", "schedule"):
                 if field not in meta:
                     raise ValueError(
@@ -444,8 +534,9 @@ class ServingEngine:
                 {"path": ckpt_path, "reason": str(e), "slot": None})
             self.stats["quarantined_checkpoints"] += 1
             raise
-        self.param_store = self.param_store.set_expert(slot, params)
-        self.param_store = self._with_slot_valid(slot, True)
+        if self.mesh is None or self._holds(slot):
+            self.param_store = self.param_store.set_expert(slot, params)
+        self._set_slot_valid(slot, True)
         cid = int(meta.get("cluster_id", slot))
         self.experts[slot] = dataclasses.replace(
             self.experts[0],
@@ -465,7 +556,7 @@ class ServingEngine:
         if self.expert_health[e] not in ("ACTIVE", "DRAINING"):
             raise ValueError(
                 f"slot {e} is {self.expert_health[e]}, not servable")
-        self.param_store = self._with_slot_valid(e, False)
+        self._set_slot_valid(e, False)
         self.expert_health[e] = state
         self.membership_epoch += 1
         return e
@@ -522,7 +613,7 @@ class ServingEngine:
                 f"slot {e} is {self.expert_health[e]}; only PROBATION/"
                 f"QUARANTINED slots can be restored"
             )
-        self.param_store = self._with_slot_valid(e, True)
+        self._set_slot_valid(e, True)
         self.expert_health[e] = "ACTIVE"
         self.membership_epoch += 1
         return e
@@ -591,6 +682,9 @@ class ServingEngine:
         on_bad_checkpoint: str = "raise",
         track_padding: bool = False,
         device=None,
+        n_expert_shards: int = 1,
+        n_data_shards: int | None = None,
+        dist_backend: str | None = None,
     ) -> "ServingEngine":
         """Assemble an engine from a directory of expert checkpoints.
 
@@ -607,7 +701,10 @@ class ServingEngine:
         forces the elastic (capacity) path.  Otherwise holes in
         ``0..K-1`` raise.  ``capacity`` reserves slots for
         ``add_expert``.  Parameters load onto ``device`` (``None`` →
-        ``"cuda"``).  ``param_dtype``, when given, overrides
+        ``"cuda"``); with ``n_expert_shards``/``n_data_shards`` (a mesh,
+        see the engine's fields) they load and are checked on the host,
+        and only the rank's resident experts move to the device.
+        ``param_dtype``, when given, overrides
         ``sampler.param_dtype``.  Experts with a class head
         (``dit_cfg.num_classes``) publish no ragged forward, so
         ``dispatch='auto'`` resolves to grouped.
@@ -617,7 +714,9 @@ class ServingEngine:
                 f"on_bad_checkpoint must be 'raise' or 'skip', "
                 f"got {on_bad_checkpoint!r}"
             )
-        dev = resolve_device(device)
+        sharded = n_expert_shards != 1 or n_data_shards is not None
+        dev = rank_device(device) if sharded else resolve_device(device)
+        load_dev = torch.device("cpu") if sharded else dev
         apply_fn = D.make_expert_apply(dit_cfg)
         ragged_fn = None
         if not dit_cfg.num_classes:
@@ -629,7 +728,7 @@ class ServingEngine:
         template = None
         for path in sorted(paths):
             try:
-                p, meta = load_checkpoint(path, device=dev)
+                p, meta = load_checkpoint(path, device=load_dev)
                 for field in ("objective", "schedule"):
                     if field not in meta:
                         raise ValueError(
@@ -719,6 +818,8 @@ class ServingEngine:
             engine=engine, cond_cache_size=cond_cache_size, device=dev,
             track_padding=track_padding, capacity=capacity,
             initial_health=health if capacity is not None else None,
+            n_expert_shards=n_expert_shards, n_data_shards=n_data_shards,
+            dist_backend=dist_backend,
         )
         if quarantined:
             eng.quarantine.extend(quarantined)
@@ -860,6 +961,7 @@ class ServingEngine:
             null_cond={"text_emb": None} if has_text else None,
             config=self.sampler, engine=self.engine, init_noise=noise,
             stacked_params=store, coeff_tables=tables, cluster_map=cmap,
+            mesh=self.mesh,
         )
 
     def generate(self, seed_or_generator, batch_text_emb, batch_size: int,
@@ -915,9 +1017,10 @@ class ServingEngine:
         Latent shape and sampler config are the engine's, so requests are
         compatible when their conditioning signature is (text present and
         its trailing shape) and, on an elastic engine, so is the
-        membership epoch they were admitted under.  Each group is one sampler dispatch over the
-        merged batch padded to the next power of two (zero noise, zero
-        text), and each request's rows are sliced back out.  A failing
+        membership epoch they were admitted under.  Each group is one
+        sampler dispatch over the merged batch padded to the next power of
+        two (zero noise, zero text) — on a mesh, up to a multiple of its
+        "data" size too — and each request's rows are sliced back out.  A failing
         group re-queues only its own requests, each at most
         ``max_request_requeues`` times before it is FAILED with the
         exception; re-queued requests keep FIFO order.  Returns the number
@@ -973,7 +1076,10 @@ class ServingEngine:
     def _dispatch_group(self, has_text: bool, text_tail: tuple,
                         reqs: list[PendingRequest]) -> None:
         total = sum(r.batch_size for r in reqs)
-        pad = (1 << (total - 1).bit_length()) - total
+        bucket = 1 << (total - 1).bit_length()
+        if self.mesh is not None:
+            bucket += (-bucket) % self.mesh.shape["data"]
+        pad = bucket - total
         noise = [self._noise(r.seed, r.batch_size, r.noise) for r in reqs]
         if pad:
             noise.append(torch.zeros((pad,) + tuple(self.latent_shape),
@@ -1000,11 +1106,8 @@ class ServingEngine:
             off += r.batch_size
 
 
-#: CLI flags of the reference whose modes the port has not ported yet:
-#: flag -> (default, ROADMAP.md module queue item)
-_UNPORTED_FLAGS = {
-    "expert_shards": (1, "A.8"), "data_shards": (None, "A.8"),
-}
+def _silent(*args, **kwargs) -> None:
+    """``print`` on the ranks other than 0."""
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -1012,7 +1115,11 @@ def _parser() -> argparse.ArgumentParser:
         prog="python -m repro_torch.launch.serve",
         description="Serve a directory of DiT expert checkpoints (and "
                     "router.npz) on the port: the reference CLI's plain, "
-                    "--coalesce and --continuous modes.")
+                    "--coalesce and --continuous modes.",
+        epilog="shards > 1 need that many ranks: launch with torchrun "
+               "--standalone --nproc-per-node N -m "
+               "repro_torch.launch.serve ... (ranks that share one card "
+               "need --backend gloo).")
     ap.add_argument("--ckpt-dir", required=True)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--requests", type=int, default=2)
@@ -1085,9 +1192,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "kernels' plain versions)")
-    # parsed, not ported: a non-default value raises
     ap.add_argument("--expert-shards", type=int, default=1)
     ap.add_argument("--data-shards", type=int, default=None)
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="torch.distributed backend of the mesh (default: "
+                         "nccl on the GPU, gloo on the CPU)")
     return ap
 
 
@@ -1096,13 +1205,18 @@ def main(argv=None) -> None:
     modes, printing its lines less ``traces=`` (the port compiles no
     per-shape trace).  Text embeddings come from ``torch.Generator`` seed
     r, so the latents differ from the reference CLI's; the engine tests
-    hold parity."""
+    hold parity.  On a mesh every rank serves and rank 0 prints; a process
+    group the run started is destroyed at its end."""
     args = _parser().parse_args(argv)
-    for name, (default, item) in _UNPORTED_FLAGS.items():
-        if getattr(args, name) != default:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet — "
-                f"ROADMAP.md, module queue {item}")
+    started = not dist.is_initialized()
+    try:
+        _serve(args)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _serve(args) -> None:
     dit_cfg, rcfg = dit_b2(), router_b2()
     if args.reduced:
         dit_cfg = dit_cfg.reduced(latent_size=args.latent_size)
@@ -1117,12 +1231,17 @@ def main(argv=None) -> None:
             plan_refresh_every=args.plan_refresh),
         engine=args.engine, cond_cache_size=args.cond_cache,
         capacity=args.capacity, on_bad_checkpoint=args.on_bad_checkpoint,
-        track_padding=args.track_padding, device=args.device)
-    print(f"loaded {len(engine.experts)} experts "
-          f"({[e.objective for e in engine.experts]}) "
-          f"homogeneous={engine.homogeneous} mesh=None")
+        track_padding=args.track_padding, device=args.device,
+        n_expert_shards=args.expert_shards, n_data_shards=args.data_shards,
+        dist_backend=args.backend)
+    # on a mesh rank 0 prints
+    say = _silent if engine.mesh is not None and dist.get_rank() else print
+    say(f"loaded {len(engine.experts)} experts "
+        f"({[e.objective for e in engine.experts]}) "
+        f"homogeneous={engine.homogeneous} "
+        f"mesh={dict(engine.mesh.shape) if engine.mesh else None}")
     if engine.elastic:
-        print(engine.membership_line())
+        say(engine.membership_line())
 
     def text(r):
         # a host array, as a remote text encoder delivers it — the form
@@ -1165,12 +1284,12 @@ def main(argv=None) -> None:
         sync()
         dt = time.time() - t0
         n = sum(o.shape[0] for o in outs)
-        print(f"continuous {len(handles)} requests in "
-              f"{sched.step_count} ticks: {n} imgs in {dt:.2f}s "
-              f"({n / dt:.1f} img/s)")
-        print(sched.line())
+        say(f"continuous {len(handles)} requests in "
+            f"{sched.step_count} ticks: {n} imgs in {dt:.2f}s "
+            f"({n / dt:.1f} img/s)")
+        say(sched.line())
         if engine.elastic:
-            print(engine.membership_line())
+            say(engine.membership_line())
         return
     if args.coalesce:
         t0 = time.time()
@@ -1181,35 +1300,35 @@ def main(argv=None) -> None:
         sync()
         dt = time.time() - t0
         n = sum(o.shape[0] for o in outs)
-        print(f"coalesced {len(handles)} requests -> "
-              f"{engine.stats['merged_batches']} dispatch(es): "
-              f"{n} imgs in {dt:.2f}s ({n / dt:.1f} img/s)")
-        print(f"cache: cond_hits={engine.stats['cond_cache_hits']} "
-              f"cond_misses={engine.stats['cond_cache_misses']} "
-              f"plan_refreshes={engine.stats['plan_refreshes']} "
-              f"(R={args.plan_refresh}, {args.steps} steps/dispatch)")
+        say(f"coalesced {len(handles)} requests -> "
+            f"{engine.stats['merged_batches']} dispatch(es): "
+            f"{n} imgs in {dt:.2f}s ({n / dt:.1f} img/s)")
+        say(f"cache: cond_hits={engine.stats['cond_cache_hits']} "
+            f"cond_misses={engine.stats['cond_cache_misses']} "
+            f"plan_refreshes={engine.stats['plan_refreshes']} "
+            f"(R={args.plan_refresh}, {args.steps} steps/dispatch)")
         if engine.elastic:
-            print(engine.membership_line())
+            say(engine.membership_line())
         return
     for r in range(args.requests):
         t0 = time.time()
         out = engine.generate(r, text(r), args.batch)
         sync()
         dt = time.time() - t0
-        print(f"request {r}: {tuple(out.shape)} in {dt:.2f}s "
-              f"({args.batch / dt:.1f} img/s) "
-              f"finite={bool(torch.isfinite(out).all())}")
-    print(f"cache: cond_hits={engine.stats['cond_cache_hits']} "
-          f"cond_misses={engine.stats['cond_cache_misses']} "
-          f"plan_refreshes={engine.stats['plan_refreshes']} "
-          f"(R={args.plan_refresh}, {args.steps} steps/request)")
+        say(f"request {r}: {tuple(out.shape)} in {dt:.2f}s "
+            f"({args.batch / dt:.1f} img/s) "
+            f"finite={bool(torch.isfinite(out).all())}")
+    say(f"cache: cond_hits={engine.stats['cond_cache_hits']} "
+        f"cond_misses={engine.stats['cond_cache_misses']} "
+        f"plan_refreshes={engine.stats['plan_refreshes']} "
+        f"(R={args.plan_refresh}, {args.steps} steps/request)")
     if args.track_padding:
         ps = engine.padding_stats()
-        print(f"padding: padded_rows/step={ps['padded_rows_per_step']:.2f} "
-              f"routed_rows/step={ps['routed_rows_per_step']:.2f} "
-              f"overhead={ps['padding_overhead']:.3f}")
+        say(f"padding: padded_rows/step={ps['padded_rows_per_step']:.2f} "
+            f"routed_rows/step={ps['routed_rows_per_step']:.2f} "
+            f"overhead={ps['padding_overhead']:.3f}")
     if engine.elastic:
-        print(engine.membership_line())
+        say(engine.membership_line())
 
 
 if __name__ == "__main__":

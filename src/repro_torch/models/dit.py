@@ -44,7 +44,8 @@ import math
 
 import torch
 
-from repro_torch.core.param_store import QuantLeaf, dequant_leaf
+from repro_torch.core.param_store import (DenseStore, QuantizedStore,
+                                          QuantLeaf, dequant_leaf)
 from repro_torch.core.schedules import to_ddpm_timestep
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -328,6 +329,16 @@ def stack_expert_params(params_list):
         return torch.stack(nodes)
 
     return rec(list(params_list))
+
+
+def stacked_param_logical_axes(stacked):
+    """Axis names of stacked expert params: a store's own
+    ``logical_axes()``, or for a raw stacked tree the same tree with every
+    leaf ``("expert", None, ...)`` (``launch.sharding.expert_param_specs``
+    consumes either)."""
+    if isinstance(stacked, (DenseStore, QuantizedStore)):
+        return stacked.logical_axes()
+    return DenseStore.from_stacked(stacked).logical_axes().stacked
 
 
 def _ragged_dense(leaf: dict, x: torch.Tensor, pe: torch.Tensor):

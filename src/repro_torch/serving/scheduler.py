@@ -98,6 +98,11 @@ class ContinuousScheduler:
                 "continuous batching needs a homogeneous ensemble of "
                 ">= 2 experts (stacked param store)"
             )
+        if getattr(engine, "mesh", None) is not None:
+            raise NotImplementedError(
+                "continuous batching on an expert/data mesh (the rolling "
+                "state's sharding) is not ported yet — ROADMAP.md, module "
+                "queue A.8b")
         self.engine = engine
         self.max_resident = max_resident
         self.max_queue_depth = max_queue_depth

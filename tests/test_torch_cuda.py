@@ -2501,3 +2501,112 @@ def test_paligemma_reduced_on_the_card_matches_the_cpu(cuda, over):
     for i, (g, w) in enumerate(zip(tree_leaves(gg), tree_leaves(wg))):
         err = (g.cpu() - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item(), (i, err)
+
+
+# --- the expert/data mesh on the card (ROADMAP A.8) ---------------------------
+
+
+def _write_reduced_ensemble(path, k: int = 8) -> None:
+    """Jittered reduced DiT experts (2 DDPM : 6 FM) and a router, through
+    the port's ``save_checkpoint``."""
+    from repro_torch.launch.sharded_parity import _jittered
+    from repro_torch.models.config import dit_b2, router_b2
+    from repro_torch.training.checkpoint import (expert_metadata,
+                                                 save_checkpoint)
+
+    cfg = dit_b2().reduced(latent_size=8)
+    for i in range(k):
+        obj, sched = ("ddpm", "cosine") if i < 2 else ("fm", "linear")
+        save_checkpoint(f"{path}/expert{i}.npz", _jittered(cfg, i, "cpu"),
+                        metadata=expert_metadata(
+                            name=f"e{i}", objective=obj, schedule=sched,
+                            cluster_id=i, arch=cfg.name))
+    save_checkpoint(f"{path}/router.npz",
+                    _jittered(router_b2(num_clusters=k).reduced(
+                        latent_size=8), 99, "cpu"))
+
+
+def _reduced_engine(path, device, **kw):
+    from repro_torch.core.sampling import SamplerConfig
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models.config import dit_b2, router_b2
+
+    return ServingEngine.from_checkpoint_dir(
+        path, dit_cfg=dit_b2().reduced(latent_size=8),
+        router_cfg=router_b2(num_clusters=8).reduced(latent_size=8),
+        sampler=SamplerConfig(num_steps=4, cfg_scale=7.5, top_k=2),
+        device=device, track_padding=True, **kw)
+
+
+def test_degenerate_nccl_mesh_is_bitwise_unsharded_on_the_card(cuda,
+                                                                tmp_path):
+    """The ``(1, 1)`` mesh on a one-rank NCCL group: its collectives run
+    over groups of one, its latents and launches are the engine's without
+    a mesh, bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.models.config import dit_b2
+
+    _write_reduced_ensemble(str(tmp_path))
+    cfg = dit_b2().reduced(latent_size=8)
+    text = torch.randn((4, cfg.text_len, cfg.text_dim),
+                       generator=torch.Generator().manual_seed(2)).numpy()
+    started = not dist.is_initialized()
+    try:
+        outs = []
+        for kw in ({}, dict(n_expert_shards=1, n_data_shards=1,
+                            dist_backend="nccl")):
+            eng = _reduced_engine(str(tmp_path), cuda, **kw)
+            ops.reset_launches()
+            out = eng.generate(0, text, 4)
+            torch.cuda.synchronize()
+            outs.append((out, dict(ops.LAUNCHES), eng.mesh))
+        (want, launches, _), (got, launches_m, m) = outs
+        assert m is not None and m.backend == "nccl"
+        assert torch.equal(got, want)
+        assert launches_m == launches and launches["ragged_gemm"] > 0
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two ranks on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    card), ``(2, 1)`` and ``(1, 2)``: each rank's whole batch within
+    ``1e-5 · max |latent|`` of the unsharded engine on the card, each
+    ``(2, 1)`` rank's store half of the whole, the ranks' routed rows
+    summing to the unsharded engine's."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.sharded_parity import serve_checkpoints_rank
+    from repro_torch.models.config import dit_b2
+
+    ckpt, out = tmp_path / "ckpt", tmp_path / "out"
+    ckpt.mkdir()
+    out.mkdir()
+    _write_reduced_ensemble(str(ckpt))
+    cfg = dit_b2().reduced(latent_size=8)
+    gen = torch.Generator().manual_seed(4)
+    noise = torch.randn((4, 8, 8, 4), generator=gen).numpy()
+    text = torch.randn((4, cfg.text_len, cfg.text_dim),
+                       generator=gen).numpy()
+    np.save(out / "noise.npy", noise)
+    np.save(out / "text.npy", text)
+    base = _reduced_engine(str(ckpt), cuda)
+    want = base.generate(0, text, 4, noise=noise).cpu()
+    job = dict(kind="dit", label="dit", ckpt_dir=str(ckpt), k=8,
+               meshes=[(2, 1), (1, 2)], noise=str(out / "noise.npy"),
+               text=str(out / "text.npy"),
+               sampler=dict(num_steps=4, cfg_scale=7.5, top_k=2),
+               out=str(out), device="cuda")
+    spawn(serve_checkpoints_rank, 2, [job], backend="gloo", device="cuda")
+    for e, d in job["meshes"]:
+        ranks = [np.load(out / f"dit_{e}x{d}_rank{r}.npz") for r in range(2)]
+        for r in ranks:
+            got = torch.from_numpy(r["out"])
+            err = float((got - want).abs().max())
+            assert err <= 1e-5 * float(want.abs().max()), (e, d, err)
+            assert int(r["nbytes"]) * e == base.param_store.nbytes()
+        assert sum(int(r["rows"]) for r in ranks) == \
+            base.stats["padded_model_rows"]

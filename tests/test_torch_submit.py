@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core.sampling import SamplerConfig as JSamplerConfig
 from repro.launch import serve as jserve
@@ -275,10 +276,38 @@ def test_cli_prints_the_reference_lines(ensemble, capsys, monkeypatch,
                            "routed_rows/step=8.00 overhead=0.000")
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--expert-shards", "2"], "A.8"), (["--data-shards", "1"], "A.8"),
-], ids=lambda v: v[0] if isinstance(v, list) else v)
-def test_cli_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf"--{flag[0][2:]} .*queue {item}"):
-        serve.main(["--ckpt-dir", "unused", "--device", "cpu"] + flag)
+@pytest.mark.parametrize("flag", [["--expert-shards", "2"],
+                                  ["--data-shards", "1"]],
+                         ids=["--expert-shards-A.8", "--data-shards-A.8"])
+def test_cli_unported_flags_raise(ensemble, capsys, monkeypatch, flag):
+    """A.8's shard flags, once refused, now serve: ``--data-shards 1``
+    stands up the ``(1, 1)`` mesh in one process, prints the reference's
+    ``mesh={'expert': 1, 'data': 1}`` and serves the latents it serves
+    without the flag, bitwise; ``--expert-shards 2`` in one process (a
+    world of one rank) raises the reference's "devices" ``ValueError``."""
+    argv = ["--ckpt-dir", ensemble["path"], "--batch", "2", "--requests",
+            "2", "--steps", "2", "--device", "cpu"]
+    if flag[0] == "--expert-shards":
+        with pytest.raises(ValueError,
+                           match=r"mesh \(2, 1\) needs 2 devices but only "
+                                 r"1 are visible"):
+            serve.main(argv + flag)
+        return
+    outs = []
+    generate = serve.ServingEngine.generate
+
+    def recorded(self, *args, **kwargs):
+        outs.append(generate(self, *args, **kwargs))
+        return outs[-1]
+
+    monkeypatch.setattr(serve.ServingEngine, "generate", recorded)
+    serve.main(argv)
+    plain = capsys.readouterr().out.splitlines()
+    serve.main(argv + flag)
+    meshed = capsys.readouterr().out.splitlines()
+    assert plain[0].endswith(" mesh=None")
+    assert meshed[0] == plain[0].replace(
+        "mesh=None", "mesh={'expert': 1, 'data': 1}")
+    assert len(outs) == 4
+    for a, b in zip(outs[:2], outs[2:]):
+        assert torch.equal(a, b)
