@@ -284,7 +284,16 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    ranks' ``ragged_gemm`` pairs summing to the unsharded request's; and
    the serving CLI under ``torchrun --nproc-per-node 2`` (``--backend
    gloo --expert-shards 2 --coalesce``, latent 8), which must print
-   ``mesh={'expert': 2, 'data': 1}``.
+   ``mesh={'expert': 2, 'data': 1}``.  The rolling schedulers and the
+   reference engine on the mesh (ROADMAP A.8b), ``mesh rolling`` lines:
+   on the ``(1, 1)`` mesh phase 11's staggered requests, latents and
+   launches bitwise phase 11's; on the two ranks, in each case's engine,
+   three staggered requests into a rolling batch of 8 (within 1e-5 of
+   max of the unsharded rolling run, the ranks equal and their pairs
+   summing to its), on ``(2, 1)`` the resilient scheduler killed after 3
+   ticks and restored on both ranks from rank 0's journal (bitwise its
+   twin), and the reference engine against the unsharded one; the CLI
+   also with ``--continuous --journal-dir``.
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -3221,6 +3230,11 @@ def _rolling_run(sched, engine, cfg, texts, seeds):
     return handles, results, time.perf_counter() - t0, advances[0]
 
 
+#: phase 11's run at ``steps_per_tick`` 1 (its latents and launches),
+#: which phase 21's (1, 1) rolling case must equal bitwise
+ROLLING_SPT1: dict = {}
+
+
 def serve_continuous(ops, engines, dev, dit_cfg) -> dict:
     """Phase 11: continuous batching at full width on the native engine,
     each run with the launch counts set to 0 just before and read just
@@ -3230,7 +3244,8 @@ def serve_continuous(ops, engines, dev, dit_cfg) -> dict:
     * ``steps_per_tick`` 1: each request against ``generate`` on the same
       noise and text (bitwise or within ``E2E_REL_TOL``, printed), exactly
       one ``hetero_fuse_step`` a bucket tick, img/s against one ``flush``
-      of the same requests;
+      of the same requests (its latents and launches kept in
+      ``ROLLING_SPT1`` for phase 21);
     * ``steps_per_tick`` 2: two step launches a bucket tick, the latents
       against the run at 1 (other batch compositions; printed, held to
       ``E2E_REL_TOL``, bitwise where the forwards are row-independent);
@@ -3353,6 +3368,7 @@ def serve_continuous(ops, engines, dev, dit_cfg) -> dict:
              unprofiled_tick_synced_s=synced_s)
     sched.run_until_idle()
 
+    ROLLING_SPT1.update(outs=runs[1], launches=launches["rolling_spt1"])
     return launches
 
 
@@ -3504,6 +3520,42 @@ MESH_SEED, MESH_TEXT_SEED = 800, 41
 #: reference CLI's reduced width over phase 9's checkpoints)
 MESH_CLI = ["--backend", "gloo", "--expert-shards", "2", "--coalesce",
             "--batch", "3", "--requests", "2", "--steps", "4"]
+#: the same under ``--continuous``, journaled (the resilient scheduler)
+MESH_CLI_ROLLING = ["--backend", "gloo", "--expert-shards", "2",
+                    "--continuous", "--batch", "3", "--requests", "2",
+                    "--steps", "4", "--arrival-every", "1"]
+#: phase 21's rolling cases: three staggered requests (batch 1, 2, 1;
+#: text from seed 43, noise seeds 810, 811, 812) into a rolling batch of 8
+MESH_ROLLING, MESH_ROLLING_TEXT_SEED, MESH_ROLLING_SEED = (1, 2, 1), 43, 810
+
+
+def _mesh_rolling(ops, eng, cfg, batches=MESH_ROLLING,
+                  text_seed=MESH_ROLLING_TEXT_SEED,
+                  seed=MESH_ROLLING_SEED) -> tuple[list, dict]:
+    """Requests of ``batches`` through a ``ContinuousScheduler`` of 8 rows
+    on ``eng`` (phase 11's ``_rolling_run``), the launch and pair counts
+    set to 0 just before and read just after: the latents and a row of
+    seconds a request, ticks, store bytes, launches, pairs and, on a
+    mesh, the host agreements and joins a tick."""
+    from repro_torch.serving import ContinuousScheduler
+
+    texts = _texts(cfg, batches, text_seed)
+    seeds = [seed + i for i in range(len(texts))]
+    sched = ContinuousScheduler(eng, max_resident=BATCH)
+    before = dict(eng.mesh.counts) if eng.mesh is not None else {}
+    ops.reset_launches()
+    handles, outs, sec, adv = _rolling_run(sched, eng, cfg, texts, seeds)
+    row = dict(requests=len(outs), images=sum(batches),
+               ticks=sched.step_count, bucket_ticks=adv, seconds=sec,
+               seconds_per_request=sec / len(outs),
+               store_bytes=eng.param_store.nbytes(),
+               launches=dict(ops.LAUNCHES), pairs=dict(ops.RAGGED_PAIRS))
+    for key, n in before.items():
+        row[f"{key}_per_tick"] = (eng.mesh.counts[key] - n) / sched.step_count
+    if any(h.state != "DONE" for h in handles):
+        fail(f"rolling on {eng.mesh and eng.mesh.shape}: "
+             f"{[h.state for h in handles]}")
+    return outs, row
 
 
 def _mesh_requests(ops, eng, text) -> tuple:
@@ -3525,9 +3577,14 @@ def _mesh_rank(rank: int, world: int, job: dict) -> None:
     onto the host (``from_checkpoint_dir(device="cpu")``: the checks, the
     specs, the experts' parameters) and the router onto the card; each
     case's engine is built from them on its mesh (only the resident
-    slice reaches the card), then serves one request with the launch and
-    pair counts set to 0 just before and read just after, written to
+    slice reaches the card), then serves one request and the rolling case
+    (``_mesh_rolling``) with the launch and pair counts set to 0 just
+    before each and read just after; on ``(2, 1)`` native also the
+    resilient case (``kill_and_restore``: rank 0 journals, every rank
+    restores after 3 ticks); after the cases, the reference engine on
+    ``(2, 1)`` serves phase 21's request.  Everything is written to
     ``job["out"]`` for the parent to check."""
+    from repro_torch.launch.sharded_parity import kill_and_restore
     from repro_torch.core.sampling import SamplerConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import ServingEngine
@@ -3579,7 +3636,71 @@ def _mesh_rank(rank: int, world: int, job: dict) -> None:
                 resident_bytes=torch.cuda.memory_allocated(),
                 serve_peak_bytes=torch.cuda.max_memory_allocated(),
                 launches=launches, pairs=pairs), f)
+        rolled, row = _mesh_rolling(ops, eng, cfg)
+        _save_rank(job["out"], f"{label}_rolling", rank, rolled,
+                   dict(row, case=label, rank=rank))
+        if label == "mesh_2x1":
+            texts = _texts(cfg, MESH_ROLLING, MESH_ROLLING_TEXT_SEED)
+            reqs = [dict(seed=MESH_ROLLING_SEED + i, text=t)
+                    for i, t in enumerate(texts)]
+            t0 = time.perf_counter()
+            got, twin = kill_and_restore(
+                eng, reqs, os.path.join(job["out"], "journal_2x1"),
+                kill_at=3, max_resident=BATCH)
+            sec = time.perf_counter() - t0
+            same = [bool(torch.equal(a, b)) for a, b in zip(got, twin)]
+            if len(got) != len(reqs) or not all(same):
+                raise AssertionError(
+                    f"restore on (2, 1) rank {rank}: {same}")
+            _save_rank(job["out"], "mesh_2x1_restore", rank, got, dict(
+                case="mesh_2x1_restore", rank=rank, killed_at_tick=3,
+                seconds=sec, bitwise_twin=same))
         del eng, out
+    # the reference engine on the expert split
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = ServingEngine(
+        experts=experts, expert_params=params, router_fn=router_fn,
+        latent_shape=(cfg.latent_size, cfg.latent_size,
+                      cfg.latent_channels),
+        sampler=SamplerConfig(num_steps=STEPS, cfg_scale=7.5, top_k=2),
+        engine="reference", device=dev, n_expert_shards=2, n_data_shards=1,
+        dist_backend="gloo")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(MESH_SEED, text, BATCH)
+    torch.cuda.synchronize()
+    _save_rank(job["out"], "mesh_reference_2x1", rank, [out], dict(
+        case="mesh_reference_2x1", rank=rank, build_seconds=load_s,
+        request_seconds=time.perf_counter() - t0,
+        store_bytes=eng.param_store.nbytes(),
+        launches=dict(ops.LAUNCHES), joins=eng.mesh.counts["joins"]))
+
+
+def _save_rank(out_dir, label, rank, outs, row) -> None:
+    """A rank's latents (``<label>_rank<r>.npz``, ``out_<i>``) and row
+    (``….json``)."""
+    stem = os.path.join(out_dir, f"{label}_rank{rank}")
+    np.savez(stem + ".npz", **{f"out_{i}": o.cpu().numpy()
+                               for i, o in enumerate(outs)})
+    with open(stem + ".json", "w") as f:
+        json.dump(row, f)
+
+
+def _load_ranks(out_dir, label, dev) -> list:
+    """Both ranks' ``(latents, row)`` of ``_save_rank``."""
+    ranks = []
+    for rank in range(2):
+        stem = os.path.join(out_dir, f"{label}_rank{rank}")
+        with np.load(stem + ".npz") as z:
+            outs = [torch.from_numpy(z[f"out_{i}"]).to(dev)
+                    for i in range(len(z.files))]
+        with open(stem + ".json") as f:
+            ranks.append((outs, json.load(f)))
+    return ranks
 
 
 def serve_mesh(ops, engines, dev, path, dit_cfg) -> dict:
@@ -3599,14 +3720,27 @@ def serve_mesh(ops, engines, dev, path, dit_cfg) -> dict:
     (c) the serving CLI under ``torchrun --standalone --nproc-per-node 2``
         with ``--backend gloo --expert-shards 2 --coalesce`` at latent 8
         over phase 9's checkpoints: exit 0 and the reference's
-        ``mesh={'expert': 2, 'data': 1}``.
+        ``mesh={'expert': 2, 'data': 1}``; and the same with
+        ``--continuous --journal-dir`` (the resilient scheduler).
+
+    The rolling cases (A.8b's serving remainder), ``mesh rolling`` lines:
+    (a) on the ``(1, 1)`` mesh phase 11's staggered requests, latents and
+    launches bitwise phase 11's unsharded rolling run; (b) in each case's
+    engine three staggered requests (batch 1, 2, 1) into a rolling batch
+    of 8, each rank's whole requests within ``1e-5 · max |latent|`` of the
+    unsharded rolling run on the card and bitwise equal across ranks, the
+    ranks' pairs summing to its pairs; on ``(2, 1)`` the resilient
+    scheduler killed after 3 ticks and restored on both ranks from rank
+    0's journal (bitwise its uninterrupted twin on each rank); and the
+    reference engine on ``(2, 1)`` against the unsharded reference engine
+    on the card.
 
     Each case serves the request twice and prints both seconds (the first
     pays the first collectives and, in (b), the process's start); the
     second request's launches and pairs are counted.  The seconds are a
     record, not a measure of sharding: the two ranks share one card, and
     gloo moves the collectives through the host.  Returns the launches
-    of (a)."""
+    of (a) and, per rank, of (b)'s rolling and reference cases."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import spawn
@@ -3622,21 +3756,44 @@ def serve_mesh(ops, engines, dev, path, dit_cfg) -> dict:
                    _router_b2(num_clusters=len(MIX)).reduced(latent_size=8),
                    dev, seed=13)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cli = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
-         "--ckpt-dir", cli_dir, *MESH_CLI],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT)
+    journal = os.path.join(WORK, "mesh_cli_journal")
+    shutil.rmtree(journal, ignore_errors=True)
+    clis = {
+        tuple(argv): subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
+             "--ckpt-dir", cli_dir, *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)
+        for argv in (MESH_CLI,
+                     MESH_CLI_ROLLING + ["--journal-dir", journal])}
+    launches = {}
     try:
         text = _texts(dit_cfg, [BATCH], MESH_TEXT_SEED)[0]
         want, want_launches, want_pairs = {}, {}, {}
+        want_roll, want_roll_row = {}, {}
         for pd in ("native", "int8"):
             ops.reset_launches()
             want[pd] = engines[pd].generate(MESH_SEED, text, BATCH)
             torch.cuda.synchronize()
             want_launches[pd] = dict(ops.LAUNCHES)
             want_pairs[pd] = dict(ops.RAGGED_PAIRS)
+            want_roll[pd], want_roll_row[pd] = _mesh_rolling(
+                ops, engines[pd], dit_cfg)
+            print(f"mesh rolling unsharded_{pd} "
+                  + json.dumps(want_roll_row[pd]))
+        native = engines["native"]
+        mode, native.engine = native.engine, "reference"
+        try:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            want_ref = native.generate(MESH_SEED, text, BATCH)
+            torch.cuda.synchronize()
+            print("mesh reference unsharded " + json.dumps(dict(
+                request_seconds=time.perf_counter() - t0,
+                launches=dict(ops.LAUNCHES))))
+        finally:
+            native.engine = mode
 
         # (a) one rank, NCCL, built from the native engine's experts
         native = engines["native"]
@@ -3665,7 +3822,19 @@ def serve_mesh(ops, engines, dev, path, dit_cfg) -> dict:
             if launches != want_launches["native"]:
                 fail(f"the (1, 1) mesh launched {launches}, the unsharded "
                      f"engine {want_launches['native']}")
-            del eng, got
+            launches = {"mesh_1x1_nccl": launches}
+            # phase 11's staggered requests on the (1, 1) mesh
+            rolled, row = _mesh_rolling(ops, eng, dit_cfg, ROLLING_BATCHES,
+                                        41, 800)
+            print("mesh rolling rolling_1x1_nccl " + json.dumps(row))
+            for i, (a, b) in enumerate(zip(rolled, ROLLING_SPT1["outs"])):
+                _compare(f"rolling_1x1_nccl request {i} vs phase 11", a, b,
+                         bitwise=True)
+            if row["launches"] != ROLLING_SPT1["launches"]:
+                fail(f"the (1, 1) rolling run launched {row['launches']}, "
+                     f"phase 11's {ROLLING_SPT1['launches']}")
+            launches["mesh_rolling_1x1_nccl"] = row["launches"]
+            del eng, got, rolled
         finally:
             if started and dist.is_initialized():
                 dist.destroy_process_group()
@@ -3703,20 +3872,80 @@ def serve_mesh(ops, engines, dev, path, dit_cfg) -> dict:
                 ranks=[r["pairs"] for r in rows],
                 unsharded=want_pairs[pd])))
 
+            # the rolling case of the same engines
+            ranks = _load_ranks(out_dir, f"{label}_rolling", dev)
+            for outs, row in ranks:
+                launches[f"{label}_rolling_rank{row['rank']}"] = \
+                    row["launches"]
+                bitwise = [bool(torch.equal(a, b))
+                           for a, b in zip(outs, want_roll[pd])]
+                print(f"mesh rolling {label} " + json.dumps(dict(
+                    row, bitwise_unsharded=bitwise,
+                    unsharded_seconds_per_request=want_roll_row[pd][
+                        "seconds_per_request"])))
+                for i, (a, b) in enumerate(zip(outs, want_roll[pd])):
+                    _compare(f"{label} rolling rank {row['rank']} request "
+                             f"{i} vs unsharded", a, b, tol_rel=GEMM_REL_TOL)
+            if not all(torch.equal(a, b) for a, b in zip(ranks[0][0],
+                                                         ranks[1][0])):
+                fail(f"{label} rolling: the ranks' requests differ")
+            for name, n in want_roll_row[pd]["pairs"].items():
+                total = sum(row["pairs"][name] for _, row in ranks)
+                if total != n:
+                    fail(f"{label} rolling: the ranks' {name} pairs sum to "
+                         f"{total}, the unsharded run's {n}")
+            print(f"mesh rolling {label} pairs " + json.dumps(dict(
+                ranks=[row["pairs"] for _, row in ranks],
+                unsharded=want_roll_row[pd]["pairs"])))
+
+        # the resilient case: rank 0's journal, restored on both ranks
+        ranks = _load_ranks(out_dir, "mesh_2x1_restore", dev)
+        with open(os.path.join(out_dir, "journal_2x1",
+                               "journal.jsonl")) as f:
+            events = [json.loads(line)["ev"] for line in f]
+        for outs, row in ranks:
+            print("mesh rolling mesh_2x1_restore " + json.dumps(dict(
+                row, journal_opens=events.count("open"),
+                journal_records=len(events))))
+            for i, (a, b) in enumerate(zip(outs, want_roll["native"])):
+                _compare(f"mesh_2x1_restore rank {row['rank']} request {i} "
+                         f"vs unsharded", a, b)
+        if events.count("open") != 2 or "restored" not in events or not \
+                all(torch.equal(a, b) for a, b in zip(ranks[0][0],
+                                                      ranks[1][0])):
+            fail(f"restore on (2, 1): journal {events}")
+
+        # the reference engine on the expert split
+        ranks = _load_ranks(out_dir, "mesh_reference_2x1", dev)
+        for outs, row in ranks:
+            launches[f"mesh_reference_2x1_rank{row['rank']}"] = \
+                row["launches"]
+            print("mesh rolling mesh_reference_2x1 " + json.dumps(dict(
+                row, bitwise_unsharded=bool(torch.equal(outs[0],
+                                                        want_ref)))))
+            _compare(f"mesh_reference_2x1 rank {row['rank']} vs unsharded",
+                     outs[0], want_ref, tol_rel=GEMM_REL_TOL)
+        if not torch.equal(ranks[0][0][0], ranks[1][0][0]):
+            fail("mesh_reference_2x1: the ranks' latents differ")
+
         # (c) the CLI under torchrun
-        cli_out, cli_err = cli.communicate(timeout=300)
-        for line in cli_out.strip().splitlines():
-            print(f"cli torchrun {' '.join(MESH_CLI)} | {line}")
-        if cli.returncode != 0 or "mesh={'expert': 2, 'data': 1}" not in \
-                cli_out or "coalesced 2 requests -> 1 dispatch(es)" not in \
-                cli_out:
-            fail(f"the serving CLI under torchrun exited {cli.returncode}: "
-                 f"{cli_err.strip()[-3000:]}")
+        for argv, cli in clis.items():
+            cli_out, cli_err = cli.communicate(timeout=300)
+            for line in cli_out.strip().splitlines():
+                print(f"cli torchrun {' '.join(argv)} | {line}")
+            done = ("continuous 2 requests in " if "--continuous" in argv
+                    else "coalesced 2 requests -> 1 dispatch(es)")
+            if cli.returncode != 0 or "mesh={'expert': 2, 'data': 1}" \
+                    not in cli_out or done not in cli_out:
+                fail(f"the serving CLI under torchrun exited "
+                     f"{cli.returncode}: {cli_err.strip()[-3000:]}")
     finally:
-        cli.kill()
+        for cli in clis.values():
+            cli.kill()
         shutil.rmtree(cli_dir, ignore_errors=True)
         shutil.rmtree(out_dir, ignore_errors=True)
-    return {"mesh_1x1_nccl": launches}
+        shutil.rmtree(journal, ignore_errors=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------

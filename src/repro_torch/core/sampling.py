@@ -39,13 +39,16 @@ draws or takes the whole batch's noise and runs its "data" slice of the
 rows, the router and the plans replicated over "expert"; the executor
 runs the rank's resident experts and one "expert" all-reduce a step
 completes the per-slot predictions before the step kernel
-(``core.dispatch``).  The slices' latents are all-gathered over "data",
-so every rank returns the whole batch, and the latents do not depend on
-the mesh.
+(``core.dispatch``).  The reference engine runs the rank's resident
+experts per branch and one "expert" all-gather a step stacks their
+velocities in expert order before the fusion.  The slices' latents are
+all-gathered over "data", so every rank returns the whole batch, and the
+latents do not depend on the mesh.
 
 ``sample_ensemble_step`` is one Euler step of a mixed-timestep batch (the
 continuous scheduler's unit of work): each row at its own step index,
-one ``fused_step`` launch with a per-row ``dt``.
+one ``fused_step`` launch with a per-row ``dt``.  On a mesh the rank
+steps its "data" rows of the batch on its resident experts.
 
 Also here: ``sample_single_expert`` (Table 3's single-expert rows) and
 the native DDPM sampler ``sample_ddpm_ancestral``.
@@ -413,17 +416,24 @@ def _expert_velocities_with_cfg(experts, params, x_t, t, cond: dict,
 
 def _sample_reference(experts, params, router_fn, cond: dict,
                       null_cond: dict | None, config: SamplerConfig,
-                      init_noise: torch.Tensor) -> torch.Tensor:
+                      init_noise: torch.Tensor, mesh=None) -> torch.Tensor:
     """The per-expert two-pass engine: every expert per branch, unified
-    in plain ops, fused by Eq. 1 with the step's fusion weights."""
+    in plain ops, fused by Eq. 1 with the step's fusion weights.  On an
+    expert-sharded ``mesh`` the rank runs its resident experts and one
+    "expert" all-gather stacks the ``(K, B, ...)`` velocities in expert
+    order (bitwise the unsharded stack)."""
     B = init_noise.shape[0]
+    K = len(experts)
+    lo, hi = (0, K) if mesh is None else mesh.expert_range(K)
     ts = _time_grid(config.num_steps).to(init_noise.device)
     x = init_noise
     for i in range(config.num_steps):
         t_hi, t_lo = ts[i], ts[i + 1]
         tb = t_hi.expand(B)
-        v = _expert_velocities_with_cfg(experts, params, x, tb, cond,
-                                        null_cond, config)
+        v = _expert_velocities_with_cfg(experts[lo:hi], params[lo:hi], x,
+                                        tb, cond, null_cond, config)
+        if (lo, hi) != (0, K):
+            v = mesh.expert_gather(v)
         w = fusion_weights(
             experts, router_fn, x, tb,
             strategy=config.strategy, top_k=config.top_k,
@@ -489,19 +499,12 @@ def sample_ensemble(
     of the batch (every row where "data" does not divide it) on its
     resident experts: ``stacked_params`` is then the rank's resident slice
     (``launch.sharding.shard_store``) and ``params`` holds ``None`` for
-    the experts of other ranks.  The reference engine runs on a "data"
-    split only.  Returns the samples at t = 0, the whole batch on every
-    rank.
+    the experts of other ranks.  Returns the samples at t = 0, the whole
+    batch on every rank.
     """
     cond = cond or {}
     config = config if config is not None else SamplerConfig()
     mode = _resolve_engine(engine, experts, params, config)
-    if mesh is not None and mode == "reference" \
-            and mesh.shape["expert"] > 1:
-        raise NotImplementedError(
-            "the reference engine runs every expert per step; on an "
-            "expert-sharded mesh it is not ported yet — ROADMAP.md, module "
-            "queue A.8b")
     if params is None and mode == "reference":
         raise ValueError(
             "the reference engine runs each expert from its own params "
@@ -525,7 +528,7 @@ def sample_ensemble(
             _rows(null_cond, batch, lo, hi)
     if mode == "reference":
         x = _sample_reference(experts, params, router_fn, cond, null_cond,
-                              config, init_noise)
+                              config, init_noise, mesh)
     else:
         x = _sample_fused(experts, params, router_fn, cond, null_cond,
                           config, mode, init_noise, stacked_params,
@@ -561,6 +564,7 @@ def sample_ensemble_step(
     stacked_params=None,
     coeff_tables=None,
     cluster_map=None,
+    mesh=None,
 ):
     """One Euler step of a mixed-timestep batch (continuous batching).
 
@@ -579,12 +583,26 @@ def sample_ensemble_step(
     keeps one), so the decision reads nothing from the device.  Without
     ``t_host``, ``t_idx`` must be on the CPU.
 
+    On a ``mesh`` (``launch.mesh.ExpertMesh``) ``x`` and the conditioning
+    hold the rank's rows ``mesh.data_range(B)`` of the ``B``-row batch
+    (every row where "data" does not divide ``B``); ``t_idx``,
+    ``slot_idx``, ``slot_w`` and ``t_host`` hold the whole batch's, the
+    same on every rank; ``stacked_params`` is the rank's resident slice.
+    The rank steps its rows on its resident experts.  After the local work
+    (router, plan, expert forwards) comes ``mesh.step_agreement`` —
+    ``launch.mesh.PeerFailure`` here when another rank's step failed, so
+    no rank waits in a join — then the joins: on a step where some row
+    refreshes and the rows are split, the slots are all-gathered over
+    "data" (one gather of both), and the executor's "expert" all-reduce
+    completes the per-slot predictions.
+
     Rolling equals lockstep row for row because every forward computes
     row ``r`` from row ``r``'s inputs alone and the step kernel is
     elementwise per row.  Needs the routed engine, ``strategy`` in
     ``('top1', 'topk')`` and ``step_fused=True`` (the reference's
     ``ValueError``s).  Returns the advanced ``(x, t_idx, slot_idx,
-    slot_w)`` as new tensors.
+    slot_w)`` as new tensors (on a mesh: the rank's rows of ``x``, the
+    whole batch's rest).
     """
     cond = cond or {}
     config = config if config is not None else SamplerConfig()
@@ -608,7 +626,9 @@ def sample_ensemble_step(
             f"with stackable params and >1 expert)"
         )
     K = len(experts)
-    B = x.shape[0]
+    B = t_idx.shape[0]
+    lo, hi = (0, B) if mesh is None else mesh.data_range(B)
+    split = (lo, hi) != (0, B)
     device = x.device
     conv = config.conversion
     k_slots = 1 if config.strategy == "top1" else min(config.top_k, K)
@@ -619,6 +639,10 @@ def sample_ensemble_step(
             f"slot_idx {tuple(slot_idx.shape)}, slot_w "
             f"{tuple(slot_w.shape)}"
         )
+    if x.shape[0] != hi - lo:
+        raise ValueError(
+            f"x holds {x.shape[0]} rows; this rank steps rows [{lo}, {hi}) "
+            f"of the {B}-row batch")
     if t_host is None:
         if t_idx.is_cuda:
             raise ValueError(
@@ -635,15 +659,15 @@ def sample_ensemble_step(
         and _cfg_batchable(cond, null_cond or {})
 
     stacked = as_store(stacked_params, dtype=config.param_dtype)
-    if stacked is None and params is None:
+    if stacked is None and (params is None or mesh is not None):
         raise ValueError(
             "params=None requires stacked_params (an ExpertParamStore or "
-            "raw stacked pytree)"
+            "raw stacked pytree); on a mesh, the rank's resident slice"
         )
     if stacked is None:
         stacked = make_store(stack_expert_params(params),
                              dtype=config.param_dtype)
-    valid = getattr(stacked, "valid", None)
+    valid = stacked.routing_mask()
     ragged_fn = experts[0].ragged_apply_fn
     ragged_ok = ragged_fn is not None and all(
         e.ragged_apply_fn is ragged_fn for e in experts)
@@ -651,7 +675,7 @@ def sample_ensemble_step(
     executor = make_executor(
         backend, apply_fns=[e.apply_fn for e in experts], params=params,
         stacked_params=stacked, conv=conv,
-        ragged_apply_fn=ragged_fn if ragged_ok else None)
+        ragged_apply_fn=ragged_fn if ragged_ok else None, mesh=mesh)
 
     S = config.num_steps
     refresh_every = int(config.plan_refresh_every)
@@ -667,60 +691,76 @@ def sample_ensemble_step(
             tuple(e.schedule for e in experts), S, conv).to(device)
     num_slots = tables.shape[-1]                          # capacity K
 
-    # Per-row grid state; frozen rows gather a clipped index whose values
-    # the ``active`` mask discards.
-    i = torch.clamp(t_idx, 0, S - 1)
-    active = (t_idx >= 0) & (t_idx < S)
+    # Per-row grid state of this rank's rows; frozen rows gather a
+    # clipped index whose values the ``active`` mask discards.
+    t_rows = t_idx[lo:hi]
+    i = torch.clamp(t_rows, 0, S - 1)
+    active = (t_rows >= 0) & (t_rows < S)
     tb = ts[i]
     dt = ts[i] - ts[i + 1]
-    row_tab = tables[i]                                   # (B, 5, K)
+    row_tab = tables[i]                                   # (b, 5, K)
 
     # Each row refreshes its routing on its own phase; the router runs
-    # only when some row does (decided from the host mirror).
+    # only when one of the rank's rows does (decided from the host
+    # mirror), the slot gather when a row of the batch does.
     host_refresh = (t_host >= 0) & (t_host < S) \
         & (t_host % refresh_every == 0)
-    if host_refresh.any():
-        refresh = active & (t_idx % refresh_every == 0)
+    rows_idx, rows_w = slot_idx[lo:hi], slot_w[lo:hi]
+    if host_refresh[lo:hi].any():
+        refresh = active & (t_rows % refresh_every == 0)
         w = fusion_weights(
             experts, router_fn, x, tb,
             strategy=config.strategy, top_k=config.top_k,
             threshold=config.threshold,
             ddpm_low_noise_only=config.ddpm_low_noise_only,
-            valid=valid, cluster_map=cluster_map)         # (B, K)
+            valid=valid, cluster_map=cluster_map)         # (b, K)
         new_idx, new_w = routed_slots(w, k_slots, valid=valid)
-        slot_idx = torch.where(refresh[:, None], new_idx, slot_idx)
-        slot_w = torch.where(refresh[:, None], new_w, slot_w)
-    plan = plan_from_slots(slot_idx, slot_w, num_slots)
+        rows_idx = torch.where(refresh[:, None], new_idx, rows_idx)
+        rows_w = torch.where(refresh[:, None], new_w, rows_w)
+    plan = plan_from_slots(rows_idx, rows_w, num_slots)
 
     # CFG as in ``_sample_fused``; executors read the table only on the
     # unfused path, so row 0's table fills the argument.
+    b = x.shape[0]
     tab0 = tables[0]
     if batched:
         outs = [executor.predictions(
-            plan, x, tb, _cfg_grouped_cond(cond, null_cond or {}, B), 2,
+            plan, x, tb, _cfg_grouped_cond(cond, null_cond or {}, b), 2,
             tab0)]
     elif use_cfg:
         outs = [executor.predictions(
-            plan, x, tb, _cfg_grouped_cond(c, None, B), 1, tab0)
+            plan, x, tb, _cfg_grouped_cond(c, None, b), 1, tab0)
             for c in (cond, dict(null_cond or {}))]
     else:
         outs = [executor.predictions(
-            plan, x, tb, _cfg_grouped_cond(cond, None, B), 1, tab0)]
+            plan, x, tb, _cfg_grouped_cond(cond, None, b), 1, tab0)]
     if len(outs) == 1:
         preds, w_all, idx_all = outs[0]
     else:
         preds = torch.cat([o[0] for o in outs], dim=1)
         w_all = torch.cat([o[1] for o in outs], dim=0)
         idx_all = torch.cat([o[2] for o in outs], dim=0)
+
+    if mesh is not None:
+        mesh.step_agreement()                     # before any join
+    if not split:
+        slot_idx, slot_w = rows_idx, rows_w
+    elif host_refresh.any():
+        both = mesh.data_gather(torch.cat(
+            [rows_idx.to(torch.float64), rows_w.to(torch.float64)], dim=1))
+        slot_idx = both[:, :k_slots].to(torch.int64)
+        slot_w = both[:, k_slots:].to(torch.float32)
+    preds = executor.complete(preds, plan)        # the "expert" join
     g = 2 if use_cfg else 1
     tab_all = row_tab if g == 1 else torch.cat([row_tab, row_tab])
     x_step = ops.fused_step(
         preds, x, w_all, slot_coef_rows(tab_all, idx_all), dt,
         g=g, cfg_scale=config.cfg_scale if use_cfg else 1.0,
         clamp=conv.clamp, alpha_min=conv.alpha_min)
-    mask = active.reshape((B,) + (1,) * (x.dim() - 1))
+    mask = active.reshape((b,) + (1,) * (x.dim() - 1))
     x = torch.where(mask, x_step, x)
-    return x, t_idx + active.to(torch.int64), slot_idx, slot_w
+    advance = ((t_idx >= 0) & (t_idx < S)).to(torch.int64)
+    return x, t_idx + advance, slot_idx, slot_w
 
 
 def sample_single_expert(

@@ -22,6 +22,18 @@ all-gather of CUDA tensors through the host itself (a copy to the CPU,
 the CPU all-gather, a copy back), which is the transport of a collective
 and no kernel.
 
+Host agreement: ``ExpertMesh.agree`` is a MAX all-reduce of a few host
+ints over the world (on the default group when it is gloo, else on a gloo
+group of its own), the point at which the ranks of a rolling scheduler
+agree on what failed, expired or ran slow in a tick; ``step_agreement``
+is the one each rolling step makes before its joins (``PeerFailure`` on
+every rank when one failed).  A world of one agrees with itself and
+issues nothing.
+
+Every process group the port starts (``init_distributed``, ``spawn``)
+has a ``COLLECTIVE_TIMEOUT_S`` limit, so a rank whose peers stopped
+raises instead of waiting for ever; ``spawn`` also bounds its join.
+
 ``spawn(fn, world, ...)`` runs ``fn(rank, world, *args)`` in
 ``world`` processes joined by a ``FileStore`` in a temporary directory:
 the launcher of the tests and of ``launch/sharded_parity.py`` (no port,
@@ -31,8 +43,10 @@ no network).
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -42,6 +56,23 @@ EXPERT_AXES = ("expert", "data")
 
 #: the backend a device's tensors take when the caller names none
 _DEFAULT_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+
+#: the limit of every collective (and of a group's start) of the process
+#: groups the port starts: a rank whose peers diverged or died raises
+#: after it instead of hanging
+COLLECTIVE_TIMEOUT_S = 120.0
+
+#: ``spawn``'s bound on the whole run of its ranks
+SPAWN_TIMEOUT_S = 900.0
+
+
+def _timeout() -> datetime.timedelta:
+    return datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+
+
+class PeerFailure(RuntimeError):
+    """Another rank's part of a step failed: raised on every rank that
+    did not fail itself, at the step's agreement, before any join."""
 
 
 def rank_device(device=None) -> torch.device:
@@ -76,10 +107,11 @@ def init_distributed(backend: str | None = None, device=None) -> str:
         return dist.get_backend()
     backend = backend or _DEFAULT_BACKEND[dev.type]
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        dist.init_process_group(backend, init_method="env://")
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=_timeout())
     else:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
+                                world_size=1, timeout=_timeout())
     return backend
 
 
@@ -93,6 +125,11 @@ class ExpertMesh:
     ``data_index`` are this rank's coordinates; ``expert_group`` joins the
     ranks that hold the same batch slice (one per expert shard, in expert
     order), ``data_group`` the ranks that hold the same experts.
+    ``host_group`` is the gloo group of the host agreements (``None``: the
+    default group, when it is gloo); ``counts`` tallies this rank's host
+    agreements (``"agreements"``; the steps' own are also counted under
+    ``"step_agreements"``) and its joins, the collectives on tensors
+    (``"joins"``: each "expert" sum and all-gather).
     """
 
     shape: dict  # lint: allow-mutable-config (a Mesh's shape is a dict)
@@ -103,6 +140,55 @@ class ExpertMesh:
     backend: str
     device_mesh: object = None
     axis_names: tuple = EXPERT_AXES
+    host_group: object = None
+    counts: dict = dataclasses.field(  # lint: allow-mutable-config
+        default_factory=lambda: {"agreements": 0, "step_agreements": 0,
+                                 "joins": 0},
+        compare=False)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the world (0 where no group runs)."""
+        return dist.get_rank() if dist.is_initialized() else 0
+
+    @property
+    def world(self) -> int:
+        return mesh_devices(self)
+
+    def agree(self, flags) -> list[int]:
+        """The element-wise MAX of ``flags`` (host ints, the same length
+        on every rank) over every rank: one host all-reduce, or ``flags``
+        itself in a world of one."""
+        flags = [int(f) for f in flags]
+        if self.world == 1 or not flags:
+            return flags
+        t = torch.tensor(flags, dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
+        self.counts["agreements"] += 1
+        return t.tolist()  # lint: allow-host-sync — a host tensor
+
+    def step_agreement(self, failed: bool = False) -> None:
+        """The agreement a rolling step makes before its joins: a rank
+        whose step raised calls it with ``failed`` (in place of the one
+        it did not reach), and every other rank then raises
+        ``PeerFailure`` here, so no rank is left waiting in a join."""
+        self.counts["step_agreements"] += 1
+        if self.agree([int(failed)]) != [0] and not failed:
+            raise PeerFailure("another rank's step failed")
+
+    def broadcast_object(self, obj):
+        """Rank 0's ``obj`` (a picklable host value) on every rank."""
+        if self.world == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self.host_group)
+        self.counts["agreements"] += 1
+        return box[0]
+
+    def barrier(self) -> None:
+        """Wait until every rank reaches this point."""
+        if self.world > 1:
+            dist.barrier(group=self.host_group)
 
     def expert_range(self, num_experts: int) -> tuple[int, int]:
         """The global ids ``[lo, hi)`` of this rank's resident experts: the
@@ -135,6 +221,7 @@ class ExpertMesh:
         rank's value exactly."""
         t = t.contiguous()
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.expert_group)
+        self.counts["joins"] += 1
         return t
 
     def _gather(self, t: torch.Tensor, group, size: int) -> torch.Tensor:
@@ -145,6 +232,7 @@ class ExpertMesh:
             src = src.cpu()
         parts = [torch.empty_like(src) for _ in range(size)]
         dist.all_gather(parts, src, group=group)
+        self.counts["joins"] += 1
         return torch.cat(parts).to(t.device)
 
     def expert_gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -197,11 +285,15 @@ def make_expert_mesh(n_expert_shards: int = 1,
     dm = init_device_mesh(dev.type, (n_expert_shards, n_data_shards),
                           mesh_dim_names=EXPERT_AXES)
     e_idx, d_idx = dm.get_coordinate()
+    # the host agreements need a gloo group where the world's is not
+    host_group = None
+    if ndev > 1 and dist.get_backend() != "gloo":
+        host_group = dist.new_group(backend="gloo", timeout=_timeout())
     return ExpertMesh(
         shape={"expert": n_expert_shards, "data": n_data_shards},
         expert_index=int(e_idx), data_index=int(d_idx),
         expert_group=dm.get_group("expert"), data_group=dm.get_group("data"),
-        backend=backend, device_mesh=dm)
+        backend=backend, device_mesh=dm, host_group=host_group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,7 +332,7 @@ def _spawned(rank, fn, world, store_path, backend, device, args):
         torch.cuda.set_device(dev)
     dist.init_process_group(
         backend, store=dist.FileStore(store_path, world), rank=rank,
-        world_size=world)
+        world_size=world, timeout=_timeout())
     try:
         fn(rank, world, *args)
     finally:
@@ -253,10 +345,23 @@ def spawn(fn, world: int, *args, backend: str = "gloo",
     ``spawn`` start method) whose default process group is ``backend``
     over a ``FileStore`` in a temporary directory; CUDA ranks take
     ``cuda:<rank mod the card count>``.  Returns when every rank has;
-    raises if one failed.  ``fn`` must be importable by name."""
+    raises if one failed, and ``TimeoutError`` (the ranks terminated) if
+    they have not all returned within ``SPAWN_TIMEOUT_S``.  ``fn`` must
+    be importable by name."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as d:
-        mp.spawn(_spawned, args=(fn, world, os.path.join(d, "store"),
-                                 backend, device, args),
-                 nprocs=world, join=True)
+        ctx = mp.spawn(_spawned, args=(fn, world, os.path.join(d, "store"),
+                                       backend, device, args),
+                       nprocs=world, join=False)
+        give_up = time.monotonic() + SPAWN_TIMEOUT_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() >= give_up:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.terminate()
+                for p in ctx.processes:
+                    p.join()
+                raise TimeoutError(
+                    f"spawn: {world} ranks of {fn.__name__} still running "
+                    f"after {SPAWN_TIMEOUT_S:.0f} s")

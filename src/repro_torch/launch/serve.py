@@ -58,9 +58,13 @@ experts, one "expert" all-reduce a step joins the per-slot predictions,
 and ``generate`` returns the whole batch on every rank.  The defaults (1,
 None) serve without a mesh; a ``(1, 1)`` mesh serves bitwise as they
 do.  Membership changes update the replicated ``(K,)`` routing mask on
-every rank and the slot only on the rank that holds it.  Continuous
-batching and the reference engine on an expert-sharded mesh raise
-``NotImplementedError`` (ROADMAP.md, A.8b).
+every rank and the slot only on the rank that holds it.  Every serving
+mode runs on the mesh: the reference engine (each rank its resident
+experts, one "expert" all-gather of their velocities a step) and the
+continuous and resilient schedulers (``repro_torch.serving``: every rank
+runs the same scheduler, agreeing each tick on what failed or expired;
+only rank 0 writes a journal, and ``restore`` rebuilds the scheduler on
+every rank from it).
 
 Command line (the reference CLI's plain, ``--coalesce`` and
 ``--continuous`` modes)::
@@ -71,6 +75,8 @@ Command line (the reference CLI's plain, ``--coalesce`` and
         --capacity 10 --journal-dir JOURNAL
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
         --ckpt-dir CKPTS --expert-shards 2 --coalesce [--backend gloo]
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --ckpt-dir CKPTS --data-shards 2 --continuous --journal-dir J
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when no GPU is present.  Only an explicit ``device="cpu"`` (CLI:
@@ -357,10 +363,6 @@ class ServingEngine:
                 f"the {k}-expert ensemble; expert placement would silently "
                 f"replicate"
             )
-        if self.engine == "reference" and self.n_expert_shards > 1:
-            raise NotImplementedError(
-                "the reference engine on an expert-sharded mesh is not "
-                "ported yet — ROADMAP.md, module queue A.8b")
         self.mesh = make_expert_mesh(self.n_expert_shards,
                                      self.n_data_shards, device=self.device,
                                      backend=self.dist_backend)

@@ -27,20 +27,39 @@ the sharded engine against the port's own unsharded engine:
      ensemble publishing ``ragged_apply_fn``) on both meshes == its
      unsharded grouped engine, no ragged forward ever handed zero pairs,
      and hot evict + hot add on an elastic ragged ``(N, 1)`` engine change
-     the latents and stay finite.
+     the latents and stay finite;
+ 10. continuous batching (``serving.ContinuousScheduler``): three
+     staggered requests (batch 1, 2, 1) into a rolling batch of 4, at
+     ``steps_per_tick`` 1 and 2, on both meshes == the unsharded rolling
+     run (bitwise on ``(N, 1)``), and on each mesh each request bitwise
+     that mesh's ``generate`` of it (the reference's rolling == lockstep
+     property; the toy's ops are row-independent);
+ 11. ``serving.ResilientScheduler`` with a journal (rank 0 writes it) on
+     both meshes, abandoned after 2 ticks and rebuilt on every rank by
+     ``ServingEngine.restore``: the continuation bitwise an uninterrupted
+     twin's;
+ 12. the elastic rolling batch (``capacity=K+N``) on both meshes == the
+     unsharded one, before and after evicting a routed expert;
+ 13. the reference engine (``engine='reference'``) on ``(N, 1)`` bitwise
+     the unsharded reference engine.
 
 Tolerance: ``max |Δ| ≤ 1e-5 · max |latent|`` (the reference's) except
 where an item says bitwise or otherwise.  ``--dit`` swaps the toy
 closed-form experts (``launch.faults.toy_ensemble``) for reduced DiT
-experts and skips items 4 and 6–8, as the reference does.  Rank 0 prints
-one JSON line with the reference's keys::
+experts and skips items 4, 6–8, 11 and 12 (the first four as the
+reference does), and holds item 10's lockstep comparison to the
+tolerance (the router's GEMMs sum by the batch's row count).  Rank 0
+prints one JSON line with the reference's keys and the new items'
+(``rolling_parity``, ``resilient_restore_parity``,
+``elastic_rolling_parity``, ``reference_engine_parity``)::
 
     python -m repro_torch.launch.sharded_parity --world 2 --device cpu
     python -m repro_torch.launch.sharded_parity --world 2 --device cuda \\
         --backend gloo
 
-``serve_checkpoints_rank`` is the rank function the tests spawn to serve
-a checkpoint directory on given meshes.
+``serve_checkpoints_rank`` and ``serve_rolling_rank`` are the rank
+functions the tests spawn to serve a checkpoint directory on given
+meshes, through ``generate`` and through the rolling schedulers.
 """
 
 from __future__ import annotations
@@ -70,6 +89,72 @@ QUANT_REL_TOL = 1e-4
 def _check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def _same(got, want, label: str) -> None:
+    _check(torch.equal(got.cpu(), want.cpu()), f"{label}: not bitwise")
+
+
+def rolling_run(engine, reqs, *, spt: int = 1) -> list:
+    """Serve ``reqs`` (dicts of ``seed``, ``text``, ``noise`` or None)
+    through a ``ContinuousScheduler`` of 4 rows, ``spt`` steps a tick,
+    one submitted a tick, then tick until idle; returns each request's
+    latents.  Every rank of a mesh calls it alike."""
+    from repro_torch.serving import ContinuousScheduler
+
+    sched = ContinuousScheduler(engine, max_resident=4, steps_per_tick=spt)
+    handles = []
+    for r in reqs:
+        handles.append(sched.submit(r["seed"], r["text"],
+                                    noise=r.get("noise")))
+        sched.step()
+    sched.run_until_idle()
+    return [h.result() for h in handles]
+
+
+def kill_and_restore(engine, reqs, journal: str, kill_at: int = 2,
+                     max_resident: int = 4):
+    """``reqs``, submitted at once, through a journaled
+    ``ResilientScheduler`` abandoned after ``kill_at`` ticks (no drain),
+    then through the scheduler ``engine.restore`` rebuilds from the
+    journal, and through an uninterrupted twin given the same traffic:
+    ``(restored, twin)`` latents, request by request."""
+    from repro_torch.serving import ResilientScheduler
+
+    def traffic(sched):
+        return [sched.submit(r["seed"], r["text"], noise=r.get("noise"))
+                for r in reqs]
+
+    dead = ResilientScheduler(engine, max_resident=max_resident,
+                              journal_dir=journal)
+    traffic(dead)
+    for _ in range(kill_at):
+        dead.step()
+    if dead.journal is not None:
+        dead.journal.close()
+    del dead                                   # the crash: no drain
+    twin = ResilientScheduler(engine, max_resident=max_resident)
+    handles = traffic(twin)
+    twin.run_until_idle()
+    twin = [h.result() for h in handles]
+    restored = engine.restore(journal)
+    got = {r.seq: r for b in restored._buckets.values()
+           for r in b.resident_requests()}
+    got.update({r.seq: r for r in restored._queue})
+    restored.run_until_idle()
+    if restored.journal is not None:
+        restored.journal.close()
+    return [got[s].result() for s in sorted(got)], twin
+
+
+def _requests(text: np.ndarray, sizes=(1, 2, 1), seed: int = 20) -> list:
+    """Staggered requests over the rows of ``text``: batch ``sizes``,
+    seeds ``seed + i``."""
+    out, lo = [], 0
+    for i, b in enumerate(sizes):
+        out.append(dict(seed=seed + i, text=text[lo:lo + b], noise=None))
+        lo += b
+    return out
 
 
 def _close(got, want, rel: float, label: str) -> None:
@@ -278,6 +363,62 @@ def _parity_rank(rank: int, world: int, args: dict, out: str) -> None:
            "hot-adding into a routed slot must change the ragged output")
     _check(bool(torch.isfinite(added).all()), "hot add: non-finite latents")
 
+    # 10: continuous batching on both meshes, and rolling == lockstep
+    reqs = _requests(text)
+    for spt in (1, 2):
+        want = rolling_run(base, reqs, spt=spt)
+        for e, d in meshes:
+            m_eng = engine(sampler, n_expert_shards=e, n_data_shards=d)
+            got = rolling_run(m_eng, reqs, spt=spt)
+            for i, (a, b) in enumerate(zip(got, want)):
+                label = f"rolling spt {spt} ({e}, {d}) request {i}"
+                if d == 1:
+                    _same(a, b, label)
+                else:
+                    _close(a, b, REL_TOL, label)
+                if spt == 1:
+                    lock = m_eng.generate(reqs[i]["seed"], reqs[i]["text"],
+                                          a.shape[0])
+                    if toy:
+                        _same(a, lock, f"{label} vs lockstep")
+                    else:
+                        _close(a, lock, REL_TOL, f"{label} vs lockstep")
+
+    if toy:
+        # 11: the resilient scheduler's journal, restored on every rank
+        for e, d in meshes:
+            journal = os.path.join(out, f"journal_{e}x{d}")
+            got, twin = kill_and_restore(
+                engine(sampler, n_expert_shards=e, n_data_shards=d), reqs,
+                journal)
+            _check(len(got) == len(reqs), f"restore ({e}, {d}): "
+                   f"{len(got)} requests back of {len(reqs)}")
+            for i, (a, b) in enumerate(zip(got, twin)):
+                _same(a, b, f"restore ({e}, {d}) request {i}")
+
+        # 12: the elastic rolling batch, before and after an eviction
+        cap = len(experts) + world
+        el_ref = engine(sampler, capacity=cap)
+        el_want = [rolling_run(el_ref, reqs)]
+        el_ref.evict_expert(3)
+        el_want.append(rolling_run(el_ref, reqs))
+        for e, d in meshes:
+            el = engine(sampler, capacity=cap, n_expert_shards=e,
+                        n_data_shards=d)
+            runs = [rolling_run(el, reqs)]
+            el.evict_expert(3)
+            runs.append(rolling_run(el, reqs))
+            for when, got, want in zip(("live", "evicted"), runs, el_want):
+                for i, (a, b) in enumerate(zip(got, want)):
+                    _close(a, b, REL_TOL,
+                           f"elastic rolling {when} ({e}, {d}) request {i}")
+
+    # 13: the reference engine on the expert split
+    ref_base = engine(sampler, engine="reference").generate(0, text, batch)
+    _same(engine(sampler, engine="reference", n_expert_shards=world,
+                 n_data_shards=1).generate(0, text, batch), ref_base,
+          f"reference engine ({world}, 1)")
+
     if rank == 0:
         with open(os.path.join(out, "verdict.json"), "w") as f:
             json.dump({
@@ -291,6 +432,10 @@ def _parity_rank(rank: int, world: int, args: dict, out: str) -> None:
                 "ragged_parity": "ok",
                 "coalesced_requests": esh.stats["batched_requests"],
                 "merged_batches": esh.stats["merged_batches"],
+                "rolling_parity": "ok",
+                "resilient_restore_parity": "ok" if toy else "skipped",
+                "elastic_rolling_parity": "ok" if toy else "skipped",
+                "reference_engine_parity": "ok",
             }, f)
 
 
@@ -380,34 +525,177 @@ def serve_checkpoints_rank(rank: int, world: int, jobs: list) -> None:
         _serve_job(rank, job)
 
 
-def _serve_job(rank: int, job: dict) -> None:
+def _job_engine(job: dict, e: int, d: int, **kw) -> ServingEngine:
+    """The job's engine on the ``(e, d)`` mesh (``kw``: more engine
+    fields)."""
     dev = torch.device(job["device"])
+    sampler = SamplerConfig(**job["sampler"])
+    kw = dict(n_expert_shards=e, n_data_shards=d, track_padding=True, **kw)
+    if job["kind"] == "toy":
+        experts, params, router_fn, latent = _toy_from_dir(
+            job["ckpt_dir"], job["k"])
+        return ServingEngine(experts=experts, expert_params=params,
+                             router_fn=router_fn, latent_shape=latent,
+                             sampler=sampler, device=dev, **kw)
+    cfg = dit_b2().reduced(latent_size=8)
+    eng = ServingEngine.from_checkpoint_dir(
+        job["ckpt_dir"], dit_cfg=cfg,
+        router_cfg=router_b2(num_clusters=job["k"]).reduced(latent_size=8),
+        sampler=sampler, device=dev, **kw)
+    if eng.experts[0].ragged_apply_fn is not None:
+        eng.experts = _guard_pairs(eng.experts)
+    return eng
+
+
+def _serve_job(rank: int, job: dict) -> None:
     noise = np.load(job["noise"])
     text = np.load(job["text"]) if job.get("text") else None
-    sampler = SamplerConfig(**job["sampler"])
     for e, d in job["meshes"]:
-        kw = dict(n_expert_shards=e, n_data_shards=d, track_padding=True)
-        if job["kind"] == "toy":
-            experts, params, router_fn, latent = _toy_from_dir(
-                job["ckpt_dir"], job["k"])
-            eng = ServingEngine(experts=experts, expert_params=params,
-                                router_fn=router_fn, latent_shape=latent,
-                                sampler=sampler, device=dev, **kw)
-        else:
-            cfg = dit_b2().reduced(latent_size=8)
-            eng = ServingEngine.from_checkpoint_dir(
-                job["ckpt_dir"], dit_cfg=cfg,
-                router_cfg=router_b2(num_clusters=job["k"]).reduced(
-                    latent_size=8),
-                sampler=sampler, device=dev, **kw)
-            if eng.experts[0].ragged_apply_fn is not None:
-                eng.experts = _guard_pairs(eng.experts)
+        eng = _job_engine(job, e, d)
         out = eng.generate(0, text, noise.shape[0], noise=noise)
         np.savez(os.path.join(job["out"],
                               f"{job['label']}_{e}x{d}_rank{rank}.npz"),
                  out=out.cpu().numpy(),
                  rows=eng.stats["padded_model_rows"],
                  nbytes=eng.param_store.nbytes())
+
+
+def job_requests(job: dict) -> list:
+    """A rolling job's requests, seeds 0, 1, …: the ``noise_<i>`` and
+    ``text_<i>`` arrays of the ``job["requests"]`` ``.npz``."""
+    with np.load(job["requests"]) as z:
+        n = sum(name.startswith("noise_") for name in z.files)
+        return [dict(seed=i, text=z[f"text_{i}"], noise=z[f"noise_{i}"])
+                for i in range(n)]
+
+
+def _chaos_run(job: dict, e: int, d: int, rank: int, fault: str) -> dict:
+    """The job's requests through a ``launch.chaos.ChaosScheduler`` whose
+    fault fires on one rank only: ``"crash"`` — rank 0's tick 2 raises
+    (one re-queue allowed); ``"stall"`` — rank 1's tick 3 burns twice the
+    tick budget of its fake clock (no re-queue allowed, so FAILED).  The
+    other ranks run a plain ``ResilientScheduler``.  Returns each
+    request's state, re-queues and latents (zeros where not DONE) and the
+    engine's counters."""
+    from repro_torch.launch.chaos import ChaosScheduler, FakeClock
+    from repro_torch.serving import ResiliencePolicy, ResilientScheduler
+
+    crash = fault == "crash"
+    eng = _job_engine(job, e, d, max_request_requeues=1 if crash else 0)
+    fires = rank == (0 if crash else 1)
+    kw = dict(max_resident=4, clock=FakeClock(),
+              policy=ResiliencePolicy(tick_budget_s=0.25))
+    if fires:
+        sched = ChaosScheduler(eng, fail_ticks=(2,) if crash else (),
+                               slow_ticks=() if crash else (3,), **kw)
+    else:
+        sched = ResilientScheduler(eng, **kw)
+    handles = []
+    for r in job_requests(job):
+        handles.append(sched.submit(r["seed"], r["text"], noise=r["noise"]))
+        sched.step()
+    sched.run_until_idle()
+    return dict(
+        states=[h.state for h in handles],
+        requeues=[h.requeues for h in handles],
+        out=[h.result().cpu().numpy() if h.state == "DONE"
+             else np.zeros((0,)) for h in handles],
+        stats={k: eng.stats[k] for k in ("request_requeues",
+                                         "failed_requests",
+                                         "scheduler_steps")},
+        ticks=sched.step_count)
+
+
+def serve_rolling_rank(rank: int, world: int, jobs: list) -> None:
+    """For each job, serve its requests (``job_requests``) through the
+    rolling schedulers on each mesh of ``job["meshes"]`` and write
+    ``<out>/<label>_<e>x<d>_rank<r>.npz`` (request ``i``'s latents under
+    ``<run>_<i>``) and ``….json`` (the chaos runs' records, this rank's
+    host agreements).  ``job["runs"]`` picks the runs:
+
+    * ``rolling``: ``steps_per_tick`` 1 (also this rank's
+      ``padded_model_rows``, ``rows``) and 2;
+    * ``lockstep``: the same mesh's ``generate`` of each request;
+    * ``restore``: ``kill_and_restore`` (``restore_<i>``, ``twin_<i>``);
+    * ``elastic``: the rolling batch at ``capacity=K+2``, then with slot
+      3 evicted (``elastic_live_<i>``, ``elastic_evicted_<i>``);
+    * ``reference``: the reference engine's ``generate`` of the whole
+      batch (``reference``; on ``(E, 1)`` meshes only), and for the toy
+      ensemble ``time_map='snr_match'``'s (``snr_match``);
+    * ``chaos``: ``_chaos_run`` for ``crash`` and ``stall``.
+
+    Otherwise a job is ``serve_checkpoints_rank``'s (whose ``noise`` and
+    ``text`` the reference run serves), plus ``requests``."""
+    torch.set_num_threads(1)
+    for job in jobs:
+        reqs = job_requests(job)
+        runs = job["runs"]
+        for e, d in job["meshes"]:
+            arrays, record = {}, {}
+
+            def put(name, outs):
+                for i, o in enumerate(outs):
+                    arrays[f"{name}_{i}"] = o.cpu().numpy()
+
+            eng = _job_engine(job, e, d)
+            if "rolling" in runs:
+                put("rolling_spt1", rolling_run(eng, reqs))
+                arrays["rows"] = np.int64(eng.stats["padded_model_rows"])
+                put("rolling_spt2", rolling_run(eng, reqs, spt=2))
+            if "lockstep" in runs:
+                put("lockstep", [eng.generate(r["seed"], r["text"],
+                                              r["text"].shape[0],
+                                              noise=r["noise"])
+                                 for r in reqs])
+            if "restore" in runs:
+                got, twin = kill_and_restore(
+                    eng, reqs, os.path.join(job["out"],
+                                            f"journal_{job['label']}_{e}x"
+                                            f"{d}"))
+                put("restore", got)
+                put("twin", twin)
+            if "elastic" in runs:
+                el = _job_engine(job, e, d, capacity=job["k"] + 2)
+                put("elastic_live", rolling_run(el, reqs))
+                el.evict_expert(3)
+                put("elastic_evicted", rolling_run(el, reqs))
+            if "reference" in runs and d == 1:
+                noise, text = np.load(job["noise"]), np.load(job["text"])
+                ref = _job_engine(job, e, d, engine="reference")
+                arrays["reference"] = ref.generate(
+                    0, text, noise.shape[0], noise=noise).cpu().numpy()
+                if job["kind"] == "toy":      # snr_match resolves to it
+                    snr = _job_engine(dict(job, sampler=dict(
+                        job["sampler"], time_map="snr_match")), e, d)
+                    arrays["snr_match"] = snr.generate(
+                        0, text, noise.shape[0], noise=noise).cpu().numpy()
+            if "chaos" in runs:
+                for fault in ("crash", "stall"):
+                    rec = _chaos_run(job, e, d, rank, fault)
+                    for i, o in enumerate(rec.pop("out")):
+                        arrays[f"chaos_{fault}_{i}"] = o
+                    record[fault] = rec
+            record["agreements"] = eng.mesh.counts
+            stem = os.path.join(job["out"],
+                                f"{job['label']}_{e}x{d}_rank{rank}")
+            np.savez(stem + ".npz", **arrays)
+            with open(stem + ".json", "w") as f:
+                json.dump(record, f)
+
+
+def cli_rank(rank: int, world: int, runs: list, out: str) -> None:
+    """The serving CLI (``launch.serve.main``) on this rank for each
+    ``(name, argv)`` of ``runs``, its standard output written to
+    ``<out>/<name>_rank<r>.txt``."""
+    import contextlib
+
+    from repro_torch.launch import serve
+
+    torch.set_num_threads(1)
+    for name, argv in runs:
+        with open(os.path.join(out, f"{name}_rank{rank}.txt"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            serve.main(argv)
 
 
 def faults_rank(rank: int, world: int, argv: list, out: str) -> None:

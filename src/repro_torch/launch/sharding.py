@@ -5,7 +5,11 @@ slice.
 A spec is a tuple with one entry per dim of a tensor: the mesh axis (or
 tuple of axes) that dim splits over, or ``None`` where it is replicated —
 the content of the reference's ``PartitionSpec``.  The functions read
-only a mesh's ``shape`` (a dict of axis sizes) and ``axis_names``.
+only a mesh's ``shape`` (a dict of axis sizes) and ``axis_names``.  A
+``NamedSharding`` pairs a spec with its mesh, as the reference's does
+(``to_shardings``, ``expert_param_shardings``,
+``rolling_state_shardings``); the port places tensors by cutting them
+(``shard_store``, the rolling batch's rows), not through DTensor.
 
 The LM half of the reference module (``param_specs``, ``batch_specs``,
 ``cache_specs`` and the FSDP rules) is not ported here.
@@ -22,6 +26,14 @@ from repro_torch.core.param_store import DenseStore, QuantizedStore
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models.dit import stacked_param_logical_axes
 from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: what the reference's ``NamedSharding`` holds."""
+
+    mesh: Any
+    spec: tuple
 
 
 def _axis_size(mesh, axis) -> int:
@@ -124,6 +136,36 @@ def expert_param_specs(stacked: Any, mesh, *, logical_axes: Any = None
             "logical_axes does not match the stacked pytree") from e
 
 
+def _map_specs(fn, specs):
+    """``fn(spec)`` over a tree of specs (dicts, lists, a store's fields);
+    a tuple is one spec, ``None`` (a store without a mask) stays."""
+    if isinstance(specs, (DenseStore, QuantizedStore)):
+        names = ("stacked",) if isinstance(specs, DenseStore) \
+            else ("qvals", "scales")
+        return dataclasses.replace(specs, valid=_map_specs(fn, specs.valid),
+                                   **{n: _map_specs(fn, getattr(specs, n))
+                                      for n in names})
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_specs(fn, v) for v in specs]
+    return None if specs is None else fn(specs)
+
+
+def to_shardings(mesh, specs: Any) -> Any:
+    """Every spec of a tree (see ``_map_specs``) as a ``NamedSharding``
+    on ``mesh``."""
+    return _map_specs(lambda s: NamedSharding(mesh, tuple(s)), specs)
+
+
+def expert_param_shardings(stacked: Any, mesh, *, logical_axes: Any = None
+                           ) -> Any:
+    """``expert_param_specs`` as ``NamedSharding``s: where a rank's
+    resident slice of a store comes from (``shard_store``)."""
+    return to_shardings(
+        mesh, expert_param_specs(stacked, mesh, logical_axes=logical_axes))
+
+
 def dispatch_plan_sharding(mesh) -> tuple:
     """The spec of every ``core.dispatch.DispatchPlan`` tensor: replicated
     (``()``).  Every rank needs the whole plan — the routed executors
@@ -141,6 +183,18 @@ def serve_batch_spec(mesh, shape: tuple) -> tuple:
         return (None,) * len(shape)
     return sanitize_spec(("data",) + (None,) * (len(shape) - 1), shape,
                          mesh)
+
+
+def rolling_state_shardings(mesh, shape: tuple
+                            ) -> tuple[NamedSharding, NamedSharding]:
+    """The placements of a rolling batch's ``(B_cap, ...)`` buffers
+    (``serving.batch.RollingBatch``): the latent (and its conditioning
+    rows) like any request batch, its leading dim over "data"
+    (``serve_batch_spec``); the per-row state — ``t_idx``, ``slot_idx``,
+    ``slot_w`` and the host mirror — replicated, as the plan it feeds.
+    Returns ``(latent, row_state)``."""
+    return (NamedSharding(mesh, serve_batch_spec(mesh, shape)),
+            NamedSharding(mesh, ()))
 
 
 def dit_batch_specs(mesh, batch: dict) -> dict:
@@ -174,10 +228,11 @@ def shard_store(store, mesh, *, device=None):
     mask stays whole beside its cut one (``routing_valid``), the mask
     routing reads.  A ``K`` the "expert" axis does not divide replicates:
     the slice is the whole store."""
-    specs = expert_param_specs(store, mesh,
-                               logical_axes=store.logical_axes())
+    placed = expert_param_shardings(store, mesh,
+                                    logical_axes=store.logical_axes())
     index = {"expert": mesh.expert_index, "data": mesh.data_index}
-    out = _map_store(_cut(mesh, index, device), store, specs)
+    cut = _cut(mesh, index, device)
+    out = _map_store(lambda x, sh: cut(x, sh.spec), store, placed)
     lo, _ = mesh.expert_range(store.num_experts)
     whole = store.routing_mask()
     if whole is not None:

@@ -20,12 +20,22 @@ Row lifecycle (encoded in ``t_idx``):
 A request occupies ``batch_size`` rows in sample order (not necessarily
 adjacent); resolution gathers those rows out, so the result is what a
 ``generate`` call with the same seed returns.
+
+On an ``("expert", "data")`` mesh (``launch.mesh``) the buffers are
+placed as ``launch.sharding.rolling_state_shardings`` says: the latent
+and conditioning buffers hold this rank's rows ``[lo, hi)`` of the
+"data" split (every row where "data" does not divide the capacity), while
+``t_idx``, ``slot_idx``, ``slot_w``, the host mirror and the row map are
+whole and the same on every rank.  Resolution and snapshots gather the
+latent over "data" (``whole_x``), so every rank sees whole requests.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.launch.sharding import rolling_state_shardings
 
 
 class RollingBatch:
@@ -34,7 +44,8 @@ class RollingBatch:
     ``membership`` is the admission-time elastic snapshot
     (``ServingEngine._membership``) every request of the bucket shares
     (the bucket key holds the epoch), or ``None`` on a fixed-membership
-    engine.
+    engine.  ``mesh`` (a ``launch.mesh.ExpertMesh``) places the buffers
+    (see the module docstring).
     """
 
     def __init__(
@@ -47,6 +58,7 @@ class RollingBatch:
         device: torch.device,
         text_tail: tuple[int, ...] | None = None,
         membership: tuple | None = None,
+        mesh=None,
     ) -> None:
         self.capacity = capacity
         self.latent_shape = tuple(latent_shape)
@@ -54,7 +66,17 @@ class RollingBatch:
         self.device = device
         self.text_tail = tuple(text_tail) if text_tail is not None else None
         self.membership = membership
-        self.x = torch.zeros((capacity,) + self.latent_shape,
+        self.mesh = mesh
+        #: this rank's rows of the latent and conditioning buffers
+        self.lo, self.hi = 0, capacity
+        if mesh is not None:
+            latent, _ = rolling_state_shardings(
+                mesh, (capacity,) + self.latent_shape)
+            if latent.spec[0] is not None:
+                self.lo, self.hi = mesh.data_range(capacity)
+        self.split = (self.lo, self.hi) != (0, capacity)
+        local = self.hi - self.lo
+        self.x = torch.zeros((local,) + self.latent_shape,
                              dtype=torch.float32, device=device)
         self.t_idx = torch.full((capacity,), num_steps, dtype=torch.int64,
                                 device=device)
@@ -67,7 +89,7 @@ class RollingBatch:
         self.slot_w = torch.zeros((capacity, k_slots), dtype=torch.float32,
                                   device=device)
         self.text = (
-            torch.zeros((capacity,) + self.text_tail, dtype=torch.float32,
+            torch.zeros((local,) + self.text_tail, dtype=torch.float32,
                         device=device)
             if self.text_tail is not None else None
         )
@@ -99,6 +121,21 @@ class RollingBatch:
 
     # -- admission / release ------------------------------------------------
 
+    def _local(self, rows: list[int]) -> tuple[list[int], torch.Tensor]:
+        """Which of a request's ``rows`` this rank holds: their positions
+        in the request, and their rows of the local buffers."""
+        pick = [j for j, r in enumerate(rows) if self.lo <= r < self.hi]
+        return pick, torch.tensor([rows[j] - self.lo for j in pick],
+                                  dtype=torch.int64, device=self.device)
+
+    def _put_rows(self, buf: torch.Tensor, rows: list[int], val) -> None:
+        """Write a request's ``(batch_size, ...)`` ``val`` into the rows of
+        a local buffer that this rank holds."""
+        pick, local = self._local(rows)
+        if pick:
+            buf.index_copy_(0, local, val if len(pick) == len(rows)
+                            else val[pick])
+
     def _place(self, req) -> tuple[list[int], torch.Tensor]:
         free = [i for i, r in enumerate(self.rows) if r is None]
         if len(free) < req.batch_size:
@@ -108,7 +145,8 @@ class RollingBatch:
             )
         rows = free[: req.batch_size]
         if self.text is not None:
-            self.text[rows] = req.text_emb.to(self.device, torch.float32)
+            self._put_rows(self.text, rows,
+                           req.text_emb.to(self.device, torch.float32))
         for i in rows:
             self.rows[i] = req
         self._rows_of[req.seq] = rows
@@ -121,7 +159,7 @@ class RollingBatch:
         """Place ``req`` into the lowest free rows with its own
         ``(batch_size, *latent)`` initial ``noise``; returns the rows."""
         rows, idx = self._place(req)
-        self.x.index_copy_(0, idx, noise)
+        self._put_rows(self.x, rows, noise)
         self.t_idx.index_fill_(0, idx, 0)
         self.slot_idx.index_fill_(0, idx, 0)
         self.slot_w.index_fill_(0, idx, 0.0)
@@ -140,21 +178,31 @@ class RollingBatch:
             buf.index_copy_(0, idx, torch.as_tensor(
                 np.asarray(val)).to(self.device, dtype))
 
-        put(self.x, x, torch.float32)
+        self._put_rows(self.x, rows, torch.as_tensor(np.asarray(x)).to(
+            self.device, torch.float32))
         put(self.t_idx, t_np, torch.int64)
         put(self.slot_idx, slot_idx, torch.int64)
         put(self.slot_w, slot_w, torch.float32)
         self.t_host[rows] = t_np
         return rows
 
-    def row_state(self, seq: int) -> dict:
+    def whole_x(self) -> torch.Tensor:
+        """The whole ``(capacity, *latent)`` latent: the buffer itself, or
+        on a "data" split its rows all-gathered over "data" (a collective:
+        every rank calls it at the same point)."""
+        return self.mesh.data_gather(self.x) if self.split else self.x
+
+    def row_state(self, seq: int, whole: torch.Tensor | None = None
+                  ) -> dict:
         """Host copy of one resident request's row state (the journal's
         snapshot payload): a device→host read, paid at the snapshot
-        cadence only; ``t`` comes from the host mirror."""
+        cadence only; ``t`` comes from the host mirror.  ``whole`` is
+        ``whole_x()`` where the caller already gathered it."""
         rows = self._rows_of[seq]
         idx = torch.tensor(rows, dtype=torch.int64, device=self.device)
+        whole = self.whole_x() if whole is None else whole
         return {
-            "x": self.x[idx].cpu().numpy(),
+            "x": whole[idx].cpu().numpy(),
             "t": self.t_host[rows].copy(),
             "slot_idx": self.slot_idx[idx].cpu().numpy(),
             "slot_w": self.slot_w[idx].cpu().numpy(),
@@ -204,12 +252,14 @@ class RollingBatch:
                 if all(self.t_host[i] >= self.num_steps
                        for i in self._rows_of[seq])]
 
-    def resolve(self, req) -> torch.Tensor:
+    def resolve(self, req, whole: torch.Tensor | None = None
+                ) -> torch.Tensor:
         """The finished request's latents (its rows in sample order, a
-        copy), its rows freed."""
+        copy), its rows freed; ``whole`` as in ``row_state``."""
         rows = self._rows_of[req.seq]
-        out = self.x[torch.tensor(rows, dtype=torch.int64,
-                                  device=self.device)]
+        whole = self.whole_x() if whole is None else whole
+        out = whole[torch.tensor(rows, dtype=torch.int64,
+                                 device=self.device)]
         self.release(req, finished=True)
         return out
 

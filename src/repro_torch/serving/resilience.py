@@ -42,6 +42,18 @@ unreliable contributors, hosts that crash):
 Everything times through the scheduler's injectable ``clock``, so
 deadlines and the watchdog are deterministic under a fake clock; backoff
 jitter and canary seeds come from ``ResiliencePolicy.seed``.
+
+On an ``("expert", "data")`` mesh each rank runs its own scheduler, and
+what a rank's clock decides is agreed before it acts: the deadline sweep
+takes one host agreement a tick (a request expired on any rank expires on
+every rank), a slow or failed bucket tick fails the bucket on every rank
+through the base scheduler's tick agreement, and a failed bucket's
+faults are charged to rank 0's view of its routed slots.  The
+resolution gate, the breaker and the probes read values that are the
+same on every rank (the gathered latents, the replicated router), so
+they decide alike without one.  Only rank 0 writes the journal; the
+snapshot's gathers run on every rank; ``restore`` rebuilds the same
+scheduler on every rank from that one journal.
 """
 
 from __future__ import annotations
@@ -236,16 +248,22 @@ class RequestJournal:
             np.savez(f, **arrays)
         os.replace(tmp, os.path.join(self.path, name))
 
-    def record_submit(self, req, tick: int, text_emb) -> None:
-        payload = {"batch_size": np.int64(req.batch_size)}
-        if req.noise is not None:
-            payload["noise"] = np.asarray(torch.as_tensor(req.noise).cpu())
-        elif isinstance(req.seed, (int, np.integer)):
-            payload["seed"] = np.int64(req.seed)
-        else:
+    @staticmethod
+    def check_replayable(req) -> None:
+        """Raise unless ``req`` can be replayed from the journal."""
+        if req.noise is None and not isinstance(req.seed,
+                                                (int, np.integer)):
             raise ValueError(
                 "a journaled request needs an int seed or noise= (a "
                 "torch.Generator's state cannot be replayed)")
+
+    def record_submit(self, req, tick: int, text_emb) -> None:
+        self.check_replayable(req)
+        payload = {"batch_size": np.int64(req.batch_size)}
+        if req.noise is not None:
+            payload["noise"] = np.asarray(torch.as_tensor(req.noise).cpu())
+        else:
+            payload["seed"] = np.int64(req.seed)
         if text_emb is not None:
             payload["text"] = np.asarray(torch.as_tensor(text_emb).cpu())
         if req.deadline_s is not None:
@@ -322,7 +340,9 @@ class ResilientScheduler(ContinuousScheduler):
     resolved request is journaled, and resolved latents pass a host
     finiteness gate that charges escapes to the routed expert slots.  All
     policy state is host-side; on the fault-free path the step and its
-    outputs are the base scheduler's.
+    outputs are the base scheduler's.  On a mesh only rank 0 holds the
+    ``journal`` (``None`` on the others; ``journaled`` says whether the
+    scheduler keeps one).
     """
 
     def __init__(self, engine, *, policy: ResiliencePolicy | None = None,
@@ -331,8 +351,10 @@ class ResilientScheduler(ContinuousScheduler):
         self.policy = policy if policy is not None else ResiliencePolicy()
         self.rng = np.random.default_rng(self.policy.seed)
         self.breaker = CircuitBreaker(self.policy, self.rng)
+        self.journaled = journal_dir is not None
+        lead = engine.mesh is None or engine.mesh.rank == 0
         self.journal = (RequestJournal(journal_dir)
-                        if journal_dir is not None else None)
+                        if self.journaled and lead else None)
         #: failed-bucket signature -> (retry-at tick, attempt count)
         self._backoff: dict[tuple, tuple[int, int]] = {}
         self._probe_count = 0
@@ -356,6 +378,8 @@ class ResilientScheduler(ContinuousScheduler):
         req.submit_t = self._timings[req.seq].submit_t
         if self.journal is not None:
             self.journal.record_submit(req, self.step_count, text_emb)
+        elif self.journaled:
+            RequestJournal.check_replayable(req)     # as rank 0 does
         return req
 
     # -- tick ---------------------------------------------------------------
@@ -372,9 +396,10 @@ class ResilientScheduler(ContinuousScheduler):
                 resolved=resolved, resident=self.num_resident,
                 queued=len(self._queue),
             )
-            if (self.step_count % max(1, self.policy.snapshot_every) == 0
-                    and (self.num_resident or self._queue)):
-                self._write_snapshot()
+        if self.journaled and (
+                self.step_count % max(1, self.policy.snapshot_every) == 0
+                and (self.num_resident or self._queue)):
+            self._write_snapshot()
         return resolved
 
     # -- deadlines ----------------------------------------------------------
@@ -394,20 +419,27 @@ class ResilientScheduler(ContinuousScheduler):
     def _expire_deadlines(self) -> None:
         """Tick-boundary deadline sweep over queued and resident requests
         (host bookkeeping; an expired resident's rows go back to the
-        sentinel)."""
+        sentinel).  On a mesh the ranks' verdicts are agreed first: a
+        request expired on any rank's clock expires on every rank."""
         now = self.clock()
-        expired_q = [r for r in self._queue if self._expired(r, now)]
+        resident = [(b, r) for b in self._buckets.values()
+                    for r in b.resident_requests()]
+        flags = [self._expired(r, now) for r in self._queue] + \
+            [self._expired(r, now) for _, r in resident]
+        if self.engine.mesh is not None:
+            flags = self.engine.mesh.agree(flags)
+        nq = len(self._queue)
+        expired_q = [r for r, f in zip(self._queue, flags[:nq]) if f]
         if expired_q:
             # identity filter: the dataclass __eq__ would compare tensors
             dead = {id(r) for r in expired_q}
             self._queue = [r for r in self._queue if id(r) not in dead]
             for req in expired_q:
                 self._deadline(req)
-        for bucket in self._buckets.values():
-            for req in bucket.resident_requests():
-                if self._expired(req, now):
-                    bucket.release(req)
-                    self._deadline(req)
+        for (bucket, req), f in zip(resident, flags[nq:]):
+            if f:
+                bucket.release(req)
+                self._deadline(req)
 
     def _deadline(self, req) -> None:
         tm = self._timings.pop(req.seq, None)
@@ -469,17 +501,23 @@ class ResilientScheduler(ContinuousScheduler):
     def _attribute_dispatch_fault(self, bucket: RollingBatch) -> None:
         """Charge a bucket failure to the slots its in-flight rows last
         routed through.  Rows that never advanced carry no routing yet
-        (zeroed slot buffers) and are skipped, not charged to slot 0."""
+        (zeroed slot buffers) and are skipped, not charged to slot 0.  On
+        a mesh every rank charges rank 0's slots (a tick that failed on
+        one rank after its last agreement has advanced on the others)."""
         rows = [i for i, r in enumerate(bucket.rows)
                 if r is not None
                 and 0 < int(bucket.t_host[i]) < bucket.num_steps]
-        if not rows:
+        slots = []
+        if rows:
+            # a device read, on the fault path only
+            si = bucket.slot_idx[rows].cpu()
+            slots = sorted({int(s) for s in si.reshape(-1)})
+        if self.engine.mesh is not None:
+            slots = self.engine.mesh.broadcast_object(slots)
+        if not slots:
             return
-        # a device read, on the fault path only
-        si = bucket.slot_idx[rows].cpu()
-        tripped = self.breaker.record_fault(
-            sorted({int(s) for s in si.reshape(-1)}),
-            self.policy.dispatch_fault)
+        tripped = self.breaker.record_fault(slots,
+                                            self.policy.dispatch_fault)
         self._trip(tripped)
 
     # -- admit / resolve hooks ----------------------------------------------
@@ -516,7 +554,7 @@ class ResilientScheduler(ContinuousScheduler):
         membership = bucket.membership
         store = membership[1] if membership is not None else eng.param_store
         cmap = membership[3] if membership is not None else None
-        valid = getattr(store, "valid", None)
+        valid = store.routing_mask()
         cfg = eng.sampler
         noise = eng._noise(req.seed, req.batch_size, req.noise)
         t0 = _time_grid(cfg.num_steps)[0].to(eng.device).expand(
@@ -609,8 +647,13 @@ class ResilientScheduler(ContinuousScheduler):
         eng = self.engine
         self._probe_count += 1
         store = eng.param_store
-        onehot = torch.zeros((store.num_experts,), dtype=torch.bool)
+        onehot = torch.zeros((store.num_experts,), dtype=torch.bool,
+                             device=eng.device)
         onehot[slot] = True
+        lo = store.first_expert
+        probe = store.with_valid(onehot[lo:lo + store.num_resident])
+        if store.routing_valid is not None:        # a resident slice
+            probe = dataclasses.replace(probe, routing_valid=onehot)
         gen = torch.Generator(device=eng.device)
         gen.manual_seed(self.policy.seed * 1_000_003 + self._probe_count)
         try:
@@ -618,9 +661,9 @@ class ResilientScheduler(ContinuousScheduler):
                 eng.experts, eng.expert_params, eng.router_fn,
                 (1,) + tuple(eng.latent_shape), generator=gen,
                 config=eng.sampler, engine=eng.engine,
-                stacked_params=store.with_valid(onehot),
+                stacked_params=probe,
                 coeff_tables=eng._coeff_tables,
-                cluster_map=eng._cluster_map)
+                cluster_map=eng._cluster_map, mesh=eng.mesh)
             return bool(torch.isfinite(out).all())
         except Exception:            # noqa: BLE001 — a crashing probe fails
             return False
@@ -628,12 +671,21 @@ class ResilientScheduler(ContinuousScheduler):
     # -- journal snapshot / restore -----------------------------------------
 
     def _write_snapshot(self) -> None:
+        """Every resident request's row state and the scheduler's meta to
+        the journal.  On a mesh every rank runs the gathers (the latent of
+        a bucket split over "data") and rank 0 writes."""
         eng = self.engine
+        wholes = [(sig, bucket, bucket.whole_x())
+                  for sig, bucket in self._buckets.items()
+                  if bucket.num_resident]
+        if self.journal is None:
+            eng.stats["journal_snapshots"] += 1
+            return
         arrays: dict = {}
         resident_meta = []
-        for sig, bucket in self._buckets.items():
+        for sig, bucket, whole in wholes:
             for req in bucket.resident_requests():
-                st = bucket.row_state(req.seq)
+                st = bucket.row_state(req.seq, whole)
                 arrays[f"r{req.seq}_x"] = st["x"]
                 arrays[f"r{req.seq}_t"] = st["t"]
                 arrays[f"r{req.seq}_si"] = st["slot_idx"]
@@ -696,6 +748,9 @@ class ResilientScheduler(ContinuousScheduler):
             submits = {e["seq"]: e for e in events if e["ev"] == "submit"}
         finally:
             reader.close()
+        if engine.mesh is not None:
+            # every rank has read the journal before rank 0 appends to it
+            engine.mesh.barrier()
 
         arrays, meta = snap if snap is not None else ({}, None)
         if meta is not None and meta.get("live_mask") is not None:

@@ -33,6 +33,20 @@ and finished rows are sliced out and resolved at once.
 
 A tick reads nothing from the device to schedule: completion and the
 router-skip decision run off each bucket's host mirror of ``t_idx``.
+
+On an ``("expert", "data")`` mesh (the engine's ``mesh``) every rank runs
+its own scheduler over the same submissions, and every host decision —
+admission order, bucket creation and removal, completion, failure and
+re-queue — is the same on every rank and issues its collectives in the
+same order: decisions depend on the submit order, the seeds and the tick
+count, never on a rank's ``clock`` (which feeds the latency metrics
+only).  Each bucket tick steps the rank's "data" rows on its resident
+experts (``sample_ensemble_step(mesh=)``, which agrees with its peers
+before each step's joins); a rank whose tick raised makes the agreement
+it did not reach, so no peer waits in a join; and one host agreement a
+tick (``ExpertMesh.agree``) makes a bucket that failed on any rank fail
+on every rank.  Resolution gathers a request's rows over "data", so
+``result()`` is the whole request, bitwise the same on every rank.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from __future__ import annotations
 import time
 
 from repro_torch.core.sampling import sample_ensemble_step
+from repro_torch.launch.mesh import PeerFailure
 from repro_torch.serving.batch import RollingBatch, advanced
 from repro_torch.serving.metrics import LatencyRecorder, RequestTiming
 
@@ -98,11 +113,6 @@ class ContinuousScheduler:
                 "continuous batching needs a homogeneous ensemble of "
                 ">= 2 experts (stacked param store)"
             )
-        if getattr(engine, "mesh", None) is not None:
-            raise NotImplementedError(
-                "continuous batching on an expert/data mesh (the rolling "
-                "state's sharding) is not ported yet — ROADMAP.md, module "
-                "queue A.8b")
         self.engine = engine
         self.max_resident = max_resident
         self.max_queue_depth = max_queue_depth
@@ -168,13 +178,27 @@ class ContinuousScheduler:
         steps, resolve finished requests.  Returns the number resolved."""
         self.step_count += 1
         self._admit()
+        ticked, failed = [], {}
         for sig, bucket in list(self._buckets.items()):
             if bucket.num_resident == 0:
                 continue
+            ticked.append(sig)
             try:
                 self._advance(bucket)
             except Exception as e:          # noqa: BLE001 — isolate bucket
-                self._fail_bucket(sig, bucket, e)
+                failed[sig] = e
+        mesh = self.engine.mesh
+        if mesh is not None and ticked:
+            # the tick's agreement: a bucket that failed anywhere fails
+            # everywhere
+            for sig, bad in zip(ticked, mesh.agree(
+                    [sig in failed for sig in ticked])):
+                if bad and sig not in failed:
+                    failed[sig] = PeerFailure(
+                        "the bucket's tick failed on another rank")
+        for sig in ticked:
+            if sig in failed:
+                self._fail_bucket(sig, self._buckets[sig], failed[sig])
         resolved = self._collect()
         self._gc_buckets()
         self.engine.stats.update(self.metrics.snapshot())
@@ -305,17 +329,32 @@ class ContinuousScheduler:
             device=self.engine.device,
             text_tail=tail if has_text else None,
             membership=req._membership,
+            mesh=self.engine.mesh,
         )
 
     def _advance(self, bucket: RollingBatch) -> None:
         eng = self.engine
-        fn = self._get_rolling_step(bucket.text is not None,
-                                    bucket.text_tail)
-        if eng.elastic:
-            eng._note_degraded(bucket.membership, steps=self.steps_per_tick)
-        bucket.store_state(*fn(bucket.x, bucket.t_idx, bucket.slot_idx,
-                               bucket.slot_w, bucket.t_host, bucket.text,
-                               bucket.membership))
+        mesh = eng.mesh
+        made = mesh.counts["step_agreements"] if mesh is not None else 0
+        try:
+            fn = self._get_rolling_step(bucket.text is not None,
+                                        bucket.text_tail)
+            if eng.elastic:
+                eng._note_degraded(bucket.membership,
+                                   steps=self.steps_per_tick)
+            bucket.store_state(*fn(bucket.x, bucket.t_idx, bucket.slot_idx,
+                                   bucket.slot_w, bucket.t_host, bucket.text,
+                                   bucket.membership))
+        except PeerFailure:
+            raise                           # agreed already
+        except Exception:
+            # make the step agreement this rank did not reach, so its
+            # peers stop before their joins instead of waiting there
+            if mesh is not None and \
+                    mesh.counts["step_agreements"] - made < \
+                    self.steps_per_tick:
+                mesh.step_agreement(failed=True)
+            raise
         bucket.advance_host(self.steps_per_tick)
 
     def _get_rolling_step(self, has_text: bool, text_tail):
@@ -340,21 +379,26 @@ class ContinuousScheduler:
                     t_host=t_host, cond=cond, null_cond=null,
                     config=eng.sampler, engine=eng.engine,
                     stacked_params=store, coeff_tables=tables,
-                    cluster_map=cmap)
+                    cluster_map=cmap, mesh=eng.mesh)
                 t_host = advanced(t_host, S, 1)
             return state
 
         return tick
 
     def _collect(self) -> int:
-        """Resolve every request whose rows all reached the grid end."""
+        """Resolve every request whose rows all reached the grid end (on a
+        "data" split, one gather of a bucket's latent a tick with any)."""
         resolved = 0
         for bucket in self._buckets.values():
             if bucket.num_resident == 0:
                 continue
-            for req in bucket.finished_requests():
+            finished = bucket.finished_requests()
+            if not finished:
+                continue
+            whole = bucket.whole_x()
+            for req in finished:
                 rows = bucket.rows_of(req.seq)
-                out = bucket.resolve(req)
+                out = bucket.resolve(req, whole)
                 if not self._accept_result(bucket, req, out, rows):
                     continue
                 req._result = out

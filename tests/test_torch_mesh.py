@@ -11,10 +11,14 @@ in one process on the CPU.
   ``axis_names`` serves both packages' functions; a ``K`` the "expert"
   axis does not divide replicates); the stores' ``logical_axes``;
   ``serve_batch_spec``, ``dit_batch_specs`` and ``sanitize_spec``;
+* ``rolling_state_shardings``, ``expert_param_shardings`` and
+  ``to_shardings``: the specs of the port's ``NamedSharding``s equal the
+  ``.spec`` of the reference's on an ``AbstractMesh`` of the same shape;
 * ``shard_store``: a rank's slice holds rows ``[lo, hi)`` of every leaf,
   scale and mask, a ``K / E`` share of the bytes, and answers global ids;
 * the engine on the degenerate ``(1, 1)`` mesh (a world of one) is
-  bitwise the unsharded engine, on every serving path.
+  bitwise the unsharded engine, on every serving path, the continuous
+  scheduler and the reference engine included.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from jax.sharding import AbstractMesh
 from jax.sharding import PartitionSpec as P
 
 from repro.core import param_store as jstore
@@ -214,6 +219,53 @@ def test_batch_specs_match_reference(shape, e, d):
     assert sharding.dispatch_plan_sharding(m) == ()
 
 
+ROLLING_MESHES = [(1, 1), (2, 1), (1, 2), (4, 2), (1, 3)]
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8, 4), (3, 8, 8, 4), (6, 4, 4, 2)],
+                         ids=str)
+@pytest.mark.parametrize("e,d", ROLLING_MESHES,
+                         ids=[f"{e}x{d}" for e, d in ROLLING_MESHES])
+def test_rolling_state_shardings_match_reference(shape, e, d):
+    """The latent's rows over "data" where it divides them, the row
+    state replicated."""
+    jm = AbstractMesh((e, d), ("expert", "data"))
+    jlat, jrow = jsharding.rolling_state_shardings(jm, shape)
+    lat, row = sharding.rolling_state_shardings(_stand_in(e, d), shape)
+    assert (lat.spec, row.spec) == (tuple(jlat.spec), tuple(jrow.spec))
+    assert lat.spec[0] == ("data" if shape[0] % d == 0 else None)
+
+
+@pytest.mark.parametrize("e,d", SPEC_MESHES,
+                         ids=[f"{e}x{d}" for e, d in SPEC_MESHES])
+@pytest.mark.parametrize("kind", KINDS)
+def test_expert_param_shardings_match_reference(ensembles, kind, e, d):
+    jst, pst = _stores(ensembles["toy"], kind)
+    jm, m = AbstractMesh((e, d), ("expert", "data")), _stand_in(e, d)
+    axes = {} if kind == "raw" else dict(logical_axes=pst.logical_axes())
+    jaxes = {} if kind == "raw" else dict(logical_axes=jst.logical_axes())
+    want = [tuple(s.spec) for s in jax.tree.leaves(
+        jsharding.expert_param_shardings(jst, jm, **jaxes),
+        is_leaf=lambda s: hasattr(s, "spec"))]
+    got = sharding.store_spec_leaves(
+        pst, sharding.expert_param_shardings(pst, m, **axes))
+    assert [s.spec for s in got] == want
+    assert all(s.mesh is m for s in got)
+
+
+def test_to_shardings_matches_reference():
+    """A tree of specs (a tuple is one spec) to ``NamedSharding``s."""
+    jm, m = AbstractMesh((2, 2), ("expert", "data")), _stand_in(2, 2)
+    specs = {"x": ("data", None), "t": (), "w": [("expert",), (None, None)]}
+    want = jsharding.to_shardings(jm, {
+        "x": P("data", None), "t": P(), "w": [P("expert"), P(None, None)]})
+    got = sharding.to_shardings(m, specs)
+    for key in ("x", "t"):
+        assert got[key] == sharding.NamedSharding(m, specs[key])
+        assert got[key].spec == tuple(want[key].spec)
+    assert [s.spec for s in got["w"]] == [tuple(s.spec) for s in want["w"]]
+
+
 @pytest.mark.parametrize("names", [("expert", "data"),
                                    ("pod", "data", "model")],
                          ids=["expert_data", "pod_data_model"])
@@ -309,18 +361,33 @@ def test_degenerate_mesh_is_bitwise_unsharded(ckpts, path):
 
 
 def test_what_the_mesh_does_not_serve_yet_raises():
-    """The reference engine on an expert-sharded mesh and continuous
-    batching on any mesh: ``NotImplementedError`` naming A.8b."""
+    """What the mesh once refused now serves: on the ``(1, 1)`` mesh the
+    continuous scheduler (staggered requests, ``steps_per_tick`` 2) and
+    the reference engine build and serve, bitwise the unsharded ones."""
     experts, params, router_fn, latent = toy_ensemble(4, "cpu")
     base = dict(experts=experts, expert_params=params, router_fn=router_fn,
-                latent_shape=latent, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8b"):
-        ServingEngine(**base, engine="reference", n_expert_shards=2,
-                      n_data_shards=1)
-    eng = ServingEngine(**base, sampler=SamplerConfig(num_steps=2),
-                        n_expert_shards=1, n_data_shards=1)
-    with pytest.raises(NotImplementedError, match="A.8b"):
-        ContinuousScheduler(eng)
+                latent_shape=latent, device="cpu",
+                sampler=SamplerConfig(num_steps=3, cfg_scale=3.0, top_k=2))
+    rng = np.random.default_rng(4)
+    texts = [rng.standard_normal((b, 5, 6)).astype(np.float32)
+             for b in (1, 2, 1)]
+    outs = []
+    for shards in ({}, dict(n_expert_shards=1, n_data_shards=1)):
+        eng = ServingEngine(**base, **shards)
+        sched = ContinuousScheduler(eng, max_resident=4, steps_per_tick=2)
+        handles = []
+        for i, t in enumerate(texts):
+            handles.append(sched.submit(i, t))
+            sched.step()
+        sched.run_until_idle()
+        ref = ServingEngine(**base, engine="reference", **shards)
+        outs.append(([h.result() for h in handles],
+                     ref.generate(7, texts[1], 2), eng.mesh, ref.mesh))
+    (want, want_ref, no_mesh, _), (got, got_ref, m, m_ref) = outs
+    assert no_mesh is None and m.shape == m_ref.shape == {"expert": 1,
+                                                          "data": 1}
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(got_ref, want_ref)
 
 
 def test_port_imports_no_jax():

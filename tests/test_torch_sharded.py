@@ -207,7 +207,8 @@ def test_ranks_split_the_work(served, label, mesh):
 
 def test_parity_script_on_two_ranks():
     """``python -m repro_torch.launch.sharded_parity --world 2 --device
-    cpu``: the reference's keys, every one "ok"."""
+    cpu``: the reference's keys and items 10–13's (the rolling
+    schedulers and the reference engine on the mesh), every one "ok"."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.sharded_parity",
@@ -218,7 +219,9 @@ def test_parity_script_on_two_ranks():
     assert verdict["devices"] == 2
     for key in ("parity", "grouped_parity", "quantized_parity",
                 "step_fusion_parity", "elastic_masked_parity",
-                "ragged_parity"):
+                "ragged_parity", "rolling_parity",
+                "resilient_restore_parity", "elastic_rolling_parity",
+                "reference_engine_parity"):
         assert verdict[key] == "ok", key
     assert verdict["merged_batches"] == 1
     assert verdict["coalesced_requests"] == 2

@@ -20,6 +20,14 @@ not within ``1e-5 · max |latent|`` of the unsharded engine's or the
 ranks' pairs do not sum to the unsharded request's.  ``--reduced
 --device cpu --backend gloo`` runs the same at the reduced width on CPU
 ranks.
+
+``--continuous`` serves phase 11's traffic instead (8 staggered requests
+of batch 1, 2, 1, 4, 2, 1, 3, 2, one every 2 ticks, into a rolling batch
+of 8: ``chip_smoke._mesh_rolling``) through the ``ContinuousScheduler``
+on every mesh; each run's seconds and img/s, and each request's latents
+against the unsharded rolling run's::
+
+    python3 tools/mesh_serve.py --world 4 --continuous
 """
 
 from __future__ import annotations
@@ -59,9 +67,19 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
-def _serve(ops, eng, text, dev, requests: int) -> tuple:
+def _serve(ops, eng, text, dev, requests: int, cfg=None) -> tuple:
     """One warm-up request, then ``requests`` timed ones: the last
-    latents, the seconds, and one request's launches and pairs."""
+    latents, the seconds, and one request's launches and pairs.  With
+    ``cfg`` (the experts' config), a run of phase 11's rolling traffic
+    for each request (the latents a list, one a request; the seconds a
+    run's)."""
+    if cfg is not None:
+        seconds = []
+        for _ in range(requests + 1):
+            outs, row = C._mesh_rolling(ops, eng, cfg, C.ROLLING_BATCHES,
+                                        41, 800)
+            seconds.append(row["seconds"])
+        return outs, seconds[1:], row["launches"], row["pairs"]
     eng.generate(C.MESH_SEED, text, C.BATCH)
     _sync(dev)
     seconds = []
@@ -103,10 +121,13 @@ def _rank(rank: int, world: int, job: dict) -> None:
             sampler=SamplerConfig(num_steps=C.STEPS, cfg_scale=7.5, top_k=2),
             device=dev, n_expert_shards=e, n_data_shards=d,
             dist_backend=job["backend"])
-        out, seconds, launches, pairs = _serve(ops, eng, text, dev,
-                                               job["requests"])
+        out, seconds, launches, pairs = _serve(
+            ops, eng, text, dev, job["requests"],
+            cfg if job["continuous"] else None)
         tag = f"{e}x{d}_rank{rank}"
-        np.save(os.path.join(job["out"], f"{tag}.npy"), out.cpu().numpy())
+        outs = out if job["continuous"] else [out]
+        np.savez(os.path.join(job["out"], f"{tag}.npz"),
+                 *[o.cpu().numpy() for o in outs])
         with open(os.path.join(job["out"], f"{tag}.json"), "w") as f:
             json.dump(dict(mesh={"expert": e, "data": d}, rank=rank,
                            device=str(dev), request_seconds=seconds,
@@ -124,6 +145,9 @@ def main() -> None:
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced DiT (latent 8) instead of full width")
+    ap.add_argument("--continuous", action="store_true",
+                    help="phase 11's rolling traffic through the "
+                         "ContinuousScheduler instead of one request")
     args = ap.parse_args()
     from repro_torch.core.sampling import SamplerConfig
     from repro_torch.kernels import _build, ops
@@ -151,8 +175,9 @@ def main() -> None:
         path, dit_cfg=cfg, router_cfg=rcfg,
         sampler=SamplerConfig(num_steps=C.STEPS, cfg_scale=7.5, top_k=2),
         device=dev)
-    want, seconds, _, pairs = _serve(ops, base, text, dev, args.requests)
-    want = want.cpu()
+    want, seconds, _, pairs = _serve(ops, base, text, dev, args.requests,
+                                     cfg if args.continuous else None)
+    want = [w.cpu() for w in want] if args.continuous else [want.cpu()]
     del base
     print("unsharded " + json.dumps(dict(request_seconds=seconds,
                                          pairs=pairs["ragged_gemm"])))
@@ -164,16 +189,20 @@ def main() -> None:
         spawn(_rank, args.world, dict(
             path=path, out=out, meshes=meshes, device=dev.type,
             backend=args.backend, reduced=args.reduced,
-            requests=args.requests), backend=args.backend, device=dev.type)
+            requests=args.requests, continuous=args.continuous),
+            backend=args.backend, device=dev.type)
         for e, d in meshes:
             rows = []
             for rank in range(args.world):
                 with open(os.path.join(out, f"{e}x{d}_rank{rank}.json")) as f:
                     row = json.load(f)
-                got = torch.from_numpy(np.load(os.path.join(
-                    out, f"{e}x{d}_rank{rank}.npy")))
-                row["max_abs_diff"] = float((got - want).abs().max())
-                row["max_abs"] = float(want.abs().max())
+                with np.load(os.path.join(out,
+                                          f"{e}x{d}_rank{rank}.npz")) as z:
+                    got = [torch.from_numpy(z[f"arr_{i}"])
+                           for i in range(len(want))]
+                row["max_abs_diff"] = max(float((g - w).abs().max())
+                                          for g, w in zip(got, want))
+                row["max_abs"] = max(float(w.abs().max()) for w in want)
                 print("mesh " + json.dumps(row))
                 if row["max_abs_diff"] > REL_TOL * row["max_abs"]:
                     raise SystemExit(f"mesh ({e}, {d}) rank {rank}: max |Δ| "
@@ -187,6 +216,13 @@ def main() -> None:
                 median_s=statistics.median(
                     s for r in rows for s in r["request_seconds"]),
                 store_bytes=[r["store_bytes"] for r in rows])
+            if args.continuous:
+                summary["meshes"][f"{e}x{d}"]["img_per_s"] = sum(
+                    C.ROLLING_BATCHES) / summary["meshes"][f"{e}x{d}"][
+                    "median_s"]
+    if args.continuous:
+        summary["unsharded_img_per_s"] = sum(C.ROLLING_BATCHES) / \
+            summary["unsharded_s"]
     shutil.rmtree(path, ignore_errors=True)
     print(json.dumps(summary))
 
