@@ -293,7 +293,25 @@ Phases (each a hard failure — non-zero exit, no result line — on error):
    summing to its), on ``(2, 1)`` the resilient scheduler killed after 3
    ticks and restored on both ranks from rank 0's journal (bitwise its
    twin), and the reference engine against the unsharded one; the CLI
-   also with ``--continuous --journal-dir``.
+   also with ``--continuous --journal-dir``;
+22. FSDP training and the dry-run (ROADMAP A.8b's LM half, A.11):
+   deepseek-coder-33b at full width (d 7168, 56 query heads over 8 of D
+   128, d_ff 19200, bf16, remat) and 2 layers, one AdamW step of a global
+   2 × 1024-token batch unsharded, on a one-rank NCCL ``(1, 1)`` mesh with
+   ``launch.fsdp`` installed (loss, every gradient and updated parameter
+   bitwise the unsharded step's; its attention on the ``wgmma`` forward
+   and backward kernels, counted) and on two gloo ranks sharing
+   ``cuda:0`` as ``(2, 1)`` (each rank's cut against the unsharded step
+   on the rank: loss within 1e-4; gradients, first moment and global
+   norm within ``FSDP_GRAD_REL``; parameters within AdamW's first-step
+   bound), with two witnesses that this bf16 bound is rounding: the
+   unsharded step in two microbatches, and ``(2, 1)`` in float32 at full
+   width (1 layer) held to the float32 checks' 1e-3; the
+   seconds a step, peak bytes a rank, gathers and reduce-scatters and
+   attention launches a step, beside the dry-run of the same step and
+   mesh; then ``dryrun_one("deepseek-coder-33b", "train_4k")`` and
+   ``("mixtral-8x7b", "train_4k", multi_pod=True)`` on the production
+   meshes' fake worlds (no card).
 
 It prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
@@ -931,7 +949,8 @@ def _prefix_mask(s: int, causal: bool, window: int, prefix: int, dev):
 #: float32 on the FFMA template; then the LM serving shapes of phases 15 and 17
 #: (a 4 × 1024-token scoring request): zamba2-2.7b's shared block (32 heads of
 #: D 80), internlm2-1.8b's layers (16 query heads over 8 kv heads of D 128),
-#: deepseek-coder-33b's (56 over 8: a group of 7), mixtral-8x7b's (32 over 8,
+#: deepseek-coder-33b's (56 over 8: a group of 7; also at phase 22's 2 ×
+#: 1024-token FSDP training step), mixtral-8x7b's (32 over 8,
 #: its window of 4096 past the request) and mixtral-8x22b's (48 over 8: a group
 #: of 6); the first Mixtral case is phase 17's 1 × 8192-token request, where
 #: the window masks; then phase 18's whisper-large-v3 (20 heads of D 64,
@@ -951,6 +970,8 @@ FLASH_CASES = (
     ("zamba2_causal", 4, 32, 32, 1024, 80, True, 0, torch.bfloat16),
     ("internlm2_causal_gqa", 4, 16, 8, 1024, 128, True, 0, torch.bfloat16),
     ("deepseek_coder_group7", 4, 56, 8, 1024, 128, True, 0, torch.bfloat16),
+    ("deepseek_coder_group7_b2", 2, 56, 8, 1024, 128, True, 0,
+     torch.bfloat16),
     ("mixtral_8x7b_scoring", 4, 32, 8, 1024, 128, True, 4096,
      torch.bfloat16),
     ("mixtral_8x22b_group6", 4, 48, 8, 1024, 128, True, 4096,
@@ -973,6 +994,7 @@ FLASH_PREFIX = {"paligemma_prefix": 256, "prefix_gqa_bf16_d128": 256,
 #: (whisper's also carry its cross and decoder cases' under ``cross`` and
 #: ``causal``)
 FLASH_PATH_CASES = {"lm_hybrid": "zamba2_causal",
+                    "lm_train_fsdp": "deepseek_coder_group7_b2",
                     "lm_dense": "internlm2_causal_gqa",
                     "lm_moe": "mixtral_gqa_swa",
                     "lm_moe_scoring": "mixtral_8x7b_scoring",
@@ -994,7 +1016,8 @@ def check_flash(ops, ref, dev) -> dict:
     D 128, window 4096) over S 8192, batch 1, bf16, and the causal bf16
     attention of the LM serving paths (zamba2-2.7b, internlm2-1.8b,
     deepseek-coder-33b's group of 7, mixtral-8x7b, mixtral-8x22b's group
-    of 6) at a 4 × 1024-token request, and whisper-large-v3's non-causal
+    of 6) at a 4 × 1024-token request (the group of 7 also at phase 22's
+    2 × 1024 tokens), and whisper-large-v3's non-causal
     bf16 encoder (S 1500) and cross-attention (1024 rows over 1500 keys),
     its causal bf16 decoder self-attention (S 1024) and that cross shape
     in float32, and paligemma-3b's causal prefix-LM attention (8 query
@@ -1235,7 +1258,8 @@ BF16_GRAD_REL_TOL = 2.0 ** -7
 #: heads of D 128) and zamba2-2.7b's 9 shared-block applications (32
 #: heads of D 80); phase 17's mixtral-8x7b step of 1 × 8192 tokens (32
 #: over 8, window 4096, its 2 layers) and deepseek-coder-33b's group of 7
-#: at a 4 × 1024-token batch (no training path runs it); phase 18's
+#: at a 4 × 1024-token batch, and at phase 22's 2 × 1024-token FSDP step
+#: (its 2 layers); phase 18's
 #: whisper-large-v3 step of 4 × 1024 tokens over 4 × 1500 frames, bf16,
 #: its 32 encoder layers and 32 cross-attentions (1024 rows over the 1500
 #: frames, ``FLASH_SKV``), non-causal, and its 32 causal decoder
@@ -1252,6 +1276,8 @@ FLASH_BWD_CASES = (
     ("mixtral_gqa_swa", 1, 32, 8, 8192, 128, True, 4096, torch.bfloat16, 2),
     ("deepseek_coder_group7", 4, 56, 8, 1024, 128, True, 0, torch.bfloat16,
      None),
+    ("deepseek_coder_group7_b2", 2, 56, 8, 1024, 128, True, 0,
+     torch.bfloat16, 2),
     ("whisper_encoder", 4, 20, 20, 1500, 64, False, 0, torch.bfloat16, 32),
     ("whisper_cross", 4, 20, 20, 1024, 64, False, 0, torch.bfloat16, 32),
     ("whisper_decoder_causal", 4, 20, 20, 1024, 64, True, 0, torch.bfloat16,
@@ -1264,6 +1290,7 @@ FLASH_BWD_CASES = (
     ("prefix_f32_d64", 4, 8, 1, 1280, 64, True, 0, torch.float32, None))
 #: the LM training paths whose kernels line entries take a case's numbers
 FLASH_BWD_PATH_CASES = {"lm_train_dense": "internlm2_causal_gqa",
+                        "lm_train_fsdp": "deepseek_coder_group7_b2",
                         "lm_train_hybrid": "zamba2_causal",
                         "lm_train_moe": "mixtral_gqa_swa",
                         "lm_train_audio": "whisper_encoder",
@@ -5576,6 +5603,209 @@ def serve_stubbed_full_width(ops, dev, arch: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: FSDP training and the dry-run (ROADMAP A.8b's LM half, A.11)
+# ---------------------------------------------------------------------------
+
+#: phase 22's step: deepseek-coder-33b at full width, its first 2 layers, one
+#: AdamW step (lr 1e-3 after a warm-up of one step) of a global 2 × 1024
+#: batch drawn from the seed
+FSDP_JOB = dict(arch="deepseek-coder-33b", full=True, layers=2, batch=2,
+                seq=1024, seed=22, device="cuda")
+#: the bf16 gradients (and first moment, and global norm) of the ``(2, 1)``
+#: step against the unsharded one, of each leaf's largest |value|: each
+#: rank's partial weight gradient rounds to bf16, their sum rounds again
+#: and the unsharded gradient once — two bf16 ulps (2⁻⁶), the port's bf16
+#: model bound.  Two witnesses of the phase show that the distance is
+#: rounding: the unsharded step in two microbatches (its bf16 partial
+#: gradients summed, no collective) lies about as far from the unsharded
+#: step, and the same ``(2, 1)`` step in float32 (``FSDP_F32_JOB``) meets
+#: the float32 checks' 1e-3 (on an H100: 7.6e-3 for ``(2, 1)``, 5.6e-3 for
+#: the microbatches, 6.2e-6 in float32)
+FSDP_GRAD_REL = 2.0 ** -6
+#: the float32 witness: ``FSDP_JOB`` at the same width and batch in
+#: float32, 1 layer (two ranks' float32 state and unsharded references
+#: share the card)
+FSDP_F32_JOB = dict(FSDP_JOB, layers=1,
+                    overrides={"param_dtype": "float32",
+                               "activation_dtype": "float32"})
+#: the dry-runs of part (c): (arch, shape, multi_pod)
+FSDP_DRYRUNS = (("deepseek-coder-33b", "train_4k", False),
+                ("mixtral-8x7b", "train_4k", True))
+
+
+def _fsdp_step_row(label, row, unsharded_s) -> None:
+    c, ln = row["collectives"], row["launches"]
+    print(f"fsdp {label}: step {row['seconds']:.4f} s (unsharded "
+          f"{unsharded_s:.4f} s), peak {row['peak_bytes']} B, loss "
+          f"{row['loss']:.6f} (rel {row['loss_rel']:.3e}), grads "
+          f"{row['grad_rel']:.3e} of max, first moment {row['mu_rel']:.3e}"
+          f" of max, grad norm {row['grad_norm']:.6f} (rel "
+          f"{row['grad_norm_rel']:.3e}), params {row['param_ratio']:.3f} "
+          f"of bound, bitwise {row['bitwise']}; a step: "
+          f"{c['all_gather']} gathers, {c['reduce_scatter']} "
+          f"reduce-scatters, {c['all_reduce']} all-reduces, "
+          f"{ln.get('flash_attention', 0)} flash_attention, "
+          f"{ln.get('flash_attention_bwd', 0)} flash_attention_bwd")
+
+
+def _fsdp_dryrun_line(label, r, measured_s=None) -> None:
+    from repro_torch.launch.dryrun import roofline_line
+
+    roof = r["roofline"]
+    bound = max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    extra = ("" if measured_s is None else
+             f"; measured {measured_s:.4f} s, the bound {bound / measured_s:.3f}"
+             f" of it")
+    print(f"fsdp dryrun {label}: {roofline_line(r)} bound {bound:.4e} s, "
+          f"collectives {json.dumps(r['collectives']['count_by_type'])}, "
+          f"reckoned tp all-reduces {r['collectives']['reckoned']['count']}"
+          f"{extra}")
+
+
+def train_fsdp(ops, dev) -> dict:
+    """Phase 22 (a)–(c).  (a) ``FSDP_JOB``'s step unsharded in this
+    process (twice: the second is timed), then on a one-rank NCCL ``(1,
+    1)`` mesh with the FSDP policy installed (twice; the second timed, its
+    launches counted from 0: 2 layers × 2 forward — remat — and 2
+    backward attention launches; every gathered layer a gather, its
+    gradient a reduce-scatter), which must be bitwise the unsharded step;
+    then two gloo ranks sharing ``cuda:0`` on ``(2, 1)``
+    (``fsdp_parity.parity_rank``: each rank runs the unsharded step, then
+    its FSDP step, and holds its cut to the unsharded one: loss within
+    ``LOSS_REL`` 1e-4; every gradient and first-moment leaf within
+    ``FSDP_GRAD_REL`` of its max and the global norm within it relative;
+    every updated parameter within ``fsdp_parity.update_bound``).  The
+    witnesses of that bf16 bound: the unsharded step in two microbatches
+    against the unsharded step, and ``FSDP_F32_JOB`` on the same two
+    ranks (same spawn), held to ``GRAD_REL`` 1e-3.
+    (b) The seconds, peaks, collectives and launches a step of each run,
+    and the dry-run of the same step on the same meshes (``dryrun_one``
+    with the 2-layer config, a 2 × 1024 train shape, ``{"data": D,
+    "model": 1}``) beside the measured seconds.  (c) The production
+    dry-runs of ``FSDP_DRYRUNS``.  Returns the ``(1, 1)`` step's
+    launches under ``lm_train_fsdp``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun, fsdp_parity
+    from repro_torch.launch.mesh import make_lm_mesh, spawn
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = fsdp_parity.resolve_config(FSDP_JOB)
+    opt = fsdp_parity.AdamWConfig(learning_rate=fsdp_parity.LR,
+                                  warmup_steps=1)
+    params, batch = fsdp_parity.make_inputs(
+        cfg, FSDP_JOB["batch"], FSDP_JOB["seq"], FSDP_JOB["seed"], dev)
+    print(f"fsdp {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+          f"{sum(p.numel() for p in tree_leaves(params))} parameters, "
+          f"batch {FSDP_JOB['batch']} x {FSDP_JOB['seq']}")
+    for _ in range(2):
+        want = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fsdp_parity.step_outputs(cfg, params, batch, opt)
+        torch.cuda.synchronize()
+        unsharded_s = time.perf_counter() - t0
+    if not math.isfinite(float(want["loss"])):
+        fail(f"fsdp unsharded loss {float(want['loss'])}")
+    _, mb_grads = make_grad_step(cfg, microbatches=2)(
+        tree_map(torch.clone, params), batch)
+    mb_rel = max(fsdp_parity.leaf_rel(tree_leaves(mb_grads),
+                                      tree_leaves(want["grads"])))
+    del mb_grads
+    print(f"fsdp witness: the unsharded step in 2 microbatches (bf16 "
+          f"partial gradients summed, no collective): grads within "
+          f"{mb_rel:.3e} of max")
+
+    mesh = make_lm_mesh(1, 1, device=dev, backend="nccl")
+    try:
+        for _ in range(2):
+            got = fsdp_parity.fsdp_outputs(cfg, params, batch, opt, mesh)
+        launches = dict(got["launches"])
+        row = {"collectives": got["collectives"], "launches": launches,
+               "seconds": got["seconds"], "peak_bytes": got["peak_bytes"],
+               **fsdp_parity.compare(got, want, opt)}
+    finally:
+        dist.destroy_process_group()
+    _fsdp_step_row("(1, 1) nccl", row, unsharded_s)
+    if not row["bitwise"]:
+        fail(f"fsdp (1, 1): not bitwise the unsharded step: {row}")
+    want_attn = {"flash_attention": 2 * cfg.num_layers,
+                 "flash_attention_bwd": cfg.num_layers}
+    for name, n in want_attn.items():
+        if launches.get(name, 0) != n:
+            fail(f"fsdp (1, 1): {name} launched {launches.get(name, 0)} "
+                 f"times a step, not {n}")
+    cut_leaves = 7 * cfg.num_layers        # wq wk wv wo, gate up down
+    if (row["collectives"]["all_gather"] != 2 * cut_leaves
+            or row["collectives"]["reduce_scatter"] != cut_leaves):
+        fail(f"fsdp (1, 1): collectives {row['collectives']}")
+    one_s = row["seconds"]
+    del got, want, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dirs = {}
+    for key in ("bf16", "f32"):
+        dirs[key] = os.path.join(WORK, "fsdp", key)
+        shutil.rmtree(dirs[key], ignore_errors=True)
+        os.makedirs(dirs[key])
+    t0 = time.perf_counter()
+    spawn(fsdp_parity.parity_rank, 2,
+          [dict(FSDP_JOB, out_dir=dirs["bf16"]),
+           dict(FSDP_F32_JOB, out_dir=dirs["f32"])],
+          backend="gloo", device="cuda")
+    print(f"fsdp (2, 1) gloo: two ranks, bf16 and float32 jobs, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    f32_layers = FSDP_F32_JOB["layers"]
+    checks = (("bf16", FSDP_GRAD_REL, launches),
+              ("f32", fsdp_parity.GRAD_REL,
+               {"flash_attention": 2 * f32_layers,
+                "flash_attention_bwd": f32_layers}))
+    results = {}
+    for key, bound, want_launches in checks:
+        rows = results[key] = fsdp_parity.read_rows(dirs[key], 2)
+        for r in rows:
+            _fsdp_step_row(f"(2, 1) gloo {key} rank {r['rank']}", r,
+                           unsharded_s)
+            if (not fsdp_parity.within(r, bound)
+                    or not math.isfinite(r["loss"])):
+                fail(f"fsdp (2, 1) {key} rank {r['rank']} off the "
+                     f"unsharded step (gradient bound {bound:.3e}): {r}")
+            if r["launches"] != want_launches:
+                fail(f"fsdp (2, 1) {key} rank {r['rank']} launches "
+                     f"{r['launches']} != {want_launches}")
+        if (rows[0]["loss"] != rows[1]["loss"]
+                or rows[0]["grad_norm"] != rows[1]["grad_norm"]):
+            fail(f"fsdp (2, 1) {key}: the ranks' losses or norms differ: "
+                 f"{rows}")
+    rows = results["bf16"]
+    worst = {k: max(r["grad_rel"] for r in v) for k, v in results.items()}
+    print(f"fsdp (2, 1): bf16 grads within {worst['bf16']:.3e} of max "
+          f"(bound {FSDP_GRAD_REL:.3e}; 2 microbatches unsharded "
+          f"{mb_rel:.3e}); float32 at 1 layer {worst['f32']:.3e} (bound "
+          f"{fsdp_parity.GRAD_REL:.0e})")
+
+    shape = InputShape("train_2x1024", FSDP_JOB["seq"], FSDP_JOB["batch"],
+                       "train")
+    for d, measured in ((1, one_s), (2, max(r["seconds"] for r in rows))):
+        r = dryrun.dryrun_one(cfg.name, shape.name, save=False,
+                              cfg_override=cfg, shape=shape,
+                              mesh_shape={"data": d, "model": 1})
+        _fsdp_dryrun_line(f"({d}, 1)", r, measured)
+    for arch, name, multi in FSDP_DRYRUNS:
+        r = dryrun.dryrun_one(arch, name, multi_pod=multi, save=False)
+        _fsdp_dryrun_line(r["mesh"], r)
+        print(f"    memory_analysis: {r['memory_analysis']}")
+    return {"lm_train_fsdp": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -5751,6 +5981,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches.update(run_examples(ops, dev))
     phase_done("20 (the four DiT examples)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(train_fsdp(ops, dev))
+    phase_done("22 (FSDP training and the dry-run)")
 
     # each kernel's launches on the served path that exercises it
     where = {"ragged_gemm": "native", "ragged_gemm_int8": "int8",

@@ -22,6 +22,7 @@ CONFIG = LMConfig(
     param_dtype=torch.bfloat16,
     activation_dtype=torch.bfloat16,
     remat=True,
+    fsdp_params=True,
     logits_chunk=512,
     source="arXiv:2401.04088",
 )

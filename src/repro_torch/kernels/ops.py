@@ -58,6 +58,24 @@ LAUNCHES = {"ragged_gemm": 0, "ragged_gemm_int8": 0, "ragged_gemm_fp8": 0,
             "flash_attention": 0, "ssd_scan": 0, "adaln_fuse_bwd": 0,
             "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
 
+#: the dry-run's op counter while one counts (``launch.op_cost.counting``):
+#: given fake tensors (``FakeTensorMode``'s, which hold no values) the
+#: attention and SSD scan wrappers then report their kernel — forward, and
+#: backward where gradients flow — as one operation of its own cost
+#: (``OpCost.kernel``) and return tensors of the kernel's shapes without
+#: computing them; given real CPU tensors they compute as without it
+COUNTER = None
+
+
+def _counted(t: torch.Tensor) -> bool:
+    """Whether ``COUNTER`` takes this call: one counts and ``t`` is
+    fake."""
+    if COUNTER is None:
+        return False
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
 #: routed (sample, slot) pairs the ragged GEMM launches have run since the
 #: last ``reset_launches()``, per body: the rows of each launch over
 #: ``m`` (an expert-sharded rank counts only its resident experts' pairs).
@@ -324,6 +342,8 @@ def flash_attention(
                      softmax_scale=softmax_scale, prefix_len=prefix_len)
         LAUNCHES["flash_attention"] += 1
         return out
+    if _counted(q):
+        return _CountedFlash.apply(q, k, v, causal, window, prefix_len)
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=1)
         v = v.repeat_interleave(hq // hkv, dim=1)
@@ -371,6 +391,32 @@ class _Flash(torch.autograd.Function):
                            prefix_len=prefix_len)
         LAUNCHES["flash_attention_bwd"] += 1
         return (*grads, None, None, None, None)
+
+
+def _flash_shape(q, k, causal, window, prefix_len) -> dict:
+    b, hq, s, d = q.shape
+    return dict(b=b, hq=hq, hkv=k.shape[1], s=s, skv=k.shape[2], d=d,
+                elt=q.element_size(), causal=causal, window=window,
+                prefix=prefix_len)
+
+
+class _CountedFlash(torch.autograd.Function):
+    """The attention kernel and its backward as ``COUNTER`` sees them:
+    one operation each, outputs of their shapes, nothing computed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix_len):
+        ctx.shape = _flash_shape(q, k, causal, window, prefix_len)
+        ctx.save_for_backward(q, k, v)
+        COUNTER.kernel("flash_attention", **ctx.shape)
+        return q.new_empty(q.shape)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v = ctx.saved_tensors
+        COUNTER.kernel("flash_attention_bwd", **ctx.shape)
+        return (q.new_empty(q.shape), k.new_empty(k.shape),
+                v.new_empty(v.shape), None, None, None)
 
 
 def flash_attention_gqa(q, k, v, *, causal=True, window=0,
@@ -426,9 +472,32 @@ def ssd_scan(
         y, state = _ssd_scan(x, dtf, Af, B, C, chunk=tile)
         LAUNCHES["ssd_scan"] += 1
         return y, state
+    if _counted(x):
+        return _CountedSSD.apply(x, dt, A, B, C, q)
     y, state = _ref.ref_ssd_scan(x.transpose(1, 2), dt.transpose(1, 2), A,
                                  B, C)
     return y.transpose(1, 2), state
+
+
+class _CountedSSD(torch.autograd.Function):
+    """The SSD scan kernel and its backward as ``COUNTER`` sees them:
+    one operation each, outputs of their shapes, nothing computed."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        b, h, s, p = x.shape
+        ctx.shape = dict(b=b, h=h, s=s, p=p, n=B.shape[-1], q=chunk,
+                         elt=x.element_size())
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.set_materialize_grads(False)
+        COUNTER.kernel("ssd_scan", **ctx.shape)
+        return (x.new_empty(x.shape),
+                x.new_empty((b, h, p, B.shape[-1]), dtype=torch.float32))
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        COUNTER.kernel("ssd_scan_bwd", **ctx.shape)
+        return (*(t.new_empty(t.shape) for t in ctx.saved_tensors), None)
 
 
 def _ssd_grad_supported(x, B, C) -> None:

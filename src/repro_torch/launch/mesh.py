@@ -38,6 +38,17 @@ raises instead of waiting for ever; ``spawn`` also bounds its join.
 ``world`` processes joined by a ``FileStore`` in a temporary directory:
 the launcher of the tests and of ``launch/sharded_parity.py`` (no port,
 no network).
+
+The LM meshes: ``make_production_mesh`` lays the world out as the
+reference's production shapes, ``(16, 16)`` on ``("data", "model")`` and
+``(2, 16, 16)`` on ``("pod", "data", "model")`` ("pod" folds into data
+parallelism), and ``make_lm_mesh(D, M)`` as any ``(D, M)``; both give an
+``LMMesh``, whose ``data_group`` joins the ranks that hold the other
+data blocks of the same parameters (``launch.fsdp`` gathers over it).
+The dry-run builds the production meshes on a fake world of 256 or 512
+ranks (``launch.dryrun``).  ``PEAK_FLOPS_BF16``, ``HBM_BW`` and
+``LINK_BW`` are the roofline's denominators: the H100 SXM's, in place of
+the reference's TPU v5e constants.
 """
 
 from __future__ import annotations
@@ -297,6 +308,92 @@ def make_expert_mesh(n_expert_shards: int = 1,
 
 
 @dataclasses.dataclass(frozen=True)
+class LMMesh:
+    """This rank's view of an LM mesh: ``("data", "model")`` or
+    ``("pod", "data", "model")``.
+
+    ``shape`` and ``axis_names`` are what ``launch.sharding``'s spec
+    functions read.  ``data_index`` is this rank's block over the data
+    axes (pod-major: ``pod · D + data``) and ``data_group`` joins the
+    ranks that hold the other blocks (``launch.fsdp`` gathers a layer
+    over it, reduce-scatters its gradient and averages the replicated
+    gradients).  ``backend`` is the group's (``"fake"`` on the dry-run's
+    world, where nothing is exchanged).
+    """
+
+    shape: dict  # lint: allow-mutable-config (a Mesh's shape is a dict)
+    axis_names: tuple
+    data_index: int
+    data_group: object
+    backend: str
+    device_mesh: object = None
+
+    @property
+    def data_size(self) -> int:
+        """The ranks over the data axes ("pod" times "data")."""
+        n = 1
+        for a in data_axes(self):
+            n *= self.shape[a]
+        return n
+
+
+#: the production meshes' shapes and axes (the reference's)
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _lm_mesh(shape: tuple, axes: tuple, dev: torch.device) -> LMMesh:
+    """``shape`` over ``axes`` on the running world, which must have
+    ``prod(shape)`` ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    need = 1
+    for n in shape:
+        need *= n
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != need:
+        raise ValueError(
+            f"mesh {tuple(shape)} on {axes} needs a world of {need} ranks, "
+            f"not {world}")
+    dm = init_device_mesh(dev.type, tuple(shape), mesh_dim_names=axes)
+    coord = dict(zip(axes, (int(c) for c in dm.get_coordinate())))
+    if "pod" in axes:
+        group = dm["pod", "data"]._flatten("pod_data").get_group()
+        index = coord["pod"] * shape[axes.index("data")] + coord["data"]
+    else:
+        group, index = dm.get_group("data"), coord["data"]
+    return LMMesh(shape=dict(zip(axes, shape)), axis_names=axes,
+                  data_index=index, data_group=group,
+                  backend=dist.get_backend(), device_mesh=dm)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None
+                         ) -> LMMesh:
+    """The reference's production mesh over the running world: ``(16,
+    16)`` on ``("data", "model")``, or ``(2, 16, 16)`` on ``("pod",
+    "data", "model")`` with ``multi_pod``.  Raises ``ValueError`` where
+    the world (1 where no process group runs) is not 256 or 512 ranks.
+    ``device`` (``None`` → ``"cuda"``) names the mesh's device type."""
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    dev = torch.device("cuda" if device is None else device)
+    return _lm_mesh(shape, axes, dev)
+
+
+def make_lm_mesh(n_data: int = 1, n_model: int = 1, *, device=None,
+                 backend: str | None = None) -> LMMesh:
+    """A ``(n_data, n_model)`` mesh on ``("data", "model")`` over the
+    world (started by ``init_distributed`` when none runs: a world of one
+    outside ``torchrun`` or ``spawn``), which must have ``n_data ·
+    n_model`` ranks.  The port executes the "data" axes only: a step on a
+    mesh whose "model" axis is over 1 raises (``launch.fsdp.install``)."""
+    if n_data < 1 or n_model < 1:
+        raise ValueError(f"mesh ({n_data}, {n_model}): sizes must be >= 1")
+    dev = rank_device(device)
+    init_distributed(backend, dev)
+    return _lm_mesh((n_data, n_model), ("data", "model"), dev)
+
+
+@dataclasses.dataclass(frozen=True)
 class HostMesh:
     """The one-process ``(1, 1)`` mesh under the production axis names."""
 
@@ -365,3 +462,12 @@ def spawn(fn, world: int, *args, backend: str = "gloo",
                 raise TimeoutError(
                     f"spawn: {world} ranks of {fn.__name__} still running "
                     f"after {SPAWN_TIMEOUT_S:.0f} s")
+
+
+# --- H100 SXM constants (per card) — the roofline's denominators ----------
+#: dense bf16 tensor-core peak (NVIDIA H100 SXM datasheet)
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s
+#: HBM3 bandwidth (NVIDIA H100 SXM datasheet)
+HBM_BW = 3.35e12                  # bytes/s
+#: NVLink 4 bandwidth each way: 900 GB/s total (NVIDIA H100 SXM datasheet)
+LINK_BW = 450e9                   # bytes/s

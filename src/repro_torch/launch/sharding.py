@@ -1,6 +1,7 @@
-"""Partition specs of the expert-parallel serving mesh (``("expert",
-"data")``, ``launch.mesh``), and the cut of a store to a rank's resident
-slice.
+"""Partition specs: the LM rules of the production mesh (``("data",
+"model")``, ``("pod", "data", "model")``) and the expert-parallel serving
+mesh's (``("expert", "data")``, ``launch.mesh``), and the cut of a store
+to a rank's resident slice.
 
 A spec is a tuple with one entry per dim of a tensor: the mesh axis (or
 tuple of axes) that dim splits over, or ``None`` where it is replicated —
@@ -11,8 +12,25 @@ only a mesh's ``shape`` (a dict of axis sizes) and ``axis_names``.  A
 ``rolling_state_shardings``); the port places tensors by cutting them
 (``shard_store``, the rolling batch's rows), not through DTensor.
 
-The LM half of the reference module (``param_specs``, ``batch_specs``,
-``cache_specs`` and the FSDP rules) is not ported here.
+The LM rules are the reference's 2D "FSDP × TP" strategy:
+
+* column-parallel weights (attention q/k/v, FFN up/gate, SSM in_proj,
+  MoE up/gate, ``_COL``): last dim on "model", second-to-last on the data
+  axes;
+* row-parallel weights (attention o, FFN down, SSM out_proj, MoE down,
+  ``_ROW``): last dim on the data axes, second-to-last on "model";
+* ``unembed`` only on "model" (its vocab dim); embeddings and the conv
+  weights' channels on "model"; the MoE router, norms, scalars and small
+  tables replicated; a bias follows its weight's last dim;
+* without ``fsdp`` every data-axis entry is dropped (TP-only weights);
+* batch dims of inputs and caches over ("pod", "data"), and a batch of 1
+  (long-context decode) shards a KV cache's sequence axis instead.
+
+``param_specs`` reads the leaf paths of a meta-device tree
+(``launch.steps.param_shapes``): the same paths as the reference's
+``jax.eval_shape`` tree, so the specs agree leaf for leaf.  The port
+executes the data axes only (``launch.fsdp`` cuts and gathers over
+them); a "model" axis is reckoned by the dry-run (``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -26,6 +44,16 @@ from repro_torch.core.param_store import DenseStore, QuantizedStore
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models.dit import stacked_param_logical_axes
 from repro_torch.tree import tree_leaves, tree_map
+
+
+# Leaf-name → trailing-dims rule (the reference's sets).
+_COL = {"wq", "wk", "wv", "w_gate", "w_up", "w1", "in_proj", "vision_proj",
+        "text_proj", "mlp1", "mlp2", "out", "mod", "cls_head"}
+_ROW = {"wo", "w_down", "w2", "out_proj"}
+# The unembedding shards only its vocab dim over "model": its d_model
+# (contraction) dim on the data axes would collide with the batch there.
+_COL_TP_ONLY = {"unembed"}
+_OTHER_OWNERS = ("emb", "router", "conv_w", "table", "block_embed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +86,160 @@ def sanitize_spec(spec: tuple, shape: tuple, mesh) -> tuple:
             axis = None
         out.append(axis)
     return tuple(out) + (None,) * (len(shape) - len(out))
+
+
+def _path_names(path) -> list[str]:
+    """A leaf's path (dict keys and list indices) as strings."""
+    return [str(k) for k in path]
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of dicts and lists, the path the
+    tuple of keys and indices down to the leaf; the same structure back
+    (a leaf's result may be a tuple: a spec)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in
+                tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _pad(spec: tuple, ndim: int, trailing: int) -> tuple:
+    return (None,) * (ndim - trailing) + tuple(spec)
+
+
+def _rule_for(names: list[str], ndim: int, dp) -> tuple:
+    """Trailing-dim partition rule of the leaf ``names`` points at (its
+    nearest named owner); leading (stacked-layer) dims stay ``None``."""
+    dpa = dp if len(dp) > 1 else dp[0]
+    owner = None
+    for n in reversed(names):
+        if n in _COL or n in _ROW or n in _COL_TP_ONLY or n in _OTHER_OWNERS:
+            owner = n
+            break
+    if ndim <= 1:
+        return ()
+    if owner in ("emb", "conv_w"):
+        # embedding and position tables (V, D), conv weights (K, C): the
+        # feature dim
+        return _pad(("model",), ndim, trailing=1)
+    if owner in ("table", "router", "block_embed"):
+        return (None,) * ndim
+    if owner in _COL_TP_ONLY:
+        return _pad((None, "model"), ndim, trailing=2)
+    if owner in _COL:
+        return _pad((dpa, "model"), ndim, trailing=2)
+    if owner in _ROW:
+        return _pad(("model", dpa), ndim, trailing=2)
+    # biases, norms, A_log, dt_bias, D, unknowns: replicated
+    return (None,) * ndim
+
+
+def param_specs(params_shape: Any, mesh, *, fsdp: bool = False) -> Any:
+    """A spec per leaf of a parameter tree (meta tensors will do), in its
+    structure.
+
+    ``fsdp=False``: TP-only weight sharding with pure data parallelism.
+    ``fsdp=True``: the weight matrices also shard over the data axes; the
+    model then runs under ``launch.fsdp``'s gather-before-use policy.
+    """
+    dp = data_axes(mesh)
+    drop = set(dp)
+
+    def leaf(path, x):
+        names = _path_names(path)
+        if names[-1] == "b":
+            # a bias follows its weight's last-dim sharding
+            w_spec = _rule_for(names[:-1] + ["w"], 2, dp)
+            spec = (w_spec[-1] if w_spec else None,)
+        elif names[-1] == "w":
+            spec = _rule_for(names[:-1], x.dim(), dp)
+        else:
+            spec = _rule_for(names, x.dim(), dp)
+        if not fsdp:
+            spec = tuple(None if (isinstance(a, tuple) or a in drop) else a
+                         for a in spec)
+        return sanitize_spec(spec, tuple(x.shape), mesh)
+
+    return _map_with_path(leaf, params_shape)
+
+
+def param_shardings(params_shape: Any, mesh, *, fsdp: bool = False) -> Any:
+    return to_shardings(mesh, param_specs(params_shape, mesh, fsdp=fsdp))
+
+
+def _data_spec(mesh) -> tuple[Any, int]:
+    """The data axes as one spec entry, and their size."""
+    dp = data_axes(mesh)
+    return (dp if len(dp) > 1 else dp[0]), _axis_size(mesh, dp)
+
+
+def batch_specs(cfg, mesh, batch: dict) -> dict:
+    """A batch dict's specs: the leading (batch) dim over the data axes
+    where their size divides it, else replicated."""
+    del cfg
+    dpa, ndev = _data_spec(mesh)
+
+    def leaf(_, x):
+        if x.shape[0] % ndev == 0:
+            return (dpa,) + (None,) * (x.dim() - 1)
+        return (None,) * x.dim()
+
+    return _map_with_path(leaf, batch)
+
+
+def _first_divisible(shape, dims: list[int], mesh, axis) -> int | None:
+    """The first of ``dims`` (by priority) that the mesh axis divides."""
+    n = _axis_size(mesh, axis)
+    for d in dims:
+        if d < len(shape) and shape[d] % n == 0 and shape[d] >= n:
+            return d
+    return None
+
+
+def cache_specs(cfg, mesh, cache: dict, batch: int) -> dict:
+    """A decode cache's specs.  The batch dim shards over the data axes
+    where their size divides ``batch``; otherwise (long_500k, batch 1) a
+    KV cache's sequence axis does (sequence-parallel attention over the
+    cache).  "model" takes the kv heads, else the sequence, else the head
+    dim (GQA with few kv heads); an SSM state its heads, then its head
+    dim, then its state dim; a conv tail its channels."""
+    del cfg
+    dpa, ndev = _data_spec(mesh)
+    batch_ok = batch % ndev == 0
+
+    def spec_for(name, x):
+        parts: list = [None] * x.dim()
+        if name in ("k", "v", "cross_k", "cross_v"):  # (L|G, B, S, H, hd)
+            if batch_ok:
+                parts[1] = dpa
+            elif x.shape[2] % _axis_size(mesh, dpa) == 0:
+                parts[2] = dpa
+            prio = [3] + ([2] if parts[2] is None else []) + [4]
+            d = _first_divisible(x.shape, prio, mesh, "model")
+            if d is not None:
+                parts[d] = "model"
+        elif name == "pos":                      # (B, S)
+            if batch_ok:
+                parts[0] = dpa
+            elif x.shape[1] % _axis_size(mesh, dpa) == 0:
+                parts[1] = dpa
+        elif name == "ssm":                      # (L, B, H, P, N)
+            if batch_ok:
+                parts[1] = dpa
+            d = _first_divisible(x.shape, [2, 3, 4], mesh, "model")
+            if d is not None:
+                parts[d] = "model"
+        elif name == "conv":                     # (L, B, K-1, C)
+            if batch_ok:
+                parts[1] = dpa
+            if x.shape[3] % _axis_size(mesh, "model") == 0:
+                parts[3] = "model"
+        return sanitize_spec(tuple(parts), tuple(x.shape), mesh)
+
+    return {k: spec_for(k, v) for k, v in cache.items()}
 
 
 def _map_store(fn, store, other):

@@ -20,6 +20,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.shapes import InputShape
+from repro_torch.launch import fsdp
 from repro_torch.models import zoo
 from repro_torch.models.config import LMConfig
 from repro_torch.models.frontend_stubs import audio_spec, vision_spec
@@ -84,25 +85,24 @@ def opt_shapes(cfg: LMConfig) -> Any:
     return adamw_init(param_shapes(cfg))
 
 
-def make_train_step(cfg: LMConfig, opt: AdamWConfig | None = None,
-                    *, microbatches: int = 1):
-    """Full optimizer step: ``train_step(params, opt_state, batch) ->
-    (params, opt_state, loss)``.
+def make_grad_step(cfg: LMConfig, *, microbatches: int = 1):
+    """The loss and gradients of a batch: ``grad_step(params, batch) ->
+    (loss, grads)`` (``make_train_step``'s first half).
 
-    ``microbatches > 1`` runs gradient accumulation: the global batch is
-    split along its leading axis and the microbatches run one after
-    another, their float32 gradients and losses summed, then scaled by
+    ``microbatches > 1`` runs gradient accumulation: the batch is split
+    along its leading axis and the microbatches run one after another,
+    their float32 gradients and losses summed, then scaled by
     ``1/microbatches``; peak activation memory scales with the microbatch.
-    The AdamW update runs in place (``adamw_update_``): the step consumes
-    ``params`` and ``opt_state``, as the trainer's LM step does.
+    Under an installed FSDP policy (``launch.fsdp``) ``params`` and
+    ``batch`` are this rank's cuts and block, and the loss and gradients
+    come back as the global batch's (``fsdp.mean_loss``,
+    ``fsdp.sync_gradients``; each rank's cut of the cut leaves).
     """
-    opt = opt or AdamWConfig()
-
     def grad_fn(params, batch):
         return value_and_grad(lambda p: zoo.loss_fn(cfg, p, batch), params,
                               has_aux=True)
 
-    def train_step(params, opt_state, batch):
+    def grad_step(params, batch):
         if microbatches == 1:
             (loss, _), grads = grad_fn(params, batch)
         else:
@@ -120,7 +120,34 @@ def make_train_step(cfg: LMConfig, opt: AdamWConfig | None = None,
             inv = 1.0 / microbatches
             grads = tree_map(lambda g: g * inv, grads)
             loss = loss * inv
-        params, opt_state, _ = adamw_update_(opt, grads, opt_state, params)
+        return fsdp.mean_loss(loss), fsdp.sync_gradients(grads)
+
+    return grad_step
+
+
+def apply_update(opt: AdamWConfig, grads, opt_state, params):
+    """AdamW in place (``adamw_update_``; ``make_train_step``'s second
+    half), its global norm over every rank's cut under an FSDP policy.
+    Returns ``(params, opt_state, metrics)`` (``grad_norm``, ``lr``)."""
+    return adamw_update_(opt, grads, opt_state, params)
+
+
+def make_train_step(cfg: LMConfig, opt: AdamWConfig | None = None,
+                    *, microbatches: int = 1):
+    """Full optimizer step: ``train_step(params, opt_state, batch) ->
+    (params, opt_state, loss)``: ``make_grad_step``, then
+    ``apply_update``.  The AdamW update runs in place: the step consumes
+    ``params`` and ``opt_state``, as the trainer's LM step does.  Under
+    an FSDP policy a rank passes its cuts (``fsdp.shard_params`` of the
+    parameters and of ``adamw_init``'s moments) and its batch block, and
+    gets the global batch's loss.
+    """
+    opt = opt or AdamWConfig()
+    grad_step = make_grad_step(cfg, microbatches=microbatches)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grad_step(params, batch)
+        params, opt_state, _ = apply_update(opt, grads, opt_state, params)
         return params, opt_state, loss
 
     return train_step

@@ -78,6 +78,10 @@ class LMConfig:
     activation_dtype: Any = torch.float32
     remat: bool = False                   # recompute each layer's forward
     aux_loss_weight: float = 0.01         # the MoE load-balance loss weight
+    #: shard the block weights over the data axis too (FSDP: each rank
+    #: holds its cut, ``launch.fsdp`` gathers a layer right before use);
+    #: the configs whose training state does not fit one card set it
+    fsdp_params: bool = False
     source: str = ""                      # citation for the config
 
     @property

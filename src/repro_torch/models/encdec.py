@@ -28,9 +28,11 @@ The cache is the reference's: ``prefill`` returns a self-attention cache
 as long as the prompt and every layer's cross-attention keys and values
 of the encoder output; under ``decode_window`` ``decode_step`` writes
 slot ``pos % W`` of that cache, so decoding past the prompt attends a
-ring of the prompt's length (ROADMAP.md, C).  The reference's
-``maybe_unshard`` (an FSDP gather) is the identity on one device and is
-left out.
+ring of the prompt's length (ROADMAP.md, C).  Each layer's slice goes
+through ``launch.fsdp.maybe_unshard`` (``enc_blocks``, ``dec_blocks``)
+right before use, inside the checkpointed function under remat: the
+identity unless an FSDP policy is installed, which then gathers the
+layer's cut weights over the data ranks.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.launch.fsdp import maybe_unshard
 from repro_torch.models import layers as L
 from repro_torch.models.config import LMConfig
 from repro_torch.models.transformer import (_check_attention, cross_entropy,
@@ -129,6 +132,7 @@ def _dec_positions(params: dict, positions: torch.Tensor) -> torch.Tensor:
 
 
 def _enc_block(cfg: LMConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    p = maybe_unshard(p, "enc_blocks")
     b, s = h.shape[:2]
     hn = L.layernorm(p["ln_attn"], h, cfg.norm_eps)
     q, k, v = L.gqa_project(p["attn"], hn, cfg.num_heads, cfg.num_kv_heads,
@@ -198,7 +202,7 @@ def _dec_block(cfg: LMConfig, p: dict, h: torch.Tensor,
 
 
 def _dec_residual(cfg: LMConfig, p: dict, h, memory):
-    return _dec_block(cfg, p, h, memory)[0]
+    return _dec_block(cfg, maybe_unshard(p, "dec_blocks"), h, memory)[0]
 
 
 def _embed_tokens(cfg: LMConfig, params, tokens) -> torch.Tensor:
@@ -263,7 +267,8 @@ def prefill(cfg: LMConfig, params, tokens, *, audio_embeds):
     h = _embed_tokens(cfg, params, tokens)
     ks, vs, kcs, vcs = [], [], [], []
     for p in tree_unstack(params["dec_blocks"]):
-        h, (k, v), (kc, vc) = _dec_block(cfg, p, h, memory)
+        h, (k, v), (kc, vc) = _dec_block(cfg, maybe_unshard(p, "dec_blocks"),
+                                         h, memory)
         ks.append(k)
         vs.append(v)
         kcs.append(kc)
@@ -296,6 +301,7 @@ def decode_step(cfg: LMConfig, params, cache: dict, token, pos):
     bidx = torch.arange(b, device=h.device)
     ks, vs = cache["k"].clone(), cache["v"].clone()
     for i, p in enumerate(tree_unstack(params["dec_blocks"])):
+        p = maybe_unshard(p, "dec_blocks")
         hn = L.layernorm(p["ln_self"], h, cfg.norm_eps)
         q, k, v = L.gqa_project(p["self_attn"], hn, cfg.num_heads,
                                 cfg.num_kv_heads, hd)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.fsdp import maybe_unshard
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
@@ -124,7 +125,7 @@ def prefill(cfg: LMConfig, params, tokens):
     convs, states, ks, vs = [], [], [], []
     for group in _groups(cfg, params):
         for bp in group:
-            h, (conv, state) = M.block_apply(cfg, bp, h)
+            h, (conv, state) = M.block_apply(cfg, maybe_unshard(bp), h)
             convs.append(conv)
             states.append(state)
         h, (k, v), _ = T.block_apply(cfg, params["shared_attn"], h,
@@ -152,6 +153,7 @@ def decode_step(cfg: LMConfig, params, cache: dict, token, pos):
     i = 0
     for g, group in enumerate(_groups(cfg, params)):
         for bp in group:
+            bp = maybe_unshard(bp)
             y, (conv, state) = M.mixer_apply(
                 cfg, bp["mixer"], L.rmsnorm(bp["ln"], h, cfg.norm_eps),
                 conv_state=cache["conv"][i], ssm_state=cache["ssm"][i],

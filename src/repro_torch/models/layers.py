@@ -28,6 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import fsdp
+
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     y = x @ params["w"].to(x.dtype)
@@ -291,13 +293,14 @@ def moe_route(params: dict, xf: torch.Tensor, k: int):
     to 1 (by ``max(sum, 1e-9)``), and the Switch load-balance loss
     ``E · Σ_e f_e p_e`` (``f`` the share of tokens whose top-1 expert is
     ``e``, ``p`` the mean router probability): ``(topw, tope, probs,
-    aux)``."""
+    aux)``.  Under an FSDP policy ``f`` and ``p`` are the means over the
+    data ranks' tokens (``fsdp.data_mean``), the global batch's."""
     probs = torch.softmax(dense(params["router"], xf.to(torch.float32)), -1)
     topw, tope = torch.topk(probs, k, dim=-1)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     e = probs.shape[-1]
-    f = F.one_hot(tope[:, 0], e).to(torch.float32).mean(0)
-    aux = e * torch.sum(f * probs.mean(0))
+    f = fsdp.data_mean(F.one_hot(tope[:, 0], e).to(torch.float32).mean(0))
+    aux = e * torch.sum(f * fsdp.data_mean(probs.mean(0)))
     return topw, tope, probs, aux
 
 
@@ -429,6 +432,11 @@ def moe_apply(params: dict, x: torch.Tensor, *, num_experts_per_tok: int = 2,
                 y = y + yo * we[:, None]
         return y.reshape(b, s, d), aux
 
+    if fsdp.data_size() > 1:
+        raise NotImplementedError(
+            f"moe_impl {impl!r}: the capacity dispatch's capacity is per "
+            f"batch, and a data rank's block of the batch would drop other "
+            f"tokens than the global batch does (ROADMAP A.19)")
     cap = moe_capacity(t, k, e, capacity_factor)
     slot, keep = moe_dispatch(tope, e, cap)
     for rec in MoERecorder.active:

@@ -33,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.launch.fsdp import maybe_unshard
 from repro_torch.models import layers as L
 from repro_torch.models.config import LMConfig
 from repro_torch.models.transformer import cross_entropy
@@ -275,7 +276,8 @@ def block_apply(cfg: LMConfig, bp: dict, h):
 
 
 def residual(cfg: LMConfig, bp: dict, h):
-    return block_apply(cfg, bp, h)[0]
+    # the FSDP gather inside the checkpointed function (see forward_train)
+    return block_apply(cfg, maybe_unshard(bp), h)[0]
 
 
 def _layers(cfg: LMConfig, params, tokens):
@@ -284,7 +286,7 @@ def _layers(cfg: LMConfig, params, tokens):
     after each layer (a caller that keeps no cache holds one layer's)."""
     h = L.embed(params["embed"], tokens, cfg.activation_dtype)
     for bp in tree_unstack(params["blocks"]):
-        h, cache = block_apply(cfg, bp, h)
+        h, cache = block_apply(cfg, maybe_unshard(bp), h)
         yield h, cache
 
 
@@ -347,6 +349,7 @@ def decode_step(cfg: LMConfig, params, cache: dict, token, pos):
     h = L.embed(params["embed"], token, cfg.activation_dtype)
     convs, states = [], []
     for i, bp in enumerate(tree_unstack(params["blocks"])):
+        bp = maybe_unshard(bp)
         y, (conv_tail, state) = mixer_apply(
             cfg, bp["mixer"], L.rmsnorm(bp["ln"], h, cfg.norm_eps),
             conv_state=cache["conv"][i], ssm_state=cache["ssm"][i],

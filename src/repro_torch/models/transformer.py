@@ -37,6 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.launch.fsdp import maybe_unshard
 from repro_torch.models import layers as L
 from repro_torch.models.config import LMConfig
 from repro_torch.tree import tree_leaves, tree_stack_layers, tree_unstack
@@ -223,6 +224,9 @@ def _embed_inputs(cfg: LMConfig, params, tokens, vision_embeds):
 
 
 def _residual(cfg: LMConfig, p: dict, h, positions, prefix_len: int):
+    # the FSDP gather inside the checkpointed function: the backward
+    # gathers the layer again, none is kept across the step
+    p = maybe_unshard(p)
     h, _, aux = block_apply(cfg, p, h, positions, prefix_len)
     return h, aux
 
@@ -288,7 +292,8 @@ def prefill(cfg: LMConfig, params, tokens, *, vision_embeds=None):
     positions = torch.arange(s, device=h.device)
     ks, vs = [], []
     for bp in tree_unstack(params["blocks"]):
-        h, (k, v), _ = block_apply(cfg, bp, h, positions, prefix)
+        h, (k, v), _ = block_apply(cfg, maybe_unshard(bp), h, positions,
+                                   prefix)
         ks.append(k)
         vs.append(v)
     hl = L.rmsnorm(params["ln_final"], h[:, -1:], cfg.norm_eps)
@@ -307,8 +312,8 @@ def decode_step(cfg: LMConfig, params, cache: dict, token, pos):
     window = cfg.decode_window or cfg.sliding_window
     ks, vs = cache["k"].clone(), cache["v"].clone()
     for i, bp in enumerate(tree_unstack(params["blocks"])):
-        h = block_decode(cfg, bp, h, pos, ks[i], vs[i], slot, new_pos,
-                         window)
+        h = block_decode(cfg, maybe_unshard(bp), h, pos, ks[i], vs[i], slot,
+                         new_pos, window)
     h = L.rmsnorm(params["ln_final"], h, cfg.norm_eps)
     logits = L.dense(params["unembed"], h)[:, 0]
     return logits, {"k": ks, "v": vs, "pos": new_pos}

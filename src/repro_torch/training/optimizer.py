@@ -22,6 +22,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.launch import fsdp
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -175,9 +176,13 @@ def adamw_update_(cfg: AdamWConfig, grads: PyTree, state: AdamWState,
     ``adamw_update`` holds a second set of moments and whole-leaf float32
     temporaries.  Consumes its inputs (as a jitted step with donated
     buffers does) and returns ``(params, new state, metrics)``, the same
-    parameter and moment tensors in a state with the next step count."""
+    parameter and moment tensors in a state with the next step count.
+    Under an FSDP policy (``launch.fsdp``) the leaves are this rank's
+    cuts, and the global norm sums each cut leaf's squares over the data
+    ranks (``fsdp.square_sums``, the identity where none is installed)."""
     leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(_square_sum(g) for g in leaves))
+    sums = fsdp.square_sums([_square_sum(g) for g in leaves])
+    gnorm = torch.sqrt(sum(sums))
     scale = _clip_scale(gnorm, cfg.clip_norm) if cfg.clip_norm else None
     step = state.step + 1
     lr = lr_schedule(cfg, step)
